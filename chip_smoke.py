@@ -17,13 +17,31 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      frames per dispatch, AGC stride 16, display spectra every 6th dispatch),
      timed with CUDA events, with its K1 launch count and a tone-SNR check of
      the demodulated audio;
-  5. K1 against its plain version, timed with CUDA events.
-The line before the last is the per-kernel JSON summary; the last line is
-{"ok": true, "device": {...}}.  No JAX is imported.
+  5. K1 against its plain version, timed with CUDA events;
+  6. K1 in its WFM form (factor-8 plan, FM discriminator, y-tail windows)
+     against its plain version at the WFM headline shape (64 channels, 32
+     blocks of 32768 frames), over two streaming calls;
+  7. the stereo tail kernel (K2) against its plain version at the WFM
+     headline shape (composite [131072 x 64]), over two streaming calls;
+  8. the WFM-stereo receiver on the card against the same receiver on the
+     CPU (4 channels, 8192-frame blocks, dispatches of 3 then 9 blocks);
+  9. the headline WFM-stereo receiver (bench.py's wfm row: 64 channels, 32
+     blocks of 32768 frames per dispatch, spectra every 6th dispatch), timed
+     like phase 4, with its K1 and K2 launch counts, pilot lock and the
+     L-channel tone SNR;
+ 10. stereo separation of an L-only 700 Hz program (bench.py:318-341) on
+     the card;
+ 11. K1 (WFM form) and K2 against their plain versions, timed with CUDA
+     events.
+Each receiver phase sets every kernel's launch count to 0 just before it
+drives the receiver and reads the counts just after.  The line before the
+last is the per-kernel JSON summary; the last line is {"ok": true,
+"device": {...}}.  No JAX is imported.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import subprocess
 import sys
@@ -39,7 +57,10 @@ WINDOWS = 3
 WINDOW_DISPATCHES = 10
 FRONT_RTOL = 3e-5        # K1 vs plain: relative max error (TPU kernel's bound)
 SLICE = dict(channels=4, frames=8192, dispatches=(3, 9))
-TONE_SNR_DB = 40.0       # AM 1 kHz tone, m = 0.8, band above 100 Hz
+TONE_SNR_DB = 40.0       # 1 kHz tone (AM m = 0.8; WFM L), band above 100 Hz
+DISC_ATOL = 1e-4         # K1's discriminator vs plain (tests/test_pallas.py:286)
+SEPARATION_DB = 30.0     # WFM stereo separation (the JAX package: 34.6 dB)
+KERNELS = ("front", "wfm_tail")
 
 
 def log(msg: str) -> None:
@@ -50,6 +71,32 @@ def rel_err(got, ref) -> float:
     got = got.detach().double().cpu()
     ref = ref.detach().double().cpu()
     return float((got - ref).abs().max() / max(float(ref.abs().max()), 1e-30))
+
+
+def wfm_plane(channels: int, n_rows: int, rng, noise: float = 0.0,
+              program: str = "mono"):
+    """[n_rows, 2C] float32 packed plane: broadcast FM at 250 kHz on every
+    channel.  "mono": bench.py's wfm signal (1 kHz on L and R, pilot);
+    "left": the L-only 700 Hz program of bench.py's quality row."""
+    t = np.arange(n_rows) / FS
+    th = 2 * np.pi * 19000.0 * t
+    if program == "mono":
+        comp = 0.45 * np.sin(2 * np.pi * 1000.0 * t) + 0.1 * np.sin(th)
+    else:
+        lt = np.sin(2 * np.pi * 700.0 * t)
+        comp = 0.45 * lt + 0.1 * np.sin(th) + 0.45 * lt * np.sin(2 * th)
+    ph = 2 * np.pi * np.cumsum(75000.0 * comp) / FS
+    iq = 0.5 * np.exp(1j * (2 * np.pi * 250_000.0 * t + ph))
+    plane = np.concatenate([np.repeat(iq.real[:, None], channels, 1),
+                            np.repeat(iq.imag[:, None], channels, 1)], axis=1)
+    if noise:
+        plane = plane + noise * rng.standard_normal(plane.shape)
+    return plane.astype(np.float32)
+
+
+def reset_launches(front, wfm_tail) -> None:
+    front.fused_front.launches = 0
+    wfm_tail.wfm_tail.launches = 0
 
 
 def am_plane(channels: int, n_rows: int, rng, noise: float = 0.0):
@@ -137,23 +184,31 @@ def phase_front(torch, front, decimator) -> dict:
     return {"plan": plan, "f_hi": f_hi, "f_lo": f_lo, "max_abs_err": max_abs}
 
 
-def phase_slice(torch, receiver, convert) -> None:
-    """Phase 3: the AM receiver on the card vs on the CPU."""
+def phase_slice(torch, receiver, convert, front, wfm_tail, mode) -> None:
+    """Phases 3 (AM) and 8 (FMS): the receiver on the card vs on the CPU."""
+    wfm = mode.name == "FMS"
+    tag = "phase8 WFM slice" if wfm else "phase3 slice"
     c, n = SLICE["channels"], SLICE["frames"]
     cfg = receiver.ReceiverConfig(sample_rate=FS, frames_per_buffer=n,
-                                  channels=c, agc_stride=16)
+                                  channels=c, mode=mode, agc_stride=16)
     rx_cpu = receiver.Receiver(cfg, "cpu")
     rx_gpu = receiver.Receiver(cfg, "cuda")
-    rng = np.random.default_rng(2)
+    rng = np.random.default_rng(5 if wfm else 2)
     params_c = rx_cpu.default_params(250_000.0)
     params_g = rx_gpu.default_params(250_000.0)
+
+    def plane(rows):
+        return (wfm_plane(c, rows, rng, 1e-2, program="left") if wfm
+                else am_plane(c, rows, rng, 1e-2))
+
     # a one-block warm-up on the CPU, carried to both, so no compared
     # dispatch starts from the zero state's filter leading edge
     st_c, _ = rx_cpu.step_many(rx_cpu.init_state(), params_c,
-                               torch.from_numpy(am_plane(c, n, rng, 1e-2)))
+                               torch.from_numpy(plane(n)))
     st_g = convert.state_from_numpy(rx_gpu, convert.state_to_numpy(st_c))
+    reset_launches(front, wfm_tail)
     for k in SLICE["dispatches"]:
-        x = am_plane(c, k * n, rng, 1e-2)
+        x = plane(k * n)
         st_c, out_c = rx_cpu.step_many(st_c, params_c, torch.from_numpy(x))
         st_g, out_g = rx_gpu.step_many(st_g, params_g,
                                        torch.from_numpy(x).cuda())
@@ -163,34 +218,38 @@ def phase_slice(torch, receiver, convert) -> None:
                 for key in ("spectrum", "zoomed")}
         d_db["snr"] = float((out_g["smeter"]["snr_db"].cpu()
                              - out_c["smeter"]["snr_db"]).abs().max())
-        same_sq = bool((out_g["squelch_open"].cpu()
-                        == out_c["squelch_open"]).all())
+        same = {key: bool((out_g[key].cpu() == out_c[key]).all())
+                for key in ("squelch_open", "pilot_locked") if key in out_c}
         d_state = max(float(np.abs(a.astype(np.complex128)
                                    - b.astype(np.complex128)).max())
                       for a, b in zip(convert.state_to_numpy(st_g),
-                                      convert.state_to_numpy(st_c)))
-        log(f"phase3 slice K={k}: audio {d_audio:.3g} (<= 2e-4), dB "
+                                      convert.state_to_numpy(st_c)) if a.size)
+        log(f"{tag} K={k}: audio {d_audio:.3g} (<= 2e-4), dB "
             + " ".join(f"{kk}={v:.3g}" for kk, v in d_db.items())
-            + f" (<= 0.1), squelch equal {same_sq}, state {d_state:.3g} "
-            f"(<= 1e-4)")
-        if not (d_audio <= 2e-4 and max(d_db.values()) <= 0.1 and same_sq
-                and d_state <= 1e-4):
-            raise RuntimeError(f"card slice disagrees with the CPU slice at "
-                               f"K={k}")
-    log("phase3 ok: card slice == CPU slice")
+            + f" (<= 0.1), equal {same}, state {d_state:.3g} (<= 1e-4)")
+        if not (d_audio <= 2e-4 and max(d_db.values()) <= 0.1
+                and all(same.values()) and d_state <= 1e-4):
+            raise RuntimeError(f"{tag}: card disagrees with the CPU at K={k}")
+    launches = (front.fused_front.launches, wfm_tail.wfm_tail.launches)
+    if launches != (2, 2 if wfm else 0):
+        raise RuntimeError(f"{tag}: launches (K1, K2) = {launches}")
+    log(f"{tag.split()[0]} ok: card slice == CPU slice")
 
 
-def phase_headline(torch, receiver, front) -> dict:
-    """Phase 4: the headline AM run, timed, with launch count and audio."""
+def phase_headline(torch, receiver, front, wfm_tail, mode) -> dict:
+    """Phases 4 (AM) and 9 (FMS): the headline run, timed, with its launch
+    counts and a check of the audio."""
+    wfm = mode.name == "FMS"
+    tag = "phase9" if wfm else "phase4"
     c, n, k = HEADLINE["channels"], HEADLINE["frames"], HEADLINE["blocks"]
     cfg = receiver.ReceiverConfig(sample_rate=FS, frames_per_buffer=n,
-                                  channels=c, agc_stride=HEADLINE["agc_stride"])
+                                  channels=c, mode=mode,
+                                  agc_stride=HEADLINE["agc_stride"])
     rx = receiver.Receiver(cfg, "cuda")
     params = rx.default_params(250_000.0)
-    block = torch.from_numpy(am_plane(c, n, None)).cuda()
-    iq = block.repeat(k, 1).contiguous()                  # [K*N, 2C]
-    state = rx.init_state()
-    box = {"state": state, "out": None, "i": 0}
+    block = torch.from_numpy((wfm_plane if wfm else am_plane)(c, n, None))
+    iq = block.cuda().repeat(k, 1).contiguous()          # [K*N, 2C]
+    box = {"state": rx.init_state(), "out": None, "i": 0}
 
     def dispatch():
         i = box["i"]
@@ -198,44 +257,60 @@ def phase_headline(torch, receiver, front) -> dict:
             box["state"], params, iq, spectra=(i % SPECTRA_EVERY == 0))
         box["i"] = i + 1
 
-    front.fused_front.launches = 0
+    reset_launches(front, wfm_tail)
     for _ in range(WARMUP):
         dispatch()
     torch.cuda.synchronize()
     windows = [time_cuda(torch, dispatch, WINDOW_DISPATCHES)
                for _ in range(WINDOWS)]
     torch.cuda.synchronize()
-    launches = front.fused_front.launches
+    launches = (front.fused_front.launches, wfm_tail.wfm_tail.launches)
     n_dispatch = WARMUP + WINDOWS * WINDOW_DISPATCHES
-    log(f"phase4 K1 launches {launches} for {n_dispatch} dispatches")
-    if launches != n_dispatch:
-        raise RuntimeError("the headline run did not go through K1 once per "
-                           "dispatch")
+    log(f"{tag} K1 launches {launches[0]}, K2 launches {launches[1]} for "
+        f"{n_dispatch} dispatches")
+    if launches != (n_dispatch, n_dispatch if wfm else 0):
+        raise RuntimeError(f"{tag}: the headline did not go through its "
+                           f"kernels once per dispatch")
     best = min(windows)                                   # ms per dispatch
     block_ms = best / k
     msps = c * n * k / (best / 1e3) / 1e6
     realtime = n * k / (best / 1e3) / FS
-    spread = max(windows) / best
-    log(f"phase4 headline AM {c}ch x {n} x {k}: dispatch ms per window "
-        + " ".join(f"{w:.4f}" for w in windows)
+    log(f"{tag} headline {mode.name} {c}ch x {n} x {k}: dispatch ms per "
+        f"window " + " ".join(f"{w:.4f}" for w in windows)
         + f"; block {block_ms:.5f} ms, {msps:.1f} Msps per GPU, "
-        f"{realtime:.1f}x realtime per channel, window spread {spread:.3f}")
+        f"{realtime:.1f}x realtime per channel, window spread "
+        f"{max(windows) / best:.3f}")
 
     out = box["out"]
     audio = out["audio"]
+    # WFM: left and right, 64 kHz blocks of n/32 resampled to 48 kHz
+    shape = (k, c, 2, n * 3 // 128) if wfm else (k, c, rx.audio_blk)
     if not bool(torch.isfinite(audio).all()):
-        raise RuntimeError("headline audio is not finite")
-    if tuple(audio.shape) != (k, c, rx.audio_blk):
-        raise RuntimeError(f"headline audio shape {tuple(audio.shape)}")
+        raise RuntimeError(f"{tag}: headline audio is not finite")
+    if tuple(audio.shape) != shape:
+        raise RuntimeError(f"{tag}: headline audio shape {tuple(audio.shape)}")
     if not bool(out["squelch_open"].all()):
-        raise RuntimeError("squelch closed on the headline signal")
-    snr = tone_snr_db(audio[:, 0, :].reshape(-1).double().cpu().numpy(),
-                      cfg.audio_rate)
-    log(f"phase4 tone SNR {snr:.2f} dB (>= {TONE_SNR_DB}), S-meter SNR "
+        raise RuntimeError(f"{tag}: squelch closed on the headline signal")
+    if wfm and not bool(out["pilot_locked"].all()):
+        raise RuntimeError(f"{tag}: pilot not locked on the headline signal")
+    tone = audio[:, 0, 0, :] if wfm else audio[:, 0, :]  # WFM: the L channel
+    snr = tone_snr_db(tone.reshape(-1).double().cpu().numpy(), cfg.audio_rate)
+    log(f"{tag} tone SNR {snr:.2f} dB (>= {TONE_SNR_DB}), S-meter SNR "
         f"{float(out['smeter']['snr_db'][-1, 0]):.2f} dB")
     if not snr >= TONE_SNR_DB:
-        raise RuntimeError("headline tone SNR below its bound")
+        raise RuntimeError(f"{tag}: headline tone SNR below its bound")
     return {"launches": launches, "block_ms": block_ms, "msps": msps}
+
+
+def time_pair(torch, kernel, plain, reps: int = 10):
+    """(kernel ms, plain ms, runs) in the order plain, kernel, kernel, plain."""
+    kernel(), plain()
+    torch.cuda.synchronize()
+    t = {"plain": [], "kernel": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        t[name].append(time_cuda(torch, kernel if name == "kernel" else plain,
+                                 reps))
+    return float(np.mean(t["kernel"])), float(np.mean(t["plain"])), t
 
 
 def phase_front_time(torch, front, fr) -> dict:
@@ -246,23 +321,165 @@ def phase_front_time(torch, front, fr) -> dict:
     zeros = dict(dtype=torch.float32, device="cuda")
     args = (x, torch.zeros(1, 2 * c, **zeros), torch.zeros(c, **zeros),
             fr["f_hi"], fr["f_lo"], torch.zeros(plan.d_rows, 2 * c, **zeros))
-
-    def kernel():
-        front.fused_front(plan, *args, n_block=n, raw_rows=2048)
-
-    def plain():
-        front.fused_front_reference(plan, *args, n_block=n, raw_rows=2048)
-
-    kernel(), plain()
-    torch.cuda.synchronize()
-    t = {"plain": [], "kernel": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        t[name].append(time_cuda(torch, kernel if name == "kernel" else plain,
-                                 10))
-    ms, plain_ms = float(np.mean(t["kernel"])), float(np.mean(t["plain"]))
+    ms, plain_ms, t = time_pair(
+        torch, lambda: front.fused_front(plan, *args, n_block=n, raw_rows=2048),
+        lambda: front.fused_front_reference(plan, *args, n_block=n,
+                                            raw_rows=2048))
     log(f"phase5 K1 {ms:.4f} ms vs plain {plain_ms:.4f} ms per headline "
         f"dispatch (runs kernel {t['kernel']}, plain {t['plain']})")
     return {"ms": ms, "plain_ms": plain_ms}
+
+
+def phase_front_wfm(torch, front, decimator) -> dict:
+    """Phase 6: K1 in its WFM form vs plain, WFM headline shape."""
+    from pebblesdr_tpu_torch.ops.mixer import split_freq
+    c, n, k = HEADLINE["channels"], HEADLINE["frames"], HEADLINE["blocks"]
+    plan_d = decimator.build_plan(FS, 200_000.0)
+    plan = front.FrontPlan.make(decimator.compose_response(plan_d),
+                                plan_d.factor, "cuda")
+    f_hi, f_lo = (torch.full((c,), float(v), device="cuda")
+                  for v in split_freq(250_000.0, FS))
+    gain = float(plan_d.rate_out) / (2 * np.pi * 75_000.0)
+    zt = min(n // plan.factor, 2048)             # the receiver's zoom_bins
+    rng = np.random.default_rng(3)
+    zeros = dict(dtype=torch.float32, device="cuda")
+    st_k = st_r = (torch.zeros(1, 2 * c, **zeros), torch.zeros(c, **zeros),
+                   torch.zeros(plan.d_rows, 2 * c, **zeros),
+                   torch.zeros(1, 2 * c, **zeros))
+    kw = dict(n_block=n, raw_rows=2048, disc_gain=gain, y_tail_rows=zt)
+    worst, disc_err, max_abs = 0.0, 0.0, 0.0
+    for call in range(2):
+        x = torch.from_numpy(wfm_plane(c, k * n, rng, noise=0.02)
+                             + 0.05 * (call + 1)).cuda()
+        out_k = front.fused_front(plan, x, st_k[0], st_k[1], f_hi, f_lo,
+                                  st_k[2], disc_last=st_k[3], **kw)
+        out_r = front.fused_front_reference(plan, x, st_r[0], st_r[1], f_hi,
+                                            f_lo, st_r[2], disc_last=st_r[3],
+                                            **kw)
+        torch.cuda.synchronize()
+        if tuple(out_k[0].shape) != (k, zt, 2 * c):
+            raise RuntimeError(f"K1 y-tail shape {tuple(out_k[0].shape)}")
+        names = ("y_tail", "dc", "tail", "phase", "raw", "disc", "dlast")
+        errs = {nm: rel_err(a, b) for nm, a, b in zip(names, out_k, out_r)
+                if nm != "disc"}
+        errs["phase"] = float((out_k[3] - out_r[3]).abs().max())
+        d_err = float((out_k[5] - out_r[5]).abs().max())
+        first_equal = bool(torch.equal(out_k[5][0], out_r[5][0]))
+        worst = max(worst, max(errs.values()))
+        disc_err = max(disc_err, d_err)
+        max_abs = max([max_abs] + [float((a - b).abs().max())
+                                   for a, b in zip(out_k, out_r)])
+        log(f"phase6 K1 WFM call {call}: relative max errors "
+            + " ".join(f"{kk}={v:.3g}" for kk, v in errs.items())
+            + f"; disc abs {d_err:.3g}"
+            + (f"; first disc row (zero seed) equal {first_equal}"
+               if call == 0 else ""))
+        if call == 0 and not first_equal:
+            raise RuntimeError("K1's first discriminator row (zero seed) "
+                               "differs from the plain version")
+        st_k = (out_k[1], out_k[3], out_k[2], out_k[6])
+        st_r = (out_r[1], out_r[3], out_r[2], out_r[6])
+    if not (worst <= FRONT_RTOL and disc_err <= DISC_ATOL):
+        raise RuntimeError(f"K1 (WFM) disagrees with its plain version: "
+                           f"{worst:.3g} > {FRONT_RTOL} or disc {disc_err:.3g} "
+                           f"> {DISC_ATOL}")
+    log(f"phase6 ok: K1 WFM == plain within {FRONT_RTOL} relative (worst "
+        f"{worst:.3g}), disc within {DISC_ATOL} (worst {disc_err:.3g})")
+    return {"plan": plan, "f_hi": f_hi, "f_lo": f_lo, "gain": gain, "zt": zt,
+            "max_abs_err": max_abs}
+
+
+def tail_inputs(torch, c: int, n: int, ell: int, rng):
+    """A composite-like raw plane and pilot parameters on the card."""
+    raw = rng.standard_normal((n, c)).astype(np.float32) * 0.5
+    p0 = rng.uniform(0.0, 10.0, (n // ell, c)).astype(np.float32)
+    wf = (2 * np.pi * 19000.0 / 256000.0
+          + 1e-4 * rng.standard_normal((n // ell, c))).astype(np.float32)
+    return [torch.from_numpy(v).cuda() for v in (raw, p0, wf)]
+
+
+def phase_tail(torch, wfm_mod, wfm_tail) -> dict:
+    """Phase 7: K2 vs plain at the WFM headline shape."""
+    c = HEADLINE["channels"]
+    n = HEADLINE["blocks"] * HEADLINE["frames"] // 8      # composite rows
+    cfg = wfm_mod.WFMConfig.make(256_000.0)
+    plan = wfm_tail.TailPlan.make(cfg.audio_taps, cfg.audio_decim, 256, 2048,
+                                  "cuda")
+    rng = np.random.default_rng(4)
+    hist_k = hist_r = torch.zeros(plan.d_rows, 2 * c, device="cuda")
+    worst, max_abs = 0.0, 0.0
+    for call in range(2):
+        args = tail_inputs(torch, c, n, plan.ell, rng)
+        out_k = wfm_tail.wfm_tail(plan, *args, hist_k)
+        out_r = wfm_tail.wfm_tail_reference(plan, *args, hist_r)
+        torch.cuda.synchronize()
+        errs = {nm: rel_err(a, b) for nm, a, b in
+                zip(("audio", "hist"), out_k, out_r)}
+        worst = max(worst, max(errs.values()))
+        max_abs = max(max_abs, float((out_k[0] - out_r[0]).abs().max()))
+        log(f"phase7 K2 call {call}: relative max errors "
+            + " ".join(f"{kk}={v:.3g}" for kk, v in errs.items()))
+        hist_k, hist_r = out_k[1], out_r[1]
+    if not worst <= FRONT_RTOL:
+        raise RuntimeError(f"K2 disagrees with its plain version: {worst:.3g} "
+                           f"> {FRONT_RTOL}")
+    log(f"phase7 ok: K2 == plain within {FRONT_RTOL} (worst {worst:.3g}, max "
+        f"abs audio error {max_abs:.3g})")
+    return {"plan": plan, "max_abs_err": max_abs}
+
+
+def phase_separation(torch, receiver, DemodMode) -> float:
+    """Phase 10: stereo separation (bench.py:318-341) on the card, C=1,
+    20 blocks of 32768 in two dispatches, measured on the second half."""
+    n, kb = HEADLINE["frames"], 20
+    cfg = receiver.ReceiverConfig(sample_rate=FS, frames_per_buffer=n,
+                                  channels=1, mode=DemodMode.FMS)
+    rx = receiver.Receiver(cfg, "cuda")
+    params = rx.default_params(250_000.0)
+    x = torch.from_numpy(wfm_plane(1, kb * n, None, program="left")).cuda()
+    st, outs = rx.init_state(), []
+    for i in range(2):
+        st, out = rx.step_many(st, params, x[i * 10 * n:(i + 1) * 10 * n],
+                               spectra=False)
+        outs.append(out["audio"][:, 0])                   # [K, 2, M]
+    aud = torch.cat(outs).permute(1, 0, 2).reshape(2, -1).double().cpu().numpy()
+    half = aud.shape[-1] // 2
+    t = np.arange(aud.shape[-1] - half) / cfg.audio_rate
+    basis = np.stack([np.sin(2 * np.pi * 700.0 * t),
+                      np.cos(2 * np.pi * 700.0 * t), np.ones_like(t)], 1)
+    amp = [float(np.hypot(*np.linalg.lstsq(basis, a[half:], rcond=None)[0][:2]))
+           for a in aud]
+    sep = 20 * np.log10(amp[0] / max(amp[1], 1e-12))
+    log(f"phase10 stereo separation {sep:.2f} dB (>= {SEPARATION_DB}; L "
+        f"{amp[0]:.5f}, R {amp[1]:.3g})")
+    if not sep >= SEPARATION_DB:
+        raise RuntimeError("stereo separation below its bound")
+    return sep
+
+
+def phase_wfm_time(torch, front, wfm_tail, fw, tl) -> dict:
+    """Phase 11: K1 (WFM form) and K2 vs their plain versions, headline
+    shapes."""
+    c, n, k = HEADLINE["channels"], HEADLINE["frames"], HEADLINE["blocks"]
+    plan = fw["plan"]
+    x = torch.from_numpy(wfm_plane(c, n, None)).cuda().repeat(k, 1).contiguous()
+    zeros = dict(dtype=torch.float32, device="cuda")
+    args = (x, torch.zeros(1, 2 * c, **zeros), torch.zeros(c, **zeros),
+            fw["f_hi"], fw["f_lo"], torch.zeros(plan.d_rows, 2 * c, **zeros))
+    kw = dict(n_block=n, raw_rows=2048, disc_gain=fw["gain"],
+              disc_last=torch.zeros(1, 2 * c, **zeros), y_tail_rows=fw["zt"])
+    k1 = time_pair(torch, lambda: front.fused_front(plan, *args, **kw),
+                   lambda: front.fused_front_reference(plan, *args, **kw))
+    tplan = tl["plan"]
+    targs = tail_inputs(torch, c, k * n // plan.factor, tplan.ell,
+                        np.random.default_rng(8))
+    hist = torch.zeros(tplan.d_rows, 2 * c, **zeros)
+    k2 = time_pair(torch, lambda: wfm_tail.wfm_tail(tplan, *targs, hist),
+                   lambda: wfm_tail.wfm_tail_reference(tplan, *targs, hist))
+    log(f"phase11 K1 WFM {k1[0]:.4f} ms vs plain {k1[1]:.4f} ms (runs "
+        f"{k1[2]}); K2 {k2[0]:.4f} ms vs plain {k2[1]:.4f} ms (runs {k2[2]}) "
+        f"per headline dispatch")
+    return {"k1": k1[:2], "k2": k2[:2]}
 
 
 def main() -> int:
@@ -272,9 +489,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from pebblesdr_tpu_torch.chain import receiver
+    from pebblesdr_tpu_torch.demod import wfm as wfm_mod
     from pebblesdr_tpu_torch.kernels import build
-    from pebblesdr_tpu_torch.ops import decimator, front
+    from pebblesdr_tpu_torch.ops import decimator, front, wfm_tail
     from pebblesdr_tpu_torch.utils import convert
+    DemodMode = receiver.DemodMode
 
     # phase 0
     log(f"phase0 python {sys.version.split()[0]} torch {torch.__version__} "
@@ -287,21 +506,39 @@ def main() -> int:
             torch.get_float32_matmul_precision() != "highest":
         raise RuntimeError("float32 matmuls must run in IEEE float32 (no TF32)")
 
-    # phase 1
+    # phase 1: one nvcc per source, all started together
     t0 = time.perf_counter()
-    build.build("front")
-    log(f"phase1 built front kernel in {time.perf_counter() - t0:.1f} s")
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(build.build, KERNELS))
+    log(f"phase1 built {', '.join(KERNELS)} in {time.perf_counter() - t0:.1f} "
+        f"s (" + ", ".join(f"{nm} {build.build_seconds.get(nm, 0.0):.1f} s"
+                           for nm in KERNELS) + ")")
 
     fr = phase_front(torch, front, decimator)
-    phase_slice(torch, receiver, convert)
-    head = phase_headline(torch, receiver, front)
+    phase_slice(torch, receiver, convert, front, wfm_tail, DemodMode.AM)
+    head = phase_headline(torch, receiver, front, wfm_tail, DemodMode.AM)
     times = phase_front_time(torch, front, fr)
+    fw = phase_front_wfm(torch, front, decimator)
+    tl = phase_tail(torch, wfm_mod, wfm_tail)
+    phase_slice(torch, receiver, convert, front, wfm_tail, DemodMode.FMS)
+    whead = phase_headline(torch, receiver, front, wfm_tail, DemodMode.FMS)
+    phase_separation(torch, receiver, DemodMode)
+    wtimes = phase_wfm_time(torch, front, wfm_tail, fw, tl)
 
-    log(json.dumps({"kernels": [{
-        "name": "fused_front", "route": "cuda", "source": front.SOURCE,
-        "replaces": front.REPLACES, "launches": head["launches"],
-        "max_abs_err": fr["max_abs_err"], "ms": times["ms"],
-        "plain_ms": times["plain_ms"]}]}))
+    log(json.dumps({"kernels": [
+        {"name": "fused_front", "route": "cuda", "source": front.SOURCE,
+         "replaces": front.REPLACES, "launches": head["launches"][0],
+         "max_abs_err": fr["max_abs_err"], "ms": times["ms"],
+         "plain_ms": times["plain_ms"]},
+        {"name": "fused_front (WFM form: disc_gain, y_tail_rows)",
+         "route": "cuda", "source": front.SOURCE,
+         "replaces": "pebblesdr_tpu/ops/pallas_kernels.py:352",
+         "launches": whead["launches"][0], "max_abs_err": fw["max_abs_err"],
+         "ms": wtimes["k1"][0], "plain_ms": wtimes["k1"][1]},
+        {"name": "wfm_tail", "route": "cuda", "source": wfm_tail.SOURCE,
+         "replaces": wfm_tail.REPLACES, "launches": whead["launches"][1],
+         "max_abs_err": tl["max_abs_err"], "ms": wtimes["k2"][0],
+         "plain_ms": wtimes["k2"][1]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

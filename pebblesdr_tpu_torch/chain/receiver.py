@@ -1,19 +1,26 @@
-"""The receive chain, AM, as one batched graph per K-block dispatch.
+"""The receive chain, AM and WFM stereo, as one batched graph per K-block
+dispatch.
 
 Port of pebblesdr_tpu/chain/receiver.py for the batched ``step_many`` path
-(``_step_many_impl`` -> ``_step_many_batched`` -> ``_tail_many``, AM branch):
+(``_step_many_impl`` -> ``_step_many_batched`` -> ``_tail_many``), AM and
+FM-stereo branches:
 
-  fused front (DC blocker + NCO mix + composed-FIR decimation, ops/front.py)
+  fused front (DC blocker + NCO mix + composed-FIR decimation, ops/front.py;
+  for WFM also the FM discriminator and each block's trailing zoom window)
   -> full-rate display spectrum per block (closed-form EWMA over blocks)
   -> zoomed demod-rate power per block -> S-meter -> squelch with 3 dB
      hysteresis
-  -> FastFIR bandpass -> parallel AGC -> AM demod -> fractional resampler
+  -> AM: FastFIR bandpass -> parallel AGC -> AM demod -> resampler
+     WFM: open pilot -> fused stereo tail (ops/wfm_tail.py) -> lock gate ->
+     L/R -> de-emphasis (demod/wfm.py) -> stereo resampler
   -> squelch / gain / mute gate.
 
 State is explicit (ReceiverState), with the fields and shapes of the JAX
-pytree in its fused-front layout: ``dc`` [1, 2C], ``decim`` [d_rows, 2C].
-The Receiver is built for one device and runs its whole graph there; on a
-CUDA device the front end is the hand-written CUDA kernel.
+pytree in its fused-front layout: ``dc`` [1, 2C], ``decim`` [d_rows, 2C];
+for WFM the demod state is the fused-tail WFMState and the FastFIR and AGC
+states ride along untouched, as in the JAX package.  The Receiver is built
+for one device and runs its whole graph there; on a CUDA device the front
+end and the stereo tail are hand-written CUDA kernels.
 """
 
 from __future__ import annotations
@@ -28,8 +35,10 @@ import torch
 from pebblesdr_tpu.demod.modes import MODE_INFO, DemodMode
 from pebblesdr_tpu_torch.core import db as dbu
 from pebblesdr_tpu_torch.demod import am as am_mod
-from pebblesdr_tpu_torch.ops import (agc, decimator, fastfir, front, mixer,
-                                     resampler, signalstrength, spectrum)
+from pebblesdr_tpu_torch.demod import wfm as wfm_mod
+from pebblesdr_tpu_torch.ops import (agc, decimator, fastfir, front, iir,
+                                     mixer, resampler, signalstrength,
+                                     spectrum)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +53,9 @@ class ReceiverConfig:
     #                                       at the demod block length
     agc_mode: str | None = None           # None -> mode default
     agc_stride: int = 1
+    stereo: bool = True                   # FMS only (mono is not ported)
+    rds: bool = False                     # WFM RDS tap (not ported)
+    wfm_hq: bool = False                  # WFM hq geometry (not ported)
     db_offset: float = 0.0                # display calibration offset
 
 
@@ -58,8 +70,8 @@ class RxParams:
     squelch_db: torch.Tensor  # scalar; -999 = always open
     gain: torch.Tensor        # scalar audio gain
     mute: torch.Tensor        # scalar bool
-    iq_gain: torch.Tensor     # scalar IQ balance gain (not used by the AM path)
-    iq_phase: torch.Tensor    # scalar IQ balance phase (not used by the AM path)
+    iq_gain: torch.Tensor     # scalar IQ balance gain (unused by ported paths)
+    iq_phase: torch.Tensor    # scalar IQ balance phase (unused by ported paths)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,9 +97,12 @@ class Receiver:
     """Build once per configuration and device; ``step_many`` is the hot loop."""
 
     def __init__(self, cfg: ReceiverConfig, device: str | torch.device):
-        if cfg.mode != DemodMode.AM:
+        if cfg.mode not in (DemodMode.AM, DemodMode.FMS):
             raise ValueError(f"mode {cfg.mode.name} is not ported yet; the "
-                             f"PyTorch receiver runs AM")
+                             f"PyTorch receiver runs AM and FMS")
+        if cfg.mode == DemodMode.FMS and cfg.wfm_hq:
+            raise ValueError("WFM: the hq geometry (wfm_hq, in-kernel "
+                             "composite decimation) is not ported yet")
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
@@ -109,8 +124,27 @@ class Receiver:
         self.demod_rate = int(self.plan.rate_out)
         self.blk = cfg.frames_per_buffer // self.plan.factor
 
-        self.am_cfg = am_mod.AMConfig.make(self.demod_rate, info.default_filter)
-        self.rs_plan = resampler.plan(self.demod_rate, cfg.audio_rate, self.blk)
+        self.am_cfg = self.wfm_cfg = None
+        if cfg.mode == DemodMode.FMS:
+            # the audio low-pass decimates inside the demod so the resampler
+            # runs near 64 kHz instead of the composite rate
+            wcfg = wfm_mod.WFMConfig.make(
+                self.demod_rate, stereo=cfg.stereo, rds_tap=cfg.rds,
+                audio_decim=max(1, self.demod_rate // 64000))
+            self.wfm_cfg = dataclasses.replace(
+                wcfg, tail_sub=wfm_mod.tail_kernel_sub(wcfg, self.blk))
+            wfm_mod.check_ported(self.wfm_cfg)
+            self.wfm_tail = wfm_mod.tail_plan(self.wfm_cfg, self.blk,
+                                              self.device)
+            self.disc_gain = self.demod_rate / (
+                2.0 * np.pi * self.wfm_cfg.max_deviation)
+            audio_src_rate = int(self.wfm_cfg.audio_rate)
+            audio_blk = self.blk // self.wfm_cfg.audio_decim
+        else:
+            self.am_cfg = am_mod.AMConfig.make(self.demod_rate,
+                                               info.default_filter)
+            audio_src_rate, audio_blk = self.demod_rate, self.blk
+        self.rs_plan = resampler.plan(audio_src_rate, cfg.audio_rate, audio_blk)
         self.audio_blk = self.rs_plan.n_out
 
         agc_mode = cfg.agc_mode if cfg.agc_mode is not None else info.agc_mode
@@ -134,6 +168,13 @@ class Receiver:
     def init_state(self) -> ReceiverState:
         c = self.cfg.channels
         dev = self.device
+        if self.wfm_cfg is not None:
+            # stereo: L and R resample as 2C channels
+            demod = wfm_mod.wfm_init(self.wfm_cfg, c, dev)
+            resamp = resampler.state_init(self.rs_plan, 2 * c, dev)
+        else:
+            demod = am_mod.am_init(self.am_cfg, c, dev)
+            resamp = resampler.state_init(self.rs_plan, c, dev)
         return ReceiverState(
             mixer=mixer.mixer_init(c, dev),
             decim=torch.zeros(self.front.d_rows, 2 * c, dtype=torch.float32,
@@ -143,8 +184,8 @@ class Receiver:
             nb=None,
             anf=None,
             agc=agc.agc_init(self.agc_cfg, c, dev),
-            demod=am_mod.am_init(self.am_cfg, c, dev),
-            resamp=resampler.state_init(self.rs_plan, c, dev),
+            demod=demod,
+            resamp=resamp,
             spec_full=spectrum.state_init(c, self.cfg.spectrum_bins, dev),
             spec_zoom=spectrum.state_init(c, self.zoom_bins, dev),
             squelch=torch.zeros(c, dtype=torch.bool, device=dev),
@@ -220,10 +261,12 @@ class Receiver:
         (preferred), [K, N, 2C], an (re, im) pair of [K*N, C] planes,
         [K, 2, N, C] / [2, K, N, C] stacks or [K, C, N] complex64.
 
-        Returns (state', out) with out['audio'] [K, C, audio_blk],
-        'spectrum' [K, C, spectrum_bins] dB and 'overload' [K, C] (spectra
-        only), 'zoomed' [K, C, zoom_bins] dB (spectra only), 'smeter' (dict
-        of [K, C] dB) and 'squelch_open' [K, C] bool."""
+        Returns (state', out) with out['audio'] [K, C, audio_blk] (AM) or
+        [K, C, 2, audio_blk] (FMS: left, right), 'spectrum' [K, C,
+        spectrum_bins] dB and 'overload' [K, C] (spectra only), 'zoomed'
+        [K, C, zoom_bins] dB (spectra only), 'smeter' (dict of [K, C] dB),
+        'squelch_open' [K, C] bool and, for FMS, 'pilot_locked' [K, C]
+        bool."""
         x_pk = self._pack(iq)
         n = self.cfg.frames_per_buffer
         if x_pk.shape[0] % n:
@@ -280,15 +323,32 @@ class Receiver:
         cfg = self.cfg
         c = cfg.channels
         k = x_pk.shape[0] // cfg.frames_per_buffer
-        y_pk, dc, decim, phase, raw = front.fused_front(
+        front_kw = {}
+        if self.wfm_cfg is not None:
+            # the discriminator runs in the front end; the composite is then
+            # needed only as each block's trailing zoom window
+            last = state.demod.last
+            front_kw = dict(disc_gain=self.disc_gain,
+                            disc_last=torch.cat([last.real, last.imag])[None],
+                            y_tail_rows=self.zoom_bins)
+        fr = front.fused_front(
             self.front, x_pk, state.dc, state.mixer.phase, params.tune_hi,
             params.tune_lo, state.decim, n_block=cfg.frames_per_buffer,
-            raw_rows=cfg.spectrum_bins if spectra else 0)
-        x_cat = torch.complex(y_pk[:, :c].T, y_pk[:, c:].T)      # [C, K*blk]
+            raw_rows=cfg.spectrum_bins if spectra else 0, **front_kw)
+        y_pk, dc, decim, phase, raw = fr[:5]
         raw_c = (torch.complex(raw[:, :, :c].transpose(1, 2),
                                raw[:, :, c:].transpose(1, 2))     # [K, C, bins]
                  if spectra else None)
-        tail_st, out = self._tail_many(state, params, k, raw_c, x_cat, spectra)
+        if self.wfm_cfg is not None:
+            xz = torch.complex(y_pk[:, :, :c], y_pk[:, :, c:]).permute(2, 0, 1)
+            demod = functools.partial(self._demod_wfm, disc_t=fr[5],
+                                      dlast=fr[6])
+        else:
+            x_cat = torch.complex(y_pk[:, :c].T, y_pk[:, c:].T)  # [C, K*blk]
+            xz = x_cat.reshape(c, k, self.blk)[:, :, self.blk - self.zoom_bins:]
+            demod = functools.partial(self._demod_am, x_cat=x_cat)
+        tail_st, out = self._tail_many(state, params, k, raw_c, xz, spectra,
+                                       demod)
         new_state = ReceiverState(
             mixer=mixer.MixerState(phase=phase), decim=decim, dc=dc,
             nb=state.nb, iqbal=state.iqbal, **tail_st)
@@ -298,19 +358,20 @@ class Receiver:
         """avg_k = a avg_{k-1} + (1-a) p_k over the leading K axis, seeded by
         prev, as one matmul.  Returns (avg [K, ...], avg_last)."""
         k = p.shape[0]
-        lmat, seed = _ewma_tables(k, a, p.device)
+        lmat, seed = iir.ewma_tables(k, a, p.device)
         avg = (torch.matmul(lmat, p.reshape(k, -1)).reshape(p.shape)
                + seed.reshape((k,) + (1,) * (p.dim() - 1)) * prev[None])
         return avg, avg[-1]
 
     def _tail_many(self, state: ReceiverState, params: RxParams, k: int,
-                   raw_c, x_cat: torch.Tensor, spectra: bool):
-        """The batched demod-rate tail for K concatenated blocks (AM).
-        raw_c: [K, C, spectrum_bins] complex display tails (None without
-        spectra); x_cat: [C, K*blk] demod-rate stream."""
+                   raw_c, xz: torch.Tensor, spectra: bool, demod):
+        """The batched demod-rate tail for K concatenated blocks.  raw_c:
+        [K, C, spectrum_bins] complex display tails (None without spectra);
+        xz: [C, K, zoom_bins] each block's trailing demod-rate window; demod:
+        the mode's demod-rate chain, (state, params, k) -> (state fields,
+        audio [K, C, ...], extra outputs)."""
         cfg = self.cfg
         c = cfg.channels
-        blk = self.blk
         out: dict[str, Any] = {}
 
         # ---- full-rate spectrum per block
@@ -329,9 +390,8 @@ class Receiver:
         else:
             spec_full_state = state.spec_full
 
-        # ---- zoom power + S-meter per block, in the stream's [C, K] order
+        # ---- zoom power + S-meter per block, in the window's [C, K] order
         n_z = self.zoom_bins
-        xz = x_cat.reshape(c, k, blk)[:, :, blk - n_z:]            # [C, K, n_z]
         xzw = xz * self.w_zoom[None, None, :]
         normz = 1.0 / (n_z * self.cg_zoom)
         power_lin = (spectrum.shifted_power(xzw.reshape(c * k, n_z))
@@ -357,33 +417,48 @@ class Receiver:
         out["squelch_open"] = squelch_open
 
         # ---- demod-rate tail once on the concatenated stream
+        demod_st, audio, extra = demod(state, params, k)
+        out.update(extra)
+        gate = (squelch_open.float() * params.gain
+                * (1.0 - params.mute.float()))
+        out["audio"] = audio * gate.reshape(gate.shape
+                                            + (1,) * (audio.dim() - 2))
+
+        tail_st = dict(
+            fastfir=state.fastfir, agc=state.agc, anf=state.anf,
+            spec_full=spec_full_state, spec_zoom=spec_zoom_state,
+            rds=state.rds, squelch=squelch_open[-1], ctcss=state.ctcss)
+        return {**tail_st, **demod_st}, out
+
+    def _demod_am(self, state: ReceiverState, params: RxParams, k: int,
+                  x_cat: torch.Tensor):
+        """FastFIR -> AGC -> AM -> resampler on x_cat [C, K*blk]."""
+        c = self.cfg.channels
         mask = torch.complex(params.bp_mask[0], params.bp_mask[1])
-        ff_state, xt = fastfir.apply_many(state.fastfir, x_cat, mask, blk)
+        ff_state, xt = fastfir.apply_many(state.fastfir, x_cat, mask, self.blk)
         agc_state, xt = agc.agc_apply(self.agc_cfg, state.agc, xt)
         demod_state, audio = am_mod.am_demod(self.am_cfg, state.demod, xt)
         resamp_state, audio = resampler.apply_many(self.rs_plan, state.resamp,
                                                    audio)
         audio = audio.reshape(c, k, audio.shape[-1] // k).transpose(0, 1)
+        return (dict(fastfir=ff_state, agc=agc_state, demod=demod_state,
+                     resamp=resamp_state), audio, {})
 
-        gate = (squelch_open.float() * params.gain
-                * (1.0 - params.mute.float()))
-        out["audio"] = audio * gate[:, :, None]
-
-        tail_st = dict(
-            fastfir=ff_state, agc=agc_state, demod=demod_state,
-            resamp=resamp_state, spec_full=spec_full_state,
-            spec_zoom=spec_zoom_state, rds=state.rds,
-            squelch=squelch_open[-1], ctcss=state.ctcss, anf=state.anf)
-        return tail_st, out
-
-
-@functools.lru_cache(maxsize=16)
-def _ewma_tables(k: int, a: float, device: torch.device):
-    kk = np.arange(k)
-    lmat = np.where(kk[:, None] >= kk[None, :],
-                    (1.0 - a) * a ** (kk[:, None] - kk[None, :]), 0.0)
-    return (torch.from_numpy(lmat.astype(np.float32)).to(device),
-            torch.from_numpy((a ** (kk + 1)).astype(np.float32)).to(device))
+    def _demod_wfm(self, state: ReceiverState, params: RxParams, k: int,
+                   disc_t: torch.Tensor, dlast: torch.Tensor):
+        """Pilot -> stereo tail -> de-emphasis -> stereo resampler on the
+        front's discriminator output disc_t [K*blk, C]; FastFIR and AGC are
+        skipped, as in the JAX package."""
+        c = self.cfg.channels
+        demod_state, wout = wfm_mod.wfm_demod_tm(
+            self.wfm_cfg, self.wfm_tail, state.demod, disc_t,
+            torch.complex(dlast[0, :c], dlast[0, c:]), self.blk)
+        resamp_state, lr = resampler.apply_many(
+            self.rs_plan, state.resamp,
+            torch.cat([wout["left"], wout["right"]]))
+        audio = lr.reshape(2, c, k, lr.shape[-1] // k).permute(2, 1, 0, 3)
+        return (dict(demod=demod_state, resamp=resamp_state), audio,
+                {"pilot_locked": wout["pilot_locked"].T})
 
 
 def _squelch_hysteresis(b: torch.Tensor, a: torch.Tensor,

@@ -3,13 +3,16 @@
 // lanes [0, C), im in lanes [C, 2C)).
 //
 // Replaces the TPU kernel _front_kernel / fused_front_packed
-// (pebblesdr_tpu/ops/pallas_kernels.py:119, :516) in its base form: float32
-// input, no IQ balance, no noise blanker, no discriminator, fold 1.  The
-// plain PyTorch version is fused_front_reference in ops/front.py.
+// (pebblesdr_tpu/ops/pallas_kernels.py:119, :516) with float32 input, no IQ
+// balance, no noise blanker, no in-kernel composite decimation, fold 1; with
+// or without the FM discriminator (disc_gain, pallas_kernels.py:352-374) and
+// the trailing-window y output (y_tail_rows, :344-351).  The plain PyTorch
+// version is fused_front_reference in ops/front.py.
 //
 // What bounds it: the input plane is read once (512 MiB per headline
 // dispatch of 32 x 32768 rows x 128 lanes), and the FIR costs (D+1) FMAs per
-// output lane (D = 710 for the factor-32 AM plan), about 3 GFMA a dispatch.
+// output lane: D = 710 for the factor-32 AM plan, about 3 GFMA a dispatch;
+// D = 282 for the factor-8 WFM plan, about 4.75 GFMA.
 // The TPU kernel walks 2048-row sub-blocks in order and carries the DC
 // estimate and the FIR history from one grid step to the next; a Hopper grid
 // runs in no order, so the carried state becomes closed forms:
@@ -30,6 +33,15 @@
 //      once, fully unrolled (one shared load per up to 24 FMAs); the groups'
 //      partial sums meet in shared memory.
 //   4. front_tail: the post-mix history carried to the next dispatch.
+//   5. front_disc (WFM only): the FM discriminator of every decimated row,
+//      atan2(y[o] conj(y[o-1])) * gain with y[-1] the carried disc_last, the
+//      next disc_last, and each block's trailing y_tail_rows rows of y.  The
+//      TPU kernel carries y[o-1] across its sequential grid steps; here the
+//      FIR writes all of y to scratch and this pass reads it back (64 MiB
+//      per WFM headline dispatch), so no tile needs its neighbour's output.
+//      The conj product uses round-to-nearest intrinsics so no contraction
+//      changes a zero's sign: the first row after a zero seed lands on
+//      atan2(+-0, -0) = +-pi exactly as the plain version does.
 // The oscillator is factored as in the TPU kernel: a coarse phasor per
 // 128 rows times a fine phasor per row within them, with the phases in the
 // split form (t = 2048 s + 128 q + r, f_hi on the 2^-12 grid).  The phase
@@ -156,6 +168,9 @@ __global__ void front_dc_scan(float* __restrict__ mseq, int nchunk, int c2,
 }
 
 // Shared-memory layout of the FIR block (floats), all offsets 32-aligned.
+// The u area first stages the span input rows, then holds the groups'
+// partial sums [kGroups][kM][kLanes], so it is sized for the larger.
+// ops/front.py mirrors this layout (fir_smem_layout).
 struct FirSmem {
   int h, fine_c, fine_s, coarse_c, coarse_s, dc, u, total;
   __host__ __device__ FirSmem(int F, int dp) {
@@ -167,7 +182,7 @@ struct FirSmem {
     coarse_s = coarse_c + align32(max_q(span) * kCg);
     dc = coarse_s + align32(max_q(span) * kCg);
     u = dc + align32(max_chunks(span) * kLanes);
-    total = u + span * kLanes;
+    total = u + (span > kGroups * kM ? span : kGroups * kM) * kLanes;
   }
   __host__ __device__ static int align32(int v) { return (v + 31) & ~31; }
   __host__ __device__ static int max_q(int span) { return span / kQ + 2; }
@@ -276,6 +291,8 @@ front_fir(const float* __restrict__ x, int T, int C,
   // 3. Polyphase FIR: group g takes branches p = g, g + kGroups, ...; branch p's DP
   // taps sit in registers while its column of u streams past once:
   // tap i of local output ol reads shared row F (ol - i + DP) - 1 - p.
+  // With F < kGroups (F = 8, the WFM plan) groups F.. have no branch and
+  // idle; splitting a branch's taps over several groups is later speed work.
   const int lx = threadIdx.x, g = threadIdx.y;
   float acc[kM];
 #pragma unroll
@@ -346,10 +363,40 @@ __global__ void front_tail(const float* __restrict__ x, int T, int C,
   tail_out[i * c2 + C + c] = ui;
 }
 
-// Taps per polyphase branch that the FIR kernel is instantiated for.
+// grid ceil(M*C/256), block 256, M = T/F decimated rows.  FM discriminator
+// of the decimated composite, the carried sample, and the y-tail windows.
+__global__ void front_disc(const float* __restrict__ y, int M, int C,
+                           const float* __restrict__ disc_last, float gain,
+                           int mb, int y_tail_rows, float* __restrict__ disc,
+                           float* __restrict__ dlast,
+                           float* __restrict__ ytail) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= M * C) return;
+  const int o = idx / C, c = idx % C;
+  const size_t c2 = 2 * (size_t)C;
+  const float yr = y[o * c2 + c], yi = y[o * c2 + C + c];
+  const float* prev = o ? y + (o - 1) * c2 : disc_last;
+  const float pr = prev[c], pi = prev[C + c];
+  const float im = __fsub_rn(__fmul_rn(yi, pr), __fmul_rn(yr, pi));
+  const float re = __fadd_rn(__fmul_rn(yr, pr), __fmul_rn(yi, pi));
+  disc[(size_t)o * C + c] = __fmul_rn(atan2f(im, re), gain);
+  if (o == M - 1) {
+    dlast[c] = yr;
+    dlast[C + c] = yi;
+  }
+  const int b = o / mb, w = o - b * mb - (mb - y_tail_rows);
+  if (ytail != nullptr && w >= 0) {
+    float* dst = ytail + ((size_t)b * y_tail_rows + w) * c2;
+    dst[c] = yr;
+    dst[C + c] = yi;
+  }
+}
+
+// Taps per polyphase branch that the FIR kernel is instantiated for
+// (ops/front.py mirrors this list in FIR_BRANCH_TAPS).
 int fir_branch_taps(int ntaps, int F) {
   const int dp = (ntaps + F - 1) / F;
-  for (int inst : {8, 16, 24, 32})
+  for (int inst : {8, 16, 24, 32, 40})
     if (dp <= inst) return inst;
   return 0;
 }
@@ -372,13 +419,18 @@ const char* front_error_string(int err) {
 
 // One fused front-end dispatch of T rows (T * 2C < 2^31; T a multiple of
 // 512, of F and of n; T / F / kM < 65536; r_rows <= n).  Scratch mseq:
-// [T/512, 2C].  Returns the first CUDA error.
+// [T/512, 2C].  With disc_gain != 0 also the discriminator: disc [T/F, C],
+// dlast [1, 2C] from disc_last [1, 2C], and, when y_tail_rows > 0, ytail
+// [T/n, y_tail_rows, 2C] (y is then the full-rate scratch the FIR writes).
+// Returns the first CUDA error.
 int front_forward(int device, const float* x, int T, int C, int n,
                   int r_rows, const float* dc_in, const float* tail_in,
                   int d_rows, const float* phase0, const float* fhi,
                   const float* flo, const float* h, int ntaps, int F, float a,
                   float b, float* mseq, float* y, float* dc_out,
-                  float* tail_out, float* raw, void* stream) {
+                  float* tail_out, float* raw, float disc_gain,
+                  const float* disc_last, int y_tail_rows, float* disc,
+                  float* dlast, float* ytail, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t st = (cudaStream_t)stream;
@@ -413,6 +465,7 @@ int front_forward(int device, const float* x, int T, int C, int n,
     FRONT_FIR_CASE(16)
     FRONT_FIR_CASE(24)
     FRONT_FIR_CASE(32)
+    FRONT_FIR_CASE(40)
 #undef FRONT_FIR_CASE
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -420,6 +473,13 @@ int front_forward(int device, const float* x, int T, int C, int n,
   const int nt = d_rows * C;
   front_tail<<<(unsigned)((nt + 255) / 256), 256, 0, st>>>(
       x, T, C, mseq, tail_in, d_rows, phase0, fhi, flo, tail_out);
+  if ((err = cudaGetLastError()) != cudaSuccess || disc_gain == 0.0f)
+    return err;
+
+  const int M = T / F;
+  front_disc<<<(unsigned)(((size_t)M * C + 255) / 256), 256, 0, st>>>(
+      y, M, C, disc_last, disc_gain, n / F, y_tail_rows, disc, dlast,
+      y_tail_rows > 0 ? ytail : nullptr);
   return cudaGetLastError();
 }
 

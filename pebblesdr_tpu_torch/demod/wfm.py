@@ -1,0 +1,203 @@
+"""Wideband broadcast FM stereo: pilot recovery, stereo demux, audio low-pass
+and de-emphasis on the time-major composite.
+
+Port of pebblesdr_tpu/demod/wfm.py for the path the batched Receiver runs
+at the ``wfm`` bench geometry: the front end's discriminator hands over the
+time-major composite, then open pilot (ops/pll.py) -> fused stereo tail
+(demux + decimating low-pass, ops/wfm_tail.py) -> lock gate -> L/R ->
+de-emphasis.  The configuration and state keep the JAX package's fields,
+shapes and leaf order (the fused-tail layout), so state converts leaf by leaf.
+
+Not ported, and refused with a ValueError naming them: the RDS tap, the hq
+composite decimation (comp_decim > 1), mono WFM (and its pre-discriminator
+biquad), the closed-loop "pll" pilot, the pilot notch (only needed when the
+audio low-pass does not already null 19 kHz) and geometries without a tail
+sub-block (tail_sub == 0).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from pebblesdr_tpu_torch.ops import fir, front, iir, pll
+from pebblesdr_tpu_torch.ops import wfm_tail as wfm_tail_mod
+
+PILOT_HZ = 19000.0
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class WFMConfig:
+    sample_rate: float                  # composite rate (~256 kHz)
+    stereo: bool = True
+    deemphasis_us: float = 75.0
+    audio_decim: int = 4
+    max_deviation: float = 75000.0
+    audio_taps: np.ndarray | None = None
+    pilot_notch: iir.BiquadCoef | None = None
+    rds_tap: bool = False
+    pilot_alg: str = "open"
+    pilot_open: pll.PilotOpenConfig | None = None
+    tail_sub: int = 0                   # fused-tail sub-block; 0 = none
+    notch_needed: bool = True
+    comp_decim: int = 1
+
+    @property
+    def audio_rate(self) -> float:
+        return self.sample_rate / self.audio_decim
+
+    @staticmethod
+    def make(sample_rate: float, stereo: bool = True,
+             deemphasis_us: float = 75.0, audio_decim: int = 4,
+             rds_tap: bool = False, pilot_alg: str = "open",
+             comp_decim: int = 1) -> "WFMConfig":
+        # stereo puts the low-pass stopband at the 19 kHz pilot, so the
+        # separate pilot notch is redundant (notch_needed False)
+        transition = (PILOT_HZ - 15000.0 if stereo
+                      else sample_rate / (2.0 * audio_decim) - 15000.0)
+        audio_taps = fir.design_lowpass_kaiser(
+            15000.0, sample_rate, atten_db=60.0,
+            transition_hz=transition, max_taps=255)
+        h19 = np.abs(np.sum(audio_taps * np.exp(
+            -2j * np.pi * PILOT_HZ / sample_rate * np.arange(len(audio_taps)))))
+        return WFMConfig(
+            sample_rate=sample_rate, stereo=stereo, deemphasis_us=deemphasis_us,
+            audio_decim=audio_decim, audio_taps=audio_taps,
+            # the notch runs on the decimated audio: designed at audio rate
+            pilot_notch=iir.design_biquad("notch", PILOT_HZ,
+                                          sample_rate / audio_decim, q=5.0),
+            rds_tap=rds_tap, pilot_alg=pilot_alg,
+            pilot_open=pll.make_pilot_open_config(sample_rate),
+            notch_needed=bool(h19 > 10.0 ** (-55.0 / 20.0)),
+            comp_decim=comp_decim)
+
+
+def check_ported(cfg: WFMConfig) -> None:
+    """Raise a ValueError naming the first option this port does not run."""
+    missing = [(cfg.rds_tap, "the RDS tap (demod/rds.py)"),
+               (cfg.comp_decim > 1, "the hq composite decimation "
+                                    "(comp_decim > 1)"),
+               (not cfg.stereo, "mono WFM"),
+               (cfg.pilot_alg != "open", f"the {cfg.pilot_alg!r} pilot "
+                                         f"(only 'open' is ported)"),
+               (cfg.notch_needed, "the pilot notch"),
+               (cfg.tail_sub == 0, "a geometry without a fused-tail "
+                                   "sub-block (tail_sub == 0)")]
+    for bad, what in missing:
+        if bad:
+            raise ValueError(f"WFM: {what} is not ported yet")
+
+
+@dataclasses.dataclass(frozen=True)
+class WFMState:
+    last: torch.Tensor          # [C] complex64 previous composite sample
+    pilot_bq: torch.Tensor      # [C, 2] pilot bandpass biquad ("pll" only)
+    pilot_pll: pll.PilotOpenState
+    pilot_level: torch.Tensor   # [C] smoothed pilot amplitude (lock detect)
+    deemph_l: torch.Tensor      # [C]
+    deemph_r: torch.Tensor      # [C]
+    lp_tail_mono: torch.Tensor  # [d_rows, 2C] packed [mono | lmr] history
+    lp_tail_lmr: torch.Tensor   # [C, 0] (the fused-tail layout keeps it empty)
+    notch_l: torch.Tensor       # [C, 2]
+    notch_r: torch.Tensor       # [C, 2]
+    comp_tail: torch.Tensor     # [C, 0] (comp_decim == 1)
+    mono_lp_bq: torch.Tensor    # [0, 2] (stereo)
+
+
+def tail_d_rows(cfg: WFMConfig) -> int:
+    return ((len(cfg.audio_taps) - 1 + 7) // 8) * 8
+
+
+def pilot_chunk_for(cfg: WFMConfig, n_block: int) -> int:
+    """The open-pilot chunk at block length n_block (halved until it
+    divides the block)."""
+    ell = cfg.pilot_open.chunk
+    while n_block % ell:
+        ell //= 2
+    return ell
+
+
+def tail_kernel_sub(cfg: WFMConfig, blk: int) -> int:
+    """Largest power-of-two sub-block <= 2048 that divides blk and is a
+    multiple of the pilot chunk and of audio_decim; 0 if none."""
+    if not cfg.stereo or cfg.audio_decim <= 1:
+        return 0
+    ell = pilot_chunk_for(cfg, blk)
+    sub = min(2048, blk)
+    while sub and (blk % sub or sub % ell or sub % cfg.audio_decim):
+        sub //= 2
+    return sub
+
+
+def tail_plan(cfg: WFMConfig, blk: int, device) -> wfm_tail_mod.TailPlan:
+    """The stereo tail's geometry for demod blocks of blk samples."""
+    return wfm_tail_mod.TailPlan.make(cfg.audio_taps, cfg.audio_decim,
+                                      pilot_chunk_for(cfg, blk), cfg.tail_sub,
+                                      device)
+
+
+def wfm_init(cfg: WFMConfig, channels: int, device) -> WFMState:
+    check_ported(cfg)
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return WFMState(
+        last=zeros(channels, dtype=torch.complex64),
+        pilot_bq=iir.biquad_state_init(channels, device),
+        pilot_pll=pll.pilot_open_init(channels, device),
+        pilot_level=zeros(channels),
+        deemph_l=zeros(channels), deemph_r=zeros(channels),
+        lp_tail_mono=zeros(tail_d_rows(cfg), 2 * channels),
+        lp_tail_lmr=zeros(channels, 0),
+        notch_l=iir.biquad_state_init(channels, device),
+        notch_r=iir.biquad_state_init(channels, device),
+        comp_tail=zeros(channels, 0),
+        mono_lp_bq=iir.biquad_state_init(0, device))
+
+
+def discriminator(last: torch.Tensor, x: torch.Tensor, gain: float):
+    """Conj-product FM discriminator of x [C, N] complex64 with the carried
+    previous sample last [C]: (new_last [C], fm [C, N] float32).  The
+    channel-major face of ops.front.discriminate (packed [N, 2C])."""
+    c = x.shape[0]
+    y = torch.cat([x.real.T, x.imag.T], dim=1)
+    disc, y_last = front.discriminate(
+        y, torch.cat([last.real, last.imag])[None], gain)
+    return torch.complex(y_last[0, :c], y_last[0, c:]), disc.T.contiguous()
+
+
+def wfm_demod_tm(cfg: WFMConfig, plan: wfm_tail_mod.TailPlan, state: WFMState,
+                 raw_t: torch.Tensor, new_last: torch.Tensor, n_block: int):
+    """The stereo chain on the time-major composite raw_t [N, C] (the front
+    end's discriminator output; N a whole number of n_block-sample blocks).
+    new_last [C] complex64 is the carried composite sample the front
+    returned.  Returns (state', dict(left [C, M], right [C, M],
+    pilot_locked [C, K] bool)), M = N / audio_decim."""
+    check_ported(cfg)
+    n, c = raw_t.shape
+    k_blocks = n // n_block
+    ell = plan.ell
+    pll_state, (p0, wf, _), level_f = pll.pilot_open_core_tm(
+        cfg.pilot_open, state.pilot_pll, raw_t, chunk=ell)
+    lv = level_f.reshape(c, k_blocks, n_block // ell)[:, :, -1]  # [C, K]
+    locked = lv > 0.002
+
+    audio_pk, tail_pk = wfm_tail_mod.wfm_tail(
+        plan, raw_t, p0.T.contiguous(), wf.T.contiguous(), state.lp_tail_mono)
+    mono_a, lmr_a = audio_pk[:, :c].T, audio_pk[:, c:].T
+    m_all = lmr_a.shape[-1]
+    lmr_a = torch.where(locked[:, :, None],
+                        lmr_a.reshape(c, k_blocks, m_all // k_blocks),
+                        0.0).reshape(c, m_all)
+    alpha = iir.deemphasis_alpha(cfg.deemphasis_us, cfg.audio_rate)
+    d_lr, lr = iir.first_order_apply(
+        torch.cat([state.deemph_l, state.deemph_r]),
+        torch.cat([mono_a + lmr_a, mono_a - lmr_a]), alpha, 1.0 - alpha)
+
+    new_state = dataclasses.replace(
+        state, last=new_last, pilot_pll=pll_state, pilot_level=lv[:, -1],
+        deemph_l=d_lr[:c], deemph_r=d_lr[c:], lp_tail_mono=tail_pk)
+    return new_state, {"left": lr[:c], "right": lr[c:], "pilot_locked": locked}

@@ -1,7 +1,9 @@
-"""Fused wideband front end: DC blocker + NCO mix + composed-FIR decimation.
+"""Fused wideband front end: DC blocker + NCO mix + composed-FIR decimation
+(+ the FM discriminator of the decimated composite, for WFM).
 
 Port of ``fused_front_packed`` / ``_front_kernel``
-(pebblesdr_tpu/ops/pallas_kernels.py:516, :119) in its base form.  Input is
+(pebblesdr_tpu/ops/pallas_kernels.py:516, :119) with float32 input and fold
+1, with or without its ``disc_gain``/``y_tail_rows`` switches.  Input is
 one lane-packed [T, 2C] float32 plane (re lanes [0, C), im lanes [C, 2C))
 spanning T/n_block logical blocks.  Per dispatch:
 
@@ -12,7 +14,11 @@ spanning T/n_block logical blocks.  Per dispatch:
   * FIR: y[o] = sum_{j=0..D} h[j] u[F o - j], u[t < 0] from the carried
     post-mix tail (tail row d_rows + t); tail' = u[T - d_rows .. T-1];
   * raw[b] = the trailing raw_rows input rows of block b (display tails);
-  * phase' = mod(phase0 + mod(T f_hi, 1) + T f_lo, 1).
+  * phase' = mod(phase0 + mod(T f_hi, 1) + T f_lo, 1);
+  * with disc_gain != 0: disc[o] = atan2(y[o] conj(y[o-1])) * disc_gain per
+    channel, y[-1] the carried disc_last [1, 2C], and disc_last' = y[-1];
+    with y_tail_rows > 0, y is returned only as each block's trailing
+    y_tail_rows rows, [K, y_tail_rows, 2C] (the WFM zoom windows).
 
 ``fused_front`` launches the CUDA kernel (csrc/front.cu) for a CUDA plane and
 runs ``fused_front_reference`` (plain PyTorch) for a CPU plane.
@@ -35,9 +41,36 @@ DC_CHUNK = 512     # DC-estimate chunk (ops.iir.dc_removal_chunked)
 SUB_BLOCK = 2048   # phase decomposition block and the plain FIR's window step
 _Q = 128           # phase decomposition: coarse step
 _FIR_TILE = 24     # decimated outputs per FIR block (kM in csrc/front.cu)
+_FIR_GROUPS = 16   # phase groups per FIR block (kGroups)
+_FIR_LANES = 16    # lanes per FIR block: 8 channels x (re, im) (kLanes)
 _MAX_SMEM = 232448  # shared memory one Hopper block may use (kMaxSmem)
+FIR_BRANCH_TAPS = (8, 16, 24, 32, 40)  # front_fir instantiations (taps/branch)
 SOURCE = "pebblesdr_tpu_torch/csrc/front.cu"
 REPLACES = "pebblesdr_tpu/ops/pallas_kernels.py:119"
+
+
+def fir_smem_layout(ntaps: int, factor: int) -> dict[str, int] | None:
+    """front_fir's shared-memory layout in floats (FirSmem in csrc/front.cu,
+    mirrored), or None when no instantiation covers ntaps/factor taps per
+    branch.  'span' is the staged input rows; the u area holds them and,
+    after the FIR, the phase groups' partial sums."""
+    dp_need = -(-ntaps // factor)
+    dp = next((d for d in FIR_BRANCH_TAPS if dp_need <= d), 0)
+    if not dp:
+        return None
+
+    def a32(v):
+        return (v + 31) & ~31
+
+    span = factor * (_FIR_TILE + dp - 1)
+    max_q, max_chunks = span // _Q + 2, span // DC_CHUNK + 2
+    fine_c = a32(factor * dp)
+    coarse_c = fine_c + 2 * _Q * 8
+    coarse_s = coarse_c + a32(max_q * 8)
+    dc = coarse_s + a32(max_q * 8)
+    u = dc + a32(max_chunks * _FIR_LANES)
+    return {"dp": dp, "span": span, "u": u,
+            "total": u + max(span, _FIR_GROUPS * _FIR_TILE) * _FIR_LANES}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -49,6 +82,7 @@ class FrontPlan:
     dc_alpha: float
     h: torch.Tensor        # [D+1] float32 composed response (kernel)
     w: torch.Tensor        # [d_rows + SUB_BLOCK, SUB_BLOCK/F] (plain version)
+    smem_bytes: int        # the CUDA FIR block's shared memory; 0 = no kernel
 
     @staticmethod
     def make(h_np: np.ndarray, factor: int, device,
@@ -56,10 +90,12 @@ class FrontPlan:
         d = len(h_np) - 1
         d_rows = ((d + 7) // 8) * 8
         w = decimator.build_composed_w(h_np, factor, SUB_BLOCK, d_rows - d)
+        lay = fir_smem_layout(len(h_np), factor)
         return FrontPlan(
             factor=int(factor), d_rows=d_rows, dc_alpha=float(dc_alpha),
             h=torch.as_tensor(np.asarray(h_np, np.float32), device=device),
-            w=torch.from_numpy(w).to(device))
+            w=torch.from_numpy(w).to(device),
+            smem_bytes=4 * lay["total"] if lay else 0)
 
     @property
     def ewma(self) -> tuple[float, float]:
@@ -70,7 +106,9 @@ class FrontPlan:
 
 
 def _check_geometry(plan: FrontPlan, x: torch.Tensor, n_block: int,
-                    raw_rows: int) -> tuple[int, int, int]:
+                    raw_rows: int, disc_gain: float = 0.0,
+                    disc_last: torch.Tensor | None = None,
+                    y_tail_rows: int = 0) -> tuple[int, int, int]:
     if x.dim() != 2 or x.shape[1] % 2:
         raise ValueError(f"front input must be a [T, 2C] plane, got "
                          f"{tuple(x.shape)}")
@@ -82,20 +120,45 @@ def _check_geometry(plan: FrontPlan, x: torch.Tensor, n_block: int,
     if n_block % plan.factor:
         raise ValueError(f"n_block={n_block} not divisible by the decimation "
                          f"factor {plan.factor}")
+    if disc_gain and (disc_last is None
+                      or tuple(disc_last.shape) != (1, x.shape[1])):
+        raise ValueError(f"the discriminator needs disc_last [1, "
+                         f"{x.shape[1]}]")
+    if y_tail_rows and not (disc_gain
+                            and 0 < y_tail_rows <= n_block // plan.factor):
+        raise ValueError(f"y_tail_rows={y_tail_rows} needs disc_gain and at "
+                         f"most {n_block // plan.factor} rows (the WFM path)")
     r = min(raw_rows, SUB_BLOCK) or 8
     return t, n_block, r
+
+
+def discriminate(y: torch.Tensor, last: torch.Tensor, gain: float):
+    """FM discriminator of a packed composite y [M, 2C] with the carried
+    previous sample last [1, 2C]: (disc [M, C] = atan2(y conj(prev)) * gain,
+    last' [1, 2C])."""
+    c = y.shape[1] // 2
+    prev = torch.cat([last, y[:-1]], dim=0)
+    yr, yi, pr, pi = y[:, :c], y[:, c:], prev[:, :c], prev[:, c:]
+    disc = torch.atan2(yi * pr - yr * pi, yr * pr + yi * pi) * gain
+    return disc, y[y.shape[0] - 1:].clone()
 
 
 def fused_front_reference(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
                           phase0: torch.Tensor, f_hi: torch.Tensor,
                           f_lo: torch.Tensor, tail: torch.Tensor,
-                          n_block: int = 0, raw_rows: int = 0):
+                          n_block: int = 0, raw_rows: int = 0,
+                          disc_gain: float = 0.0,
+                          disc_last: torch.Tensor | None = None,
+                          y_tail_rows: int = 0):
     """Plain PyTorch version of the fused front end (see module docstring).
 
     x [T, 2C] f32; dc [1, 2C]; phase0/f_hi/f_lo [C]; tail [d_rows, 2C].
     Returns (y [T/F, 2C], dc' [1, 2C], tail' [d_rows, 2C], phase' [C],
-    raw [T/n_block, R, 2C])."""
-    t, n_block, r = _check_geometry(plan, x, n_block, raw_rows)
+    raw [T/n_block, R, 2C]), and with disc_gain also (disc [T/F, C],
+    disc_last' [1, 2C]); y is [T/n_block, y_tail_rows, 2C] when
+    y_tail_rows > 0."""
+    t, n_block, r = _check_geometry(plan, x, n_block, raw_rows, disc_gain,
+                                    disc_last, y_tail_rows)
     c2 = x.shape[1]
     c = c2 // 2
     dev = x.device
@@ -121,8 +184,16 @@ def fused_front_reference(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
     ext = torch.cat([tail, u], dim=0)                           # [d_rows+T, 2C]
     wins = ext.unfold(0, plan.d_rows + SUB_BLOCK, SUB_BLOCK)     # [nsub, 2C, L]
     y = torch.matmul(wins, plan.w).transpose(1, 2).reshape(t // plan.factor, c2)
-    return (y, m[-1:], ext[ext.shape[0] - plan.d_rows:].contiguous(),
-            advance_phase(phase0, t, f_hi, f_lo), raw)
+    ret = (y, m[-1:], ext[ext.shape[0] - plan.d_rows:].contiguous(),
+           advance_phase(phase0, t, f_hi, f_lo), raw)
+    if not disc_gain:
+        return ret
+    disc, dlast = discriminate(y, disc_last, disc_gain)
+    if y_tail_rows:   # each block's trailing y_tail_rows rows
+        m = n_block // plan.factor
+        ret = (y.reshape(t // n_block, m, c2)[:, m - y_tail_rows:]
+               .contiguous(),) + ret[1:]
+    return ret + (disc, dlast)
 
 
 @functools.lru_cache(maxsize=8)
@@ -174,9 +245,10 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("front")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.front_forward.restype = ctypes.c_int
+    f = ctypes.c_float
     lib.front_forward.argtypes = [
-        i, p, i, i, i, i, p, p, i, p, p, p, p, i, i,
-        ctypes.c_float, ctypes.c_float, p, p, p, p, p, p]
+        i, p, i, i, i, i, p, p, i, p, p, p, p, i, i, f, f, p, p, p, p, p,
+        f, p, i, p, p, p, p]
     lib.front_error_string.restype = ctypes.c_char_p
     lib.front_error_string.argtypes = [i]
     lib.front_fir_smem_bytes.restype = ctypes.c_size_t
@@ -195,16 +267,20 @@ def _check_cuda(name: str, t: torch.Tensor, device: torch.device, shape):
 
 def fused_front(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
                 phase0: torch.Tensor, f_hi: torch.Tensor, f_lo: torch.Tensor,
-                tail: torch.Tensor, n_block: int = 0, raw_rows: int = 0):
+                tail: torch.Tensor, n_block: int = 0, raw_rows: int = 0,
+                disc_gain: float = 0.0, disc_last: torch.Tensor | None = None,
+                y_tail_rows: int = 0):
     """The fused front end: the CUDA kernel for a CUDA plane, the plain
     version for a CPU plane.  Same arguments and results as
     fused_front_reference."""
     if x.device.type == "cpu":
         return fused_front_reference(plan, x, dc, phase0, f_hi, f_lo, tail,
-                                     n_block, raw_rows)
+                                     n_block, raw_rows, disc_gain, disc_last,
+                                     y_tail_rows)
     if x.device.type != "cuda":
         raise ValueError(f"fused_front runs on cuda or cpu, not {x.device}")
-    t, n_block, r = _check_geometry(plan, x, n_block, raw_rows)
+    t, n_block, r = _check_geometry(plan, x, n_block, raw_rows, disc_gain,
+                                    disc_last, y_tail_rows)
     c2 = x.shape[1]
     c = c2 // 2
     dev = x.device
@@ -214,32 +290,49 @@ def fused_front(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
     for name, v in (("phase0", phase0), ("f_hi", f_hi), ("f_lo", f_lo)):
         _check_cuda(name, v, dev, (c,))
     _check_cuda("h", plan.h, dev, plan.h.shape)
+    if disc_gain:
+        _check_cuda("disc_last", disc_last, dev, (1, c2))
     if t * c2 >= 2 ** 31 or t // plan.factor >= _FIR_TILE * 65536:
         raise ValueError(f"front dispatch of {t} x {c2} is too large for one "
                          f"kernel launch")
-    lib = _lib()
-    smem = lib.front_fir_smem_bytes(plan.h.numel(), plan.factor)
-    if not 0 < smem <= _MAX_SMEM:
+    if not 0 < plan.smem_bytes <= _MAX_SMEM:
         raise ValueError(f"composed response of {plan.h.numel()} taps at "
                          f"factor {plan.factor} does not fit the FIR tile")
+    lib = _lib()
     a, b = plan.ewma
-    y = torch.empty(t // plan.factor, c2, dtype=torch.float32, device=dev)
-    dc_out = torch.empty(1, c2, dtype=torch.float32, device=dev)
-    tail_out = torch.empty(plan.d_rows, c2, dtype=torch.float32, device=dev)
-    raw = torch.empty(t // n_block, r, c2, dtype=torch.float32, device=dev)
-    mseq = torch.empty(t // DC_CHUNK, c2, dtype=torch.float32, device=dev)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    m = t // plan.factor
+    y = empty(m, c2)
+    dc_out, tail_out = empty(1, c2), empty(plan.d_rows, c2)
+    raw, mseq = empty(t // n_block, r, c2), empty(t // DC_CHUNK, c2)
+    disc = dlast = ytail = None
+    if disc_gain:
+        disc, dlast = empty(m, c), empty(1, c2)
+        if y_tail_rows:
+            ytail = empty(t // n_block, y_tail_rows, c2)
+
+    def ptr(v):
+        return None if v is None else v.data_ptr()
+
     err = lib.front_forward(
         dev.index if dev.index is not None else torch.cuda.current_device(),
         x.data_ptr(), t, c, n_block, r, dc.data_ptr(), tail.data_ptr(),
         plan.d_rows, phase0.data_ptr(), f_hi.data_ptr(), f_lo.data_ptr(),
         plan.h.data_ptr(), plan.h.numel(), plan.factor, a, b,
         mseq.data_ptr(), y.data_ptr(), dc_out.data_ptr(), tail_out.data_ptr(),
-        raw.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        raw.data_ptr(), float(disc_gain), ptr(disc_last), int(y_tail_rows),
+        ptr(disc), ptr(dlast), ptr(ytail),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"front kernel launch failed: CUDA error {err} "
                            f"({lib.front_error_string(err).decode()})")
     fused_front.launches += 1
-    return y, dc_out, tail_out, advance_phase(phase0, t, f_hi, f_lo), raw
+    ret = (y if ytail is None else ytail, dc_out, tail_out,
+           advance_phase(phase0, t, f_hi, f_lo), raw)
+    return ret + (disc, dlast) if disc_gain else ret
 
 
 fused_front.launches = 0  # CUDA kernel launches (the plain path never counts)

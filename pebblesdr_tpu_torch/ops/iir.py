@@ -1,19 +1,76 @@
-"""First-order IIR sections without a per-sample loop.
+"""First-order IIR sections without a per-sample loop, and biquad design.
 
 Port of the first-order half of pebblesdr_tpu/ops/iir.py:
 y[n] = a*y[n-1] + b*x[n] as (1) a closed form with one cumsum when N*(1-a)
 is small, (2) a chunked matmul (per-chunk zero-state response against a
 triangular table, cross-chunk handoff over N/L scalars) otherwise, and (3) a
 log-step scan where neither geometry fits (the JAX package's
-associative_scan).  All three are the same recurrence.
+associative_scan).  All three are the same recurrence.  Of the biquads only
+the design and the state layout are ported (the WFM state carries biquad
+leaves; no ported path applies one yet).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class BiquadCoef:
+    b0: float
+    b1: float
+    b2: float
+    a1: float
+    a2: float
+
+
+def design_biquad(kind: str, f0_hz: float, sample_rate: float,
+                  q: float) -> BiquadCoef:
+    """RBJ-cookbook biquad: kinds 'lowpass'|'highpass'|'bandpass'|'notch'."""
+    w0 = 2.0 * math.pi * f0_hz / sample_rate
+    alpha = math.sin(w0) / (2.0 * q)
+    cw = math.cos(w0)
+    if kind == "lowpass":
+        b0, b1, b2 = (1 - cw) / 2, 1 - cw, (1 - cw) / 2
+    elif kind == "highpass":
+        b0, b1, b2 = (1 + cw) / 2, -(1 + cw), (1 + cw) / 2
+    elif kind == "bandpass":
+        b0, b1, b2 = alpha, 0.0, -alpha
+    elif kind == "notch":
+        b0, b1, b2 = 1.0, -2 * cw, 1.0
+    else:
+        raise ValueError(kind)
+    a0 = 1 + alpha
+    return BiquadCoef(b0 / a0, b1 / a0, b2 / a0, (-2 * cw) / a0,
+                      (1 - alpha) / a0)
+
+
+def biquad_state_init(channels: int, device,
+                      dtype=torch.float32) -> torch.Tensor:
+    """DF2 state [C, 2]: (w[n-1], w[n-2])."""
+    return torch.zeros(channels, 2, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=32)
+def ewma_tables(k: int, a: float, device: torch.device):
+    """Closed form of y_k = a y_{k-1} + (1-a) p_k over k = 0..K-1 seeded by
+    y_{-1}: y = L @ p + s * y_{-1} with L[k, i] = (1-a) a^(k-i) (i <= k) and
+    s[k] = a^(k+1), float32 [K, K] and [K]."""
+    kk = np.arange(k)
+    lmat = np.where(kk[:, None] >= kk[None, :],
+                    (1.0 - a) * a ** (kk[:, None] - kk[None, :]), 0.0)
+    return (torch.from_numpy(lmat.astype(np.float32)).to(device),
+            torch.from_numpy((a ** (kk + 1)).astype(np.float32)).to(device))
+
+
+def deemphasis_alpha(tau_us: float, sample_rate: float) -> float:
+    """De-emphasis one-pole coefficient for 75 us (US) / 50 us (EU) FM audio."""
+    return math.exp(-1.0 / (tau_us * 1e-6 * sample_rate))
 
 
 @functools.lru_cache(maxsize=32)

@@ -174,3 +174,30 @@ def test_build_is_lazy_and_source_hashed():
     assert so.name.startswith("libfront_") and so.suffix == ".so"
     assert so == build.library_path("front")
     assert "front" not in build._loaded
+
+
+@pytest.mark.parametrize("ntaps,factor", [(20, 4), (9, 8), (30, 2), (283, 8),
+                                          (711, 32)])
+def test_fir_smem_holds_staging_and_partial_sums(ntaps, factor):
+    """front_fir's u area first stages span input rows, then holds the 16
+    groups' partial sums [16][24][16 lanes]: the layout reserves the larger
+    (small factors with few taps stage fewer rows than the sums need)."""
+    lay = front.fir_smem_layout(ntaps, factor)
+    span_floats = lay["span"] * 16
+    sums_floats = 16 * 24 * 16
+    assert lay["total"] - lay["u"] == max(span_floats, sums_floats)
+    if factor <= 4:
+        assert span_floats < sums_floats      # the geometry the repair covers
+    h = np.full(ntaps, 1.0 / ntaps)
+    plan = front.FrontPlan.make(h, factor, "cpu")
+    assert plan.smem_bytes == 4 * lay["total"] <= 232448
+
+
+def test_fir_branch_taps_cover_the_wfm_plan():
+    p = tdec.build_plan(FS, 200_000)
+    h = tdec.compose_response(p)
+    assert (p.factor, len(h)) == (8, 283)
+    assert front.fir_smem_layout(len(h), p.factor)["dp"] == 40
+    # no instantiation holds 100 taps per branch: the card path refuses it
+    assert front.fir_smem_layout(200, 2) is None
+    assert front.FrontPlan.make(np.ones(200) / 200, 2, "cpu").smem_bytes == 0

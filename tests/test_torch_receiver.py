@@ -205,16 +205,21 @@ def test_convert_round_trip():
 
 
 def test_port_imports_no_jax():
-    """The port runs a CPU step in a fresh interpreter without loading jax."""
+    """The port (AM and WFM modules) runs a CPU step of each ported mode in
+    a fresh interpreter without loading jax."""
     code = (
         "import sys, numpy as np, torch\n"
         "from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig\n"
-        "rx = Receiver(ReceiverConfig(sample_rate=2048000, "
-        "frames_per_buffer=8192, channels=2), 'cpu')\n"
+        "from pebblesdr_tpu_torch.demod import wfm\n"
+        "from pebblesdr_tpu_torch.ops import pll, wfm_tail\n"
+        "from pebblesdr_tpu.demod.modes import DemodMode\n"
         "x = torch.from_numpy(np.random.default_rng(0).standard_normal("
         "(8192, 4)).astype(np.float32))\n"
-        "st, out = rx.step(rx.init_state(), rx.default_params(250000.0), x)\n"
-        "assert out['audio'].shape == (2, rx.audio_blk)\n"
+        "for mode, shape in ((DemodMode.AM, (2,)), (DemodMode.FMS, (2, 2))):\n"
+        "    rx = Receiver(ReceiverConfig(sample_rate=2048000, "
+        "frames_per_buffer=8192, channels=2, mode=mode), 'cpu')\n"
+        "    st, out = rx.step(rx.init_state(), rx.default_params(250000.0), x)\n"
+        "    assert out['audio'].shape == shape + (rx.audio_blk,)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n")
     env = {**os.environ, "PYTHONPATH": REPO}
