@@ -32,17 +32,37 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
  10. stereo separation of an L-only 700 Hz program (bench.py:318-341) on
      the card;
  11. K1 (WFM form) and K2 against their plain versions, timed with CUDA
-     events.
+     events;
+ 12. K1 with its front options (float32 + IQ balance + NB1, float32 + IQ
+     balance + NB2, int16 + IQ balance + NB1) against its plain version at
+     the am_nb_64ch shape (64 channels, 32 blocks of 32768 frames), two
+     streaming calls each, on an impulsive input whose threshold margin is
+     asserted first, counting the blanked positions that differ; and NB1 in
+     the WFM form;
+ 13. the AM receiver on the card against the CPU with NB1 + IQ balance on,
+     with int16 planes, and with planes time-folded by 3 (C=2);
+ 14. the timed cells am_nb_64ch (bench.py's am_nb row, NB1), am_256ch and
+     am_i16_256ch (256 channels, 16 blocks, float32 and int16 planes, their
+     windows interleaved) and am_16ch (16 channels, 64 blocks, entered as a
+     plane folded by 4, with the unfold copy timed on its own);
+ 15. K1 at each timed cell's shape and form (the base form at am_64ch,
+     NB1 + IQ at am_nb_64ch, float32 at am_256ch, int16 at am_i16_256ch,
+     float32 at am_16ch) against its plain version on the same inputs, then
+     both timed, with each form's per-launch device times.
 Each receiver phase sets every kernel's launch count to 0 just before it
-drives the receiver and reads the counts just after.  The line before the
-last is the per-kernel JSON summary; the last line is {"ok": true,
-"device": {...}}.  No JAX is imported.
+drives the receiver and reads the counts just after.  Each kernel's bound
+is the larger of the bytes it must move over 3.35 TB/s and the operations
+it does over 67 TFLOP/s (the H100 SXM's float32 peak outside the tensor
+cores).  The line before the last is the per-kernel JSON summary; the last
+line is {"ok": true, "device": {...}}.  No JAX is imported.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -61,6 +81,19 @@ TONE_SNR_DB = 40.0       # 1 kHz tone (AM m = 0.8; WFM L), band above 100 Hz
 DISC_ATOL = 1e-4         # K1's discriminator vs plain (tests/test_pallas.py:286)
 SEPARATION_DB = 30.0     # WFM stereo separation (the JAX package: 34.6 dB)
 KERNELS = ("front", "wfm_tail")
+NB1 = (3.3, 7, 0.001, "blank")     # the Receiver's NB1 (threshold, width,
+NB2 = (3.3, 7, 0.001, "average")   # alpha, mode) and NB2
+IQ = (1.05, 0.02)                  # static IQ balance (gain, phase)
+SPIKES = (100, 511, 2046, 2049, 16385, 32765)   # impulse rows in each block
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+F32_FLOPS = 67e12                  # H100 SXM float32 outside tensor cores
+# the option cells: (name, channels, blocks, entry, receiver options)
+OPTION_CELLS = {
+    "am_nb_64ch": (64, 32, "f32", dict(enable_noise_blanker=True)),
+    "am_256ch": (256, 16, "f32", {}),
+    "am_i16_256ch": (256, 16, "i16", {}),
+    "am_16ch": (16, 64, "fold4", {}),
+}
 
 
 def log(msg: str) -> None:
@@ -110,6 +143,56 @@ def am_plane(channels: int, n_rows: int, rng, noise: float = 0.0):
     if noise:
         plane = plane + noise * rng.standard_normal(plane.shape)
     return plane.astype(np.float32)
+
+
+def impulsive(plane: np.ndarray, n: int) -> np.ndarray:
+    """Add 8+8j impulses (20x and more above the floor) at chunk, sub-block
+    and block seams of every n-row block of a packed plane, in place."""
+    rows = (np.arange(plane.shape[0] // n)[:, None] * n
+            + np.array(SPIKES)[None, :] % n).ravel()
+    plane[rows] += 8.0
+    return plane
+
+
+def to_i16(plane: np.ndarray, scale: float = 32768.0) -> np.ndarray:
+    return np.clip(np.round(plane * scale), -32768, 32767).astype(np.int16)
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes over the HBM rate or
+    operations over the float32 peak, whichever is larger."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    return {"bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def k1_bound(plan, t: int, c: int, x_bytes: int, n_block: int,
+             raw_rows: int, disc: bool = False, y_tail_rows: int = 0,
+             nb: bool = False, iq: bool = False) -> dict:
+    """K1's bound from its shapes: the plane read once, every output
+    written once, the carried state read and written; the FIR's 2 (D+1)
+    operations per decimated lane plus the per-row work (DC 2 per lane,
+    mix 6, IQ 3 and blanker 6 per channel; discriminator ~26 per output)."""
+    c2, k, m = 2 * c, t // n_block, t // plan.factor
+    nbytes = (t * c2 * x_bytes + 2 * plan.d_rows * c2 * 4
+              + k * raw_rows * c2 * 4
+              + (k * y_tail_rows if y_tail_rows else m) * c2 * 4
+              + (m * c * 4 if disc else 0)
+              + (2 * (1 + 16) * c2 * 4 if nb else 0))
+    ops = (2 * plan.h.numel() * m * c2 + 2 * t * c2 + 6 * t * c
+           + (3 * t * c if iq else 0) + (6 * t * c if nb else 0)
+           + (26 * m * c if disc else 0))
+    return bound(nbytes, ops)
+
+
+def k2_bound(tplan, n: int, c: int) -> dict:
+    """K2's bound: raw [n, C] and the pilot parameters read, the audio
+    [n/F, 2C] written, the history read and written; 2 (D+1) operations per
+    decimated lane plus ~24 per row and channel for the demux."""
+    nbytes = (n * c * 4 + 2 * (n // tplan.ell) * c * 4
+              + (n // tplan.factor) * 2 * c * 4 + 2 * tplan.d_rows * 2 * c * 4)
+    ops = 2 * tplan.h.numel() * (n // tplan.factor) * 2 * c + 24 * n * c
+    return bound(nbytes, ops)
 
 
 def tone_snr_db(audio: np.ndarray, rate: float, f0: float = 1000.0) -> float:
@@ -184,35 +267,62 @@ def phase_front(torch, front, decimator) -> dict:
     return {"plan": plan, "f_hi": f_hi, "f_lo": f_lo, "max_abs_err": max_abs}
 
 
-def phase_slice(torch, receiver, convert, front, wfm_tail, mode) -> None:
-    """Phases 3 (AM) and 8 (FMS): the receiver on the card vs on the CPU."""
+def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
+                entry: str | None = None) -> None:
+    """Phases 3 (AM), 8 (FMS) and 13 (AM with an entry option: "nb1_iq",
+    "i16" or "folded"): the receiver on the card vs on the CPU."""
     wfm = mode.name == "FMS"
-    tag = "phase8 WFM slice" if wfm else "phase3 slice"
+    tag = (f"phase13 slice {entry}" if entry else
+           "phase8 WFM slice" if wfm else "phase3 slice")
     c, n = SLICE["channels"], SLICE["frames"]
+    if entry == "folded":
+        c = 2
+    opts = (dict(enable_noise_blanker=True, enable_iq_balance=True)
+            if entry == "nb1_iq" else {})
     cfg = receiver.ReceiverConfig(sample_rate=FS, frames_per_buffer=n,
-                                  channels=c, mode=mode, agc_stride=16)
+                                  channels=c, mode=mode, agc_stride=16, **opts)
     rx_cpu = receiver.Receiver(cfg, "cpu")
     rx_gpu = receiver.Receiver(cfg, "cuda")
     rng = np.random.default_rng(5 if wfm else 2)
     params_c = rx_cpu.default_params(250_000.0)
     params_g = rx_gpu.default_params(250_000.0)
+    if entry == "nb1_iq":
+        for name, v in zip(("iq_gain", "iq_phase"), IQ):
+            params_c = dataclasses.replace(params_c, **{name: torch.tensor(v)})
+            params_g = dataclasses.replace(
+                params_g, **{name: torch.tensor(v, device="cuda")})
 
     def plane(rows):
-        return (wfm_plane(c, rows, rng, 1e-2, program="left") if wfm
-                else am_plane(c, rows, rng, 1e-2))
+        x = (wfm_plane(c, rows, rng, 1e-2, program="left") if wfm
+             else am_plane(c, rows, rng, 1e-2))
+        return impulsive(x, n) if entry == "nb1_iq" else x
+
+    def entry_plane(x):
+        if entry == "i16":
+            return to_i16(x, 16384.0)
+        if entry == "folded":
+            return front.fold_plane_np(x, 3)
+        return x
 
     # a one-block warm-up on the CPU, carried to both, so no compared
     # dispatch starts from the zero state's filter leading edge
     st_c, _ = rx_cpu.step_many(rx_cpu.init_state(), params_c,
                                torch.from_numpy(plane(n)))
     st_g = convert.state_from_numpy(rx_gpu, convert.state_to_numpy(st_c))
-    reset_launches(front, wfm_tail)
     for k in SLICE["dispatches"]:
-        x = plane(k * n)
-        st_c, out_c = rx_cpu.step_many(st_c, params_c, torch.from_numpy(x))
-        st_g, out_g = rx_gpu.step_many(st_g, params_g,
-                                       torch.from_numpy(x).cuda())
+        x = torch.from_numpy(entry_plane(plane(k * n)))
+        if entry == "nb1_iq":
+            _, z = front.dc_iq_reference(rx_cpu.front, x, st_c.dc,
+                                         params_c.iq_gain, params_c.iq_phase)
+            assert_margin(front.nb_flags(z, rx_cpu.nb_params, *st_c.nb),
+                          rx_cpu.nb_params, tag)
+        st_c, out_c = rx_cpu.step_many(st_c, params_c, x)
+        reset_launches(front, wfm_tail)
+        st_g, out_g = rx_gpu.step_many(st_g, params_g, x.cuda())
         torch.cuda.synchronize()
+        launches = (front.fused_front.launches, wfm_tail.wfm_tail.launches)
+        if launches != (1, 1 if wfm else 0):
+            raise RuntimeError(f"{tag}: launches (K1, K2) = {launches}")
         d_audio = float((out_g["audio"].cpu() - out_c["audio"]).abs().max())
         d_db = {key: float((out_g[key].cpu() - out_c[key]).abs().max())
                 for key in ("spectrum", "zoomed")}
@@ -230,76 +340,126 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode) -> None:
         if not (d_audio <= 2e-4 and max(d_db.values()) <= 0.1
                 and all(same.values()) and d_state <= 1e-4):
             raise RuntimeError(f"{tag}: card disagrees with the CPU at K={k}")
-    launches = (front.fused_front.launches, wfm_tail.wfm_tail.launches)
-    if launches != (2, 2 if wfm else 0):
-        raise RuntimeError(f"{tag}: launches (K1, K2) = {launches}")
-    log(f"{tag.split()[0]} ok: card slice == CPU slice")
+    log(f"{tag.split()[0]} ok: card slice == CPU slice"
+        + (f" ({entry})" if entry else ""))
+
+
+def assert_margin(fl, nb, tag: str) -> None:
+    """The blanker's spike test is a comparison: fail unless no sample's
+    ratio mag2 / (thr^2 max(avg, 1e-18)) lies in [0.999, 1.001]."""
+    ratio = fl.mag2 / (float(np.float32(nb[0] ** 2)) * fl.avg.clamp(min=1e-18))
+    near = int(((ratio >= 0.999) & (ratio <= 1.001)).sum())
+    if near:
+        raise RuntimeError(f"{tag}: {near} samples within 0.1 % of the "
+                           f"blanker's threshold")
+
+
+def make_cell(torch, receiver, front, mode, name: str, channels: int,
+              blocks: int, entry: str = "f32", opts: dict | None = None):
+    """One timed cell: a receiver on the card and its dispatch plane (one
+    bench signal block repeated, as float32, int16 or folded by 4)."""
+    n = HEADLINE["frames"]
+    wfm = mode.name == "FMS"
+    cfg = receiver.ReceiverConfig(sample_rate=FS, frames_per_buffer=n,
+                                  channels=channels, mode=mode,
+                                  agc_stride=HEADLINE["agc_stride"],
+                                  **(opts or {}))
+    rx = receiver.Receiver(cfg, "cuda")
+    block = (wfm_plane if wfm else am_plane)(channels, n, None)
+    if entry == "i16":
+        block = to_i16(block)
+    if entry == "fold4":       # bench.py:130-146: G blocks side by side
+        iq = torch.from_numpy(front.fold_plane_np(np.tile(block, (4, 1)), 4))
+        iq = iq.cuda().repeat(blocks // 4, 1).contiguous()
+    else:
+        iq = torch.from_numpy(block).cuda().repeat(blocks, 1).contiguous()
+    return {"name": name, "rx": rx, "cfg": cfg, "wfm": wfm,
+            "params": rx.default_params(250_000.0), "iq": iq,
+            "blocks": blocks, "channels": channels, "state": rx.init_state(),
+            "out": None, "i": 0, "launches": [0, 0], "windows": []}
+
+
+def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
+    """Warm each cell up, then time WINDOWS windows of each, interleaved
+    (cell A, cell B, cell A, ...), counting each cell's kernel launches and
+    checking its last dispatch's audio."""
+    def dispatch(cell):
+        i = cell["i"]
+        cell["state"], cell["out"] = cell["rx"].step_many(
+            cell["state"], cell["params"], cell["iq"],
+            spectra=(i % SPECTRA_EVERY == 0))
+        cell["i"] = i + 1
+
+    def counted(cell, fn):
+        reset_launches(front, wfm_tail)
+        fn()
+        torch.cuda.synchronize()
+        cell["launches"][0] += front.fused_front.launches
+        cell["launches"][1] += wfm_tail.wfm_tail.launches
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for cell in cells:
+        counted(cell, lambda: [dispatch(cell) for _ in range(WARMUP)])
+    for _ in range(WINDOWS):
+        for cell in cells:
+            counted(cell, lambda: cell["windows"].append(
+                time_cuda(torch, lambda: dispatch(cell), WINDOW_DISPATCHES)))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = HEADLINE["frames"]
+    for cell in cells:
+        c, k, wfm = cell["channels"], cell["blocks"], cell["wfm"]
+        n_dispatch = WARMUP + WINDOWS * WINDOW_DISPATCHES
+        launches = tuple(cell["launches"])
+        if launches != (n_dispatch, n_dispatch if wfm else 0):
+            raise RuntimeError(f"{tag} {cell['name']}: launches (K1, K2) "
+                               f"{launches} for {n_dispatch} dispatches")
+        windows = cell["windows"]
+        best = min(windows)                               # ms per dispatch
+        cell.update(block_ms=best / k, msps=c * n * k / (best / 1e3) / 1e6,
+                    realtime=n * k / (best / 1e3) / FS, peak_gib=peak)
+        log(f"{tag} {cell['name']} {c}ch x {n} x {k}: dispatch ms per "
+            f"window " + " ".join(f"{w:.4f}" for w in windows)
+            + f"; block {cell['block_ms']:.5f} ms, {cell['msps']:.1f} Msps "
+            f"per GPU, {cell['realtime']:.1f}x realtime per channel, window "
+            f"spread {max(windows) / best:.3f}; K1 launches {launches[0]}, "
+            f"K2 launches {launches[1]} for {n_dispatch} dispatches "
+            f"({launches[0] / n_dispatch:g} K1 per dispatch); peak device "
+            f"memory {peak:.3f} GiB" + (" (cells timed together)"
+                                        if len(cells) > 1 else ""))
+        out = cell["out"]
+        audio = out["audio"]
+        # WFM: left and right, 64 kHz blocks of n/32 resampled to 48 kHz
+        shape = (k, c, 2, n * 3 // 128) if wfm else (k, c, cell["rx"].audio_blk)
+        if not bool(torch.isfinite(audio).all()):
+            raise RuntimeError(f"{tag} {cell['name']}: audio is not finite")
+        if tuple(audio.shape) != shape:
+            raise RuntimeError(f"{tag} {cell['name']}: audio shape "
+                               f"{tuple(audio.shape)}")
+        if not bool(out["squelch_open"].all()):
+            raise RuntimeError(f"{tag} {cell['name']}: squelch closed")
+        if wfm and not bool(out["pilot_locked"].all()):
+            raise RuntimeError(f"{tag} {cell['name']}: pilot not locked")
+        tone = audio[:, 0, 0, :] if wfm else audio[:, 0, :]  # WFM: L channel
+        snr = tone_snr_db(tone.reshape(-1).double().cpu().numpy(),
+                          cell["cfg"].audio_rate)
+        log(f"{tag} {cell['name']} tone SNR {snr:.2f} dB (>= {TONE_SNR_DB}), "
+            f"S-meter SNR {float(out['smeter']['snr_db'][-1, 0]):.2f} dB")
+        if not snr >= TONE_SNR_DB:
+            raise RuntimeError(f"{tag} {cell['name']}: tone SNR below its "
+                               f"bound")
 
 
 def phase_headline(torch, receiver, front, wfm_tail, mode) -> dict:
     """Phases 4 (AM) and 9 (FMS): the headline run, timed, with its launch
     counts and a check of the audio."""
     wfm = mode.name == "FMS"
-    tag = "phase9" if wfm else "phase4"
-    c, n, k = HEADLINE["channels"], HEADLINE["frames"], HEADLINE["blocks"]
-    cfg = receiver.ReceiverConfig(sample_rate=FS, frames_per_buffer=n,
-                                  channels=c, mode=mode,
-                                  agc_stride=HEADLINE["agc_stride"])
-    rx = receiver.Receiver(cfg, "cuda")
-    params = rx.default_params(250_000.0)
-    block = torch.from_numpy((wfm_plane if wfm else am_plane)(c, n, None))
-    iq = block.cuda().repeat(k, 1).contiguous()          # [K*N, 2C]
-    box = {"state": rx.init_state(), "out": None, "i": 0}
-
-    def dispatch():
-        i = box["i"]
-        box["state"], box["out"] = rx.step_many(
-            box["state"], params, iq, spectra=(i % SPECTRA_EVERY == 0))
-        box["i"] = i + 1
-
-    reset_launches(front, wfm_tail)
-    for _ in range(WARMUP):
-        dispatch()
-    torch.cuda.synchronize()
-    windows = [time_cuda(torch, dispatch, WINDOW_DISPATCHES)
-               for _ in range(WINDOWS)]
-    torch.cuda.synchronize()
-    launches = (front.fused_front.launches, wfm_tail.wfm_tail.launches)
-    n_dispatch = WARMUP + WINDOWS * WINDOW_DISPATCHES
-    log(f"{tag} K1 launches {launches[0]}, K2 launches {launches[1]} for "
-        f"{n_dispatch} dispatches")
-    if launches != (n_dispatch, n_dispatch if wfm else 0):
-        raise RuntimeError(f"{tag}: the headline did not go through its "
-                           f"kernels once per dispatch")
-    best = min(windows)                                   # ms per dispatch
-    block_ms = best / k
-    msps = c * n * k / (best / 1e3) / 1e6
-    realtime = n * k / (best / 1e3) / FS
-    log(f"{tag} headline {mode.name} {c}ch x {n} x {k}: dispatch ms per "
-        f"window " + " ".join(f"{w:.4f}" for w in windows)
-        + f"; block {block_ms:.5f} ms, {msps:.1f} Msps per GPU, "
-        f"{realtime:.1f}x realtime per channel, window spread "
-        f"{max(windows) / best:.3f}")
-
-    out = box["out"]
-    audio = out["audio"]
-    # WFM: left and right, 64 kHz blocks of n/32 resampled to 48 kHz
-    shape = (k, c, 2, n * 3 // 128) if wfm else (k, c, rx.audio_blk)
-    if not bool(torch.isfinite(audio).all()):
-        raise RuntimeError(f"{tag}: headline audio is not finite")
-    if tuple(audio.shape) != shape:
-        raise RuntimeError(f"{tag}: headline audio shape {tuple(audio.shape)}")
-    if not bool(out["squelch_open"].all()):
-        raise RuntimeError(f"{tag}: squelch closed on the headline signal")
-    if wfm and not bool(out["pilot_locked"].all()):
-        raise RuntimeError(f"{tag}: pilot not locked on the headline signal")
-    tone = audio[:, 0, 0, :] if wfm else audio[:, 0, :]  # WFM: the L channel
-    snr = tone_snr_db(tone.reshape(-1).double().cpu().numpy(), cfg.audio_rate)
-    log(f"{tag} tone SNR {snr:.2f} dB (>= {TONE_SNR_DB}), S-meter SNR "
-        f"{float(out['smeter']['snr_db'][-1, 0]):.2f} dB")
-    if not snr >= TONE_SNR_DB:
-        raise RuntimeError(f"{tag}: headline tone SNR below its bound")
-    return {"launches": launches, "block_ms": block_ms, "msps": msps}
+    cell = make_cell(torch, receiver, front, mode,
+                     "wfm_64ch" if wfm else "am_64ch", HEADLINE["channels"],
+                     HEADLINE["blocks"])
+    time_cells(torch, front, wfm_tail, [cell], "phase9" if wfm else "phase4")
+    return {"launches": tuple(cell["launches"]), "block_ms": cell["block_ms"],
+            "msps": cell["msps"]}
 
 
 def time_pair(torch, kernel, plain, reps: int = 10):
@@ -482,6 +642,214 @@ def phase_wfm_time(torch, front, wfm_tail, fw, tl) -> dict:
     return {"k1": k1[:2], "k2": k2[:2]}
 
 
+def phase_front_options(torch, front, fr, fw) -> dict:
+    """Phase 12: K1 with its front options vs plain at the am_nb_64ch shape,
+    then NB1 in the WFM form; impulsive inputs, margin asserted first."""
+    c, n, k = HEADLINE["channels"], HEADLINE["frames"], HEADLINE["blocks"]
+    iq = tuple(torch.tensor(v, device="cuda") for v in IQ)
+    rng = np.random.default_rng(12)
+    zeros = dict(dtype=torch.float32, device="cuda")
+    res = {"mismatches": 0, "worst": 0.0}
+    forms = (("f32+IQ+NB1", NB1, False, False), ("f32+IQ+NB2", NB2, False, False),
+             ("int16+IQ+NB1", NB1, True, False), ("WFM+NB1", NB1, False, True))
+    for form, nb, i16, wfm in forms:
+        f = fw if wfm else fr
+        plan = f["plan"]
+        kw = dict(n_block=n, raw_rows=2048, nb=nb)
+        if wfm:
+            kw.update(disc_gain=f["gain"], y_tail_rows=f["zt"])
+        else:
+            kw.update(iq_gain=iq[0], iq_phase=iq[1])
+        st_k = st_r = (torch.zeros(1, 2 * c, **zeros), torch.zeros(c, **zeros),
+                       torch.zeros(plan.d_rows, 2 * c, **zeros),
+                       torch.zeros(1, 2 * c, **zeros),
+                       torch.zeros(16, 2 * c, **zeros),
+                       torch.zeros(1, 2 * c, **zeros))
+        for call in range(2):
+            x = (wfm_plane(c, k * n, rng, noise=0.02) if wfm
+                 else am_plane(c, k * n, rng, noise=0.01) + 0.05 * (call + 1))
+            x = impulsive(x, n)
+            x = torch.from_numpy(to_i16(x, 2048.0) if i16 else x).cuda()
+            _, z = front.dc_iq_reference(plan, front.dequantize(x), st_r[0],
+                                         kw.get("iq_gain"), kw.get("iq_phase"))
+            assert_margin(front.nb_flags(z, nb, st_r[3], st_r[4]), nb,
+                          f"phase12 {form}")
+            del z
+            outs, masks = [], []
+            for st, fn in ((st_k, front.fused_front),
+                           (st_r, front.fused_front_reference)):
+                masks.append(torch.zeros(k * n, 2 * c, dtype=torch.uint8,
+                                         device="cuda"))
+                outs.append(fn(plan, x, st[0], st[1], f["f_hi"], f["f_lo"],
+                               st[2], nb_avg=st[3], nb_tail=st[4],
+                               nb_mask=masks[-1],
+                               disc_last=st[5] if wfm else None, **kw))
+            torch.cuda.synchronize()
+            out_k, out_r = outs
+            names = ("y", "dc", "tail", "phase", "raw", "nb_avg", "nb_tail",
+                     "disc", "dlast")
+            errs = {nm: rel_err(a, b) for nm, a, b in zip(names, out_k, out_r)
+                    if nm not in ("phase", "disc")}
+            errs["phase"] = float((out_k[3] - out_r[3]).abs().max())
+            disc_err = (float((out_k[7] - out_r[7]).abs().max()) if wfm
+                        else 0.0)
+            mism = int((masks[0] != masks[1]).sum())
+            tail_mism = int((out_k[6] != out_r[6]).sum())
+            blanked = int(masks[1].sum())
+            res["worst"] = max(res["worst"], max(errs.values()))
+            res["mismatches"] += mism + tail_mism
+            log(f"phase12 K1 {form} call {call}: relative max errors "
+                + " ".join(f"{kk}={v:.3g}" for kk, v in errs.items())
+                + (f"; disc abs {disc_err:.3g}" if wfm else "")
+                + f"; blanked lanes {blanked}, flag mismatches {mism} "
+                f"(dilated), {tail_mism} (nb_tail')")
+            if not (max(errs.values()) <= FRONT_RTOL and mism == 0
+                    and tail_mism == 0 and blanked > 0
+                    and disc_err <= DISC_ATOL):
+                raise RuntimeError(f"phase12: K1 {form} disagrees with its "
+                                   f"plain version")
+            nxt = []
+            for o, st in ((out_k, st_k), (out_r, st_r)):
+                nxt.append((o[1], o[3], o[2], o[5], o[6],
+                            o[8] if wfm else st[5]))
+            st_k, st_r = nxt
+            del outs, masks, out_k, out_r, x
+    log(f"phase12 ok: K1's option forms == plain within {FRONT_RTOL} (worst "
+        f"{res['worst']:.3g}), flag mismatches {res['mismatches']}")
+    return res
+
+
+def phase_cells(torch, receiver, front, wfm_tail, DemodMode) -> dict:
+    """Phase 14: the option cells, am_256ch and am_i16_256ch interleaved;
+    and the folded entry's unfold copy on its own."""
+    done = {}
+    for group in (("am_nb_64ch",), ("am_256ch", "am_i16_256ch"),
+                  ("am_16ch",)):
+        cells = [make_cell(torch, receiver, front, DemodMode.AM, name,
+                           *OPTION_CELLS[name]) for name in group]
+        time_cells(torch, front, wfm_tail, cells, "phase14")
+        for cell in cells:
+            done[cell["name"]] = {key: cell[key] for key in (
+                "launches", "block_ms", "msps", "realtime", "peak_gib")}
+        if group == ("am_16ch",):
+            iq = cells[0]["iq"]
+            front.unfold_plane(iq, 4)
+            ms = time_cuda(torch, lambda: front.unfold_plane(iq, 4), 20)
+            nbytes = 2 * iq.numel() * iq.element_size()
+            log(f"phase14 am_16ch unfold copy of the {tuple(iq.shape)} "
+                f"entry plane: {ms:.4f} ms ({nbytes / 2 ** 30:.3f} GiB read "
+                f"and written, {nbytes / (ms / 1e3) / 1e9:.1f} GB/s; bound "
+                f"{bound(nbytes, 0)['bound_ms']:.4f} ms)")
+            done["unfold_ms"] = ms
+        del cells
+        torch.cuda.empty_cache()
+    return done
+
+
+def kernel_breakdown(torch, fn, reps: int = 3) -> str:
+    """Device time per launch of each CUDA kernel fn launches, with the
+    launches the profiler recorded over reps calls (torch.profiler, CUDA
+    activity only; a count below reps means records were lost)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0) or 0
+        m = re.search(r"(front_\w+|wfm_tail_\w+)(<[^>]*>)?", ev.key)
+        if us and m:
+            tot, n = rows.get(m.group(0), (0.0, 0))
+            rows[m.group(0)] = (tot + us / 1e3, n + ev.count)
+    return ", ".join(f"{k} {tot / n:.4f} (x{n})" for k, (tot, n) in
+                     sorted(rows.items(), key=lambda kv: -kv[1][0])) or "none"
+
+
+def check_options_form(torch, front, plan, args, kw, tag: str) -> dict:
+    """One K1 call and one plain call on the same inputs: every output
+    within FRONT_RTOL relative (the phase in absolute), and with the
+    blanker on, its margin asserted first and no blanked position or
+    nb_tail' flag that differs."""
+    masks = [{}, {}]
+    if kw.get("nb"):
+        x, dc = args[0], args[1]
+        _, z = front.dc_iq_reference(plan, front.dequantize(x), dc,
+                                     kw["iq_gain"], kw["iq_phase"])
+        assert_margin(front.nb_flags(z, kw["nb"], kw["nb_avg"], kw["nb_tail"]),
+                      kw["nb"], tag)
+        del z
+        masks = [{"nb_mask": torch.zeros(x.shape, dtype=torch.uint8,
+                                         device=x.device)} for _ in range(2)]
+    out_k = front.fused_front(plan, *args, **kw, **masks[0])
+    out_r = front.fused_front_reference(plan, *args, **kw, **masks[1])
+    torch.cuda.synchronize()
+    names = ("y", "dc", "tail", "phase", "raw", "nb_avg", "nb_tail")
+    errs = {nm: rel_err(a, b) for nm, a, b in zip(names, out_k, out_r)
+            if nm != "phase"}
+    errs["phase"] = float((out_k[3] - out_r[3]).abs().max())
+    mism = 0
+    if kw.get("nb"):
+        mism = (int((masks[0]["nb_mask"] != masks[1]["nb_mask"]).sum())
+                + int((out_k[6] != out_r[6]).sum()))
+    worst = max(errs.values())
+    max_abs = float((out_k[0] - out_r[0]).abs().max())
+    log(f"{tag}: relative max errors "
+        + " ".join(f"{kk}={v:.3g}" for kk, v in errs.items())
+        + f" (worst {worst:.3g}); max abs y error {max_abs:.3g}"
+        + (f"; flag mismatches {mism}" if kw.get("nb") else ""))
+    if not (worst <= FRONT_RTOL and mism == 0):
+        raise RuntimeError(f"{tag}: K1 disagrees with its plain version")
+    return {"worst": worst, "max_abs_err": max_abs}
+
+
+def phase_options_time(torch, front, fr) -> dict:
+    """Phase 15: K1 with the options vs plain at each cell's shape: the base
+    form at am_64ch, NB1 + IQ at am_nb_64ch, float32 at am_256ch, int16 at
+    am_i16_256ch, float32 at am_16ch (after the unfold); each checked
+    against plain once, then timed (runs plain, kernel, kernel, plain),
+    with its per-launch device times."""
+    n = HEADLINE["frames"]
+    plan = fr["plan"]
+    zeros = dict(dtype=torch.float32, device="cuda")
+    iq = tuple(torch.tensor(v, device="cuda") for v in IQ)
+    res = {}
+    for name, c, k, form in (("am_64ch", 64, 32, "f32"),
+                             ("am_nb_64ch", 64, 32, "nb1_iq"),
+                             ("am_256ch", 256, 16, "f32"),
+                             ("am_i16_256ch", 256, 16, "i16"),
+                             ("am_16ch", 16, 64, "f32")):
+        i16, nb = form == "i16", form == "nb1_iq"
+        block = am_plane(c, n, None)
+        x = torch.from_numpy(to_i16(block) if i16 else block).cuda()
+        x = x.repeat(k, 1).contiguous()
+        f_hi, f_lo = (v[:1].repeat(c).contiguous() for v in (fr["f_hi"],
+                                                            fr["f_lo"]))
+        args = (x, torch.zeros(1, 2 * c, **zeros), torch.zeros(c, **zeros),
+                f_hi, f_lo, torch.zeros(plan.d_rows, 2 * c, **zeros))
+        kw = dict(n_block=n, raw_rows=2048)
+        if nb:
+            kw.update(iq_gain=iq[0], iq_phase=iq[1], nb=NB1,
+                      nb_avg=torch.zeros(1, 2 * c, **zeros),
+                      nb_tail=torch.zeros(16, 2 * c, **zeros))
+        check = check_options_form(torch, front, plan, args, kw,
+                                   f"phase15 K1 {form} at {name}")
+        ms, plain_ms, t = time_pair(
+            torch, lambda: front.fused_front(plan, *args, **kw),
+            lambda: front.fused_front_reference(plan, *args, **kw))
+        b = k1_bound(plan, k * n, c, 2 if i16 else 4, n, 2048, nb=nb, iq=nb)
+        res[name] = {"ms": ms, "plain_ms": plain_ms, **check, **b}
+        log(f"phase15 K1 {form} at {name}: {ms:.4f} ms vs plain "
+            f"{plain_ms:.4f} ms per dispatch (runs kernel {t['kernel']}, "
+            f"plain {t['plain']}); bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}); per launch (ms): "
+            + kernel_breakdown(torch, lambda: front.fused_front(plan, *args,
+                                                                **kw)))
+        del args, x
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -524,21 +892,49 @@ def main() -> int:
     whead = phase_headline(torch, receiver, front, wfm_tail, DemodMode.FMS)
     phase_separation(torch, receiver, DemodMode)
     wtimes = phase_wfm_time(torch, front, wfm_tail, fw, tl)
+    phase_front_options(torch, front, fr, fw)
+    for entry in ("nb1_iq", "i16", "folded"):
+        phase_slice(torch, receiver, convert, front, wfm_tail, DemodMode.AM,
+                    entry)
+    cells = phase_cells(torch, receiver, front, wfm_tail, DemodMode)
+    otimes = phase_options_time(torch, front, fr)
 
+    c, n, k = HEADLINE["channels"], HEADLINE["frames"], HEADLINE["blocks"]
+    t = n * k
+    # no single PyTorch call computes DC + mix + decimating FIR, or demux +
+    # decimating low-pass: library_ms is null for both kernels
     log(json.dumps({"kernels": [
         {"name": "fused_front", "route": "cuda", "source": front.SOURCE,
          "replaces": front.REPLACES, "launches": head["launches"][0],
          "max_abs_err": fr["max_abs_err"], "ms": times["ms"],
-         "plain_ms": times["plain_ms"]},
+         "plain_ms": times["plain_ms"],
+         **k1_bound(fr["plan"], t, c, 4, n, 2048), "library_ms": None},
         {"name": "fused_front (WFM form: disc_gain, y_tail_rows)",
          "route": "cuda", "source": front.SOURCE,
          "replaces": "pebblesdr_tpu/ops/pallas_kernels.py:352",
          "launches": whead["launches"][0], "max_abs_err": fw["max_abs_err"],
-         "ms": wtimes["k1"][0], "plain_ms": wtimes["k1"][1]},
+         "ms": wtimes["k1"][0], "plain_ms": wtimes["k1"][1],
+         **k1_bound(fw["plan"], t, c, 4, n, 2048, disc=True,
+                    y_tail_rows=fw["zt"]), "library_ms": None},
         {"name": "wfm_tail", "route": "cuda", "source": wfm_tail.SOURCE,
          "replaces": wfm_tail.REPLACES, "launches": whead["launches"][1],
          "max_abs_err": tl["max_abs_err"], "ms": wtimes["k2"][0],
-         "plain_ms": wtimes["k2"][1]}]}))
+         "plain_ms": wtimes["k2"][1],
+         **k2_bound(tl["plan"], t // fw["plan"].factor, c),
+         "library_ms": None},
+    ] + [
+        # one entry per option form, each from its own cell
+        {"name": f"fused_front ({form})", "route": "cuda",
+         "source": front.SOURCE,
+         "replaces": f"pebblesdr_tpu/ops/pallas_kernels.py:{lines}",
+         "launches": cells[cell]["launches"][0],
+         **{key: otimes[cell][key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None}
+        for form, lines, cell in (
+            ("IQ balance + noise blanker NB1", "212, :218", "am_nb_64ch"),
+            ("int16 entry", "181", "am_i16_256ch"))
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,8 +5,9 @@ Port of pebblesdr_tpu/chain/receiver.py for the batched ``step_many`` path
 (``_step_many_impl`` -> ``_step_many_batched`` -> ``_tail_many``), AM and
 FM-stereo branches:
 
-  fused front (DC blocker + NCO mix + composed-FIR decimation, ops/front.py;
-  for WFM also the FM discriminator and each block's trailing zoom window)
+  fused front (DC blocker, optional static IQ balance and NB1/NB2 noise
+  blanker, NCO mix, composed-FIR decimation, ops/front.py; for WFM also the
+  FM discriminator and each block's trailing zoom window)
   -> full-rate display spectrum per block (closed-form EWMA over blocks)
   -> zoomed demod-rate power per block -> S-meter -> squelch with 3 dB
      hysteresis
@@ -15,8 +16,13 @@ FM-stereo branches:
      L/R -> de-emphasis (demod/wfm.py) -> stereo resampler
   -> squelch / gain / mute gate.
 
+Entry planes are float32 or int16 (the ADC's native container, read as
+x * 2^-15), unfolded [K*N, 2C] or time-folded [K*N/G, 2GC] (the TPU feeders'
+layout, pallas_kernels.fold_plane_np; unfolded on entry with one copy).
+
 State is explicit (ReceiverState), with the fields and shapes of the JAX
-pytree in its fused-front layout: ``dc`` [1, 2C], ``decim`` [d_rows, 2C];
+pytree in its fused-front layout: ``dc`` [1, 2C], ``decim`` [d_rows, 2C],
+``nb`` (avg [1, 2C], spike tail [16, 2C]) with the noise blanker on;
 for WFM the demod state is the fused-tail WFMState and the FastFIR and AGC
 states ride along untouched, as in the JAX package.  The Receiver is built
 for one device and runs its whole graph there; on a CUDA device the front
@@ -32,10 +38,10 @@ from typing import Any
 import numpy as np
 import torch
 
-from pebblesdr_tpu.demod.modes import MODE_INFO, DemodMode
 from pebblesdr_tpu_torch.core import db as dbu
 from pebblesdr_tpu_torch.demod import am as am_mod
 from pebblesdr_tpu_torch.demod import wfm as wfm_mod
+from pebblesdr_tpu_torch.demod.modes import MODE_INFO, DemodMode
 from pebblesdr_tpu_torch.ops import (agc, decimator, fastfir, front, iir,
                                      mixer, resampler, signalstrength,
                                      spectrum)
@@ -57,6 +63,10 @@ class ReceiverConfig:
     rds: bool = False                     # WFM RDS tap (not ported)
     wfm_hq: bool = False                  # WFM hq geometry (not ported)
     db_offset: float = 0.0                # display calibration offset
+    enable_noise_blanker: bool | str = False  # True: NB1 (blank);
+    #                                       "average": NB2 (RMS substitution)
+    enable_iq_balance: bool | str = False  # True: static params.iq_gain/
+    #                                       iq_phase ("auto" is not ported)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,8 +80,8 @@ class RxParams:
     squelch_db: torch.Tensor  # scalar; -999 = always open
     gain: torch.Tensor        # scalar audio gain
     mute: torch.Tensor        # scalar bool
-    iq_gain: torch.Tensor     # scalar IQ balance gain (unused by ported paths)
-    iq_phase: torch.Tensor    # scalar IQ balance phase (unused by ported paths)
+    iq_gain: torch.Tensor     # scalar IQ balance gain (enable_iq_balance)
+    iq_phase: torch.Tensor    # scalar IQ balance phase (enable_iq_balance)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +113,16 @@ class Receiver:
         if cfg.mode == DemodMode.FMS and cfg.wfm_hq:
             raise ValueError("WFM: the hq geometry (wfm_hq, in-kernel "
                              "composite decimation) is not ported yet")
+        if cfg.enable_iq_balance == "auto":
+            raise ValueError("enable_iq_balance='auto' (the adaptive LMS "
+                             "image-reject loop) is not ported yet; use "
+                             "True for the static params.iq_gain/iq_phase")
+        # noise blanker: (threshold, blank_width, alpha, mode)
+        self.nb_params = None
+        if cfg.enable_noise_blanker:
+            self.nb_params = (3.3, 7, 0.001,
+                              "average" if cfg.enable_noise_blanker
+                              == "average" else "blank")
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
@@ -181,7 +201,7 @@ class Receiver:
                               device=dev),
             fastfir=fastfir.state_init(c, self.blk, dev),
             dc=torch.zeros(1, 2 * c, dtype=torch.float32, device=dev),
-            nb=None,
+            nb=self._nb_init(),
             anf=None,
             agc=agc.agc_init(self.agc_cfg, c, dev),
             demod=demod,
@@ -190,6 +210,16 @@ class Receiver:
             spec_zoom=spectrum.state_init(c, self.zoom_bins, dev),
             squelch=torch.zeros(c, dtype=torch.bool, device=dev),
         )
+
+    def _nb_init(self):
+        """The noise blanker's carry in the fused-front layout: (avg [1, 2C],
+        spike tail [16, 2C]), or None with the blanker off."""
+        if self.nb_params is None:
+            return None
+        c2 = 2 * self.cfg.channels
+        return tuple(torch.zeros(rows, c2, dtype=torch.float32,
+                                 device=self.device)
+                     for rows in (1, front.NB_TAIL_ROWS))
 
     # ----------------------------------------------------------------- params
 
@@ -238,8 +268,8 @@ class Receiver:
 
     def step(self, state: ReceiverState, params: RxParams, iq: torch.Tensor,
              spectra: bool = True):
-        """One block: iq [N, 2C] float32 lane-packed plane, [2, N, C] plane
-        pair, or [C, N] complex64.  Returns (state', outputs) with the
+        """One block: iq [N, 2C] float32 or int16 lane-packed plane, [2, N, C]
+        plane pair, or [C, N] complex64.  Returns (state', outputs) with the
         outputs of step_many for its single block (no leading K axis)."""
         c = self.cfg.channels
         have = (iq.shape[-1] if iq.dim() == 3
@@ -257,9 +287,10 @@ class Receiver:
 
     def step_many(self, state: ReceiverState, params: RxParams, iq,
                   spectra: bool = True):
-        """K blocks in one dispatch: iq [K*N, 2C] float32 lane-packed plane
-        (preferred), [K, N, 2C], an (re, im) pair of [K*N, C] planes,
-        [K, 2, N, C] / [2, K, N, C] stacks or [K, C, N] complex64.
+        """K blocks in one dispatch: iq [K*N, 2C] float32 or int16
+        lane-packed plane (preferred), a time-folded [K*N/G, 2GC] plane,
+        [K, N, 2C], an (re, im) pair of [K*N, C] planes, [K, 2, N, C] /
+        [2, K, N, C] stacks or [K, C, N] complex64.
 
         Returns (state', out) with out['audio'] [K, C, audio_blk] (AM) or
         [K, C, 2, audio_blk] (FMS: left, right), 'spectrum' [K, C,
@@ -276,7 +307,9 @@ class Receiver:
 
     def _pack(self, iq) -> torch.Tensor:
         """Normalize every accepted layout to the [K*N, 2C] packed plane,
-        with the channel-count guards of the JAX Receiver."""
+        with the channel-count guards of the JAX Receiver.  A flat plane
+        whose lane width is a multiple G of 2C is time-folded by G and is
+        unfolded here (one device copy)."""
         c = self.cfg.channels
         c2 = 2 * c
         if (not isinstance(iq, (tuple, list)) and iq.is_complex()
@@ -303,19 +336,28 @@ class Receiver:
             x_pk = x_pk.reshape(-1, c2)
         if x_pk.dim() != 2:
             raise ValueError(f"unsupported input shape {tuple(x_pk.shape)}")
+        if x_pk.dtype not in (torch.float32, torch.int16):
+            raise ValueError(f"input planes must be float32 or int16, got "
+                             f"{x_pk.dtype}")
+        if x_pk.device != self.device:
+            raise ValueError(f"input is on {x_pk.device} but this Receiver "
+                             f"runs on {self.device}")
         if x_pk.shape[-1] != c2:
             if x_pk.shape[-1] % c2:
                 raise ValueError(f"lane width {x_pk.shape[-1]} is neither "
                                  f"2C={c2} nor a folded multiple of it")
-            raise ValueError(
-                f"lane width {x_pk.shape[-1]} is a plane time-folded by "
-                f"{x_pk.shape[-1] // c2}; this Receiver takes unfolded "
-                f"[K*N, 2C={c2}] planes")
-        if x_pk.dtype != torch.float32:
-            raise ValueError(f"input planes must be float32, got {x_pk.dtype}")
-        if x_pk.device != self.device:
-            raise ValueError(f"input is on {x_pk.device} but this Receiver "
-                             f"runs on {self.device}")
+            fold = x_pk.shape[-1] // c2
+            if self.nb_params is not None:
+                raise ValueError("time-folded input planes are incompatible "
+                                 "with the noise blanker (as in the JAX "
+                                 "package); ship unfolded planes when NB is "
+                                 "on")
+            if x_pk.shape[0] % self.cfg.frames_per_buffer:
+                raise ValueError(
+                    f"a plane time-folded by {fold} must hold whole "
+                    f"{self.cfg.frames_per_buffer}-frame blocks per lane "
+                    f"group, got {x_pk.shape[0]} rows")
+            return front.unfold_plane(x_pk, fold)
         return x_pk.contiguous()
 
     def _step_many_batched(self, state: ReceiverState, params: RxParams,
@@ -324,11 +366,16 @@ class Receiver:
         c = cfg.channels
         k = x_pk.shape[0] // cfg.frames_per_buffer
         front_kw = {}
+        if self.cfg.enable_iq_balance:
+            front_kw.update(iq_gain=params.iq_gain, iq_phase=params.iq_phase)
+        if self.nb_params is not None:
+            front_kw.update(nb=self.nb_params, nb_avg=state.nb[0],
+                            nb_tail=state.nb[1])
         if self.wfm_cfg is not None:
             # the discriminator runs in the front end; the composite is then
             # needed only as each block's trailing zoom window
             last = state.demod.last
-            front_kw = dict(disc_gain=self.disc_gain,
+            front_kw.update(disc_gain=self.disc_gain,
                             disc_last=torch.cat([last.real, last.imag])[None],
                             y_tail_rows=self.zoom_bins)
         fr = front.fused_front(
@@ -336,6 +383,9 @@ class Receiver:
             params.tune_lo, state.decim, n_block=cfg.frames_per_buffer,
             raw_rows=cfg.spectrum_bins if spectra else 0, **front_kw)
         y_pk, dc, decim, phase, raw = fr[:5]
+        nb_state = state.nb
+        if self.nb_params is not None:
+            nb_state, fr = fr[5:7], fr[:5] + fr[7:]
         raw_c = (torch.complex(raw[:, :, :c].transpose(1, 2),
                                raw[:, :, c:].transpose(1, 2))     # [K, C, bins]
                  if spectra else None)
@@ -351,7 +401,7 @@ class Receiver:
                                        demod)
         new_state = ReceiverState(
             mixer=mixer.MixerState(phase=phase), decim=decim, dc=dc,
-            nb=state.nb, iqbal=state.iqbal, **tail_st)
+            nb=nb_state, iqbal=state.iqbal, **tail_st)
         return new_state, out
 
     def _ewma_blocks(self, prev: torch.Tensor, p: torch.Tensor, a: float):

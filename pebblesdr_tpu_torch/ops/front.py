@@ -1,20 +1,34 @@
 """Fused wideband front end: DC blocker + NCO mix + composed-FIR decimation
-(+ the FM discriminator of the decimated composite, for WFM).
+(+ the FM discriminator of the decimated composite, for WFM), with the
+front-end options int16 entry, static IQ balance and the noise blanker.
 
 Port of ``fused_front_packed`` / ``_front_kernel``
-(pebblesdr_tpu/ops/pallas_kernels.py:516, :119) with float32 input and fold
-1, with or without its ``disc_gain``/``y_tail_rows`` switches.  Input is
-one lane-packed [T, 2C] float32 plane (re lanes [0, C), im lanes [C, 2C))
-spanning T/n_block logical blocks.  Per dispatch:
+(pebblesdr_tpu/ops/pallas_kernels.py:516, :119) at fold 1, with its
+``in_scale``, ``iq_gain``/``iq_phase``, ``nb``, ``disc_gain`` and
+``y_tail_rows`` switches.  Input is one lane-packed [T, 2C] float32 or int16
+plane (re lanes [0, C), im lanes [C, 2C)) spanning T/n_block logical blocks.
+Per dispatch, in this order:
 
+  * int16 entry: the plane is read as x * 2^-15 (exact in float32);
   * DC: chunk means mu_k over 512 rows, m_k = a m_{k-1} + (1-a) mu_k with
     a = alpha^512 and m_{-1} the carried estimate; chunk k subtracts m_k;
+  * IQ balance (iq_gain g, iq_phase p): re' = g re, im' = im + p re;
+  * noise blanker (nb = (threshold, blank_width, alpha, mode)), per lane:
+    mag2 = |z|^2; the chunk means of mag2 and their EWMA with
+    a = (1-alpha)^512 seeded by the carried nb_avg [1, 2C]; each chunk
+    compares against the average entering it, spike = mag2 >
+    threshold^2 max(avg, 1e-18); causal dilation over blank_width rows,
+    seeded by the carried flags nb_tail [16, 2C];
   * NCO: u[t] = z[t] exp(-j 2 pi phi(t)), phi in the split form of the TPU
     kernel (t = 2048 s + 128 q + r; exact because f_hi is on the 2^-12 grid);
+    then on the dilated flags NB1 ("blank") zeroes u and NB2 ("average")
+    scales it by sqrt(avg / max(mag2, 1e-24));
   * FIR: y[o] = sum_{j=0..D} h[j] u[F o - j], u[t < 0] from the carried
     post-mix tail (tail row d_rows + t); tail' = u[T - d_rows .. T-1];
   * raw[b] = the trailing raw_rows input rows of block b (display tails);
   * phase' = mod(phase0 + mod(T f_hi, 1) + T f_lo, 1);
+  * nb_avg' = the EWMA after the last chunk, nb_tail' = the last 16 rows of
+    undilated flags (0/1);
   * with disc_gain != 0: disc[o] = atan2(y[o] conj(y[o-1])) * disc_gain per
     channel, y[-1] the carried disc_last [1, 2C], and disc_last' = y[-1];
     with y_tail_rows > 0, y is returned only as each block's trailing
@@ -22,6 +36,11 @@ spanning T/n_block logical blocks.  Per dispatch:
 
 ``fused_front`` launches the CUDA kernel (csrc/front.cu) for a CUDA plane and
 runs ``fused_front_reference`` (plain PyTorch) for a CPU plane.
+
+The TPU kernel also reads time-folded planes (lane group g = time segment g,
+a layout that fills the TPU's 128-lane tiles at small C).  Hopper has no
+such padding: ``unfold_plane`` turns a folded entry plane back into [T, 2C]
+with one device copy, and the kernel reads only unfolded planes.
 """
 
 from __future__ import annotations
@@ -29,6 +48,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -45,15 +65,22 @@ _FIR_GROUPS = 16   # phase groups per FIR block (kGroups)
 _FIR_LANES = 16    # lanes per FIR block: 8 channels x (re, im) (kLanes)
 _MAX_SMEM = 232448  # shared memory one Hopper block may use (kMaxSmem)
 FIR_BRANCH_TAPS = (8, 16, 24, 32, 40)  # front_fir instantiations (taps/branch)
+NB_TAIL_ROWS = 16  # carried spike-flag rows (the TPU kernel's tile height)
+_NB_HALO = NB_TAIL_ROWS - 1  # flag rows the FIR block stages above its tile
+I16_SCALE = 2.0 ** -15      # int16 full scale 32768 -> 1.0
+NB_MODES = ("blank", "average")  # NB1, NB2
 SOURCE = "pebblesdr_tpu_torch/csrc/front.cu"
 REPLACES = "pebblesdr_tpu/ops/pallas_kernels.py:119"
 
 
-def fir_smem_layout(ntaps: int, factor: int) -> dict[str, int] | None:
+def fir_smem_layout(ntaps: int, factor: int,
+                    nb: bool = False) -> dict[str, int] | None:
     """front_fir's shared-memory layout in floats (FirSmem in csrc/front.cu,
     mirrored), or None when no instantiation covers ntaps/factor taps per
     branch.  'span' is the staged input rows; the u area holds them and,
-    after the FIR, the phase groups' partial sums."""
+    after the FIR, the phase groups' partial sums.  With the noise blanker
+    the block also holds the entering averages of its chunks, up to 15
+    input rows above the tile and a 16-bit flag word per row."""
     dp_need = -(-ntaps // factor)
     dp = next((d for d in FIR_BRANCH_TAPS if dp_need <= d), 0)
     if not dp:
@@ -63,12 +90,16 @@ def fir_smem_layout(ntaps: int, factor: int) -> dict[str, int] | None:
         return (v + 31) & ~31
 
     span = factor * (_FIR_TILE + dp - 1)
-    max_q, max_chunks = span // _Q + 2, span // DC_CHUNK + 2
+    rows = span + (_NB_HALO if nb else 0)
+    max_q, max_chunks = span // _Q + 2, rows // DC_CHUNK + 2
     fine_c = a32(factor * dp)
     coarse_c = fine_c + 2 * _Q * 8
     coarse_s = coarse_c + a32(max_q * 8)
     dc = coarse_s + a32(max_q * 8)
-    u = dc + a32(max_chunks * _FIR_LANES)
+    avg = dc + a32(max_chunks * _FIR_LANES)
+    halo = avg + (a32(max_chunks * _FIR_LANES) if nb else 0)
+    flags = halo + (a32(_NB_HALO * _FIR_LANES) if nb else 0)
+    u = flags + (a32((rows + 1) // 2) if nb else 0)
     return {"dp": dp, "span": span, "u": u,
             "total": u + max(span, _FIR_GROUPS * _FIR_TILE) * _FIR_LANES}
 
@@ -101,17 +132,28 @@ class FrontPlan:
     def ewma(self) -> tuple[float, float]:
         """(a, 1 - a) of the per-chunk EWMA, rounded to float32 as the TPU
         kernel's weakly-typed constants are."""
-        a = float(self.dc_alpha) ** DC_CHUNK
-        return float(np.float32(a)), float(np.float32(1.0 - a))
+        return chunk_ewma(float(self.dc_alpha) ** DC_CHUNK)
+
+
+def chunk_ewma(a: float) -> tuple[float, float]:
+    """(a, 1 - a) rounded to float32, 1 - a taken in float64 first."""
+    return float(np.float32(a)), float(np.float32(1.0 - a))
 
 
 def _check_geometry(plan: FrontPlan, x: torch.Tensor, n_block: int,
                     raw_rows: int, disc_gain: float = 0.0,
                     disc_last: torch.Tensor | None = None,
-                    y_tail_rows: int = 0) -> tuple[int, int, int]:
+                    y_tail_rows: int = 0, iq_gain=None, iq_phase=None,
+                    nb: tuple | None = None,
+                    nb_avg: torch.Tensor | None = None,
+                    nb_tail: torch.Tensor | None = None
+                    ) -> tuple[int, int, int]:
     if x.dim() != 2 or x.shape[1] % 2:
         raise ValueError(f"front input must be a [T, 2C] plane, got "
                          f"{tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.int16):
+        raise ValueError(f"front input must be float32 or int16, got "
+                         f"{x.dtype}")
     t = x.shape[0]
     n_block = n_block or t
     if n_block % SUB_BLOCK or t % n_block:
@@ -128,6 +170,19 @@ def _check_geometry(plan: FrontPlan, x: torch.Tensor, n_block: int,
                             and 0 < y_tail_rows <= n_block // plan.factor):
         raise ValueError(f"y_tail_rows={y_tail_rows} needs disc_gain and at "
                          f"most {n_block // plan.factor} rows (the WFM path)")
+    if (iq_gain is None) != (iq_phase is None):
+        raise ValueError("IQ balance needs both iq_gain and iq_phase")
+    if nb is not None:
+        _, bw, _, mode = nb
+        if mode not in NB_MODES or not 1 <= int(bw) <= NB_TAIL_ROWS:
+            raise ValueError(f"noise blanker needs mode in {NB_MODES} and "
+                             f"1 <= blank_width <= {NB_TAIL_ROWS}, got {nb}")
+        c2 = x.shape[1]
+        if (nb_avg is None or nb_tail is None
+                or tuple(nb_avg.shape) != (1, c2)
+                or tuple(nb_tail.shape) != (NB_TAIL_ROWS, c2)):
+            raise ValueError(f"the noise blanker needs nb_avg [1, {c2}] and "
+                             f"nb_tail [{NB_TAIL_ROWS}, {c2}]")
     r = min(raw_rows, SUB_BLOCK) or 8
     return t, n_block, r
 
@@ -143,41 +198,114 @@ def discriminate(y: torch.Tensor, last: torch.Tensor, gain: float):
     return disc, y[y.shape[0] - 1:].clone()
 
 
+def dequantize(x: torch.Tensor) -> torch.Tensor:
+    """An int16 entry plane as float32 (full scale 32768 -> 1.0, exact);
+    a float32 plane as it is."""
+    return x.float() * I16_SCALE if x.dtype == torch.int16 else x
+
+
+def dc_iq_reference(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
+                    iq_gain=None, iq_phase=None):
+    """The front's input stage, plain PyTorch: (m [T/512, 2C] DC estimates,
+    z [T, 2C] DC-removed and IQ-balanced plane) of a float32 plane x."""
+    t, c2 = x.shape
+    nchunk = t // DC_CHUNK
+    means = x.reshape(nchunk, DC_CHUNK, c2).mean(dim=1)
+    m = _ewma(means, dc, float(plan.dc_alpha) ** DC_CHUNK)
+    z = (x.reshape(nchunk, DC_CHUNK, c2) - m[:, None, :]).reshape(t, c2)
+    if iq_gain is not None:
+        c = c2 // 2
+        zr, zi = z[:, :c], z[:, c:]
+        z = torch.cat([zr * iq_gain, zi + iq_phase * zr], dim=1)
+    return m, z
+
+
+def _ewma(means: torch.Tensor, seed: torch.Tensor, a: float) -> torch.Tensor:
+    """m_k = a m_{k-1} + (1-a) mu_k over the chunks, m_{-1} = seed [1, 2C],
+    in closed form (float64 lower-triangular weights, one matmul)."""
+    lmat, s = _ewma_weights(means.shape[0], a, means.device)
+    return (torch.matmul(lmat, means.double())
+            + s[:, None] * seed.double()).float()
+
+
+class NbFlags(NamedTuple):
+    """The noise blanker's detection on a [T, 2C] plane (plain version)."""
+    mag2: torch.Tensor      # [T, 2C] |z|^2 per lane
+    avg: torch.Tensor       # [T, 2C] the average entering each row's chunk
+    spike: torch.Tensor     # [T, 2C] bool, undilated
+    widened: torch.Tensor   # [T, 2C] bool, after the causal dilation
+    avg_out: torch.Tensor   # [1, 2C] nb_avg'
+    tail_out: torch.Tensor  # [16, 2C] nb_tail' (0/1 float32)
+
+
+def nb_flags(z: torch.Tensor, nb: tuple, nb_avg: torch.Tensor,
+             nb_tail: torch.Tensor) -> NbFlags:
+    """Detection of the noise blanker (module docstring) on the DC-removed,
+    IQ-balanced plane z [T, 2C], per lane as the TPU kernel computes it."""
+    thr, bw, alpha, _ = nb
+    t, c2 = z.shape
+    c = c2 // 2
+    zsw = torch.cat([z[:, c:], z[:, :c]], dim=1)
+    mag2 = z * z + zsw * zsw
+    nchunk = t // DC_CHUNK
+    avgs = _ewma(mag2.reshape(nchunk, DC_CHUNK, c2).mean(dim=1), nb_avg,
+                 (1.0 - alpha) ** DC_CHUNK)                    # [nchunk, 2C]
+    avg = torch.cat([nb_avg, avgs[:-1]]).repeat_interleave(DC_CHUNK, dim=0)
+    thr2 = float(np.float32(thr * thr))
+    spike = mag2 > thr2 * torch.clamp(avg, min=1e-18)
+    ext = torch.cat([nb_tail > 0, spike])                    # [16 + T, 2C]
+    widened = spike.clone()
+    for s in range(1, int(bw)):
+        widened |= ext[NB_TAIL_ROWS - s:NB_TAIL_ROWS - s + t]
+    return NbFlags(mag2, avg, spike, widened, avgs[-1:],
+                   spike[t - NB_TAIL_ROWS:].float())
+
+
 def fused_front_reference(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
                           phase0: torch.Tensor, f_hi: torch.Tensor,
                           f_lo: torch.Tensor, tail: torch.Tensor,
                           n_block: int = 0, raw_rows: int = 0,
                           disc_gain: float = 0.0,
                           disc_last: torch.Tensor | None = None,
-                          y_tail_rows: int = 0):
+                          y_tail_rows: int = 0, iq_gain=None, iq_phase=None,
+                          nb: tuple | None = None,
+                          nb_avg: torch.Tensor | None = None,
+                          nb_tail: torch.Tensor | None = None,
+                          nb_mask: torch.Tensor | None = None):
     """Plain PyTorch version of the fused front end (see module docstring).
 
-    x [T, 2C] f32; dc [1, 2C]; phase0/f_hi/f_lo [C]; tail [d_rows, 2C].
-    Returns (y [T/F, 2C], dc' [1, 2C], tail' [d_rows, 2C], phase' [C],
-    raw [T/n_block, R, 2C]), and with disc_gain also (disc [T/F, C],
-    disc_last' [1, 2C]); y is [T/n_block, y_tail_rows, 2C] when
-    y_tail_rows > 0."""
+    x [T, 2C] f32 or int16; dc [1, 2C]; phase0/f_hi/f_lo [C]; tail
+    [d_rows, 2C]; iq_gain/iq_phase scalar tensors; nb_avg [1, 2C] and
+    nb_tail [16, 2C].  Returns (y [T/F, 2C], dc' [1, 2C], tail' [d_rows,
+    2C], phase' [C], raw [T/n_block, R, 2C]), then with nb (nb_avg',
+    nb_tail'), then with disc_gain (disc [T/F, C], disc_last' [1, 2C]);
+    y is [T/n_block, y_tail_rows, 2C] when y_tail_rows > 0.  With the
+    blanker, a given nb_mask [T, 2C] uint8 receives the dilated flags (for
+    checking a kernel's blanked positions)."""
     t, n_block, r = _check_geometry(plan, x, n_block, raw_rows, disc_gain,
-                                    disc_last, y_tail_rows)
+                                    disc_last, y_tail_rows, iq_gain, iq_phase,
+                                    nb, nb_avg, nb_tail)
+    x = dequantize(x)
     c2 = x.shape[1]
     c = c2 // 2
-    dev = x.device
     raw = x.reshape(t // n_block, n_block, c2)[:, n_block - r:, :].contiguous()
-
-    # DC blocker: chunk means, then the EWMA across chunks in closed form
-    # (float64 lower-triangular weights, one matmul)
-    nchunk = t // DC_CHUNK
-    means = x.reshape(nchunk, DC_CHUNK, c2).mean(dim=1)
-    a = float(plan.dc_alpha) ** DC_CHUNK
-    lmat, seed = _ewma_weights(nchunk, a, dev)
-    m = (torch.matmul(lmat, means.double())
-         + seed[:, None] * dc.double()).float()                # [nchunk, 2C]
-    z = (x.reshape(nchunk, DC_CHUNK, c2) - m[:, None, :]).reshape(t, c2)
+    m, z = dc_iq_reference(plan, x, dc, iq_gain, iq_phase)
 
     # NCO mix: phasor = coarse (per 128 rows) x fine (row within them)
     cos_a, sin_a = oscillator(phase0, f_hi, f_lo, t)            # [T, C] each
     zr, zi = z[:, :c], z[:, c:]
     u = torch.cat([zr * cos_a + zi * sin_a, zi * cos_a - zr * sin_a], dim=1)
+    nb_out = ()
+    if nb is not None:
+        fl = nb_flags(z, nb, nb_avg, nb_tail)
+        if nb[3] == "blank":
+            u = torch.where(fl.widened, 0.0, u)
+        else:
+            scale = torch.sqrt(fl.avg / torch.clamp(fl.mag2, min=1e-24))
+            u = torch.where(fl.widened, u * scale, u)
+        nb_out = (fl.avg_out, fl.tail_out)
+        if nb_mask is not None:
+            nb_mask.copy_(fl.widened)
 
     # composed FIR: each SUB_BLOCK of outputs is W^T against its
     # tail-extended window
@@ -185,13 +313,13 @@ def fused_front_reference(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
     wins = ext.unfold(0, plan.d_rows + SUB_BLOCK, SUB_BLOCK)     # [nsub, 2C, L]
     y = torch.matmul(wins, plan.w).transpose(1, 2).reshape(t // plan.factor, c2)
     ret = (y, m[-1:], ext[ext.shape[0] - plan.d_rows:].contiguous(),
-           advance_phase(phase0, t, f_hi, f_lo), raw)
+           advance_phase(phase0, t, f_hi, f_lo), raw) + nb_out
     if not disc_gain:
         return ret
     disc, dlast = discriminate(y, disc_last, disc_gain)
     if y_tail_rows:   # each block's trailing y_tail_rows rows
-        m = n_block // plan.factor
-        ret = (y.reshape(t // n_block, m, c2)[:, m - y_tail_rows:]
+        mb = n_block // plan.factor
+        ret = (y.reshape(t // n_block, mb, c2)[:, mb - y_tail_rows:]
                .contiguous(),) + ret[1:]
     return ret + (disc, dlast)
 
@@ -239,26 +367,51 @@ def oscillator(phase0: torch.Tensor, f_hi: torch.Tensor, f_lo: torch.Tensor,
     return cos_a, sin_a
 
 
+def fold_plane_np(plane: np.ndarray, fold: int) -> np.ndarray:
+    """[N, 2C] plane -> [N/fold, 2*fold*C] time-folded plane (numpy, the
+    layout TPU feeders ship): lanes [re(g0) .. re(gG-1) | im(g0) ..
+    im(gG-1)], lane group g holding the contiguous time segment g."""
+    n, c2 = plane.shape
+    c = c2 // 2
+    xg = plane.reshape(fold, n // fold, c2)
+    return np.concatenate([xg[g, :, :c] for g in range(fold)]
+                          + [xg[g, :, c:] for g in range(fold)], axis=1)
+
+
+def unfold_plane(x_f: torch.Tensor, fold: int) -> torch.Tensor:
+    """Inverse of fold_plane_np on the tensor's device, one copy:
+    [N/fold, 2*fold*C] -> [N, 2C]."""
+    seg, lanes = x_f.shape
+    c = lanes // (2 * fold)
+    return (x_f.reshape(seg, 2, fold, c).permute(2, 0, 1, 3)
+            .reshape(fold * seg, 2 * c))
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """csrc/front.cu, built at first use, with its C signatures declared."""
     lib = build.load("front")
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.front_forward.restype = ctypes.c_int
-    f = ctypes.c_float
     lib.front_forward.argtypes = [
-        i, p, i, i, i, i, p, p, i, p, p, p, p, i, i, f, f, p, p, p, p, p,
-        f, p, i, p, p, p, p]
+        i, p, i, i, i, i, i,            # device, x, x_int16, T, C, n, r_rows
+        p, p, i, p, p, p, p, i, i,      # dc_in .. h, ntaps, F
+        f, f, p, p, p, p, p,            # a, b, mseq, y, dc_out, tail_out, raw
+        p, p,                           # iq_gain, iq_phase
+        i, f, i, f, f, p, p, p, p, p, p,  # nb_mode .. nb_mask
+        f, p, i, p, p, p, p]            # disc_gain .. ytail, stream
     lib.front_error_string.restype = ctypes.c_char_p
     lib.front_error_string.argtypes = [i]
     lib.front_fir_smem_bytes.restype = ctypes.c_size_t
-    lib.front_fir_smem_bytes.argtypes = [i, i]
+    lib.front_fir_smem_bytes.argtypes = [i, i, i]
     return lib
 
 
-def _check_cuda(name: str, t: torch.Tensor, device: torch.device, shape):
-    if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous float32 tensor on "
+def _check_cuda(name: str, t: torch.Tensor, device: torch.device, shape,
+                dtypes=(torch.float32,)):
+    if t.device != device or t.dtype not in dtypes or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous "
+                         f"{'/'.join(str(d) for d in dtypes)} tensor on "
                          f"{device}, got {t.dtype} on {t.device}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
@@ -269,22 +422,41 @@ def fused_front(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
                 phase0: torch.Tensor, f_hi: torch.Tensor, f_lo: torch.Tensor,
                 tail: torch.Tensor, n_block: int = 0, raw_rows: int = 0,
                 disc_gain: float = 0.0, disc_last: torch.Tensor | None = None,
-                y_tail_rows: int = 0):
+                y_tail_rows: int = 0, iq_gain=None, iq_phase=None,
+                nb: tuple | None = None, nb_avg: torch.Tensor | None = None,
+                nb_tail: torch.Tensor | None = None,
+                nb_mask: torch.Tensor | None = None):
     """The fused front end: the CUDA kernel for a CUDA plane, the plain
     version for a CPU plane.  Same arguments and results as
     fused_front_reference."""
     if x.device.type == "cpu":
         return fused_front_reference(plan, x, dc, phase0, f_hi, f_lo, tail,
                                      n_block, raw_rows, disc_gain, disc_last,
-                                     y_tail_rows)
+                                     y_tail_rows, iq_gain, iq_phase, nb,
+                                     nb_avg, nb_tail, nb_mask)
     if x.device.type != "cuda":
         raise ValueError(f"fused_front runs on cuda or cpu, not {x.device}")
+    ret = _launch(plan, x, dc, phase0, f_hi, f_lo, tail, n_block, raw_rows,
+                  disc_gain, disc_last, y_tail_rows, iq_gain, iq_phase, nb,
+                  nb_avg, nb_tail, nb_mask)
+    fused_front.launches += 1
+    return ret
+
+
+def _launch(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
+            phase0: torch.Tensor, f_hi: torch.Tensor, f_lo: torch.Tensor,
+            tail: torch.Tensor, n_block: int, raw_rows: int, disc_gain: float,
+            disc_last, y_tail_rows: int, iq_gain, iq_phase, nb, nb_avg,
+            nb_tail, nb_mask=None):
+    """Check the arguments, allocate the outputs and launch csrc/front.cu
+    on x's device and current stream."""
     t, n_block, r = _check_geometry(plan, x, n_block, raw_rows, disc_gain,
-                                    disc_last, y_tail_rows)
+                                    disc_last, y_tail_rows, iq_gain, iq_phase,
+                                    nb, nb_avg, nb_tail)
     c2 = x.shape[1]
     c = c2 // 2
     dev = x.device
-    _check_cuda("x", x, dev, (t, c2))
+    _check_cuda("x", x, dev, (t, c2), (torch.float32, torch.int16))
     _check_cuda("dc", dc, dev, (1, c2))
     _check_cuda("tail", tail, dev, (plan.d_rows, c2))
     for name, v in (("phase0", phase0), ("f_hi", f_hi), ("f_lo", f_lo)):
@@ -292,13 +464,23 @@ def fused_front(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
     _check_cuda("h", plan.h, dev, plan.h.shape)
     if disc_gain:
         _check_cuda("disc_last", disc_last, dev, (1, c2))
+    if iq_gain is not None:
+        _check_cuda("iq_gain", iq_gain, dev, ())
+        _check_cuda("iq_phase", iq_phase, dev, ())
+    if nb is not None:
+        _check_cuda("nb_avg", nb_avg, dev, (1, c2))
+        _check_cuda("nb_tail", nb_tail, dev, (NB_TAIL_ROWS, c2))
+        if nb_mask is not None:
+            _check_cuda("nb_mask", nb_mask, dev, (t, c2), (torch.uint8,))
     if t * c2 >= 2 ** 31 or t // plan.factor >= _FIR_TILE * 65536:
         raise ValueError(f"front dispatch of {t} x {c2} is too large for one "
                          f"kernel launch")
-    if not 0 < plan.smem_bytes <= _MAX_SMEM:
+    lib = _lib()
+    smem = lib.front_fir_smem_bytes(plan.h.numel(), plan.factor,
+                                    int(nb is not None))
+    if not 0 < smem <= _MAX_SMEM:
         raise ValueError(f"composed response of {plan.h.numel()} taps at "
                          f"factor {plan.factor} does not fit the FIR tile")
-    lib = _lib()
     a, b = plan.ewma
 
     def empty(*shape):
@@ -313,25 +495,38 @@ def fused_front(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
         disc, dlast = empty(m, c), empty(1, c2)
         if y_tail_rows:
             ytail = empty(t // n_block, y_tail_rows, c2)
+    nb_mode, thr2, bw, nb_a, nb_b = 0, 0.0, 0, 0.0, 0.0
+    nbseq = nb_avg_out = nb_tail_out = None
+    if nb is not None:
+        thr, bw, alpha, mode = nb
+        nb_mode = 1 + NB_MODES.index(mode)
+        thr2 = float(np.float32(thr * thr))
+        nb_a, nb_b = chunk_ewma((1.0 - alpha) ** DC_CHUNK)
+        nbseq = empty(t // DC_CHUNK, c2)
+        nb_avg_out, nb_tail_out = empty(1, c2), empty(NB_TAIL_ROWS, c2)
 
     def ptr(v):
         return None if v is None else v.data_ptr()
 
     err = lib.front_forward(
         dev.index if dev.index is not None else torch.cuda.current_device(),
-        x.data_ptr(), t, c, n_block, r, dc.data_ptr(), tail.data_ptr(),
-        plan.d_rows, phase0.data_ptr(), f_hi.data_ptr(), f_lo.data_ptr(),
-        plan.h.data_ptr(), plan.h.numel(), plan.factor, a, b,
-        mseq.data_ptr(), y.data_ptr(), dc_out.data_ptr(), tail_out.data_ptr(),
-        raw.data_ptr(), float(disc_gain), ptr(disc_last), int(y_tail_rows),
+        x.data_ptr(), int(x.dtype == torch.int16), t, c, n_block, r,
+        dc.data_ptr(), tail.data_ptr(), plan.d_rows, phase0.data_ptr(),
+        f_hi.data_ptr(), f_lo.data_ptr(), plan.h.data_ptr(), plan.h.numel(),
+        plan.factor, a, b, mseq.data_ptr(), y.data_ptr(), dc_out.data_ptr(),
+        tail_out.data_ptr(), raw.data_ptr(), ptr(iq_gain), ptr(iq_phase),
+        nb_mode, thr2, int(bw), nb_a, nb_b, ptr(nb_avg), ptr(nb_tail),
+        ptr(nbseq), ptr(nb_avg_out), ptr(nb_tail_out), ptr(nb_mask),
+        float(disc_gain), ptr(disc_last), int(y_tail_rows),
         ptr(disc), ptr(dlast), ptr(ytail),
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"front kernel launch failed: CUDA error {err} "
                            f"({lib.front_error_string(err).decode()})")
-    fused_front.launches += 1
     ret = (y if ytail is None else ytail, dc_out, tail_out,
            advance_phase(phase0, t, f_hi, f_lo), raw)
+    if nb is not None:
+        ret += (nb_avg_out, nb_tail_out)
     return ret + (disc, dlast) if disc_gain else ret
 
 

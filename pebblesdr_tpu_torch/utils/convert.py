@@ -3,7 +3,9 @@
 The JAX ``ReceiverState`` / ``RxParams`` are pytree dataclasses whose leaves
 flatten in field order with ``None`` fields skipped.  The port's dataclasses
 keep the same fields and shapes, so a list of numpy leaves flattened on the
-JAX side maps onto the port's structure in that same order.  Nothing here
+JAX side maps onto the port's structure in that same order (with the noise
+blanker on, the JAX state's ``nb`` leaves (avg [1, 2C], spike tail [16, 2C])
+land on the port's ``ReceiverState.nb`` tuple).  Nothing here
 imports jax: the caller flattens (``jax.tree_util.tree_leaves``) and passes
 numpy arrays.
 """

@@ -5,6 +5,8 @@ tests hold every copied array to the original: identical (np.array_equal),
 or within 1e-7 where a float64 -> float32 cast is involved.
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -13,6 +15,7 @@ from pebblesdr_tpu.chain.receiver import Receiver as JaxReceiver
 from pebblesdr_tpu.chain.receiver import ReceiverConfig as JaxConfig
 from pebblesdr_tpu.core import windows as jwin
 from pebblesdr_tpu.demod import am as jam
+from pebblesdr_tpu.demod import modes as jmodes
 from pebblesdr_tpu.ops import agc as jagc
 from pebblesdr_tpu.ops import decimator as jdec
 from pebblesdr_tpu.ops import fastfir as jff
@@ -25,6 +28,7 @@ from pebblesdr_tpu.ops import spectrum as jspec
 from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
 from pebblesdr_tpu_torch.core import windows as twin
 from pebblesdr_tpu_torch.demod import am as tam
+from pebblesdr_tpu_torch.demod import modes as tmodes
 from pebblesdr_tpu_torch.ops import agc as tagc
 from pebblesdr_tpu_torch.ops import decimator as tdec
 from pebblesdr_tpu_torch.ops import fastfir as tff
@@ -170,3 +174,16 @@ def test_params_and_init_state_match_jax():
     for a, b in zip(js, ts):
         assert a.shape == b.shape and a.dtype == b.dtype
         assert np.array_equal(np.asarray(a), b)
+
+
+@pytest.mark.parametrize("mode", list(jmodes.DemodMode), ids=lambda m: m.name)
+def test_mode_table_identical(mode):
+    """The port's copy of the mode table (demod/modes.py) == the JAX one."""
+    tmode = tmodes.DemodMode[mode.name]
+    assert tmode.value == mode.value
+    a, b = jmodes.MODE_INFO[mode], tmodes.MODE_INFO[tmode]
+    assert dataclasses.astuple(a)[1:] == dataclasses.astuple(b)[1:]
+    assert b.mode is tmode
+    assert tmodes.from_string(mode.value) is tmode
+    assert tmodes.is_wfm(tmode) == jmodes.is_wfm(mode)
+    assert len(tmodes.DemodMode) == len(jmodes.DemodMode)

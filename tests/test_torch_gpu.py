@@ -1,6 +1,8 @@
 """Card-only tests of the PyTorch port: the CUDA kernels (the front end K1
-in its AM and WFM forms, the stereo tail K2) against their plain PyTorch
-versions, and the AM and WFM receivers on the card against the CPU.
+in its AM and WFM forms and with its options int16 entry, IQ balance and
+the NB1/NB2 noise blanker; the stereo tail K2) against their plain PyTorch
+versions, and the AM and WFM receivers on the card against the CPU (with
+the front options and int16 and folded entry planes too).
 
 They skip where CUDA is absent (the kernels have no CPU mode).  This file
 imports no jax, so it also runs on a machine that has only the port:
@@ -12,9 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from pebblesdr_tpu.demod.modes import DemodMode
 from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
 from pebblesdr_tpu_torch.demod import wfm
+from pebblesdr_tpu_torch.demod.modes import DemodMode
 from pebblesdr_tpu_torch.ops import decimator, front, wfm_tail
 from pebblesdr_tpu_torch.ops.mixer import split_freq
 from pebblesdr_tpu_torch.utils import convert
@@ -145,9 +147,10 @@ def test_shared_memory_layouts_match_the_sources(cuda):
     lib = front._lib()
     for ntaps, factor in ((20, 4), (9, 8), (30, 2), (283, 8), (711, 32),
                           (200, 2)):
-        lay = front.fir_smem_layout(ntaps, factor)
-        assert lib.front_fir_smem_bytes(ntaps, factor) == (
-            4 * lay["total"] if lay else 0)
+        for nb in (False, True):
+            lay = front.fir_smem_layout(ntaps, factor, nb)
+            assert lib.front_fir_smem_bytes(ntaps, factor, int(nb)) == (
+                4 * lay["total"] if lay else 0)
     tlib = wfm_tail._lib()
     for ntaps, factor, ell in ((235, 4, 256), (31, 4, 128), (235, 2, 256),
                                (501, 4, 256)):
@@ -277,3 +280,172 @@ def test_wfm_receiver_on_card_matches_cpu(cuda):
                               - b.astype(np.complex128)).max() < 1e-4
     assert (front.fused_front.launches, wfm_tail.wfm_tail.launches) == (
         before[0] + 2, before[1] + 2)
+
+
+NB1, NB2 = (3.3, 7, 0.001, "blank"), (3.3, 7, 0.001, "average")
+OPTION_FORMS = {
+    "iq": dict(iq=True),
+    "i16": dict(i16=True),
+    "nb1_iq": dict(iq=True, nb=NB1),
+    "nb2_iq": dict(iq=True, nb=NB2),
+    "i16_nb1_iq": dict(i16=True, iq=True, nb=NB1),
+}
+
+
+def _impulsive_plane(c, rows, rng, fm=False):
+    """AM (or FM) at 250 kHz with a DC offset and low noise, plus 8+8j
+    impulses (20x and more above the floor) at chunk, sub-block and block
+    seams.  A Gaussian floor would put some of millions of samples within
+    0.1 % of the threshold; a carrier with low noise keeps them far."""
+    x = ((_fm_plane if fm else _am_plane)(c, rows, rng).numpy() + 0.04)
+    for pos in (100, 511, 2046, 2049, 8189, 8195, rows - 3):
+        x[pos % rows, :] += 8.0
+    return torch.from_numpy(x)
+
+
+def _assert_margin(plan, x, dc, iq, nb, nb_avg, nb_tail):
+    """No sample within 0.1 % of the spike threshold (plain intermediates)."""
+    _, z = front.dc_iq_reference(plan, front.dequantize(x), dc, *iq)
+    fl = front.nb_flags(z, nb, nb_avg, nb_tail)
+    ratio = fl.mag2 / (np.float32(nb[0] ** 2) * fl.avg.clamp(min=1e-18))
+    assert not bool(((ratio >= 0.999) & (ratio <= 1.001)).any())
+
+
+def _option_run(cuda, c, opt, protect=30_000, k=3, wfm=False):
+    """K1 with the given options against plain, two streaming calls; every
+    output within RTOL (the discriminator 1e-4 absolute), nb_tail' and the
+    dilated flags of every row equal."""
+    n = 8192
+    plan = _plan(cuda, protect)
+    hi, lo = _tunes(c, cuda)
+    if wfm:
+        hi, lo = (torch.full((c,), float(v), device=cuda)
+                  for v in split_freq(250_000.0, FS))
+    rng = np.random.default_rng(11)
+    nb = opt.get("nb")
+    iq = ((torch.tensor(1.05, device=cuda), torch.tensor(0.02, device=cuda))
+          if opt.get("iq") else (None, None))
+    z = dict(device=cuda)
+    st_k = st_r = (torch.zeros(1, 2 * c, **z), torch.zeros(c, **z),
+                   torch.zeros(plan.d_rows, 2 * c, **z),
+                   torch.zeros(1, 2 * c, **z), torch.zeros(16, 2 * c, **z),
+                   torch.zeros(1, 2 * c, **z))
+    for _ in range(2):
+        x = _impulsive_plane(c, k * n, rng, fm=wfm)
+        if opt.get("i16"):
+            x = torch.clamp(torch.round(x * 3276.8), -32768, 32767
+                            ).to(torch.int16)
+        x = x.to(cuda)
+        kw = dict(n_block=n, raw_rows=2048, iq_gain=iq[0], iq_phase=iq[1])
+        if wfm:
+            kw.update(disc_gain=256_000 / (2 * np.pi * 75_000),
+                      y_tail_rows=512)
+        masks = []
+        outs = []
+        for st, fn in ((st_k, front.fused_front),
+                       (st_r, front.fused_front_reference)):
+            kws = dict(kw, disc_last=st[5] if wfm else None)
+            if nb:
+                if fn is front.fused_front_reference:
+                    _assert_margin(plan, x, st[0], iq, nb, st[3], st[4])
+                masks.append(torch.zeros(k * n, 2 * c, dtype=torch.uint8,
+                                         device=cuda))
+                kws.update(nb=nb, nb_avg=st[3], nb_tail=st[4],
+                           nb_mask=masks[-1])
+            before = front.fused_front.launches
+            outs.append(fn(plan, x, st[0], st[1], hi, lo, st[2], **kws))
+            assert front.fused_front.launches == before + (
+                fn is front.fused_front)
+        torch.cuda.synchronize()
+        got, ref = outs
+        assert len(got) == len(ref)
+        disc_i = len(got) - 2 if wfm else -1
+        for i, (a, b) in enumerate(zip(got, ref)):
+            assert a.shape == b.shape, i
+            if i == disc_i:
+                assert float((a - b).abs().max()) < 1e-4
+            else:
+                assert rel_err(b, a) < RTOL, i
+        if nb:
+            assert torch.equal(got[6], ref[6])          # nb_tail'
+            assert int((masks[0] != masks[1]).sum()) == 0
+            assert int(masks[1].sum()) > 0
+        nxt = []
+        for o, st in ((got, st_k), (ref, st_r)):
+            nxt.append((o[1], o[3], o[2], o[5] if nb else st[3],
+                        o[6] if nb else st[4], o[-1] if wfm else st[5]))
+        st_k, st_r = nxt
+
+
+@pytest.mark.parametrize("c", [12, 64])
+@pytest.mark.parametrize("form", list(OPTION_FORMS))
+def test_front_option_kernels_match_plain(cuda, form, c):
+    """C=12 leaves a partial 8-channel FIR block."""
+    _option_run(cuda, c, OPTION_FORMS[form])
+
+
+@pytest.mark.parametrize("c", [4, 12])
+def test_front_wfm_nb_kernel_matches_plain(cuda, c):
+    """NB1 with the discriminator and y-tail switches (factor-8 WFM plan)."""
+    _option_run(cuda, c, dict(nb=NB1), protect=200_000, k=2, wfm=True)
+
+
+def test_front_nb_kernel_rejects_bad_carry(cuda):
+    plan = _plan(cuda)
+    c, n = 2, 2048
+    z = dict(device=cuda)
+    args = (torch.zeros(n, 2 * c, **z), torch.zeros(1, 2 * c, **z),
+            torch.zeros(c, **z), torch.zeros(c, **z), torch.zeros(c, **z),
+            torch.zeros(plan.d_rows, 2 * c, **z))
+    with pytest.raises(ValueError):
+        front.fused_front(plan, *args, n_block=n, nb=NB1,
+                          nb_avg=torch.zeros(1, 2 * c, **z),
+                          nb_tail=torch.zeros(8, 2 * c, **z))
+    with pytest.raises(ValueError):
+        front.fused_front(plan, *args, n_block=n,
+                          iq_gain=torch.tensor(1.0),            # on the CPU
+                          iq_phase=torch.tensor(0.0, **z))
+
+
+@pytest.mark.parametrize("entry", ["nb1_iq", "i16", "folded"])
+def test_receiver_options_on_card_match_cpu(cuda, entry):
+    """AM with NB1 + IQ balance, an int16 plane, a plane folded by 3
+    (C=2): the bounds of tests/test_chain_batched.py:58-69 after a CPU
+    warm-up block carried to both; K1 launches once per dispatch."""
+    n = 8192
+    c = 2 if entry == "folded" else 4
+    cfg = ReceiverConfig(sample_rate=FS, frames_per_buffer=n, channels=c,
+                         agc_stride=16,
+                         enable_noise_blanker=entry == "nb1_iq",
+                         enable_iq_balance=entry == "nb1_iq")
+    cpu, gpu = Receiver(cfg, "cpu"), Receiver(cfg, cuda)
+    pc, pg = cpu.default_params(250_000.0), gpu.default_params(250_000.0)
+    rng = np.random.default_rng(12)
+
+    def plane(k):
+        x = _am_plane(c, k * n, rng)
+        if entry == "nb1_iq":
+            x[::4099] += 4.0
+        if entry == "i16":
+            x = torch.round(x * 16384.0).to(torch.int16)
+        if entry == "folded":
+            x = torch.from_numpy(front.fold_plane_np(x.numpy(), 3))
+        return x
+
+    sc, _ = cpu.step_many(cpu.init_state(), pc, _am_plane(c, n, rng))
+    sg = convert.state_from_numpy(gpu, convert.state_to_numpy(sc))
+    before = front.fused_front.launches
+    for k in (3, 9):
+        x = plane(k)
+        sc, oc = cpu.step_many(sc, pc, x)
+        sg, og = gpu.step_many(sg, pg, x.to(cuda))
+        assert float((og["audio"].cpu() - oc["audio"]).abs().max()) < 2e-4
+        for key in ("spectrum", "zoomed"):
+            assert float((og[key].cpu() - oc[key]).abs().max()) < 0.1
+        assert float((og["smeter"]["snr_db"].cpu()
+                      - oc["smeter"]["snr_db"]).abs().max()) < 0.1
+        assert torch.equal(og["squelch_open"].cpu(), oc["squelch_open"])
+        for a, b in zip(convert.state_to_numpy(sg), convert.state_to_numpy(sc)):
+            assert np.abs(a.astype(np.complex128)
+                          - b.astype(np.complex128)).max() < 1e-4
+    assert front.fused_front.launches == before + 2

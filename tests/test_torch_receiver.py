@@ -22,9 +22,10 @@ import torch
 
 from pebblesdr_tpu.chain.receiver import Receiver as JaxReceiver
 from pebblesdr_tpu.chain.receiver import ReceiverConfig as JaxConfig
-from pebblesdr_tpu.demod.modes import DemodMode
+from pebblesdr_tpu.demod.modes import DemodMode as JaxMode
 from pebblesdr_tpu_torch.chain import receiver as trx_mod
 from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
+from pebblesdr_tpu_torch.demod.modes import DemodMode
 from pebblesdr_tpu_torch.utils import convert
 
 FS, N, C = 2_048_000, 8192, 4
@@ -51,7 +52,7 @@ def jleaves(tree):
 
 @pytest.fixture(scope="module")
 def runs():
-    jrx = JaxReceiver(JaxConfig(mode=DemodMode.AM, use_pallas=True, **KW))
+    jrx = JaxReceiver(JaxConfig(mode=JaxMode.AM, use_pallas=True, **KW))
     trx = Receiver(ReceiverConfig(**KW), "cpu")
     jp = jrx.default_params(250_000.0)
     tp = convert.params_from_numpy(trx, jleaves(jp))
@@ -176,10 +177,17 @@ def test_step_channel_guard(iq):
 
 
 def test_folded_plane_rejected():
+    """A time-folded entry plane is unfolded, except with the noise blanker
+    on (no closed-form group seams, as in the JAX package) or when its lane
+    groups do not hold whole blocks."""
+    rx = Receiver(ReceiverConfig(**KW, enable_noise_blanker=True), "cpu")
+    with pytest.raises(ValueError, match="folded"):
+        rx.step_many(rx.init_state(), rx.default_params(),
+                     torch.zeros(N, 4 * C))
     rx = Receiver(ReceiverConfig(**KW), "cpu")
     with pytest.raises(ValueError, match="folded by 2"):
         rx.step_many(rx.init_state(), rx.default_params(),
-                     torch.zeros(N, 4 * C))
+                     torch.zeros(N // 2, 4 * C))
 
 
 @pytest.mark.parametrize("kw", [dict(mode=DemodMode.USB),
@@ -205,22 +213,29 @@ def test_convert_round_trip():
 
 
 def test_port_imports_no_jax():
-    """The port (AM and WFM modules) runs a CPU step of each ported mode in
-    a fresh interpreter without loading jax."""
+    """Every module of the port and chip_smoke load in a fresh interpreter,
+    and a CPU step of each ported mode, with the noise blanker and IQ
+    balance on, runs without loading jax or any module of the JAX package."""
     code = (
-        "import sys, numpy as np, torch\n"
+        "import importlib, pkgutil, sys, numpy as np, torch\n"
+        "import pebblesdr_tpu_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
         "from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig\n"
-        "from pebblesdr_tpu_torch.demod import wfm\n"
-        "from pebblesdr_tpu_torch.ops import pll, wfm_tail\n"
-        "from pebblesdr_tpu.demod.modes import DemodMode\n"
+        "from pebblesdr_tpu_torch.demod.modes import DemodMode\n"
         "x = torch.from_numpy(np.random.default_rng(0).standard_normal("
         "(8192, 4)).astype(np.float32))\n"
         "for mode, shape in ((DemodMode.AM, (2,)), (DemodMode.FMS, (2, 2))):\n"
         "    rx = Receiver(ReceiverConfig(sample_rate=2048000, "
-        "frames_per_buffer=8192, channels=2, mode=mode), 'cpu')\n"
+        "frames_per_buffer=8192, channels=2, mode=mode, "
+        "enable_noise_blanker=True, enable_iq_balance=True), 'cpu')\n"
         "    st, out = rx.step(rx.init_state(), rx.default_params(250000.0), x)\n"
         "    assert out['audio'].shape == shape + (rx.audio_blk,)\n"
-        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "    assert st.nb[1].shape == (16, 4)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'pebblesdr_tpu' or m.startswith('pebblesdr_tpu.')]\n"
+        "assert not bad, bad\n"
         "print('ok')\n")
     env = {**os.environ, "PYTHONPATH": REPO}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

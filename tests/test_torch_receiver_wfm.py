@@ -29,8 +29,9 @@ import torch
 
 from pebblesdr_tpu.chain.receiver import Receiver as JaxReceiver
 from pebblesdr_tpu.chain.receiver import ReceiverConfig as JaxConfig
-from pebblesdr_tpu.demod.modes import DemodMode
+from pebblesdr_tpu.demod.modes import DemodMode as JaxMode
 from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
+from pebblesdr_tpu_torch.demod.modes import DemodMode
 from pebblesdr_tpu_torch.utils import convert
 
 FS, N = 2_048_000, 8192
@@ -41,6 +42,11 @@ LP_TAPS = 235
 def kw(c):
     return dict(sample_rate=FS, frames_per_buffer=N, channels=c,
                 mode=DemodMode.FMS)
+
+
+def jkw(c):
+    """kw(c) for the JAX Receiver, which takes its own mode enum."""
+    return dict(kw(c), mode=JaxMode.FMS)
 
 
 def fm_plane(c: int, k: int, seed: int) -> np.ndarray:
@@ -67,7 +73,7 @@ def jleaves(tree):
 @pytest.fixture(scope="module")
 def runs():
     res = {}
-    jrx = JaxReceiver(JaxConfig(use_pallas=True, **kw(4)))
+    jrx = JaxReceiver(JaxConfig(use_pallas=True, **jkw(4)))
     trx = Receiver(ReceiverConfig(**kw(4)), "cpu")
     jp = jrx.default_params(250_000.0)
     tp = convert.params_from_numpy(trx, jleaves(jp))
@@ -82,7 +88,7 @@ def runs():
         tst, to = trx.step_many(tst, tp, torch.from_numpy(x))
         res[k] = (jo, to, jleaves(jst), convert.state_to_numpy(tst))
 
-    jrx = JaxReceiver(JaxConfig(use_pallas=True, **kw(64)))
+    jrx = JaxReceiver(JaxConfig(use_pallas=True, **jkw(64)))
     trx = Receiver(ReceiverConfig(**kw(64)), "cpu")
     jp = jrx.default_params(250_000.0)
     tp = convert.params_from_numpy(trx, jleaves(jp))

@@ -28,7 +28,7 @@ from pebblesdr_tpu.ops import decimator as jdec
 from pebblesdr_tpu.ops import mixer as jmix
 from pebblesdr_tpu.ops import pallas_kernels as pk
 from pebblesdr_tpu.ops import pll as jpll
-from pebblesdr_tpu.demod.modes import DemodMode
+from pebblesdr_tpu_torch.demod.modes import DemodMode
 from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
 from pebblesdr_tpu_torch.demod import wfm as twfm
 from pebblesdr_tpu_torch.ops import decimator as tdec
