@@ -48,7 +48,26 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
  15. K1 at each timed cell's shape and form (the base form at am_64ch,
      NB1 + IQ at am_nb_64ch, float32 at am_256ch, int16 at am_i16_256ch,
      float32 at am_16ch) against its plain version on the same inputs, then
-     both timed, with each form's per-launch device times.
+     both timed, with each form's per-launch device times;
+ 16. K1 in its hq form (factor-4 plan, discriminator, y-tails and the
+     composite decimation by 2, K1e) against its plain version at the
+     wfm_hq_64ch shape (64 channels, 32 blocks of 32768 frames), over two
+     streaming calls, then both timed, with the per-launch device times;
+ 17. the WFM receiver at the hq geometry on the card against the CPU (4
+     channels, 8192-frame blocks, dispatches of 3 then 9 blocks);
+ 18. the WFM+RDS receiver, at the default and at the hq geometry, on the
+     card against the CPU (4 channels, 32768-frame blocks, dispatches of 3),
+     with the soft symbols, the symbol timing and the RDS state;
+ 19. RDS decode on the card: the PS name "PEBBLES " at C=1 through 5
+     dispatches of 8 blocks, at the default and at the hq geometry (there
+     with no block error);
+ 20. stereo separation at the hq geometry on the card;
+ 21. the timed cells wfm_hq_64ch and wfm_rds_64ch (bench.py's wfm_hq and
+     wfm_rds rows, windows interleaved) and wfm_16ch (16 channels, 64
+     blocks, entered as a plane folded by 4), each with K1 and K2 held to
+     their plain versions at the cell's own plans and shapes first, and a
+     profile of its dispatches (event-timed ms, host enqueue, device busy,
+     idle share).
 Each receiver phase sets every kernel's launch count to 0 just before it
 drives the receiver and reads the counts just after.  Each kernel's bound
 is the larger of the bytes it must move over 3.35 TB/s and the operations
@@ -80,6 +99,10 @@ SLICE = dict(channels=4, frames=8192, dispatches=(3, 9))
 TONE_SNR_DB = 40.0       # 1 kHz tone (AM m = 0.8; WFM L), band above 100 Hz
 DISC_ATOL = 1e-4         # K1's discriminator vs plain (tests/test_pallas.py:286)
 SEPARATION_DB = 30.0     # WFM stereo separation (the JAX package: 34.6 dB)
+HQ_SEPARATION_DB = 40.0  # at the hq geometry (tests/test_chain.py:415; JAX
+#                          package: 47.4 dB)
+SOFT_RTOL = 1e-3         # RDS soft symbols, card vs CPU, of their scale
+RDS_SLICE = dict(channels=4, frames=32768, blocks=3)
 KERNELS = ("front", "wfm_tail")
 NB1 = (3.3, 7, 0.001, "blank")     # the Receiver's NB1 (threshold, width,
 NB2 = (3.3, 7, 0.001, "average")   # alpha, mode) and NB2
@@ -94,6 +117,12 @@ OPTION_CELLS = {
     "am_i16_256ch": (256, 16, "i16", {}),
     "am_16ch": (16, 64, "fold4", {}),
 }
+# the WFM cells of this slice: (name, channels, blocks, entry, options)
+WFM_CELLS = {
+    "wfm_hq_64ch": (64, 32, "f32", dict(wfm_hq=True)),
+    "wfm_rds_64ch": (64, 32, "f32", dict(rds=True)),
+    "wfm_16ch": (16, 64, "fold4", {}),
+}
 
 
 def log(msg: str) -> None:
@@ -106,15 +135,34 @@ def rel_err(got, ref) -> float:
     return float((got - ref).abs().max() / max(float(ref.abs().max()), 1e-30))
 
 
+def rds_biphase(t: np.ndarray) -> np.ndarray:
+    """The PS groups of "PEBBLES " (PI 0x54A8, group 0A) as differential
+    biphase symbols at 1187.5 baud, sampled at times t
+    (tests/test_chain_batched.py:299-345)."""
+    from pebblesdr_tpu_torch.demod import rds
+    bits = []
+    for _ in range(24):
+        for seg in range(4):
+            d = (ord("PEBBLES "[2 * seg]) << 8) | ord("PEBBLES "[2 * seg + 1])
+            bits += rds.encode_group(0x54A8, (5 << 5) | seg, 0xE0E0, d)
+    sym = np.cumsum(bits) % 2 * 2.0 - 1.0             # differential encoding
+    idx = np.minimum((t * rds.RDS_BAUD).astype(np.int64), len(sym) - 1)
+    return sym[idx] * np.where(t * rds.RDS_BAUD - idx < 0.5, 1.0, -1.0)
+
+
 def wfm_plane(channels: int, n_rows: int, rng, noise: float = 0.0,
-              program: str = "mono"):
+              program: str = "mono", t0: float = 0.0):
     """[n_rows, 2C] float32 packed plane: broadcast FM at 250 kHz on every
     channel.  "mono": bench.py's wfm signal (1 kHz on L and R, pilot);
-    "left": the L-only 700 Hz program of bench.py's quality row."""
-    t = np.arange(n_rows) / FS
+    "left": the L-only 700 Hz program of bench.py's quality row; "rds":
+    1 kHz mono, pilot and the RDS PS groups on 57 kHz.  t0: start time."""
+    t = t0 + np.arange(n_rows) / FS
     th = 2 * np.pi * 19000.0 * t
     if program == "mono":
         comp = 0.45 * np.sin(2 * np.pi * 1000.0 * t) + 0.1 * np.sin(th)
+    elif program == "rds":
+        comp = (0.3 * np.sin(2 * np.pi * 1000.0 * t) + 0.1 * np.sin(th)
+                + 0.06 * rds_biphase(t) * np.cos(3 * th))
     else:
         lt = np.sin(2 * np.pi * 700.0 * t)
         comp = 0.45 * lt + 0.1 * np.sin(th) + 0.45 * lt * np.sin(2 * th)
@@ -168,20 +216,25 @@ def bound(nbytes: float, ops: float) -> dict:
 
 def k1_bound(plan, t: int, c: int, x_bytes: int, n_block: int,
              raw_rows: int, disc: bool = False, y_tail_rows: int = 0,
-             nb: bool = False, iq: bool = False) -> dict:
+             nb: bool = False, iq: bool = False, comp_taps: int = 0) -> dict:
     """K1's bound from its shapes: the plane read once, every output
     written once, the carried state read and written; the FIR's 2 (D+1)
     operations per decimated lane plus the per-row work (DC 2 per lane,
-    mix 6, IQ 3 and blanker 6 per channel; discriminator ~26 per output)."""
+    mix 6, IQ 3 and blanker 6 per channel; discriminator ~26 per output;
+    with comp_taps the half-rate plane written instead of the full-rate
+    one, its 32-row history read and written, and 2 tc operations per
+    half-rate output)."""
     c2, k, m = 2 * c, t // n_block, t // plan.factor
+    disc_rows = m // 2 if comp_taps else m
     nbytes = (t * c2 * x_bytes + 2 * plan.d_rows * c2 * 4
               + k * raw_rows * c2 * 4
               + (k * y_tail_rows if y_tail_rows else m) * c2 * 4
-              + (m * c * 4 if disc else 0)
+              + (disc_rows * c * 4 if disc else 0)
+              + (2 * 32 * c * 4 if comp_taps else 0)
               + (2 * (1 + 16) * c2 * 4 if nb else 0))
     ops = (2 * plan.h.numel() * m * c2 + 2 * t * c2 + 6 * t * c
            + (3 * t * c if iq else 0) + (6 * t * c if nb else 0)
-           + (26 * m * c if disc else 0))
+           + (26 * m * c if disc else 0) + 2 * comp_taps * (m // 2) * c)
     return bound(nbytes, ops)
 
 
@@ -268,19 +321,28 @@ def phase_front(torch, front, decimator) -> dict:
 
 
 def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
-                entry: str | None = None) -> None:
-    """Phases 3 (AM), 8 (FMS) and 13 (AM with an entry option: "nb1_iq",
-    "i16" or "folded"): the receiver on the card vs on the CPU."""
+                entry: str | None = None, wfm_opts: dict | None = None,
+                tag: str | None = None) -> None:
+    """Phases 3 (AM), 8 (FMS), 13 (AM with an entry option: "nb1_iq",
+    "i16" or "folded"), 17 (FMS at the hq geometry) and 18 (FMS with RDS):
+    the receiver on the card vs on the CPU."""
     wfm = mode.name == "FMS"
-    tag = (f"phase13 slice {entry}" if entry else
-           "phase8 WFM slice" if wfm else "phase3 slice")
+    tag = tag or (f"phase13 slice {entry}" if entry else
+                  "phase8 WFM slice" if wfm else "phase3 slice")
+    wfm_opts = wfm_opts or {}
+    use_rds = bool(wfm_opts.get("rds"))
     c, n = SLICE["channels"], SLICE["frames"]
+    dispatches = SLICE["dispatches"]
+    if use_rds:            # RDS needs whole symbols per block: N = 32768
+        c, n = RDS_SLICE["channels"], RDS_SLICE["frames"]
+        dispatches = (RDS_SLICE["blocks"],)
     if entry == "folded":
         c = 2
     opts = (dict(enable_noise_blanker=True, enable_iq_balance=True)
             if entry == "nb1_iq" else {})
     cfg = receiver.ReceiverConfig(sample_rate=FS, frames_per_buffer=n,
-                                  channels=c, mode=mode, agc_stride=16, **opts)
+                                  channels=c, mode=mode, agc_stride=16,
+                                  **opts, **wfm_opts)
     rx_cpu = receiver.Receiver(cfg, "cpu")
     rx_gpu = receiver.Receiver(cfg, "cuda")
     rng = np.random.default_rng(5 if wfm else 2)
@@ -292,9 +354,13 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
             params_g = dataclasses.replace(
                 params_g, **{name: torch.tensor(v, device="cuda")})
 
+    t0 = [0.0]
+
     def plane(rows):
-        x = (wfm_plane(c, rows, rng, 1e-2, program="left") if wfm
+        x = (wfm_plane(c, rows, rng, 1e-2, t0=t0[0],
+                       program="rds" if use_rds else "left") if wfm
              else am_plane(c, rows, rng, 1e-2))
+        t0[0] += rows / FS
         return impulsive(x, n) if entry == "nb1_iq" else x
 
     def entry_plane(x):
@@ -309,7 +375,7 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
     st_c, _ = rx_cpu.step_many(rx_cpu.init_state(), params_c,
                                torch.from_numpy(plane(n)))
     st_g = convert.state_from_numpy(rx_gpu, convert.state_to_numpy(st_c))
-    for k in SLICE["dispatches"]:
+    for k in dispatches:
         x = torch.from_numpy(entry_plane(plane(k * n)))
         if entry == "nb1_iq":
             _, z = front.dc_iq_reference(rx_cpu.front, x, st_c.dc,
@@ -329,7 +395,16 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
         d_db["snr"] = float((out_g["smeter"]["snr_db"].cpu()
                              - out_c["smeter"]["snr_db"]).abs().max())
         same = {key: bool((out_g[key].cpu() == out_c[key]).all())
-                for key in ("squelch_open", "pilot_locked") if key in out_c}
+                for key in ("squelch_open", "pilot_locked", "rds_timing")
+                if key in out_c}
+        if use_rds:
+            scale = float(out_c["rds_soft"].abs().max())
+            d_soft = float((out_g["rds_soft"].cpu()
+                            - out_c["rds_soft"]).abs().max()) / scale
+            same["rds_soft"] = d_soft <= SOFT_RTOL and scale > 0.0
+            log(f"{tag} K={k}: rds_soft {tuple(out_g['rds_soft'].shape)} "
+                f"relative {d_soft:.3g} (<= {SOFT_RTOL}) of scale "
+                f"{scale:.4g}, rds_timing equal {same['rds_timing']}")
         d_state = max(float(np.abs(a.astype(np.complex128)
                                    - b.astype(np.complex128)).max())
                       for a, b in zip(convert.state_to_numpy(st_g),
@@ -440,6 +515,15 @@ def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
             raise RuntimeError(f"{tag} {cell['name']}: squelch closed")
         if wfm and not bool(out["pilot_locked"].all()):
             raise RuntimeError(f"{tag} {cell['name']}: pilot not locked")
+        if "rds_soft" in out:
+            soft, n_sym = out["rds_soft"], cell["rx"].rds_cfg.n_sym
+            if (tuple(soft.shape) != (k, c, n_sym)
+                    or not bool(torch.isfinite(soft).all())
+                    or tuple(out["rds_timing"].shape) != (k, c)):
+                raise RuntimeError(f"{tag} {cell['name']}: RDS outputs "
+                                   f"{tuple(soft.shape)}")
+            log(f"{tag} {cell['name']} rds_soft {tuple(soft.shape)} finite, "
+                f"{n_sym} symbols per block per channel")
         tone = audio[:, 0, 0, :] if wfm else audio[:, 0, :]  # WFM: L channel
         snr = tone_snr_db(tone.reshape(-1).double().cpu().numpy(),
                           cell["cfg"].audio_rate)
@@ -588,12 +672,15 @@ def phase_tail(torch, wfm_mod, wfm_tail) -> dict:
     return {"plan": plan, "max_abs_err": max_abs}
 
 
-def phase_separation(torch, receiver, DemodMode) -> float:
-    """Phase 10: stereo separation (bench.py:318-341) on the card, C=1,
-    20 blocks of 32768 in two dispatches, measured on the second half."""
+def phase_separation(torch, receiver, DemodMode, hq: bool = False) -> float:
+    """Phases 10 and 20 (hq): stereo separation (bench.py:318-341) on the
+    card, C=1, 20 blocks of 32768 in two dispatches, measured on the second
+    half."""
     n, kb = HEADLINE["frames"], 20
+    tag, floor = ("phase20", HQ_SEPARATION_DB) if hq else ("phase10",
+                                                           SEPARATION_DB)
     cfg = receiver.ReceiverConfig(sample_rate=FS, frames_per_buffer=n,
-                                  channels=1, mode=DemodMode.FMS)
+                                  channels=1, mode=DemodMode.FMS, wfm_hq=hq)
     rx = receiver.Receiver(cfg, "cuda")
     params = rx.default_params(250_000.0)
     x = torch.from_numpy(wfm_plane(1, kb * n, None, program="left")).cuda()
@@ -610,10 +697,10 @@ def phase_separation(torch, receiver, DemodMode) -> float:
     amp = [float(np.hypot(*np.linalg.lstsq(basis, a[half:], rcond=None)[0][:2]))
            for a in aud]
     sep = 20 * np.log10(amp[0] / max(amp[1], 1e-12))
-    log(f"phase10 stereo separation {sep:.2f} dB (>= {SEPARATION_DB}; L "
-        f"{amp[0]:.5f}, R {amp[1]:.3g})")
-    if not sep >= SEPARATION_DB:
-        raise RuntimeError("stereo separation below its bound")
+    log(f"{tag} stereo separation{' (hq)' if hq else ''} {sep:.2f} dB "
+        f"(>= {floor}; L {amp[0]:.5f}, R {amp[1]:.3g})")
+    if not sep >= floor:
+        raise RuntimeError(f"{tag}: stereo separation below its bound")
     return sep
 
 
@@ -850,6 +937,253 @@ def phase_options_time(torch, front, fr) -> dict:
     return res
 
 
+def phase_front_hq(torch, front, decimator, wfm_mod) -> dict:
+    """Phase 16: K1 in its hq form (factor-4 plan, discriminator, y-tails,
+    composite decimation by 2) vs plain at the wfm_hq_64ch shape, two
+    streaming calls from a random comp_hist; then both timed, with the
+    per-launch device times."""
+    from pebblesdr_tpu_torch.ops.mixer import split_freq
+    c, k, _, _ = WFM_CELLS["wfm_hq_64ch"]
+    n = HEADLINE["frames"]
+    plan_d = decimator.build_plan(FS, 400_000.0)
+    plan = front.FrontPlan.make(decimator.compose_response(plan_d),
+                                plan_d.factor, "cuda")
+    taps = wfm_mod.WFMConfig.make(plan_d.rate_out / 2, comp_decim=2).comp_taps
+    hr = front.comp_hist_rows(len(taps))
+    f_hi, f_lo = (torch.full((c,), float(v), device="cuda")
+                  for v in split_freq(250_000.0, FS))
+    gain = float(plan_d.rate_out) / (2 * np.pi * 75_000.0)
+    zt = min(n // plan.factor, 2048)
+    rng = np.random.default_rng(16)
+    zeros = dict(dtype=torch.float32, device="cuda")
+    st_k = st_r = (torch.zeros(1, 2 * c, **zeros), torch.zeros(c, **zeros),
+                   torch.zeros(plan.d_rows, 2 * c, **zeros),
+                   torch.zeros(1, 2 * c, **zeros),
+                   0.1 * torch.randn(hr, c, **zeros))
+    kw = dict(n_block=n, raw_rows=2048, disc_gain=gain, y_tail_rows=zt,
+              comp_taps=taps)
+    worst, disc_err, hist_err, max_abs = 0.0, 0.0, 0.0, 0.0
+    for call in range(2):
+        x = torch.from_numpy(wfm_plane(c, k * n, rng, noise=0.02)
+                             + 0.05 * (call + 1)).cuda()
+        out_k = front.fused_front(plan, x, st_k[0], st_k[1], f_hi, f_lo,
+                                  st_k[2], disc_last=st_k[3],
+                                  comp_hist=st_k[4], **kw)
+        out_r = front.fused_front_reference(plan, x, st_r[0], st_r[1], f_hi,
+                                            f_lo, st_r[2], disc_last=st_r[3],
+                                            comp_hist=st_r[4], **kw)
+        torch.cuda.synchronize()
+        shapes = tuple(tuple(o.shape) for o in (out_k[0], out_k[5], out_k[7]))
+        if shapes != ((k, zt, 2 * c), (k * n // (2 * plan.factor), c),
+                      (hr, c)):
+            raise RuntimeError(f"K1e output shapes {shapes}")
+        names = ("y_tail", "dc", "tail", "phase", "raw", "disc", "dlast",
+                 "comp_hist")
+        errs = {nm: rel_err(a, b) for nm, a, b in zip(names, out_k, out_r)
+                if nm not in ("phase", "disc", "comp_hist")}
+        errs["phase"] = float((out_k[3] - out_r[3]).abs().max())
+        d_err = float((out_k[5] - out_r[5]).abs().max())
+        h_err = float((out_k[7] - out_r[7]).abs().max())
+        worst = max(worst, max(errs.values()))
+        disc_err, hist_err = max(disc_err, d_err), max(hist_err, h_err)
+        max_abs = max([max_abs] + [float((a - b).abs().max())
+                                   for a, b in zip(out_k, out_r)])
+        log(f"phase16 K1e call {call}: relative max errors "
+            + " ".join(f"{kk}={v:.3g}" for kk, v in errs.items())
+            + f"; half-rate disc abs {d_err:.3g}, comp_hist' abs {h_err:.3g}")
+        st_k = (out_k[1], out_k[3], out_k[2], out_k[6], out_k[7])
+        st_r = (out_r[1], out_r[3], out_r[2], out_r[6], out_r[7])
+        del out_k, out_r, x
+    if not (worst <= FRONT_RTOL and disc_err <= DISC_ATOL
+            and hist_err <= DISC_ATOL):
+        raise RuntimeError(f"K1e disagrees with its plain version: {worst:.3g}"
+                           f" > {FRONT_RTOL} or disc {disc_err:.3g} / "
+                           f"comp_hist' {hist_err:.3g} > {DISC_ATOL}")
+    log(f"phase16 ok: K1e == plain within {FRONT_RTOL} relative (worst "
+        f"{worst:.3g}), disc and comp_hist' within {DISC_ATOL} (worst "
+        f"{disc_err:.3g}, {hist_err:.3g})")
+    x = torch.from_numpy(wfm_plane(c, n, None)).cuda().repeat(k, 1).contiguous()
+    args = (x, torch.zeros(1, 2 * c, **zeros), torch.zeros(c, **zeros),
+            f_hi, f_lo, torch.zeros(plan.d_rows, 2 * c, **zeros))
+    kw.update(disc_last=torch.zeros(1, 2 * c, **zeros),
+              comp_hist=torch.zeros(hr, c, **zeros))
+    ms, plain_ms, t = time_pair(
+        torch, lambda: front.fused_front(plan, *args, **kw),
+        lambda: front.fused_front_reference(plan, *args, **kw))
+    b = k1_bound(plan, k * n, c, 4, n, 2048, disc=True, y_tail_rows=zt,
+                 comp_taps=len(taps))
+    log(f"phase16 K1e at wfm_hq_64ch: {ms:.4f} ms vs plain {plain_ms:.4f} ms "
+        f"per dispatch (runs kernel {t['kernel']}, plain {t['plain']}); bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}); per launch (ms): "
+        + kernel_breakdown(torch, lambda: front.fused_front(plan, *args,
+                                                            **kw)))
+    del args, x
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_abs, **b}
+
+
+def phase_rds_decode(torch, receiver, DemodMode) -> dict:
+    """Phase 19: the PS name through the card receiver at C=1, 5 dispatches
+    of 8 blocks of 32768 (tests/test_chain_batched.py:299-345), at the
+    default and at the hq geometry; the hq run must see no block error
+    (tests/test_rds.py:331)."""
+    from pebblesdr_tpu_torch.demod import rds
+    n, n_disp, kb = HEADLINE["frames"], 5, 8
+    x = torch.from_numpy(wfm_plane(1, n_disp * kb * n, None,
+                                   program="rds")).cuda()
+    res = {}
+    for hq in (False, True):
+        cfg = receiver.ReceiverConfig(sample_rate=FS, frames_per_buffer=n,
+                                      channels=1, mode=DemodMode.FMS,
+                                      rds=True, wfm_hq=hq)
+        rx = receiver.Receiver(cfg, "cuda")
+        st, params = rx.init_state(), rx.default_params(250_000.0)
+        dec = rds.RdsBlockDecoder()
+        for d in range(n_disp):
+            st, out = rx.step_many(st, params, x[d * kb * n:(d + 1) * kb * n],
+                                   spectra=False)
+            dec.feed_symbols(out["rds_soft"][:, 0].reshape(-1).cpu().numpy())
+        grp = rds.RdsGroupDecoder()
+        for g in dec.groups:
+            grp.decode(g)
+        name = "hq" if hq else "default"
+        log(f"phase19 RDS decode ({name} geometry): synced {dec.synced}, "
+            f"{len(dec.groups)} groups, {dec.blocks_ok} blocks ok, "
+            f"{dec.block_errors} block errors, {dec.bits_corrected} bits "
+            f"corrected; PS {grp.ps_name!r}, PI {grp.pi:#06x} "
+            f"({grp.callsign})")
+        if not (dec.synced and grp.ps_name == "PEBBLES "
+                and (dec.block_errors == 0 or not hq)):
+            raise RuntimeError(f"phase19: RDS decode failed ({name})")
+        res[name] = {"groups": len(dec.groups),
+                     "block_errors": dec.block_errors}
+    return res
+
+
+def dispatch_profile(torch, cell, tag: str, reps: int = 5) -> dict:
+    """One cell's dispatches with spectra off: timed by CUDA events without
+    the profiler, their host enqueue time (no sync inside), then under
+    torch.profiler (CUDA activity) for the device busy time per dispatch
+    (the union of its kernels' intervals).  Idle share = 1 - busy /
+    event-timed ms; with the kernels that take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    st = [cell["state"]]
+
+    def step():
+        st[0], _ = cell["rx"].step_many(st[0], cell["params"], cell["iq"],
+                                        spectra=False)
+
+    step()
+    ms = time_cuda(torch, step, reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step()
+    host = (time.perf_counter() - t0) * 1e3 / reps    # enqueue, no sync
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    spans, by_name = [], {}
+    for ev in prof.events():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        a, b = ev.time_range.start, ev.time_range.end
+        spans.append((a, b))
+        key = re.sub(r"^void\s+|\(anonymous namespace\)::|at::native::", "",
+                     ev.name)
+        key = re.sub(r"\(.*", "", key)[:48]
+        by_name[key] = by_name.get(key, 0.0) + (b - a) / 1e3 / reps
+    busy, end = 0.0, -np.inf
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy = busy / 1e3 / reps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    idle = max(0.0, 1.0 - busy / ms)
+    log(f"{tag} {cell['name']} profile (spectra off): {ms:.4f} ms per dispatch by "
+        f"events, host enqueue {host:.4f} ms, device busy {busy:.4f} ms "
+        f"(idle share {idle:.3f}; "
+        f"{len(spans) // reps} kernels per dispatch); top (ms): "
+        + ", ".join(f"{nm} {t:.4f}" for nm, t in top))
+    return {"ms": ms, "host_ms": host, "busy_ms": busy, "idle": idle}
+
+
+def check_cell_kernels(torch, front, wfm_tail, cell, tag: str) -> None:
+    """K1 (its WFM form; at hq with comp_taps from a random comp_hist) and
+    K2 against their plain versions once, at a WFM cell's own plans and
+    shapes: the receiver's front and tail plans and its dispatch plane
+    (unfolded; plus a DC offset, which keeps dc' away from 0), K2 on the
+    plain discriminator output with random pilot phases."""
+    rx, c, n = cell["rx"], cell["channels"], HEADLINE["frames"]
+    x = cell["iq"]
+    if x.shape[1] != 2 * c:
+        x = front.unfold_plane(x, x.shape[1] // (2 * c))
+    x = x + 0.05
+    zeros = dict(dtype=torch.float32, device="cuda")
+    f_hi, f_lo = cell["params"].tune_hi, cell["params"].tune_lo
+    kw = dict(n_block=n, raw_rows=rx.cfg.spectrum_bins,
+              disc_gain=rx.disc_gain, disc_last=torch.zeros(1, 2 * c, **zeros),
+              y_tail_rows=rx.zoom_bins)
+    names = ["y_tail", "dc", "tail", "phase", "raw", "disc", "dlast"]
+    if rx.wfm_comp_decim > 1:
+        taps = rx.wfm_cfg.comp_taps
+        kw.update(comp_taps=taps, comp_hist=0.1 * torch.randn(
+            front.comp_hist_rows(len(taps)), c, **zeros))
+        names.append("comp_hist")
+    args = (x, torch.zeros(1, 2 * c, **zeros), torch.zeros(c, **zeros), f_hi,
+            f_lo, torch.zeros(rx.front.d_rows, 2 * c, **zeros))
+    out_k = front.fused_front(rx.front, *args, **kw)
+    out_r = front.fused_front_reference(rx.front, *args, **kw)
+    torch.cuda.synchronize()
+    absolute = ("phase", "disc", "comp_hist")
+    errs = {nm: (float((a - b).abs().max()) if nm in absolute
+                 else rel_err(a, b)) for nm, a, b in zip(names, out_k, out_r)}
+    plan = rx.wfm_tail
+    rows = out_r[5].shape[0]
+    _, p0, wf = tail_inputs(torch, c, rows, plan.ell,
+                            np.random.default_rng(21))
+    hist = torch.zeros(plan.d_rows, 2 * c, **zeros)
+    tk = wfm_tail.wfm_tail(plan, out_r[5], p0, wf, hist)
+    tr = wfm_tail.wfm_tail_reference(plan, out_r[5], p0, wf, hist)
+    torch.cuda.synchronize()
+    errs.update(k2_audio=rel_err(tk[0], tr[0]), k2_hist=rel_err(tk[1], tr[1]))
+    log(f"{tag} {cell['name']} kernels vs plain at the cell's shapes (K1 "
+        f"{tuple(x.shape)}, K2 {tuple(out_r[5].shape)}): "
+        + " ".join(f"{kk}={v:.3g}" for kk, v in errs.items())
+        + " (phase, disc, comp_hist absolute)")
+    bad = [nm for nm, v in errs.items()
+           if v > (DISC_ATOL if nm in ("disc", "comp_hist") else FRONT_RTOL)]
+    if bad:
+        raise RuntimeError(f"{tag} {cell['name']}: {bad} disagree with the "
+                           f"plain versions")
+    del out_k, out_r, tk, tr, x, args
+
+
+def phase_wfm_cells(torch, receiver, front, wfm_tail, DemodMode) -> dict:
+    """Phase 21: the WFM cells wfm_hq_64ch and wfm_rds_64ch (windows
+    interleaved) and wfm_16ch, each with K1 and K2 first held to their
+    plain versions at the cell's shapes, and a profile of its dispatches."""
+    done = {}
+    for group in (("wfm_hq_64ch", "wfm_rds_64ch"), ("wfm_16ch",)):
+        cells = [make_cell(torch, receiver, front, DemodMode.FMS, name,
+                           *WFM_CELLS[name]) for name in group]
+        for cell in cells:
+            check_cell_kernels(torch, front, wfm_tail, cell, "phase21")
+        torch.cuda.empty_cache()
+        time_cells(torch, front, wfm_tail, cells, "phase21")
+        for cell in cells:
+            prof = dispatch_profile(torch, cell, "phase21")
+            done[cell["name"]] = {key: cell[key] for key in (
+                "launches", "block_ms", "msps", "realtime", "peak_gib")}
+            done[cell["name"]].update(prof)
+        del cells
+        torch.cuda.empty_cache()
+    return done
+
+
 def main() -> int:
     import torch
 
@@ -898,6 +1232,16 @@ def main() -> int:
                     entry)
     cells = phase_cells(torch, receiver, front, wfm_tail, DemodMode)
     otimes = phase_options_time(torch, front, fr)
+    hq_fr = phase_front_hq(torch, front, decimator, wfm_mod)
+    phase_slice(torch, receiver, convert, front, wfm_tail, DemodMode.FMS,
+                wfm_opts=dict(wfm_hq=True), tag="phase17 hq slice")
+    for opts, tag in ((dict(rds=True), "phase18 RDS slice"),
+                      (dict(rds=True, wfm_hq=True), "phase18 hq+RDS slice")):
+        phase_slice(torch, receiver, convert, front, wfm_tail, DemodMode.FMS,
+                    wfm_opts=opts, tag=tag)
+    phase_rds_decode(torch, receiver, DemodMode)
+    phase_separation(torch, receiver, DemodMode, hq=True)
+    wcells = phase_wfm_cells(torch, receiver, front, wfm_tail, DemodMode)
 
     c, n, k = HEADLINE["channels"], HEADLINE["frames"], HEADLINE["blocks"]
     t = n * k
@@ -934,6 +1278,16 @@ def main() -> int:
         for form, lines, cell in (
             ("IQ balance + noise blanker NB1", "212, :218", "am_nb_64ch"),
             ("int16 entry", "181", "am_i16_256ch"))
+    ] + [
+        # the hq form at wfm_hq_64ch: no single PyTorch call computes the
+        # front end and the composite decimation either
+        {"name": "fused_front (hq form: comp_taps)", "route": "cuda",
+         "source": front.SOURCE,
+         "replaces": "pebblesdr_tpu/ops/pallas_kernels.py:362",
+         "launches": wcells["wfm_hq_64ch"]["launches"][0],
+         **{key: hq_fr[key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

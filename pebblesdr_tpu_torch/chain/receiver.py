@@ -13,8 +13,13 @@ FM-stereo branches:
      hysteresis
   -> AM: FastFIR bandpass -> parallel AGC -> AM demod -> resampler
      WFM: open pilot -> fused stereo tail (ops/wfm_tail.py) -> lock gate ->
-     L/R -> de-emphasis (demod/wfm.py) -> stereo resampler
+     L/R -> de-emphasis (demod/wfm.py) -> stereo resampler; with the RDS
+     tap also the scan-free RDS subchain (demod/rds.py) -> soft symbols
   -> squelch / gain / mute gate.
+
+The WFM hq geometry (wfm_hq) protects the full +-200 kHz: the front
+decimates by 4 to 512 kHz, discriminates there and decimates the composite
+by 2 back to the 256 kHz tail rate inside the front end (comp_taps).
 
 Entry planes are float32 or int16 (the ADC's native container, read as
 x * 2^-15), unfolded [K*N, 2C] or time-folded [K*N/G, 2GC] (the TPU feeders'
@@ -40,6 +45,7 @@ import torch
 
 from pebblesdr_tpu_torch.core import db as dbu
 from pebblesdr_tpu_torch.demod import am as am_mod
+from pebblesdr_tpu_torch.demod import rds as rds_mod
 from pebblesdr_tpu_torch.demod import wfm as wfm_mod
 from pebblesdr_tpu_torch.demod.modes import MODE_INFO, DemodMode
 from pebblesdr_tpu_torch.ops import (agc, decimator, fastfir, front, iir,
@@ -60,8 +66,13 @@ class ReceiverConfig:
     agc_mode: str | None = None           # None -> mode default
     agc_stride: int = 1
     stereo: bool = True                   # FMS only (mono is not ported)
-    rds: bool = False                     # WFM RDS tap (not ported)
-    wfm_hq: bool = False                  # WFM hq geometry (not ported)
+    rds: bool = False                     # WFM RDS tap
+    rds_alg: str = "open"                 # RDS carrier: "open" = the scan-
+    #                                       free squaring loop ("scan", the
+    #                                       per-sample Costas, is not ported)
+    wfm_hq: bool = False                  # WFM hq geometry: discriminate at
+    #                                       ~512 kHz (the reference's), then
+    #                                       decimate the composite by 2
     db_offset: float = 0.0                # display calibration offset
     enable_noise_blanker: bool | str = False  # True: NB1 (blank);
     #                                       "average": NB2 (RMS substitution)
@@ -110,9 +121,6 @@ class Receiver:
         if cfg.mode not in (DemodMode.AM, DemodMode.FMS):
             raise ValueError(f"mode {cfg.mode.name} is not ported yet; the "
                              f"PyTorch receiver runs AM and FMS")
-        if cfg.mode == DemodMode.FMS and cfg.wfm_hq:
-            raise ValueError("WFM: the hq geometry (wfm_hq, in-kernel "
-                             "composite decimation) is not ported yet")
         if cfg.enable_iq_balance == "auto":
             raise ValueError("enable_iq_balance='auto' (the adaptive LMS "
                              "image-reject loop) is not ported yet; use "
@@ -130,7 +138,10 @@ class Receiver:
         self.info = info = MODE_INFO[cfg.mode]
         fs = float(cfg.sample_rate)
 
-        self.plan = decimator.build_plan(fs, info.max_output_bw)
+        wfm = cfg.mode == DemodMode.FMS
+        # the hq geometry protects the full +-200 kHz (~512 kHz composite)
+        self.plan = decimator.build_plan(
+            fs, (2.0 if wfm and cfg.wfm_hq else 1.0) * info.max_output_bw)
         if cfg.frames_per_buffer % self.plan.factor:
             raise ValueError(
                 f"frames_per_buffer={cfg.frames_per_buffer} not divisible by "
@@ -144,22 +155,35 @@ class Receiver:
         self.demod_rate = int(self.plan.rate_out)
         self.blk = cfg.frames_per_buffer // self.plan.factor
 
-        self.am_cfg = self.wfm_cfg = None
-        if cfg.mode == DemodMode.FMS:
+        self.am_cfg = self.wfm_cfg = self.rds_cfg = None
+        if wfm:
+            # hq: the composite (< 61 kHz wide) decimates by 2 right after
+            # the discriminator, so the stereo tail runs at ~256 kHz
+            self.wfm_comp_decim = (
+                2 if (cfg.wfm_hq and self.demod_rate >= 400_000) else 1)
+            tail_rate = self.demod_rate // self.wfm_comp_decim
+            self.wfm_tail_blk = self.blk // self.wfm_comp_decim
             # the audio low-pass decimates inside the demod so the resampler
             # runs near 64 kHz instead of the composite rate
             wcfg = wfm_mod.WFMConfig.make(
-                self.demod_rate, stereo=cfg.stereo, rds_tap=cfg.rds,
-                audio_decim=max(1, self.demod_rate // 64000))
+                tail_rate, stereo=cfg.stereo, rds_tap=cfg.rds,
+                audio_decim=max(1, tail_rate // 64000),
+                comp_decim=self.wfm_comp_decim)
             self.wfm_cfg = dataclasses.replace(
-                wcfg, tail_sub=wfm_mod.tail_kernel_sub(wcfg, self.blk))
+                wcfg, tail_sub=wfm_mod.tail_kernel_sub(wcfg,
+                                                       self.wfm_tail_blk))
             wfm_mod.check_ported(self.wfm_cfg)
-            self.wfm_tail = wfm_mod.tail_plan(self.wfm_cfg, self.blk,
+            self.wfm_tail = wfm_mod.tail_plan(self.wfm_cfg, self.wfm_tail_blk,
                                               self.device)
+            # the discriminator runs at the front's rate
             self.disc_gain = self.demod_rate / (
                 2.0 * np.pi * self.wfm_cfg.max_deviation)
             audio_src_rate = int(self.wfm_cfg.audio_rate)
-            audio_blk = self.blk // self.wfm_cfg.audio_decim
+            audio_blk = self.wfm_tail_blk // self.wfm_cfg.audio_decim
+            if cfg.rds:
+                self.rds_cfg = rds_mod.RdsConfig.make(
+                    tail_rate, self.wfm_tail_blk, alg=cfg.rds_alg)
+                rds_mod.check_ported(self.rds_cfg)
         else:
             self.am_cfg = am_mod.AMConfig.make(self.demod_rate,
                                                info.default_filter)
@@ -208,6 +232,8 @@ class Receiver:
             resamp=resamp,
             spec_full=spectrum.state_init(c, self.cfg.spectrum_bins, dev),
             spec_zoom=spectrum.state_init(c, self.zoom_bins, dev),
+            rds=(rds_mod.rds_init(self.rds_cfg, c, dev)
+                 if self.rds_cfg is not None else None),
             squelch=torch.zeros(c, dtype=torch.bool, device=dev),
         )
 
@@ -297,7 +323,8 @@ class Receiver:
         spectrum_bins] dB and 'overload' [K, C] (spectra only), 'zoomed'
         [K, C, zoom_bins] dB (spectra only), 'smeter' (dict of [K, C] dB),
         'squelch_open' [K, C] bool and, for FMS, 'pilot_locked' [K, C]
-        bool."""
+        bool; with the RDS tap 'rds_soft' [K, C, n_sym] soft symbols and
+        'rds_timing' [K, C] int32 (the dispatch's symbol phase)."""
         x_pk = self._pack(iq)
         n = self.cfg.frames_per_buffer
         if x_pk.shape[0] % n:
@@ -378,6 +405,15 @@ class Receiver:
             front_kw.update(disc_gain=self.disc_gain,
                             disc_last=torch.cat([last.real, last.imag])[None],
                             y_tail_rows=self.zoom_bins)
+            if self.wfm_comp_decim > 1:
+                # hq: the front decimates the composite by 2 (K1e); its
+                # carried history is comp_tail on the [hr, C] rows
+                taps = self.wfm_cfg.comp_taps
+                hr = front.comp_hist_rows(len(taps))
+                hist = torch.zeros(hr, c, dtype=torch.float32,
+                                   device=self.device)
+                hist[hr - (len(taps) - 1):] = state.demod.comp_tail.T
+                front_kw.update(comp_taps=taps, comp_hist=hist)
         fr = front.fused_front(
             self.front, x_pk, state.dc, state.mixer.phase, params.tune_hi,
             params.tune_lo, state.decim, n_block=cfg.frames_per_buffer,
@@ -391,8 +427,12 @@ class Receiver:
                  if spectra else None)
         if self.wfm_cfg is not None:
             xz = torch.complex(y_pk[:, :, :c], y_pk[:, :, c:]).permute(2, 0, 1)
+            comp_tail = None
+            if self.wfm_comp_decim > 1:
+                tc = len(self.wfm_cfg.comp_taps)
+                comp_tail = fr[7][fr[7].shape[0] - (tc - 1):].T.contiguous()
             demod = functools.partial(self._demod_wfm, disc_t=fr[5],
-                                      dlast=fr[6])
+                                      dlast=fr[6], comp_tail=comp_tail)
         else:
             x_cat = torch.complex(y_pk[:, :c].T, y_pk[:, c:].T)  # [C, K*blk]
             xz = x_cat.reshape(c, k, self.blk)[:, :, self.blk - self.zoom_bins:]
@@ -495,20 +535,33 @@ class Receiver:
                      resamp=resamp_state), audio, {})
 
     def _demod_wfm(self, state: ReceiverState, params: RxParams, k: int,
-                   disc_t: torch.Tensor, dlast: torch.Tensor):
+                   disc_t: torch.Tensor, dlast: torch.Tensor,
+                   comp_tail: torch.Tensor | None):
         """Pilot -> stereo tail -> de-emphasis -> stereo resampler on the
-        front's discriminator output disc_t [K*blk, C]; FastFIR and AGC are
-        skipped, as in the JAX package."""
+        front's discriminator output disc_t [K*blk / comp_decim, C] (hq:
+        comp_tail is the composite decimator's new history), and the RDS
+        subchain with the tap; FastFIR and AGC are skipped, as in the JAX
+        package."""
         c = self.cfg.channels
         demod_state, wout = wfm_mod.wfm_demod_tm(
             self.wfm_cfg, self.wfm_tail, state.demod, disc_t,
-            torch.complex(dlast[0, :c], dlast[0, c:]), self.blk)
+            torch.complex(dlast[0, :c], dlast[0, c:]), self.wfm_tail_blk,
+            comp_tail_new=comp_tail)
+        extra = {"pilot_locked": wout["pilot_locked"].T}
+        rds_state = state.rds
+        if self.rds_cfg is not None:
+            # streaming-exact on the concatenated composite: once per
+            # dispatch (the symbol-timing EWMA updates once per call)
+            rds_state, soft, timing = rds_mod.rds_process(
+                self.rds_cfg, state.rds, wout["rds_baseband"])
+            extra["rds_soft"] = soft.reshape(c, k, -1).transpose(0, 1)
+            extra["rds_timing"] = timing[None].expand(k, c)
         resamp_state, lr = resampler.apply_many(
             self.rs_plan, state.resamp,
             torch.cat([wout["left"], wout["right"]]))
         audio = lr.reshape(2, c, k, lr.shape[-1] // k).permute(2, 1, 0, 3)
-        return (dict(demod=demod_state, resamp=resamp_state), audio,
-                {"pilot_locked": wout["pilot_locked"].T})
+        return (dict(demod=demod_state, resamp=resamp_state, rds=rds_state),
+                audio, extra)
 
 
 def _squelch_hysteresis(b: torch.Tensor, a: torch.Tensor,

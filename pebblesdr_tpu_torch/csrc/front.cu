@@ -6,9 +6,9 @@
 // (pebblesdr_tpu/ops/pallas_kernels.py:119, :516) at fold 1 with its
 // switches: int16 entry (in_scale, :181-187), static IQ balance (iqbal,
 // :212-216), the NB1/NB2 noise blanker (nb_mode, :218-312), the FM
-// discriminator (disc_gain, :352-374) and the trailing-window y output
-// (y_tail_rows, :344-351); not the in-kernel composite decimation
-// (comp_taps).  The plain PyTorch version is fused_front_reference in
+// discriminator (disc_gain, :352-361), the trailing-window y output
+// (y_tail_rows, :344-351) and the hq composite decimation by 2 (comp_taps,
+// :362-372).  The plain PyTorch version is fused_front_reference in
 // ops/front.py.
 //
 // What bounds it: the input plane is read once (512 MiB per headline
@@ -61,6 +61,17 @@
 //      The conj product uses round-to-nearest intrinsics so no contraction
 //      changes a zero's sign: the first row after a zero seed lands on
 //      atan2(+-0, -0) = +-pi exactly as the plain version does.
+//      With comp_taps it writes no full-rate plane, only the last hr rows
+//      of the discriminator output (the next dispatch's comp_hist).
+//   6. front_comp (hq only): the composite decimation by 2, disc[j] =
+//      sum_{i<tc} ct[i] d[2j - i].  The TPU kernel carries d's last rows
+//      from one sequential grid step to the next; here each tile of 64
+//      half-rate outputs x 32 channels recomputes the d rows it needs
+//      (128 + tc - 1: one atan2 per row and channel, from the y scratch)
+//      into shared memory, rows before t = 0 from the carried comp_hist,
+//      and runs the tc-tap FIR from there.  The full-rate d plane (64 MiB
+//      per wfm_hq_64ch dispatch) never goes to device memory; the cost is
+//      a second read of the y scratch and (tc - 1) / 128 extra atan2s.
 // The oscillator is factored as in the TPU kernel: a coarse phasor per
 // 128 rows times a fine phasor per row within them, with the phases in the
 // split form (t = 2048 s + 128 q + r, f_hi on the 2^-12 grid).  The phase
@@ -752,23 +763,42 @@ __global__ void front_tail(const Tx* __restrict__ x, int T, int C,
   tail_out[i * c2 + C + c] = ui;
 }
 
-// grid ceil(M*C/256), block 256, M = T/F decimated rows.  FM discriminator
-// of the decimated composite, the carried sample, and the y-tail windows.
-__global__ void front_disc(const float* __restrict__ y, int M, int C,
-                           const float* __restrict__ disc_last, float gain,
-                           int mb, int y_tail_rows, float* __restrict__ disc,
-                           float* __restrict__ dlast,
-                           float* __restrict__ ytail) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= M * C) return;
-  const int o = idx / C, c = idx % C;
+// The FM discriminator of decimated row o >= 0, channel c:
+// atan2(y[o] conj(y[o-1])) * gain, y[-1] the carried disc_last.
+__device__ __forceinline__ float disc_at(const float* __restrict__ y, int o,
+                                         int C, int c,
+                                         const float* __restrict__ disc_last,
+                                         float gain) {
   const size_t c2 = 2 * (size_t)C;
   const float yr = y[o * c2 + c], yi = y[o * c2 + C + c];
   const float* prev = o ? y + (o - 1) * c2 : disc_last;
   const float pr = prev[c], pi = prev[C + c];
   const float im = __fsub_rn(__fmul_rn(yi, pr), __fmul_rn(yr, pi));
   const float re = __fadd_rn(__fmul_rn(yr, pr), __fmul_rn(yi, pi));
-  disc[(size_t)o * C + c] = __fmul_rn(atan2f(im, re), gain);
+  return __fmul_rn(atan2f(im, re), gain);
+}
+
+// grid ceil(M*C/256), block 256, M = T/F decimated rows.  FM discriminator
+// of the decimated composite (into disc, when not null), the carried
+// sample, the y-tail windows, and (hist_out not null, the hq form) the
+// last hr rows of the discriminator output [hr, C].
+__global__ void front_disc(const float* __restrict__ y, int M, int C,
+                           const float* __restrict__ disc_last, float gain,
+                           int mb, int y_tail_rows, float* __restrict__ disc,
+                           float* __restrict__ dlast,
+                           float* __restrict__ ytail,
+                           float* __restrict__ hist_out, int hr) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= M * C) return;
+  const int o = idx / C, c = idx % C;
+  const size_t c2 = 2 * (size_t)C;
+  const float yr = y[o * c2 + c], yi = y[o * c2 + C + c];
+  const int h = o - (M - hr);                      // row of hist_out
+  if (disc != nullptr || (hist_out != nullptr && h >= 0)) {
+    const float d = disc_at(y, o, C, c, disc_last, gain);
+    if (disc != nullptr) disc[(size_t)o * C + c] = d;
+    if (hist_out != nullptr && h >= 0) hist_out[(size_t)h * C + c] = d;
+  }
   if (o == M - 1) {
     dlast[c] = yr;
     dlast[C + c] = yi;
@@ -778,6 +808,52 @@ __global__ void front_disc(const float* __restrict__ y, int M, int C,
     float* dst = ytail + ((size_t)b * y_tail_rows + w) * c2;
     dst[c] = yr;
     dst[C + c] = yi;
+  }
+}
+
+constexpr int kCompTile = 64;     // half-rate outputs per front_comp block
+constexpr int kCompCh = 32;       // channels per front_comp block
+constexpr int kCompRowsY = 8;     // threadIdx.y extent of front_comp
+constexpr int kMaxCompTaps = 32;  // most composite-decimator taps
+
+// grid (ceil(C/kCompCh), ceil((M/2)/kCompTile)), block (kCompCh,
+// kCompRowsY).  The hq composite decimation by 2 of the discriminator
+// output d of the M decimated rows: disc[j] = sum_{i<tc} ct[i] d[2j - i],
+// d[t < 0] = comp_hist[hr + t] (hr >= tc - 1).  Each block computes the
+// 2 kCompTile + tc - 1 rows of d its outputs read (recomputing the tc - 1
+// rows its neighbour also needs) into shared memory, then each thread
+// runs the FIR for one channel and every kCompRowsY-th output, in plain
+// float32 FMAs from the newest tap to the oldest.
+__global__ void __launch_bounds__(kCompCh * kCompRowsY)
+front_comp(const float* __restrict__ y, int M, int C,
+           const float* __restrict__ disc_last, float gain,
+           const float* __restrict__ ct, int tc,
+           const float* __restrict__ comp_hist, int hr,
+           float* __restrict__ disc) {
+  __shared__ float d_s[2 * kCompTile + kMaxCompTaps - 1][kCompCh];
+  __shared__ float ct_s[kMaxCompTaps];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int c = blockIdx.x * kCompCh + tx;
+  const int j0 = blockIdx.y * kCompTile;
+  const int t_base = 2 * j0 - (tc - 1);           // d row of d_s[0]
+  const int rows = 2 * kCompTile + tc - 1;
+  if (ty == 0 && tx < tc) ct_s[tx] = ct[tx];
+  for (int r = ty; r < rows; r += kCompRowsY) {
+    const int t = t_base + r;
+    float v = 0.0f;
+    if (c < C && t < M)
+      v = t >= 0 ? disc_at(y, t, C, c, disc_last, gain)
+                 : comp_hist[(size_t)(hr + t) * C + c];
+    d_s[r][tx] = v;
+  }
+  __syncthreads();
+  const int mh = M / 2;
+  if (c >= C) return;
+  for (int jl = ty; jl < kCompTile && j0 + jl < mh; jl += kCompRowsY) {
+    const float* col = &d_s[2 * jl + tc - 1][tx];  // d[2j]
+    float acc = 0.0f;
+    for (int i = 0; i < tc; ++i) acc = fmaf(ct_s[i], col[-i * kCompCh], acc);
+    disc[(size_t)(j0 + jl) * C + c] = acc;
   }
 }
 
@@ -800,6 +876,9 @@ size_t fir_smem_bytes(int ntaps, int F, bool nb) {
 struct Fwd {
   int T, C, n, r_rows, d_rows, ntaps, F, y_tail_rows;
   const float *dc_in, *tail_in, *phase0, *fhi, *flo, *h, *disc_last;
+  const float *comp_taps, *comp_hist;  // the hq form (comp_taps not null)
+  int comp_tc, comp_hr;
+  float* comp_hist_out;
   float a, b, disc_gain;
   float *mseq, *y, *dc_out, *tail_out, *raw, *disc, *dlast, *ytail;
   Iq iq;
@@ -874,9 +953,19 @@ int forward(const Tx* x, const Fwd& f) {
     return err;
 
   const int M = f.T / f.F;
+  const bool comp = f.comp_taps != nullptr;
   front_disc<<<(unsigned)(((size_t)M * f.C + 255) / 256), 256, 0, f.st>>>(
-      f.y, M, f.C, f.disc_last, f.disc_gain, f.n / f.F, f.y_tail_rows, f.disc,
-      f.dlast, f.y_tail_rows > 0 ? f.ytail : nullptr);
+      f.y, M, f.C, f.disc_last, f.disc_gain, f.n / f.F, f.y_tail_rows,
+      comp ? nullptr : f.disc, f.dlast,
+      f.y_tail_rows > 0 ? f.ytail : nullptr,
+      comp ? f.comp_hist_out : nullptr, f.comp_hr);
+  if ((err = cudaGetLastError()) != cudaSuccess || !comp) return err;
+
+  const dim3 grid((unsigned)((f.C + kCompCh - 1) / kCompCh),
+                  (unsigned)((M / 2 + kCompTile - 1) / kCompTile));
+  front_comp<<<grid, dim3(kCompCh, kCompRowsY), 0, f.st>>>(
+      f.y, M, f.C, f.disc_last, f.disc_gain, f.comp_taps, f.comp_tc,
+      f.comp_hist, f.comp_hr, f.disc);
   return cudaGetLastError();
 }
 
@@ -906,7 +995,11 @@ const char* front_error_string(int err) {
 // the dilated flags of every row into nb_mask [T, 2C] (uint8).  With disc_gain != 0 also the
 // discriminator: disc [T/F, C], dlast [1, 2C] from disc_last [1, 2C], and,
 // when y_tail_rows > 0, ytail [T/n, y_tail_rows, 2C] (y is then the
-// full-rate scratch the FIR writes).  Returns the first CUDA error.
+// full-rate scratch the FIR writes).  With comp_taps (comp_tc <= 32 taps,
+// the hq form; needs disc_gain, T/F even and >= comp_hr, comp_hr >=
+// comp_tc - 1) disc is the [T/(2F), C] composite decimated by 2, with
+// the carried comp_hist [comp_hr, C] and comp_hist_out [comp_hr, C].
+// Returns the first CUDA error.
 int front_forward(int device, const void* x, int x_int16, int T, int C,
                   int n, int r_rows, const float* dc_in, const float* tail_in,
                   int d_rows, const float* phase0, const float* fhi,
@@ -919,15 +1012,22 @@ int front_forward(int device, const void* x, int x_int16, int T, int C,
                   float* nb_tail_out, unsigned char* nb_mask,
                   float disc_gain, const float* disc_last,
                   int y_tail_rows, float* disc, float* dlast, float* ytail,
-                  void* stream) {
+                  const float* comp_taps, int comp_tc, const float* comp_hist,
+                  int comp_hr, float* comp_hist_out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (nb_mode && (nb_bw < 1 || nb_bw > kNbTailRows)) return cudaErrorInvalidValue;
+  if (comp_taps != nullptr
+      && (disc_gain == 0.0f || comp_tc < 2 || comp_tc > kMaxCompTaps
+          || comp_hr < comp_tc - 1 || (T / F) % 2 || T / F < comp_hr))
+    return cudaErrorInvalidValue;
   Fwd f;
   f.T = T; f.C = C; f.n = n; f.r_rows = r_rows; f.d_rows = d_rows;
   f.ntaps = ntaps; f.F = F; f.y_tail_rows = y_tail_rows;
   f.dc_in = dc_in; f.tail_in = tail_in; f.phase0 = phase0; f.fhi = fhi;
   f.flo = flo; f.h = h; f.disc_last = disc_last;
+  f.comp_taps = comp_taps; f.comp_hist = comp_hist; f.comp_tc = comp_tc;
+  f.comp_hr = comp_hr; f.comp_hist_out = comp_hist_out;
   f.a = a; f.b = b; f.disc_gain = disc_gain;
   f.mseq = mseq; f.y = y; f.dc_out = dc_out; f.tail_out = tail_out;
   f.raw = raw; f.disc = disc; f.dlast = dlast; f.ytail = ytail;

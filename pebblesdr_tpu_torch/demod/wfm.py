@@ -2,17 +2,20 @@
 and de-emphasis on the time-major composite.
 
 Port of pebblesdr_tpu/demod/wfm.py for the path the batched Receiver runs
-at the ``wfm`` bench geometry: the front end's discriminator hands over the
-time-major composite, then open pilot (ops/pll.py) -> fused stereo tail
+at the ``wfm``, ``wfm_hq`` and ``wfm_rds`` bench geometries: the front end's
+discriminator hands over the time-major composite (at the hq geometry
+already decimated by 2 to the tail rate, K1e), then open pilot
+(ops/pll.py) -> fused stereo tail
 (demux + decimating low-pass, ops/wfm_tail.py) -> lock gate -> L/R ->
-de-emphasis.  The configuration and state keep the JAX package's fields,
-shapes and leaf order (the fused-tail layout), so state converts leaf by leaf.
+de-emphasis; with the RDS tap the tail-rate composite is also handed out
+channel-major for demod/rds.py.  The configuration and state keep the JAX
+package's fields, shapes and leaf order (the fused-tail layout), so state
+converts leaf by leaf.
 
-Not ported, and refused with a ValueError naming them: the RDS tap, the hq
-composite decimation (comp_decim > 1), mono WFM (and its pre-discriminator
-biquad), the closed-loop "pll" pilot, the pilot notch (only needed when the
-audio low-pass does not already null 19 kHz) and geometries without a tail
-sub-block (tail_sub == 0).
+Not ported, and refused with a ValueError naming them: mono WFM (and its
+pre-discriminator biquad), the closed-loop "pll" pilot, the pilot notch
+(only needed when the audio low-pass does not already null 19 kHz) and
+geometries without a tail sub-block (tail_sub == 0).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import scipy.signal
 import torch
 
 from pebblesdr_tpu_torch.ops import fir, front, iir, pll
@@ -42,7 +46,11 @@ class WFMConfig:
     pilot_open: pll.PilotOpenConfig | None = None
     tail_sub: int = 0                   # fused-tail sub-block; 0 = none
     notch_needed: bool = True
+    # the hq geometry discriminates at sample_rate * comp_decim and brings
+    # the (< 61 kHz wide) composite down to sample_rate, the tail rate,
+    # with comp_taps
     comp_decim: int = 1
+    comp_taps: np.ndarray | None = None
 
     @property
     def audio_rate(self) -> float:
@@ -62,6 +70,15 @@ class WFMConfig:
             transition_hz=transition, max_taps=255)
         h19 = np.abs(np.sum(audio_taps * np.exp(
             -2j * np.pi * PILOT_HZ / sample_rate * np.arange(len(audio_taps)))))
+        comp_taps = None
+        if comp_decim > 1:
+            # pass 0-61 kHz flat (the RDS band's upper edge), stop what
+            # would alias into it; 31 taps, unit DC gain
+            fs_in = sample_rate * comp_decim
+            comp_taps = scipy.signal.remez(
+                31, [0.0, 61000.0, sample_rate - 61000.0, 0.5 * fs_in],
+                [1.0, 0.0], weight=[1.0, 30.0], fs=fs_in)
+            comp_taps = comp_taps / comp_taps.sum()
         return WFMConfig(
             sample_rate=sample_rate, stereo=stereo, deemphasis_us=deemphasis_us,
             audio_decim=audio_decim, audio_taps=audio_taps,
@@ -71,15 +88,12 @@ class WFMConfig:
             rds_tap=rds_tap, pilot_alg=pilot_alg,
             pilot_open=pll.make_pilot_open_config(sample_rate),
             notch_needed=bool(h19 > 10.0 ** (-55.0 / 20.0)),
-            comp_decim=comp_decim)
+            comp_decim=comp_decim, comp_taps=comp_taps)
 
 
 def check_ported(cfg: WFMConfig) -> None:
     """Raise a ValueError naming the first option this port does not run."""
-    missing = [(cfg.rds_tap, "the RDS tap (demod/rds.py)"),
-               (cfg.comp_decim > 1, "the hq composite decimation "
-                                    "(comp_decim > 1)"),
-               (not cfg.stereo, "mono WFM"),
+    missing = [(not cfg.stereo, "mono WFM"),
                (cfg.pilot_alg != "open", f"the {cfg.pilot_alg!r} pilot "
                                          f"(only 'open' is ported)"),
                (cfg.notch_needed, "the pilot notch"),
@@ -102,7 +116,8 @@ class WFMState:
     lp_tail_lmr: torch.Tensor   # [C, 0] (the fused-tail layout keeps it empty)
     notch_l: torch.Tensor       # [C, 2]
     notch_r: torch.Tensor       # [C, 2]
-    comp_tail: torch.Tensor     # [C, 0] (comp_decim == 1)
+    comp_tail: torch.Tensor     # [C, Tc-1] composite-decimator history
+    #                             (comp_decim > 1; else [C, 0])
     mono_lp_bq: torch.Tensor    # [0, 2] (stereo)
 
 
@@ -154,7 +169,8 @@ def wfm_init(cfg: WFMConfig, channels: int, device) -> WFMState:
         lp_tail_lmr=zeros(channels, 0),
         notch_l=iir.biquad_state_init(channels, device),
         notch_r=iir.biquad_state_init(channels, device),
-        comp_tail=zeros(channels, 0),
+        comp_tail=zeros(channels, len(cfg.comp_taps) - 1
+                        if cfg.comp_decim > 1 else 0),
         mono_lp_bq=iir.biquad_state_init(0, device))
 
 
@@ -170,13 +186,20 @@ def discriminator(last: torch.Tensor, x: torch.Tensor, gain: float):
 
 
 def wfm_demod_tm(cfg: WFMConfig, plan: wfm_tail_mod.TailPlan, state: WFMState,
-                 raw_t: torch.Tensor, new_last: torch.Tensor, n_block: int):
-    """The stereo chain on the time-major composite raw_t [N, C] (the front
-    end's discriminator output; N a whole number of n_block-sample blocks).
-    new_last [C] complex64 is the carried composite sample the front
-    returned.  Returns (state', dict(left [C, M], right [C, M],
-    pilot_locked [C, K] bool)), M = N / audio_decim."""
+                 raw_t: torch.Tensor, new_last: torch.Tensor, n_block: int,
+                 comp_tail_new: torch.Tensor | None = None):
+    """The stereo chain on the time-major tail-rate composite raw_t [N, C]
+    (the front end's discriminator output; N a whole number of
+    n_block-sample blocks).  new_last [C] complex64 is the carried
+    composite sample the front returned.  With comp_decim > 1 the front
+    has already decimated the composite (K1e), and comp_tail_new [C, Tc-1]
+    is the history it carried.  Returns (state', dict(left [C, M], right
+    [C, M], pilot_locked [C, K] bool, rds_baseband [C, N] float32
+    composite with the RDS tap, else None)), M = N / audio_decim."""
     check_ported(cfg)
+    if (cfg.comp_decim > 1) != (comp_tail_new is not None):
+        raise ValueError("comp_tail_new (the front's composite-decimator "
+                         "history) is needed exactly when comp_decim > 1")
     n, c = raw_t.shape
     k_blocks = n // n_block
     ell = plan.ell
@@ -199,5 +222,10 @@ def wfm_demod_tm(cfg: WFMConfig, plan: wfm_tail_mod.TailPlan, state: WFMState,
 
     new_state = dataclasses.replace(
         state, last=new_last, pilot_pll=pll_state, pilot_level=lv[:, -1],
-        deemph_l=d_lr[:c], deemph_r=d_lr[c:], lp_tail_mono=tail_pk)
-    return new_state, {"left": lr[:c], "right": lr[c:], "pilot_locked": locked}
+        deemph_l=d_lr[:c], deemph_r=d_lr[c:], lp_tail_mono=tail_pk,
+        comp_tail=state.comp_tail if comp_tail_new is None else comp_tail_new)
+    # RDS premixes its -57 kHz shift into its decimation taps: it takes the
+    # real composite, channel-major
+    rds_bb = raw_t.T.contiguous() if cfg.rds_tap else None
+    return new_state, {"left": lr[:c], "right": lr[c:], "pilot_locked": locked,
+                       "rds_baseband": rds_bb}

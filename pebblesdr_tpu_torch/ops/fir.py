@@ -121,34 +121,106 @@ def _banded_seg(n: int, t: int, decim: int) -> int:
     return 0
 
 
+def _windows(xx: torch.Tensor, x: torch.Tensor, seg: int, t: int,
+             dim: int) -> torch.Tensor:
+    """The K = N/seg windows of seg + T-1 samples of the tail-extended
+    stream xx along `dim` (-1 for [C, N], 0 for time-major [N, C]), from
+    two reshapes: [C, K, seg+T-1] or [K, seg+T-1, C]."""
+    n = x.shape[dim]
+    k = n // seg
+    if dim == 0:
+        base = xx[:n].reshape(k, seg, -1)
+        carry = x.reshape(k, seg, -1)[:, seg - (t - 1):]
+        return torch.cat([base, carry], dim=1) if t > 1 else base
+    c = x.shape[0]
+    base = xx[:, :n].reshape(c, k, seg)
+    carry = x.reshape(c, k, seg)[:, :, seg - (t - 1):]
+    return torch.cat([base, carry], dim=-1) if t > 1 else base
+
+
+def tm_fir_decimate(x_t: torch.Tensor, taps_np: np.ndarray,
+                    tail_t: torch.Tensor, decim: int, seg: int = 512):
+    """Streaming decimating FIR along axis 0 of a time-major plane x_t
+    [M, C] float32 (all lanes share the taps): one banded-operator matmul
+    per segment of `seg` rows (halved until it divides M).  tail_t: [T-1, C]
+    carried history rows.  Returns (y_t [M/decim, C], tail_t')."""
+    taps32 = np.ascontiguousarray(taps_np, np.float32)
+    t = len(taps32)
+    m, c = x_t.shape
+    while m % seg:
+        seg //= 2
+    if seg < t - 1:
+        raise ValueError(f"tm_fir_decimate: {m} rows give segments of {seg}, "
+                         f"shorter than the {t - 1}-row history")
+    xx = torch.cat([tail_t, x_t], dim=0)                    # [M+T-1, C]
+    wins = _windows(xx, x_t, seg, t, 0)                     # [K, seg+T-1, C]
+    b = _banded_dev(taps32.tobytes(), seg, decim, x_t.device)
+    y = torch.matmul(wins.transpose(1, 2), b)               # [K, C, seg/decim]
+    return (y.transpose(1, 2).reshape(m // decim, c),
+            xx[xx.shape[0] - (t - 1):])
+
+
 def fir_apply_real_signal(x: torch.Tensor, tail: torch.Tensor,
                           taps_np: np.ndarray, decim: int = 1):
     """Streaming FIR on a real float32 signal x [C, N] with static taps.
 
     Short inputs: one matmul against the whole-block banded operator.  Long
     inputs (a multi-block dispatch): windows of `seg` samples plus the T-1
-    sample history, one batched matmul against the per-segment operator.
-    tail: [C, T-1] carried input history.  Returns (y [C, N//decim], tail')."""
+    sample history, one batched matmul against the per-segment operator;
+    where no segment fits, each output's T input samples (a strided view)
+    against the reversed taps.  tail: [C, T-1] carried input history.
+    Returns (y [C, N//decim], tail')."""
     taps32 = np.ascontiguousarray(taps_np, np.float32)
     key = taps32.tobytes()
     t = len(taps32)
     c, n = x.shape
     xx = torch.cat([tail, x], dim=-1)
+    seg = _banded_seg(n, t, decim)
     if (n + t - 1) * (n // decim) <= _BANDED_MAX_ENTRIES:
         y = torch.matmul(xx, _banded_dev(key, n, decim, x.device))
-    else:
-        seg = _banded_seg(n, t, decim)
-        if not seg:
-            raise ValueError(f"no banded FIR geometry for N={n}, taps={t}, "
-                             f"decim={decim}")
-        k = n // seg
-        base = xx[:, :n].reshape(c, k, seg)
-        if t > 1:
-            carry = x.reshape(c, k, seg)[:, :, seg - (t - 1):]
-            wins = torch.cat([base, carry], dim=-1)      # [C, K, seg+T-1]
-        else:
-            wins = base
-        y = torch.matmul(wins, _banded_dev(key, seg, decim, x.device))
+    elif seg:
+        y = torch.matmul(_windows(xx, x, seg, t, -1),
+                         _banded_dev(key, seg, decim, x.device))
         y = y.reshape(c, n // decim)
+    else:
+        rev = torch.from_numpy(taps32[::-1].copy()).to(x.device)
+        y = torch.matmul(xx.unfold(-1, t, decim)[:, :n // decim], rev)
     new_tail = xx[:, xx.shape[-1] - (t - 1):]
     return y, new_tail
+
+
+@functools.lru_cache(maxsize=16)
+def _banded_pair_dev(a_bytes: bytes, b_bytes: bytes, n: int, decim: int,
+                     device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.concatenate(
+        [_banded_np(a_bytes, n, decim), _banded_np(b_bytes, n, decim)],
+        axis=1)).to(device)
+
+
+def fir_apply_real_signal_pair(x: torch.Tensor, tail: torch.Tensor,
+                               taps_a_np: np.ndarray, taps_b_np: np.ndarray,
+                               decim: int = 1):
+    """Two static-tap FIRs of equal length over the same real stream x
+    [C, N] in one banded matmul against [B_a | B_b] (the window stack is
+    built once).  tail: [C, T-1].  Returns (y_a [C, N//decim], y_b,
+    tail')."""
+    a32 = np.ascontiguousarray(taps_a_np, np.float32)
+    b32 = np.ascontiguousarray(taps_b_np, np.float32)
+    t = len(a32)
+    if len(b32) != t:
+        raise ValueError("fir_apply_real_signal_pair needs tap sets of equal "
+                         "length")
+    xx = torch.cat([tail, x], dim=-1)
+    c, n = x.shape
+    m = n // decim
+    seg = _banded_seg(n, t, decim)
+    b = _banded_pair_dev(a32.tobytes(), b32.tobytes(), seg or n, decim,
+                         x.device)
+    if seg:
+        y = torch.matmul(_windows(xx, x, seg, t, -1), b)  # [C, K, 2 seg/decim]
+        ms = seg // decim
+        y_a, y_b = y[:, :, :ms].reshape(c, m), y[:, :, ms:].reshape(c, m)
+    else:
+        y = torch.matmul(xx, b)                           # [C, 2M]
+        y_a, y_b = y[:, :m], y[:, m:]
+    return y_a, y_b, xx[:, xx.shape[-1] - (t - 1):]

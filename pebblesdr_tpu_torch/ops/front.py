@@ -4,8 +4,8 @@ front-end options int16 entry, static IQ balance and the noise blanker.
 
 Port of ``fused_front_packed`` / ``_front_kernel``
 (pebblesdr_tpu/ops/pallas_kernels.py:516, :119) at fold 1, with its
-``in_scale``, ``iq_gain``/``iq_phase``, ``nb``, ``disc_gain`` and
-``y_tail_rows`` switches.  Input is one lane-packed [T, 2C] float32 or int16
+``in_scale``, ``iq_gain``/``iq_phase``, ``nb``, ``disc_gain``,
+``y_tail_rows`` and ``comp_taps`` switches.  Input is one lane-packed [T, 2C] float32 or int16
 plane (re lanes [0, C), im lanes [C, 2C)) spanning T/n_block logical blocks.
 Per dispatch, in this order:
 
@@ -32,7 +32,12 @@ Per dispatch, in this order:
   * with disc_gain != 0: disc[o] = atan2(y[o] conj(y[o-1])) * disc_gain per
     channel, y[-1] the carried disc_last [1, 2C], and disc_last' = y[-1];
     with y_tail_rows > 0, y is returned only as each block's trailing
-    y_tail_rows rows, [K, y_tail_rows, 2C] (the WFM zoom windows).
+    y_tail_rows rows, [K, y_tail_rows, 2C] (the WFM zoom windows);
+  * with comp_taps (the hq geometry, tc taps), the discriminator output d
+    is decimated by 2 before it is returned: disc[j] = sum_{i<tc} ct[i]
+    d[2j - i] per channel, d[t < 0] from the carried comp_hist [hr, C]
+    (row hr + t; hr = tc - 1 rounded up to 8, the top rows have no
+    weight), so disc is [T/(2F), C]; comp_hist' = the last hr rows of d.
 
 ``fused_front`` launches the CUDA kernel (csrc/front.cu) for a CUDA plane and
 runs ``fused_front_reference`` (plain PyTorch) for a CPU plane.
@@ -54,7 +59,7 @@ import numpy as np
 import torch
 
 from pebblesdr_tpu_torch.kernels import build
-from pebblesdr_tpu_torch.ops import decimator
+from pebblesdr_tpu_torch.ops import decimator, fir
 from pebblesdr_tpu_torch.ops.mixer import TWO_PI, advance_phase
 
 DC_CHUNK = 512     # DC-estimate chunk (ops.iir.dc_removal_chunked)
@@ -69,8 +74,16 @@ NB_TAIL_ROWS = 16  # carried spike-flag rows (the TPU kernel's tile height)
 _NB_HALO = NB_TAIL_ROWS - 1  # flag rows the FIR block stages above its tile
 I16_SCALE = 2.0 ** -15      # int16 full scale 32768 -> 1.0
 NB_MODES = ("blank", "average")  # NB1, NB2
+COMP_DECIM = 2     # the hq composite decimation (comp_taps)
+_MAX_COMP_TAPS = 32  # most comp_taps front_comp takes (kMaxCompTaps)
 SOURCE = "pebblesdr_tpu_torch/csrc/front.cu"
 REPLACES = "pebblesdr_tpu/ops/pallas_kernels.py:119"
+
+
+def comp_hist_rows(tc: int) -> int:
+    """Rows of the carried composite-decimator history: tc - 1 rounded up
+    to 8, as the TPU kernel's (pallas_kernels.py:670)."""
+    return ((tc - 1 + 7) // 8) * 8
 
 
 def fir_smem_layout(ntaps: int, factor: int,
@@ -146,7 +159,8 @@ def _check_geometry(plan: FrontPlan, x: torch.Tensor, n_block: int,
                     y_tail_rows: int = 0, iq_gain=None, iq_phase=None,
                     nb: tuple | None = None,
                     nb_avg: torch.Tensor | None = None,
-                    nb_tail: torch.Tensor | None = None
+                    nb_tail: torch.Tensor | None = None, comp_taps=None,
+                    comp_hist: torch.Tensor | None = None
                     ) -> tuple[int, int, int]:
     if x.dim() != 2 or x.shape[1] % 2:
         raise ValueError(f"front input must be a [T, 2C] plane, got "
@@ -183,6 +197,23 @@ def _check_geometry(plan: FrontPlan, x: torch.Tensor, n_block: int,
                 or tuple(nb_tail.shape) != (NB_TAIL_ROWS, c2)):
             raise ValueError(f"the noise blanker needs nb_avg [1, {c2}] and "
                              f"nb_tail [{NB_TAIL_ROWS}, {c2}]")
+    if comp_taps is not None:
+        tc = len(comp_taps)
+        hr = comp_hist_rows(tc)
+        m, mb = t // plan.factor, n_block // plan.factor
+        if not disc_gain:
+            raise ValueError("the composite decimation (comp_taps) needs the "
+                             "discriminator (disc_gain)")
+        if not 2 <= tc <= _MAX_COMP_TAPS:
+            raise ValueError(f"comp_taps needs 2..{_MAX_COMP_TAPS} taps, got "
+                             f"{tc}")
+        if comp_hist is None or tuple(comp_hist.shape) != (hr, x.shape[1] // 2):
+            raise ValueError(f"the composite decimation needs comp_hist "
+                             f"[{hr}, {x.shape[1] // 2}]")
+        if mb % COMP_DECIM or m < hr:
+            raise ValueError(f"the composite decimation needs an even number "
+                             f"of decimated rows per block and at least {hr} "
+                             f"per dispatch (block {mb}, dispatch {m})")
     r = min(raw_rows, SUB_BLOCK) or 8
     return t, n_block, r
 
@@ -271,20 +302,23 @@ def fused_front_reference(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
                           nb: tuple | None = None,
                           nb_avg: torch.Tensor | None = None,
                           nb_tail: torch.Tensor | None = None,
-                          nb_mask: torch.Tensor | None = None):
+                          nb_mask: torch.Tensor | None = None,
+                          comp_taps: np.ndarray | None = None,
+                          comp_hist: torch.Tensor | None = None):
     """Plain PyTorch version of the fused front end (see module docstring).
 
     x [T, 2C] f32 or int16; dc [1, 2C]; phase0/f_hi/f_lo [C]; tail
     [d_rows, 2C]; iq_gain/iq_phase scalar tensors; nb_avg [1, 2C] and
-    nb_tail [16, 2C].  Returns (y [T/F, 2C], dc' [1, 2C], tail' [d_rows,
-    2C], phase' [C], raw [T/n_block, R, 2C]), then with nb (nb_avg',
-    nb_tail'), then with disc_gain (disc [T/F, C], disc_last' [1, 2C]);
-    y is [T/n_block, y_tail_rows, 2C] when y_tail_rows > 0.  With the
-    blanker, a given nb_mask [T, 2C] uint8 receives the dilated flags (for
-    checking a kernel's blanked positions)."""
+    nb_tail [16, 2C]; comp_hist [hr, C].  Returns (y [T/F, 2C], dc' [1,
+    2C], tail' [d_rows, 2C], phase' [C], raw [T/n_block, R, 2C]), then with
+    nb (nb_avg', nb_tail'), then with disc_gain (disc [T/F, C], disc_last'
+    [1, 2C]), then with comp_taps comp_hist' [hr, C] (disc is then
+    [T/(2F), C]); y is [T/n_block, y_tail_rows, 2C] when y_tail_rows > 0.
+    With the blanker, a given nb_mask [T, 2C] uint8 receives the dilated
+    flags (for checking a kernel's blanked positions)."""
     t, n_block, r = _check_geometry(plan, x, n_block, raw_rows, disc_gain,
                                     disc_last, y_tail_rows, iq_gain, iq_phase,
-                                    nb, nb_avg, nb_tail)
+                                    nb, nb_avg, nb_tail, comp_taps, comp_hist)
     x = dequantize(x)
     c2 = x.shape[1]
     c = c2 // 2
@@ -321,7 +355,13 @@ def fused_front_reference(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
         mb = n_block // plan.factor
         ret = (y.reshape(t // n_block, mb, c2)[:, mb - y_tail_rows:]
                .contiguous(),) + ret[1:]
-    return ret + (disc, dlast)
+    if comp_taps is None:
+        return ret + (disc, dlast)
+    hr, tc = comp_hist.shape[0], len(comp_taps)
+    hist_out = torch.cat([comp_hist, disc])[-hr:].contiguous()
+    disc, _ = fir.tm_fir_decimate(disc, comp_taps, comp_hist[hr - (tc - 1):],
+                                  COMP_DECIM)
+    return ret + (disc, dlast, hist_out)
 
 
 @functools.lru_cache(maxsize=8)
@@ -399,7 +439,8 @@ def _lib() -> ctypes.CDLL:
         f, f, p, p, p, p, p,            # a, b, mseq, y, dc_out, tail_out, raw
         p, p,                           # iq_gain, iq_phase
         i, f, i, f, f, p, p, p, p, p, p,  # nb_mode .. nb_mask
-        f, p, i, p, p, p, p]            # disc_gain .. ytail, stream
+        f, p, i, p, p, p,               # disc_gain .. ytail
+        p, i, p, i, p, p]               # comp_taps .. comp_hist_out, stream
     lib.front_error_string.restype = ctypes.c_char_p
     lib.front_error_string.argtypes = [i]
     lib.front_fir_smem_bytes.restype = ctypes.c_size_t
@@ -425,7 +466,9 @@ def fused_front(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
                 y_tail_rows: int = 0, iq_gain=None, iq_phase=None,
                 nb: tuple | None = None, nb_avg: torch.Tensor | None = None,
                 nb_tail: torch.Tensor | None = None,
-                nb_mask: torch.Tensor | None = None):
+                nb_mask: torch.Tensor | None = None,
+                comp_taps: np.ndarray | None = None,
+                comp_hist: torch.Tensor | None = None):
     """The fused front end: the CUDA kernel for a CUDA plane, the plain
     version for a CPU plane.  Same arguments and results as
     fused_front_reference."""
@@ -433,12 +476,13 @@ def fused_front(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
         return fused_front_reference(plan, x, dc, phase0, f_hi, f_lo, tail,
                                      n_block, raw_rows, disc_gain, disc_last,
                                      y_tail_rows, iq_gain, iq_phase, nb,
-                                     nb_avg, nb_tail, nb_mask)
+                                     nb_avg, nb_tail, nb_mask, comp_taps,
+                                     comp_hist)
     if x.device.type != "cuda":
         raise ValueError(f"fused_front runs on cuda or cpu, not {x.device}")
     ret = _launch(plan, x, dc, phase0, f_hi, f_lo, tail, n_block, raw_rows,
                   disc_gain, disc_last, y_tail_rows, iq_gain, iq_phase, nb,
-                  nb_avg, nb_tail, nb_mask)
+                  nb_avg, nb_tail, nb_mask, comp_taps, comp_hist)
     fused_front.launches += 1
     return ret
 
@@ -447,12 +491,12 @@ def _launch(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
             phase0: torch.Tensor, f_hi: torch.Tensor, f_lo: torch.Tensor,
             tail: torch.Tensor, n_block: int, raw_rows: int, disc_gain: float,
             disc_last, y_tail_rows: int, iq_gain, iq_phase, nb, nb_avg,
-            nb_tail, nb_mask=None):
+            nb_tail, nb_mask=None, comp_taps=None, comp_hist=None):
     """Check the arguments, allocate the outputs and launch csrc/front.cu
     on x's device and current stream."""
     t, n_block, r = _check_geometry(plan, x, n_block, raw_rows, disc_gain,
                                     disc_last, y_tail_rows, iq_gain, iq_phase,
-                                    nb, nb_avg, nb_tail)
+                                    nb, nb_avg, nb_tail, comp_taps, comp_hist)
     c2 = x.shape[1]
     c = c2 // 2
     dev = x.device
@@ -472,6 +516,12 @@ def _launch(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
         _check_cuda("nb_tail", nb_tail, dev, (NB_TAIL_ROWS, c2))
         if nb_mask is not None:
             _check_cuda("nb_mask", nb_mask, dev, (t, c2), (torch.uint8,))
+    ct = hr = None
+    if comp_taps is not None:
+        ct = _comp_taps_dev(np.ascontiguousarray(comp_taps, np.float32)
+                            .tobytes(), dev)
+        hr = comp_hist.shape[0]
+        _check_cuda("comp_hist", comp_hist, dev, (hr, c))
     if t * c2 >= 2 ** 31 or t // plan.factor >= _FIR_TILE * 65536:
         raise ValueError(f"front dispatch of {t} x {c2} is too large for one "
                          f"kernel launch")
@@ -490,11 +540,14 @@ def _launch(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
     y = empty(m, c2)
     dc_out, tail_out = empty(1, c2), empty(plan.d_rows, c2)
     raw, mseq = empty(t // n_block, r, c2), empty(t // DC_CHUNK, c2)
-    disc = dlast = ytail = None
+    disc = dlast = ytail = hist_out = None
     if disc_gain:
-        disc, dlast = empty(m, c), empty(1, c2)
+        disc, dlast = empty(m // (COMP_DECIM if ct is not None else 1),
+                            c), empty(1, c2)
         if y_tail_rows:
             ytail = empty(t // n_block, y_tail_rows, c2)
+        if ct is not None:
+            hist_out = empty(hr, c)
     nb_mode, thr2, bw, nb_a, nb_b = 0, 0.0, 0, 0.0, 0.0
     nbseq = nb_avg_out = nb_tail_out = None
     if nb is not None:
@@ -518,8 +571,9 @@ def _launch(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
         nb_mode, thr2, int(bw), nb_a, nb_b, ptr(nb_avg), ptr(nb_tail),
         ptr(nbseq), ptr(nb_avg_out), ptr(nb_tail_out), ptr(nb_mask),
         float(disc_gain), ptr(disc_last), int(y_tail_rows),
-        ptr(disc), ptr(dlast), ptr(ytail),
-        torch.cuda.current_stream(dev).cuda_stream)
+        ptr(disc), ptr(dlast), ptr(ytail), ptr(ct),
+        0 if ct is None else ct.numel(), ptr(comp_hist), hr or 0,
+        ptr(hist_out), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"front kernel launch failed: CUDA error {err} "
                            f"({lib.front_error_string(err).decode()})")
@@ -527,7 +581,15 @@ def _launch(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
            advance_phase(phase0, t, f_hi, f_lo), raw)
     if nb is not None:
         ret += (nb_avg_out, nb_tail_out)
-    return ret + (disc, dlast) if disc_gain else ret
+    if not disc_gain:
+        return ret
+    return ret + ((disc, dlast) if ct is None else (disc, dlast, hist_out))
+
+
+@functools.lru_cache(maxsize=8)
+def _comp_taps_dev(taps_bytes: bytes, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.frombuffer(taps_bytes, np.float32).copy()
+                            ).to(device)
 
 
 fused_front.launches = 0  # CUDA kernel launches (the plain path never counts)

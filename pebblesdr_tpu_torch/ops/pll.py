@@ -1,8 +1,10 @@
-"""Open-loop 19 kHz pilot recovery for WFM stereo (no per-sample scan).
+"""Open-loop carrier recovery (no per-sample scan): the 19 kHz pilot for WFM
+stereo and the squaring loop for RDS's BPSK subcarrier.
 
 Port of the open pilot of pebblesdr_tpu/ops/pll.py (PilotOpenConfig,
-pilot_open_core / pilot_open_core_tm / _pilot_open_post).  Per chunk of L
-samples: (1) a Hann-windowed DFT bin at the pilot frequency gives one phasor
+pilot_open_core / pilot_open_core_tm / _pilot_open_post) and of its
+scan-free squaring loop (CostasOpenConfig, costas_open_run).  The pilot,
+per chunk of L samples: (1) a Hann-windowed DFT bin at the pilot frequency gives one phasor
 (a matmul; the window is the pilot bandpass); (2) the conj product of
 successive chunk phasors measures the frequency deviation, smoothed by an
 EWMA in closed form; (3) a cumsum integrates it into a phase; (4) the
@@ -11,7 +13,9 @@ lock level.  The per-sample pilot phase is linear within each chunk:
 phase(fL + t) = p0[f] + wf[f] t.  Every matmul is IEEE float32 (the JAX
 package asks Precision.HIGHEST: bf16 EWMA matmuls bias the loops).
 
-The closed-loop PLL ("pll" pilot) is not ported.
+The closed-loop PLL ("pll" pilot, the per-sample Costas scan) is not
+ported; only its configuration (PLLConfig, make_pll_config) is, because
+RdsConfig carries it.
 """
 
 from __future__ import annotations
@@ -172,3 +176,129 @@ def _pilot_open_post(cfg, state, z, ell, n, alpha, rotf_c, rotf_s, ramp_d,
     p0 = state.base[:, None] + ramp_d[None, :] + psi + ang + (math.pi / 2.0)
     wf = wc + dw
     return new_state, (p0, wf, tin_d), level
+
+
+# ------------------------------------------- closed-loop PLL configuration
+
+@dataclasses.dataclass(frozen=True)
+class PLLConfig:
+    """The per-sample PLL's gains and clamps (its run is not ported)."""
+    alpha: float
+    beta: float
+    freq_center: float   # radians/sample NCO center
+    freq_lo: float       # radians/sample clamp
+    freq_hi: float
+    detector: str = "atan2"
+
+
+def make_pll_config(sample_rate: float, bw_hz: float, zeta: float = 0.707,
+                    center_hz: float = 0.0, range_hz: float = 1000.0,
+                    detector: str = "atan2") -> PLLConfig:
+    wn = TWO_PI * bw_hz / sample_rate
+    norm = TWO_PI / sample_rate
+    return PLLConfig(alpha=2.0 * zeta * wn, beta=wn * wn,
+                     freq_center=center_hz * norm,
+                     freq_lo=(center_hz - range_hz) * norm,
+                     freq_hi=(center_hz + range_hz) * norm, detector=detector)
+
+
+# --------------------------------------- open-loop BPSK carrier (RDS, squared)
+
+@dataclasses.dataclass(frozen=True)
+class CostasOpenConfig:
+    """Scan-free BPSK carrier recovery by squaring: s = x^2 drops the +-1
+    data and leaves a tone at twice the carrier offset.  Per chunk, the
+    conj product of successive chunk means measures the squared-carrier
+    frequency (EWMA in closed form), a cumsum integrates it, and the
+    smoothed residual phasor's unwrapped angle corrects the phase; the
+    carrier phase is half the tracked one (the pi ambiguity is a BPSK sign
+    flip, which RDS's differential coding absorbs).  square=False tracks a
+    plain carrier with the same machinery."""
+    dev_max: float                # rad/sample clamp (carrier frequency)
+    chunk: int = 64
+    bw_hz: float = 30.0
+    sample_rate: float = 19000.0
+
+
+def make_costas_open_config(sample_rate: float, range_hz: float = 200.0,
+                            bw_hz: float = 30.0, chunk: int = 64,
+                            square: bool = True) -> CostasOpenConfig:
+    """The chunk shrinks until range_hz is measurable without aliasing: the
+    chunk-to-chunk product reads |w L| < pi (2 w squared)."""
+    wmax = (2.0 if square else 1.0) * TWO_PI * range_hz / sample_rate
+    chunk = int(chunk)
+    while chunk > 1 and wmax * chunk >= 0.9 * math.pi:
+        chunk //= 2
+    return CostasOpenConfig(dev_max=TWO_PI * range_hz / sample_rate,
+                            chunk=chunk, bw_hz=bw_hz,
+                            sample_rate=float(sample_rate))
+
+
+@dataclasses.dataclass(frozen=True)
+class CostasOpenState:
+    w2: torch.Tensor      # [C] f32 smoothed squared-carrier freq (rad/sample)
+    psi: torch.Tensor     # [C] f32 integrated squared-carrier phase
+    r: torch.Tensor       # [C] complex64 smoothed residual phasor
+    ang: torch.Tensor     # [C] f32 unwrapped residual angle
+    z_prev: torch.Tensor  # [C] complex64 previous chunk phasor
+
+
+def costas_open_init(channels: int, device) -> CostasOpenState:
+    def zeros(dtype):
+        return torch.zeros(channels, dtype=dtype, device=device)
+
+    return CostasOpenState(w2=zeros(torch.float32), psi=zeros(torch.float32),
+                           r=zeros(torch.complex64), ang=zeros(torch.float32),
+                           z_prev=zeros(torch.complex64))
+
+
+def costas_open_run(cfg: CostasOpenConfig, state: CostasOpenState,
+                    x: torch.Tensor, chunk: int | None = None,
+                    square: bool = True):
+    """Track the BPSK carrier (square=True) or a plain carrier in x [C, N]
+    complex64.  Returns (state', phases [C, N] carrier phase, level [C, F]
+    lock level); streaming-exact for any whole-chunk blocking.  Coherent
+    demod = (x * exp(-1j phases)).real."""
+    c, n = x.shape
+    ell = int(chunk or cfg.chunk)
+    if n % ell:
+        raise ValueError(f"carrier input of {n} samples is not a whole "
+                         f"number of {ell}-sample chunks")
+    f = n // ell
+    alpha = math.exp(-TWO_PI * cfg.bw_hz * ell / cfg.sample_rate)
+
+    s3 = (x * x if square else x).reshape(c, f, ell)
+    zf = s3.mean(dim=-1)                                   # [C, F]
+    zp = torch.cat([state.z_prev[:, None], zf[:, :-1]], dim=1)
+    dm = zf * torch.conj(zp)
+    lim = min((2.0 if square else 1.0) * cfg.dev_max, math.pi / ell)
+    w2m = torch.clamp(torch.atan2(dm.imag, dm.real) / ell, -lim, lim)
+    w2 = _ewma_closed(state.w2, w2m, alpha)                # [C, F]
+
+    cs = torch.cumsum(w2, dim=-1)
+    psi0 = state.psi[:, None] + ell * (cs - w2)            # [C, F] chunk starts
+    psi_next = state.psi + ell * cs[:, -1]
+
+    t_in = torch.arange(ell, dtype=torch.float32, device=x.device)
+    ph_in = psi0[:, :, None] + w2[:, :, None] * t_in       # [C, F, L]
+    zres = (s3 * torch.exp(-1j * ph_in.to(torch.complex64))).mean(dim=-1)
+    r = _ewma_closed(state.r, zres, alpha)                 # [C, F]
+    level = torch.abs(r)
+    # the residual angle unwrapped: a cumsum of chunk-to-chunk increments
+    r_prev = torch.cat([state.r[:, None], r[:, :-1]], dim=1)
+    dprod = r * torch.conj(r_prev)
+    dang = torch.where(torch.abs(r_prev) > 0,
+                       torch.atan2(dprod.imag, dprod.real),
+                       torch.atan2(r.imag, r.real))        # first chunk: seed
+    ang = state.ang[:, None] + torch.cumsum(dang, dim=-1)  # [C, F]
+
+    half = 0.5 if square else 1.0
+    phases = half * (ph_in + ang[:, :, None]).reshape(c, n)
+    # psi and ang wrap mod 4 pi, so the halved phase wraps mod 2 pi
+    new_state = CostasOpenState(
+        w2=w2[:, -1],
+        psi=torch.remainder(psi_next + TWO_PI, 2.0 * TWO_PI) - TWO_PI,
+        r=r[:, -1],
+        ang=torch.remainder(ang[:, -1] + TWO_PI, 2.0 * TWO_PI) - TWO_PI,
+        z_prev=zf[:, -1])
+    return new_state, phases, level

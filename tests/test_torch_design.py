@@ -16,12 +16,15 @@ from pebblesdr_tpu.chain.receiver import ReceiverConfig as JaxConfig
 from pebblesdr_tpu.core import windows as jwin
 from pebblesdr_tpu.demod import am as jam
 from pebblesdr_tpu.demod import modes as jmodes
+from pebblesdr_tpu.demod import rds as jrds
+from pebblesdr_tpu.demod import wfm as jwfm
 from pebblesdr_tpu.ops import agc as jagc
 from pebblesdr_tpu.ops import decimator as jdec
 from pebblesdr_tpu.ops import fastfir as jff
 from pebblesdr_tpu.ops import fir as jfir
 from pebblesdr_tpu.ops import mixer as jmix
 from pebblesdr_tpu.ops import pallas_kernels as jpk
+from pebblesdr_tpu.ops import pll as jpll
 from pebblesdr_tpu.ops import resampler as jrs
 from pebblesdr_tpu.ops import signalstrength as jss
 from pebblesdr_tpu.ops import spectrum as jspec
@@ -29,11 +32,14 @@ from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
 from pebblesdr_tpu_torch.core import windows as twin
 from pebblesdr_tpu_torch.demod import am as tam
 from pebblesdr_tpu_torch.demod import modes as tmodes
+from pebblesdr_tpu_torch.demod import rds as trds
+from pebblesdr_tpu_torch.demod import wfm as twfm
 from pebblesdr_tpu_torch.ops import agc as tagc
 from pebblesdr_tpu_torch.ops import decimator as tdec
 from pebblesdr_tpu_torch.ops import fastfir as tff
 from pebblesdr_tpu_torch.ops import fir as tfir
 from pebblesdr_tpu_torch.ops import mixer as tmix
+from pebblesdr_tpu_torch.ops import pll as tpll
 from pebblesdr_tpu_torch.ops import resampler as trs
 from pebblesdr_tpu_torch.ops import signalstrength as tss
 from pebblesdr_tpu_torch.ops import spectrum as tspec
@@ -187,3 +193,58 @@ def test_mode_table_identical(mode):
     assert tmodes.from_string(mode.value) is tmode
     assert tmodes.is_wfm(tmode) == jmodes.is_wfm(mode)
     assert len(tmodes.DemodMode) == len(jmodes.DemodMode)
+
+
+def test_comp_taps_identical():
+    """The hq composite decimator: 31-tap remez design at 512 kHz, unit
+    DC gain (pebblesdr_tpu/demod/wfm.py:116-130)."""
+    a = jwfm.WFMConfig.make(256_000.0, comp_decim=2)
+    b = twfm.WFMConfig.make(256_000.0, comp_decim=2)
+    assert np.array_equal(np.asarray(a.comp_taps), b.comp_taps)
+    assert len(b.comp_taps) == 31 and (b.comp_decim, a.comp_decim) == (2, 2)
+    assert jwfm.WFMConfig.make(256_000.0).comp_taps is None
+    assert twfm.WFMConfig.make(256_000.0).comp_taps is None
+
+
+@pytest.mark.parametrize("rate,block", [(256_000.0, 4096), (256_000.0, 8192)])
+def test_rds_config_identical(rate, block):
+    """RdsConfig.make: the decimator plan to 16 kHz and its composed
+    response, the premix tap pair, the matched filter, the 16 -> 19 kHz
+    resampler's dense operator, the chunk and twiddle advance, the carrier
+    configurations."""
+    a = jrds.RdsConfig.make(rate, block)
+    b = trds.RdsConfig.make(rate, block)
+    assert [s.name for s in a.plan.stages] == [s.name for s in b.plan.stages]
+    assert (a.plan.factor, a.plan.rate_out) == (b.plan.factor, b.plan.rate_out)
+    for key in ("h_composed", "h_mix_re", "h_mix_im", "mf_taps"):
+        x, y = np.asarray(getattr(a, key)), getattr(b, key)
+        assert x.dtype == y.dtype and np.array_equal(x, y), key
+    assert (a.rs_plan.n_in, a.rs_plan.n_out, a.rs_plan.taps) == (
+        b.rs_plan.n_in, b.rs_plan.n_out, b.rs_plan.taps)
+    assert np.array_equal(a.rs_plan.dense, b.rs_plan.dense)
+    assert (a.n_sym, a.chunk19, a.mix_adv16, a.alg, a.premix, a.composed) == (
+        b.n_sym, b.chunk19, b.mix_adv16, b.alg, b.premix, b.composed)
+    assert dataclasses.asdict(a.costas_open) == dataclasses.asdict(
+        b.costas_open)
+    assert dataclasses.asdict(a.pll) == dataclasses.asdict(b.pll)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(square=False),
+                                dict(range_hz=2000.0, chunk=128),
+                                dict(sample_rate=48000.0, bw_hz=10.0)])
+def test_costas_open_config_identical(kw):
+    kw = {"sample_rate": 19000.0, **kw}
+    assert dataclasses.asdict(jpll.make_costas_open_config(**kw)) == \
+        dataclasses.asdict(tpll.make_costas_open_config(**kw))
+
+
+def test_rds_burst_table_and_offsets_identical():
+    assert jrds._BURST_TABLE == trds._BURST_TABLE
+    assert jrds._OFFSETS == trds._OFFSETS and jrds._G == trds._G
+    assert jrds._PTY_NAMES_RBDS == trds._PTY_NAMES_RBDS
+    rng = np.random.default_rng(0)
+    for block in rng.integers(0, 1 << 26, 200):
+        assert jrds._syndrome(int(block)) == trds._syndrome(int(block))
+        for use_fec in (False, True):
+            assert jrds.check_block(int(block), jrds._OFFSETS["B"], use_fec) \
+                == trds.check_block(int(block), trds._OFFSETS["B"], use_fec)

@@ -1,7 +1,8 @@
 """Card-only tests of the PyTorch port: the CUDA kernels (the front end K1
-in its AM and WFM forms and with its options int16 entry, IQ balance and
-the NB1/NB2 noise blanker; the stereo tail K2) against their plain PyTorch
-versions, and the AM and WFM receivers on the card against the CPU (with
+in its AM and WFM forms, its hq form with the composite decimation K1e,
+and with its options int16 entry, IQ balance and the NB1/NB2 noise
+blanker; the stereo tail K2) against their plain PyTorch versions, and the
+AM, WFM, WFM hq and WFM+RDS receivers on the card against the CPU (with
 the front options and int16 and folded entry planes too).
 
 They skip where CUDA is absent (the kernels have no CPU mode).  This file
@@ -15,7 +16,7 @@ import pytest
 import torch
 
 from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
-from pebblesdr_tpu_torch.demod import wfm
+from pebblesdr_tpu_torch.demod import rds, wfm
 from pebblesdr_tpu_torch.demod.modes import DemodMode
 from pebblesdr_tpu_torch.ops import decimator, front, wfm_tail
 from pebblesdr_tpu_torch.ops.mixer import split_freq
@@ -449,3 +450,111 @@ def test_receiver_options_on_card_match_cpu(cuda, entry):
             assert np.abs(a.astype(np.complex128)
                           - b.astype(np.complex128)).max() < 1e-4
     assert front.fused_front.launches == before + 2
+
+
+@pytest.mark.parametrize("c,k", [(64, 4), (256, 2), (5, 2)])
+def test_front_comp_kernel_matches_plain(cuda, c, k):
+    """K1e: the hq form (factor-4 plan, discriminator, y-tails, comp_taps)
+    over two streaming calls from a random comp_hist; C=5 leaves a partial
+    channel tile.  The planes carry a DC offset, so dc' is held to its
+    relative bound on a value away from zero (an FM plane alone leaves
+    dc' near 0, where the relative error is cancellation)."""
+    n, zt = 8192, 2048
+    gain = 512_000 / (2 * np.pi * 75_000)
+    plan = _plan(cuda, 400_000)
+    taps = wfm.WFMConfig.make(256_000.0, comp_decim=2).comp_taps
+    hr = front.comp_hist_rows(len(taps))
+    hi, lo = (torch.full((c,), float(v), device=cuda)
+              for v in split_freq(250_000.0, FS))
+    rng = np.random.default_rng(13)
+    zeros = dict(device=cuda)
+    st_k = st_r = (torch.zeros(1, 2 * c, **zeros), torch.zeros(c, **zeros),
+                   torch.zeros(plan.d_rows, 2 * c, **zeros),
+                   torch.zeros(1, 2 * c, **zeros),
+                   torch.randn(hr, c, **zeros) * 0.1)
+    for call in range(2):
+        x = (_fm_plane(c, k * n, rng) + 0.05 * (call + 1)).to(cuda)
+        kw = dict(n_block=n, raw_rows=2048, disc_gain=gain, y_tail_rows=zt,
+                  comp_taps=taps)
+        before = front.fused_front.launches
+        got = front.fused_front(plan, x, st_k[0], st_k[1], hi, lo, st_k[2],
+                                disc_last=st_k[3], comp_hist=st_k[4], **kw)
+        assert front.fused_front.launches == before + 1
+        ref = front.fused_front_reference(plan, x, st_r[0], st_r[1], hi, lo,
+                                          st_r[2], disc_last=st_r[3],
+                                          comp_hist=st_r[4], **kw)
+        torch.cuda.synchronize()
+        assert len(got) == len(ref) == 8
+        assert got[5].shape == (k * n // 8, c) and got[7].shape == (hr, c)
+        for i in (0, 1, 2, 3, 4, 6, 7):
+            assert got[i].shape == ref[i].shape
+            assert rel_err(ref[i], got[i]) < RTOL, i
+        assert float((got[5] - ref[5]).abs().max()) < 1e-4
+        st_k = (got[1], got[3], got[2], got[6], got[7])
+        st_r = (ref[1], ref[3], ref[2], ref[6], ref[7])
+
+
+def _rds_plane(c, rows, rng, t0=0.0):
+    """Broadcast FM stereo at 250 kHz with RDS: 1 kHz mono, pilot and the
+    PS groups of "PEBBLES " as 57 kHz biphase, channel i at phase i, noise."""
+    bits = []
+    for _ in range(24):
+        for seg in range(4):
+            d = (ord("PEBBLES "[2 * seg]) << 8) | ord("PEBBLES "[2 * seg + 1])
+            bits += rds.encode_group(0x54A8, (5 << 5) | seg, 0xE0E0, d)
+    sym = np.cumsum(bits) % 2 * 2.0 - 1.0             # differential encoding
+    t = t0 + np.arange(rows) / FS
+    idx = np.minimum((t * rds.RDS_BAUD).astype(np.int64), len(sym) - 1)
+    bi = sym[idx] * np.where(t * rds.RDS_BAUD - idx < 0.5, 1.0, -1.0)
+    comp = (0.3 * np.sin(2 * np.pi * 1000.0 * t)
+            + 0.1 * np.sin(2 * np.pi * 19000.0 * t)
+            + 0.06 * bi * np.cos(2 * np.pi * 57000.0 * t))
+    ph = 2 * np.pi * np.cumsum(75000.0 * comp) / FS
+    iq = np.stack([0.5 * np.exp(1j * (2 * np.pi * 250_000.0 * t + ph + i))
+                   for i in range(c)], axis=1)
+    iq = iq + 1e-2 * (rng.standard_normal(iq.shape)
+                      + 1j * rng.standard_normal(iq.shape))
+    return torch.from_numpy(np.concatenate([iq.real, iq.imag], 1)
+                            .astype(np.float32))
+
+
+@pytest.mark.parametrize("opts", [dict(wfm_hq=True), dict(rds=True),
+                                  dict(rds=True, wfm_hq=True)],
+                         ids=["hq", "rds", "hq_rds"])
+def test_hq_and_rds_receivers_on_card_match_cpu(cuda, opts):
+    """hq (C=4, 8192-frame blocks, K=3 then 9) and RDS (C=4, 32768-frame
+    blocks, K=3 twice) after a CPU warm-up dispatch carried to both: the
+    bounds of tests/test_chain_batched.py:58-69, rds_soft within 1e-3 of its
+    scale, rds_timing equal; K1 and K2 launch once per dispatch."""
+    c = 4
+    n = 32768 if opts.get("rds") else 8192
+    ks = (3, 3) if opts.get("rds") else (3, 9)
+    cfg = ReceiverConfig(sample_rate=FS, frames_per_buffer=n, channels=c,
+                         mode=DemodMode.FMS, **opts)
+    cpu, gpu = Receiver(cfg, "cpu"), Receiver(cfg, cuda)
+    pc, pg = cpu.default_params(250_000.0), gpu.default_params(250_000.0)
+    rng = np.random.default_rng(14)
+    sc, _ = cpu.step_many(cpu.init_state(), pc, _rds_plane(c, n, rng))
+    sg = convert.state_from_numpy(gpu, convert.state_to_numpy(sc))
+    before = (front.fused_front.launches, wfm_tail.wfm_tail.launches)
+    t0 = n / FS
+    for k in ks:
+        x = _rds_plane(c, k * n, rng, t0)
+        t0 += k * n / FS
+        sc, oc = cpu.step_many(sc, pc, x)
+        sg, og = gpu.step_many(sg, pg, x.to(cuda))
+        assert float((og["audio"].cpu() - oc["audio"]).abs().max()) < 2e-4
+        for key in ("spectrum", "zoomed"):
+            assert float((og[key].cpu() - oc[key]).abs().max()) < 0.1
+        assert torch.equal(og["pilot_locked"].cpu(), oc["pilot_locked"])
+        if opts.get("rds"):
+            scale = float(oc["rds_soft"].abs().max())
+            assert float((og["rds_soft"].cpu() - oc["rds_soft"]).abs().max()
+                         ) <= 1e-3 * scale
+            assert torch.equal(og["rds_timing"].cpu(), oc["rds_timing"])
+        for a, b in zip(convert.state_to_numpy(sg), convert.state_to_numpy(sc)):
+            if a.size:
+                assert np.abs(a.astype(np.complex128)
+                              - b.astype(np.complex128)).max() < 1e-4
+    assert (front.fused_front.launches, wfm_tail.wfm_tail.launches) == (
+        before[0] + 2, before[1] + 2)

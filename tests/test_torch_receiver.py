@@ -215,7 +215,8 @@ def test_convert_round_trip():
 def test_port_imports_no_jax():
     """Every module of the port and chip_smoke load in a fresh interpreter,
     and a CPU step of each ported mode, with the noise blanker and IQ
-    balance on, runs without loading jax or any module of the JAX package."""
+    balance on (WFM also at the hq geometry), and of the hq RDS receiver,
+    runs without loading jax or any module of the JAX package."""
     code = (
         "import importlib, pkgutil, sys, numpy as np, torch\n"
         "import pebblesdr_tpu_torch as pkg\n"
@@ -226,13 +227,22 @@ def test_port_imports_no_jax():
         "from pebblesdr_tpu_torch.demod.modes import DemodMode\n"
         "x = torch.from_numpy(np.random.default_rng(0).standard_normal("
         "(8192, 4)).astype(np.float32))\n"
-        "for mode, shape in ((DemodMode.AM, (2,)), (DemodMode.FMS, (2, 2))):\n"
+        "for mode, shape, hq in ((DemodMode.AM, (2,), False),\n"
+        "                        (DemodMode.FMS, (2, 2), False),\n"
+        "                        (DemodMode.FMS, (2, 2), True)):\n"
         "    rx = Receiver(ReceiverConfig(sample_rate=2048000, "
-        "frames_per_buffer=8192, channels=2, mode=mode, "
+        "frames_per_buffer=8192, channels=2, mode=mode, wfm_hq=hq, "
         "enable_noise_blanker=True, enable_iq_balance=True), 'cpu')\n"
         "    st, out = rx.step(rx.init_state(), rx.default_params(250000.0), x)\n"
         "    assert out['audio'].shape == shape + (rx.audio_blk,)\n"
         "    assert st.nb[1].shape == (16, 4)\n"
+        "rx = Receiver(ReceiverConfig(sample_rate=2048000, "
+        "frames_per_buffer=32768, channels=1, mode=DemodMode.FMS, rds=True, "
+        "wfm_hq=True), 'cpu')\n"
+        "st, out = rx.step(rx.init_state(), rx.default_params(250000.0), "
+        "torch.zeros(32768, 2))\n"
+        "assert out['rds_soft'].shape == (1, 19)\n"
+        "assert 'pebblesdr_tpu_torch.demod.rds' in sys.modules\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'pebblesdr_tpu' or m.startswith('pebblesdr_tpu.')]\n"
         "assert not bad, bad\n"

@@ -188,8 +188,8 @@ def test_squelch_gates_stereo_audio():
 
 
 @pytest.mark.parametrize("change,what", [
-    (dict(rds=True), "RDS"),
-    (dict(wfm_hq=True), "hq"),
+    (dict(rds=True, rds_alg="scan", frames_per_buffer=32768), "scan"),
+    (dict(wfm_hq=True, stereo=False), "mono"),
     (dict(stereo=False), "mono"),
     (dict(mode=DemodMode.FMM), "FMM"),
     (dict(mode=DemodMode.FMN), "FMN"),

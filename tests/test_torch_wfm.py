@@ -289,8 +289,8 @@ def test_wfm_tail_cpu_runs_plain_version_without_counting():
 
 
 @pytest.mark.parametrize("change,what", [
-    (dict(rds_tap=True), "RDS"),
-    (dict(comp_decim=2), "hq composite"),
+    (dict(rds_tap=True, stereo=False), "mono"),
+    (dict(comp_decim=2, pilot_alg="pll"), "'pll' pilot"),
     (dict(stereo=False), "mono"),
     (dict(pilot_alg="pll"), "'pll' pilot"),
     (dict(notch_needed=True), "notch"),
