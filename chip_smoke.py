@@ -67,7 +67,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      blocks, entered as a plane folded by 4), each with K1 and K2 held to
      their plain versions at the cell's own plans and shapes first, and a
      profile of its dispatches (event-timed ms, host enqueue, device busy,
-     idle share).
+     idle share);
+ 22. the K1 probes of tools/kbench2.py (ops/kprobe.py) at the probe bench's
+     default shape (64 channels, 8 blocks of 32768 rows, the AM plan): the
+     copy floors against their plain version exactly, each front form (v1,
+     v2, v3, v4, v5 at kt 2 and 4; sub 2048 and 4096) over two streaming
+     calls against its plain version and against K1's base form; then the
+     probe bench's full table (pebblesdr_tpu_torch/tools/kbench2.py, the
+     main path of this slice) with its launch counts; then each form timed
+     against its plain version, the packed floor at am_64ch's shape beside
+     the torch call that moves the same bytes.
 Each receiver phase sets every kernel's launch count to 0 just before it
 drives the receiver and reads the counts just after.  Each kernel's bound
 is the larger of the bytes it must move over 3.35 TB/s and the operations
@@ -80,6 +89,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -845,7 +855,8 @@ def kernel_breakdown(torch, fn, reps: int = 3) -> str:
     rows = {}
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", 0) or 0
-        m = re.search(r"(front_\w+|wfm_tail_\w+)(<[^>]*>)?", ev.key)
+        m = re.search(r"(front_\w+|wfm_tail_\w+|probe_\w+)(<[^>]*>)?",
+                      ev.key)
         if us and m:
             tot, n = rows.get(m.group(0), (0.0, 0))
             rows[m.group(0)] = (tot + us / 1e3, n + ev.count)
@@ -1184,6 +1195,189 @@ def phase_wfm_cells(torch, receiver, front, wfm_tail, DemodMode) -> dict:
     return done
 
 
+def probe_layout(torch, variant: str, x, dc, tail, ph):
+    """A packed plane x [T, 2C] and K1-layout state (dc [1, 2C], tail
+    [d_rows, 2C], phase [C]) in a probe variant's layouts."""
+    c = x.shape[1] // 2
+    if variant in ("v1", "v2"):                 # the two-plane variants
+        return (torch.stack([x[:, :c], x[:, c:]]).contiguous(),
+                dc.reshape(2, c).contiguous(),
+                torch.cat([tail[:, :c], tail[:, c:]]).contiguous(), ph)
+    if variant in ("v4", "v5"):
+        return x, dc, tail, torch.cat([ph, ph])
+    return x, dc, tail, ph
+
+
+def phase_probes(torch, front, kprobe, kbench2, receiver, DemodMode) -> dict:
+    """Phase 22: the K1 probes of tools/kbench2.py.  At the probe bench's
+    default shape (64 channels, 8 blocks of 32768 rows, the AM plan): the
+    floors against their plain version exactly (two planes and packed, sub
+    2048/4096/8192); each front form (v1, v2, v3, v4, v5 at kt 2 and 4;
+    sub 2048 and 4096) over two streaming calls from a random state on a
+    plane with a DC offset, y/dc'/tail' within FRONT_RTOL relative, phase'
+    equal, and y of the first call within FRONT_RTOL of K1 (fused_front,
+    base form) on the same input and state.  Then the bench's full table
+    (the main path of this slice, launch counts reset just before it and
+    read just after), and each form timed against its plain version, the
+    packed floor at am_64ch's [1,048,576 x 128] shape."""
+    c, n, k = 64, 32768, 8
+    t = n * k
+    rx = receiver.Receiver(receiver.ReceiverConfig(
+        sample_rate=FS, frames_per_buffer=n, channels=c, mode=DemodMode.AM,
+        agc_stride=16), "cuda")
+    plan, factor = rx.front, rx.front.factor
+    f_hi, f_lo = np.full(c, kbench2.F_HI), np.zeros(c)
+    hi_t, lo_t = (torch.tensor(v, dtype=torch.float32, device="cuda")
+                  for v in (f_hi, f_lo))
+    gen = torch.Generator(device="cuda").manual_seed(22)
+
+    def randn(*shape, scale=1.0, offset=0.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale + offset
+
+    res = {}
+    for form, planes in (("floor", (randn(t, c), randn(t, c))),
+                         ("floor128", (randn(t, 2 * c),))):
+        for sub in (2048, 4096, 8192):
+            got = kprobe.probe_floor(planes, sub, factor)
+            ref = kprobe.probe_floor_reference(planes, sub, factor)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                raise RuntimeError(f"phase22 {form} sub={sub}: the copy floor "
+                                   f"differs from its plain version")
+        res[form] = {"max_abs_err": 0.0}
+        log(f"phase22 {form}: probe_floor_copy == plain exactly at sub 2048, "
+            f"4096, 8192 ({len(planes)} x {tuple(planes[0].shape)})")
+        del planes
+
+    xs = [randn(t, 2 * c, scale=0.5, offset=0.2 * (i + 1)) for i in range(2)]
+    st0 = (randn(1, 2 * c, scale=0.05), randn(plan.d_rows, 2 * c, scale=0.3),
+           torch.rand(c, generator=gen, device="cuda"))
+    k1_y = front.fused_front(plan, xs[0], st0[0], st0[2], hi_t, lo_t,
+                             st0[1])[0]
+    worst, k1_worst = 0.0, 0.0
+    for variant, kt in kprobe.FORMS:
+        for sub in (2048, 4096):
+            _, dc, tail, ph = probe_layout(torch, variant, xs[0], *st0)
+            st_k = st_r = (dc, tail, ph)
+            errs, max_abs = {}, 0.0
+            for call, x in enumerate(xs):
+                xv = probe_layout(torch, variant, x, *st0)[0]
+                got = kprobe.probe_front(variant, plan, xv, st_k[0], st_k[2],
+                                         f_hi, f_lo, st_k[1], sub, kt)
+                ref = kprobe.probe_front_reference(variant, plan, xv,
+                                                   st_r[0], st_r[2], f_hi,
+                                                   f_lo, st_r[1], sub, kt)
+                torch.cuda.synchronize()
+                for nm, a, b in zip(("y", "dc", "tail"), got, ref):
+                    errs[nm] = max(errs.get(nm, 0.0), rel_err(a, b))
+                if not torch.equal(got[3], ref[3]):
+                    raise RuntimeError(f"phase22 {variant} kt={kt} sub={sub}: "
+                                       f"phase' differs from plain")
+                max_abs = max(max_abs, float((got[0] - ref[0]).abs().max()))
+                if call == 0:
+                    y = got[0]
+                    if variant in kprobe.TWO_PLANE:
+                        y = torch.cat([y[0], y[1]], 1)
+                    errs["y_vs_K1"] = rel_err(k1_y, y)
+                st_k, st_r = got[1:], ref[1:]
+                del got, ref, xv
+            log(f"phase22 {variant} kt={kt} sub={sub}: relative max errors "
+                + " ".join(f"{nm}={v:.3g}" for nm, v in errs.items())
+                + f"; phase' equal; max abs y error {max_abs:.3g}")
+            k1_worst = max(k1_worst, errs.pop("y_vs_K1"))
+            worst = max(worst, max(errs.values()))
+            if sub == 2048:
+                res[(variant, kt)] = {"max_abs_err": max_abs}
+    if not (worst <= FRONT_RTOL and k1_worst <= FRONT_RTOL):
+        raise RuntimeError(f"phase22: a front probe disagrees with its plain "
+                           f"version ({worst:.3g}) or with K1 ({k1_worst:.3g})"
+                           f" beyond {FRONT_RTOL}")
+    log(f"phase22 ok: every front probe == plain within {FRONT_RTOL} (worst "
+        f"{worst:.3g}) and == K1's base form (worst {k1_worst:.3g})")
+    del xs, k1_y
+    torch.cuda.empty_cache()
+
+    # the main path of this slice: the probe bench's full table
+    kprobe.probe_floor.launches = kprobe.probe_front.launches = 0
+    front.fused_front.launches = 0
+    lines = kbench2.main(list(kbench2.NAMES), device="cuda")
+    torch.cuda.synchronize()
+    totals = (kprobe.probe_floor.launches, kprobe.probe_front.launches,
+              front.fused_front.launches)
+    summed = tuple(sum(ln["launches"][key] for ln in lines) for key in (
+        "probe_floor", "probe_front", "fused_front"))
+    if totals != summed or min(totals) == 0:
+        raise RuntimeError(f"phase22: launches {totals} (per line {summed})")
+    for key in res:
+        variant, kt = key if isinstance(key, tuple) else (key, 1)
+        res[key]["launches"] = sum(
+            ln["launches"]["probe_floor" if variant.startswith("floor")
+                           else "probe_front"]
+            for ln in lines if ln["variant"] == variant and ln["kt"] == kt)
+        if not res[key]["launches"]:
+            raise RuntimeError(f"phase22: {key} was not launched by the bench")
+    log(f"phase22 bench: {len(lines)} lines; launches probe_floor "
+        f"{totals[0]}, probe_front {totals[1]}, fused_front {totals[2]}")
+
+    # each form timed against its plain version at the bench's shape (sub
+    # 2048); the packed floor at am_64ch's shape, beside the torch call that
+    # moves the same bytes
+    zeros = dict(dtype=torch.float32, device="cuda")
+    x = randn(t, 2 * c)
+    for key in res:
+        variant, kt = key if isinstance(key, tuple) else (key, 1)
+        if variant == "floor":
+            planes = (x[:, :c].contiguous(), x[:, c:].contiguous())
+            fns = (lambda: kprobe.probe_floor(planes, 2048, factor),
+                   lambda: kprobe.probe_floor_reference(planes, 2048, factor))
+            lib = lambda: x.view(-1, factor, 2 * c).sum(1)  # noqa: E731
+            lib()
+            lib_ms = time_cuda(torch, lib, 10)   # the same bytes, one plane
+            b = kprobe.probe_bound("floor", 2048, 1, c, t, factor)
+        elif variant == "floor128":
+            xa = randn(1_048_576, 2 * c)
+            fns = (lambda: kprobe.probe_floor((xa,), 2048, factor),
+                   lambda: kprobe.probe_floor_reference((xa,), 2048, factor))
+            lib = lambda: xa.view(-1, factor, 2 * c).sum(1)  # noqa: E731
+            lib()
+            lib_ms = time_cuda(torch, lib, 10)
+            b = kprobe.probe_bound("floor128", 2048, 1, c, xa.shape[0], factor)
+        else:
+            args = probe_layout(torch, variant, x,
+                                torch.zeros(1, 2 * c, **zeros),
+                                torch.zeros(plan.d_rows, 2 * c, **zeros),
+                                torch.zeros(c, **zeros))
+            fns = tuple(functools.partial(
+                fn, variant, plan, args[0], args[1], args[3], f_hi, f_lo,
+                args[2], 2048, kt) for fn in (kprobe.probe_front,
+                                              kprobe.probe_front_reference))
+            b = kprobe.probe_bound(variant, 2048, kt, c, t, factor,
+                                   plan.d_rows)
+            lib_ms = None
+        ms, plain_ms, runs = time_pair(torch, *fns)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fns[0]()
+        host = (time.perf_counter() - t0) * 1e2          # ms per call
+        torch.cuda.synchronize()
+        res[key].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+        shape = ("am_64ch [1048576 x 128]" if variant == "floor128"
+                 else f"{k} x {n} rows x {c} ch")
+        log(f"phase22 {variant}{f' kt={kt}' if kt > 1 else ''} sub=2048 at "
+            f"{shape}: {ms:.4f} ms vs plain {plain_ms:.4f} ms (host enqueue "
+            f"{host:.4f} ms; runs kernel "
+            f"{runs['kernel']}, plain {runs['plain']})"
+            + (f", library {lib_ms:.4f} ms" if lib_ms is not None else "")
+            + f"; bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+            f"{b['bytes'] / (ms * 1e-3) / 1e9:.1f} GB/s, "
+            f"{b['flops'] / (ms * 1e-3) / 1e12:.2f} TFLOP/s); per launch "
+            f"(ms): " + kernel_breakdown(torch, fns[0]))
+        fns = args = planes = None
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1193,7 +1387,8 @@ def main() -> int:
     from pebblesdr_tpu_torch.chain import receiver
     from pebblesdr_tpu_torch.demod import wfm as wfm_mod
     from pebblesdr_tpu_torch.kernels import build
-    from pebblesdr_tpu_torch.ops import decimator, front, wfm_tail
+    from pebblesdr_tpu_torch.ops import decimator, front, kprobe, wfm_tail
+    from pebblesdr_tpu_torch.tools import kbench2
     from pebblesdr_tpu_torch.utils import convert
     DemodMode = receiver.DemodMode
 
@@ -1242,6 +1437,7 @@ def main() -> int:
     phase_rds_decode(torch, receiver, DemodMode)
     phase_separation(torch, receiver, DemodMode, hq=True)
     wcells = phase_wfm_cells(torch, receiver, front, wfm_tail, DemodMode)
+    probes = phase_probes(torch, front, kprobe, kbench2, receiver, DemodMode)
 
     c, n, k = HEADLINE["channels"], HEADLINE["frames"], HEADLINE["blocks"]
     t = n * k
@@ -1288,6 +1484,24 @@ def main() -> int:
          **{key: hq_fr[key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None},
+    ] + [
+        # the K1 probes: the launches of the bench's full table (phase 22),
+        # the times at its shape (the packed floor at am_64ch's)
+        {"name": name, "route": "cuda", "source": kprobe.SOURCE,
+         "replaces": kprobe.REPLACES[key if isinstance(key, str) else key[0]],
+         **{k: probes[key][k] for k in (
+             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms")}}
+        for key, name in (
+            ("floor", "probe_floor_copy (two planes, sub 2048)"),
+            ("floor128", "probe_floor_copy (packed plane, sub 2048, at "
+                         "am_64ch's shape)"),
+            (("v1", 1), "probe_toeplitz v1 (two planes, two products)"),
+            (("v2", 1), "probe_toeplitz v2 (two planes, one product)"),
+            (("v3", 1), "probe_toeplitz v3 (packed plane)"),
+            (("v4", 1), "probe_toeplitz v4 (packed A/B tables)"),
+            (("v5", 2), "probe_toeplitz v5 (K-tiled, kt 2)"),
+            (("v5", 4), "probe_toeplitz v5 (K-tiled, kt 4)"))
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -174,11 +174,12 @@ __device__ __forceinline__ float mod1(float v) {
 // exp(-j 2 pi phase) factors of row t, in the TPU kernel's split form:
 // coarse (sub-block start + 128-row step) and fine (row within 128).  The
 // phase arithmetic uses round-to-nearest intrinsics (no FMA contraction), so
-// it rounds exactly as the plain version's separate float32 ops do.
+// it rounds exactly as the plain version's separate float32 ops do.  The
+// K1 probes split at their own sub-block (sub).
 __device__ __forceinline__ float coarse_phase(int t, float ph, float fh,
-                                              float fl) {
-  const float k0 = (float)((t / kSub) * kSub);
-  const float qq = (float)(((t % kSub) / kQ) * kQ);
+                                              float fl, int sub = kSub) {
+  const float k0 = (float)((t / sub) * sub);
+  const float qq = (float)(((t % sub) / kQ) * kQ);
   const float ph0 = mod1(__fadd_rn(__fadd_rn(ph, mod1(__fmul_rn(k0, fh))),
                                    __fmul_rn(k0, fl)));
   return mod1(__fadd_rn(__fadd_rn(ph0, mod1(__fmul_rn(qq, fh))),
@@ -969,6 +970,367 @@ int forward(const Tx* x, const Fwd& f) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K1 probes: the kernels of the JAX package's K1 probe bench
+// (tools/kbench2.py), driven by the port's probe bench
+// (pebblesdr_tpu_torch/tools/kbench2.py).  Plain versions:
+// ops/kprobe.py probe_floor_reference / probe_front_reference.
+//
+// probe_floor_copy replaces floor_kernel / floor_call (tools/kbench2.py:82,
+// two planes) and main2's fk (:307, one packed plane): per sub-block of
+// each plane, y = its first sub/F rows.  It is a floor only if every input
+// byte reaches the SM, as the TPU's BlockSpec DMA loads the whole (sub, c)
+// block: one block per SM slot walks the plane in 16 KB tiles, each landing
+// in shared memory by 16-byte cp.async copies three tiles ahead, and writes
+// the staged rows that lie in the first sub/F rows of their sub-block.
+// Bound: bytes (the plane read once, 1/F of it written).
+//
+// probe_toeplitz replaces the front variants make_v12 (v1, v2; :144),
+// make_v3 (:386) and main4's make (v4, v5; :546): K1's base form computed as
+// the TPU fed its MXU, y = W^T [tail; u] per sub-block, W the composed
+// Toeplitz block [d_rows + sub, sub/F] (dense), or for v5 each of kt groups
+// of outputs over only its own span of rows.  The TPU walks its sub-blocks
+// in order and carries DC, the post-mix tail and the phase from one to the
+// next; here the DC seeds come from K1's front_means + front_dc_scan (a
+// prefix over the chunk means), rows before the dispatch from the carried
+// tail, and every block rebuilds the mixed rows it needs.  A block takes
+// kTm outputs of one sub-block x kTl lanes and walks its K range in steps of
+// kKc rows: it stages the Toeplitz rows and the extended input rows (DC
+// removed and mixed with the NCO as they are staged: coarse phasors once per
+// block, fine phasors from the host tables), the next step's loads in
+// flight, and each thread accumulates a 4 x 4 tile of outputs in plain
+// float32 FMAs (no tensor cores, no TF32).  The mixing is redone by each of
+// the C/16 lane tiles and sub/F/64 output tiles that read a row.
+// The switches (FORM):
+//   v1: two planes, two products (the K range is walked once per plane, so
+//       W is read twice); v2: two planes, one product over [er | ei];
+//   v3: one packed plane, mixed per channel; v4 (and v5): the packed plane
+//       with the packed phasor tables A = [or | or], B = [oi | -oi],
+//       y = z A + swap(z) B, and a phase per lane.
+// Bound: operations, 2 (d_rows + sub) per output lane dense (2 span for
+// v5), against float32's 67 TFLOP/s.  probe_tail writes tail' (the last
+// d_rows mixed rows) in the variant's layout.
+
+constexpr int kFloorTile = 4096;     // floats per probe_floor_copy stage
+constexpr int kFloorStages = 4;      // stages in flight per block
+constexpr int kFloorThreads = 256;
+
+// grid (blocks, planes), block kFloorThreads, kFloorStages kFloorTile floats
+// of dynamic shared memory.  Plane blockIdx.y: x0 -> y0, x1 -> y1, each
+// [T, lanes] -> [T/sub * m, lanes].  Block b walks the plane's tiles b, b +
+// gridDim.x, ...: each tile lands in shared memory by 16-byte cp.async
+// copies kFloorStages - 1 tiles ahead, then its rows that are among the
+// first m of their sub-block are written.
+__global__ void __launch_bounds__(kFloorThreads)
+probe_floor_copy(const float* __restrict__ x0, const float* __restrict__ x1,
+                 int total, int lanes, int sub, int m, float* __restrict__ y0,
+                 float* __restrict__ y1) {
+  extern __shared__ __align__(16) float stage[];
+  const float* x = blockIdx.y ? x1 : x0;
+  float* y = blockIdx.y ? y1 : y0;
+  const int ntiles = (total + kFloorTile - 1) / kFloorTile;
+  auto issue = [&](int n) {                       // the block's n-th tile
+    const int tile = blockIdx.x + n * gridDim.x;
+    if (tile < ntiles) {
+      const int e0 = tile * kFloorTile, cnt = min(kFloorTile, total - e0);
+      float* buf = stage + (n % kFloorStages) * kFloorTile;
+      for (int v = 4 * threadIdx.x; v < cnt; v += 4 * kFloorThreads)
+        __pipeline_memcpy_async(buf + v, x + e0 + v, 16);
+    }
+    __pipeline_commit();
+  };
+  for (int n = 0; n < kFloorStages - 1; ++n) issue(n);
+  for (int n = 0; blockIdx.x + n * gridDim.x < ntiles; ++n) {
+    issue(n + kFloorStages - 1);
+    __pipeline_wait_prior(kFloorStages - 1);      // tile n has landed
+    __syncthreads();
+    const float* buf = stage + (n % kFloorStages) * kFloorTile;
+    const int e0 = (blockIdx.x + n * gridDim.x) * kFloorTile;
+    const int cnt = min(kFloorTile, total - e0);  // a multiple of 4
+    const int t_end = (e0 + cnt - 1) / lanes + 1;
+    for (int t = e0 / lanes; t < t_end;) {
+      if (t % sub >= m) {                        // skip to the next sub-block
+        t = (t / sub + 1) * sub;
+        continue;
+      }
+      const int g0 = max(t * lanes, e0), g1 = min((t + 1) * lanes, e0 + cnt);
+      float* yr = y + ((size_t)(t / sub) * m + t % sub) * lanes;
+      for (int g = g0 + threadIdx.x; g < g1; g += kFloorThreads)
+        yr[g - t * lanes] = buf[g - e0];
+      ++t;
+    }
+    __syncthreads();                              // the buffer is free again
+  }
+}
+
+constexpr int kTm = 64;            // outputs per probe_toeplitz block
+constexpr int kTl = 32;            // lanes per probe_toeplitz block
+constexpr int kKc = 32;            // extended-input rows per step
+constexpr int kToepThreads = 128;  // 8 lane quads x 16 output quads
+
+enum ProbeForm { kV1 = 1, kV2 = 2, kV3 = 3, kV4 = 4 };
+
+struct Probe {
+  const float *x0, *x1;   // v1/v2: the re and im planes [T, C]; else x0 [T, 2C]
+  const float *m0, *m1;   // DC estimate per chunk: [T/512, C] each; else m0
+                          // [T/512, 2C]
+  const float* tail;      // v1/v2 [2 d_rows, C] (re rows, then im rows);
+                          // else [d_rows, 2C]
+  const float *phase, *fhi, *flo;  // [C]; v4 [2C] (a phase per lane)
+  const float *f0, *f1, *f2, *f3;  // fine phasors: v1-v3 (cos, sin) [128, C];
+                                   // v4 [fr|fr], [fi|fi], [fi|-fi], [fr|-fr]
+  const float* wt;        // [sub/F, d_rows + sub]
+  int T, C, sub, F, d_rows, kt;
+  float *y0, *y1;         // v1/v2 [T/F, C] each; else y0 [T/F, 2C]
+  float* tail_out;        // tail' in the tail's layout
+};
+
+// What one extended row of channel c needs before it is mixed: its input
+// (re, im) and DC estimate, or the carried post-mix values (t < 0); and the
+// fine phasors of its row within 128 (v1-v3: cos, sin; v4: the four packed
+// tables at its re lane, then at its im lane).
+struct ProbeRaw {
+  float a, b, ma, mb;
+  float f[8];
+};
+
+template <int FORM>
+__device__ __forceinline__ void probe_load(const Probe& p, int t, int c,
+                                           ProbeRaw* r) {
+  if (t < 0) {                                    // the carried tail
+    if constexpr (FORM <= kV2) {
+      r->a = p.tail[(size_t)(p.d_rows + t) * p.C + c];
+      r->b = p.tail[(size_t)(2 * p.d_rows + t) * p.C + c];
+    } else {
+      const size_t i = (size_t)(p.d_rows + t) * 2 * p.C + c;
+      r->a = p.tail[i];
+      r->b = p.tail[i + p.C];
+    }
+    return;
+  }
+  const int k = t / kDcChunk, q = t % kQ;
+  if constexpr (FORM <= kV2) {
+    const size_t i = (size_t)t * p.C + c, j = (size_t)k * p.C + c;
+    r->a = p.x0[i];
+    r->b = p.x1[i];
+    r->ma = p.m0[j];
+    r->mb = p.m1[j];
+  } else {
+    const size_t c2 = 2 * (size_t)p.C;
+    const size_t i = (size_t)t * c2 + c, j = (size_t)k * c2 + c;
+    r->a = p.x0[i];
+    r->b = p.x0[i + p.C];
+    r->ma = p.m0[j];
+    r->mb = p.m0[j + p.C];
+  }
+  if constexpr (FORM != kV4) {
+    const size_t f = (size_t)q * p.C + c;
+    r->f[0] = p.f0[f];
+    r->f[1] = p.f1[f];
+  } else {
+    const size_t f = (size_t)q * 2 * p.C + c, g = f + p.C;
+    r->f[0] = p.f0[f]; r->f[1] = p.f1[f]; r->f[2] = p.f2[f]; r->f[3] = p.f3[f];
+    r->f[4] = p.f0[g]; r->f[5] = p.f1[g]; r->f[6] = p.f2[g]; r->f[7] = p.f3[g];
+  }
+}
+
+// The mixed values of a loaded row t >= 0, from the coarse phasor of its re
+// lane (cr, ci) and, for v4, of its im lane (cr2, ci2).
+template <int FORM>
+__device__ __forceinline__ void probe_mix(const ProbeRaw& r, float cr,
+                                          float ci, float cr2, float ci2,
+                                          float* ur, float* ui) {
+  const float zr = r.a - r.ma, zi = r.b - r.mb;
+  if constexpr (FORM != kV4) {
+    mix(zr, zi, cr, ci, r.f[0], r.f[1], ur, ui);
+  } else {      // per lane: z A + swap(z) B, A = c fr1 - s fi1, B = c fi2 + s fr2
+    *ur = zr * (cr * r.f[0] - ci * r.f[1]) + zi * (cr * r.f[2] + ci * r.f[3]);
+    *ui = zi * (cr2 * r.f[4] - ci2 * r.f[5])
+          + zr * (cr2 * r.f[6] + ci2 * r.f[7]);
+  }
+}
+
+// The coarse phasor (cos, sin) of phase lane `lane` for the 128-row block
+// of row t, in the variant's split form (sub-block p.sub).
+__device__ __forceinline__ void probe_coarse(const Probe& p, int t, int lane,
+                                             float* cr, float* ci) {
+  sincospif(2.0f * coarse_phase(t, p.phase[lane], p.fhi[lane], p.flo[lane],
+                                p.sub), ci, cr);
+}
+
+constexpr int kMaxQ = 80;   // 128-row blocks one probe_toeplitz block spans
+
+// grid (ceil(C / kCh), (T/F) / kTm), block kToepThreads.  A block holds
+// kTm outputs of one sub-block and kCh channels: one plane's lanes of kTl
+// channels per product for v1, the re and im lanes of kTl/2 channels
+// otherwise.  Its K range is the union of its output groups' spans (all of
+// K when dense), at most kMaxQ 128-row blocks: it first computes the coarse
+// phasors of all of them, then walks the range in steps of kKc rows.  Each
+// step mixes the rows loaded by the step before into shared memory, stores
+// the Toeplitz rows, then issues the next step's loads (to registers, in
+// flight during the products) and multiplies; a thread skips the steps
+// outside its own group's span (v5).  Thread (tx, ty) = (tid % 8, tid / 8)
+// accumulates outputs 4 ty .. 4 ty + 3 x lanes 4 tx .. 4 tx + 3; a warp's
+// 16 outputs lie in one group (the wrapper requires (sub/F/kt) % 4 == 0).
+template <int FORM>
+__global__ void __launch_bounds__(kToepThreads) probe_toeplitz(Probe p) {
+  constexpr int kCh = FORM == kV1 ? kTl : kTl / 2;
+  constexpr int kEnt = FORM == kV4 ? kTl : kCh;   // coarse phasors per row
+  constexpr int kPairs = kKc * kCh / kToepThreads;   // rows x channels each
+  constexpr int kW4 = kTm * kKc / 4 / kToepThreads;  // 16-byte W loads each
+  __shared__ __align__(16) float e_s[kKc][kTl];
+  __shared__ __align__(16) float w_s[kKc][kTm];
+  __shared__ float cc_s[kMaxQ][kEnt], cs_s[kMaxQ][kEnt];
+  const int tid = threadIdx.x, tx = tid % 8, ty = tid / 8;
+  const int m = p.sub / p.F, K = p.d_rows + p.sub, mt = m / p.kt;
+  const int c0 = blockIdx.x * kCh;
+  const int og = blockIdx.y * kTm;                // the block's first output
+  const int s = og / m, ol0 = og - s * m;         // its sub-block, local row
+  // a group's K span: all of K (dense), or d_rows + mt F rows rounded up to
+  // 8 from the group's first input row (v5)
+  const int span = p.kt == 1 ? K : (p.d_rows + mt * p.F + 7) / 8 * 8;
+  const int g_lo = ol0 / mt, g_hi = (ol0 + kTm - 1) / mt;
+  const int kb = g_lo * mt * p.F, ke = min(g_hi * mt * p.F + span, K);
+  const int my_kb = ((ol0 + 4 * ty) / mt) * mt * p.F;
+  const int my_ke = min(my_kb + span, K);
+  const int t_e0 = s * p.sub - p.d_rows;          // row of extended row 0
+  const int q0 = max(t_e0 + kb, 0) / kQ;          // first 128-row block
+  const int nq = max(t_e0 + ke - 1, 0) / kQ - q0 + 1;
+  for (int i = tid; i < nq * kEnt; i += kToepThreads) {
+    const int q = i / kEnt, j = i - q * kEnt;
+    const int c = c0 + (FORM == kV4 ? j % kCh : j);
+    float sn = 0.0f, cs = 1.0f;
+    if (c < p.C)
+      probe_coarse(p, (q0 + q) * kQ, FORM == kV4 && j >= kCh ? p.C + c : c,
+                   &cs, &sn);
+    cc_s[q][j] = cs;
+    cs_s[q][j] = sn;
+  }
+  ProbeRaw raw[kPairs];
+  float4 wr[kW4];
+  auto load = [&](int k0) {                       // step k0's loads
+#pragma unroll
+    for (int it = 0; it < kW4; ++it) {
+      const int i = tid + it * kToepThreads;
+      const int o = i / (kKc / 4), k = 4 * (i - o * (kKc / 4));
+      wr[it] = k0 + k < ke ? *reinterpret_cast<const float4*>(
+                                 p.wt + (size_t)(ol0 + o) * K + k0 + k)
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int it = 0; it < kPairs; ++it) {
+      const int i = tid + it * kToepThreads, k = i / kCh, c = c0 + i % kCh;
+      if (k0 + k < ke && c < p.C) probe_load<FORM>(p, t_e0 + k0 + k, c, &raw[it]);
+    }
+  };
+  for (int pass = 0; pass < (FORM == kV1 ? 2 : 1); ++pass) {
+    float acc[4][4] = {};
+    load(kb);
+    for (int k0 = kb; k0 < ke; k0 += kKc) {
+      __syncthreads();                            // coarse table / last step read
+#pragma unroll
+      for (int it = 0; it < kW4; ++it) {
+        const int i = tid + it * kToepThreads;
+        const int o = i / (kKc / 4), k = 4 * (i - o * (kKc / 4));
+        w_s[k][o] = wr[it].x;
+        w_s[k + 1][o] = wr[it].y;
+        w_s[k + 2][o] = wr[it].z;
+        w_s[k + 3][o] = wr[it].w;
+      }
+#pragma unroll
+      for (int it = 0; it < kPairs; ++it) {
+        const int i = tid + it * kToepThreads, k = i / kCh, j = i % kCh;
+        const int t = t_e0 + k0 + k;
+        float ur = 0.0f, ui = 0.0f;
+        if (k0 + k < ke && c0 + j < p.C) {
+          if (t < 0) {
+            ur = raw[it].a;
+            ui = raw[it].b;
+          } else {
+            const int q = t / kQ - q0, j2 = FORM == kV4 ? j + kCh : j;
+            probe_mix<FORM>(raw[it], cc_s[q][j], cs_s[q][j], cc_s[q][j2],
+                            cs_s[q][j2], &ur, &ui);
+          }
+        }
+        if constexpr (FORM == kV1) {
+          e_s[k][j] = pass ? ui : ur;
+        } else {
+          e_s[k][j] = ur;
+          e_s[k][j + kCh] = ui;
+        }
+      }
+      __syncthreads();
+      if (k0 + kKc < ke) load(k0 + kKc);          // in flight while we multiply
+      if (k0 + kKc <= my_kb || k0 >= my_ke) continue;   // outside my span
+#pragma unroll 8
+      for (int k = 0; k < kKc; ++k) {
+        const float4 w = *reinterpret_cast<const float4*>(&w_s[k][4 * ty]);
+        const float4 e = *reinterpret_cast<const float4*>(&e_s[k][4 * tx]);
+        const float wv[4] = {w.x, w.y, w.z, w.w}, ev[4] = {e.x, e.y, e.z, e.w};
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(wv[a], ev[b], acc[a][b]);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const size_t o = (size_t)og + 4 * ty + a;   // output row of the dispatch
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int j = 4 * tx + b;
+        const bool im = FORM != kV1 && j >= kCh;
+        const int c = c0 + (im ? j - kCh : j);
+        if (c >= p.C) continue;
+        if constexpr (FORM == kV1)
+          (pass ? p.y1 : p.y0)[o * p.C + c] = acc[a][b];
+        else if constexpr (FORM == kV2)
+          (im ? p.y1 : p.y0)[o * p.C + c] = acc[a][b];
+        else
+          p.y0[o * 2 * p.C + (im ? p.C : 0) + c] = acc[a][b];
+      }
+    }
+  }
+}
+
+// grid ceil(d_rows C / 256), block 256: tail' = the last d_rows mixed rows
+// of the dispatch (rows before it from the carried tail).
+template <int FORM>
+__global__ void probe_tail(Probe p) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= p.d_rows * p.C) return;
+  const int i = idx / p.C, c = idx % p.C, t = p.T - p.d_rows + i;
+  ProbeRaw r;
+  probe_load<FORM>(p, t, c, &r);
+  float ur = r.a, ui = r.b;
+  if (t >= 0) {
+    float cr, ci, cr2 = 0.0f, ci2 = 0.0f;
+    probe_coarse(p, t, c, &cr, &ci);
+    if (FORM == kV4) probe_coarse(p, t, p.C + c, &cr2, &ci2);
+    probe_mix<FORM>(r, cr, ci, cr2, ci2, &ur, &ui);
+  }
+  if constexpr (FORM <= kV2) {
+    p.tail_out[(size_t)i * p.C + c] = ur;
+    p.tail_out[(size_t)(p.d_rows + i) * p.C + c] = ui;
+  } else {
+    p.tail_out[(size_t)i * 2 * p.C + c] = ur;
+    p.tail_out[(size_t)i * 2 * p.C + p.C + c] = ui;
+  }
+}
+
+template <int FORM>
+cudaError_t launch_probe(const Probe& p, cudaStream_t st) {
+  constexpr int kCh = FORM == kV1 ? kTl : kTl / 2;
+  const dim3 grid((unsigned)((p.C + kCh - 1) / kCh),
+                  (unsigned)(p.T / p.F / kTm));
+  probe_toeplitz<FORM><<<grid, kToepThreads, 0, st>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  probe_tail<FORM><<<(unsigned)((p.d_rows * p.C + 255) / 256), 256, 0, st>>>(
+      p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1038,6 +1400,92 @@ int front_forward(int device, const void* x, int x_int16, int T, int C,
   f.st = (cudaStream_t)stream;
   return x_int16 ? forward(static_cast<const int16_t*>(x), f)
                  : forward(static_cast<const float*>(x), f);
+}
+
+// The copy floor: per sub-block of each [T, lanes] float32 plane (x1 null
+// for one plane), y = its first m rows; one block per SM slot.  Planes 16-byte aligned; T lanes <
+// 2^31; T a multiple of sub and of 4.
+int probe_floor_forward(int device, const float* x0, const float* x1, int T,
+                        int lanes, int sub, int m, float* y0, float* y1,
+                        void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const long long total = (long long)T * lanes;
+  if (total % 4 || total >= (1LL << 31) || sub <= 0 || T % sub || m < 1
+      || m > sub)
+    return cudaErrorInvalidValue;
+  const int smem = kFloorStages * kFloorTile * (int)sizeof(float);
+  static int slots[64];              // resident blocks per device, found once
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (!slots[device]) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaFuncSetAttribute(
+             probe_floor_copy, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             smem)) != cudaSuccess
+        || (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                         device)) != cudaSuccess
+        || (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, probe_floor_copy, kFloorThreads, smem)) != cudaSuccess)
+      return err;
+    slots[device] = max(sms * per_sm, 1);
+  }
+  const long long tiles = (total + kFloorTile - 1) / kFloorTile;
+  const int planes = x1 != nullptr ? 2 : 1;
+  const long long fill = max(slots[device] / planes, 1);
+  const dim3 grid((unsigned)max(1LL, min(tiles, fill)), (unsigned)planes);
+  probe_floor_copy<<<grid, kFloorThreads, smem, (cudaStream_t)stream>>>(
+      x0, x1, (int)total, lanes, sub, m, y0, y1);
+  return cudaGetLastError();
+}
+
+// A front variant (form 1-4 = v1, v2, v3, v4/v5) over one dispatch of T
+// rows: DC seeds (front_means + front_dc_scan per plane, into the scratch
+// mseq [planes, T/512, lanes] and dc_out), the Toeplitz product into y0
+// (and y1) and tail'.  Layouts as in struct Probe; dc_in/dc_out [2, C] for
+// v1/v2, else [1, 2C].  Needs T % sub == 0, sub % 512 == 0, sub % F == 0,
+// (sub/F) % 64 == 0, (sub/F) % (4 kt) == 0, T 2C < 2^31.  Returns the first CUDA error.
+int probe_front_forward(int device, int form, const float* x0,
+                        const float* x1, int T, int C, int sub, int F,
+                        int d_rows, int kt, const float* dc_in,
+                        const float* tail_in, const float* phase,
+                        const float* fhi, const float* flo, const float* f0,
+                        const float* f1, const float* f2, const float* f3,
+                        const float* wt, float a, float b, float* mseq,
+                        float* y0, float* y1, float* dc_out, float* tail_out,
+                        void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (form < kV1 || form > kV4 || sub <= 0 || F <= 0 || kt < 1 || T % sub
+      || sub % kDcChunk || sub % F || (sub / F) % kTm || (sub / F) % (4 * kt)
+      || (d_rows + sub) / kQ + 2 > kMaxQ
+      || (long long)T * 2 * C >= (1LL << 31) || T / F / kTm >= 65536)
+    return cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool two = form <= kV2;
+  const int nchunk = T / kDcChunk, lanes = two ? C : 2 * C;
+  const unsigned lane_groups = (unsigned)((lanes + 31) / 32);
+  for (int pl = 0; pl < (two ? 2 : 1); ++pl) {
+    float* ms = mseq + (size_t)pl * nchunk * lanes;
+    front_means<float><<<dim3((unsigned)nchunk, lane_groups), dim3(32, 8), 0,
+                         st>>>(pl ? x1 : x0, lanes, T, 0, ms, nullptr);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    front_dc_scan<<<dim3(lane_groups), dim3(32, 32), 0, st>>>(
+        ms, nchunk, lanes, dc_in + pl * C, dc_out + pl * C, a, b);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  Probe p;
+  p.x0 = x0; p.x1 = x1; p.m0 = mseq;
+  p.m1 = two ? mseq + (size_t)nchunk * C : nullptr;
+  p.tail = tail_in; p.phase = phase; p.fhi = fhi; p.flo = flo;
+  p.f0 = f0; p.f1 = f1; p.f2 = f2; p.f3 = f3; p.wt = wt;
+  p.T = T; p.C = C; p.sub = sub; p.F = F; p.d_rows = d_rows; p.kt = kt;
+  p.y0 = y0; p.y1 = y1; p.tail_out = tail_out;
+  switch (form) {
+    case kV1: return launch_probe<kV1>(p, st);
+    case kV2: return launch_probe<kV2>(p, st);
+    case kV3: return launch_probe<kV3>(p, st);
+    default: return launch_probe<kV4>(p, st);
+  }
 }
 
 }  // extern "C"

@@ -376,18 +376,18 @@ def _ewma_weights(nchunk: int, a: float, device: torch.device):
 
 
 def phase_tables(phase0: torch.Tensor, f_hi: torch.Tensor,
-                 f_lo: torch.Tensor, t: int):
+                 f_lo: torch.Tensor, t: int, sub: int = SUB_BLOCK):
     """Oscillator phases (cycles) of rows 0..t-1 in the TPU kernel's split
-    form t = 2048 s + 128 q + r: coarse [ceil(t/2048), 16, C] per (s, q) and
-    fine [128, C] per r."""
+    form t = sub s + 128 q + r (sub = 2048 unless given): coarse
+    [ceil(t/sub), sub/128, C] per (s, q) and fine [128, C] per r."""
     dev = phase0.device
-    nsub = -(-t // SUB_BLOCK)
-    k0 = (torch.arange(nsub, device=dev) * SUB_BLOCK).float()[:, None]
+    nsub = -(-t // sub)
+    k0 = (torch.arange(nsub, device=dev) * sub).float()[:, None]
     ph0 = torch.remainder(phase0 + torch.remainder(k0 * f_hi, 1.0)
                           + k0 * f_lo, 1.0)                        # [nsub, C]
-    qq = (torch.arange(SUB_BLOCK // _Q, device=dev) * _Q).float()[:, None]
+    qq = (torch.arange(sub // _Q, device=dev) * _Q).float()[:, None]
     coarse = torch.remainder(ph0[:, None, :] + torch.remainder(qq * f_hi, 1.0)
-                             + qq * f_lo, 1.0)                     # [nsub, 16, C]
+                             + qq * f_lo, 1.0)                # [nsub, sub/128, C]
     rr = torch.arange(_Q, device=dev).float()[:, None]
     fine = torch.remainder(torch.remainder(rr * f_hi, 1.0) + rr * f_lo, 1.0)
     return coarse, fine

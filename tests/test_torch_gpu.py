@@ -18,7 +18,7 @@ import torch
 from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
 from pebblesdr_tpu_torch.demod import rds, wfm
 from pebblesdr_tpu_torch.demod.modes import DemodMode
-from pebblesdr_tpu_torch.ops import decimator, front, wfm_tail
+from pebblesdr_tpu_torch.ops import decimator, front, kprobe, wfm_tail
 from pebblesdr_tpu_torch.ops.mixer import split_freq
 from pebblesdr_tpu_torch.utils import convert
 
@@ -558,3 +558,94 @@ def test_hq_and_rds_receivers_on_card_match_cpu(cuda, opts):
                               - b.astype(np.complex128)).max() < 1e-4
     assert (front.fused_front.launches, wfm_tail.wfm_tail.launches) == (
         before[0] + 2, before[1] + 2)
+
+
+# ---- the K1 probes (ops/kprobe.py): tools/kbench2.py's kernels ----------
+
+def _probe_case(device, variant, c, t, rng):
+    """An input plane with a DC offset (dc' stays away from 0) and a random
+    carried state, in the variant's layouts."""
+    d = _plan("cpu").d_rows
+    x = torch.from_numpy((rng.standard_normal((t, 2 * c)) * 0.5 + 0.2)
+                         .astype(np.float32))
+    dc = torch.from_numpy(0.05 * rng.standard_normal((1, 2 * c))).float()
+    tail = torch.from_numpy(0.3 * rng.standard_normal((d, 2 * c))).float()
+    ph = torch.from_numpy(rng.uniform(0.0, 1.0, c)).float()
+    if variant in kprobe.TWO_PLANE:
+        x = torch.stack([x[:, :c], x[:, c:]])
+        dc, tail = dc.reshape(2, c), torch.cat([tail[:, :c], tail[:, c:]])
+    elif variant == "v4" or variant == "v5":
+        ph = torch.cat([ph, ph])
+    return [v.contiguous().to(device) for v in (x, dc, tail, ph)]
+
+
+@pytest.mark.parametrize("c,t", [(4, 8192), (64, 8 * 32768)])
+@pytest.mark.parametrize("sub", [2048, 4096])
+@pytest.mark.parametrize("variant,kt", kprobe.FORMS)
+def test_probe_front_kernel_matches_plain(cuda, variant, kt, sub, c, t):
+    """Two streaming calls: y, dc' and tail' within 3e-5 relative of the
+    plain version, phase' equal."""
+    plan = _plan(cuda)
+    rng = np.random.default_rng(30)
+    hi, lo = (v.cpu().numpy().astype(np.float64) for v in _tunes(c, "cpu"))
+    x, dc, tail, ph = _probe_case(cuda, variant, c, t, rng)
+    st_k = st_r = (dc, tail, ph)
+    for call in range(2):
+        if call:
+            x = x.flip(-2).contiguous()
+        before = kprobe.probe_front.launches
+        got = kprobe.probe_front(variant, plan, x, st_k[0], st_k[2], hi, lo,
+                                 st_k[1], sub, kt)
+        assert kprobe.probe_front.launches == before + 1
+        ref = kprobe.probe_front_reference(variant, plan, x, st_r[0],
+                                           st_r[2], hi, lo, st_r[1], sub, kt)
+        torch.cuda.synchronize()
+        for a, b in zip(got[:3], ref[:3]):
+            assert a.shape == b.shape
+            assert rel_err(b, a) < RTOL
+        assert torch.equal(got[3], ref[3])
+        st_k, st_r = got[1:], ref[1:]
+
+
+@pytest.mark.parametrize("c,t", [(4, 8192), (64, 8 * 32768)])
+@pytest.mark.parametrize("sub", [2048, 4096, 8192])
+@pytest.mark.parametrize("planes", [1, 2])
+def test_probe_floor_kernel_matches_plain(cuda, planes, sub, c, t):
+    """Exact: the copy moves values."""
+    g = torch.Generator(device=cuda).manual_seed(sub)
+    lanes = 2 * c // planes
+    xs = [torch.randn(t, lanes, generator=g, device=cuda)
+          for _ in range(planes)]
+    before = kprobe.probe_floor.launches
+    got = kprobe.probe_floor(xs, sub, 32)
+    assert kprobe.probe_floor.launches == before + 1
+    ref = kprobe.probe_floor_reference(xs, sub, 32)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def test_probe_front_variants_match_k1(cuda):
+    """Every variant computes K1's base form: y within 3e-5 of fused_front
+    on the same input and state, at the bench's default shape."""
+    c, t = 64, 8 * 32768
+    plan = _plan(cuda)
+    rng = np.random.default_rng(31)
+    hi_t, lo_t = _tunes(c, cuda)
+    hi, lo = hi_t.cpu().double().numpy(), lo_t.cpu().double().numpy()
+    x, dc, tail, ph = _probe_case(cuda, "v3", c, t, rng)
+    k1 = front.fused_front(plan, x, dc, ph, hi_t, lo_t, tail)
+    for variant, kt in kprobe.FORMS:
+        for sub in (2048, 4096):
+            if variant in kprobe.TWO_PLANE:
+                args = (torch.stack([x[:, :c], x[:, c:]]).contiguous(),
+                        dc.reshape(2, c),
+                        torch.cat([tail[:, :c], tail[:, c:]]).contiguous(), ph)
+            else:
+                args = (x, dc, tail, torch.cat([ph, ph]) if variant in (
+                    "v4", "v5") else ph)
+            y = kprobe.probe_front(variant, plan, args[0], args[1], args[3],
+                                   hi, lo, args[2], sub, kt)[0]
+            if variant in kprobe.TWO_PLANE:
+                y = torch.cat([y[0], y[1]], 1)
+            assert rel_err(k1[0], y) < RTOL, (variant, kt, sub)
