@@ -118,8 +118,6 @@ NB1 = (3.3, 7, 0.001, "blank")     # the Receiver's NB1 (threshold, width,
 NB2 = (3.3, 7, 0.001, "average")   # alpha, mode) and NB2
 IQ = (1.05, 0.02)                  # static IQ balance (gain, phase)
 SPIKES = (100, 511, 2046, 2049, 16385, 32765)   # impulse rows in each block
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-F32_FLOPS = 67e12                  # H100 SXM float32 outside tensor cores
 # the option cells: (name, channels, blocks, entry, receiver options)
 OPTION_CELLS = {
     "am_nb_64ch": (64, 32, "f32", dict(enable_noise_blanker=True)),
@@ -214,48 +212,6 @@ def impulsive(plane: np.ndarray, n: int) -> np.ndarray:
 
 def to_i16(plane: np.ndarray, scale: float = 32768.0) -> np.ndarray:
     return np.clip(np.round(plane * scale), -32768, 32767).astype(np.int16)
-
-
-def bound(nbytes: float, ops: float) -> dict:
-    """The least time the card could take: bytes over the HBM rate or
-    operations over the float32 peak, whichever is larger."""
-    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
-    return {"bound_ms": max(t_b, t_o),
-            "bound_by": "bytes" if t_b >= t_o else "operations"}
-
-
-def k1_bound(plan, t: int, c: int, x_bytes: int, n_block: int,
-             raw_rows: int, disc: bool = False, y_tail_rows: int = 0,
-             nb: bool = False, iq: bool = False, comp_taps: int = 0) -> dict:
-    """K1's bound from its shapes: the plane read once, every output
-    written once, the carried state read and written; the FIR's 2 (D+1)
-    operations per decimated lane plus the per-row work (DC 2 per lane,
-    mix 6, IQ 3 and blanker 6 per channel; discriminator ~26 per output;
-    with comp_taps the half-rate plane written instead of the full-rate
-    one, its 32-row history read and written, and 2 tc operations per
-    half-rate output)."""
-    c2, k, m = 2 * c, t // n_block, t // plan.factor
-    disc_rows = m // 2 if comp_taps else m
-    nbytes = (t * c2 * x_bytes + 2 * plan.d_rows * c2 * 4
-              + k * raw_rows * c2 * 4
-              + (k * y_tail_rows if y_tail_rows else m) * c2 * 4
-              + (disc_rows * c * 4 if disc else 0)
-              + (2 * 32 * c * 4 if comp_taps else 0)
-              + (2 * (1 + 16) * c2 * 4 if nb else 0))
-    ops = (2 * plan.h.numel() * m * c2 + 2 * t * c2 + 6 * t * c
-           + (3 * t * c if iq else 0) + (6 * t * c if nb else 0)
-           + (26 * m * c if disc else 0) + 2 * comp_taps * (m // 2) * c)
-    return bound(nbytes, ops)
-
-
-def k2_bound(tplan, n: int, c: int) -> dict:
-    """K2's bound: raw [n, C] and the pilot parameters read, the audio
-    [n/F, 2C] written, the history read and written; 2 (D+1) operations per
-    decimated lane plus ~24 per row and channel for the demux."""
-    nbytes = (n * c * 4 + 2 * (n // tplan.ell) * c * 4
-              + (n // tplan.factor) * 2 * c * 4 + 2 * tplan.d_rows * 2 * c * 4)
-    ops = 2 * tplan.h.numel() * (n // tplan.factor) * 2 * c + 24 * n * c
-    return bound(nbytes, ops)
 
 
 def tone_snr_db(audio: np.ndarray, rate: float, f0: float = 1000.0) -> float:
@@ -819,6 +775,7 @@ def phase_front_options(torch, front, fr, fw) -> dict:
 def phase_cells(torch, receiver, front, wfm_tail, DemodMode) -> dict:
     """Phase 14: the option cells, am_256ch and am_i16_256ch interleaved;
     and the folded entry's unfold copy on its own."""
+    from pebblesdr_tpu_torch.utils import roofline
     done = {}
     for group in (("am_nb_64ch",), ("am_256ch", "am_i16_256ch"),
                   ("am_16ch",)):
@@ -836,7 +793,7 @@ def phase_cells(torch, receiver, front, wfm_tail, DemodMode) -> dict:
             log(f"phase14 am_16ch unfold copy of the {tuple(iq.shape)} "
                 f"entry plane: {ms:.4f} ms ({nbytes / 2 ** 30:.3f} GiB read "
                 f"and written, {nbytes / (ms / 1e3) / 1e9:.1f} GB/s; bound "
-                f"{bound(nbytes, 0)['bound_ms']:.4f} ms)")
+                f"{roofline.bound(nbytes, 0)['bound_ms']:.4f} ms)")
             done["unfold_ms"] = ms
         del cells
         torch.cuda.empty_cache()
@@ -907,6 +864,7 @@ def phase_options_time(torch, front, fr) -> dict:
     am_i16_256ch, float32 at am_16ch (after the unfold); each checked
     against plain once, then timed (runs plain, kernel, kernel, plain),
     with its per-launch device times."""
+    from pebblesdr_tpu_torch.utils import roofline
     n = HEADLINE["frames"]
     plan = fr["plan"]
     zeros = dict(dtype=torch.float32, device="cuda")
@@ -935,7 +893,8 @@ def phase_options_time(torch, front, fr) -> dict:
         ms, plain_ms, t = time_pair(
             torch, lambda: front.fused_front(plan, *args, **kw),
             lambda: front.fused_front_reference(plan, *args, **kw))
-        b = k1_bound(plan, k * n, c, 2 if i16 else 4, n, 2048, nb=nb, iq=nb)
+        b = roofline.k1_bound(plan, k * n, c, 2 if i16 else 4, n, 2048,
+                              nb=nb, iq=nb)
         res[name] = {"ms": ms, "plain_ms": plain_ms, **check, **b}
         log(f"phase15 K1 {form} at {name}: {ms:.4f} ms vs plain "
             f"{plain_ms:.4f} ms per dispatch (runs kernel {t['kernel']}, "
@@ -954,6 +913,7 @@ def phase_front_hq(torch, front, decimator, wfm_mod) -> dict:
     streaming calls from a random comp_hist; then both timed, with the
     per-launch device times."""
     from pebblesdr_tpu_torch.ops.mixer import split_freq
+    from pebblesdr_tpu_torch.utils import roofline
     c, k, _, _ = WFM_CELLS["wfm_hq_64ch"]
     n = HEADLINE["frames"]
     plan_d = decimator.build_plan(FS, 400_000.0)
@@ -1021,8 +981,8 @@ def phase_front_hq(torch, front, decimator, wfm_mod) -> dict:
     ms, plain_ms, t = time_pair(
         torch, lambda: front.fused_front(plan, *args, **kw),
         lambda: front.fused_front_reference(plan, *args, **kw))
-    b = k1_bound(plan, k * n, c, 4, n, 2048, disc=True, y_tail_rows=zt,
-                 comp_taps=len(taps))
+    b = roofline.k1_bound(plan, k * n, c, 4, n, 2048, disc=True,
+                          y_tail_rows=zt, comp_taps=len(taps))
     log(f"phase16 K1e at wfm_hq_64ch: {ms:.4f} ms vs plain {plain_ms:.4f} ms "
         f"per dispatch (runs kernel {t['kernel']}, plain {t['plain']}); bound "
         f"{b['bound_ms']:.4f} ms ({b['bound_by']}); per launch (ms): "
@@ -1195,19 +1155,6 @@ def phase_wfm_cells(torch, receiver, front, wfm_tail, DemodMode) -> dict:
     return done
 
 
-def probe_layout(torch, variant: str, x, dc, tail, ph):
-    """A packed plane x [T, 2C] and K1-layout state (dc [1, 2C], tail
-    [d_rows, 2C], phase [C]) in a probe variant's layouts."""
-    c = x.shape[1] // 2
-    if variant in ("v1", "v2"):                 # the two-plane variants
-        return (torch.stack([x[:, :c], x[:, c:]]).contiguous(),
-                dc.reshape(2, c).contiguous(),
-                torch.cat([tail[:, :c], tail[:, c:]]).contiguous(), ph)
-    if variant in ("v4", "v5"):
-        return x, dc, tail, torch.cat([ph, ph])
-    return x, dc, tail, ph
-
-
 def phase_probes(torch, front, kprobe, kbench2, receiver, DemodMode) -> dict:
     """Phase 22: the K1 probes of tools/kbench2.py.  At the probe bench's
     default shape (64 channels, 8 blocks of 32768 rows, the AM plan): the
@@ -1219,7 +1166,8 @@ def phase_probes(torch, front, kprobe, kbench2, receiver, DemodMode) -> dict:
     base form) on the same input and state.  Then the bench's full table
     (the main path of this slice, launch counts reset just before it and
     read just after), and each form timed against its plain version, the
-    packed floor at am_64ch's [1,048,576 x 128] shape."""
+    packed floor checked exactly and timed at am_64ch's [1,048,576 x 128]
+    shape."""
     c, n, k = 64, 32768, 8
     t = n * k
     rx = receiver.Receiver(receiver.ReceiverConfig(
@@ -1234,19 +1182,29 @@ def phase_probes(torch, front, kprobe, kbench2, receiver, DemodMode) -> dict:
     def randn(*shape, scale=1.0, offset=0.0):
         return torch.randn(*shape, generator=gen, device="cuda") * scale + offset
 
-    res = {}
-    for form, planes in (("floor", (randn(t, c), randn(t, c))),
-                         ("floor128", (randn(t, 2 * c),))):
-        for sub in (2048, 4096, 8192):
+    def check_floor(form, planes, subs):
+        """The copy floor against its plain version, exactly: the largest
+        absolute difference (0.0)."""
+        err = 0.0
+        for sub in subs:
             got = kprobe.probe_floor(planes, sub, factor)
             ref = kprobe.probe_floor_reference(planes, sub, factor)
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(got, ref)):
                 raise RuntimeError(f"phase22 {form} sub={sub}: the copy floor "
                                    f"differs from its plain version")
-        res[form] = {"max_abs_err": 0.0}
-        log(f"phase22 {form}: probe_floor_copy == plain exactly at sub 2048, "
-            f"4096, 8192 ({len(planes)} x {tuple(planes[0].shape)})")
+            err = max([err] + [float((a - b).abs().max())
+                               for a, b in zip(got, ref)])
+        log(f"phase22 {form}: probe_floor_copy == plain exactly at sub "
+            f"{', '.join(map(str, subs))} ({len(planes)} x "
+            f"{tuple(planes[0].shape)})")
+        return err
+
+    res = {}
+    for form, planes in (("floor", (randn(t, c), randn(t, c))),
+                         ("floor128", (randn(t, 2 * c),))):
+        res[form] = {"max_abs_err": check_floor(form, planes,
+                                                (2048, 4096, 8192))}
         del planes
 
     xs = [randn(t, 2 * c, scale=0.5, offset=0.2 * (i + 1)) for i in range(2)]
@@ -1257,11 +1215,11 @@ def phase_probes(torch, front, kprobe, kbench2, receiver, DemodMode) -> dict:
     worst, k1_worst = 0.0, 0.0
     for variant, kt in kprobe.FORMS:
         for sub in (2048, 4096):
-            _, dc, tail, ph = probe_layout(torch, variant, xs[0], *st0)
+            _, dc, tail, ph = kprobe.to_layout(variant, xs[0], *st0)
             st_k = st_r = (dc, tail, ph)
             errs, max_abs = {}, 0.0
             for call, x in enumerate(xs):
-                xv = probe_layout(torch, variant, x, *st0)[0]
+                xv = kprobe.to_layout(variant, x, *st0)[0]
                 got = kprobe.probe_front(variant, plan, xv, st_k[0], st_k[2],
                                          f_hi, f_lo, st_k[1], sub, kt)
                 ref = kprobe.probe_front_reference(variant, plan, xv,
@@ -1275,9 +1233,7 @@ def phase_probes(torch, front, kprobe, kbench2, receiver, DemodMode) -> dict:
                                        f"phase' differs from plain")
                 max_abs = max(max_abs, float((got[0] - ref[0]).abs().max()))
                 if call == 0:
-                    y = got[0]
-                    if variant in kprobe.TWO_PLANE:
-                        y = torch.cat([y[0], y[1]], 1)
+                    y = kprobe.from_layout(variant, *got)[0]
                     errs["y_vs_K1"] = rel_err(k1_y, y)
                 st_k, st_r = got[1:], ref[1:]
                 del got, ref, xv
@@ -1336,6 +1292,8 @@ def phase_probes(torch, front, kprobe, kbench2, receiver, DemodMode) -> dict:
             b = kprobe.probe_bound("floor", 2048, 1, c, t, factor)
         elif variant == "floor128":
             xa = randn(1_048_576, 2 * c)
+            res[key]["max_abs_err"] = max(res[key]["max_abs_err"], check_floor(
+                "floor128 at am_64ch's shape", (xa,), (2048,)))
             fns = (lambda: kprobe.probe_floor((xa,), 2048, factor),
                    lambda: kprobe.probe_floor_reference((xa,), 2048, factor))
             lib = lambda: xa.view(-1, factor, 2 * c).sum(1)  # noqa: E731
@@ -1343,16 +1301,16 @@ def phase_probes(torch, front, kprobe, kbench2, receiver, DemodMode) -> dict:
             lib_ms = time_cuda(torch, lib, 10)
             b = kprobe.probe_bound("floor128", 2048, 1, c, xa.shape[0], factor)
         else:
-            args = probe_layout(torch, variant, x,
-                                torch.zeros(1, 2 * c, **zeros),
-                                torch.zeros(plan.d_rows, 2 * c, **zeros),
-                                torch.zeros(c, **zeros))
+            args = kprobe.to_layout(variant, x,
+                                    torch.zeros(1, 2 * c, **zeros),
+                                    torch.zeros(plan.d_rows, 2 * c, **zeros),
+                                    torch.zeros(c, **zeros))
             fns = tuple(functools.partial(
                 fn, variant, plan, args[0], args[1], args[3], f_hi, f_lo,
                 args[2], 2048, kt) for fn in (kprobe.probe_front,
                                               kprobe.probe_front_reference))
             b = kprobe.probe_bound(variant, 2048, kt, c, t, factor,
-                                   plan.d_rows)
+                                   plan.d_rows, plan.h.numel())
             lib_ms = None
         ms, plain_ms, runs = time_pair(torch, *fns)
         torch.cuda.synchronize()
@@ -1372,8 +1330,9 @@ def phase_probes(torch, front, kprobe, kbench2, receiver, DemodMode) -> dict:
             + (f", library {lib_ms:.4f} ms" if lib_ms is not None else "")
             + f"; bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
             f"{b['bytes'] / (ms * 1e-3) / 1e9:.1f} GB/s, "
-            f"{b['flops'] / (ms * 1e-3) / 1e12:.2f} TFLOP/s); per launch "
-            f"(ms): " + kernel_breakdown(torch, fns[0]))
+            f"{b['flops'] / (ms * 1e-3) / 1e12:.2f} TFLOP/s of the function, "
+            f"{b['product_flops'] / (ms * 1e-3) / 1e12:.2f} of the product); "
+            f"per launch (ms): " + kernel_breakdown(torch, fns[0]))
         fns = args = planes = None
     return res
 
@@ -1389,7 +1348,7 @@ def main() -> int:
     from pebblesdr_tpu_torch.kernels import build
     from pebblesdr_tpu_torch.ops import decimator, front, kprobe, wfm_tail
     from pebblesdr_tpu_torch.tools import kbench2
-    from pebblesdr_tpu_torch.utils import convert
+    from pebblesdr_tpu_torch.utils import convert, roofline
     DemodMode = receiver.DemodMode
 
     # phase 0
@@ -1448,19 +1407,20 @@ def main() -> int:
          "replaces": front.REPLACES, "launches": head["launches"][0],
          "max_abs_err": fr["max_abs_err"], "ms": times["ms"],
          "plain_ms": times["plain_ms"],
-         **k1_bound(fr["plan"], t, c, 4, n, 2048), "library_ms": None},
+         **roofline.k1_bound(fr["plan"], t, c, 4, n, 2048),
+         "library_ms": None},
         {"name": "fused_front (WFM form: disc_gain, y_tail_rows)",
          "route": "cuda", "source": front.SOURCE,
          "replaces": "pebblesdr_tpu/ops/pallas_kernels.py:352",
          "launches": whead["launches"][0], "max_abs_err": fw["max_abs_err"],
          "ms": wtimes["k1"][0], "plain_ms": wtimes["k1"][1],
-         **k1_bound(fw["plan"], t, c, 4, n, 2048, disc=True,
-                    y_tail_rows=fw["zt"]), "library_ms": None},
+         **roofline.k1_bound(fw["plan"], t, c, 4, n, 2048, disc=True,
+                             y_tail_rows=fw["zt"]), "library_ms": None},
         {"name": "wfm_tail", "route": "cuda", "source": wfm_tail.SOURCE,
          "replaces": wfm_tail.REPLACES, "launches": whead["launches"][1],
          "max_abs_err": tl["max_abs_err"], "ms": wtimes["k2"][0],
          "plain_ms": wtimes["k2"][1],
-         **k2_bound(tl["plan"], t // fw["plan"].factor, c),
+         **roofline.k2_bound(tl["plan"], t // fw["plan"].factor, c),
          "library_ms": None},
     ] + [
         # one entry per option form, each from its own cell
@@ -1494,8 +1454,9 @@ def main() -> int:
              "bound_by", "library_ms")}}
         for key, name in (
             ("floor", "probe_floor_copy (two planes, sub 2048)"),
-            ("floor128", "probe_floor_copy (packed plane, sub 2048, at "
-                         "am_64ch's shape)"),
+            ("floor128", "probe_floor_copy (packed plane, sub 2048; timed "
+                         "at am_64ch's [1048576 x 128], checked there and at "
+                         "the bench's shape, launches in the bench)"),
             (("v1", 1), "probe_toeplitz v1 (two planes, two products)"),
             (("v2", 1), "probe_toeplitz v2 (two planes, one product)"),
             (("v3", 1), "probe_toeplitz v3 (packed plane)"),

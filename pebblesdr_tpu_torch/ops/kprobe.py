@@ -44,6 +44,7 @@ import torch
 
 from pebblesdr_tpu_torch.ops import decimator, front
 from pebblesdr_tpu_torch.ops.mixer import TWO_PI, advance_phase
+from pebblesdr_tpu_torch.utils import roofline
 
 VARIANTS = ("v1", "v2", "v3", "v4", "v5")
 TWO_PLANE = ("v1", "v2")
@@ -61,8 +62,6 @@ REPLACES = {            # the TPU kernel each form replaces
     "v4": "tools/kbench2.py:546",
     "v5": "tools/kbench2.py:590",
 }
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
-F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 
 
 def check_geometry(t: int, sub: int, factor: int,
@@ -86,38 +85,61 @@ def check_geometry(t: int, sub: int, factor: int,
         raise ValueError(f"the front probes take sub <= {MAX_SUB}")
 
 
-def bound(nbytes: float, flops: float) -> dict:
-    """The least time the card could take: bytes over the HBM rate or
-    float32 operations over the float32 peak, whichever is larger."""
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = flops / F32_FLOPS * 1e3
-    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_b, t_o),
-            "bound_by": "bytes" if t_b >= t_o else "operations"}
-
-
 def probe_bound(variant: str, sub: int, kt: int, c: int, t: int,
-                factor: int, d_rows: int = 0) -> dict:
-    """Bytes and float32 FLOPs of one call over t rows of c channels, and
-    the least time the card could take for them.  Floors ("floor",
-    "floor128"): the planes read once and 1/F of them written.  Front
-    variants: the plane, W, the fine tables and the state read once, y and
-    the state written once; FLOPs are the product's, 2 span per output lane
+                factor: int, d_rows: int = 0, taps: int = 0) -> dict:
+    """Bytes and float32 operations of one call over t rows of c channels,
+    and the least time the card could take for them (roofline.bound).
+    Floors ("floor", "floor128"): the planes read once and 1/F of them
+    written.  Front variants: the plane, W, the fine tables and the state
+    read once, y and the state written once; the operations are those of
+    the function, K1's base form (roofline.k1_ops: the FIR's 2 taps per
+    output lane, the DC and the mix), not the product's.  product_flops
+    counts the product as the variant runs it, 2 span per output lane
     (span = d_rows + sub dense, d_rows + (sub/F/kt) F rounded up to 8 for
-    v5); the DC and the mix add under 2 % and are not counted."""
+    v5), most of it on the zeros of W."""
     c2, m = 2 * c, t // factor
     nbytes = (t + m) * c2 * 4
-    flops = 0
+    ops = product = 0
     if variant not in ("floor", "floor128"):
         if variant not in VARIANTS:
             raise ValueError(f"unknown probe {variant!r}")
         ms = sub // factor
         span = (d_rows + sub if kt == 1
                 else -(-(d_rows + (ms // kt) * factor) // 8) * 8)
-        flops = 2 * m * span * c2
+        product = 2 * m * span * c2
+        ops = roofline.k1_ops(taps, t, c, factor)
         tables = 4 if variant in ("v4", "v5") else 1
         nbytes += (ms * (d_rows + sub) + 2 * 128 * tables * c
                    + 2 * (1 + d_rows) * c2 + 3 * c2) * 4
-    return bound(nbytes, flops)
+    return {"bytes": nbytes, "flops": ops, "product_flops": product,
+            **roofline.bound(nbytes, ops)}
+
+
+def to_layout(variant: str, x: torch.Tensor, dc: torch.Tensor,
+              tail: torch.Tensor, phase: torch.Tensor) -> tuple:
+    """K1's packed layout (x [T, 2C], dc [1, 2C], tail [d_rows, 2C], phase
+    [C]) in a variant's (module docstring).  x may be y [T/F, 2C]."""
+    c = x.shape[-1] // 2
+    if variant in TWO_PLANE:
+        return (torch.stack([x[:, :c], x[:, c:]]).contiguous(),
+                dc.reshape(2, c).contiguous(),
+                torch.cat([tail[:, :c], tail[:, c:]]).contiguous(), phase)
+    if variant in ("v4", "v5"):
+        return x, dc, tail, torch.cat([phase, phase])
+    return x, dc, tail, phase
+
+
+def from_layout(variant: str, x: torch.Tensor, dc: torch.Tensor,
+                tail: torch.Tensor, phase: torch.Tensor) -> tuple:
+    """A variant's layout back in K1's packed one: the inverse of
+    to_layout (v4/v5 keep the first half of their [2C] phase)."""
+    if variant in TWO_PLANE:
+        c, d = x.shape[-1], tail.shape[0] // 2
+        return (torch.cat([x[0], x[1]], 1), dc.reshape(1, 2 * c),
+                torch.cat([tail[:d], tail[d:]], 1), phase)
+    if variant in ("v4", "v5"):
+        return x, dc, tail, phase[:phase.shape[0] // 2]
+    return x, dc, tail, phase
 
 
 # ---------------------------------------------------------------- floors ---
@@ -257,10 +279,7 @@ def probe_front_reference(variant: str, plan: front.FrontPlan,
                              f"{shapes[name]}")
     d, factor = plan.d_rows, plan.factor
     tabs = tune_tables(variant, f_hi, f_lo, x.device)
-    two = variant in TWO_PLANE
-    if two:     # the packed layout of the two-plane state
-        x, dc = torch.cat([x[0], x[1]], 1), dc.reshape(1, 2 * c)
-        tail = torch.cat([tail[:d], tail[d:]], 1)
+    x, dc, tail, _ = from_layout(variant, x, dc, tail, phase)
     m_dc, z = front.dc_iq_reference(plan, x, dc)
     coarse, _ = front.phase_tables(phase, tabs["fhi"], tabs["flo"], t, sub)
     cr = torch.cos(TWO_PI * coarse)[:, :, None, :]
@@ -291,11 +310,10 @@ def probe_front_reference(variant: str, plan: front.FrontPlan,
                        for g in range(kt)], dim=2)
     y = y.transpose(1, 2).reshape(t // factor, 2 * c)
     tail_out = ext[ext.shape[0] - d:]
-    phase_out = advance_phase(phase, t, tabs["fhi"], tabs["flo"])
-    if two:
-        return (torch.stack([y[:, :c], y[:, c:]]), m_dc[-1:].reshape(2, c),
-                torch.cat([tail_out[:, :c], tail_out[:, c:]]), phase_out)
-    return y, m_dc[-1:], tail_out.contiguous(), phase_out
+    y, dc_out, tail_out, _ = to_layout(variant, y, m_dc[-1:].contiguous(),
+                                       tail_out.contiguous(), phase)
+    return y, dc_out, tail_out, advance_phase(phase, t, tabs["fhi"],
+                                              tabs["flo"])
 
 
 def probe_front(variant: str, plan: front.FrontPlan, x: torch.Tensor,

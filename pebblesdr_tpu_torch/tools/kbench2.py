@@ -22,7 +22,8 @@ floor128, floorxla, v3 and v4 a seeded normal plane.  Each call takes a
 whole dispatch of TB_BLOCKS blocks, in one launch, and carries its state to
 the next.  Times: CUDA events around TB_STEPS calls after 2 warm-up calls,
 the best of 3 windows; each line gives ms per block, Msps (GB/s read for
-the floors) and the block's bound (kprobe.probe_bound).
+the floors) and the block's bound (kprobe.probe_bound; v0's
+roofline.k1_bound).
 
 ``main(argv, device="cpu")`` runs the plain versions on the CPU (times are
 then the CPU's); with no CUDA device and no CPU request it raises.
@@ -40,6 +41,7 @@ import torch
 from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
 from pebblesdr_tpu_torch.demod.modes import DemodMode
 from pebblesdr_tpu_torch.ops import front, kprobe
+from pebblesdr_tpu_torch.utils import roofline
 
 FS = 2_048_000
 F_HI = 0.1220703125        # 250 kHz at 2.048 Msps, exact in float32
@@ -169,7 +171,8 @@ def main(argv=None, device=None) -> list[dict]:
                                                f_hi, f_lo, st[2], sub, kt)
             return dc, ph, tl
         bench.measure(label, fn, state,
-                      kprobe.probe_bound(variant, sub, kt, c, t, factor, d),
+                      kprobe.probe_bound(variant, sub, kt, c, t, factor, d,
+                                         plan.h.numel()),
                       variant=variant, sub=sub, kt=kt)
 
     for w in (name for name in NAMES if name in which):
@@ -191,8 +194,7 @@ def main(argv=None, device=None) -> list[dict]:
                 _, dc, tl, ph, _ = front.fused_front(plan, xpk, st[0], st[1],
                                                      hi, lo, st[2], n_block=n)
                 return dc, ph, tl
-            b = kprobe.bound((t + t // factor) * 2 * c * 4,
-                             2 * plan.h.numel() * (t // factor) * 2 * c)
+            b = roofline.k1_bound(plan, t, c, 4, n, 8)    # 8 raw rows
             bench.measure("v0 port K1 (fused_front)", fn,
                           (torch.zeros(1, 2 * c, **zeros),
                            torch.zeros(c, **zeros),

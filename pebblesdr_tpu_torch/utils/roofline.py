@@ -1,0 +1,59 @@
+"""The H100's peak rates and the least time a kernel's work could take on
+it, from the bytes it must move and the operations it must do.
+
+One place for the rates and for the bounds of K1 and K2, read by
+chip_smoke.py, ops/kprobe.py and tools/kbench2.py.
+"""
+
+from __future__ import annotations
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
+F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes over the HBM rate or
+    operations over the float32 peak, whichever is larger."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    return {"bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def k1_ops(taps: int, t: int, c: int, factor: int) -> int:
+    """K1's base-form operations over t rows of c channels: the FIR's 2
+    taps per decimated lane, DC 2 per lane and the mix 6 per channel per
+    row."""
+    return 2 * taps * (t // factor) * 2 * c + 2 * t * 2 * c + 6 * t * c
+
+
+def k1_bound(plan, t: int, c: int, x_bytes: int, n_block: int,
+             raw_rows: int, disc: bool = False, y_tail_rows: int = 0,
+             nb: bool = False, iq: bool = False, comp_taps: int = 0) -> dict:
+    """K1's bound from its shapes: the plane read once, every output
+    written once, the carried state read and written; k1_ops plus the
+    per-row work of the options (IQ 3 and blanker 6 per channel;
+    discriminator ~26 per output; with comp_taps the half-rate plane
+    written instead of the full-rate one, its 32-row history read and
+    written, and 2 tc operations per half-rate output)."""
+    c2, k, m = 2 * c, t // n_block, t // plan.factor
+    disc_rows = m // 2 if comp_taps else m
+    nbytes = (t * c2 * x_bytes + 2 * plan.d_rows * c2 * 4
+              + k * raw_rows * c2 * 4
+              + (k * y_tail_rows if y_tail_rows else m) * c2 * 4
+              + (disc_rows * c * 4 if disc else 0)
+              + (2 * 32 * c * 4 if comp_taps else 0)
+              + (2 * (1 + 16) * c2 * 4 if nb else 0))
+    ops = (k1_ops(plan.h.numel(), t, c, plan.factor)
+           + (3 * t * c if iq else 0) + (6 * t * c if nb else 0)
+           + (26 * m * c if disc else 0) + 2 * comp_taps * (m // 2) * c)
+    return bound(nbytes, ops)
+
+
+def k2_bound(tplan, n: int, c: int) -> dict:
+    """K2's bound: raw [n, C] and the pilot parameters read, the audio
+    [n/F, 2C] written, the history read and written; 2 (D+1) operations per
+    decimated lane plus ~24 per row and channel for the demux."""
+    nbytes = (n * c * 4 + 2 * (n // tplan.ell) * c * 4
+              + (n // tplan.factor) * 2 * c * 4 + 2 * tplan.d_rows * 2 * c * 4)
+    ops = 2 * tplan.h.numel() * (n // tplan.factor) * 2 * c + 24 * n * c
+    return bound(nbytes, ops)

@@ -571,12 +571,8 @@ def _probe_case(device, variant, c, t, rng):
     dc = torch.from_numpy(0.05 * rng.standard_normal((1, 2 * c))).float()
     tail = torch.from_numpy(0.3 * rng.standard_normal((d, 2 * c))).float()
     ph = torch.from_numpy(rng.uniform(0.0, 1.0, c)).float()
-    if variant in kprobe.TWO_PLANE:
-        x = torch.stack([x[:, :c], x[:, c:]])
-        dc, tail = dc.reshape(2, c), torch.cat([tail[:, :c], tail[:, c:]])
-    elif variant == "v4" or variant == "v5":
-        ph = torch.cat([ph, ph])
-    return [v.contiguous().to(device) for v in (x, dc, tail, ph)]
+    return [v.contiguous().to(device)
+            for v in kprobe.to_layout(variant, x, dc, tail, ph)]
 
 
 @pytest.mark.parametrize("c,t", [(4, 8192), (64, 8 * 32768)])
@@ -637,15 +633,8 @@ def test_probe_front_variants_match_k1(cuda):
     k1 = front.fused_front(plan, x, dc, ph, hi_t, lo_t, tail)
     for variant, kt in kprobe.FORMS:
         for sub in (2048, 4096):
-            if variant in kprobe.TWO_PLANE:
-                args = (torch.stack([x[:, :c], x[:, c:]]).contiguous(),
-                        dc.reshape(2, c),
-                        torch.cat([tail[:, :c], tail[:, c:]]).contiguous(), ph)
-            else:
-                args = (x, dc, tail, torch.cat([ph, ph]) if variant in (
-                    "v4", "v5") else ph)
-            y = kprobe.probe_front(variant, plan, args[0], args[1], args[3],
-                                   hi, lo, args[2], sub, kt)[0]
-            if variant in kprobe.TWO_PLANE:
-                y = torch.cat([y[0], y[1]], 1)
+            args = kprobe.to_layout(variant, x, dc, tail, ph)
+            out = kprobe.probe_front(variant, plan, args[0], args[1], args[3],
+                                     hi, lo, args[2], sub, kt)
+            y = kprobe.from_layout(variant, *out)[0]
             assert rel_err(k1[0], y) < RTOL, (variant, kt, sub)

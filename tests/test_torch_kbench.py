@@ -117,30 +117,16 @@ def _state(variant, plan, rng):
     dc = (0.05 * rng.standard_normal((1, 2 * C))).astype(np.float32)
     tail = (0.3 * rng.standard_normal((d, 2 * C))).astype(np.float32)
     ph = rng.uniform(0.0, 1.0, C).astype(np.float32)
-    return (dc, tail, ph), _to_variant(variant, dc, tail, ph)
-
-
-def _to_variant(variant, dc, tail, ph):
-    dc, tail, ph = (torch.from_numpy(np.ascontiguousarray(v))
-                    for v in (dc, tail, ph))
-    if variant in kprobe.TWO_PLANE:
-        return dc.reshape(2, C), torch.cat([tail[:, :C], tail[:, C:]]), ph
-    if variant in ("v4", "v5"):
-        return dc, tail, torch.cat([ph, ph])
-    return dc, tail, ph
+    x = torch.zeros(T, 2 * C)
+    return (dc, tail, ph), kprobe.to_layout(
+        variant, x, *(torch.from_numpy(v) for v in (dc, tail, ph)))[1:]
 
 
 def _packed(variant, y, dc, tail, ph):
     """A variant's (y, dc', tail', phase') in the packed layout of K1."""
-    if variant in kprobe.TWO_PLANE:
-        d = tail.shape[0] // 2
-        y = torch.cat([y[0], y[1]], 1)
-        dc = dc.reshape(1, 2 * C)
-        tail = torch.cat([tail[:d], tail[d:]], 1)
     if variant in ("v4", "v5"):
         assert torch.equal(ph[:C], ph[C:])
-        ph = ph[:C]
-    return y, dc, tail, ph
+    return kprobe.from_layout(variant, y, dc, tail, ph)
 
 
 def _plane(rng):
@@ -149,10 +135,8 @@ def _plane(rng):
 
 
 def _variant_input(variant, x):
-    xt = torch.from_numpy(x)
-    if variant in kprobe.TWO_PLANE:
-        return torch.stack([xt[:, :C], xt[:, C:]]).contiguous()
-    return xt
+    return kprobe.to_layout(variant, torch.from_numpy(x), torch.zeros(1, 2 * C),
+                            torch.zeros(0, 2 * C), torch.zeros(C))[0]
 
 
 @pytest.mark.parametrize("sub", [2048, 4096])
@@ -223,22 +207,27 @@ def test_cpu_wrappers_run_plain_versions_without_counting(plan):
     assert f[0].shape == (T // plan.factor, 2 * C)
 
 
-@pytest.mark.parametrize("variant,sub,kt,flops,by", [
-    ("v4", 2048, 1, 723_517_440, "operations"),
-    ("v5", 2048, 2, 455_081_984, "operations"),
-    ("v5", 2048, 4, 320_864_256, "bytes"),
-    ("v3", 4096, 1, 1_260_388_352, "operations")])
-def test_probe_bound_counts_the_product(variant, sub, kt, flops, by):
-    """FLOPs per 32768-row block at the bench's defaults: the AM plan
-    (factor 32, d_rows 712), 64 channels."""
+@pytest.mark.parametrize("variant,sub,kt,product_flops", [
+    ("v4", 2048, 1, 723_517_440),
+    ("v5", 2048, 2, 455_081_984),
+    ("v5", 2048, 4, 320_864_256),
+    ("v3", 4096, 1, 1_260_388_352)])
+def test_probe_bound_counts_the_product(variant, sub, kt, product_flops):
+    """Per 32768-row block at the bench's defaults (the AM plan: factor 32,
+    711 taps, d_rows 712; 64 channels): the product's FLOPs, and a bound
+    from the function's own work, K1's base form, which the bytes set."""
     rx = Receiver(ReceiverConfig(sample_rate=FS, frames_per_buffer=32768,
                                  channels=64, mode=DemodMode.AM,
                                  agc_stride=16), "cpu")
-    b = kprobe.probe_bound(variant, sub, kt, 64, 32768, rx.front.factor,
-                           rx.front.d_rows)
-    assert b["flops"] == flops
-    assert b["bound_by"] == by
-    f = kprobe.probe_bound("floor", sub, 1, 64, 32768, rx.front.factor)
+    plan = rx.front
+    b = kprobe.probe_bound(variant, sub, kt, 64, 32768, plan.factor,
+                           plan.d_rows, plan.h.numel())
+    assert b["product_flops"] == product_flops
+    assert b["flops"] == (2 * 711 * 1024 * 128 + 2 * 32768 * 128
+                          + 6 * 32768 * 64)
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == b["bytes"] / 3.35e12 * 1e3
+    f = kprobe.probe_bound("floor", sub, 1, 64, 32768, plan.factor)
     assert f["bytes"] == 17_301_504 and f["bound_by"] == "bytes"
 
 
