@@ -76,9 +76,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      probe bench's full table (pebblesdr_tpu_torch/tools/kbench2.py, the
      main path of this slice) with its launch counts; then each form timed
      against its plain version, the packed floor at am_64ch's shape beside
-     the torch call that moves the same bytes.
+     the torch call that moves the same bytes;
+ 23. front_means, K1's first pass, alone (ops/front.py chunk_means: the
+     chunk means and the raw display tails) at the shapes and dtypes of the
+     cells am_64ch, am_256ch, am_i16_256ch and am_16ch: int16 means and
+     every raw tail equal to its plain version, float32 means within 1e-6
+     max |x|; then timed in turns with the PyTorch call that computes the
+     means and with its plain version, with GB/s, the share of its bound
+     and its per-launch device time.
 Each receiver phase sets every kernel's launch count to 0 just before it
-drives the receiver and reads the counts just after.  Each kernel's bound
+drives the receiver and reads the counts just after (front_means counts
+its launches inside K1 as well).  Each kernel's bound
 is the larger of the bytes it must move over 3.35 TB/s and the operations
 it does over 67 TFLOP/s (the H100 SXM's float32 peak outside the tensor
 cores).  The line before the last is the per-kernel JSON summary; the last
@@ -114,6 +122,7 @@ HQ_SEPARATION_DB = 40.0  # at the hq geometry (tests/test_chain.py:415; JAX
 SOFT_RTOL = 1e-3         # RDS soft symbols, card vs CPU, of their scale
 RDS_SLICE = dict(channels=4, frames=32768, blocks=3)
 KERNELS = ("front", "wfm_tail")
+MEANS_ATOL = 1e-6        # front_means' float32 means vs plain, of max |x|
 NB1 = (3.3, 7, 0.001, "blank")     # the Receiver's NB1 (threshold, width,
 NB2 = (3.3, 7, 0.001, "average")   # alpha, mode) and NB2
 IQ = (1.05, 0.02)                  # static IQ balance (gain, phase)
@@ -185,6 +194,7 @@ def wfm_plane(channels: int, n_rows: int, rng, noise: float = 0.0,
 
 def reset_launches(front, wfm_tail) -> None:
     front.fused_front.launches = 0
+    front.chunk_means.launches = 0
     wfm_tail.wfm_tail.launches = 0
 
 
@@ -352,9 +362,11 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
         reset_launches(front, wfm_tail)
         st_g, out_g = rx_gpu.step_many(st_g, params_g, x.cuda())
         torch.cuda.synchronize()
-        launches = (front.fused_front.launches, wfm_tail.wfm_tail.launches)
-        if launches != (1, 1 if wfm else 0):
-            raise RuntimeError(f"{tag}: launches (K1, K2) = {launches}")
+        launches = (front.fused_front.launches, wfm_tail.wfm_tail.launches,
+                    front.chunk_means.launches)
+        if launches != (1, 1 if wfm else 0, 1):
+            raise RuntimeError(f"{tag}: launches (K1, K2, front_means) = "
+                               f"{launches}")
         d_audio = float((out_g["audio"].cpu() - out_c["audio"]).abs().max())
         d_db = {key: float((out_g[key].cpu() - out_c[key]).abs().max())
                 for key in ("spectrum", "zoomed")}
@@ -417,7 +429,7 @@ def make_cell(torch, receiver, front, mode, name: str, channels: int,
     return {"name": name, "rx": rx, "cfg": cfg, "wfm": wfm,
             "params": rx.default_params(250_000.0), "iq": iq,
             "blocks": blocks, "channels": channels, "state": rx.init_state(),
-            "out": None, "i": 0, "launches": [0, 0], "windows": []}
+            "out": None, "i": 0, "launches": [0, 0, 0], "windows": []}
 
 
 def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
@@ -437,6 +449,7 @@ def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
         torch.cuda.synchronize()
         cell["launches"][0] += front.fused_front.launches
         cell["launches"][1] += wfm_tail.wfm_tail.launches
+        cell["launches"][2] += front.chunk_means.launches
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -452,9 +465,10 @@ def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
         c, k, wfm = cell["channels"], cell["blocks"], cell["wfm"]
         n_dispatch = WARMUP + WINDOWS * WINDOW_DISPATCHES
         launches = tuple(cell["launches"])
-        if launches != (n_dispatch, n_dispatch if wfm else 0):
-            raise RuntimeError(f"{tag} {cell['name']}: launches (K1, K2) "
-                               f"{launches} for {n_dispatch} dispatches")
+        if launches != (n_dispatch, n_dispatch if wfm else 0, n_dispatch):
+            raise RuntimeError(f"{tag} {cell['name']}: launches (K1, K2, "
+                               f"front_means) {launches} for {n_dispatch} "
+                               f"dispatches")
         windows = cell["windows"]
         best = min(windows)                               # ms per dispatch
         cell.update(block_ms=best / k, msps=c * n * k / (best / 1e3) / 1e6,
@@ -464,7 +478,8 @@ def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
             + f"; block {cell['block_ms']:.5f} ms, {cell['msps']:.1f} Msps "
             f"per GPU, {cell['realtime']:.1f}x realtime per channel, window "
             f"spread {max(windows) / best:.3f}; K1 launches {launches[0]}, "
-            f"K2 launches {launches[1]} for {n_dispatch} dispatches "
+            f"K2 launches {launches[1]}, front_means launches {launches[2]} "
+            f"for {n_dispatch} dispatches "
             f"({launches[0] / n_dispatch:g} K1 per dispatch); peak device "
             f"memory {peak:.3f} GiB" + (" (cells timed together)"
                                         if len(cells) > 1 else ""))
@@ -512,15 +527,23 @@ def phase_headline(torch, receiver, front, wfm_tail, mode) -> dict:
             "msps": cell["msps"]}
 
 
+def time_turns(torch, fns: dict, reps: int = 10) -> tuple[dict, dict]:
+    """(mean ms per call of each of fns, the runs), timed in turns: the
+    names in order, then in reverse (plain, kernel, library, library,
+    kernel, plain)."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    runs = {name: [] for name in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        runs[name].append(time_cuda(torch, fns[name], reps))
+    return {name: float(np.mean(v)) for name, v in runs.items()}, runs
+
+
 def time_pair(torch, kernel, plain, reps: int = 10):
     """(kernel ms, plain ms, runs) in the order plain, kernel, kernel, plain."""
-    kernel(), plain()
-    torch.cuda.synchronize()
-    t = {"plain": [], "kernel": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        t[name].append(time_cuda(torch, kernel if name == "kernel" else plain,
-                                 reps))
-    return float(np.mean(t["kernel"])), float(np.mean(t["plain"])), t
+    t, runs = time_turns(torch, {"plain": plain, "kernel": kernel}, reps)
+    return t["kernel"], t["plain"], runs
 
 
 def phase_front_time(torch, front, fr) -> dict:
@@ -1337,6 +1360,74 @@ def phase_probes(torch, front, kprobe, kbench2, receiver, DemodMode) -> dict:
     return res
 
 
+def phase_means(torch, front) -> dict:
+    """Phase 23: front_means alone (front.chunk_means: chunk means and raw
+    tails of 2048 rows per 32768-row block) at the AM cells' shapes and
+    dtypes, on the cell's plane with noise and a DC offset.  int16 means
+    and every raw tail equal to the plain version, float32 means within
+    MEANS_ATOL max |x| (the sums run in another order); then timed in turns
+    with the PyTorch call that computes the means (float32: the reshape
+    mean; int16: the reshape sum in float32) and with the plain version,
+    with GB/s, the share of its bound and its per-launch device time."""
+    from pebblesdr_tpu_torch.utils import roofline
+    n, raw_rows = HEADLINE["frames"], 2048
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    res = {}
+    for name, c, k, entry in (("am_64ch", 64, 32, "f32"),
+                              ("am_256ch", 256, 16, "f32"),
+                              ("am_i16_256ch", 256, 16, "i16"),
+                              ("am_16ch", 16, 64, "f32")):
+        i16 = entry == "i16"
+        block = am_plane(c, n, None)
+        x = torch.from_numpy(to_i16(block) if i16 else block).cuda()
+        x = x.repeat(k, 1)
+        noise = torch.randn(x.shape, generator=gen, device="cuda")
+        if i16:
+            x = (x.float() + 300.0 * noise + 1500.0).round().clamp(
+                -32768, 32767).to(torch.int16)
+        else:
+            x = x + 0.01 * noise + 0.05
+        del noise
+        x = x.contiguous()
+        got = front.chunk_means(x, n, raw_rows)
+        ref = front.chunk_means_reference(x, n, raw_rows)
+        torch.cuda.synchronize()
+        scale = float(front.dequantize(x).abs().max())
+        err = float((got[0] - ref[0]).abs().max())
+        raw_equal = torch.equal(got[1], ref[1])
+        means_ok = (torch.equal(got[0], ref[0]) if i16
+                    else err <= MEANS_ATOL * scale)
+        log(f"phase23 front_means at {name} {tuple(x.shape)} {x.dtype}: "
+            f"means max abs error {err:.3g} "
+            + ("(equal)" if i16 else f"(<= {MEANS_ATOL} x {scale:.4g})")
+            + f", raw tails {tuple(got[1].shape)} equal {raw_equal}")
+        if not (means_ok and raw_equal):
+            raise RuntimeError(f"phase23: front_means disagrees with its "
+                               f"plain version at {name}")
+        del got, ref
+        view = x.view(-1, front.DC_CHUNK, 2 * c)
+        fns = {"plain": lambda: front.chunk_means_reference(x, n, raw_rows),
+               "kernel": lambda: front.chunk_means(x, n, raw_rows),
+               "library": ((lambda: torch.sum(view, 1, dtype=torch.float32))
+                           if i16 else (lambda: view.mean(1)))}
+        t, runs = time_turns(torch, fns)
+        b = roofline.means_bound(x.shape[0], 2 * c, x.element_size(), k,
+                                 raw_rows)
+        ms = t["kernel"]
+        log(f"phase23 front_means at {name}: {ms:.4f} ms vs library "
+            f"{t['library']:.4f} ms vs plain {t['plain']:.4f} ms (runs "
+            f"{runs}); {b['bytes'] / (ms * 1e-3) / 1e9:.1f} GB/s, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}), "
+            f"{b['bound_ms'] / ms:.1%} of it; per launch (ms): "
+            + kernel_breakdown(torch, fns["kernel"]))
+        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": t["plain"],
+                     "library_ms": t["library"], "bound_ms": b["bound_ms"],
+                     "bound_by": b["bound_by"]}
+        del fns, view, x
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1397,6 +1488,7 @@ def main() -> int:
     phase_separation(torch, receiver, DemodMode, hq=True)
     wcells = phase_wfm_cells(torch, receiver, front, wfm_tail, DemodMode)
     probes = phase_probes(torch, front, kprobe, kbench2, receiver, DemodMode)
+    means = phase_means(torch, front)
 
     c, n, k = HEADLINE["channels"], HEADLINE["frames"], HEADLINE["blocks"]
     t = n * k
@@ -1422,6 +1514,15 @@ def main() -> int:
          "plain_ms": wtimes["k2"][1],
          **roofline.k2_bound(tl["plan"], t // fw["plan"].factor, c),
          "library_ms": None},
+        # K1's first pass alone: launches from the headline AM run (one per
+        # K1 call), times and bound at am_64ch's shape (phase 23), the
+        # error the largest of the four cells'
+        {"name": "front_means (chunk means + raw tails)", "route": "cuda",
+         "source": front.SOURCE, "replaces": front.MEANS_REPLACES,
+         "launches": head["launches"][2],
+         "max_abs_err": max(v["max_abs_err"] for v in means.values()),
+         **{key: means["am_64ch"][key] for key in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
     ] + [
         # one entry per option form, each from its own cell
         {"name": f"fused_front ({form})", "route": "cuda",

@@ -336,7 +336,8 @@ class Receiver:
         """Normalize every accepted layout to the [K*N, 2C] packed plane,
         with the channel-count guards of the JAX Receiver.  A flat plane
         whose lane width is a multiple G of 2C is time-folded by G and is
-        unfolded here (one device copy)."""
+        unfolded here (one device copy).  A CUDA plane that is not 16-byte
+        aligned (a caller's view into a larger one) is copied once."""
         c = self.cfg.channels
         c2 = 2 * c
         if (not isinstance(iq, (tuple, list)) and iq.is_complex()
@@ -385,7 +386,10 @@ class Receiver:
                     f"{self.cfg.frames_per_buffer}-frame blocks per lane "
                     f"group, got {x_pk.shape[0]} rows")
             return front.unfold_plane(x_pk, fold)
-        return x_pk.contiguous()
+        x_pk = x_pk.contiguous()
+        if x_pk.is_cuda and x_pk.data_ptr() % front.PLANE_ALIGN:
+            x_pk = x_pk.clone()      # the kernels take 16-byte aligned planes
+        return x_pk
 
     def _step_many_batched(self, state: ReceiverState, params: RxParams,
                            x_pk: torch.Tensor, spectra: bool):

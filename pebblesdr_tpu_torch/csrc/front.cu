@@ -21,6 +21,13 @@
 // runs in no order, so the carried state becomes closed forms:
 //   1. front_means: per-chunk (512-row) means of every lane, in parallel over
 //      chunks; it also copies each block's trailing raw rows (display tails).
+//      Its bound is bytes (the plane read once): one persistent block per
+//      SM slot walks its chunks, and one thread keeps 1D bulk copies of
+//      R-row stages in flight on a ring in shared memory (bulk_ring.cuh)
+//      across chunk boundaries, while the block sums the landed stages
+//      from shared memory, 16 bytes (4 float32 or 8 int16 lanes) per load
+//      (float32; int16 in int32, exact), and writes each stage's rows that
+//      lie in its block's raw tail.
 //   2. front_dc_scan: the chunk EWMA m_k = a m_{k-1} + (1-a) mu_k as a
 //      two-level scan (32 segments per lane, then the 32 segment seeds).
 //   2b. with the noise blanker: front_nb_means re-reads the plane, forms
@@ -85,6 +92,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
+#include "bulk_ring.cuh"
+
 namespace {
 
 constexpr int kDcChunk = 512;   // DC-estimate chunk (ops.iir.dc_removal_chunked)
@@ -97,6 +108,7 @@ constexpr int kThreads = kLanes * kGroups;
 constexpr int kM = 24;          // decimated outputs per FIR block (two
                                 // blocks fit an SM's shared memory)
 constexpr int kMaxSmem = 232448;
+constexpr int kMaxBlocksPerSm = 32;  // Hopper's resident blocks per SM
 constexpr int kNbTailRows = 16; // carried spike-flag rows
 constexpr int kNbHalo = kNbTailRows - 1;  // most flag rows above a tile
 constexpr float kI16Scale = 1.0f / 32768.0f;  // int16 full scale -> 1.0
@@ -244,34 +256,213 @@ __device__ __forceinline__ void nb_flags_at(const Tx* __restrict__ x, int t,
             nb_avg_entering(nb, k, c2, C + c), iq, nb.thr2, &zr, &zi, fr, fi);
 }
 
-// grid (nchunk, ceil(2C/32)), block (32, 8)
-template <typename Tx>
-__global__ void front_means(const Tx* __restrict__ x, int c2, int n,
-                            int r_rows, float* __restrict__ means,
-                            float* __restrict__ raw) {
-  __shared__ float part[8][32];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int lane = blockIdx.y * 32 + tx;
-  const int k = blockIdx.x;
-  float acc = 0.0f;
-  if (lane < c2) {
-#pragma unroll 8
-    for (int i = ty; i < kDcChunk; i += 8) {
-      const int t = k * kDcChunk + i;
-      const float v = load_x(x, (size_t)t * c2 + lane);
-      acc += v;
-      const int b = t / n;
-      const int off = t - b * n - (n - r_rows);
-      if (off >= 0) raw[((size_t)b * r_rows + off) * c2 + lane] = v;
+// front_means' ring: one block per SM with two 32 KB stages (on the H100
+// that read the AM cells' planes faster than deeper rings, 16 KB stages or
+// more blocks per SM; PERF.md section 6).
+constexpr int kMeansThreads = 256;
+constexpr int kMeansBlocksPerSm = 1;
+constexpr int kMeansStageBytes = 32768;  // largest stage of whole rows...
+constexpr int kMeansRingBytes = 65536;   // ... and ring, unless a row forces
+constexpr int kMeansMaxStages = 8;       // more (at least 2 stages)
+constexpr int kMeansRingOff = 128;       // the barriers sit below the ring
+
+// front_means' shared-memory plan for a plane of c2 lanes of elem bytes:
+// stages of `rows` rows (a power of two dividing 512, at least 16 bytes of
+// each lane, so a stage is a multiple of 16 bytes), `stages` of them, read
+// w lanes at a time (one 16-byte load, w = 16 / elem, when c2 % w == 0;
+// else one lane), and one accumulator per lane of each (lane group, row
+// slice) pair: thread tid owns the pairs p = tid, tid + kMeansThreads, ...,
+// lane group p mod groups (groups = c2 / w), row slice p / groups, with
+// `slices` = kMeansThreads / groups row slices when there are fewer groups
+// than threads.  ok() is false when two stages do not fit.
+struct MeansGeom {
+  int rows, stages, stage_bytes, w, groups, slices, acc_off, smem;
+  __host__ __device__ MeansGeom(int c2, int elem) {
+    const int row = c2 * elem;
+    rows = kDcChunk;
+    while (rows * elem > (int)bulk::kBulkAlign
+           && rows * row > kMeansStageBytes)
+      rows /= 2;
+    stage_bytes = rows * row;
+    stages = kMeansRingBytes / stage_bytes;
+    stages = stages < 2 ? 2 : stages > kMeansMaxStages ? kMeansMaxStages
+                                                       : stages;
+    w = c2 % (16 / elem) ? 1 : 16 / elem;
+    groups = c2 / w;
+    slices = groups < kMeansThreads ? kMeansThreads / groups : 1;
+    acc_off = kMeansRingOff + stages * stage_bytes;
+    smem = acc_off + c2 * slices * 4;
+  }
+  __host__ __device__ bool ok() const {
+    return smem <= kMaxSmem && stage_bytes <= (int)bulk::kMaxTxBytes;
+  }
+};
+
+template <typename Tx> struct MeansAcc { using type = float; };
+template <> struct MeansAcc<int16_t> { using type = int; };
+
+// a[0..W) += the W lanes at p (W > 1: one 16-byte shared-memory load)
+template <int W>
+__device__ __forceinline__ void add_lanes(const float* p, float* a) {
+  if constexpr (W == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    a[0] += v.x; a[1] += v.y; a[2] += v.z; a[3] += v.w;
+  } else {
+    a[0] += *p;
+  }
+}
+template <int W>
+__device__ __forceinline__ void add_lanes(const int16_t* p, int* a) {
+  if constexpr (W == 8) {
+    const int4 v = *reinterpret_cast<const int4*>(p);
+    const int u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[2 * i] += (short)(u[i] & 0xffff);
+      a[2 * i + 1] += u[i] >> 16;
     }
+  } else {
+    a[0] += *p;
   }
-  part[ty][tx] = acc;
+}
+
+__device__ __forceinline__ float chunk_mean(float sum) {
+  return sum * (1.0f / kDcChunk);
+}
+// int16: the int32 sum is exact and so is its scaling by 2^-15 / 512
+__device__ __forceinline__ float chunk_mean(int sum) {
+  return (float)sum * (kI16Scale / kDcChunk);
+}
+
+// grid min(nchunk, resident blocks), block kMeansThreads, g.smem bytes of
+// dynamic shared memory, W = g.w.  Block b walks chunks b, b + gridDim.x,
+// ...; its i-th stage is rows [512 k + R s, 512 k + R (s + 1)) of its
+// (i / spc)-th chunk k, s = i % spc, spc = 512 / R stages per chunk.
+// Thread 0 keeps g.stages stages in flight; each stage is summed per pair
+// (W lanes, row slice) in registers and added to the pair's accumulators,
+// its rows that lie in their block's last r_rows rows are written to raw,
+// and after a chunk's last stage the slices of each lane are added and
+// its mean written.
+template <typename Tx, int W>
+__global__ void __launch_bounds__(kMeansThreads)
+front_means(const Tx* __restrict__ x, int nchunk, int c2, int n, int r_rows,
+            MeansGeom g, float* __restrict__ means, float* __restrict__ raw) {
+  using Acc = typename MeansAcc<Tx>::type;
+  extern __shared__ __align__(128) unsigned char means_smem[];
+  const bulk::Ring ring{reinterpret_cast<uint64_t*>(means_smem),
+                        means_smem + kMeansRingOff, (uint32_t)g.stage_bytes,
+                        g.stages};
+  Acc* acc = reinterpret_cast<Acc*>(means_smem + g.acc_off);
+  const int tid = threadIdx.x;
+  const int spc = kDcChunk / g.rows;
+  const int items =
+      ((nchunk - 1 - (int)blockIdx.x) / (int)gridDim.x + 1) * spc;
+  const size_t stage_elems = (size_t)g.rows * c2;
+  auto src = [&](int i) {               // the block's i-th stage in the plane
+    const size_t k = blockIdx.x + (size_t)(i / spc) * gridDim.x;
+    return x + (k * spc + i % spc) * stage_elems;
+  };
+  if (tid == 0) {
+    ring.init();
+    for (int i = 0; i < g.stages && i < items; ++i)
+      ring.issue(i, src(i), g.stage_bytes);
+  }
   __syncthreads();
-  if (ty == 0 && lane < c2) {
-    float s = 0.0f;
-    for (int j = 0; j < 8; ++j) s += part[j][tx];
-    means[(size_t)k * c2 + lane] = s * (1.0f / kDcChunk);
+  const int pairs = g.groups * g.slices;
+  for (int i = 0; i < items; ++i) {
+    const int k = blockIdx.x + (i / spc) * gridDim.x, s = i % spc;
+    const int t0 = k * kDcChunk + s * g.rows;     // the stage's first row
+    ring.wait(i);
+    const Tx* st = reinterpret_cast<const Tx*>(ring.stage(i));
+    for (int p = tid; p < pairs; p += kMeansThreads) {
+      const Tx* col = st + (p % g.groups) * W;
+      Acc a[W] = {};
+#pragma unroll 4
+      for (int r = p / g.groups; r < g.rows; r += g.slices)
+        add_lanes<W>(col + r * c2, a);
+#pragma unroll
+      for (int j = 0; j < W; ++j)
+        acc[p * W + j] = s ? acc[p * W + j] + a[j] : a[j];
+    }
+    if (raw != nullptr) {         // the stage's rows in its block's raw tail
+      const int b = t0 / n, r0 = b * n + n - r_rows;
+      const int lo = max(t0, r0), hi = min(t0 + g.rows, b * n + n);
+      if (lo < hi) {
+        float* dst = raw + ((size_t)b * r_rows + (lo - r0)) * c2;
+        const Tx* from = st + (size_t)(lo - t0) * c2;
+        for (int e = tid; e < (hi - lo) * c2; e += kMeansThreads)
+          dst[e] = load_x(from, e);
+      }
+    }
+    if (s == spc - 1) {           // the chunk is summed: add its row slices
+      __syncthreads();
+      for (int l = tid; l < c2; l += kMeansThreads) {
+        Acc v = 0;                // lane l of slice j is acc[j c2 + l]
+        for (int j = 0; j < g.slices; ++j) v += acc[j * c2 + l];
+        means[(size_t)k * c2 + l] = chunk_mean(v);
+      }
+    }
+    __syncthreads();              // stage i and the accumulators are free
+    if (tid == 0 && i + g.stages < items)
+      ring.issue(i + g.stages, src(i + g.stages), g.stage_bytes);
   }
+}
+
+// Blocks of `kernel` (threads each, smem bytes of dynamic shared memory)
+// that the device holds at once, at most max_per_sm on each SM; found once
+// per kernel, device and smem.
+template <typename K>
+cudaError_t resident_blocks(K* kernel, int device, int threads, int smem,
+                            int max_per_sm, int* blocks) {
+  struct Entry { const void* k; int device, smem, blocks; };
+  static std::mutex mu;
+  static Entry cache[64];
+  static int used = 0;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i)
+    if (cache[i].k == key && cache[i].device == device
+        && cache[i].smem == smem) {
+      *blocks = cache[i].blocks;
+      return cudaSuccess;
+    }
+  int sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  kMaxSmem)) != cudaSuccess
+      || (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                       device)) != cudaSuccess
+      || (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &per_sm, kernel, threads, smem)) != cudaSuccess)
+    return err;
+  *blocks = max(sms * min(per_sm, max_per_sm), 1);
+  if (used < 64) cache[used++] = Entry{key, device, smem, *blocks};
+  return cudaSuccess;
+}
+
+// front_means over a [T, c2] plane (T a multiple of 512, 16-byte aligned):
+// means [T/512, c2]; with raw, the last r_rows rows of each n-row block
+// (n a multiple of 512, r_rows <= n) into raw [T/n, r_rows, c2].
+template <typename Tx>
+cudaError_t launch_means(const Tx* x, int T, int c2, int n, int r_rows,
+                         float* means, float* raw, int device,
+                         cudaStream_t st) {
+  const MeansGeom g(c2, (int)sizeof(Tx));
+  if (!g.ok() || T <= 0 || T % kDcChunk || n <= 0 || n % kDcChunk || T % n
+      || r_rows < 0 || r_rows > n
+      || reinterpret_cast<uintptr_t>(x) % bulk::kBulkAlign)
+    return cudaErrorInvalidValue;
+  auto kernel = g.w > 1 ? front_means<Tx, 16 / sizeof(Tx)>
+                        : front_means<Tx, 1>;
+  int slots = 0;
+  cudaError_t err = resident_blocks(kernel, device, kMeansThreads, g.smem,
+                                    kMeansBlocksPerSm, &slots);
+  if (err != cudaSuccess) return err;
+  const int nchunk = T / kDcChunk;
+  kernel<<<(unsigned)min(nchunk, slots), kMeansThreads, g.smem, st>>>(
+      x, nchunk, c2, n, r_rows, g, means, r_rows ? raw : nullptr);
+  return cudaGetLastError();
 }
 
 // grid ceil(2C/32), block (32, 32).  In place: means in, DC estimates out.
@@ -886,6 +1077,7 @@ struct Fwd {
   Nb nb;
   float nb_a, nb_b;
   float *nb_avg_out, *nb_tail_out;
+  int device;
   cudaStream_t st;
 };
 
@@ -911,9 +1103,9 @@ int forward(const Tx* x, const Fwd& f) {
   const int nchunk = f.T / kDcChunk;
   const unsigned lane_groups = (unsigned)((c2 + 31) / 32);
 
-  front_means<Tx><<<dim3((unsigned)nchunk, lane_groups), dim3(32, 8), 0,
-                    f.st>>>(x, c2, f.n, f.r_rows, f.mseq, f.raw);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = launch_means(x, f.T, c2, f.n, f.r_rows, f.mseq, f.raw, f.device,
+                          f.st)) != cudaSuccess)
+    return err;
   front_dc_scan<<<dim3(lane_groups), dim3(32, 32), 0, f.st>>>(
       f.mseq, nchunk, c2, f.dc_in, f.dc_out, f.a, f.b);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -980,9 +1172,11 @@ int forward(const Tx* x, const Fwd& f) {
 // two planes) and main2's fk (:307, one packed plane): per sub-block of
 // each plane, y = its first sub/F rows.  It is a floor only if every input
 // byte reaches the SM, as the TPU's BlockSpec DMA loads the whole (sub, c)
-// block: one block per SM slot walks the plane in 16 KB tiles, each landing
-// in shared memory by 16-byte cp.async copies three tiles ahead, and writes
-// the staged rows that lie in the first sub/F rows of their sub-block.
+// block: blocks walk the plane's 16 KB tiles, each landing in a ring stage
+// in shared memory by one 1D bulk copy (bulk_ring.cuh), kFloorStages - 1
+// tiles ahead; the kept rows that a tile holds are contiguous in the plane
+// and in y (one range per sub-block the tile meets), so each leaves the
+// stage as one bulk store.  One thread per block issues every copy.
 // Bound: bytes (the plane read once, 1/F of it written).
 //
 // probe_toeplitz replaces the front variants make_v12 (v1, v2; :144),
@@ -1012,55 +1206,65 @@ int forward(const Tx* x, const Fwd& f) {
 // d_rows mixed rows) in the variant's layout.
 
 constexpr int kFloorTile = 4096;     // floats per probe_floor_copy stage
-constexpr int kFloorStages = 4;      // stages in flight per block
-constexpr int kFloorThreads = 256;
+constexpr int kFloorStages = 4;      // ring stages per block
+constexpr int kFloorThreads = 32;    // one warp; its first thread works
+constexpr int kFloorRingOff = 128;   // the barriers sit below the ring
+constexpr int kFloorSmem = kFloorRingOff + kFloorStages * kFloorTile * 4;
 
-// grid (blocks, planes), block kFloorThreads, kFloorStages kFloorTile floats
-// of dynamic shared memory.  Plane blockIdx.y: x0 -> y0, x1 -> y1, each
-// [T, lanes] -> [T/sub * m, lanes].  Block b walks the plane's tiles b, b +
-// gridDim.x, ...: each tile lands in shared memory by 16-byte cp.async
-// copies kFloorStages - 1 tiles ahead, then its rows that are among the
-// first m of their sub-block are written.
+// grid (blocks, planes), block kFloorThreads, kFloorSmem bytes of dynamic
+// shared memory.  Plane blockIdx.y: x0 -> y0, x1 -> y1, each [T, lanes] ->
+// [T/sub * m, lanes], lanes % 4 == 0 and the planes 16-byte aligned, so
+// every row boundary is 16-byte aligned.  Block b walks the plane's tiles
+// b, b + gridDim.x, ...: thread 0 lands each in a ring stage by one bulk
+// load, sends the kept range of every sub-block the tile meets (elements
+// [s sub lanes, (s sub + m) lanes) of the plane, [s m lanes, ...) of y)
+// out of the stage by one bulk store, and refills the stage of the tile
+// before once that tile's stores have read it.
 __global__ void __launch_bounds__(kFloorThreads)
 probe_floor_copy(const float* __restrict__ x0, const float* __restrict__ x1,
-                 int total, int lanes, int sub, int m, float* __restrict__ y0,
-                 float* __restrict__ y1) {
-  extern __shared__ __align__(16) float stage[];
+                 long long total, int lanes, int sub, int m,
+                 float* __restrict__ y0, float* __restrict__ y1) {
+  extern __shared__ __align__(128) unsigned char floor_smem[];
+  if (threadIdx.x != 0) return;
   const float* x = blockIdx.y ? x1 : x0;
   float* y = blockIdx.y ? y1 : y0;
-  const int ntiles = (total + kFloorTile - 1) / kFloorTile;
-  auto issue = [&](int n) {                       // the block's n-th tile
-    const int tile = blockIdx.x + n * gridDim.x;
-    if (tile < ntiles) {
-      const int e0 = tile * kFloorTile, cnt = min(kFloorTile, total - e0);
-      float* buf = stage + (n % kFloorStages) * kFloorTile;
-      for (int v = 4 * threadIdx.x; v < cnt; v += 4 * kFloorThreads)
-        __pipeline_memcpy_async(buf + v, x + e0 + v, 16);
-    }
-    __pipeline_commit();
+  const bulk::Ring ring{reinterpret_cast<uint64_t*>(floor_smem),
+                        floor_smem + kFloorRingOff, kFloorTile * 4,
+                        kFloorStages};
+  const long long ntiles = (total + kFloorTile - 1) / kFloorTile;
+  const int items = blockIdx.x < ntiles
+      ? (int)((ntiles - 1 - blockIdx.x) / gridDim.x + 1) : 0;
+  auto first = [&](int i) {                       // item i's first element
+    return (blockIdx.x + (long long)i * gridDim.x) * kFloorTile;
   };
-  for (int n = 0; n < kFloorStages - 1; ++n) issue(n);
-  for (int n = 0; blockIdx.x + n * gridDim.x < ntiles; ++n) {
-    issue(n + kFloorStages - 1);
-    __pipeline_wait_prior(kFloorStages - 1);      // tile n has landed
-    __syncthreads();
-    const float* buf = stage + (n % kFloorStages) * kFloorTile;
-    const int e0 = (blockIdx.x + n * gridDim.x) * kFloorTile;
-    const int cnt = min(kFloorTile, total - e0);  // a multiple of 4
-    const int t_end = (e0 + cnt - 1) / lanes + 1;
-    for (int t = e0 / lanes; t < t_end;) {
-      if (t % sub >= m) {                        // skip to the next sub-block
-        t = (t / sub + 1) * sub;
-        continue;
-      }
-      const int g0 = max(t * lanes, e0), g1 = min((t + 1) * lanes, e0 + cnt);
-      float* yr = y + ((size_t)(t / sub) * m + t % sub) * lanes;
-      for (int g = g0 + threadIdx.x; g < g1; g += kFloorThreads)
-        yr[g - t * lanes] = buf[g - e0];
-      ++t;
+  auto issue = [&](int i) {
+    const long long e0 = first(i);
+    ring.issue(i, x + e0, (uint32_t)(min((long long)kFloorTile, total - e0)
+                                     * 4));
+  };
+  ring.init();
+  for (int i = 0; i < kFloorStages && i < items; ++i) issue(i);
+  const long long sub_e = (long long)sub * lanes;
+  const long long keep_e = (long long)m * lanes;
+  for (int i = 0; i < items; ++i) {
+    const long long e0 = first(i), e1 = min(e0 + kFloorTile, total);
+    ring.wait(i);
+    const float* st = reinterpret_cast<const float*>(ring.stage(i));
+    bulk::fence_async_smem();
+    for (long long s = e0 / sub_e; s * sub_e < e1; ++s) {
+      const long long lo = max(e0, s * sub_e);
+      const long long hi = min(e1, s * sub_e + keep_e);
+      if (lo < hi)
+        bulk::store(y + s * keep_e + (lo - s * sub_e), st + (lo - e0),
+                    (uint32_t)((hi - lo) * 4));
     }
-    __syncthreads();                              // the buffer is free again
+    bulk::store_commit();
+    if (i >= 1 && i - 1 + kFloorStages < items) {
+      bulk::store_wait_read<1>();                 // tile i-1's stores are done
+      issue(i - 1 + kFloorStages);
+    }
   }
+  bulk::store_wait_read<0>();
 }
 
 constexpr int kTm = 64;            // outputs per probe_toeplitz block
@@ -1346,9 +1550,38 @@ const char* front_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// Shared memory front_means needs for planes of c2 lanes (int16 when
+// x_int16 != 0); 0 when two of its stages do not fit a block.
+size_t front_means_smem_bytes(int c2, int x_int16) {
+  if (c2 <= 0) return 0;
+  const MeansGeom g(c2, x_int16 ? 2 : 4);
+  return g.ok() ? (size_t)g.smem : 0;
+}
+
+// front_means alone: the chunk means [T/512, c2] of a [T, c2] float32 (or,
+// when x_int16 != 0, int16) plane, 16-byte aligned, T a multiple of 512;
+// with r_rows > 0, the last r_rows rows of each n-row block (n a multiple
+// of 512 dividing T, r_rows <= n) into raw [T/n, r_rows, c2].  Returns the
+// first CUDA error.
+int front_means_forward(int device, const void* x, int x_int16, int T,
+                        int c2, int n, int r_rows, float* means, float* raw,
+                        void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (c2 <= 0 || (long long)T * c2 >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return x_int16
+      ? launch_means(static_cast<const int16_t*>(x), T, c2, n, r_rows, means,
+                     raw, device, st)
+      : launch_means(static_cast<const float*>(x), T, c2, n, r_rows, means,
+                     raw, device, st);
+}
+
 // One fused front-end dispatch of T rows (T * 2C < 2^31; T a multiple of
 // 512, of F and of n; T / F / kM < 65536; r_rows <= n) of a float32 plane,
-// or of an int16 plane when x_int16 != 0.  Scratch mseq: [T/512, 2C].
+// or of an int16 plane when x_int16 != 0, 16-byte aligned.  Scratch mseq:
+// [T/512, 2C].
 // IQ balance when iq_gain/iq_phase (device scalars) are not null.  The noise
 // blanker when nb_mode is 1 (NB1) or 2 (NB2): threshold^2 nb_thr2, blank
 // width nb_bw <= 16, chunk EWMA (nb_a, nb_b) = (a, 1 - a), carried
@@ -1397,44 +1630,40 @@ int front_forward(int device, const void* x, int x_int16, int T, int C,
   f.nb = Nb{nb_mode, nb_bw, nb_thr2, nbseq, nb_avg_in, nb_tail_in, nb_mask};
   f.nb_a = nb_a; f.nb_b = nb_b;
   f.nb_avg_out = nb_avg_out; f.nb_tail_out = nb_tail_out;
+  f.device = device;
   f.st = (cudaStream_t)stream;
   return x_int16 ? forward(static_cast<const int16_t*>(x), f)
                  : forward(static_cast<const float*>(x), f);
 }
 
 // The copy floor: per sub-block of each [T, lanes] float32 plane (x1 null
-// for one plane), y = its first m rows; one block per SM slot.  Planes 16-byte aligned; T lanes <
-// 2^31; T a multiple of sub and of 4.
+// for one plane), y = its first m rows; the device's resident blocks split
+// between the planes.  Planes and outputs 16-byte aligned; lanes % 4 == 0;
+// T lanes < 2^31; T a multiple of sub.
 int probe_floor_forward(int device, const float* x0, const float* x1, int T,
                         int lanes, int sub, int m, float* y0, float* y1,
                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const long long total = (long long)T * lanes;
-  if (total % 4 || total >= (1LL << 31) || sub <= 0 || T % sub || m < 1
-      || m > sub)
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % bulk::kBulkAlign == 0;
+  };
+  if (lanes <= 0 || lanes % 4 || total >= (1LL << 31) || sub <= 0 || T % sub
+      || m < 1 || m > sub || !aligned(x0) || !aligned(x1) || !aligned(y0)
+      || !aligned(y1))
     return cudaErrorInvalidValue;
-  const int smem = kFloorStages * kFloorTile * (int)sizeof(float);
-  static int slots[64];              // resident blocks per device, found once
-  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
-  if (!slots[device]) {
-    int sms = 0, per_sm = 0;
-    if ((err = cudaFuncSetAttribute(
-             probe_floor_copy, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             smem)) != cudaSuccess
-        || (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                         device)) != cudaSuccess
-        || (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &per_sm, probe_floor_copy, kFloorThreads, smem)) != cudaSuccess)
-      return err;
-    slots[device] = max(sms * per_sm, 1);
-  }
+  int slots = 0;
+  if ((err = resident_blocks(probe_floor_copy, device, kFloorThreads,
+                             kFloorSmem, kMaxBlocksPerSm, &slots))
+      != cudaSuccess)
+    return err;
   const long long tiles = (total + kFloorTile - 1) / kFloorTile;
   const int planes = x1 != nullptr ? 2 : 1;
-  const long long fill = max(slots[device] / planes, 1);
+  const long long fill = max(slots / planes, 1);
   const dim3 grid((unsigned)max(1LL, min(tiles, fill)), (unsigned)planes);
-  probe_floor_copy<<<grid, kFloorThreads, smem, (cudaStream_t)stream>>>(
-      x0, x1, (int)total, lanes, sub, m, y0, y1);
+  probe_floor_copy<<<grid, kFloorThreads, kFloorSmem, (cudaStream_t)stream>>>(
+      x0, x1, total, lanes, sub, m, y0, y1);
   return cudaGetLastError();
 }
 
@@ -1442,8 +1671,9 @@ int probe_floor_forward(int device, const float* x0, const float* x1, int T,
 // rows: DC seeds (front_means + front_dc_scan per plane, into the scratch
 // mseq [planes, T/512, lanes] and dc_out), the Toeplitz product into y0
 // (and y1) and tail'.  Layouts as in struct Probe; dc_in/dc_out [2, C] for
-// v1/v2, else [1, 2C].  Needs T % sub == 0, sub % 512 == 0, sub % F == 0,
-// (sub/F) % 64 == 0, (sub/F) % (4 kt) == 0, T 2C < 2^31.  Returns the first CUDA error.
+// v1/v2, else [1, 2C]; planes 16-byte aligned.  Needs T % sub == 0, sub %
+// 512 == 0, sub % F == 0, (sub/F) % 64 == 0, (sub/F) % (4 kt) == 0, T 2C <
+// 2^31.  Returns the first CUDA error.
 int probe_front_forward(int device, int form, const float* x0,
                         const float* x1, int T, int C, int sub, int F,
                         int d_rows, int kt, const float* dc_in,
@@ -1466,9 +1696,9 @@ int probe_front_forward(int device, int form, const float* x0,
   const unsigned lane_groups = (unsigned)((lanes + 31) / 32);
   for (int pl = 0; pl < (two ? 2 : 1); ++pl) {
     float* ms = mseq + (size_t)pl * nchunk * lanes;
-    front_means<float><<<dim3((unsigned)nchunk, lane_groups), dim3(32, 8), 0,
-                         st>>>(pl ? x1 : x0, lanes, T, 0, ms, nullptr);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((err = launch_means(pl ? x1 : x0, T, lanes, T, 0, ms, nullptr,
+                            device, st)) != cudaSuccess)
+      return err;
     front_dc_scan<<<dim3(lane_groups), dim3(32, 32), 0, st>>>(
         ms, nchunk, lanes, dc_in + pl * C, dc_out + pl * C, a, b);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;

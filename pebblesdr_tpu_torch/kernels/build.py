@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with nvcc
 for Hopper (``sm_90a``) into a shared library under ``build/kernels/`` at
 the repository root, then loaded with ctypes.  The library name carries a
-hash of the source and the flags, so an edited source is rebuilt at its
-first use; nothing is built at import time.
+hash of the source, of every header in ``csrc/`` (``*.cuh``) and of the
+flags, so an edited source or header is rebuilt at its first use; nothing
+is built at import time.
 """
 
 from __future__ import annotations
@@ -43,10 +44,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -40,7 +40,10 @@ Per dispatch, in this order:
     weight), so disc is [T/(2F), C]; comp_hist' = the last hr rows of d.
 
 ``fused_front`` launches the CUDA kernel (csrc/front.cu) for a CUDA plane and
-runs ``fused_front_reference`` (plain PyTorch) for a CPU plane.
+runs ``fused_front_reference`` (plain PyTorch) for a CPU plane.  Its first
+pass, the chunk means and the raw tails (``front_means``), is also exposed
+alone as ``chunk_means`` / ``chunk_means_reference``.  A CUDA plane must be
+16-byte aligned (``PLANE_ALIGN``): the kernels stream it with bulk copies.
 
 The TPU kernel also reads time-folded planes (lane group g = time segment g,
 a layout that fills the TPU's 128-lane tiles at small C).  Hopper has no
@@ -76,8 +79,10 @@ I16_SCALE = 2.0 ** -15      # int16 full scale 32768 -> 1.0
 NB_MODES = ("blank", "average")  # NB1, NB2
 COMP_DECIM = 2     # the hq composite decimation (comp_taps)
 _MAX_COMP_TAPS = 32  # most comp_taps front_comp takes (kMaxCompTaps)
+PLANE_ALIGN = 16   # bytes: a CUDA plane's alignment (bulk copies)
 SOURCE = "pebblesdr_tpu_torch/csrc/front.cu"
 REPLACES = "pebblesdr_tpu/ops/pallas_kernels.py:119"
+MEANS_REPLACES = "pebblesdr_tpu/ops/pallas_kernels.py:193"
 
 
 def comp_hist_rows(tc: int) -> int:
@@ -235,13 +240,110 @@ def dequantize(x: torch.Tensor) -> torch.Tensor:
     return x.float() * I16_SCALE if x.dtype == torch.int16 else x
 
 
+def chunk_means_reference(x: torch.Tensor, n_block: int = 0,
+                          raw_rows: int = 0):
+    """Plain version of front_means: (means [T/512, L], the mean of each
+    512-row chunk of every lane; raw [T/n_block, raw_rows, L], the last
+    raw_rows rows of each n_block-row block) of a [T, L] float32 or int16
+    plane (int16 dequantized, x 2^-15).  n_block 0 = the whole plane."""
+    t, n_block = _means_geometry(x, n_block, raw_rows)
+    x = dequantize(x)
+    lanes = x.shape[1]
+    means = x.reshape(t // DC_CHUNK, DC_CHUNK, lanes).mean(dim=1)
+    raw = x.reshape(t // n_block, n_block, lanes)[:, n_block - raw_rows:]
+    return means, raw.contiguous()
+
+
+def _means_geometry(x: torch.Tensor, n_block: int,
+                    raw_rows: int) -> tuple[int, int]:
+    """(T, n_block) of a chunk-means call: whole 512-row chunks and whole
+    n_block-row blocks, 0 <= raw_rows <= n_block (n_block 0 = T)."""
+    if x.dim() != 2:
+        raise ValueError(f"chunk means take a [T, L] plane, got "
+                         f"{tuple(x.shape)}")
+    t = x.shape[0]
+    n_block = n_block or t
+    if t % DC_CHUNK or n_block % DC_CHUNK or t % n_block:
+        raise ValueError(f"chunk means need T and n_block multiples of "
+                         f"{DC_CHUNK}, n_block dividing T (T={t}, "
+                         f"n_block={n_block})")
+    if not 0 <= raw_rows <= n_block:
+        raise ValueError(f"raw_rows={raw_rows} must lie in [0, {n_block}]")
+    return t, n_block
+
+
+def chunk_means(x: torch.Tensor, n_block: int = 0, raw_rows: int = 0):
+    """front_means (csrc/front.cu) for a CUDA plane, the plain version for
+    a CPU plane.  Same arguments and results as chunk_means_reference; a
+    CUDA plane must be contiguous and 16-byte aligned."""
+    if x.device.type == "cpu":
+        return chunk_means_reference(x, n_block, raw_rows)
+    if x.device.type != "cuda":
+        raise ValueError(f"chunk_means runs on cuda or cpu, not {x.device}")
+    return _launch_means(x, n_block, raw_rows)
+
+
+def _launch_means(x: torch.Tensor, n_block: int, raw_rows: int):
+    """Check the plane, allocate the outputs and launch front_means on x's
+    device and current stream."""
+    t, n_block = _means_geometry(x, n_block, raw_rows)
+    lanes = x.shape[1]
+    dev = x.device
+    _check_cuda("x", x, dev, (t, lanes), (torch.float32, torch.int16))
+    _check_plane(x)
+    means = torch.empty(t // DC_CHUNK, lanes, dtype=torch.float32, device=dev)
+    raw = torch.empty(t // n_block, raw_rows, lanes, dtype=torch.float32,
+                      device=dev)
+    lib = _lib()
+    err = lib.front_means_forward(
+        _device_index(dev), x.data_ptr(), int(x.dtype == torch.int16), t,
+        lanes, n_block, raw_rows, means.data_ptr(),
+        raw.data_ptr() if raw_rows else None,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"front_means launch failed: CUDA error {err} "
+                           f"({lib.front_error_string(err).decode()})")
+    chunk_means.launches += 1
+    return means, raw
+
+
+def _check_plane(x: torch.Tensor) -> None:
+    """What front_means takes of a [T, L] CUDA plane besides its shape and
+    type: 16-byte alignment, fewer than 2^31 elements, and two of its
+    stages in one block's shared memory."""
+    if x.data_ptr() % PLANE_ALIGN:
+        raise ValueError(f"a CUDA plane must be {PLANE_ALIGN}-byte aligned "
+                         f"(bulk copies); copy the view first")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"a {tuple(x.shape)} plane is too large for one "
+                         f"kernel launch")
+    lanes = x.shape[1]
+    if not _means_smem_bytes(lanes, x.dtype == torch.int16):
+        raise ValueError(f"front_means takes no plane of {lanes} {x.dtype} "
+                         f"lanes (two of its stages exceed shared memory)")
+
+
+@functools.lru_cache(maxsize=64)
+def _means_smem_bytes(lanes: int, int16: bool) -> int:
+    """front_means' shared memory for planes of `lanes` lanes, asked once
+    per width (0: the kernel takes no such plane)."""
+    return _lib().front_means_smem_bytes(lanes, int(int16))
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
 def dc_iq_reference(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
-                    iq_gain=None, iq_phase=None):
+                    iq_gain=None, iq_phase=None,
+                    means: torch.Tensor | None = None):
     """The front's input stage, plain PyTorch: (m [T/512, 2C] DC estimates,
-    z [T, 2C] DC-removed and IQ-balanced plane) of a float32 plane x."""
+    z [T, 2C] DC-removed and IQ-balanced plane) of a float32 plane x; means
+    are x's chunk means when the caller has them."""
     t, c2 = x.shape
     nchunk = t // DC_CHUNK
-    means = x.reshape(nchunk, DC_CHUNK, c2).mean(dim=1)
+    if means is None:
+        means = chunk_means_reference(x)[0]
     m = _ewma(means, dc, float(plan.dc_alpha) ** DC_CHUNK)
     z = (x.reshape(nchunk, DC_CHUNK, c2) - m[:, None, :]).reshape(t, c2)
     if iq_gain is not None:
@@ -322,8 +424,8 @@ def fused_front_reference(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
     x = dequantize(x)
     c2 = x.shape[1]
     c = c2 // 2
-    raw = x.reshape(t // n_block, n_block, c2)[:, n_block - r:, :].contiguous()
-    m, z = dc_iq_reference(plan, x, dc, iq_gain, iq_phase)
+    means, raw = chunk_means_reference(x, n_block, r)
+    m, z = dc_iq_reference(plan, x, dc, iq_gain, iq_phase, means)
 
     # NCO mix: phasor = coarse (per 128 rows) x fine (row within them)
     cos_a, sin_a = oscillator(phase0, f_hi, f_lo, t)            # [T, C] each
@@ -445,6 +547,10 @@ def _lib() -> ctypes.CDLL:
     lib.front_error_string.argtypes = [i]
     lib.front_fir_smem_bytes.restype = ctypes.c_size_t
     lib.front_fir_smem_bytes.argtypes = [i, i, i]
+    lib.front_means_smem_bytes.restype = ctypes.c_size_t
+    lib.front_means_smem_bytes.argtypes = [i, i]
+    lib.front_means_forward.restype = ctypes.c_int
+    lib.front_means_forward.argtypes = [i, p, i, i, i, i, i, p, p, p]
     return lib
 
 
@@ -484,6 +590,7 @@ def fused_front(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
                   disc_gain, disc_last, y_tail_rows, iq_gain, iq_phase, nb,
                   nb_avg, nb_tail, nb_mask, comp_taps, comp_hist)
     fused_front.launches += 1
+    chunk_means.launches += 1      # K1's first pass is front_means
     return ret
 
 
@@ -501,6 +608,7 @@ def _launch(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
     c = c2 // 2
     dev = x.device
     _check_cuda("x", x, dev, (t, c2), (torch.float32, torch.int16))
+    _check_plane(x)
     _check_cuda("dc", dc, dev, (1, c2))
     _check_cuda("tail", tail, dev, (plan.d_rows, c2))
     for name, v in (("phase0", phase0), ("f_hi", f_hi), ("f_lo", f_lo)):
@@ -562,12 +670,11 @@ def _launch(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
         return None if v is None else v.data_ptr()
 
     err = lib.front_forward(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        x.data_ptr(), int(x.dtype == torch.int16), t, c, n_block, r,
-        dc.data_ptr(), tail.data_ptr(), plan.d_rows, phase0.data_ptr(),
-        f_hi.data_ptr(), f_lo.data_ptr(), plan.h.data_ptr(), plan.h.numel(),
-        plan.factor, a, b, mseq.data_ptr(), y.data_ptr(), dc_out.data_ptr(),
-        tail_out.data_ptr(), raw.data_ptr(), ptr(iq_gain), ptr(iq_phase),
+        _device_index(dev), x.data_ptr(), int(x.dtype == torch.int16), t, c,
+        n_block, r, dc.data_ptr(), tail.data_ptr(), plan.d_rows,
+        phase0.data_ptr(), f_hi.data_ptr(), f_lo.data_ptr(), plan.h.data_ptr(),
+        plan.h.numel(), plan.factor, a, b, mseq.data_ptr(), y.data_ptr(),
+        dc_out.data_ptr(), tail_out.data_ptr(), raw.data_ptr(), ptr(iq_gain), ptr(iq_phase),
         nb_mode, thr2, int(bw), nb_a, nb_b, ptr(nb_avg), ptr(nb_tail),
         ptr(nbseq), ptr(nb_avg_out), ptr(nb_tail_out), ptr(nb_mask),
         float(disc_gain), ptr(disc_last), int(y_tail_rows),
@@ -593,3 +700,6 @@ def _comp_taps_dev(taps_bytes: bytes, device: torch.device) -> torch.Tensor:
 
 
 fused_front.launches = 0  # CUDA kernel launches (the plain path never counts)
+# front_means launches: chunk_means', and those inside K1 (fused_front, one
+# per call) and the probes (kprobe.probe_front, one per plane)
+chunk_means.launches = 0

@@ -29,9 +29,10 @@ Port of the kernel bodies of the JAX package's K1 probe bench
 ``probe_floor`` and ``probe_front`` launch the CUDA kernels
 (csrc/front.cu: probe_floor_copy; front_means + front_dc_scan,
 probe_toeplitz and probe_tail) for CUDA tensors and run the plain versions
-for CPU tensors.  The JAX tool's products give no precision (one bf16 pass
-on a TPU); the port's are IEEE float32, in the kernels and in the plain
-versions alike.
+for CPU tensors.  Their CUDA planes are 16-byte aligned, and the floor's
+lane count is a multiple of 4 (both kernels move bulk copies).  The JAX
+tool's products give no precision (one bf16 pass on a TPU); the port's
+are IEEE float32, in the kernels and in the plain versions alike.
 """
 
 from __future__ import annotations
@@ -170,10 +171,14 @@ def probe_floor(planes, sub: int, factor: int) -> tuple:
         raise ValueError(f"probe_floor runs on cuda or cpu, not {dev}")
     t, lanes = planes[0].shape
     check_geometry(t, sub, factor)
+    if lanes % 4:
+        raise ValueError(f"probe_floor's kernel takes lanes % 4 == 0 (every "
+                         f"row boundary 16-byte aligned), got {lanes}")
     for i, x in enumerate(planes):
         front._check_cuda(f"plane {i}", x, dev, (t, lanes))
-        if x.data_ptr() % 16:
-            raise ValueError("probe_floor's planes must be 16-byte aligned")
+        if x.data_ptr() % front.PLANE_ALIGN:
+            raise ValueError(f"probe_floor's planes must be "
+                             f"{front.PLANE_ALIGN}-byte aligned")
     if t * lanes >= 2 ** 31:
         raise ValueError(f"a {t} x {lanes} plane is too large for one launch")
     ys = tuple(torch.empty(t // factor, lanes, dtype=torch.float32, device=dev)
@@ -330,6 +335,8 @@ def probe_front(variant: str, plan: front.FrontPlan, x: torch.Tensor,
     dev = x.device
     for name, v in (("x", x), ("dc", dc), ("tail", tail), ("phase", phase)):
         front._check_cuda(name, v, dev, shapes[name])
+    two = variant in TWO_PLANE
+    front._check_plane(x[0] if two else x)   # x[1] lies T C floats further
     wt = composed_wt(plan, sub)
     front._check_cuda("wt", wt, dev, wt.shape)
     tabs = tune_tables(variant, f_hi, f_lo, dev)
@@ -338,7 +345,6 @@ def probe_front(variant: str, plan: front.FrontPlan, x: torch.Tensor,
     if t * 2 * c >= 2 ** 31:
         raise ValueError(f"a {t} x {2 * c} dispatch is too large for one "
                          f"launch")
-    two = variant in TWO_PLANE
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -360,6 +366,7 @@ def probe_front(variant: str, plan: front.FrontPlan, x: torch.Tensor,
         tail_out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise(err, "probe_toeplitz")
     probe_front.launches += 1
+    front.chunk_means.launches += 2 if two else 1   # front_means per plane
     return y, dc_out, tail_out, advance_phase(phase, t, tabs["fhi"],
                                               tabs["flo"])
 

@@ -1,8 +1,8 @@
 """The H100's peak rates and the least time a kernel's work could take on
 it, from the bytes it must move and the operations it must do.
 
-One place for the rates and for the bounds of K1 and K2, read by
-chip_smoke.py, ops/kprobe.py and tools/kbench2.py.
+One place for the rates and for the bounds of K1, its first pass front_means
+and K2, read by chip_smoke.py, ops/kprobe.py and the tools.
 """
 
 from __future__ import annotations
@@ -17,6 +17,17 @@ def bound(nbytes: float, ops: float) -> dict:
     t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
     return {"bound_ms": max(t_b, t_o),
             "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def means_bound(t: int, lanes: int, x_bytes: int, blocks: int = 1,
+                raw_rows: int = 0) -> dict:
+    """front_means' bound: the [t, lanes] plane read once (x_bytes per
+    element), the chunk means [t/512, lanes] and the raw tails [blocks,
+    raw_rows, lanes] written once, in float32; its ~1 add per element is
+    far below the float32 peak."""
+    nbytes = (t * lanes * x_bytes + (t // 512) * lanes * 4
+              + blocks * raw_rows * lanes * 4)
+    return {"bytes": nbytes, **bound(nbytes, t * lanes)}
 
 
 def k1_ops(taps: int, t: int, c: int, factor: int) -> int:

@@ -1,9 +1,11 @@
 """Card-only tests of the PyTorch port: the CUDA kernels (the front end K1
 in its AM and WFM forms, its hq form with the composite decimation K1e,
 and with its options int16 entry, IQ balance and the NB1/NB2 noise
-blanker; the stereo tail K2) against their plain PyTorch versions, and the
-AM, WFM, WFM hq and WFM+RDS receivers on the card against the CPU (with
-the front options and int16 and folded entry planes too).
+blanker; its first pass front_means alone; the stereo tail K2; the K1
+probes) against their plain PyTorch versions, the wrappers' refusals of
+what the kernels do not take (unaligned planes, the floor's lanes % 4),
+and the AM, WFM, WFM hq and WFM+RDS receivers on the card against the CPU
+(with the front options, int16, folded and unaligned entry planes too).
 
 They skip where CUDA is absent (the kernels have no CPU mode).  This file
 imports no jax, so it also runs on a machine that has only the port:
@@ -638,3 +640,113 @@ def test_probe_front_variants_match_k1(cuda):
                                      hi, lo, args[2], sub, kt)
             y = kprobe.from_layout(variant, *out)[0]
             assert rel_err(k1[0], y) < RTOL, (variant, kt, sub)
+
+
+# ---- front_means (ops/front.py chunk_means) and the 16-byte plane rule ---
+
+@pytest.mark.parametrize("dtype", ["f32", "i16"])
+@pytest.mark.parametrize("c", [1, 5, 64, 256])
+def test_chunk_means_kernel_matches_plain(cuda, c, dtype):
+    """993 chunks (not a multiple of the persistent grid) in 3 blocks of 331
+    chunks, raw tails of 1000 rows: int16 means and every raw tail equal
+    the plain version exactly, float32 means within 1e-6 max |x|."""
+    n, k = 331 * 512, 3
+    g = torch.Generator(device=cuda).manual_seed(c)
+    x = torch.randn(k * n, 2 * c, generator=g, device=cuda) * 0.5 + 0.2
+    if dtype == "i16":
+        x = (x * 8192.0).round().clamp(-32768, 32767).to(torch.int16)
+    before = front.chunk_means.launches
+    got = front.chunk_means(x, n, 1000)
+    assert front.chunk_means.launches == before + 1
+    ref = front.chunk_means_reference(x, n, 1000)
+    torch.cuda.synchronize()
+    assert got[0].shape == (k * n // 512, 2 * c)
+    assert torch.equal(got[1], ref[1])
+    if dtype == "i16":
+        assert torch.equal(got[0], ref[0])
+    else:
+        tol = 1e-6 * float(x.abs().max())
+        assert float((got[0] - ref[0]).abs().max()) <= tol
+
+
+def test_chunk_means_kernel_takes_odd_lanes_and_no_raw(cuda):
+    """The probes' per-plane call: 5 lanes, the whole plane one block."""
+    x = torch.randn(8 * 512, 5, device=cuda)
+    means, raw = front.chunk_means(x)
+    assert raw.shape == (1, 0, 5)
+    assert float((means - x.view(8, 512, 5).mean(1)).abs().max()) <= 1e-6 * \
+        float(x.abs().max())
+
+
+def _unaligned(rows, lanes, device, dtype=torch.float32):
+    """A contiguous [rows, lanes] view that starts 1 element (2 or 4 bytes)
+    past a 16-byte boundary."""
+    base = torch.randn(rows * lanes + 1, device=device).to(dtype)
+    x = base[1:].view(rows, lanes)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+def test_unaligned_plane_raises(cuda, dtype):
+    c, n = 4, 2048
+    plan = _plan(cuda)
+    hi, lo = _tunes(c, cuda)
+    x = _unaligned(n, 2 * c, cuda, dtype)
+    with pytest.raises(ValueError, match="aligned"):
+        front.fused_front(plan, x, torch.zeros(1, 2 * c, device=cuda),
+                          torch.zeros(c, device=cuda), hi, lo,
+                          torch.zeros(plan.d_rows, 2 * c, device=cuda),
+                          n_block=n)
+    with pytest.raises(ValueError, match="aligned"):
+        front.chunk_means(x, n, 8)
+    if dtype == torch.float32:               # the probes take float32 only
+        with pytest.raises(ValueError, match="aligned"):
+            kprobe.probe_front("v3", plan, x,
+                               torch.zeros(1, 2 * c, device=cuda),
+                               torch.zeros(c, device=cuda), hi.cpu().numpy(),
+                               lo.cpu().numpy(),
+                               torch.zeros(plan.d_rows, 2 * c, device=cuda),
+                               2048)
+        with pytest.raises(ValueError, match="aligned"):
+            kprobe.probe_floor((x,), 2048, 32)
+
+
+def test_probe_floor_rejects_lanes_not_multiple_of_4(cuda):
+    x = torch.zeros(4096, 6, device=cuda)
+    with pytest.raises(ValueError, match="lanes % 4"):
+        kprobe.probe_floor((x,), 2048, 32)
+    with pytest.raises(ValueError, match="lanes % 4"):
+        kprobe.probe_floor((x[:, :3].contiguous(), x[:, 3:].contiguous()),
+                           2048, 32)
+
+
+def test_receiver_takes_an_unaligned_view(cuda):
+    """A caller's view 4 bytes past a 16-byte boundary: the card Receiver
+    copies it once and matches the CPU Receiver on the same samples (the
+    bounds of test_receiver_on_card_matches_cpu, after the same CPU warm-up
+    block carried to both)."""
+    n, c, k = 8192, 4, 3
+    cfg = ReceiverConfig(sample_rate=FS, frames_per_buffer=n, channels=c,
+                         agc_stride=16)
+    cpu, gpu = Receiver(cfg, "cpu"), Receiver(cfg, cuda)
+    pc, pg = cpu.default_params(250_000.0), gpu.default_params(250_000.0)
+    rng = np.random.default_rng(40)
+    sc, _ = cpu.step_many(cpu.init_state(), pc, _am_plane(c, n, rng))
+    sg = convert.state_from_numpy(gpu, convert.state_to_numpy(sc))
+    x = _am_plane(c, k * n, rng)
+    big = torch.zeros(x.numel() + 1, device=cuda)
+    big[1:] = x.reshape(-1).to(cuda)
+    view = big[1:].view(k * n, 2 * c)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    before = front.fused_front.launches
+    sc, oc = cpu.step_many(sc, pc, x)
+    sg, og = gpu.step_many(sg, pg, view)
+    assert front.fused_front.launches == before + 1
+    assert float((og["audio"].cpu() - oc["audio"]).abs().max()) < 2e-4
+    for key in ("spectrum", "zoomed"):
+        assert float((og[key].cpu() - oc[key]).abs().max()) < 0.1
+    assert torch.equal(og["squelch_open"].cpu(), oc["squelch_open"])
+    for a, b in zip(convert.state_to_numpy(sg), convert.state_to_numpy(sc)):
+        assert np.abs(a.astype(np.complex128)
+                      - b.astype(np.complex128)).max() < 1e-4
