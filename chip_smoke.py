@@ -48,7 +48,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
  15. K1 at each timed cell's shape and form (the base form at am_64ch,
      NB1 + IQ at am_nb_64ch, float32 at am_256ch, int16 at am_i16_256ch,
      float32 at am_16ch) against its plain version on the same inputs, then
-     both timed, with each form's per-launch device times;
+     both timed, with each form's per-launch device times (front_fir's
+     over 10 calls), and at am_64ch front_fir's plain version (DC removal,
+     mix and FIR) timed;
  16. K1 in its hq form (factor-4 plan, discriminator, y-tails and the
      composite decimation by 2, K1e) against its plain version at the
      wfm_hq_64ch shape (64 channels, 32 blocks of 32768 frames), over two
@@ -823,10 +825,10 @@ def phase_cells(torch, receiver, front, wfm_tail, DemodMode) -> dict:
     return done
 
 
-def kernel_breakdown(torch, fn, reps: int = 3) -> str:
-    """Device time per launch of each CUDA kernel fn launches, with the
-    launches the profiler recorded over reps calls (torch.profiler, CUDA
-    activity only; a count below reps means records were lost)."""
+def kernel_times(torch, fn, reps: int = 3) -> dict:
+    """{kernel: (device ms per launch, launches recorded)} of each CUDA
+    kernel fn launches, over reps calls (torch.profiler, CUDA activity
+    only; a count below reps means records were lost)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -840,8 +842,25 @@ def kernel_breakdown(torch, fn, reps: int = 3) -> str:
         if us and m:
             tot, n = rows.get(m.group(0), (0.0, 0))
             rows[m.group(0)] = (tot + us / 1e3, n + ev.count)
-    return ", ".join(f"{k} {tot / n:.4f} (x{n})" for k, (tot, n) in
-                     sorted(rows.items(), key=lambda kv: -kv[1][0])) or "none"
+    return {k: (tot / n, n) for k, (tot, n) in rows.items()}
+
+
+def breakdown_text(times: dict) -> str:
+    return ", ".join(f"{k} {ms:.4f} (x{n})" for k, (ms, n) in
+                     sorted(times.items(), key=lambda kv: -kv[1][0] * kv[1][1])
+                     ) or "none"
+
+
+def kernel_breakdown(torch, fn, reps: int = 3) -> str:
+    """Device time per launch of each CUDA kernel fn launches, with the
+    launches the profiler recorded over reps calls (kernel_times)."""
+    return breakdown_text(kernel_times(torch, fn, reps))
+
+
+def fir_launch_ms(times: dict) -> float:
+    """front_fir's device ms per launch in kernel_times' result."""
+    return next(ms for k, (ms, _) in times.items()
+                if k.startswith("front_fir"))
 
 
 def check_options_form(torch, front, plan, args, kw, tag: str) -> dict:
@@ -918,16 +937,44 @@ def phase_options_time(torch, front, fr) -> dict:
             lambda: front.fused_front_reference(plan, *args, **kw))
         b = roofline.k1_bound(plan, k * n, c, 2 if i16 else 4, n, 2048,
                               nb=nb, iq=nb)
-        res[name] = {"ms": ms, "plain_ms": plain_ms, **check, **b}
+        lt = kernel_times(torch, lambda: front.fused_front(plan, *args, **kw),
+                          reps=10)
+        res[name] = {"ms": ms, "plain_ms": plain_ms, **check, **b,
+                     "fir_ms": fir_launch_ms(lt)}
         log(f"phase15 K1 {form} at {name}: {ms:.4f} ms vs plain "
             f"{plain_ms:.4f} ms per dispatch (runs kernel {t['kernel']}, "
             f"plain {t['plain']}); bound {b['bound_ms']:.4f} ms "
-            f"({b['bound_by']}); per launch (ms): "
-            + kernel_breakdown(torch, lambda: front.fused_front(plan, *args,
-                                                                **kw)))
+            f"({b['bound_by']}); per launch (ms): " + breakdown_text(lt))
+        if name == "am_64ch":
+            res[name].update(phase_fir_plain(torch, front, plan, args, n))
         del args, x
         torch.cuda.empty_cache()
     return res
+
+
+def phase_fir_plain(torch, front, plan, args, n: int) -> dict:
+    """front_fir's plain version on the inputs of a phase 15 cell (base
+    form): the DC removal from the chunk means, the mix and the composed
+    FIR (ops/front.py dc_iq_reference, mix_reference, fir_reference; the
+    chunk means are front_means' work and precomputed), timed with CUDA
+    events; and front_fir's bound on those inputs."""
+    from pebblesdr_tpu_torch.utils import roofline
+    x, dc, phase0, f_hi, f_lo, tail = args
+    c = x.shape[1] // 2
+    means = front.chunk_means_reference(x)[0]
+
+    def plain():
+        _, z = front.dc_iq_reference(plan, front.dequantize(x), dc,
+                                     means=means)
+        return front.fir_reference(
+            plan, front.mix_reference(z, phase0, f_hi, f_lo), tail)[0]
+
+    t, runs = time_turns(torch, {"plain": plain})
+    b = roofline.fir_bound(plan, x.shape[0], c, x.element_size())
+    log(f"phase15 front_fir's plain version: {t['plain']:.4f} ms (runs "
+        f"{runs['plain']}); front_fir bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']})")
+    return {"fir_plain_ms": t["plain"], "fir_bound": b}
 
 
 def phase_front_hq(torch, front, decimator, wfm_mod) -> dict:
@@ -1517,6 +1564,17 @@ def main() -> int:
         # K1's first pass alone: launches from the headline AM run (one per
         # K1 call), times and bound at am_64ch's shape (phase 23), the
         # error the largest of the four cells'
+        # K1's FIR pass alone: launches from the headline AM run (one per
+        # K1 call), its device time per launch, plain version and bound at
+        # am_64ch's shape (phase 15), the error of y there
+        {"name": "front_fir (K1's DC removal, mix and FIR: time march)",
+         "route": "cuda", "source": front.SOURCE,
+         "replaces": "pebblesdr_tpu/ops/pallas_kernels.py:315",
+         "launches": head["launches"][0],
+         "max_abs_err": otimes["am_64ch"]["max_abs_err"],
+         "ms": otimes["am_64ch"]["fir_ms"],
+         "plain_ms": otimes["am_64ch"]["fir_plain_ms"],
+         **otimes["am_64ch"]["fir_bound"], "library_ms": None},
         {"name": "front_means (chunk means + raw tails)", "route": "cuda",
          "source": front.SOURCE, "replaces": front.MEANS_REPLACES,
          "launches": head["launches"][2],

@@ -1,14 +1,15 @@
-// Hopper (sm_90) bulk copies without a tensor map, and a ring of stages in
-// shared memory fed by them.
+// Hopper (sm_90) bulk copies, and a ring of stages in shared memory fed by
+// them.
 //
 // One thread hands the copy engine a contiguous byte range
-// (cp.async.bulk); an mbarrier in shared memory counts the bytes that have
+// (cp.async.bulk), or a box of a 2D tensor map (cp.async.bulk.tensor,
+// load_2d); an mbarrier in shared memory counts the bytes that have
 // landed, and the consumers wait on its phase parity.  Bulk stores go the
 // other way, from shared memory to device memory, tracked by bulk groups.
 //
 // Rules (the helpers assume them, the callers keep them):
 //   * every bulk copy's addresses and size are multiples of 16 bytes
-//     (kBulkAlign); a stage's size stays below 2^20 bytes (kMaxTxBytes,
+//     (kBulkAlign), a tensor-map box lands 128-byte aligned; a stage's size stays below 2^20 bytes (kMaxTxBytes,
 //     the mbarrier's transaction count per phase);
 //   * fence_async_smem() before a bulk store reads shared memory (its data
 //     may have been written through the generic proxy);
@@ -18,7 +19,8 @@
 // The PTX lives in the primitives below and nowhere else.  A build that
 // defines BULK_RING_PRIMITIVES to a header of its own takes the primitives
 // from there instead (the same names and signatures): a CPU emulation
-// implements them as memcpy plus a flag.
+// implements them as memcpy plus a flag (load_2d: copy the box's rows that
+// lie inside the tensor, zero the rest).
 
 #pragma once
 
@@ -71,6 +73,20 @@ __device__ __forceinline__ void load(void* dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];"
       :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One box of a 2D tensor map (a CUtensorMap in the kernel's parameters,
+// __grid_constant__) whose corner is column x, row y -> shared memory
+// (128-byte aligned); the whole box's bytes complete on `bar`, the parts
+// outside the tensor landing as zeros.
+__device__ __forceinline__ void load_2d(void* dst, const void* map, int x,
+                                        int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x),
+         "r"(y), "r"(smem_u32(bar))
       : "memory");
 }
 

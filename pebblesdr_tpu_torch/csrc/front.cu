@@ -34,28 +34,55 @@
 //      z = IQbal(x - m_k) and writes the chunk means of |z|^2 (both lane
 //      halves), and front_dc_scan turns them into the blanker's chunk EWMA
 //      with a = (1-alpha)^512.  The blanker's average is a linear EWMA of
-//      these means, so it too has a closed form and the tiles stay
+//      these means, so it too has a closed form and the work items stay
 //      parallel; chunk k compares against the value after chunk k-1 (the
 //      carried nb_avg for chunk 0).
-//   3. front_fir: tiles of 24 decimated outputs x 8 channels, two blocks per
-//      SM, consecutive blocks on the channel groups of one time tile (so each
-//      512-byte input row is fetched once from DRAM).  Each block re-reads a
-//      halo of D input rows (mostly from L2) into shared memory with
-//      asynchronous copies, all in flight at once (int16: plain loads, 16
-//      in flight per thread, scaled by 2^-15); while they land it builds the DC estimates of the
-//      covered chunks and the oscillator's phasor tables; then it
-//      DC-removes, IQ-balances and mixes the tile in place (rows before
-//      t = 0 come from the carried post-mix tail, already blanked) and runs
-//      the FIR in polyphase form: each of 16 thread groups holds one
-//      branch's taps in registers while that branch's column of staged
-//      samples streams past once, fully unrolled (one shared load per up to
-//      24 FMAs); the groups' partial sums meet in shared memory.
-//      With the noise blanker the block also stages the blank_width - 1
-//      input rows above its tile, computes every row's spike flags (a
-//      16-bit word per row: one bit per lane, gathered by warp ballots;
-//      rows before t = 0 take the carried flags), and after the mix ORs
-//      each row's word with those of the rows before it (the causal
-//      dilation), zeroing (NB1) or RMS-scaling (NB2) the flagged lanes.
+//   3. front_fir: the DC removal, IQ balance, blanking, mix and polyphase
+//      FIR, as one time march.  Its bound is bytes (the plane read once,
+//      y written once: 0.166 ms at the AM headline) until F is small: the
+//      FIR's 2 taps operations per output lane are 0.16 ms of the float32
+//      peak at F = 8 and F = 4 as well.  A work item is one channel group
+//      (8 channels, 16 lanes) x one time segment; a persistent grid of one
+//      block per SM walks the items (march_plan sizes the segments so that
+//      every SM gets about equal rows, at least two items each), and each
+//      item marches in steps of km outputs (km F new rows; km = 24 at
+//      F = 32, 384 rows a step below):
+//      - each input row is staged and mixed once: a step's new rows are
+//        DC-removed, balanced, blanked and mixed into a ring of mixed rows
+//        that keeps the F (DP - 1) rows of history the next step's FIR
+//        needs; only an item's prologue re-reads and re-mixes the history
+//        rows before its segment (2-5 % of the plane at the cells);
+//      - staging is by the Tensor Memory Accelerator: one thread keeps
+//        several steps in flight, each two 2D tensor-map boxes (the re and
+//        im lanes of the channel group, up to 256 rows x 8 lanes) landing
+//        on a stage's mbarrier (bulk_ring.cuh load_2d), across the item
+//        boundaries of the block's stream; a box must start on a 16-byte
+//        boundary, so a plane whose im lanes do not (C elem not a multiple
+//        of 16 bytes: float32 C % 4 != 0, int16 C % 8 != 0) stages element
+//        by element instead, chosen by shape;
+//      - copies overlap the mix and the FIR: steps j + 1 .. j + stages - 1
+//        land while step j is mixed and filtered;
+//      - set-up is paid once per item (the fine phasors) or per block (the
+//        taps), and per step only the coarse phasors and DC (and blanker
+//        average) entries of the next step's rows, loaded before and formed
+//        after the FIR so that their latency hides behind it;
+//      - no thread group idles at small F: a block's 32 groups of 16
+//        lanes (16 warps share the SM's latencies) split a step's outputs
+//        into parts of 12, each made by min(F, 16) groups, one per branch
+//        (two at F = 32): 4 parts at F = 8, 8 at F = 4, 16 at F = 2, and
+//        the step grows to 12 x 32 / min(F, 16) outputs.  Splitting each
+//        branch's taps instead (wfm_tail_fir's slices) reorders each
+//        output's sum, and the FM discriminator's check reads that at
+//        outputs that NB1 left near zero; the parts keep the tiled pass's
+//        order and bits.
+//      The ring is rewound by copying its last F (DP - 1) rows to its front
+//      when the next step would overrun it (every step at the cells'
+//      plans: the ring holds the history and the fewest whole steps), so
+//      the FIR's fully unrolled loop reads compile-time offsets.  With the noise blanker each row's
+//      16-bit flag word (one bit per lane, warp ballots) is formed once and
+//      its causal dilation once per row, from a flag ring that carries the
+//      15 words before each unit (the prologue's first words come from the
+//      plane or the carried flags).
 //   4. front_tail: the post-mix history carried to the next dispatch (the
 //      same DC, IQ balance, dilation and blanking per row), and with the
 //      blanker the last 16 rows of undilated flags.
@@ -64,7 +91,7 @@
 //      next disc_last, and each block's trailing y_tail_rows rows of y.  The
 //      TPU kernel carries y[o-1] across its sequential grid steps; here the
 //      FIR writes all of y to scratch and this pass reads it back (64 MiB
-//      per WFM headline dispatch), so no tile needs its neighbour's output.
+//      per WFM headline dispatch), so no work item needs another.s output.
 //      The conj product uses round-to-nearest intrinsics so no contraction
 //      changes a zero's sign: the first row after a zero seed lands on
 //      atan2(+-0, -0) = +-pi exactly as the plain version does.
@@ -86,31 +113,35 @@
 // its rounding: the plain PyTorch version computes the same float32 phases
 // bit for bit.  So do the IQ balance and the blanker's |z|^2, threshold and
 // NB2 scale: a spike flag is a comparison, and a contraction that moved one
-// product by an ulp could flip it.  Every dot is IEEE float32.
+// product by an ulp could flip it.  Every dot is IEEE float32, and y keeps
+// the bits of the tiled pass that front_fir replaced (the same phasors,
+// mix and per-output order of taps and branch sums): the FM discriminator
+// of an output whose filter main lobe a blanked gap has emptied (|y| near
+// 1e-5) reads the ulps of y as angles.
 
+#include <cuda.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <mutex>
 
 #include "bulk_ring.cuh"
+#include "polyphase.cuh"
 
 namespace {
 
 constexpr int kDcChunk = 512;   // DC-estimate chunk (ops.iir.dc_removal_chunked)
 constexpr int kSub = 2048;      // phase decomposition: t = kSub*s + kQ*q + r
 constexpr int kQ = 128;
-constexpr int kCg = 8;          // channels per FIR block
-constexpr int kLanes = 2 * kCg; // re + im lanes per FIR block
-constexpr int kGroups = 16;     // phase groups per FIR block
-constexpr int kThreads = kLanes * kGroups;
-constexpr int kM = 24;          // decimated outputs per FIR block (two
-                                // blocks fit an SM's shared memory)
+constexpr int kCg = 8;          // channels per FIR work item
+constexpr int kLanes = 2 * kCg; // re + im lanes per FIR work item
+constexpr int kGroups = 16;     // thread groups of each FIR half
 constexpr int kMaxSmem = 232448;
 constexpr int kMaxBlocksPerSm = 32;  // Hopper's resident blocks per SM
 constexpr int kNbTailRows = 16; // carried spike-flag rows
-constexpr int kNbHalo = kNbTailRows - 1;  // most flag rows above a tile
+constexpr int kNbHalo = kNbTailRows - 1;  // flag rows of context before a unit
 constexpr float kI16Scale = 1.0f / 32768.0f;  // int16 full scale -> 1.0
 
 // The entry plane's element as float32: int16 is dequantized on load (the
@@ -122,8 +153,6 @@ __device__ __forceinline__ float load_x(const int16_t* x, size_t i) {
   return (float)x[i] * kI16Scale;
 }
 
-constexpr int kI16Batch = 16;   // int16 staging loads in flight per thread
-constexpr int kI16VecBatch = 6; // the same for 16-byte loads (8 lanes each)
 
 // Static IQ balance: re' = g re, im' = im + p re (no contraction, as the
 // plain version's separate float32 ops).
@@ -538,349 +567,611 @@ __global__ void front_nb_means(const Tx* __restrict__ x, int C,
   }
 }
 
-// Where element e of a FIR block's staged rows [t0, t0 + rows) comes from:
-// its lane's column, and the source row (input row t, or carried tail row
-// d_rows + t for -d_rows <= t < 0); false when it is zero.
-__device__ __forceinline__ bool stage_src(int e, int t0, int T, int C, int c0,
-                                          int d_rows, size_t* col, int* t) {
-  const int row = e / kLanes, l = e - row * kLanes;
-  const int c = c0 + (l < kCg ? l : l - kCg);
-  *col = (l < kCg ? 0 : (size_t)C) + c;
-  *t = t0 + row;
-  return c < C && *t >= -d_rows && *t < T;
+// ---------------------------------------------------------------------------
+// front_fir: the time-marching FIR pass (header comment, point 3).
+
+constexpr int kPartM = 12;               // decimated outputs of one FIR part
+constexpr int kMarchStageBytes = 49152;  // the raw stages' budget
+constexpr int kMarchMaxStages = 8;
+constexpr int kMarchBlocksPerSm = 1;     // resident march blocks per SM
+constexpr int kMarchPersistent = 1;      // 0: one block per work item
+constexpr int kMarchMaxBox = 256;        // rows of a tensor-map box at most
+constexpr int kHalves = 2;               // a block is two sets of kGroups
+constexpr int kThreads = kLanes * kGroups * kHalves;
+constexpr int kFirGroups = kGroups * kHalves;
+constexpr int kMixRows = kThreads / kCg; // rows one pass of the block mixes
+
+// The FIR's map of a block's 32 thread groups: `busy` = min(F, 16) groups
+// make one part of kPartM outputs, group b of a part summing branches b,
+// b + 16, ... < F into one accumulator per output (the order of the tiled
+// pass before it, so that y keeps its bits), and parts = 32 / busy parts
+// make a step of km = kPartM parts outputs: no group idles at F = 8, 4, 2.
+__host__ __device__ inline int march_busy(int F) {
+  return F < kGroups ? F : kGroups;
+}
+__host__ __device__ inline int march_parts(int F) {
+  return kFirGroups / march_busy(F);
 }
 
-// Stage rows [t0, t0 + rows) of the block's channels into dst[rows][kLanes]
-// (rows before t = 0 from the carried tail, d_rows = 0 for none; rows
-// outside both are zero).  float32: asynchronous copies, all in flight at
-// once (the caller commits and waits).
-// (One copy call per source: selecting the source pointer first made
-// front_fir 7 % slower on the H100.)
-__device__ __forceinline__ void stage_rows(float* dst, const float* x,
-                                           const float* tail_in, int d_rows,
-                                           int t0, int rows, int T, int C,
-                                           int c0, int tid, bool) {
-  const size_t c2 = 2 * (size_t)C;
-  for (int e = tid; e < rows * kLanes; e += kThreads) {
-    const int row = e / kLanes, l = e - row * kLanes;
-    const int c = c0 + (l < kCg ? l : l - kCg);
-    const size_t col = (l < kCg ? 0 : (size_t)C) + c;
-    const int t = t0 + row;
-    if (c < C && t >= 0 && t < T)
-      __pipeline_memcpy_async(dst + e, x + (size_t)t * c2 + col,
-                              sizeof(float));
-    else if (c < C && t < 0 && t >= -d_rows)
-      __pipeline_memcpy_async(dst + e,
-                              tail_in + (size_t)(d_rows + t) * c2 + col,
-                              sizeof(float));
-    else
-      dst[e] = 0.0f;
-  }
+// Taps per polyphase branch that front_fir is instantiated for (ops/front.py
+// mirrors the list in FIR_BRANCH_TAPS); 0 when none covers ntaps taps at
+// decimation F.
+__host__ __device__ inline int march_branch_taps(int ntaps, int F) {
+  if (F < 1) return 0;
+  const int need = (ntaps + F - 1) / F;
+  const int insts[] = {8, 16, 24, 32, 40};
+  for (int inst : insts)
+    if (need <= inst) return inst;
+  return 0;
 }
 
-// int16: cp.async moves 4 bytes or more, so plain loads in flight before
-// their dequantized stores.  When C % 8 == 0 and the plane is 16-byte
-// aligned (vec), a row's 8 re (or 8 im) values of the block's channels are
-// one 16-byte load, kI16VecBatch of them in flight per thread; otherwise
-// element by element, kI16Batch in flight.
-__device__ __forceinline__ void stage_rows(float* dst, const int16_t* x,
-                                           const float* tail_in, int d_rows,
-                                           int t0, int rows, int T, int C,
-                                           int c0, int tid, bool vec) {
-  const size_t c2 = 2 * (size_t)C;
-  if (vec) {
-    const int n = rows * 2;                        // (row, lane half) pairs
-    for (int e0 = tid; e0 < n; e0 += kThreads * kI16VecBatch) {
-      int4 v[kI16VecBatch];
-#pragma unroll
-      for (int j = 0; j < kI16VecBatch; ++j) {
-        const int e = e0 + j * kThreads, t = t0 + (e >> 1);
-        if (e < n && t >= 0 && t < T)
-          v[j] = *reinterpret_cast<const int4*>(
-              x + (size_t)t * c2 + (e & 1) * (size_t)C + c0);
-      }
-#pragma unroll
-      for (int j = 0; j < kI16VecBatch; ++j) {
-        const int e = e0 + j * kThreads, t = t0 + (e >> 1);
-        if (e >= n) continue;
-        float* d = dst + (e >> 1) * kLanes + (e & 1) * kCg;
-        if (t >= 0 && t < T) {
-          const int w[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            d[2 * i] = (float)(short)(w[i] & 0xffff) * kI16Scale;
-            d[2 * i + 1] = (float)(w[i] >> 16) * kI16Scale;
-          }
-        } else {
-          const float* tl = tail_in + (size_t)(d_rows + t) * c2
-                            + (e & 1) * (size_t)C + c0;
-#pragma unroll
-          for (int i = 0; i < kCg; ++i)
-            d[i] = (t < 0 && t >= -d_rows) ? tl[i] : 0.0f;
-        }
-      }
-    }
-    return;
-  }
-  const int n = rows * kLanes;
-  for (int e0 = tid; e0 < n; e0 += kThreads * kI16Batch) {
-    float v[kI16Batch];
-#pragma unroll
-    for (int j = 0; j < kI16Batch; ++j) {
-      const int e = e0 + j * kThreads;
-      size_t col;
-      int t;
-      v[j] = 0.0f;
-      if (e < n && stage_src(e, t0, T, C, c0, d_rows, &col, &t))
-        v[j] = t >= 0 ? load_x(x, (size_t)t * c2 + col)
-                      : tail_in[(size_t)(d_rows + t) * c2 + col];
-    }
-#pragma unroll
-    for (int j = 0; j < kI16Batch; ++j)
-      if (e0 + j * kThreads < n) dst[e0 + j * kThreads] = v[j];
-  }
-}
+__host__ __device__ inline int align128(int v) { return (v + 127) & ~127; }
 
-// Shared-memory layout of the FIR block (floats), all offsets 32-aligned.
-// The u area first stages the span input rows, then holds the groups'
-// partial sums [kGroups][kM][kLanes], so it is sized for the larger.  With
-// the noise blanker: the entering averages of the covered chunks, up to
-// kNbHalo input rows above the tile, and a 16-bit flag word per row.
-// ops/front.py mirrors this layout (fir_smem_layout).
-struct FirSmem {
-  int h, fine_c, fine_s, coarse_c, coarse_s, dc, avg, halo, flags, u, total;
-  __host__ __device__ FirSmem(int F, int dp, bool nb) {
-    const int span = F * (kM + dp - 1);
-    const int rows = span + (nb ? kNbHalo : 0);
-    h = 0;
-    fine_c = align32(h + F * dp);
-    fine_s = fine_c + kQ * kCg;
-    coarse_c = fine_s + kQ * kCg;
-    coarse_s = coarse_c + align32(max_q(span) * kCg);
-    dc = coarse_s + align32(max_q(span) * kCg);
-    avg = dc + align32(max_chunks(rows) * kLanes);
-    halo = avg + (nb ? align32(max_chunks(rows) * kLanes) : 0);
-    flags = halo + (nb ? align32(kNbHalo * kLanes) : 0);
-    u = flags + (nb ? align32((rows + 1) / 2) : 0);
-    total = u + (span > kGroups * kM ? span : kGroups * kM) * kLanes;
+// front_fir's geometry and shared-memory layout (bytes; ops/front.py
+// mirrors it in fir_march_layout).  A step makes km = kPartM parts outputs
+// from step_rows = km F new input rows.  Its raw rows land in one of
+// `stages` stages, [2][step_rows][8] elements (the re lanes of the block's
+// channel group, then its im lanes), as boxes of box_rows rows.  The mix
+// pass writes them, mixed, into the ring: two planes (re, im) of
+// [ring_rows][8] float32, hist = F (DP - 1) rows of history then the
+// fewest steps that keep the history's copy-down off its own source;
+// the im plane sits 16 floats off the re plane's banks so that the two
+// branch columns a warp reads never share a bank.  Then the oscillator's
+// fine phasors, the item's phase parameters, the taps [F][DP], two sets
+// (this unit's, the next step's) of the coarse phasors, DC (and blanker
+// average) entries, the groups' partial sums [parts][busy][kPartM][16]
+// (red_bytes; in the stage the step has just mixed when it is that large,
+// else a region of their own), and with the blanker the flag words (15
+// rows of context + one unit) and the dilated words of one unit.  A unit is
+// the prologue (hist rows) or a step.
+struct MarchGeom {
+  int F, dp, busy, parts, km, elem, step_rows, box_rows, stage_bytes, stages;
+  int hist, ring_rows, unit, nq, nk, table_bytes, red_bytes;
+  int stage_off, ring_re, ring_im, fine, params, taps, tables, red, flags;
+  int dil, smem;
+  __host__ __device__ MarchGeom(int F_, int dp_, int elem_, bool nb) {
+    F = F_;
+    dp = dp_;
+    busy = march_busy(F);
+    parts = march_parts(F);
+    elem = elem_;
+    km = kPartM * parts;
+    step_rows = km * F;
+    int nbox = (step_rows + kMarchMaxBox - 1) / kMarchMaxBox;
+    while (step_rows % nbox) ++nbox;
+    box_rows = step_rows / nbox;
+    stage_bytes = step_rows * kLanes * elem;
+    stages = kMarchStageBytes / stage_bytes;
+    stages = stages < 2 ? 2 : stages > kMarchMaxStages ? kMarchMaxStages
+                                                       : stages;
+    hist = F * (dp - 1);
+    const int x = (hist + step_rows - 1) / step_rows;
+    ring_rows = hist + (x < 1 ? 1 : x) * step_rows;
+    unit = hist > step_rows ? hist : step_rows;
+    nq = unit / kQ + 2;
+    nk = unit / kDcChunk + 2;
+    // one set of tables: coarse cos, sin [nq][8]; DC [nk][16]; average
+    // [nk][16] with the blanker
+    table_bytes = align128(2 * nq * kCg * 4) + align128(nk * kLanes * 4)
+                  + (nb ? align128(nk * kLanes * 4) : 0);
+    stage_off = 128;                          // the stage barriers below
+    int o = stage_off + stages * stage_bytes;
+    const int plane = align128(ring_rows * kCg * 4);
+    ring_re = o;
+    ring_im = o + plane + 64;
+    o = align128(ring_im + plane);
+    fine = o;
+    o += 2 * kQ * kCg * 4;
+    params = o;
+    o += 128;                                 // phase0, f_hi, f_lo [3][8]
+    taps = o;
+    o = align128(o + F * dp * 4);
+    tables = o;
+    o += 2 * table_bytes;
+    red_bytes = parts * busy * kPartM * kLanes * 4;
+    red = stage_bytes >= red_bytes ? -1 : o;  // -1: in the mixed stage
+    if (red >= 0) o = align128(o + red_bytes);
+    flags = o;
+    if (nb) o = align128(o + (kNbHalo + unit) * 2);
+    dil = o;
+    if (nb) o = align128(o + unit * 2);
+    smem = o;
   }
-  __host__ __device__ static int align32(int v) { return (v + 31) & ~31; }
-  __host__ __device__ static int max_q(int span) { return span / kQ + 2; }
-  __host__ __device__ static int max_chunks(int rows) {
-    return rows / kDcChunk + 2;
+  __host__ __device__ int box_bytes() const { return box_rows * kCg * elem; }
+  __host__ __device__ bool ok() const {
+    return dp > 0 && smem <= kMaxSmem
+           && stage_bytes <= (int)bulk::kMaxTxBytes && box_bytes() % 128 == 0;
   }
 };
 
-// grid (ceil(C/kCg), ceil((T/F)/kM)), block (kLanes, kGroups).
-// y[o] = sum_{j=0..D} h[j] u[F o - j], u[t < 0] = tail[d_rows + t].
-// DP taps per polyphase branch (h zero-padded to F*DP taps).  NB: the
-// noise blanker is on (nb.mode != 0); a separate instantiation, so the
-// blanker's passes cost the plain form nothing.
-template <typename Tx, int DP, bool NB>
-__global__ void __launch_bounds__(kThreads)
-front_fir(const Tx* __restrict__ x, int T, int C,
-          const float* __restrict__ mseq, const float* __restrict__ tail_in,
-          int d_rows, const float* __restrict__ phase0,
-          const float* __restrict__ fhi, const float* __restrict__ flo,
-          const float* __restrict__ h, int ntaps, int F, Iq iq_args, Nb nb,
-          bool x_vec, float* __restrict__ y) {
-  extern __shared__ float smem[];
-  constexpr bool nb_on = NB;
-  const FirSmem lay(F, DP, nb_on);
-  const IqVals iq(iq_args);
-  float* h_s = smem + lay.h;                      // [F][DP]: h[F i + p]
-  float* u_s = smem + lay.u;                      // [span][kLanes]
-  float* halo_s = smem + lay.halo;                // [halo][kLanes]
-  unsigned short* flag_s =                        // [halo + span] lane bits
-      reinterpret_cast<unsigned short*>(smem + lay.flags);
-  const int tid = threadIdx.y * kLanes + threadIdx.x;
+// The work items: a channel group (8 channels) x a time segment of ms
+// outputs (the last one shorter; a segment's last step stores only its
+// own outputs), item i = segment i / groups, channel group i % groups, so
+// the channel groups of one segment run side by side and each plane row is
+// fetched once from DRAM.  ms is chosen for the fewest rows on the busiest
+// of `slots` resident blocks, among the choices with at least two items
+// per slot where the shape has them (ops/front.py mirrors this in
+// fir_march_plan).
+struct MarchPlan {
+  int ms, nseg, items, grid;
+};
+
+inline MarchPlan march_plan(int T, int C, const MarchGeom& g, int slots) {
+  const int M = T / g.F, groups = (C + kCg - 1) / kCg;
+  const int max_seg = (M + g.km - 1) / g.km;
+  const int n_lo = min(max((2 * slots + groups - 1) / groups, 1), max_seg);
+  MarchPlan best{M, 1, groups, 0};
+  long long best_cost = -1;
+  for (int n = n_lo; n <= min(4 * n_lo, max_seg); ++n) {
+    const int ms = (M + n - 1) / n;
+    const int nseg = (M + ms - 1) / ms;
+    const int items = groups * nseg;
+    if (nseg < n_lo) continue;
+    const long long waves = (items + slots - 1) / slots;
+    const long long cost =
+        waves * ((long long)(ms + g.km - 1) / g.km * g.step_rows
+                 + g.hist + g.step_rows);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best = MarchPlan{ms, nseg, items, 0};
+    }
+  }
+  best.grid = kMarchPersistent ? min(best.items, slots) : best.items;
+  return best;
+}
+
+// Everything front_fir takes besides the plane and its tensor map.
+struct March {
+  int T, C, d_rows, ntaps, F, ms, items;
+  bool tma;                         // stage by tensor-map boxes (else
+                                    // element by element)
+  const float *mseq, *tail_in, *phase0, *fhi, *flo, *h;
+  Iq iq;
+  Nb nb;
+  float* y;
+};
+
+// One set of a unit's tables: coarse phasors of its 128-row blocks from
+// row block q_base, DC (and blanker average) entries of its chunks from
+// chunk k_base.
+struct MarchTables {
+  float *coarse_c, *coarse_s, *dc, *avg;
+  int q_base, k_base;
+};
+
+// One block's shared-memory regions and the item it works on.
+struct MarchCtx {
+  float *ring_re, *ring_im, *fine_c, *fine_s, *params, *h_s, *red;
+  unsigned short *flags_s, *dil_s;
+  unsigned char* tables;            // the two sets of tables
+  int c0;
+};
+
+// Stage rows [t0, t0 + rows) of channels [c0, c0 + 8) element by element
+// into dst ([2][rows][8], zeros outside the plane), for planes whose lanes
+// a tensor map cannot box (march_tma_ok): float32 by asynchronous 4-byte
+// copies, int16 by plain loads.  The caller commits and waits.
+__device__ __forceinline__ void stage_elem(float* d, const float* s) {
+  __pipeline_memcpy_async(d, s, sizeof(float));
+}
+__device__ __forceinline__ void stage_elem(int16_t* d, const int16_t* s) {
+  *d = *s;
+}
+
+template <typename Tx>
+__device__ void stage_elements(Tx* dst, const Tx* __restrict__ x, int T,
+                               int C, int c0, int t0, int rows) {
   const size_t c2 = 2 * (size_t)C;
-  const int c0 = blockIdx.x * kCg;
-  const int o0 = blockIdx.y * kM;
-  const int span = F * (kM + DP - 1);
-  const int t_base = F * o0 - F * DP + 1;         // row of u_s[0]
-  const int t_lo = max(t_base, 0);
-  const int t_hi = min(t_base + span, T);         // rows [t_lo, t_hi) are input
-  const int halo = nb_on ? nb.bw - 1 : 0;         // flag rows above the tile
-  const int t_flag = t_base - halo;               // row of flag_s[0]
-  const int q_base = t_lo / kQ;
-  const int k_base = max(t_flag, 0) / kDcChunk;   // first chunk of the tables
-
-  // 1. Raw input rows [t_base, t_base + span) -> u_s by asynchronous copies,
-  // all in flight at once (rows before t = 0 come from the carried post-mix
-  // tail, rows outside both are zero), and with the blanker the rows
-  // [t_flag, t_base) -> halo_s ...
-  stage_rows(u_s, x, tail_in, d_rows, t_base, span, T, C, c0, tid, x_vec);
-  if (nb_on)
-    stage_rows(halo_s, x, tail_in, 0, t_flag, halo, T, C, c0, tid, x_vec);
-  __pipeline_commit();
-
-  // ... while they land: the taps, the DC estimates (and the blanker's
-  // entering averages) of the covered chunks, and the oscillator's fine
-  // (row within 128) and coarse (per 128 rows) phasors of this block's
-  // channels.
-  for (int i = tid; i < F * DP; i += kThreads) {
-    const int p = i / DP, k = i - p * DP, j = F * k + p;
-    h_s[i] = j < ntaps ? h[j] : 0.0f;
+  const int half = rows * kCg;
+  for (int e = threadIdx.x; e < 2 * half; e += kThreads) {
+    const int hf = e / half, k = e - hf * half, i = k / kCg;
+    const int c = c0 + k % kCg, t = t0 + i;
+    if (c < C && t >= 0 && t < T)
+      stage_elem(dst + e, x + (size_t)t * c2 + (hf ? (size_t)C : 0) + c);
+    else
+      dst[e] = Tx(0);
   }
-  {
-    const int nk = (t_hi - 1) / kDcChunk - k_base + 1;
-    for (int i = tid; i < nk * kLanes; i += kThreads) {
-      const int k = i / kLanes, l = i - k * kLanes;
-      const int c = c0 + (l < kCg ? l : l - kCg);
-      const size_t lane = (l < kCg ? 0 : (size_t)C) + c;
-      smem[lay.dc + i] = c < C ? mseq[(size_t)(k_base + k) * c2 + lane] : 0.0f;
-      if (nb_on)
-        smem[lay.avg + i] = c < C ? nb_avg_entering(nb, k_base + k, c2, lane)
-                                  : 0.0f;
-    }
-    for (int i = tid; i < kQ * kCg; i += kThreads) {
-      const int r = i / kCg, c = c0 + i % kCg;
-      float sn = 0.0f, cs = 1.0f;
-      if (c < C) sincospif(2.0f * fine_phase(r, fhi[c], flo[c]), &sn, &cs);
-      smem[lay.fine_c + i] = cs;
-      smem[lay.fine_s + i] = sn;
-    }
-    const int nq = (t_hi - 1) / kQ - q_base + 1;
-    for (int i = tid; i < nq * kCg; i += kThreads) {
-      const int q = i / kCg, c = c0 + i % kCg;
-      float sn = 0.0f, cs = 1.0f;
-      if (c < C)
-        sincospif(2.0f * coarse_phase((q_base + q) * kQ, phase0[c], fhi[c],
-                                      flo[c]), &sn, &cs);
-      smem[lay.coarse_c + i] = cs;
-      smem[lay.coarse_s + i] = sn;
-    }
-  }
-  __pipeline_wait_prior(0);
-  __syncthreads();
+}
 
-  // 2a. The blanker: z = IQbal(x - m) in place for the tile's input rows,
-  // and the spike flags of every row from max(t_flag, -halo): a warp holds
-  // 4 rows x 8 channels, so one ballot per lane half gives 4 rows' words.
-  // Rows before t = 0 take the carried flags.
-  if (nb_on) {
-    const int t_a = max(t_flag, -halo);
-    const int n_e = (t_hi - t_a) * kCg;           // a multiple of 8
-    for (int e0 = 0; e0 < n_e; e0 += kThreads) {  // uniform: ballots below
-      const int e = e0 + tid;
-      const int t = t_a + e / kCg, cc = e % kCg;
-      const int c = c0 + cc;
+// Table set `set` (0 or 1) for rows from t_lo (inside the plane).
+__device__ __forceinline__ MarchTables table_set(const MarchCtx& m,
+                                                 const MarchGeom& g, int set,
+                                                 int t_lo) {
+  float* t = reinterpret_cast<float*>(m.tables + set * g.table_bytes);
+  MarchTables tb;
+  tb.coarse_c = t;
+  tb.coarse_s = t + g.nq * kCg;
+  tb.dc = t + align128(2 * g.nq * kCg * 4) / 4;
+  tb.avg = tb.dc + align128(g.nk * kLanes * 4) / 4;
+  tb.q_base = t_lo / kQ;
+  tb.k_base = t_lo / kDcChunk;
+  return tb;
+}
+
+// Thread `tid`'s DC (and blanker average) entry of the tables for rows
+// [t_lo, t_hi): entry tid = chunk tid / 16, lane tid % 16; false past them.
+template <bool NB>
+__device__ __forceinline__ bool table_entry(const March& a, int c0, int t_lo,
+                                            int t_hi, int tid, float* dc,
+                                            float* avg) {
+  if (t_lo >= t_hi) return false;
+  const int k0 = t_lo / kDcChunk;
+  const int nk = (t_hi - 1) / kDcChunk - k0 + 1;
+  if (tid >= nk * kLanes) return false;
+  const size_t c2 = 2 * (size_t)a.C;
+  const int k = tid / kLanes, l = tid - k * kLanes;
+  const int c = c0 + (l & (kCg - 1));
+  const size_t lane = (l < kCg ? 0 : (size_t)a.C) + c;
+  const bool in = c < a.C;
+  *dc = in ? a.mseq[(size_t)(k0 + k) * c2 + lane] : 0.0f;
+  if (NB) *avg = in ? nb_avg_entering(a.nb, k0 + k, c2, lane) : 0.0f;
+  return true;
+}
+
+// The coarse phasors of the tables for rows [t_lo, t_hi), the entries
+// i = i0, i0 + stride, ... (128-row block i / 8, channel i % 8), from the
+// item's phase parameters in shared memory.
+__device__ __forceinline__ void table_coarse(const MarchCtx& m,
+                                            const MarchTables& tb, int t_lo,
+                                            int t_hi, int i0, int stride) {
+  if (t_lo >= t_hi) return;
+  const int nq = (t_hi - 1) / kQ - t_lo / kQ + 1;
+  for (int i = i0; i < nq * kCg; i += stride) {
+    const int q = i / kCg, cc = i % kCg;
+    float sn, cs;
+    sincospif(2.0f * coarse_phase((tb.q_base + q) * kQ, m.params[cc],
+                                  m.params[kCg + cc], m.params[2 * kCg + cc]),
+              &sn, &cs);
+    tb.coarse_c[i] = cs;
+    tb.coarse_s[i] = sn;
+  }
+}
+
+// Build the tables for rows [t_lo, t_hi) (all threads; the caller
+// synchronizes before they are read).
+template <bool NB>
+__device__ void march_tables(const March& a, const MarchCtx& m,
+                             const MarchTables& tb, int t_lo, int t_hi) {
+  float dc, avg;
+  for (int i = threadIdx.x;
+       table_entry<NB>(a, m.c0, t_lo, t_hi, i, &dc, &avg); i += kThreads) {
+    tb.dc[i] = dc;
+    if (NB) tb.avg[i] = avg;
+  }
+  table_coarse(m, tb, t_lo, t_hi, threadIdx.x, kThreads);
+}
+
+// Unit rows [t0, t0 + n) -> ring rows [dst, dst + n): DC removal, IQ
+// balance and the mix, once per row, from the tables tb; rows before t = 0
+// take the carried post-mix tail (already blanked), rows outside both and
+// lanes of channels >= C are zero.  The raw rows come from a stage
+// (stage != null: [2][n][8] of Tx) or, for the prologue, straight from the
+// plane.  Thread tid mixes channel tid % 8 of rows tid / 8, tid / 8 +
+// kMixRows, ...  With the blanker: each row's flag word is formed once
+// (warp ballots), its dilated word once from the bw - 1 words before it
+// (the flag ring carries the 15 words before the unit), and the flagged
+// lanes are zeroed (NB1) or scaled (NB2); step rows also go to nb.mask.
+// Ends with a barrier (the ring is written; the stage and the flag ring
+// are free).
+template <typename Tx, bool NB>
+__device__ void march_mix(const March& a, MarchCtx& m, const MarchTables& tb,
+                          const Tx* __restrict__ x, const Tx* stage, int t0,
+                          int n, int dst, bool write_mask) {
+  const IqVals iq(a.iq);
+  const int C = a.C, tid = threadIdx.x;
+  const size_t c2 = 2 * (size_t)C;
+  const int cc = tid & (kCg - 1), c = m.c0 + cc;
+  const bool in = c < C;
+  auto raw = [&](int i, int t, float* xr, float* xi) {
+    if (stage != nullptr) {
+      *xr = load_x(stage, (size_t)i * kCg + cc);
+      *xi = load_x(stage, (size_t)(n + i) * kCg + cc);
+    } else {
+      *xr = load_x(x, (size_t)t * c2 + c);
+      *xi = load_x(x, (size_t)t * c2 + C + c);
+    }
+  };
+  if (NB) {
+    // the undilated flag word of every row: a warp holds 4 rows x 8
+    // channels, so one ballot per lane half gives 4 rows' words
+    for (int i0 = 0; i0 < n; i0 += kMixRows) {    // uniform: ballots
+      const int i = i0 + tid / kCg, t = t0 + i;
       bool fr = false, fi = false;
-      if (e < n_e && c < C) {
+      if (i < n && in) {
         if (t < 0) {
-          nb_carried(nb, t, c, C, &fr, &fi);
-        } else {
-          float* pr = t < t_base ? halo_s + (t - t_flag) * kLanes + cc
-                                 : u_s + (t - t_base) * kLanes + cc;
-          const int k = t / kDcChunk - k_base;
-          const float* m = smem + lay.dc + k * kLanes + cc;
-          const float* av = smem + lay.avg + k * kLanes + cc;
-          float zr, zi;
-          nb_detect(pr[0], pr[kCg], m[0], m[kCg], av[0], av[kCg], iq,
-                    nb.thr2, &zr, &zi, &fr, &fi);
-          if (t >= t_base) {
-            pr[0] = zr;
-            pr[kCg] = zi;
-          }
+          nb_carried(a.nb, t, c, C, &fr, &fi);
+        } else if (t < a.T) {
+          float xr, xi, zr, zi;
+          raw(i, t, &xr, &xi);
+          const int k = (t / kDcChunk - tb.k_base) * kLanes + cc;
+          nb_detect(xr, xi, tb.dc[k], tb.dc[k + kCg], tb.avg[k],
+                    tb.avg[k + kCg], iq, a.nb.thr2, &zr, &zi, &fr, &fi);
         }
       }
       const unsigned br = __ballot_sync(0xffffffffu, fr);
       const unsigned bi = __ballot_sync(0xffffffffu, fi);
-      if (e < n_e && cc == 0) {
+      if (i < n && cc == 0) {
         const int sh = tid & 24;                  // (lane / 8) * 8
-        flag_s[t - t_flag] = (unsigned short)(((br >> sh) & 0xffu)
-                                              | (((bi >> sh) & 0xffu) << 8));
+        m.flags_s[kNbHalo + i] = (unsigned short)(((br >> sh) & 0xffu)
+                                                  | (((bi >> sh) & 0xffu) << 8));
       }
     }
     __syncthreads();
-  }
-
-  // 2b. DC removal, IQ balance and mix of the input rows, in place, from
-  // shared memory; with the blanker the rows hold z already, and the
-  // dilated flags (this row's word ORed with the bw-1 words before it)
-  // zero (NB1) or scale (NB2) the mixed lanes.
-  for (int e = tid; e < (t_hi - t_lo) * kCg; e += kThreads) {
-    const int t = t_lo + e / kCg, cc = e % kCg;
-    if (c0 + cc >= C) continue;
-    const int q = t / kQ - q_base, r = t % kQ, k = t / kDcChunk - k_base;
-    float* ur = u_s + (t - t_base) * kLanes + cc;
-    float* ui = ur + kCg;
-    float zr = *ur, zi = *ui;
-    if (!nb_on) {
-      const float* m = smem + lay.dc + k * kLanes + cc;
-      zr -= m[0];
-      zi -= m[kCg];
-      iq.apply(&zr, &zi);
-    }
-    float vr, vi;
-    mix(zr, zi, smem[lay.coarse_c + q * kCg + cc],
-        smem[lay.coarse_s + q * kCg + cc], smem[lay.fine_c + r * kCg + cc],
-        smem[lay.fine_s + r * kCg + cc], &vr, &vi);
-    if (nb_on) {
-      const int j = t - t_flag;
+    // the causal dilation, once per row
+    for (int i = tid; i < n; i += kThreads) {
       unsigned w = 0;
-      for (int s = 0; s < nb.bw; ++s) w |= flag_s[j - s];
-      const bool br = (w >> cc) & 1u, bi = (w >> (kCg + cc)) & 1u;
-      if (nb.mask) {     // rows shared by neighbouring tiles get equal words
-        nb.mask[(size_t)t * c2 + c0 + cc] = br;
-        nb.mask[(size_t)t * c2 + C + c0 + cc] = bi;
+      for (int s = 0; s < a.nb.bw; ++s) w |= m.flags_s[kNbHalo + i - s];
+      m.dil_s[i] = (unsigned short)w;
+    }
+    __syncthreads();
+    if (tid < kNbHalo)          // the next unit's context (n >= kNbHalo)
+      m.flags_s[tid] = m.flags_s[n + tid];
+  }
+#pragma unroll 4
+  for (int i = tid / kCg; i < n; i += kMixRows) {
+    const int t = t0 + i;
+    float vr = 0.0f, vi = 0.0f;
+    if (in && t < 0) {
+      if (t >= -a.d_rows) {
+        const size_t r = (size_t)(a.d_rows + t) * c2;
+        vr = a.tail_in[r + c];
+        vi = a.tail_in[r + C + c];
       }
-      if (nb.mode == 1) {
-        if (br) vr = 0.0f;
-        if (bi) vi = 0.0f;
-      } else if (br || bi) {
-        const float m2 = mag2(zr, zi);
-        const float* av = smem + lay.avg + k * kLanes + cc;
-        if (br) vr = __fmul_rn(vr, nb_scale(av[0], m2));
-        if (bi) vi = __fmul_rn(vi, nb_scale(av[kCg], m2));
+    } else if (in && t < a.T) {
+      float zr, zi;
+      raw(i, t, &zr, &zi);
+      const int k = (t / kDcChunk - tb.k_base) * kLanes + cc;
+      zr = zr - tb.dc[k];
+      zi = zi - tb.dc[k + kCg];
+      iq.apply(&zr, &zi);
+      const int q = (t / kQ - tb.q_base) * kCg + cc, r = (t % kQ) * kCg + cc;
+      mix(zr, zi, tb.coarse_c[q], tb.coarse_s[q], m.fine_c[r], m.fine_s[r],
+          &vr, &vi);
+      if (NB) {
+        const unsigned w = m.dil_s[i];
+        const bool br = (w >> cc) & 1u, bi = (w >> (kCg + cc)) & 1u;
+        if (write_mask && a.nb.mask != nullptr) {
+          // a row in two items' steps gets the same word from both
+          a.nb.mask[(size_t)t * c2 + c] = br;
+          a.nb.mask[(size_t)t * c2 + C + c] = bi;
+        }
+        if (a.nb.mode == 1) {
+          if (br) vr = 0.0f;
+          if (bi) vi = 0.0f;
+        } else if (br || bi) {
+          const float m2 = mag2(zr, zi);
+          if (br) vr = __fmul_rn(vr, nb_scale(tb.avg[k], m2));
+          if (bi) vi = __fmul_rn(vi, nb_scale(tb.avg[k + kCg], m2));
+        }
       }
     }
-    *ur = vr;
-    *ui = vi;
+    m.ring_re[(dst + i) * kCg + cc] = vr;
+    m.ring_im[(dst + i) * kCg + cc] = vi;
   }
   __syncthreads();
+}
 
-  // 3. Polyphase FIR: group g takes branches p = g, g + kGroups, ...; branch p's DP
-  // taps sit in registers while its column of u streams past once:
-  // tap i of local output ol reads shared row F (ol - i + DP) - 1 - p.
-  // With F < kGroups (F = 8, the WFM plan) groups F.. have no branch and
-  // idle; splitting a branch's taps over several groups is later speed work.
-  const int lx = threadIdx.x, g = threadIdx.y;
-  float acc[kM];
-#pragma unroll
-  for (int ol = 0; ol < kM; ++ol) acc[ol] = 0.0f;
-  for (int p = g; p < F; p += kGroups) {
-    float hr[DP];
-#pragma unroll
-    for (int i = 0; i < DP; ++i) hr[i] = h_s[p * DP + i];
-    const float* col = u_s + (F - 1 - p) * kLanes + lx;   // row F m - 1 - p
-    const int stride = F * kLanes;
-#pragma unroll
-    for (int m = 1; m < kM + DP; ++m) {
-      const float v = col[(m - 1) * stride];
-#pragma unroll
-      for (int ol = 0; ol < kM; ++ol) {
-        const int i = ol + DP - m;
-        if (i >= 0 && i < DP) acc[ol] = fmaf(hr[i], v, acc[ol]);
-      }
+// grid plan.grid, block kThreads, g.smem bytes of dynamic shared memory.
+// y[o] = sum_{j=0..D} h[j] u[F o - j], u[t < 0] = tail[d_rows + t]; DP
+// taps per polyphase branch (h zero-padded to F DP taps).  Block b walks
+// items b, b + gridDim.x, ...; for each it sets up the fine phasors and
+// phase parameters of its channels (the taps once per block), mixes the
+// prologue (the hist rows before the segment's first step, from the plane)
+// into the ring's history, then marches in steps of km outputs.  Step j
+// waits for its stage (thread 0 keeps `stages` steps of the block's stream
+// of items in flight by tensor-map boxes, across item boundaries; with
+// a.tma false the block stages each step element by element first), mixes
+// its rows into the ring after the history, and runs the FIR over the
+// ring's last hist + step_rows rows: each of the step's parts of kPartM
+// outputs is made by `busy` groups, group b holding the taps of branches
+// b, b + 16, ... in registers while their columns stream past
+// (polyphase.cuh); the groups' partial sums meet in shared memory and each
+// output adds them in group order.  The next step's DC (and average)
+// entries are loaded before the FIR and its coarse phasors formed after
+// it, into the other set of tables; the stage is refilled once the step's
+// outputs are stored (the partial sums may sit in it).  When the next step
+// would overrun the ring, the last hist rows are copied down to its front
+// first.  NB: the noise blanker is on; a separate instantiation, so its
+// passes cost the plain form nothing.
+template <typename Tx, int DP, bool NB>
+__global__ void __launch_bounds__(kThreads, 1)
+front_fir(const __grid_constant__ CUtensorMap map, const Tx* __restrict__ x,
+          March a) {
+  extern __shared__ __align__(128) unsigned char fir_smem[];
+  const MarchGeom g(a.F, DP, (int)sizeof(Tx), NB);
+  const int tid = threadIdx.x, F = a.F, C = a.C;
+  const size_t c2 = 2 * (size_t)C;
+  const int groups = (C + kCg - 1) / kCg, M = a.T / F;
+  uint64_t* full = reinterpret_cast<uint64_t*>(fir_smem);
+  unsigned char* stages = fir_smem + g.stage_off;
+  auto region = [&](int off) {
+    return reinterpret_cast<float*>(fir_smem + off);
+  };
+  MarchCtx m;
+  m.ring_re = region(g.ring_re);
+  m.ring_im = region(g.ring_im);
+  m.fine_c = region(g.fine);
+  m.fine_s = m.fine_c + kQ * kCg;
+  m.params = region(g.params);
+  m.h_s = region(g.taps);
+  m.red = g.red < 0 ? nullptr : region(g.red);
+  m.flags_s = reinterpret_cast<unsigned short*>(fir_smem + g.flags);
+  m.dil_s = reinterpret_cast<unsigned short*>(fir_smem + g.dil);
+  m.tables = fir_smem + g.tables;
+
+  auto seg_start = [&](int item) { return (item / groups) * a.ms; };
+  auto item_steps = [&](int item) {
+    const int o_s = seg_start(item);
+    return (min(o_s + a.ms, M) - o_s + g.km - 1) / g.km;
+  };
+  // the block's stream of steps, and (thread 0) the next one to issue
+  int total = 0;
+  for (int i = blockIdx.x; i < a.items; i += gridDim.x) total += item_steps(i);
+  int p_item = blockIdx.x, p_step = 0;
+  auto issue = [&](int s) {                      // stream entry s
+    uint64_t* bar = full + s % g.stages;
+    unsigned char* dst = stages + (size_t)(s % g.stages) * g.stage_bytes;
+    const int c0 = (p_item % groups) * kCg;
+    const int t0 = F * seg_start(p_item) - F + 1 + p_step * g.step_rows;
+    const int half = g.step_rows * kCg * (int)sizeof(Tx);
+    bulk::mbar_arrive_expect_tx(bar, (uint32_t)g.stage_bytes);
+    for (int r = 0; r < g.step_rows; r += g.box_rows) {
+      const int off = r * kCg * (int)sizeof(Tx);
+      bulk::load_2d(dst + off, &map, c0, t0 + r, bar);
+      bulk::load_2d(dst + half + off, &map, C + c0, t0 + r, bar);
     }
+    if (++p_step == item_steps(p_item)) {
+      p_item += gridDim.x;
+      p_step = 0;
+    }
+  };
+  if (a.tma && tid == 0) {
+    for (int s = 0; s < g.stages; ++s) bulk::mbar_init(full + s, 1);
+    bulk::fence_mbar_init();
+    for (int s = 0; s < g.stages && s < total; ++s) issue(s);
   }
-  __syncthreads();
-  float* red = u_s;                                // [kGroups][kM][kLanes]
+  // the taps, h_s[p DP + i] = h[F i + p] (read after the prologue's
+  // barriers)
+  for (int i = tid; i < F * g.dp; i += kThreads) {
+    const int p = i / g.dp, k = i - p * g.dp, j = F * k + p;
+    m.h_s[i] = j < a.ntaps ? a.h[j] : 0.0f;
+  }
+
+  // this thread's lane, FIR part and group within it (march_busy)
+  const int lx = tid % kLanes, part = tid / kLanes / g.busy;
+  const int gp = tid / kLanes % g.busy;
+  const float* plane = (lx < kCg ? m.ring_re : m.ring_im) + (lx & (kCg - 1));
+  int s = 0;                                     // the block's stream entry
+  for (int item = blockIdx.x; item < a.items; item += gridDim.x) {
+    m.c0 = (item % groups) * kCg;
+    const int o_s = seg_start(item), o_e = min(o_s + a.ms, M);
+    const int nsteps = item_steps(item);
+    const int t_first = F * o_s - F + 1;         // step 0's first new row
+    // the item's set-up: its channels' phase parameters and fine phasors,
+    // and with the blanker the undilated flags of the bw - 1 rows above
+    // the prologue
+    if (tid < 3 * kCg) {
+      const int c = m.c0 + tid % kCg;
+      const float* src = tid < kCg ? a.phase0 : tid < 2 * kCg ? a.fhi : a.flo;
+      m.params[tid] = c < C ? src[c] : 0.0f;
+    }
+    for (int i = tid; i < kQ * kCg; i += kThreads) {
+      const int r = i / kCg, c = m.c0 + i % kCg;
+      float sn = 0.0f, cs = 1.0f;
+      if (c < C) sincospif(2.0f * fine_phase(r, a.fhi[c], a.flo[c]), &sn, &cs);
+      m.fine_c[i] = cs;
+      m.fine_s[i] = sn;
+    }
+    if (NB && tid < a.nb.bw - 1) {
+      const int t = t_first - g.hist - (a.nb.bw - 1) + tid;
+      const IqVals iq(a.iq);
+      unsigned w = 0;
+      for (int cc = 0; cc < kCg && m.c0 + cc < C; ++cc) {
+        bool fr, fi;
+        nb_flags_at(x, t, m.c0 + cc, C, a.mseq, iq, a.nb, &fr, &fi);
+        w |= (fr ? 1u << cc : 0u) | (fi ? 1u << (kCg + cc) : 0u);
+      }
+      m.flags_s[kNbHalo - (a.nb.bw - 1) + tid] = (unsigned short)w;
+    }
+    __syncthreads();                    // the phase parameters
+    // the tables of the prologue (set 0) and of step 0 (set 1)
+    const int t_h = t_first - g.hist;
+    march_tables<NB>(a, m, table_set(m, g, 0, max(t_h, 0)), max(t_h, 0),
+                     min(t_first, a.T));
+    march_tables<NB>(a, m, table_set(m, g, 1, max(t_first, 0)),
+                     max(t_first, 0), min(t_first + g.step_rows, a.T));
+    __syncthreads();
+    // the prologue: the history rows, from the plane, into ring rows
+    // [0, hist)
+    march_mix<Tx, NB>(a, m, table_set(m, g, 0, max(t_h, 0)), x, nullptr,
+                      t_h, g.hist, 0, false);
+    int pos = g.hist;                            // ring row of new rows
+    for (int j = 0; j < nsteps; ++j, ++s) {
+      const int t0 = t_first + j * g.step_rows;
+      if (pos + g.step_rows > g.ring_rows) {     // copy the history down
+        const int n4 = g.hist * kCg / 4, src = (pos - g.hist) * kCg / 4;
+        for (int e = tid; e < 2 * n4; e += kThreads) {
+          float4* p4 = reinterpret_cast<float4*>(e < n4 ? m.ring_re
+                                                        : m.ring_im);
+          const int k = e < n4 ? e : e - n4;
+          p4[k] = p4[src + k];
+        }
+        pos = g.hist;
+        __syncthreads();
+      }
+      Tx* st = reinterpret_cast<Tx*>(stages
+                                     + (size_t)(s % g.stages) * g.stage_bytes);
+      if (a.tma) {
+        bulk::mbar_wait(full + s % g.stages,
+                        (uint32_t)(s / g.stages) & 1u);
+      } else {
+        stage_elements(st, x, a.T, C, m.c0, t0, g.step_rows);
+        __pipeline_commit();
+        __pipeline_wait_prior(0);
+        __syncthreads();
+      }
+      march_mix<Tx, NB>(a, m, table_set(m, g, (j + 1) & 1, max(t0, 0)), x,
+                        st, t0, g.step_rows, pos, true);
+
+      // the next step's DC (and average) entries, in flight over the FIR
+      const int n_lo = max(t0 + g.step_rows, 0);
+      const int n_hi = min(t0 + 2 * g.step_rows, a.T);
+      const bool more = j + 1 < nsteps;
+      float pf_dc = 0.0f, pf_avg = 0.0f;
+      const bool pf = more && table_entry<NB>(a, m.c0, n_lo, n_hi, tid,
+                                              &pf_dc, &pf_avg);
+
+      // the FIR over ring rows [pos - hist, pos + step_rows): this group's
+      // branches gp, gp + 16, ... for this part's outputs kPartM part ..
+      // kPartM (part + 1) - 1, each output's taps in one accumulator
+      float acc[kPartM];
 #pragma unroll
-  for (int ol = 0; ol < kM; ++ol) red[(g * kM + ol) * kLanes + lx] = acc[ol];
-  __syncthreads();
-  const int n_out = T / F;
-  for (int e = tid; e < kM * kLanes; e += kThreads) {
-    const int ol = e / kLanes, l = e - ol * kLanes;
-    const int cch = c0 + (l < kCg ? l : l - kCg);
-    const int o = o0 + ol;
-    if (cch < C && o < n_out) {
-      float s = 0.0f;
+      for (int ol = 0; ol < kPartM; ++ol) acc[ol] = 0.0f;
+      if (part < g.parts) {
+        const float* win = plane + (pos - g.hist + part * kPartM * F) * kCg;
+        for (int p = gp; p < F; p += kGroups) {
+          float hr[DP];
 #pragma unroll
-      for (int gg = 0; gg < kGroups; ++gg) s += red[(gg * kM + ol) * kLanes + l];
-      y[(size_t)o * c2 + (l < kCg ? (size_t)cch : (size_t)C + cch)] = s;
+          for (int i = 0; i < DP; ++i) hr[i] = m.h_s[p * DP + i];
+          poly::fir_column<kPartM, DP>(win + (F - 1 - p) * kCg, F * kCg, hr,
+                                       acc);
+        }
+      }
+      if (more) {
+        const MarchTables next = table_set(m, g, j & 1, n_lo);
+        if (pf) {
+          next.dc[tid] = pf_dc;
+          if (NB) next.avg[tid] = pf_avg;
+        }
+        table_coarse(m, next, n_lo, n_hi, kThreads - 1 - tid, kThreads);
+      }
+      // the partial sums [part][gp][ol][lane], in the mixed stage when it
+      // holds them, then each output summed over its part's groups in order
+      float* red = m.red != nullptr ? m.red : reinterpret_cast<float*>(st);
+      if (part < g.parts) {
+#pragma unroll
+        for (int ol = 0; ol < kPartM; ++ol)
+          red[((part * g.busy + gp) * kPartM + ol) * kLanes + lx] = acc[ol];
+      }
+      __syncthreads();
+      const int o0 = o_s + j * g.km;
+      for (int e = tid; e < g.km * kLanes; e += kThreads) {
+        const int ol = e / kLanes, l = e - ol * kLanes;
+        const int c = m.c0 + (l & (kCg - 1)), o = o0 + ol;
+        if (c < C && o < o_e) {
+          const float* r = red + ((ol / kPartM) * g.busy * kPartM
+                                  + ol % kPartM) * kLanes + l;
+          float sum = 0.0f;
+          for (int b = 0; b < g.busy; ++b) sum += r[b * kPartM * kLanes];
+          a.y[(size_t)o * c2 + (l < kCg ? 0 : (size_t)C) + c] = sum;
+        }
+      }
+      __syncthreads();                           // the stage is free
+      if (a.tma && tid == 0 && s + g.stages < total) {
+        bulk::fence_async_smem();
+        issue(s + g.stages);
+      }
+      pos += g.step_rows;
     }
   }
 }
@@ -1049,19 +1340,109 @@ front_comp(const float* __restrict__ y, int M, int C,
   }
 }
 
-// Taps per polyphase branch that the FIR kernel is instantiated for
-// (ops/front.py mirrors this list in FIR_BRANCH_TAPS).
-int fir_branch_taps(int ntaps, int F) {
-  const int dp = (ntaps + F - 1) / F;
-  for (int inst : {8, 16, 24, 32, 40})
-    if (dp <= inst) return inst;
-  return 0;
+// A tensor map can box a channel group's lanes of a [T, 2C] plane of
+// elem-byte lanes: each box must start on a 16-byte boundary, so the im
+// lanes' first byte C elem must (and then the row pitch 2C elem is a
+// multiple of 16 bytes too): float32 C % 4 == 0, int16 C % 8 == 0.
+inline bool march_tma_ok(int C, int elem) { return (C * elem) % 16 == 0; }
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (so the
+// library needs no -lcuda); found once.
+cudaError_t encode_tiled(EncodeTiled* fn) {
+  static std::mutex mu;
+  static EncodeTiled found = nullptr;
+  std::lock_guard<std::mutex> lock(mu);
+  if (found == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess) return err;
+    if (q != cudaDriverEntryPointSuccess || p == nullptr)
+      return cudaErrorNotSupported;
+    found = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = found;
+  return cudaSuccess;
 }
 
-size_t fir_smem_bytes(int ntaps, int F, bool nb) {
-  const int dp = fir_branch_taps(ntaps, F);
-  if (!dp) return 0;
-  return (size_t)FirSmem(F, dp, nb).total * sizeof(float);
+// The tensor map of a [T, 2C] plane (float32 or int16 lanes) in boxes of 8
+// lanes x box_rows rows, zeros outside; encoded once per (pointer, T, C,
+// element size, box rows), since the AM dispatch is bound by its host
+// enqueue.
+cudaError_t plane_map(const void* x, int T, int C, int elem, int box_rows,
+                      CUtensorMap* map) {
+  struct Entry {
+    const void* x;
+    int T, C, elem, rows;
+    CUtensorMap map;
+  };
+  static std::mutex mu;
+  static Entry cache[32];
+  static int used = 0, next = 0;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    for (int i = 0; i < used; ++i) {
+      const Entry& e = cache[i];
+      if (e.x == x && e.T == T && e.C == C && e.elem == elem
+          && e.rows == box_rows) {
+        *map = e.map;
+        return cudaSuccess;
+      }
+    }
+  }
+  EncodeTiled fn;
+  cudaError_t err = encode_tiled(&fn);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {(cuuint64_t)(2 * C), (cuuint64_t)T};
+  const cuuint64_t strides[1] = {(cuuint64_t)(2 * C) * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)kCg, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  if (fn(map, elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                        : CU_TENSOR_MAP_DATA_TYPE_UINT16,
+         2, const_cast<void*>(x), dims, strides, box, unit,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  std::lock_guard<std::mutex> lock(mu);
+  cache[next] = Entry{x, T, C, elem, box_rows, *map};
+  next = (next + 1) % 32;
+  used = used < 32 ? used + 1 : 32;
+  return cudaSuccess;
+}
+
+template <typename Tx, int DP, bool NB>
+cudaError_t launch_march(const Tx* x, const March& args, const MarchGeom& g,
+                         int device, cudaStream_t st) {
+  auto kernel = front_fir<Tx, DP, NB>;
+  int slots = 0;
+  cudaError_t err = resident_blocks(kernel, device, kThreads, g.smem,
+                                    kMarchBlocksPerSm, &slots);
+  if (err != cudaSuccess) return err;
+  const MarchPlan p = march_plan(args.T, args.C, g, slots);
+  March a = args;
+  a.ms = p.ms;
+  a.items = p.items;
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));
+  if (a.tma && (err = plane_map(x, a.T, a.C, (int)sizeof(Tx), g.box_rows,
+                                &map)) != cudaSuccess)
+    return err;
+  kernel<<<(unsigned)p.grid, kThreads, g.smem, st>>>(map, x, a);
+  return cudaGetLastError();
 }
 
 // Everything front_forward takes besides the plane.
@@ -1077,24 +1458,10 @@ struct Fwd {
   Nb nb;
   float nb_a, nb_b;
   float *nb_avg_out, *nb_tail_out;
+  bool fir_tma;                        // front_fir stages by tensor map
   int device;
   cudaStream_t st;
 };
-
-template <typename Tx, int DP, bool NB>
-cudaError_t launch_fir(const Tx* x, const Fwd& f, size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      front_fir<Tx, DP, NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((f.C + kCg - 1) / kCg),
-                  (unsigned)((f.T / f.F + kM - 1) / kM));
-  front_fir<Tx, DP, NB><<<grid, dim3(kLanes, kGroups), smem, f.st>>>(
-      x, f.T, f.C, f.mseq, f.tail_in, f.d_rows, f.phase0, f.fhi, f.flo, f.h,
-      f.ntaps, f.F, f.iq, f.nb,
-      f.C % kCg == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0, f.y);
-  return cudaGetLastError();
-}
 
 template <typename Tx>
 int forward(const Tx* x, const Fwd& f) {
@@ -1120,13 +1487,22 @@ int forward(const Tx* x, const Fwd& f) {
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
 
-  const size_t smem = fir_smem_bytes(f.ntaps, f.F, f.nb.mode != 0);
-  if (smem == 0 || smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  switch (fir_branch_taps(f.ntaps, f.F)) {
+  const int dp = march_branch_taps(f.ntaps, f.F);
+  const MarchGeom g(f.F, dp, (int)sizeof(Tx), f.nb.mode != 0);
+  if (!g.ok() || (f.fir_tma && !march_tma_ok(f.C, (int)sizeof(Tx))))
+    return cudaErrorInvalidValue;
+  March a;
+  a.T = f.T; a.C = f.C; a.d_rows = f.d_rows; a.ntaps = f.ntaps; a.F = f.F;
+  a.ms = a.items = 0;
+  a.tma = f.fir_tma;
+  a.mseq = f.mseq; a.tail_in = f.tail_in; a.phase0 = f.phase0;
+  a.fhi = f.fhi; a.flo = f.flo; a.h = f.h;
+  a.iq = f.iq; a.nb = f.nb; a.y = f.y;
+  switch (dp) {
 #define FRONT_FIR_CASE(DP)                                                   \
   case DP:                                                                   \
-    err = f.nb.mode ? launch_fir<Tx, DP, true>(x, f, smem)                   \
-                    : launch_fir<Tx, DP, false>(x, f, smem);                 \
+    err = f.nb.mode ? launch_march<Tx, DP, true>(x, a, g, f.device, f.st)    \
+                    : launch_march<Tx, DP, false>(x, a, g, f.device, f.st);  \
     break;
     FRONT_FIR_CASE(8)
     FRONT_FIR_CASE(16)
@@ -1539,11 +1915,28 @@ cudaError_t launch_probe(const Probe& p, cudaStream_t st) {
 
 extern "C" {
 
-// Shared memory the FIR kernel needs for a composed response of ntaps taps
-// decimating by F, with (nb != 0) or without the noise blanker; 0 when no
-// instantiation covers it.
-size_t front_fir_smem_bytes(int ntaps, int F, int nb) {
-  return fir_smem_bytes(ntaps, F, nb != 0);
+// Shared memory front_fir needs for a composed response of ntaps taps
+// decimating by F, with (nb != 0) or without the noise blanker, on a
+// float32 (or, x_int16 != 0, int16) plane; 0 when no instantiation covers
+// it or it does not fit a block.
+size_t front_fir_smem_bytes(int ntaps, int F, int nb, int x_int16) {
+  const MarchGeom g(F, march_branch_taps(ntaps, F), x_int16 ? 2 : 4, nb != 0);
+  return g.ok() ? (size_t)g.smem : 0;
+}
+
+// front_fir's work items on `slots` resident blocks for a [T, 2C] plane:
+// out = {segment outputs, segments, items, grid, step rows, history rows,
+// ring rows, stages, box rows}; returns 0, or -1 when no instantiation
+// covers the plan.
+int front_fir_plan(int T, int C, int ntaps, int F, int nb, int x_int16,
+                   int slots, int* out) {
+  const MarchGeom g(F, march_branch_taps(ntaps, F), x_int16 ? 2 : 4, nb != 0);
+  if (!g.ok() || T <= 0 || C <= 0 || slots <= 0) return -1;
+  const MarchPlan p = march_plan(T, C, g, slots);
+  const int v[9] = {p.ms, p.nseg, p.items, p.grid, g.step_rows, g.hist,
+                    g.ring_rows, g.stages, g.box_rows};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  return 0;
 }
 
 const char* front_error_string(int err) {
@@ -1579,7 +1972,7 @@ int front_means_forward(int device, const void* x, int x_int16, int T,
 }
 
 // One fused front-end dispatch of T rows (T * 2C < 2^31; T a multiple of
-// 512, of F and of n; T / F / kM < 65536; r_rows <= n) of a float32 plane,
+// 512, of F and of n; r_rows <= n) of a float32 plane,
 // or of an int16 plane when x_int16 != 0, 16-byte aligned.  Scratch mseq:
 // [T/512, 2C].
 // IQ balance when iq_gain/iq_phase (device scalars) are not null.  The noise
@@ -1594,6 +1987,8 @@ int front_means_forward(int device, const void* x, int x_int16, int T,
 // the hq form; needs disc_gain, T/F even and >= comp_hr, comp_hr >=
 // comp_tc - 1) disc is the [T/(2F), C] composite decimated by 2, with
 // the carried comp_hist [comp_hr, C] and comp_hist_out [comp_hr, C].
+// front_fir stages by tensor-map boxes when fir_tma != 0 (C elements must
+// be a multiple of 16 bytes), else element by element.
 // Returns the first CUDA error.
 int front_forward(int device, const void* x, int x_int16, int T, int C,
                   int n, int r_rows, const float* dc_in, const float* tail_in,
@@ -1608,7 +2003,8 @@ int front_forward(int device, const void* x, int x_int16, int T, int C,
                   float disc_gain, const float* disc_last,
                   int y_tail_rows, float* disc, float* dlast, float* ytail,
                   const float* comp_taps, int comp_tc, const float* comp_hist,
-                  int comp_hr, float* comp_hist_out, void* stream) {
+                  int comp_hr, float* comp_hist_out, int fir_tma,
+                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (nb_mode && (nb_bw < 1 || nb_bw > kNbTailRows)) return cudaErrorInvalidValue;
@@ -1630,6 +2026,7 @@ int front_forward(int device, const void* x, int x_int16, int T, int C,
   f.nb = Nb{nb_mode, nb_bw, nb_thr2, nbseq, nb_avg_in, nb_tail_in, nb_mask};
   f.nb_a = nb_a; f.nb_b = nb_b;
   f.nb_avg_out = nb_avg_out; f.nb_tail_out = nb_tail_out;
+  f.fir_tma = fir_tma != 0;
   f.device = device;
   f.st = (cudaStream_t)stream;
   return x_int16 ? forward(static_cast<const int16_t*>(x), f)

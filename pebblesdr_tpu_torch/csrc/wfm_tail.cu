@@ -33,6 +33,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "polyphase.cuh"
+
 namespace {
 
 constexpr int kCg = 8;          // channels per block
@@ -145,9 +147,9 @@ wfm_tail_fir(const float* __restrict__ raw, int T, int C,
   }
   __syncthreads();
 
-  // 3. Polyphase FIR.  Slice s of branch p holds taps i = s*DPS + i' of
-  // h[F i + p]; tap i of local output ol reads shared row F (ol - i + DP)
-  // - 1 - p, i.e. row (F-1-p) + F (S-1-s) DPS + F (m-1) with
+  // 3. Polyphase FIR (polyphase.cuh).  Slice s of branch p holds taps
+  // i = s*DPS + i' of h[F i + p]; tap i of local output ol reads shared row
+  // F (ol - i + DP) - 1 - p, i.e. row slice_row(p, s) + F (m-1) with
   // m = ol - i' + DPS in [1, kM + DPS - 1].
   const int lx = threadIdx.x, g = threadIdx.y;
   float acc[kM];
@@ -158,17 +160,9 @@ wfm_tail_fir(const float* __restrict__ raw, int T, int C,
     float hr[DPS];
 #pragma unroll
     for (int i = 0; i < DPS; ++i) hr[i] = h_s[p * DP + s * DPS + i];
-    const float* col = u_s + ((F - 1 - p) + F * (S - 1 - s) * DPS) * kLanes + lx;
-    const int stride = F * kLanes;
-#pragma unroll
-    for (int m = 1; m < kM + DPS; ++m) {
-      const float v = col[(m - 1) * stride];
-#pragma unroll
-      for (int ol = 0; ol < kM; ++ol) {
-        const int i = ol + DPS - m;
-        if (i >= 0 && i < DPS) acc[ol] = fmaf(hr[i], v, acc[ol]);
-      }
-    }
+    poly::fir_column<kM, DPS>(
+        u_s + poly::slice_row(F, S, DPS, p, s) * kLanes + lx, F * kLanes, hr,
+        acc);
   }
   __syncthreads();
   float* red = u_s;                                // [kGroups][kM][kLanes]

@@ -68,13 +68,19 @@ from pebblesdr_tpu_torch.ops.mixer import TWO_PI, advance_phase
 DC_CHUNK = 512     # DC-estimate chunk (ops.iir.dc_removal_chunked)
 SUB_BLOCK = 2048   # phase decomposition block and the plain FIR's window step
 _Q = 128           # phase decomposition: coarse step
-_FIR_TILE = 24     # decimated outputs per FIR block (kM in csrc/front.cu)
-_FIR_GROUPS = 16   # phase groups per FIR block (kGroups)
-_FIR_LANES = 16    # lanes per FIR block: 8 channels x (re, im) (kLanes)
+_FIR_PART = 12     # decimated outputs of one front_fir part (kPartM in
+                   # csrc/front.cu)
+_FIR_GROUPS = 16   # branch groups of a part at most (kGroups)
+_FIR_BLOCK_GROUPS = 32  # thread groups of a front_fir block (kFirGroups)
+_FIR_LANES = 16    # lanes per work item: 8 channels x (re, im) (kLanes)
+_FIR_STAGE_BYTES = 49152  # the raw stages' budget (kMarchStageBytes)
+_FIR_MAX_STAGES = 8       # kMarchMaxStages
+_FIR_MAX_BOX = 256        # rows of a tensor-map box at most (kMarchMaxBox)
 _MAX_SMEM = 232448  # shared memory one Hopper block may use (kMaxSmem)
 FIR_BRANCH_TAPS = (8, 16, 24, 32, 40)  # front_fir instantiations (taps/branch)
+H100_SMS = 132     # streaming multiprocessors of an H100 SXM
 NB_TAIL_ROWS = 16  # carried spike-flag rows (the TPU kernel's tile height)
-_NB_HALO = NB_TAIL_ROWS - 1  # flag rows the FIR block stages above its tile
+_NB_HALO = NB_TAIL_ROWS - 1  # flag rows of context before a front_fir unit
 I16_SCALE = 2.0 ** -15      # int16 full scale 32768 -> 1.0
 NB_MODES = ("blank", "average")  # NB1, NB2
 COMP_DECIM = 2     # the hq composite decimation (comp_taps)
@@ -91,35 +97,145 @@ def comp_hist_rows(tc: int) -> int:
     return ((tc - 1 + 7) // 8) * 8
 
 
-def fir_smem_layout(ntaps: int, factor: int,
-                    nb: bool = False) -> dict[str, int] | None:
-    """front_fir's shared-memory layout in floats (FirSmem in csrc/front.cu,
-    mirrored), or None when no instantiation covers ntaps/factor taps per
-    branch.  'span' is the staged input rows; the u area holds them and,
-    after the FIR, the phase groups' partial sums.  With the noise blanker
-    the block also holds the entering averages of its chunks, up to 15
-    input rows above the tile and a 16-bit flag word per row."""
-    dp_need = -(-ntaps // factor)
-    dp = next((d for d in FIR_BRANCH_TAPS if dp_need <= d), 0)
+def fir_parts(factor: int) -> tuple[int, int]:
+    """(busy, parts) of front_fir's FIR map (march_busy, march_parts in
+    csrc/front.cu): a step's outputs are `parts` parts of 12, each made by
+    busy = min(F, 16) thread groups, one per branch (branches g, g + 16, ...
+    at F > 16), so all 32 groups of a block work at every F that divides
+    32 (the step is 12 parts outputs)."""
+    busy = min(factor, _FIR_GROUPS)
+    return busy, _FIR_BLOCK_GROUPS // busy
+
+
+def fir_group_items(factor: int) -> list[list[tuple[int, int]]]:
+    """front_fir's branch x part map: for each of a block's 32 thread
+    groups the (branch, part) items it runs; group G makes part G // busy
+    of branches G % busy, G % busy + 16, ... < F (fir_parts)."""
+    busy, parts = fir_parts(factor)
+    return [[(p, g // busy) for p in range(g % busy, factor, _FIR_GROUPS)]
+            if g // busy < parts else [] for g in range(_FIR_BLOCK_GROUPS)]
+
+
+def fir_branch_taps(ntaps: int, factor: int) -> int:
+    """Taps per polyphase branch of the front_fir instantiation that covers
+    ntaps taps at decimation `factor` (march_branch_taps), 0 when none
+    does."""
+    need = -(-ntaps // factor)
+    return next((d for d in FIR_BRANCH_TAPS if need <= d), 0)
+
+
+def fir_march_layout(ntaps: int, factor: int, nb: bool = False,
+                     elem: int = 4) -> dict[str, int] | None:
+    """front_fir's geometry and shared-memory layout in bytes (MarchGeom in
+    csrc/front.cu, mirrored) for a plane of elem-byte lanes, or None when
+    no instantiation covers ntaps/factor taps per branch or it does not fit
+    a block.  A step makes km = 12 parts outputs (fir_parts) from
+    step_rows = km F new rows; `stages` raw stages of one step each; the
+    ring of mixed rows holds the history (hist = F (DP - 1) rows) and the
+    fewest steps that keep its copy-down off its source; then the fine
+    phasors and phase parameters, the taps, two sets of a unit's tables,
+    the groups' partial sums (red = -1: inside the stage the step mixed,
+    when it is as large) and, with the blanker, the flag words."""
+    dp = fir_branch_taps(ntaps, factor)
     if not dp:
         return None
 
-    def a32(v):
-        return (v + 31) & ~31
+    def a128(v):
+        return (v + 127) & ~127
 
-    span = factor * (_FIR_TILE + dp - 1)
-    rows = span + (_NB_HALO if nb else 0)
-    max_q, max_chunks = span // _Q + 2, rows // DC_CHUNK + 2
-    fine_c = a32(factor * dp)
-    coarse_c = fine_c + 2 * _Q * 8
-    coarse_s = coarse_c + a32(max_q * 8)
-    dc = coarse_s + a32(max_q * 8)
-    avg = dc + a32(max_chunks * _FIR_LANES)
-    halo = avg + (a32(max_chunks * _FIR_LANES) if nb else 0)
-    flags = halo + (a32(_NB_HALO * _FIR_LANES) if nb else 0)
-    u = flags + (a32((rows + 1) // 2) if nb else 0)
-    return {"dp": dp, "span": span, "u": u,
-            "total": u + max(span, _FIR_GROUPS * _FIR_TILE) * _FIR_LANES}
+    busy, parts = fir_parts(factor)
+    km = _FIR_PART * parts
+    step_rows = km * factor
+    nbox = -(-step_rows // _FIR_MAX_BOX)
+    while step_rows % nbox:
+        nbox += 1
+    box_rows = step_rows // nbox
+    stage_bytes = step_rows * _FIR_LANES * elem
+    stages = min(max(_FIR_STAGE_BYTES // stage_bytes, 2), _FIR_MAX_STAGES)
+    hist = factor * (dp - 1)
+    ring_rows = hist + max(-(-hist // step_rows), 1) * step_rows
+    unit = max(hist, step_rows)
+    nq, nk = unit // _Q + 2, unit // DC_CHUNK + 2
+    lay = {"dp": dp, "busy": busy, "parts": parts, "km": km,
+           "step_rows": step_rows,
+           "box_rows": box_rows, "stage_bytes": stage_bytes,
+           "stages": stages, "hist": hist, "ring_rows": ring_rows,
+           "stage": 128}
+    # one set of a unit's tables: coarse phasors, DC and blanker averages
+    table = (a128(2 * nq * 8 * 4) + a128(nk * _FIR_LANES * 4)
+             + (a128(nk * _FIR_LANES * 4) if nb else 0))
+    o = 128 + stages * stage_bytes
+    plane = a128(ring_rows * 8 * 4)
+    lay["ring_re"], lay["ring_im"] = o, o + plane + 64
+    o = a128(lay["ring_im"] + plane)
+    lay["fine"] = o
+    o += 2 * _Q * 8 * 4 + 128                          # + phase parameters
+    lay["taps"] = o
+    o = a128(o + factor * dp * 4)
+    lay["tables"] = o                                  # two sets
+    o += 2 * table
+    red_bytes = parts * busy * _FIR_PART * _FIR_LANES * 4
+    lay["red_bytes"] = red_bytes
+    lay["red"] = -1 if stage_bytes >= red_bytes else o
+    if lay["red"] >= 0:
+        o = a128(o + red_bytes)
+    lay["flags"] = o
+    if nb:
+        o = a128(o + (_NB_HALO + unit) * 2)
+        o = a128(o + unit * 2)                         # dilated words
+    lay["smem"] = o
+    ok = (o <= _MAX_SMEM and stage_bytes < 2 ** 20
+          and (box_rows * 8 * elem) % 128 == 0)
+    return lay if ok else None
+
+
+def fir_march_plan(t: int, c: int, factor: int, ntaps: int,
+                   n_sm: int = H100_SMS, nb_bw: int = 0,
+                   elem: int = 4) -> dict | None:
+    """front_fir's work items at one block per SM (march_plan in
+    csrc/front.cu, mirrored): a channel group of 8 channels x a time segment
+    of `seg_outputs` outputs (the last segment shorter),
+    item i = segment i / groups, channel group i % groups.  The segment
+    length gives the fewest rows on the busiest block, among those with at
+    least two items per SM where the shape has them.  Each item mixes
+    `prologue_rows` rows before its first step (the history, and with the
+    blanker the bw - 1 flag rows above it), then marches in steps of
+    step_rows rows.  None when no instantiation covers the plan."""
+    lay = fir_march_layout(ntaps, factor, nb_bw > 0, elem)
+    if lay is None:
+        return None
+    m = t // factor
+    km = lay["km"]
+    groups = -(-c // 8)
+    max_seg = -(-m // km)
+    n_lo = min(max(-(-2 * n_sm // groups), 1), max_seg)
+    best = (None, m, 1)
+    for n in range(n_lo, min(4 * n_lo, max_seg) + 1):
+        ms = -(-m // n)
+        nseg = -(-m // ms)
+        if nseg < n_lo:
+            continue
+        cost = -(-groups * nseg // n_sm) * (
+            -(-ms // km) * lay["step_rows"] + lay["hist"] + lay["step_rows"])
+        if best[0] is None or cost < best[0]:
+            best = (cost, ms, nseg)
+    _, ms, nseg = best
+    items = groups * nseg
+    segments = [(o, min(o + ms, m)) for o in range(0, m, ms)]
+    return {"seg_outputs": ms, "segments": segments, "groups": groups,
+            "items": items, "grid": min(items, n_sm),
+            "steps": [-(-(e - o) // km) for o, e in segments],
+            "step_outputs": km, "step_rows": lay["step_rows"],
+            "prologue_rows": lay["hist"] + max(nb_bw - 1, 0),
+            "smem": lay["smem"], "layout": lay}
+
+
+def fir_tma(c: int, dtype: torch.dtype) -> bool:
+    """Whether front_fir stages a [T, 2C] plane of this dtype by tensor-map
+    boxes: a box starts on a 16-byte boundary, so C lanes must fill whole
+    16 bytes (float32: C % 4 == 0; int16: C % 8 == 0; the row pitch is then
+    a multiple of 16 bytes too); otherwise it stages element by element."""
+    return (c * (2 if dtype == torch.int16 else 4)) % 16 == 0
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -131,7 +247,8 @@ class FrontPlan:
     dc_alpha: float
     h: torch.Tensor        # [D+1] float32 composed response (kernel)
     w: torch.Tensor        # [d_rows + SUB_BLOCK, SUB_BLOCK/F] (plain version)
-    smem_bytes: int        # the CUDA FIR block's shared memory; 0 = no kernel
+    smem_bytes: int        # front_fir's shared memory (float32, no blanker);
+                           # 0 = no kernel covers the response
 
     @staticmethod
     def make(h_np: np.ndarray, factor: int, device,
@@ -139,12 +256,12 @@ class FrontPlan:
         d = len(h_np) - 1
         d_rows = ((d + 7) // 8) * 8
         w = decimator.build_composed_w(h_np, factor, SUB_BLOCK, d_rows - d)
-        lay = fir_smem_layout(len(h_np), factor)
+        lay = fir_march_layout(len(h_np), factor)
         return FrontPlan(
             factor=int(factor), d_rows=d_rows, dc_alpha=float(dc_alpha),
             h=torch.as_tensor(np.asarray(h_np, np.float32), device=device),
             w=torch.from_numpy(w).to(device),
-            smem_bytes=4 * lay["total"] if lay else 0)
+            smem_bytes=lay["smem"] if lay else 0)
 
     @property
     def ewma(self) -> tuple[float, float]:
@@ -422,15 +539,9 @@ def fused_front_reference(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
                                     disc_last, y_tail_rows, iq_gain, iq_phase,
                                     nb, nb_avg, nb_tail, comp_taps, comp_hist)
     x = dequantize(x)
-    c2 = x.shape[1]
-    c = c2 // 2
     means, raw = chunk_means_reference(x, n_block, r)
     m, z = dc_iq_reference(plan, x, dc, iq_gain, iq_phase, means)
-
-    # NCO mix: phasor = coarse (per 128 rows) x fine (row within them)
-    cos_a, sin_a = oscillator(phase0, f_hi, f_lo, t)            # [T, C] each
-    zr, zi = z[:, :c], z[:, c:]
-    u = torch.cat([zr * cos_a + zi * sin_a, zi * cos_a - zr * sin_a], dim=1)
+    u = mix_reference(z, phase0, f_hi, f_lo)
     nb_out = ()
     if nb is not None:
         fl = nb_flags(z, nb, nb_avg, nb_tail)
@@ -443,11 +554,7 @@ def fused_front_reference(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
         if nb_mask is not None:
             nb_mask.copy_(fl.widened)
 
-    # composed FIR: each SUB_BLOCK of outputs is W^T against its
-    # tail-extended window
-    ext = torch.cat([tail, u], dim=0)                           # [d_rows+T, 2C]
-    wins = ext.unfold(0, plan.d_rows + SUB_BLOCK, SUB_BLOCK)     # [nsub, 2C, L]
-    y = torch.matmul(wins, plan.w).transpose(1, 2).reshape(t // plan.factor, c2)
+    y, ext = fir_reference(plan, u, tail)
     ret = (y, m[-1:], ext[ext.shape[0] - plan.d_rows:].contiguous(),
            advance_phase(phase0, t, f_hi, f_lo), raw) + nb_out
     if not disc_gain:
@@ -455,7 +562,7 @@ def fused_front_reference(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
     disc, dlast = discriminate(y, disc_last, disc_gain)
     if y_tail_rows:   # each block's trailing y_tail_rows rows
         mb = n_block // plan.factor
-        ret = (y.reshape(t // n_block, mb, c2)[:, mb - y_tail_rows:]
+        ret = (y.reshape(t // n_block, mb, y.shape[1])[:, mb - y_tail_rows:]
                .contiguous(),) + ret[1:]
     if comp_taps is None:
         return ret + (disc, dlast)
@@ -464,6 +571,29 @@ def fused_front_reference(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
     disc, _ = fir.tm_fir_decimate(disc, comp_taps, comp_hist[hr - (tc - 1):],
                                   COMP_DECIM)
     return ret + (disc, dlast, hist_out)
+
+
+def mix_reference(z: torch.Tensor, phase0: torch.Tensor, f_hi: torch.Tensor,
+                  f_lo: torch.Tensor) -> torch.Tensor:
+    """The NCO mix of a packed plane z [T, 2C]: u = z exp(-j 2 pi phi(t)),
+    the phasor as coarse (per 128 rows) x fine (row within them)."""
+    c = z.shape[1] // 2
+    cos_a, sin_a = oscillator(phase0, f_hi, f_lo, z.shape[0])  # [T, C] each
+    zr, zi = z[:, :c], z[:, c:]
+    return torch.cat([zr * cos_a + zi * sin_a, zi * cos_a - zr * sin_a],
+                     dim=1)
+
+
+def fir_reference(plan: FrontPlan, u: torch.Tensor, tail: torch.Tensor):
+    """The composed decimating FIR of a mixed plane u [T, 2C] with the
+    carried post-mix tail [d_rows, 2C]: (y [T/F, 2C], the tail-extended
+    plane [d_rows + T, 2C]); each SUB_BLOCK of outputs is W^T against its
+    tail-extended window."""
+    t, c2 = u.shape
+    ext = torch.cat([tail, u], dim=0)
+    wins = ext.unfold(0, plan.d_rows + SUB_BLOCK, SUB_BLOCK)     # [nsub, 2C, L]
+    y = torch.matmul(wins, plan.w).transpose(1, 2).reshape(t // plan.factor, c2)
+    return y, ext
 
 
 @functools.lru_cache(maxsize=8)
@@ -532,7 +662,12 @@ def unfold_plane(x_f: torch.Tensor, fold: int) -> torch.Tensor:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """csrc/front.cu, built at first use, with its C signatures declared."""
-    lib = build.load("front")
+    return declare(build.load("front"))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """A library built from csrc/front.cu with its C signatures declared
+    (also for the variants tools/ring_sweep.py builds)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.front_forward.restype = ctypes.c_int
     lib.front_forward.argtypes = [
@@ -542,11 +677,14 @@ def _lib() -> ctypes.CDLL:
         p, p,                           # iq_gain, iq_phase
         i, f, i, f, f, p, p, p, p, p, p,  # nb_mode .. nb_mask
         f, p, i, p, p, p,               # disc_gain .. ytail
-        p, i, p, i, p, p]               # comp_taps .. comp_hist_out, stream
+        p, i, p, i, p, i, p]            # comp_taps .. comp_hist_out, fir_tma,
+                                        # stream
     lib.front_error_string.restype = ctypes.c_char_p
     lib.front_error_string.argtypes = [i]
     lib.front_fir_smem_bytes.restype = ctypes.c_size_t
-    lib.front_fir_smem_bytes.argtypes = [i, i, i]
+    lib.front_fir_smem_bytes.argtypes = [i, i, i, i]
+    lib.front_fir_plan.restype = ctypes.c_int
+    lib.front_fir_plan.argtypes = [i, i, i, i, i, i, i, p]
     lib.front_means_smem_bytes.restype = ctypes.c_size_t
     lib.front_means_smem_bytes.argtypes = [i, i]
     lib.front_means_forward.restype = ctypes.c_int
@@ -590,6 +728,8 @@ def fused_front(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
                   disc_gain, disc_last, y_tail_rows, iq_gain, iq_phase, nb,
                   nb_avg, nb_tail, nb_mask, comp_taps, comp_hist)
     fused_front.launches += 1
+    if not fir_tma(x.shape[1] // 2, x.dtype):
+        fused_front.element_launches += 1
     chunk_means.launches += 1      # K1's first pass is front_means
     return ret
 
@@ -630,15 +770,17 @@ def _launch(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
                             .tobytes(), dev)
         hr = comp_hist.shape[0]
         _check_cuda("comp_hist", comp_hist, dev, (hr, c))
-    if t * c2 >= 2 ** 31 or t // plan.factor >= _FIR_TILE * 65536:
+    if t * c2 >= 2 ** 31:
         raise ValueError(f"front dispatch of {t} x {c2} is too large for one "
                          f"kernel launch")
     lib = _lib()
-    smem = lib.front_fir_smem_bytes(plan.h.numel(), plan.factor,
-                                    int(nb is not None))
-    if not 0 < smem <= _MAX_SMEM:
-        raise ValueError(f"composed response of {plan.h.numel()} taps at "
-                         f"factor {plan.factor} does not fit the FIR tile")
+    i16 = x.dtype == torch.int16
+    if not lib.front_fir_smem_bytes(plan.h.numel(), plan.factor,
+                                    int(nb is not None), int(i16)):
+        raise ValueError(f"no front_fir instantiation takes a composed "
+                         f"response of {plan.h.numel()} taps at factor "
+                         f"{plan.factor}")
+    tma = fir_tma(c, x.dtype)
     a, b = plan.ewma
 
     def empty(*shape):
@@ -680,7 +822,7 @@ def _launch(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
         float(disc_gain), ptr(disc_last), int(y_tail_rows),
         ptr(disc), ptr(dlast), ptr(ytail), ptr(ct),
         0 if ct is None else ct.numel(), ptr(comp_hist), hr or 0,
-        ptr(hist_out), torch.cuda.current_stream(dev).cuda_stream)
+        ptr(hist_out), int(tma), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"front kernel launch failed: CUDA error {err} "
                            f"({lib.front_error_string(err).decode()})")
@@ -700,6 +842,10 @@ def _comp_taps_dev(taps_bytes: bytes, device: torch.device) -> torch.Tensor:
 
 
 fused_front.launches = 0  # CUDA kernel launches (the plain path never counts)
+# of those, the launches whose front_fir staged the plane element by element
+# (its row pitch breaks the tensor map's 16-byte rule, fir_tma); the rest
+# staged it by tensor-map boxes
+fused_front.element_launches = 0
 # front_means launches: chunk_means', and those inside K1 (fused_front, one
 # per call) and the probes (kprobe.probe_front, one per plane)
 chunk_means.launches = 0

@@ -1,0 +1,67 @@
+"""Dispatch ms and device busy per dispatch of receiver cells on the card,
+for the checkout at ROOT (default: this one; any checkout of the port with
+a chip_smoke.py, e.g. a parent commit unpacked under build/).
+
+    python pebblesdr_tpu_torch/tools/cell_profile.py [ROOT [TAG [CELL ...]]]
+
+(run as a script, not with -m, so that ROOT's package is the one imported)
+
+Cells (PERF.md section 4, default all three): am_64ch (AM, 64 channels, 32
+blocks of 32768 frames), wfm_64ch (FM stereo, the same shape) and
+wfm_hq_64ch (FM stereo at the hq geometry).  Each is built and timed by
+ROOT's chip_smoke.py: time_cells (3 warm-up dispatches, then 3 windows of
+10 dispatches with spectra every 6th; launch counts, audio shape, squelch,
+pilot lock and tone SNR checked), then dispatch_profile (5 dispatches with
+spectra off: ms by events, host enqueue, device busy from torch.profiler,
+idle share).  The last line is one JSON object of the results.  Raises
+without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+CELLS = {"am_64ch": ("AM", {}), "wfm_64ch": ("FMS", {}),
+         "wfm_hq_64ch": ("FMS", {"wfm_hq": True})}
+
+
+def main(argv: list[str] | None = None) -> dict:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    root = os.path.abspath(argv[0] if argv else os.getcwd())
+    tag = argv[1] if len(argv) > 1 else os.path.basename(root)
+    names = argv[2:] or list(CELLS)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import torch
+
+    import chip_smoke as cs
+    from pebblesdr_tpu_torch.chain import receiver
+    from pebblesdr_tpu_torch.ops import front, wfm_tail
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("cell_profile needs a CUDA device")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(f"[{tag}] {card}", flush=True)
+    res = {}
+    for name in names:
+        mode, opts = CELLS[name]
+        cell = cs.make_cell(torch, receiver, front,
+                            getattr(receiver.DemodMode, mode), name, 64, 32,
+                            opts=opts)
+        cs.time_cells(torch, front, wfm_tail, [cell], f"[{tag}]")
+        prof = cs.dispatch_profile(torch, cell, f"[{tag}]")
+        res[name] = {"windows": cell["windows"], **prof}
+        del cell
+        torch.cuda.empty_cache()
+    out = {"tag": tag, "device": card, "cells": res}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

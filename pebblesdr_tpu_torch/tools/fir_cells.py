@@ -1,0 +1,154 @@
+"""K1 and its FIR pass front_fir at the shape and form of each front cell,
+on the card, for the checkout at ROOT (default: this one; any checkout of
+the port with a chip_smoke.py, e.g. a parent commit unpacked under build/).
+
+    python pebblesdr_tpu_torch/tools/fir_cells.py [ROOT [TAG]]
+
+(run as a script, not with -m, so that ROOT's package is the one imported)
+
+Cells (PERF.md section 4): am_64ch (base form), am_nb_64ch (NB1 + IQ),
+am_256ch, am_i16_256ch (int16), am_16ch, wfm_64ch (the F = 8 plan) and
+wfm_hq_64ch (the F = 4 plan), each on its cell's plane from chip_smoke.py
+with a small carried tail.  K1 is first checked against its plain version
+on the same inputs (chip_smoke.check_options_form: 3e-5 relative, blanker
+flags equal); then timed: CUDA events around 10 calls after 3 warm-ups,
+the host's enqueue ms per call over 20 calls, and the device time per
+launch of each kernel over 10 calls (torch.profiler); and the sha256 of
+one call's y and tail', so that two checkouts' runs show whether their
+outputs are the same bits.  The WFM plans run K1's base form: front_fir
+is the same pass in every form.  The last line is one JSON object of the
+results.  Raises without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+FS = 2_048_000
+N = 32768
+# (cell, channels, blocks, form, plan)
+CELLS = (("am_64ch", 64, 32, "f32", "am"),
+         ("am_nb_64ch", 64, 32, "nb1_iq", "am"),
+         ("am_256ch", 256, 16, "f32", "am"),
+         ("am_i16_256ch", 256, 16, "i16", "am"),
+         ("am_16ch", 16, 64, "f32", "am"),
+         ("wfm_64ch", 64, 32, "f32", "wfm"),
+         ("wfm_hq_64ch", 64, 32, "f32", "hq"))
+PROTECT = {"am": 30_000, "wfm": 200_000, "hq": 400_000}
+
+
+def kernel_ms(torch, fn, reps: int = 10) -> dict:
+    """Device ms per launch of each front_* kernel fn launches."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0) or 0
+        m = re.search(r"front_\w+", ev.key)
+        if us and m:
+            tot, n = rows.get(m.group(0), (0.0, 0))
+            rows[m.group(0)] = (tot + us / 1e3, n + ev.count)
+    return {k: tot / n for k, (tot, n) in rows.items()}
+
+
+def main(argv: list[str] | None = None) -> dict:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    root = os.path.abspath(argv[0] if argv else os.getcwd())
+    tag = argv[1] if len(argv) > 1 else os.path.basename(root)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import torch
+
+    import chip_smoke as cs
+    from pebblesdr_tpu_torch.ops import decimator, front
+    from pebblesdr_tpu_torch.ops.mixer import split_freq
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("fir_cells needs a CUDA device")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(f"[{tag}] {card}", flush=True)
+    plans = {}
+    for name, protect in PROTECT.items():
+        p = decimator.build_plan(FS, protect)
+        plans[name] = front.FrontPlan.make(decimator.compose_response(p),
+                                           p.factor, "cuda")
+    zeros = dict(dtype=torch.float32, device="cuda")
+    iq = tuple(torch.tensor(v, device="cuda") for v in cs.IQ)
+    res = {}
+    for name, c, k, form, pk in CELLS:
+        plan = plans[pk]
+        i16 = form == "i16"
+        block = cs.am_plane(c, N, None)
+        x = torch.from_numpy(cs.to_i16(block) if i16 else block).cuda()
+        x = x.repeat(k, 1).contiguous()
+        tunes = [split_freq(250_000.0 + 1234.5 * i, FS) for i in range(c)]
+        f_hi, f_lo = (torch.tensor(np.array([v[j] for v in tunes]),
+                                   device="cuda") for j in (0, 1))
+        tail = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (plan.d_rows, 2 * c)).astype(np.float32) * 0.1).cuda()
+        args = (x, torch.full((1, 2 * c), 0.01, **zeros),
+                torch.full((c,), 0.3, **zeros), f_hi, f_lo, tail)
+        kw = dict(n_block=N, raw_rows=2048)
+        if form == "nb1_iq":
+            kw.update(iq_gain=iq[0], iq_phase=iq[1], nb=cs.NB1,
+                      nb_avg=torch.zeros(1, 2 * c, **zeros),
+                      nb_tail=torch.zeros(16, 2 * c, **zeros))
+        check = cs.check_options_form(torch, front, plan, args, kw,
+                                      f"[{tag}] {name}")
+
+        def call():
+            return front.fused_front(plan, *args, **kw)
+
+        out = call()
+        bits = {nm: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()[:16]
+                for nm, v in (("y", out[0]), ("tail", out[2]))}
+        del out
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            call()
+        end.record()
+        end.synchronize()
+        k1 = start.elapsed_time(end) / 10
+        launches = kernel_ms(torch, call)
+        h0 = time.perf_counter()
+        for _ in range(20):
+            call()
+        host = (time.perf_counter() - h0) / 20 * 1e3
+        torch.cuda.synchronize()
+        fir = next((v for kk, v in launches.items()
+                    if kk.startswith("front_fir")), None)
+        print(f"[{tag}] {name}: front_fir {fir:.4f} ms per launch, K1 "
+              f"{k1:.4f} ms (events), host {host:.4f} ms per call; sha256 "
+              f"y {bits['y']} tail' {bits['tail']}; per launch: "
+              + ", ".join(f"{kk} {v:.4f}" for kk, v in
+                          sorted(launches.items())), flush=True)
+        res[name] = {"front_fir_ms": fir, "k1_ms": k1, "host_ms": host,
+                     "launch_ms": launches, "worst": check["worst"],
+                     "sha256": bits}
+        del args, x, tail
+        torch.cuda.empty_cache()
+    out = {"tag": tag, "device": card, "cells": res}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,8 @@
 """The H100's peak rates and the least time a kernel's work could take on
 it, from the bytes it must move and the operations it must do.
 
-One place for the rates and for the bounds of K1, its first pass front_means
-and K2, read by chip_smoke.py, ops/kprobe.py and the tools.
+One place for the rates and for the bounds of K1, its passes front_means
+and front_fir, and K2, read by chip_smoke.py, ops/kprobe.py and the tools.
 """
 
 from __future__ import annotations
@@ -58,6 +58,17 @@ def k1_bound(plan, t: int, c: int, x_bytes: int, n_block: int,
            + (3 * t * c if iq else 0) + (6 * t * c if nb else 0)
            + (26 * m * c if disc else 0) + 2 * comp_taps * (m // 2) * c)
     return bound(nbytes, ops)
+
+
+def fir_bound(plan, t: int, c: int, x_bytes: int) -> dict:
+    """front_fir's bound (K1's FIR pass, with its DC removal and mix): the
+    [t, 2c] plane read once (x_bytes per element), its chunk DC estimates
+    and the carried tail read, y [t/F, 2c] written once in float32; 2 taps
+    operations per decimated lane."""
+    c2, m = 2 * c, t // plan.factor
+    nbytes = (t * c2 * x_bytes + (t // 512) * c2 * 4 + plan.d_rows * c2 * 4
+              + m * c2 * 4)
+    return bound(nbytes, 2 * plan.h.numel() * m * c2)
 
 
 def k2_bound(tplan, n: int, c: int) -> dict:

@@ -82,3 +82,26 @@ def test_ring_sweep_needs_a_card():
         pytest.skip("builds and times kernels on a card")
     with pytest.raises(RuntimeError, match="CUDA"):
         ring_sweep.main(["built"])
+
+
+@pytest.mark.parametrize("variant", ["part8", "part16", "stages_deep",
+                                     "block_per_item"])
+def test_ring_sweep_march_variants_set_front_fir_constants(variant):
+    """Each --march variant rewrites front_fir's constants once."""
+    from pebblesdr_tpu_torch.tools import ring_sweep
+    src = (build.CSRC / "front.cu").read_text()
+    values = ring_sweep.MARCH_VARIANTS[variant]
+    out = ring_sweep.variant_source(src, values, ring_sweep.MARCH_CONSTANTS)
+    for name, value in zip(ring_sweep.MARCH_CONSTANTS, values):
+        assert f"constexpr int {name} = {value};" in out
+    assert out.count("\n") == src.count("\n")
+
+
+def test_ring_sweep_march_needs_a_card():
+    import torch
+
+    from pebblesdr_tpu_torch.tools import ring_sweep
+    if torch.cuda.is_available():
+        pytest.skip("builds and times kernels on a card")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ring_sweep.main(["--march", "built"])

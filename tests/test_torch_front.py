@@ -179,25 +179,98 @@ def test_build_is_lazy_and_source_hashed():
 @pytest.mark.parametrize("ntaps,factor", [(20, 4), (9, 8), (30, 2), (283, 8),
                                           (711, 32)])
 def test_fir_smem_holds_staging_and_partial_sums(ntaps, factor):
-    """front_fir's u area first stages span input rows, then holds the 16
-    groups' partial sums [16][24][16 lanes]: the layout reserves the larger
-    (small factors with few taps stage fewer rows than the sums need)."""
-    lay = front.fir_smem_layout(ntaps, factor)
-    span_floats = lay["span"] * 16
-    sums_floats = 16 * 24 * 16
-    assert lay["total"] - lay["u"] == max(span_floats, sums_floats)
-    if factor <= 4:
-        assert span_floats < sums_floats      # the geometry the repair covers
+    """front_fir's layout: at least two raw stages of one step (km outputs,
+    km F rows x 16 lanes; km = 12 parts, 32 / min(F, 16) parts), a ring of
+    mixed rows that holds the history F (DP - 1) and whole steps after it
+    (enough that copying the history down never overlaps its source), the
+    re and im planes 16 floats apart in the banks, and the groups' partial
+    sums [parts][min(F, 16)][12][16] inside the stage the step mixed or in
+    a region of their own, all in the block's 232448 bytes."""
+    lay = front.fir_march_layout(ntaps, factor)
+    km = {32: 24, 8: 48, 4: 96, 2: 192}[factor]
+    assert lay["km"] == 12 * front.fir_parts(factor)[1] == km
+    assert lay["step_rows"] == km * factor
+    assert lay["stages"] >= 2
+    assert lay["stage_bytes"] == lay["step_rows"] * 16 * 4
+    assert lay["ring_re"] >= 128 + lay["stages"] * lay["stage_bytes"]
+    assert lay["hist"] == factor * (lay["dp"] - 1)
+    assert lay["dp"] * factor >= ntaps
+    steps = lay["ring_rows"] - lay["hist"]
+    assert steps >= lay["step_rows"] and steps % lay["step_rows"] == 0
+    assert steps >= lay["hist"]
+    assert lay["ring_im"] - lay["ring_re"] >= lay["ring_rows"] * 8 * 4
+    assert (lay["ring_im"] - lay["ring_re"]) % 128 == 64
+    assert lay["red_bytes"] == km * min(factor, 16) * 16 * 4
+    if lay["red"] < 0:
+        assert lay["stage_bytes"] >= lay["red_bytes"]
+    else:
+        assert lay["red"] + lay["red_bytes"] <= lay["smem"]
+    assert lay["smem"] <= 232448
     h = np.full(ntaps, 1.0 / ntaps)
     plan = front.FrontPlan.make(h, factor, "cpu")
-    assert plan.smem_bytes == 4 * lay["total"] <= 232448
+    assert plan.smem_bytes == lay["smem"]
 
 
 def test_fir_branch_taps_cover_the_wfm_plan():
     p = tdec.build_plan(FS, 200_000)
     h = tdec.compose_response(p)
     assert (p.factor, len(h)) == (8, 283)
-    assert front.fir_smem_layout(len(h), p.factor)["dp"] == 40
-    # no instantiation holds 100 taps per branch: the card path refuses it
-    assert front.fir_smem_layout(200, 2) is None
+    lay = front.fir_march_layout(len(h), p.factor)
+    # 36 taps per branch (zero-padded to 40), 8 branch groups x 4 parts
+    assert (lay["dp"], lay["busy"], lay["parts"], lay["km"]) == (40, 8, 4, 48)
+    # no branch holds 100 taps: the card path refuses it
+    assert front.fir_march_layout(200, 2) is None
     assert front.FrontPlan.make(np.ones(200) / 200, 2, "cpu").smem_bytes == 0
+
+
+# (T, C, F, taps, blank width, bytes per lane) of the cells in PERF.md
+# section 4 (wfm_rds_64ch has wfm_64ch's front)
+CELL_SHAPES = {
+    "am_64ch": (1 << 20, 64, 32, 711, 0, 4),
+    "am_nb_64ch": (1 << 20, 64, 32, 711, 7, 4),
+    "am_256ch": (1 << 19, 256, 32, 711, 0, 4),
+    "am_i16_256ch": (1 << 19, 256, 32, 711, 0, 2),
+    "am_16ch": (1 << 21, 16, 32, 711, 0, 4),
+    "wfm_64ch": (1 << 20, 64, 8, 283, 0, 4),
+    "wfm_hq_64ch": (1 << 20, 64, 4, 135, 0, 4),
+    "wfm_16ch": (1 << 21, 16, 8, 283, 0, 4),
+}
+
+
+@pytest.mark.parametrize("cell", list(CELL_SHAPES))
+def test_fir_march_plan_covers_every_output_once(cell):
+    """Every decimated output of the cell is made by exactly one step of one
+    item per channel group, with at least two items per H100 SM, and each
+    item mixes F (DP - 1) history rows (+ bw - 1 flag rows) first."""
+    t, c, f, ntaps, bw, elem = CELL_SHAPES[cell]
+    plan = front.fir_march_plan(t, c, f, ntaps, nb_bw=bw, elem=elem)
+    m, km = t // f, plan["step_outputs"]
+    assert plan["step_rows"] == km * f >= 384
+    count = np.zeros(m, np.int64)
+    for (o_s, o_e), steps in zip(plan["segments"], plan["steps"]):
+        for j in range(steps):
+            o = np.arange(o_s + km * j, o_s + km * (j + 1))
+            count[o[o < o_e]] += 1
+        assert o_e - o_s <= plan["seg_outputs"]
+        assert steps == -(-(o_e - o_s) // km)
+    assert (count == 1).all()
+    assert plan["items"] == plan["groups"] * len(plan["segments"]) >= 264
+    assert plan["groups"] == -(-c // 8)
+    lay = plan["layout"]
+    assert lay["hist"] == f * (lay["dp"] - 1)
+    assert plan["prologue_rows"] == lay["hist"] + max(bw - 1, 0)
+    assert plan["smem"] <= 232448
+
+
+@pytest.mark.parametrize("factor", [32, 8, 4, 2])
+def test_fir_branch_part_map_leaves_no_group_idle(factor):
+    """front_fir's 32 thread groups split the F branches x the step's
+    parts: every group has work, every (branch, part) is run once, and at
+    F <= 16 each group runs exactly one item (at F = 32, two branches)."""
+    groups = front.fir_group_items(factor)
+    busy, parts = front.fir_parts(factor)
+    assert (busy, parts) == (min(factor, 16), 32 // min(factor, 16))
+    assert len(groups) == 32 and all(groups)
+    items = sorted(it for g in groups for it in g)
+    assert items == sorted((p, q) for p in range(factor) for q in range(parts))
+    assert all(len(g) == (2 if factor == 32 else 1) for g in groups)

@@ -284,13 +284,48 @@ def test_option_arguments_checked(bad):
 
 @pytest.mark.parametrize("ntaps,factor", [(711, 32), (283, 8), (9, 8)])
 def test_nb_smem_layout_fits_two_blocks_per_sm(ntaps, factor):
-    """The blanker's extra shared memory (entering averages, 15 staged rows
-    above the tile, a flag word per row) keeps the AM and WFM plans at two
-    FIR blocks per SM (228 KB per SM, 1 KB reserved per block)."""
-    base = front.fir_smem_layout(ntaps, factor)
-    lay = front.fir_smem_layout(ntaps, factor, nb=True)
-    assert lay["total"] - lay["u"] == base["total"] - base["u"]
-    assert lay["u"] > base["u"]
-    assert 2 * (4 * lay["total"] + 1024) <= 228 * 1024
+    """The blanker's extra shared memory (the entering averages, 15 flag
+    words of context plus one unit's, and one unit's dilated words) sits
+    after the base layout's regions, which it leaves as they are; with it
+    front_fir still fits one block (232448 bytes) in float32 and int16, and
+    the int16 stages take half the float32 stages' bytes."""
+    base = front.fir_march_layout(ntaps, factor)
+    lay = front.fir_march_layout(ntaps, factor, nb=True)
+    unit = max(lay["hist"], lay["step_rows"])
+    for key in ("ring_re", "ring_im", "fine", "taps", "red"):
+        assert lay[key] == base[key]
+    assert lay["smem"] - lay["flags"] >= (15 + unit) * 2 + unit * 2
+    assert lay["smem"] > base["smem"]
+    i16 = front.fir_march_layout(ntaps, factor, nb=True, elem=2)
+    assert 2 * i16["stage_bytes"] == lay["stage_bytes"]
+    assert max(lay["smem"], i16["smem"]) <= 232448
     plan = front.FrontPlan.make(np.full(ntaps, 1.0 / ntaps), factor, "cpu")
-    assert plan.smem_bytes == 4 * base["total"]
+    assert plan.smem_bytes == base["smem"]
+
+
+@pytest.mark.parametrize("nb", [False, True])
+@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("protect", [30_000, 200_000, 400_000])
+def test_every_port_plan_fits_front_fir(protect, elem, nb):
+    """The AM, WFM and hq plans the port runs have a front_fir layout, with
+    and without the blanker, on float32 and int16 planes."""
+    p = tdec.build_plan(FS, protect)
+    h = tdec.compose_response(p)
+    lay = front.fir_march_layout(len(h), p.factor, nb=nb, elem=elem)
+    assert lay is not None and lay["smem"] <= 232448
+    assert lay["dp"] * p.factor >= len(h)
+
+
+@pytest.mark.parametrize("c,dtype,tma", [(8, torch.float32, True),
+                                         (4, torch.float32, True),
+                                         (3, torch.float32, False),
+                                         (6, torch.float32, False),
+                                         (13, torch.float32, False),
+                                         (6, torch.int16, False),
+                                         (12, torch.int16, False),
+                                         (64, torch.int16, True)])
+def test_fir_staging_path_follows_the_row_pitch(c, dtype, tma):
+    """front_fir stages by tensor-map boxes when the im lanes start on a
+    16-byte boundary (float32: C % 4 == 0; int16: C % 8 == 0; the row pitch
+    is then a multiple of 16 bytes too), else element by element."""
+    assert front.fir_tma(c, dtype) is tma

@@ -144,21 +144,148 @@ def test_matmuls_are_ieee_float32(cuda):
 
 
 def test_shared_memory_layouts_match_the_sources(cuda):
-    """front_fir's shared-memory layout mirrored in Python (the CPU size
-    check) agrees with the CUDA source; the stereo tail's FIR block fits
-    for the covered low-passes and is refused past its largest slice."""
+    """front_fir's layout and work plan mirrored in Python (the CPU size
+    and coverage checks) agree with the CUDA source; the stereo tail's FIR
+    block fits for the covered low-passes and is refused past its largest
+    slice."""
+    import ctypes
     lib = front._lib()
+    out = (ctypes.c_int * 9)()
     for ntaps, factor in ((20, 4), (9, 8), (30, 2), (283, 8), (711, 32),
-                          (200, 2)):
+                          (135, 4), (200, 2)):
         for nb in (False, True):
-            lay = front.fir_smem_layout(ntaps, factor, nb)
-            assert lib.front_fir_smem_bytes(ntaps, factor, int(nb)) == (
-                4 * lay["total"] if lay else 0)
+            for elem in (4, 2):
+                lay = front.fir_march_layout(ntaps, factor, nb, elem)
+                assert lib.front_fir_smem_bytes(
+                    ntaps, factor, int(nb), int(elem == 2)) == (
+                    lay["smem"] if lay else 0)
+                for t, c in ((1 << 20, 64), (1 << 19, 256), (1 << 21, 16),
+                             (8192, 13)):
+                    plan = front.fir_march_plan(t, c, factor, ntaps, 132,
+                                                7 if nb else 0, elem)
+                    r = lib.front_fir_plan(t, c, ntaps, factor, int(nb),
+                                           int(elem == 2), 132, out)
+                    if plan is None:
+                        assert r == -1
+                        continue
+                    lay = plan["layout"]
+                    assert r == 0 and list(out) == [
+                        plan["seg_outputs"], len(plan["segments"]),
+                        plan["items"], plan["grid"], plan["step_rows"],
+                        lay["hist"], lay["ring_rows"], lay["stages"],
+                        lay["box_rows"]]
     tlib = wfm_tail._lib()
     for ntaps, factor, ell in ((235, 4, 256), (31, 4, 128), (235, 2, 256),
                                (501, 4, 256)):
         assert 0 < tlib.wfm_tail_smem_bytes(ntaps, factor, ell) <= 232448
     assert tlib.wfm_tail_smem_bytes(600, 4, 256) == 0
+
+
+# front_fir's seams: (C, blocks of 2048 rows, plan, dtype, blanker); the
+# plans: "am" F = 32, "wfm" F = 8, "hq" F = 4, "f2" a 30-tap response at
+# F = 2
+MARCH_CASES = {
+    "am_c8_seams": (8, 12, "am", "f32", None),
+    "am_c64_short_last": (64, 4, "am", "f32", None),
+    "am_c256": (256, 8, "am", "f32", None),
+    "am_c3_elements": (3, 8, "am", "f32", None),
+    "am_c13_elements": (13, 8, "am", "f32", None),
+    "am_i16_c64_tma": (64, 8, "am", "i16", None),
+    "am_i16_c6_elements": (6, 8, "am", "i16", None),
+    "am_i16_c13_elements": (13, 8, "am", "i16", None),
+    "wfm_c64": (64, 16, "wfm", "f32", None),
+    "hq_c64": (64, 16, "hq", "f32", None),
+    "f2_c8": (8, 8, "f2", "f32", None),
+    "am_c16_nb1_seams": (16, 16, "am", "f32", "blank"),
+    "wfm_c13_nb2_seams": (13, 16, "wfm", "f32", "average"),
+    "am_i16_c8_nb1": (8, 12, "am", "i16", "blank"),
+}
+
+
+@pytest.mark.parametrize("case", list(MARCH_CASES))
+def test_front_fir_march_matches_plain_across_seams(cuda, case):
+    """front_fir's time march against the plain version over two streaming
+    calls with a non-zero carried tail: planes with many segments (their
+    seams on and off a 512-row DC chunk boundary), a last segment shorter
+    than the history, partial channel groups, the element-by-element
+    staging (C = 3, 13; int16 C = 6, 13) and the tensor map (C = 8, 64, 256;
+    int16 C = 8, 64), F = 32, 8, 4, 2, and NB1 / NB2 with impulses
+    straddling the segment seams (margin asserted, no flag mismatch)."""
+    c, blocks, kind, dtype, mode = MARCH_CASES[case]
+    n = 2048
+    t = blocks * n
+    if kind == "f2":
+        h = np.random.default_rng(3).standard_normal(30) / 30
+        plan = front.FrontPlan.make(h, 2, cuda)
+    else:
+        plan = _plan(cuda, {"am": 30_000, "wfm": 200_000, "hq": 400_000}[kind])
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    bw = 7 if mode else 0
+    mp = front.fir_march_plan(t, c, plan.factor, plan.h.numel(), sms, bw,
+                              2 if dtype == "i16" else 4)
+    starts = [plan.factor * o - plan.factor + 1 for o, _ in mp["segments"]]
+    assert len(starts) > 1
+    if case == "am_c8_seams":     # seams on and off a DC chunk boundary
+        seams = [plan.factor * o for o, _ in mp["segments"][1:]]
+        assert any(v % 512 == 0 for v in seams)
+        assert any(v % 512 for v in seams)
+    if case == "am_c64_short_last":
+        o_s, o_e = mp["segments"][-1]
+        assert (o_e - o_s) * plan.factor < mp["layout"]["hist"]
+    hi, lo = _tunes(c, cuda)
+    rng = np.random.default_rng(17)
+    nb = (3.3, bw, 0.001, mode) if mode else None
+    iq = ((torch.tensor(1.05, device=cuda), torch.tensor(0.02, device=cuda))
+          if mode else (None, None))
+    z = dict(device=cuda)
+    tail = torch.from_numpy(rng.standard_normal((plan.d_rows, 2 * c))
+                            .astype(np.float32) * 0.1).to(cuda)
+    st_k = st_r = (torch.full((1, 2 * c), 0.02, **z),
+                   torch.full((c,), 0.3, **z), tail,
+                   torch.full((1, 2 * c), 0.1, **z),
+                   torch.zeros(16, 2 * c, **z))
+    for _ in range(2):
+        x = (_am_plane(c, t, rng).numpy() + 0.04) if mode else (
+            rng.standard_normal((t, 2 * c)).astype(np.float32) * 0.3 + 0.1)
+        if mode:                  # impulses just before each seam
+            for s0 in starts[1:]:
+                x[s0 - 3, :] += 8.0
+        x = torch.from_numpy(x)
+        if dtype == "i16":
+            x = torch.clamp(torch.round(x * 3276.8), -32768, 32767
+                            ).to(torch.int16)
+        x = x.to(cuda)
+        kw = dict(n_block=n, raw_rows=512, iq_gain=iq[0], iq_phase=iq[1])
+        masks, outs = [], []
+        for st, fn in ((st_k, front.fused_front),
+                       (st_r, front.fused_front_reference)):
+            kws = dict(kw)
+            if nb:
+                if fn is front.fused_front_reference:
+                    _assert_margin(plan, x, st[0], iq, nb, st[3], st[4])
+                masks.append(torch.zeros(t, 2 * c, dtype=torch.uint8, **z))
+                kws.update(nb=nb, nb_avg=st[3], nb_tail=st[4],
+                           nb_mask=masks[-1])
+            before = (front.fused_front.launches,
+                      front.fused_front.element_launches)
+            outs.append(fn(plan, x, st[0], st[1], hi, lo, st[2], **kws))
+            if fn is front.fused_front:
+                elements = not front.fir_tma(c, x.dtype)
+                assert (front.fused_front.launches,
+                        front.fused_front.element_launches) == (
+                    before[0] + 1, before[1] + elements)
+        torch.cuda.synchronize()
+        got, ref = outs
+        for i, (a, b) in enumerate(zip(got, ref)):
+            assert a.shape == b.shape, i
+            assert rel_err(b, a) < RTOL, (case, i)
+        if nb:
+            assert torch.equal(got[6], ref[6])
+            assert int((masks[0] != masks[1]).sum()) == 0
+            assert int(masks[1].sum()) > 0
+        st_k, st_r = [(o[1], o[3], o[2], o[5] if nb else st[3],
+                       o[6] if nb else st[4])
+                      for o, st in ((got, st_k), (ref, st_r))]
 
 
 def _fm_plane(c, rows, rng):
