@@ -32,7 +32,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
  10. stereo separation of an L-only 700 Hz program (bench.py:318-341) on
      the card;
  11. K1 (WFM form) and K2 against their plain versions, timed with CUDA
-     events;
+     events, and K2's device time per launch (torch.profiler), which
+     must be one CUDA launch per call;
  12. K1 with its front options (float32 + IQ balance + NB1, float32 + IQ
      balance + NB2, int16 + IQ balance + NB1) against its plain version at
      the am_nb_64ch shape (64 channels, 32 blocks of 32768 frames), two
@@ -714,9 +715,17 @@ def phase_wfm_time(torch, front, wfm_tail, fw, tl) -> dict:
     hist = torch.zeros(tplan.d_rows, 2 * c, **zeros)
     k2 = time_pair(torch, lambda: wfm_tail.wfm_tail(tplan, *targs, hist),
                    lambda: wfm_tail.wfm_tail_reference(tplan, *targs, hist))
+    reps = 10
+    k2_launch = kernel_times(torch, lambda: wfm_tail.wfm_tail(tplan, *targs,
+                                                              hist), reps)
+    if [n for _, n in k2_launch.values()] != [reps]:
+        raise RuntimeError(f"phase11: K2 must be one CUDA launch per call, "
+                           f"recorded {breakdown_text(k2_launch)} over "
+                           f"{reps} calls")
     log(f"phase11 K1 WFM {k1[0]:.4f} ms vs plain {k1[1]:.4f} ms (runs "
         f"{k1[2]}); K2 {k2[0]:.4f} ms vs plain {k2[1]:.4f} ms (runs {k2[2]}) "
-        f"per headline dispatch")
+        f"per headline dispatch; K2 per launch "
+        f"{breakdown_text(k2_launch)}, one launch per call")
     return {"k1": k1[:2], "k2": k2[:2]}
 
 

@@ -71,7 +71,7 @@
 //        into parts of 12, each made by min(F, 16) groups, one per branch
 //        (two at F = 32): 4 parts at F = 8, 8 at F = 4, 16 at F = 2, and
 //        the step grows to 12 x 32 / min(F, 16) outputs.  Splitting each
-//        branch's taps instead (wfm_tail_fir's slices) reorders each
+//        branch's taps into slices over the groups instead reorders each
 //        output's sum, and the FM discriminator's check reads that at
 //        outputs that NB1 left near zero; the parts keep the tiled pass's
 //        order and bits.
@@ -125,10 +125,9 @@
 #include <stdint.h>
 #include <string.h>
 
-#include <mutex>
-
 #include "bulk_ring.cuh"
 #include "polyphase.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -437,39 +436,6 @@ front_means(const Tx* __restrict__ x, int nchunk, int c2, int n, int r_rows,
   }
 }
 
-// Blocks of `kernel` (threads each, smem bytes of dynamic shared memory)
-// that the device holds at once, at most max_per_sm on each SM; found once
-// per kernel, device and smem.
-template <typename K>
-cudaError_t resident_blocks(K* kernel, int device, int threads, int smem,
-                            int max_per_sm, int* blocks) {
-  struct Entry { const void* k; int device, smem, blocks; };
-  static std::mutex mu;
-  static Entry cache[64];
-  static int used = 0;
-  const void* key = reinterpret_cast<const void*>(kernel);
-  std::lock_guard<std::mutex> lock(mu);
-  for (int i = 0; i < used; ++i)
-    if (cache[i].k == key && cache[i].device == device
-        && cache[i].smem == smem) {
-      *blocks = cache[i].blocks;
-      return cudaSuccess;
-    }
-  int sms = 0, per_sm = 0;
-  cudaError_t err;
-  if ((err = cudaFuncSetAttribute(kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  kMaxSmem)) != cudaSuccess
-      || (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                       device)) != cudaSuccess
-      || (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-              &per_sm, kernel, threads, smem)) != cudaSuccess)
-    return err;
-  *blocks = max(sms * min(per_sm, max_per_sm), 1);
-  if (used < 64) cache[used++] = Entry{key, device, smem, *blocks};
-  return cudaSuccess;
-}
-
 // front_means over a [T, c2] plane (T a multiple of 512, 16-byte aligned):
 // means [T/512, c2]; with raw, the last r_rows rows of each n-row block
 // (n a multiple of 512, r_rows <= n) into raw [T/n, r_rows, c2].
@@ -485,8 +451,8 @@ cudaError_t launch_means(const Tx* x, int T, int c2, int n, int r_rows,
   auto kernel = g.w > 1 ? front_means<Tx, 16 / sizeof(Tx)>
                         : front_means<Tx, 1>;
   int slots = 0;
-  cudaError_t err = resident_blocks(kernel, device, kMeansThreads, g.smem,
-                                    kMeansBlocksPerSm, &slots);
+  cudaError_t err = launch::resident_blocks(
+      kernel, device, kMeansThreads, g.smem, kMeansBlocksPerSm, &slots);
   if (err != cudaSuccess) return err;
   const int nchunk = T / kDcChunk;
   kernel<<<(unsigned)min(nchunk, slots), kMeansThreads, g.smem, st>>>(
@@ -1346,91 +1312,13 @@ front_comp(const float* __restrict__ y, int M, int C,
 // multiple of 16 bytes too): float32 C % 4 == 0, int16 C % 8 == 0.
 inline bool march_tma_ok(int C, int elem) { return (C * elem) % 16 == 0; }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (so the
-// library needs no -lcuda); found once.
-cudaError_t encode_tiled(EncodeTiled* fn) {
-  static std::mutex mu;
-  static EncodeTiled found = nullptr;
-  std::lock_guard<std::mutex> lock(mu);
-  if (found == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &q);
-#endif
-    if (err != cudaSuccess) return err;
-    if (q != cudaDriverEntryPointSuccess || p == nullptr)
-      return cudaErrorNotSupported;
-    found = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = found;
-  return cudaSuccess;
-}
-
-// The tensor map of a [T, 2C] plane (float32 or int16 lanes) in boxes of 8
-// lanes x box_rows rows, zeros outside; encoded once per (pointer, T, C,
-// element size, box rows), since the AM dispatch is bound by its host
-// enqueue.
-cudaError_t plane_map(const void* x, int T, int C, int elem, int box_rows,
-                      CUtensorMap* map) {
-  struct Entry {
-    const void* x;
-    int T, C, elem, rows;
-    CUtensorMap map;
-  };
-  static std::mutex mu;
-  static Entry cache[32];
-  static int used = 0, next = 0;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    for (int i = 0; i < used; ++i) {
-      const Entry& e = cache[i];
-      if (e.x == x && e.T == T && e.C == C && e.elem == elem
-          && e.rows == box_rows) {
-        *map = e.map;
-        return cudaSuccess;
-      }
-    }
-  }
-  EncodeTiled fn;
-  cudaError_t err = encode_tiled(&fn);
-  if (err != cudaSuccess) return err;
-  const cuuint64_t dims[2] = {(cuuint64_t)(2 * C), (cuuint64_t)T};
-  const cuuint64_t strides[1] = {(cuuint64_t)(2 * C) * elem};
-  const cuuint32_t box[2] = {(cuuint32_t)kCg, (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  if (fn(map, elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                        : CU_TENSOR_MAP_DATA_TYPE_UINT16,
-         2, const_cast<void*>(x), dims, strides, box, unit,
-         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return cudaErrorInvalidValue;
-  std::lock_guard<std::mutex> lock(mu);
-  cache[next] = Entry{x, T, C, elem, box_rows, *map};
-  next = (next + 1) % 32;
-  used = used < 32 ? used + 1 : 32;
-  return cudaSuccess;
-}
-
 template <typename Tx, int DP, bool NB>
 cudaError_t launch_march(const Tx* x, const March& args, const MarchGeom& g,
                          int device, cudaStream_t st) {
   auto kernel = front_fir<Tx, DP, NB>;
   int slots = 0;
-  cudaError_t err = resident_blocks(kernel, device, kThreads, g.smem,
-                                    kMarchBlocksPerSm, &slots);
+  cudaError_t err = launch::resident_blocks(
+      kernel, device, kThreads, g.smem, kMarchBlocksPerSm, &slots);
   if (err != cudaSuccess) return err;
   const MarchPlan p = march_plan(args.T, args.C, g, slots);
   March a = args;
@@ -1438,8 +1326,8 @@ cudaError_t launch_march(const Tx* x, const March& args, const MarchGeom& g,
   a.items = p.items;
   CUtensorMap map;
   memset(&map, 0, sizeof(map));
-  if (a.tma && (err = plane_map(x, a.T, a.C, (int)sizeof(Tx), g.box_rows,
-                                &map)) != cudaSuccess)
+  if (a.tma && (err = launch::plane_map(x, 2 * a.C, a.T, (int)sizeof(Tx), kCg,
+                                      g.box_rows, &map)) != cudaSuccess)
     return err;
   kernel<<<(unsigned)p.grid, kThreads, g.smem, st>>>(map, x, a);
   return cudaGetLastError();
@@ -2051,9 +1939,9 @@ int probe_floor_forward(int device, const float* x0, const float* x1, int T,
       || !aligned(y1))
     return cudaErrorInvalidValue;
   int slots = 0;
-  if ((err = resident_blocks(probe_floor_copy, device, kFloorThreads,
-                             kFloorSmem, kMaxBlocksPerSm, &slots))
-      != cudaSuccess)
+  if ((err = launch::resident_blocks(probe_floor_copy, device,
+                                     kFloorThreads, kFloorSmem,
+                                     kMaxBlocksPerSm, &slots)) != cudaSuccess)
     return err;
   const long long tiles = (total + kFloorTile - 1) / kFloorTile;
   const int planes = x1 != nullptr ? 2 : 1;

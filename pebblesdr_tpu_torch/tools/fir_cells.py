@@ -15,9 +15,13 @@ flags equal); then timed: CUDA events around 10 calls after 3 warm-ups,
 the host's enqueue ms per call over 20 calls, and the device time per
 launch of each kernel over 10 calls (torch.profiler); and the sha256 of
 one call's y and tail', so that two checkouts' runs show whether their
-outputs are the same bits.  The WFM plans run K1's base form: front_fir
-is the same pass in every form.  The last line is one JSON object of the
-results.  Raises without a CUDA device.
+outputs are the same bits.  The WFM plans run K1's base form (front_fir
+is the same pass in every form); then their cells' own forms, the WFM
+form at wfm_64ch (discriminator front_disc, y-tails) and the hq form at
+wfm_hq_64ch (front_disc + the composite decimation front_comp), are
+profiled too, each kernel's device time per launch over 10 calls.  The
+last line is one JSON object of the results.  Raises without a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -71,6 +75,7 @@ def main(argv: list[str] | None = None) -> dict:
     import torch
 
     import chip_smoke as cs
+    from pebblesdr_tpu_torch.demod import wfm
     from pebblesdr_tpu_torch.ops import decimator, front
     from pebblesdr_tpu_torch.ops.mixer import split_freq
 
@@ -143,6 +148,21 @@ def main(argv: list[str] | None = None) -> dict:
         res[name] = {"front_fir_ms": fir, "k1_ms": k1, "host_ms": host,
                      "launch_ms": launches, "worst": check["worst"],
                      "sha256": bits}
+        if pk != "am":             # the cell's own form: WFM, or hq
+            rate = FS / plan.factor
+            fkw = dict(kw, disc_gain=rate / (2 * np.pi * 75_000.0),
+                       disc_last=torch.zeros(1, 2 * c, **zeros),
+                       y_tail_rows=min(N // plan.factor, 2048))
+            if pk == "hq":
+                taps = wfm.WFMConfig.make(rate / 2, comp_decim=2).comp_taps
+                fkw.update(comp_taps=taps, comp_hist=torch.zeros(
+                    front.comp_hist_rows(len(taps)), c, **zeros))
+            form = kernel_ms(torch, lambda: front.fused_front(plan, *args,
+                                                              **fkw))
+            print(f"[{tag}] {name} ({pk} form) per launch: "
+                  + ", ".join(f"{kk} {v:.4f}" for kk, v in
+                              sorted(form.items())), flush=True)
+            res[name]["form_launch_ms"] = form
         del args, x, tail
         torch.cuda.empty_cache()
     out = {"tag": tag, "device": card, "cells": res}

@@ -1,8 +1,10 @@
 """The H100's peak rates and the least time a kernel's work could take on
 it, from the bytes it must move and the operations it must do.
 
-One place for the rates and for the bounds of K1, its passes front_means
-and front_fir, and K2, read by chip_smoke.py, ops/kprobe.py and the tools.
+One place for the rates and for the bounds of K1, its passes (front_means,
+which also bounds front_nb_means, front_dc_scan, front_fir, front_tail,
+front_disc, front_comp), and K2, read by chip_smoke.py, ops/kprobe.py and
+the tools.
 """
 
 from __future__ import annotations
@@ -79,3 +81,41 @@ def k2_bound(tplan, n: int, c: int) -> dict:
               + (n // tplan.factor) * 2 * c * 4 + 2 * tplan.d_rows * 2 * c * 4)
     ops = 2 * tplan.h.numel() * (n // tplan.factor) * 2 * c + 24 * n * c
     return bound(nbytes, ops)
+
+
+def scan_bound(nchunk: int, lanes: int) -> dict:
+    """front_dc_scan's bound: the chunk means [nchunk, lanes] and the
+    carried estimate read, the estimates [nchunk, lanes] and the next
+    carried one written; 2 operations per chunk and lane."""
+    nbytes = 2 * (nchunk + 1) * lanes * 4
+    return bound(nbytes, 2 * nchunk * lanes)
+
+
+def front_tail_bound(d_rows: int, c: int, x_bytes: int) -> dict:
+    """front_tail's bound: the last d_rows rows of the [T, 2c] plane, their
+    chunk DC estimates and the carried tail read, tail' [d_rows, 2c]
+    written; two phasors (~40 operations) and the mix per row and
+    channel."""
+    nbytes = d_rows * 2 * c * (x_bytes + 4 + 4 + 4)
+    return bound(nbytes, 46 * d_rows * c)
+
+
+def disc_bound(m: int, c: int, blocks: int, y_tail_rows: int,
+               hist_rows: int = 0) -> dict:
+    """front_disc's bound (K1d + K1f): y [m, 2c] read once, the carried
+    sample read and the next written, the y-tails [blocks, y_tail_rows, 2c]
+    written, and the discriminator [m, c] (in the hq form, hist_rows > 0,
+    only its last hist_rows rows) written; ~26 operations per decimated row
+    and channel (the conjugate product 6, atan2 ~20)."""
+    nbytes = (m * 2 * c * 4 + 2 * 2 * c * 4 + blocks * y_tail_rows * 2 * c * 4
+              + (hist_rows if hist_rows else m) * c * 4)
+    return bound(nbytes, 26 * m * c)
+
+
+def comp_bound(m: int, c: int, tc: int, hist_rows: int) -> dict:
+    """front_comp's bound (K1e): y [m, 2c] read once, the carried sample and
+    comp_hist [hist_rows, c] read, the half-rate composite [m/2, c] written;
+    the discriminator of each decimated row (~26 operations) and 2 tc per
+    half-rate output."""
+    nbytes = m * 2 * c * 4 + 2 * c * 4 + hist_rows * c * 4 + (m // 2) * c * 4
+    return bound(nbytes, 26 * m * c + 2 * tc * (m // 2) * c)

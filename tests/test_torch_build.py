@@ -105,3 +105,37 @@ def test_ring_sweep_march_needs_a_card():
         pytest.skip("builds and times kernels on a card")
     with pytest.raises(RuntimeError, match="CUDA"):
         ring_sweep.main(["--march", "built"])
+
+
+# ---- the stereo tail's sweep (tools/tail_cells.py --sweep) ----------------
+
+from pebblesdr_tpu_torch.tools import tail_cells  # noqa: E402
+
+
+@pytest.mark.parametrize("variant", list(tail_cells.SWEEP))
+def test_tail_sweep_variants_apply_to_the_source(variant):
+    """Each --sweep variant sets its constants and replaces its text once in
+    csrc/wfm_tail.cu as it stands."""
+    src = (build.CSRC / "wfm_tail.cu").read_text()
+    consts, subs = tail_cells.SWEEP[variant]
+    out = tail_cells.variant_source(src, consts, subs)
+    for name, value in consts.items():
+        assert f"constexpr int {name} = {value};" in out
+    for _, new in subs:
+        assert new in out
+    assert (out == src) == (not consts and not subs)
+
+
+def test_tail_sweep_rejects_text_it_cannot_find():
+    with pytest.raises(ValueError, match="kWarps"):
+        tail_cells.variant_source("// no constants\n", {"kWarps": 4}, [])
+    with pytest.raises(ValueError, match="occurs 0 times"):
+        tail_cells.variant_source("// nothing\n", {}, [("sinf(", "x")])
+
+
+def test_tail_cells_needs_a_card():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("checks and times K2 on a card")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tail_cells.sweep(["built"])

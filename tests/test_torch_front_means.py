@@ -143,3 +143,21 @@ def test_means_bound_at_the_cells():
         assert b["bytes"] == (t * lanes * xb + t // 512 * lanes * 4
                               + k * 2048 * lanes * 4)
         assert abs(b["bound_ms"] - ms) < 5e-4
+
+
+@pytest.mark.parametrize("name,fn,args,ms,by", [
+    # front_disc at wfm_64ch (M = 131072 rows of 64 channels, 32 blocks of
+    # 2048-row y-tails) and in the hq form at wfm_hq_64ch (M = 262144, only
+    # comp_hist's 32 rows of the discriminator written)
+    ("disc_wfm_64ch", "disc_bound", (131072, 64, 32, 2048), 0.0401, "bytes"),
+    ("disc_hq", "disc_bound", (262144, 64, 32, 2048, 32), 0.0501, "bytes"),
+    ("comp_hq", "comp_bound", (262144, 64, 31, 32), 0.0501, "bytes"),
+    ("dc_scan_am_64ch", "scan_bound", (2048, 128), 0.000626, "bytes"),
+    ("tail_am_64ch", "front_tail_bound", (712, 64, 4), 0.000435, "bytes"),
+])
+def test_k1_pass_bounds_at_the_cells(name, fn, args, ms, by):
+    """Each K1 pass's bound counts its own bytes and operations; at the
+    cells every one is bound by bytes."""
+    b = getattr(roofline, fn)(*args)
+    assert b["bound_by"] == by
+    assert abs(b["bound_ms"] - ms) < 0.01 * ms

@@ -144,10 +144,10 @@ def test_matmuls_are_ieee_float32(cuda):
 
 
 def test_shared_memory_layouts_match_the_sources(cuda):
-    """front_fir's layout and work plan mirrored in Python (the CPU size
-    and coverage checks) agree with the CUDA source; the stereo tail's FIR
-    block fits for the covered low-passes and is refused past its largest
-    slice."""
+    """front_fir's and the stereo tail's layouts and work plans mirrored
+    in Python (the CPU size and coverage checks) agree with the CUDA
+    sources; the tail's block fits for the covered low-passes and is
+    refused past the most taps it holds."""
     import ctypes
     lib = front._lib()
     out = (ctypes.c_int * 9)()
@@ -175,10 +175,28 @@ def test_shared_memory_layouts_match_the_sources(cuda):
                         lay["hist"], lay["ring_rows"], lay["stages"],
                         lay["box_rows"]]
     tlib = wfm_tail._lib()
+    tout = (ctypes.c_int * 11)()
     for ntaps, factor, ell in ((235, 4, 256), (31, 4, 128), (235, 2, 256),
                                (501, 4, 256)):
-        assert 0 < tlib.wfm_tail_smem_bytes(ntaps, factor, ell) <= 232448
+        smem = tlib.wfm_tail_smem_bytes(ntaps, factor, ell)
+        assert 0 < smem <= 232448
+        assert smem == wfm_tail.tail_march_layout(ntaps, factor)["smem"]
+        for t, c in ((131072, 64), (262144, 16), (2048, 3), (24576, 13)):
+            plan = wfm_tail.tail_march_plan(t, c, factor, ntaps, 132)
+            lay = plan["layout"]
+            assert tlib.wfm_tail_plan(t, c, ntaps, factor, ell, 132,
+                                      tout) == 0
+            assert list(tout) == [
+                plan["seg_outputs"], len(plan["segments"]), plan["items"],
+                plan["grid"], plan["step_rows"], lay["hist"],
+                lay["ring_rows"], lay["stages"], lay["stage_rows"],
+                lay["slices"], lay["dps"]]
     assert tlib.wfm_tail_smem_bytes(600, 4, 256) == 0
+    # the most one block holds: 512 taps at F = 4; 513 is refused
+    assert 0 < tlib.wfm_tail_smem_bytes(512, 4, 256) <= 232448
+    assert tlib.wfm_tail_smem_bytes(513, 4, 256) == 0
+    assert wfm_tail.tail_march_layout(513, 4) is None
+    assert tlib.wfm_tail_plan(8192, 4, 513, 4, 256, 132, tout) == -1
 
 
 # front_fir's seams: (C, blocks of 2048 rows, plan, dtype, blanker); the
@@ -338,31 +356,104 @@ def test_front_wfm_kernel_matches_plain(cuda, c, k):
         st_r = (ref[1], ref[3], ref[2], ref[6])
 
 
-@pytest.mark.parametrize("c", [4, 5, 64])
-def test_wfm_tail_kernel_matches_plain(cuda, c):
+# K2's cases: (C, composite rows, taps, F, ell, zero history); the
+# receiver's low-pass is 235 taps at F = 4, ell 256
+TAIL_CASES = {
+    "c4": (4, 16384, 235, 4, 256, False),
+    "c5": (5, 16384, 235, 4, 256, False),
+    "c64": (64, 16384, 235, 4, 256, False),
+    "c3_elements": (3, 16384, 235, 4, 256, False),
+    "c13_elements": (13, 16384, 235, 4, 256, False),
+    "c16_tma": (16, 16384, 235, 4, 256, False),
+    "c16_t2048": (16, 2048, 235, 4, 256, False),
+    "wfm_64ch_short_last_segment": (64, 131072, 235, 4, 256, False),
+    "wfm_16ch_last_segment_under_a_step": (16, 262144, 235, 4, 256, False),
+    "c64_zero_history": (64, 16384, 235, 4, 256, True),
+    "c16_31taps_ell128": (16, 16384, 31, 4, 128, False),
+    "c16_235taps_f2": (16, 16384, 235, 2, 256, False),
+    "c13_501taps": (13, 16384, 501, 4, 256, False),
+}
+
+
+def _tail_taps(ntaps):
+    if ntaps == 235:
+        return wfm.WFMConfig.make(256_000.0).audio_taps
+    return (np.random.default_rng(ntaps).standard_normal(ntaps)
+            / ntaps).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", list(TAIL_CASES))
+def test_wfm_tail_kernel_matches_plain(cuda, case):
     """K2 against wfm_tail_reference over two streaming calls from a random
-    history; C=5 leaves a partial channel group."""
-    taps = wfm.WFMConfig.make(256_000.0).audio_taps
-    plan = wfm_tail.TailPlan.make(taps, 4, 256, 2048, cuda)
+    (or zero) history: partial channel groups, the element-by-element
+    staging (C = 3, 5, 13) and the tensor map (C = 4, 16, 64), a plane
+    shorter than one segment per SM, the cells' shapes (a last segment
+    shorter than the rest; one shorter than a step), and the responses
+    the port accepts.  One CUDA launch per call."""
+    c, n, ntaps, factor, ell, zero = TAIL_CASES[case]
+    plan = wfm_tail.TailPlan.make(_tail_taps(ntaps), factor, ell, 2048, cuda)
+    mp = wfm_tail.tail_march_plan(n, c, factor, ntaps)
+    o_s, o_e = mp["segments"][-1]
+    if case == "wfm_64ch_short_last_segment":
+        assert o_e - o_s < mp["seg_outputs"] and (o_e - o_s) % 128
+    if case == "wfm_16ch_last_segment_under_a_step":
+        assert o_e - o_s < 128
     rng = np.random.default_rng(7)
-    hist_k = hist_r = torch.randn(plan.d_rows, 2 * c, device=cuda) * 0.3
-    n = 16384
+    hist_k = hist_r = (torch.zeros(plan.d_rows, 2 * c, device=cuda) if zero
+                       else torch.randn(plan.d_rows, 2 * c, device=cuda) * 0.3)
     for _ in range(2):
         raw = torch.from_numpy(rng.standard_normal((n, c)).astype(np.float32)
                                ).to(cuda)
-        p0 = torch.from_numpy(rng.uniform(0, 10, (n // 256, c))
+        p0 = torch.from_numpy(rng.uniform(0, 10, (n // ell, c))
                               .astype(np.float32)).to(cuda)
-        wf = torch.full((n // 256, c), 2 * np.pi * 19000 / 256000,
+        wf = torch.full((n // ell, c), 2 * np.pi * 19000 / 256000,
                         device=cuda)
-        before = wfm_tail.wfm_tail.launches
+        before = (wfm_tail.wfm_tail.launches,
+                  wfm_tail.wfm_tail.element_launches)
         got = wfm_tail.wfm_tail(plan, raw, p0, wf, hist_k)
-        assert wfm_tail.wfm_tail.launches == before + 1
+        assert (wfm_tail.wfm_tail.launches,
+                wfm_tail.wfm_tail.element_launches) == (
+            before[0] + 1, before[1] + (c % 4 != 0))
         ref = wfm_tail.wfm_tail_reference(plan, raw, p0, wf, hist_r)
         torch.cuda.synchronize()
         for a, b in zip(got, ref):
             assert a.shape == b.shape
             assert rel_err(b, a) < RTOL
         hist_k, hist_r = got[1], ref[1]
+
+
+def test_wfm_tail_refuses_an_unaligned_composite(cuda):
+    """Tensor-map staging needs a composite that starts on 16 bytes."""
+    plan = wfm_tail.TailPlan.make(_tail_taps(235), 4, 256, 2048, cuda)
+    c, n = 4, 2048
+    raw = torch.zeros(n * c + 1, device=cuda)[1:].view(n, c)
+    args = (torch.zeros(n // 256, c, device=cuda),
+            torch.zeros(n // 256, c, device=cuda),
+            torch.zeros(plan.d_rows, 2 * c, device=cuda))
+    with pytest.raises(ValueError, match="16-byte"):
+        wfm_tail.wfm_tail(plan, raw, *args)
+
+
+def test_wfm_tail_is_one_cuda_launch_per_call(cuda):
+    """The profiler records one CUDA kernel per wfm_tail call, the march
+    (hist' is written by the same launch)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    plan = wfm_tail.TailPlan.make(_tail_taps(235), 4, 256, 2048, cuda)
+    c, n = 64, 16384
+    args = (torch.randn(n, c, device=cuda),
+            torch.rand(n // 256, c, device=cuda) * 10,
+            torch.full((n // 256, c), 0.466, device=cuda),
+            torch.zeros(plan.d_rows, 2 * c, device=cuda))
+    wfm_tail.wfm_tail(plan, *args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            wfm_tail.wfm_tail(plan, *args)
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if "wfm_tail" in ev.name and ev.device_type == DeviceType.CUDA]
+    assert len(names) == 3 and all("wfm_tail_march" in nm for nm in names)
 
 
 def _stereo_plane(c, rows, rng):
