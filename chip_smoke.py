@@ -55,7 +55,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
  16. K1 in its hq form (factor-4 plan, discriminator, y-tails and the
      composite decimation by 2, K1e) against its plain version at the
      wfm_hq_64ch shape (64 channels, 32 blocks of 32768 frames), over two
-     streaming calls, then both timed, with the per-launch device times;
+     streaming calls, then both timed, with the per-launch device times
+     (front_comp is the only pass over y: no front_disc, 5 CUDA launches
+     per call) and front_comp's own plain version and bound;
  17. the WFM receiver at the hq geometry on the card against the CPU (4
      channels, 8192-frame blocks, dispatches of 3 then 9 blocks);
  18. the WFM+RDS receiver, at the default and at the hq geometry, on the
@@ -86,10 +88,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      every raw tail equal to its plain version, float32 means within 1e-6
      max |x|; then timed in turns with the PyTorch call that computes the
      means and with its plain version, with GB/s, the share of its bound
-     and its per-launch device time.
+     and its per-launch device time;
+ 24. front_dc_scan, K1's chunk EWMA, alone (ops/front.py dc_scan) at the
+     shapes of am_64ch, am_16ch, am_256ch and am_nb_64ch's second scan:
+     m and dc' equal to dc_scan_emulate bit for bit and within 3e-5 of
+     max |m| of the plain version, then timed in turns with it, with its
+     per-launch device time and bound.
 Each receiver phase sets every kernel's launch count to 0 just before it
-drives the receiver and reads the counts just after (front_means counts
-its launches inside K1 as well).  Each kernel's bound
+drives the receiver and reads the counts just after (front_means and
+front_dc_scan count their launches inside K1 as well; front_comp counts
+the hq form's).  Each kernel's bound
 is the larger of the bytes it must move over 3.35 TB/s and the operations
 it does over 67 TFLOP/s (the H100 SXM's float32 peak outside the tensor
 cores).  The line before the last is the per-kernel JSON summary; the last
@@ -197,7 +205,9 @@ def wfm_plane(channels: int, n_rows: int, rng, noise: float = 0.0,
 
 def reset_launches(front, wfm_tail) -> None:
     front.fused_front.launches = 0
+    front.fused_front.comp_launches = 0
     front.chunk_means.launches = 0
+    front.dc_scan.launches = 0
     wfm_tail.wfm_tail.launches = 0
 
 
@@ -432,7 +442,7 @@ def make_cell(torch, receiver, front, mode, name: str, channels: int,
     return {"name": name, "rx": rx, "cfg": cfg, "wfm": wfm,
             "params": rx.default_params(250_000.0), "iq": iq,
             "blocks": blocks, "channels": channels, "state": rx.init_state(),
-            "out": None, "i": 0, "launches": [0, 0, 0], "windows": []}
+            "out": None, "i": 0, "launches": [0, 0, 0, 0, 0], "windows": []}
 
 
 def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
@@ -453,6 +463,8 @@ def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
         cell["launches"][0] += front.fused_front.launches
         cell["launches"][1] += wfm_tail.wfm_tail.launches
         cell["launches"][2] += front.chunk_means.launches
+        cell["launches"][3] += front.dc_scan.launches
+        cell["launches"][4] += front.fused_front.comp_launches
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -468,10 +480,13 @@ def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
         c, k, wfm = cell["channels"], cell["blocks"], cell["wfm"]
         n_dispatch = WARMUP + WINDOWS * WINDOW_DISPATCHES
         launches = tuple(cell["launches"])
-        if launches != (n_dispatch, n_dispatch if wfm else 0, n_dispatch):
+        scans = 2 if cell["cfg"].enable_noise_blanker else 1
+        if launches != (n_dispatch, n_dispatch if wfm else 0, n_dispatch,
+                        scans * n_dispatch,
+                        n_dispatch if cell["cfg"].wfm_hq else 0):
             raise RuntimeError(f"{tag} {cell['name']}: launches (K1, K2, "
-                               f"front_means) {launches} for {n_dispatch} "
-                               f"dispatches")
+                               f"front_means, front_dc_scan, front_comp) "
+                               f"{launches} for {n_dispatch} dispatches")
         windows = cell["windows"]
         best = min(windows)                               # ms per dispatch
         cell.update(block_ms=best / k, msps=c * n * k / (best / 1e3) / 1e6,
@@ -481,8 +496,9 @@ def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
             + f"; block {cell['block_ms']:.5f} ms, {cell['msps']:.1f} Msps "
             f"per GPU, {cell['realtime']:.1f}x realtime per channel, window "
             f"spread {max(windows) / best:.3f}; K1 launches {launches[0]}, "
-            f"K2 launches {launches[1]}, front_means launches {launches[2]} "
-            f"for {n_dispatch} dispatches "
+            f"K2 launches {launches[1]}, front_means launches {launches[2]}, "
+            f"front_dc_scan launches {launches[3]}, front_comp launches "
+            f"{launches[4]} for {n_dispatch} dispatches "
             f"({launches[0] / n_dispatch:g} K1 per dispatch); peak device "
             f"memory {peak:.3f} GiB" + (" (cells timed together)"
                                         if len(cells) > 1 else ""))
@@ -990,7 +1006,12 @@ def phase_front_hq(torch, front, decimator, wfm_mod) -> dict:
     """Phase 16: K1 in its hq form (factor-4 plan, discriminator, y-tails,
     composite decimation by 2) vs plain at the wfm_hq_64ch shape, two
     streaming calls from a random comp_hist; then both timed, with the
-    per-launch device times."""
+    per-launch device times: front_comp must be the only pass that reads y
+    (the profiler records no front_disc, 5 CUDA launches per call).  Then
+    front_comp's plain version (the discriminator, the decimation by 2,
+    comp_hist', dlast and the y-tails from the full-rate y) timed against
+    its per-launch time, with its bound."""
+    from pebblesdr_tpu_torch.ops import fir
     from pebblesdr_tpu_torch.ops.mixer import split_freq
     from pebblesdr_tpu_torch.utils import roofline
     c, k, _, _ = WFM_CELLS["wfm_hq_64ch"]
@@ -1062,14 +1083,45 @@ def phase_front_hq(torch, front, decimator, wfm_mod) -> dict:
         lambda: front.fused_front_reference(plan, *args, **kw))
     b = roofline.k1_bound(plan, k * n, c, 4, n, 2048, disc=True,
                           y_tail_rows=zt, comp_taps=len(taps))
+    reps = 10
+    lt = kernel_times(torch, lambda: front.fused_front(plan, *args, **kw),
+                      reps=reps)
     log(f"phase16 K1e at wfm_hq_64ch: {ms:.4f} ms vs plain {plain_ms:.4f} ms "
         f"per dispatch (runs kernel {t['kernel']}, plain {t['plain']}); bound "
         f"{b['bound_ms']:.4f} ms ({b['bound_by']}); per launch (ms): "
-        + kernel_breakdown(torch, lambda: front.fused_front(plan, *args,
-                                                            **kw)))
-    del args, x
+        + breakdown_text(lt))
+    # five kernels, each at most once a call (the profiler may lose a
+    # record, never add one), front_comp among them and no front_disc
+    if len(lt) != 5 or "front_comp" not in lt or any(
+            kk.startswith("front_disc") or cnt > reps
+            for kk, (_, cnt) in lt.items()):
+        raise RuntimeError(f"phase16: the hq form must launch front_comp and "
+                           f"no front_disc, 5 kernels once per call: {lt}")
+    # front_comp's plain version, from the full-rate y of the same inputs
+    y = front.fused_front_reference(plan, *args, n_block=n, raw_rows=2048)[0]
+    dl, ch, mb = kw["disc_last"], kw["comp_hist"], n // plan.factor
+
+    def comp_plain():
+        d, dlast = front.discriminate(y, dl, gain)
+        tails = y.reshape(k, mb, 2 * c)[:, mb - zt:].contiguous()
+        hist = torch.cat([ch, d])[-hr:].contiguous()
+        disc = fir.tm_fir_decimate(d, taps, ch[hr - (len(taps) - 1):],
+                                   front.COMP_DECIM)[0]
+        return disc, dlast, tails, hist
+
+    tp, runs = time_turns(torch, {"plain": comp_plain})
+    cb = roofline.comp_bound(y.shape[0], c, len(taps), hr, k, zt)
+    comp_ms = lt["front_comp"][0]
+    log(f"phase16 front_comp at wfm_hq_64ch: {comp_ms:.4f} ms per launch, "
+        f"plain version {tp['plain']:.4f} ms (runs {runs['plain']}); bound "
+        f"{cb['bound_ms']:.4f} ms ({cb['bound_by']}), "
+        f"{cb['bound_ms'] / comp_ms:.1%} of it; the only pass over y "
+        f"(no front_disc, 5 CUDA kernels per K1 call)")
+    del args, x, y
     torch.cuda.empty_cache()
-    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_abs, **b}
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_abs, **b,
+            "comp": {"ms": comp_ms, "plain_ms": tp["plain"],
+                     "max_abs_err": max(disc_err, hist_err), **cb}}
 
 
 def phase_rds_decode(torch, receiver, DemodMode) -> dict:
@@ -1484,6 +1536,71 @@ def phase_means(torch, front) -> dict:
     return res
 
 
+def phase_dc_scan(torch, front) -> dict:
+    """Phase 24: front_dc_scan alone (front.dc_scan: the chunk EWMA over a
+    copy of the chunk means) at the shapes K1 gives it: the chunk means of
+    am_64ch's, am_16ch's and am_256ch's planes (with noise and a DC offset)
+    and the DC blocker's a = 0.9999^512, and am_nb_64ch's second scan (its
+    shape, the blanker's a = 0.999^512, on am_64ch's means).  m and dc'
+    must equal front.dc_scan_emulate bit for bit, and the plain version
+    (float64 closed form) within FRONT_RTOL of max |m|; then the call is
+    timed in turns with the plain version, with the kernel's per-launch
+    device time and its bound."""
+    from pebblesdr_tpu_torch.utils import roofline
+    n = HEADLINE["frames"]
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    res, means = {}, {}
+    for name, c, k, alpha in (("am_64ch", 64, 32, 0.9999),
+                              ("am_16ch", 16, 64, 0.9999),
+                              ("am_256ch", 256, 16, 0.9999),
+                              ("am_nb_64ch", 64, 32, None)):
+        a = (alpha if alpha else 1.0 - NB1[2]) ** front.DC_CHUNK
+        if name == "am_nb_64ch":
+            mu = means["am_64ch"]
+        else:
+            x = torch.from_numpy(am_plane(c, n, None)).cuda().repeat(k, 1)
+            x = (x + 0.01 * torch.randn(x.shape, generator=gen, device="cuda")
+                 + 0.05).contiguous()
+            mu = means[name] = front.chunk_means(x)[0]
+            del x
+        dc = torch.full((1, 2 * c), 0.02, device="cuda")
+        got = front.dc_scan(mu, dc, a)
+        ref = front.dc_scan_reference(mu, dc, a)
+        torch.cuda.synchronize()
+        a32, b32 = front.chunk_ewma(a)
+        emu = front.dc_scan_emulate(mu.cpu().numpy(), dc.cpu().numpy(), a32,
+                                    b32)
+        exact = all(np.array_equal(g.cpu().numpy().view(np.uint32),
+                                   e.view(np.uint32))
+                    for g, e in zip(got, emu))
+        err = float((got[0] - ref[0]).abs().max())
+        scale = float(ref[0].abs().max())
+        log(f"phase24 front_dc_scan at {name} {tuple(mu.shape)} (a = "
+            f"{a32:.6f}): m and dc' equal dc_scan_emulate {exact}; max abs "
+            f"error vs plain {err:.3g} (<= {FRONT_RTOL} x {scale:.4g})")
+        if not (exact and err <= FRONT_RTOL * scale):
+            raise RuntimeError(f"phase24: front_dc_scan disagrees at {name}")
+        del got, ref
+        fns = {"plain": lambda: front.dc_scan_reference(mu, dc, a),
+               "kernel": lambda: front.dc_scan(mu, dc, a)}
+        t, runs = time_turns(torch, fns)
+        lt = kernel_times(torch, fns["kernel"], reps=10)
+        ms = next(v for kk, (v, _) in lt.items()
+                  if kk.startswith("front_dc_scan"))
+        b = roofline.scan_bound(mu.shape[0], 2 * c)
+        log(f"phase24 front_dc_scan at {name}: {ms:.4f} ms per launch "
+            f"({t['kernel']:.4f} ms per call with the copy of the means) vs "
+            f"plain {t['plain']:.4f} ms (runs {runs}); bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}), "
+            f"{b['bound_ms'] / ms:.1%} of it; per launch (ms): "
+            + breakdown_text(lt))
+        res[name] = {"max_abs_err": err, "ms": ms, "call_ms": t["kernel"],
+                     "plain_ms": t["plain"], "bound_ms": b["bound_ms"],
+                     "bound_by": b["bound_by"]}
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1545,6 +1662,7 @@ def main() -> int:
     wcells = phase_wfm_cells(torch, receiver, front, wfm_tail, DemodMode)
     probes = phase_probes(torch, front, kprobe, kbench2, receiver, DemodMode)
     means = phase_means(torch, front)
+    scans = phase_dc_scan(torch, front)
 
     c, n, k = HEADLINE["channels"], HEADLINE["frames"], HEADLINE["blocks"]
     t = n * k
@@ -1610,6 +1728,27 @@ def main() -> int:
          "replaces": "pebblesdr_tpu/ops/pallas_kernels.py:362",
          "launches": wcells["wfm_hq_64ch"]["launches"][0],
          **{key: hq_fr[key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None},
+        # K1e's one pass over y alone: launches from the wfm_hq_64ch cell
+        # (phase 21), its device time per launch, plain version, bound and
+        # the error of disc and comp_hist' at that shape (phase 16)
+        {"name": "front_comp (K1e, hq form: discriminator, decimation by 2, "
+                 "comp_hist', dlast, y-tails in one pass over y)",
+         "route": "cuda", "source": front.SOURCE,
+         "replaces": "pebblesdr_tpu/ops/pallas_kernels.py:362",
+         "launches": wcells["wfm_hq_64ch"]["launches"][4],
+         **{key: hq_fr["comp"][key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None},
+        # K1's chunk EWMA alone: launches from the headline AM run (one per
+        # K1 call), its device time per launch, plain version, bound and
+        # error at am_64ch's shape (phase 24)
+        {"name": "front_dc_scan (K1's chunk EWMA)", "route": "cuda",
+         "source": front.SOURCE,
+         "replaces": "pebblesdr_tpu/ops/pallas_kernels.py:198",
+         "launches": head["launches"][3],
+         **{key: scans["am_64ch"][key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None},
     ] + [

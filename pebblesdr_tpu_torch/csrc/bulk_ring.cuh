@@ -5,7 +5,8 @@
 // (cp.async.bulk), or a box of a 2D tensor map (cp.async.bulk.tensor,
 // load_2d); an mbarrier in shared memory counts the bytes that have
 // landed, and the consumers wait on its phase parity.  Bulk stores go the
-// other way, from shared memory to device memory, tracked by bulk groups.
+// other way, from shared memory to device memory (a byte range, or a box
+// of a 2D tensor map, store_2d), tracked by bulk groups.
 //
 // Rules (the helpers assume them, the callers keep them):
 //   * every bulk copy's addresses and size are multiples of 16 bytes
@@ -20,7 +21,8 @@
 // defines BULK_RING_PRIMITIVES to a header of its own takes the primitives
 // from there instead (the same names and signatures): a CPU emulation
 // implements them as memcpy plus a flag (load_2d: copy the box's rows that
-// lie inside the tensor, zero the rest).
+// lie inside the tensor, zero the rest; store_2d: write the box's rows
+// that lie inside the tensor, refuse a corner outside it).
 
 #pragma once
 
@@ -87,6 +89,21 @@ __device__ __forceinline__ void load_2d(void* dst, const void* map, int x,
       "::bytes [%0], [%1, {%2, %3}], [%4];"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x),
          "r"(y), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Shared memory (128-byte aligned) -> one box of a 2D tensor map (a
+// CUtensorMap in the kernel's parameters, __grid_constant__) whose corner
+// is column x, row y, in the current bulk group.  The corner must lie
+// inside the tensor (a negative row faults on the H100, where a load
+// zero-fills); rows past the end are not written.
+__device__ __forceinline__ void store_2d(const void* map, int x, int y,
+                                         const void* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2}], [%3];"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+         "r"(smem_u32(src))
       : "memory");
 }
 

@@ -29,7 +29,10 @@
 //      (float32; int16 in int32, exact), and writes each stage's rows that
 //      lie in its block's raw tail.
 //   2. front_dc_scan: the chunk EWMA m_k = a m_{k-1} + (1-a) mu_k as a
-//      two-level scan (32 segments per lane, then the 32 segment seeds).
+//      two-level scan (32 segments per lane, then the 32 segment seeds), in
+//      a fixed association; each thread first fetches its whole segment
+//      (into registers, or a long one into shared memory), all loads in
+//      flight at once, so the dependent chains wait on no memory load.
 //   2b. with the noise blanker: front_nb_means re-reads the plane, forms
 //      z = IQbal(x - m_k) and writes the chunk means of |z|^2 (both lane
 //      halves), and front_dc_scan turns them into the blanker's chunk EWMA
@@ -95,17 +98,28 @@
 //      The conj product uses round-to-nearest intrinsics so no contraction
 //      changes a zero's sign: the first row after a zero seed lands on
 //      atan2(+-0, -0) = +-pi exactly as the plain version does.
-//      With comp_taps it writes no full-rate plane, only the last hr rows
-//      of the discriminator output (the next dispatch's comp_hist).
-//   6. front_comp (hq only): the composite decimation by 2, disc[j] =
-//      sum_{i<tc} ct[i] d[2j - i].  The TPU kernel carries d's last rows
-//      from one sequential grid step to the next; here each tile of 64
-//      half-rate outputs x 32 channels recomputes the d rows it needs
-//      (128 + tc - 1: one atan2 per row and channel, from the y scratch)
-//      into shared memory, rows before t = 0 from the carried comp_hist,
-//      and runs the tc-tap FIR from there.  The full-rate d plane (64 MiB
-//      per wfm_hq_64ch dispatch) never goes to device memory; the cost is
-//      a second read of the y scratch and (tc - 1) / 128 extra atan2s.
+//   6. front_comp (hq only, in place of front_disc): the one pass over the
+//      y scratch (128 MiB per wfm_hq_64ch dispatch).  From it, d[o] =
+//      atan2(y[o] conj(y[o-1])) * gain, the composite decimation by 2
+//      disc[j] = sum_{i<tc} ct[i] d[2j - i], the next comp_hist (the last
+//      hr rows of d), disc_last and the y-tail windows.  The TPU kernel
+//      carries d's last rows from one sequential grid step to the next; here
+//      the work is a time march like front_fir's.  A work item is one
+//      channel group (32 channels, a warp's lanes) x one segment of
+//      half-rate outputs, on a persistent grid; one thread keeps units of
+//      2D tensor-map boxes (the group's re and im lanes, 32 rows each) in
+//      flight on an mbarrier ring, so each y row lands in shared memory
+//      once; each row's d is formed once (its y[o-1] from the staged row
+//      before it) into a ring that keeps the 32 rows of history the next
+//      step's FIR needs, and only an item's 32-row prologue is formed twice
+//      (1.6 % of the rows at wfm_hq_64ch); the y-tail rows and disc_last
+//      leave from the staged rows (the y-tails as bulk tensor stores of
+//      whole boxes, clipped to the windows by a 3D map), and the item that
+//      ends the dispatch writes the next comp_hist from its ring.  Bound:
+//      bytes (y read, the half-rate plane and the y-tails written); the
+//      atan2s (two IEEE divisions each, dependent chains) run on two blocks
+//      of 16 warps per SM while the next units land.  A plane whose C
+//      elements are not a multiple of 16 bytes stages element by element.
 // The oscillator is factored as in the TPU kernel: a coarse phasor per
 // 128 rows times a fine phasor per row within them, with the phases in the
 // split form (t = 2048 s + 128 q + r, f_hi on the 2^-12 grid).  The phase
@@ -460,42 +474,195 @@ cudaError_t launch_means(const Tx* x, int T, int c2, int n, int r_rows,
   return cudaGetLastError();
 }
 
-// grid ceil(2C/32), block (32, 32).  In place: means in, DC estimates out.
-__global__ void front_dc_scan(float* __restrict__ mseq, int nchunk, int c2,
-                              const float* __restrict__ dc_in,
-                              float* __restrict__ dc_out, float a, float b) {
-  __shared__ float seg_r[32][33], seg_p[32][33], seed[32][33];
-  const int tx = threadIdx.x, s = threadIdx.y;
-  const int lane = blockIdx.x * 32 + tx;
-  const int len = (nchunk + 31) / 32;
-  const int k0 = min(s * len, nchunk), k1 = min(k0 + len, nchunk);
-  float r = 0.0f, p = 1.0f;
-  if (lane < c2) {
-    for (int k = k0; k < k1; ++k) {
-      r = a * r + b * mseq[(size_t)k * c2 + lane];
-      p *= a;
+// front_dc_scan: the chunk EWMA m_k = a m_{k-1} + b mu_k of every lane, in
+// place over the chunk means [nchunk, c2] (replaces the TPU kernel's
+// sequential recurrence, pallas_kernels.py:193-203).  The association is
+// fixed, since y reads the ulps of m: each lane's chunks are cut into 32
+// segments of len = ceil(nchunk / 32); each segment's (r, p) = (its EWMA
+// from 0, a^len) is taken serially, r = fma(a, r, b mu_k), p = p a; the 32
+// seeds are chained serially from dc_in, m = fma(p, m, r); each segment is
+// walked from its seed, m = fma(a, m, b mu_k) (ops/front.py
+// dc_scan_emulate mirrors it in numpy).  Bound: bytes (the means read and
+// written once, 0.6 us at am_64ch), but the chains are ~2 len dependent
+// FMAs (< 1 us): what costs is waiting on each chain's operands.  So each
+// thread (one segment of one lane) has its whole segment fetched before
+// its chains start, every load in flight at once: a segment of up to
+// kScanHeld chunks into registers (HELD >= len, unrolled; holding 128
+// spilled), a longer one as part of the block's tile, landed by 16-byte
+// cp.async (4-byte where the lanes are not 16-byte aligned) into shared
+// memory [32 segments][len][kScanLanes] with kScanLanes floats between
+// segments (a warp's 4 segments x 8 lanes then read 32 banks), which the
+// chains read in batches of kScanBatch at fixed offsets (a tile that does
+// not fit a block leaves the chains on device memory).  Blocks are
+// kScanLanes lanes x 32 segments, so even 16 channels spread over several
+// SMs.
+constexpr int kScanSegs = 32;            // segments per lane
+constexpr int kScanLanes = 8;            // lanes per block at most
+constexpr int kScanHeld = 64;            // chunks a thread holds at most
+constexpr int kScanBatch = 16;           // chunks a long chain reads at once
+constexpr int kScanMaxStage = kMaxSmem - 8192;  // beside the static arrays
+
+// The scan's launch: lanes per block (a power of two <= kScanLanes, no
+// more than the plane needs), 32 threads (one per segment) per lane, the
+// chunks a thread holds (the instantiation: the least of 8, 16, ...,
+// kScanHeld covering len; 0 for a longer segment), the segment length,
+// and for a longer segment the tile's shared memory (0 when it does not
+// fit a block).
+struct ScanGeom {
+  int lanes, blocks, threads, held, len, smem;
+  __host__ __device__ ScanGeom(int nchunk, int c2) {
+    lanes = kScanLanes;
+    while (lanes > 1 && lanes / 2 >= c2) lanes /= 2;
+    blocks = (c2 + lanes - 1) / lanes;
+    threads = kScanSegs * lanes;
+    len = (nchunk + kScanSegs - 1) / kScanSegs;
+    held = 8;
+    while (held < len && held < kScanHeld) held *= 2;
+    if (held < len) held = 0;
+    const long long tile = (long long)kScanSegs * seg_stride() * 4;
+    smem = held == 0 && tile <= kScanMaxStage ? (int)tile : 0;
+  }
+  // floats from one segment's tile to the next: len chunks and one more,
+  // so that neighbouring segments' rows fall in other banks
+  __host__ __device__ int seg_stride() const {
+    return (len + 1) * kScanLanes;
+  }
+};
+
+// grid g.blocks, block g.threads, g.smem bytes of dynamic shared memory.
+// Thread t is segment t / lanes of lane t % lanes of the block's lanes;
+// HELD = g.held.
+template <int HELD>
+__global__ void __launch_bounds__(kScanSegs * kScanLanes)
+front_dc_scan(float* __restrict__ mseq, int nchunk, int c2, ScanGeom g,
+              const float* __restrict__ dc_in, float* __restrict__ dc_out,
+              float a, float b) {
+  extern __shared__ __align__(16) float scan_tile[];  // [32][len + 1][8]
+  __shared__ float seg_r[kScanSegs][kScanLanes + 1];
+  __shared__ float seg_p[kScanSegs][kScanLanes + 1];
+  __shared__ float seed[kScanSegs][kScanLanes + 1];
+  const int tx = threadIdx.x % g.lanes, s = threadIdx.x / g.lanes;
+  const int lane = blockIdx.x * g.lanes + tx;
+  const bool in = lane < c2;
+  const int k0 = min(s * g.len, nchunk), k1 = min(k0 + g.len, nchunk);
+  const int n = in ? k1 - k0 : 0;                // the segment's chunks
+  float* col = mseq + (size_t)k0 * c2 + lane;    // chunk k0 + j at j c2
+  constexpr int kHeld = HELD > 0 ? HELD : 1;
+  float v[kHeld];                  // the segment's means, all loads first
+  // a longer segment: its means from src (the tile, or device memory) a
+  // batch at a time, with f(j, mean) applied in order
+  auto batches = [&](const float* src, int stride, auto f) {
+    for (int j0 = 0; j0 < n; j0 += kScanBatch) {
+      float x[kScanBatch];
+#pragma unroll
+      for (int i = 0; i < kScanBatch; ++i)
+        x[i] = j0 + i < n ? src[(j0 + i) * stride] : 0.0f;
+#pragma unroll
+      for (int i = 0; i < kScanBatch; ++i)
+        if (j0 + i < n) f(j0 + i, x[i]);
     }
+  };
+  const float* tile = scan_tile + s * g.seg_stride() + tx;
+  if (HELD > 0) {
+#pragma unroll
+    for (int j = 0; j < kHeld; ++j)
+      v[j] = j < n ? col[(size_t)j * c2] : 0.0f;
+  } else if (g.smem) {
+    // the block's tile: chunk k of lane l0 + q at [k / len][k % len][q];
+    // a row is `pieces` copies, and thread t copies piece t % pieces of
+    // rows t / pieces, + step, ... (its segment and row carried along)
+    const int l0 = blockIdx.x * g.lanes, width = min(g.lanes, c2 - l0);
+    const int per = c2 % 4 == 0 && width % 4 == 0 ? 4 : 1;   // lanes a copy
+    const int pieces = width / per, step = g.threads / pieces;
+    const int q = threadIdx.x % pieces * per;
+    int k = threadIdx.x / pieces, sk = k / g.len, jk = k - sk * g.len;
+    for (; k < nchunk && threadIdx.x < step * pieces; k += step) {
+      __pipeline_memcpy_async(
+          scan_tile + sk * g.seg_stride() + jk * kScanLanes + q,
+          mseq + (size_t)k * c2 + l0 + q, per * sizeof(float));
+      for (jk += step; jk >= g.len; jk -= g.len) ++sk;
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+  }
+  float r = 0.0f, p = 1.0f;
+  auto summary = [&](int, float mu) {
+    r = __fmaf_rn(a, r, __fmul_rn(b, mu));
+    p = __fmul_rn(p, a);
+  };
+  if (HELD > 0) {
+#pragma unroll
+    for (int j = 0; j < kHeld; ++j)
+      if (j < n) summary(j, v[j]);
+  } else if (g.smem) {
+    batches(tile, kScanLanes, summary);
+  } else {
+    batches(col, c2, summary);
   }
   seg_r[s][tx] = r;
   seg_p[s][tx] = p;
   __syncthreads();
-  if (s == 0 && lane < c2) {
+  if (s == 0 && in) {              // the seeds: their loads first
     float m = dc_in[lane];
-    for (int j = 0; j < 32; ++j) {
-      seed[j][tx] = m;
-      m = seg_p[j][tx] * m + seg_r[j][tx];
+#pragma unroll
+    for (int q = 0; q < kScanSegs; ++q) {
+      seed[q][tx] = m;
+      m = __fmaf_rn(seg_p[q][tx], m, seg_r[q][tx]);
     }
     dc_out[lane] = m;
   }
   __syncthreads();
-  if (lane < c2) {
-    float m = seed[s][tx];
-    for (int k = k0; k < k1; ++k) {
-      const size_t i = (size_t)k * c2 + lane;
-      m = a * m + b * mseq[i];
-      mseq[i] = m;
+  float m = seed[s][tx];
+  auto walk = [&](int j, float mu) {
+    m = __fmaf_rn(a, m, __fmul_rn(b, mu));
+    col[(size_t)j * c2] = m;
+  };
+  if (HELD > 0) {
+#pragma unroll
+    for (int j = 0; j < kHeld; ++j)
+      if (j < n) walk(j, v[j]);
+  } else if (g.smem) {
+    batches(tile, kScanLanes, walk);
+  } else {
+    batches(col, c2, walk);
+  }
+}
+
+// front_dc_scan over mseq [nchunk, c2] (in place) from dc_in [c2] into
+// dc_out [c2].
+cudaError_t launch_scan(float* mseq, int nchunk, int c2, const float* dc_in,
+                        float* dc_out, float a, float b, int device,
+                        cudaStream_t st) {
+  if (nchunk <= 0 || c2 <= 0) return cudaErrorInvalidValue;
+  const ScanGeom g(nchunk, c2);
+  if (g.smem > 0) {
+    // the stage may pass 48 KB once the kernel allows it (per device)
+    static int allowed[64] = {};
+    int& most = allowed[device & 63];
+    if (g.smem > most) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          front_dc_scan<0>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kScanMaxStage);
+      if (err != cudaSuccess) return err;
+      most = kScanMaxStage;
     }
   }
+  switch (g.held) {
+#define FRONT_SCAN_CASE(H)                                                   \
+  case H:                                                                    \
+    front_dc_scan<H><<<(unsigned)g.blocks, g.threads, g.smem, st>>>(         \
+        mseq, nchunk, c2, g, dc_in, dc_out, a, b);                           \
+    break;
+    FRONT_SCAN_CASE(0)
+    FRONT_SCAN_CASE(8)
+    FRONT_SCAN_CASE(16)
+    FRONT_SCAN_CASE(32)
+    FRONT_SCAN_CASE(64)
+#undef FRONT_SCAN_CASE
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 // grid (nchunk, ceil(C/32)), block (32, 8).  The noise blanker's chunk
@@ -1212,42 +1379,31 @@ __global__ void front_tail(const Tx* __restrict__ x, int T, int C,
   tail_out[i * c2 + C + c] = ui;
 }
 
-// The FM discriminator of decimated row o >= 0, channel c:
-// atan2(y[o] conj(y[o-1])) * gain, y[-1] the carried disc_last.
-__device__ __forceinline__ float disc_at(const float* __restrict__ y, int o,
-                                         int C, int c,
-                                         const float* __restrict__ disc_last,
-                                         float gain) {
-  const size_t c2 = 2 * (size_t)C;
-  const float yr = y[o * c2 + c], yi = y[o * c2 + C + c];
-  const float* prev = o ? y + (o - 1) * c2 : disc_last;
-  const float pr = prev[c], pi = prev[C + c];
+// The FM discriminator of the decimated row (yr, yi) after the row (pr, pi):
+// atan2(y conj(prev)) * gain.  The conj product uses round-to-nearest
+// intrinsics, so no contraction changes a zero's sign.
+__device__ __forceinline__ float disc_of(float yr, float yi, float pr,
+                                         float pi, float gain) {
   const float im = __fsub_rn(__fmul_rn(yi, pr), __fmul_rn(yr, pi));
   const float re = __fadd_rn(__fmul_rn(yr, pr), __fmul_rn(yi, pi));
   return __fmul_rn(atan2f(im, re), gain);
 }
 
-// grid ceil(M*C/256), block 256, M = T/F decimated rows.  FM discriminator
-// of the decimated composite (into disc, when not null), the carried
-// sample, the y-tail windows, and (hist_out not null, the hq form) the
-// last hr rows of the discriminator output [hr, C].
+// grid ceil(M*C/256), block 256, M = T/F decimated rows (the WFM form).  FM
+// discriminator of the decimated composite into disc [M, C], the carried
+// sample, and (ytail not null) the y-tail windows.
 __global__ void front_disc(const float* __restrict__ y, int M, int C,
                            const float* __restrict__ disc_last, float gain,
                            int mb, int y_tail_rows, float* __restrict__ disc,
                            float* __restrict__ dlast,
-                           float* __restrict__ ytail,
-                           float* __restrict__ hist_out, int hr) {
+                           float* __restrict__ ytail) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= M * C) return;
   const int o = idx / C, c = idx % C;
   const size_t c2 = 2 * (size_t)C;
   const float yr = y[o * c2 + c], yi = y[o * c2 + C + c];
-  const int h = o - (M - hr);                      // row of hist_out
-  if (disc != nullptr || (hist_out != nullptr && h >= 0)) {
-    const float d = disc_at(y, o, C, c, disc_last, gain);
-    if (disc != nullptr) disc[(size_t)o * C + c] = d;
-    if (hist_out != nullptr && h >= 0) hist_out[(size_t)h * C + c] = d;
-  }
+  const float* prev = o ? y + (o - 1) * c2 : disc_last;
+  disc[(size_t)o * C + c] = disc_of(yr, yi, prev[c], prev[C + c], gain);
   if (o == M - 1) {
     dlast[c] = yr;
     dlast[C + c] = yi;
@@ -1260,50 +1416,399 @@ __global__ void front_disc(const float* __restrict__ y, int M, int C,
   }
 }
 
-constexpr int kCompTile = 64;     // half-rate outputs per front_comp block
-constexpr int kCompCh = 32;       // channels per front_comp block
-constexpr int kCompRowsY = 8;     // threadIdx.y extent of front_comp
-constexpr int kMaxCompTaps = 32;  // most composite-decimator taps
+// ---------------------------------------------------------------------------
+// front_comp: the hq form's one pass over the y scratch (header comment,
+// point 6).
 
-// grid (ceil(C/kCompCh), ceil((M/2)/kCompTile)), block (kCompCh,
-// kCompRowsY).  The hq composite decimation by 2 of the discriminator
-// output d of the M decimated rows: disc[j] = sum_{i<tc} ct[i] d[2j - i],
-// d[t < 0] = comp_hist[hr + t] (hr >= tc - 1).  Each block computes the
-// 2 kCompTile + tc - 1 rows of d its outputs read (recomputing the tc - 1
-// rows its neighbour also needs) into shared memory, then each thread
-// runs the FIR for one channel and every kCompRowsY-th output, in plain
-// float32 FMAs from the newest tap to the oldest.
-__global__ void __launch_bounds__(kCompCh * kCompRowsY)
-front_comp(const float* __restrict__ y, int M, int C,
-           const float* __restrict__ disc_last, float gain,
-           const float* __restrict__ ct, int tc,
-           const float* __restrict__ comp_hist, int hr,
-           float* __restrict__ disc) {
-  __shared__ float d_s[2 * kCompTile + kMaxCompTaps - 1][kCompCh];
-  __shared__ float ct_s[kMaxCompTaps];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int c = blockIdx.x * kCompCh + tx;
-  const int j0 = blockIdx.y * kCompTile;
-  const int t_base = 2 * j0 - (tc - 1);           // d row of d_s[0]
-  const int rows = 2 * kCompTile + tc - 1;
-  if (ty == 0 && tx < tc) ct_s[tx] = ct[tx];
-  for (int r = ty; r < rows; r += kCompRowsY) {
-    const int t = t_base + r;
-    float v = 0.0f;
-    if (c < C && t < M)
-      v = t >= 0 ? disc_at(y, t, C, c, disc_last, gain)
-                 : comp_hist[(size_t)(hr + t) * C + c];
-    d_s[r][tx] = v;
+constexpr int kCompCg = 32;          // channels per work item: a warp's lanes
+constexpr int kCompWarps = 16;
+constexpr int kCompThreads = 32 * kCompWarps;
+constexpr int kCompStepOut = 64;     // half-rate outputs of one step
+constexpr int kCompStepRows = 2 * kCompStepOut;   // y rows of one step
+constexpr int kCompHist = 32;        // d rows kept before a step: the prologue
+constexpr int kCompBoxRows = 32;     // rows of a tensor-map box
+constexpr int kCompAlign = kCompBoxRows / 2;  // a segment's outputs divide
+constexpr int kCompStageBytes = 65536;  // the stages' budget
+constexpr int kCompMaxStages = 4;
+constexpr int kCompRingSteps = 2;    // steps the d ring keeps after the history
+constexpr int kCompBlocksPerSm = 2;  // resident front_comp blocks per SM
+constexpr int kMaxCompTaps = 32;     // most composite-decimator taps
+constexpr int kCompOuts = kCompStepOut / kCompWarps;  // a thread's outputs
+static_assert(kMaxCompTaps <= kCompHist + 1
+                  && kCompHist % kCompWarps == 0
+                  && kCompStepRows % kCompWarps == 0
+                  && kCompStepOut % kCompWarps == 0
+                  && kCompHist % kCompBoxRows == 0
+                  && kCompStepRows % kCompBoxRows == 0,
+              "front_comp's units are whole boxes and whole warp shares");
+
+// front_comp's shared-memory layout (bytes; ops/front.py mirrors it in
+// comp_march_layout): the stages' barriers, `stages` stages of one unit
+// ([2][stage_rows][32] float32: the group's re lanes, then its im lanes; a
+// unit is the prologue, the kCompHist rows before a segment, or a step of
+// kCompStepRows rows), the ring of d rows [ring_rows][32] (the history,
+// then kCompRingSteps steps), the taps [32], and two rows of y [2][2][32]
+// (the last row of the previous unit, by unit parity).
+struct CompGeom {
+  int hist, stage_rows, stage_bytes, stages, ring_rows, stage_off, ring;
+  int taps, prev, smem;
+  __host__ __device__ CompGeom() {
+    hist = kCompHist;
+    stage_rows = kCompStepRows > kCompHist ? kCompStepRows : kCompHist;
+    stage_bytes = stage_rows * 2 * kCompCg * 4;
+    stages = kCompStageBytes / stage_bytes;
+    stages = stages < 2 ? 2 : stages > kCompMaxStages ? kCompMaxStages : stages;
+    ring_rows = hist + kCompRingSteps * kCompStepRows;
+    stage_off = 128;                        // the stage barriers below
+    ring = stage_off + stages * stage_bytes;
+    taps = ring + ring_rows * kCompCg * 4;
+    prev = taps + kMaxCompTaps * 4;
+    smem = align128(prev + 2 * 2 * kCompCg * 4);
   }
+};
+
+// The work items: a channel group (32 channels) x a segment of ms
+// half-rate outputs (the last one shorter; a segment's last step forms and
+// stores only its own rows), item i = segment i / groups, channel group
+// i % groups.  ms is a multiple of kCompAlign (a segment starts on a box
+// of y rows), chosen for the fewest rows on the busiest of `slots`
+// resident blocks among the choices from about two items per slot where
+// the shape has them (ops/front.py mirrors this in comp_march_plan).
+struct CompPlan {
+  int ms, nseg, items, grid;
+};
+
+inline CompPlan comp_plan(int M, int C, const CompGeom& g, int slots) {
+  const int mh = M / 2, groups = (C + kCompCg - 1) / kCompCg;
+  const int max_seg = (mh + kCompStepOut - 1) / kCompStepOut;
+  const int n_lo = min(max((2 * slots + groups - 1) / groups, 1), max_seg);
+  CompPlan best{mh, 1, groups, 0};
+  long long best_cost = -1;
+  for (int n = n_lo; n <= min(4 * n_lo, max_seg); ++n) {
+    const int ms = ((mh + n - 1) / n + kCompAlign - 1) / kCompAlign
+                   * kCompAlign;
+    const int nseg = (mh + ms - 1) / ms;
+    const int items = groups * nseg;
+    const long long waves = (items + slots - 1) / slots;
+    const long long cost =
+        waves * ((long long)(ms + kCompStepOut - 1) / kCompStepOut
+                     * kCompStepRows + g.hist);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best = CompPlan{ms, nseg, items, 0};
+    }
+  }
+  best.grid = min(best.items, slots);
+  return best;
+}
+
+// Everything front_comp takes besides its tensor maps.
+struct Comp {
+  const float *y, *disc_last, *ct, *comp_hist;
+  int M, C, tc, hr, mb, y_tail_rows, ms, items;
+  float gain;
+  bool tma;                         // stage by tensor-map boxes (else
+                                    // element by element)
+  bool tail_tma;                    // store the y-tails by tensor-map boxes
+                                    // from the stages (else row by row):
+                                    // windows of whole 32-row boxes
+  float *disc, *dlast, *ytail, *hist_out;
+};
+
+// Stage rows [t0, t0 + rows) of channels [c0, c0 + 32) of y element by
+// element into a stage (zeros outside the rows [0, t_end) and the channels),
+// for planes whose lanes a tensor map cannot box.  The caller commits,
+// waits and synchronizes.
+__device__ void comp_stage_elements(float* dst, const Comp& a, int c0, int t0,
+                                    int rows, int stage_rows, int t_end) {
+  const size_t c2 = 2 * (size_t)a.C;
+  for (int e = threadIdx.x; e < 2 * rows * kCompCg; e += kCompThreads) {
+    const int hf = e / (rows * kCompCg), k = e - hf * rows * kCompCg;
+    const int i = k / kCompCg, c = c0 + k % kCompCg, t = t0 + i;
+    float* d = dst + (size_t)hf * stage_rows * kCompCg + k;
+    if (c < a.C && t >= 0 && t < t_end)
+      __pipeline_memcpy_async(d, a.y + (size_t)t * c2 + (hf ? a.C : 0) + c,
+                              sizeof(float));
+    else
+      *d = 0.0f;
+  }
+}
+
+// grid plan.grid, block kCompThreads, CompGeom().smem bytes of dynamic
+// shared memory.  The hq composite decimation by 2 of the discriminator
+// output d of the M decimated rows of y, disc[j] = sum_{i<tc} ct[i]
+// d[2j - i] (in fmaf from the newest tap to the oldest), d[o] = atan2(y[o]
+// conj(y[o-1])) * gain, d[t < 0] = comp_hist[hr + t], y[-1] = disc_last;
+// and from the same pass comp_hist' (the last hr rows of d), dlast (the
+// last row of y) and the y-tail windows (the last y_tail_rows rows of each
+// mb-row block of y).  Block b walks items b, b + gridDim.x, ...; an
+// item's units are its prologue (rows 2 j_s - 32 .. 2 j_s - 1 into ring
+// rows [0, 32)) and its steps (step s: rows 2 (j_s + 64 s) + [0, 128)
+// after the ring's history).  Thread 0 keeps `stages` units of the block's
+// stream in flight as 32-lane x 32-row tensor-map boxes (boxes wholly
+// before t = 0 or past the item's rows are not fetched); with a.tma false
+// the block stages each unit element by element.  Warp w forms d of the
+// unit's rows w n/16 .. (w + 1) n/16 - 1 (lane = channel), each row's
+// previous row from the one before it in the stage, from the previous unit
+// (prev rows in shared memory) or, for a prologue, from y; it writes dlast
+// as it goes.  The y-tail rows of a step leave its stage as 32-row boxes
+// of a 2D tensor map of the y-tails [K y_tail_rows, 2C] (thread 0, bulk
+// stores): segments start on multiples of 32 rows, so with y_tail_rows %
+// 32 == 0 every box lies wholly inside or outside its block's window
+// (tail_tma); otherwise, or with a.tma false, they are written row by row
+// as d is formed.  Then warp w
+// makes outputs 4 w .. 4 w + 3 of the step, walking the ring rows they
+// read once, newest first.  The ring is rewound (its last 32 rows copied
+// to its front) when the next step would overrun it.  The item whose
+// segment ends at M/2 writes comp_hist' from its ring.
+__global__ void __launch_bounds__(kCompThreads, kCompBlocksPerSm)
+front_comp(const __grid_constant__ CUtensorMap map,
+           const __grid_constant__ CUtensorMap tail_map, Comp a) {
+  extern __shared__ __align__(128) unsigned char comp_smem[];
+  const CompGeom g;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int C = a.C, M = a.M, mh = M / 2;
+  const size_t c2 = 2 * (size_t)C;
+  const int groups = (C + kCompCg - 1) / kCompCg;
+  uint64_t* full = reinterpret_cast<uint64_t*>(comp_smem);
+  float* ring = reinterpret_cast<float*>(comp_smem + g.ring);
+  float* ct_s = reinterpret_cast<float*>(comp_smem + g.taps);
+  float* prev_s = reinterpret_cast<float*>(comp_smem + g.prev);
+  auto stage = [&](int u) {
+    return reinterpret_cast<float*>(comp_smem + g.stage_off
+                                    + (size_t)(u % g.stages) * g.stage_bytes);
+  };
+  auto seg_start = [&](int item) { return (item / groups) * a.ms; };
+  auto seg_end = [&](int item) { return min(seg_start(item) + a.ms, mh); };
+  auto item_steps = [&](int item) {
+    return (seg_end(item) - seg_start(item) + kCompStepOut - 1) / kCompStepOut;
+  };
+  // unit `unit` of item: its first row and its rows
+  auto unit_rows = [&](int item, int unit, int* t0) {
+    const int r0 = 2 * seg_start(item);
+    *t0 = unit ? r0 + (unit - 1) * kCompStepRows : r0 - g.hist;
+    return unit ? kCompStepRows : g.hist;
+  };
+  // the block's stream of units, and (thread 0) the next one to issue
+  int total = 0;
+  for (int i = blockIdx.x; i < a.items; i += gridDim.x)
+    total += 1 + item_steps(i);
+  int p_item = blockIdx.x, p_unit = 0;
+  auto issue = [&](int u) {                      // stream entry u
+    uint64_t* bar = full + u % g.stages;
+    unsigned char* dst = reinterpret_cast<unsigned char*>(stage(u));
+    int t0;
+    const int rows = unit_rows(p_item, p_unit, &t0);
+    const int t_end = 2 * seg_end(p_item);
+    const int c0 = (p_item % groups) * kCompCg;
+    const int half = g.stage_rows * kCompCg * 4;
+    auto wanted = [&](int r) {
+      return t0 + r + kCompBoxRows > 0 && t0 + r < t_end;
+    };
+    uint32_t bytes = 0;
+    for (int r = 0; r < rows; r += kCompBoxRows)
+      if (wanted(r)) bytes += 2 * kCompBoxRows * kCompCg * 4;
+    bulk::mbar_arrive_expect_tx(bar, bytes);
+    for (int r = 0; r < rows; r += kCompBoxRows)
+      if (wanted(r)) {
+        const int off = r * kCompCg * 4;
+        bulk::load_2d(dst + off, &map, c0, t0 + r, bar);
+        bulk::load_2d(dst + half + off, &map, C + c0, t0 + r, bar);
+      }
+    if (++p_unit == 1 + item_steps(p_item)) {
+      p_item += gridDim.x;
+      p_unit = 0;
+    }
+  };
+  if (a.tma && tid == 0) {
+    for (int s = 0; s < g.stages; ++s) bulk::mbar_init(full + s, 1);
+    bulk::fence_mbar_init();
+    for (int u = 0; u < g.stages && u < total; ++u) issue(u);
+  }
+  if (tid < kMaxCompTaps) ct_s[tid] = tid < a.tc ? a.ct[tid] : 0.0f;
   __syncthreads();
-  const int mh = M / 2;
-  if (c >= C) return;
-  for (int jl = ty; jl < kCompTile && j0 + jl < mh; jl += kCompRowsY) {
-    const float* col = &d_s[2 * jl + tc - 1][tx];  // d[2j]
-    float acc = 0.0f;
-    for (int i = 0; i < tc; ++i) acc = fmaf(ct_s[i], col[-i * kCompCh], acc);
-    disc[(size_t)(j0 + jl) * C + c] = acc;
+  float ct[kMaxCompTaps];
+#pragma unroll
+  for (int i = 0; i < kMaxCompTaps; ++i) ct[i] = ct_s[i];
+
+  int u = 0;                                     // the block's stream entry
+  for (int item = blockIdx.x; item < a.items; item += gridDim.x) {
+    const int c0 = (item % groups) * kCompCg, c = c0 + lane;
+    const bool in = c < C;
+    const int j_s = seg_start(item), j_e = seg_end(item);
+    const int t_lo = 2 * j_s, t_end = 2 * j_e;   // the item's own rows
+    const int nsteps = item_steps(item);
+    const float dl_r = in ? a.disc_last[c] : 0.0f;
+    const float dl_i = in ? a.disc_last[C + c] : 0.0f;
+    // wait for unit u's rows (from t0) in its stage
+    auto land = [&](int unit) {
+      if (a.tma) {
+        bulk::mbar_wait(full + u % g.stages, (uint32_t)(u / g.stages) & 1u);
+      } else {
+        int t0;
+        const int rows = unit_rows(item, unit, &t0);
+        comp_stage_elements(stage(u), a, c0, t0, rows, g.stage_rows, t_end);
+        __pipeline_commit();
+        __pipeline_wait_prior(0);
+        __syncthreads();
+      }
+    };
+    // the stage of unit u is free (its y-tail stores have read it):
+    // refill it with unit u + stages
+    auto refill = [&]() {
+      if (a.tma && tid == 0 && u + g.stages < total) {
+        if (a.tail_tma) bulk::store_wait_read<0>();
+        bulk::fence_async_smem();
+        issue(u + g.stages);
+      }
+    };
+    // thread 0: the y-tail rows among step rows [t0, t0 + 128) that landed,
+    // box by box from the stage: a box of block b (mb rows) in its window
+    // lies at window row w = its first row's offset - (mb - y_tail_rows),
+    // row b y_tail_rows + w of the y-tails
+    auto store_tails = [&](int t0) {
+      const unsigned char* st = reinterpret_cast<const unsigned char*>(
+          stage(u));
+      const int half = g.stage_rows * kCompCg * 4;
+      bulk::fence_async_smem();
+      for (int r = 0; r < kCompStepRows && t0 + r < t_end;
+           r += kCompBoxRows) {
+        const int t = t0 + r, b = t / a.mb;
+        const int w = t - b * a.mb - (a.mb - a.y_tail_rows);
+        if (w >= 0) {
+          const unsigned char* src = st + r * kCompCg * 4;
+          bulk::store_2d(&tail_map, c0, b * a.y_tail_rows + w, src);
+          bulk::store_2d(&tail_map, C + c0, b * a.y_tail_rows + w,
+                         src + half);
+        }
+      }
+      bulk::store_commit();
+    };
+    // d of unit u's rows [t0, t0 + n) into ring rows [dst, dst + n), and
+    // dlast (and without tail_tma the y-tail rows) among the item's own
+    // rows; this warp's rows are i0 .. i0 + n/16 - 1, each row's previous
+    // row carried in registers, the unit's last row to prev_s
+    auto form = [&](int t0, int n, int dst, bool prologue) {
+      const float* sre = stage(u);
+      const float* sim = sre + g.stage_rows * kCompCg;
+      const int per = n / kCompWarps, i0 = warp * per, tp = t0 + i0 - 1;
+      float pr = 0.0f, pi = 0.0f;                // y of the row before
+      if (tp >= 0 && tp < t_end) {
+        if (i0 > 0) {
+          pr = sre[(i0 - 1) * kCompCg + lane];
+          pi = sim[(i0 - 1) * kCompCg + lane];
+        } else if (prologue) {
+          pr = in ? a.y[(size_t)tp * c2 + c] : 0.0f;
+          pi = in ? a.y[(size_t)tp * c2 + C + c] : 0.0f;
+        } else {
+          const float* pv = prev_s + ((u - 1) & 1) * 2 * kCompCg;
+          pr = pv[lane];
+          pi = pv[kCompCg + lane];
+        }
+      }
+      // the row's block and offset in it (the y-tail rows are each block's
+      // last y_tail_rows), carried from row to row
+      int bw = 0, wo = 0;
+      if (t0 + i0 > 0) {
+        bw = (t0 + i0) / a.mb;
+        wo = t0 + i0 - bw * a.mb;
+      }
+      for (int q = 0; q < per; ++q) {
+        const int i = i0 + q, t = t0 + i;
+        const float yr = sre[i * kCompCg + lane];
+        const float yi = sim[i * kCompCg + lane];
+        float d = disc_of(yr, yi, t ? pr : dl_r, t ? pi : dl_i, a.gain);
+        if (t < 0)
+          d = in && t >= -a.hr ? a.comp_hist[(size_t)(a.hr + t) * C + c]
+                               : 0.0f;
+        else if (t >= t_end)
+          d = 0.0f;
+        if (in && t >= t_lo && t < t_end) {
+          const int w = wo - (a.mb - a.y_tail_rows);
+          if (!a.tail_tma && a.ytail != nullptr && w >= 0) {
+            float* yt = a.ytail + ((size_t)bw * a.y_tail_rows + w) * c2;
+            yt[c] = yr;
+            yt[C + c] = yi;
+          }
+          if (t == M - 1) {
+            a.dlast[c] = yr;
+            a.dlast[C + c] = yi;
+          }
+        }
+        if (t >= 0 && ++wo == a.mb) {
+          wo = 0;
+          ++bw;
+        }
+        ring[(dst + i) * kCompCg + lane] = d;
+        pr = yr;
+        pi = yi;
+      }
+      if (warp == kCompWarps - 1) {
+        float* pv = prev_s + (u & 1) * 2 * kCompCg;
+        pv[lane] = pr;
+        pv[kCompCg + lane] = pi;
+      }
+    };
+
+    __syncthreads();             // the last item is done with the ring
+    land(0);                     // the prologue
+    form(t_lo - g.hist, g.hist, 0, true);
+    __syncthreads();
+    refill();
+    ++u;
+    int pos = g.hist;                            // ring row of row 2 j0
+    for (int s = 0; s < nsteps; ++s, ++u) {
+      if (pos + kCompStepRows > g.ring_rows) {   // rewind: history down
+        __syncthreads();
+        const int n4 = g.hist * kCompCg / 4, src = (pos - g.hist) * kCompCg / 4;
+        float4* r4 = reinterpret_cast<float4*>(ring);
+        for (int e = tid; e < n4; e += kCompThreads) r4[e] = r4[src + e];
+        pos = g.hist;
+        __syncthreads();
+      }
+      const int t0 = t_lo + s * kCompStepRows;
+      land(1 + s);
+      if (a.tail_tma && tid == 0) store_tails(t0);
+      form(t0, kCompStepRows, pos, false);
+      __syncthreads();
+      refill();
+      if (s + 1 == nsteps && j_e == mh && a.hist_out != nullptr) {
+        // comp_hist': d rows M - hr .. M - 1, at ring rows from r0
+        const int r0 = pos + M - a.hr - t0;
+        for (int e = tid; e < a.hr * kCompCg; e += kCompThreads) {
+          const int i = e / kCompCg, l = e % kCompCg;
+          if (c0 + l < C)
+            a.hist_out[(size_t)i * C + c0 + l] = ring[(r0 + i) * kCompCg + l];
+        }
+      }
+      // the FIR: outputs j0 + 4 warp + o; output j reads ring rows of d[2j
+      // - i], i < tc, which lie at col[(2 o - i) 32]; each row is read once
+      // (r = 2 o - i from the newest down), so each output's sum still runs
+      // from the newest tap to the oldest
+      const int j0 = j_s + s * kCompStepOut + warp * kCompOuts;
+      const float* col = ring + (pos + 2 * warp * kCompOuts) * kCompCg + lane;
+      float acc[kCompOuts];
+#pragma unroll
+      for (int o = 0; o < kCompOuts; ++o) acc[o] = 0.0f;
+#pragma unroll
+      for (int r = 2 * (kCompOuts - 1); r > -kMaxCompTaps; --r) {
+        const float v = col[r * kCompCg];
+#pragma unroll
+        for (int o = 0; o < kCompOuts; ++o) {
+          const int i = 2 * o - r;
+          if (i >= 0 && i < kMaxCompTaps && i < a.tc)
+            acc[o] = fmaf(ct[i], v, acc[o]);
+        }
+      }
+      if (in) {
+#pragma unroll
+        for (int o = 0; o < kCompOuts; ++o)
+          if (j0 + o < j_e) a.disc[(size_t)(j0 + o) * C + c] = acc[o];
+      }
+      pos += kCompStepRows;
+    }
   }
+  if (a.tail_tma && tid == 0) bulk::store_wait_read<0>();
 }
 
 // A tensor map can box a channel group's lanes of a [T, 2C] plane of
@@ -1333,6 +1838,34 @@ cudaError_t launch_march(const Tx* x, const March& args, const MarchGeom& g,
   return cudaGetLastError();
 }
 
+// front_comp over the M decimated rows of y (its work plan for the
+// device's resident blocks; y's tensor map when c.tma).
+cudaError_t launch_comp(const Comp& args, int device, cudaStream_t st) {
+  const CompGeom g;
+  int slots = 0;
+  cudaError_t err = launch::resident_blocks(
+      front_comp, device, kCompThreads, g.smem, kCompBlocksPerSm, &slots);
+  if (err != cudaSuccess) return err;
+  const CompPlan p = comp_plan(args.M, args.C, g, slots);
+  Comp a = args;
+  a.ms = p.ms;
+  a.items = p.items;
+  CUtensorMap map, tail_map;
+  memset(&map, 0, sizeof(map));
+  memset(&tail_map, 0, sizeof(tail_map));
+  if (a.tma && (err = launch::plane_map(a.y, 2 * a.C, a.M, 4, kCompCg,
+                                      kCompBoxRows, &map)) != cudaSuccess)
+    return err;
+  if (a.tail_tma
+      && (err = launch::plane_map(a.ytail, 2 * a.C,
+                                  a.M / a.mb * a.y_tail_rows, 4, kCompCg,
+                                  kCompBoxRows, &tail_map)) != cudaSuccess)
+    return err;
+  front_comp<<<(unsigned)p.grid, kCompThreads, g.smem, st>>>(map, tail_map,
+                                                            a);
+  return cudaGetLastError();
+}
+
 // Everything front_forward takes besides the plane.
 struct Fwd {
   int T, C, n, r_rows, d_rows, ntaps, F, y_tail_rows;
@@ -1356,23 +1889,21 @@ int forward(const Tx* x, const Fwd& f) {
   cudaError_t err;
   const int c2 = 2 * f.C;
   const int nchunk = f.T / kDcChunk;
-  const unsigned lane_groups = (unsigned)((c2 + 31) / 32);
 
   if ((err = launch_means(x, f.T, c2, f.n, f.r_rows, f.mseq, f.raw, f.device,
-                          f.st)) != cudaSuccess)
+                          f.st)) != cudaSuccess
+      || (err = launch_scan(f.mseq, nchunk, c2, f.dc_in, f.dc_out, f.a, f.b,
+                            f.device, f.st)) != cudaSuccess)
     return err;
-  front_dc_scan<<<dim3(lane_groups), dim3(32, 32), 0, f.st>>>(
-      f.mseq, nchunk, c2, f.dc_in, f.dc_out, f.a, f.b);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (f.nb.mode) {
     front_nb_means<Tx><<<dim3((unsigned)nchunk, (unsigned)((f.C + 31) / 32)),
                          dim3(32, 8), 0, f.st>>>(x, f.C, f.mseq, f.iq,
                                                  const_cast<float*>(f.nb.seq));
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    front_dc_scan<<<dim3(lane_groups), dim3(32, 32), 0, f.st>>>(
-        const_cast<float*>(f.nb.seq), nchunk, c2, f.nb.avg_in, f.nb_avg_out,
-        f.nb_a, f.nb_b);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((err = cudaGetLastError()) != cudaSuccess
+        || (err = launch_scan(const_cast<float*>(f.nb.seq), nchunk, c2,
+                              f.nb.avg_in, f.nb_avg_out, f.nb_a, f.nb_b,
+                              f.device, f.st)) != cudaSuccess)
+      return err;
   }
 
   const int dp = march_branch_taps(f.ntaps, f.F);
@@ -1410,20 +1941,26 @@ int forward(const Tx* x, const Fwd& f) {
     return err;
 
   const int M = f.T / f.F;
-  const bool comp = f.comp_taps != nullptr;
-  front_disc<<<(unsigned)(((size_t)M * f.C + 255) / 256), 256, 0, f.st>>>(
-      f.y, M, f.C, f.disc_last, f.disc_gain, f.n / f.F, f.y_tail_rows,
-      comp ? nullptr : f.disc, f.dlast,
-      f.y_tail_rows > 0 ? f.ytail : nullptr,
-      comp ? f.comp_hist_out : nullptr, f.comp_hr);
-  if ((err = cudaGetLastError()) != cudaSuccess || !comp) return err;
-
-  const dim3 grid((unsigned)((f.C + kCompCh - 1) / kCompCh),
-                  (unsigned)((M / 2 + kCompTile - 1) / kCompTile));
-  front_comp<<<grid, dim3(kCompCh, kCompRowsY), 0, f.st>>>(
-      f.y, M, f.C, f.disc_last, f.disc_gain, f.comp_taps, f.comp_tc,
-      f.comp_hist, f.comp_hr, f.disc);
-  return cudaGetLastError();
+  if (f.comp_taps == nullptr) {
+    front_disc<<<(unsigned)(((size_t)M * f.C + 255) / 256), 256, 0, f.st>>>(
+        f.y, M, f.C, f.disc_last, f.disc_gain, f.n / f.F, f.y_tail_rows,
+        f.disc, f.dlast, f.y_tail_rows > 0 ? f.ytail : nullptr);
+    return cudaGetLastError();
+  }
+  Comp c;
+  c.y = f.y; c.disc_last = f.disc_last; c.ct = f.comp_taps;
+  c.comp_hist = f.comp_hist;
+  c.M = M; c.C = f.C; c.tc = f.comp_tc; c.hr = f.comp_hr; c.mb = f.n / f.F;
+  c.y_tail_rows = f.y_tail_rows; c.ms = c.items = 0;
+  c.gain = f.disc_gain;
+  c.tma = march_tma_ok(f.C, 4) && reinterpret_cast<uintptr_t>(f.y) % 16 == 0;
+  c.disc = f.disc; c.dlast = f.dlast;
+  c.ytail = f.y_tail_rows > 0 ? f.ytail : nullptr;
+  c.tail_tma = c.tma && c.ytail != nullptr
+               && c.y_tail_rows % kCompBoxRows == 0 && c.mb % kCompBoxRows == 0
+               && reinterpret_cast<uintptr_t>(c.ytail) % 16 == 0;
+  c.hist_out = f.comp_hist_out;
+  return launch_comp(c, f.device, f.st);
 }
 
 // ---------------------------------------------------------------------------
@@ -1827,6 +2364,49 @@ int front_fir_plan(int T, int C, int ntaps, int F, int nb, int x_int16,
   return 0;
 }
 
+// front_comp's shared memory (bytes).
+size_t front_comp_smem_bytes() { return (size_t)CompGeom().smem; }
+
+// front_comp's work items on `slots` resident blocks for M decimated rows
+// (M even) of C channels: out = {segment outputs, segments, items, grid,
+// step rows, history rows, ring rows, stages, box rows}; returns 0, or -1
+// for a shape it does not take.
+int front_comp_plan(int M, int C, int slots, int* out) {
+  if (M <= 0 || M % 2 || C <= 0 || slots <= 0) return -1;
+  const CompGeom g;
+  const CompPlan p = comp_plan(M, C, g, slots);
+  const int v[9] = {p.ms, p.nseg, p.items, p.grid, kCompStepRows, g.hist,
+                    g.ring_rows, g.stages, kCompBoxRows};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  return 0;
+}
+
+// front_dc_scan's launch for nchunk chunk means of c2 lanes: out = {lanes
+// per block, blocks, threads, chunks a thread holds in registers (0: a
+// longer segment), chunks per segment, a longer segment's shared memory
+// (0: its chains read device memory)}; returns 0, or -1 for a shape it
+// does not take.
+int front_dc_scan_plan(int nchunk, int c2, int* out) {
+  if (nchunk <= 0 || c2 <= 0) return -1;
+  const ScanGeom g(nchunk, c2);
+  const int v[6] = {g.lanes, g.blocks, g.threads, g.held, g.len, g.smem};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 0;
+}
+
+// front_dc_scan alone: the chunk EWMA m_k = a m_{k-1} + b mu_k in place
+// over mseq [nchunk, c2] (chunk means in, estimates out), from dc_in [c2]
+// into dc_out [c2].  Returns the first CUDA error.
+int front_dc_scan_forward(int device, float* mseq, int nchunk, int c2,
+                          const float* dc_in, float* dc_out, float a, float b,
+                          void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if ((long long)nchunk * c2 >= (1LL << 31)) return cudaErrorInvalidValue;
+  return launch_scan(mseq, nchunk, c2, dc_in, dc_out, a, b, device,
+                     (cudaStream_t)stream);
+}
+
 const char* front_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
@@ -1898,7 +2478,8 @@ int front_forward(int device, const void* x, int x_int16, int T, int C,
   if (nb_mode && (nb_bw < 1 || nb_bw > kNbTailRows)) return cudaErrorInvalidValue;
   if (comp_taps != nullptr
       && (disc_gain == 0.0f || comp_tc < 2 || comp_tc > kMaxCompTaps
-          || comp_hr < comp_tc - 1 || (T / F) % 2 || T / F < comp_hr))
+          || comp_hr < comp_tc - 1 || comp_hr > kCompHist || (T / F) % 2
+          || T / F < comp_hr))
     return cudaErrorInvalidValue;
   Fwd f;
   f.T = T; f.C = C; f.n = n; f.r_rows = r_rows; f.d_rows = d_rows;
@@ -1978,15 +2559,14 @@ int probe_front_forward(int device, int form, const float* x0,
   const cudaStream_t st = (cudaStream_t)stream;
   const bool two = form <= kV2;
   const int nchunk = T / kDcChunk, lanes = two ? C : 2 * C;
-  const unsigned lane_groups = (unsigned)((lanes + 31) / 32);
   for (int pl = 0; pl < (two ? 2 : 1); ++pl) {
     float* ms = mseq + (size_t)pl * nchunk * lanes;
     if ((err = launch_means(pl ? x1 : x0, T, lanes, T, 0, ms, nullptr,
-                            device, st)) != cudaSuccess)
+                            device, st)) != cudaSuccess
+        || (err = launch_scan(ms, nchunk, lanes, dc_in + pl * C,
+                              dc_out + pl * C, a, b, device, st))
+               != cudaSuccess)
       return err;
-    front_dc_scan<<<dim3(lane_groups), dim3(32, 32), 0, st>>>(
-        ms, nchunk, lanes, dc_in + pl * C, dc_out + pl * C, a, b);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   Probe p;
   p.x0 = x0; p.x1 = x1; p.m0 = mseq;

@@ -85,6 +85,18 @@ I16_SCALE = 2.0 ** -15      # int16 full scale 32768 -> 1.0
 NB_MODES = ("blank", "average")  # NB1, NB2
 COMP_DECIM = 2     # the hq composite decimation (comp_taps)
 _MAX_COMP_TAPS = 32  # most comp_taps front_comp takes (kMaxCompTaps)
+_COMP_CG = 32        # channels per front_comp work item (kCompCg)
+_COMP_STEP_OUT = 64  # half-rate outputs of one front_comp step (kCompStepOut)
+_COMP_HIST = 32      # d rows kept before a step, the prologue (kCompHist)
+_COMP_BOX_ROWS = 32  # rows of a front_comp tensor-map box (kCompBoxRows)
+_COMP_ALIGN = 16     # a front_comp segment's outputs divide (kCompAlign)
+_COMP_BLOCKS_PER_SM = 2    # resident front_comp blocks (kCompBlocksPerSm)
+_COMP_STAGE_BYTES = 65536  # front_comp's stages' budget (kCompStageBytes)
+_COMP_MAX_STAGES = 4       # kCompMaxStages
+_COMP_RING_STEPS = 2       # steps the d ring keeps (kCompRingSteps)
+_SCAN_SEGS = 32            # front_dc_scan's segments per lane (kScanSegs)
+_SCAN_LANES = 8            # its lanes per block at most (kScanLanes)
+_SCAN_HELD = 64            # chunks a thread holds in registers (kScanHeld)
 PLANE_ALIGN = 16   # bytes: a CUDA plane's alignment (bulk copies)
 SOURCE = "pebblesdr_tpu_torch/csrc/front.cu"
 REPLACES = "pebblesdr_tpu/ops/pallas_kernels.py:119"
@@ -228,6 +240,194 @@ def fir_march_plan(t: int, c: int, factor: int, ntaps: int,
             "step_outputs": km, "step_rows": lay["step_rows"],
             "prologue_rows": lay["hist"] + max(nb_bw - 1, 0),
             "smem": lay["smem"], "layout": lay}
+
+
+def comp_march_layout() -> dict[str, int]:
+    """front_comp's geometry and shared-memory layout in bytes (CompGeom in
+    csrc/front.cu, mirrored): `stages` stages of one unit (the prologue,
+    the 32 rows before a segment, or a step of 128 rows) as [2][stage_rows]
+    [32] float32 (the channel group's re lanes, then its im lanes), the
+    ring of d rows (the 32-row history and two steps), the taps and two
+    rows of y (the last row of the previous unit)."""
+    def a128(v):
+        return (v + 127) & ~127
+
+    hist, step_rows = _COMP_HIST, COMP_DECIM * _COMP_STEP_OUT
+    stage_rows = max(step_rows, hist)
+    stage_bytes = stage_rows * 2 * _COMP_CG * 4
+    stages = min(max(_COMP_STAGE_BYTES // stage_bytes, 2), _COMP_MAX_STAGES)
+    ring_rows = hist + _COMP_RING_STEPS * step_rows
+    ring = 128 + stages * stage_bytes
+    taps = ring + ring_rows * _COMP_CG * 4
+    prev = taps + _MAX_COMP_TAPS * 4
+    return {"hist": hist, "step_rows": step_rows, "stage_rows": stage_rows,
+            "stage_bytes": stage_bytes, "stages": stages,
+            "ring_rows": ring_rows, "box_rows": _COMP_BOX_ROWS, "stage": 128,
+            "ring": ring, "taps": taps, "prev": prev,
+            "smem": a128(prev + 2 * 2 * _COMP_CG * 4)}
+
+
+def comp_march_plan(m: int, c: int,
+                    slots: int = _COMP_BLOCKS_PER_SM * H100_SMS) -> dict:
+    """front_comp's work items on `slots` resident blocks (comp_plan in
+    csrc/front.cu, mirrored; two blocks per H100 SM by default) for m
+    decimated rows of y (m even): a channel group of 32 channels x a
+    segment of `seg_outputs` half-rate outputs (a multiple of 16, so each
+    segment starts on a 32-row box of y; the last segment shorter), item i
+    = segment i / groups, channel group i % groups.  The segment length
+    gives the fewest rows on the busiest block, among the choices from
+    about two items per slot where the shape has them.  An item forms d of
+    its prologue, rows [2 j_s - 32, 2 j_s), then of its own rows [2 j_s,
+    2 j_e) in steps of 128 rows; it writes the y-tails and disc_last of its
+    own rows, and the item whose segment ends at m / 2 writes
+    comp_hist'."""
+    lay = comp_march_layout()
+    mh = m // 2
+    groups = -(-c // _COMP_CG)
+    max_seg = -(-mh // _COMP_STEP_OUT)
+    n_lo = min(max(-(-2 * slots // groups), 1), max_seg)
+    best = (None, mh, 1)
+    for n in range(n_lo, min(4 * n_lo, max_seg) + 1):
+        ms = -(-mh // n)
+        ms = -(-ms // _COMP_ALIGN) * _COMP_ALIGN
+        nseg = -(-mh // ms)
+        cost = -(-groups * nseg // slots) * (
+            -(-ms // _COMP_STEP_OUT) * lay["step_rows"] + lay["hist"])
+        if best[0] is None or cost < best[0]:
+            best = (cost, ms, nseg)
+    _, ms, nseg = best
+    segments = [(j, min(j + ms, mh)) for j in range(0, mh, ms)]
+    return {"seg_outputs": ms, "segments": segments, "groups": groups,
+            "items": groups * nseg, "grid": min(groups * nseg, slots),
+            "steps": [-(-(e - j) // _COMP_STEP_OUT) for j, e in segments],
+            "step_outputs": _COMP_STEP_OUT, "step_rows": lay["step_rows"],
+            "prologue_rows": lay["hist"],
+            "own_rows": [(2 * j, 2 * e) for j, e in segments],
+            "writes_hist": [e == mh for _, e in segments],
+            "smem": lay["smem"], "layout": lay}
+
+
+def dc_scan_layout(nchunk: int, lanes: int) -> dict[str, int]:
+    """front_dc_scan's launch (ScanGeom in csrc/front.cu, mirrored) for
+    chunk means [nchunk, lanes]: lanes per block (a power of two <= 8, no
+    more than the plane needs), 32 threads per lane (one per segment), the
+    chunks each thread fetches into registers before its chains start (the
+    least of 8, 16, 32, 64 that covers a segment; 0 for a longer one), the
+    chunks of a segment, and for a longer segment the shared memory of the
+    block's tile ([32 segments][len + 1][8 lanes], landed by cp.async; 0
+    when it does not fit a block and the chains read device memory)."""
+    lb = _SCAN_LANES
+    while lb > 1 and lb // 2 >= lanes:
+        lb //= 2
+    seg = -(-nchunk // _SCAN_SEGS)
+    held = 8
+    while held < seg and held < _SCAN_HELD:
+        held *= 2
+    held = held if held >= seg else 0
+    tile = _SCAN_SEGS * (seg + 1) * _SCAN_LANES * 4
+    return {"lanes": lb, "blocks": -(-lanes // lb), "threads": _SCAN_SEGS * lb,
+            "held": held, "len": seg,
+            "smem": tile if not held and tile <= _MAX_SMEM - 8192 else 0}
+
+
+def _fma32(x, y, z) -> np.ndarray:
+    """float32 fma(x, y, z) with one rounding, elementwise: the product is
+    exact in float64, TwoSum gives the float64 sum's error, and that error
+    settles a float64 sum that lies on a float32 midpoint."""
+    x, y, z = (np.asarray(v, np.float32).astype(np.float64) for v in (x, y, z))
+    prod = x * y
+    s = prod + z
+    bv = s - prod
+    err = (prod - (s - bv)) + (z - bv)
+    r = s.astype(np.float32)
+    other = np.nextafter(r, np.where(s > r, np.inf, -np.inf).astype(np.float32))
+    mid = (r.astype(np.float64) + other.astype(np.float64)) / 2
+    tie = (s == mid) & (err != 0) & (s != r)
+    up = np.maximum(r, other)
+    lo = np.minimum(r, other)
+    return np.where(tie, np.where(err > 0, up, lo), r).astype(np.float32)
+
+
+def dc_scan_emulate(means, dc_in, a: float, b: float):
+    """front_dc_scan's arithmetic in numpy float32, in its association:
+    (m [nchunk, L], dc' [1, L]) of the chunk EWMA m_k = a m_{k-1} + b mu_k
+    over means [nchunk, L] from dc_in [L] or [1, L], (a, b) float32.  Each
+    lane's chunks are cut into 32 segments of ceil(nchunk / 32); each
+    segment's (r, p) from (0, 1) by r = fma(a, r, b mu_k), p = p a; the 32
+    seeds chained from dc_in by m = fma(p, m, r); each segment walked from
+    its seed by m = fma(a, m, b mu_k).  The kernel's result equals it bit
+    for bit."""
+    mu = np.asarray(means, np.float32)
+    nchunk, lanes = mu.shape
+    a32, b32 = np.float32(a), np.float32(b)
+    ln = -(-nchunk // _SCAN_SEGS)
+    k0 = np.minimum(np.arange(_SCAN_SEGS) * ln, nchunk)
+    k1 = np.minimum(k0 + ln, nchunk)
+
+    def weighted(k):                      # b mu_k of each segment's chunk k
+        return b32 * mu[np.minimum(k, nchunk - 1)]
+
+    r = np.zeros((_SCAN_SEGS, lanes), np.float32)
+    p = np.ones((_SCAN_SEGS, lanes), np.float32)
+    for step in range(ln):
+        k = k0 + step
+        live = (k < k1)[:, None]
+        r = np.where(live, _fma32(a32, r, weighted(k)), r)
+        p = np.where(live, p * a32, p)
+    m = np.asarray(dc_in, np.float32).reshape(lanes)
+    seeds = np.empty((_SCAN_SEGS, lanes), np.float32)
+    for q in range(_SCAN_SEGS):
+        seeds[q] = m
+        m = _fma32(p[q], m, r[q])
+    out = np.empty_like(mu)
+    for step in range(ln):
+        k = k0 + step
+        live = k < k1
+        seeds = np.where(live[:, None], _fma32(a32, seeds, weighted(k)), seeds)
+        out[k[live]] = seeds[live]
+    return out, m[None, :]
+
+
+def dc_scan_reference(means: torch.Tensor, dc: torch.Tensor, a: float):
+    """Plain version of front_dc_scan: (m [nchunk, L], dc' [1, L]) of the
+    chunk EWMA over means [nchunk, L] from dc [1, L], a in float64 (the
+    closed form of _ewma)."""
+    m = _ewma(means, dc, a)
+    return m, m[m.shape[0] - 1:].clone()
+
+
+def dc_scan(means: torch.Tensor, dc: torch.Tensor, a: float):
+    """front_dc_scan alone (csrc/front.cu) for CUDA tensors, the plain
+    version for CPU tensors: (m [nchunk, L], dc' [1, L]) of the chunk EWMA
+    m_k = a m_{k-1} + (1 - a) mu_k over means [nchunk, L] from dc [1, L].
+    The kernel takes (a, 1 - a) rounded to float32 (chunk_ewma) and runs
+    on a copy of means."""
+    if means.device.type == "cpu":
+        return dc_scan_reference(means, dc, a)
+    if means.device.type != "cuda":
+        raise ValueError(f"dc_scan runs on cuda or cpu, not {means.device}")
+    if means.dim() != 2:
+        raise ValueError(f"dc_scan takes chunk means [nchunk, L], got "
+                         f"{tuple(means.shape)}")
+    nchunk, lanes = means.shape
+    dev = means.device
+    _check_cuda("means", means, dev, (nchunk, lanes))
+    _check_cuda("dc", dc, dev, (1, lanes))
+    if means.numel() >= 2 ** 31:
+        raise ValueError(f"{tuple(means.shape)} means are too many for one "
+                         f"launch")
+    m = means.clone()
+    dc_out = torch.empty(1, lanes, dtype=torch.float32, device=dev)
+    a32, b32 = chunk_ewma(a)
+    lib = _lib()
+    err = lib.front_dc_scan_forward(
+        _device_index(dev), m.data_ptr(), nchunk, lanes, dc.data_ptr(),
+        dc_out.data_ptr(), a32, b32, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"front_dc_scan launch failed: CUDA error {err} "
+                           f"({lib.front_error_string(err).decode()})")
+    dc_scan.launches += 1
+    return m, dc_out
 
 
 def fir_tma(c: int, dtype: torch.dtype) -> bool:
@@ -689,6 +889,14 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.front_means_smem_bytes.argtypes = [i, i]
     lib.front_means_forward.restype = ctypes.c_int
     lib.front_means_forward.argtypes = [i, p, i, i, i, i, i, p, p, p]
+    lib.front_comp_smem_bytes.restype = ctypes.c_size_t
+    lib.front_comp_smem_bytes.argtypes = []
+    lib.front_comp_plan.restype = ctypes.c_int
+    lib.front_comp_plan.argtypes = [i, i, i, p]
+    lib.front_dc_scan_plan.restype = ctypes.c_int
+    lib.front_dc_scan_plan.argtypes = [i, i, p]
+    lib.front_dc_scan_forward.restype = ctypes.c_int
+    lib.front_dc_scan_forward.argtypes = [i, p, i, i, p, p, f, f, p]
     return lib
 
 
@@ -731,6 +939,9 @@ def fused_front(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
     if not fir_tma(x.shape[1] // 2, x.dtype):
         fused_front.element_launches += 1
     chunk_means.launches += 1      # K1's first pass is front_means
+    dc_scan.launches += 1 if nb is None else 2   # the DC (and blanker) EWMA
+    if comp_taps is not None:
+        fused_front.comp_launches += 1
     return ret
 
 
@@ -846,6 +1057,12 @@ fused_front.launches = 0  # CUDA kernel launches (the plain path never counts)
 # (its row pitch breaks the tensor map's 16-byte rule, fir_tma); the rest
 # staged it by tensor-map boxes
 fused_front.element_launches = 0
+# of those, the hq form's (comp_taps): each launches front_comp, the only
+# pass that reads y there (no front_disc)
+fused_front.comp_launches = 0
 # front_means launches: chunk_means', and those inside K1 (fused_front, one
 # per call) and the probes (kprobe.probe_front, one per plane)
 chunk_means.launches = 0
+# front_dc_scan launches: dc_scan's, and those inside K1 (one per call, two
+# with the blanker) and the probes (one per plane)
+dc_scan.launches = 0

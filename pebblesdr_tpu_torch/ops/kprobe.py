@@ -367,6 +367,7 @@ def probe_front(variant: str, plan: front.FrontPlan, x: torch.Tensor,
     _raise(err, "probe_toeplitz")
     probe_front.launches += 1
     front.chunk_means.launches += 2 if two else 1   # front_means per plane
+    front.dc_scan.launches += 2 if two else 1       # front_dc_scan per plane
     return y, dc_out, tail_out, advance_phase(phase, t, tabs["fhi"],
                                               tabs["flo"])
 

@@ -6,9 +6,13 @@ a chip_smoke.py, e.g. a parent commit unpacked under build/).
 
 (run as a script, not with -m, so that ROOT's package is the one imported)
 
-Cells (PERF.md section 4, default all three): am_64ch (AM, 64 channels, 32
-blocks of 32768 frames), wfm_64ch (FM stereo, the same shape) and
-wfm_hq_64ch (FM stereo at the hq geometry).  Each is built and timed by
+Cells (PERF.md section 4; by default the first three): am_64ch (AM, 64
+channels, 32 blocks of 32768 frames), wfm_64ch (FM stereo, the same
+shape), wfm_hq_64ch (FM stereo at the hq geometry), and by name
+am_nb_64ch (NB1), am_256ch, am_i16_256ch (256 channels, 16 blocks, float32
+and int16), am_16ch (16 channels, 64 blocks, folded by 4), wfm_rds_64ch
+(RDS) and wfm_16ch (16 channels, 64 blocks, folded by 4).  Each is built
+and timed by
 ROOT's chip_smoke.py: time_cells (3 warm-up dispatches, then 3 windows of
 10 dispatches with spectra every 6th; launch counts, audio shape, squelch,
 pilot lock and tone SNR checked), then dispatch_profile (5 dispatches with
@@ -24,15 +28,24 @@ import os
 import subprocess
 import sys
 
-CELLS = {"am_64ch": ("AM", {}), "wfm_64ch": ("FMS", {}),
-         "wfm_hq_64ch": ("FMS", {"wfm_hq": True})}
+# name: (mode, channels, blocks, entry, receiver options)
+CELLS = {"am_64ch": ("AM", 64, 32, "f32", {}),
+         "wfm_64ch": ("FMS", 64, 32, "f32", {}),
+         "wfm_hq_64ch": ("FMS", 64, 32, "f32", {"wfm_hq": True}),
+         "am_nb_64ch": ("AM", 64, 32, "f32", {"enable_noise_blanker": True}),
+         "am_256ch": ("AM", 256, 16, "f32", {}),
+         "am_i16_256ch": ("AM", 256, 16, "i16", {}),
+         "am_16ch": ("AM", 16, 64, "fold4", {}),
+         "wfm_rds_64ch": ("FMS", 64, 32, "f32", {"rds": True}),
+         "wfm_16ch": ("FMS", 16, 64, "fold4", {})}
+DEFAULT = ("am_64ch", "wfm_64ch", "wfm_hq_64ch")
 
 
 def main(argv: list[str] | None = None) -> dict:
     argv = list(sys.argv[1:] if argv is None else argv)
     root = os.path.abspath(argv[0] if argv else os.getcwd())
     tag = argv[1] if len(argv) > 1 else os.path.basename(root)
-    names = argv[2:] or list(CELLS)
+    names = argv[2:] or list(DEFAULT)
     sys.path.insert(0, root)
     os.chdir(root)
     import torch
@@ -49,10 +62,10 @@ def main(argv: list[str] | None = None) -> dict:
     print(f"[{tag}] {card}", flush=True)
     res = {}
     for name in names:
-        mode, opts = CELLS[name]
+        mode, c, k, entry, opts = CELLS[name]
         cell = cs.make_cell(torch, receiver, front,
-                            getattr(receiver.DemodMode, mode), name, 64, 32,
-                            opts=opts)
+                            getattr(receiver.DemodMode, mode), name, c, k,
+                            entry, opts)
         cs.time_cells(torch, front, wfm_tail, [cell], f"[{tag}]")
         prof = cs.dispatch_profile(torch, cell, f"[{tag}]")
         res[name] = {"windows": cell["windows"], **prof}

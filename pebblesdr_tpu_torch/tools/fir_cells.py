@@ -17,11 +17,12 @@ launch of each kernel over 10 calls (torch.profiler); and the sha256 of
 one call's y and tail', so that two checkouts' runs show whether their
 outputs are the same bits.  The WFM plans run K1's base form (front_fir
 is the same pass in every form); then their cells' own forms, the WFM
-form at wfm_64ch (discriminator front_disc, y-tails) and the hq form at
-wfm_hq_64ch (front_disc + the composite decimation front_comp), are
-profiled too, each kernel's device time per launch over 10 calls.  The
-last line is one JSON object of the results.  Raises without a CUDA
-device.
+form at wfm_64ch (discriminator, y-tails) and the hq form at wfm_hq_64ch
+(with the composite decimation, from a random comp_hist), are held to
+the plain version (3e-5 relative, disc and comp_hist' 1e-4 absolute),
+hashed (y-tails, tail', disc, dlast and comp_hist'), timed by events and
+profiled, each kernel's device time per launch over 10 calls.  The last
+line is one JSON object of the results.  Raises without a CUDA device.
 """
 
 from __future__ import annotations
@@ -64,6 +65,60 @@ def kernel_ms(torch, fn, reps: int = 10) -> dict:
             tot, n = rows.get(m.group(0), (0.0, 0))
             rows[m.group(0)] = (tot + us / 1e3, n + ev.count)
     return {k: tot / n for k, (tot, n) in rows.items()}
+
+
+def own_form(torch, cs, front, wfm, plan, args, kw, form: str,
+             tag: str) -> dict:
+    """A WFM cell's own form of K1 (the discriminator and y-tails; "hq":
+    with the composite decimation from a random comp_hist, seeded) against
+    its plain version, the sha256 of its outputs, its K1 ms by events and
+    each kernel's device time per launch."""
+    c = args[0].shape[1] // 2
+    zeros = dict(dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(7)
+    rate = FS / plan.factor
+    fkw = dict(kw, disc_gain=rate / (2 * np.pi * 75_000.0),
+               disc_last=torch.from_numpy(rng.standard_normal(
+                   (1, 2 * c)).astype(np.float32) * 0.1).cuda(),
+               y_tail_rows=min(N // plan.factor, 2048))
+    names = ["y_tail", "dc", "tail", "phase", "raw", "disc", "dlast"]
+    if form == "hq":
+        taps = wfm.WFMConfig.make(rate / 2, comp_decim=2).comp_taps
+        fkw.update(comp_taps=taps, comp_hist=torch.from_numpy(
+            rng.standard_normal((front.comp_hist_rows(len(taps)), c))
+            .astype(np.float32) * 0.1).cuda())
+        names.append("comp_hist")
+    out_k = front.fused_front(plan, *args, **fkw)
+    out_r = front.fused_front_reference(plan, *args, **fkw)
+    torch.cuda.synchronize()
+    absolute = ("phase", "disc", "comp_hist")
+    errs = {nm: (float((a - b).abs().max()) if nm in absolute
+                 else cs.rel_err(a, b)) for nm, a, b in zip(names, out_k, out_r)}
+    bad = [nm for nm, v in errs.items()
+           if v > (1e-4 if nm in absolute else cs.FRONT_RTOL)]
+    if bad:
+        raise RuntimeError(f"{tag}: {bad} disagree with the plain version: "
+                           f"{errs}")
+    bits = {nm: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()[:16]
+            for nm, v in zip(names, out_k)
+            if nm in ("y_tail", "tail", "disc", "dlast", "comp_hist")}
+    del out_k, out_r
+
+    def call():
+        return front.fused_front(plan, *args, **fkw)
+
+    for _ in range(3):
+        call()
+    k1 = cs.time_cuda(torch, call, 10)
+    launches = kernel_ms(torch, call)
+    print(f"{tag}: vs plain " + " ".join(f"{kk}={v:.3g}" for kk, v in
+                                          errs.items())
+          + f"; K1 {k1:.4f} ms (events); sha256 "
+          + " ".join(f"{kk} {v}" for kk, v in bits.items())
+          + "; per launch: " + ", ".join(f"{kk} {v:.4f}" for kk, v in
+                                        sorted(launches.items())), flush=True)
+    return {"form_k1_ms": k1, "form_launch_ms": launches,
+            "form_errors": errs, "form_sha256": bits}
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -149,20 +204,8 @@ def main(argv: list[str] | None = None) -> dict:
                      "launch_ms": launches, "worst": check["worst"],
                      "sha256": bits}
         if pk != "am":             # the cell's own form: WFM, or hq
-            rate = FS / plan.factor
-            fkw = dict(kw, disc_gain=rate / (2 * np.pi * 75_000.0),
-                       disc_last=torch.zeros(1, 2 * c, **zeros),
-                       y_tail_rows=min(N // plan.factor, 2048))
-            if pk == "hq":
-                taps = wfm.WFMConfig.make(rate / 2, comp_decim=2).comp_taps
-                fkw.update(comp_taps=taps, comp_hist=torch.zeros(
-                    front.comp_hist_rows(len(taps)), c, **zeros))
-            form = kernel_ms(torch, lambda: front.fused_front(plan, *args,
-                                                              **fkw))
-            print(f"[{tag}] {name} ({pk} form) per launch: "
-                  + ", ".join(f"{kk} {v:.4f}" for kk, v in
-                              sorted(form.items())), flush=True)
-            res[name]["form_launch_ms"] = form
+            res[name].update(own_form(torch, cs, front, wfm, plan, args, kw,
+                                      pk, f"[{tag}] {name} ({pk} form)"))
         del args, x, tail
         torch.cuda.empty_cache()
     out = {"tag": tag, "device": card, "cells": res}

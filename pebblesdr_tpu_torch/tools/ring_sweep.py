@@ -1,9 +1,12 @@
-"""Sweep front_means' bulk-copy ring, or front_fir's time march, on the
-card: variants of csrc/front.cu with other ring constants, built side by
-side and called through their C entries on the cells' planes.
+"""Sweep front_means' bulk-copy ring, front_fir's time march, front_comp's
+pass over y or front_dc_scan's tile on the card: variants of
+csrc/front.cu with other constants, built side by side and called through
+their C entries on the cells' planes.
 
     python -m pebblesdr_tpu_torch.tools.ring_sweep [variant ...]
     python -m pebblesdr_tpu_torch.tools.ring_sweep --march [variant ...]
+    python -m pebblesdr_tpu_torch.tools.ring_sweep --comp [variant ...]
+    python -m pebblesdr_tpu_torch.tools.ring_sweep --scan [variant ...]
 
 A variant sets kMeansThreads, kMeansStageBytes (the largest stage),
 kMeansRingBytes (the ring; at least two stages) and kMeansBlocksPerSm
@@ -28,6 +31,27 @@ does not fit a cell's plan is skipped there), is checked against the
 plain version once (y within 3e-5 relative), then every variant's
 front_fir is timed per launch (torch.profiler over 10 calls) in turns,
 forwards then backwards, beside roofline.fir_bound.
+
+With --comp a variant sets front_comp's kCompWarps (warps of a block) or
+kCompBlocksPerSm (resident blocks per SM; two cap a thread at 64
+registers), or replaces source text (row_tails: the y-tails stored row by row
+as d is formed, not as boxes from the stage); the probes (no_atan2: the
+discriminator without its atan2; fir1: one tap per output; no_form: steps
+that form no d) are timed only, their outputs wrong by design.  Each variant runs K1's hq form at wfm_hq_64ch's shape; every
+other variant's outputs must equal the built kernel's bit for bit; then
+front_comp is timed per launch (torch.profiler over 10 calls) in turns,
+forwards then backwards, beside roofline.comp_bound.
+
+With --scan a variant sets front_dc_scan's kScanLanes (lanes per block at
+most: fewer lanes are more, smaller blocks) or kScanBatch (the chunks a
+long segment's chain reads at once), or replaces source text; the probes
+(no_copy: a long segment's tile not landed; no_chains: no chains over
+the tile; no_seed_chain: the seeds not chained) are timed only, their
+outputs wrong by design.
+Each variant runs the scan alone (the C entry front_dc_scan_forward) on
+the chunk means of the shapes K1 gives it at am_64ch, am_16ch and
+am_256ch; m and dc' must equal ops/front.py dc_scan_emulate bit for bit;
+then each is timed per launch in turns beside roofline.scan_bound.
 """
 
 from __future__ import annotations
@@ -65,6 +89,41 @@ MARCH_VARIANTS = {
     "block_per_item": (12, 49152, 0),
 }
 MARCH_CONSTANTS = ("kPartM", "kMarchStageBytes", "kMarchPersistent")
+# name: ({constant: value}, [(source text, replacement)])
+_ROW_TAILS = ("  c.tail_tma = c.tma && c.ytail != nullptr",
+              "  c.tail_tma = false && c.ytail != nullptr")
+COMP_VARIANTS = {
+    "built": ({}, []),
+    "w16_b1": ({"kCompBlocksPerSm": 1}, []),
+    "w8_b2": ({"kCompWarps": 8}, []),
+    "row_tails": ({}, [_ROW_TAILS]),
+    "no_atan2": ({}, [("return __fmul_rn(atan2f(im, re), gain);",
+                       "return __fmul_rn(__fadd_rn(im, re), gain);")]),
+    "fir1": ({}, [("if (i >= 0 && i < kMaxCompTaps && i < a.tc)",
+                   "if (i == 0)")]),
+    "no_form": ({}, [("      form(t0, kCompStepRows, pos, false);",
+                      "      (void)t0;")]),
+}
+COMP_PROBES = ("no_atan2", "fir1", "no_form")
+# name: ({constant: value}, [(source text, replacement)]); the probes'
+# outputs are wrong by design and not checked
+SCAN_VARIANTS = {
+    "built": ({}, []),
+    "l4": ({"kScanLanes": 4}, []),
+    "batch8": ({"kScanBatch": 8}, []),
+    "no_copy": ({}, [("      __pipeline_memcpy_async(\n          scan_tile",
+                      "      if (k < 0) __pipeline_memcpy_async(\n          scan_tile")]),
+    "no_chains": ({}, [("    batches(tile, kScanLanes, summary);",
+                        "    (void)tile;"),
+                       ("    batches(tile, kScanLanes, walk);",
+                        "    (void)tile;")]),
+    "no_seed_chain": ({}, [("      m = __fmaf_rn(seg_p[q][tx], m, seg_r[q][tx]);",
+                            "      m = seg_r[q][tx];")]),
+}
+SCAN_PROBES = ("no_copy", "no_chains", "no_seed_chain")
+# (cell, chunks, lanes) of the scans K1 launches
+SCAN_CELLS = (("am_64ch", 2048, 128), ("am_16ch", 4096, 32),
+              ("am_256ch", 1024, 512))
 # (name, channels, blocks of 32768 rows, int16, protected bandwidth)
 MARCH_CELLS = (("am_64ch", 64, 32, False, 30_000),
                ("am_i16_256ch", 256, 16, True, 30_000),
@@ -78,24 +137,30 @@ OUT = build.BUILD_DIR.parent / "ring_sweep"
 
 
 def variant_source(src: str, values: tuple[int, ...],
-                   names: tuple[str, ...] = CONSTANTS) -> str:
-    """front.cu with the constants `names` set to values; each constant
-    must be defined exactly once."""
+                   names: tuple[str, ...] = CONSTANTS,
+                   subs: tuple = ()) -> str:
+    """front.cu with the constants `names` set to values and the text subs
+    [(old, new)] replaced; each constant must be defined exactly once, each
+    text must occur exactly once."""
     for name, value in zip(names, values):
         src, n = re.subn(rf"constexpr int {name} = \d+;",
                          f"constexpr int {name} = {value};", src)
         if n != 1:
             raise ValueError(f"{name} is defined {n} times in front.cu")
+    for old, new in subs:
+        if src.count(old) != 1:
+            raise ValueError(f"{old!r} occurs {src.count(old)} times")
+        src = src.replace(old, new)
     return src
 
 
-def _build(name: str, values, names=CONSTANTS) -> Path:
+def _build(name: str, values, names=CONSTANTS, subs=()) -> Path:
     OUT.mkdir(parents=True, exist_ok=True)
     if values is None:
         return build.build("front")
     cu = OUT / f"front_{name}.cu"
     cu.write_text(variant_source((build.CSRC / "front.cu").read_text(),
-                                 values, names))
+                                 values, names, subs))
     so = OUT / f"libfront_{name}.so"
     proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-I",
                            str(build.CSRC), "-o", str(so), str(cu)],
@@ -188,10 +253,184 @@ def march(names: list[str]) -> list[dict]:
     return rows
 
 
+def _variant_libs(prefix: str, names: list[str], variants: dict,
+                  constants: tuple[str, ...] = ()) -> dict:
+    """The libraries of the named variants, built side by side: a variant
+    is None (the built kernel), a tuple of the constants' values, or
+    ({constant: value}, [(old, new)])."""
+    from pebblesdr_tpu_torch.ops import front
+
+    def lib(nm):
+        v = variants[nm]
+        if isinstance(v, tuple) and len(v) == 2 and isinstance(v[0], dict):
+            so = _build(f"{prefix}_{nm}", tuple(v[0].values()),
+                        tuple(v[0]), v[1])
+        else:
+            so = _build(f"{prefix}_{nm}", v, constants)
+        return front.declare(ctypes.CDLL(str(so)))
+
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(lib, names)))
+
+
+def _in_turns(torch, calls: dict, kernel: str) -> dict:
+    """Device ms per launch of `kernel` for each of calls, timed forwards
+    then backwards (torch.profiler over 10 calls each time)."""
+    from pebblesdr_tpu_torch.tools.fir_cells import kernel_ms
+    times = {name: [] for name in calls}
+    for name in list(calls) + list(calls)[::-1]:
+        calls[name]()
+        times[name].append(next(v for kk, v in kernel_ms(
+            torch, calls[name]).items() if kk.startswith(kernel)))
+    return times
+
+
+def comp(names: list[str]) -> list[dict]:
+    """The --comp sweep (module docstring)."""
+    import numpy as np
+    import torch
+
+    from pebblesdr_tpu_torch.demod import wfm
+    from pebblesdr_tpu_torch.ops import decimator, front
+    from pebblesdr_tpu_torch.ops.mixer import split_freq
+    from pebblesdr_tpu_torch.utils import roofline
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("ring_sweep needs a CUDA device")
+    names = names or list(COMP_VARIANTS)
+    libs = _variant_libs("comp", names, COMP_VARIANTS)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(card, flush=True)
+    built_lib = front._lib
+    n, c, k, fs = 32768, 64, 32, 2_048_000
+    p = decimator.build_plan(fs, 400_000)
+    plan = front.FrontPlan.make(decimator.compose_response(p), p.factor,
+                                "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    z = dict(dtype=torch.float32, device="cuda")
+    x = (torch.randn(k * n, 2 * c, generator=gen, device="cuda") * 0.3
+         + 0.05).contiguous()
+    hi, lo = (torch.full((c,), float(v), device="cuda")
+              for v in split_freq(250_000.0, fs))
+    taps = wfm.WFMConfig.make(fs / p.factor / 2, comp_decim=2).comp_taps
+    hr, zt = front.comp_hist_rows(len(taps)), 2048
+    args = (x, torch.zeros(1, 2 * c, **z), torch.zeros(c, **z), hi, lo,
+            torch.zeros(plan.d_rows, 2 * c, **z))
+    kw = dict(n_block=n, raw_rows=2048,
+              disc_gain=fs / p.factor / (2 * np.pi * 75_000.0),
+              disc_last=0.1 * torch.randn(1, 2 * c, generator=gen,
+                                          device="cuda"),
+              y_tail_rows=zt, comp_taps=taps,
+              comp_hist=0.1 * torch.randn(hr, c, generator=gen,
+                                          device="cuda"))
+    rows = []
+    try:
+        front._lib = built_lib
+        ref = front.fused_front(plan, *args, **kw)
+        calls = {}
+        for name, lib in libs.items():
+            front._lib = lambda lib=lib: lib
+            out = front.fused_front(plan, *args, **kw)
+            if name not in COMP_PROBES and not all(
+                    torch.equal(a, b) for a, b in zip(out, ref)):
+                raise RuntimeError(f"{name}: outputs differ from the built "
+                                   f"kernel's bits")
+            calls[name] = (lambda lib=lib: (
+                setattr(front, "_lib", lambda: lib),
+                front.fused_front(plan, *args, **kw)))
+        times = _in_turns(torch, calls, "front_comp")
+        b = roofline.comp_bound(k * n // p.factor, c, len(taps), hr, k, zt)
+        for name, ts in times.items():
+            ms = sum(ts) / len(ts)
+            rows.append({"variant": name, "ms": ms, "runs": ts,
+                         "bound_ms": b["bound_ms"],
+                         "share": b["bound_ms"] / ms})
+            print(f"wfm_hq_64ch {name:14s} front_comp {ms:.4f} ms per "
+                  f"launch (runs {', '.join(f'{t:.4f}' for t in ts)}; "
+                  f"{b['bound_ms'] / ms:.1%} of the {b['bound_ms']:.4f} ms "
+                  f"bound)" + (" probe" if name in COMP_PROBES else ""),
+                  flush=True)
+    finally:
+        front._lib = built_lib
+    print(json.dumps({"device": card, "variants": {
+        nm: COMP_VARIANTS[nm] for nm in names}, "rows": rows}), flush=True)
+    return rows
+
+
+def scan(names: list[str]) -> list[dict]:
+    """The --scan sweep (module docstring)."""
+    import numpy as np
+    import torch
+
+    from pebblesdr_tpu_torch.ops import front
+    from pebblesdr_tpu_torch.utils import roofline
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("ring_sweep needs a CUDA device")
+    names = names or list(SCAN_VARIANTS)
+    libs = _variant_libs("scan", names, SCAN_VARIANTS)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(card, flush=True)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    a32, b32 = front.chunk_ewma(0.9999 ** front.DC_CHUNK)
+    rng = np.random.default_rng(11)
+    rows = []
+    for cell, nchunk, lanes in SCAN_CELLS:
+        mu = (rng.standard_normal((nchunk, lanes)) * 0.01 + 0.05).astype(
+            np.float32)
+        dc = np.full((1, lanes), 0.02, np.float32)
+        em, ed = front.dc_scan_emulate(mu, dc, a32, b32)
+        mu_d, dc_d = torch.from_numpy(mu).to(dev), torch.from_numpy(dc).to(dev)
+        m, d = torch.empty_like(mu_d), torch.empty_like(dc_d)
+        calls = {}
+        for name, lib in libs.items():
+            def call(lib=lib):
+                m.copy_(mu_d)
+                err = lib.front_dc_scan_forward(
+                    dev.index, m.data_ptr(), nchunk, lanes, dc_d.data_ptr(),
+                    d.data_ptr(), a32, b32, stream)
+                if err:
+                    raise RuntimeError(f"front_dc_scan launch failed: {err}")
+            call()
+            torch.cuda.synchronize()
+            if name not in SCAN_PROBES and not (
+                    np.array_equal(m.cpu().numpy().view(np.uint32),
+                                   em.view(np.uint32))
+                    and np.array_equal(d.cpu().numpy().view(np.uint32),
+                                       ed.view(np.uint32))):
+                raise RuntimeError(f"{name} disagrees with dc_scan_emulate "
+                                   f"at {cell}")
+            calls[name] = call
+        times = _in_turns(torch, calls, "front_dc_scan")
+        b = roofline.scan_bound(nchunk, lanes)
+        for name, ts in times.items():
+            ms = sum(ts) / len(ts)
+            rows.append({"cell": cell, "variant": name, "ms": ms, "runs": ts,
+                         "bound_ms": b["bound_ms"],
+                         "share": b["bound_ms"] / ms})
+            print(f"{cell} {name:10s} front_dc_scan {ms:.4f} ms per launch "
+                  f"(runs {', '.join(f'{t:.4f}' for t in ts)}; "
+                  f"{b['bound_ms'] / ms:.1%} of the {b['bound_ms']:.4f} ms "
+                  f"bound)" + (" probe" if name in SCAN_PROBES else ""),
+                  flush=True)
+    print(json.dumps({"device": card, "variants": {
+        nm: SCAN_VARIANTS[nm] for nm in names}, "rows": rows}), flush=True)
+    return rows
+
+
 def main(argv: list[str] | None = None) -> list[dict]:
     argv = list(argv or [])
     if argv[:1] == ["--march"]:
         return march(argv[1:])
+    if argv[:1] == ["--comp"]:
+        return comp(argv[1:])
+    if argv[:1] == ["--scan"]:
+        return scan(argv[1:])
     import torch
 
     from pebblesdr_tpu_torch.ops import front

@@ -112,10 +112,14 @@ def disc_bound(m: int, c: int, blocks: int, y_tail_rows: int,
     return bound(nbytes, 26 * m * c)
 
 
-def comp_bound(m: int, c: int, tc: int, hist_rows: int) -> dict:
-    """front_comp's bound (K1e): y [m, 2c] read once, the carried sample and
-    comp_hist [hist_rows, c] read, the half-rate composite [m/2, c] written;
-    the discriminator of each decimated row (~26 operations) and 2 tc per
-    half-rate output."""
-    nbytes = m * 2 * c * 4 + 2 * c * 4 + hist_rows * c * 4 + (m // 2) * c * 4
+def comp_bound(m: int, c: int, tc: int, hist_rows: int, blocks: int = 0,
+               y_tail_rows: int = 0) -> dict:
+    """front_comp's bound (K1e, the hq form's one pass over y): y [m, 2c]
+    read once, the carried sample and comp_hist [hist_rows, c] read, the
+    half-rate composite [m/2, c], comp_hist' [hist_rows, c], the next
+    carried sample [1, 2c] and the y-tails [blocks, y_tail_rows, 2c]
+    written; the discriminator of each decimated row (~26 operations) and
+    2 tc per half-rate output."""
+    nbytes = (m * 2 * c * 4 + 2 * 2 * c * 4 + 2 * hist_rows * c * 4
+              + (m // 2) * c * 4 + blocks * y_tail_rows * 2 * c * 4)
     return bound(nbytes, 26 * m * c + 2 * tc * (m // 2) * c)

@@ -152,6 +152,10 @@ def test_means_bound_at_the_cells():
     ("disc_wfm_64ch", "disc_bound", (131072, 64, 32, 2048), 0.0401, "bytes"),
     ("disc_hq", "disc_bound", (262144, 64, 32, 2048, 32), 0.0501, "bytes"),
     ("comp_hq", "comp_bound", (262144, 64, 31, 32), 0.0501, "bytes"),
+    # front_comp as the hq form's one pass over y: the 32 blocks' 2048-row
+    # y-tails written too (y read, disc and the y-tails written: 192 MiB)
+    ("comp_hq_one_pass", "comp_bound", (262144, 64, 31, 32, 32, 2048), 0.0601,
+     "bytes"),
     ("dc_scan_am_64ch", "scan_bound", (2048, 128), 0.000626, "bytes"),
     ("tail_am_64ch", "front_tail_bound", (712, 64, 4), 0.000435, "bytes"),
 ])

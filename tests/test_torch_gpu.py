@@ -197,6 +197,26 @@ def test_shared_memory_layouts_match_the_sources(cuda):
     assert tlib.wfm_tail_smem_bytes(513, 4, 256) == 0
     assert wfm_tail.tail_march_layout(513, 4) is None
     assert tlib.wfm_tail_plan(8192, 4, 513, 4, 256, 132, tout) == -1
+    # front_comp (the hq form's pass over y) and front_dc_scan
+    assert lib.front_comp_smem_bytes() == front.comp_march_layout()["smem"]
+    for m, c in ((262144, 64), (4096, 5), (8192, 64), (4096, 256),
+                 (2048, 64), (6144, 4), (64, 3)):
+        for sms in (132, 3):
+            plan = front.comp_march_plan(m, c, sms)
+            lay = plan["layout"]
+            assert lib.front_comp_plan(m, c, sms, out) == 0
+            assert list(out) == [
+                plan["seg_outputs"], len(plan["segments"]), plan["items"],
+                plan["grid"], plan["step_rows"], lay["hist"],
+                lay["ring_rows"], lay["stages"], lay["box_rows"]]
+    assert lib.front_comp_plan(4095, 8, 132, out) == -1
+    sout = (ctypes.c_int * 6)()
+    for nchunk, lanes in ((2048, 128), (4096, 32), (1024, 512), (48, 10),
+                          (512, 128), (70_000, 2), (8192, 16)):
+        lay = front.dc_scan_layout(nchunk, lanes)
+        assert lib.front_dc_scan_plan(nchunk, lanes, sout) == 0
+        assert list(sout) == [lay[key] for key in (
+            "lanes", "blocks", "threads", "held", "len", "smem")]
 
 
 # front_fir's seams: (C, blocks of 2048 rows, plan, dtype, blanker); the
@@ -672,18 +692,39 @@ def test_receiver_options_on_card_match_cpu(cuda, entry):
     assert front.fused_front.launches == before + 2
 
 
-@pytest.mark.parametrize("c,k", [(64, 4), (256, 2), (5, 2)])
+def _short_last_blocks(c, n, sms):
+    """The first dispatch size (blocks of n rows) whose last front_comp
+    segment is shorter than a step on a card of `sms` SMs."""
+    for k in range(2, 64):
+        plan = front.comp_march_plan(k * n // 4, c, sms)
+        j_s, j_e = plan["segments"][-1]
+        if len(plan["segments"]) > 1 and j_e - j_s < plan["step_outputs"]:
+            return k
+    raise AssertionError(f"no dispatch of C={c} has a short last segment")
+
+
+@pytest.mark.parametrize("c,k", [(64, 4), (256, 2), (5, 2), (64, 1),
+                                 (16, -1)])
 def test_front_comp_kernel_matches_plain(cuda, c, k):
     """K1e: the hq form (factor-4 plan, discriminator, y-tails, comp_taps)
     over two streaming calls from a random comp_hist; C=5 leaves a partial
-    channel tile.  The planes carry a DC offset, so dc' is held to its
-    relative bound on a value away from zero (an FM plane alone leaves
-    dc' near 0, where the relative error is cancellation)."""
+    channel tile (and stages element by element); K=1 puts the whole
+    dispatch in one block of y-tails; k = -1 takes the dispatch whose last
+    front_comp segment is shorter than a step on this card.  The planes
+    carry a DC offset, so dc' is held to its relative bound on a value away
+    from zero (an FM plane alone leaves dc' near 0, where the relative error
+    is cancellation).  front_comp is the only pass over y: the profiler
+    records no front_disc, and 5 CUDA launches per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     n, zt = 8192, 2048
     gain = 512_000 / (2 * np.pi * 75_000)
     plan = _plan(cuda, 400_000)
     taps = wfm.WFMConfig.make(256_000.0, comp_decim=2).comp_taps
     hr = front.comp_hist_rows(len(taps))
+    if k < 0:
+        k = _short_last_blocks(
+            c, n, torch.cuda.get_device_properties(cuda).multi_processor_count)
     hi, lo = (torch.full((c,), float(v), device=cuda)
               for v in split_freq(250_000.0, FS))
     rng = np.random.default_rng(13)
@@ -712,6 +753,48 @@ def test_front_comp_kernel_matches_plain(cuda, c, k):
         assert float((got[5] - ref[5]).abs().max()) < 1e-4
         st_k = (got[1], got[3], got[2], got[6], got[7])
         st_r = (ref[1], ref[3], ref[2], ref[6], ref[7])
+    calls = 3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            front.fused_front(plan, x, st_k[0], st_k[1], hi, lo, st_k[2],
+                              disc_last=st_k[3], comp_hist=st_k[4], **kw)
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA and "front_" in ev.name]
+    # five kernels, each at most once a call (the profiler may lose a
+    # record, never add one)
+    assert len(set(names)) == 5 and any("front_comp" in nm for nm in names)
+    assert all(names.count(nm) <= calls for nm in set(names))
+    assert not any("front_disc" in nm for nm in names)
+
+
+@pytest.mark.parametrize("c", [5, 16, 64, 256])
+def test_dc_scan_kernel_equals_its_emulation(cuda, c):
+    """front_dc_scan alone (front.dc_scan) on chunk means of K1's shapes
+    (C = 16: am_16ch's 4096 chunks; 64: am_64ch's 2048; 256: am_256ch's
+    1024; 5: a partial lane tile) equals ops/front.py dc_scan_emulate bit
+    for bit, m and dc', for the DC blocker's and the blanker's a; and the
+    plain version within 3e-5 of max |m|."""
+    nchunk = {5: 48, 16: 4096, 64: 2048, 256: 1024}[c]
+    rng = np.random.default_rng(c)
+    for alpha in (0.9999, 0.999):
+        a = alpha ** front.DC_CHUNK
+        mu = (rng.standard_normal((nchunk, 2 * c)) * 0.02 + 0.1).astype(
+            np.float32)
+        dc = (rng.standard_normal((1, 2 * c)) * 0.05).astype(np.float32)
+        before = front.dc_scan.launches
+        m, d = front.dc_scan(torch.from_numpy(mu).to(cuda),
+                             torch.from_numpy(dc).to(cuda), a)
+        assert front.dc_scan.launches == before + 1
+        em, ed = front.dc_scan_emulate(mu, dc, *front.chunk_ewma(a))
+        assert np.array_equal(m.cpu().numpy().view(np.uint32),
+                              em.view(np.uint32))
+        assert np.array_equal(d.cpu().numpy().view(np.uint32),
+                              ed.view(np.uint32))
+        ref, _ = front.dc_scan_reference(torch.from_numpy(mu),
+                                         torch.from_numpy(dc), a)
+        assert float((m.cpu() - ref).abs().max()) <= RTOL * float(
+            ref.abs().max())
 
 
 def _rds_plane(c, rows, rng, t0=0.0):
