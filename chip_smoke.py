@@ -56,7 +56,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      composite decimation by 2, K1e) against its plain version at the
      wfm_hq_64ch shape (64 channels, 32 blocks of 32768 frames), over two
      streaming calls, then both timed, with the per-launch device times
-     (front_comp is the only pass over y: no front_disc, 5 CUDA launches
+     (front_comp is the only pass over y: no front_disc, 4 CUDA launches
      per call) and front_comp's own plain version and bound;
  17. the WFM receiver at the hq geometry on the card against the CPU (4
      channels, 8192-frame blocks, dispatches of 3 then 9 blocks);
@@ -76,12 +76,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
  22. the K1 probes of tools/kbench2.py (ops/kprobe.py) at the probe bench's
      default shape (64 channels, 8 blocks of 32768 rows, the AM plan): the
      copy floors against their plain version exactly, each front form (v1,
-     v2, v3, v4, v5 at kt 2 and 4; sub 2048 and 4096) over two streaming
-     calls against its plain version and against K1's base form; then the
-     probe bench's full table (pebblesdr_tpu_torch/tools/kbench2.py, the
-     main path of this slice) with its launch counts; then each form timed
-     against its plain version, the packed floor at am_64ch's shape beside
-     the torch call that moves the same bytes;
+     v2, v3, v4, v5 at kt 2 and 4; sub 2048 and 4096; the product on the
+     tensor cores as 3xTF32) over two streaming calls against its plain
+     version (y, dc' and tail' within 3e-5) and against K1's base form;
+     then the probe bench's full table (pebblesdr_tpu_torch/tools/
+     kbench2.py, the main path of this slice) with its launch counts; then
+     each form timed against its plain version with its CUDA kernels per
+     call (front_means and front_dc_scan per plane, one probe_toeplitz) and
+     the TFLOP/s of its product, the packed floor at am_64ch's shape beside
+     the torch call that moves the same bytes; and the product's yardstick,
+     one batched torch.matmul of W [64, K] with the mixed input [128
+     sub-blocks, K, 128] at "highest" precision and with TF32 allowed
+     inside the call only;
  23. front_means, K1's first pass, alone (ops/front.py chunk_means: the
      chunk means and the raw display tails) at the shapes and dtypes of the
      cells am_64ch, am_256ch, am_i16_256ch and am_16ch: int16 means and
@@ -1007,7 +1013,7 @@ def phase_front_hq(torch, front, decimator, wfm_mod) -> dict:
     composite decimation by 2) vs plain at the wfm_hq_64ch shape, two
     streaming calls from a random comp_hist; then both timed, with the
     per-launch device times: front_comp must be the only pass that reads y
-    (the profiler records no front_disc, 5 CUDA launches per call).  Then
+    (the profiler records no front_disc, 4 CUDA launches per call).  Then
     front_comp's plain version (the discriminator, the decimation by 2,
     comp_hist', dlast and the y-tails from the full-rate y) timed against
     its per-launch time, with its bound."""
@@ -1090,13 +1096,14 @@ def phase_front_hq(torch, front, decimator, wfm_mod) -> dict:
         f"per dispatch (runs kernel {t['kernel']}, plain {t['plain']}); bound "
         f"{b['bound_ms']:.4f} ms ({b['bound_by']}); per launch (ms): "
         + breakdown_text(lt))
-    # five kernels, each at most once a call (the profiler may lose a
-    # record, never add one), front_comp among them and no front_disc
-    if len(lt) != 5 or "front_comp" not in lt or any(
+    # four kernels (front_fir writes the carried history), each at most
+    # once a call (the profiler may lose a record, never add one),
+    # front_comp among them and no front_disc
+    if len(lt) != 4 or "front_comp" not in lt or any(
             kk.startswith("front_disc") or cnt > reps
             for kk, (_, cnt) in lt.items()):
         raise RuntimeError(f"phase16: the hq form must launch front_comp and "
-                           f"no front_disc, 5 kernels once per call: {lt}")
+                           f"no front_disc, 4 kernels once per call: {lt}")
     # front_comp's plain version, from the full-rate y of the same inputs
     y = front.fused_front_reference(plan, *args, n_block=n, raw_rows=2048)[0]
     dl, ch, mb = kw["disc_last"], kw["comp_hist"], n // plan.factor
@@ -1116,7 +1123,7 @@ def phase_front_hq(torch, front, decimator, wfm_mod) -> dict:
         f"plain version {tp['plain']:.4f} ms (runs {runs['plain']}); bound "
         f"{cb['bound_ms']:.4f} ms ({cb['bound_by']}), "
         f"{cb['bound_ms'] / comp_ms:.1%} of it; the only pass over y "
-        f"(no front_disc, 5 CUDA kernels per K1 call)")
+        f"(no front_disc, 4 CUDA kernels per K1 call)")
     del args, x, y
     torch.cuda.empty_cache()
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_abs, **b,
@@ -1296,9 +1303,10 @@ def phase_probes(torch, front, kprobe, kbench2, receiver, DemodMode) -> dict:
     equal, and y of the first call within FRONT_RTOL of K1 (fused_front,
     base form) on the same input and state.  Then the bench's full table
     (the main path of this slice, launch counts reset just before it and
-    read just after), and each form timed against its plain version, the
-    packed floor checked exactly and timed at am_64ch's [1,048,576 x 128]
-    shape."""
+    read just after), and each form timed against its plain version with
+    its CUDA kernels per call checked (one probe_toeplitz, which also
+    writes tail'), the packed floor checked exactly and timed at am_64ch's
+    [1,048,576 x 128] shape, and the matmul yardstick of the product."""
     c, n, k = 64, 32768, 8
     t = n * k
     rx = receiver.Receiver(receiver.ReceiverConfig(
@@ -1379,7 +1387,8 @@ def phase_probes(torch, front, kprobe, kbench2, receiver, DemodMode) -> dict:
         raise RuntimeError(f"phase22: a front probe disagrees with its plain "
                            f"version ({worst:.3g}) or with K1 ({k1_worst:.3g})"
                            f" beyond {FRONT_RTOL}")
-    log(f"phase22 ok: every front probe == plain within {FRONT_RTOL} (worst "
+    log(f"phase22 ok: every front probe's y, dc' and tail' == plain within "
+        f"{FRONT_RTOL} (worst "
         f"{worst:.3g}) and == K1's base form (worst {k1_worst:.3g})")
     del xs, k1_y
     torch.cuda.empty_cache()
@@ -1443,6 +1452,23 @@ def phase_probes(torch, front, kprobe, kbench2, receiver, DemodMode) -> dict:
             b = kprobe.probe_bound(variant, 2048, kt, c, t, factor,
                                    plan.d_rows, plan.h.numel())
             lib_ms = None
+            # one probe_toeplitz per call after front_means + front_dc_scan
+            # per plane, and no probe_tail (tail' is written by the
+            # product); each kernel at most as often as that (the profiler
+            # may lose a record, never add one) and none missing
+            planes = 2 if variant in kprobe.TWO_PLANE else 1
+            reps = 5
+            kt_times = kernel_times(torch, fns[0], reps=reps)
+            want = {"front_means": planes, "front_dc_scan": planes,
+                    "probe_toeplitz": 1}
+            got = {kk: sum(n for name, (_, n) in kt_times.items()
+                           if name.startswith(kk)) for kk in want}
+            if any(not 0 < got[kk] <= want[kk] * reps for kk in want) or any(
+                    not name.startswith(tuple(want)) for name in kt_times):
+                raise RuntimeError(f"phase22 {variant} kt={kt}: CUDA kernels "
+                                   f"per call {breakdown_text(kt_times)}, "
+                                   f"expected {want}")
+            res[key]["kernels_per_call"] = sum(want.values())
         ms, plain_ms, runs = time_pair(torch, *fns)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1462,10 +1488,56 @@ def phase_probes(torch, front, kprobe, kbench2, receiver, DemodMode) -> dict:
             + f"; bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
             f"{b['bytes'] / (ms * 1e-3) / 1e9:.1f} GB/s, "
             f"{b['flops'] / (ms * 1e-3) / 1e12:.2f} TFLOP/s of the function, "
-            f"{b['product_flops'] / (ms * 1e-3) / 1e12:.2f} of the product); "
-            f"per launch (ms): " + kernel_breakdown(torch, fns[0]))
+            f"{b['product_flops'] / (ms * 1e-3) / 1e12:.2f} of the product"
+            + (f", {3 * b['product_flops'] / (ms * 1e-3) / 1e12:.2f} of its "
+               f"three TF32 passes" if b["product_flops"] else "")
+            + (f", {res[key]['kernels_per_call']} CUDA kernels per call"
+               if "kernels_per_call" in res[key] else "")
+            + "); per launch (ms): " + kernel_breakdown(torch, fns[0]))
         fns = args = planes = None
+    res["yardstick"] = probe_yardstick(torch, kprobe, plan, x, c, t, factor)
     return res
+
+
+def probe_yardstick(torch, kprobe, plan, x, c: int, t: int,
+                    factor: int) -> dict:
+    """The Toeplitz product alone at the probe bench's shape, as one batched
+    torch.matmul of W^T [64, K] with the mixed input already laid out [t /
+    2048 sub-blocks, K, 2c] (a yardstick for probe_toeplitz's product, not
+    the same function: no DC, no mix, no tail): at "highest" precision
+    (IEEE float32) and with TF32 allowed for this call only."""
+    sub, d = 2048, plan.d_rows
+    w = kprobe.composed_wt(plan, sub)                    # [64, K]
+    ext = torch.cat([torch.zeros(d, 2 * c, device="cuda"), x])
+    e = ext.unfold(0, d + sub, sub).transpose(1, 2).contiguous()
+    b = kprobe.probe_bound("v3", sub, 1, c, t, factor, d, plan.h.numel())
+
+    def mm():
+        return torch.matmul(w, e)                        # [nsub, 64, 2c]
+
+    out = {}
+    for mode in ("highest", "tf32"):
+        prev = (torch.backends.cuda.matmul.allow_tf32,
+                torch.get_float32_matmul_precision())
+        try:
+            if mode == "tf32":
+                torch.backends.cuda.matmul.allow_tf32 = True
+                torch.set_float32_matmul_precision("high")
+            mm()
+            out[mode] = time_cuda(torch, mm, 20)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev[0]
+            torch.set_float32_matmul_precision(prev[1])
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError("phase22: the yardstick left TF32 on")
+    log(f"phase22 yardstick: torch.matmul W [64, {d + sub}] x E "
+        f"{tuple(e.shape)}: {out['highest']:.4f} ms at highest precision "
+        f"({b['product_flops'] / (out['highest'] * 1e-3) / 1e12:.2f} "
+        f"TFLOP/s), {out['tf32']:.4f} ms with TF32 "
+        f"({b['product_flops'] / (out['tf32'] * 1e-3) / 1e12:.2f} TFLOP/s)")
+    del e, ext
+    return out
 
 
 def phase_means(torch, front) -> dict:
@@ -1764,12 +1836,16 @@ def main() -> int:
             ("floor128", "probe_floor_copy (packed plane, sub 2048; timed "
                          "at am_64ch's [1048576 x 128], checked there and at "
                          "the bench's shape, launches in the bench)"),
-            (("v1", 1), "probe_toeplitz v1 (two planes, two products)"),
-            (("v2", 1), "probe_toeplitz v2 (two planes, one product)"),
-            (("v3", 1), "probe_toeplitz v3 (packed plane)"),
-            (("v4", 1), "probe_toeplitz v4 (packed A/B tables)"),
-            (("v5", 2), "probe_toeplitz v5 (K-tiled, kt 2)"),
-            (("v5", 4), "probe_toeplitz v5 (K-tiled, kt 4)"))
+            (("v1", 1), "probe_toeplitz v1 (two planes, two products; "
+                        "3xTF32 wgmma)"),
+            (("v2", 1), "probe_toeplitz v2 (two planes, one product; 3xTF32 "
+                        "wgmma)"),
+            (("v3", 1), "probe_toeplitz v3 (packed plane; 3xTF32 wgmma)"),
+            (("v4", 1), "probe_toeplitz v4 (packed A/B tables; 3xTF32 "
+                        "wgmma)"),
+            (("v5", 2), "probe_toeplitz v5 (K-tiled, kt 2; 3xTF32 mma.sync)"),
+            (("v5", 4), "probe_toeplitz v5 (K-tiled, kt 4; 3xTF32 "
+                        "mma.sync)"))
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

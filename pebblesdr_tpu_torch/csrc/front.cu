@@ -86,9 +86,17 @@
 //      its causal dilation once per row, from a flag ring that carries the
 //      15 words before each unit (the prologue's first words come from the
 //      plane or the carried flags).
-//   4. front_tail: the post-mix history carried to the next dispatch (the
-//      same DC, IQ balance, dilation and blanking per row), and with the
-//      blanker the last 16 rows of undilated flags.
+//   4. K1's carried history, written by front_fir (no launch of its own):
+//      tail' (the last d_rows post-mix, post-blank rows) and with the
+//      blanker nb_tail' (the last 16 rows of undilated flags), element by
+//      element with the arithmetic of the pass it replaced, front_tail
+//      (the row's own phasors, and its mix with the FMAs the card compiled
+//      there written out, mix_history), spread over the persistent grid
+//      before each block's first item.  The ring's rows, mixed with the
+//      tables, differ from it in ulps where the compiler contracts the
+//      mix's products otherwise; the item that ends the dispatch, which
+//      holds the last rows, would also add the work to the end of the
+//      kernel (PERF.md section 6, PR 11).
 //   5. front_disc (WFM only): the FM discriminator of every decimated row,
 //      atan2(y[o] conj(y[o-1])) * gain with y[-1] the carried disc_last, the
 //      next disc_last, and each block's trailing y_tail_rows rows of y.  The
@@ -254,6 +262,18 @@ __device__ __forceinline__ void mix(float zr, float zi, float cr, float ci,
   *ui = zi * a - zr * b;
 }
 
+// mix with its contraction written out: the FMAs the card compiled for the
+// separate history pass (front_tail) that K1's carried history keeps, so
+// that the history rounds the same wherever it is inlined.
+__device__ __forceinline__ void mix_history(float zr, float zi, float cr,
+                                            float ci, float fr, float fi,
+                                            float* ur, float* ui) {
+  const float a = __fmaf_rn(cr, fr, -__fmul_rn(ci, fi));
+  const float b = __fmaf_rn(cr, fi, __fmul_rn(ci, fr));
+  *ur = __fmaf_rn(a, zr, __fmul_rn(b, zi));
+  *ui = __fmaf_rn(a, zi, -__fmul_rn(b, zr));
+}
+
 // The carried spike flags (re lane, im lane) of row t < 0, channel c.
 __device__ __forceinline__ void nb_carried(const Nb& nb, int t, int c, int C,
                                            bool* fr, bool* fi) {
@@ -277,8 +297,8 @@ __device__ __forceinline__ void nb_detect(float xr, float xi, float mr,
   *fi = nb_spike(m2, avi, thr2);
 }
 
-// The spike flags of row t, channel c, straight from the plane
-// (front_tail's rows).
+// The spike flags of row t, channel c, straight from the plane (the rows
+// above an item's prologue).
 template <typename Tx>
 __device__ __forceinline__ void nb_flags_at(const Tx* __restrict__ x, int t,
                                             int c, int C,
@@ -862,6 +882,7 @@ struct March {
   Iq iq;
   Nb nb;
   float* y;
+  float *tail_out, *nb_tail_out;    // K1's carried history (header, 4)
 };
 
 // One set of a unit's tables: coarse phasors of its 128-row blocks from
@@ -1084,6 +1105,82 @@ __device__ void march_mix(const March& a, MarchCtx& m, const MarchTables& tb,
   __syncthreads();
 }
 
+// K1's carried history (header comment, point 4), spread over front_fir's
+// persistent grid: element e = (row i, channel c) of tail' [d_rows, C]
+// (both lanes), then with the blanker of nb_tail' [16, C], for e =
+// blockIdx.x kThreads + tid, stride gridDim.x kThreads; each with the
+// arithmetic of the pass it replaced, front_tail: the row's own coarse
+// and fine phasors, DC, IQ balance, mix and the blanker's dilation over
+// nb_flags_at (rows >= 0 also to nb.mask, the values the steps write),
+// the mix as mix_history.  Called before a block's first item (a call of a
+// function of its own cost the march 8-10 us, PERF.md section 6).
+template <typename Tx, bool NB>
+__device__ __forceinline__ void march_history(const Tx* __restrict__ x,
+                                              const March& a) {
+  const IqVals iq(a.iq);
+  const Nb& nb = a.nb;
+  const int C = a.C, T = a.T, d_rows = a.d_rows;
+  const size_t c2 = 2 * (size_t)C;
+  const int n = (d_rows + (NB ? kNbTailRows : 0)) * C;
+  for (int e = blockIdx.x * kThreads + threadIdx.x; e < n;
+       e += gridDim.x * kThreads) {
+    const int i = e / C, c = e - i * C;
+    if (NB && i >= d_rows) {                     // nb_tail' row
+      const int j = i - d_rows;
+      bool fr, fi;
+      nb_flags_at(x, T - kNbTailRows + j, c, C, a.mseq, iq, nb, &fr, &fi);
+      a.nb_tail_out[(size_t)j * c2 + c] = fr ? 1.0f : 0.0f;
+      a.nb_tail_out[(size_t)j * c2 + C + c] = fi ? 1.0f : 0.0f;
+      continue;
+    }
+    const int t = T - d_rows + i;
+    float ur, ui;
+    if (t >= 0) {
+      const size_t xr = (size_t)t * c2;
+      const int k = t / kDcChunk;
+      const size_t mr = (size_t)k * c2;
+      float cr, ci, fr, fi;
+      sincospif(2.0f * coarse_phase(t, a.phase0[c], a.fhi[c], a.flo[c]),
+                &ci, &cr);
+      sincospif(2.0f * fine_phase(t % kQ, a.fhi[c], a.flo[c]), &fi, &fr);
+      float zr = load_x(x, xr + c) - a.mseq[mr + c];
+      float zi = load_x(x, xr + C + c) - a.mseq[mr + C + c];
+      iq.apply(&zr, &zi);
+      mix_history(zr, zi, cr, ci, fr, fi, &ur, &ui);
+      if (NB) {
+        bool br = false, bi = false;
+        for (int s = 0; s < nb.bw; ++s) {
+          bool f0, f1;
+          nb_flags_at(x, t - s, c, C, a.mseq, iq, nb, &f0, &f1);
+          br |= f0;
+          bi |= f1;
+        }
+        if (nb.mask != nullptr) {
+          nb.mask[xr + c] = br;
+          nb.mask[xr + C + c] = bi;
+        }
+        if (nb.mode == 1) {
+          if (br) ur = 0.0f;
+          if (bi) ui = 0.0f;
+        } else if (br || bi) {
+          const float m2 = mag2(zr, zi);
+          if (br)
+            ur = __fmul_rn(ur, nb_scale(nb_avg_entering(nb, k, c2, c), m2));
+          if (bi)
+            ui = __fmul_rn(ui,
+                           nb_scale(nb_avg_entering(nb, k, c2, C + c), m2));
+        }
+      }
+    } else {
+      const size_t tr = (size_t)(d_rows + t) * c2;
+      ur = a.tail_in[tr + c];
+      ui = a.tail_in[tr + C + c];
+    }
+    a.tail_out[(size_t)i * c2 + c] = ur;
+    a.tail_out[(size_t)i * c2 + C + c] = ui;
+  }
+}
+
 // grid plan.grid, block kThreads, g.smem bytes of dynamic shared memory.
 // y[o] = sum_{j=0..D} h[j] u[F o - j], u[t < 0] = tail[d_rows + t]; DP
 // taps per polyphase branch (h zero-padded to F DP taps).  Block b walks
@@ -1104,8 +1201,9 @@ __device__ void march_mix(const March& a, MarchCtx& m, const MarchTables& tb,
 // it, into the other set of tables; the stage is refilled once the step's
 // outputs are stored (the partial sums may sit in it).  When the next step
 // would overrun the ring, the last hist rows are copied down to its front
-// first.  NB: the noise blanker is on; a separate instantiation, so its
-// passes cost the plain form nothing.
+// first.  Before its first item each block writes its share of K1's
+// carried history (march_history).  NB: the noise blanker is on; a
+// separate instantiation, so its passes cost the plain form nothing.
 template <typename Tx, int DP, bool NB>
 __global__ void __launch_bounds__(kThreads, 1)
 front_fir(const __grid_constant__ CUtensorMap map, const Tx* __restrict__ x,
@@ -1163,6 +1261,7 @@ front_fir(const __grid_constant__ CUtensorMap map, const Tx* __restrict__ x,
     bulk::fence_mbar_init();
     for (int s = 0; s < g.stages && s < total; ++s) issue(s);
   }
+  march_history<Tx, NB>(x, a);        // K1's carried history
   // the taps, h_s[p DP + i] = h[F i + p] (read after the prologue's
   // barriers)
   for (int i = tid; i < F * g.dp; i += kThreads) {
@@ -1307,76 +1406,6 @@ front_fir(const __grid_constant__ CUtensorMap map, const Tx* __restrict__ x,
       pos += g.step_rows;
     }
   }
-}
-
-// grid ceil((d_rows + nb_rows) * C / 256), block 256: the last d_rows
-// post-mix rows, then (with the blanker, nb_rows = 16) the last 16 rows of
-// undilated spike flags.
-template <typename Tx>
-__global__ void front_tail(const Tx* __restrict__ x, int T, int C,
-                           const float* __restrict__ mseq,
-                           const float* __restrict__ tail_in, int d_rows,
-                           const float* __restrict__ phase0,
-                           const float* __restrict__ fhi,
-                           const float* __restrict__ flo, Iq iq_args, Nb nb,
-                           float* __restrict__ tail_out,
-                           float* __restrict__ nb_tail_out) {
-  const IqVals iq(iq_args);
-  const int nb_rows = nb.mode ? kNbTailRows : 0;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (d_rows + nb_rows) * C) return;
-  const int i = idx / C, c = idx % C;
-  const size_t c2 = 2 * (size_t)C;
-  if (i >= d_rows) {                               // nb_tail' row
-    const int j = i - d_rows;
-    bool fr, fi;
-    nb_flags_at(x, T - kNbTailRows + j, c, C, mseq, iq, nb, &fr, &fi);
-    nb_tail_out[j * c2 + c] = fr ? 1.0f : 0.0f;
-    nb_tail_out[j * c2 + C + c] = fi ? 1.0f : 0.0f;
-    return;
-  }
-  const int t = T - d_rows + i;
-  float ur, ui;
-  if (t >= 0) {
-    const size_t xr = (size_t)t * c2;
-    const int k = t / kDcChunk;
-    const size_t mr = (size_t)k * c2;
-    float cr, ci, fr, fi;
-    sincospif(2.0f * coarse_phase(t, phase0[c], fhi[c], flo[c]), &ci, &cr);
-    sincospif(2.0f * fine_phase(t % kQ, fhi[c], flo[c]), &fi, &fr);
-    float zr = load_x(x, xr + c) - mseq[mr + c];
-    float zi = load_x(x, xr + C + c) - mseq[mr + C + c];
-    iq.apply(&zr, &zi);
-    mix(zr, zi, cr, ci, fr, fi, &ur, &ui);
-    if (nb.mode) {
-      bool br = false, bi = false;
-      for (int s = 0; s < nb.bw; ++s) {
-        bool a, b;
-        nb_flags_at(x, t - s, c, C, mseq, iq, nb, &a, &b);
-        br |= a;
-        bi |= b;
-      }
-      if (nb.mask) {
-        nb.mask[xr + c] = br;
-        nb.mask[xr + C + c] = bi;
-      }
-      if (nb.mode == 1) {
-        if (br) ur = 0.0f;
-        if (bi) ui = 0.0f;
-      } else if (br || bi) {
-        const float m2 = mag2(zr, zi);
-        if (br) ur = __fmul_rn(ur, nb_scale(nb_avg_entering(nb, k, c2, c), m2));
-        if (bi)
-          ui = __fmul_rn(ui, nb_scale(nb_avg_entering(nb, k, c2, C + c), m2));
-      }
-    }
-  } else {
-    const size_t tr = (size_t)(d_rows + t) * c2;
-    ur = tail_in[tr + c];
-    ui = tail_in[tr + C + c];
-  }
-  tail_out[i * c2 + c] = ur;
-  tail_out[i * c2 + C + c] = ui;
 }
 
 // The FM discriminator of the decimated row (yr, yi) after the row (pr, pi):
@@ -1917,6 +1946,7 @@ int forward(const Tx* x, const Fwd& f) {
   a.mseq = f.mseq; a.tail_in = f.tail_in; a.phase0 = f.phase0;
   a.fhi = f.fhi; a.flo = f.flo; a.h = f.h;
   a.iq = f.iq; a.nb = f.nb; a.y = f.y;
+  a.tail_out = f.tail_out; a.nb_tail_out = f.nb_tail_out;
   switch (dp) {
 #define FRONT_FIR_CASE(DP)                                                   \
   case DP:                                                                   \
@@ -1933,12 +1963,7 @@ int forward(const Tx* x, const Fwd& f) {
   }
   if (err != cudaSuccess) return err;
 
-  const int nt = (f.d_rows + (f.nb.mode ? kNbTailRows : 0)) * f.C;
-  front_tail<Tx><<<(unsigned)((nt + 255) / 256), 256, 0, f.st>>>(
-      x, f.T, f.C, f.mseq, f.tail_in, f.d_rows, f.phase0, f.fhi, f.flo, f.iq,
-      f.nb, f.tail_out, f.nb_tail_out);
-  if ((err = cudaGetLastError()) != cudaSuccess || f.disc_gain == 0.0f)
-    return err;
+  if (f.disc_gain == 0.0f) return cudaSuccess;
 
   const int M = f.T / f.F;
   if (f.comp_taps == nullptr) {
@@ -1988,23 +2013,30 @@ int forward(const Tx* x, const Fwd& f) {
 // in order and carries DC, the post-mix tail and the phase from one to the
 // next; here the DC seeds come from K1's front_means + front_dc_scan (a
 // prefix over the chunk means), rows before the dispatch from the carried
-// tail, and every block rebuilds the mixed rows it needs.  A block takes
-// kTm outputs of one sub-block x kTl lanes and walks its K range in steps of
-// kKc rows: it stages the Toeplitz rows and the extended input rows (DC
-// removed and mixed with the NCO as they are staged: coarse phasors once per
-// block, fine phasors from the host tables), the next step's loads in
-// flight, and each thread accumulates a 4 x 4 tile of outputs in plain
-// float32 FMAs (no tensor cores, no TF32).  The mixing is redone by each of
-// the C/16 lane tiles and sub/F/64 output tiles that read a row.
-// The switches (FORM):
+// tail, and every block rebuilds the mixed rows it needs.  The JAX kernel
+// runs the product on the MXU as a three-pass split (_dot3, W split on the
+// host into wth + wtl); its counterpart on Hopper is 3xTF32 on the tensor
+// cores: W = Wh + Wl split once per plan on the host (kprobe.py), E = Eh +
+// El split as it is staged (hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x -
+// hi)), Y += Wh Eh + Wh El + Wl Eh in float32 (the dropped Wl El is ~2^-22
+// of a product; one TF32 pass keeps ~3 digits, the S-meter trap of
+// BENCHMARKS.md:71-84).  A block makes one sub-block's 64 outputs (wgmma's
+// M) x 64 channels, so at 64 channels each extended row is mixed once per
+// sub-block (v1: once per plane's product); x lands by 2D tensor-map boxes
+// and W's tiles by bulk copies on a ring of stages, and the next chunk is
+// mixed while the tensor cores multiply this one.  The switches (FORM):
 //   v1: two planes, two products (the K range is walked once per plane, so
 //       W is read twice); v2: two planes, one product over [er | ei];
 //   v3: one packed plane, mixed per channel; v4 (and v5): the packed plane
 //       with the packed phasor tables A = [or | or], B = [oi | -oi],
 //       y = z A + swap(z) B, and a phase per lane.
-// Bound: operations, 2 (d_rows + sub) per output lane dense (2 span for
-// v5), against float32's 67 TFLOP/s.  probe_tail writes tail' (the last
-// d_rows mixed rows) in the variant's layout.
+// Bound: bytes (kprobe.probe_bound counts the function's own work, K1's
+// base form: the plane and W read once, y and the state written; 0.0418 ms
+// per call at the bench's 8 x 32768 rows x 64 ch).  The product itself is
+// 2 (d_rows + sub) TF32 operations per output lane and pass dense (2 span
+// for v5), three passes, against the tensor cores' 495 TFLOP/s.  The last
+// sub-block's blocks write tail' (the last d_rows mixed rows, float32, in
+// the variant's layout) in the same launch.
 
 constexpr int kFloorTile = 4096;     // floats per probe_floor_copy stage
 constexpr int kFloorStages = 4;      // ring stages per block
@@ -2068,10 +2100,15 @@ probe_floor_copy(const float* __restrict__ x0, const float* __restrict__ x1,
   bulk::store_wait_read<0>();
 }
 
-constexpr int kTm = 64;            // outputs per probe_toeplitz block
-constexpr int kTl = 32;            // lanes per probe_toeplitz block
-constexpr int kKc = 32;            // extended-input rows per step
-constexpr int kToepThreads = 128;  // 8 lane quads x 16 output quads
+// probe_toeplitz: the tensor-core product (header comment of the probes).
+constexpr int kPm = 64;            // outputs per block (wgmma's M)
+constexpr int kPch = 64;           // channels per block
+constexpr int kPkc = 32;           // extended rows per chunk (4 k8 steps)
+constexpr int kPThreads = 512;     // four warpgroups
+constexpr int kPBox = kPkc * kPch * 4;   // one x box / one W half, bytes
+constexpr int kPStage = 4 * kPBox;       // a stage: x re, x im, W hi, W lo
+constexpr int kPEBytes = 2 * kPkc * 2 * kPch * 4;   // an E buffer, hi + lo
+constexpr bool kPWgmma = true;     // false: the dense forms on mma.sync
 
 enum ProbeForm { kV1 = 1, kV2 = 2, kV3 = 3, kV4 = 4 };
 
@@ -2084,75 +2121,133 @@ struct Probe {
   const float *phase, *fhi, *flo;  // [C]; v4 [2C] (a phase per lane)
   const float *f0, *f1, *f2, *f3;  // fine phasors: v1-v3 (cos, sin) [128, C];
                                    // v4 [fr|fr], [fi|fi], [fi|-fi], [fr|-fr]
-  const float* wt;        // [sub/F, d_rows + sub]
-  int T, C, sub, F, d_rows, kt;
+  const float *wh, *wl;   // W^T split into TF32 hi + lo, each [m/64 tiles]
+                          // [kpad/4][64 outputs][4 rows] (kprobe.py)
+  int T, C, sub, F, d_rows, kt, kpad;
   float *y0, *y1;         // v1/v2 [T/F, C] each; else y0 [T/F, 2C]
   float* tail_out;        // tail' in the tail's layout
 };
 
-// What one extended row of channel c needs before it is mixed: its input
-// (re, im) and DC estimate, or the carried post-mix values (t < 0); and the
-// fine phasors of its row within 128 (v1-v3: cos, sin; v4: the four packed
-// tables at its re lane, then at its im lane).
-struct ProbeRaw {
-  float a, b, ma, mb;
-  float f[8];
+// probe_toeplitz's shared memory: the stages' x and W barriers; two
+// stages of [x re box | x im box | W hi | W lo] (each kPkc rows: the boxes
+// [kPkc][64 lanes], the W halves [kPkc/4][64][4]); two E buffers of [hi |
+// lo], each [kPkc/4][kN lanes][4] (K-major core matrices of 8 lanes x 4
+// rows, the layout the wgmma descriptors name); the coarse phasors (cos,
+// sin) of the block's nq 128-row blocks x kent phase lanes.  Two stages:
+// four lowered the copy floor but left the L1 too small for the fine
+// tables, and the probes ran slower (tools/ring_sweep.py --probe, PERF.md
+// section 6); a chunk's stage and E buffer are q & 1, its barriers'
+// parity (q >> 1) & 1.
+struct ProbeGeom {
+  int nq, kent, e_off, cc_off, smem;
+  __host__ __device__ ProbeGeom(int form, int d_rows, int sub) {
+    kent = form == kV4 ? 2 * kPch : kPch;
+    nq = (d_rows + sub) / kQ + 2;
+    e_off = 128 + 2 * kPStage;
+    cc_off = e_off + 2 * kPEBytes;
+    smem = align128(cc_off + 2 * nq * kent * 4);
+  }
+  __host__ __device__ bool ok() const { return smem <= kMaxSmem; }
 };
 
-template <int FORM>
-__device__ __forceinline__ void probe_load(const Probe& p, int t, int c,
-                                           ProbeRaw* r) {
-  if (t < 0) {                                    // the carried tail
-    if constexpr (FORM <= kV2) {
-      r->a = p.tail[(size_t)(p.d_rows + t) * p.C + c];
-      r->b = p.tail[(size_t)(2 * p.d_rows + t) * p.C + c];
-    } else {
-      const size_t i = (size_t)(p.d_rows + t) * 2 * p.C + c;
-      r->a = p.tail[i];
-      r->b = p.tail[i + p.C];
-    }
-    return;
-  }
-  const int k = t / kDcChunk, q = t % kQ;
-  if constexpr (FORM <= kV2) {
-    const size_t i = (size_t)t * p.C + c, j = (size_t)k * p.C + c;
-    r->a = p.x0[i];
-    r->b = p.x1[i];
-    r->ma = p.m0[j];
-    r->mb = p.m1[j];
-  } else {
-    const size_t c2 = 2 * (size_t)p.C;
-    const size_t i = (size_t)t * c2 + c, j = (size_t)k * c2 + c;
-    r->a = p.x0[i];
-    r->b = p.x0[i + p.C];
-    r->ma = p.m0[j];
-    r->mb = p.m0[j + p.C];
-  }
-  if constexpr (FORM != kV4) {
-    const size_t f = (size_t)q * p.C + c;
-    r->f[0] = p.f0[f];
-    r->f[1] = p.f1[f];
-  } else {
-    const size_t f = (size_t)q * 2 * p.C + c, g = f + p.C;
-    r->f[0] = p.f0[f]; r->f[1] = p.f1[f]; r->f[2] = p.f2[f]; r->f[3] = p.f3[f];
-    r->f[4] = p.f0[g]; r->f[5] = p.f1[g]; r->f[6] = p.f2[g]; r->f[7] = p.f3[g];
-  }
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds a finite x (to nearest,
+// ties away from zero; the low 13 bits of the mantissa cleared), as a
+// float, in two integer operations instead of a conversion.
+__device__ __forceinline__ float tf32_rna(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
 }
 
-// The mixed values of a loaded row t >= 0, from the coarse phasor of its re
-// lane (cr, ci) and, for v4, of its im lane (cr2, ci2).
-template <int FORM>
-__device__ __forceinline__ void probe_mix(const ProbeRaw& r, float cr,
-                                          float ci, float cr2, float ci2,
-                                          float* ur, float* ui) {
-  const float zr = r.a - r.ma, zi = r.b - r.mb;
-  if constexpr (FORM != kV4) {
-    mix(zr, zi, cr, ci, r.f[0], r.f[1], ur, ui);
-  } else {      // per lane: z A + swap(z) B, A = c fr1 - s fi1, B = c fi2 + s fr2
-    *ur = zr * (cr * r.f[0] - ci * r.f[1]) + zi * (cr * r.f[2] + ci * r.f[3]);
-    *ui = zi * (cr2 * r.f[4] - ci2 * r.f[5])
-          + zr * (cr2 * r.f[6] + ci2 * r.f[7]);
-  }
+// A wgmma shared-memory matrix descriptor for a K-major operand without
+// swizzle: core matrices of 8 rows x 16 bytes (4 TF32 along K, rows 16
+// bytes apart); lbo = bytes between the two core matrices along K of one
+// k8 step, sbo = bytes between core matrices 8 rows apart.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4)
+         | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
+         | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Keeps the compiler from moving other uses of the accumulators across an
+// asynchronous wgmma's issue or wait.
+template <int N>
+__device__ __forceinline__ void wg_fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A B for one k8 step: A [64 outputs x 8] and B [8 x N lanes] from
+// shared memory (descriptors a, b), d in the warpgroup's accumulator
+// layout (4 per n8 tile per thread); acc = 0 overwrites d.
+template <int N>
+__device__ __forceinline__ void wg_mma(float* d, uint64_t a, uint64_t b,
+                                       int acc);
+
+template <>
+__device__ __forceinline__ void wg_mma<64>(float* d, uint64_t a, uint64_t b,
+                                           int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wg_mma<16>(float* d, uint64_t a, uint64_t b,
+                                           int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wg_mma<32>(float* d, uint64_t a, uint64_t b,
+                                           int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d += A B for one m16n8k8 tile: a the A fragment (rows g, g + 8 x columns
+// t, t + 4 of the warp's 16 x 8 tile), b the B fragment (rows t, t + 4 x
+// column g), g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // The coarse phasor (cos, sin) of phase lane `lane` for the 128-row block
@@ -2163,176 +2258,401 @@ __device__ __forceinline__ void probe_coarse(const Probe& p, int t, int lane,
                                 p.sub), ci, cr);
 }
 
-constexpr int kMaxQ = 80;   // 128-row blocks one probe_toeplitz block spans
-
-// grid (ceil(C / kCh), (T/F) / kTm), block kToepThreads.  A block holds
-// kTm outputs of one sub-block and kCh channels: one plane's lanes of kTl
-// channels per product for v1, the re and im lanes of kTl/2 channels
-// otherwise.  Its K range is the union of its output groups' spans (all of
-// K when dense), at most kMaxQ 128-row blocks: it first computes the coarse
-// phasors of all of them, then walks the range in steps of kKc rows.  Each
-// step mixes the rows loaded by the step before into shared memory, stores
-// the Toeplitz rows, then issues the next step's loads (to registers, in
-// flight during the products) and multiplies; a thread skips the steps
-// outside its own group's span (v5).  Thread (tx, ty) = (tid % 8, tid / 8)
-// accumulates outputs 4 ty .. 4 ty + 3 x lanes 4 tx .. 4 tx + 3; a warp's
-// 16 outputs lie in one group (the wrapper requires (sub/F/kt) % 4 == 0).
+// What mixing four rows t .. t + 3 (t % 4 == 0) of channel c needs from
+// device memory, fetched ahead of the chunk's mixing (two chunks ahead for
+// v1-v3, one for v4 and v5): the DC estimate of their chunk (re and im
+// lanes) and their fine phasors (v1-v3: cos, sin; v4: the four packed
+// tables at the re lane, then at the im lane), each row's loads coalesced
+// over a warp's 32 channels.
 template <int FORM>
-__global__ void __launch_bounds__(kToepThreads) probe_toeplitz(Probe p) {
-  constexpr int kCh = FORM == kV1 ? kTl : kTl / 2;
-  constexpr int kEnt = FORM == kV4 ? kTl : kCh;   // coarse phasors per row
-  constexpr int kPairs = kKc * kCh / kToepThreads;   // rows x channels each
-  constexpr int kW4 = kTm * kKc / 4 / kToepThreads;  // 16-byte W loads each
-  __shared__ __align__(16) float e_s[kKc][kTl];
-  __shared__ __align__(16) float w_s[kKc][kTm];
-  __shared__ float cc_s[kMaxQ][kEnt], cs_s[kMaxQ][kEnt];
-  const int tid = threadIdx.x, tx = tid % 8, ty = tid / 8;
+struct ProbeIn {
+  float m[2];
+  float f[FORM == kV4 ? 8 : 2][4];
+};
+
+template <int FORM>
+__device__ __forceinline__ void probe_fetch(const Probe& p, int t, int c,
+                                            ProbeIn<FORM>* in) {
+  const int k = t / kDcChunk, r = t % kQ;
+  if constexpr (FORM <= kV2) {
+    const size_t j = (size_t)k * p.C + c;
+    in->m[0] = p.m0[j];
+    in->m[1] = p.m1[j];
+  } else {
+    const size_t j = (size_t)k * 2 * p.C + c;
+    in->m[0] = p.m0[j];
+    in->m[1] = p.m0[j + p.C];
+  }
+  const float* tabs[4] = {p.f0, p.f1, p.f2, p.f3};
+  const size_t lanes = FORM == kV4 ? 2 * (size_t)p.C : p.C;
+#pragma unroll
+  for (int i = 0; i < (FORM == kV4 ? 8 : 2); ++i) {
+    const size_t lane = FORM == kV4 && i >= 4 ? (size_t)p.C + c : c;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      in->f[i][j] = tabs[i % 4][(size_t)(r + j) * lanes + lane];
+  }
+}
+
+// The mixed values (ur, ui) of row t + r (its raw input xr, xi) from the
+// fetched DC and fine phasors and the coarse phasors of its re lane (cr,
+// ci) and, for v4, of its im lane (cr2, ci2): v1-v3 the mix of K1, v4 per
+// lane z A + swap(z) B with A = c fr1 - s fi1, B = c fi2 + s fr2.
+template <int FORM>
+__device__ __forceinline__ void probe_mix(const ProbeIn<FORM>& in, int r,
+                                          float xr, float xi, float cr,
+                                          float ci, float cr2, float ci2,
+                                          float* ur, float* ui) {
+  const float zr = xr - in.m[0], zi = xi - in.m[1];
+  if constexpr (FORM != kV4) {
+    mix(zr, zi, cr, ci, in.f[0][r], in.f[1][r], ur, ui);
+  } else {
+    *ur = zr * (cr * in.f[0][r] - ci * in.f[1][r])
+          + zi * (cr * in.f[2][r] + ci * in.f[3][r]);
+    *ui = zi * (cr2 * in.f[4][r] - ci2 * in.f[5][r])
+          + zr * (cr2 * in.f[6][r] + ci2 * in.f[7][r]);
+  }
+}
+
+// grid (ceil(C / 64), (T/F) / 64), block kPThreads, g.smem bytes of dynamic
+// shared memory.  A block makes 64 outputs of one sub-block (og = 64
+// blockIdx.y) x 64 channels: kN = 128 lanes [ur | ui] of one product (v2-v4)
+// or, for v1, 64 lanes per product, one product per plane (two passes).
+// Its K range [kb, ke) is the union of its output groups' spans (all of K
+// when dense), walked in chunks of kPkc extended rows, the block's stream
+// (both passes for v1): thread 0 keeps two stages in flight, each two 2D
+// tensor-map boxes of x (64 lanes x kPkc rows; rows before t = 0 land as
+// zeros) on one mbarrier and the chunk's W hi and lo tiles by bulk copies
+// on another, x issued a step before W (a stage's x is free once mixed).
+// Chunk q + 1 is mixed (DC, coarse and fine phasors; rows before t = 0
+// from the carried tail) and split into TF32 hi + lo E tiles while the
+// tensor cores multiply chunk q: Y_q = Wh Eh + Wh El + Wl Eh into a fresh
+// float32 accumulator, then added to the running sum in IEEE float32
+// (each accumulator chain is 12 k8 products long).  All 16 warps mix (one
+// 4-row quad of one channel per thread and chunk).  Dense forms:
+// warpgroup w makes lanes [w N, (w + 1) N), N = kN / 4, of all 64
+// outputs by wgmma m64nNk8 (A and B from shared memory; every path waits
+// for the products before it reads the accumulators, or the compiler
+// serializes them: 0.152 -> 0.137 ms per launch at v3 once it did not);
+// v5 (TILED): warp w makes outputs 16 (w % 4) .. + 15 x the lanes of
+// warpgroup w / 4 by mma.sync m16n8k8, only over the k8 steps of its
+// group's span.  The blocks that hold the dispatch's last sub-block and
+// its last 64 outputs write tail' from the float32 mixed rows of its last
+// d_rows extended rows (pass 0).
+template <int FORM, bool TILED>
+__global__ void __launch_bounds__(kPThreads, 1)
+probe_toeplitz(const __grid_constant__ CUtensorMap map0,
+               const __grid_constant__ CUtensorMap map1, Probe p,
+               ProbeGeom g) {
+  constexpr int kN = FORM == kV1 ? kPch : 2 * kPch;  // lanes of one product
+  constexpr int kNw = kN / 4;         // lanes of a warpgroup (or warp)
+  constexpr int kAcc = kNw / 2;       // accumulators per thread
+  constexpr int kPasses = FORM == kV1 ? 2 : 1;
+  constexpr int kEnt = FORM == kV4 ? 2 * kPch : kPch;
+  constexpr bool kWg = !TILED && kPWgmma;
+  extern __shared__ __align__(128) unsigned char pr_smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(pr_smem);
+  float* cc_s = reinterpret_cast<float*>(pr_smem + g.cc_off);
+  float* cs_s = cc_s + g.nq * kEnt;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int m = p.sub / p.F, K = p.d_rows + p.sub, mt = m / p.kt;
-  const int c0 = blockIdx.x * kCh;
-  const int og = blockIdx.y * kTm;                // the block's first output
+  const int c0 = blockIdx.x * kPch;
+  const int og = blockIdx.y * kPm;                // the block's first output
   const int s = og / m, ol0 = og - s * m;         // its sub-block, local row
   // a group's K span: all of K (dense), or d_rows + mt F rows rounded up to
   // 8 from the group's first input row (v5)
   const int span = p.kt == 1 ? K : (p.d_rows + mt * p.F + 7) / 8 * 8;
-  const int g_lo = ol0 / mt, g_hi = (ol0 + kTm - 1) / mt;
+  const int g_lo = ol0 / mt, g_hi = (ol0 + kPm - 1) / mt;
   const int kb = g_lo * mt * p.F, ke = min(g_hi * mt * p.F + span, K);
-  const int my_kb = ((ol0 + 4 * ty) / mt) * mt * p.F;
-  const int my_ke = min(my_kb + span, K);
+  const int nch = (ke - kb + kPkc - 1) / kPkc;
+  const int total = kPasses * nch;                // the block's chunks
   const int t_e0 = s * p.sub - p.d_rows;          // row of extended row 0
-  const int q0 = max(t_e0 + kb, 0) / kQ;          // first 128-row block
+  const bool tail_block = s == p.T / p.sub - 1 && ol0 + kPm == m;
+  const size_t w_tile = (size_t)(ol0 / kPm) * p.kpad * kPm;
+  // chunk q of the block's stream: its x boxes and W tiles land in stage
+  // q & 1, x and W each on a barrier of their own (phase parity (q >> 1) &
+  // 1); its E buffer is q & 1.  A stage's x is free once its rows are
+  // mixed, a step before its product frees the W, so x is issued a step
+  // earlier: chunk q + 3's x and chunk q + 2's W after step q.
+  auto k0_of = [&](int q) {
+    return kb + (kPasses == 1 || q < nch ? q : q - nch) * kPkc;
+  };
+  auto stage = [&](int q) { return pr_smem + 128 + (q & 1) * kPStage; };
+  auto issue_x = [&](int q) {
+    const int t0 = t_e0 + k0_of(q);
+    unsigned char* dst = stage(q);
+    uint64_t* bar = full + (q & 1);
+    bulk::mbar_arrive_expect_tx(bar, (uint32_t)(2 * kPBox));
+    bulk::load_2d(dst, &map0, c0, t0, bar);
+    if (FORM <= kV2)
+      bulk::load_2d(dst + kPBox, &map1, c0, t0, bar);
+    else
+      bulk::load_2d(dst + kPBox, &map0, p.C + c0, t0, bar);
+  };
+  auto issue_w = [&](int q) {
+    const size_t k0 = (size_t)k0_of(q);
+    unsigned char* dst = stage(q) + 2 * kPBox;
+    uint64_t* bar = full + 2 + (q & 1);
+    bulk::mbar_arrive_expect_tx(bar, (uint32_t)(2 * kPBox));
+    bulk::load(dst, p.wh + w_tile + k0 * kPm, kPBox, bar);
+    bulk::load(dst + kPBox, p.wl + w_tile + k0 * kPm, kPBox, bar);
+  };
+  auto wait_x = [&](int q) {
+    bulk::mbar_wait(full + (q & 1), (uint32_t)(q >> 1) & 1u);
+  };
+  auto wait_w = [&](int q) {
+    bulk::mbar_wait(full + 2 + (q & 1), (uint32_t)(q >> 1) & 1u);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 4; ++i) bulk::mbar_init(full + i, 1);
+    bulk::fence_mbar_init();
+    for (int q = 0; q < 2 && q < total; ++q) {
+      issue_x(q);
+      issue_w(q);
+    }
+  }
+  // the coarse phasors of the 128-row blocks of rows [t_e0 + kb, t_e0 + ke)
+  const int q0 = max(t_e0 + kb, 0) / kQ;
   const int nq = max(t_e0 + ke - 1, 0) / kQ - q0 + 1;
-  for (int i = tid; i < nq * kEnt; i += kToepThreads) {
+  for (int i = tid; i < nq * kEnt; i += kPThreads) {
     const int q = i / kEnt, j = i - q * kEnt;
-    const int c = c0 + (FORM == kV4 ? j % kCh : j);
+    const int c = c0 + (FORM == kV4 ? j % kPch : j);
     float sn = 0.0f, cs = 1.0f;
     if (c < p.C)
-      probe_coarse(p, (q0 + q) * kQ, FORM == kV4 && j >= kCh ? p.C + c : c,
+      probe_coarse(p, (q0 + q) * kQ, FORM == kV4 && j >= kPch ? p.C + c : c,
                    &cs, &sn);
-    cc_s[q][j] = cs;
-    cs_s[q][j] = sn;
+    cc_s[i] = cs;
+    cs_s[i] = sn;
   }
-  ProbeRaw raw[kPairs];
-  float4 wr[kW4];
-  auto load = [&](int k0) {                       // step k0's loads
-#pragma unroll
-    for (int it = 0; it < kW4; ++it) {
-      const int i = tid + it * kToepThreads;
-      const int o = i / (kKc / 4), k = 4 * (i - o * (kKc / 4));
-      wr[it] = k0 + k < ke ? *reinterpret_cast<const float4*>(
-                                 p.wt + (size_t)(ol0 + o) * K + k0 + k)
-                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    }
-#pragma unroll
-    for (int it = 0; it < kPairs; ++it) {
-      const int i = tid + it * kToepThreads, k = i / kCh, c = c0 + i % kCh;
-      if (k0 + k < ke && c < p.C) probe_load<FORM>(p, t_e0 + k0 + k, c, &raw[it]);
-    }
+  __syncthreads();
+
+  // Mix chunk q into E buffer q & 1: thread (warp w, lane) takes channel
+  // 32 (w % 2) + lane x the 4-row quad w / 2 (one 16-byte store per E
+  // half: a warp's 32 channels are 512 contiguous bytes).  A quad's rows
+  // share their DC chunk, their 128-row block, whether they lie before t
+  // = 0 or past ke and whether they are tail' rows, so each test is made
+  // once per quad; the addresses are the thread's own offsets from a
+  // stage, an E buffer or a table.  fetch(q) loads what the quad needs
+  // from device memory ahead of its mixing; mix_chunk(q) waits for
+  // nothing more.
+  const int ch = 32 * (warp & 1) + lane, c = c0 + ch, kq = warp >> 1;
+  const bool in_c = c < p.C;
+  const int x_off = 4 * kq * kPch + ch;           // floats from a stage
+  const int e_off = (kq * kN + ch) * 4;           // floats from E's hi half
+  auto fetch = [&](int q, ProbeIn<FORM>* in) {
+    const int k4 = k0_of(q) + 4 * kq, t = t_e0 + k4;
+    if (k4 < ke && in_c && t >= 0) probe_fetch<FORM>(p, t, c, in);
   };
-  for (int pass = 0; pass < (FORM == kV1 ? 2 : 1); ++pass) {
-    float acc[4][4] = {};
-    load(kb);
-    for (int k0 = kb; k0 < ke; k0 += kKc) {
-      __syncthreads();                            // coarse table / last step read
+  auto mix_chunk = [&](int q, const ProbeIn<FORM>* in) {
+    const int k4 = k0_of(q) + 4 * kq, t4 = t_e0 + k4;
+    const float* xs = reinterpret_cast<const float*>(stage(q)) + x_off;
+    float* eh = reinterpret_cast<float*>(pr_smem + g.e_off
+                                         + (q & 1) * kPEBytes) + e_off;
+    float* el = eh + kPkc * kN;
+    float ur[4] = {}, ui[4] = {};
+    if (k4 < ke && in_c) {
+      if (t4 < 0) {                               // the carried tail
 #pragma unroll
-      for (int it = 0; it < kW4; ++it) {
-        const int i = tid + it * kToepThreads;
-        const int o = i / (kKc / 4), k = 4 * (i - o * (kKc / 4));
-        w_s[k][o] = wr[it].x;
-        w_s[k + 1][o] = wr[it].y;
-        w_s[k + 2][o] = wr[it].z;
-        w_s[k + 3][o] = wr[it].w;
-      }
-#pragma unroll
-      for (int it = 0; it < kPairs; ++it) {
-        const int i = tid + it * kToepThreads, k = i / kCh, j = i % kCh;
-        const int t = t_e0 + k0 + k;
-        float ur = 0.0f, ui = 0.0f;
-        if (k0 + k < ke && c0 + j < p.C) {
-          if (t < 0) {
-            ur = raw[it].a;
-            ui = raw[it].b;
+        for (int r = 0; r < 4; ++r) {
+          if constexpr (FORM <= kV2) {
+            ur[r] = p.tail[(size_t)(p.d_rows + t4 + r) * p.C + c];
+            ui[r] = p.tail[(size_t)(2 * p.d_rows + t4 + r) * p.C + c];
           } else {
-            const int q = t / kQ - q0, j2 = FORM == kV4 ? j + kCh : j;
-            probe_mix<FORM>(raw[it], cc_s[q][j], cs_s[q][j], cc_s[q][j2],
-                            cs_s[q][j2], &ur, &ui);
+            const size_t i = (size_t)(p.d_rows + t4 + r) * 2 * p.C + c;
+            ur[r] = p.tail[i];
+            ui[r] = p.tail[i + p.C];
           }
         }
-        if constexpr (FORM == kV1) {
-          e_s[k][j] = pass ? ui : ur;
-        } else {
-          e_s[k][j] = ur;
-          e_s[k][j + kCh] = ui;
+      } else {
+        const int qi = (t4 / kQ - q0) * kEnt + ch;
+        const int q2 = FORM == kV4 ? qi + kPch : qi;
+        const float cr = cc_s[qi], ci = cs_s[qi];
+        const float cr2 = cc_s[q2], ci2 = cs_s[q2];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          probe_mix<FORM>(*in, r, xs[r * kPch], xs[(kPkc + r) * kPch], cr,
+                          ci, cr2, ci2, &ur[r], &ui[r]);
+      }
+      if (tail_block && q < nch && k4 >= p.sub) {   // tail' rows k4 - sub
+        const int i = k4 - p.sub;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          if constexpr (FORM <= kV2) {
+            p.tail_out[(size_t)(i + r) * p.C + c] = ur[r];
+            p.tail_out[(size_t)(p.d_rows + i + r) * p.C + c] = ui[r];
+          } else {
+            p.tail_out[(size_t)(i + r) * 2 * p.C + c] = ur[r];
+            p.tail_out[(size_t)(i + r) * 2 * p.C + p.C + c] = ui[r];
+          }
         }
       }
-      __syncthreads();
-      if (k0 + kKc < ke) load(k0 + kKc);          // in flight while we multiply
-      if (k0 + kKc <= my_kb || k0 >= my_ke) continue;   // outside my span
-#pragma unroll 8
-      for (int k = 0; k < kKc; ++k) {
-        const float4 w = *reinterpret_cast<const float4*>(&w_s[k][4 * ty]);
-        const float4 e = *reinterpret_cast<const float4*>(&e_s[k][4 * tx]);
-        const float wv[4] = {w.x, w.y, w.z, w.w}, ev[4] = {e.x, e.y, e.z, e.w};
+    }
+    // the TF32 split: hi = rna(v), lo = rna(v - hi)
+    auto put = [&](int n, const float* v) {
+      float h[4], l[4];
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
+      for (int r = 0; r < 4; ++r) {
+        h[r] = tf32_rna(v[r]);
+        l[r] = tf32_rna(__fsub_rn(v[r], h[r]));
+      }
+      *reinterpret_cast<float4*>(eh + n) = make_float4(h[0], h[1], h[2],
+                                                       h[3]);
+      *reinterpret_cast<float4*>(el + n) = make_float4(l[0], l[1], l[2],
+                                                       l[3]);
+    };
+    if constexpr (FORM == kV1) {
+      put(0, q < nch ? ur : ui);
+    } else {
+      put(0, ur);
+      put(kPch * 4, ui);
+    }
+  };
+
+  // this thread's outputs and lanes: warp w4 = w % 4 of warpgroup (or warp
+  // half) wn = w / 4 holds rows 16 w4 + g (+ 8) x lanes wn kNw + 8 j + 2 t
+  // (+ 1), j < kNw / 8, g = lane / 4, t = lane % 4
+  const int w4 = warp % 4, n0 = (warp / 4) * kNw;
+  const int gq = lane / 4, tq = lane % 4;
+  // v5: the k8 steps of this warp's group's span
+  const int my_kb = ((ol0 + 16 * w4) / mt) * mt * p.F;
+  const int my_ke = min(my_kb + span, K);
+
+  float sum[kAcc], acc[kAcc];
 #pragma unroll
-          for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(wv[a], ev[b], acc[a][b]);
+  for (int i = 0; i < kAcc; ++i) sum[i] = acc[i] = 0.0f;
+  // chunk k's fetched values: v1-v3 in in_[k & 1], fetched two chunks
+  // ahead; v4 and v5, whose 34 values a quad would then hold twice, in
+  // in_[0], one chunk ahead
+  constexpr bool kAhead2 = FORM != kV4;
+  ProbeIn<FORM> in_[kAhead2 ? 2 : 1];
+  fetch(0, &in_[0]);
+  if (kAhead2 && total > 1) fetch(1, &in_[1]);
+  wait_x(0);
+  mix_chunk(0, &in_[0]);
+  bulk::fence_async_smem();           // E's generic writes before wgmma reads
+  __syncthreads();
+  if (tid == 0 && total > 2) issue_x(2);
+  // step q: chunk q multiplied, chunk q + 1 mixed with cur (its fetched
+  // values), chunk q + 2's fetched into nxt (or chunk q + 1's into cur)
+  auto step = [&](int q, ProbeIn<FORM>* cur, ProbeIn<FORM>* nxt) {
+    if (kAhead2 && q + 2 < total) fetch(q + 2, nxt);
+    if (!kAhead2 && q + 1 < total) fetch(q + 1, cur);
+    // chunk q into acc (fresh): W from its stage, E from buffer q & 1
+    const unsigned char* st = stage(q);
+    const unsigned char* eb = pr_smem + g.e_off + (q & 1) * kPEBytes;
+    wait_w(q);
+    if constexpr (kWg) {              // issued and committed; waited below
+      const uint32_t wa = bulk::smem_u32(st + 2 * kPBox);
+      const uint32_t ea = bulk::smem_u32(eb) + n0 * 16;
+      wg_fence_regs<kAcc>(acc);
+      wg_fence();
+#pragma unroll
+      for (int s8 = 0; s8 < kPkc / 8; ++s8) {
+        const uint64_t ah = wg_desc(wa + s8 * 2048, 1024, 128);
+        const uint64_t al = wg_desc(wa + kPBox + s8 * 2048, 1024, 128);
+        const uint64_t bh = wg_desc(ea + s8 * 2 * kN * 16, kN * 16, 128);
+        const uint64_t bl = wg_desc(ea + kPkc * kN * 4 + s8 * 2 * kN * 16,
+                                    kN * 16, 128);
+        wg_mma<kNw>(acc, ah, bh, s8);
+        wg_mma<kNw>(acc, ah, bl, 1);
+        wg_mma<kNw>(acc, al, bh, 1);
+      }
+      wg_commit();
+    } else {
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) acc[i] = 0.0f;
+      const uint32_t* wh = reinterpret_cast<const uint32_t*>(st + 2 * kPBox);
+      const uint32_t* wl = wh + kPBox / 4;
+      const uint32_t* bh = reinterpret_cast<const uint32_t*>(eb);
+      const uint32_t* bl = bh + kPkc * kN;
+      const int k0 = k0_of(q);
+#pragma unroll
+      for (int s8 = 0; s8 < kPkc / 8; ++s8) {
+        const int kk = k0 + 8 * s8;
+        if (TILED && (kk + 8 <= my_kb || kk >= my_ke)) continue;
+        const int o = 16 * w4 + gq;
+        const int a0 = ((2 * s8) * kPm + o) * 4 + tq;
+        const int a1 = ((2 * s8 + 1) * kPm + o) * 4 + tq;
+        const uint32_t ah[4] = {wh[a0], wh[a0 + 32], wh[a1], wh[a1 + 32]};
+        const uint32_t al[4] = {wl[a0], wl[a0 + 32], wl[a1], wl[a1 + 32]};
+#pragma unroll
+        for (int j = 0; j < kNw / 8; ++j) {
+          const int n = n0 + 8 * j + gq;
+          const int b0 = ((2 * s8) * kN + n) * 4 + tq;
+          const int b1 = ((2 * s8 + 1) * kN + n) * 4 + tq;
+          const uint32_t vh[2] = {bh[b0], bh[b1]}, vl[2] = {bl[b0], bl[b1]};
+          mma_tf32(acc + 4 * j, ah, vh);
+          mma_tf32(acc + 4 * j, ah, vl);
+          mma_tf32(acc + 4 * j, al, vh);
+        }
       }
     }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const size_t o = (size_t)og + 4 * ty + a;   // output row of the dispatch
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int j = 4 * tx + b;
-        const bool im = FORM != kV1 && j >= kCh;
-        const int c = c0 + (im ? j - kCh : j);
-        if (c >= p.C) continue;
-        if constexpr (FORM == kV1)
-          (pass ? p.y1 : p.y0)[o * p.C + c] = acc[a][b];
-        else if constexpr (FORM == kV2)
-          (im ? p.y1 : p.y0)[o * p.C + c] = acc[a][b];
-        else
-          p.y0[o * 2 * p.C + (im ? p.C : 0) + c] = acc[a][b];
-      }
+    if (q + 1 < total) {              // mixed while the tensor cores work
+      wait_x(q + 1);
+      mix_chunk(q + 1, cur);
     }
+    if constexpr (kWg) {
+      wg_wait_all();
+      wg_fence_regs<kAcc>(acc);
+    }
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) sum[i] += acc[i];
+    if (q + 1 == nch || q + 1 == total) {  // a product is done: outputs
+      const int pass = q >= nch;
+#pragma unroll
+      for (int j = 0; j < kNw / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const size_t o = (size_t)og + 16 * w4 + gq + 8 * (r >> 1);
+          const int n = n0 + 8 * j + 2 * tq + (r & 1);
+          const bool im = FORM != kV1 && n >= kPch;
+          const int cn = c0 + (im ? n - kPch : n);
+          if (cn < p.C) {
+            if constexpr (FORM == kV1)
+              (pass ? p.y1 : p.y0)[o * p.C + cn] = sum[4 * j + r];
+            else if constexpr (FORM == kV2)
+              (im ? p.y1 : p.y0)[o * p.C + cn] = sum[4 * j + r];
+            else
+              p.y0[o * 2 * p.C + (im ? p.C : 0) + cn] = sum[4 * j + r];
+          }
+          sum[4 * j + r] = 0.0f;
+        }
+    }
+    bulk::fence_async_smem();
+    __syncthreads();        // chunk q's W, chunk q + 1's x, E buffer q & 1
+    if (tid == 0) {         // are free
+      if (q + 2 < total) issue_w(q + 2);
+      if (q + 3 < total) issue_x(q + 3);
+    }
+  };
+  for (int q = 0; q < total; q += 2) {
+    step(q, &in_[kAhead2 ? 1 : 0], &in_[0]);
+    if (q + 1 < total) step(q + 1, &in_[0], &in_[kAhead2 ? 1 : 0]);
   }
 }
 
-// grid ceil(d_rows C / 256), block 256: tail' = the last d_rows mixed rows
-// of the dispatch (rows before it from the carried tail).
-template <int FORM>
-__global__ void probe_tail(Probe p) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= p.d_rows * p.C) return;
-  const int i = idx / p.C, c = idx % p.C, t = p.T - p.d_rows + i;
-  ProbeRaw r;
-  probe_load<FORM>(p, t, c, &r);
-  float ur = r.a, ui = r.b;
-  if (t >= 0) {
-    float cr, ci, cr2 = 0.0f, ci2 = 0.0f;
-    probe_coarse(p, t, c, &cr, &ci);
-    if (FORM == kV4) probe_coarse(p, t, p.C + c, &cr2, &ci2);
-    probe_mix<FORM>(r, cr, ci, cr2, ci2, &ur, &ui);
-  }
-  if constexpr (FORM <= kV2) {
-    p.tail_out[(size_t)i * p.C + c] = ur;
-    p.tail_out[(size_t)(p.d_rows + i) * p.C + c] = ui;
-  } else {
-    p.tail_out[(size_t)i * 2 * p.C + c] = ur;
-    p.tail_out[(size_t)i * 2 * p.C + p.C + c] = ui;
-  }
-}
-
-template <int FORM>
-cudaError_t launch_probe(const Probe& p, cudaStream_t st) {
-  constexpr int kCh = FORM == kV1 ? kTl : kTl / 2;
-  const dim3 grid((unsigned)((p.C + kCh - 1) / kCh),
-                  (unsigned)(p.T / p.F / kTm));
-  probe_toeplitz<FORM><<<grid, kToepThreads, 0, st>>>(p);
-  cudaError_t err = cudaGetLastError();
+template <int FORM, bool TILED>
+cudaError_t launch_probe(const Probe& p, int device, cudaStream_t st) {
+  const ProbeGeom g(FORM, p.d_rows, p.sub);
+  if (!g.ok()) return cudaErrorInvalidValue;
+  auto kernel = probe_toeplitz<FORM, TILED>;
+  int slots = 0;        // unused: the call raises the kernel's shared-memory
+                        // limit once; the grid is one block per tile
+  cudaError_t err = launch::resident_blocks(kernel, device, kPThreads, g.smem,
+                                            1, &slots);
   if (err != cudaSuccess) return err;
-  probe_tail<FORM><<<(unsigned)((p.d_rows * p.C + 255) / 256), 256, 0, st>>>(
-      p);
+  CUtensorMap map0, map1;
+  memset(&map0, 0, sizeof(map0));
+  memset(&map1, 0, sizeof(map1));
+  const bool two = FORM <= kV2;
+  if ((err = launch::plane_map(p.x0, two ? p.C : 2 * p.C, p.T, 4, kPch, kPkc,
+                               &map0)) != cudaSuccess
+      || (two && (err = launch::plane_map(p.x1, p.C, p.T, 4, kPch, kPkc,
+                                          &map1)) != cudaSuccess))
+    return err;
+  const dim3 grid((unsigned)((p.C + kPch - 1) / kPch),
+                  (unsigned)(p.T / p.F / kPm));
+  kernel<<<grid, kPThreads, g.smem, st>>>(map0, two ? map1 : map0, p, g);
   return cudaGetLastError();
 }
 
@@ -2535,26 +2855,30 @@ int probe_floor_forward(int device, const float* x0, const float* x1, int T,
 
 // A front variant (form 1-4 = v1, v2, v3, v4/v5) over one dispatch of T
 // rows: DC seeds (front_means + front_dc_scan per plane, into the scratch
-// mseq [planes, T/512, lanes] and dc_out), the Toeplitz product into y0
-// (and y1) and tail'.  Layouts as in struct Probe; dc_in/dc_out [2, C] for
-// v1/v2, else [1, 2C]; planes 16-byte aligned.  Needs T % sub == 0, sub %
-// 512 == 0, sub % F == 0, (sub/F) % 64 == 0, (sub/F) % (4 kt) == 0, T 2C <
-// 2^31.  Returns the first CUDA error.
+// mseq [planes, T/512, lanes] and dc_out), then one probe_toeplitz launch:
+// the Toeplitz product into y0 (and y1) and tail'.  Layouts as in struct
+// Probe; dc_in/dc_out [2, C] for v1/v2, else [1, 2C]; wh/wl the split W^T
+// [(sub/F)/64][kpad/4][64][4] (kpad >= d_rows + sub + 32, a multiple of
+// 32); planes 16-byte aligned and C % 4 == 0 (the tensor maps' 16-byte
+// rule).  Needs T % sub == 0, sub % 512 == 0, sub % F == 0, (sub/F) % 64
+// == 0, (sub/F) % (16 kt) == 0 (a warp's 16 outputs in one v5 group),
+// T 2C < 2^31.  Returns the first CUDA error.
 int probe_front_forward(int device, int form, const float* x0,
                         const float* x1, int T, int C, int sub, int F,
                         int d_rows, int kt, const float* dc_in,
                         const float* tail_in, const float* phase,
                         const float* fhi, const float* flo, const float* f0,
                         const float* f1, const float* f2, const float* f3,
-                        const float* wt, float a, float b, float* mseq,
-                        float* y0, float* y1, float* dc_out, float* tail_out,
-                        void* stream) {
+                        const float* wh, const float* wl, int kpad, float a,
+                        float b, float* mseq, float* y0, float* y1,
+                        float* dc_out, float* tail_out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (form < kV1 || form > kV4 || sub <= 0 || F <= 0 || kt < 1 || T % sub
-      || sub % kDcChunk || sub % F || (sub / F) % kTm || (sub / F) % (4 * kt)
-      || (d_rows + sub) / kQ + 2 > kMaxQ
-      || (long long)T * 2 * C >= (1LL << 31) || T / F / kTm >= 65536)
+      || sub % kDcChunk || sub % F || (sub / F) % kPm
+      || (sub / F) % (16 * kt) || C % 4 || kpad % kPkc
+      || kpad < d_rows + sub + kPkc || !ProbeGeom(form, d_rows, sub).ok()
+      || (long long)T * 2 * C >= (1LL << 31) || T / F / kPm >= 65536)
     return cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const bool two = form <= kV2;
@@ -2572,14 +2896,17 @@ int probe_front_forward(int device, int form, const float* x0,
   p.x0 = x0; p.x1 = x1; p.m0 = mseq;
   p.m1 = two ? mseq + (size_t)nchunk * C : nullptr;
   p.tail = tail_in; p.phase = phase; p.fhi = fhi; p.flo = flo;
-  p.f0 = f0; p.f1 = f1; p.f2 = f2; p.f3 = f3; p.wt = wt;
+  p.f0 = f0; p.f1 = f1; p.f2 = f2; p.f3 = f3; p.wh = wh; p.wl = wl;
   p.T = T; p.C = C; p.sub = sub; p.F = F; p.d_rows = d_rows; p.kt = kt;
+  p.kpad = kpad;
   p.y0 = y0; p.y1 = y1; p.tail_out = tail_out;
   switch (form) {
-    case kV1: return launch_probe<kV1>(p, st);
-    case kV2: return launch_probe<kV2>(p, st);
-    case kV3: return launch_probe<kV3>(p, st);
-    default: return launch_probe<kV4>(p, st);
+    case kV1: return launch_probe<kV1, false>(p, device, st);
+    case kV2: return launch_probe<kV2, false>(p, device, st);
+    case kV3: return launch_probe<kV3, false>(p, device, st);
+    default:
+      return kt > 1 ? launch_probe<kV4, true>(p, device, st)
+                    : launch_probe<kV4, false>(p, device, st);
   }
 }
 

@@ -40,7 +40,11 @@ Per dispatch, in this order:
     weight), so disc is [T/(2F), C]; comp_hist' = the last hr rows of d.
 
 ``fused_front`` launches the CUDA kernel (csrc/front.cu) for a CUDA plane and
-runs ``fused_front_reference`` (plain PyTorch) for a CPU plane.  Its first
+runs ``fused_front_reference`` (plain PyTorch) for a CPU plane.  One call is
+3 CUDA launches in the base form (front_means, front_dc_scan, front_fir,
+which also writes tail' and nb_tail'), 5 with the blanker
+(front_nb_means and a second front_dc_scan), 4 in the WFM form
+(front_disc) and 4 in the hq form (front_comp).  Its first
 pass, the chunk means and the raw tails (``front_means``), is also exposed
 alone as ``chunk_means`` / ``chunk_means_reference``.  A CUDA plane must be
 16-byte aligned (``PLANE_ALIGN``): the kernels stream it with bulk copies.
@@ -1052,7 +1056,9 @@ def _comp_taps_dev(taps_bytes: bytes, device: torch.device) -> torch.Tensor:
                             ).to(device)
 
 
-fused_front.launches = 0  # CUDA kernel launches (the plain path never counts)
+# wrapper calls that launched K1 (3-5 CUDA kernels each, module docstring;
+# the plain path never counts)
+fused_front.launches = 0
 # of those, the launches whose front_fir staged the plane element by element
 # (its row pitch breaks the tensor map's 16-byte rule, fir_tma); the rest
 # staged it by tensor-map boxes

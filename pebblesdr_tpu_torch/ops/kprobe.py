@@ -27,12 +27,18 @@ Port of the kernel bodies of the JAX package's K1 probe bench
     to 8).  All compute the same function as K1's base form.
 
 ``probe_floor`` and ``probe_front`` launch the CUDA kernels
-(csrc/front.cu: probe_floor_copy; front_means + front_dc_scan,
-probe_toeplitz and probe_tail) for CUDA tensors and run the plain versions
-for CPU tensors.  Their CUDA planes are 16-byte aligned, and the floor's
-lane count is a multiple of 4 (both kernels move bulk copies).  The JAX
-tool's products give no precision (one bf16 pass on a TPU); the port's
-are IEEE float32, in the kernels and in the plain versions alike.
+(csrc/front.cu: probe_floor_copy; front_means + front_dc_scan, then one
+probe_toeplitz launch that also writes tail') for CUDA tensors and run the
+plain versions for CPU tensors.  Their CUDA planes are 16-byte aligned, and
+the floor's lane count and the front variants' channel count are multiples
+of 4 (the kernels move bulk copies and tensor-map boxes).  The JAX tool's
+products give no precision (one bf16 pass on a TPU; the package's K1 runs
+_dot3, three bf16 passes).  The port's plain versions are IEEE float32;
+probe_toeplitz runs the product on the tensor cores as 3xTF32: W split on
+the host into TF32 hi + lo (``composed_wt_split``, ``tf32_round``: the
+rounding of cvt.rna.tf32.f32), the mixed input split as it is staged, Y =
+Wh Eh + Wh El + Wl Eh accumulated in float32 (one TF32 pass keeps about
+three digits and misses the 3e-5 bound).
 """
 
 from __future__ import annotations
@@ -51,8 +57,10 @@ VARIANTS = ("v1", "v2", "v3", "v4", "v5")
 TWO_PLANE = ("v1", "v2")
 _FORM = {"v1": 1, "v2": 2, "v3": 3, "v4": 4, "v5": 4}
 FORMS = (("v1", 1), ("v2", 1), ("v3", 1), ("v4", 1), ("v5", 2), ("v5", 4))
-TILE_OUTPUTS = 64      # outputs per probe_toeplitz block (kTm)
-MAX_SUB = 8192         # with d_rows < 1024: 80 coarse rows per block (kMaxQ)
+TILE_OUTPUTS = 64      # outputs per probe_toeplitz block (kPm, wgmma's M)
+WARP_OUTPUTS = 16      # outputs of a v5 warp's mma.sync tiles
+CHUNK_ROWS = 32        # extended rows per probe_toeplitz chunk (kPkc)
+MAX_SUB = 8192         # with d_rows < 1024 the v4 coarse table fits a block
 SOURCE = front.SOURCE
 REPLACES = {            # the TPU kernel each form replaces
     "floor": "tools/kbench2.py:82",
@@ -70,8 +78,8 @@ def check_geometry(t: int, sub: int, factor: int,
     """The probes' shape rules: sub-blocks of whole 512-row DC chunks that
     tile the dispatch and whole decimated rows per sub-block; for the front
     variants (kt given) output rows per sub-block a multiple of the
-    kernel's 64-output tile, and per group a multiple of 4 (a thread's
-    outputs lie in one group)."""
+    kernel's 64-output tile, and per group a multiple of 16 (a v5 warp's
+    16 outputs lie in one group)."""
     if sub <= 0 or sub % front.DC_CHUNK or t % sub:
         raise ValueError(f"sub={sub} must be a multiple of {front.DC_CHUNK} "
                          f"that divides T={t}")
@@ -79,9 +87,11 @@ def check_geometry(t: int, sub: int, factor: int,
         raise ValueError(f"the decimation factor {factor} must divide "
                          f"sub={sub}")
     m = sub // factor
-    if kt is not None and (kt < 1 or m % TILE_OUTPUTS or m % (4 * kt)):
+    if kt is not None and (kt < 1 or m % TILE_OUTPUTS
+                           or m % (WARP_OUTPUTS * kt)):
         raise ValueError(f"sub/F={m} outputs per sub-block must be a "
-                         f"multiple of {TILE_OUTPUTS} and of 4 kt (kt={kt})")
+                         f"multiple of {TILE_OUTPUTS} and of "
+                         f"{WARP_OUTPUTS} kt (kt={kt})")
     if kt is not None and sub > MAX_SUB:
         raise ValueError(f"the front probes take sub <= {MAX_SUB}")
 
@@ -97,7 +107,8 @@ def probe_bound(variant: str, sub: int, kt: int, c: int, t: int,
     output lane, the DC and the mix), not the product's.  product_flops
     counts the product as the variant runs it, 2 span per output lane
     (span = d_rows + sub dense, d_rows + (sub/F/kt) F rounded up to 8 for
-    v5), most of it on the zeros of W."""
+    v5), most of it on the zeros of W; probe_toeplitz issues it three
+    times on the tensor cores (3xTF32)."""
     c2, m = 2 * c, t // factor
     nbytes = (t + m) * c2 * 4
     ops = product = 0
@@ -206,6 +217,44 @@ def composed_wt(plan: front.FrontPlan, sub: int) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(w.T)).to(plan.h.device)
 
 
+def tf32_round(a) -> np.ndarray:
+    """float32 values rounded to TF32 as cvt.rna.tf32.f32 rounds them: to
+    nearest, ties away from zero, at the 13th mantissa bit from the bottom
+    (the result is a float32 whose low 13 mantissa bits are zero)."""
+    b = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split_tf32(a) -> tuple[np.ndarray, np.ndarray]:
+    """(hi, lo) = (tf32(a), tf32(a - hi)) in float32: the operands of the
+    3xTF32 product (hi + lo is a to ~2^-22 of it)."""
+    a = np.ascontiguousarray(a, np.float32)
+    hi = tf32_round(a)
+    return hi, tf32_round(a - hi)
+
+
+@functools.lru_cache(maxsize=16)
+def composed_wt_split(plan: front.FrontPlan, sub: int) -> tuple:
+    """(wh, wl, kpad): composed_wt split into TF32 hi + lo once per plan
+    and sub, on the plan's device, in probe_toeplitz's tile layout
+    [(sub/F)/64 tiles][kpad/4][64 outputs][4 rows]: the W^T rows of a
+    64-output tile, four extended rows at a time, so that each chunk of 32
+    rows is one contiguous 8 KB range (a bulk copy), already in the
+    K-major core-matrix layout of the wgmma descriptors.  kpad = K rounded
+    up to 32, plus 32 rows of zeros (a chunk may run past K)."""
+    wt = composed_wt(plan, sub).cpu().numpy()          # [m, K]
+    m, k = wt.shape
+    kpad = -(-k // CHUNK_ROWS) * CHUNK_ROWS + CHUNK_ROWS
+    out = []
+    for half in split_tf32(wt):
+        w = np.zeros((m, kpad), np.float32)
+        w[:, :k] = half
+        w = w.reshape(m // TILE_OUTPUTS, TILE_OUTPUTS, kpad // 4, 4)
+        out.append(torch.from_numpy(np.ascontiguousarray(
+            w.transpose(0, 2, 1, 3))).to(plan.h.device))
+    return out[0], out[1], kpad
+
+
 def _f64(v) -> np.ndarray:
     if isinstance(v, torch.Tensor):
         v = v.detach().cpu()
@@ -217,7 +266,7 @@ def tune_tables(variant: str, f_hi, f_lo, device) -> dict:
     (host values, cached): fhi/flo as float32 ([2C] for v4/v5) and the fine
     phasors of the row within 128, built in float64 and cast to float32
     (tools/kbench2.py:211-216; v4/v5 the packed [fr|fr], [fi|fi], [fi|-fi],
-    [fr|-fr], :606-620)."""
+    [fr|-fr], :606-620), [128, lanes] each."""
     hi, lo = _f64(f_hi), _f64(f_lo)
     return _tune_tables(variant in ("v4", "v5"), hi.tobytes(), lo.tobytes(),
                         torch.device(device))
@@ -274,9 +323,13 @@ def _front_shapes(variant: str, plan: front.FrontPlan, x: torch.Tensor,
 def probe_front_reference(variant: str, plan: front.FrontPlan,
                           x: torch.Tensor, dc: torch.Tensor,
                           phase: torch.Tensor, f_hi, f_lo, tail: torch.Tensor,
-                          sub: int, kt: int = 1) -> tuple:
+                          sub: int, kt: int = 1, product=None) -> tuple:
     """Plain version of a front variant (module docstring): (y, dc', tail',
-    phase') in the variant's layouts.  f_hi/f_lo [C] are host values."""
+    phase') in the variant's layouts.  f_hi/f_lo [C] are host values.
+    product(e, w) computes the Toeplitz products (e [..., K'] extended rows
+    of a span, w [K', outputs]); torch.matmul in IEEE float32 unless given
+    (the tests pass an emulation of the kernel's 3xTF32)."""
+    mm = torch.matmul if product is None else product
     t, c, shapes = _front_shapes(variant, plan, x, sub, kt)
     for name, v in (("dc", dc), ("tail", tail), ("phase", phase)):
         if tuple(v.shape) != shapes[name]:
@@ -304,14 +357,14 @@ def probe_front_reference(variant: str, plan: front.FrontPlan,
     wins = ext.unfold(0, d + sub, sub)                  # [nsub, 2C, d + sub]
     w = composed_wt(plan, sub).to(x.device).T           # [d + sub, m]
     if kt == 1:
-        y = torch.matmul(wins, w)
+        y = mm(wins, w)
     else:       # each group of mt outputs over its own span (v5)
         mt = (sub // factor) // kt
         span = -(-(d + mt * factor) // 8) * 8
-        y = torch.cat([torch.matmul(wins[:, :, g * mt * factor:
-                                         g * mt * factor + span],
-                                    w[g * mt * factor:g * mt * factor + span,
-                                      g * mt:(g + 1) * mt])
+        y = torch.cat([mm(wins[:, :, g * mt * factor:
+                               g * mt * factor + span],
+                          w[g * mt * factor:g * mt * factor + span,
+                            g * mt:(g + 1) * mt])
                        for g in range(kt)], dim=2)
     y = y.transpose(1, 2).reshape(t // factor, 2 * c)
     tail_out = ext[ext.shape[0] - d:]
@@ -337,8 +390,11 @@ def probe_front(variant: str, plan: front.FrontPlan, x: torch.Tensor,
         front._check_cuda(name, v, dev, shapes[name])
     two = variant in TWO_PLANE
     front._check_plane(x[0] if two else x)   # x[1] lies T C floats further
-    wt = composed_wt(plan, sub)
-    front._check_cuda("wt", wt, dev, wt.shape)
+    if c % 4:
+        raise ValueError(f"probe_toeplitz takes C % 4 == 0 (its tensor-map "
+                         f"boxes start on 16 bytes), got C={c}")
+    wh, wl, kpad = composed_wt_split(plan, sub)
+    front._check_cuda("wh", wh, dev, wh.shape)
     tabs = tune_tables(variant, f_hi, f_lo, dev)
     if tabs["fhi"].shape[0] != shapes["phase"][0]:
         raise ValueError(f"f_hi/f_lo must have {c} channels")
@@ -360,8 +416,9 @@ def probe_front(variant: str, plan: front.FrontPlan, x: torch.Tensor,
         x[1].data_ptr() if two else None, t, c, sub, plan.factor, plan.d_rows,
         kt, dc.data_ptr(), tail.data_ptr(), phase.data_ptr(),
         tabs["fhi"].data_ptr(), tabs["flo"].data_ptr(),
-        *(None if f is None else f.data_ptr() for f in fine), wt.data_ptr(),
-        a, b, mseq.data_ptr(), y[0].data_ptr() if two else y.data_ptr(),
+        *(None if f is None else f.data_ptr() for f in fine), wh.data_ptr(),
+        wl.data_ptr(), kpad, a, b, mseq.data_ptr(),
+        y[0].data_ptr() if two else y.data_ptr(),
         y[1].data_ptr() if two else None, dc_out.data_ptr(),
         tail_out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise(err, "probe_toeplitz")
@@ -377,7 +434,12 @@ def probe_front(variant: str, plan: front.FrontPlan, x: torch.Tensor,
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """csrc/front.cu (K1 and the probes), with the probes' C signatures."""
-    lib = front._lib()
+    return declare(front._lib())
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """A library built from csrc/front.cu with the probes' C signatures
+    declared (also for the variants tools/ring_sweep.py builds)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.probe_floor_forward.restype = ctypes.c_int
     lib.probe_floor_forward.argtypes = [i, p, p, i, i, i, i, p, p, p]
@@ -385,7 +447,7 @@ def _lib() -> ctypes.CDLL:
     lib.probe_front_forward.argtypes = [
         i, i, p, p, i, i, i, i, i, i,     # device, form, x0, x1, T .. kt
         p, p, p, p, p,                    # dc_in, tail_in, phase, fhi, flo
-        p, p, p, p, p,                    # f0 .. f3, wt
+        p, p, p, p, p, p, i,              # f0 .. f3, wh, wl, kpad
         f, f, p, p, p, p, p, p]           # a, b, mseq, y0, y1, dc_out,
     #                                       tail_out, stream
     return lib
@@ -402,4 +464,6 @@ def _raise(err: int, name: str) -> None:
 
 
 probe_floor.launches = 0   # CUDA kernel launches (the plain path never counts)
+# probe_toeplitz launches (one per call, after front_means and front_dc_scan
+# per plane, which chunk_means.launches and dc_scan.launches count)
 probe_front.launches = 0

@@ -14,10 +14,11 @@ on the same inputs (chip_smoke.check_options_form: 3e-5 relative, blanker
 flags equal); then timed: CUDA events around 10 calls after 3 warm-ups,
 the host's enqueue ms per call over 20 calls, and the device time per
 launch of each kernel over 10 calls (torch.profiler); and the sha256 of
-one call's y and tail', so that two checkouts' runs show whether their
-outputs are the same bits.  The WFM plans run K1's base form (front_fir
-is the same pass in every form); then their cells' own forms, the WFM
-form at wfm_64ch (discriminator, y-tails) and the hq form at wfm_hq_64ch
+one call's y and tail' (and nb_tail' at am_nb_64ch), so that two
+checkouts' runs show whether their outputs are the same bits.  The WFM
+plans run K1's base form (front_fir is the same pass in every form);
+then their cells' own forms, the WFM form at wfm_64ch (discriminator,
+y-tails) and the hq form at wfm_hq_64ch
 (with the composite decimation, from a random comp_hist), are held to
 the plain version (3e-5 relative, disc and comp_hist' 1e-4 absolute),
 hashed (y-tails, tail', disc, dlast and comp_hist'), timed by events and
@@ -50,8 +51,10 @@ CELLS = (("am_64ch", 64, 32, "f32", "am"),
 PROTECT = {"am": 30_000, "wfm": 200_000, "hq": 400_000}
 
 
-def kernel_ms(torch, fn, reps: int = 10) -> dict:
-    """Device ms per launch of each front_* kernel fn launches."""
+def kernel_ms(torch, fn, reps: int = 10,
+              pattern: str = r"front_\w+") -> dict:
+    """Device ms per launch of each kernel fn launches whose name matches
+    pattern (default: the front_* kernels)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -60,7 +63,7 @@ def kernel_ms(torch, fn, reps: int = 10) -> dict:
     rows = {}
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", 0) or 0
-        m = re.search(r"front_\w+", ev.key)
+        m = re.search(pattern, ev.key)
         if us and m:
             tot, n = rows.get(m.group(0), (0.0, 0))
             rows[m.group(0)] = (tot + us / 1e3, n + ev.count)
@@ -173,8 +176,10 @@ def main(argv: list[str] | None = None) -> dict:
             return front.fused_front(plan, *args, **kw)
 
         out = call()
+        hashed = (("y", out[0]), ("tail", out[2])) + (
+            (("nb_tail", out[6]),) if "nb" in kw else ())
         bits = {nm: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()[:16]
-                for nm, v in (("y", out[0]), ("tail", out[2]))}
+                for nm, v in hashed}
         del out
         for _ in range(3):
             call()
@@ -197,7 +202,8 @@ def main(argv: list[str] | None = None) -> dict:
                     if kk.startswith("front_fir")), None)
         print(f"[{tag}] {name}: front_fir {fir:.4f} ms per launch, K1 "
               f"{k1:.4f} ms (events), host {host:.4f} ms per call; sha256 "
-              f"y {bits['y']} tail' {bits['tail']}; per launch: "
+              + " ".join(f"{kk}' {v}" if kk != "y" else f"y {v}"
+                         for kk, v in bits.items()) + "; per launch: "
               + ", ".join(f"{kk} {v:.4f}" for kk, v in
                           sorted(launches.items())), flush=True)
         res[name] = {"front_fir_ms": fir, "k1_ms": k1, "host_ms": host,

@@ -7,6 +7,7 @@ their C entries on the cells' planes.
     python -m pebblesdr_tpu_torch.tools.ring_sweep --march [variant ...]
     python -m pebblesdr_tpu_torch.tools.ring_sweep --comp [variant ...]
     python -m pebblesdr_tpu_torch.tools.ring_sweep --scan [variant ...]
+    python -m pebblesdr_tpu_torch.tools.ring_sweep --probe [variant ...]
 
 A variant sets kMeansThreads, kMeansStageBytes (the largest stage),
 kMeansRingBytes (the ring; at least two stages) and kMeansBlocksPerSm
@@ -23,7 +24,10 @@ one JSON object of them all.  Raises without a CUDA device.
 With --march a variant sets front_fir's kPartM (outputs of one part of a
 step; a step is 32 / min(F, 16) parts), kMarchStageBytes (the raw stages'
 budget) and kMarchPersistent (1: a persistent grid of one block per SM
-walks the work items; 0: one block per item).  Each
+walks the work items; 0: one block per item), or writes K1's carried
+history after a block's items (history_last) or through a call of a
+function of its own (history_call), or not at all (no_history, a probe
+whose tail' is not written).  Each
 variant runs K1 (ops/front.py fused_front through the variant's library)
 at the shapes of am_64ch, am_i16_256ch, am_16ch, wfm_64ch and wfm_hq_64ch
 (the last two with their F = 8 and F = 4 plans; a variant whose layout
@@ -52,6 +56,18 @@ Each variant runs the scan alone (the C entry front_dc_scan_forward) on
 the chunk means of the shapes K1 gives it at am_64ch, am_16ch and
 am_256ch; m and dc' must equal ops/front.py dc_scan_emulate bit for bit;
 then each is timed per launch in turns beside roofline.scan_bound.
+
+With --probe a variant replaces source text of probe_toeplitz (the K1
+probes' tensor-core product): mma_sync runs the dense forms on mma.sync
+m16n8k8 instead of wgmma, cvt_split splits E into TF32 with
+cvt.rna.tf32.f32 instead of its two integer operations; the probes
+(one_pass: the dense product's Wh Eh pass alone; no_mma: no product;
+no_mix: no chunk mixed or split; no_fetch: no DC or fine phasor loaded)
+are timed only, their outputs wrong by design.  Each variant
+runs the front forms v2, v3, v4 and v5 (kt 4) at the probe bench's shape
+(8 x 32768 rows x 64 channels, sub 2048, the AM plan); every other
+variant's y must be within 3e-5 of the plain version; then
+probe_toeplitz is timed per launch in turns beside kprobe.probe_bound.
 """
 
 from __future__ import annotations
@@ -89,6 +105,21 @@ MARCH_VARIANTS = {
     "block_per_item": (12, 49152, 0),
 }
 MARCH_CONSTANTS = ("kPartM", "kMarchStageBytes", "kMarchPersistent")
+# ({constant: value}, [(source text, replacement)]) variants of the march:
+# K1's carried history written after each block's items instead of before
+# them, or by a call of a function of its own, and (a probe, tail' wrong)
+# not written at all
+_HISTORY_CALL = ("  march_history<Tx, NB>(x, a);        "
+                 "// K1's carried history\n")
+MARCH_VARIANTS.update({
+    "history_last": ({}, [(_HISTORY_CALL, ""), (
+        "      pos += g.step_rows;\n    }\n  }\n}",
+        "      pos += g.step_rows;\n    }\n  }\n"
+        "  march_history<Tx, NB>(x, a);\n}")]),
+    "no_history": ({}, [(_HISTORY_CALL, "")]),
+    "history_call": ({}, [("__device__ __forceinline__ void march_history(",
+                           "__device__ __noinline__ void march_history(")]),
+})
 # name: ({constant: value}, [(source text, replacement)])
 _ROW_TAILS = ("  c.tail_tma = c.tma && c.ytail != nullptr",
               "  c.tail_tma = false && c.ytail != nullptr")
@@ -121,6 +152,34 @@ SCAN_VARIANTS = {
                             "      m = seg_r[q][tx];")]),
 }
 SCAN_PROBES = ("no_copy", "no_chains", "no_seed_chain")
+# name: ({}, [(source text, replacement)]); the probes' outputs are wrong by
+# design and not checked
+_MMA3 = ("""        wg_mma<kNw>(acc, ah, bh, s8);
+        wg_mma<kNw>(acc, ah, bl, 1);
+        wg_mma<kNw>(acc, al, bh, 1);""",
+         "        (void)ah; (void)al; (void)bh; (void)bl;")
+PROBE_VARIANTS = {
+    "built": ({}, []),
+    "mma_sync": ({}, [("constexpr bool kPWgmma = true;",
+                       "constexpr bool kPWgmma = false;")]),
+    "one_pass": ({}, [(_MMA3[0], """        wg_mma<kNw>(acc, ah, bh, s8);
+        (void)al; (void)bl;""")]),
+    "cvt_split": ({}, [(
+        "  return __uint_as_float((__float_as_uint(x) + 0x1000u) & "
+        "0xFFFFE000u);",
+        "  uint32_t r;\n  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(r) : "
+        "\"f\"(x));\n  return __uint_as_float(r);")]),
+    "no_mma": ({}, [_MMA3, ("          mma_tf32(acc + 4 * j, ah, vh);\n"
+                            "          mma_tf32(acc + 4 * j, ah, vl);\n"
+                            "          mma_tf32(acc + 4 * j, al, vh);",
+                            "          (void)vh; (void)vl;")]),
+    "no_mix": ({}, [("      mix_chunk(q + 1, cur);", "      (void)cur;")]),
+    "no_fetch": ({}, [("    if (kAhead2 && q + 2 < total) fetch(q + 2, nxt);\n"
+                       "    if (!kAhead2 && q + 1 < total) fetch(q + 1, cur);",
+                       "    (void)nxt;")]),
+}
+PROBE_PROBES = ("one_pass", "no_mma", "no_mix", "no_fetch")
+PROBE_FORMS = (("v2", 1), ("v3", 1), ("v4", 1), ("v5", 4))
 # (cell, chunks, lanes) of the scans K1 launches
 SCAN_CELLS = (("am_64ch", 2048, 128), ("am_16ch", 4096, 32),
               ("am_256ch", 1024, 512))
@@ -183,11 +242,7 @@ def march(names: list[str]) -> list[dict]:
     if not torch.cuda.is_available():
         raise RuntimeError("ring_sweep needs a CUDA device")
     names = names or list(MARCH_VARIANTS)
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        libs = dict(zip(names, pool.map(
-            lambda nm: front.declare(ctypes.CDLL(str(_build(
-                f"march_{nm}", MARCH_VARIANTS[nm], MARCH_CONSTANTS)))),
-            names)))
+    libs = _variant_libs("march", names, MARCH_VARIANTS, MARCH_CONSTANTS)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
@@ -281,7 +336,8 @@ def _in_turns(torch, calls: dict, kernel: str) -> dict:
     for name in list(calls) + list(calls)[::-1]:
         calls[name]()
         times[name].append(next(v for kk, v in kernel_ms(
-            torch, calls[name]).items() if kk.startswith(kernel)))
+            torch, calls[name], pattern=kernel + r"\w*").items()
+            if kk.startswith(kernel)))
     return times
 
 
@@ -423,8 +479,84 @@ def scan(names: list[str]) -> list[dict]:
     return rows
 
 
+def probe(names: list[str]) -> list[dict]:
+    """The --probe sweep (module docstring)."""
+    import numpy as np
+    import torch
+
+    from pebblesdr_tpu_torch.ops import decimator, front, kprobe
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("ring_sweep needs a CUDA device")
+    names = names or list(PROBE_VARIANTS)
+    libs = {nm: kprobe.declare(lib) for nm, lib in _variant_libs(
+        "probe", names, PROBE_VARIANTS).items()}
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(card, flush=True)
+    built_lib = kprobe._lib
+    n, c, k, fs, sub = 32768, 64, 8, 2_048_000, 2048
+    p = decimator.build_plan(fs, 30_000)
+    plan = front.FrontPlan.make(decimator.compose_response(p), p.factor,
+                                "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    z = dict(dtype=torch.float32, device="cuda")
+    x = (torch.randn(k * n, 2 * c, generator=gen, device="cuda") * 0.5
+         + 0.2).contiguous()
+    f_hi, f_lo = np.full(c, 0.1220703125), np.zeros(c)
+    rows = []
+    try:
+        for variant, kt in PROBE_FORMS:
+            args = kprobe.to_layout(variant, x, torch.zeros(1, 2 * c, **z),
+                                    0.1 * torch.randn(plan.d_rows, 2 * c,
+                                                      generator=gen,
+                                                      device="cuda"),
+                                    torch.zeros(c, **z))
+            run = (lambda: kprobe.probe_front(
+                variant, plan, args[0], args[1], args[3], f_hi, f_lo,
+                args[2], sub, kt))
+            ref = kprobe.probe_front_reference(variant, plan, args[0],
+                                               args[1], args[3], f_hi, f_lo,
+                                               args[2], sub, kt)[0]
+            scale = float(ref.abs().max())
+            calls = {}
+            for name, lib in libs.items():
+                kprobe._lib = lambda lib=lib: lib
+                y = run()[0]
+                err = float((y - ref).abs().max()) / scale
+                if name not in PROBE_PROBES and err > 3e-5:
+                    raise RuntimeError(f"{name} disagrees with the plain "
+                                       f"version at {variant}: {err:.3g}")
+                calls[name] = (lambda lib=lib: (
+                    setattr(kprobe, "_lib", lambda: lib), run()))
+            times = _in_turns(torch, calls, "probe_toeplitz")
+            b = kprobe.probe_bound(variant, sub, kt, c, k * n, plan.factor,
+                                   plan.d_rows, plan.h.numel())
+            tag = variant + (f" kt={kt}" if kt > 1 else "")
+            for name, ts in times.items():
+                ms = sum(ts) / len(ts)
+                rows.append({"form": tag, "variant": name, "ms": ms,
+                             "runs": ts, "bound_ms": b["bound_ms"],
+                             "tflops": 3 * b["product_flops"] / ms / 1e9})
+                print(f"{tag:8s} {name:10s} probe_toeplitz {ms:.4f} ms per "
+                      f"launch (runs {', '.join(f'{t:.4f}' for t in ts)}; "
+                      f"{3 * b['product_flops'] / ms / 1e9:.1f} TFLOP/s of "
+                      f"TF32 passes)"
+                      + (" probe" if name in PROBE_PROBES else ""),
+                      flush=True)
+            del args, ref, calls
+    finally:
+        kprobe._lib = built_lib
+    print(json.dumps({"device": card, "variants": {
+        nm: PROBE_VARIANTS[nm] for nm in names}, "rows": rows}), flush=True)
+    return rows
+
+
 def main(argv: list[str] | None = None) -> list[dict]:
     argv = list(argv or [])
+    if argv[:1] == ["--probe"]:
+        return probe(argv[1:])
     if argv[:1] == ["--march"]:
         return march(argv[1:])
     if argv[:1] == ["--comp"]:

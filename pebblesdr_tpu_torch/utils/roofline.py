@@ -2,9 +2,9 @@
 it, from the bytes it must move and the operations it must do.
 
 One place for the rates and for the bounds of K1, its passes (front_means,
-which also bounds front_nb_means, front_dc_scan, front_fir, front_tail,
-front_disc, front_comp), and K2, read by chip_smoke.py, ops/kprobe.py and
-the tools.
+which also bounds front_nb_means, front_dc_scan, front_fir, K1's carried
+history, front_disc, front_comp), and K2, read by chip_smoke.py,
+ops/kprobe.py and the tools.
 """
 
 from __future__ import annotations
@@ -92,7 +92,9 @@ def scan_bound(nchunk: int, lanes: int) -> dict:
 
 
 def front_tail_bound(d_rows: int, c: int, x_bytes: int) -> dict:
-    """front_tail's bound: the last d_rows rows of the [T, 2c] plane, their
+    """The bound of K1's carried history (front_fir's march writes it; a
+    launch of its own, front_tail, before): the last d_rows rows of the
+    [T, 2c] plane, their
     chunk DC estimates and the carried tail read, tail' [d_rows, 2c]
     written; two phasors (~40 operations) and the mix per row and
     channel."""

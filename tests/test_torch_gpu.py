@@ -714,7 +714,7 @@ def test_front_comp_kernel_matches_plain(cuda, c, k):
     carry a DC offset, so dc' is held to its relative bound on a value away
     from zero (an FM plane alone leaves dc' near 0, where the relative error
     is cancellation).  front_comp is the only pass over y: the profiler
-    records no front_disc, and 5 CUDA launches per call."""
+    records no front_disc, and 4 CUDA launches per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     n, zt = 8192, 2048
@@ -761,11 +761,136 @@ def test_front_comp_kernel_matches_plain(cuda, c, k):
         torch.cuda.synchronize()
     names = [ev.name for ev in prof.events()
              if ev.device_type == DeviceType.CUDA and "front_" in ev.name]
-    # five kernels, each at most once a call (the profiler may lose a
-    # record, never add one)
-    assert len(set(names)) == 5 and any("front_comp" in nm for nm in names)
+    # four kernels (front_fir writes the carried history), each at most
+    # once a call (the profiler may lose a record, never add one)
+    assert len(set(names)) == 4 and any("front_comp" in nm for nm in names)
     assert all(names.count(nm) <= calls for nm in set(names))
     assert not any("front_disc" in nm for nm in names)
+
+
+# K1's CUDA kernels per call by form; front_fir's march writes the carried
+# history (tail', nb_tail'), so no front_tail launch
+K1_FORM_KERNELS = {
+    "base": {"front_means": 1, "front_dc_scan": 1, "front_fir": 1},
+    "nb": {"front_means": 1, "front_nb_means": 1, "front_dc_scan": 2,
+           "front_fir": 1},
+    "wfm": {"front_means": 1, "front_dc_scan": 1, "front_fir": 1,
+            "front_disc": 1},
+    "hq": {"front_means": 1, "front_dc_scan": 1, "front_fir": 1,
+           "front_comp": 1},
+}
+
+
+def _k1_form_args(cuda, form, c, k, rng, n=8192):
+    """A K1 call of the given form ("base", "nb", "wfm", "hq") on an
+    impulsive AM plane of k blocks: (plan, args, kwargs)."""
+    protect = {"wfm": 200_000, "hq": 400_000}.get(form, 30_000)
+    plan = _plan(cuda, protect)
+    hi, lo = _tunes(c, cuda)
+    z = dict(device=cuda)
+    x = _impulsive_plane(c, k * n, rng).to(cuda)
+    tail = torch.from_numpy(rng.standard_normal((plan.d_rows, 2 * c))
+                            .astype(np.float32) * 0.1).to(cuda)
+    args = (x, torch.full((1, 2 * c), 0.02, **z), torch.full((c,), 0.3, **z),
+            hi, lo, tail)
+    kw = dict(n_block=n, raw_rows=512)
+    if form == "nb":
+        kw.update(nb=(3.3, 7, 0.001, "blank"),
+                  nb_avg=torch.full((1, 2 * c), 0.1, **z),
+                  nb_tail=torch.zeros(16, 2 * c, **z))
+    if form in ("wfm", "hq"):
+        rate = FS / plan.factor
+        kw.update(disc_gain=rate / (2 * np.pi * 75_000),
+                  disc_last=torch.zeros(1, 2 * c, **z), y_tail_rows=256)
+    if form == "hq":
+        taps = wfm.WFMConfig.make(rate / 2, comp_decim=2).comp_taps
+        kw.update(comp_taps=taps, comp_hist=torch.zeros(
+            front.comp_hist_rows(len(taps)), c, **z))
+    return plan, args, kw
+
+
+@pytest.mark.parametrize("form", list(K1_FORM_KERNELS))
+def test_k1_cuda_launches_per_form(cuda, form):
+    """The profiler records 3 / 5 / 4 / 4 CUDA kernels per K1 call (base,
+    NB1, WFM, hq), each kernel as often as its form launches it, and no
+    front_tail: front_fir's march writes tail' and nb_tail'."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    plan, args, kw = _k1_form_args(cuda, form, 16, 2,
+                                   np.random.default_rng(41))
+    front.fused_front(plan, *args, **kw)
+    torch.cuda.synchronize()
+    calls = 5
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            front.fused_front(plan, *args, **kw)
+        torch.cuda.synchronize()
+    got = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA and "front_" in ev.name:
+            key = next(k for k in ("front_means", "front_nb_means",
+                                   "front_dc_scan", "front_fir",
+                                   "front_tail", "front_disc", "front_comp")
+                       if k in ev.name)
+            got[key] = got.get(key, 0) + 1
+    # each kernel of the form and no other, each at most as often as the
+    # form launches it (the profiler may lose a record, never add one)
+    want = K1_FORM_KERNELS[form]
+    assert set(got) == set(want)
+    assert all(0 < got[k] <= want[k] * calls for k in want)
+    assert sum(want.values()) == {"base": 3, "nb": 5, "wfm": 4, "hq": 4}[form]
+
+
+def _last_step_full(c, t, plan, sms, nb):
+    """Whether front_fir's last step of a [t, 2c] dispatch is full, so
+    that no step reaches the rows after its last output."""
+    mp = front.fir_march_plan(t, c, plan.factor, plan.h.numel(), sms,
+                              7 if nb else 0, 4)
+    o_s, o_e = mp["segments"][-1]
+    return (o_e - o_s) % mp["layout"]["km"] == 0
+
+
+@pytest.mark.parametrize("form", ["base", "nb", "wfm", "hq"])
+def test_k1_history_at_the_seam_and_k1(cuda, form):
+    """K1's carried history from front_fir, over two streaming calls of
+    16 channels: at K = 1, at a K whose last march step is full (no step
+    reaches the rows after the last output) and at one whose last step is
+    not: tail' within RTOL of the plain version, nb_tail' and the dilated
+    flags of every row (the blanker's impulses include one 3 rows before
+    the end) bit-equal to the plain version's."""
+    n, c = 8192, 16
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    nb = form == "nb"
+    plan = _k1_form_args(cuda, form, c, 1, np.random.default_rng(0))[0]
+    kinds = {k: _last_step_full(c, k * n, plan, sms, nb)
+             for k in range(2, 13)}
+    ks = [1, next(k for k, v in kinds.items() if v),
+          next(k for k, v in kinds.items() if not v)]
+    for k in ks:
+        plan, args, kw = _k1_form_args(cuda, form, c, k,
+                                       np.random.default_rng(k))
+        st_k = st_r = (args[1], args[5], kw.get("nb_avg"), kw.get("nb_tail"))
+        for call in range(2):
+            x = args[0] if call == 0 else args[0].flip(0).contiguous()
+            outs, masks = [], []
+            for st, fn in ((st_k, front.fused_front),
+                           (st_r, front.fused_front_reference)):
+                kws = dict(kw)
+                if nb:
+                    masks.append(torch.zeros(k * n, 2 * c, dtype=torch.uint8,
+                                             device=cuda))
+                    kws.update(nb_avg=st[2], nb_tail=st[3], nb_mask=masks[-1])
+                outs.append(fn(plan, x, st[0], *args[2:5], st[1], **kws))
+            torch.cuda.synchronize()
+            got, ref = outs
+            assert rel_err(ref[2], got[2]) < RTOL, (k, call)
+            if nb:
+                assert torch.equal(got[6], ref[6]), (k, call)
+                assert int((masks[0] != masks[1]).sum()) == 0, (k, call)
+                if call == 0:       # the impulse 3 rows before the end
+                    assert float(ref[6].sum()) > 0
+            st_k, st_r = [(o[1], o[2], o[5] if nb else None,
+                           o[6] if nb else None) for o in (got, ref)]
 
 
 @pytest.mark.parametrize("c", [5, 16, 64, 256])
@@ -922,6 +1047,67 @@ def test_probe_floor_kernel_matches_plain(cuda, planes, sub, c, t):
     torch.cuda.synchronize()
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("variant,kt", kprobe.FORMS)
+def test_probe_is_one_toeplitz_launch_per_call(cuda, variant, kt):
+    """A front probe call is front_means and front_dc_scan per plane and
+    one probe_toeplitz, which writes tail' too (no probe_tail): torch.
+    profiler over 5 calls, each kernel at most as often as that and
+    probe_toeplitz recorded (the profiler may lose a record, never add
+    one: a small kernel's records were once all lost); tail' within RTOL
+    of the plain version's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    c, t = 16, 4 * 8192
+    plan = _plan(cuda)
+    rng = np.random.default_rng(32)
+    hi, lo = (v.cpu().numpy().astype(np.float64) for v in _tunes(c, "cpu"))
+    x, dc, tail, ph = _probe_case(cuda, variant, c, t, rng)
+    got = kprobe.probe_front(variant, plan, x, dc, ph, hi, lo, tail, 2048, kt)
+    ref = kprobe.probe_front_reference(variant, plan, x, dc, ph, hi, lo,
+                                       tail, 2048, kt)
+    torch.cuda.synchronize()
+    assert rel_err(ref[2], got[2]) < RTOL
+    calls = 5
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            kprobe.probe_front(variant, plan, x, dc, ph, hi, lo, tail, 2048,
+                               kt)
+        torch.cuda.synchronize()
+    planes = 2 if variant in kprobe.TWO_PLANE else 1
+    want = {"front_means": planes, "front_dc_scan": planes,
+            "probe_toeplitz": 1}
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA]
+    assert not any("probe_tail" in nm for nm in names)
+    for k, v in want.items():
+        assert sum(k in nm for nm in names) <= v * calls, k
+    assert any("probe_toeplitz" in nm for nm in names)
+
+
+def test_probe_sass_holds_tensor_core_instructions(cuda):
+    """The built library's probe_toeplitz instantiations run their product
+    on the tensor cores: wgmma (HGMMA) for the dense forms v1-v4, mma.sync
+    (HMMA) for v5's span tiles (cuobjdump -sass of build/kernels)."""
+    import os
+    import re
+    import subprocess
+
+    from pebblesdr_tpu_torch.kernels import build
+    so = build.build("front")
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs = {}
+    for f in re.split(r"\n\s+Function : ", sass)[1:]:
+        name = f.split("\n", 1)[0]
+        m = re.search(r"probe_toeplitzILi(\d)ELb(\d)E", name)
+        if m:
+            funcs[(int(m.group(1)), int(m.group(2)))] = f
+    assert set(funcs) == {(1, 0), (2, 0), (3, 0), (4, 0), (4, 1)}
+    for (form, tiled), body in funcs.items():
+        assert ("HMMA" if tiled else "HGMMA") in body, (form, tiled)
 
 
 def test_probe_front_variants_match_k1(cuda):

@@ -11,6 +11,8 @@ tests/test_pallas.py:63.  The CUDA kernels are held to the plain versions
 on the card by tests/test_torch_gpu.py.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -281,3 +283,107 @@ def test_bench_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
         kbench2.main(["floor"])
     with pytest.raises(ValueError):
         kbench2.main(["v7"], device="cpu")
+
+
+# ---- probe_toeplitz's 3xTF32 arithmetic, emulated on the CPU ----
+
+def mm_tf32(e, w, passes=3, chunk=kprobe.CHUNK_ROWS):
+    """The product e [..., K] @ w [K, M] as probe_toeplitz runs it on the
+    tensor cores: both operands split into TF32 hi + lo (cvt.rna), per k8
+    step the passes Wh Eh (then Wh El, Wl Eh when passes == 3), each exact
+    8-term sum added to the chunk's float32 accumulator, and each chunk of
+    32 rows added to the running float32 sum.  passes == 1 is one plain
+    TF32 pass."""
+    e, w = e.numpy(), w.numpy()
+    eh, el = kprobe.split_tf32(e)
+    wh, wl = kprobe.split_tf32(w)
+    terms = ((wh, eh), (wh, el), (wl, eh))[:passes]
+    k = e.shape[-1]
+    total = np.zeros(e.shape[:-1] + (w.shape[1],), np.float32)
+    for c0 in range(0, k, chunk):
+        part = np.zeros_like(total)
+        for k8 in range(c0, min(c0 + chunk, k), 8):
+            s = slice(k8, k8 + 8)
+            for wa, ea in terms:
+                part = (part.astype(np.float64)
+                        + ea[..., s].astype(np.float64)
+                        @ wa[s].astype(np.float64)).astype(np.float32)
+        total = (total + part).astype(np.float32)
+    return torch.from_numpy(total)
+
+
+def test_tf32_split_of_w():
+    """The host split of W: hi has 10 explicit mantissa bits (the low 13
+    bits of its float32 mantissa are zero), lo too, and hi + lo is W to
+    float32 rounding (within 2^-22 of each value); the split is cvt.rna's:
+    ties round away from zero."""
+    rng = np.random.default_rng(3)
+    w = (rng.standard_normal(4096) * 10.0 ** rng.uniform(-6, 1, 4096)
+         ).astype(np.float32)
+    hi, lo = kprobe.split_tf32(w)
+    for v in (hi, lo):
+        assert not (v.view(np.uint32) & np.uint32(0x1FFF)).any()
+    err = np.abs((hi.astype(np.float64) + lo) - w.astype(np.float64))
+    assert (err <= np.abs(w.astype(np.float64)) * 2.0 ** -22).all()
+    assert (np.abs(hi - w) <= np.abs(w) * 2.0 ** -11).all()
+    ties = np.array([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                     1.0 + 3 * 2.0 ** -11], np.float32)
+    assert kprobe.tf32_round(ties).tolist() == [
+        1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0 + 2.0 ** -9]
+
+
+def test_tf32_split_in_the_kernel_layout(plan):
+    """composed_wt_split: W^T's hi and lo halves in probe_toeplitz's tile
+    layout [m/64][kpad/4][64][4], zero past K, back to W^T exactly."""
+    for sub in (2048, 4096):
+        wt = kprobe.composed_wt(plan, sub).numpy()
+        wh, wl, kpad = kprobe.composed_wt_split(plan, sub)
+        m, k = wt.shape
+        assert kpad % 32 == 0 and kpad >= k + 32
+        assert wh.shape == (m // 64, kpad // 4, 64, 4)
+        back = [v.numpy().transpose(0, 2, 1, 3).reshape(m, kpad)
+                for v in (wh, wl)]
+        hi, lo = kprobe.split_tf32(wt)
+        assert np.array_equal(back[0][:, :k], hi)
+        assert np.array_equal(back[1][:, :k], lo)
+        assert not back[0][:, k:].any() and not back[1][:, k:].any()
+
+
+@pytest.mark.parametrize("sub", [2048, 4096])
+@pytest.mark.parametrize("variant,kt", kprobe.FORMS)
+def test_front_variant_3xtf32_matches_plain_and_pallas(plan, variant, kt, sub):
+    """The 3xTF32 product (mm_tf32) in place of the plain float32 one, over
+    two streaming calls from a random state: y within 3e-5 relative of the
+    plain probe and of the TPU kernel (pk.fused_front_packed at the same
+    sub_block, interpret mode), and one TF32 pass on the same input beyond
+    the bound, so that the check tells them apart."""
+    rng = np.random.default_rng(14)
+    h = plan.h.numpy().astype(np.float64)
+    wt = jnp.asarray(np.ascontiguousarray(pk.build_composed_w(
+        h, plan.factor, sub, plan.d_rows - (len(h) - 1)).T))
+    hi, lo = _tunes(C)
+    (jdc, jtl, jph), st = _state(variant, plan, rng)
+    jdc, jtl, jph = map(jnp.asarray, (jdc, jtl, jph))
+    for call in range(2):
+        x = _plane(rng)
+        jy = pk.fused_front_packed(
+            jnp.asarray(x), jdc, jph, jnp.asarray(hi, jnp.float32),
+            jnp.asarray(lo, jnp.float32), jtl, wt, plan.factor, plan.d_rows,
+            0.9999, sub_block=sub, interpret=True)
+        jdc, jtl, jph = jy[1:4]
+        xv = _variant_input(variant, x)
+        plain = kprobe.probe_front_reference(variant, plan, xv, st[0], st[2],
+                                             hi, lo, st[1], sub, kt)
+        out = kprobe.probe_front_reference(variant, plan, xv, st[0], st[2],
+                                           hi, lo, st[1], sub, kt,
+                                           product=mm_tf32)
+        y = _packed(variant, *out)[0]
+        assert rel_err(_packed(variant, *plain)[0], y) < RTOL
+        assert rel_err(jy[0], y) < RTOL
+        if call == 0:
+            one = kprobe.probe_front_reference(
+                variant, plan, xv, st[0], st[2], hi, lo, st[1], sub, kt,
+                product=functools.partial(mm_tf32, passes=1))
+            assert rel_err(_packed(variant, *plain)[0],
+                           _packed(variant, *one)[0]) > RTOL
+        st = (out[1], out[2], out[3])
