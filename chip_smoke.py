@@ -99,7 +99,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      shapes of am_64ch, am_16ch, am_256ch and am_nb_64ch's second scan:
      m and dc' equal to dc_scan_emulate bit for bit and within 3e-5 of
      max |m| of the plain version, then timed in turns with it, with its
-     per-launch device time and bound.
+     per-launch device time and bound;
+ 25. K1 at front_fir's 4-channel geometry, the factor-64 / 2007-tap
+     response of USB, LSB, CW and DIG (float32, int16, and NB1 + IQ balance
+     on an impulsive input whose threshold margin is asserted, no flag
+     mismatch) and the factor-32 / 1159-tap response of NONE (float32),
+     against its plain version at the headline width (64 channels, 32
+     blocks of 32768 rows), over two streaming calls; then each form timed
+     against its plain version with its per-launch device times, and
+     front_fir's plain version and bound;
+ 26. the narrowband receivers on the card against the same receivers on
+     the CPU (4 channels, 8192-frame blocks, dispatches of 3 then 9
+     blocks): USB (float32, int16 and NB1 + IQ entry), LSB, CWU, DIGL,
+     DSB, NONE, SAM with the analytic and with the rails sideband split
+     (SAM's audio within 2e-3 of its scale, its phases modulo 2 pi);
+ 27. the timed cells sam_64ch (bench.py:585: SAM, 64 channels, 32 blocks of
+     32768 frames, the bench signal) and usb_64ch (USB at the same shape,
+     AGC off, a 0.4 tone at carrier + 1.5 kHz: the audio's amplitude held to
+     0.4 sqrt(2) within 10 %), windows interleaved, each with a profile of
+     its dispatches.
 Each receiver phase sets every kernel's launch count to 0 just before it
 drives the receiver and reads the counts just after (front_means and
 front_dc_scan count their launches inside K1 as well; front_comp counts
@@ -259,6 +277,25 @@ def tone_snr_db(audio: np.ndarray, rate: float, f0: float = 1000.0) -> float:
                                                         1e-30)))
 
 
+def tone_amplitude(audio: np.ndarray, rate: float, f0: float) -> float:
+    """The amplitude of a least-squares fit of a tone at f0."""
+    t = np.arange(len(audio)) / rate
+    basis = np.stack([np.cos(2 * np.pi * f0 * t), np.sin(2 * np.pi * f0 * t),
+                      np.ones_like(t)], axis=1)
+    coef, *_ = np.linalg.lstsq(basis, audio, rcond=None)
+    return float(np.hypot(coef[0], coef[1]))
+
+
+def tone_plane(channels: int, n_rows: int, offset_hz: float, amp: float):
+    """[n_rows, 2C] float32 packed plane: a tone of amplitude amp at 250 kHz
+    + offset_hz on every channel (tests/test_chain.py:118's USB tone)."""
+    t = np.arange(n_rows) / FS
+    iq = amp * np.exp(2j * np.pi * (250_000.0 + offset_hz) * t)
+    return np.concatenate([np.repeat(iq.real[:, None], channels, 1),
+                           np.repeat(iq.imag[:, None], channels, 1)],
+                          axis=1).astype(np.float32)
+
+
 def time_cuda(torch, fn, reps: int) -> float:
     """Mean milliseconds per call of fn over reps calls, by CUDA events."""
     start = torch.cuda.Event(enable_timing=True)
@@ -316,16 +353,21 @@ def phase_front(torch, front, decimator) -> dict:
 
 
 def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
-                entry: str | None = None, wfm_opts: dict | None = None,
-                tag: str | None = None) -> None:
+                entry: str | None = None, rx_opts: dict | None = None,
+                tag: str | None = None) -> int:
     """Phases 3 (AM), 8 (FMS), 13 (AM with an entry option: "nb1_iq",
-    "i16" or "folded"), 17 (FMS at the hq geometry) and 18 (FMS with RDS):
-    the receiver on the card vs on the CPU."""
+    "i16" or "folded"), 17 (FMS at the hq geometry), 18 (FMS with RDS) and
+    26 (the narrowband modes): the receiver on the card vs on the CPU;
+    returns K1's launches over the compared dispatches.
+    SAM's audio is held to 2e-3 of its scale (the PLL-mode bound of
+    tests/test_chain_batched.py:114-118) and its carried phases modulo
+    2 pi."""
     wfm = mode.name == "FMS"
+    sam = mode.name == "SAM"
     tag = tag or (f"phase13 slice {entry}" if entry else
                   "phase8 WFM slice" if wfm else "phase3 slice")
-    wfm_opts = wfm_opts or {}
-    use_rds = bool(wfm_opts.get("rds"))
+    rx_opts = rx_opts or {}
+    use_rds = bool(rx_opts.get("rds"))
     c, n = SLICE["channels"], SLICE["frames"]
     dispatches = SLICE["dispatches"]
     if use_rds:            # RDS needs whole symbols per block: N = 32768
@@ -337,7 +379,7 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
             if entry == "nb1_iq" else {})
     cfg = receiver.ReceiverConfig(sample_rate=FS, frames_per_buffer=n,
                                   channels=c, mode=mode, agc_stride=16,
-                                  **opts, **wfm_opts)
+                                  **opts, **rx_opts)
     rx_cpu = receiver.Receiver(cfg, "cpu")
     rx_gpu = receiver.Receiver(cfg, "cuda")
     rng = np.random.default_rng(5 if wfm else 2)
@@ -370,6 +412,7 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
     st_c, _ = rx_cpu.step_many(rx_cpu.init_state(), params_c,
                                torch.from_numpy(plane(n)))
     st_g = convert.state_from_numpy(rx_gpu, convert.state_to_numpy(st_c))
+    k1_launches = 0
     for k in dispatches:
         x = torch.from_numpy(entry_plane(plane(k * n)))
         if entry == "nb1_iq":
@@ -383,6 +426,7 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
         torch.cuda.synchronize()
         launches = (front.fused_front.launches, wfm_tail.wfm_tail.launches,
                     front.chunk_means.launches)
+        k1_launches += launches[0]
         if launches != (1, 1 if wfm else 0, 1):
             raise RuntimeError(f"{tag}: launches (K1, K2, front_means) = "
                                f"{launches}")
@@ -402,18 +446,25 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
             log(f"{tag} K={k}: rds_soft {tuple(out_g['rds_soft'].shape)} "
                 f"relative {d_soft:.3g} (<= {SOFT_RTOL}) of scale "
                 f"{scale:.4g}, rds_timing equal {same['rds_timing']}")
-        d_state = max(float(np.abs(a.astype(np.complex128)
-                                   - b.astype(np.complex128)).max())
-                      for a, b in zip(convert.state_to_numpy(st_g),
-                                      convert.state_to_numpy(st_c)) if a.size)
-        log(f"{tag} K={k}: audio {d_audio:.3g} (<= 2e-4), dB "
+        d_state = 0.0
+        for a, b in zip(convert.state_to_numpy(st_g),
+                        convert.state_to_numpy(st_c)):
+            if a.size:
+                d = np.abs(a.astype(np.complex128) - b.astype(np.complex128))
+                if sam:                     # phases compared modulo 2 pi
+                    d = np.minimum(d, np.abs(d - 2 * np.pi))
+                d_state = max(d_state, float(d.max()))
+        audio_tol = (2e-3 * max(float(out_c["audio"].abs().max()), 1e-6)
+                     if sam else 2e-4)
+        log(f"{tag} K={k}: audio {d_audio:.3g} (<= {audio_tol:.3g}), dB "
             + " ".join(f"{kk}={v:.3g}" for kk, v in d_db.items())
             + f" (<= 0.1), equal {same}, state {d_state:.3g} (<= 1e-4)")
-        if not (d_audio <= 2e-4 and max(d_db.values()) <= 0.1
+        if not (d_audio <= audio_tol and max(d_db.values()) <= 0.1
                 and all(same.values()) and d_state <= 1e-4):
             raise RuntimeError(f"{tag}: card disagrees with the CPU at K={k}")
     log(f"{tag.split()[0]} ok: card slice == CPU slice"
         + (f" ({entry})" if entry else ""))
+    return k1_launches
 
 
 def assert_margin(fl, nb, tag: str) -> None:
@@ -427,9 +478,13 @@ def assert_margin(fl, nb, tag: str) -> None:
 
 
 def make_cell(torch, receiver, front, mode, name: str, channels: int,
-              blocks: int, entry: str = "f32", opts: dict | None = None):
+              blocks: int, entry: str = "f32", opts: dict | None = None,
+              tone: tuple | None = None):
     """One timed cell: a receiver on the card and its dispatch plane (one
-    bench signal block repeated, as float32, int16 or folded by 4)."""
+    bench signal block repeated, as float32, int16 or folded by 4).  tone =
+    (offset Hz, amplitude, audio Hz, audio amplitude): the block is that
+    tone above the 250 kHz carrier instead, and the cell's audio is held to
+    that frequency and amplitude (within 10 %)."""
     n = HEADLINE["frames"]
     wfm = mode.name == "FMS"
     cfg = receiver.ReceiverConfig(sample_rate=FS, frames_per_buffer=n,
@@ -437,7 +492,8 @@ def make_cell(torch, receiver, front, mode, name: str, channels: int,
                                   agc_stride=HEADLINE["agc_stride"],
                                   **(opts or {}))
     rx = receiver.Receiver(cfg, "cuda")
-    block = (wfm_plane if wfm else am_plane)(channels, n, None)
+    block = (tone_plane(channels, n, *tone[:2]) if tone else
+             (wfm_plane if wfm else am_plane)(channels, n, None))
     if entry == "i16":
         block = to_i16(block)
     if entry == "fold4":       # bench.py:130-146: G blocks side by side
@@ -445,7 +501,7 @@ def make_cell(torch, receiver, front, mode, name: str, channels: int,
         iq = iq.cuda().repeat(blocks // 4, 1).contiguous()
     else:
         iq = torch.from_numpy(block).cuda().repeat(blocks, 1).contiguous()
-    return {"name": name, "rx": rx, "cfg": cfg, "wfm": wfm,
+    return {"name": name, "rx": rx, "cfg": cfg, "wfm": wfm, "tone": tone,
             "params": rx.default_params(250_000.0), "iq": iq,
             "blocks": blocks, "channels": channels, "state": rx.init_state(),
             "out": None, "i": 0, "launches": [0, 0, 0, 0, 0], "windows": []}
@@ -531,13 +587,20 @@ def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
             log(f"{tag} {cell['name']} rds_soft {tuple(soft.shape)} finite, "
                 f"{n_sym} symbols per block per channel")
         tone = audio[:, 0, 0, :] if wfm else audio[:, 0, :]  # WFM: L channel
-        snr = tone_snr_db(tone.reshape(-1).double().cpu().numpy(),
-                          cell["cfg"].audio_rate)
-        log(f"{tag} {cell['name']} tone SNR {snr:.2f} dB (>= {TONE_SNR_DB}), "
-            f"S-meter SNR {float(out['smeter']['snr_db'][-1, 0]):.2f} dB")
+        tone = tone.reshape(-1).double().cpu().numpy()
+        f0, want = (cell["tone"][2:] if cell["tone"] else (1000.0, None))
+        snr = tone_snr_db(tone, cell["cfg"].audio_rate, f0)
+        amp = tone_amplitude(tone, cell["cfg"].audio_rate, f0)
+        log(f"{tag} {cell['name']} {f0:g} Hz tone SNR {snr:.2f} dB (>= "
+            f"{TONE_SNR_DB}), amplitude {amp:.5f}"
+            + (f" (want {want:.5f} within 10 %)" if want else "")
+            + f", S-meter SNR {float(out['smeter']['snr_db'][-1, 0]):.2f} dB")
         if not snr >= TONE_SNR_DB:
             raise RuntimeError(f"{tag} {cell['name']}: tone SNR below its "
                                f"bound")
+        if want and not abs(amp - want) <= 0.1 * want:
+            raise RuntimeError(f"{tag} {cell['name']}: tone amplitude "
+                               f"{amp:.5f}, want {want:.5f}")
 
 
 def phase_headline(torch, receiver, front, wfm_tail, mode) -> dict:
@@ -894,11 +957,12 @@ def fir_launch_ms(times: dict) -> float:
                 if k.startswith("front_fir"))
 
 
-def check_options_form(torch, front, plan, args, kw, tag: str) -> dict:
+def check_options_form(torch, front, plan, args, kw, tag: str,
+                       keep: bool = False) -> dict:
     """One K1 call and one plain call on the same inputs: every output
     within FRONT_RTOL relative (the phase in absolute), and with the
     blanker on, its margin asserted first and no blanked position or
-    nb_tail' flag that differs."""
+    nb_tail' flag that differs.  keep: also return K1's outputs ("out")."""
     masks = [{}, {}]
     if kw.get("nb"):
         x, dc = args[0], args[1]
@@ -928,7 +992,8 @@ def check_options_form(torch, front, plan, args, kw, tag: str) -> dict:
         + (f"; flag mismatches {mism}" if kw.get("nb") else ""))
     if not (worst <= FRONT_RTOL and mism == 0):
         raise RuntimeError(f"{tag}: K1 disagrees with its plain version")
-    return {"worst": worst, "max_abs_err": max_abs}
+    return {"worst": worst, "max_abs_err": max_abs,
+            **({"out": out_k} if keep else {})}
 
 
 def phase_options_time(torch, front, fr) -> dict:
@@ -983,26 +1048,38 @@ def phase_options_time(torch, front, fr) -> dict:
     return res
 
 
-def phase_fir_plain(torch, front, plan, args, n: int) -> dict:
-    """front_fir's plain version on the inputs of a phase 15 cell (base
-    form): the DC removal from the chunk means, the mix and the composed
-    FIR (ops/front.py dc_iq_reference, mix_reference, fir_reference; the
-    chunk means are front_means' work and precomputed), timed with CUDA
-    events; and front_fir's bound on those inputs."""
+def phase_fir_plain(torch, front, plan, args, n: int, kw: dict | None = None,
+                    tag: str = "phase15") -> dict:
+    """front_fir's plain version on the inputs of a phase 15 (or 25) cell:
+    the DC removal from the chunk means, the IQ balance and the blanking
+    (with those options in kw), the mix and the composed FIR (ops/front.py
+    dc_iq_reference, nb_flags, mix_reference, fir_reference; the chunk
+    means and the blanker's averages are front_means' and front_nb_means'
+    work and precomputed), timed with CUDA events; and front_fir's bound
+    on those inputs."""
     from pebblesdr_tpu_torch.utils import roofline
     x, dc, phase0, f_hi, f_lo, tail = args
+    kw = kw or {}
     c = x.shape[1] // 2
-    means = front.chunk_means_reference(x)[0]
+    xf = front.dequantize(x)
+    means = front.chunk_means_reference(xf)[0]
+    iq = (kw.get("iq_gain"), kw.get("iq_phase"))
+    flags = None
+    if kw.get("nb"):
+        _, z = front.dc_iq_reference(plan, xf, dc, *iq, means=means)
+        flags = front.nb_flags(z, kw["nb"], kw["nb_avg"], kw["nb_tail"])
+        del z
 
     def plain():
-        _, z = front.dc_iq_reference(plan, front.dequantize(x), dc,
-                                     means=means)
-        return front.fir_reference(
-            plan, front.mix_reference(z, phase0, f_hi, f_lo), tail)[0]
+        _, z = front.dc_iq_reference(plan, xf, dc, *iq, means=means)
+        u = front.mix_reference(z, phase0, f_hi, f_lo)
+        if flags is not None:
+            u = torch.where(flags.widened, 0.0, u)
+        return front.fir_reference(plan, u, tail)[0]
 
     t, runs = time_turns(torch, {"plain": plain})
     b = roofline.fir_bound(plan, x.shape[0], c, x.element_size())
-    log(f"phase15 front_fir's plain version: {t['plain']:.4f} ms (runs "
+    log(f"{tag} front_fir's plain version: {t['plain']:.4f} ms (runs "
         f"{runs['plain']}); front_fir bound {b['bound_ms']:.4f} ms "
         f"({b['bound_by']})")
     return {"fir_plain_ms": t["plain"], "fir_bound": b}
@@ -1673,6 +1750,135 @@ def phase_dc_scan(torch, front) -> dict:
     return res
 
 
+# phase 25's forms of K1 on front_fir's 4-channel items: (name, protected
+# bandwidth of the plan, int16 entry, blanker + IQ balance)
+NARROW_FORMS = (("USB plan float32", 20_000.0, False, False),
+                ("USB plan int16", 20_000.0, True, False),
+                ("USB plan NB1 + IQ", 20_000.0, False, True),
+                ("NONE plan float32", 48_000.0, False, False))
+# phase 26's narrowband receivers: (mode name, receiver options, entry);
+# the USB int16 and NB1 + IQ slices run phase 25's other USB-plan forms
+NARROW_SLICES = (("USB", {}, None), ("USB", {}, "i16"),
+                 ("USB", {}, "nb1_iq"), ("LSB", {}, None), ("CWU", {}, None),
+                 ("DIGL", {}, None), ("DSB", {}, None), ("NONE", {}, None),
+                 ("SAM", dict(sam_sideband="analytic"), None),
+                 ("SAM", dict(sam_sideband="rails"), None))
+# phase 27's cells: (name, mode, options, tone): sam_64ch is bench.py:585
+# (SAM, the bench signal); usb_64ch is the port's own: tests/test_chain.py
+# :111-125's USB tone (0.4 at carrier + 1.5 kHz, AGC off; the audio's
+# amplitude is 0.4 sqrt(2)) at the headline shape
+NARROW_CELLS = (("sam_64ch", "SAM", {}, None),
+                ("usb_64ch", "USB", dict(agc_mode="off"),
+                 (1500.0, 0.4, 1500.0, 0.4 * np.sqrt(2.0))))
+
+
+def phase_front_narrow(torch, front, decimator) -> dict:
+    """Phase 25: K1 at front_fir's 4-channel geometry (the factor-64 /
+    2007-tap and factor-32 / 1159-tap responses) against its plain version
+    at the headline width (64 channels, 32 blocks of 32768 rows), two
+    streaming calls each; with the blanker on an impulsive input whose
+    threshold margin is asserted first, no blanked position or nb_tail'
+    flag differing.  Then each form timed against its plain version, with
+    its per-launch device times, front_fir's plain version and bound."""
+    from pebblesdr_tpu_torch.ops.mixer import split_freq
+    from pebblesdr_tpu_torch.utils import roofline
+    c, n, k = HEADLINE["channels"], HEADLINE["frames"], HEADLINE["blocks"]
+    zeros = dict(dtype=torch.float32, device="cuda")
+    iq = tuple(torch.tensor(v, device="cuda") for v in IQ)
+    splits = [split_freq(250_000.0 + 1500.0 * i, FS) for i in range(c)]
+    f_hi, f_lo = (torch.tensor(np.array([s[j] for s in splits]),
+                               device="cuda") for j in (0, 1))
+    rng = np.random.default_rng(25)
+    res = {}
+    for form, protect, i16, opts in NARROW_FORMS:
+        p = decimator.build_plan(FS, protect)
+        plan = front.FrontPlan.make(decimator.compose_response(p), p.factor,
+                                    "cuda")
+        lay = front.fir_march_layout(plan.h.numel(), plan.factor, opts,
+                                     2 if i16 else 4)
+        log(f"phase25 {form}: factor {plan.factor}, {plan.h.numel()} taps, "
+            f"front_fir items of {lay['cg']} channels, {lay['dp']} taps per "
+            f"branch, steps of {lay['step_rows']} rows, {lay['smem']} bytes "
+            f"of shared memory")
+        kw = dict(n_block=n, raw_rows=2048)
+        if opts:
+            kw.update(iq_gain=iq[0], iq_phase=iq[1], nb=NB1)
+        # the carried state (dc, phase, tail, nb_avg, nb_tail): the
+        # kernel's after each call, into both versions of the next
+        st = (torch.zeros(1, 2 * c, **zeros), torch.zeros(c, **zeros),
+              torch.zeros(plan.d_rows, 2 * c, **zeros),
+              torch.zeros(1, 2 * c, **zeros), torch.zeros(16, 2 * c, **zeros))
+        worst = max_abs = 0.0
+        for call in range(2):
+            x = am_plane(c, k * n, rng, noise=0.01) + 0.05 * (call + 1)
+            if opts:
+                x = impulsive(x, n)
+            x = torch.from_numpy(to_i16(x, 16384.0) if i16 else x).cuda()
+            args = (x, st[0], st[1], f_hi, f_lo, st[2])
+            tkw = dict(kw, nb_avg=st[3], nb_tail=st[4]) if opts else kw
+            check = check_options_form(torch, front, plan, args, tkw,
+                                       f"phase25 K1 {form} call {call}",
+                                       keep=True)
+            worst, max_abs = (max(worst, check["worst"]),
+                              max(max_abs, check["max_abs_err"]))
+            o = check.pop("out")
+            st = (o[1], o[3], o[2]) + ((o[5], o[6]) if opts else st[3:])
+            del o
+        torch.cuda.synchronize()
+
+        def kernel():
+            return front.fused_front(plan, *args, **tkw)
+
+        ms, plain_ms, t = time_pair(
+            torch, kernel,
+            lambda: front.fused_front_reference(plan, *args, **tkw))
+        lt = kernel_times(torch, kernel, reps=10)
+        b = roofline.k1_bound(plan, k * n, c, 2 if i16 else 4, n, 2048,
+                              nb=opts, iq=opts)
+        log(f"phase25 K1 {form}: {ms:.4f} ms vs plain {plain_ms:.4f} ms per "
+            f"dispatch (runs kernel {t['kernel']}, plain {t['plain']}); "
+            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}); per launch "
+            f"(ms): " + breakdown_text(lt))
+        res[form] = {"ms": ms, "plain_ms": plain_ms, **b, "worst": worst,
+                     "max_abs_err": max_abs, "fir_ms": fir_launch_ms(lt),
+                     "plan": plan}
+        res[form].update(phase_fir_plain(torch, front, plan, args, n, tkw,
+                                         f"phase25 {form}"))
+        f = res[form]
+        log(f"phase25 front_fir {form}: {f['fir_ms']:.4f} ms per launch vs "
+            f"its plain version {f['fir_plain_ms']:.4f} ms, bound "
+            f"{f['fir_bound']['bound_ms']:.4f} ms "
+            f"({f['fir_bound']['bound_by']}; "
+            f"{f['fir_bound']['bound_ms'] / f['fir_ms']:.1%} of it)")
+        del args, x, st
+        torch.cuda.empty_cache()
+    log(f"phase25 ok: K1 at the 4-channel geometry == plain within "
+        f"{FRONT_RTOL} (worst {max(v['worst'] for v in res.values()):.3g}), "
+        f"no flag mismatch")
+    return res
+
+
+def phase_narrow_cells(torch, receiver, front, wfm_tail, DemodMode) -> dict:
+    """Phase 27: the narrowband cells sam_64ch and usb_64ch, windows
+    interleaved, each with a profile of its dispatches and a tone check of
+    its audio."""
+    cells = [make_cell(torch, receiver, front, DemodMode[mode], name,
+                       HEADLINE["channels"], HEADLINE["blocks"], opts=opts,
+                       tone=tone)
+             for name, mode, opts, tone in NARROW_CELLS]
+    time_cells(torch, front, wfm_tail, cells, "phase27")
+    done = {}
+    for cell in cells:
+        prof = dispatch_profile(torch, cell, "phase27")
+        done[cell["name"]] = {key: cell[key] for key in (
+            "launches", "block_ms", "msps", "realtime", "peak_gib")}
+        done[cell["name"]].update(prof)
+    del cells
+    torch.cuda.empty_cache()
+    return done
+
+
+
 def main() -> int:
     import torch
 
@@ -1724,17 +1930,25 @@ def main() -> int:
     otimes = phase_options_time(torch, front, fr)
     hq_fr = phase_front_hq(torch, front, decimator, wfm_mod)
     phase_slice(torch, receiver, convert, front, wfm_tail, DemodMode.FMS,
-                wfm_opts=dict(wfm_hq=True), tag="phase17 hq slice")
+                rx_opts=dict(wfm_hq=True), tag="phase17 hq slice")
     for opts, tag in ((dict(rds=True), "phase18 RDS slice"),
                       (dict(rds=True, wfm_hq=True), "phase18 hq+RDS slice")):
         phase_slice(torch, receiver, convert, front, wfm_tail, DemodMode.FMS,
-                    wfm_opts=opts, tag=tag)
+                    rx_opts=opts, tag=tag)
     phase_rds_decode(torch, receiver, DemodMode)
     phase_separation(torch, receiver, DemodMode, hq=True)
     wcells = phase_wfm_cells(torch, receiver, front, wfm_tail, DemodMode)
     probes = phase_probes(torch, front, kprobe, kbench2, receiver, DemodMode)
     means = phase_means(torch, front)
     scans = phase_dc_scan(torch, front)
+    narrow = phase_front_narrow(torch, front, decimator)
+    slices = {}
+    for name, opts, entry in NARROW_SLICES:
+        tag = " ".join([name] + list(opts.values()) + [entry or ""]).strip()
+        slices[tag] = phase_slice(torch, receiver, convert, front, wfm_tail,
+                                  DemodMode[name], entry, rx_opts=opts,
+                                  tag=f"phase26 {tag} slice")
+    ncells = phase_narrow_cells(torch, receiver, front, wfm_tail, DemodMode)
 
     c, n, k = HEADLINE["channels"], HEADLINE["frames"], HEADLINE["blocks"]
     t = n * k
@@ -1823,6 +2037,25 @@ def main() -> int:
          **{key: scans["am_64ch"][key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None},
+    ] + [
+        # front_fir's 4-channel geometry, one entry per form: launches from
+        # the receiver run that takes it (the USB plan in float32: the
+        # usb_64ch cell, phase 27; in int16 and with NB1 + IQ, and the
+        # NONE plan: their phase 26 slices), its device time per launch,
+        # its plain version and bound and the error of y at the headline
+        # width (phase 25)
+        {"name": f"front_fir ({form}: 4-channel items)", "route": "cuda",
+         "source": front.SOURCE,
+         "replaces": "pebblesdr_tpu/ops/pallas_kernels.py:315",
+         "launches": launches, "max_abs_err": narrow[form]["max_abs_err"],
+         "ms": narrow[form]["fir_ms"],
+         "plain_ms": narrow[form]["fir_plain_ms"],
+         **narrow[form]["fir_bound"], "library_ms": None}
+        for form, launches in (
+            ("USB plan float32", ncells["usb_64ch"]["launches"][0]),
+            ("USB plan int16", slices["USB i16"]),
+            ("USB plan NB1 + IQ", slices["USB nb1_iq"]),
+            ("NONE plan float32", slices["NONE"]))
     ] + [
         # the K1 probes: the launches of the bench's full table (phase 22),
         # the times at its shape (the packed floor at am_64ch's)

@@ -1,8 +1,9 @@
-"""The receive chain, AM and WFM stereo, as one batched graph per K-block
-dispatch.
+"""The receive chain, the narrowband modes and WFM stereo, as one batched
+graph per K-block dispatch.
 
 Port of pebblesdr_tpu/chain/receiver.py for the batched ``step_many`` path
-(``_step_many_impl`` -> ``_step_many_batched`` -> ``_tail_many``), AM and
+(``_step_many_impl`` -> ``_step_many_batched`` -> ``_tail_many``), its
+narrowband (AM, SAM, USB, LSB, CWU, CWL, DIGU, DIGL, DSB, NONE) and
 FM-stereo branches:
 
   fused front (DC blocker, optional static IQ balance and NB1/NB2 noise
@@ -11,7 +12,10 @@ FM-stereo branches:
   -> full-rate display spectrum per block (closed-form EWMA over blocks)
   -> zoomed demod-rate power per block -> S-meter -> squelch with 3 dB
      hysteresis
-  -> AM: FastFIR bandpass -> parallel AGC -> AM demod -> resampler
+  -> narrowband: FastFIR bandpass -> parallel AGC -> the mode's demod (AM
+     envelope; SAM's aimed carrier loop and sideband split, demod/sam.py;
+     USB/CWU/DIGU I+Q, LSB/CWL/DIGL I-Q, DSB 2I, demod/ssb.py; NONE the
+     real part) -> resampler
      WFM: open pilot -> fused stereo tail (ops/wfm_tail.py) -> lock gate ->
      L/R -> de-emphasis (demod/wfm.py) -> stereo resampler; with the RDS
      tap also the scan-free RDS subchain (demod/rds.py) -> soft symbols
@@ -21,6 +25,12 @@ The WFM hq geometry (wfm_hq) protects the full +-200 kHz: the front
 decimates by 4 to 512 kHz, discriminates there and decimates the composite
 by 2 back to the 256 kHz tail rate inside the front end (comp_taps).
 
+Not ported (the constructor raises ValueError naming it): the modes FMN and
+FMM, WFM mono, the "scan" RDS carrier, adaptive IQ balance, the AGC hang
+mode, and SAM on demod blocks that are not a multiple of 128 samples (the
+JAX package runs those on its per-block scan path with the per-sample PLL,
+pll_run).
+
 Entry planes are float32 or int16 (the ADC's native container, read as
 x * 2^-15), unfolded [K*N, 2C] or time-folded [K*N/G, 2GC] (the TPU feeders'
 layout, pallas_kernels.fold_plane_np; unfolded on entry with one copy).
@@ -28,8 +38,9 @@ layout, pallas_kernels.fold_plane_np; unfolded on entry with one copy).
 State is explicit (ReceiverState), with the fields and shapes of the JAX
 pytree in its fused-front layout: ``dc`` [1, 2C], ``decim`` [d_rows, 2C],
 ``nb`` (avg [1, 2C], spike tail [16, 2C]) with the noise blanker on;
-for WFM the demod state is the fused-tail WFMState and the FastFIR and AGC
-states ride along untouched, as in the JAX package.  The Receiver is built
+``demod`` is AMState, SAMState, or None for the stateless modes (SSB, CW,
+DIG, DSB, NONE); for WFM the demod state is the fused-tail WFMState and
+the FastFIR and AGC states ride along untouched, as in the JAX package.  The Receiver is built
 for one device and runs its whole graph there; on a CUDA device the front
 end and the stereo tail are hand-written CUDA kernels.
 """
@@ -46,11 +57,19 @@ import torch
 from pebblesdr_tpu_torch.core import db as dbu
 from pebblesdr_tpu_torch.demod import am as am_mod
 from pebblesdr_tpu_torch.demod import rds as rds_mod
+from pebblesdr_tpu_torch.demod import sam as sam_mod
+from pebblesdr_tpu_torch.demod import ssb as ssb_mod
 from pebblesdr_tpu_torch.demod import wfm as wfm_mod
 from pebblesdr_tpu_torch.demod.modes import MODE_INFO, DemodMode
 from pebblesdr_tpu_torch.ops import (agc, decimator, fastfir, front, iir,
                                      mixer, resampler, signalstrength,
                                      spectrum)
+
+
+# the modes the port's Receiver runs
+PORTED_MODES = (DemodMode.AM, DemodMode.SAM, DemodMode.USB, DemodMode.LSB,
+                DemodMode.CWU, DemodMode.CWL, DemodMode.DIGU, DemodMode.DIGL,
+                DemodMode.DSB, DemodMode.NONE, DemodMode.FMS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +92,10 @@ class ReceiverConfig:
     wfm_hq: bool = False                  # WFM hq geometry: discriminate at
     #                                       ~512 kHz (the reference's), then
     #                                       decimate the composite by 2
+    sam_sideband: str = "analytic"        # SAM sideband split: "analytic"
+    #                                       (complex Hilbert bandpass) or
+    #                                       "rails" (the reference's per-rail
+    #                                       phasing)
     db_offset: float = 0.0                # display calibration offset
     enable_noise_blanker: bool | str = False  # True: NB1 (blank);
     #                                       "average": NB2 (RMS substitution)
@@ -118,9 +141,10 @@ class Receiver:
     """Build once per configuration and device; ``step_many`` is the hot loop."""
 
     def __init__(self, cfg: ReceiverConfig, device: str | torch.device):
-        if cfg.mode not in (DemodMode.AM, DemodMode.FMS):
+        if cfg.mode not in PORTED_MODES:
             raise ValueError(f"mode {cfg.mode.name} is not ported yet; the "
-                             f"PyTorch receiver runs AM and FMS")
+                             f"PyTorch receiver runs "
+                             f"{', '.join(m.name for m in PORTED_MODES)}")
         if cfg.enable_iq_balance == "auto":
             raise ValueError("enable_iq_balance='auto' (the adaptive LMS "
                              "image-reject loop) is not ported yet; use "
@@ -155,7 +179,7 @@ class Receiver:
         self.demod_rate = int(self.plan.rate_out)
         self.blk = cfg.frames_per_buffer // self.plan.factor
 
-        self.am_cfg = self.wfm_cfg = self.rds_cfg = None
+        self.am_cfg = self.sam_cfg = self.wfm_cfg = self.rds_cfg = None
         if wfm:
             # hq: the composite (< 61 kHz wide) decimates by 2 right after
             # the discriminator, so the stereo tail runs at ~256 kHz
@@ -185,8 +209,14 @@ class Receiver:
                     tail_rate, self.wfm_tail_blk, alg=cfg.rds_alg)
                 rds_mod.check_ported(self.rds_cfg)
         else:
-            self.am_cfg = am_mod.AMConfig.make(self.demod_rate,
-                                               info.default_filter)
+            if cfg.mode == DemodMode.AM:
+                self.am_cfg = am_mod.AMConfig.make(self.demod_rate,
+                                                   info.default_filter)
+            elif cfg.mode == DemodMode.SAM:
+                self.sam_cfg = sam_mod.SAMConfig.make(
+                    self.demod_rate, info.default_filter,
+                    sideband=cfg.sam_sideband)
+                sam_mod.check_ported(self.sam_cfg, self.blk)
             audio_src_rate, audio_blk = self.demod_rate, self.blk
         self.rs_plan = resampler.plan(audio_src_rate, cfg.audio_rate, audio_blk)
         self.audio_blk = self.rs_plan.n_out
@@ -217,7 +247,11 @@ class Receiver:
             demod = wfm_mod.wfm_init(self.wfm_cfg, c, dev)
             resamp = resampler.state_init(self.rs_plan, 2 * c, dev)
         else:
-            demod = am_mod.am_init(self.am_cfg, c, dev)
+            demod = None                 # SSB/CW/DIG/DSB/NONE: stateless
+            if self.am_cfg is not None:
+                demod = am_mod.am_init(self.am_cfg, c, dev)
+            elif self.sam_cfg is not None:
+                demod = sam_mod.sam_init(self.sam_cfg, c, dev)
             resamp = resampler.state_init(self.rs_plan, c, dev)
         return ReceiverState(
             mixer=mixer.mixer_init(c, dev),
@@ -440,7 +474,7 @@ class Receiver:
         else:
             x_cat = torch.complex(y_pk[:, :c].T, y_pk[:, c:].T)  # [C, K*blk]
             xz = x_cat.reshape(c, k, self.blk)[:, :, self.blk - self.zoom_bins:]
-            demod = functools.partial(self._demod_am, x_cat=x_cat)
+            demod = functools.partial(self._demod_narrow, x_cat=x_cat)
         tail_st, out = self._tail_many(state, params, k, raw_c, xz, spectra,
                                        demod)
         new_state = ReceiverState(
@@ -524,14 +558,29 @@ class Receiver:
             rds=state.rds, squelch=squelch_open[-1], ctcss=state.ctcss)
         return {**tail_st, **demod_st}, out
 
-    def _demod_am(self, state: ReceiverState, params: RxParams, k: int,
-                  x_cat: torch.Tensor):
-        """FastFIR -> AGC -> AM -> resampler on x_cat [C, K*blk]."""
+    def _demod_narrow(self, state: ReceiverState, params: RxParams, k: int,
+                      x_cat: torch.Tensor):
+        """FastFIR -> AGC -> the mode's demod -> resampler on x_cat
+        [C, K*blk]."""
         c = self.cfg.channels
+        mode = self.cfg.mode
         mask = torch.complex(params.bp_mask[0], params.bp_mask[1])
         ff_state, xt = fastfir.apply_many(state.fastfir, x_cat, mask, self.blk)
         agc_state, xt = agc.agc_apply(self.agc_cfg, state.agc, xt)
-        demod_state, audio = am_mod.am_demod(self.am_cfg, state.demod, xt)
+        demod_state = state.demod
+        if mode == DemodMode.AM:
+            demod_state, audio = am_mod.am_demod(self.am_cfg, state.demod, xt)
+        elif mode == DemodMode.SAM:
+            demod_state, audio = sam_mod.sam_demod(self.sam_cfg, state.demod,
+                                                   xt, n_block=self.blk)
+        elif mode in (DemodMode.USB, DemodMode.CWU, DemodMode.DIGU):
+            audio = ssb_mod.usb_demod(xt)
+        elif mode in (DemodMode.LSB, DemodMode.CWL, DemodMode.DIGL):
+            audio = ssb_mod.lsb_demod(xt)
+        elif mode == DemodMode.DSB:
+            audio = ssb_mod.dsb_demod(xt)
+        else:                                              # NONE
+            audio = xt.real
         resamp_state, audio = resampler.apply_many(self.rs_plan, state.resamp,
                                                    audio)
         audio = audio.reshape(c, k, audio.shape[-1] // k).transpose(0, 1)

@@ -86,6 +86,15 @@
 //      its causal dilation once per row, from a flag ring that carries the
 //      15 words before each unit (the prologue's first words come from the
 //      plane or the carried flags).
+//      Long composed responses (factor 64 / 2007 taps for SSB, CW and DIG,
+//      factor 32 / 1159 taps for NONE) keep F (DP - 1) = 1984 or 1248 rows
+//      of history: 8 channels' ring of them and the stages of a step do
+//      not fit the block's 227 KB.  There a work item is 4 channels (8
+//      lanes; march_cg picks 8 wherever that layout fits, so the AM, WFM
+//      and hq forms keep their geometry and bits): the ring halves, the
+//      block's 64 groups of 8 lanes each run one branch at F = 64 (the step
+//      stays 12 outputs, 768 rows), and an int16 plane's stage rows are the
+//      16-byte box of 8 channels, of which the item reads its 4.
 //   4. K1's carried history, written by front_fir (no launch of its own):
 //      tail' (the last d_rows post-mix, post-blank rows) and with the
 //      blanker nb_tail' (the last 16 rows of undilated flags), element by
@@ -731,19 +740,41 @@ constexpr int kMarchPersistent = 1;      // 0: one block per work item
 constexpr int kMarchMaxBox = 256;        // rows of a tensor-map box at most
 constexpr int kHalves = 2;               // a block is two sets of kGroups
 constexpr int kThreads = kLanes * kGroups * kHalves;
-constexpr int kFirGroups = kGroups * kHalves;
-constexpr int kMixRows = kThreads / kCg; // rows one pass of the block mixes
 
-// The FIR's map of a block's 32 thread groups: `busy` = min(F, 16) groups
-// make one part of kPartM outputs, group b of a part summing branches b,
-// b + 16, ... < F into one accumulator per output (the order of the tiled
-// pass before it, so that y keeps its bits), and parts = 32 / busy parts
-// make a step of km = kPartM parts outputs: no group idles at F = 8, 4, 2.
-__host__ __device__ inline int march_busy(int F) {
-  return F < kGroups ? F : kGroups;
+// Channels per FIR work item: kCg where the block's layout fits, else
+// kCgNarrow (the long composed responses, F (DP - 1) rows of history that
+// 8 channels' ring of mixed rows cannot hold in 227 KB: factor 64 / 2007
+// taps, factor 32 / 1159 taps).  A narrow item's 8 lanes make the block
+// 64 thread groups of 8 lanes.
+constexpr int kCgNarrow = 4;
+
+// The FIR's map of a block's thread groups (2 cg lanes each: 32 at cg = 8,
+// 64 at cg = 4): `busy` = min(F, busy_max) groups make one part of kPartM
+// outputs, group b of a part summing branches b, b + busy_max, ... < F
+// into one accumulator per output (at cg = 8 the order of the tiled pass
+// before it, so that y keeps its bits), and parts = groups / busy parts
+// make a step of km = kPartM parts outputs: no group idles at F = 8, 4, 2
+// (cg = 8) or F = 64, 32 (cg = 4).  busy_max is 16 at cg = 8 (two
+// branches a group at F = 32) and every group at cg = 4 (one branch a
+// group at F = 64, so the step stays 12 outputs, 768 rows).
+__host__ __device__ constexpr int march_groups(int cg) {
+  return kThreads / (2 * cg);
 }
-__host__ __device__ inline int march_parts(int F) {
-  return kFirGroups / march_busy(F);
+__host__ __device__ constexpr int march_busy_max(int cg) {
+  return cg == kCg ? kGroups : march_groups(cg);
+}
+__host__ __device__ inline int march_busy(int F, int cg = kCg) {
+  return F < march_busy_max(cg) ? F : march_busy_max(cg);
+}
+__host__ __device__ inline int march_parts(int F, int cg = kCg) {
+  return march_groups(cg) / march_busy(F, cg);
+}
+
+// Lanes of a stage row (the tensor-map box's width): the item's cg
+// channels, or at cg = 4 in int16 the 8 channels of the 16 bytes a box
+// must span (the item reads its 4; the neighbouring item the other 4).
+__host__ __device__ constexpr int march_box_lanes(int cg, int elem) {
+  return cg * elem >= 16 ? cg : 16 / elem;
 }
 
 // Taps per polyphase branch that front_fir is instantiated for (ops/front.py
@@ -761,39 +792,43 @@ __host__ __device__ inline int march_branch_taps(int ntaps, int F) {
 __host__ __device__ inline int align128(int v) { return (v + 127) & ~127; }
 
 // front_fir's geometry and shared-memory layout (bytes; ops/front.py
-// mirrors it in fir_march_layout).  A step makes km = kPartM parts outputs
-// from step_rows = km F new input rows.  Its raw rows land in one of
-// `stages` stages, [2][step_rows][8] elements (the re lanes of the block's
-// channel group, then its im lanes), as boxes of box_rows rows.  The mix
-// pass writes them, mixed, into the ring: two planes (re, im) of
-// [ring_rows][8] float32, hist = F (DP - 1) rows of history then the
-// fewest steps that keep the history's copy-down off its own source;
-// the im plane sits 16 floats off the re plane's banks so that the two
-// branch columns a warp reads never share a bank.  Then the oscillator's
-// fine phasors, the item's phase parameters, the taps [F][DP], two sets
-// (this unit's, the next step's) of the coarse phasors, DC (and blanker
-// average) entries, the groups' partial sums [parts][busy][kPartM][16]
-// (red_bytes; in the stage the step has just mixed when it is that large,
-// else a region of their own), and with the blanker the flag words (15
-// rows of context + one unit) and the dilated words of one unit.  A unit is
-// the prologue (hist rows) or a step.
+// mirrors it in fir_march_layout) for items of cg channels.  A step makes
+// km = kPartM parts outputs from step_rows = km F new input rows.  Its raw
+// rows land in one of `stages` stages, [2][step_rows][bw] elements (the re
+// lanes of the block's channel group, then its im lanes; bw =
+// march_box_lanes), as boxes of box_rows rows.  The mix pass writes them,
+// mixed, into the ring: two planes (re, im) of [ring_rows][cg] float32,
+// hist = F (DP - 1) rows of history then the fewest steps that keep the
+// history's copy-down off its own source; the im plane sits 16 floats off
+// the re plane's banks so that the two branch columns a warp reads never
+// share a bank.  Then the oscillator's fine phasors, the item's phase
+// parameters, the taps [F][DP], two sets (this unit's, the next step's) of
+// the coarse phasors, DC (and blanker average) entries, the groups'
+// partial sums [parts][busy][kPartM][2 cg] (red_bytes; in the stage the
+// step has just mixed when it is that large, else a region of their own),
+// and with the blanker the flag words (15 rows of context + one unit) and
+// the dilated words of one unit.  A unit is the prologue (hist rows) or a
+// step.
 struct MarchGeom {
-  int F, dp, busy, parts, km, elem, step_rows, box_rows, stage_bytes, stages;
-  int hist, ring_rows, unit, nq, nk, table_bytes, red_bytes;
+  int F, dp, cg, bw, busy, parts, km, elem, step_rows, box_rows, stage_bytes;
+  int stages, hist, ring_rows, unit, nq, nk, table_bytes, red_bytes;
   int stage_off, ring_re, ring_im, fine, params, taps, tables, red, flags;
   int dil, smem;
-  __host__ __device__ MarchGeom(int F_, int dp_, int elem_, bool nb) {
+  __host__ __device__ MarchGeom(int F_, int dp_, int elem_, bool nb,
+                                int cg_ = kCg) {
     F = F_;
     dp = dp_;
-    busy = march_busy(F);
-    parts = march_parts(F);
+    cg = cg_;
+    bw = march_box_lanes(cg, elem_);
+    busy = march_busy(F, cg);
+    parts = march_parts(F, cg);
     elem = elem_;
     km = kPartM * parts;
     step_rows = km * F;
     int nbox = (step_rows + kMarchMaxBox - 1) / kMarchMaxBox;
     while (step_rows % nbox) ++nbox;
     box_rows = step_rows / nbox;
-    stage_bytes = step_rows * kLanes * elem;
+    stage_bytes = step_rows * 2 * bw * elem;
     stages = kMarchStageBytes / stage_bytes;
     stages = stages < 2 ? 2 : stages > kMarchMaxStages ? kMarchMaxStages
                                                        : stages;
@@ -803,25 +838,25 @@ struct MarchGeom {
     unit = hist > step_rows ? hist : step_rows;
     nq = unit / kQ + 2;
     nk = unit / kDcChunk + 2;
-    // one set of tables: coarse cos, sin [nq][8]; DC [nk][16]; average
-    // [nk][16] with the blanker
-    table_bytes = align128(2 * nq * kCg * 4) + align128(nk * kLanes * 4)
-                  + (nb ? align128(nk * kLanes * 4) : 0);
+    // one set of tables: coarse cos, sin [nq][cg]; DC [nk][2 cg]; average
+    // [nk][2 cg] with the blanker
+    table_bytes = align128(2 * nq * cg * 4) + align128(nk * 2 * cg * 4)
+                  + (nb ? align128(nk * 2 * cg * 4) : 0);
     stage_off = 128;                          // the stage barriers below
     int o = stage_off + stages * stage_bytes;
-    const int plane = align128(ring_rows * kCg * 4);
+    const int plane = align128(ring_rows * cg * 4);
     ring_re = o;
     ring_im = o + plane + 64;
     o = align128(ring_im + plane);
     fine = o;
-    o += 2 * kQ * kCg * 4;
+    o += 2 * kQ * cg * 4;
     params = o;
-    o += 128;                                 // phase0, f_hi, f_lo [3][8]
+    o += 128;                                 // phase0, f_hi, f_lo [3][cg]
     taps = o;
     o = align128(o + F * dp * 4);
     tables = o;
     o += 2 * table_bytes;
-    red_bytes = parts * busy * kPartM * kLanes * 4;
+    red_bytes = parts * busy * kPartM * 2 * cg * 4;
     red = stage_bytes >= red_bytes ? -1 : o;  // -1: in the mixed stage
     if (red >= 0) o = align128(o + red_bytes);
     flags = o;
@@ -830,14 +865,22 @@ struct MarchGeom {
     if (nb) o = align128(o + unit * 2);
     smem = o;
   }
-  __host__ __device__ int box_bytes() const { return box_rows * kCg * elem; }
+  __host__ __device__ int box_bytes() const { return box_rows * bw * elem; }
   __host__ __device__ bool ok() const {
     return dp > 0 && smem <= kMaxSmem
            && stage_bytes <= (int)bulk::kMaxTxBytes && box_bytes() % 128 == 0;
   }
 };
 
-// The work items: a channel group (8 channels) x a time segment of ms
+// The channels per item front_fir takes for this response and plane: kCg
+// where that layout fits, else kCgNarrow where it does, else 0 (refused).
+inline int march_cg(int F, int dp, int elem, bool nb) {
+  if (MarchGeom(F, dp, elem, nb, kCg).ok()) return kCg;
+  if (MarchGeom(F, dp, elem, nb, kCgNarrow).ok()) return kCgNarrow;
+  return 0;
+}
+
+// The work items: a channel group (cg channels) x a time segment of ms
 // outputs (the last one shorter; a segment's last step stores only its
 // own outputs), item i = segment i / groups, channel group i % groups, so
 // the channel groups of one segment run side by side and each plane row is
@@ -850,7 +893,7 @@ struct MarchPlan {
 };
 
 inline MarchPlan march_plan(int T, int C, const MarchGeom& g, int slots) {
-  const int M = T / g.F, groups = (C + kCg - 1) / kCg;
+  const int M = T / g.F, groups = (C + g.cg - 1) / g.cg;
   const int max_seg = (M + g.km - 1) / g.km;
   const int n_lo = min(max((2 * slots + groups - 1) / groups, 1), max_seg);
   MarchPlan best{M, 1, groups, 0};
@@ -901,10 +944,11 @@ struct MarchCtx {
   int c0;
 };
 
-// Stage rows [t0, t0 + rows) of channels [c0, c0 + 8) element by element
-// into dst ([2][rows][8], zeros outside the plane), for planes whose lanes
-// a tensor map cannot box (march_tma_ok): float32 by asynchronous 4-byte
-// copies, int16 by plain loads.  The caller commits and waits.
+// Stage rows [t0, t0 + rows) of channels [c0, c0 + CG) element by element
+// into dst ([2][rows][bw] with the item's lanes at c0 % bw, zeros outside
+// the plane), for planes whose lanes a tensor map cannot box
+// (march_tma_ok): float32 by asynchronous 4-byte copies, int16 by plain
+// loads.  The caller commits and waits.
 __device__ __forceinline__ void stage_elem(float* d, const float* s) {
   __pipeline_memcpy_async(d, s, sizeof(float));
 }
@@ -912,50 +956,55 @@ __device__ __forceinline__ void stage_elem(int16_t* d, const int16_t* s) {
   *d = *s;
 }
 
-template <typename Tx>
+template <typename Tx, int CG>
 __device__ void stage_elements(Tx* dst, const Tx* __restrict__ x, int T,
                                int C, int c0, int t0, int rows) {
+  constexpr int bw = march_box_lanes(CG, (int)sizeof(Tx));
   const size_t c2 = 2 * (size_t)C;
-  const int half = rows * kCg;
+  const int half = rows * CG, cb = CG == bw ? 0 : c0 % bw;
   for (int e = threadIdx.x; e < 2 * half; e += kThreads) {
-    const int hf = e / half, k = e - hf * half, i = k / kCg;
-    const int c = c0 + k % kCg, t = t0 + i;
+    const int hf = e / half, k = e - hf * half, i = k / CG;
+    const int c = c0 + k % CG, t = t0 + i;
+    Tx* d = dst + (CG == bw ? e : (hf * rows + i) * bw + cb + k % CG);
     if (c < C && t >= 0 && t < T)
-      stage_elem(dst + e, x + (size_t)t * c2 + (hf ? (size_t)C : 0) + c);
+      stage_elem(d, x + (size_t)t * c2 + (hf ? (size_t)C : 0) + c);
     else
-      dst[e] = Tx(0);
+      *d = Tx(0);
   }
 }
 
 // Table set `set` (0 or 1) for rows from t_lo (inside the plane).
+template <int CG>
 __device__ __forceinline__ MarchTables table_set(const MarchCtx& m,
                                                  const MarchGeom& g, int set,
                                                  int t_lo) {
   float* t = reinterpret_cast<float*>(m.tables + set * g.table_bytes);
   MarchTables tb;
   tb.coarse_c = t;
-  tb.coarse_s = t + g.nq * kCg;
-  tb.dc = t + align128(2 * g.nq * kCg * 4) / 4;
-  tb.avg = tb.dc + align128(g.nk * kLanes * 4) / 4;
+  tb.coarse_s = t + g.nq * CG;
+  tb.dc = t + align128(2 * g.nq * CG * 4) / 4;
+  tb.avg = tb.dc + align128(g.nk * 2 * CG * 4) / 4;
   tb.q_base = t_lo / kQ;
   tb.k_base = t_lo / kDcChunk;
   return tb;
 }
 
 // Thread `tid`'s DC (and blanker average) entry of the tables for rows
-// [t_lo, t_hi): entry tid = chunk tid / 16, lane tid % 16; false past them.
-template <bool NB>
+// [t_lo, t_hi): entry tid = chunk tid / (2 CG), lane tid % (2 CG); false
+// past them.
+template <bool NB, int CG>
 __device__ __forceinline__ bool table_entry(const March& a, int c0, int t_lo,
                                             int t_hi, int tid, float* dc,
                                             float* avg) {
+  constexpr int lanes = 2 * CG;
   if (t_lo >= t_hi) return false;
   const int k0 = t_lo / kDcChunk;
   const int nk = (t_hi - 1) / kDcChunk - k0 + 1;
-  if (tid >= nk * kLanes) return false;
+  if (tid >= nk * lanes) return false;
   const size_t c2 = 2 * (size_t)a.C;
-  const int k = tid / kLanes, l = tid - k * kLanes;
-  const int c = c0 + (l & (kCg - 1));
-  const size_t lane = (l < kCg ? 0 : (size_t)a.C) + c;
+  const int k = tid / lanes, l = tid - k * lanes;
+  const int c = c0 + (l & (CG - 1));
+  const size_t lane = (l < CG ? 0 : (size_t)a.C) + c;
   const bool in = c < a.C;
   *dc = in ? a.mseq[(size_t)(k0 + k) * c2 + lane] : 0.0f;
   if (NB) *avg = in ? nb_avg_entering(a.nb, k0 + k, c2, lane) : 0.0f;
@@ -963,18 +1012,19 @@ __device__ __forceinline__ bool table_entry(const March& a, int c0, int t_lo,
 }
 
 // The coarse phasors of the tables for rows [t_lo, t_hi), the entries
-// i = i0, i0 + stride, ... (128-row block i / 8, channel i % 8), from the
+// i = i0, i0 + stride, ... (128-row block i / CG, channel i % CG), from the
 // item's phase parameters in shared memory.
+template <int CG>
 __device__ __forceinline__ void table_coarse(const MarchCtx& m,
                                             const MarchTables& tb, int t_lo,
                                             int t_hi, int i0, int stride) {
   if (t_lo >= t_hi) return;
   const int nq = (t_hi - 1) / kQ - t_lo / kQ + 1;
-  for (int i = i0; i < nq * kCg; i += stride) {
-    const int q = i / kCg, cc = i % kCg;
+  for (int i = i0; i < nq * CG; i += stride) {
+    const int q = i / CG, cc = i % CG;
     float sn, cs;
     sincospif(2.0f * coarse_phase((tb.q_base + q) * kQ, m.params[cc],
-                                  m.params[kCg + cc], m.params[2 * kCg + cc]),
+                                  m.params[CG + cc], m.params[2 * CG + cc]),
               &sn, &cs);
     tb.coarse_c[i] = cs;
     tb.coarse_s[i] = sn;
@@ -983,16 +1033,17 @@ __device__ __forceinline__ void table_coarse(const MarchCtx& m,
 
 // Build the tables for rows [t_lo, t_hi) (all threads; the caller
 // synchronizes before they are read).
-template <bool NB>
+template <bool NB, int CG>
 __device__ void march_tables(const March& a, const MarchCtx& m,
                              const MarchTables& tb, int t_lo, int t_hi) {
   float dc, avg;
   for (int i = threadIdx.x;
-       table_entry<NB>(a, m.c0, t_lo, t_hi, i, &dc, &avg); i += kThreads) {
+       table_entry<NB, CG>(a, m.c0, t_lo, t_hi, i, &dc, &avg);
+       i += kThreads) {
     tb.dc[i] = dc;
     if (NB) tb.avg[i] = avg;
   }
-  table_coarse(m, tb, t_lo, t_hi, threadIdx.x, kThreads);
+  table_coarse<CG>(m, tb, t_lo, t_hi, threadIdx.x, kThreads);
 }
 
 // Unit rows [t0, t0 + n) -> ring rows [dst, dst + n): DC removal, IQ
@@ -1000,36 +1051,39 @@ __device__ void march_tables(const March& a, const MarchCtx& m,
 // take the carried post-mix tail (already blanked), rows outside both and
 // lanes of channels >= C are zero.  The raw rows come from a stage
 // (stage != null: [2][n][8] of Tx) or, for the prologue, straight from the
-// plane.  Thread tid mixes channel tid % 8 of rows tid / 8, tid / 8 +
-// kMixRows, ...  With the blanker: each row's flag word is formed once
+// plane.  Thread tid mixes channel tid % CG of rows tid / CG, tid / CG +
+// kThreads / CG, ...  With the blanker: each row's flag word is formed once
 // (warp ballots), its dilated word once from the bw - 1 words before it
 // (the flag ring carries the 15 words before the unit), and the flagged
 // lanes are zeroed (NB1) or scaled (NB2); step rows also go to nb.mask.
 // Ends with a barrier (the ring is written; the stage and the flag ring
 // are free).
-template <typename Tx, bool NB>
+template <typename Tx, bool NB, int CG>
 __device__ void march_mix(const March& a, MarchCtx& m, const MarchTables& tb,
                           const Tx* __restrict__ x, const Tx* stage, int t0,
                           int n, int dst, bool write_mask) {
+  constexpr int rows = kThreads / CG;            // rows one pass mixes
+  constexpr int bw = march_box_lanes(CG, (int)sizeof(Tx));
   const IqVals iq(a.iq);
   const int C = a.C, tid = threadIdx.x;
   const size_t c2 = 2 * (size_t)C;
-  const int cc = tid & (kCg - 1), c = m.c0 + cc;
+  const int cc = tid & (CG - 1), c = m.c0 + cc;
+  const int sl = (CG == bw ? 0 : m.c0 % bw) + cc;   // the lane in a stage row
   const bool in = c < C;
   auto raw = [&](int i, int t, float* xr, float* xi) {
     if (stage != nullptr) {
-      *xr = load_x(stage, (size_t)i * kCg + cc);
-      *xi = load_x(stage, (size_t)(n + i) * kCg + cc);
+      *xr = load_x(stage, (size_t)i * bw + sl);
+      *xi = load_x(stage, (size_t)(n + i) * bw + sl);
     } else {
       *xr = load_x(x, (size_t)t * c2 + c);
       *xi = load_x(x, (size_t)t * c2 + C + c);
     }
   };
   if (NB) {
-    // the undilated flag word of every row: a warp holds 4 rows x 8
-    // channels, so one ballot per lane half gives 4 rows' words
-    for (int i0 = 0; i0 < n; i0 += kMixRows) {    // uniform: ballots
-      const int i = i0 + tid / kCg, t = t0 + i;
+    // the undilated flag word of every row: a warp holds 32 / CG rows x
+    // CG channels, so one ballot per lane half gives 32 / CG rows' words
+    for (int i0 = 0; i0 < n; i0 += rows) {        // uniform: ballots
+      const int i = i0 + tid / CG, t = t0 + i;
       bool fr = false, fi = false;
       if (i < n && in) {
         if (t < 0) {
@@ -1037,17 +1091,18 @@ __device__ void march_mix(const March& a, MarchCtx& m, const MarchTables& tb,
         } else if (t < a.T) {
           float xr, xi, zr, zi;
           raw(i, t, &xr, &xi);
-          const int k = (t / kDcChunk - tb.k_base) * kLanes + cc;
-          nb_detect(xr, xi, tb.dc[k], tb.dc[k + kCg], tb.avg[k],
-                    tb.avg[k + kCg], iq, a.nb.thr2, &zr, &zi, &fr, &fi);
+          const int k = (t / kDcChunk - tb.k_base) * 2 * CG + cc;
+          nb_detect(xr, xi, tb.dc[k], tb.dc[k + CG], tb.avg[k],
+                    tb.avg[k + CG], iq, a.nb.thr2, &zr, &zi, &fr, &fi);
         }
       }
       const unsigned br = __ballot_sync(0xffffffffu, fr);
       const unsigned bi = __ballot_sync(0xffffffffu, fi);
       if (i < n && cc == 0) {
-        const int sh = tid & 24;                  // (lane / 8) * 8
-        m.flags_s[kNbHalo + i] = (unsigned short)(((br >> sh) & 0xffu)
-                                                  | (((bi >> sh) & 0xffu) << 8));
+        constexpr unsigned mask = (1u << CG) - 1u;
+        const int sh = tid & (32 - CG);           // (lane / CG) * CG
+        m.flags_s[kNbHalo + i] = (unsigned short)(((br >> sh) & mask)
+                                                  | (((bi >> sh) & mask) << CG));
       }
     }
     __syncthreads();
@@ -1062,7 +1117,7 @@ __device__ void march_mix(const March& a, MarchCtx& m, const MarchTables& tb,
       m.flags_s[tid] = m.flags_s[n + tid];
   }
 #pragma unroll 4
-  for (int i = tid / kCg; i < n; i += kMixRows) {
+  for (int i = tid / CG; i < n; i += rows) {
     const int t = t0 + i;
     float vr = 0.0f, vi = 0.0f;
     if (in && t < 0) {
@@ -1074,16 +1129,16 @@ __device__ void march_mix(const March& a, MarchCtx& m, const MarchTables& tb,
     } else if (in && t < a.T) {
       float zr, zi;
       raw(i, t, &zr, &zi);
-      const int k = (t / kDcChunk - tb.k_base) * kLanes + cc;
+      const int k = (t / kDcChunk - tb.k_base) * 2 * CG + cc;
       zr = zr - tb.dc[k];
-      zi = zi - tb.dc[k + kCg];
+      zi = zi - tb.dc[k + CG];
       iq.apply(&zr, &zi);
-      const int q = (t / kQ - tb.q_base) * kCg + cc, r = (t % kQ) * kCg + cc;
+      const int q = (t / kQ - tb.q_base) * CG + cc, r = (t % kQ) * CG + cc;
       mix(zr, zi, tb.coarse_c[q], tb.coarse_s[q], m.fine_c[r], m.fine_s[r],
           &vr, &vi);
       if (NB) {
         const unsigned w = m.dil_s[i];
-        const bool br = (w >> cc) & 1u, bi = (w >> (kCg + cc)) & 1u;
+        const bool br = (w >> cc) & 1u, bi = (w >> (CG + cc)) & 1u;
         if (write_mask && a.nb.mask != nullptr) {
           // a row in two items' steps gets the same word from both
           a.nb.mask[(size_t)t * c2 + c] = br;
@@ -1095,12 +1150,12 @@ __device__ void march_mix(const March& a, MarchCtx& m, const MarchTables& tb,
         } else if (br || bi) {
           const float m2 = mag2(zr, zi);
           if (br) vr = __fmul_rn(vr, nb_scale(tb.avg[k], m2));
-          if (bi) vi = __fmul_rn(vi, nb_scale(tb.avg[k + kCg], m2));
+          if (bi) vi = __fmul_rn(vi, nb_scale(tb.avg[k + CG], m2));
         }
       }
     }
-    m.ring_re[(dst + i) * kCg + cc] = vr;
-    m.ring_im[(dst + i) * kCg + cc] = vi;
+    m.ring_re[(dst + i) * CG + cc] = vr;
+    m.ring_im[(dst + i) * CG + cc] = vi;
   }
   __syncthreads();
 }
@@ -1183,7 +1238,8 @@ __device__ __forceinline__ void march_history(const Tx* __restrict__ x,
 
 // grid plan.grid, block kThreads, g.smem bytes of dynamic shared memory.
 // y[o] = sum_{j=0..D} h[j] u[F o - j], u[t < 0] = tail[d_rows + t]; DP
-// taps per polyphase branch (h zero-padded to F DP taps).  Block b walks
+// taps per polyphase branch (h zero-padded to F DP taps); items of CG
+// channels (march_cg).  Block b walks
 // items b, b + gridDim.x, ...; for each it sets up the fine phasors and
 // phase parameters of its channels (the taps once per block), mixes the
 // prologue (the hist rows before the segment's first step, from the plane)
@@ -1194,7 +1250,7 @@ __device__ __forceinline__ void march_history(const Tx* __restrict__ x,
 // its rows into the ring after the history, and runs the FIR over the
 // ring's last hist + step_rows rows: each of the step's parts of kPartM
 // outputs is made by `busy` groups, group b holding the taps of branches
-// b, b + 16, ... in registers while their columns stream past
+// b, b + busy_max, ... in registers while their columns stream past
 // (polyphase.cuh); the groups' partial sums meet in shared memory and each
 // output adds them in group order.  The next step's DC (and average)
 // entries are loaded before the FIR and its coarse phasors formed after
@@ -1204,15 +1260,16 @@ __device__ __forceinline__ void march_history(const Tx* __restrict__ x,
 // first.  Before its first item each block writes its share of K1's
 // carried history (march_history).  NB: the noise blanker is on; a
 // separate instantiation, so its passes cost the plain form nothing.
-template <typename Tx, int DP, bool NB>
+template <typename Tx, int DP, bool NB, int CG>
 __global__ void __launch_bounds__(kThreads, 1)
 front_fir(const __grid_constant__ CUtensorMap map, const Tx* __restrict__ x,
           March a) {
   extern __shared__ __align__(128) unsigned char fir_smem[];
-  const MarchGeom g(a.F, DP, (int)sizeof(Tx), NB);
+  constexpr int L = 2 * CG;                      // lanes of an item
+  const MarchGeom g(a.F, DP, (int)sizeof(Tx), NB, CG);
   const int tid = threadIdx.x, F = a.F, C = a.C;
   const size_t c2 = 2 * (size_t)C;
-  const int groups = (C + kCg - 1) / kCg, M = a.T / F;
+  const int groups = (C + CG - 1) / CG, M = a.T / F;
   uint64_t* full = reinterpret_cast<uint64_t*>(fir_smem);
   unsigned char* stages = fir_smem + g.stage_off;
   auto region = [&](int off) {
@@ -1222,7 +1279,7 @@ front_fir(const __grid_constant__ CUtensorMap map, const Tx* __restrict__ x,
   m.ring_re = region(g.ring_re);
   m.ring_im = region(g.ring_im);
   m.fine_c = region(g.fine);
-  m.fine_s = m.fine_c + kQ * kCg;
+  m.fine_s = m.fine_c + kQ * CG;
   m.params = region(g.params);
   m.h_s = region(g.taps);
   m.red = g.red < 0 ? nullptr : region(g.red);
@@ -1242,14 +1299,15 @@ front_fir(const __grid_constant__ CUtensorMap map, const Tx* __restrict__ x,
   auto issue = [&](int s) {                      // stream entry s
     uint64_t* bar = full + s % g.stages;
     unsigned char* dst = stages + (size_t)(s % g.stages) * g.stage_bytes;
-    const int c0 = (p_item % groups) * kCg;
+    const int c0 = (p_item % groups) * CG;
+    const int cx = CG == g.bw ? c0 : c0 - c0 % g.bw;   // the box's first lane
     const int t0 = F * seg_start(p_item) - F + 1 + p_step * g.step_rows;
-    const int half = g.step_rows * kCg * (int)sizeof(Tx);
+    const int half = g.step_rows * g.bw * (int)sizeof(Tx);
     bulk::mbar_arrive_expect_tx(bar, (uint32_t)g.stage_bytes);
     for (int r = 0; r < g.step_rows; r += g.box_rows) {
-      const int off = r * kCg * (int)sizeof(Tx);
-      bulk::load_2d(dst + off, &map, c0, t0 + r, bar);
-      bulk::load_2d(dst + half + off, &map, C + c0, t0 + r, bar);
+      const int off = r * g.bw * (int)sizeof(Tx);
+      bulk::load_2d(dst + off, &map, cx, t0 + r, bar);
+      bulk::load_2d(dst + half + off, &map, C + cx, t0 + r, bar);
     }
     if (++p_step == item_steps(p_item)) {
       p_item += gridDim.x;
@@ -1270,25 +1328,25 @@ front_fir(const __grid_constant__ CUtensorMap map, const Tx* __restrict__ x,
   }
 
   // this thread's lane, FIR part and group within it (march_busy)
-  const int lx = tid % kLanes, part = tid / kLanes / g.busy;
-  const int gp = tid / kLanes % g.busy;
-  const float* plane = (lx < kCg ? m.ring_re : m.ring_im) + (lx & (kCg - 1));
+  const int lx = tid % L, part = tid / L / g.busy;
+  const int gp = tid / L % g.busy;
+  const float* plane = (lx < CG ? m.ring_re : m.ring_im) + (lx & (CG - 1));
   int s = 0;                                     // the block's stream entry
   for (int item = blockIdx.x; item < a.items; item += gridDim.x) {
-    m.c0 = (item % groups) * kCg;
+    m.c0 = (item % groups) * CG;
     const int o_s = seg_start(item), o_e = min(o_s + a.ms, M);
     const int nsteps = item_steps(item);
     const int t_first = F * o_s - F + 1;         // step 0's first new row
     // the item's set-up: its channels' phase parameters and fine phasors,
     // and with the blanker the undilated flags of the bw - 1 rows above
     // the prologue
-    if (tid < 3 * kCg) {
-      const int c = m.c0 + tid % kCg;
-      const float* src = tid < kCg ? a.phase0 : tid < 2 * kCg ? a.fhi : a.flo;
+    if (tid < 3 * CG) {
+      const int c = m.c0 + tid % CG;
+      const float* src = tid < CG ? a.phase0 : tid < 2 * CG ? a.fhi : a.flo;
       m.params[tid] = c < C ? src[c] : 0.0f;
     }
-    for (int i = tid; i < kQ * kCg; i += kThreads) {
-      const int r = i / kCg, c = m.c0 + i % kCg;
+    for (int i = tid; i < kQ * CG; i += kThreads) {
+      const int r = i / CG, c = m.c0 + i % CG;
       float sn = 0.0f, cs = 1.0f;
       if (c < C) sincospif(2.0f * fine_phase(r, a.fhi[c], a.flo[c]), &sn, &cs);
       m.fine_c[i] = cs;
@@ -1298,30 +1356,30 @@ front_fir(const __grid_constant__ CUtensorMap map, const Tx* __restrict__ x,
       const int t = t_first - g.hist - (a.nb.bw - 1) + tid;
       const IqVals iq(a.iq);
       unsigned w = 0;
-      for (int cc = 0; cc < kCg && m.c0 + cc < C; ++cc) {
+      for (int cc = 0; cc < CG && m.c0 + cc < C; ++cc) {
         bool fr, fi;
         nb_flags_at(x, t, m.c0 + cc, C, a.mseq, iq, a.nb, &fr, &fi);
-        w |= (fr ? 1u << cc : 0u) | (fi ? 1u << (kCg + cc) : 0u);
+        w |= (fr ? 1u << cc : 0u) | (fi ? 1u << (CG + cc) : 0u);
       }
       m.flags_s[kNbHalo - (a.nb.bw - 1) + tid] = (unsigned short)w;
     }
     __syncthreads();                    // the phase parameters
     // the tables of the prologue (set 0) and of step 0 (set 1)
     const int t_h = t_first - g.hist;
-    march_tables<NB>(a, m, table_set(m, g, 0, max(t_h, 0)), max(t_h, 0),
-                     min(t_first, a.T));
-    march_tables<NB>(a, m, table_set(m, g, 1, max(t_first, 0)),
-                     max(t_first, 0), min(t_first + g.step_rows, a.T));
+    march_tables<NB, CG>(a, m, table_set<CG>(m, g, 0, max(t_h, 0)),
+                         max(t_h, 0), min(t_first, a.T));
+    march_tables<NB, CG>(a, m, table_set<CG>(m, g, 1, max(t_first, 0)),
+                         max(t_first, 0), min(t_first + g.step_rows, a.T));
     __syncthreads();
     // the prologue: the history rows, from the plane, into ring rows
     // [0, hist)
-    march_mix<Tx, NB>(a, m, table_set(m, g, 0, max(t_h, 0)), x, nullptr,
-                      t_h, g.hist, 0, false);
+    march_mix<Tx, NB, CG>(a, m, table_set<CG>(m, g, 0, max(t_h, 0)), x,
+                          nullptr, t_h, g.hist, 0, false);
     int pos = g.hist;                            // ring row of new rows
     for (int j = 0; j < nsteps; ++j, ++s) {
       const int t0 = t_first + j * g.step_rows;
       if (pos + g.step_rows > g.ring_rows) {     // copy the history down
-        const int n4 = g.hist * kCg / 4, src = (pos - g.hist) * kCg / 4;
+        const int n4 = g.hist * CG / 4, src = (pos - g.hist) * CG / 4;
         for (int e = tid; e < 2 * n4; e += kThreads) {
           float4* p4 = reinterpret_cast<float4*>(e < n4 ? m.ring_re
                                                         : m.ring_im);
@@ -1337,45 +1395,46 @@ front_fir(const __grid_constant__ CUtensorMap map, const Tx* __restrict__ x,
         bulk::mbar_wait(full + s % g.stages,
                         (uint32_t)(s / g.stages) & 1u);
       } else {
-        stage_elements(st, x, a.T, C, m.c0, t0, g.step_rows);
+        stage_elements<Tx, CG>(st, x, a.T, C, m.c0, t0, g.step_rows);
         __pipeline_commit();
         __pipeline_wait_prior(0);
         __syncthreads();
       }
-      march_mix<Tx, NB>(a, m, table_set(m, g, (j + 1) & 1, max(t0, 0)), x,
-                        st, t0, g.step_rows, pos, true);
+      march_mix<Tx, NB, CG>(a, m, table_set<CG>(m, g, (j + 1) & 1,
+                                                max(t0, 0)),
+                            x, st, t0, g.step_rows, pos, true);
 
       // the next step's DC (and average) entries, in flight over the FIR
       const int n_lo = max(t0 + g.step_rows, 0);
       const int n_hi = min(t0 + 2 * g.step_rows, a.T);
       const bool more = j + 1 < nsteps;
       float pf_dc = 0.0f, pf_avg = 0.0f;
-      const bool pf = more && table_entry<NB>(a, m.c0, n_lo, n_hi, tid,
-                                              &pf_dc, &pf_avg);
+      const bool pf = more && table_entry<NB, CG>(a, m.c0, n_lo, n_hi, tid,
+                                                  &pf_dc, &pf_avg);
 
       // the FIR over ring rows [pos - hist, pos + step_rows): this group's
-      // branches gp, gp + 16, ... for this part's outputs kPartM part ..
+      // branches gp, gp + busy_max, ... for this part's outputs kPartM part ..
       // kPartM (part + 1) - 1, each output's taps in one accumulator
       float acc[kPartM];
 #pragma unroll
       for (int ol = 0; ol < kPartM; ++ol) acc[ol] = 0.0f;
       if (part < g.parts) {
-        const float* win = plane + (pos - g.hist + part * kPartM * F) * kCg;
-        for (int p = gp; p < F; p += kGroups) {
+        const float* win = plane + (pos - g.hist + part * kPartM * F) * CG;
+        for (int p = gp; p < F; p += march_busy_max(CG)) {
           float hr[DP];
 #pragma unroll
           for (int i = 0; i < DP; ++i) hr[i] = m.h_s[p * DP + i];
-          poly::fir_column<kPartM, DP>(win + (F - 1 - p) * kCg, F * kCg, hr,
+          poly::fir_column<kPartM, DP>(win + (F - 1 - p) * CG, F * CG, hr,
                                        acc);
         }
       }
       if (more) {
-        const MarchTables next = table_set(m, g, j & 1, n_lo);
+        const MarchTables next = table_set<CG>(m, g, j & 1, n_lo);
         if (pf) {
           next.dc[tid] = pf_dc;
           if (NB) next.avg[tid] = pf_avg;
         }
-        table_coarse(m, next, n_lo, n_hi, kThreads - 1 - tid, kThreads);
+        table_coarse<CG>(m, next, n_lo, n_hi, kThreads - 1 - tid, kThreads);
       }
       // the partial sums [part][gp][ol][lane], in the mixed stage when it
       // holds them, then each output summed over its part's groups in order
@@ -1383,19 +1442,24 @@ front_fir(const __grid_constant__ CUtensorMap map, const Tx* __restrict__ x,
       if (part < g.parts) {
 #pragma unroll
         for (int ol = 0; ol < kPartM; ++ol)
-          red[((part * g.busy + gp) * kPartM + ol) * kLanes + lx] = acc[ol];
+          red[((part * g.busy + gp) * kPartM + ol) * L + lx] = acc[ol];
       }
       __syncthreads();
       const int o0 = o_s + j * g.km;
-      for (int e = tid; e < g.km * kLanes; e += kThreads) {
-        const int ol = e / kLanes, l = e - ol * kLanes;
-        const int c = m.c0 + (l & (kCg - 1)), o = o0 + ol;
+      for (int e = tid; e < g.km * L; e += kThreads) {
+        const int ol = e / L, l = e - ol * L;
+        const int c = m.c0 + (l & (CG - 1)), o = o0 + ol;
         if (c < C && o < o_e) {
           const float* r = red + ((ol / kPartM) * g.busy * kPartM
-                                  + ol % kPartM) * kLanes + l;
+                                  + ol % kPartM) * L + l;
           float sum = 0.0f;
-          for (int b = 0; b < g.busy; ++b) sum += r[b * kPartM * kLanes];
-          a.y[(size_t)o * c2 + (l < kCg ? 0 : (size_t)C) + c] = sum;
+          if constexpr (CG == kCg) {
+            for (int b = 0; b < g.busy; ++b) sum += r[b * kPartM * L];
+          } else {          // up to 64 groups: keep 8 loads in flight
+#pragma unroll 8
+            for (int b = 0; b < g.busy; ++b) sum += r[b * kPartM * L];
+          }
+          a.y[(size_t)o * c2 + (l < CG ? 0 : (size_t)C) + c] = sum;
         }
       }
       __syncthreads();                           // the stage is free
@@ -1846,10 +1910,10 @@ front_comp(const __grid_constant__ CUtensorMap map,
 // multiple of 16 bytes too): float32 C % 4 == 0, int16 C % 8 == 0.
 inline bool march_tma_ok(int C, int elem) { return (C * elem) % 16 == 0; }
 
-template <typename Tx, int DP, bool NB>
+template <typename Tx, int DP, bool NB, int CG>
 cudaError_t launch_march(const Tx* x, const March& args, const MarchGeom& g,
                          int device, cudaStream_t st) {
-  auto kernel = front_fir<Tx, DP, NB>;
+  auto kernel = front_fir<Tx, DP, NB, CG>;
   int slots = 0;
   cudaError_t err = launch::resident_blocks(
       kernel, device, kThreads, g.smem, kMarchBlocksPerSm, &slots);
@@ -1860,7 +1924,7 @@ cudaError_t launch_march(const Tx* x, const March& args, const MarchGeom& g,
   a.items = p.items;
   CUtensorMap map;
   memset(&map, 0, sizeof(map));
-  if (a.tma && (err = launch::plane_map(x, 2 * a.C, a.T, (int)sizeof(Tx), kCg,
+  if (a.tma && (err = launch::plane_map(x, 2 * a.C, a.T, (int)sizeof(Tx), g.bw,
                                       g.box_rows, &map)) != cudaSuccess)
     return err;
   kernel<<<(unsigned)p.grid, kThreads, g.smem, st>>>(map, x, a);
@@ -1936,9 +2000,10 @@ int forward(const Tx* x, const Fwd& f) {
   }
 
   const int dp = march_branch_taps(f.ntaps, f.F);
-  const MarchGeom g(f.F, dp, (int)sizeof(Tx), f.nb.mode != 0);
-  if (!g.ok() || (f.fir_tma && !march_tma_ok(f.C, (int)sizeof(Tx))))
+  const int cg = march_cg(f.F, dp, (int)sizeof(Tx), f.nb.mode != 0);
+  if (!cg || (f.fir_tma && !march_tma_ok(f.C, (int)sizeof(Tx))))
     return cudaErrorInvalidValue;
+  const MarchGeom g(f.F, dp, (int)sizeof(Tx), f.nb.mode != 0, cg);
   March a;
   a.T = f.T; a.C = f.C; a.d_rows = f.d_rows; a.ntaps = f.ntaps; a.F = f.F;
   a.ms = a.items = 0;
@@ -1950,8 +2015,15 @@ int forward(const Tx* x, const Fwd& f) {
   switch (dp) {
 #define FRONT_FIR_CASE(DP)                                                   \
   case DP:                                                                   \
-    err = f.nb.mode ? launch_march<Tx, DP, true>(x, a, g, f.device, f.st)    \
-                    : launch_march<Tx, DP, false>(x, a, g, f.device, f.st);  \
+    if (cg == kCg)                                                           \
+      err = f.nb.mode                                                        \
+                ? launch_march<Tx, DP, true, kCg>(x, a, g, f.device, f.st)   \
+                : launch_march<Tx, DP, false, kCg>(x, a, g, f.device, f.st); \
+    else                                                                     \
+      err = f.nb.mode ? launch_march<Tx, DP, true, kCgNarrow>(               \
+                            x, a, g, f.device, f.st)                         \
+                      : launch_march<Tx, DP, false, kCgNarrow>(              \
+                            x, a, g, f.device, f.st);                        \
     break;
     FRONT_FIR_CASE(8)
     FRONT_FIR_CASE(16)
@@ -2665,22 +2737,25 @@ extern "C" {
 // float32 (or, x_int16 != 0, int16) plane; 0 when no instantiation covers
 // it or it does not fit a block.
 size_t front_fir_smem_bytes(int ntaps, int F, int nb, int x_int16) {
-  const MarchGeom g(F, march_branch_taps(ntaps, F), x_int16 ? 2 : 4, nb != 0);
-  return g.ok() ? (size_t)g.smem : 0;
+  const int dp = march_branch_taps(ntaps, F), elem = x_int16 ? 2 : 4;
+  const int cg = march_cg(F, dp, elem, nb != 0);
+  return cg ? (size_t)MarchGeom(F, dp, elem, nb != 0, cg).smem : 0;
 }
 
 // front_fir's work items on `slots` resident blocks for a [T, 2C] plane:
 // out = {segment outputs, segments, items, grid, step rows, history rows,
-// ring rows, stages, box rows}; returns 0, or -1 when no instantiation
-// covers the plan.
+// ring rows, stages, box rows, channels per item}; returns 0, or -1 when
+// no instantiation covers the plan.
 int front_fir_plan(int T, int C, int ntaps, int F, int nb, int x_int16,
                    int slots, int* out) {
-  const MarchGeom g(F, march_branch_taps(ntaps, F), x_int16 ? 2 : 4, nb != 0);
-  if (!g.ok() || T <= 0 || C <= 0 || slots <= 0) return -1;
+  const int dp = march_branch_taps(ntaps, F), elem = x_int16 ? 2 : 4;
+  const int cg = march_cg(F, dp, elem, nb != 0);
+  if (!cg || T <= 0 || C <= 0 || slots <= 0) return -1;
+  const MarchGeom g(F, dp, elem, nb != 0, cg);
   const MarchPlan p = march_plan(T, C, g, slots);
-  const int v[9] = {p.ms, p.nseg, p.items, p.grid, g.step_rows, g.hist,
-                    g.ring_rows, g.stages, g.box_rows};
-  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  const int v[10] = {p.ms, p.nseg, p.items, p.grid, g.step_rows, g.hist,
+                     g.ring_rows, g.stages, g.box_rows, g.cg};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
   return 0;
 }
 

@@ -57,6 +57,55 @@ def design_bandpass_complex(lo_hz: float, hi_hz: float, sample_rate: float, ntap
     return shift_to_bandpass(lp, center, sample_rate)
 
 
+def design_cfir_kaiser_lp(astop_db: float, fpass_hz: float, fstop_hz: float,
+                          sample_rate: float) -> np.ndarray:
+    """CFir::InitLPFilter's EXACT Kaiser design (fir.cpp:~InitLPFilter):
+    beta from the standard Kaiser attenuation formula, tap count from the
+    (Astop-8)/(2.285*2pi*dF) estimate, sinc at the (pass+stop)/2 6 dB
+    cutoff.  Used where reference-exact filter shapes matter (SAM rails)."""
+    norm_pass = fpass_hz / sample_rate
+    norm_stop = fstop_hz / sample_rate
+    norm_cut = (norm_stop + norm_pass) / 2.0
+    if astop_db < 20.96:
+        beta = 0.0
+    elif astop_db >= 50.0:
+        beta = 0.1102 * (astop_db - 8.71)
+    else:
+        beta = (0.5842 * (astop_db - 20.96) ** 0.4
+                + 0.07886 * (astop_db - 20.96))
+    ntaps = int((astop_db - 8.0)
+                / (2.285 * 2.0 * np.pi * (norm_stop - norm_pass)) + 1)
+    ntaps = max(3, ntaps)
+    n = np.arange(ntaps, dtype=np.float64)
+    fc = 0.5 * (ntaps - 1)
+    x = n - fc
+    c = np.where(x == 0.0, 2.0 * norm_cut,
+                 np.sin(2.0 * np.pi * x * norm_cut)
+                 / (np.pi * np.where(x == 0.0, 1.0, x)))
+    xk = (n - (ntaps - 1) / 2.0) / ((ntaps - 1) / 2.0)
+    w = np.i0(beta * np.sqrt(np.maximum(0.0, 1.0 - xk * xk))) / np.i0(beta)
+    return c * w
+
+
+def design_rail_pair(h: np.ndarray, center_hz: float,
+                     sample_rate: float) -> tuple[np.ndarray, np.ndarray]:
+    """CFir::GenerateHBFilter's rail pair: (2h cos, 2h sin) shifted by
+    center_hz, applied INDEPENDENTLY to the re/im rails (the phasing
+    method, not a complex convolution)."""
+    ntaps = len(h)
+    x = np.arange(ntaps, dtype=np.float64) - 0.5 * (ntaps - 1)
+    ang = 2.0 * np.pi * (center_hz / sample_rate) * x
+    return 2.0 * h * np.cos(ang), 2.0 * h * np.sin(ang)
+
+
+def design_hilbert(ntaps: int, center_hz: float, bw_hz: float,
+                   sample_rate: float) -> np.ndarray:
+    """Complex analytic bandpass (Hilbert pair) — CFir::GenerateHBFilter
+    analog, used by SAM (demod_sam.cpp:36)."""
+    lp = design_windowed_sinc(ntaps, bw_hz / 2.0, sample_rate)
+    return 2.0 * shift_to_bandpass(lp, center_hz, sample_rate)
+
+
 def design_halfband(ntaps: int, wpass: float) -> np.ndarray:
     """Equiripple halfband decimation filter (remez + halfband constraint);
     wpass is the alias-free bandwidth as a fraction of the input rate."""
@@ -224,3 +273,34 @@ def fir_apply_real_signal_pair(x: torch.Tensor, tail: torch.Tensor,
         y = torch.matmul(xx, b)                           # [C, 2M]
         y_a, y_b = y[:, :m], y[:, m:]
     return y_a, y_b, xx[:, xx.shape[-1] - (t - 1):]
+
+
+def fir_tail_init(channels: int, ntaps: int, device,
+                  dtype: torch.dtype = torch.complex64) -> torch.Tensor:
+    return torch.zeros(channels, max(ntaps - 1, 0), dtype=dtype,
+                       device=device)
+
+
+def fir_apply_complex(x: torch.Tensor, taps_c, tail: torch.Tensor,
+                      decim: int = 1, taps_np: np.ndarray | None = None):
+    """Streaming FIR with complex static taps (Hilbert / shifted bandpass)
+    on x [C, N] complex64, tail [C, T-1]: the JAX package's taps_np path,
+    fir_apply_real_signal_pair on the stacked [re; im] rows (each real row
+    against both tap sets, one window stack, one matmul).  taps_np defaults
+    to taps_c's values.  Returns (y [C, N] complex64, tail')."""
+    if decim != 1:
+        raise ValueError("fir_apply_complex with decim > 1 (the JAX "
+                         "package's strided complex convolution) is not "
+                         "ported")
+    if taps_np is None:
+        taps_np = (taps_c.detach().cpu().numpy()
+                   if isinstance(taps_c, torch.Tensor) else taps_c)
+    h = np.asarray(taps_np)
+    c = x.shape[0]
+    rows = torch.cat([x.real, x.imag], dim=0)                  # [2C, N]
+    tail2 = torch.cat([tail.real, tail.imag], dim=0)
+    ya, yb, tail_rows = fir_apply_real_signal_pair(
+        rows, tail2, h.real.astype(np.float32), h.imag.astype(np.float32))
+    # (xr + j xi)(hr + j hi): re = xr hr - xi hi, im = xr hi + xi hr
+    y = torch.complex(ya[:c] - yb[c:], yb[:c] + ya[c:])
+    return y, torch.complex(tail_rows[:c], tail_rows[c:]).to(tail.dtype)

@@ -74,9 +74,10 @@ SUB_BLOCK = 2048   # phase decomposition block and the plain FIR's window step
 _Q = 128           # phase decomposition: coarse step
 _FIR_PART = 12     # decimated outputs of one front_fir part (kPartM in
                    # csrc/front.cu)
-_FIR_GROUPS = 16   # branch groups of a part at most (kGroups)
-_FIR_BLOCK_GROUPS = 32  # thread groups of a front_fir block (kFirGroups)
-_FIR_LANES = 16    # lanes per work item: 8 channels x (re, im) (kLanes)
+_FIR_GROUPS = 16   # branch groups of a part at most at 8 channels (kGroups)
+_FIR_THREADS = 512  # threads of a front_fir block (kThreads)
+FIR_CG = (8, 4)    # channels per front_fir work item: kCg where the layout
+                   # fits, else kCgNarrow
 _FIR_STAGE_BYTES = 49152  # the raw stages' budget (kMarchStageBytes)
 _FIR_MAX_STAGES = 8       # kMarchMaxStages
 _FIR_MAX_BOX = 256        # rows of a tensor-map box at most (kMarchMaxBox)
@@ -113,23 +114,40 @@ def comp_hist_rows(tc: int) -> int:
     return ((tc - 1 + 7) // 8) * 8
 
 
-def fir_parts(factor: int) -> tuple[int, int]:
+def _fir_busy_max(cg: int) -> int:
+    """Branch groups of a part at most (march_busy_max): 16 at 8 channels,
+    every thread group of the block at 4."""
+    return _FIR_GROUPS if cg == 8 else _FIR_THREADS // (2 * cg)
+
+
+def fir_parts(factor: int, cg: int = 8) -> tuple[int, int]:
     """(busy, parts) of front_fir's FIR map (march_busy, march_parts in
-    csrc/front.cu): a step's outputs are `parts` parts of 12, each made by
-    busy = min(F, 16) thread groups, one per branch (branches g, g + 16, ...
-    at F > 16), so all 32 groups of a block work at every F that divides
-    32 (the step is 12 parts outputs)."""
-    busy = min(factor, _FIR_GROUPS)
-    return busy, _FIR_BLOCK_GROUPS // busy
+    csrc/front.cu) for items of cg channels: the block is 512 / (2 cg)
+    thread groups of 2 cg lanes (32 at cg = 8, 64 at cg = 4); a step's
+    outputs are `parts` parts of 12, each made by busy = min(F, busy_max)
+    groups, one per branch (branches g, g + busy_max, ... at F > busy_max;
+    busy_max 16 at cg = 8, 64 at cg = 4), so every group works at every F
+    that divides the group count (the step is 12 parts outputs)."""
+    busy = min(factor, _fir_busy_max(cg))
+    return busy, _FIR_THREADS // (2 * cg) // busy
 
 
-def fir_group_items(factor: int) -> list[list[tuple[int, int]]]:
-    """front_fir's branch x part map: for each of a block's 32 thread
-    groups the (branch, part) items it runs; group G makes part G // busy
-    of branches G % busy, G % busy + 16, ... < F (fir_parts)."""
-    busy, parts = fir_parts(factor)
-    return [[(p, g // busy) for p in range(g % busy, factor, _FIR_GROUPS)]
-            if g // busy < parts else [] for g in range(_FIR_BLOCK_GROUPS)]
+def fir_group_items(factor: int, cg: int = 8) -> list[list[tuple[int, int]]]:
+    """front_fir's branch x part map: for each of a block's thread groups
+    the (branch, part) items it runs; group G makes part G // busy of
+    branches G % busy, G % busy + busy_max, ... < F (fir_parts)."""
+    busy, parts = fir_parts(factor, cg)
+    step = _fir_busy_max(cg)
+    return [[(p, g // busy) for p in range(g % busy, factor, step)]
+            if g // busy < parts else []
+            for g in range(_FIR_THREADS // (2 * cg))]
+
+
+def fir_box_lanes(cg: int, elem: int) -> int:
+    """Lanes of a front_fir stage row (march_box_lanes): the item's cg
+    channels, or the 16 bytes a tensor-map box must span when they are
+    fewer (int16 at cg = 4: 8 lanes, the item reads its 4)."""
+    return cg if cg * elem >= 16 else 16 // elem
 
 
 def fir_branch_taps(ntaps: int, factor: int) -> int:
@@ -141,17 +159,24 @@ def fir_branch_taps(ntaps: int, factor: int) -> int:
 
 
 def fir_march_layout(ntaps: int, factor: int, nb: bool = False,
-                     elem: int = 4) -> dict[str, int] | None:
+                     elem: int = 4, cg: int | None = None
+                     ) -> dict[str, int] | None:
     """front_fir's geometry and shared-memory layout in bytes (MarchGeom in
-    csrc/front.cu, mirrored) for a plane of elem-byte lanes, or None when
-    no instantiation covers ntaps/factor taps per branch or it does not fit
-    a block.  A step makes km = 12 parts outputs (fir_parts) from
-    step_rows = km F new rows; `stages` raw stages of one step each; the
-    ring of mixed rows holds the history (hist = F (DP - 1) rows) and the
-    fewest steps that keep its copy-down off its source; then the fine
-    phasors and phase parameters, the taps, two sets of a unit's tables,
-    the groups' partial sums (red = -1: inside the stage the step mixed,
-    when it is as large) and, with the blanker, the flag words."""
+    csrc/front.cu, mirrored) for a plane of elem-byte lanes and items of cg
+    channels (None: march_cg's choice, 8 where that layout fits, else 4),
+    or None when no instantiation covers ntaps/factor taps per branch or it
+    does not fit a block.  A step makes km = 12 parts outputs (fir_parts)
+    from step_rows = km F new rows; `stages` raw stages of one step each,
+    rows of bw lanes (fir_box_lanes); the ring of mixed rows holds the
+    history (hist = F (DP - 1) rows) and the fewest steps that keep its
+    copy-down off its source; then the fine phasors and phase parameters,
+    the taps, two sets of a unit's tables, the groups' partial sums (red =
+    -1: inside the stage the step mixed, when it is as large) and, with the
+    blanker, the flag words."""
+    if cg is None:
+        return next((lay for lay in (fir_march_layout(ntaps, factor, nb,
+                                                      elem, g)
+                                     for g in FIR_CG) if lay), None)
     dp = fir_branch_taps(ntaps, factor)
     if not dp:
         return None
@@ -159,38 +184,39 @@ def fir_march_layout(ntaps: int, factor: int, nb: bool = False,
     def a128(v):
         return (v + 127) & ~127
 
-    busy, parts = fir_parts(factor)
+    busy, parts = fir_parts(factor, cg)
+    bw = fir_box_lanes(cg, elem)
     km = _FIR_PART * parts
     step_rows = km * factor
     nbox = -(-step_rows // _FIR_MAX_BOX)
     while step_rows % nbox:
         nbox += 1
     box_rows = step_rows // nbox
-    stage_bytes = step_rows * _FIR_LANES * elem
+    stage_bytes = step_rows * 2 * bw * elem
     stages = min(max(_FIR_STAGE_BYTES // stage_bytes, 2), _FIR_MAX_STAGES)
     hist = factor * (dp - 1)
     ring_rows = hist + max(-(-hist // step_rows), 1) * step_rows
     unit = max(hist, step_rows)
     nq, nk = unit // _Q + 2, unit // DC_CHUNK + 2
-    lay = {"dp": dp, "busy": busy, "parts": parts, "km": km,
-           "step_rows": step_rows,
+    lay = {"dp": dp, "cg": cg, "bw": bw, "busy": busy, "parts": parts,
+           "km": km, "step_rows": step_rows,
            "box_rows": box_rows, "stage_bytes": stage_bytes,
            "stages": stages, "hist": hist, "ring_rows": ring_rows,
            "stage": 128}
     # one set of a unit's tables: coarse phasors, DC and blanker averages
-    table = (a128(2 * nq * 8 * 4) + a128(nk * _FIR_LANES * 4)
-             + (a128(nk * _FIR_LANES * 4) if nb else 0))
+    table = (a128(2 * nq * cg * 4) + a128(nk * 2 * cg * 4)
+             + (a128(nk * 2 * cg * 4) if nb else 0))
     o = 128 + stages * stage_bytes
-    plane = a128(ring_rows * 8 * 4)
+    plane = a128(ring_rows * cg * 4)
     lay["ring_re"], lay["ring_im"] = o, o + plane + 64
     o = a128(lay["ring_im"] + plane)
     lay["fine"] = o
-    o += 2 * _Q * 8 * 4 + 128                          # + phase parameters
+    o += 2 * _Q * cg * 4 + 128                         # + phase parameters
     lay["taps"] = o
     o = a128(o + factor * dp * 4)
     lay["tables"] = o                                  # two sets
     o += 2 * table
-    red_bytes = parts * busy * _FIR_PART * _FIR_LANES * 4
+    red_bytes = parts * busy * _FIR_PART * 2 * cg * 4
     lay["red_bytes"] = red_bytes
     lay["red"] = -1 if stage_bytes >= red_bytes else o
     if lay["red"] >= 0:
@@ -201,7 +227,7 @@ def fir_march_layout(ntaps: int, factor: int, nb: bool = False,
         o = a128(o + unit * 2)                         # dilated words
     lay["smem"] = o
     ok = (o <= _MAX_SMEM and stage_bytes < 2 ** 20
-          and (box_rows * 8 * elem) % 128 == 0)
+          and (box_rows * bw * elem) % 128 == 0)
     return lay if ok else None
 
 
@@ -209,8 +235,8 @@ def fir_march_plan(t: int, c: int, factor: int, ntaps: int,
                    n_sm: int = H100_SMS, nb_bw: int = 0,
                    elem: int = 4) -> dict | None:
     """front_fir's work items at one block per SM (march_plan in
-    csrc/front.cu, mirrored): a channel group of 8 channels x a time segment
-    of `seg_outputs` outputs (the last segment shorter),
+    csrc/front.cu, mirrored): a channel group of cg channels (the layout's)
+    x a time segment of `seg_outputs` outputs (the last segment shorter),
     item i = segment i / groups, channel group i % groups.  The segment
     length gives the fewest rows on the busiest block, among those with at
     least two items per SM where the shape has them.  Each item mixes
@@ -222,7 +248,7 @@ def fir_march_plan(t: int, c: int, factor: int, ntaps: int,
         return None
     m = t // factor
     km = lay["km"]
-    groups = -(-c // 8)
+    groups = -(-c // lay["cg"])
     max_seg = -(-m // km)
     n_lo = min(max(-(-2 * n_sm // groups), 1), max_seg)
     best = (None, m, 1)

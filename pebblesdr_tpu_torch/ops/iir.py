@@ -147,6 +147,15 @@ def _first_order_scan(y_prev: torch.Tensor, x: torch.Tensor, a: float, b: float)
     return y[:, -1], y
 
 
+def dc_removal_apply(y_prev: torch.Tensor, x: torch.Tensor,
+                     alpha: float = 0.9999):
+    """One-pole DC blocker: y[n] = x[n] - m[n], m[n] = alpha m[n-1] +
+    (1-alpha) x[n] (Demod_AM DC removal, demod_am.cpp:36-64).  y_prev
+    carries m.  Returns (m_last, y)."""
+    m_last, m = first_order_apply(y_prev, x, alpha, 1.0 - alpha)
+    return m_last, x - m
+
+
 def dc_removal_chunked(y_prev: torch.Tensor, x: torch.Tensor,
                        alpha: float = 0.9999, chunk: int = 512):
     """DC blocker with a piecewise-constant estimate per `chunk` samples:

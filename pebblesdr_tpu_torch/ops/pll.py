@@ -13,9 +13,13 @@ lock level.  The per-sample pilot phase is linear within each chunk:
 phase(fL + t) = p0[f] + wf[f] t.  Every matmul is IEEE float32 (the JAX
 package asks Precision.HIGHEST: bf16 EWMA matmuls bias the loops).
 
-The closed-loop PLL ("pll" pilot, the per-sample Costas scan) is not
-ported; only its configuration (PLLConfig, make_pll_config) is, because
-RdsConfig carries it.
+The two-stage aimed carrier loop of SAM (pll_run_aimed) is ported with its
+open stage-2 smoother (costas_open_run, square=False).  The closed-loop
+PLL (pll_run, the per-sample scan: the "pll" pilot and SAM's
+algorithm="scan") and the chunked loop (pll_run_blockwise: SAM's
+smooth="loop") are not; of them only the configuration (PLLConfig,
+make_pll_config) and the state (PLLState, pll_init) are, because RdsConfig
+and SAMState carry them.
 """
 
 from __future__ import annotations
@@ -202,6 +206,20 @@ def make_pll_config(sample_rate: float, bw_hz: float, zeta: float = 0.707,
                      freq_hi=(center_hz + range_hz) * norm, detector=detector)
 
 
+@dataclasses.dataclass(frozen=True)
+class PLLState:
+    phase: torch.Tensor  # [C] radians
+    fdev: torch.Tensor   # [C] radians/sample deviation from freq_center
+    amp: torch.Tensor    # [C] EWMA of |input| (detector gain normalization)
+
+
+def pll_init(cfg: PLLConfig, channels: int, device) -> PLLState:
+    def full(v):
+        return torch.full((channels,), v, dtype=torch.float32, device=device)
+
+    return PLLState(phase=full(0.0), fdev=full(0.0), amp=full(1.0))
+
+
 # --------------------------------------- open-loop BPSK carrier (RDS, squared)
 
 @dataclasses.dataclass(frozen=True)
@@ -302,3 +320,68 @@ def costas_open_run(cfg: CostasOpenConfig, state: CostasOpenState,
         ang=torch.remainder(ang[:, -1] + TWO_PI, 2.0 * TWO_PI) - TWO_PI,
         z_prev=zf[:, -1])
     return new_state, phases, level
+
+
+# ------------------------------------------------ aimed carrier loop (SAM)
+
+def pll_run_aimed(cfg: PLLConfig, state: CostasOpenState,
+                  aim_phase: torch.Tensor, x: torch.Tensor, n_block: int = 0,
+                  smooth_cfg: CostasOpenConfig | None = None):
+    """Two-stage blockwise carrier loop for wide pull ranges (SAM: +-1 kHz
+    at ~32 ksps), x [C, N] complex64 holding N / n_block logical blocks.
+
+    Stage 1 aims: each block's carrier frequency from three coherent sums
+    of growing length (folds 8, 4, 4), each a boxcar that attenuates the
+    sidebands before its conj-product frequency read, the stream derotated
+    by each stage's estimate before the next; clipped to the loop range,
+    and the block derotated by the carried aim ramp.  Stage 2 tracks the
+    near-DC residual with the open-loop smoother (costas_open_run,
+    square=False; its chunk halves until it divides the block).  The aim
+    phase carries across calls.  `state` is the smoother's CostasOpenState
+    (the chunked-loop stage 2 of smooth_cfg None, pll_run_blockwise, is
+    not ported).
+
+    Returns (state', aim_phase' [C], phases [C, N], freqs [C, N]
+    rad/sample)."""
+    if smooth_cfg is None:
+        raise ValueError("pll_run_aimed's chunked-loop stage 2 (SAM "
+                         "smooth='loop', pll_run_blockwise) is not ported; "
+                         "pass smooth_cfg for the open smoother")
+    c, n = x.shape
+    nb = n_block or n
+    k = n // nb
+    z = x.reshape(c, k, nb)
+    f_est = torch.zeros(c, k, dtype=torch.float32, device=x.device)
+    span = 1
+    for fold in (8, 4, 4):
+        z = z.reshape(c, k, -1, fold).sum(dim=-1)                # [C, K, M]
+        span *= fold
+        # within-block products only: the K-block call aims each block as
+        # K sequential calls would
+        dm = (z[:, :, 1:] * torch.conj(z[:, :, :-1])).mean(dim=-1)
+        f_step = torch.atan2(dm.imag, dm.real) / span           # rad/sample
+        f_est = f_est + f_step
+        m_idx = torch.arange(z.shape[-1], dtype=torch.float32,
+                             device=x.device)
+        rot = (f_step[:, :, None] * span) * m_idx
+        z = z * torch.exp(-1j * rot.to(torch.complex64))
+    f_est = torch.clamp(f_est, cfg.freq_lo, cfg.freq_hi)
+    # the carried aim phase at each block start: aim + cumsum(f_est nb)
+    steps = f_est * float(nb)
+    starts = aim_phase[:, None] + torch.cat(
+        [torch.zeros(c, 1, dtype=torch.float32, device=x.device),
+         torch.cumsum(steps[:, :-1], dim=-1)], dim=-1)           # [C, K]
+    starts = torch.remainder(starts + math.pi, TWO_PI) - math.pi
+    t_in = torch.arange(nb, dtype=torch.float32, device=x.device)
+    ramp = (starts[:, :, None] + f_est[:, :, None] * t_in).reshape(c, n)
+    xd = x * torch.exp(-1j * ramp.to(torch.complex64))
+    ell = smooth_cfg.chunk
+    while nb % ell:
+        ell //= 2
+    st2, ph_res, _ = costas_open_run(smooth_cfg, state, xd, chunk=ell,
+                                     square=False)
+    phases = ramp + ph_res
+    freqs = torch.repeat_interleave(f_est, nb, dim=-1)
+    aim2 = (torch.remainder(starts[:, -1] + steps[:, -1] + math.pi, TWO_PI)
+            - math.pi)
+    return st2, aim2, phases, freqs

@@ -7,9 +7,12 @@ the port with a chip_smoke.py, e.g. a parent commit unpacked under build/).
 (run as a script, not with -m, so that ROOT's package is the one imported)
 
 Cells (PERF.md section 4): am_64ch (base form), am_nb_64ch (NB1 + IQ),
-am_256ch, am_i16_256ch (int16), am_16ch, wfm_64ch (the F = 8 plan) and
-wfm_hq_64ch (the F = 4 plan), each on its cell's plane from chip_smoke.py
-with a small carried tail.  K1 is first checked against its plain version
+am_256ch, am_i16_256ch (int16), am_16ch, wfm_64ch (the F = 8 plan),
+wfm_hq_64ch (the F = 4 plan), and on front_fir's 4-channel items
+usb_64ch (the F = 64 / 2007-tap plan of SSB, CW and DIG) and none_64ch (the
+F = 32 / 1159-tap plan of NONE), each on its cell's plane from
+chip_smoke.py with a small carried tail (a checkout whose front_fir has no
+geometry for a cell's plan skips it).  K1 is first checked against its plain version
 on the same inputs (chip_smoke.check_options_form: 3e-5 relative, blanker
 flags equal); then timed: CUDA events around 10 calls after 3 warm-ups,
 the host's enqueue ms per call over 20 calls, and the device time per
@@ -47,8 +50,11 @@ CELLS = (("am_64ch", 64, 32, "f32", "am"),
          ("am_i16_256ch", 256, 16, "i16", "am"),
          ("am_16ch", 16, 64, "f32", "am"),
          ("wfm_64ch", 64, 32, "f32", "wfm"),
-         ("wfm_hq_64ch", 64, 32, "f32", "hq"))
-PROTECT = {"am": 30_000, "wfm": 200_000, "hq": 400_000}
+         ("wfm_hq_64ch", 64, 32, "f32", "hq"),
+         ("usb_64ch", 64, 32, "f32", "usb"),
+         ("none_64ch", 64, 32, "f32", "none"))
+PROTECT = {"am": 30_000, "wfm": 200_000, "hq": 400_000, "usb": 20_000,
+           "none": 48_000}
 
 
 def kernel_ms(torch, fn, reps: int = 10,
@@ -153,6 +159,11 @@ def main(argv: list[str] | None = None) -> dict:
     res = {}
     for name, c, k, form, pk in CELLS:
         plan = plans[pk]
+        if not plan.smem_bytes:      # a checkout without this geometry
+            print(f"[{tag}] {name}: no front_fir instantiation for "
+                  f"{plan.h.numel()} taps at factor {plan.factor}; skipped",
+                  flush=True)
+            continue
         i16 = form == "i16"
         block = cs.am_plane(c, N, None)
         x = torch.from_numpy(cs.to_i16(block) if i16 else block).cuda()
@@ -209,7 +220,7 @@ def main(argv: list[str] | None = None) -> dict:
         res[name] = {"front_fir_ms": fir, "k1_ms": k1, "host_ms": host,
                      "launch_ms": launches, "worst": check["worst"],
                      "sha256": bits}
-        if pk != "am":             # the cell's own form: WFM, or hq
+        if pk in ("wfm", "hq"):    # the cell's own form: WFM, or hq
             res[name].update(own_form(torch, cs, front, wfm, plan, args, kw,
                                       pk, f"[{tag}] {name} ({pk} form)"))
         del args, x, tail

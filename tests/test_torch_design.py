@@ -17,6 +17,7 @@ from pebblesdr_tpu.core import windows as jwin
 from pebblesdr_tpu.demod import am as jam
 from pebblesdr_tpu.demod import modes as jmodes
 from pebblesdr_tpu.demod import rds as jrds
+from pebblesdr_tpu.demod import sam as jsam
 from pebblesdr_tpu.demod import wfm as jwfm
 from pebblesdr_tpu.ops import agc as jagc
 from pebblesdr_tpu.ops import decimator as jdec
@@ -33,6 +34,7 @@ from pebblesdr_tpu_torch.core import windows as twin
 from pebblesdr_tpu_torch.demod import am as tam
 from pebblesdr_tpu_torch.demod import modes as tmodes
 from pebblesdr_tpu_torch.demod import rds as trds
+from pebblesdr_tpu_torch.demod import sam as tsam
 from pebblesdr_tpu_torch.demod import wfm as twfm
 from pebblesdr_tpu_torch.ops import agc as tagc
 from pebblesdr_tpu_torch.ops import decimator as tdec
@@ -65,7 +67,8 @@ def test_halfband_taps_identical(ntaps, wpass):
 
 @pytest.mark.parametrize("fs,protect", [(FS, 30_000.0), (FS, 200_000.0),
                                         (1_024_000, 30_000.0),
-                                        (2_500_000, 20_000.0)])
+                                        (2_500_000, 20_000.0),
+                                        (FS, 20_000.0), (FS, 48_000.0)])
 def test_plan_and_composed_response_identical(fs, protect):
     jp = jdec.build_plan(fs, protect)
     tp = tdec.build_plan(fs, protect)
@@ -248,3 +251,67 @@ def test_rds_burst_table_and_offsets_identical():
         for use_fec in (False, True):
             assert jrds.check_block(int(block), jrds._OFFSETS["B"], use_fec) \
                 == trds.check_block(int(block), trds._OFFSETS["B"], use_fec)
+
+
+@pytest.mark.parametrize("ntaps,center,bw,rate", [(61, 3000.0, 6000.0, 64000.0),
+                                                  (61, 2500.0, 5000.0, 32000.0),
+                                                  (31, 19000.0, 4000.0,
+                                                   256000.0)])
+def test_hilbert_taps_identical(ntaps, center, bw, rate):
+    assert np.array_equal(jfir.design_hilbert(ntaps, center, bw, rate),
+                          tfir.design_hilbert(ntaps, center, bw, rate))
+
+
+@pytest.mark.parametrize("astop,fpass,fstop,rate", [(40.0, 4500.0, 5500.0,
+                                                     64000.0),
+                                                    (60.0, 4500.0, 5500.0,
+                                                     32000.0),
+                                                    (20.0, 1000.0, 3000.0,
+                                                     48000.0)])
+def test_cfir_kaiser_and_rail_pair_identical(astop, fpass, fstop, rate):
+    h = jfir.design_cfir_kaiser_lp(astop, fpass, fstop, rate)
+    assert np.array_equal(h, tfir.design_cfir_kaiser_lp(astop, fpass, fstop,
+                                                        rate))
+    for a, b in zip(jfir.design_rail_pair(h, 5000.0, rate),
+                    tfir.design_rail_pair(h, 5000.0, rate)):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("sideband", ["analytic", "rails"])
+@pytest.mark.parametrize("rate,bw", [(64000.0, 12000.0), (32000.0, 10000.0)])
+def test_sam_config_identical(rate, bw, sideband):
+    """SAMConfig.make: the PLL and open-track configurations, the Hilbert
+    taps and the rail pair; sam_init's leaves (in the JAX flatten order)."""
+    a = jsam.SAMConfig.make(rate, bw, sideband=sideband)
+    b = tsam.SAMConfig.make(rate, bw, sideband=sideband)
+    assert dataclasses.asdict(a.pll) == dataclasses.asdict(b.pll)
+    assert dataclasses.asdict(a.open_track) == dataclasses.asdict(
+        b.open_track)
+    for key in ("hilbert_taps", "rail_taps_i", "rail_taps_q"):
+        x, y = np.asarray(getattr(a, key)), getattr(b, key)
+        assert x.dtype == y.dtype and np.array_equal(x, y), key
+    assert (a.algorithm, a.smooth, a.sideband) == (
+        b.algorithm, b.smooth, b.sideband)
+    js = jax.tree_util.tree_leaves(jsam.sam_init(a, 3))
+    ts = convert.state_to_numpy(tsam.sam_init(b, 3, "cpu"))
+    assert len(js) == len(ts)
+    for x, y in zip(js, ts):
+        assert x.shape == y.shape and x.dtype == y.dtype
+        assert np.array_equal(np.asarray(x), y)
+
+
+@pytest.mark.parametrize("mode", ["SAM", "USB", "NONE"])
+def test_narrowband_init_state_matches_jax(mode):
+    """init_state of the narrowband modes (SAMState; None for the stateless
+    demods) flattens to the JAX Receiver's leaves."""
+    kw = dict(sample_rate=FS, frames_per_buffer=8192, channels=3,
+              agc_stride=16)
+    jrx = JaxReceiver(JaxConfig(use_pallas=True,
+                                mode=jmodes.DemodMode[mode], **kw))
+    trx = Receiver(ReceiverConfig(mode=tmodes.DemodMode[mode], **kw), "cpu")
+    js = jax.tree_util.tree_leaves(jrx.init_state())
+    ts = convert.state_to_numpy(trx.init_state())
+    assert len(js) == len(ts)
+    for a, b in zip(js, ts):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert np.array_equal(np.asarray(a), b)

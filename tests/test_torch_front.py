@@ -17,6 +17,9 @@ from pebblesdr_tpu.ops import decimator as jdec
 from pebblesdr_tpu.ops import iir as jiir
 from pebblesdr_tpu.ops import mixer as jmix
 from pebblesdr_tpu.ops import pallas_kernels as pk
+from pebblesdr_tpu_torch.chain.receiver import (PORTED_MODES, Receiver,
+                                                ReceiverConfig)
+from pebblesdr_tpu_torch.demod.modes import DemodMode
 from pebblesdr_tpu_torch.kernels import build
 from pebblesdr_tpu_torch.ops import decimator as tdec
 from pebblesdr_tpu_torch.ops import front
@@ -274,3 +277,85 @@ def test_fir_branch_part_map_leaves_no_group_idle(factor):
     items = sorted(it for g in groups for it in g)
     assert items == sorted((p, q) for p in range(factor) for q in range(parts))
     assert all(len(g) == (2 if factor == 32 else 1) for g in groups)
+
+
+@pytest.mark.parametrize("nb", [False, True])
+@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("mode,hq", [(m, False) for m in PORTED_MODES]
+                         + [(DemodMode.FMS, True)],
+                         ids=lambda v: getattr(v, "name", str(v)))
+def test_every_ported_mode_has_a_front_fir_layout(mode, hq, elem, nb):
+    """Each mode the port's Receiver accepts (and WFM's hq geometry) at
+    2.048 Msps: its composed front response has a front_fir layout that
+    fits a block, in float32 and int16, with and without the blanker; the
+    card would refuse a response without one."""
+    rx = Receiver(ReceiverConfig(sample_rate=FS, mode=mode, wfm_hq=hq),
+                  "cpu")
+    lay = front.fir_march_layout(rx.front.h.numel(), rx.plan.factor, nb=nb,
+                                 elem=elem)
+    assert lay is not None and lay["smem"] <= 232448
+    assert lay["dp"] * rx.plan.factor >= rx.front.h.numel()
+    assert rx.front.smem_bytes > 0
+
+
+@pytest.mark.parametrize("nb", [False, True])
+@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("protect,factor,ntaps,dp", [(20_000, 64, 2007, 32),
+                                                      (48_000, 32, 1159, 40)])
+def test_long_responses_take_four_channel_items(protect, factor, ntaps, dp,
+                                                elem, nb):
+    """The factor-64 / 2007-tap (SSB, CW, DIG) and factor-32 / 1159-tap
+    (NONE) responses: 8-channel items do not fit (the ring of mixed rows
+    would hold F (DP - 1) history rows of 8 channels), so front_fir takes
+    items of 4 channels: 64 groups of 8 lanes, every group one branch at
+    F = 64 (two parts of 32 at F = 32), a step of 768 rows, the partial sums
+    inside the mixed stage, and int16 stages of the 16-byte box (8 lanes)."""
+    p = tdec.build_plan(FS, protect)
+    assert (p.factor, len(tdec.compose_response(p))) == (factor, ntaps)
+    assert front.fir_march_layout(ntaps, factor, nb, elem, cg=8) is None
+    lay = front.fir_march_layout(ntaps, factor, nb, elem)
+    assert lay == front.fir_march_layout(ntaps, factor, nb, elem, cg=4)
+    assert (lay["cg"], lay["dp"], lay["step_rows"]) == (4, dp, 768)
+    assert (lay["busy"], lay["parts"]) == (min(factor, 64), 64 // factor)
+    assert lay["bw"] == (4 if elem == 4 else 8)
+    assert lay["stage_bytes"] == 768 * 2 * lay["bw"] * elem == 24576
+    assert lay["red"] == -1 and lay["red_bytes"] <= lay["stage_bytes"]
+    assert lay["ring_rows"] - lay["hist"] >= lay["hist"]
+    assert lay["ring_im"] - lay["ring_re"] >= lay["ring_rows"] * 4 * 4
+    assert (lay["box_rows"] * lay["bw"] * elem) % 128 == 0
+    assert lay["smem"] <= 232448
+
+
+@pytest.mark.parametrize("factor", [64, 32])
+def test_four_channel_map_leaves_no_group_idle(factor):
+    """At 4 channels a block is 64 groups of 8 lanes: at F = 64 each group
+    runs one branch of the step's one part, at F = 32 one branch of one of
+    its two parts; every (branch, part) runs once."""
+    groups = front.fir_group_items(factor, cg=4)
+    busy, parts = front.fir_parts(factor, cg=4)
+    assert len(groups) == 64 and all(len(g) == 1 for g in groups)
+    items = sorted(it for g in groups for it in g)
+    assert items == sorted((p, q) for p in range(factor)
+                           for q in range(parts))
+
+
+@pytest.mark.parametrize("cell", ["usb_64ch", "usb_nb_i16_64ch", "none_64ch"])
+def test_four_channel_plan_covers_every_output_once(cell):
+    """The plan of 4-channel items at the new cells' shapes: every output
+    made once per channel group, 16 groups of 4 channels at 64 channels,
+    at least two items per H100 SM."""
+    t, c, f, ntaps, bw, elem = {
+        "usb_64ch": (1 << 20, 64, 64, 2007, 0, 4),
+        "usb_nb_i16_64ch": (1 << 20, 64, 64, 2007, 7, 2),
+        "none_64ch": (1 << 20, 64, 32, 1159, 0, 4)}[cell]
+    plan = front.fir_march_plan(t, c, f, ntaps, nb_bw=bw, elem=elem)
+    m, km = t // f, plan["step_outputs"]
+    count = np.zeros(m, np.int64)
+    for (o_s, o_e), steps in zip(plan["segments"], plan["steps"]):
+        for j in range(steps):
+            o = np.arange(o_s + km * j, o_s + km * (j + 1))
+            count[o[o < o_e]] += 1
+    assert (count == 1).all()
+    assert plan["groups"] == 16 and plan["layout"]["cg"] == 4
+    assert plan["items"] >= 264
+    assert plan["prologue_rows"] == plan["layout"]["hist"] + max(bw - 1, 0)

@@ -5,7 +5,9 @@ blanker; its first pass front_means alone; the stereo tail K2; the K1
 probes) against their plain PyTorch versions, the wrappers' refusals of
 what the kernels do not take (unaligned planes, the floor's lanes % 4),
 and the AM, WFM, WFM hq and WFM+RDS receivers on the card against the CPU
-(with the front options, int16, folded and unaligned entry planes too).
+(with the front options, int16, folded and unaligned entry planes too),
+and the narrowband receivers (SSB, CW, DIG, DSB, NONE, SAM) on the card
+against the CPU.
 
 They skip where CUDA is absent (the kernels have no CPU mode).  This file
 imports no jax, so it also runs on a machine that has only the port:
@@ -137,6 +139,48 @@ def test_receiver_on_card_matches_cpu(cuda):
     assert front.fused_front.launches == before + 2
 
 
+@pytest.mark.parametrize("mode,opts", [
+    (DemodMode.USB, {}), (DemodMode.LSB, {}), (DemodMode.CWU, {}),
+    (DemodMode.DIGL, {}), (DemodMode.DSB, {}), (DemodMode.NONE, {}),
+    (DemodMode.SAM, dict(sam_sideband="analytic")),
+    (DemodMode.SAM, dict(sam_sideband="rails"))],
+    ids=["usb", "lsb", "cwu", "digl", "dsb", "none", "sam", "sam_rails"])
+def test_narrowband_receivers_on_card_match_cpu(cuda, mode, opts):
+    """The narrowband modes on the card against the CPU Receiver: the
+    bounds of tests/test_chain_batched.py:58-69 (SAM audio 2e-3 of its
+    scale, the PLL-mode bound), after a CPU warm-up block carried to both;
+    K1 launches once per dispatch."""
+    n, c = 8192, 4
+    cfg = ReceiverConfig(sample_rate=FS, frames_per_buffer=n, channels=c,
+                         agc_stride=16, mode=mode, **opts)
+    cpu, gpu = Receiver(cfg, "cpu"), Receiver(cfg, cuda)
+    pc, pg = cpu.default_params(250_000.0), gpu.default_params(250_000.0)
+    rng = np.random.default_rng(8)
+    sc, _ = cpu.step_many(cpu.init_state(), pc, _am_plane(c, n, rng))
+    sg = convert.state_from_numpy(gpu, convert.state_to_numpy(sc))
+    before = front.fused_front.launches
+    for k in (3, 9):
+        x = _am_plane(c, k * n, rng)
+        sc, oc = cpu.step_many(sc, pc, x)
+        sg, og = gpu.step_many(sg, pg, x.to(cuda))
+        err = float((og["audio"].cpu() - oc["audio"]).abs().max())
+        if mode == DemodMode.SAM:
+            assert err < 2e-3 * max(float(oc["audio"].abs().max()), 1e-6)
+        else:
+            assert err < 2e-4
+        for key in ("spectrum", "zoomed"):
+            assert float((og[key].cpu() - oc[key]).abs().max()) < 0.1
+        assert float((og["smeter"]["snr_db"].cpu()
+                      - oc["smeter"]["snr_db"]).abs().max()) < 0.1
+        assert torch.equal(og["squelch_open"].cpu(), oc["squelch_open"])
+        for a, b in zip(convert.state_to_numpy(sg), convert.state_to_numpy(sc)):
+            d = np.abs(a.astype(np.complex128) - b.astype(np.complex128))
+            if mode == DemodMode.SAM:     # phases compared modulo 2 pi
+                d = np.minimum(d, np.abs(d - 2 * np.pi))
+            assert d.max(initial=0.0) < 1e-4
+    assert front.fused_front.launches == before + 2
+
+
 def test_matmuls_are_ieee_float32(cuda):
     """The receive chain's matmuls must not run in TF32."""
     assert not torch.backends.cuda.matmul.allow_tf32
@@ -151,8 +195,9 @@ def test_shared_memory_layouts_match_the_sources(cuda):
     import ctypes
     lib = front._lib()
     out = (ctypes.c_int * 9)()
+    fout = (ctypes.c_int * 10)()
     for ntaps, factor in ((20, 4), (9, 8), (30, 2), (283, 8), (711, 32),
-                          (135, 4), (200, 2)):
+                          (135, 4), (200, 2), (2007, 64), (1159, 32)):
         for nb in (False, True):
             for elem in (4, 2):
                 lay = front.fir_march_layout(ntaps, factor, nb, elem)
@@ -164,16 +209,16 @@ def test_shared_memory_layouts_match_the_sources(cuda):
                     plan = front.fir_march_plan(t, c, factor, ntaps, 132,
                                                 7 if nb else 0, elem)
                     r = lib.front_fir_plan(t, c, ntaps, factor, int(nb),
-                                           int(elem == 2), 132, out)
+                                           int(elem == 2), 132, fout)
                     if plan is None:
                         assert r == -1
                         continue
                     lay = plan["layout"]
-                    assert r == 0 and list(out) == [
+                    assert r == 0 and list(fout) == [
                         plan["seg_outputs"], len(plan["segments"]),
                         plan["items"], plan["grid"], plan["step_rows"],
                         lay["hist"], lay["ring_rows"], lay["stages"],
-                        lay["box_rows"]]
+                        lay["box_rows"], lay["cg"]]
     tlib = wfm_tail._lib()
     tout = (ctypes.c_int * 11)()
     for ntaps, factor, ell in ((235, 4, 256), (31, 4, 128), (235, 2, 256),
@@ -221,7 +266,8 @@ def test_shared_memory_layouts_match_the_sources(cuda):
 
 # front_fir's seams: (C, blocks of 2048 rows, plan, dtype, blanker); the
 # plans: "am" F = 32, "wfm" F = 8, "hq" F = 4, "f2" a 30-tap response at
-# F = 2
+# F = 2, and on items of 4 channels "usb" F = 64 (2007 taps) and "none"
+# F = 32 (1159 taps)
 MARCH_CASES = {
     "am_c8_seams": (8, 12, "am", "f32", None),
     "am_c64_short_last": (64, 4, "am", "f32", None),
@@ -237,7 +283,17 @@ MARCH_CASES = {
     "am_c16_nb1_seams": (16, 16, "am", "f32", "blank"),
     "wfm_c13_nb2_seams": (13, 16, "wfm", "f32", "average"),
     "am_i16_c8_nb1": (8, 12, "am", "i16", "blank"),
+    "usb_c64": (64, 24, "usb", "f32", None),
+    "usb_c5_elements": (5, 16, "usb", "f32", None),
+    "usb_i16_c64_tma": (64, 16, "usb", "i16", None),
+    "usb_i16_c12_elements": (12, 16, "usb", "i16", None),
+    "usb_c16_nb1_seams": (16, 24, "usb", "f32", "blank"),
+    "usb_i16_c8_nb1": (8, 16, "usb", "i16", "blank"),
+    "none_c64": (64, 16, "none", "f32", None),
+    "none_c13_nb2_seams": (13, 16, "none", "f32", "average"),
 }
+MARCH_PROTECT = {"am": 30_000, "wfm": 200_000, "hq": 400_000, "usb": 20_000,
+                 "none": 48_000}
 
 
 @pytest.mark.parametrize("case", list(MARCH_CASES))
@@ -256,7 +312,7 @@ def test_front_fir_march_matches_plain_across_seams(cuda, case):
         h = np.random.default_rng(3).standard_normal(30) / 30
         plan = front.FrontPlan.make(h, 2, cuda)
     else:
-        plan = _plan(cuda, {"am": 30_000, "wfm": 200_000, "hq": 400_000}[kind])
+        plan = _plan(cuda, MARCH_PROTECT[kind])
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     bw = 7 if mode else 0
     mp = front.fir_march_plan(t, c, plan.factor, plan.h.numel(), sms, bw,

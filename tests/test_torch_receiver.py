@@ -190,7 +190,7 @@ def test_folded_plane_rejected():
                      torch.zeros(N // 2, 4 * C))
 
 
-@pytest.mark.parametrize("kw", [dict(mode=DemodMode.USB),
+@pytest.mark.parametrize("kw", [dict(mode=DemodMode.FMN),
                                 dict(frames_per_buffer=3072),
                                 dict(spectrum_bins=4096),
                                 dict(agc_mode="long")])
@@ -228,6 +228,9 @@ def test_port_imports_no_jax():
         "x = torch.from_numpy(np.random.default_rng(0).standard_normal("
         "(8192, 4)).astype(np.float32))\n"
         "for mode, shape, hq in ((DemodMode.AM, (2,), False),\n"
+        "                        (DemodMode.SAM, (2,), False),\n"
+        "                        (DemodMode.USB, (2,), False),\n"
+        "                        (DemodMode.NONE, (2,), False),\n"
         "                        (DemodMode.FMS, (2, 2), False),\n"
         "                        (DemodMode.FMS, (2, 2), True)):\n"
         "    rx = Receiver(ReceiverConfig(sample_rate=2048000, "

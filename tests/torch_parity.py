@@ -1,0 +1,131 @@
+"""Shared harness of the narrowband receiver parity tests
+(test_torch_ssb.py, test_torch_sam.py, test_torch_narrow.py): the port's
+CPU Receiver against the JAX Receiver built with use_pallas=True (the fused
+front in interpret mode, batched step_many), as tests/test_chain_batched.py
+does.  One JAX step() warms the chain up (compared with the port's step()),
+its state is carried into the port with utils.convert, then dispatches of K
+blocks (odd K keeps the JAX time-fold at 1 for C = 4) are compared with the
+bounds of tests/test_chain_batched.py:58-69."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from pebblesdr_tpu.chain.receiver import Receiver as JaxReceiver
+from pebblesdr_tpu.chain.receiver import ReceiverConfig as JaxConfig
+from pebblesdr_tpu.demod.modes import DemodMode as JaxMode
+from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
+from pebblesdr_tpu_torch.demod.modes import DemodMode
+from pebblesdr_tpu_torch.utils import convert
+
+FS, N, C = 2_048_000, 8192, 4
+TUNE = 250_000.0
+KW = dict(sample_rate=FS, frames_per_buffer=N, channels=C, agc_stride=16)
+
+
+def tone_plane(k: int, seed: int, offset_hz: float, am: bool = False,
+               noise: float = 1e-2) -> np.ndarray:
+    """[k*N, 2C] packed plane: a tone at TUNE + offset_hz (am: a carrier
+    there with 1 kHz AM, m = 0.8, instead), per-channel level, plus complex
+    white noise."""
+    t = np.arange(k * N) / FS
+    sig = np.exp(2j * np.pi * (TUNE + offset_hz) * t)
+    if am:
+        sig = sig * 0.5 * (1 + 0.8 * np.cos(2 * np.pi * 1000.0 * t)) / 2
+    else:
+        sig = 0.3 * sig
+    x = np.stack([sig * (0.5 + 0.2 * i) for i in range(C)], axis=1)
+    rng = np.random.default_rng(seed)
+    x = x + noise * (rng.standard_normal(x.shape)
+                     + 1j * rng.standard_normal(x.shape))
+    return np.concatenate([x.real, x.imag], axis=1).astype(np.float32)
+
+
+def jleaves(tree):
+    return [np.asarray(a) for a in jax.tree_util.tree_leaves(tree)]
+
+
+def run(mode: DemodMode, plane, ks=(3,), **cfg):
+    """{"step": (jax out, port out, None, None), K: (jax out, port out,
+    jax state leaves, port state leaves)} for the mode, plane(k, seed)
+    giving each dispatch's input."""
+    jrx = JaxReceiver(JaxConfig(mode=JaxMode[mode.name], use_pallas=True,
+                                **KW, **cfg))
+    trx = Receiver(ReceiverConfig(mode=mode, **KW, **cfg), "cpu")
+    jp = jrx.default_params(TUNE)
+    tp = convert.params_from_numpy(trx, jleaves(jp))
+    x0 = plane(1, 7)
+    jst, jo = jax.jit(jrx.step)(jrx.init_state(), jp, jnp.asarray(x0))
+    _, to = trx.step(trx.init_state(), tp, torch.from_numpy(x0))
+    res = {"step": (jo, to, None, None)}
+    tst = convert.state_from_numpy(trx, jleaves(jst))
+    for i, k in enumerate(ks):
+        x = plane(k, i)
+        jst, jo = jrx._step_many_impl(jst, jp, jnp.asarray(x))
+        tst, to = trx.step_many(tst, tp, torch.from_numpy(x))
+        res[k] = (jo, to, jleaves(jst), convert.state_to_numpy(tst))
+    return res
+
+
+def check_audio(jo, to, tol: float = 2e-4, rel: bool = False) -> float:
+    """Audio within tol absolute (rel: of the JAX audio's scale); returns
+    the scale."""
+    a, b = np.asarray(jo["audio"]), to["audio"].numpy()
+    assert a.shape == b.shape
+    scale = max(float(np.abs(a).max()), 1e-6)
+    assert np.abs(a - b).max() < tol * (scale if rel else 1.0)
+    return scale
+
+
+def check_spectra(jo, to) -> None:
+    for key in ("spectrum", "zoomed"):
+        a, b = np.asarray(jo[key]), to[key].numpy()
+        assert a.shape == b.shape
+        assert np.abs(a - b).max() < 0.1, key
+    assert np.array_equal(np.asarray(jo["overload"]), to["overload"].numpy())
+
+
+def check_smeter_and_squelch(jo, to) -> None:
+    assert set(jo["smeter"]) == set(to["smeter"])
+    for key in jo["smeter"]:
+        assert np.abs(np.asarray(jo["smeter"][key])
+                      - to["smeter"][key].numpy()).max() < 0.1, key
+    assert np.array_equal(np.asarray(jo["squelch_open"]),
+                          to["squelch_open"].numpy())
+
+
+def leaf_index(state, *path) -> int:
+    """The index of the leaf at field path `path` of the port state in the
+    flatten order (convert.leaves)."""
+    i = 0
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if f.name == path[0]:
+            return i + (leaf_index(v, *path[1:]) if path[1:] else 0)
+        i += len(convert.leaves(v))
+    raise KeyError(path)
+
+
+def check_state(js, ts, angles=()) -> None:
+    """Every carried leaf within 1e-4; the leaves at indices `angles`
+    (phases) compared modulo 2 pi."""
+    assert len(js) == len(ts)
+    for i, (a, b) in enumerate(zip(js, ts)):
+        assert a.shape == b.shape and a.dtype == b.dtype, i
+        d = np.abs(a.astype(np.complex128) - b.astype(np.complex128))
+        if i in angles:
+            d = np.abs(np.angle(np.exp(1j * (a.astype(np.float64)
+                                              - b.astype(np.float64)))))
+        assert d.max(initial=0.0) < 1e-4, (i, d.max())
+
+
+def tone_fit(x: np.ndarray, f: float, fs: float):
+    """Least-squares amplitude of a tone at f in x, and the residual."""
+    t = np.arange(len(x)) / fs
+    m = np.stack([np.cos(2 * np.pi * f * t), np.sin(2 * np.pi * f * t),
+                  np.ones_like(t)], axis=1)
+    coef, *_ = np.linalg.lstsq(m, x, rcond=None)
+    return float(np.hypot(coef[0], coef[1])), x - m @ coef
