@@ -117,7 +117,26 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      32768 frames, the bench signal) and usb_64ch (USB at the same shape,
      AGC off, a 0.4 tone at carrier + 1.5 kHz: the audio's amplitude held to
      0.4 sqrt(2) within 10 %), windows interleaved, each with a profile of
-     its dispatches.
+     its dispatches;
+ 28. the receivers of the batched graph's last modes and options on the
+     card against the same receivers on the CPU (4 channels, 8192-frame
+     blocks, dispatches of 3 then 9 blocks; RDS 32768-frame blocks, 3):
+     FMN with the CTCSS tone squelch (float32 and int16 entry; channels 0-1
+     carry the 123.0 Hz tone, 2-3 the 127.3 Hz neighbour, after a CPU
+     warm-up that lets the EWMA settle, every compared block's power ratio
+     asserted far from the decision's 4, squelch_open and ctcss_open equal),
+     FMM at the default and the hq geometry, FMS with stereo=False and the
+     RDS tap, AM with the ANF and AGC "long", USB with AGC "long"; K1
+     launched once per dispatch (its base form), K2 never;
+ 29. the timed cells nfm_ctcss_64ch (FMN with a 123.0 Hz CTCSS tone, 64
+     channels, 32 blocks of 32768 frames: NFM voice at 3 kHz deviation and
+     the sub-tone at 500 Hz, in noise; tone SNR over 300 Hz-3 kHz, the
+     CTCSS squelch open on every channel), fmm_64ch (FMM on the WFM bench
+     signal) and am_anf_long_64ch (AM with the ANF and AGC "long": the
+     ANF's weights adapted; its SNR printed), windows interleaved, each
+     with a profile of its dispatches; first K1's base form at fmm_64ch's
+     plan (factor 8, 283 taps) against its plain version, both timed.
+Each phase's seconds and the running total are printed after it.
 Each receiver phase sets every kernel's launch count to 0 just before it
 drives the receiver and reads the counts just after (front_means and
 front_dc_scan count their launches inside K1 as well; front_comp counts
@@ -156,6 +175,9 @@ HQ_SEPARATION_DB = 40.0  # at the hq geometry (tests/test_chain.py:415; JAX
 #                          package: 47.4 dB)
 SOFT_RTOL = 1e-3         # RDS soft symbols, card vs CPU, of their scale
 RDS_SLICE = dict(channels=4, frames=32768, blocks=3)
+CTCSS_TONE, CTCSS_NEIGHBOUR = 123.0, 127.3   # Hz, neighbours in the table
+CTCSS_WARM = (33,) * 5   # CPU warm-up dispatches before a CTCSS slice
+#                          (~0.66 s at 8192 frames: the 0.25 s EWMA settles)
 KERNELS = ("front", "wfm_tail")
 MEANS_ATOL = 1e-6        # front_means' float32 means vs plain, of max |x|
 NB1 = (3.3, 7, 0.001, "blank")     # the Receiver's NB1 (threshold, width,
@@ -179,6 +201,19 @@ WFM_CELLS = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class Clock:
+    """Logs the seconds each phase took and the run's total so far."""
+
+    def __init__(self, t0: float):
+        self.t0 = self.t = t0
+
+    def __call__(self, what: str) -> None:
+        now = time.perf_counter()
+        log(f"{what} took {now - self.t:.1f} s ({now - self.t0:.1f} s since "
+            f"the build started)")
+        self.t = now
 
 
 def rel_err(got, ref) -> float:
@@ -261,9 +296,10 @@ def to_i16(plane: np.ndarray, scale: float = 32768.0) -> np.ndarray:
     return np.clip(np.round(plane * scale), -32768, 32767).astype(np.int16)
 
 
-def tone_snr_db(audio: np.ndarray, rate: float, f0: float = 1000.0) -> float:
+def tone_snr_db(audio: np.ndarray, rate: float, f0: float = 1000.0,
+                band: tuple = (100.0, None)) -> float:
     """Least-squares fit of a tone (cos, sin) at f0; SNR of the fit against
-    the residual above 100 Hz."""
+    the residual in band (lo, hi) Hz (default: above 100 Hz)."""
     t = np.arange(len(audio)) / rate
     basis = np.stack([np.cos(2 * np.pi * f0 * t), np.sin(2 * np.pi * f0 * t),
                       np.ones_like(t)], axis=1)
@@ -271,7 +307,10 @@ def tone_snr_db(audio: np.ndarray, rate: float, f0: float = 1000.0) -> float:
     fit = basis[:, :2] @ coef[:2]
     res = audio - basis @ coef
     spec = np.fft.rfft(res)
-    spec[np.fft.rfftfreq(len(res), 1 / rate) <= 100.0] = 0.0
+    freqs = np.fft.rfftfreq(len(res), 1 / rate)
+    spec[freqs <= band[0]] = 0.0
+    if band[1] is not None:
+        spec[freqs > band[1]] = 0.0
     res_hp = np.fft.irfft(spec, n=len(res))
     return float(10 * np.log10(np.mean(fit ** 2) / max(np.mean(res_hp ** 2),
                                                         1e-30)))
@@ -352,21 +391,60 @@ def phase_front(torch, front, decimator) -> dict:
     return {"plan": plan, "f_hi": f_hi, "f_lo": f_lo, "max_abs_err": max_abs}
 
 
+def nfm_plane(channels: int, n_rows: int, rng, noise: float = 0.0,
+              tones=(CTCSS_TONE,), t0: float = 0.0):
+    """[n_rows, 2C] float32 packed plane: narrowband FM at 250 kHz on every
+    channel, a 1 kHz voice tone at 3 kHz deviation plus a CTCSS sub-tone at
+    500 Hz deviation (channel i carries tones[i % len(tones)]), amplitude
+    0.5, with optional real white noise on every lane.  t0: start time."""
+    t = t0 + np.arange(n_rows) / FS
+    cols = {}
+    for tone in dict.fromkeys(tones):
+        dev = (3000.0 * np.sin(2 * np.pi * 1000.0 * t)
+               + 500.0 * np.sin(2 * np.pi * tone * t))
+        cols[tone] = 0.5 * np.exp(1j * (2 * np.pi * 250_000.0 * t
+                                        + 2 * np.pi * np.cumsum(dev) / FS))
+    iq = np.stack([cols[tones[i % len(tones)]] for i in range(channels)], 1)
+    plane = np.concatenate([iq.real, iq.imag], axis=1)
+    if noise:
+        plane = plane + noise * rng.standard_normal(plane.shape)
+    return plane.astype(np.float32)
+
+
+def ctcss_ratios(torch, goertzel, cfg, state, audio) -> np.ndarray:
+    """[K, C] the CTCSS tone's power over the larger neighbour's after each
+    block of pre-gate audio [K, C, M], from state (the decision compares it
+    with the config's nb_ratio, 4)."""
+    ratios = []
+    for block in audio:
+        state, _ = goertzel.ctcss_update(cfg, state, block)
+        p = (state.iq.double() ** 2).sum(-1)
+        ratios.append((p[:, 0] / torch.maximum(p[:, 1], p[:, 2])).numpy())
+    return np.stack(ratios)
+
+
 def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
                 entry: str | None = None, rx_opts: dict | None = None,
                 tag: str | None = None) -> int:
     """Phases 3 (AM), 8 (FMS), 13 (AM with an entry option: "nb1_iq",
-    "i16" or "folded"), 17 (FMS at the hq geometry), 18 (FMS with RDS) and
-    26 (the narrowband modes): the receiver on the card vs on the CPU;
-    returns K1's launches over the compared dispatches.
+    "i16" or "folded"), 17 (FMS at the hq geometry), 18 (FMS with RDS), 26
+    (the narrowband modes) and 28 (FMN with CTCSS, mono WFM, the ANF and
+    AGC "long"): the receiver on the card vs on the CPU; returns K1's
+    launches over the compared dispatches.
     SAM's audio is held to 2e-3 of its scale (the PLL-mode bound of
     tests/test_chain_batched.py:114-118) and its carried phases modulo
-    2 pi."""
-    wfm = mode.name == "FMS"
+    2 pi.  With a CTCSS tone the CPU warm-up is CTCSS_WARM dispatches
+    (the 0.25 s EWMA settles), and every compared block's tone-to-
+    neighbour power ratio is asserted far from the decision's 4 first,
+    from the pre-gate audio of a twin CPU receiver without the tone
+    squelch."""
+    from pebblesdr_tpu_torch.ops import goertzel
+    rx_opts = rx_opts or {}
+    fm = mode.name in ("FMS", "FMM")
+    stereo = mode.name == "FMS" and rx_opts.get("stereo", True)
     sam = mode.name == "SAM"
     tag = tag or (f"phase13 slice {entry}" if entry else
-                  "phase8 WFM slice" if wfm else "phase3 slice")
-    rx_opts = rx_opts or {}
+                  "phase8 WFM slice" if fm else "phase3 slice")
     use_rds = bool(rx_opts.get("rds"))
     c, n = SLICE["channels"], SLICE["frames"]
     dispatches = SLICE["dispatches"]
@@ -382,7 +460,8 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
                                   **opts, **rx_opts)
     rx_cpu = receiver.Receiver(cfg, "cpu")
     rx_gpu = receiver.Receiver(cfg, "cuda")
-    rng = np.random.default_rng(5 if wfm else 2)
+    ctcss = rx_cpu.ctcss_cfg
+    rng = np.random.default_rng(5 if fm else 2)
     params_c = rx_cpu.default_params(250_000.0)
     params_g = rx_gpu.default_params(250_000.0)
     if entry == "nb1_iq":
@@ -394,9 +473,15 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
     t0 = [0.0]
 
     def plane(rows):
-        x = (wfm_plane(c, rows, rng, 1e-2, t0=t0[0],
-                       program="rds" if use_rds else "left") if wfm
-             else am_plane(c, rows, rng, 1e-2))
+        if fm:
+            x = wfm_plane(c, rows, rng, 1e-2, t0=t0[0], program=(
+                "rds" if use_rds else "left" if stereo else "mono"))
+        elif mode.name == "FMN":
+            x = nfm_plane(c, rows, rng, 1e-2, t0=t0[0],
+                          tones=(CTCSS_TONE, CTCSS_TONE, CTCSS_NEIGHBOUR,
+                                 CTCSS_NEIGHBOUR))
+        else:
+            x = am_plane(c, rows, rng, 1e-2)
         t0[0] += rows / FS
         return impulsive(x, n) if entry == "nb1_iq" else x
 
@@ -407,11 +492,20 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
             return front.fold_plane_np(x, 3)
         return x
 
-    # a one-block warm-up on the CPU, carried to both, so no compared
-    # dispatch starts from the zero state's filter leading edge
-    st_c, _ = rx_cpu.step_many(rx_cpu.init_state(), params_c,
-                               torch.from_numpy(plane(n)))
+    # a warm-up on the CPU (one block; CTCSS_WARM dispatches with a CTCSS
+    # tone), carried to both, so no compared dispatch starts from the zero
+    # state's filter leading edge
+    st_c = rx_cpu.init_state()
+    for k in (CTCSS_WARM if ctcss else (1,)):
+        st_c, _ = rx_cpu.step_many(st_c, params_c,
+                                   torch.from_numpy(plane(k * n)))
     st_g = convert.state_from_numpy(rx_gpu, convert.state_to_numpy(st_c))
+    if ctcss:
+        twin = receiver.Receiver(dataclasses.replace(cfg, ctcss_tone=None),
+                                 "cpu")
+        # the twin's state: all but the CTCSS leaves (the last field)
+        st_t = convert.state_from_numpy(twin,
+                                        convert.state_to_numpy(st_c)[:-2])
     k1_launches = 0
     for k in dispatches:
         x = torch.from_numpy(entry_plane(plane(k * n)))
@@ -420,6 +514,17 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
                                          params_c.iq_gain, params_c.iq_phase)
             assert_margin(front.nb_flags(z, rx_cpu.nb_params, *st_c.nb),
                           rx_cpu.nb_params, tag)
+        if ctcss:
+            st_t, out_t = twin.step_many(st_t, params_c, x)
+            r = ctcss_ratios(torch, goertzel, ctcss, st_c.ctcss,
+                             out_t["audio"])
+            near = int(((r > 0.5) & (r < 8.0)).sum())
+            log(f"{tag} K={k}: CTCSS power ratio per block and channel "
+                f"{r.min():.3g}..{r.max():.3g}, {near} within (0.5, 8) of "
+                f"the decision's {ctcss.nb_ratio:g}")
+            if near:
+                raise RuntimeError(f"{tag}: CTCSS ratio too near the "
+                                   f"threshold")
         st_c, out_c = rx_cpu.step_many(st_c, params_c, x)
         reset_launches(front, wfm_tail)
         st_g, out_g = rx_gpu.step_many(st_g, params_g, x.cuda())
@@ -427,7 +532,7 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
         launches = (front.fused_front.launches, wfm_tail.wfm_tail.launches,
                     front.chunk_means.launches)
         k1_launches += launches[0]
-        if launches != (1, 1 if wfm else 0, 1):
+        if launches != (1, 1 if stereo else 0, 1):
             raise RuntimeError(f"{tag}: launches (K1, K2, front_means) = "
                                f"{launches}")
         d_audio = float((out_g["audio"].cpu() - out_c["audio"]).abs().max())
@@ -436,7 +541,8 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
         d_db["snr"] = float((out_g["smeter"]["snr_db"].cpu()
                              - out_c["smeter"]["snr_db"]).abs().max())
         same = {key: bool((out_g[key].cpu() == out_c[key]).all())
-                for key in ("squelch_open", "pilot_locked", "rds_timing")
+                for key in ("squelch_open", "pilot_locked", "rds_timing",
+                            "ctcss_open")
                 if key in out_c}
         if use_rds:
             scale = float(out_c["rds_soft"].abs().max())
@@ -446,6 +552,14 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
             log(f"{tag} K={k}: rds_soft {tuple(out_g['rds_soft'].shape)} "
                 f"relative {d_soft:.3g} (<= {SOFT_RTOL}) of scale "
                 f"{scale:.4g}, rds_timing equal {same['rds_timing']}")
+        if ctcss:
+            opened = out_c["ctcss_open"]
+            same["ctcss_tone_channels"] = bool(
+                opened[:, :c // 2].all() and not opened[:, c // 2:].any())
+        if rx_opts.get("enable_anf"):
+            w = float(st_g.anf.weights.abs().max())
+            same["anf_adapted"] = w > 1e-3
+            log(f"{tag} K={k}: ANF max |w| {w:.4g} (> 1e-3)")
         d_state = 0.0
         for a, b in zip(convert.state_to_numpy(st_g),
                         convert.state_to_numpy(st_c)):
@@ -456,7 +570,8 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
                 d_state = max(d_state, float(d.max()))
         audio_tol = (2e-3 * max(float(out_c["audio"].abs().max()), 1e-6)
                      if sam else 2e-4)
-        log(f"{tag} K={k}: audio {d_audio:.3g} (<= {audio_tol:.3g}), dB "
+        log(f"{tag} K={k}: audio {d_audio:.3g} (<= {audio_tol:.3g}) of "
+            f"scale {float(out_c['audio'].abs().max()):.3g}, dB "
             + " ".join(f"{kk}={v:.3g}" for kk, v in d_db.items())
             + f" (<= 0.1), equal {same}, state {d_state:.3g} (<= 1e-4)")
         if not (d_audio <= audio_tol and max(d_db.values()) <= 0.1
@@ -479,32 +594,44 @@ def assert_margin(fl, nb, tag: str) -> None:
 
 def make_cell(torch, receiver, front, mode, name: str, channels: int,
               blocks: int, entry: str = "f32", opts: dict | None = None,
-              tone: tuple | None = None):
+              tone: tuple | None = None, plane=None,
+              checks: dict | None = None):
     """One timed cell: a receiver on the card and its dispatch plane (one
     bench signal block repeated, as float32, int16 or folded by 4).  tone =
     (offset Hz, amplitude, audio Hz, audio amplitude): the block is that
     tone above the 250 kHz carrier instead, and the cell's audio is held to
-    that frequency and amplitude (within 10 %)."""
+    that frequency and amplitude (within 10 %).  plane: a function
+    (channels, rows) giving the whole dispatch's plane instead (a signal
+    whose period is not a block).  checks: "snr_band" (lo, hi) Hz of the
+    tone SNR's residual, "snr" False to print the SNR unchecked, "ctcss"
+    True to require ctcss_open on every channel, "anf" True to require
+    the ANF's max |w| > 1e-3."""
     n = HEADLINE["frames"]
-    wfm = mode.name == "FMS"
+    opts = opts or {}
+    wfm = mode.name == "FMS" and opts.get("stereo", True)   # stereo
     cfg = receiver.ReceiverConfig(sample_rate=FS, frames_per_buffer=n,
                                   channels=channels, mode=mode,
-                                  agc_stride=HEADLINE["agc_stride"],
-                                  **(opts or {}))
+                                  agc_stride=HEADLINE["agc_stride"], **opts)
     rx = receiver.Receiver(cfg, "cuda")
-    block = (tone_plane(channels, n, *tone[:2]) if tone else
-             (wfm_plane if wfm else am_plane)(channels, n, None))
-    if entry == "i16":
-        block = to_i16(block)
-    if entry == "fold4":       # bench.py:130-146: G blocks side by side
-        iq = torch.from_numpy(front.fold_plane_np(np.tile(block, (4, 1)), 4))
-        iq = iq.cuda().repeat(blocks // 4, 1).contiguous()
+    fm = mode.name in ("FMS", "FMM")
+    if plane is not None:
+        iq = torch.from_numpy(plane(channels, blocks * n)).cuda()
     else:
-        iq = torch.from_numpy(block).cuda().repeat(blocks, 1).contiguous()
+        block = (tone_plane(channels, n, *tone[:2]) if tone else
+                 (wfm_plane if fm else am_plane)(channels, n, None))
+        if entry == "i16":
+            block = to_i16(block)
+        if entry == "fold4":       # bench.py:130-146: G blocks side by side
+            iq = torch.from_numpy(front.fold_plane_np(np.tile(block, (4, 1)),
+                                                      4))
+            iq = iq.cuda().repeat(blocks // 4, 1).contiguous()
+        else:
+            iq = torch.from_numpy(block).cuda().repeat(blocks, 1).contiguous()
     return {"name": name, "rx": rx, "cfg": cfg, "wfm": wfm, "tone": tone,
             "params": rx.default_params(250_000.0), "iq": iq,
             "blocks": blocks, "channels": channels, "state": rx.init_state(),
-            "out": None, "i": 0, "launches": [0, 0, 0, 0, 0], "windows": []}
+            "out": None, "i": 0, "launches": [0, 0, 0, 0, 0], "windows": [],
+            "checks": checks or {}}
 
 
 def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
@@ -545,7 +672,7 @@ def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
         scans = 2 if cell["cfg"].enable_noise_blanker else 1
         if launches != (n_dispatch, n_dispatch if wfm else 0, n_dispatch,
                         scans * n_dispatch,
-                        n_dispatch if cell["cfg"].wfm_hq else 0):
+                        n_dispatch if wfm and cell["cfg"].wfm_hq else 0):
             raise RuntimeError(f"{tag} {cell['name']}: launches (K1, K2, "
                                f"front_means, front_dc_scan, front_comp) "
                                f"{launches} for {n_dispatch} dispatches")
@@ -586,16 +713,35 @@ def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
                                    f"{tuple(soft.shape)}")
             log(f"{tag} {cell['name']} rds_soft {tuple(soft.shape)} finite, "
                 f"{n_sym} symbols per block per channel")
+        checks = cell["checks"]
+        if checks.get("ctcss"):
+            opened = out["ctcss_open"]
+            log(f"{tag} {cell['name']} ctcss_open on {int(opened.sum())} of "
+                f"{opened.numel()} blocks x channels of the last dispatch")
+            if not bool(opened.all()):
+                raise RuntimeError(f"{tag} {cell['name']}: the CTCSS "
+                                   f"squelch is closed")
+        if checks.get("anf"):
+            w = float(cell["state"].anf.weights.abs().max())
+            log(f"{tag} {cell['name']} ANF max |w| {w:.4g} (> 1e-3)")
+            if not w > 1e-3:
+                raise RuntimeError(f"{tag} {cell['name']}: the ANF did not "
+                                   f"adapt")
         tone = audio[:, 0, 0, :] if wfm else audio[:, 0, :]  # WFM: L channel
         tone = tone.reshape(-1).double().cpu().numpy()
         f0, want = (cell["tone"][2:] if cell["tone"] else (1000.0, None))
-        snr = tone_snr_db(tone, cell["cfg"].audio_rate, f0)
+        band = checks.get("snr_band", (100.0, None))
+        snr = tone_snr_db(tone, cell["cfg"].audio_rate, f0, band)
         amp = tone_amplitude(tone, cell["cfg"].audio_rate, f0)
-        log(f"{tag} {cell['name']} {f0:g} Hz tone SNR {snr:.2f} dB (>= "
-            f"{TONE_SNR_DB}), amplitude {amp:.5f}"
+        check_snr = checks.get("snr", True)
+        log(f"{tag} {cell['name']} {f0:g} Hz tone SNR {snr:.2f} dB "
+            + (f"(>= {TONE_SNR_DB}) " if check_snr else "(not checked) ")
+            + f"over {band[0]:g}-{band[1] or cell['cfg'].audio_rate / 2:g} "
+            f"Hz, amplitude {amp:.5f}"
             + (f" (want {want:.5f} within 10 %)" if want else "")
             + f", S-meter SNR {float(out['smeter']['snr_db'][-1, 0]):.2f} dB")
-        if not snr >= TONE_SNR_DB:
+        cell["snr_db"] = snr
+        if check_snr and not snr >= TONE_SNR_DB:
             raise RuntimeError(f"{tag} {cell['name']}: tone SNR below its "
                                f"bound")
         if want and not abs(amp - want) <= 0.1 * want:
@@ -1879,6 +2025,90 @@ def phase_narrow_cells(torch, receiver, front, wfm_tail, DemodMode) -> dict:
 
 
 
+# phase 28's receivers: (tag, mode name, receiver options, entry)
+NEW_SLICES = (("FMN ctcss", "FMN", dict(ctcss_tone=CTCSS_TONE), None),
+              ("FMN ctcss i16", "FMN", dict(ctcss_tone=CTCSS_TONE), "i16"),
+              ("FMM", "FMM", {}, None),
+              ("FMM hq", "FMM", dict(wfm_hq=True), None),
+              ("FMS mono rds", "FMS", dict(stereo=False, rds=True), None),
+              ("AM anf long", "AM", dict(enable_anf=True, agc_mode="long"),
+               None),
+              ("USB long", "USB", dict(agc_mode="long"), None))
+# phase 29's cells: (name, mode name, options, dispatch plane or None for
+# the bench block repeated, checks).  nfm_ctcss_64ch's plane is one
+# continuous dispatch (the 123 Hz sub-tone has no whole period in a block):
+# the CTCSS tone squelch's cell, NFM voice (tests/test_dtmf_ctcss.py:
+# 128-140's signal at 3 kHz deviation), its SNR over the voice band (the
+# sub-tone lies below it); fmm_64ch is bench.py:575's WFM signal
+# demodulated mono; am_anf_long_64ch is am_64ch with the ANF and AGC
+# "long" (the ANF outputs its prediction, so its SNR is printed, not held)
+NEW_CELLS = (
+    ("nfm_ctcss_64ch", "FMN", dict(ctcss_tone=CTCSS_TONE),
+     lambda c, rows: nfm_plane(c, rows, np.random.default_rng(29), 0.01),
+     dict(snr_band=(300.0, 3000.0), ctcss=True)),
+    ("fmm_64ch", "FMM", {}, None, {}),
+    ("am_anf_long_64ch", "AM", dict(enable_anf=True, agc_mode="long"), None,
+     dict(snr=False, anf=True)))
+
+
+def check_base_form(torch, front, cell, tag: str) -> dict:
+    """K1's base form at a cell's plan and plane (plus a DC offset, which
+    keeps dc' away from 0) against its plain version once, then both
+    timed, with the per-launch device times and the bound."""
+    from pebblesdr_tpu_torch.utils import roofline
+    rx, c, n = cell["rx"], cell["channels"], HEADLINE["frames"]
+    x = cell["iq"] + 0.05
+    zeros = dict(dtype=torch.float32, device="cuda")
+    p = cell["params"]
+    args = (x, torch.zeros(1, 2 * c, **zeros), torch.zeros(c, **zeros),
+            p.tune_hi, p.tune_lo, torch.zeros(rx.front.d_rows, 2 * c, **zeros))
+    kw = dict(n_block=n, raw_rows=2048)
+    check = check_options_form(torch, front, rx.front, args, kw,
+                               f"{tag} {cell['name']} K1 base form at factor "
+                               f"{rx.plan.factor}, {rx.front.h.numel()} taps")
+
+    def kernel():
+        return front.fused_front(rx.front, *args, **kw)
+
+    ms, plain_ms, t = time_pair(
+        torch, kernel, lambda: front.fused_front_reference(rx.front, *args,
+                                                           **kw))
+    lt = kernel_times(torch, kernel, reps=10)
+    b = roofline.k1_bound(rx.front, x.shape[0], c, 4, n, 2048)
+    log(f"{tag} {cell['name']} K1 base form: {ms:.4f} ms vs plain "
+        f"{plain_ms:.4f} ms per dispatch (runs kernel {t['kernel']}, plain "
+        f"{t['plain']}); bound {b['bound_ms']:.4f} ms ({b['bound_by']}); per "
+        f"launch (ms): " + breakdown_text(lt))
+    del x, args
+    return {"ms": ms, "plain_ms": plain_ms, **b, **check,
+            "fir_ms": fir_launch_ms(lt)}
+
+
+def phase_new_cells(torch, receiver, front, wfm_tail, DemodMode) -> dict:
+    """Phase 29: the cells nfm_ctcss_64ch, fmm_64ch and am_anf_long_64ch,
+    windows interleaved, each with its checks and a profile of its
+    dispatches; first K1's base form at fmm_64ch's plan (factor 8, no
+    timed cell ran it before) against its plain version, timed."""
+    cells = [make_cell(torch, receiver, front, DemodMode[mode], name,
+                       HEADLINE["channels"], HEADLINE["blocks"], opts=opts,
+                       plane=plane, checks=checks)
+             for name, mode, opts, plane, checks in NEW_CELLS]
+    k1 = check_base_form(torch, front, cells[1], "phase29")
+    torch.cuda.empty_cache()
+    time_cells(torch, front, wfm_tail, cells, "phase29")
+    done = {}
+    for cell in cells:
+        prof = dispatch_profile(torch, cell, "phase29")
+        done[cell["name"]] = {key: cell[key] for key in (
+            "launches", "block_ms", "msps", "realtime", "peak_gib",
+            "snr_db")}
+        done[cell["name"]].update(prof)
+    done["fmm_64ch"]["k1"] = k1
+    del cells
+    torch.cuda.empty_cache()
+    return done
+
+
 def main() -> int:
     import torch
 
@@ -1906,49 +2136,84 @@ def main() -> int:
 
     # phase 1: one nvcc per source, all started together
     t0 = time.perf_counter()
+    clock = Clock(t0)
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
         list(pool.map(build.build, KERNELS))
     log(f"phase1 built {', '.join(KERNELS)} in {time.perf_counter() - t0:.1f} "
         f"s (" + ", ".join(f"{nm} {build.build_seconds.get(nm, 0.0):.1f} s"
                            for nm in KERNELS) + ")")
 
+    clock("phases 0-1")
     fr = phase_front(torch, front, decimator)
+    clock("phase 2")
     phase_slice(torch, receiver, convert, front, wfm_tail, DemodMode.AM)
+    clock("phase 3")
     head = phase_headline(torch, receiver, front, wfm_tail, DemodMode.AM)
+    clock("phase 4")
     times = phase_front_time(torch, front, fr)
+    clock("phase 5")
     fw = phase_front_wfm(torch, front, decimator)
+    clock("phase 6")
     tl = phase_tail(torch, wfm_mod, wfm_tail)
+    clock("phase 7")
     phase_slice(torch, receiver, convert, front, wfm_tail, DemodMode.FMS)
+    clock("phase 8")
     whead = phase_headline(torch, receiver, front, wfm_tail, DemodMode.FMS)
+    clock("phase 9")
     phase_separation(torch, receiver, DemodMode)
+    clock("phase 10")
     wtimes = phase_wfm_time(torch, front, wfm_tail, fw, tl)
+    clock("phase 11")
     phase_front_options(torch, front, fr, fw)
+    clock("phase 12")
     for entry in ("nb1_iq", "i16", "folded"):
         phase_slice(torch, receiver, convert, front, wfm_tail, DemodMode.AM,
                     entry)
+    clock("phase 13")
     cells = phase_cells(torch, receiver, front, wfm_tail, DemodMode)
+    clock("phase 14")
     otimes = phase_options_time(torch, front, fr)
+    clock("phase 15")
     hq_fr = phase_front_hq(torch, front, decimator, wfm_mod)
+    clock("phase 16")
     phase_slice(torch, receiver, convert, front, wfm_tail, DemodMode.FMS,
                 rx_opts=dict(wfm_hq=True), tag="phase17 hq slice")
+    clock("phase 17")
     for opts, tag in ((dict(rds=True), "phase18 RDS slice"),
                       (dict(rds=True, wfm_hq=True), "phase18 hq+RDS slice")):
         phase_slice(torch, receiver, convert, front, wfm_tail, DemodMode.FMS,
                     rx_opts=opts, tag=tag)
+    clock("phase 18")
     phase_rds_decode(torch, receiver, DemodMode)
+    clock("phase 19")
     phase_separation(torch, receiver, DemodMode, hq=True)
+    clock("phase 20")
     wcells = phase_wfm_cells(torch, receiver, front, wfm_tail, DemodMode)
+    clock("phase 21")
     probes = phase_probes(torch, front, kprobe, kbench2, receiver, DemodMode)
+    clock("phase 22")
     means = phase_means(torch, front)
+    clock("phase 23")
     scans = phase_dc_scan(torch, front)
+    clock("phase 24")
     narrow = phase_front_narrow(torch, front, decimator)
+    clock("phase 25")
     slices = {}
     for name, opts, entry in NARROW_SLICES:
         tag = " ".join([name] + list(opts.values()) + [entry or ""]).strip()
         slices[tag] = phase_slice(torch, receiver, convert, front, wfm_tail,
                                   DemodMode[name], entry, rx_opts=opts,
                                   tag=f"phase26 {tag} slice")
+    clock("phase 26")
     ncells = phase_narrow_cells(torch, receiver, front, wfm_tail, DemodMode)
+    clock("phase 27")
+    for tag, name, opts, entry in NEW_SLICES:
+        phase_slice(torch, receiver, convert, front, wfm_tail,
+                    DemodMode[name], entry, rx_opts=opts,
+                    tag=f"phase28 {tag} slice")
+    clock("phase 28")
+    phase_new_cells(torch, receiver, front, wfm_tail, DemodMode)
+    clock("phase 29")
 
     c, n, k = HEADLINE["channels"], HEADLINE["frames"], HEADLINE["blocks"]
     t = n * k

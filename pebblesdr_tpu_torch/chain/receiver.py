@@ -1,10 +1,10 @@
-"""The receive chain, the narrowband modes and WFM stereo, as one batched
-graph per K-block dispatch.
+"""The receive chain, the narrowband modes, NFM and WFM (stereo and mono),
+as one batched graph per K-block dispatch.
 
 Port of pebblesdr_tpu/chain/receiver.py for the batched ``step_many`` path
 (``_step_many_impl`` -> ``_step_many_batched`` -> ``_tail_many``), its
-narrowband (AM, SAM, USB, LSB, CWU, CWL, DIGU, DIGL, DSB, NONE) and
-FM-stereo branches:
+narrowband (AM, SAM, FMN, USB, LSB, CWU, CWL, DIGU, DIGL, DSB, NONE) and
+FM (FMS stereo, FMM and FMS with stereo=False mono) branches:
 
   fused front (DC blocker, optional static IQ balance and NB1/NB2 noise
   blanker, NCO mix, composed-FIR decimation, ops/front.py; for WFM also the
@@ -12,24 +12,32 @@ FM-stereo branches:
   -> full-rate display spectrum per block (closed-form EWMA over blocks)
   -> zoomed demod-rate power per block -> S-meter -> squelch with 3 dB
      hysteresis
-  -> narrowband: FastFIR bandpass -> parallel AGC -> the mode's demod (AM
-     envelope; SAM's aimed carrier loop and sideband split, demod/sam.py;
-     USB/CWU/DIGU I+Q, LSB/CWL/DIGL I-Q, DSB 2I, demod/ssb.py; NONE the
-     real part) -> resampler
-     WFM: open pilot -> fused stereo tail (ops/wfm_tail.py) -> lock gate ->
-     L/R -> de-emphasis (demod/wfm.py) -> stereo resampler; with the RDS
-     tap also the scan-free RDS subchain (demod/rds.py) -> soft symbols
+  -> narrowband: FastFIR bandpass -> optional ANF (block LMS, one update
+     per demod block, ops/scanops.py) -> parallel AGC (the hang mode 'long'
+     too) -> the mode's demod (AM envelope; SAM's aimed carrier loop and
+     sideband split, demod/sam.py; FMN's conj or derivative discriminator,
+     demod/nfm.py; USB/CWU/DIGU I+Q, LSB/CWL/DIGL I-Q, DSB 2I,
+     demod/ssb.py; NONE the real part) -> resampler
+     WFM stereo: open pilot -> fused stereo tail (ops/wfm_tail.py) -> lock
+     gate -> L/R -> de-emphasis (demod/wfm.py) -> stereo resampler
+     WFM mono: pre-discriminator biquad -> discriminator -> (hq: composite
+     decimation by 2) -> mono low-pass -> de-emphasis (demod/wfm.py) ->
+     resampler; with the RDS tap (either) also the scan-free RDS subchain
+     (demod/rds.py) -> soft symbols
+  -> FMN's CTCSS tone squelch (ops/goertzel.py) on the resampled audio
   -> squelch / gain / mute gate.
 
 The WFM hq geometry (wfm_hq) protects the full +-200 kHz: the front
-decimates by 4 to 512 kHz, discriminates there and decimates the composite
-by 2 back to the 256 kHz tail rate inside the front end (comp_taps).
+decimates by 4 to 512 kHz; stereo discriminates there and decimates the
+composite by 2 back to the 256 kHz tail rate inside the front end
+(comp_taps), mono runs the front in its base form and does both in
+demod/wfm.py (its pre-discriminator biquad comes first).
 
-Not ported (the constructor raises ValueError naming it): the modes FMN and
-FMM, WFM mono, the "scan" RDS carrier, adaptive IQ balance, the AGC hang
-mode, and SAM on demod blocks that are not a multiple of 128 samples (the
-JAX package runs those on its per-block scan path with the per-sample PLL,
-pll_run).
+Not ported (the constructor raises ValueError naming it): the "pll" pilot,
+the "scan" RDS carrier, NFM's "pll" discriminator, adaptive IQ balance,
+the scan AGC, and SAM's scan and loop forms and SAM on demod blocks that
+are not a multiple of 128 samples (the JAX package runs those with the
+per-sample PLL loops pll_run / pll_run_blockwise).
 
 Entry planes are float32 or int16 (the ADC's native container, read as
 x * 2^-15), unfolded [K*N, 2C] or time-folded [K*N/G, 2GC] (the TPU feeders'
@@ -38,9 +46,11 @@ layout, pallas_kernels.fold_plane_np; unfolded on entry with one copy).
 State is explicit (ReceiverState), with the fields and shapes of the JAX
 pytree in its fused-front layout: ``dc`` [1, 2C], ``decim`` [d_rows, 2C],
 ``nb`` (avg [1, 2C], spike tail [16, 2C]) with the noise blanker on;
-``demod`` is AMState, SAMState, or None for the stateless modes (SSB, CW,
-DIG, DSB, NONE); for WFM the demod state is the fused-tail WFMState and
-the FastFIR and AGC states ride along untouched, as in the JAX package.  The Receiver is built
+``anf`` the complex64 ANFState with the ANF on; ``demod`` is AMState,
+SAMState, NFMState, or None for the stateless modes (SSB, CW, DIG, DSB,
+NONE); for WFM the demod state is WFMState (stereo: the fused-tail layout)
+and the FastFIR, ANF and AGC states ride along untouched, as in the JAX
+package; ``ctcss`` the CtcssState with a CTCSS tone.  The Receiver is built
 for one device and runs its whole graph there; on a CUDA device the front
 end and the stereo tail are hand-written CUDA kernels.
 """
@@ -56,20 +66,19 @@ import torch
 
 from pebblesdr_tpu_torch.core import db as dbu
 from pebblesdr_tpu_torch.demod import am as am_mod
+from pebblesdr_tpu_torch.demod import nfm as nfm_mod
 from pebblesdr_tpu_torch.demod import rds as rds_mod
 from pebblesdr_tpu_torch.demod import sam as sam_mod
 from pebblesdr_tpu_torch.demod import ssb as ssb_mod
 from pebblesdr_tpu_torch.demod import wfm as wfm_mod
-from pebblesdr_tpu_torch.demod.modes import MODE_INFO, DemodMode
-from pebblesdr_tpu_torch.ops import (agc, decimator, fastfir, front, iir,
-                                     mixer, resampler, signalstrength,
-                                     spectrum)
+from pebblesdr_tpu_torch.demod.modes import MODE_INFO, DemodMode, is_wfm
+from pebblesdr_tpu_torch.ops import (agc, decimator, fastfir, front, goertzel,
+                                     iir, mixer, resampler, scanops,
+                                     signalstrength, spectrum)
 
 
-# the modes the port's Receiver runs
-PORTED_MODES = (DemodMode.AM, DemodMode.SAM, DemodMode.USB, DemodMode.LSB,
-                DemodMode.CWU, DemodMode.CWL, DemodMode.DIGU, DemodMode.DIGL,
-                DemodMode.DSB, DemodMode.NONE, DemodMode.FMS)
+# the modes the port's Receiver runs: every mode of the table
+PORTED_MODES = tuple(DemodMode)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,7 +93,7 @@ class ReceiverConfig:
     #                                       at the demod block length
     agc_mode: str | None = None           # None -> mode default
     agc_stride: int = 1
-    stereo: bool = True                   # FMS only (mono is not ported)
+    stereo: bool = True                   # FMS only (False: mono, as FMM)
     rds: bool = False                     # WFM RDS tap
     rds_alg: str = "open"                 # RDS carrier: "open" = the scan-
     #                                       free squaring loop ("scan", the
@@ -101,6 +110,10 @@ class ReceiverConfig:
     #                                       "average": NB2 (RMS substitution)
     enable_iq_balance: bool | str = False  # True: static params.iq_gain/
     #                                       iq_phase ("auto" is not ported)
+    enable_anf: bool = False              # adaptive noise filter (narrowband
+    #                                       modes; one LMS update per block)
+    ctcss_tone: float | None = None       # FMN only: CTCSS tone squelch
+    #                                       (a CTCSS table tone, Hz)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,10 +154,6 @@ class Receiver:
     """Build once per configuration and device; ``step_many`` is the hot loop."""
 
     def __init__(self, cfg: ReceiverConfig, device: str | torch.device):
-        if cfg.mode not in PORTED_MODES:
-            raise ValueError(f"mode {cfg.mode.name} is not ported yet; the "
-                             f"PyTorch receiver runs "
-                             f"{', '.join(m.name for m in PORTED_MODES)}")
         if cfg.enable_iq_balance == "auto":
             raise ValueError("enable_iq_balance='auto' (the adaptive LMS "
                              "image-reject loop) is not ported yet; use "
@@ -162,7 +171,7 @@ class Receiver:
         self.info = info = MODE_INFO[cfg.mode]
         fs = float(cfg.sample_rate)
 
-        wfm = cfg.mode == DemodMode.FMS
+        wfm = is_wfm(cfg.mode)
         # the hq geometry protects the full +-200 kHz (~512 kHz composite)
         self.plan = decimator.build_plan(
             fs, (2.0 if wfm and cfg.wfm_hq else 1.0) * info.max_output_bw)
@@ -179,7 +188,8 @@ class Receiver:
         self.demod_rate = int(self.plan.rate_out)
         self.blk = cfg.frames_per_buffer // self.plan.factor
 
-        self.am_cfg = self.sam_cfg = self.wfm_cfg = self.rds_cfg = None
+        self.am_cfg = self.sam_cfg = self.nfm_cfg = None
+        self.wfm_cfg = self.rds_cfg = self.wfm_tail = None
         if wfm:
             # hq: the composite (< 61 kHz wide) decimates by 2 right after
             # the discriminator, so the stereo tail runs at ~256 kHz
@@ -190,18 +200,20 @@ class Receiver:
             # the audio low-pass decimates inside the demod so the resampler
             # runs near 64 kHz instead of the composite rate
             wcfg = wfm_mod.WFMConfig.make(
-                tail_rate, stereo=cfg.stereo, rds_tap=cfg.rds,
-                audio_decim=max(1, tail_rate // 64000),
+                tail_rate, stereo=cfg.mode == DemodMode.FMS and cfg.stereo,
+                rds_tap=cfg.rds, audio_decim=max(1, tail_rate // 64000),
                 comp_decim=self.wfm_comp_decim)
             self.wfm_cfg = dataclasses.replace(
                 wcfg, tail_sub=wfm_mod.tail_kernel_sub(wcfg,
                                                        self.wfm_tail_blk))
             wfm_mod.check_ported(self.wfm_cfg)
-            self.wfm_tail = wfm_mod.tail_plan(self.wfm_cfg, self.wfm_tail_blk,
-                                              self.device)
-            # the discriminator runs at the front's rate
-            self.disc_gain = self.demod_rate / (
-                2.0 * np.pi * self.wfm_cfg.max_deviation)
+            if self.wfm_cfg.stereo:
+                self.wfm_tail = wfm_mod.tail_plan(
+                    self.wfm_cfg, self.wfm_tail_blk, self.device)
+                # stereo discriminates in the front end, at its rate (mono
+                # after its pre-discriminator biquad, in demod/wfm.py)
+                self.disc_gain = self.demod_rate / (
+                    2.0 * np.pi * self.wfm_cfg.max_deviation)
             audio_src_rate = int(self.wfm_cfg.audio_rate)
             audio_blk = self.wfm_tail_blk // self.wfm_cfg.audio_decim
             if cfg.rds:
@@ -217,9 +229,18 @@ class Receiver:
                     self.demod_rate, info.default_filter,
                     sideband=cfg.sam_sideband)
                 sam_mod.check_ported(self.sam_cfg, self.blk)
+            elif cfg.mode == DemodMode.FMN:
+                self.nfm_cfg = nfm_mod.NFMConfig.make(self.demod_rate)
             audio_src_rate, audio_blk = self.demod_rate, self.blk
         self.rs_plan = resampler.plan(audio_src_rate, cfg.audio_rate, audio_blk)
         self.audio_blk = self.rs_plan.n_out
+
+        self.ctcss_cfg = None
+        if cfg.ctcss_tone is not None:
+            if cfg.mode != DemodMode.FMN:
+                raise ValueError("ctcss_tone requires mode=FMN")
+            self.ctcss_cfg = goertzel.CtcssConfig.make(
+                cfg.ctcss_tone, float(cfg.audio_rate), self.audio_blk)
 
         agc_mode = cfg.agc_mode if cfg.agc_mode is not None else info.agc_mode
         agc_stride = max(1, cfg.agc_stride)
@@ -242,17 +263,19 @@ class Receiver:
     def init_state(self) -> ReceiverState:
         c = self.cfg.channels
         dev = self.device
+        demod = None                     # SSB/CW/DIG/DSB/NONE: stateless
         if self.wfm_cfg is not None:
-            # stereo: L and R resample as 2C channels
             demod = wfm_mod.wfm_init(self.wfm_cfg, c, dev)
-            resamp = resampler.state_init(self.rs_plan, 2 * c, dev)
-        else:
-            demod = None                 # SSB/CW/DIG/DSB/NONE: stateless
-            if self.am_cfg is not None:
-                demod = am_mod.am_init(self.am_cfg, c, dev)
-            elif self.sam_cfg is not None:
-                demod = sam_mod.sam_init(self.sam_cfg, c, dev)
-            resamp = resampler.state_init(self.rs_plan, c, dev)
+        elif self.am_cfg is not None:
+            demod = am_mod.am_init(self.am_cfg, c, dev)
+        elif self.sam_cfg is not None:
+            demod = sam_mod.sam_init(self.sam_cfg, c, dev)
+        elif self.nfm_cfg is not None:
+            demod = nfm_mod.nfm_init(self.nfm_cfg, c, dev)
+        # stereo: L and R resample as 2C channels
+        stereo = self.wfm_cfg is not None and self.wfm_cfg.stereo
+        resamp = resampler.state_init(self.rs_plan, 2 * c if stereo else c,
+                                      dev)
         return ReceiverState(
             mixer=mixer.mixer_init(c, dev),
             decim=torch.zeros(self.front.d_rows, 2 * c, dtype=torch.float32,
@@ -260,7 +283,8 @@ class Receiver:
             fastfir=fastfir.state_init(c, self.blk, dev),
             dc=torch.zeros(1, 2 * c, dtype=torch.float32, device=dev),
             nb=self._nb_init(),
-            anf=None,
+            anf=(scanops.anf_init(c, dev, dtype=torch.complex64)
+                 if self.cfg.enable_anf else None),
             agc=agc.agc_init(self.agc_cfg, c, dev),
             demod=demod,
             resamp=resamp,
@@ -269,6 +293,8 @@ class Receiver:
             rds=(rds_mod.rds_init(self.rds_cfg, c, dev)
                  if self.rds_cfg is not None else None),
             squelch=torch.zeros(c, dtype=torch.bool, device=dev),
+            ctcss=(goertzel.ctcss_init(c, dev) if self.ctcss_cfg is not None
+                   else None),
         )
 
     def _nb_init(self):
@@ -352,13 +378,15 @@ class Receiver:
         [K, N, 2C], an (re, im) pair of [K*N, C] planes, [K, 2, N, C] /
         [2, K, N, C] stacks or [K, C, N] complex64.
 
-        Returns (state', out) with out['audio'] [K, C, audio_blk] (AM) or
-        [K, C, 2, audio_blk] (FMS: left, right), 'spectrum' [K, C,
-        spectrum_bins] dB and 'overload' [K, C] (spectra only), 'zoomed'
-        [K, C, zoom_bins] dB (spectra only), 'smeter' (dict of [K, C] dB),
-        'squelch_open' [K, C] bool and, for FMS, 'pilot_locked' [K, C]
-        bool; with the RDS tap 'rds_soft' [K, C, n_sym] soft symbols and
-        'rds_timing' [K, C] int32 (the dispatch's symbol phase)."""
+        Returns (state', out) with out['audio'] [K, C, audio_blk] (every
+        mode but stereo FM) or [K, C, 2, audio_blk] (FMS stereo: left,
+        right), 'spectrum' [K, C, spectrum_bins] dB and 'overload' [K, C]
+        (spectra only), 'zoomed' [K, C, zoom_bins] dB (spectra only),
+        'smeter' (dict of [K, C] dB), 'squelch_open' [K, C] bool (with a
+        CTCSS tone AND-ed with 'ctcss_open' [K, C]) and, for WFM,
+        'pilot_locked' [K, C] bool (all False in mono); with the RDS tap
+        'rds_soft' [K, C, n_sym] soft symbols and 'rds_timing' [K, C]
+        int32 (the dispatch's symbol phase)."""
         x_pk = self._pack(iq)
         n = self.cfg.frames_per_buffer
         if x_pk.shape[0] % n:
@@ -436,9 +464,10 @@ class Receiver:
         if self.nb_params is not None:
             front_kw.update(nb=self.nb_params, nb_avg=state.nb[0],
                             nb_tail=state.nb[1])
-        if self.wfm_cfg is not None:
-            # the discriminator runs in the front end; the composite is then
-            # needed only as each block's trailing zoom window
+        if self.wfm_tail is not None:
+            # stereo: the discriminator runs in the front end; the
+            # composite is then needed only as each block's trailing zoom
+            # window
             last = state.demod.last
             front_kw.update(disc_gain=self.disc_gain,
                             disc_last=torch.cat([last.real, last.imag])[None],
@@ -463,7 +492,7 @@ class Receiver:
         raw_c = (torch.complex(raw[:, :, :c].transpose(1, 2),
                                raw[:, :, c:].transpose(1, 2))     # [K, C, bins]
                  if spectra else None)
-        if self.wfm_cfg is not None:
+        if self.wfm_tail is not None:
             xz = torch.complex(y_pk[:, :, :c], y_pk[:, :, c:]).permute(2, 0, 1)
             comp_tail = None
             if self.wfm_comp_decim > 1:
@@ -474,7 +503,9 @@ class Receiver:
         else:
             x_cat = torch.complex(y_pk[:, :c].T, y_pk[:, c:].T)  # [C, K*blk]
             xz = x_cat.reshape(c, k, self.blk)[:, :, self.blk - self.zoom_bins:]
-            demod = functools.partial(self._demod_narrow, x_cat=x_cat)
+            demod = functools.partial(
+                self._demod_mono if self.wfm_cfg is not None
+                else self._demod_narrow, x_cat=x_cat)
         tail_st, out = self._tail_many(state, params, k, raw_c, xz, spectra,
                                        demod)
         new_state = ReceiverState(
@@ -547,6 +578,17 @@ class Receiver:
         # ---- demod-rate tail once on the concatenated stream
         demod_st, audio, extra = demod(state, params, k)
         out.update(extra)
+
+        # ---- CTCSS tone squelch (FMN): one K-block update on the audio;
+        # the carried hysteresis state is the AND-ed decision
+        ctcss_state = state.ctcss
+        if self.ctcss_cfg is not None:
+            ctcss_state, tone_open = goertzel.ctcss_update_many(
+                self.ctcss_cfg, state.ctcss, audio)
+            squelch_open = squelch_open & tone_open
+            out["squelch_open"] = squelch_open
+            out["ctcss_open"] = tone_open
+
         gate = (squelch_open.float() * params.gain
                 * (1.0 - params.mute.float()))
         out["audio"] = audio * gate.reshape(gate.shape
@@ -555,17 +597,21 @@ class Receiver:
         tail_st = dict(
             fastfir=state.fastfir, agc=state.agc, anf=state.anf,
             spec_full=spec_full_state, spec_zoom=spec_zoom_state,
-            rds=state.rds, squelch=squelch_open[-1], ctcss=state.ctcss)
+            rds=state.rds, squelch=squelch_open[-1], ctcss=ctcss_state)
         return {**tail_st, **demod_st}, out
 
     def _demod_narrow(self, state: ReceiverState, params: RxParams, k: int,
                       x_cat: torch.Tensor):
-        """FastFIR -> AGC -> the mode's demod -> resampler on x_cat
+        """FastFIR -> ANF -> AGC -> the mode's demod -> resampler on x_cat
         [C, K*blk]."""
         c = self.cfg.channels
         mode = self.cfg.mode
         mask = torch.complex(params.bp_mask[0], params.bp_mask[1])
         ff_state, xt = fastfir.apply_many(state.fastfir, x_cat, mask, self.blk)
+        anf_state = state.anf
+        if self.cfg.enable_anf:
+            # block LMS with one weight update per demod block: K steps
+            anf_state, xt = scanops.anf(state.anf, xt, update_every=self.blk)
         agc_state, xt = agc.agc_apply(self.agc_cfg, state.agc, xt)
         demod_state = state.demod
         if mode == DemodMode.AM:
@@ -573,6 +619,9 @@ class Receiver:
         elif mode == DemodMode.SAM:
             demod_state, audio = sam_mod.sam_demod(self.sam_cfg, state.demod,
                                                    xt, n_block=self.blk)
+        elif mode == DemodMode.FMN:
+            demod_state, audio = nfm_mod.nfm_demod(self.nfm_cfg, state.demod,
+                                                   xt)
         elif mode in (DemodMode.USB, DemodMode.CWU, DemodMode.DIGU):
             audio = ssb_mod.usb_demod(xt)
         elif mode in (DemodMode.LSB, DemodMode.CWL, DemodMode.DIGL):
@@ -584,8 +633,39 @@ class Receiver:
         resamp_state, audio = resampler.apply_many(self.rs_plan, state.resamp,
                                                    audio)
         audio = audio.reshape(c, k, audio.shape[-1] // k).transpose(0, 1)
-        return (dict(fastfir=ff_state, agc=agc_state, demod=demod_state,
-                     resamp=resamp_state), audio, {})
+        return (dict(fastfir=ff_state, anf=anf_state, agc=agc_state,
+                     demod=demod_state, resamp=resamp_state), audio, {})
+
+    def _demod_mono(self, state: ReceiverState, params: RxParams, k: int,
+                    x_cat: torch.Tensor):
+        """WFM mono (demod/wfm.py wfm_demod) -> resampler on the front's
+        base-form output x_cat [C, K*blk], and the RDS subchain on the
+        tail-rate composite with the tap; FastFIR, ANF and AGC are skipped,
+        as in the JAX package."""
+        c = self.cfg.channels
+        demod_state, wout = wfm_mod.wfm_demod(self.wfm_cfg, state.demod,
+                                              x_cat, n_block=self.blk)
+        extra = {"pilot_locked": wout["pilot_locked"].T}
+        rds_state = state.rds
+        if self.rds_cfg is not None:
+            rds_state, extra["rds_soft"], extra["rds_timing"] = self._rds(
+                state.rds, wout["rds_baseband"], k)
+        resamp_state, mono = resampler.apply_many(self.rs_plan, state.resamp,
+                                                  wout["left"])
+        audio = mono.reshape(c, k, mono.shape[-1] // k).transpose(0, 1)
+        return (dict(demod=demod_state, resamp=resamp_state, rds=rds_state),
+                audio, extra)
+
+    def _rds(self, rds_state, composite: torch.Tensor, k: int):
+        """The RDS subchain on the tail-rate composite [C, K*tail_blk]:
+        streaming-exact on the concatenated stream, so once per dispatch
+        (the symbol-timing EWMA updates once per call).  Returns (state',
+        soft [K, C, n_sym], timing [K, C])."""
+        c = self.cfg.channels
+        rds_state, soft, timing = rds_mod.rds_process(self.rds_cfg, rds_state,
+                                                      composite)
+        return (rds_state, soft.reshape(c, k, -1).transpose(0, 1),
+                timing[None].expand(k, c))
 
     def _demod_wfm(self, state: ReceiverState, params: RxParams, k: int,
                    disc_t: torch.Tensor, dlast: torch.Tensor,
@@ -603,12 +683,8 @@ class Receiver:
         extra = {"pilot_locked": wout["pilot_locked"].T}
         rds_state = state.rds
         if self.rds_cfg is not None:
-            # streaming-exact on the concatenated composite: once per
-            # dispatch (the symbol-timing EWMA updates once per call)
-            rds_state, soft, timing = rds_mod.rds_process(
-                self.rds_cfg, state.rds, wout["rds_baseband"])
-            extra["rds_soft"] = soft.reshape(c, k, -1).transpose(0, 1)
-            extra["rds_timing"] = timing[None].expand(k, c)
+            rds_state, extra["rds_soft"], extra["rds_timing"] = self._rds(
+                state.rds, wout["rds_baseband"], k)
         resamp_state, lr = resampler.apply_many(
             self.rs_plan, state.resamp,
             torch.cat([wout["left"], wout["right"]]))

@@ -3,10 +3,14 @@
 Log-domain CuteSDR AGC (agc.{h,cpp}): trailing 18 ms peak window (van Herk
 cummax), exponential release as one tilted cummax, attack smoothing as
 max(rise pole, fall pole) first-order sections, knee/slope gain law, and a
-15 ms delay line.  With stride > 1 the envelope collapses to one max per
-stride first and the gain is interpolated back linearly (the JAX package's
-documented stride deviation).  The sample-exact 'scan' variant and the hang
-mode ('long') are not ported yet.
+15 ms delay line.  The hang mode ('long') holds the peak envelope as a
+trailing windowed max over the 2 s decay time (its own carried tail) and
+then releases fast (RELEASE_TIMECONST).  With stride > 1 the envelope
+collapses to one max per stride first and the gain is interpolated back
+linearly (the JAX package's documented stride deviation).
+
+Not ported: the sample-exact algorithm='scan' (a per-sample lax.scan in the
+JAX package, its parity reference; the Receiver never builds it).
 """
 
 from __future__ import annotations
@@ -23,14 +27,16 @@ DELAY_TIMECONST = 0.015
 WINDOW_TIMECONST = 0.018
 ATTACK_RISE_TIMECONST = 0.002
 ATTACK_FALL_TIMECONST = 0.005
+RELEASE_TIMECONST = 0.05
 AGC_OUTSCALE = 0.7
 MIN_CONSTANT = 1e-8  # log floor ~ -160 dB
 
-MODES = {  # mode -> decay_ms ('long', the hang mode, is not ported yet)
-    "off": 0.0,
-    "fast": 100.0,
-    "med": 250.0,
-    "slow": 500.0,
+MODES = {  # mode -> (decay_ms, use_hang)
+    "off": (0.0, False),
+    "fast": (100.0, False),
+    "med": (250.0, False),
+    "slow": (500.0, False),
+    "long": (2000.0, True),
 }
 
 
@@ -46,9 +52,14 @@ class AGCConfig:
 
     @staticmethod
     def make(sample_rate: float, mode: str = "med", threshold_db: float = -20.0,
-             slope_factor: float = 0.0, stride: int = 1) -> "AGCConfig":
+             slope_factor: float = 0.0, stride: int = 1,
+             algorithm: str = "parallel") -> "AGCConfig":
+        if algorithm != "parallel":
+            raise ValueError(f"AGC algorithm {algorithm!r} (the sample-exact "
+                             f"per-sample scan) is not ported; the port runs "
+                             f"'parallel'")
         if mode not in MODES:
-            raise ValueError(f"AGC mode {mode!r} is not ported (ported: "
+            raise ValueError(f"unknown AGC mode {mode!r} (modes: "
                              f"{', '.join(MODES)})")
         return AGCConfig(
             sample_rate=sample_rate, mode=mode, threshold_db=threshold_db,
@@ -66,12 +77,23 @@ class AGCState:
     window_tail: torch.Tensor      # [C, window-1] previous log-magnitudes
     delay_line: torch.Tensor       # [C, delay] delayed complex signal
     attack_fall_avg: torch.Tensor  # [C] fall pole
-    hang_tail: None = None         # the hang mode's tail (not ported)
+    hang_tail: torch.Tensor | None = None  # [C, hang-1] coarse peak history
+    #                                        ('long'; None otherwise)
+
+
+def hang_window(cfg: AGCConfig) -> int:
+    """The hang mode's held-max window on the coarse (stride) grid; 0 for
+    the modes without hang."""
+    decay_ms, use_hang = MODES[cfg.mode]
+    if not use_hang:
+        return 0
+    return max(1, int((decay_ms / 1000.0) * cfg.sample_rate) // cfg.stride)
 
 
 def agc_init(cfg: AGCConfig, channels: int, device) -> AGCState:
     floor = math.log10(MIN_CONSTANT)
     w = max(1, cfg.window // cfg.stride) if cfg.stride > 1 else cfg.window
+    h = hang_window(cfg)
 
     def full(*shape):
         return torch.full(shape, floor, dtype=torch.float32, device=device)
@@ -84,6 +106,7 @@ def agc_init(cfg: AGCConfig, channels: int, device) -> AGCState:
         delay_line=torch.zeros(channels, cfg.delay, dtype=torch.complex64,
                                device=device),
         attack_fall_avg=full(channels),
+        hang_tail=full(channels, h - 1) if h > 1 else None,
     )
 
 
@@ -118,8 +141,19 @@ def agc_apply(cfg: AGCConfig, state: AGCState, x: torch.Tensor):
     peak = _windowed_max(ext, window) if window > 1 else ext
     new_window_tail = ext[:, ext.shape[-1] - (window - 1):]
 
-    d = 0.43429448 / max(MODES[cfg.mode] / 1000.0, 1e-3) / rate_s
-    dec_last, env = _decaying_max(state.decay_avg, peak, d)
+    # hang: the envelope may not fall below any peak of the last h coarse
+    # samples (a trailing windowed max with its own tail), then releases
+    # fast once the hold expires
+    decay_ms, use_hang = MODES[cfg.mode]
+    h = hang_window(cfg)
+    held, new_hang_tail = peak, state.hang_tail
+    if h > 1:
+        ext_h = torch.cat([state.hang_tail, peak], dim=-1)
+        held = _windowed_max(ext_h, h)
+        new_hang_tail = ext_h[:, ext_h.shape[-1] - (h - 1):]
+    release_s = RELEASE_TIMECONST if use_hang else decay_ms / 1000.0
+    d = 0.43429448 / max(release_s, 1e-3) / rate_s
+    dec_last, env = _decaying_max(state.decay_avg, held, d)
     rise_coef = _coef(ATTACK_RISE_TIMECONST, rate_s)
     fall_coef = _coef(ATTACK_FALL_TIMECONST, rate_s)
     att_last, lvl_rise = first_order_apply(state.attack_avg, env,
@@ -143,7 +177,7 @@ def agc_apply(cfg: AGCConfig, state: AGCState, x: torch.Tensor):
     new_state = AGCState(attack_avg=att_last, decay_avg=dec_last,
                          hang_count=state.hang_count,
                          window_tail=new_window_tail, delay_line=full[:, n:],
-                         attack_fall_avg=attf_last)
+                         attack_fall_avg=attf_last, hang_tail=new_hang_tail)
     return new_state, y
 
 

@@ -16,6 +16,7 @@ from pebblesdr_tpu.chain.receiver import ReceiverConfig as JaxConfig
 from pebblesdr_tpu.core import windows as jwin
 from pebblesdr_tpu.demod import am as jam
 from pebblesdr_tpu.demod import modes as jmodes
+from pebblesdr_tpu.demod import nfm as jnfm
 from pebblesdr_tpu.demod import rds as jrds
 from pebblesdr_tpu.demod import sam as jsam
 from pebblesdr_tpu.demod import wfm as jwfm
@@ -23,16 +24,19 @@ from pebblesdr_tpu.ops import agc as jagc
 from pebblesdr_tpu.ops import decimator as jdec
 from pebblesdr_tpu.ops import fastfir as jff
 from pebblesdr_tpu.ops import fir as jfir
+from pebblesdr_tpu.ops import goertzel as jgz
 from pebblesdr_tpu.ops import mixer as jmix
 from pebblesdr_tpu.ops import pallas_kernels as jpk
 from pebblesdr_tpu.ops import pll as jpll
 from pebblesdr_tpu.ops import resampler as jrs
+from pebblesdr_tpu.ops import scanops as jscan
 from pebblesdr_tpu.ops import signalstrength as jss
 from pebblesdr_tpu.ops import spectrum as jspec
 from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
 from pebblesdr_tpu_torch.core import windows as twin
 from pebblesdr_tpu_torch.demod import am as tam
 from pebblesdr_tpu_torch.demod import modes as tmodes
+from pebblesdr_tpu_torch.demod import nfm as tnfm
 from pebblesdr_tpu_torch.demod import rds as trds
 from pebblesdr_tpu_torch.demod import sam as tsam
 from pebblesdr_tpu_torch.demod import wfm as twfm
@@ -40,9 +44,11 @@ from pebblesdr_tpu_torch.ops import agc as tagc
 from pebblesdr_tpu_torch.ops import decimator as tdec
 from pebblesdr_tpu_torch.ops import fastfir as tff
 from pebblesdr_tpu_torch.ops import fir as tfir
+from pebblesdr_tpu_torch.ops import goertzel as tgz
 from pebblesdr_tpu_torch.ops import mixer as tmix
 from pebblesdr_tpu_torch.ops import pll as tpll
 from pebblesdr_tpu_torch.ops import resampler as trs
+from pebblesdr_tpu_torch.ops import scanops as tscan
 from pebblesdr_tpu_torch.ops import signalstrength as tss
 from pebblesdr_tpu_torch.ops import spectrum as tspec
 from pebblesdr_tpu_torch.utils import convert
@@ -315,3 +321,66 @@ def test_narrowband_init_state_matches_jax(mode):
     for a, b in zip(js, ts):
         assert a.shape == b.shape and a.dtype == b.dtype
         assert np.array_equal(np.asarray(a), b)
+
+
+def test_ctcss_tones_and_anf_constants_identical():
+    assert tgz.CTCSS_TONES == jgz.CTCSS_TONES and len(tgz.CTCSS_TONES) == 39
+    assert (tscan.ANF_TAPS, tscan.ANF_DELAY, tscan.ANF_RATE,
+            tscan.ANF_LEAK) == (jscan.ANF_TAPS, jscan.ANF_DELAY,
+                                jscan.ANF_RATE, jscan.ANF_LEAK)
+
+
+@pytest.mark.parametrize("rate", [64000.0, 48000.0])
+def test_nfm_voice_taps_and_pll_config_identical(rate):
+    a, b = jnfm.NFMConfig.make(rate), tnfm.NFMConfig.make(rate)
+    assert np.array_equal(a.voice_taps, b.voice_taps)
+    assert dataclasses.astuple(a.pll) == dataclasses.astuple(b.pll)
+    assert (a.max_deviation, a.algorithm) == (b.max_deviation, b.algorithm)
+
+
+@pytest.mark.parametrize("rate,comp_decim", [(256_000.0, 1), (256_000.0, 2),
+                                             (128_000.0, 1)])
+def test_mono_wfm_design_identical(rate, comp_decim):
+    """Mono's wide-transition audio low-pass and the 75 kHz pre-
+    discriminator biquad (at rate * comp_decim; none below 150 kHz)."""
+    a = jwfm.WFMConfig.make(rate, stereo=False, comp_decim=comp_decim,
+                            audio_decim=max(1, int(rate) // 64000))
+    b = twfm.WFMConfig.make(rate, stereo=False, comp_decim=comp_decim,
+                            audio_decim=max(1, int(rate) // 64000))
+    assert np.array_equal(a.audio_taps, b.audio_taps)
+    assert a.input_rate == b.input_rate
+    if a.mono_pre_lp is None:
+        assert b.mono_pre_lp is None and rate * comp_decim < 150_000
+    else:
+        assert dataclasses.astuple(a.mono_pre_lp) == dataclasses.astuple(
+            b.mono_pre_lp)
+    assert (a.comp_taps is None) == (b.comp_taps is None)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mode="FMN"), dict(mode="FMN", ctcss_tone=123.0), dict(mode="FMM"),
+    dict(mode="FMM", wfm_hq=True), dict(mode="FMS", stereo=False),
+    dict(mode="AM", enable_anf=True, agc_mode="long"),
+    dict(mode="USB", agc_mode="long", agc_stride=1)],
+    ids=["fmn", "fmn_ctcss", "fmm", "fmm_hq", "fms_mono", "am_anf_long",
+         "usb_long_stride1"])
+def test_new_configs_init_state_matches_jax(kw):
+    """init_state of NFM (+ CTCSS), mono WFM, the ANF and AGC "long"
+    flattens to the JAX Receiver's leaves, shape, dtype and value."""
+    base = dict(sample_rate=FS, frames_per_buffer=8192, channels=3,
+                agc_stride=16)
+    mode = kw.pop("mode")
+    base.update(kw)
+    jrx = JaxReceiver(JaxConfig(use_pallas=True,
+                                mode=jmodes.DemodMode[mode], **base))
+    trx = Receiver(ReceiverConfig(mode=tmodes.DemodMode[mode], **base),
+                   "cpu")
+    js = jax.tree_util.tree_leaves(jrx.init_state())
+    ts = convert.state_to_numpy(trx.init_state())
+    assert len(js) == len(ts)
+    for a, b in zip(js, ts):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert np.array_equal(np.asarray(a), b)
+    # and back: every leaf round-trips through utils/convert.py
+    back = convert.state_to_numpy(convert.state_from_numpy(trx, ts))
+    assert all(np.array_equal(a, b) for a, b in zip(ts, back))

@@ -6,8 +6,8 @@ probes) against their plain PyTorch versions, the wrappers' refusals of
 what the kernels do not take (unaligned planes, the floor's lanes % 4),
 and the AM, WFM, WFM hq and WFM+RDS receivers on the card against the CPU
 (with the front options, int16, folded and unaligned entry planes too),
-and the narrowband receivers (SSB, CW, DIG, DSB, NONE, SAM) on the card
-against the CPU.
+the narrowband receivers (SSB, CW, DIG, DSB, NONE, SAM), and FMN with
+CTCSS, mono WFM, the ANF and AGC "long" on the card against the CPU.
 
 They skip where CUDA is absent (the kernels have no CPU mode).  This file
 imports no jax, so it also runs on a machine that has only the port:
@@ -1042,6 +1042,107 @@ def test_hq_and_rds_receivers_on_card_match_cpu(cuda, opts):
                               - b.astype(np.complex128)).max() < 1e-4
     assert (front.fused_front.launches, wfm_tail.wfm_tail.launches) == (
         before[0] + 2, before[1] + 2)
+
+
+def _nfm_plane(c, rows, rng, t0=0.0):
+    """Narrowband FM at 250 kHz: a 1 kHz voice tone at 3 kHz deviation plus
+    a CTCSS sub-tone at 500 Hz, 123.0 Hz on the first half of the channels
+    and the 127.3 Hz neighbour on the rest, noise at 1e-2."""
+    t = t0 + np.arange(rows) / FS
+    x = []
+    for i in range(c):
+        tone = 123.0 if i < c // 2 else 127.3
+        dev = (3000.0 * np.sin(2 * np.pi * 1000.0 * t)
+               + 500.0 * np.sin(2 * np.pi * tone * t))
+        x.append(0.5 * np.exp(1j * (2 * np.pi * 250_000.0 * t
+                                    + 2 * np.pi * np.cumsum(dev) / FS + i)))
+    iq = np.stack(x, axis=1)
+    iq = iq + 1e-2 * (rng.standard_normal(iq.shape)
+                      + 1j * rng.standard_normal(iq.shape))
+    return torch.from_numpy(np.concatenate([iq.real, iq.imag], 1)
+                            .astype(np.float32))
+
+
+NEW_RECEIVERS = {
+    "fmn_ctcss": (DemodMode.FMN, dict(ctcss_tone=123.0)),
+    "fmn_ctcss_i16": (DemodMode.FMN, dict(ctcss_tone=123.0)),
+    "fmm": (DemodMode.FMM, {}),
+    "fmm_hq": (DemodMode.FMM, dict(wfm_hq=True)),
+    "fms_mono_rds": (DemodMode.FMS, dict(stereo=False, rds=True)),
+    "am_anf_long": (DemodMode.AM, dict(enable_anf=True, agc_mode="long")),
+    "usb_long": (DemodMode.USB, dict(agc_mode="long")),
+}
+
+
+@pytest.mark.parametrize("case", list(NEW_RECEIVERS))
+def test_new_receivers_on_card_match_cpu(cuda, case):
+    """FMN with the CTCSS tone squelch (float32 and int16 entry), FMM
+    (default and hq), FMS stereo=False with RDS, AM with the ANF and AGC
+    "long", USB with AGC "long" on the card against the CPU: C=4, 8192-frame
+    blocks, K=3 then 9 (RDS 32768-frame blocks, K=3 twice), after a CPU
+    warm-up carried to both (with CTCSS 5 x 33 blocks, so the EWMA has
+    settled and its decision is far from the threshold: squelch_open and
+    ctcss_open equal, the tone's channels open, the neighbour's closed);
+    the bounds of tests/test_chain_batched.py:58-69; K1 once per dispatch,
+    K2 never."""
+    mode, opts = NEW_RECEIVERS[case]
+    c = 4
+    n = 32768 if opts.get("rds") else 8192
+    ks = (3, 3) if opts.get("rds") else (3, 9)
+    cfg = ReceiverConfig(sample_rate=FS, frames_per_buffer=n, channels=c,
+                         agc_stride=16, mode=mode, **opts)
+    cpu, gpu = Receiver(cfg, "cpu"), Receiver(cfg, cuda)
+    pc, pg = cpu.default_params(250_000.0), gpu.default_params(250_000.0)
+    rng = np.random.default_rng(15)
+    t0 = [0.0]
+
+    def plane(rows):
+        if mode == DemodMode.FMN:
+            x = _nfm_plane(c, rows, rng, t0[0])
+        elif opts.get("rds"):
+            x = _rds_plane(c, rows, rng, t0[0])
+        elif mode == DemodMode.FMM:
+            x = _stereo_plane(c, rows, rng)
+        else:
+            x = _am_plane(c, rows, rng)
+        t0[0] += rows / FS
+        if case.endswith("i16"):
+            x = torch.round(x * 16384.0).clamp(-32768, 32767).to(torch.int16)
+        return x
+
+    sc = cpu.init_state()
+    for k in ((33,) * 5 if cpu.ctcss_cfg else (1,)):
+        sc, _ = cpu.step_many(sc, pc, plane(k * n))
+    sg = convert.state_from_numpy(gpu, convert.state_to_numpy(sc))
+    before = (front.fused_front.launches, wfm_tail.wfm_tail.launches)
+    for k in ks:
+        x = plane(k * n)
+        sc, oc = cpu.step_many(sc, pc, x)
+        sg, og = gpu.step_many(sg, pg, x.to(cuda))
+        assert float((og["audio"].cpu() - oc["audio"]).abs().max()) < 2e-4
+        for key in ("spectrum", "zoomed"):
+            assert float((og[key].cpu() - oc[key]).abs().max()) < 0.1
+        assert float((og["smeter"]["snr_db"].cpu()
+                      - oc["smeter"]["snr_db"]).abs().max()) < 0.1
+        for key in ("squelch_open", "ctcss_open", "pilot_locked",
+                    "rds_timing"):
+            if key in oc:
+                assert torch.equal(og[key].cpu(), oc[key]), key
+        if cpu.ctcss_cfg:
+            assert oc["ctcss_open"][:, :2].all()
+            assert not oc["ctcss_open"][:, 2:].any()
+        if opts.get("rds"):
+            scale = float(oc["rds_soft"].abs().max())
+            assert float((og["rds_soft"].cpu() - oc["rds_soft"]).abs().max()
+                         ) <= 1e-3 * scale
+        for a, b in zip(convert.state_to_numpy(sg), convert.state_to_numpy(sc)):
+            if a.size:
+                assert np.abs(a.astype(np.complex128)
+                              - b.astype(np.complex128)).max() < 1e-4
+    if opts.get("enable_anf"):
+        assert float(sg.anf.weights.abs().max()) > 1e-3
+    assert (front.fused_front.launches, wfm_tail.wfm_tail.launches) == (
+        before[0] + len(ks), before[1])
 
 
 # ---- the K1 probes (ops/kprobe.py): tools/kbench2.py's kernels ----------

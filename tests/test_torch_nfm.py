@@ -1,0 +1,143 @@
+"""NFM of the PyTorch port against the JAX package on the CPU.
+
+  * nfm_demod with the conj-product and the derivative discriminator, C = 4,
+    over two streaming calls (the carried sample, DC tracker and voice
+    low-pass history), against pebblesdr_tpu/demod/nfm.py;
+  * the FMN Receiver through the harness of torch_parity.py (one step()
+    warm-up, the state carried across, dispatches of K = 3 and 9 blocks of
+    8192 frames): K1 in its base form at AM's plan (factor 32, 711 taps);
+  * the per-sample loops the port does not run (NFM "pll", the "pll"
+    pilot, the scan RDS carrier and AGC, adaptive IQ balance, SAM's scan,
+    loop and non-128 forms) refused by name.
+
+Bounds: nfm_demod 1e-5 of the audio's scale, state 1e-5; the Receiver those
+of tests/test_torch_receiver.py:77-115.  The first block's audio is not
+compared: from a zero state it discriminates the front FIR's fill (|y| ~
+1e-6), whose angles are rounding noise in either package (the spectra,
+S-meter and squelch of that block are compared; the dispatches after it
+start from JAX's state).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_parity as tp
+from pebblesdr_tpu.demod import nfm as jnfm
+from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
+from pebblesdr_tpu_torch.demod import nfm, rds, sam, wfm
+from pebblesdr_tpu_torch.demod.modes import DemodMode
+from pebblesdr_tpu_torch.ops import agc
+from pebblesdr_tpu_torch.utils import convert
+
+KS = (3, 9)
+RATE, C = 64_000.0, 4
+
+
+def nfm_iq(n: int, seed: int, t0: float = 0.0) -> np.ndarray:
+    """[C, n] complex64 at 64 kHz: NFM (1 kHz at 3 kHz deviation, 123 Hz at
+    500 Hz) on a carrier 300 Hz off, per-channel level and phase, noise."""
+    t = t0 + np.arange(n) / RATE
+    f = (3000.0 * np.sin(2 * np.pi * 1000.0 * t)
+         + 500.0 * np.sin(2 * np.pi * 123.0 * t) + 300.0)
+    ph = 2 * np.pi * np.cumsum(f) / RATE
+    x = np.stack([(0.2 + 0.1 * i) * np.exp(1j * (ph + 0.9 * i))
+                  for i in range(C)])
+    rng = np.random.default_rng(seed)
+    x = x + 1e-2 * (rng.standard_normal(x.shape)
+                    + 1j * rng.standard_normal(x.shape))
+    return x.astype(np.complex64)
+
+
+def fm_plane(k: int, seed: int) -> np.ndarray:
+    """[k*N, 2C] packed plane: the NFM voice signal of nfm_iq at the tune
+    frequency, complex noise at 1e-2."""
+    t = seed * 0.29 + np.arange(k * tp.N) / tp.FS
+    f = (3000.0 * np.sin(2 * np.pi * 1000.0 * t)
+         + 500.0 * np.sin(2 * np.pi * 123.0 * t))
+    ph = 2 * np.pi * np.cumsum(f) / tp.FS
+    x = np.stack([(0.2 + 0.1 * i)
+                  * np.exp(1j * (2 * np.pi * tp.TUNE * t + ph + 0.9 * i))
+                  for i in range(C)], axis=1)
+    rng = np.random.default_rng(seed)
+    x = x + 1e-2 * (rng.standard_normal(x.shape)
+                    + 1j * rng.standard_normal(x.shape))
+    return np.concatenate([x.real, x.imag], axis=1).astype(np.float32)
+
+
+@pytest.mark.parametrize("algorithm", ["conj", "derivative"])
+def test_nfm_demod_matches_jax_streaming(algorithm):
+    jc = jnfm.NFMConfig.make(RATE, algorithm=algorithm)
+    tc = nfm.NFMConfig.make(RATE, algorithm=algorithm)
+    assert np.array_equal(jc.voice_taps, tc.voice_taps)
+    js, ts = jnfm.nfm_init(jc, C), nfm.nfm_init(tc, C, "cpu")
+    for call in range(2):
+        x = nfm_iq(1024, call, t0=call * 1024 / RATE)
+        js, ja = jnfm.nfm_demod(jc, js, jnp.asarray(x))
+        ts, ta = nfm.nfm_demod(tc, ts, torch.from_numpy(x))
+        ja = np.asarray(ja)
+        scale = float(np.abs(ja).max())
+        assert scale > 0.3                      # 3 kHz of 5 kHz deviation
+        assert ta.dtype == torch.float32 and ta.shape == ja.shape
+        assert np.abs(ja - ta.numpy()).max() < 1e-5 * scale
+        jl, tl = tp.jleaves(js), convert.state_to_numpy(ts)
+        assert len(jl) == len(tl) == 6
+        for a, b in zip(jl, tl):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            assert np.abs(a.astype(np.complex128)
+                          - b.astype(np.complex128)).max() < 1e-5
+
+
+@pytest.fixture(scope="module")
+def runs():
+    return tp.run(DemodMode.FMN, fm_plane, KS, jit=True)
+
+
+@pytest.mark.parametrize("run", ["step", *KS])
+def test_fmn_receiver_outputs(runs, run):
+    jo, to, _, _ = runs[run]
+    if run != "step":
+        tp.check_audio(jo, to)
+    tp.check_spectra(jo, to)
+    tp.check_smeter_and_squelch(jo, to)
+    if run == 9:
+        assert float(to["audio"].abs().max()) > 0.3
+    assert "ctcss_open" not in to
+
+
+@pytest.mark.parametrize("run", KS)
+def test_fmn_receiver_state(runs, run):
+    _, _, js, ts = runs[run]
+    tp.check_state(js, ts)
+
+
+def test_fmn_receiver_geometry():
+    """FMN runs K1's base form at AM's plan, its AGC off by default."""
+    rx = Receiver(ReceiverConfig(**tp.KW, mode=DemodMode.FMN), "cpu")
+    assert (rx.plan.factor, rx.front.h.numel()) == (32, 711)
+    assert rx.agc_cfg.mode == "off" and rx.nfm_cfg.algorithm == "conj"
+    assert isinstance(rx.init_state().demod, nfm.NFMState)
+
+
+@pytest.mark.parametrize("what,make,match", [
+    ("nfm pll", lambda: nfm.NFMConfig.make(RATE, algorithm="pll"),
+     r"pll\.pll_run"),
+    ("pll pilot", lambda: wfm.check_ported(wfm.WFMConfig.make(
+        256_000.0, pilot_alg="pll")), "'pll' pilot"),
+    ("rds scan", lambda: rds.check_ported(rds.RdsConfig.make(
+        256_000.0, 4096, alg="scan")), "scan"),
+    ("agc scan", lambda: agc.AGCConfig.make(RATE, "long", algorithm="scan"),
+     "scan"),
+    ("iq auto", lambda: Receiver(ReceiverConfig(
+        **tp.KW, enable_iq_balance="auto"), "cpu"), "auto"),
+    ("sam scan", lambda: sam.check_ported(sam.SAMConfig.make(
+        RATE, algorithm="scan"), 256), "scan"),
+    ("sam loop", lambda: sam.check_ported(sam.SAMConfig.make(
+        RATE, smooth="loop"), 256), "loop"),
+    ("sam non-128", lambda: Receiver(ReceiverConfig(
+        **{**tp.KW, "frames_per_buffer": 2048}, mode=DemodMode.SAM), "cpu"),
+     "128")], ids=lambda v: v if isinstance(v, str) else "")
+def test_per_sample_loops_refused_by_name(what, make, match):
+    with pytest.raises(ValueError, match=match):
+        make()

@@ -190,10 +190,13 @@ def test_folded_plane_rejected():
                      torch.zeros(N // 2, 4 * C))
 
 
-@pytest.mark.parametrize("kw", [dict(mode=DemodMode.FMN),
+@pytest.mark.parametrize("kw", [dict(mode=DemodMode.SAM,
+                                     frames_per_buffer=2048),
                                 dict(frames_per_buffer=3072),
                                 dict(spectrum_bins=4096),
-                                dict(agc_mode="long")])
+                                dict(mode=DemodMode.FMS,
+                                     frames_per_buffer=32768, rds=True,
+                                     rds_alg="scan")])
 def test_unported_configs_rejected(kw):
     with pytest.raises(ValueError):
         Receiver(ReceiverConfig(**{**KW, **kw}), "cpu")
@@ -215,8 +218,9 @@ def test_convert_round_trip():
 def test_port_imports_no_jax():
     """Every module of the port and chip_smoke load in a fresh interpreter,
     and a CPU step of each ported mode, with the noise blanker and IQ
-    balance on (WFM also at the hq geometry), and of the hq RDS receiver,
-    runs without loading jax or any module of the JAX package."""
+    balance on (WFM also at the hq geometry), of FMN with a CTCSS tone, of
+    AM with the ANF and AGC "long", and of the hq RDS receiver, runs
+    without loading jax or any module of the JAX package."""
     code = (
         "import importlib, pkgutil, sys, numpy as np, torch\n"
         "import pebblesdr_tpu_torch as pkg\n"
@@ -232,13 +236,23 @@ def test_port_imports_no_jax():
         "                        (DemodMode.USB, (2,), False),\n"
         "                        (DemodMode.NONE, (2,), False),\n"
         "                        (DemodMode.FMS, (2, 2), False),\n"
-        "                        (DemodMode.FMS, (2, 2), True)):\n"
+        "                        (DemodMode.FMS, (2, 2), True),\n"
+        "                        (DemodMode.FMN, (2,), False),\n"
+        "                        (DemodMode.FMM, (2,), True)):\n"
         "    rx = Receiver(ReceiverConfig(sample_rate=2048000, "
         "frames_per_buffer=8192, channels=2, mode=mode, wfm_hq=hq, "
         "enable_noise_blanker=True, enable_iq_balance=True), 'cpu')\n"
         "    st, out = rx.step(rx.init_state(), rx.default_params(250000.0), x)\n"
         "    assert out['audio'].shape == shape + (rx.audio_blk,)\n"
         "    assert st.nb[1].shape == (16, 4)\n"
+        "for kw in (dict(mode=DemodMode.FMN, ctcss_tone=123.0),\n"
+        "           dict(enable_anf=True, agc_mode='long')):\n"
+        "    rx = Receiver(ReceiverConfig(sample_rate=2048000, "
+        "frames_per_buffer=8192, channels=2, **kw), 'cpu')\n"
+        "    st, out = rx.step(rx.init_state(), rx.default_params(250000.0), x)\n"
+        "    assert out['audio'].shape == (2, rx.audio_blk)\n"
+        "for name in ('nfm', 'goertzel', 'scanops'):\n"
+        "    assert any(m.endswith('.' + name) for m in sys.modules), name\n"
         "rx = Receiver(ReceiverConfig(sample_rate=2048000, "
         "frames_per_buffer=32768, channels=1, mode=DemodMode.FMS, rds=True, "
         "wfm_hq=True), 'cpu')\n"

@@ -187,14 +187,19 @@ def test_squelch_gates_stereo_audio():
     assert float(out["audio"].abs().max()) == 0.0
 
 
+# mono WFM, FMM and FMN run now: their cases hold what those modes still
+# refuse (the ids keep the cases' names)
 @pytest.mark.parametrize("change,what", [
     (dict(rds=True, rds_alg="scan", frames_per_buffer=32768), "scan"),
-    (dict(wfm_hq=True, stereo=False), "mono"),
-    (dict(stereo=False), "mono"),
-    (dict(mode=DemodMode.FMM), "FMM"),
-    (dict(mode=DemodMode.FMN), "FMN"),
+    (dict(wfm_hq=True, stereo=False, rds=True, rds_alg="scan",
+          frames_per_buffer=32768), "scan"),
+    (dict(stereo=False, ctcss_tone=123.0), "requires mode=FMN"),
+    (dict(mode=DemodMode.FMM, rds=True, rds_alg="scan",
+          frames_per_buffer=32768), "scan"),
+    (dict(mode=DemodMode.FMN, ctcss_tone=120.0), "not a CTCSS table tone"),
     (dict(sample_rate=1_536_000, frames_per_buffer=24576), "tail_sub == 0"),
-])
+], ids=["change0-scan", "change1-mono", "change2-mono", "change3-FMM",
+        "change4-FMN", "change5-tail_sub == 0"])
 def test_unported_wfm_configs_named(change, what):
     with pytest.raises(ValueError, match=what):
         Receiver(ReceiverConfig(**{**kw(2), **change}), "cpu")

@@ -18,7 +18,7 @@ from pebblesdr_tpu.ops import fir as jfir
 from pebblesdr_tpu.ops import iir as jiir
 from pebblesdr_tpu.ops import pll as jpll
 from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
-from pebblesdr_tpu_torch.demod import sam
+from pebblesdr_tpu_torch.demod import nfm, sam
 from pebblesdr_tpu_torch.demod.modes import DemodMode
 from pebblesdr_tpu_torch.ops import fir, iir, pll
 from pebblesdr_tpu_torch.utils import convert
@@ -184,5 +184,6 @@ def test_refusals_name_what_is_not_ported():
         fir.fir_apply_complex(torch.from_numpy(carrier(1, 0)), None,
                               torch.zeros(C, 60, dtype=torch.complex64),
                               decim=2, taps_np=cfg.hilbert_taps)
-    with pytest.raises(ValueError, match="FMN is not ported"):
-        Receiver(ReceiverConfig(**tp.KW, mode=DemodMode.FMN), "cpu")
+    # FMN runs now; its per-sample "pll" discriminator is refused by name
+    with pytest.raises(ValueError, match=r"pll\.pll_run"):
+        nfm.NFMConfig.make(RATE, algorithm="pll")

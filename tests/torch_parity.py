@@ -1,11 +1,13 @@
-"""Shared harness of the narrowband receiver parity tests
-(test_torch_ssb.py, test_torch_sam.py, test_torch_narrow.py): the port's
-CPU Receiver against the JAX Receiver built with use_pallas=True (the fused
-front in interpret mode, batched step_many), as tests/test_chain_batched.py
-does.  One JAX step() warms the chain up (compared with the port's step()),
-its state is carried into the port with utils.convert, then dispatches of K
-blocks (odd K keeps the JAX time-fold at 1 for C = 4) are compared with the
-bounds of tests/test_chain_batched.py:58-69."""
+"""Shared harness of the receiver parity tests (test_torch_ssb.py,
+test_torch_sam.py, test_torch_narrow.py, test_torch_nfm.py,
+test_torch_ctcss.py, test_torch_agc_anf.py, test_torch_wfm_mono.py): the
+port's CPU Receiver against the JAX Receiver built with use_pallas=True (the
+fused front in interpret mode, batched step_many), as
+tests/test_chain_batched.py does.  One JAX step() warms the chain up
+(compared with the port's step()), its state is carried into the port with
+utils.convert, then dispatches of K blocks (odd K keeps the JAX time-fold
+at 1 for C = 4) are compared with the bounds of
+tests/test_chain_batched.py:58-69."""
 
 import dataclasses
 
@@ -48,26 +50,45 @@ def jleaves(tree):
     return [np.asarray(a) for a in jax.tree_util.tree_leaves(tree)]
 
 
-def run(mode: DemodMode, plane, ks=(3,), **cfg):
+def run(mode: DemodMode, plane, ks=(3,), twins=None, kw=None,
+        jit: bool = False, **cfg):
     """{"step": (jax out, port out, None, None), K: (jax out, port out,
     jax state leaves, port state leaves)} for the mode, plane(k, seed)
-    giving each dispatch's input."""
+    giving each dispatch's input.  twins: {name: (mode, cfg)} of further
+    port receivers that the JAX package builds the same as this one (FMS
+    with stereo=False and FMM); each is fed the same inputs and states and
+    its results are under res[name] in the same form.  kw replaces KW.
+    jit: run JAX's _step_many_impl jitted (one compile per K, several
+    times faster on the CPU than its op-by-op dispatch)."""
+    kw = KW if kw is None else kw
     jrx = JaxReceiver(JaxConfig(mode=JaxMode[mode.name], use_pallas=True,
-                                **KW, **cfg))
-    trx = Receiver(ReceiverConfig(mode=mode, **KW, **cfg), "cpu")
+                                **kw, **cfg))
+    ports = {None: (mode, cfg), **(twins or {})}
+    trxs = {name: Receiver(ReceiverConfig(mode=m, **kw, **c), "cpu")
+            for name, (m, c) in ports.items()}
     jp = jrx.default_params(TUNE)
-    tp = convert.params_from_numpy(trx, jleaves(jp))
+    tps = {name: convert.params_from_numpy(trx, jleaves(jp))
+           for name, trx in trxs.items()}
     x0 = plane(1, 7)
     jst, jo = jax.jit(jrx.step)(jrx.init_state(), jp, jnp.asarray(x0))
-    _, to = trx.step(trx.init_state(), tp, torch.from_numpy(x0))
-    res = {"step": (jo, to, None, None)}
-    tst = convert.state_from_numpy(trx, jleaves(jst))
+    res = {name: {} for name in ports}
+    tst = {}
+    for name, trx in trxs.items():
+        _, to = trx.step(trx.init_state(), tps[name], torch.from_numpy(x0))
+        res[name]["step"] = (jo, to, None, None)
+        tst[name] = convert.state_from_numpy(trx, jleaves(jst))
+    step_many = jax.jit(jrx._step_many_impl) if jit else jrx._step_many_impl
     for i, k in enumerate(ks):
         x = plane(k, i)
-        jst, jo = jrx._step_many_impl(jst, jp, jnp.asarray(x))
-        tst, to = trx.step_many(tst, tp, torch.from_numpy(x))
-        res[k] = (jo, to, jleaves(jst), convert.state_to_numpy(tst))
-    return res
+        jst, jo = step_many(jst, jp, jnp.asarray(x))
+        for name, trx in trxs.items():
+            tst[name], to = trx.step_many(tst[name], tps[name],
+                                          torch.from_numpy(x))
+            res[name][k] = (jo, to, jleaves(jst),
+                            convert.state_to_numpy(tst[name]))
+    out = res.pop(None)
+    out.update(res)
+    return out
 
 
 def check_audio(jo, to, tol: float = 2e-4, rel: bool = False) -> float:
