@@ -135,7 +135,27 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      signal) and am_anf_long_64ch (AM with the ANF and AGC "long": the
      ANF's weights adapted; its SNR printed), windows interleaved, each
      with a profile of its dispatches; first K1's base form at fmm_64ch's
-     plan (factor 8, 283 taps) against its plain version, both timed.
+     plan (factor 8, 283 taps) against its plain version, both timed;
+ 30. the recurrence kernels of csrc/recur.cu at the module shapes, each
+     driven once through its entry point (launches counted), then held to
+     its plain version on the inputs that call gave it (max |kernel -
+     plain| <= 1e-5, phases on the circle) and timed against it, with its
+     per-launch device time and its bound (the bytes, or the serial floor
+     from the register-only chain probe): pll_scan atan2 (NFM "pll",
+     [64, 32768] at 64 ksps, the tone SNR held), cross and pilot (the
+     composite's [64, 131072], held and timed on its first 8192 steps; the
+     loop locked), pll_chunk_scan (SAM smooth "loop", [64, 4096] chunk
+     phasors, the tone SNR held) and agc_scan ([64, 2048] at stride 16,
+     "long" and "med");
+ 31. the receivers that run the per-sample loop on the card against the
+     CPU (4 channels: FMS with the scan RDS carrier, a dispatch of 3
+     32768-frame blocks; SAM on 64-sample blocks, 2048 frames, dispatches
+     of 3 then 9), pll_scan once per dispatch; "PEBBLES " decoded with the
+     scan carrier; the timed cells wfm_rds_scan_64ch (wfm_rds_64ch with
+     rds_alg="scan") and sam_short_64ch (SAM, 64 channels, 128 blocks of
+     2048 frames), windows interleaved, with their launch counts, tone
+     SNR and dispatch profiles; then pll_scan at each cell's own inputs
+     held to its plain version and timed.
 Each phase's seconds and the running total are printed after it.
 Each receiver phase sets every kernel's launch count to 0 just before it
 drives the receiver and reads the counts just after (front_means and
@@ -150,6 +170,7 @@ line is {"ok": true, "device": {...}}.  No JAX is imported.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import json
@@ -178,7 +199,7 @@ RDS_SLICE = dict(channels=4, frames=32768, blocks=3)
 CTCSS_TONE, CTCSS_NEIGHBOUR = 123.0, 127.3   # Hz, neighbours in the table
 CTCSS_WARM = (33,) * 5   # CPU warm-up dispatches before a CTCSS slice
 #                          (~0.66 s at 8192 frames: the 0.25 s EWMA settles)
-KERNELS = ("front", "wfm_tail")
+KERNELS = ("front", "wfm_tail", "recur")
 MEANS_ATOL = 1e-6        # front_means' float32 means vs plain, of max |x|
 NB1 = (3.3, 7, 0.001, "blank")     # the Receiver's NB1 (threshold, width,
 NB2 = (3.3, 7, 0.001, "average")   # alpha, mode) and NB2
@@ -263,11 +284,16 @@ def wfm_plane(channels: int, n_rows: int, rng, noise: float = 0.0,
 
 
 def reset_launches(front, wfm_tail) -> None:
+    from pebblesdr_tpu_torch.ops import agc, pll
     front.fused_front.launches = 0
     front.fused_front.comp_launches = 0
     front.chunk_means.launches = 0
     front.dc_scan.launches = 0
     wfm_tail.wfm_tail.launches = 0
+    pll.pll_scan.launches = 0
+    pll.pll_scan.detector_launches.update(dict.fromkeys(pll.DETECTORS, 0))
+    pll.pll_chunk_scan.launches = 0
+    agc.agc_scan.launches = 0
 
 
 def am_plane(channels: int, n_rows: int, rng, noise: float = 0.0):
@@ -423,13 +449,23 @@ def ctcss_ratios(torch, goertzel, cfg, state, audio) -> np.ndarray:
     return np.stack(ratios)
 
 
+def runs_loop(rx) -> bool:
+    """Whether a receiver runs the per-sample carrier loop (pll_scan, once
+    per dispatch): the scan RDS carrier, or SAM's per-sample form."""
+    return ((rx.rds_cfg is not None and rx.rds_cfg.alg == "scan")
+            or (rx.sam_cfg is not None
+                and (rx.blk % 128 != 0 or rx.sam_cfg.algorithm == "scan")))
+
+
 def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
                 entry: str | None = None, rx_opts: dict | None = None,
-                tag: str | None = None) -> int:
+                tag: str | None = None, frames: int | None = None,
+                warm: int = 1) -> int:
     """Phases 3 (AM), 8 (FMS), 13 (AM with an entry option: "nb1_iq",
     "i16" or "folded"), 17 (FMS at the hq geometry), 18 (FMS with RDS), 26
-    (the narrowband modes) and 28 (FMN with CTCSS, mono WFM, the ANF and
-    AGC "long"): the receiver on the card vs on the CPU; returns K1's
+    (the narrowband modes), 28 (FMN with CTCSS, mono WFM, the ANF and AGC
+    "long") and 31 (the scan RDS carrier, SAM on 64-sample blocks): the
+    receiver on the card vs on the CPU; returns K1's
     launches over the compared dispatches.
     SAM's audio is held to 2e-3 of its scale (the PLL-mode bound of
     tests/test_chain_batched.py:114-118) and its carried phases modulo
@@ -437,7 +473,10 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
     (the 0.25 s EWMA settles), and every compared block's tone-to-
     neighbour power ratio is asserted far from the decision's 4 first,
     from the pre-gate audio of a twin CPU receiver without the tone
-    squelch."""
+    squelch.  frames: the block length (default SLICE's); warm: the CPU
+    warm-up dispatch's blocks.  The per-sample carrier loop (31: the scan
+    RDS carrier, SAM on 64-sample blocks) launches pll_scan once per
+    dispatch, and its carried phases are compared modulo 2 pi."""
     from pebblesdr_tpu_torch.ops import goertzel
     rx_opts = rx_opts or {}
     fm = mode.name in ("FMS", "FMM")
@@ -451,6 +490,7 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
     if use_rds:            # RDS needs whole symbols per block: N = 32768
         c, n = RDS_SLICE["channels"], RDS_SLICE["frames"]
         dispatches = (RDS_SLICE["blocks"],)
+    n = frames or n
     if entry == "folded":
         c = 2
     opts = (dict(enable_noise_blanker=True, enable_iq_balance=True)
@@ -461,6 +501,7 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
     rx_cpu = receiver.Receiver(cfg, "cpu")
     rx_gpu = receiver.Receiver(cfg, "cuda")
     ctcss = rx_cpu.ctcss_cfg
+    loop = runs_loop(rx_cpu)
     rng = np.random.default_rng(5 if fm else 2)
     params_c = rx_cpu.default_params(250_000.0)
     params_g = rx_gpu.default_params(250_000.0)
@@ -496,7 +537,7 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
     # tone), carried to both, so no compared dispatch starts from the zero
     # state's filter leading edge
     st_c = rx_cpu.init_state()
-    for k in (CTCSS_WARM if ctcss else (1,)):
+    for k in (CTCSS_WARM if ctcss else (warm,)):
         st_c, _ = rx_cpu.step_many(st_c, params_c,
                                    torch.from_numpy(plane(k * n)))
     st_g = convert.state_from_numpy(rx_gpu, convert.state_to_numpy(st_c))
@@ -529,12 +570,13 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
         reset_launches(front, wfm_tail)
         st_g, out_g = rx_gpu.step_many(st_g, params_g, x.cuda())
         torch.cuda.synchronize()
+        from pebblesdr_tpu_torch.ops import pll
         launches = (front.fused_front.launches, wfm_tail.wfm_tail.launches,
-                    front.chunk_means.launches)
+                    front.chunk_means.launches, pll.pll_scan.launches)
         k1_launches += launches[0]
-        if launches != (1, 1 if stereo else 0, 1):
-            raise RuntimeError(f"{tag}: launches (K1, K2, front_means) = "
-                               f"{launches}")
+        if launches != (1, 1 if stereo else 0, 1, 1 if loop else 0):
+            raise RuntimeError(f"{tag}: launches (K1, K2, front_means, "
+                               f"pll_scan) = {launches}")
         d_audio = float((out_g["audio"].cpu() - out_c["audio"]).abs().max())
         d_db = {key: float((out_g[key].cpu() - out_c[key]).abs().max())
                 for key in ("spectrum", "zoomed")}
@@ -565,7 +607,7 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
                         convert.state_to_numpy(st_c)):
             if a.size:
                 d = np.abs(a.astype(np.complex128) - b.astype(np.complex128))
-                if sam:                     # phases compared modulo 2 pi
+                if sam or loop:             # phases compared modulo 2 pi
                     d = np.minimum(d, np.abs(d - 2 * np.pi))
                 d_state = max(d_state, float(d.max()))
         audio_tol = (2e-3 * max(float(out_c["audio"].abs().max()), 1e-6)
@@ -595,7 +637,7 @@ def assert_margin(fl, nb, tag: str) -> None:
 def make_cell(torch, receiver, front, mode, name: str, channels: int,
               blocks: int, entry: str = "f32", opts: dict | None = None,
               tone: tuple | None = None, plane=None,
-              checks: dict | None = None):
+              checks: dict | None = None, frames: int | None = None):
     """One timed cell: a receiver on the card and its dispatch plane (one
     bench signal block repeated, as float32, int16 or folded by 4).  tone =
     (offset Hz, amplitude, audio Hz, audio amplitude): the block is that
@@ -605,8 +647,9 @@ def make_cell(torch, receiver, front, mode, name: str, channels: int,
     whose period is not a block).  checks: "snr_band" (lo, hi) Hz of the
     tone SNR's residual, "snr" False to print the SNR unchecked, "ctcss"
     True to require ctcss_open on every channel, "anf" True to require
-    the ANF's max |w| > 1e-3."""
-    n = HEADLINE["frames"]
+    the ANF's max |w| > 1e-3.  frames: the block length (default the
+    headline's)."""
+    n = frames or HEADLINE["frames"]
     opts = opts or {}
     wfm = mode.name == "FMS" and opts.get("stereo", True)   # stereo
     cfg = receiver.ReceiverConfig(sample_rate=FS, frames_per_buffer=n,
@@ -630,8 +673,8 @@ def make_cell(torch, receiver, front, mode, name: str, channels: int,
     return {"name": name, "rx": rx, "cfg": cfg, "wfm": wfm, "tone": tone,
             "params": rx.default_params(250_000.0), "iq": iq,
             "blocks": blocks, "channels": channels, "state": rx.init_state(),
-            "out": None, "i": 0, "launches": [0, 0, 0, 0, 0], "windows": [],
-            "checks": checks or {}}
+            "out": None, "i": 0, "launches": [0, 0, 0, 0, 0, 0],
+            "windows": [], "checks": checks or {}, "frames": n}
 
 
 def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
@@ -645,6 +688,8 @@ def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
             spectra=(i % SPECTRA_EVERY == 0))
         cell["i"] = i + 1
 
+    from pebblesdr_tpu_torch.ops import pll
+
     def counted(cell, fn):
         reset_launches(front, wfm_tail)
         fn()
@@ -654,6 +699,7 @@ def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
         cell["launches"][2] += front.chunk_means.launches
         cell["launches"][3] += front.dc_scan.launches
         cell["launches"][4] += front.fused_front.comp_launches
+        cell["launches"][5] += pll.pll_scan.launches
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -664,18 +710,21 @@ def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
             counted(cell, lambda: cell["windows"].append(
                 time_cuda(torch, lambda: dispatch(cell), WINDOW_DISPATCHES)))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    n = HEADLINE["frames"]
     for cell in cells:
         c, k, wfm = cell["channels"], cell["blocks"], cell["wfm"]
+        n = cell["frames"]
         n_dispatch = WARMUP + WINDOWS * WINDOW_DISPATCHES
         launches = tuple(cell["launches"])
         scans = 2 if cell["cfg"].enable_noise_blanker else 1
+        loop = runs_loop(cell["rx"])
         if launches != (n_dispatch, n_dispatch if wfm else 0, n_dispatch,
                         scans * n_dispatch,
-                        n_dispatch if wfm and cell["cfg"].wfm_hq else 0):
+                        n_dispatch if wfm and cell["cfg"].wfm_hq else 0,
+                        n_dispatch if loop else 0):
             raise RuntimeError(f"{tag} {cell['name']}: launches (K1, K2, "
-                               f"front_means, front_dc_scan, front_comp) "
-                               f"{launches} for {n_dispatch} dispatches")
+                               f"front_means, front_dc_scan, front_comp, "
+                               f"pll_scan) {launches} for {n_dispatch} "
+                               f"dispatches")
         windows = cell["windows"]
         best = min(windows)                               # ms per dispatch
         cell.update(block_ms=best / k, msps=c * n * k / (best / 1e3) / 1e6,
@@ -687,7 +736,8 @@ def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
             f"spread {max(windows) / best:.3f}; K1 launches {launches[0]}, "
             f"K2 launches {launches[1]}, front_means launches {launches[2]}, "
             f"front_dc_scan launches {launches[3]}, front_comp launches "
-            f"{launches[4]} for {n_dispatch} dispatches "
+            f"{launches[4]}, pll_scan launches {launches[5]} for "
+            f"{n_dispatch} dispatches "
             f"({launches[0] / n_dispatch:g} K1 per dispatch); peak device "
             f"memory {peak:.3f} GiB" + (" (cells timed together)"
                                         if len(cells) > 1 else ""))
@@ -1077,8 +1127,8 @@ def kernel_times(torch, fn, reps: int = 3) -> dict:
     rows = {}
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", 0) or 0
-        m = re.search(r"(front_\w+|wfm_tail_\w+|probe_\w+)(<[^>]*>)?",
-                      ev.key)
+        m = re.search(r"(front_\w+|wfm_tail_\w+|probe_\w+|recur_\w+)"
+                      r"(<[^>]*>)?", ev.key)
         if us and m:
             tot, n = rows.get(m.group(0), (0.0, 0))
             rows[m.group(0)] = (tot + us / 1e3, n + ev.count)
@@ -1354,20 +1404,22 @@ def phase_front_hq(torch, front, decimator, wfm_mod) -> dict:
                      "max_abs_err": max(disc_err, hist_err), **cb}}
 
 
-def phase_rds_decode(torch, receiver, DemodMode) -> dict:
+def phase_rds_decode(torch, receiver, DemodMode, rds_alg: str = "open",
+                     geometries=(False, True), tag: str = "phase19") -> dict:
     """Phase 19: the PS name through the card receiver at C=1, 5 dispatches
     of 8 blocks of 32768 (tests/test_chain_batched.py:299-345), at the
     default and at the hq geometry; the hq run must see no block error
-    (tests/test_rds.py:331)."""
+    (tests/test_rds.py:331).  Phase 31 runs it with the scan carrier
+    (rds_alg="scan") at the default geometry."""
     from pebblesdr_tpu_torch.demod import rds
     n, n_disp, kb = HEADLINE["frames"], 5, 8
     x = torch.from_numpy(wfm_plane(1, n_disp * kb * n, None,
                                    program="rds")).cuda()
     res = {}
-    for hq in (False, True):
+    for hq in geometries:
         cfg = receiver.ReceiverConfig(sample_rate=FS, frames_per_buffer=n,
                                       channels=1, mode=DemodMode.FMS,
-                                      rds=True, wfm_hq=hq)
+                                      rds=True, wfm_hq=hq, rds_alg=rds_alg)
         rx = receiver.Receiver(cfg, "cuda")
         st, params = rx.init_state(), rx.default_params(250_000.0)
         dec = rds.RdsBlockDecoder()
@@ -1379,14 +1431,16 @@ def phase_rds_decode(torch, receiver, DemodMode) -> dict:
         for g in dec.groups:
             grp.decode(g)
         name = "hq" if hq else "default"
-        log(f"phase19 RDS decode ({name} geometry): synced {dec.synced}, "
+        log(f"{tag} RDS decode ({name} geometry, {rds_alg} carrier): synced "
+            f"{dec.synced}, "
             f"{len(dec.groups)} groups, {dec.blocks_ok} blocks ok, "
             f"{dec.block_errors} block errors, {dec.bits_corrected} bits "
             f"corrected; PS {grp.ps_name!r}, PI {grp.pi:#06x} "
             f"({grp.callsign})")
         if not (dec.synced and grp.ps_name == "PEBBLES "
                 and (dec.block_errors == 0 or not hq)):
-            raise RuntimeError(f"phase19: RDS decode failed ({name})")
+            raise RuntimeError(f"{tag}: RDS decode failed ({name}, "
+                               f"{rds_alg} carrier)")
         res[name] = {"groups": len(dec.groups),
                      "block_errors": dec.block_errors}
     return res
@@ -2109,6 +2163,305 @@ def phase_new_cells(torch, receiver, front, wfm_tail, DemodMode) -> dict:
     return done
 
 
+# ---- phases 30-31: the per-sample loops (csrc/recur.cu) ----------------
+
+LOOP_ATOL = 1e-5      # recurrence kernel vs plain: phases (rad, on the
+#                       circle), freqs (rad/sample) and AGC levels (log10):
+#                       the kernel repeats the plain version's float32
+#                       operations one by one (no FMA contraction, the same
+#                       sincosf / atan2f / hypotf), bit-equal where measured
+LOOP_PREFIX = 8192    # steps of the composite-rate forms held to (and timed
+#                       against) the plain version: its Python loop costs
+#                       ~0.3 ms a step on the card
+LOOP_FS = 64_000.0    # the narrowband demod rate (AM's plan at 2.048 Msps)
+PROBE_STEPS = 32768   # steps of the chain probe (serial floor)
+# phase 31's cells: (name, mode, options, frames, blocks)
+LOOP_CELLS = (("wfm_rds_scan_64ch", "FMS", dict(rds=True, rds_alg="scan"),
+               32768, 32),
+              ("sam_short_64ch", "SAM", {}, 2048, 128))
+
+
+@contextlib.contextmanager
+def captured(module, name: str):
+    """Record the arguments of every call of module.name (a kernel wrapper,
+    which still launches and counts) while the block runs."""
+    fn, seen = getattr(module, name), []
+
+    def spy(*args, **kw):
+        seen.append((args, kw))
+        return fn(*args, **kw)
+
+    spy.__dict__ = fn.__dict__     # the wrapper counts through its own name
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
+
+
+def hold_loop(torch, name: str, kernel, plain, args, angles, tag: str,
+              steps: int | None = None) -> dict:
+    """A recurrence kernel against its plain version on the same inputs
+    (args; with steps, the first `steps` columns of args[0] only): the
+    plain version once, timed by events (a Python loop of ~20 launches a
+    step), the kernel timed over 10 calls, its per-launch device time
+    (torch.profiler), and every output compared (the indices in `angles`
+    on the circle).  Raises past LOOP_ATOL."""
+    if steps is not None:
+        args = (args[0][:, :steps].contiguous(),) + tuple(args[1:])
+    out_k = kernel(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out_p = plain(*args)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    ms = time_cuda(torch, lambda: kernel(*args), 10)
+    # one launch per call, so ms is its launch's time; the profiler's
+    # per-launch record where it keeps one (after the earlier phases'
+    # profiles of whole dispatches it may record none)
+    lt = kernel_times(torch, lambda: kernel(*args), reps=3)
+    err = 0.0
+    for i, (a, b) in enumerate(zip(out_k, out_p)):
+        if not a.numel():
+            continue
+        d = a.double() - b.double()
+        if i in angles:
+            d = torch.angle(torch.exp(1j * d))
+        err = max(err, float(d.abs().max()))
+    shape = tuple(args[0].shape)
+    log(f"{tag} {name} {shape}: kernel {ms:.4f} ms per call (per launch "
+        f"{breakdown_text(lt)}) vs plain {plain_ms:.1f} ms; max |kernel - "
+        f"plain| {err:.3g} (<= {LOOP_ATOL})")
+    if not err <= LOOP_ATOL:
+        raise RuntimeError(f"{tag} {name}: the kernel disagrees with its "
+                           f"plain version ({err:.3g})")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "shape": shape, "launch_ms": lt}
+
+
+def probe_ns(torch, pll, form: str) -> float:
+    """The serial floor's step latency of one form (ns): the register-only
+    chain probe over PROBE_STEPS steps, timed by events."""
+    pll.chain_probe(form, 256, "cuda")
+    ms = time_cuda(torch, lambda: pll.chain_probe(form, PROBE_STEPS, "cuda"),
+                   3)
+    return ms * 1e6 / PROBE_STEPS
+
+
+def loop_bound(roofline, kind: str, shape, step_ns: float) -> dict:
+    c, n = shape
+    fn = {"pll_scan": roofline.pll_scan_bound,
+          "pll_chunk_scan": roofline.pll_chunk_bound,
+          "agc_scan": roofline.agc_scan_bound}[kind]
+    return fn(c, n, step_ns)
+
+
+def phase_loops(torch, front, wfm_tail) -> dict:
+    """Phase 30: the recurrence kernels at the module shapes, each driven
+    once through its entry point with the launch counts set to 0 just
+    before and read just after, then held to its plain version on the
+    inputs that call gave it and timed against it:
+      * pll_scan atan2: NFM algorithm "pll" at [64, 32768] (64 ksps, NFM
+        voice at 3 kHz deviation): the whole call held, and the audio's
+        1 kHz tone SNR (300 Hz - 3 kHz) >= TONE_SNR_DB;
+      * pll_scan cross and pilot at the WFM composite's shape [64, 131072]
+        (256 kHz, 10 Hz loops: a complex 19 kHz carrier 5 Hz off at unit
+        amplitude, the cross detector's gain; the real composite with its
+        pilot): held and timed on the first LOOP_PREFIX steps of
+        the same input and state (the plain loop would take ~40 s for the
+        whole call), the whole call's kernel time logged, and the loop
+        locked (its mean frequency over the last 8192 samples within 1 Hz
+        of the carrier);
+      * pll_chunk_scan: SAM smooth "loop" at sam_64ch's demod stream
+        ([64, 32768] at 64 ksps in 1024-sample blocks: [64, 4096] chunk
+        phasors; an AM carrier 230 Hz off, noise at 1e-4 since nothing
+        band-limits it here), held whole, the audio's tone SNR >=
+        TONE_SNR_DB;
+      * agc_scan: the scan AGC at am_64ch's demod stream ([64, 32768],
+        stride 16: 2048 steps) in the modes "long" (the hang) and "med",
+        held whole;
+    and each form's serial floor (the chain probe).  Returns the kernel
+    entries of the JSON line keyed by form."""
+    from pebblesdr_tpu_torch.demod import nfm, sam
+    from pebblesdr_tpu_torch.ops import agc, pll
+    from pebblesdr_tpu_torch.utils import roofline
+    c, n, fs = HEADLINE["channels"], HEADLINE["frames"], LOOP_FS
+    rng = np.random.default_rng(30)
+    steps_ns = {form: probe_ns(torch, pll, form) for form in pll.PROBE_FORMS}
+    log("phase30 chain probe (ns per step, one thread, registers only): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in steps_ns.items()))
+    res = {}
+
+    def drive(tag, kind, fn, module, name, det=None):
+        """Run the entry point fn once with the counts at 0; returns the
+        kernel's launches and the arguments of its call."""
+        reset_launches(front, wfm_tail)
+        with captured(module, name) as seen:
+            out = fn()
+        torch.cuda.synchronize()
+        launches = (pll.pll_scan.detector_launches[det] if det
+                    else getattr(pll if kind != "agc_scan" else agc,
+                                 kind).launches)
+        if launches != 1 or len(seen) != 1:
+            raise RuntimeError(f"phase30 {tag}: {launches} {kind} launches "
+                               f"for one call")
+        return out, seen[0][0]
+
+    # NFM "pll": pll_scan atan2
+    t = np.arange(n) / fs
+    ph = (2 * np.pi * 150.0 * t + 3.0 * np.sin(2 * np.pi * 1000.0 * t))
+    x = (0.5 * np.exp(1j * (ph + np.arange(c)[:, None]))
+         + 1e-3 * (rng.standard_normal((c, n))
+                   + 1j * rng.standard_normal((c, n))))
+    x = torch.from_numpy(x.astype(np.complex64)).cuda()
+    ncfg = nfm.NFMConfig.make(fs, algorithm="pll")
+    (_, audio), args = drive("nfm pll", "pll_scan", lambda: nfm.nfm_demod(
+        ncfg, nfm.nfm_init(ncfg, c, "cuda"), x), pll, "pll_scan", "atan2")
+    snr = tone_snr_db(audio[0, n // 4:].double().cpu().numpy(), fs, 1000.0,
+                      (300.0, 3000.0))
+    log(f"phase30 NFM 'pll' [{c}, {n}]: 1 kHz tone SNR {snr:.2f} dB "
+        f"(>= {TONE_SNR_DB})")
+    if not snr >= TONE_SNR_DB:
+        raise RuntimeError("phase30: NFM 'pll' tone SNR below its bound")
+    h = hold_loop(torch, "pll_scan atan2 (NFM pll)", pll.pll_scan,
+                  pll.pll_scan_plain, args, (0, 3), "phase30")
+    res["atan2 nfm"] = dict(h, launches=1, **loop_bound(
+        roofline, "pll_scan", h["shape"], steps_ns["atan2"]))
+
+    # cross and pilot at the composite shape
+    rate, nc = 256_000.0, n * HEADLINE["blocks"] // 8
+    tc = np.arange(nc) / rate
+    for det in ("cross", "pilot"):
+        pcfg = pll.make_pll_config(rate, 10.0, center_hz=19000.0,
+                                   range_hz=100.0, detector=det)
+        phc = 2 * np.pi * 19005.0 * tc + 0.3 * np.arange(c)[:, None]
+        if det == "pilot":
+            xc = (0.1 * np.sin(phc) + 0.3 * np.sin(2 * np.pi * 1000.0 * tc)
+                  + 0.01 * rng.standard_normal((c, nc)))
+        else:                # cross: unnormalised, so at unit amplitude
+            xc = np.exp(1j * phc) + 0.01 * rng.standard_normal((c, nc))
+        xc = torch.from_numpy(xc.astype(np.complex64)).cuda()
+        (_, _, fr), args = drive(det, "pll_scan", lambda: pll.pll_run(
+            pcfg, pll.pll_init(pcfg, c, "cuda"), xc), pll, "pll_scan", det)
+        f_hat = fr[:, -8192:].mean(dim=1).double().cpu().numpy() \
+            * rate / (2 * np.pi)
+        full_ms = time_cuda(torch, lambda: pll.pll_scan(*args), 5)
+        log(f"phase30 pll_scan {det} [{c}, {nc}]: {full_ms:.4f} ms per call; "
+            f"locked at {f_hat.min():.3f}..{f_hat.max():.3f} Hz (19005 "
+            f"within 1)")
+        if not np.all(np.abs(f_hat - 19005.0) < 1.0):
+            raise RuntimeError(f"phase30: the {det} loop did not lock")
+        h = hold_loop(torch, f"pll_scan {det}", pll.pll_scan,
+                      pll.pll_scan_plain, args, (0, 3), "phase30",
+                      steps=LOOP_PREFIX)
+        res[det] = dict(h, launches=1, full_ms=full_ms, full_shape=(c, nc),
+                        **loop_bound(roofline, "pll_scan", h["shape"],
+                                     steps_ns[det]))
+
+    # SAM smooth "loop": pll_chunk_scan
+    env = 1 + 0.5 * np.cos(2 * np.pi * 1000.0 * t)
+    xs = (0.3 * env * np.exp(1j * (2 * np.pi * 230.0 * t
+                                   + 0.7 * np.arange(c)[:, None]))
+          + 1e-4 * (rng.standard_normal((c, n))
+                    + 1j * rng.standard_normal((c, n))))
+    xs = torch.from_numpy(xs.astype(np.complex64)).cuda()
+    scfg = sam.SAMConfig.make(fs, smooth="loop")
+    (_, audio), args = drive("sam loop", "pll_chunk_scan", lambda: (
+        sam.sam_demod(scfg, sam.sam_init(scfg, c, "cuda"), xs,
+                      n_block=1024)), pll, "pll_chunk_scan")
+    snr = tone_snr_db(audio[0, n // 4:].double().cpu().numpy(), fs, 1000.0)
+    log(f"phase30 SAM smooth='loop' [{c}, {n}]: 1 kHz tone SNR {snr:.2f} dB "
+        f"(>= {TONE_SNR_DB})")
+    if not snr >= TONE_SNR_DB:
+        raise RuntimeError("phase30: SAM loop tone SNR below its bound")
+    h = hold_loop(torch, "pll_chunk_scan (SAM loop)", pll.pll_chunk_scan,
+                  pll.pll_chunk_scan_plain, args, (0, 3), "phase30")
+    res["chunk"] = dict(h, launches=1, **loop_bound(
+        roofline, "pll_chunk_scan", h["shape"], steps_ns["chunk"]))
+
+    # the scan AGC at am_64ch's demod stream
+    xa = torch.from_numpy((0.5 * np.where((t % 0.3) < 0.15, 1.0, 0.02)
+                           * env * np.exp(2j * np.pi * 300.0 * t)
+                           + 1e-3 * rng.standard_normal((c, n)))
+                          .astype(np.complex64)).cuda()
+    for mode in ("long", "med"):
+        acfg = agc.AGCConfig.make(fs, mode, stride=HEADLINE["agc_stride"],
+                                  algorithm="scan")
+        _, args = drive(f"agc {mode}", "agc_scan", lambda: agc.agc_apply(
+            acfg, agc.agc_init(acfg, c, "cuda"), xa), agc, "agc_scan")
+        h = hold_loop(torch, f"agc_scan ({mode})", agc.agc_scan,
+                      agc.agc_scan_plain, args, (), "phase30")
+        res[f"agc {mode}"] = dict(h, launches=1, **loop_bound(
+            roofline, "agc_scan", h["shape"],
+            steps_ns["agc hang" if mode == "long" else "agc"]))
+    for key, r in res.items():
+        log(f"phase30 {key}: bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+            f"serial floor {r['serial_ms']:.4f} ms) vs kernel "
+            f"{r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} of it)")
+    res["steps_ns"] = steps_ns
+    return res
+
+
+def phase_loop_cells(torch, receiver, convert, front, wfm_tail,
+                     DemodMode, steps_ns: dict) -> dict:
+    """Phase 31: the receivers that run the per-sample loop.  First the
+    card against the CPU (C=4): FMS with the scan RDS carrier (32768-frame
+    blocks, a dispatch of 3) and SAM on 64-sample blocks (2048 frames,
+    dispatches of 3 then 9 after a 33-block warm-up: the AGC delay line
+    and the loop's lock), pll_scan once per dispatch; then the RDS decode
+    of "PEBBLES " with the scan carrier; then the timed cells
+    wfm_rds_scan_64ch (wfm_rds_64ch with rds_alg="scan": K1's WFM form, K2
+    and pll_scan costas over 9728 steps per dispatch) and sam_short_64ch
+    (SAM, 64 channels, 128 blocks of 2048 frames: K1's base form and
+    pll_scan atan2 over 8192 steps per dispatch), windows interleaved, each
+    with its launch counts, tone SNR and a profile of its dispatches; then
+    pll_scan at each cell's own inputs (captured from a dispatch) held to
+    its plain version and timed."""
+    from pebblesdr_tpu_torch.ops import pll
+    from pebblesdr_tpu_torch.utils import roofline
+    phase_slice(torch, receiver, convert, front, wfm_tail, DemodMode.FMS,
+                rx_opts=dict(rds=True, rds_alg="scan"),
+                tag="phase31 RDS scan slice")
+    phase_slice(torch, receiver, convert, front, wfm_tail, DemodMode.SAM,
+                frames=2048, warm=33, tag="phase31 SAM short slice")
+    phase_rds_decode(torch, receiver, DemodMode, rds_alg="scan",
+                     geometries=(False,), tag="phase31")
+    cells = [make_cell(torch, receiver, front, DemodMode[mode], name,
+                       HEADLINE["channels"], blocks, opts=opts,
+                       frames=frames)
+             for name, mode, opts, frames, blocks in LOOP_CELLS]
+    time_cells(torch, front, wfm_tail, cells, "phase31")
+    done = {}
+    for cell in cells:
+        prof = dispatch_profile(torch, cell, "phase31")
+        det = "costas" if cell["rx"].rds_cfg is not None else "atan2"
+        with captured(pll, "pll_scan") as seen:
+            cell["rx"].step_many(cell["state"], cell["params"], cell["iq"],
+                                 spectra=False)
+        torch.cuda.synchronize()
+        h = hold_loop(torch, f"pll_scan {det} ({cell['name']})",
+                      pll.pll_scan, pll.pll_scan_plain, seen[0][0], (0, 3),
+                      "phase31")
+        done[cell["name"]] = {key: cell[key] for key in (
+            "launches", "block_ms", "msps", "realtime", "peak_gib",
+            "snr_db")}
+        done[cell["name"]].update(prof)
+        done[cell["name"]]["k3"] = dict(h, **loop_bound(
+            roofline, "pll_scan", h["shape"], steps_ns[det]))
+        n_dispatch = WARMUP + WINDOWS * WINDOW_DISPATCHES
+        log(f"phase31 {cell['name']}: pll_scan {det} launches "
+            f"{cell['launches'][5]} ({cell['launches'][5] / n_dispatch:g} "
+            f"per dispatch); {h['ms']:.4f} ms of the dispatch's "
+            f"{cell['block_ms'] * cell['blocks']:.4f} ms")
+    del cells
+    torch.cuda.empty_cache()
+    return done
+
+
+
 def main() -> int:
     import torch
 
@@ -2118,7 +2471,8 @@ def main() -> int:
     from pebblesdr_tpu_torch.chain import receiver
     from pebblesdr_tpu_torch.demod import wfm as wfm_mod
     from pebblesdr_tpu_torch.kernels import build
-    from pebblesdr_tpu_torch.ops import decimator, front, kprobe, wfm_tail
+    from pebblesdr_tpu_torch.ops import (agc, decimator, front, kprobe,
+                                         pll, wfm_tail)
     from pebblesdr_tpu_torch.tools import kbench2
     from pebblesdr_tpu_torch.utils import convert, roofline
     DemodMode = receiver.DemodMode
@@ -2214,6 +2568,11 @@ def main() -> int:
     clock("phase 28")
     phase_new_cells(torch, receiver, front, wfm_tail, DemodMode)
     clock("phase 29")
+    loops = phase_loops(torch, front, wfm_tail)
+    clock("phase 30")
+    lcells = phase_loop_cells(torch, receiver, convert, front, wfm_tail,
+                              DemodMode, loops["steps_ns"])
+    clock("phase 31")
 
     c, n, k = HEADLINE["channels"], HEADLINE["frames"], HEADLINE["blocks"]
     t = n * k
@@ -2344,6 +2703,50 @@ def main() -> int:
             (("v5", 2), "probe_toeplitz v5 (K-tiled, kt 2; 3xTF32 mma.sync)"),
             (("v5", 4), "probe_toeplitz v5 (K-tiled, kt 4; 3xTF32 "
                         "mma.sync)"))
+    ] + [
+        # the recurrences (csrc/recur.cu; no Pallas kernel: each replaces a
+        # per-sample lax.scan).  pll_scan on the receivers' paths: launches
+        # from the timed cell (phase 31), times and error at the inputs a
+        # dispatch gave it; the module options (phase 30): launches from
+        # one call of the entry point, times at its shape (cross and pilot
+        # on the first LOOP_PREFIX steps of the composite).  The bound is
+        # the larger of the bytes over 3.35 TB/s and the serial floor
+        # (steps x the chain probe's step latency); no PyTorch call
+        # computes a recurrence: library_ms null
+        {"name": name, "route": "cuda", "source": pll.SOURCE,
+         "replaces": replaces, "launches": launches,
+         **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by")},
+         "library_ms": None}
+        for name, replaces, launches, r in (
+            ("pll_scan atan2 (SAM on 64-sample blocks: sam_short_64ch, "
+             f"{lcells['sam_short_64ch']['k3']['shape']})",
+             pll.REPLACES["pll_scan"],
+             lcells["sam_short_64ch"]["launches"][5],
+             lcells["sam_short_64ch"]["k3"]),
+            ("pll_scan costas (the scan RDS carrier: wfm_rds_scan_64ch, "
+             f"{lcells['wfm_rds_scan_64ch']['k3']['shape']})",
+             pll.REPLACES["pll_scan"],
+             lcells["wfm_rds_scan_64ch"]["launches"][5],
+             lcells["wfm_rds_scan_64ch"]["k3"]),
+            (f"pll_scan atan2 (NFM 'pll', {loops['atan2 nfm']['shape']})",
+             pll.REPLACES["pll_scan"], loops["atan2 nfm"]["launches"],
+             loops["atan2 nfm"]),
+            (f"pll_scan cross (timed at {loops['cross']['shape']}, the "
+             f"first {LOOP_PREFIX} steps of {loops['cross']['full_shape']})",
+             pll.REPLACES["pll_scan"], loops["cross"]["launches"],
+             loops["cross"]),
+            (f"pll_scan pilot (timed at {loops['pilot']['shape']}, the "
+             f"first {LOOP_PREFIX} steps of {loops['pilot']['full_shape']})",
+             pll.REPLACES["pll_scan"], loops["pilot"]["launches"],
+             loops["pilot"]),
+            (f"pll_chunk_scan (SAM smooth='loop', {loops['chunk']['shape']} "
+             f"chunk phasors)", pll.REPLACES["pll_chunk_scan"],
+             loops["chunk"]["launches"], loops["chunk"]),
+            (f"agc_scan long (hang; {loops['agc long']['shape']})",
+             agc.REPLACES, loops["agc long"]["launches"], loops["agc long"]),
+            (f"agc_scan med ({loops['agc med']['shape']})", agc.REPLACES,
+             loops["agc med"]["launches"], loops["agc med"]))
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

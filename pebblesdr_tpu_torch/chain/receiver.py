@@ -15,15 +15,17 @@ FM (FMS stereo, FMM and FMS with stereo=False mono) branches:
   -> narrowband: FastFIR bandpass -> optional ANF (block LMS, one update
      per demod block, ops/scanops.py) -> parallel AGC (the hang mode 'long'
      too) -> the mode's demod (AM envelope; SAM's aimed carrier loop and
-     sideband split, demod/sam.py; FMN's conj or derivative discriminator,
-     demod/nfm.py; USB/CWU/DIGU I+Q, LSB/CWL/DIGL I-Q, DSB 2I,
-     demod/ssb.py; NONE the real part) -> resampler
+     sideband split, demod/sam.py, or on demod blocks that are not a
+     multiple of 128 samples its per-sample loop; FMN's conj or derivative
+     discriminator, demod/nfm.py; USB/CWU/DIGU I+Q, LSB/CWL/DIGL I-Q, DSB
+     2I, demod/ssb.py; NONE the real part) -> resampler
      WFM stereo: open pilot -> fused stereo tail (ops/wfm_tail.py) -> lock
      gate -> L/R -> de-emphasis (demod/wfm.py) -> stereo resampler
      WFM mono: pre-discriminator biquad -> discriminator -> (hq: composite
      decimation by 2) -> mono low-pass -> de-emphasis (demod/wfm.py) ->
-     resampler; with the RDS tap (either) also the scan-free RDS subchain
-     (demod/rds.py) -> soft symbols
+     resampler; with the RDS tap (either) also the RDS subchain
+     (demod/rds.py: the squaring loop, or the per-sample Costas loop of
+     rds_alg="scan") -> soft symbols
   -> FMN's CTCSS tone squelch (ops/goertzel.py) on the resampled audio
   -> squelch / gain / mute gate.
 
@@ -33,11 +35,13 @@ composite by 2 back to the 256 kHz tail rate inside the front end
 (comp_taps), mono runs the front in its base form and does both in
 demod/wfm.py (its pre-discriminator biquad comes first).
 
-Not ported (the constructor raises ValueError naming it): the "pll" pilot,
-the "scan" RDS carrier, NFM's "pll" discriminator, adaptive IQ balance,
-the scan AGC, and SAM's scan and loop forms and SAM on demod blocks that
-are not a multiple of 128 samples (the JAX package runs those with the
-per-sample PLL loops pll_run / pll_run_blockwise).
+The per-sample carrier loops (the "scan" RDS carrier, SAM on short
+blocks) run on a CUDA device as one launch of the recurrence kernel
+csrc/recur.cu pll_scan per dispatch (ops/pll.py).
+
+Not ported (the constructor raises ValueError naming it): the "pll" pilot
+and its notch, a stereo geometry without a fused-tail sub-block
+(tail_sub == 0) and adaptive IQ balance.
 
 Entry planes are float32 or int16 (the ADC's native container, read as
 x * 2^-15), unfolded [K*N, 2C] or time-folded [K*N/G, 2GC] (the TPU feeders'
@@ -52,7 +56,7 @@ NONE); for WFM the demod state is WFMState (stereo: the fused-tail layout)
 and the FastFIR, ANF and AGC states ride along untouched, as in the JAX
 package; ``ctcss`` the CtcssState with a CTCSS tone.  The Receiver is built
 for one device and runs its whole graph there; on a CUDA device the front
-end and the stereo tail are hand-written CUDA kernels.
+end, the stereo tail and the carrier loops are hand-written CUDA kernels.
 """
 
 from __future__ import annotations
@@ -96,8 +100,8 @@ class ReceiverConfig:
     stereo: bool = True                   # FMS only (False: mono, as FMM)
     rds: bool = False                     # WFM RDS tap
     rds_alg: str = "open"                 # RDS carrier: "open" = the scan-
-    #                                       free squaring loop ("scan", the
-    #                                       per-sample Costas, is not ported)
+    #                                       free squaring loop; "scan" = the
+    #                                       per-sample Costas loop
     wfm_hq: bool = False                  # WFM hq geometry: discriminate at
     #                                       ~512 kHz (the reference's), then
     #                                       decimate the composite by 2
@@ -228,7 +232,6 @@ class Receiver:
                 self.sam_cfg = sam_mod.SAMConfig.make(
                     self.demod_rate, info.default_filter,
                     sideband=cfg.sam_sideband)
-                sam_mod.check_ported(self.sam_cfg, self.blk)
             elif cfg.mode == DemodMode.FMN:
                 self.nfm_cfg = nfm_mod.NFMConfig.make(self.demod_rate)
             audio_src_rate, audio_blk = self.demod_rate, self.blk
@@ -658,14 +661,18 @@ class Receiver:
 
     def _rds(self, rds_state, composite: torch.Tensor, k: int):
         """The RDS subchain on the tail-rate composite [C, K*tail_blk]:
-        streaming-exact on the concatenated stream, so once per dispatch
-        (the symbol-timing EWMA updates once per call).  Returns (state',
-        soft [K, C, n_sym], timing [K, C])."""
+        streaming-exact on the concatenated stream, so once per dispatch.
+        The symbol-timing EWMA updates once per call with the "open"
+        carrier (as the JAX package's batched step_many does) and once per
+        block with the "scan" one (JAX runs that configuration as K
+        per-block steps).  Returns (state', soft [K, C, n_sym], timing
+        [K, C])."""
         c = self.cfg.channels
-        rds_state, soft, timing = rds_mod.rds_process(self.rds_cfg, rds_state,
-                                                      composite)
+        scan = self.rds_cfg.alg == "scan"
+        rds_state, soft, timing = rds_mod.rds_process(
+            self.rds_cfg, rds_state, composite, blocks=k if scan else 0)
         return (rds_state, soft.reshape(c, k, -1).transpose(0, 1),
-                timing[None].expand(k, c))
+                timing.T if scan else timing[None].expand(k, c))
 
     def _demod_wfm(self, state: ReceiverState, params: RxParams, k: int,
                    disc_t: torch.Tensor, dlast: torch.Tensor,

@@ -6,15 +6,15 @@ batched Receiver runs): the real tail-rate composite is decimated to 16 kHz
 with the -57 kHz mix folded into the decimation taps (one paired banded
 matmul, ops/fir.fir_apply_real_signal_pair) and a 16 kHz twiddle, resampled
 to 19 kHz (exactly 16 samples per 1187.5-baud symbol), carrier-recovered by
-the scan-free squaring loop (ops/pll.costas_open_run), matched-filtered and
-sampled at the symbol phase with the largest smoothed |mf|.  Host half
-(numpy and plain Python, copied): the 26-bit syndrome check with burst FEC,
-the 4-state block sync machine and the group decoder (PI, PTY, PS,
-RadioText).
+the scan-free squaring loop (alg="open", ops/pll.costas_open_run) or the
+per-sample Costas loop (alg="scan", ops/pll.pll_run: on a CUDA tensor the
+recurrence kernel csrc/recur.cu pll_scan), matched-filtered and sampled at
+the symbol phase with the largest smoothed |mf|.  Host half (numpy and
+plain Python, copied): the 26-bit syndrome check with burst FEC, the
+4-state block sync machine and the group decoder (PI, PTY, PS, RadioText).
 
-Not ported, and refused with a ValueError naming them: the per-sample Costas
-scan (alg="scan") and the composed / staged inputs of the legacy
-(premix=False) configurations.
+Not ported, and refused with a ValueError naming them: the composed /
+staged inputs of the legacy (premix=False) configurations.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from pebblesdr_tpu_torch.ops import decimator, fir, pll, resampler
+from pebblesdr_tpu_torch.ops import decimator, fir, iir, pll, resampler
 
 RDS_CARRIER_HZ = 57000.0
 RDS_BAUD = 1187.5
@@ -39,7 +39,8 @@ class RdsConfig:
     pll: pll.PLLConfig               # the per-sample Costas ("scan" only)
     mf_taps: np.ndarray              # biphase matched filter at 19 kHz
     n_sym: int                       # symbols per block
-    alg: str = "open"                # "open": the squaring loop
+    alg: str = "open"                # "open": the squaring loop; "scan":
+    #                                  the per-sample Costas loop
     costas_open: pll.CostasOpenConfig | None = None
     chunk19: int = 16                # open-loop chunk at 19 kHz
     h_composed: np.ndarray | None = None   # composite -> 16 kHz response
@@ -90,11 +91,14 @@ class RdsConfig:
                                                 1.0)))
 
 
+ALGORITHMS = ("open", "scan")
+
+
 def check_ported(cfg: RdsConfig) -> None:
     """Raise a ValueError naming the first option this port does not run."""
-    if cfg.alg != "open":
-        raise ValueError(f"RDS: the {cfg.alg!r} carrier (the per-sample "
-                         f"Costas scan) is not ported yet; use alg='open'")
+    if cfg.alg not in ALGORITHMS:
+        raise ValueError(f"RDS: unknown carrier algorithm {cfg.alg!r} "
+                         f"(algorithms: {', '.join(ALGORITHMS)})")
     if not cfg.premix:
         raise ValueError("RDS: the composed / staged inputs (premix=False, "
                          "a complex pre-mixed baseband) are not ported yet")
@@ -104,7 +108,7 @@ def check_ported(cfg: RdsConfig) -> None:
 class RdsState:
     decim: torch.Tensor      # [C, len(h) - 1] premix decimator history
     resamp: torch.Tensor     # [C, 16] complex64 resampler history
-    pll: pll.CostasOpenState
+    pll: pll.CostasOpenState | pll.PLLState   # "open" | "scan"
     mf_tail: torch.Tensor    # [C, SPS - 1] matched-filter history
     phase_acc: torch.Tensor  # [C, SPS] EWMA of |mf| per symbol phase (timing)
     mix_phase: torch.Tensor  # [C] premix twiddle phase at the 16 kHz grid
@@ -120,22 +124,26 @@ def rds_init(cfg: RdsConfig, channels: int, device) -> RdsState:
         decim=zeros(channels, len(cfg.h_composed) - 1),
         resamp=resampler.state_init(cfg.rs_plan, channels, device,
                                     torch.complex64),
-        pll=pll.costas_open_init(channels, device),
+        pll=(pll.costas_open_init(channels, device) if cfg.alg == "open"
+             else pll.pll_init(cfg.pll, channels, device)),
         mf_tail=zeros(channels, len(cfg.mf_taps) - 1),
         phase_acc=zeros(channels, SPS),
         mix_phase=zeros(channels))
 
 
-def rds_process(cfg: RdsConfig, state: RdsState, rds_baseband: torch.Tensor):
+def rds_process(cfg: RdsConfig, state: RdsState, rds_baseband: torch.Tensor,
+                blocks: int = 0):
     """rds_baseband: the real tail-rate composite [C, N] float32 (the WFM
     discriminator output).  N may span K concatenated blocks: every stage
     is streaming-exact on the concatenated stream, except the symbol-timing
     EWMA, which updates once per call (a K-block dispatch smooths the same
-    statistic at another rate).
+    statistic at another rate), or with blocks = K once per block, as K
+    calls would (the closed form of the per-block EWMA, then an argmax per
+    block).
 
     Returns (state', soft [C, n_sym_total] float32 soft symbols, timing
-    [C] int32 symbol phase); sign(soft) are the biphase symbols for
-    RdsBlockDecoder."""
+    [C] int32 symbol phase, or [C, K] with blocks); sign(soft) are the
+    biphase symbols for RdsBlockDecoder."""
     check_ported(cfg)
     if rds_baseband.is_complex():
         raise ValueError("RDS: a complex pre-mixed baseband (the composed / "
@@ -153,22 +161,35 @@ def rds_process(cfg: RdsConfig, state: RdsState, rds_baseband: torch.Tensor):
     x = torch.complex(ya * tw_c + yb * tw_s, yb * tw_c - ya * tw_s)  # 16 kHz
     mix_phase = torch.remainder(state.mix_phase + n16 * adv, 1.0)
     st_r, x = resampler.apply_many(cfg.rs_plan, state.resamp, x)      # 19 kHz
-    st_p, phases, _ = pll.costas_open_run(cfg.costas_open, state.pll, x,
-                                          chunk=cfg.chunk19)
+    if cfg.alg == "open":
+        st_p, phases, _ = pll.costas_open_run(cfg.costas_open, state.pll, x,
+                                              chunk=cfg.chunk19)
+    else:
+        st_p, phases, _ = pll.pll_run(cfg.pll, state.pll, x)          # Costas
     coherent = (x * torch.exp(-1j * phases.to(torch.complex64))).real
     mf, mf_tail = fir.fir_apply_real_signal(coherent, state.mf_tail,
                                             cfg.mf_taps)
     c, n19 = mf.shape
-    sym = mf.reshape(c, n19 // SPS, SPS)
+    k = blocks or 1
+    sym = mf.reshape(c, k, n19 // SPS // k, SPS)
     # symbol timing: EWMA of the mean |mf| per intra-symbol phase, sampled
     # at its largest
-    acc = 0.9 * state.phase_acc + 0.1 * sym.abs().mean(dim=1)
-    best = torch.argmax(acc, dim=-1)                                  # [C]
-    soft = torch.gather(sym, 2, best[:, None, None].expand(c, n19 // SPS, 1)
-                        )[..., 0]
+    p = sym.abs().mean(dim=2)                                   # [C, K, SPS]
+    if blocks:
+        lmat, seed = iir.ewma_tables(k, 0.9, p.device)
+        acc_k = (torch.matmul(lmat, p.transpose(0, 1).reshape(k, -1))
+                 .reshape(k, c, SPS)
+                 + seed[:, None, None] * state.phase_acc[None])   # [K, C, SPS]
+        acc = acc_k[-1]
+        best = torch.argmax(acc_k, dim=-1).T                      # [C, K]
+    else:
+        acc = 0.9 * state.phase_acc + 0.1 * p[:, 0]
+        best = torch.argmax(acc, dim=-1)[:, None]                 # [C, 1]
+    soft = torch.gather(sym, 3, best[:, :, None, None].expand(
+        c, k, sym.shape[2], 1)).reshape(c, n19 // SPS)
+    timing = (best if blocks else best[:, 0]).to(torch.int32)
     return (RdsState(decim=st_d, resamp=st_r, pll=st_p, mf_tail=mf_tail,
-                     phase_acc=acc, mix_phase=mix_phase),
-            soft, best.to(torch.int32))
+                     phase_acc=acc, mix_phase=mix_phase), soft, timing)
 
 
 # ---------------------------------------------------------------- host side

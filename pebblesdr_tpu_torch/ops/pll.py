@@ -1,29 +1,37 @@
-"""Open-loop carrier recovery (no per-sample scan): the 19 kHz pilot for WFM
-stereo and the squaring loop for RDS's BPSK subcarrier.
+"""Carrier recovery: the per-sample second-order loop and its chunked form
+(hand-written CUDA recurrences), and the open-loop trackers (no per-sample
+loop) for the 19 kHz WFM pilot and RDS's BPSK subcarrier.
 
-Port of the open pilot of pebblesdr_tpu/ops/pll.py (PilotOpenConfig,
-pilot_open_core / pilot_open_core_tm / _pilot_open_post) and of its
-scan-free squaring loop (CostasOpenConfig, costas_open_run).  The pilot,
-per chunk of L samples: (1) a Hann-windowed DFT bin at the pilot frequency gives one phasor
-(a matmul; the window is the pilot bandpass); (2) the conj product of
-successive chunk phasors measures the frequency deviation, smoothed by an
-EWMA in closed form; (3) a cumsum integrates it into a phase; (4) the
-residual phasor, EWMA-smoothed, gives the remaining phase offset and the
-lock level.  The per-sample pilot phase is linear within each chunk:
-phase(fL + t) = p0[f] + wf[f] t.  Every matmul is IEEE float32 (the JAX
-package asks Precision.HIGHEST: bf16 EWMA matmuls bias the loops).
+Port of pebblesdr_tpu/ops/pll.py.
 
-The two-stage aimed carrier loop of SAM (pll_run_aimed) is ported with its
-open stage-2 smoother (costas_open_run, square=False).  The closed-loop
-PLL (pll_run, the per-sample scan: the "pll" pilot and SAM's
-algorithm="scan") and the chunked loop (pll_run_blockwise: SAM's
-smooth="loop") are not; of them only the configuration (PLLConfig,
-make_pll_config) and the state (PLLState, pll_init) are, because RdsConfig
-and SAMState carry them.
+The closed loops: pll_run (the per-sample loop, pll.pll_run: the RDS "scan"
+Costas carrier, SAM's "scan" and short blocks, NFM "pll") and
+pll_run_blockwise (the loop at the chunk rate over coherent chunk phasors:
+SAM's smooth="loop", the second stage of pll_run_aimed).  Each loop carries
+three floats per channel from sample to sample, so on a CUDA tensor it runs
+as one launch of a recurrence kernel (csrc/recur.cu: pll_scan, one thread
+per channel, four phase detectors; pll_chunk_scan at the chunk rate), and
+on a CPU tensor as its plain version (pll_scan_plain, pll_chunk_scan_plain:
+a Python loop over time of the same float32 arithmetic on [C] tensors).
+pll_scan.launches / pll_chunk_scan.launches count the kernel launches
+(pll_scan.detector_launches per detector).
+
+The open pilot, per chunk of L samples: (1) a Hann-windowed DFT bin at the
+pilot frequency gives one phasor (a matmul; the window is the pilot
+bandpass); (2) the conj product of successive chunk phasors measures the
+frequency deviation, smoothed by an EWMA in closed form; (3) a cumsum
+integrates it into a phase; (4) the residual phasor, EWMA-smoothed, gives
+the remaining phase offset and the lock level.  The per-sample pilot phase
+is linear within each chunk: phase(fL + t) = p0[f] + wf[f] t.  Every matmul
+is IEEE float32 (the JAX package asks Precision.HIGHEST: bf16 EWMA matmuls
+bias the loops).  The squaring loop (CostasOpenConfig, costas_open_run) and
+SAM's two-stage aimed loop (pll_run_aimed, with the open stage-2 smoother
+or the chunked loop) are scan-free around their loops likewise.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import math
@@ -31,9 +39,15 @@ import math
 import numpy as np
 import torch
 
+from pebblesdr_tpu_torch.kernels import build
 from pebblesdr_tpu_torch.ops import iir
 
 TWO_PI = 2.0 * math.pi
+DETECTORS = ("atan2", "cross", "costas", "pilot")   # recur.cu's det 0-3
+SOURCE = "pebblesdr_tpu_torch/csrc/recur.cu"
+# the lax.scan each kernel replaces (no Pallas kernel: a per-sample scan)
+REPLACES = {"pll_scan": "pebblesdr_tpu/ops/pll.py:116",
+            "pll_chunk_scan": "pebblesdr_tpu/ops/pll.py:182"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,11 +196,14 @@ def _pilot_open_post(cfg, state, z, ell, n, alpha, rotf_c, rotf_s, ramp_d,
     return new_state, (p0, wf, tin_d), level
 
 
-# ------------------------------------------- closed-loop PLL configuration
+# ------------------------------------------------------ the closed loop
 
 @dataclasses.dataclass(frozen=True)
 class PLLConfig:
-    """The per-sample PLL's gains and clamps (its run is not ported)."""
+    """The second-order loop's gains and clamps: alpha = 2 zeta wn, beta =
+    wn^2, wn = 2 pi BW / fs; the detector 'atan2' (four-quadrant, SAM and
+    NFM), 'cross' (Im(z) sign(Re(z)), complex carriers), 'costas' (Re(z)
+    Im(z) / amp^2, BPSK) or 'pilot' (a real pilot, Re(x) cos(phase))."""
     alpha: float
     beta: float
     freq_center: float   # radians/sample NCO center
@@ -218,6 +235,279 @@ def pll_init(cfg: PLLConfig, channels: int, device) -> PLLState:
         return torch.full((channels,), v, dtype=torch.float32, device=device)
 
     return PLLState(phase=full(0.0), fdev=full(0.0), amp=full(1.0))
+
+
+def _wrap(a: torch.Tensor) -> torch.Tensor:
+    """mod(a + pi, 2 pi) - pi in float32 (torch.remainder is jnp.mod's
+    fmod-and-adjust)."""
+    return torch.remainder(a + math.pi, TWO_PI) - math.pi
+
+
+def _derotate(zr, zi, phase):
+    """(Re, Im) of z e^{-j phase}, as the complex64 product computes it."""
+    c, s = torch.cos(phase), torch.sin(phase)
+    return zr * c + zi * s, zi * c - zr * s
+
+
+def pll_scan_plain(x: torch.Tensor, phase: torch.Tensor, fdev: torch.Tensor,
+                   amp: torch.Tensor, detector: str, alpha: float,
+                   beta: float, wc: float, dev_lo: float, dev_hi: float):
+    """Plain version of pll_scan: the loop of pll.pll_run, one step per
+    sample over x [C, N] complex64, state [C] float32.  Returns (phase',
+    fdev', amp', phases [C, N] (the phase used on each sample), freqs [C, N]
+    (fdev' + wc))."""
+    c, n = x.shape
+    xr, xi = x.real.contiguous(), x.imag.contiguous()
+    mag = torch.hypot(xr, xi)
+    phases, fdevs = [], []
+    for xr_t, xi_t, mag_t in zip(xr.unbind(1), xi.unbind(1), mag.unbind(1)):
+        amp2 = amp + 1e-3 * (mag_t - amp)
+        if detector == "pilot":
+            a_half = torch.clamp((math.pi / 4.0) * amp2, min=1e-6)
+            err = xr_t * torch.cos(phase) / a_half
+        else:
+            zr, zi = _derotate(xr_t, xi_t, phase)
+            if detector == "atan2":
+                err = torch.atan2(zi, zr)
+            elif detector == "costas":
+                err = zr * zi / torch.clamp(amp2 * amp2, min=1e-12)
+            else:                                          # cross
+                err = zi * torch.sign(zr)
+        fdev2 = torch.clamp(fdev + beta * err, dev_lo, dev_hi)
+        phases.append(phase)
+        fdevs.append(fdev2)
+        phase = _wrap(phase + (wc + fdev2) + alpha * err)
+        fdev, amp = fdev2, amp2
+    return phase, fdev, amp, _columns(phases, c, x.device), \
+        _columns(fdevs, c, x.device) + wc
+
+
+def _columns(cols: list, c: int, device) -> torch.Tensor:
+    """The [C] tensors of a plain loop's steps as the columns of [C, N]."""
+    if not cols:
+        return torch.empty(c, 0, dtype=torch.float32, device=device)
+    return torch.stack(cols, dim=1)
+
+
+def pll_chunk_scan_plain(z: torch.Tensor, phase: torch.Tensor,
+                         fdev: torch.Tensor, amp: torch.Tensor, pilot: bool,
+                         alpha: float, beta: float, dev_lo: float,
+                         dev_hi: float):
+    """Plain version of pll_chunk_scan: the loop of pll.pll_run_blockwise,
+    one step per chunk phasor z [C, F] complex64 (gains at the chunk rate,
+    fdev in radians per chunk).  Returns (phase', fdev', amp', offs [C, F]
+    (the loop phase at each chunk), fdevs [C, F])."""
+    c, f = z.shape
+    zr_all, zi_all = z.real.contiguous(), z.imag.contiguous()
+    mag = torch.hypot(zr_all, zi_all)
+    offs, fdevs = [], []
+    for zr_k, zi_k, mag_k in zip(zr_all.unbind(1), zi_all.unbind(1),
+                                 mag.unbind(1)):
+        amp2 = amp + 0.05 * (mag_k - amp)
+        zr, zi = _derotate(zr_k, zi_k, phase)
+        if pilot:                                      # zz * 1j
+            zr, zi = -zi, zr
+        err = torch.atan2(zi, zr)
+        fdev2 = torch.clamp(fdev + beta * err, dev_lo, dev_hi)
+        offs.append(phase)
+        fdevs.append(fdev2)
+        phase = _wrap(phase + fdev2 + alpha * err)
+        fdev, amp = fdev2, amp2
+    return (phase, fdev, amp, _columns(offs, c, z.device),
+            _columns(fdevs, c, z.device))
+
+
+@functools.cache
+def _lib():
+    """csrc/recur.cu, built at first use, with the loops' C signatures."""
+    lib = build.load("recur")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.recur_pll_scan.restype = i
+    lib.recur_pll_scan.argtypes = [i, i, p, i, i, f, f, f, f, f, p, p, p, p,
+                                   p, p, p, p, p]
+    lib.recur_pll_chunk_scan.restype = i
+    lib.recur_pll_chunk_scan.argtypes = [i, i, p, i, i, f, f, f, f, p, p, p,
+                                         p, p, p, p, p, p]
+    lib.recur_probe.restype = i
+    lib.recur_probe.argtypes = [i, i, i, p, p]
+    lib.recur_error_string.restype = ctypes.c_char_p
+    lib.recur_error_string.argtypes = [i]
+    return lib
+
+
+# the forms of csrc/recur.cu's chain probe (recur_probe's form 0-7)
+PROBE_FORMS = DETECTORS + ("chunk", "chunk pilot", "agc hang", "agc")
+
+
+def chain_probe(form: str, steps: int, device) -> torch.Tensor:
+    """Launch the serial floor's probe of one recurrence form on a CUDA
+    device: one thread runs `steps` steps of the form's dependent chain on
+    inputs held in registers (no memory inside the loop).  Timed over many
+    steps, its time per step is the latency of one step's chain, the
+    recurrence kernels' serial floor (utils/roofline.py).  Returns its
+    [1] float32 output (a sum of the outputs, which keeps every step)."""
+    dev = torch.device(device)
+    out = torch.empty(1, dtype=torch.float32, device=dev)
+    lib = _lib()
+    err = lib.recur_probe(
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        PROBE_FORMS.index(form), int(steps), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"chain probe launch failed: CUDA error {err} "
+                           f"({lib.recur_error_string(err).decode()})")
+    return out
+
+
+def _check_loop(name: str, x: torch.Tensor, state) -> torch.device:
+    """The loops' argument checks: x [C, N] complex64 and the [C] float32
+    state on one CUDA device, contiguous."""
+    dev = x.device
+    if x.dim() != 2 or x.dtype != torch.complex64 or not x.is_contiguous():
+        raise ValueError(f"{name}: input must be a contiguous [C, N] "
+                         f"complex64 tensor, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    for v in state:
+        if (v.device != dev or v.dtype != torch.float32
+                or tuple(v.shape) != (x.shape[0],) or not v.is_contiguous()):
+            raise ValueError(f"{name}: state must be contiguous [C] float32 "
+                             f"tensors on {dev}, got {v.dtype} "
+                             f"{tuple(v.shape)} on {v.device}")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: {tuple(x.shape)} is too large for one "
+                         f"launch")
+    return dev
+
+
+def _run_loop(fn, name: str, x: torch.Tensor, state, flag: int,
+              consts: tuple):
+    """Launch a recurrence of csrc/recur.cu on x's device and stream:
+    returns (phase', fdev', amp', out0 [C, N], out1 [C, N])."""
+    dev = _check_loop(name, x, state)
+    c, n = x.shape
+    outs = [torch.empty(c, n, dtype=torch.float32, device=dev)
+            for _ in range(2)]
+    st_out = [torch.empty(c, dtype=torch.float32, device=dev)
+              for _ in range(3)]
+    lib = _lib()
+    err = getattr(lib, fn)(
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        flag, x.data_ptr(), c, n, *consts,
+        *(v.data_ptr() for v in state), *(v.data_ptr() for v in outs),
+        *(v.data_ptr() for v in st_out),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
+                           f"({lib.recur_error_string(err).decode()})")
+    return (*st_out, *outs)
+
+
+def pll_scan(x: torch.Tensor, phase: torch.Tensor, fdev: torch.Tensor,
+             amp: torch.Tensor, detector: str, alpha: float, beta: float,
+             wc: float, dev_lo: float, dev_hi: float):
+    """The per-sample loop: the CUDA kernel (csrc/recur.cu pll_scan, one
+    launch) for CUDA tensors, pll_scan_plain for CPU tensors.  Same
+    arguments and results as pll_scan_plain."""
+    if detector not in DETECTORS:
+        raise ValueError(f"unknown PLL detector {detector!r} (detectors: "
+                         f"{', '.join(DETECTORS)})")
+    if x.device.type == "cpu":
+        return pll_scan_plain(x, phase, fdev, amp, detector, alpha, beta, wc,
+                              dev_lo, dev_hi)
+    if x.device.type != "cuda":
+        raise ValueError(f"pll_scan runs on cuda or cpu, not {x.device}")
+    ret = _run_loop("recur_pll_scan", "pll_scan", x, (phase, fdev, amp),
+                    DETECTORS.index(detector),
+                    (alpha, beta, wc, dev_lo, dev_hi))
+    pll_scan.launches += 1
+    pll_scan.detector_launches[detector] += 1
+    return ret
+
+
+def pll_chunk_scan(z: torch.Tensor, phase: torch.Tensor, fdev: torch.Tensor,
+                   amp: torch.Tensor, pilot: bool, alpha: float, beta: float,
+                   dev_lo: float, dev_hi: float):
+    """The loop at the chunk rate: the CUDA kernel (csrc/recur.cu
+    pll_chunk_scan, one launch) for CUDA tensors, pll_chunk_scan_plain for
+    CPU tensors.  Same arguments and results as pll_chunk_scan_plain."""
+    if z.device.type == "cpu":
+        return pll_chunk_scan_plain(z, phase, fdev, amp, pilot, alpha, beta,
+                                    dev_lo, dev_hi)
+    if z.device.type != "cuda":
+        raise ValueError(f"pll_chunk_scan runs on cuda or cpu, not "
+                         f"{z.device}")
+    ret = _run_loop("recur_pll_chunk_scan", "pll_chunk_scan", z,
+                    (phase, fdev, amp), int(bool(pilot)),
+                    (alpha, beta, dev_lo, dev_hi))
+    pll_chunk_scan.launches += 1
+    return ret
+
+
+pll_scan.launches = 0            # CUDA kernel launches (the plain path never
+pll_scan.detector_launches = dict.fromkeys(DETECTORS, 0)   # counts)
+pll_chunk_scan.launches = 0
+
+
+def _complex(x: torch.Tensor) -> torch.Tensor:
+    if x.is_complex():
+        return x.to(torch.complex64).contiguous()
+    return torch.complex(x.float(), torch.zeros_like(x, dtype=torch.float32))
+
+
+def pll_run(cfg: PLLConfig, state: PLLState, x: torch.Tensor):
+    """Track the carrier in x [C, N] complex64 (a real x is taken as its
+    complex form).  Returns (state', phases [C, N], freqs [C, N]): the NCO
+    phase used to mix each sample and the loop frequency after it
+    (absolute, radians/sample)."""
+    ph, fr, am, phases, freqs = pll_scan(
+        _complex(x), state.phase, state.fdev, state.amp, cfg.detector,
+        cfg.alpha, cfg.beta, cfg.freq_center,
+        cfg.freq_lo - cfg.freq_center, cfg.freq_hi - cfg.freq_center)
+    return PLLState(phase=ph, fdev=fr, amp=am), phases, freqs
+
+
+@functools.lru_cache(maxsize=16)
+def _blockwise_tables(wc: float, chunk: int, f: int, device: torch.device):
+    """The centre-frequency derotation of pll_run_blockwise: rot_in
+    [chunk] = e^{-j wc t}, rot_chunk [F] = e^{-j wc chunk k}, and the
+    in-chunk and chunk indices, float32 as the JAX package forms them."""
+    t_in = torch.arange(chunk, dtype=torch.float32, device=device)
+    k_idx = torch.arange(f, dtype=torch.float32, device=device)
+    rot_in = torch.exp(-1j * (wc * t_in).to(torch.complex64))
+    rot_chunk = torch.exp(-1j * ((wc * chunk) * k_idx).to(torch.complex64))
+    return t_in, k_idx, rot_in, rot_chunk
+
+
+def pll_run_blockwise(cfg: PLLConfig, state: PLLState, x: torch.Tensor,
+                      chunk: int = 256):
+    """The chunked loop: each chunk of x [C, N] derotated by the centre
+    frequency and summed coherently into one phasor (an IEEE float32
+    product), the loop run over the chunk phasors (pll_chunk_scan, gains
+    rescaled to the chunk rate), and the per-sample phase rebuilt as the
+    centre ramp + the chunk's loop phase + the in-chunk drift.  The
+    'pilot' detector takes the real part of x; others a complex carrier.
+    Returns (state', phases [C, N], freqs [C, N]) like pll_run."""
+    c, n = x.shape
+    if n % chunk:
+        raise ValueError(f"pll_run_blockwise: {n} samples are not a whole "
+                         f"number of {chunk}-sample chunks")
+    f = n // chunk
+    wc = cfg.freq_center
+    t_in, k_idx, rot_in, rot_chunk = _blockwise_tables(wc, chunk, f,
+                                                       x.device)
+    xc = x.reshape(c, f, chunk)
+    if cfg.detector == "pilot":
+        xc = torch.complex(xc.real.float(), torch.zeros_like(xc.real.float()))
+    z = torch.matmul(xc.to(torch.complex64), rot_in) * rot_chunk[None] / chunk
+    ph, fr, am, offs, fdevs = pll_chunk_scan(
+        z.contiguous(), state.phase, state.fdev * chunk, state.amp,
+        cfg.detector == "pilot", cfg.alpha * chunk, cfg.beta * chunk * chunk,
+        (cfg.freq_lo - wc) * chunk, (cfg.freq_hi - wc) * chunk)
+    center_ramp = (wc * chunk) * k_idx[None, :, None] + wc * t_in[None, None]
+    in_chunk = (fdevs / chunk)[:, :, None] * t_in[None, None]
+    phases = (center_ramp + offs[:, :, None] + in_chunk).reshape(c, n)
+    freqs = (wc + fdevs / chunk)[:, :, None].expand(c, f, chunk).reshape(c, n)
+    return PLLState(phase=ph, fdev=fr / chunk, amp=am), phases, freqs
 
 
 # --------------------------------------- open-loop BPSK carrier (RDS, squared)
@@ -324,8 +614,8 @@ def costas_open_run(cfg: CostasOpenConfig, state: CostasOpenState,
 
 # ------------------------------------------------ aimed carrier loop (SAM)
 
-def pll_run_aimed(cfg: PLLConfig, state: CostasOpenState,
-                  aim_phase: torch.Tensor, x: torch.Tensor, n_block: int = 0,
+def pll_run_aimed(cfg: PLLConfig, state, aim_phase: torch.Tensor,
+                  x: torch.Tensor, chunk: int = 64, n_block: int = 0,
                   smooth_cfg: CostasOpenConfig | None = None):
     """Two-stage blockwise carrier loop for wide pull ranges (SAM: +-1 kHz
     at ~32 ksps), x [C, N] complex64 holding N / n_block logical blocks.
@@ -335,18 +625,15 @@ def pll_run_aimed(cfg: PLLConfig, state: CostasOpenState,
     sidebands before its conj-product frequency read, the stream derotated
     by each stage's estimate before the next; clipped to the loop range,
     and the block derotated by the carried aim ramp.  Stage 2 tracks the
-    near-DC residual with the open-loop smoother (costas_open_run,
-    square=False; its chunk halves until it divides the block).  The aim
-    phase carries across calls.  `state` is the smoother's CostasOpenState
-    (the chunked-loop stage 2 of smooth_cfg None, pll_run_blockwise, is
-    not ported).
+    near-DC residual: with smooth_cfg (a CostasOpenConfig; `state` its
+    CostasOpenState) the open-loop smoother (costas_open_run, square=False;
+    its chunk halves until it divides the block), else the chunked loop
+    (pll_run_blockwise at `chunk`, around a zero centre with the clamp
+    widened to [lo - hi, hi - lo]; `state` a PLLState).  The aim phase
+    carries across calls.
 
     Returns (state', aim_phase' [C], phases [C, N], freqs [C, N]
     rad/sample)."""
-    if smooth_cfg is None:
-        raise ValueError("pll_run_aimed's chunked-loop stage 2 (SAM "
-                         "smooth='loop', pll_run_blockwise) is not ported; "
-                         "pass smooth_cfg for the open smoother")
     c, n = x.shape
     nb = n_block or n
     k = n // nb
@@ -375,13 +662,20 @@ def pll_run_aimed(cfg: PLLConfig, state: CostasOpenState,
     t_in = torch.arange(nb, dtype=torch.float32, device=x.device)
     ramp = (starts[:, :, None] + f_est[:, :, None] * t_in).reshape(c, n)
     xd = x * torch.exp(-1j * ramp.to(torch.complex64))
-    ell = smooth_cfg.chunk
-    while nb % ell:
-        ell //= 2
-    st2, ph_res, _ = costas_open_run(smooth_cfg, state, xd, chunk=ell,
-                                     square=False)
-    phases = ramp + ph_res
     freqs = torch.repeat_interleave(f_est, nb, dim=-1)
+    if smooth_cfg is not None:
+        ell = smooth_cfg.chunk
+        while nb % ell:
+            ell //= 2
+        st2, ph_res, _ = costas_open_run(smooth_cfg, state, xd, chunk=ell,
+                                         square=False)
+    else:
+        cfg0 = dataclasses.replace(cfg, freq_center=0.0,
+                                   freq_lo=cfg.freq_lo - cfg.freq_hi,
+                                   freq_hi=cfg.freq_hi - cfg.freq_lo)
+        st2, ph_res, fr_res = pll_run_blockwise(cfg0, state, xd, chunk=chunk)
+        freqs = freqs + fr_res
+    phases = ramp + ph_res
     aim2 = (torch.remainder(starts[:, -1] + steps[:, -1] + math.pi, TWO_PI)
             - math.pi)
     return st2, aim2, phases, freqs

@@ -11,8 +11,10 @@ channels, 32 blocks of 32768 frames), wfm_64ch (FM stereo, the same
 shape), wfm_hq_64ch (FM stereo at the hq geometry), and by name
 am_nb_64ch (NB1), am_256ch, am_i16_256ch (256 channels, 16 blocks, float32
 and int16), am_16ch (16 channels, 64 blocks, folded by 4), wfm_rds_64ch
-(RDS) and wfm_16ch (16 channels, 64 blocks, folded by 4).  Each is built
-and timed by
+(RDS), wfm_16ch (16 channels, 64 blocks, folded by 4), and the cells of
+the per-sample loops: wfm_rds_scan_64ch (wfm_rds_64ch with the scan RDS
+carrier) and sam_short_64ch (SAM, 64 channels, 128 blocks of 2048
+frames: 64-sample demod blocks).  Each is built and timed by
 ROOT's chip_smoke.py: time_cells (3 warm-up dispatches, then 3 windows of
 10 dispatches with spectra every 6th; launch counts, audio shape, squelch,
 pilot lock and tone SNR checked), then dispatch_profile (5 dispatches with
@@ -28,7 +30,7 @@ import os
 import subprocess
 import sys
 
-# name: (mode, channels, blocks, entry, receiver options)
+# name: (mode, channels, blocks, entry, receiver options[, frames])
 CELLS = {"am_64ch": ("AM", 64, 32, "f32", {}),
          "wfm_64ch": ("FMS", 64, 32, "f32", {}),
          "wfm_hq_64ch": ("FMS", 64, 32, "f32", {"wfm_hq": True}),
@@ -37,7 +39,10 @@ CELLS = {"am_64ch": ("AM", 64, 32, "f32", {}),
          "am_i16_256ch": ("AM", 256, 16, "i16", {}),
          "am_16ch": ("AM", 16, 64, "fold4", {}),
          "wfm_rds_64ch": ("FMS", 64, 32, "f32", {"rds": True}),
-         "wfm_16ch": ("FMS", 16, 64, "fold4", {})}
+         "wfm_16ch": ("FMS", 16, 64, "fold4", {}),
+         "wfm_rds_scan_64ch": ("FMS", 64, 32, "f32",
+                               {"rds": True, "rds_alg": "scan"}),
+         "sam_short_64ch": ("SAM", 64, 128, "f32", {}, 2048)}
 DEFAULT = ("am_64ch", "wfm_64ch", "wfm_hq_64ch")
 
 
@@ -62,10 +67,11 @@ def main(argv: list[str] | None = None) -> dict:
     print(f"[{tag}] {card}", flush=True)
     res = {}
     for name in names:
-        mode, c, k, entry, opts = CELLS[name]
+        mode, c, k, entry, opts, *frames = CELLS[name]
         cell = cs.make_cell(torch, receiver, front,
                             getattr(receiver.DemodMode, mode), name, c, k,
-                            entry, opts)
+                            entry, opts,
+                            **({"frames": frames[0]} if frames else {}))
         cs.time_cells(torch, front, wfm_tail, [cell], f"[{tag}]")
         prof = cs.dispatch_profile(torch, cell, f"[{tag}]")
         res[name] = {"windows": cell["windows"], **prof}

@@ -5,7 +5,12 @@ flatten in field order with ``None`` fields skipped.  The port's dataclasses
 keep the same fields and shapes, so a list of numpy leaves flattened on the
 JAX side maps onto the port's structure in that same order (with the noise
 blanker on, the JAX state's ``nb`` leaves (avg [1, 2C], spike tail [16, 2C])
-land on the port's ``ReceiverState.nb`` tuple).  Nothing here
+land on the port's ``ReceiverState.nb`` tuple).  The structure is the
+port's ``init_state()`` for the same configuration, so the carry follows
+each configuration's leaves: ``RdsState.pll`` is the squaring loop's
+CostasOpenState (5 leaves) with rds_alg "open" and the Costas loop's
+PLLState (3) with "scan"; the scan AGC's state keeps its peak window's
+tail at the full rate and has no hang_tail.  Nothing here
 imports jax: the caller flattens (``jax.tree_util.tree_leaves``) and passes
 numpy arrays.
 """

@@ -3,8 +3,9 @@ it, from the bytes it must move and the operations it must do.
 
 One place for the rates and for the bounds of K1, its passes (front_means,
 which also bounds front_nb_means, front_dc_scan, front_fir, K1's carried
-history, front_disc, front_comp), and K2, read by chip_smoke.py,
-ops/kprobe.py and the tools.
+history, front_disc, front_comp), K2 and the recurrences (pll_scan,
+pll_chunk_scan, agc_scan), read by chip_smoke.py, ops/kprobe.py and the
+tools.
 """
 
 from __future__ import annotations
@@ -125,3 +126,44 @@ def comp_bound(m: int, c: int, tc: int, hist_rows: int, blocks: int = 0,
     nbytes = (m * 2 * c * 4 + 2 * 2 * c * 4 + 2 * hist_rows * c * 4
               + (m // 2) * c * 4 + blocks * y_tail_rows * 2 * c * 4)
     return bound(nbytes, 26 * m * c + 2 * tc * (m // 2) * c)
+
+
+def recur_bound(steps: int, c: int, in_bytes: int, outs: int,
+                step_ns: float) -> dict:
+    """A recurrence's bound (csrc/recur.cu): the larger of two floors.  The
+    bytes: the input [c, steps] (in_bytes per element) read once, `outs`
+    float32 outputs [c, steps] written once, three 4-byte state words per
+    channel read and written, over the HBM rate.  The serial floor: each
+    channel's next step needs its previous state, so the steps run one
+    after another whatever the channel count (c <= 32 x 132 x 64 threads
+    is far from filling the card) and the work takes at least steps x the
+    latency of one step's dependent chain.  step_ns is that latency as the
+    register-only probe measures it (ops/pll.py chain_probe: one thread
+    runs the form's step on inputs held in registers, with no memory in
+    the loop, timed over many steps on the card); it is the latency of this
+    implementation's chain (IEEE sincosf, atan2f, hypotf, divisions), not a
+    property of the card alone.  bound_by "operations" names the serial
+    floor."""
+    nbytes = c * steps * (in_bytes + 4 * outs) + 2 * 3 * 4 * c
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_s = steps * step_ns * 1e-6
+    return {"bytes": nbytes, "serial_ms": t_s, "bound_ms": max(t_b, t_s),
+            "bound_by": "bytes" if t_b >= t_s else "operations"}
+
+
+def pll_scan_bound(c: int, n: int, step_ns: float) -> dict:
+    """pll_scan's bound: x [c, n] complex64 in, phases and freqs [c, n]
+    float32 out, n steps of the loop (recur_bound)."""
+    return recur_bound(n, c, 8, 2, step_ns)
+
+
+def pll_chunk_bound(c: int, f: int, step_ns: float) -> dict:
+    """pll_chunk_scan's bound: the chunk phasors [c, f] complex64 in, offs
+    and fdevs [c, f] float32 out, f steps of the loop (recur_bound)."""
+    return recur_bound(f, c, 8, 2, step_ns)
+
+
+def agc_scan_bound(c: int, m: int, step_ns: float) -> dict:
+    """agc_scan's bound: the envelope [c, m] float32 in, the levels [c, m]
+    out, m steps of the smoother (recur_bound)."""
+    return recur_bound(m, c, 4, 1, step_ns)

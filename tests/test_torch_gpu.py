@@ -7,7 +7,12 @@ what the kernels do not take (unaligned planes, the floor's lanes % 4),
 and the AM, WFM, WFM hq and WFM+RDS receivers on the card against the CPU
 (with the front options, int16, folded and unaligned entry planes too),
 the narrowband receivers (SSB, CW, DIG, DSB, NONE, SAM), and FMN with
-CTCSS, mono WFM, the ANF and AGC "long" on the card against the CPU.
+CTCSS, mono WFM, the ANF and AGC "long" on the card against the CPU; the
+recurrence kernels of csrc/recur.cu (pll_scan in each detector,
+pll_chunk_scan, agc_scan, the chain probe) against their plain versions,
+and the receivers that run them (the scan RDS carrier, SAM on 64-sample
+blocks) and the module options (SAM scan and loop, NFM "pll", the scan
+AGC) on the card against the CPU.
 
 They skip where CUDA is absent (the kernels have no CPU mode).  This file
 imports no jax, so it also runs on a machine that has only the port:
@@ -20,9 +25,10 @@ import pytest
 import torch
 
 from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
-from pebblesdr_tpu_torch.demod import rds, wfm
+from pebblesdr_tpu_torch.demod import nfm, rds, sam, wfm
 from pebblesdr_tpu_torch.demod.modes import DemodMode
-from pebblesdr_tpu_torch.ops import decimator, front, kprobe, wfm_tail
+from pebblesdr_tpu_torch.ops import (agc, decimator, front, kprobe, pll,
+                                     wfm_tail)
 from pebblesdr_tpu_torch.ops.mixer import split_freq
 from pebblesdr_tpu_torch.utils import convert
 
@@ -1394,3 +1400,237 @@ def test_receiver_takes_an_unaligned_view(cuda):
     for a, b in zip(convert.state_to_numpy(sg), convert.state_to_numpy(sc)):
         assert np.abs(a.astype(np.complex128)
                       - b.astype(np.complex128)).max() < 1e-4
+
+
+# ---- the recurrences (csrc/recur.cu): pll_scan, pll_chunk_scan, agc_scan --
+
+def _circ(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest angle between two phase tensors on the circle."""
+    d = (a.double() - b.double()).cpu()
+    return float(torch.angle(torch.exp(1j * d)).abs().max()) if d.numel() \
+        else 0.0
+
+
+def _carrier(det, c, n, fs, f0, rng, device):
+    t = np.arange(n) / fs
+    ph = 2 * np.pi * f0 * t + np.arange(c)[:, None]
+    if det == "pilot":
+        x = 0.1 * np.sin(ph) + 0.01 * rng.standard_normal((c, n))
+    else:
+        data = (np.sign(rng.standard_normal((c, n // 16 + 1)))
+                .repeat(16, 1)[:, :n] if det == "costas" else 1.0)
+        x = (0.5 * data * np.exp(1j * ph)
+             + 0.02 * (rng.standard_normal((c, n))
+                       + 1j * rng.standard_normal((c, n))))
+    return torch.from_numpy(x.astype(np.complex64)).to(device)
+
+
+@pytest.mark.parametrize("c,n", [(64, 4096), (5, 1000), (3, 0)])
+@pytest.mark.parametrize("det", pll.DETECTORS)
+def test_pll_scan_kernel_matches_plain(cuda, det, c, n):
+    """One launch per call; phases on the circle within 1e-5, freqs and
+    the state within 1e-6 (the kernel repeats the plain version's float32
+    operations one by one: the two agree bit for bit on the H100), a
+    partial block of channels and a partial tile (C=5, N=1000), N=0."""
+    fs = 64000.0
+    x = _carrier(det, c, n, fs, 340.0, np.random.default_rng(c), cuda)
+    st = (torch.rand(c, device=cuda), torch.full((c,), 1e-4, device=cuda),
+          torch.ones(c, device=cuda))
+    args = (det, 0.0139, 9.6e-5, 2 * np.pi * 300.0 / fs, -0.098, 0.098)
+    before = (pll.pll_scan.launches, pll.pll_scan.detector_launches[det])
+    got = pll.pll_scan(x, *st, *args)
+    assert (pll.pll_scan.launches, pll.pll_scan.detector_launches[det]) == \
+        (before[0] + 1, before[1] + 1)
+    ref = pll.pll_scan_plain(x, *st, *args)
+    torch.cuda.synchronize()
+    assert _circ(got[0], ref[0]) < 1e-5 and _circ(got[3], ref[3]) < 1e-5
+    for i in (1, 2, 4):
+        assert got[i].shape == ref[i].shape
+        if got[i].numel():
+            assert float((got[i] - ref[i]).abs().max()) < 1e-6
+
+
+@pytest.mark.parametrize("pilot", [False, True])
+def test_pll_chunk_scan_kernel_matches_plain(cuda, pilot):
+    c, f = 64, 4096
+    rng = np.random.default_rng(3)
+    z = torch.from_numpy((0.5 * np.exp(1j * (0.01 * np.arange(f)
+                                              + np.arange(c)[:, None]))
+                          + 0.01 * rng.standard_normal((c, f)))
+                         .astype(np.complex64)).to(cuda)
+    st = (torch.rand(c, device=cuda), torch.zeros(c, device=cuda),
+          torch.ones(c, device=cuda))
+    args = (pilot, 0.11, 0.0077, -0.25, 0.25)
+    before = pll.pll_chunk_scan.launches
+    got = pll.pll_chunk_scan(z, *st, *args)
+    assert pll.pll_chunk_scan.launches == before + 1
+    ref = pll.pll_chunk_scan_plain(z, *st, *args)
+    torch.cuda.synchronize()
+    assert _circ(got[0], ref[0]) < 1e-5 and _circ(got[3], ref[3]) < 1e-5
+    for i in (1, 2, 4):
+        assert float((got[i] - ref[i]).abs().max()) < 1e-6
+
+
+@pytest.mark.parametrize("mode", ["long", "med"])
+@pytest.mark.parametrize("c,m", [(64, 2048), (5, 1000)])
+def test_agc_scan_kernel_matches_plain(cuda, mode, c, m):
+    """The smoother's levels and state equal the plain version's (its
+    arithmetic is compares, selects and single float32 operations)."""
+    rng = np.random.default_rng(m)
+    # keyed every 300 samples, the last 300 off: the hang timer runs
+    key = np.where(((m - 1 - np.arange(m)) // 300) % 2, 1.0, 0.01)
+    env = torch.from_numpy(np.log10(np.abs(0.5 * key + 1e-3 * rng
+                                           .standard_normal((c, m))) + 1e-8)
+                           .astype(np.float32)).to(cuda)
+    k = agc.scan_coefs(agc.AGCConfig.make(64000.0, mode, stride=16,
+                                          algorithm="scan"))
+    st = (torch.full((c,), -0.5, device=cuda),
+          torch.full((c,), -0.5, device=cuda),
+          torch.zeros(c, dtype=torch.int32, device=cuda))
+    args = (k["rise"], k["fall"], k["drise"], k["dfall"], k["hang_samples"],
+            k["hang"])
+    before = agc.agc_scan.launches
+    got = agc.agc_scan(env, *st, *args)
+    assert agc.agc_scan.launches == before + 1
+    ref = agc.agc_scan_plain(env, *st, *args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b.cpu())
+    if mode == "long":
+        assert int(got[2].max()) > 0        # the hang timer ran
+
+
+def test_recurrences_refuse_what_they_do_not_take(cuda):
+    st = (torch.zeros(4, device=cuda),) * 3
+    x = torch.zeros(4, 64, dtype=torch.complex64, device=cuda)
+    with pytest.raises(ValueError):            # a strided input
+        pll.pll_scan(x.t().contiguous().t(), *st, "atan2", 0.1, 0.01, 0.0,
+                     -1.0, 1.0)
+    with pytest.raises(ValueError):            # a state on another device
+        pll.pll_scan(x, st[0].cpu(), st[1], st[2], "atan2", 0.1, 0.01, 0.0,
+                     -1.0, 1.0)
+    with pytest.raises(ValueError):            # float64 phasors
+        pll.pll_chunk_scan(x.to(torch.complex128), *st, False, 0.1, 0.01,
+                           -1.0, 1.0)
+    with pytest.raises(ValueError):            # a float hang counter
+        agc.agc_scan(x.real.contiguous(), st[0], st[1], st[2], 0.1, 0.1,
+                     0.1, 0.1, 10, True)
+
+
+@pytest.mark.parametrize("form", pll.PROBE_FORMS)
+def test_chain_probe_runs_every_form(cuda, form):
+    out = pll.chain_probe(form, 4096, cuda)
+    torch.cuda.synchronize()
+    assert out.shape == (1,) and bool(torch.isfinite(out).all())
+
+
+# the receivers and module options that run the recurrences: (mode,
+# receiver options, frames, dispatches)
+LOOP_RECEIVERS = {
+    "rds_scan": (DemodMode.FMS, dict(rds=True, rds_alg="scan"), 32768,
+                 (3, 3)),
+    "rds_scan_mono": (DemodMode.FMS, dict(stereo=False, rds=True,
+                                          rds_alg="scan"), 32768, (3, 3)),
+    "sam_short": (DemodMode.SAM, {}, 2048, (3, 9)),
+    "sam_short_rails": (DemodMode.SAM, dict(sam_sideband="rails"), 2048,
+                        (3, 9)),
+}
+
+
+@pytest.mark.parametrize("case", list(LOOP_RECEIVERS))
+def test_loop_receivers_on_card_match_cpu(cuda, case):
+    """The scan RDS carrier (FMS stereo and stereo=False) and SAM on
+    64-sample blocks (both sideband splits) on the card against the CPU,
+    C=4, after a CPU warm-up carried to both (SAM 33 blocks: the AGC delay
+    line and the loop's lock); audio 2e-4 (SAM 2e-3 of its scale), soft
+    symbols 1e-3 of their scale, timing equal, spectra and S-meter 0.1 dB,
+    state 1e-4 with phases modulo 2 pi; pll_scan once per dispatch in the
+    receiver's detector."""
+    mode, opts, n, ks = LOOP_RECEIVERS[case]
+    c = 4
+    cfg = ReceiverConfig(sample_rate=FS, frames_per_buffer=n, channels=c,
+                         agc_stride=16, mode=mode, **opts)
+    cpu, gpu = Receiver(cfg, "cpu"), Receiver(cfg, cuda)
+    pc, pg = cpu.default_params(250_000.0), gpu.default_params(250_000.0)
+    rng = np.random.default_rng(31)
+    t0 = [0.0]
+    sam_mode = mode == DemodMode.SAM
+
+    def plane(rows):
+        x = (_rds_plane(c, rows, rng, t0[0]) if opts.get("rds")
+             else _am_plane(c, rows, rng))
+        t0[0] += rows / FS
+        return x
+
+    sc = cpu.init_state()
+    sc, _ = cpu.step_many(sc, pc, plane((33 if sam_mode else 1) * n))
+    sg = convert.state_from_numpy(gpu, convert.state_to_numpy(sc))
+    det = "atan2" if sam_mode else "costas"
+    angles = ({i for i, leaf in enumerate(convert.leaves(sc))
+               if leaf is sc.demod.aim or leaf is sc.demod.pll.phase}
+              if sam_mode else
+              {i for i, leaf in enumerate(convert.leaves(sc))
+               if leaf is sc.rds.pll.phase})
+    for k in ks:
+        x = plane(k * n)
+        sc, oc = cpu.step_many(sc, pc, x)
+        before = pll.pll_scan.detector_launches[det]
+        sg, og = gpu.step_many(sg, pg, x.to(cuda))
+        torch.cuda.synchronize()
+        assert pll.pll_scan.detector_launches[det] == before + 1
+        tol = 2e-3 * float(oc["audio"].abs().max()) if sam_mode else 2e-4
+        assert float((og["audio"].cpu() - oc["audio"]).abs().max()) <= tol
+        for key in ("spectrum", "zoomed"):
+            assert float((og[key].cpu() - oc[key]).abs().max()) < 0.1
+        assert float((og["smeter"]["snr_db"].cpu()
+                      - oc["smeter"]["snr_db"]).abs().max()) < 0.1
+        for key in ("squelch_open", "pilot_locked", "rds_timing"):
+            if key in oc:
+                assert torch.equal(og[key].cpu(), oc[key]), key
+        if opts.get("rds"):
+            scale = float(oc["rds_soft"].abs().max())
+            assert float((og["rds_soft"].cpu() - oc["rds_soft"]).abs().max()
+                         ) <= 1e-3 * scale
+        for i, (a, b) in enumerate(zip(convert.state_to_numpy(sg),
+                                       convert.state_to_numpy(sc))):
+            if not a.size:
+                continue
+            d = np.abs(a.astype(np.complex128) - b.astype(np.complex128))
+            if i in angles:
+                d = np.abs(np.angle(np.exp(1j * (a.astype(np.float64)
+                                                  - b.astype(np.float64)))))
+            assert d.max() < 1e-4, i
+
+
+def test_loop_module_options_on_card_match_cpu(cuda):
+    """SAM algorithm "scan" and smooth "loop", NFM "pll" and the scan AGC
+    (stride 16, "long") through their entry points on the card against the
+    CPU, two calls each."""
+    rng = np.random.default_rng(41)
+    c, rate = 8, 64000.0
+    t = np.arange(4096) / rate
+    xs = [(0.4 * np.exp(1j * (2 * np.pi * 300.0 * t + np.arange(c)[:, None]
+                              + 3 * np.sin(2 * np.pi * 1000.0 * t)))
+           * (1 + 0.5 * np.cos(2 * np.pi * 700.0 * t))
+           + 0.01 * rng.standard_normal((c, 4096))).astype(np.complex64)
+          for _ in range(2)]
+    cases = []
+    for kw in (dict(algorithm="scan"), dict(smooth="loop")):
+        cfg = sam.SAMConfig.make(rate, **kw)
+        cases.append((lambda st, x, cfg=cfg: sam.sam_demod(cfg, st, x,
+                                                           n_block=1024),
+                      lambda dev, cfg=cfg: sam.sam_init(cfg, c, dev)))
+    ncfg = nfm.NFMConfig.make(rate, algorithm="pll")
+    cases.append((lambda st, x: nfm.nfm_demod(ncfg, st, x),
+                  lambda dev: nfm.nfm_init(ncfg, c, dev)))
+    acfg = agc.AGCConfig.make(rate, "long", stride=16, algorithm="scan")
+    cases.append((lambda st, x: agc.agc_apply(acfg, st, x),
+                  lambda dev: agc.agc_init(acfg, c, dev)))
+    for run, init in cases:
+        sc, sg = init("cpu"), init(cuda)
+        for x in xs:
+            sc, yc = run(sc, torch.from_numpy(x))
+            sg, yg = run(sg, torch.from_numpy(x).to(cuda))
+            torch.cuda.synchronize()
+            scale = float(yc.abs().max())
+            assert float((yg.cpu() - yc).abs().max()) <= 1e-4 * scale

@@ -6,9 +6,9 @@
   * the FMN Receiver through the harness of torch_parity.py (one step()
     warm-up, the state carried across, dispatches of K = 3 and 9 blocks of
     8192 frames): K1 in its base form at AM's plan (factor 32, 711 taps);
-  * the per-sample loops the port does not run (NFM "pll", the "pll"
-    pilot, the scan RDS carrier and AGC, adaptive IQ balance, SAM's scan,
-    loop and non-128 forms) refused by name.
+  * what the port still does not run (the "pll" pilot and its notch, a
+    stereo geometry without a fused-tail sub-block, the staged RDS inputs
+    of premix=False, adaptive IQ balance) refused by name.
 
 Bounds: nfm_demod 1e-5 of the audio's scale, state 1e-5; the Receiver those
 of tests/test_torch_receiver.py:77-115.  The first block's audio is not
@@ -18,6 +18,8 @@ S-meter and squelch of that block are compared; the dispatches after it
 start from JAX's state).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,9 +28,8 @@ import torch
 import torch_parity as tp
 from pebblesdr_tpu.demod import nfm as jnfm
 from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
-from pebblesdr_tpu_torch.demod import nfm, rds, sam, wfm
+from pebblesdr_tpu_torch.demod import nfm, rds, wfm
 from pebblesdr_tpu_torch.demod.modes import DemodMode
-from pebblesdr_tpu_torch.ops import agc
 from pebblesdr_tpu_torch.utils import convert
 
 KS = (3, 9)
@@ -120,24 +121,36 @@ def test_fmn_receiver_geometry():
     assert isinstance(rx.init_state().demod, nfm.NFMState)
 
 
+# NFM "pll", the scan RDS carrier and AGC and SAM's scan, loop and non-128
+# forms run now: those cases hold what is still refused (the ids keep the
+# cases' names)
 @pytest.mark.parametrize("what,make,match", [
-    ("nfm pll", lambda: nfm.NFMConfig.make(RATE, algorithm="pll"),
-     r"pll\.pll_run"),
+    ("nfm pll", lambda: wfm.check_ported(dataclasses.replace(
+        wfm.WFMConfig.make(256_000.0), tail_sub=1024, notch_needed=True)),
+     "notch"),
     ("pll pilot", lambda: wfm.check_ported(wfm.WFMConfig.make(
         256_000.0, pilot_alg="pll")), "'pll' pilot"),
-    ("rds scan", lambda: rds.check_ported(rds.RdsConfig.make(
-        256_000.0, 4096, alg="scan")), "scan"),
-    ("agc scan", lambda: agc.AGCConfig.make(RATE, "long", algorithm="scan"),
-     "scan"),
+    ("rds scan", lambda: rds.check_ported(dataclasses.replace(
+        rds.RdsConfig.make(256_000.0, 4096, alg="scan"), premix=False)),
+     "premix=False"),
+    ("agc scan", lambda: wfm.check_ported(wfm.WFMConfig.make(
+        512_000.0, pilot_alg="pll", comp_decim=2)), "'pll' pilot"),
     ("iq auto", lambda: Receiver(ReceiverConfig(
         **tp.KW, enable_iq_balance="auto"), "cpu"), "auto"),
-    ("sam scan", lambda: sam.check_ported(sam.SAMConfig.make(
-        RATE, algorithm="scan"), 256), "scan"),
-    ("sam loop", lambda: sam.check_ported(sam.SAMConfig.make(
-        RATE, smooth="loop"), 256), "loop"),
-    ("sam non-128", lambda: Receiver(ReceiverConfig(
-        **{**tp.KW, "frames_per_buffer": 2048}, mode=DemodMode.SAM), "cpu"),
-     "128")], ids=lambda v: v if isinstance(v, str) else "")
+    ("sam scan", lambda: Receiver(ReceiverConfig(
+        **{**tp.KW, "sample_rate": 1_536_000, "frames_per_buffer": 24576},
+        mode=DemodMode.FMS), "cpu"), "tail_sub == 0"),
+    ("sam loop", lambda: Receiver(ReceiverConfig(
+        **tp.KW, mode=DemodMode.SAM, enable_iq_balance="auto"), "cpu"),
+     "auto"),
+    ("sam non-128", lambda: rds.rds_process(
+        rds.RdsConfig.make(256_000.0, 4096, alg="scan"),
+        rds.rds_init(rds.RdsConfig.make(256_000.0, 4096, alg="scan"), 2,
+                     "cpu"),
+        torch.zeros(2, 4096, dtype=torch.complex64)), "complex")],
+    ids=["nfm pll--pll\\.pll_run", "pll pilot--'pll' pilot",
+         "rds scan--scan", "agc scan--scan", "iq auto--auto",
+         "sam scan--scan", "sam loop--loop", "sam non-128--128"])
 def test_per_sample_loops_refused_by_name(what, make, match):
     with pytest.raises(ValueError, match=match):
         make()

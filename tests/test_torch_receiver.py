@@ -190,12 +190,16 @@ def test_folded_plane_rejected():
                      torch.zeros(N // 2, 4 * C))
 
 
+# SAM on 64-sample blocks and the scan RDS carrier run now: kw0 and kw3
+# hold what those receivers still refuse (the ids keep the cases' names)
 @pytest.mark.parametrize("kw", [dict(mode=DemodMode.SAM,
-                                     frames_per_buffer=2048),
+                                     frames_per_buffer=2048,
+                                     enable_iq_balance="auto"),
                                 dict(frames_per_buffer=3072),
                                 dict(spectrum_bins=4096),
                                 dict(mode=DemodMode.FMS,
-                                     frames_per_buffer=32768, rds=True,
+                                     sample_rate=1_536_000,
+                                     frames_per_buffer=24576, rds=True,
                                      rds_alg="scan")])
 def test_unported_configs_rejected(kw):
     with pytest.raises(ValueError):
@@ -219,8 +223,10 @@ def test_port_imports_no_jax():
     """Every module of the port and chip_smoke load in a fresh interpreter,
     and a CPU step of each ported mode, with the noise blanker and IQ
     balance on (WFM also at the hq geometry), of FMN with a CTCSS tone, of
-    AM with the ANF and AGC "long", and of the hq RDS receiver, runs
-    without loading jax or any module of the JAX package."""
+    AM with the ANF and AGC "long", of the hq RDS receiver, of the scan RDS
+    carrier and of SAM on 64-sample blocks, and a call of NFM "pll" and of
+    the scan AGC, runs without loading jax or any module of the JAX
+    package."""
     code = (
         "import importlib, pkgutil, sys, numpy as np, torch\n"
         "import pebblesdr_tpu_torch as pkg\n"
@@ -260,6 +266,27 @@ def test_port_imports_no_jax():
         "torch.zeros(32768, 2))\n"
         "assert out['rds_soft'].shape == (1, 19)\n"
         "assert 'pebblesdr_tpu_torch.demod.rds' in sys.modules\n"
+        "rx = Receiver(ReceiverConfig(sample_rate=2048000, "
+        "frames_per_buffer=32768, channels=1, mode=DemodMode.FMS, rds=True, "
+        "rds_alg='scan'), 'cpu')\n"
+        "st, out = rx.step(rx.init_state(), rx.default_params(250000.0), "
+        "torch.zeros(32768, 2))\n"
+        "assert out['rds_timing'].shape == (1,)\n"
+        "rx = Receiver(ReceiverConfig(sample_rate=2048000, "
+        "frames_per_buffer=2048, channels=2, mode=DemodMode.SAM), 'cpu')\n"
+        "st, out = rx.step(rx.init_state(), rx.default_params(250000.0), "
+        "x[:2048])\n"
+        "assert out['audio'].shape == (2, 48)\n"
+        "from pebblesdr_tpu_torch.demod import nfm\n"
+        "from pebblesdr_tpu_torch.ops import agc\n"
+        "z = torch.ones(2, 256, dtype=torch.complex64)\n"
+        "c = nfm.NFMConfig.make(64000.0, algorithm='pll')\n"
+        "assert nfm.nfm_demod(c, nfm.nfm_init(c, 2, 'cpu'), z)[1].shape "
+        "== (2, 256)\n"
+        "a = agc.AGCConfig.make(64000.0, 'long', stride=16, "
+        "algorithm='scan')\n"
+        "assert agc.agc_apply(a, agc.agc_init(a, 2, 'cpu'), z)[1].shape "
+        "== (2, 256)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'pebblesdr_tpu' or m.startswith('pebblesdr_tpu.')]\n"
         "assert not bad, bad\n"

@@ -187,15 +187,16 @@ def test_squelch_gates_stereo_audio():
     assert float(out["audio"].abs().max()) == 0.0
 
 
-# mono WFM, FMM and FMN run now: their cases hold what those modes still
-# refuse (the ids keep the cases' names)
+# mono WFM, FMM, FMN and the scan RDS carrier run now: their cases hold
+# what those receivers still refuse (the ids keep the cases' names)
 @pytest.mark.parametrize("change,what", [
-    (dict(rds=True, rds_alg="scan", frames_per_buffer=32768), "scan"),
+    (dict(rds=True, rds_alg="scan", frames_per_buffer=32768,
+          enable_iq_balance="auto"), "auto"),
     (dict(wfm_hq=True, stereo=False, rds=True, rds_alg="scan",
-          frames_per_buffer=32768), "scan"),
+          frames_per_buffer=32768, enable_iq_balance="auto"), "auto"),
     (dict(stereo=False, ctcss_tone=123.0), "requires mode=FMN"),
     (dict(mode=DemodMode.FMM, rds=True, rds_alg="scan",
-          frames_per_buffer=32768), "scan"),
+          frames_per_buffer=32768, enable_iq_balance="auto"), "auto"),
     (dict(mode=DemodMode.FMN, ctcss_tone=120.0), "not a CTCSS table tone"),
     (dict(sample_rate=1_536_000, frames_per_buffer=24576), "tail_sub == 0"),
 ], ids=["change0-scan", "change1-mono", "change2-mono", "change3-FMM",

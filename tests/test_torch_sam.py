@@ -169,21 +169,24 @@ def test_receiver_carried_state(runs, run):
 
 
 def test_refusals_name_what_is_not_ported():
-    with pytest.raises(ValueError, match="not a multiple of 128"):
-        Receiver(ReceiverConfig(**{**tp.KW, "frames_per_buffer": 6144},
-                                mode=DemodMode.SAM), "cpu")
-    with pytest.raises(ValueError, match="smooth='loop'"):
-        sam.SAMConfig.make(RATE, smooth="loop")
-    with pytest.raises(ValueError, match="algorithm='scan'"):
-        sam.SAMConfig.make(RATE, algorithm="scan")
+    """SAM's scan, its loop and its short blocks, and FMN's "pll" run now
+    (tests/test_torch_sam_scan.py, tests/test_torch_nfm_pll.py): what is
+    still refused is an unknown carrier algorithm, smoother or sideband
+    split, the decimating complex FIR, and adaptive IQ balance."""
+    with pytest.raises(ValueError, match="auto"):
+        Receiver(ReceiverConfig(**{**tp.KW, "frames_per_buffer": 2048},
+                                mode=DemodMode.SAM,
+                                enable_iq_balance="auto"), "cpu")
+    with pytest.raises(ValueError, match="smoother"):
+        sam.SAMConfig.make(RATE, smooth="chunked")
+    with pytest.raises(ValueError, match="carrier algorithm"):
+        sam.SAMConfig.make(RATE, algorithm="costas")
+    with pytest.raises(ValueError, match="sideband"):
+        sam.SAMConfig.make(RATE, sideband="upper")
     cfg = sam.SAMConfig.make(RATE)
-    with pytest.raises(ValueError, match="pll_run_blockwise"):
-        pll.pll_run_aimed(cfg.pll, pll.costas_open_init(C, "cpu"),
-                          torch.zeros(C), torch.from_numpy(carrier(1, 0)))
     with pytest.raises(ValueError, match="decim > 1"):
         fir.fir_apply_complex(torch.from_numpy(carrier(1, 0)), None,
                               torch.zeros(C, 60, dtype=torch.complex64),
                               decim=2, taps_np=cfg.hilbert_taps)
-    # FMN runs now; its per-sample "pll" discriminator is refused by name
-    with pytest.raises(ValueError, match=r"pll\.pll_run"):
-        nfm.NFMConfig.make(RATE, algorithm="pll")
+    with pytest.raises(ValueError, match="unknown NFM algorithm"):
+        nfm.NFMConfig.make(RATE, algorithm="quadrature")

@@ -1,6 +1,8 @@
 """Shared harness of the receiver parity tests (test_torch_ssb.py,
 test_torch_sam.py, test_torch_narrow.py, test_torch_nfm.py,
-test_torch_ctcss.py, test_torch_agc_anf.py, test_torch_wfm_mono.py): the
+test_torch_ctcss.py, test_torch_agc_anf.py, test_torch_wfm_mono.py,
+test_torch_sam_scan.py, test_torch_rds_scan.py, test_torch_pll_scan.py,
+test_torch_nfm_pll.py): the
 port's CPU Receiver against the JAX Receiver built with use_pallas=True (the
 fused front in interpret mode, batched step_many), as
 tests/test_chain_batched.py does.  One JAX step() warms the chain up
@@ -48,6 +50,26 @@ def tone_plane(k: int, seed: int, offset_hz: float, am: bool = False,
 
 def jleaves(tree):
     return [np.asarray(a) for a in jax.tree_util.tree_leaves(tree)]
+
+
+def receivers(mode: DemodMode, kw: dict):
+    """The JAX Receiver (use_pallas=True) and the port's CPU Receiver of one
+    configuration, with the JAX default params tuned to TUNE and the
+    port's params carried from them: (jrx, trx, jax params, port
+    params)."""
+    jrx = JaxReceiver(JaxConfig(mode=JaxMode[mode.name], use_pallas=True,
+                                **kw))
+    trx = Receiver(ReceiverConfig(mode=mode, **kw), "cpu")
+    jp = jrx.default_params(TUNE)
+    return jrx, trx, jp, convert.params_from_numpy(trx, jleaves(jp))
+
+
+def circ(a, b) -> float:
+    """Largest angle between two phase arrays on the circle (the angle of
+    e^{j(a - b)}: a wrap to [-pi, pi) may round across +-pi on different
+    steps in the two packages)."""
+    d = np.asarray(a, np.float64) - np.asarray(b, np.float64)
+    return float(np.abs(np.angle(np.exp(1j * d))).max(initial=0.0))
 
 
 def run(mode: DemodMode, plane, ks=(3,), twins=None, kw=None,
