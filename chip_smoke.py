@@ -7,6 +7,8 @@ Run from the repository root with no arguments:
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   0. torch / CUDA versions and the card's name and power limit (nvidia-smi);
+     matmuls in IEEE float32, and fir_apply's conv1d too with cuDNN's TF32
+     allowed (within 1e-5 of a float64 convolution, the setting restored);
   1. build the CUDA kernels from pebblesdr_tpu_torch/csrc with nvcc;
   2. the fused front-end kernel (K1) against its plain PyTorch version at the
      headline shape (64 channels, 32768-frame blocks, 32 blocks), over two
@@ -155,7 +157,30 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      rds_alg="scan") and sam_short_64ch (SAM, 64 channels, 128 blocks of
      2048 frames), windows interleaved, with their launch counts, tone
      SNR and dispatch profiles; then pll_scan at each cell's own inputs
-     held to its plain version and timed.
+     held to its plain version and timed;
+ 32. K5 (csrc/recur.cu iq_lms_scan, the adaptive IQ balance's LMS loop)
+     through its entry point scanops.auto_iq_balance at am_iqauto_64ch's
+     stream ([64, 1048576] complex64: the AM plane with the IQ imbalance
+     of tests/test_chain.py:204-236), one launch, y and w' within 1e-5 of
+     their scale of its plain version (timed once), the kernel timed with
+     its per-launch device time, the chain probe's step latency and the
+     bound; then the image rejection of that imbalance through 12 blocks
+     at module level (deepens by >= 20 dB, ends above 60 dB);
+ 33. the receivers on the staged front on the card against the CPU, on
+     imbalanced planes (4 channels, 8192-frame blocks, dispatches of 3
+     then 9; RDS 32768-frame blocks, 3): AM with enable_iq_balance="auto",
+     USB "auto" + NB1 (impulses, the staged blanker's threshold margin
+     asserted), AM with enable_dc_removal=False, FMM "auto" + RDS; K1
+     never launched, K5 once per dispatch with "auto"; then the
+     PfbBankReceiver at M = 16 (1.024 Msps, 3 stations, dispatches of 3
+     blocks of 16384), trivial front and "auto";
+ 34. the timed cells am_iqauto_64ch (am_64ch with enable_iq_balance=
+     "auto" on the imbalanced plane: the staged front, K5) and
+     pfb_127st_bank128 (bench.py:228-290: 127 AM stations through a
+     128-channel filterbank, 16 kHz channel tails, spectra every
+     dispatch), each timed alone, with launch counts, its peak memory and
+     a profile; then the halfband cascade of am_iqauto_64ch
+     (decimator.apply), timed, and its share of device busy.
 Each phase's seconds and the running total are printed after it.
 Each receiver phase sets every kernel's launch count to 0 just before it
 drives the receiver and reads the counts just after (front_means and
@@ -284,7 +309,7 @@ def wfm_plane(channels: int, n_rows: int, rng, noise: float = 0.0,
 
 
 def reset_launches(front, wfm_tail) -> None:
-    from pebblesdr_tpu_torch.ops import agc, pll
+    from pebblesdr_tpu_torch.ops import agc, pll, scanops
     front.fused_front.launches = 0
     front.fused_front.comp_launches = 0
     front.chunk_means.launches = 0
@@ -294,6 +319,7 @@ def reset_launches(front, wfm_tail) -> None:
     pll.pll_scan.detector_launches.update(dict.fromkeys(pll.DETECTORS, 0))
     pll.pll_chunk_scan.launches = 0
     agc.agc_scan.launches = 0
+    scanops.auto_iq_balance.launches = 0
 
 
 def am_plane(channels: int, n_rows: int, rng, noise: float = 0.0):
@@ -460,7 +486,7 @@ def runs_loop(rx) -> bool:
 def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
                 entry: str | None = None, rx_opts: dict | None = None,
                 tag: str | None = None, frames: int | None = None,
-                warm: int = 1) -> int:
+                warm: int = 1, imbalance: bool = False) -> int:
     """Phases 3 (AM), 8 (FMS), 13 (AM with an entry option: "nb1_iq",
     "i16" or "folded"), 17 (FMS at the hq geometry), 18 (FMS with RDS), 26
     (the narrowband modes), 28 (FMN with CTCSS, mono WFM, the ANF and AGC
@@ -476,8 +502,13 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
     squelch.  frames: the block length (default SLICE's); warm: the CPU
     warm-up dispatch's blocks.  The per-sample carrier loop (31: the scan
     RDS carrier, SAM on 64-sample blocks) launches pll_scan once per
-    dispatch, and its carried phases are compared modulo 2 pi."""
-    from pebblesdr_tpu_torch.ops import goertzel
+    dispatch, and its carried phases are compared modulo 2 pi.  Phase 33:
+    the receivers on the staged front (K1 and front_means never launched,
+    K5 once per dispatch with enable_iq_balance="auto"), on planes with
+    the IQ imbalance of tests/test_chain.py:204-236 (imbalance=True); the
+    entry "staged_nb1" adds the impulses and asserts the staged blanker's
+    threshold margin."""
+    from pebblesdr_tpu_torch.ops import goertzel, scanops
     rx_opts = rx_opts or {}
     fm = mode.name in ("FMS", "FMM")
     stereo = mode.name == "FMS" and rx_opts.get("stereo", True)
@@ -524,7 +555,9 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
         else:
             x = am_plane(c, rows, rng, 1e-2)
         t0[0] += rows / FS
-        return impulsive(x, n) if entry == "nb1_iq" else x
+        if imbalance:
+            x = imbalanced(x)
+        return impulsive(x, n) if entry in ("nb1_iq", "staged_nb1") else x
 
     def entry_plane(x):
         if entry == "i16":
@@ -555,6 +588,9 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
                                          params_c.iq_gain, params_c.iq_phase)
             assert_margin(front.nb_flags(z, rx_cpu.nb_params, *st_c.nb),
                           rx_cpu.nb_params, tag)
+        if entry == "staged_nb1":
+            assert_margin(staged_nb_levels(torch, rx_cpu, st_c, x),
+                          rx_cpu.nb_params, tag)
         if ctcss:
             st_t, out_t = twin.step_many(st_t, params_c, x)
             r = ctcss_ratios(torch, goertzel, ctcss, st_c.ctcss,
@@ -572,11 +608,14 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
         torch.cuda.synchronize()
         from pebblesdr_tpu_torch.ops import pll
         launches = (front.fused_front.launches, wfm_tail.wfm_tail.launches,
-                    front.chunk_means.launches, pll.pll_scan.launches)
+                    front.chunk_means.launches, pll.pll_scan.launches,
+                    scanops.auto_iq_balance.launches)
         k1_launches += launches[0]
-        if launches != (1, 1 if stereo else 0, 1, 1 if loop else 0):
+        fused = 0 if rx_gpu.staged else 1
+        if launches != (fused, 1 if stereo else 0, fused, 1 if loop else 0,
+                        int(cfg.enable_iq_balance == "auto")):
             raise RuntimeError(f"{tag}: launches (K1, K2, front_means, "
-                               f"pll_scan) = {launches}")
+                               f"pll_scan, iq_lms_scan) = {launches}")
         d_audio = float((out_g["audio"].cpu() - out_c["audio"]).abs().max())
         d_db = {key: float((out_g[key].cpu() - out_c[key]).abs().max())
                 for key in ("spectrum", "zoomed")}
@@ -622,6 +661,41 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
     log(f"{tag.split()[0]} ok: card slice == CPU slice"
         + (f" ({entry})" if entry else ""))
     return k1_launches
+
+
+def imbalanced(plane: np.ndarray) -> np.ndarray:
+    """A packed plane through a mismatched IQ path (tests/test_chain.py:
+    204-236): I gain 1.06, 0.08 of I leaked into Q."""
+    c = plane.shape[1] // 2
+    i = plane[:, :c].copy()
+    plane[:, :c] = 1.06 * i
+    plane[:, c:] += 0.08 * i
+    return plane
+
+
+def staged_nb_levels(torch, rx, st, x):
+    """The staged blanker's |x|^2 and the average each sample is tested
+    against (ops/scanops.py noise_blanker_chunked), from the CPU receiver's
+    state st and its packed input x, after the DC blocker and the IQ
+    balance it runs first."""
+    import types
+    from pebblesdr_tpu_torch.ops import front, iir, scanops
+    z = rx._complex_input(x)
+    if rx.cfg.enable_dc_removal:
+        _, z = (iir.dc_removal_apply(st.dc, z)
+                if rx.cfg.frames_per_buffer % front.DC_CHUNK
+                else iir.dc_removal_chunked(st.dc, z, alpha=0.9999))
+    if rx.cfg.enable_iq_balance == "auto":
+        _, z = scanops.auto_iq_balance(st.iqbal, z)
+    mag2 = z.real * z.real + z.imag * z.imag
+    c, chunk = mag2.shape[0], 512
+    means = mag2.reshape(c, -1, chunk).mean(dim=-1)
+    lmat, seed = iir.ewma_tables(means.shape[1], (1.0 - rx.nb_params[2])
+                                 ** chunk, means.device)
+    avgs = means @ lmat.T + seed[None] * st.nb.mag_avg[:, None]
+    avg_in = torch.cat([st.nb.mag_avg[:, None], avgs[:, :-1]], dim=1)
+    return types.SimpleNamespace(
+        mag2=mag2, avg=torch.repeat_interleave(avg_in, chunk, dim=1))
 
 
 def assert_margin(fl, nb, tag: str) -> None:
@@ -673,22 +747,24 @@ def make_cell(torch, receiver, front, mode, name: str, channels: int,
     return {"name": name, "rx": rx, "cfg": cfg, "wfm": wfm, "tone": tone,
             "params": rx.default_params(250_000.0), "iq": iq,
             "blocks": blocks, "channels": channels, "state": rx.init_state(),
-            "out": None, "i": 0, "launches": [0, 0, 0, 0, 0, 0],
+            "out": None, "i": 0, "launches": [0, 0, 0, 0, 0, 0, 0],
             "windows": [], "checks": checks or {}, "frames": n}
 
 
 def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
     """Warm each cell up, then time WINDOWS windows of each, interleaved
     (cell A, cell B, cell A, ...), counting each cell's kernel launches and
-    checking its last dispatch's audio."""
+    checking its last dispatch's audio.  Spectra every cell["spectra_every"]-
+    th dispatch (SPECTRA_EVERY unless the cell says)."""
     def dispatch(cell):
         i = cell["i"]
+        every = cell.get("spectra_every", SPECTRA_EVERY)
         cell["state"], cell["out"] = cell["rx"].step_many(
             cell["state"], cell["params"], cell["iq"],
-            spectra=(i % SPECTRA_EVERY == 0))
+            spectra=(i % every == 0))
         cell["i"] = i + 1
 
-    from pebblesdr_tpu_torch.ops import pll
+    from pebblesdr_tpu_torch.ops import pll, scanops
 
     def counted(cell, fn):
         reset_launches(front, wfm_tail)
@@ -700,6 +776,7 @@ def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
         cell["launches"][3] += front.dc_scan.launches
         cell["launches"][4] += front.fused_front.comp_launches
         cell["launches"][5] += pll.pll_scan.launches
+        cell["launches"][6] += scanops.auto_iq_balance.launches
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -717,14 +794,17 @@ def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
         launches = tuple(cell["launches"])
         scans = 2 if cell["cfg"].enable_noise_blanker else 1
         loop = runs_loop(cell["rx"])
-        if launches != (n_dispatch, n_dispatch if wfm else 0, n_dispatch,
-                        scans * n_dispatch,
+        fused = 0 if cell["rx"].staged else n_dispatch
+        auto = cell["cfg"].enable_iq_balance == "auto"
+        if launches != (fused, n_dispatch if wfm else 0, fused,
+                        scans * fused,
                         n_dispatch if wfm and cell["cfg"].wfm_hq else 0,
-                        n_dispatch if loop else 0):
+                        n_dispatch if loop else 0,
+                        n_dispatch if auto else 0):
             raise RuntimeError(f"{tag} {cell['name']}: launches (K1, K2, "
                                f"front_means, front_dc_scan, front_comp, "
-                               f"pll_scan) {launches} for {n_dispatch} "
-                               f"dispatches")
+                               f"pll_scan, iq_lms_scan) {launches} for "
+                               f"{n_dispatch} dispatches")
         windows = cell["windows"]
         best = min(windows)                               # ms per dispatch
         cell.update(block_ms=best / k, msps=c * n * k / (best / 1e3) / 1e6,
@@ -736,8 +816,8 @@ def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
             f"spread {max(windows) / best:.3f}; K1 launches {launches[0]}, "
             f"K2 launches {launches[1]}, front_means launches {launches[2]}, "
             f"front_dc_scan launches {launches[3]}, front_comp launches "
-            f"{launches[4]}, pll_scan launches {launches[5]} for "
-            f"{n_dispatch} dispatches "
+            f"{launches[4]}, pll_scan launches {launches[5]}, iq_lms_scan "
+            f"launches {launches[6]} for {n_dispatch} dispatches "
             f"({launches[0] / n_dispatch:g} K1 per dispatch); peak device "
             f"memory {peak:.3f} GiB" + (" (cells timed together)"
                                         if len(cells) > 1 else ""))
@@ -1447,18 +1527,20 @@ def phase_rds_decode(torch, receiver, DemodMode, rds_alg: str = "open",
 
 
 def dispatch_profile(torch, cell, tag: str, reps: int = 5) -> dict:
-    """One cell's dispatches with spectra off: timed by CUDA events without
-    the profiler, their host enqueue time (no sync inside), then under
-    torch.profiler (CUDA activity) for the device busy time per dispatch
-    (the union of its kernels' intervals).  Idle share = 1 - busy /
-    event-timed ms; with the kernels that take the most device time."""
+    """One cell's dispatches with spectra off (on where the cell computes
+    them every dispatch): timed by CUDA events without the profiler, their
+    host enqueue time (no sync inside), then under torch.profiler (CUDA
+    activity) for the device busy time per dispatch (the union of its
+    kernels' intervals).  Idle share = 1 - busy / event-timed ms; with the
+    kernels that take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     st = [cell["state"]]
+    spectra = cell.get("spectra_every", SPECTRA_EVERY) == 1
 
     def step():
         st[0], _ = cell["rx"].step_many(st[0], cell["params"], cell["iq"],
-                                        spectra=False)
+                                        spectra=spectra)
 
     step()
     ms = time_cuda(torch, step, reps)
@@ -1489,7 +1571,8 @@ def dispatch_profile(torch, cell, tag: str, reps: int = 5) -> dict:
     busy = busy / 1e3 / reps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     idle = max(0.0, 1.0 - busy / ms)
-    log(f"{tag} {cell['name']} profile (spectra off): {ms:.4f} ms per dispatch by "
+    log(f"{tag} {cell['name']} profile (spectra {'on' if spectra else 'off'}"
+        f"): {ms:.4f} ms per dispatch by "
         f"events, host enqueue {host:.4f} ms, device busy {busy:.4f} ms "
         f"(idle share {idle:.3f}; "
         f"{len(spans) // reps} kernels per dispatch); top (ms): "
@@ -2461,6 +2544,302 @@ def phase_loop_cells(torch, receiver, convert, front, wfm_tail,
     return done
 
 
+# ---- phases 32-34: the staged front, K5 and the dense filterbank bank ----
+
+IQ_RTOL = 1e-5        # K5 vs plain: y and w' within 1e-5 of their scale (the
+#                       chain repeats the plain version's float32 operations
+#                       one by one; the group sums are added in another order)
+IQ_REJECTION = (20.0, 60.0)   # dB: adaptive balance deepens image rejection
+#                               by >= 20 over 12 blocks and ends above 60
+#                               (tests/test_chain.py:204-236)
+# phase 33's receivers: (tag, mode name, receiver options, entry)
+STAGED_SLICES = (("AM auto", "AM", dict(enable_iq_balance="auto"), None),
+                 ("USB auto nb1", "USB", dict(enable_iq_balance="auto",
+                                              enable_noise_blanker=True),
+                  "staged_nb1"),
+                 ("AM dc off", "AM", dict(enable_dc_removal=False), None),
+                 ("FMM auto rds", "FMM", dict(enable_iq_balance="auto",
+                                              rds=True), None))
+BANK_SLICE = dict(fs=1_024_000, frames=16384, bank=16, dispatches=(3, 3))
+PFB_CELL = dict(bank=128, stations=127)   # bench.py:228-290
+
+
+class BankCell:
+    """A PfbBankReceiver behind the Receiver's step_many(state, params, iq,
+    spectra) signature (time_cells, dispatch_profile); every other
+    attribute is its tail Receiver's."""
+
+    def __init__(self, bank):
+        self.bank = bank
+
+    def __getattr__(self, name):
+        return getattr(self.bank.rx, name)
+
+    def step_many(self, state, params, iq, spectra=True):
+        return self.bank.step_many(state, iq, params, spectra)
+
+
+def make_iqauto_cell(torch, receiver, front):
+    """am_iqauto_64ch: am_64ch's shape and signal (AM, 64 channels, 32
+    blocks of 32768 frames, AGC stride 16) with enable_iq_balance="auto",
+    the plane through tests/test_chain.py:204-236's IQ imbalance."""
+    cell = make_cell(torch, receiver, front, receiver.DemodMode.AM,
+                     "am_iqauto_64ch", HEADLINE["channels"],
+                     HEADLINE["blocks"], opts=dict(enable_iq_balance="auto"))
+    c = HEADLINE["channels"]
+    i = cell["iq"][:, :c].clone()
+    cell["iq"][:, :c] = 1.06 * i
+    cell["iq"][:, c:] += 0.08 * i
+    return cell
+
+
+def make_bank_cell(torch, receiver=None, front=None):
+    """pfb_127st_bank128 (bench.py:228-290): one 2.048 Msps capture (the
+    bench's AM block, an [N, 2] plane repeated over 32 blocks of 32768)
+    through a 128-channel filterbank, 127 AM stations on bank channels
+    1-127 (16 kHz channels, 256-sample channel blocks), AGC stride 16,
+    spectra every dispatch, as the bench computes them.  The bench's
+    carrier sits between two channel centres, so the tone SNR is printed,
+    not held."""
+    from pebblesdr_tpu_torch.chain.pfb_bank import PfbBankReceiver
+    from pebblesdr_tpu_torch.ops import pfb
+    m, n, k = PFB_CELL["bank"], HEADLINE["frames"], HEADLINE["blocks"]
+    centers = pfb.channel_freqs(pfb.plan(FS, m))
+    tunes = centers[(1 + np.arange(PFB_CELL["stations"])) % m]
+    bank = PfbBankReceiver(FS, n, tunes, n_bank=m,
+                           agc_stride=HEADLINE["agc_stride"], device="cuda")
+    t = np.arange(n) / FS
+    iq = 0.5 * (1 + 0.8 * np.cos(2 * np.pi * 1000.0 * t)) / 2 * np.exp(
+        2j * np.pi * 250_000.0 * t)
+    block = np.stack([iq.real, iq.imag], axis=1).astype(np.float32)
+    return {"name": "pfb_127st_bank128", "rx": BankCell(bank),
+            "cfg": bank.rx.cfg, "wfm": False, "tone": None,
+            "params": bank.params,
+            "iq": torch.from_numpy(block).cuda().repeat(k, 1).contiguous(),
+            "blocks": k, "channels": len(tunes), "state": bank.init_state(),
+            "out": None, "i": 0, "launches": [0] * 7, "windows": [],
+            "checks": dict(snr=False), "frames": n, "spectra_every": 1}
+
+
+# the two cells of this slice, by name (tools/cell_profile.py reads it)
+STAGED_CELLS = {"am_iqauto_64ch": make_iqauto_cell,
+                "pfb_127st_bank128": make_bank_cell}
+
+
+def image_rejection_db(y: np.ndarray, f0: float) -> float:
+    spec = np.abs(np.fft.fft(y))
+    freqs = np.fft.fftfreq(len(y), 1.0 / FS)
+    return float(20 * np.log10(spec[np.argmin(np.abs(freqs - f0))] / max(
+        spec[np.argmin(np.abs(freqs + f0))], 1e-12)))
+
+
+def phase_iq_lms(torch, front, wfm_tail) -> dict:
+    """Phase 32: K5 (csrc/recur.cu iq_lms_scan) against its plain version
+    at am_iqauto_64ch's shape ([64, 1048576] complex64: 16384 groups of 64
+    per channel; the AM plane's channels with the IQ imbalance, through
+    its entry point scanops.auto_iq_balance with the counts at 0: one
+    launch), y and w' within IQ_RTOL of their scale, the plain version
+    timed once by events, the kernel over 10 calls with its per-launch
+    device time, the chain probe's step latency and the bound; then the
+    image rejection at module level: tests/test_chain.py:204-236's tone
+    (0.5 at 300 kHz, I gain 1.06, 0.08 of I in Q) through 12 blocks of
+    32768 samples on the card must deepen by >= 20 dB and end above 60."""
+    from pebblesdr_tpu_torch.ops import pll, scanops
+    from pebblesdr_tpu_torch.utils import roofline
+    c = HEADLINE["channels"]
+    n = HEADLINE["frames"] * HEADLINE["blocks"]
+    plane = imbalanced(am_plane(c, n, np.random.default_rng(32), 0.01))
+    x = torch.complex(*(torch.from_numpy(plane[:, j * c:(j + 1) * c].T
+                                         .copy()).cuda() for j in (0, 1)))
+    del plane
+    st0 = scanops.auto_iq_balance_init(c, "cuda")
+    reset_launches(front, wfm_tail)
+    st1, y = scanops.auto_iq_balance(st0, x)
+    torch.cuda.synchronize()
+    if scanops.auto_iq_balance.launches != 1:
+        raise RuntimeError(f"phase32: {scanops.auto_iq_balance.launches} K5 "
+                           f"launches for one call")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    y_p, w_p = scanops.iq_lms_scan_plain(x, st0.w)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err_y = float((y - y_p).abs().max())
+    err_w = float((st1.w - w_p).abs().max())
+    rel_y = err_y / float(y_p.abs().max())
+    rel_w = err_w / float(w_p.abs().max())
+    ms = time_cuda(torch, lambda: scanops.auto_iq_balance(st0, x), 10)
+    lt = kernel_times(torch, lambda: scanops.auto_iq_balance(st0, x), reps=3)
+    step_ns = probe_ns(torch, pll, "iq lms")
+    b = roofline.iq_lms_bound(c, n, step_ns)
+    log(f"phase32 iq_lms_scan [{c}, {n}]: kernel {ms:.4f} ms per call (per "
+        f"launch {breakdown_text(lt)}) vs plain {plain_ms:.1f} ms; max |y - "
+        f"plain| {err_y:.3g} ({rel_y:.3g} of scale), max |w' - plain| "
+        f"{err_w:.3g} ({rel_w:.3g} of scale) (<= {IQ_RTOL}); |w'| "
+        f"{float(st1.w.abs().min()):.4g}..{float(st1.w.abs().max()):.4g}; "
+        f"chain probe {step_ns:.2f} ns per group; bound {b['bound_ms']:.4f} "
+        f"ms ({b['bound_by']}; bytes {b['bytes'] / 3.35e9:.4f} ms, serial "
+        f"floor {b['serial_ms']:.4f} ms): {b['bound_ms'] / ms:.1%} of it")
+    if not (rel_y <= IQ_RTOL and rel_w <= IQ_RTOL):
+        raise RuntimeError("phase32: K5 disagrees with its plain version")
+    del y, y_p, x
+    blk, f0 = 32768, 300_000.0
+    st = scanops.auto_iq_balance_init(1, "cuda")
+    rej = []
+    for b_i in range(12):
+        tt = (b_i * blk + np.arange(blk)) / FS
+        clean = 0.5 * np.exp(2j * np.pi * f0 * tt)
+        xb = (clean.real * 1.06 + 1j * (clean.imag + 0.08 * clean.real))
+        st, yb = scanops.auto_iq_balance(
+            st, torch.from_numpy(xb.astype(np.complex64)[None]).cuda())
+        rej.append(image_rejection_db(yb[0].cpu().numpy(), f0))
+    log(f"phase32 image rejection per block (dB): "
+        + " ".join(f"{r:.1f}" for r in rej)
+        + f" (deepens by >= {IQ_REJECTION[0]}, ends > {IQ_REJECTION[1]})")
+    if not (rej[-1] >= rej[0] + IQ_REJECTION[0] and rej[-1] > IQ_REJECTION[1]):
+        raise RuntimeError("phase32: adaptive IQ balance did not reject the "
+                           "image")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max(err_y, err_w),
+            "shape": (c, n), "step_ns": step_ns, "launch_ms": lt,
+            "rejection_db": rej, **b}
+
+
+def phase_bank_slice(torch, convert, front, wfm_tail,
+                     tag: str = "phase33 bank slice") -> None:
+    """The PfbBankReceiver at M = 16 (1.024 Msps: 64 kHz channels) on the
+    card against the CPU, its trivial front and with
+    enable_iq_balance="auto" (K5 on the tail's staged front), three
+    stations on and off the grid in noise, dispatches of 3 then 3 blocks
+    of 16384: the bounds of tests/test_chain_batched.py:58-69; K5 once per
+    dispatch with "auto", K1 never."""
+    from pebblesdr_tpu_torch.chain.pfb_bank import PfbBankReceiver
+    from pebblesdr_tpu_torch.ops import pfb, scanops
+    fs, n, m = BANK_SLICE["fs"], BANK_SLICE["frames"], BANK_SLICE["bank"]
+    centers = pfb.channel_freqs(pfb.plan(fs, m))
+    tunes = centers[[2, 5, 11]] + np.array([0.0, 1000.0, -700.0])
+    rng = np.random.default_rng(33)
+    for opts in ({}, dict(enable_iq_balance="auto")):
+        cpu, gpu = (PfbBankReceiver(fs, n, tunes, n_bank=m, agc_stride=16,
+                                    device=dev, **opts)
+                    for dev in ("cpu", "cuda"))
+        sc = cpu.init_state()
+        sg = convert.state_from_numpy(gpu, convert.state_to_numpy(sc))
+        t0 = 0.0
+        for k in BANK_SLICE["dispatches"]:
+            t = t0 + np.arange(k * n) / fs
+            t0 += k * n / fs
+            env = (1 + 0.8 * np.cos(2 * np.pi * 1000.0 * t)) / 2
+            x = sum(0.4 * env * np.exp(2j * np.pi * f * t) for f in tunes)
+            x = x + 1e-2 * (rng.standard_normal(len(t))
+                            + 1j * rng.standard_normal(len(t)))
+            x = torch.from_numpy(x.astype(np.complex64))
+            sc, oc = cpu.step_many(sc, x)
+            reset_launches(front, wfm_tail)
+            sg, og = gpu.step_many(sg, x.cuda())
+            torch.cuda.synchronize()
+            launches = (front.fused_front.launches,
+                        scanops.auto_iq_balance.launches)
+            want = (0, int(bool(opts)))
+            d_audio = float((og["audio"].cpu() - oc["audio"]).abs().max())
+            d_db = max(float((og[key].cpu() - oc[key]).abs().max())
+                       for key in ("spectrum", "zoomed"))
+            d_snr = float((og["smeter"]["snr_db"].cpu()
+                           - oc["smeter"]["snr_db"]).abs().max())
+            d_state = max(float(np.abs(a.astype(np.complex128)
+                                       - b.astype(np.complex128)).max())
+                          for a, b in zip(convert.state_to_numpy(sg),
+                                          convert.state_to_numpy(sc))
+                          if a.size)
+            same = bool((og["squelch_open"].cpu() == oc["squelch_open"]).all())
+            log(f"{tag} {opts or 'trivial'} K={k}: "
+                f"audio {d_audio:.3g} (<= 2e-4) of scale "
+                f"{float(oc['audio'].abs().max()):.3g}, dB {d_db:.3g} and "
+                f"S-meter {d_snr:.3g} (<= 0.1), squelch equal {same}, state "
+                f"{d_state:.3g} (<= 1e-4); launches (K1, K5) {launches}")
+            if not (d_audio <= 2e-4 and d_db <= 0.1 and d_snr <= 0.1 and same
+                    and d_state <= 1e-4 and launches == want):
+                raise RuntimeError(f"{tag}: card disagrees with the CPU")
+    log(f"{tag.split()[0]} ok: the bank on the card == the CPU bank")
+
+
+def cascade_time(torch, decimator, x) -> float:
+    """The staged halfband cascade as the port runs it (ops/decimator.py
+    apply: each stage a strided conv1d, fir.fir_apply) on x, timed by CUDA
+    events (ms per dispatch)."""
+    plan = decimator.build_plan(FS, 30_000.0)
+    state = decimator.state_init(plan, x.shape[0], "cuda")
+    decimator.apply(plan, state, x)
+    ms = time_cuda(torch, lambda: decimator.apply(plan, state, x), 10)
+    log(f"phase34 halfband cascade [{x.shape[0]}, {x.shape[1]}] -> factor "
+        f"{plan.factor}: conv1d (decimator.apply) {ms:.4f} ms per dispatch")
+    return ms
+
+
+def phase_staged_cells(torch, receiver, front, wfm_tail, decimator) -> dict:
+    """Phase 34: the cells am_iqauto_64ch and pfb_127st_bank128, each timed
+    alone (so its peak device memory is its own, beside what earlier
+    phases still hold), with their launch counts (K1 never; K5 once per
+    dispatch at am_iqauto_64ch), audio shape and squelch, am_iqauto_64ch's
+    tone SNR, and a profile of each cell's dispatches; after
+    am_iqauto_64ch the halfband cascade on its [64, 1048576] stream,
+    timed, and its share of the cell's device busy."""
+    done = {}
+    for make in STAGED_CELLS.values():
+        cell = make(torch, receiver, front)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        log(f"phase34 {cell['name']}: {held:.3f} GiB allocated before its "
+            f"windows (its plane and state, and what earlier phases hold)")
+        time_cells(torch, front, wfm_tail, [cell], "phase34")
+        prof = dispatch_profile(torch, cell, "phase34")
+        done[cell["name"]] = {key: cell[key] for key in (
+            "launches", "block_ms", "msps", "realtime", "peak_gib",
+            "snr_db")}
+        done[cell["name"]].update(prof)
+        if cell["name"] == "am_iqauto_64ch":
+            c = HEADLINE["channels"]
+            x = torch.complex(cell["iq"][:, :c].T.contiguous(),
+                              cell["iq"][:, c:].T.contiguous())
+            ms = cascade_time(torch, decimator, x)
+            log(f"phase34 am_iqauto_64ch: the halfband cascade {ms:.4f} ms "
+                f"of the dispatch's {prof['busy_ms']:.4f} ms device busy "
+                f"({ms / prof['busy_ms']:.1%})")
+            done["cascade_ms"] = ms
+            del x
+        del cell
+        torch.cuda.empty_cache()
+    return done
+
+
+def conv_ieee(torch) -> None:
+    """Phase 0: fir_apply's conv1d with cuDNN's TF32 allowed is held to a
+    float64 convolution within 1e-5 of scale (TF32's 10-bit mantissa would
+    miss it), and the caller's setting holds after it."""
+    from pebblesdr_tpu_torch.ops import fir
+    rng = np.random.default_rng(0)
+    c, n = 4, 8192
+    x = (rng.standard_normal((c, n))
+         + 1j * rng.standard_normal((c, n))).astype(np.complex64)
+    taps = rng.standard_normal(31).astype(np.float32)
+    want = np.stack([np.convolve(r.astype(np.complex128),
+                                 taps.astype(np.float64))[:n] for r in x])
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        y, _ = fir.fir_apply(torch.from_numpy(x).cuda(), taps,
+                             torch.zeros(c, 30, dtype=torch.complex64,
+                                         device="cuda"))
+        kept = torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    err = float(np.abs(y.cpu().numpy() - want).max() / np.abs(want).max())
+    log(f"phase0 fir_apply conv1d with cuDNN TF32 allowed: {err:.3g} of "
+        f"scale from float64 (<= 1e-5), caller's setting kept {kept}")
+    if not (err <= 1e-5 and kept):
+        raise RuntimeError("convolutions must run in IEEE float32 (no TF32)")
+
 
 def main() -> int:
     import torch
@@ -2472,7 +2851,7 @@ def main() -> int:
     from pebblesdr_tpu_torch.demod import wfm as wfm_mod
     from pebblesdr_tpu_torch.kernels import build
     from pebblesdr_tpu_torch.ops import (agc, decimator, front, kprobe,
-                                         pll, wfm_tail)
+                                         pll, scanops, wfm_tail)
     from pebblesdr_tpu_torch.tools import kbench2
     from pebblesdr_tpu_torch.utils import convert, roofline
     DemodMode = receiver.DemodMode
@@ -2487,6 +2866,7 @@ def main() -> int:
     if torch.backends.cuda.matmul.allow_tf32 or \
             torch.get_float32_matmul_precision() != "highest":
         raise RuntimeError("float32 matmuls must run in IEEE float32 (no TF32)")
+    conv_ieee(torch)
 
     # phase 1: one nvcc per source, all started together
     t0 = time.perf_counter()
@@ -2573,6 +2953,16 @@ def main() -> int:
     lcells = phase_loop_cells(torch, receiver, convert, front, wfm_tail,
                               DemodMode, loops["steps_ns"])
     clock("phase 31")
+    k5 = phase_iq_lms(torch, front, wfm_tail)
+    clock("phase 32")
+    for tag, name, opts, entry in STAGED_SLICES:
+        phase_slice(torch, receiver, convert, front, wfm_tail,
+                    DemodMode[name], entry, rx_opts=opts, imbalance=True,
+                    tag=f"phase33 {tag} slice")
+    phase_bank_slice(torch, convert, front, wfm_tail)
+    clock("phase 33")
+    scells = phase_staged_cells(torch, receiver, front, wfm_tail, decimator)
+    clock("phase 34")
 
     c, n, k = HEADLINE["channels"], HEADLINE["frames"], HEADLINE["blocks"]
     t = n * k
@@ -2747,6 +3137,18 @@ def main() -> int:
              agc.REPLACES, loops["agc long"]["launches"], loops["agc long"]),
             (f"agc_scan med ({loops['agc med']['shape']})", agc.REPLACES,
              loops["agc med"]["launches"], loops["agc med"]))
+    ] + [
+        # K5 (csrc/recur.cu; replaces auto_iq_balance's lax.scan): launches
+        # from the am_iqauto_64ch cell (phase 34), times, error and bound
+        # at its [64, 1048576] stream (phase 32); no PyTorch call computes
+        # the recurrence: library_ms null
+        {"name": f"iq_lms_scan (adaptive IQ balance: am_iqauto_64ch, "
+                 f"{k5['shape']})", "route": "cuda",
+         "source": scanops.SOURCE, "replaces": scanops.REPLACES,
+         "launches": scells["am_iqauto_64ch"]["launches"][6],
+         **{key: k5[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by")},
+         "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,13 +2,23 @@
 as one batched graph per K-block dispatch.
 
 Port of pebblesdr_tpu/chain/receiver.py for the batched ``step_many`` path
-(``_step_many_impl`` -> ``_step_many_batched`` -> ``_tail_many``), its
-narrowband (AM, SAM, FMN, USB, LSB, CWU, CWL, DIGU, DIGL, DSB, NONE) and
-FM (FMS stereo, FMM and FMS with stereo=False mono) branches:
+(``_step_many_impl`` -> ``_step_many_batched`` -> ``_tail_many``) and the
+staged front of its per-block path (``_step_impl``), its narrowband (AM,
+SAM, FMN, USB, LSB, CWU, CWL, DIGU, DIGL, DSB, NONE) and FM (FMS stereo,
+FMM and FMS with stereo=False mono) branches:
 
   fused front (DC blocker, optional static IQ balance and NB1/NB2 noise
   blanker, NCO mix, composed-FIR decimation, ops/front.py; for WFM also the
-  FM discriminator and each block's trailing zoom window)
+  FM discriminator and each block's trailing zoom window), or the staged
+  front where the JAX package drops its fused kernel (adaptive IQ balance
+  enable_iq_balance="auto", enable_dc_removal=False, an empty decimation
+  plan): DC blocker (ops/iir.py dc_removal_chunked, per sample on blocks
+  that are not a multiple of 512) -> static IQ balance or the adaptive LMS
+  loop (ops/scanops.py auto_iq_balance: the recurrence kernel K5 on a CUDA
+  device) -> NB1/NB2 (scanops.noise_blanker_chunked) -> NCO mix per block
+  -> the halfband cascade (ops/decimator.py apply), each op once over the
+  dispatch's concatenated [C, K*N] stream (each is streaming-exact; forms
+  are chosen from the block length, as JAX runs them per block)
   -> full-rate display spectrum per block (closed-form EWMA over blocks)
   -> zoomed demod-rate power per block -> S-meter -> squelch with 3 dB
      hysteresis
@@ -37,11 +47,16 @@ demod/wfm.py (its pre-discriminator biquad comes first).
 
 The per-sample carrier loops (the "scan" RDS carrier, SAM on short
 blocks) run on a CUDA device as one launch of the recurrence kernel
-csrc/recur.cu pll_scan per dispatch (ops/pll.py).
+csrc/recur.cu pll_scan per dispatch (ops/pll.py).  Behind the staged front
+the tail takes the per-block path's cadences: the RDS symbol timing and
+the ANF update per block and per 16 samples (step_many's rds_per_call
+keeps the RDS timing at one update per call, as the JAX package's bank
+runs a trivial front).
 
 Not ported (the constructor raises ValueError naming it): the "pll" pilot
 and its notch, a stereo geometry without a fused-tail sub-block
-(tail_sub == 0) and adaptive IQ balance.
+(tail_sub == 0), FMS stereo on the staged front (all three need the stereo
+tail without K2) and TestBench taps.
 
 Entry planes are float32 or int16 (the ADC's native container, read as
 x * 2^-15), unfolded [K*N, 2C] or time-folded [K*N/G, 2GC] (the TPU feeders'
@@ -49,7 +64,10 @@ layout, pallas_kernels.fold_plane_np; unfolded on entry with one copy).
 
 State is explicit (ReceiverState), with the fields and shapes of the JAX
 pytree in its fused-front layout: ``dc`` [1, 2C], ``decim`` [d_rows, 2C],
-``nb`` (avg [1, 2C], spike tail [16, 2C]) with the noise blanker on;
+``nb`` (avg [1, 2C], spike tail [16, 2C]) with the noise blanker on; or in
+its staged layout: ``dc`` [C] complex64, ``decim`` one [C, T-1] complex64
+tail per stage, ``nb`` a NoiseBlankerChunkedState, ``iqbal`` the
+AutoIQBalanceState (w [C] complex64) with "auto";
 ``anf`` the complex64 ANFState with the ANF on; ``demod`` is AMState,
 SAMState, NFMState, or None for the stateless modes (SSB, CW, DIG, DSB,
 NONE); for WFM the demod state is WFMState (stereo: the fused-tail layout)
@@ -83,6 +101,7 @@ from pebblesdr_tpu_torch.ops import (agc, decimator, fastfir, front, goertzel,
 
 # the modes the port's Receiver runs: every mode of the table
 PORTED_MODES = tuple(DemodMode)
+NB_CHUNK = 512   # the staged noise blanker's EWMA chunk (the JAX default)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,11 +132,18 @@ class ReceiverConfig:
     enable_noise_blanker: bool | str = False  # True: NB1 (blank);
     #                                       "average": NB2 (RMS substitution)
     enable_iq_balance: bool | str = False  # True: static params.iq_gain/
-    #                                       iq_phase ("auto" is not ported)
+    #                                       iq_phase; "auto": the adaptive
+    #                                       image-reject loop, its weight
+    #                                       carried in ReceiverState.iqbal
+    enable_dc_removal: bool = True        # the front's DC blocker; off for
+    #                                       baseband input whose DC is signal
+    #                                       (the PFB bank's channel streams)
     enable_anf: bool = False              # adaptive noise filter (narrowband
     #                                       modes; one LMS update per block)
     ctcss_tone: float | None = None       # FMN only: CTCSS tone squelch
     #                                       (a CTCSS table tone, Hz)
+    taps: bool = False                    # TestBench's intermediate taps
+    #                                       (not ported: True raises)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,10 +184,12 @@ class Receiver:
     """Build once per configuration and device; ``step_many`` is the hot loop."""
 
     def __init__(self, cfg: ReceiverConfig, device: str | torch.device):
-        if cfg.enable_iq_balance == "auto":
-            raise ValueError("enable_iq_balance='auto' (the adaptive LMS "
-                             "image-reject loop) is not ported yet; use "
-                             "True for the static params.iq_gain/iq_phase")
+        if cfg.taps:
+            raise ValueError("taps=True (TestBench's intermediate taps) is "
+                             "not ported yet")
+        if cfg.enable_iq_balance not in (False, True, "auto"):
+            raise ValueError(f"enable_iq_balance={cfg.enable_iq_balance!r}: "
+                             f"False, True or 'auto'")
         # noise blanker: (threshold, blank_width, alpha, mode)
         self.nb_params = None
         if cfg.enable_noise_blanker:
@@ -183,12 +211,12 @@ class Receiver:
             raise ValueError(
                 f"frames_per_buffer={cfg.frames_per_buffer} not divisible by "
                 f"decimation factor {self.plan.factor}")
-        if cfg.frames_per_buffer % front.SUB_BLOCK:
-            raise ValueError(f"frames_per_buffer={cfg.frames_per_buffer} must "
-                             f"be a multiple of {front.SUB_BLOCK}")
-        if cfg.spectrum_bins > front.SUB_BLOCK:
-            raise ValueError(f"spectrum_bins={cfg.spectrum_bins} exceeds the "
-                             f"front end's raw tail of {front.SUB_BLOCK} rows")
+        # the fused front (K1) where the JAX package's front_ok holds; the
+        # staged front otherwise
+        self.staged = not (cfg.enable_iq_balance != "auto"
+                           and cfg.enable_dc_removal
+                           and len(self.plan.stages) > 0)
+        self._check_front()
         self.demod_rate = int(self.plan.rate_out)
         self.blk = cfg.frames_per_buffer // self.plan.factor
 
@@ -210,6 +238,12 @@ class Receiver:
             self.wfm_cfg = dataclasses.replace(
                 wcfg, tail_sub=wfm_mod.tail_kernel_sub(wcfg,
                                                        self.wfm_tail_blk))
+            if self.staged and self.wfm_cfg.stereo:
+                raise ValueError(
+                    "FMS stereo on the staged front (enable_iq_balance="
+                    "'auto', enable_dc_removal=False or an empty decimation "
+                    "plan) needs the stereo tail without K2, which is not "
+                    "ported yet")
             wfm_mod.check_ported(self.wfm_cfg)
             if self.wfm_cfg.stereo:
                 self.wfm_tail = wfm_mod.tail_plan(
@@ -258,8 +292,35 @@ class Receiver:
         w_zoom, self.cg_zoom = spectrum.make_window(self.zoom_bins)
         self.w_zoom = torch.from_numpy(w_zoom).to(self.device)
 
-        self.front = front.FrontPlan.make(decimator.compose_response(self.plan),
-                                          self.plan.factor, self.device)
+        self.front = (None if self.staged else front.FrontPlan.make(
+            decimator.compose_response(self.plan), self.plan.factor,
+            self.device))
+
+    def _check_front(self) -> None:
+        """The block geometry each front takes: K1's sub-blocks and raw tail
+        (fused); whole spectra, adaptive-IQ groups and blanker chunks per
+        block (staged)."""
+        cfg, n = self.cfg, self.cfg.frames_per_buffer
+        if not self.staged:
+            if n % front.SUB_BLOCK:
+                raise ValueError(f"frames_per_buffer={n} must be a multiple "
+                                 f"of {front.SUB_BLOCK}")
+            if cfg.spectrum_bins > front.SUB_BLOCK:
+                raise ValueError(f"spectrum_bins={cfg.spectrum_bins} exceeds "
+                                 f"the front end's raw tail of "
+                                 f"{front.SUB_BLOCK} rows")
+            return
+        if cfg.spectrum_bins > n:
+            raise ValueError(f"spectrum_bins={cfg.spectrum_bins} exceeds the "
+                             f"{n}-frame block")
+        if cfg.enable_iq_balance == "auto" and n % scanops.IQ_GROUP:
+            raise ValueError(f"enable_iq_balance='auto' updates every "
+                             f"{scanops.IQ_GROUP} samples: frames_per_buffer="
+                             f"{n} is not a multiple")
+        if cfg.enable_noise_blanker and n % NB_CHUNK:
+            raise ValueError(f"the staged noise blanker takes whole "
+                             f"{NB_CHUNK}-sample chunks: frames_per_buffer="
+                             f"{n} is not a multiple")
 
     # ------------------------------------------------------------------ state
 
@@ -279,12 +340,18 @@ class Receiver:
         stereo = self.wfm_cfg is not None and self.wfm_cfg.stereo
         resamp = resampler.state_init(self.rs_plan, 2 * c if stereo else c,
                                       dev)
+        if self.staged:
+            decim = decimator.state_init(self.plan, c, dev)
+            dc = torch.zeros(c, dtype=torch.complex64, device=dev)
+        else:
+            decim = torch.zeros(self.front.d_rows, 2 * c, dtype=torch.float32,
+                                device=dev)
+            dc = torch.zeros(1, 2 * c, dtype=torch.float32, device=dev)
         return ReceiverState(
             mixer=mixer.mixer_init(c, dev),
-            decim=torch.zeros(self.front.d_rows, 2 * c, dtype=torch.float32,
-                              device=dev),
+            decim=decim,
             fastfir=fastfir.state_init(c, self.blk, dev),
-            dc=torch.zeros(1, 2 * c, dtype=torch.float32, device=dev),
+            dc=dc,
             nb=self._nb_init(),
             anf=(scanops.anf_init(c, dev, dtype=torch.complex64)
                  if self.cfg.enable_anf else None),
@@ -296,15 +363,21 @@ class Receiver:
             rds=(rds_mod.rds_init(self.rds_cfg, c, dev)
                  if self.rds_cfg is not None else None),
             squelch=torch.zeros(c, dtype=torch.bool, device=dev),
+            iqbal=(scanops.auto_iq_balance_init(c, dev)
+                   if self.cfg.enable_iq_balance == "auto" else None),
             ctcss=(goertzel.ctcss_init(c, dev) if self.ctcss_cfg is not None
                    else None),
         )
 
     def _nb_init(self):
-        """The noise blanker's carry in the fused-front layout: (avg [1, 2C],
-        spike tail [16, 2C]), or None with the blanker off."""
+        """The noise blanker's carry: in the fused-front layout (avg [1, 2C],
+        spike tail [16, 2C]), staged a NoiseBlankerChunkedState; None with
+        the blanker off."""
         if self.nb_params is None:
             return None
+        if self.staged:
+            return scanops.noise_blanker_chunked_init(
+                self.cfg.channels, self.device, self.nb_params[1])
         c2 = 2 * self.cfg.channels
         return tuple(torch.zeros(rows, c2, dtype=torch.float32,
                                  device=self.device)
@@ -375,7 +448,7 @@ class Receiver:
         return state, _first_block(out)
 
     def step_many(self, state: ReceiverState, params: RxParams, iq,
-                  spectra: bool = True):
+                  spectra: bool = True, rds_per_call: bool = False):
         """K blocks in one dispatch: iq [K*N, 2C] float32 or int16
         lane-packed plane (preferred), a time-folded [K*N/G, 2GC] plane,
         [K, N, 2C], an (re, im) pair of [K*N, C] planes, [K, 2, N, C] /
@@ -389,13 +462,49 @@ class Receiver:
         CTCSS tone AND-ed with 'ctcss_open' [K, C]) and, for WFM,
         'pilot_locked' [K, C] bool (all False in mono); with the RDS tap
         'rds_soft' [K, C, n_sym] soft symbols and 'rds_timing' [K, C]
-        int32 (the dispatch's symbol phase)."""
-        x_pk = self._pack(iq)
+        int32 (the dispatch's symbol phase; with the staged front the
+        symbol phase of each block, unless rds_per_call: the dispatch's, as
+        the JAX package's bank runs a trivial front).  The staged front also
+        takes a [C, K*N] complex64 stream."""
         n = self.cfg.frames_per_buffer
+        if self.staged:
+            x_cn = self._complex_input(iq)
+            if x_cn.shape[1] % n:
+                raise ValueError(f"{x_cn.shape[1]} input samples are not a "
+                                 f"whole number of {n}-frame blocks")
+            raw = None
+            if spectra:
+                bins = self.cfg.spectrum_bins
+                raw = x_cn.reshape(x_cn.shape[0], -1, n)[:, :, n - bins:
+                                                         ].transpose(0, 1)
+            return self._step_many_staged(state, params, x_cn, raw, spectra,
+                                          rds_per_block=not rds_per_call)
+        x_pk = self._pack(iq)
         if x_pk.shape[0] % n:
             raise ValueError(f"{x_pk.shape[0]} input rows are not a whole "
                              f"number of {n}-frame blocks")
         return self._step_many_batched(state, params, x_pk, spectra)
+
+    def _complex_input(self, iq) -> torch.Tensor:
+        """The staged front's entry: [K, C, N] or [C, K*N] complex64 as is,
+        every packed form through _pack (int16 read as x * 2^-15), as the
+        [C, K*N] complex64 stream on the Receiver's device."""
+        c = self.cfg.channels
+        if not isinstance(iq, (tuple, list)) and iq.is_complex():
+            if iq.shape[-2] != c:
+                raise ValueError(
+                    f"complex input has {iq.shape[-2]} channels but this "
+                    f"Receiver was built with channels={c}")
+            if iq.device != self.device:
+                raise ValueError(f"input is on {iq.device} but this "
+                                 f"Receiver runs on {self.device}")
+            if iq.dim() == 3:
+                iq = iq.transpose(0, 1).reshape(c, -1)
+            return iq.to(torch.complex64).contiguous()
+        x_pk = self._pack(iq)
+        if x_pk.dtype == torch.int16:
+            x_pk = x_pk.to(torch.float32) * front.I16_SCALE
+        return torch.complex(x_pk[:, :c].T, x_pk[:, c:].T).contiguous()
 
     def _pack(self, iq) -> torch.Tensor:
         """Normalize every accepted layout to the [K*N, 2C] packed plane,
@@ -440,6 +549,10 @@ class Receiver:
                 raise ValueError(f"lane width {x_pk.shape[-1]} is neither "
                                  f"2C={c2} nor a folded multiple of it")
             fold = x_pk.shape[-1] // c2
+            if self.staged:
+                raise ValueError("time-folded input planes need the fused "
+                                 "front (as in the JAX package); the staged "
+                                 "front takes unfolded planes")
             if self.nb_params is not None:
                 raise ValueError("time-folded input planes are incompatible "
                                  "with the noise blanker (as in the JAX "
@@ -506,14 +619,61 @@ class Receiver:
         else:
             x_cat = torch.complex(y_pk[:, :c].T, y_pk[:, c:].T)  # [C, K*blk]
             xz = x_cat.reshape(c, k, self.blk)[:, :, self.blk - self.zoom_bins:]
-            demod = functools.partial(
-                self._demod_mono if self.wfm_cfg is not None
-                else self._demod_narrow, x_cat=x_cat)
+            demod = (functools.partial(self._demod_mono, x_cat=x_cat,
+                                       rds_per_block=False)
+                     if self.wfm_cfg is not None else
+                     functools.partial(self._demod_narrow, x_cat=x_cat))
         tail_st, out = self._tail_many(state, params, k, raw_c, xz, spectra,
                                        demod)
         new_state = ReceiverState(
             mixer=mixer.MixerState(phase=phase), decim=decim, dc=dc,
             nb=nb_state, iqbal=state.iqbal, **tail_st)
+        return new_state, out
+
+    def _step_many_staged(self, state: ReceiverState, params: RxParams,
+                          x_cn: torch.Tensor, raw, spectra: bool,
+                          rds_per_block: bool):
+        """The staged front over the dispatch's [C, K*N] stream, then the
+        batched tail.  raw: [K, C, spectrum_bins] raw display tails (None
+        without spectra); rds_per_block: the RDS timing's cadence (_rds)."""
+        cfg = self.cfg
+        c, n = cfg.channels, cfg.frames_per_buffer
+        k = x_cn.shape[1] // n
+        x, dc = x_cn, state.dc
+        if cfg.enable_dc_removal:
+            # JAX runs dc_removal_chunked per block: chunked where N is a
+            # multiple of its 512-sample chunk, per sample otherwise
+            if n % front.DC_CHUNK:
+                dc, x = iir.dc_removal_apply(state.dc, x, alpha=0.9999)
+            else:
+                dc, x = iir.dc_removal_chunked(state.dc, x, alpha=0.9999,
+                                               chunk=front.DC_CHUNK)
+        iqbal = state.iqbal
+        if cfg.enable_iq_balance == "auto":
+            x = x.contiguous()
+            if x.is_cuda and x.data_ptr() % 16:
+                x = x.clone()         # K5 takes 16-byte aligned rows
+            iqbal, x = scanops.auto_iq_balance(state.iqbal, x)
+        elif cfg.enable_iq_balance:
+            x = scanops.iq_balance(x, params.iq_gain, params.iq_phase)
+        nb_state = state.nb
+        if self.nb_params is not None:
+            thr, width, alpha, nb_mode = self.nb_params
+            nb_state, x = scanops.noise_blanker_chunked(
+                state.nb, x, threshold=thr, blank_width=width, alpha=alpha,
+                chunk=NB_CHUNK, mode=nb_mode)
+        mix_state, x = mixer.mix_blocks(state.mixer, x, params.tune_hi,
+                                        params.tune_lo, n)
+        decim, x = decimator.apply(self.plan, state.decim, x)   # [C, K*blk]
+        xz = x.reshape(c, k, self.blk)[:, :, self.blk - self.zoom_bins:]
+        demod = (functools.partial(self._demod_mono, x_cat=x,
+                                   rds_per_block=rds_per_block)
+                 if self.wfm_cfg is not None else
+                 functools.partial(self._demod_narrow, x_cat=x))
+        tail_st, out = self._tail_many(state, params, k, raw, xz, spectra,
+                                       demod)
+        new_state = ReceiverState(mixer=mix_state, decim=decim, dc=dc,
+                                  nb=nb_state, iqbal=iqbal, **tail_st)
         return new_state, out
 
     def _ewma_blocks(self, prev: torch.Tensor, p: torch.Tensor, a: float):
@@ -614,7 +774,9 @@ class Receiver:
         anf_state = state.anf
         if self.cfg.enable_anf:
             # block LMS with one weight update per demod block: K steps
-            anf_state, xt = scanops.anf(state.anf, xt, update_every=self.blk)
+            # (staged: every 16 samples, as the per-block path updates)
+            anf_state, xt = scanops.anf(
+                state.anf, xt, update_every=16 if self.staged else self.blk)
         agc_state, xt = agc.agc_apply(self.agc_cfg, state.agc, xt)
         demod_state = state.demod
         if mode == DemodMode.AM:
@@ -640,7 +802,7 @@ class Receiver:
                      demod=demod_state, resamp=resamp_state), audio, {})
 
     def _demod_mono(self, state: ReceiverState, params: RxParams, k: int,
-                    x_cat: torch.Tensor):
+                    x_cat: torch.Tensor, rds_per_block: bool):
         """WFM mono (demod/wfm.py wfm_demod) -> resampler on the front's
         base-form output x_cat [C, K*blk], and the RDS subchain on the
         tail-rate composite with the tap; FastFIR, ANF and AGC are skipped,
@@ -652,27 +814,28 @@ class Receiver:
         rds_state = state.rds
         if self.rds_cfg is not None:
             rds_state, extra["rds_soft"], extra["rds_timing"] = self._rds(
-                state.rds, wout["rds_baseband"], k)
+                state.rds, wout["rds_baseband"], k, rds_per_block)
         resamp_state, mono = resampler.apply_many(self.rs_plan, state.resamp,
                                                   wout["left"])
         audio = mono.reshape(c, k, mono.shape[-1] // k).transpose(0, 1)
         return (dict(demod=demod_state, resamp=resamp_state, rds=rds_state),
                 audio, extra)
 
-    def _rds(self, rds_state, composite: torch.Tensor, k: int):
+    def _rds(self, rds_state, composite: torch.Tensor, k: int,
+             per_block: bool):
         """The RDS subchain on the tail-rate composite [C, K*tail_blk]:
         streaming-exact on the concatenated stream, so once per dispatch.
-        The symbol-timing EWMA updates once per call with the "open"
-        carrier (as the JAX package's batched step_many does) and once per
-        block with the "scan" one (JAX runs that configuration as K
-        per-block steps).  Returns (state', soft [K, C, n_sym], timing
-        [K, C])."""
+        The symbol-timing EWMA updates once per block with the "scan"
+        carrier or where per_block (JAX runs those configurations as K
+        per-block steps), once per call otherwise (the JAX package's
+        batched tails).  Returns (state', soft [K, C, n_sym], timing [K,
+        C])."""
         c = self.cfg.channels
-        scan = self.rds_cfg.alg == "scan"
+        per_block = per_block or self.rds_cfg.alg == "scan"
         rds_state, soft, timing = rds_mod.rds_process(
-            self.rds_cfg, rds_state, composite, blocks=k if scan else 0)
+            self.rds_cfg, rds_state, composite, blocks=k if per_block else 0)
         return (rds_state, soft.reshape(c, k, -1).transpose(0, 1),
-                timing.T if scan else timing[None].expand(k, c))
+                timing.T if per_block else timing[None].expand(k, c))
 
     def _demod_wfm(self, state: ReceiverState, params: RxParams, k: int,
                    disc_t: torch.Tensor, dlast: torch.Tensor,
@@ -691,7 +854,7 @@ class Receiver:
         rds_state = state.rds
         if self.rds_cfg is not None:
             rds_state, extra["rds_soft"], extra["rds_timing"] = self._rds(
-                state.rds, wout["rds_baseband"], k)
+                state.rds, wout["rds_baseband"], k, False)
         resamp_state, lr = resampler.apply_many(
             self.rs_plan, state.resamp,
             torch.cat([wout["left"], wout["right"]]))

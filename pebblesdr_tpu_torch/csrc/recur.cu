@@ -1,22 +1,23 @@
 // Per-sample recurrences for Hopper (sm_90a): the second-order carrier loop
 // (K3 pll_scan, four phase detectors), the same loop at the chunk rate (K3c
-// pll_chunk_scan) and the scan AGC's attack / decay / hang smoother (K4
-// agc_scan).
+// pll_chunk_scan), the scan AGC's attack / decay / hang smoother (K4
+// agc_scan) and the adaptive IQ balance's LMS loop (K5 iq_lms_scan).
 //
-// Replaces no Pallas kernel: in the JAX package each is a per-sample
-// jax.lax.scan, pll.pll_run (pebblesdr_tpu/ops/pll.py:116), the loop of
-// pll.pll_run_blockwise (:182) and the scan of agc.agc_apply
-// (pebblesdr_tpu/ops/agc.py:298).  The plain PyTorch versions are
-// pll_scan_plain and pll_chunk_scan_plain in ops/pll.py and agc_scan_plain
-// in ops/agc.py: a Python loop over time of the same arithmetic on [C]
-// tensors.
+// Replaces no Pallas kernel: in the JAX package each is a jax.lax.scan,
+// pll.pll_run (pebblesdr_tpu/ops/pll.py:116), the loop of
+// pll.pll_run_blockwise (:182), the scan of agc.agc_apply
+// (pebblesdr_tpu/ops/agc.py:298) and scanops.auto_iq_balance
+// (pebblesdr_tpu/ops/scanops.py:164).  The plain PyTorch versions are
+// pll_scan_plain and pll_chunk_scan_plain in ops/pll.py, agc_scan_plain in
+// ops/agc.py and iq_lms_scan_plain in ops/scanops.py: a Python loop over
+// time of the same arithmetic on [C] tensors.
 //
-// What bounds it: the latency of one step's dependent chain, times the
-// steps.  Each channel's state (three or four scalars) feeds the next
-// sample, so a channel is one thread that carries its state in registers;
-// the bytes (x read once, two float32 outputs written once) would take
-// ~4 us at 3.35 TB/s for [64, 32768], the chain ~0.1 us a step.  The design
-// keeps memory off that chain:
+// What bounds K3, K3c and K4: the latency of one step's dependent chain,
+// times the steps.  Each channel's state (three or four scalars) feeds the
+// next sample, so a channel is one thread that carries its state in
+// registers; the bytes (x read once, two float32 outputs written once)
+// would take ~4 us at 3.35 TB/s for [64, 32768], the chain ~0.1 us a step.
+// The design keeps memory off that chain:
 //   * a block serves kCb = 8 channels (64 channels: 8 blocks on 8 SMs);
 //     warp 0's first 8 lanes run the recurrences, warps 1-3 stage data;
 //   * the [C, N] rows are channel-major, so one thread walking its own row
@@ -226,7 +227,10 @@ struct AgcStep {
 __device__ __forceinline__ void cp_async(void* dst, const void* src,
                                          int bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if (bytes == 8)
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src));
+  else if (bytes == 8)
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
                  "l"(src));
   else
@@ -299,6 +303,183 @@ __global__ void __launch_bounds__(kThreads) recur_kernel(Io io, Step s) {
   if (tid < cb) s.store(io, c0 + tid);
 }
 
+// K5: the adaptive IQ balance (scanops.auto_iq_balance) per group of
+// kIqGroup samples: the group's y = x + w conj(x) with w held, then w' = w
+// - mu mean(y^2).  mean(y^2) = S2 + 2 w P + w^2 conj(S2) with S2 = mean(x^2)
+// and P = mean(|x|^2), which do not depend on w, so the chain is this step
+// on the group sums (s2r, s2i, p, unused).  Outputs the w the group used.
+struct IqStep {
+  using In = float4;
+  static constexpr int kOut = 2;
+  float mu;
+  float wr, wi;
+
+  __device__ __forceinline__ void step(float4 s, float* o) {
+    o[0] = wr;
+    o[1] = wi;
+    const float w2r = __fsub_rn(__fmul_rn(wr, wr), __fmul_rn(wi, wi));
+    const float w2i = __fmul_rn(2.f, __fmul_rn(wr, wi));
+    const float mr = __fadd_rn(
+        __fadd_rn(s.x, __fmul_rn(2.f, __fmul_rn(wr, s.z))),
+        __fadd_rn(__fmul_rn(w2r, s.x), __fmul_rn(w2i, s.y)));
+    const float mi = __fadd_rn(
+        __fadd_rn(s.y, __fmul_rn(2.f, __fmul_rn(wi, s.z))),
+        __fsub_rn(__fmul_rn(w2i, s.x), __fmul_rn(w2r, s.y)));
+    wr = __fsub_rn(wr, __fmul_rn(mu, mr));
+    wi = __fsub_rn(wi, __fmul_rn(mu, mi));
+  }
+};
+
+// K5's design.  The loop is serial over a channel's groups but its sums
+// and its output are not, so a block serves one channel row and splits the
+// work by warps: warp 0's lane 0 runs the chain, warps 1-8 (kIqWorkers
+// threads) stream the row in tiles of kIqTile samples, as float4 pairs of
+// samples: worker w takes float4 w + kIqWorkers k of the tile, so each
+// access of a warp is 32 consecutive float4 (coalesced in device memory,
+// no bank conflict in shared memory) and covers exactly one group of 64
+// samples, whose sums a warp reduction forms.  Iteration i of the block's
+// loop, with one barrier at its end:
+//   * the workers issue the cp.async copies of tile i + 1 into shared
+//     buffer (i + 1) % 4, wait for their own copies of tile i, form its
+//     group sums into sums[i % 2], and write tile i - 2's y from buffer
+//     (i - 2) % 4 with the weights ws[(i - 2) % 2];
+//   * the chain thread runs tile i - 1's groups from sums[(i - 1) % 2]
+//     into ws[(i - 1) % 2].
+// So a tile's copies are in flight for a whole iteration, its sums and
+// stores overlap the chain of the tile before, and x is read from device
+// memory once.  What bounds it: x read and y written once (1 GiB at
+// [64, 1048576], 0.32 ms at 3.35 TB/s) and, about as long, the chain's
+// 16,384 dependent steps per channel.
+constexpr int kIqGroup = 64;
+constexpr int kIqWorkers = 256;
+constexpr int kIqThreads = kIqWorkers + 32;
+constexpr int kIqTile = 4096;                       // samples per tile
+constexpr int kIqVecs = kIqTile / 2;                // float4 per tile
+constexpr int kIqPer = kIqVecs / kIqWorkers;        // float4 per worker: 8
+constexpr int kIqTileGroups = kIqTile / kIqGroup;   // 64
+constexpr int kIqBufs = 4;
+constexpr size_t kIqSmem = kIqBufs * kIqTile * sizeof(float2) +
+                           2 * 3 * kIqTileGroups * sizeof(float) +
+                           2 * kIqTileGroups * sizeof(float2);
+
+__global__ void __launch_bounds__(kIqThreads)
+    recur_iq_lms_kernel(const float2* __restrict__ x, int N, float mu,
+                        const float2* __restrict__ w_in,
+                        float2* __restrict__ y, float2* __restrict__ w_out) {
+  extern __shared__ __align__(16) unsigned char iq_smem[];
+  float2* xs = reinterpret_cast<float2*>(iq_smem);           // [3][tile]
+  float* sums = reinterpret_cast<float*>(xs + kIqBufs * kIqTile);
+  float2* ws = reinterpret_cast<float2*>(sums + 2 * 3 * kIqTileGroups);
+
+  const int c = blockIdx.x;
+  const float2* xrow = x + static_cast<size_t>(c) * N;
+  float2* yrow = y + static_cast<size_t>(c) * N;
+  const int tiles = (N + kIqTile - 1) / kIqTile;
+  const int tid = threadIdx.x;
+  const int wk = tid - 32;                 // worker index (warps 1-8)
+  IqStep chain{mu, 0.f, 0.f};
+  if (tid == 0) {
+    chain.wr = w_in[c].x;
+    chain.wi = w_in[c].y;
+  }
+
+  auto stage = [&](int i) {    // tile i's float4s into buffer i % 4
+    if (i < tiles) {
+      const int len = min(kIqTile, N - i * kIqTile);
+      const float4* src = reinterpret_cast<const float4*>(xrow + i * kIqTile);
+      float4* dst = reinterpret_cast<float4*>(xs + (i % kIqBufs) * kIqTile);
+#pragma unroll
+      for (int k = 0; k < kIqPer; ++k) {
+        const int q = wk + k * kIqWorkers;
+        if (2 * q < len) cp_async(dst + q, src + q, 16);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);   // empty past the end
+  };
+  if (wk >= 0) stage(0);
+
+  for (int i = 0; i < tiles + 2; ++i) {
+    if (wk >= 0) {
+      if (i < tiles) {
+        stage(i + 1);
+        // tile i's copies (this thread's own float4s) have landed
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+        const int t0 = i * kIqTile, len = min(kIqTile, N - t0);
+        const float4* xv =
+            reinterpret_cast<const float4*>(xs + (i % kIqBufs) * kIqTile);
+        float* sm = sums + (i & 1) * 3 * kIqTileGroups;
+#pragma unroll
+        for (int k = 0; k < kIqPer; ++k) {
+          const int q = wk + k * kIqWorkers;
+          if (2 * q >= len) break;
+          const float4 v = xv[q];
+          float ar = __fadd_rn(
+              __fsub_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y)),
+              __fsub_rn(__fmul_rn(v.z, v.z), __fmul_rn(v.w, v.w)));
+          float ai = __fadd_rn(__fmul_rn(2.f, __fmul_rn(v.x, v.y)),
+                               __fmul_rn(2.f, __fmul_rn(v.z, v.w)));
+          float ap = __fadd_rn(
+              __fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y)),
+              __fadd_rn(__fmul_rn(v.z, v.z), __fmul_rn(v.w, v.w)));
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) {
+            ar = __fadd_rn(ar, __shfl_xor_sync(0xffffffffu, ar, off));
+            ai = __fadd_rn(ai, __shfl_xor_sync(0xffffffffu, ai, off));
+            ap = __fadd_rn(ap, __shfl_xor_sync(0xffffffffu, ap, off));
+          }
+          if ((wk & 31) == 0) {
+            const int g = q >> 5;              // 32 float4 per group
+            constexpr float inv = 1.f / kIqGroup;
+            sm[g] = __fmul_rn(ar, inv);
+            sm[kIqTileGroups + g] = __fmul_rn(ai, inv);
+            sm[2 * kIqTileGroups + g] = __fmul_rn(ap, inv);
+          }
+        }
+      }
+      if (i >= 2) {
+        const int j = i - 2, t0 = j * kIqTile, len = min(kIqTile, N - t0);
+        const float4* src =
+            reinterpret_cast<const float4*>(xs + (j % kIqBufs) * kIqTile);
+        float4* dst = reinterpret_cast<float4*>(yrow + t0);
+        const float2* wj = ws + (j & 1) * kIqTileGroups;
+#pragma unroll
+        for (int k = 0; k < kIqPer; ++k) {
+          const int q = wk + k * kIqWorkers;
+          if (2 * q >= len) break;
+          const float2 w = wj[q >> 5];
+          const float4 v = src[q];
+          // y = x + w conj(x) = (xr + (wr xr + wi xi), xi + (wi xr - wr xi))
+          float4 o;
+          o.x = __fadd_rn(v.x, __fadd_rn(__fmul_rn(w.x, v.x),
+                                         __fmul_rn(w.y, v.y)));
+          o.y = __fadd_rn(v.y, __fsub_rn(__fmul_rn(w.y, v.x),
+                                         __fmul_rn(w.x, v.y)));
+          o.z = __fadd_rn(v.z, __fadd_rn(__fmul_rn(w.x, v.z),
+                                         __fmul_rn(w.y, v.w)));
+          o.w = __fadd_rn(v.w, __fsub_rn(__fmul_rn(w.y, v.z),
+                                         __fmul_rn(w.x, v.w)));
+          dst[q] = o;
+        }
+      }
+    } else if (tid == 0 && i >= 1 && i <= tiles) {
+      const int j = i - 1;
+      const int groups = min(kIqTile, N - j * kIqTile) / kIqGroup;
+      const float* sm = sums + (j & 1) * 3 * kIqTileGroups;
+      float2* wo = ws + (j & 1) * kIqTileGroups;
+      float o[2];
+#pragma unroll 4
+      for (int g = 0; g < groups; ++g) {
+        chain.step(make_float4(sm[g], sm[kIqTileGroups + g],
+                               sm[2 * kIqTileGroups + g], 0.f),
+                   o);
+        wo[g] = make_float2(o[0], o[1]);
+      }
+    }
+    __syncthreads();
+  }
+  if (tid == 0) w_out[c] = make_float2(chain.wr, chain.wi);
+}
+
 // The serial floor's probe: one thread runs `steps` steps of a Step's
 // chain on inputs held in registers (x fixed for the loops, which then
 // lock, a square wave for the AGC), with no shared or device memory inside
@@ -311,6 +492,9 @@ __device__ __forceinline__ void probe_input(float2& x, int) {
 }
 __device__ __forceinline__ void probe_input(float& x, int t) {
   x = (t & 256) ? -1.f : -3.f;
+}
+__device__ __forceinline__ void probe_input(float4& x, int) {
+  x = make_float4(0.25f, 0.1f, 1.f, 0.f);   // group sums S2, P
 }
 
 template <class Step>
@@ -416,9 +600,31 @@ int recur_agc_scan(int device, int hang, const float* env, int C, int M,
   return launch(io, s, device, stream);
 }
 
+// K5: x [C, N] complex64 (N a multiple of 64, 16-byte aligned), the weight
+// w [C] complex64 -> y [C, N] complex64 and w' [C]; mu the LMS step.  One
+// block per channel.  Returns the first CUDA error.
+int recur_iq_lms_scan(int device, const void* x, int C, int N, float mu,
+                      const void* w, void* y, void* w_out, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (C <= 0 || N < 0 || N % kIqGroup) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(recur_iq_lms_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kIqSmem));
+  if (err != cudaSuccess) return err;
+  recur_iq_lms_kernel<<<C, kIqThreads, kIqSmem, (cudaStream_t)stream>>>(
+      static_cast<const float2*>(x), N, mu, static_cast<const float2*>(w),
+      static_cast<float2*>(y), static_cast<float2*>(w_out));
+  return cudaGetLastError();
+}
+
+// Samples per K5 group and per tile (the wrapper and the tests read them).
+int recur_iq_group() { return kIqGroup; }
+int recur_iq_tile() { return kIqTile; }
+
 // The serial floor's probe (probe_kernel) of one form: 0-3 pll_scan with
 // detector 0-3, 4 pll_chunk_scan, 5 its pilot form, 6 agc_scan with the
-// hang, 7 without; out [1] float32.  Time it over many steps: the time per
+// hang, 7 without, 8 iq_lms_scan; out [1] float32.  Time it over many steps: the time per
 // step is the latency of the form's dependent chain.
 int recur_probe(int device, int form, int steps, float* out, void* stream) {
   const float a = 0.0139f, b = 9.6e-5f, lo = -0.098f, hi = 0.098f;
@@ -444,6 +650,8 @@ int recur_probe(int device, int form, int steps, float* out, void* stream) {
       return probe(AgcStep<false>{0.03f, 0.012f, 0.002f, 0.002f, 0, -8.f,
                                   -8.f, 0},
                    steps, out, device, stream);
+    case 8:
+      return probe(IqStep{0.0025f, 0.f, 0.f}, steps, out, device, stream);
     default:
       return cudaErrorInvalidValue;
   }

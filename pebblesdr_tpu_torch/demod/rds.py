@@ -1,10 +1,14 @@
 """RDS (Radio Data System): the 57 kHz BPSK subcarrier -> soft symbols on the
 device, then block sync, FEC and group decoding on the host.
 
-Port of pebblesdr_tpu/demod/rds.py.  Device half (rds_process, the path the
-batched Receiver runs): the real tail-rate composite is decimated to 16 kHz
-with the -57 kHz mix folded into the decimation taps (one paired banded
-matmul, ops/fir.fir_apply_real_signal_pair) and a 16 kHz twiddle, resampled
+Port of pebblesdr_tpu/demod/rds.py.  Device half (rds_process): the real
+tail-rate composite is decimated to 16 kHz with the -57 kHz mix folded into
+the decimation taps (premix, the path the Receiver runs: one paired banded
+matmul, ops/fir.fir_apply_real_signal_pair, and a 16 kHz twiddle), or, with
+premix=False or a complex pre-mixed baseband, decimated by the composed
+response on the stacked [re; im] rows (composed, ops/fir.
+fir_apply_real_signal) or by the halfband cascade (staged, ops/decimator.
+apply); then resampled
 to 19 kHz (exactly 16 samples per 1187.5-baud symbol), carrier-recovered by
 the scan-free squaring loop (alg="open", ops/pll.costas_open_run) or the
 per-sample Costas loop (alg="scan", ops/pll.pll_run: on a CUDA tensor the
@@ -13,13 +17,12 @@ the symbol phase with the largest smoothed |mf|.  Host half (numpy and
 plain Python, copied): the 26-bit syndrome check with burst FEC, the
 4-state block sync machine and the group decoder (PI, PTY, PS, RadioText).
 
-Not ported, and refused with a ValueError naming them: the composed /
-staged inputs of the legacy (premix=False) configurations.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
@@ -99,14 +102,13 @@ def check_ported(cfg: RdsConfig) -> None:
     if cfg.alg not in ALGORITHMS:
         raise ValueError(f"RDS: unknown carrier algorithm {cfg.alg!r} "
                          f"(algorithms: {', '.join(ALGORITHMS)})")
-    if not cfg.premix:
-        raise ValueError("RDS: the composed / staged inputs (premix=False, "
-                         "a complex pre-mixed baseband) are not ported yet")
 
 
 @dataclasses.dataclass(frozen=True)
 class RdsState:
-    decim: torch.Tensor      # [C, len(h) - 1] premix decimator history
+    decim: Any               # [C, len(h) - 1] premix decimator history;
+    #                          composed [2C, len(h) - 1]; staged one [C, T-1]
+    #                          complex64 tail per halfband stage
     resamp: torch.Tensor     # [C, 16] complex64 resampler history
     pll: pll.CostasOpenState | pll.PLLState   # "open" | "scan"
     mf_tail: torch.Tensor    # [C, SPS - 1] matched-filter history
@@ -120,8 +122,14 @@ def rds_init(cfg: RdsConfig, channels: int, device) -> RdsState:
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=device)
 
+    if cfg.premix:
+        decim = zeros(channels, len(cfg.h_composed) - 1)
+    elif cfg.composed:
+        decim = zeros(2 * channels, len(cfg.h_composed) - 1)
+    else:
+        decim = decimator.state_init(cfg.plan, channels, device)
     return RdsState(
-        decim=zeros(channels, len(cfg.h_composed) - 1),
+        decim=decim,
         resamp=resampler.state_init(cfg.rs_plan, channels, device,
                                     torch.complex64),
         pll=(pll.costas_open_init(channels, device) if cfg.alg == "open"
@@ -134,7 +142,9 @@ def rds_init(cfg: RdsConfig, channels: int, device) -> RdsState:
 def rds_process(cfg: RdsConfig, state: RdsState, rds_baseband: torch.Tensor,
                 blocks: int = 0):
     """rds_baseband: the real tail-rate composite [C, N] float32 (the WFM
-    discriminator output).  N may span K concatenated blocks: every stage
+    discriminator output), or a complex pre-mixed baseband [C, N] complex64
+    (the composed input, whose state comes from rds_init of a premix=False
+    configuration).  N may span K concatenated blocks: every stage
     is streaming-exact on the concatenated stream, except the symbol-timing
     EWMA, which updates once per call (a K-block dispatch smooths the same
     statistic at another rate), or with blocks = K once per block, as K
@@ -145,21 +155,40 @@ def rds_process(cfg: RdsConfig, state: RdsState, rds_baseband: torch.Tensor,
     [C] int32 symbol phase, or [C, K] with blocks); sign(soft) are the
     biphase symbols for RdsBlockDecoder."""
     check_ported(cfg)
-    if rds_baseband.is_complex():
-        raise ValueError("RDS: a complex pre-mixed baseband (the composed / "
-                         "staged inputs) is not ported yet; pass the real "
-                         "composite")
-    ya, yb, st_d = fir.fir_apply_real_signal_pair(
-        rds_baseband, state.decim, cfg.h_mix_re, cfg.h_mix_im,
-        decim=cfg.plan.factor)
-    n16 = ya.shape[-1]
-    adv = float(np.float32(cfg.mix_adv16))
-    m = torch.arange(n16, dtype=torch.float32, device=ya.device)[None, :]
-    ph = torch.remainder(state.mix_phase[:, None] + m * adv, 1.0)
-    tw_c = torch.cos(2.0 * np.pi * ph)
-    tw_s = torch.sin(2.0 * np.pi * ph)
-    x = torch.complex(ya * tw_c + yb * tw_s, yb * tw_c - ya * tw_s)  # 16 kHz
-    mix_phase = torch.remainder(state.mix_phase + n16 * adv, 1.0)
+    mix_phase = state.mix_phase
+    c_in = rds_baseband.shape[0]
+    if cfg.premix and not rds_baseband.is_complex():
+        ya, yb, st_d = fir.fir_apply_real_signal_pair(
+            rds_baseband, state.decim, cfg.h_mix_re, cfg.h_mix_im,
+            decim=cfg.plan.factor)
+        n16 = ya.shape[-1]
+        adv = float(np.float32(cfg.mix_adv16))
+        m = torch.arange(n16, dtype=torch.float32, device=ya.device)[None, :]
+        ph = torch.remainder(state.mix_phase[:, None] + m * adv, 1.0)
+        tw_c = torch.cos(2.0 * np.pi * ph)
+        tw_s = torch.sin(2.0 * np.pi * ph)
+        x = torch.complex(ya * tw_c + yb * tw_s, yb * tw_c - ya * tw_s)
+        mix_phase = torch.remainder(state.mix_phase + n16 * adv, 1.0)
+    elif cfg.composed:
+        # the composed response on the stacked [re; im] rows; a complex
+        # baseband takes this input even with premix, whose [C, ...]
+        # history does not fit it
+        if not isinstance(state.decim, torch.Tensor) or \
+                state.decim.shape[0] != 2 * c_in:
+            raise ValueError(
+                f"RDS: a complex baseband takes the composed input, whose "
+                f"decimator history is [2C, ...] (rds_init of a premix="
+                f"False configuration); this state's is "
+                f"{getattr(state.decim, 'shape', None)}")
+        xb = rds_baseband.to(torch.complex64)
+        xr = torch.cat([xb.real, xb.imag], dim=0)
+        y, st_d = fir.fir_apply_real_signal(
+            xr, state.decim, np.asarray(cfg.h_composed, np.float32),
+            decim=cfg.plan.factor)
+        x = torch.complex(y[:c_in], y[c_in:])
+    else:
+        st_d, x = decimator.apply(cfg.plan, state.decim,
+                                  rds_baseband.to(torch.complex64))
     st_r, x = resampler.apply_many(cfg.rs_plan, state.resamp, x)      # 19 kHz
     if cfg.alg == "open":
         st_p, phases, _ = pll.costas_open_run(cfg.costas_open, state.pll, x,

@@ -1,9 +1,13 @@
-"""FIR design (host, float64/scipy) and the streaming real-signal FIR.
+"""FIR design (host, float64/scipy) and the streaming FIRs.
 
 Port of pebblesdr_tpu/ops/fir.py.  The design functions are copied verbatim
-(numpy/scipy, so the port needs no jax); the apply path keeps the JAX
-package's banded-matmul forms.  There is deliberately no conv1d fallback:
-cuDNN convolutions default to TF32, which the receive chain must not use.
+(numpy/scipy, so the port needs no jax); the real-signal apply path keeps
+the JAX package's banded-matmul forms.  The halfband stage runs as
+fir_apply (a strided conv1d on the stacked [re; im] rows, the JAX
+package's _conv_real; ops/decimator.py), plain PyTorch.  cuDNN
+convolutions default to TF32, which the receive chain must not use:
+fir_apply turns it off for its own convolution and restores the caller's
+setting.
 """
 
 from __future__ import annotations
@@ -304,3 +308,27 @@ def fir_apply_complex(x: torch.Tensor, taps_c, tail: torch.Tensor,
     # (xr + j xi)(hr + j hi): re = xr hr - xi hi, im = xr hi + xi hr
     y = torch.complex(ya[:c] - yb[c:], yb[:c] + ya[c:])
     return y, torch.complex(tail_rows[:c], tail_rows[c:]).to(tail.dtype)
+
+
+def fir_apply(x: torch.Tensor, taps, tail: torch.Tensor, decim: int = 1):
+    """Streaming FIR: x [C, N] complex64, real taps [T] (numpy or a tensor),
+    tail [C, T-1] complex64.  y[m] = sum_k h[k] xin[m decim - k] on the
+    tail-extended stream, as one strided conv1d (IEEE float32) of the
+    stacked [re; im] rows.  Returns (y [C, N/decim], tail')."""
+    c = x.shape[0]
+    h = torch.as_tensor(np.asarray(taps, np.float32) if not isinstance(
+        taps, torch.Tensor) else taps, dtype=torch.float32, device=x.device)
+    t = h.shape[0]
+    xx = torch.cat([tail, x], dim=-1)                          # [C, N+T-1]
+    xr = torch.cat([xx.real, xx.imag], dim=0)
+    # cuDNN allows TF32 by default: off for this call, the caller's after
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yr = torch.nn.functional.conv1d(xr[:, None, :],
+                                        h.flip(0)[None, None, :],
+                                        stride=decim)[:, 0]
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    tail = xx[:, xx.shape[-1] - (t - 1):] if t > 1 else xx[:, :0]
+    return torch.complex(yr[:c], yr[c:]), tail

@@ -278,11 +278,12 @@ def dc_removal_chunked(y_prev: torch.Tensor, x: torch.Tensor,
                        alpha: float = 0.9999, chunk: int = 512):
     """DC blocker with a piecewise-constant estimate per `chunk` samples:
     chunk means, EWMA across chunks with coefficient alpha^chunk.
-    x: [C, N] real or complex, N a multiple of chunk.  Returns (m_last, y)."""
+    x: [C, N] real or complex; where N is not a multiple of chunk, the
+    per-sample blocker dc_removal_apply, as in the JAX package.  Returns
+    (m_last, y)."""
     c, n = x.shape
     if n % chunk:
-        raise ValueError(f"block length {n} is not a multiple of the DC "
-                         f"chunk {chunk}")
+        return dc_removal_apply(y_prev, x, alpha)
     means = x.reshape(c, n // chunk, chunk).mean(dim=-1)
     a_c = float(alpha) ** chunk
     m_last, m = first_order_apply(y_prev, means, a_c, 1.0 - a_c)

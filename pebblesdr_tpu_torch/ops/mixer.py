@@ -81,6 +81,30 @@ def mix(state: MixerState, x: torch.Tensor, f_hi, f_lo):
     return MixerState(phase=advance_phase(state.phase, n, f_hi, f_lo)), y
 
 
+def mix_blocks(state: MixerState, x: torch.Tensor, f_hi, f_lo,
+               n_block: int):
+    """x [C, K*n_block] complex64 mixed as K calls of mix on its n_block-
+    sample blocks would, in one pass: block b's oscillator starts at mod(
+    phase + mod(b mod(n_block hi, 1), 1) + b n_block lo, 1) (exact in its
+    hi term), so each block's ramp stays as short, and as exact, as one
+    call's.  Returns (state', tuned [C, K*n_block])."""
+    c, total = x.shape
+    k = total // n_block
+    dev = state.phase.device
+    f_hi = torch.as_tensor(f_hi, dtype=torch.float32, device=dev).expand(c)
+    f_lo = torch.as_tensor(f_lo, dtype=torch.float32, device=dev).expand(c)
+    b = torch.arange(k + 1, dtype=torch.float32, device=dev)[None, :]
+    starts = torch.remainder(
+        state.phase[:, None]
+        + torch.remainder(b * torch.remainder(n_block * f_hi, 1.0)[:, None],
+                          1.0)
+        + b * (n_block * f_lo)[:, None], 1.0)                 # [C, K+1]
+    osc = oscillator(starts[:, :k].reshape(-1), n_block,
+                     f_hi.repeat_interleave(k), f_lo.repeat_interleave(k))
+    return (MixerState(phase=starts[:, k].contiguous()),
+            x * osc.reshape(c, total))
+
+
 def advance_phase(phase: torch.Tensor, n: int, f_hi: torch.Tensor,
                   f_lo: torch.Tensor) -> torch.Tensor:
     """Phase after n samples, in the split form: mod(phase + mod(n*hi, 1) +

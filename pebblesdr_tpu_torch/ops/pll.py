@@ -335,8 +335,10 @@ def _lib():
     return lib
 
 
-# the forms of csrc/recur.cu's chain probe (recur_probe's form 0-7)
-PROBE_FORMS = DETECTORS + ("chunk", "chunk pilot", "agc hang", "agc")
+# the forms of csrc/recur.cu's chain probe (recur_probe's form 0-8; "iq
+# lms" is K5's, ops/scanops.py auto_iq_balance)
+PROBE_FORMS = DETECTORS + ("chunk", "chunk pilot", "agc hang", "agc",
+                           "iq lms")
 
 
 def chain_probe(form: str, steps: int, device) -> torch.Tensor:

@@ -10,7 +10,13 @@ port's ``init_state()`` for the same configuration, so the carry follows
 each configuration's leaves: ``RdsState.pll`` is the squaring loop's
 CostasOpenState (5 leaves) with rds_alg "open" and the Costas loop's
 PLLState (3) with "scan"; the scan AGC's state keeps its peak window's
-tail at the full rate and has no hang_tail.  Nothing here
+tail at the full rate and has no hang_tail.  A Receiver on the staged
+front carries the JAX package's staged layout (``dc`` [C] complex64,
+``decim`` one [C, T-1] complex64 tail per halfband stage, ``nb`` the
+NoiseBlankerChunkedState (mag_avg [C], spike_tail [C, 6]), ``iqbal.w`` [C]
+complex64), and RDS ``decim`` its premix=False forms; a PfbBankReceiver's
+state is the pair (filterbank carry [1, T M - hop] complex64, the tail
+Receiver's state), flattened in that order.  Nothing here
 imports jax: the caller flattens (``jax.tree_util.tree_leaves``) and passes
 numpy arrays.
 """
@@ -64,7 +70,8 @@ def from_numpy(template: Any, arrays: list, device) -> Any:
 
 
 def state_from_numpy(rx, arrays: list):
-    """Port ReceiverState for Receiver `rx` from the JAX state's leaves."""
+    """Port the state of `rx` (a Receiver or a PfbBankReceiver) from the JAX
+    state's leaves."""
     return from_numpy(rx.init_state(), arrays, rx.device)
 
 

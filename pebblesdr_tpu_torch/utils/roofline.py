@@ -4,8 +4,8 @@ it, from the bytes it must move and the operations it must do.
 One place for the rates and for the bounds of K1, its passes (front_means,
 which also bounds front_nb_means, front_dc_scan, front_fir, K1's carried
 history, front_disc, front_comp), K2 and the recurrences (pll_scan,
-pll_chunk_scan, agc_scan), read by chip_smoke.py, ops/kprobe.py and the
-tools.
+pll_chunk_scan, agc_scan, iq_lms_scan), read by chip_smoke.py,
+ops/kprobe.py and the tools.
 """
 
 from __future__ import annotations
@@ -167,3 +167,16 @@ def agc_scan_bound(c: int, m: int, step_ns: float) -> dict:
     """agc_scan's bound: the envelope [c, m] float32 in, the levels [c, m]
     out, m steps of the smoother (recur_bound)."""
     return recur_bound(m, c, 4, 1, step_ns)
+
+
+def iq_lms_bound(c: int, n: int, step_ns: float, group: int = 64) -> dict:
+    """iq_lms_scan's (K5) bound: x [c, n] complex64 read once, y [c, n]
+    complex64 written once, the weight [c] complex64 read and written, over
+    the HBM rate; the serial floor n / group steps of the LMS chain (its
+    step latency from the chain probe "iq lms"); the ~10 operations per
+    sample of the sums and the output are far below the float32 peak."""
+    nbytes = 2 * c * n * 8 + 2 * c * 8
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_s = (n // group) * step_ns * 1e-6
+    return {"bytes": nbytes, "serial_ms": t_s, "bound_ms": max(t_b, t_s),
+            "bound_by": "bytes" if t_b >= t_s else "operations"}

@@ -12,7 +12,11 @@ recurrence kernels of csrc/recur.cu (pll_scan in each detector,
 pll_chunk_scan, agc_scan, the chain probe) against their plain versions,
 and the receivers that run them (the scan RDS carrier, SAM on 64-sample
 blocks) and the module options (SAM scan and loop, NFM "pll", the scan
-AGC) on the card against the CPU.
+AGC) on the card against the CPU; K5 (iq_lms_scan, the adaptive IQ
+balance) against its plain version, and the receivers on the staged front
+("auto" in AM, USB + NB1, SAM and FMM + RDS; enable_dc_removal=False) and
+the PfbBankReceiver (trivial, "auto" and oversample=2 fronts) on the card
+against the CPU.
 
 They skip where CUDA is absent (the kernels have no CPU mode).  This file
 imports no jax, so it also runs on a machine that has only the port:
@@ -28,7 +32,7 @@ from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
 from pebblesdr_tpu_torch.demod import nfm, rds, sam, wfm
 from pebblesdr_tpu_torch.demod.modes import DemodMode
 from pebblesdr_tpu_torch.ops import (agc, decimator, front, kprobe, pll,
-                                     wfm_tail)
+                                     scanops, wfm_tail)
 from pebblesdr_tpu_torch.ops.mixer import split_freq
 from pebblesdr_tpu_torch.utils import convert
 
@@ -191,6 +195,30 @@ def test_matmuls_are_ieee_float32(cuda):
     """The receive chain's matmuls must not run in TF32."""
     assert not torch.backends.cuda.matmul.allow_tf32
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_convolutions_are_ieee_float32(cuda):
+    """fir_apply's conv1d runs in IEEE float32 with cuDNN's TF32 allowed by
+    the caller, whose setting it restores: within 1e-5 of scale of a
+    float64 convolution."""
+    from pebblesdr_tpu_torch.ops import fir
+    rng = np.random.default_rng(7)
+    c, n = 4, 8192
+    x = (rng.standard_normal((c, n))
+         + 1j * rng.standard_normal((c, n))).astype(np.complex64)
+    taps = rng.standard_normal(31).astype(np.float32)
+    want = np.stack([np.convolve(r.astype(np.complex128),
+                                 taps.astype(np.float64))[:n] for r in x])
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        y, _ = fir.fir_apply(torch.from_numpy(x).to(cuda), taps,
+                             torch.zeros(c, 30, dtype=torch.complex64,
+                                         device=cuda))
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert np.abs(y.cpu().numpy() - want).max() < 1e-5 * np.abs(want).max()
 
 
 def test_shared_memory_layouts_match_the_sources(cuda):
@@ -1634,3 +1662,183 @@ def test_loop_module_options_on_card_match_cpu(cuda):
             torch.cuda.synchronize()
             scale = float(yc.abs().max())
             assert float((yg.cpu() - yc).abs().max()) <= 1e-4 * scale
+
+
+# ---- K5: the adaptive IQ balance's LMS loop (csrc/recur.cu iq_lms_scan)
+
+def _imbalanced(c, n, rng, device, gain=1.06, leak=0.08):
+    """A tone per channel through an IQ path with I gain `gain` and `leak`
+    of I in Q (tests/test_chain.py:204-236's imbalance), in light noise."""
+    t = np.arange(n)
+    z = (0.5 * np.exp(2j * np.pi * (0.0123 * t + rng.random((c, 1))))
+         + 0.01 * (rng.standard_normal((c, n))
+                   + 1j * rng.standard_normal((c, n))))
+    x = gain * z.real + 1j * (z.imag + leak * z.real)
+    return torch.from_numpy(x.astype(np.complex64)).to(device)
+
+
+@pytest.mark.parametrize("c,n", [(64, 32768), (5, 4096 + 640), (130, 8192),
+                                 (3, 0)])
+def test_iq_lms_kernel_matches_plain(cuda, c, n):
+    """Three streaming calls, one launch each: y and w' within 1e-5 of
+    their scale of the plain version (the chain repeats its float32
+    operations one by one; the group sums are added in another order), a
+    partial tile (N = 4736), more channels than SMs, N = 0."""
+    rng = np.random.default_rng(c)
+    w_k = scanops.auto_iq_balance_init(c, cuda)
+    w_p = w_k.w
+    for _ in range(3):
+        x = _imbalanced(c, n, rng, cuda)
+        before = scanops.auto_iq_balance.launches
+        w_k, y_k = scanops.auto_iq_balance(w_k, x)
+        assert scanops.auto_iq_balance.launches == before + 1
+        y_p, w_p = scanops.iq_lms_scan_plain(x, w_p)
+        torch.cuda.synchronize()
+        assert y_k.shape == y_p.shape == x.shape
+        if n:
+            assert float((y_k - y_p).abs().max()) <= 1e-5 * float(
+                y_p.abs().max())
+        assert float((w_k.w - w_p).abs().max()) <= 1e-5 * max(
+            float(w_p.abs().max()), 1e-3)
+    if n:
+        assert float(w_k.w.abs().min()) > 1e-3      # the weight adapted
+
+
+def test_iq_lms_kernel_refuses_what_it_does_not_take(cuda):
+    st = scanops.auto_iq_balance_init(2, cuda)
+    x = torch.zeros(2, 129, dtype=torch.complex64, device=cuda)
+    with pytest.raises(ValueError):            # N not a multiple of 64
+        scanops.auto_iq_balance(st, x[:, :100].contiguous())
+    with pytest.raises(ValueError):            # not 16-byte aligned
+        scanops.auto_iq_balance(st, x.reshape(-1)[1:129].reshape(2, 64))
+    with pytest.raises(ValueError):            # another group
+        scanops.auto_iq_balance(st, x[:, :128].contiguous(), update_every=32)
+    with pytest.raises(ValueError):            # the weight on the CPU
+        scanops.auto_iq_balance(scanops.auto_iq_balance_init(2, "cpu"),
+                                x[:, :128].contiguous())
+
+
+# ---- the staged front and the dense filterbank bank
+
+def _imbalance(plane: torch.Tensor) -> torch.Tensor:
+    """I x 1.06 and 0.08 of I leaked into Q on a packed plane."""
+    c = plane.shape[1] // 2
+    i = plane[:, :c].clone()
+    return torch.cat([1.06 * i, plane[:, c:] + 0.08 * i], dim=1)
+
+
+# (mode, receiver options, frames, dispatches)
+STAGED_RECEIVERS = {
+    "am_auto": (DemodMode.AM, dict(enable_iq_balance="auto"), 8192, (3, 9)),
+    "usb_auto_nb1": (DemodMode.USB, dict(enable_iq_balance="auto",
+                                         enable_noise_blanker=True), 8192,
+                     (3, 9)),
+    "am_dc_off": (DemodMode.AM, dict(enable_dc_removal=False), 8192, (3, 9)),
+    "sam_auto": (DemodMode.SAM, dict(enable_iq_balance="auto"), 8192, (3,)),
+    "fmm_auto_rds": (DemodMode.FMM, dict(enable_iq_balance="auto", rds=True),
+                     32768, (3,)),
+}
+
+
+@pytest.mark.parametrize("case", list(STAGED_RECEIVERS))
+def test_staged_receivers_on_card_match_cpu(cuda, case):
+    """The staged front on the card against the CPU, C=4, after a CPU
+    warm-up block carried to both, on an imbalanced capture: the bounds of
+    tests/test_chain_batched.py:58-69 (SAM's audio 2e-3 of its scale, its
+    phases modulo 2 pi), RDS soft symbols 1e-3 of their scale; K1 never
+    launched, K5 once per dispatch with "auto"."""
+    mode, opts, n, ks = STAGED_RECEIVERS[case]
+    c = 4
+    cfg = ReceiverConfig(sample_rate=FS, frames_per_buffer=n, channels=c,
+                         agc_stride=16, mode=mode, **opts)
+    cpu, gpu = Receiver(cfg, "cpu"), Receiver(cfg, cuda)
+    assert gpu.staged
+    pc, pg = cpu.default_params(250_000.0), gpu.default_params(250_000.0)
+    rng = np.random.default_rng(51)
+    t0 = [0.0]
+
+    def plane(rows):
+        x = (_rds_plane(c, rows, rng, t0[0]) if opts.get("rds")
+             else _am_plane(c, rows, rng))
+        t0[0] += rows / FS
+        return _imbalance(x)
+
+    sc, _ = cpu.step_many(cpu.init_state(), pc, plane(n))
+    sg = convert.state_from_numpy(gpu, convert.state_to_numpy(sc))
+    sam_mode = mode == DemodMode.SAM
+    angles = ({i for i, leaf in enumerate(convert.leaves(sc))
+               if leaf is sc.demod.aim} if sam_mode else set())
+    auto = opts.get("enable_iq_balance") == "auto"
+    for k in ks:
+        x = plane(k * n)
+        sc, oc = cpu.step_many(sc, pc, x)
+        before = (front.fused_front.launches, scanops.auto_iq_balance.launches)
+        sg, og = gpu.step_many(sg, pg, x.to(cuda))
+        torch.cuda.synchronize()
+        assert (front.fused_front.launches - before[0],
+                scanops.auto_iq_balance.launches - before[1]) == (0, int(auto))
+        tol = 2e-3 * float(oc["audio"].abs().max()) if sam_mode else 2e-4
+        assert float((og["audio"].cpu() - oc["audio"]).abs().max()) <= tol
+        for key in ("spectrum", "zoomed"):
+            assert float((og[key].cpu() - oc[key]).abs().max()) < 0.1
+        assert float((og["smeter"]["snr_db"].cpu()
+                      - oc["smeter"]["snr_db"]).abs().max()) < 0.1
+        for key in ("squelch_open", "rds_timing"):
+            if key in oc:
+                assert torch.equal(og[key].cpu(), oc[key]), key
+        if opts.get("rds"):
+            scale = float(oc["rds_soft"].abs().max())
+            assert float((og["rds_soft"].cpu() - oc["rds_soft"]).abs().max()
+                         ) <= 1e-3 * scale
+        for i, (a, b) in enumerate(zip(convert.state_to_numpy(sg),
+                                       convert.state_to_numpy(sc))):
+            if not a.size:
+                continue
+            d = np.abs(a.astype(np.complex128) - b.astype(np.complex128))
+            if i in angles:
+                d = np.abs(np.angle(np.exp(1j * (a.astype(np.float64)
+                                                  - b.astype(np.float64)))))
+            assert d.max() < 1e-4, i
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(enable_iq_balance="auto"),
+                                dict(oversample=2)],
+                         ids=["trivial", "iq_auto", "oversample2"])
+def test_pfb_bank_on_card_matches_cpu(cuda, kw):
+    """PfbBankReceiver at M = 16 (1.024 Msps: 64 kHz channels; oversample=2
+    128 kHz, whose tail decimates) on the card against the CPU over two
+    dispatches of 3 blocks: audio 2e-4, spectra and S-meter 0.1 dB,
+    squelch equal, state 1e-4; K5 once per dispatch with "auto"."""
+    from pebblesdr_tpu_torch.chain.pfb_bank import PfbBankReceiver
+    from pebblesdr_tpu_torch.ops import pfb
+    fs, frames, m = 1_024_000, 16384, 16
+    centers = pfb.channel_freqs(pfb.plan(fs, m, os=kw.get("oversample", 1)))
+    tunes = centers[[2, 5, 11]] + np.array([0.0, 1000.0, -700.0])
+    cpu = PfbBankReceiver(fs, frames, tunes, n_bank=m, agc_stride=16,
+                          device="cpu", **kw)
+    gpu = PfbBankReceiver(fs, frames, tunes, n_bank=m, agc_stride=16,
+                          device=cuda, **kw)
+    rng = np.random.default_rng(61)
+    sc, sg = cpu.init_state(), gpu.init_state()
+    for call in range(2):
+        t = (call * 3 * frames + np.arange(3 * frames)) / fs
+        env = (1 + 0.8 * np.cos(2 * np.pi * 1000.0 * t)) / 2
+        x = sum(0.4 * env * np.exp(2j * np.pi * f * t) for f in tunes)
+        x = torch.from_numpy((x + 1e-2 * (rng.standard_normal(len(t)) + 1j
+                                          * rng.standard_normal(len(t))))
+                             .astype(np.complex64))
+        sc, oc = cpu.step_many(sc, x)
+        before = scanops.auto_iq_balance.launches
+        sg, og = gpu.step_many(sg, x.to(cuda))
+        torch.cuda.synchronize()
+        assert scanops.auto_iq_balance.launches - before == int(
+            kw.get("enable_iq_balance") == "auto")
+        assert float((og["audio"].cpu() - oc["audio"]).abs().max()) <= 2e-4
+        for key in ("spectrum", "zoomed"):
+            assert float((og[key].cpu() - oc[key]).abs().max()) < 0.1
+        assert torch.equal(og["squelch_open"].cpu(), oc["squelch_open"])
+        for a, b in zip(convert.state_to_numpy(sg),
+                        convert.state_to_numpy(sc)):
+            if a.size:
+                assert np.abs(a.astype(np.complex128)
+                              - b.astype(np.complex128)).max() < 1e-4

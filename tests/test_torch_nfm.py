@@ -7,8 +7,9 @@
     warm-up, the state carried across, dispatches of K = 3 and 9 blocks of
     8192 frames): K1 in its base form at AM's plan (factor 32, 711 taps);
   * what the port still does not run (the "pll" pilot and its notch, a
-    stereo geometry without a fused-tail sub-block, the staged RDS inputs
-    of premix=False, adaptive IQ balance) refused by name.
+    stereo geometry without a fused-tail sub-block) refused by name, and
+    what runs now (RDS premix=False, a complex RDS baseband, adaptive IQ
+    balance in AM and SAM) held to the JAX package.
 
 Bounds: nfm_demod 1e-5 of the audio's scale, state 1e-5; the Receiver those
 of tests/test_torch_receiver.py:77-115.  The first block's audio is not
@@ -121,8 +122,62 @@ def test_fmn_receiver_geometry():
     assert isinstance(rx.init_state().demod, nfm.NFMState)
 
 
-# NFM "pll", the scan RDS carrier and AGC and SAM's scan, loop and non-128
-# forms run now: those cases hold what is still refused (the ids keep the
+def _rds_parity(alg: str, change: dict, complex_input: bool = False):
+    """RDS's premix=False inputs (composed, or staged with composed=False)
+    against JAX's rds_process over two calls: soft symbols 1e-3 of their
+    scale, timing equal, the state 1e-4 (tests/test_torch_rds.py)."""
+    import jax
+    from pebblesdr_tpu.demod import rds as jrds
+    jc = dataclasses.replace(jrds.RdsConfig.make(256_000.0, 4096, alg=alg),
+                             **change)
+    tc = dataclasses.replace(rds.RdsConfig.make(256_000.0, 4096, alg=alg),
+                             **change)
+    init = dict(change, premix=False)      # the composed / staged history
+    sj = jrds.rds_init(dataclasses.replace(jc, **init), 2)
+    st = rds.rds_init(dataclasses.replace(tc, **init), 2, "cpu")
+    rng = np.random.default_rng(3)
+    for call in range(2):
+        t = (call * 3 * 4096 + np.arange(3 * 4096)) / 256_000.0
+        x = (0.05 * np.sign(np.sin(np.pi * 1187.5 * t))
+             * np.cos(2 * np.pi * 57000.0 * t) + 0.3 * np.sin(
+                 2 * np.pi * 1000.0 * t)) * np.ones((2, 1))
+        x = x + 0.01 * rng.standard_normal(x.shape)
+        if complex_input:
+            x = (x * np.exp(-2j * np.pi * 57000.0 * t)).astype(np.complex64)
+        else:
+            x = x.astype(np.float32)
+        sj, soft_j, tim_j = jrds.rds_process(jc, sj, jnp.asarray(x))
+        st, soft_t, tim_t = rds.rds_process(tc, st, torch.from_numpy(x))
+        scale = float(np.abs(np.asarray(soft_j)).max())
+        assert scale > 1e-3
+        assert np.abs(np.asarray(soft_j) - soft_t.numpy()).max() < 1e-3 * scale
+        assert np.array_equal(np.asarray(tim_j), tim_t.numpy())
+        tp.check_state(tp.jleaves(sj), convert.state_to_numpy(st))
+
+
+def _auto_receiver(mode):
+    """A Receiver with enable_iq_balance="auto" held to the JAX Receiver."""
+    rx = Receiver(ReceiverConfig(**tp.KW, mode=mode,
+                                 enable_iq_balance="auto"), "cpu")
+    assert rx.staged
+    tp.check_run(mode, lambda k, s: tp.tone_plane(k, s, 300.0, am=True),
+                 enable_iq_balance="auto")
+
+
+def _complex_rds():
+    """A complex pre-mixed baseband takes the composed input: it runs with
+    a composed history and is refused, by name, with a premix one."""
+    cfg = rds.RdsConfig.make(256_000.0, 4096, alg="scan")
+    with pytest.raises(ValueError, match="complex"):
+        rds.rds_process(cfg, rds.rds_init(cfg, 2, "cpu"),
+                        torch.zeros(2, 4096, dtype=torch.complex64))
+    _rds_parity("scan", {}, complex_input=True)
+
+
+# NFM "pll", the scan RDS carrier and AGC, SAM's scan, loop and non-128
+# forms, RDS premix=False and adaptive IQ balance run now: "rds scan",
+# "iq auto", "sam loop" and "sam non-128" are held to the JAX package
+# (match None), the others hold what is still refused (the ids keep the
 # cases' names)
 @pytest.mark.parametrize("what,make,match", [
     ("nfm pll", lambda: wfm.check_ported(dataclasses.replace(
@@ -130,27 +185,21 @@ def test_fmn_receiver_geometry():
      "notch"),
     ("pll pilot", lambda: wfm.check_ported(wfm.WFMConfig.make(
         256_000.0, pilot_alg="pll")), "'pll' pilot"),
-    ("rds scan", lambda: rds.check_ported(dataclasses.replace(
-        rds.RdsConfig.make(256_000.0, 4096, alg="scan"), premix=False)),
-     "premix=False"),
+    ("rds scan", lambda: _rds_parity("scan", dict(premix=False)), None),
     ("agc scan", lambda: wfm.check_ported(wfm.WFMConfig.make(
         512_000.0, pilot_alg="pll", comp_decim=2)), "'pll' pilot"),
-    ("iq auto", lambda: Receiver(ReceiverConfig(
-        **tp.KW, enable_iq_balance="auto"), "cpu"), "auto"),
+    ("iq auto", lambda: _auto_receiver(DemodMode.AM), None),
     ("sam scan", lambda: Receiver(ReceiverConfig(
         **{**tp.KW, "sample_rate": 1_536_000, "frames_per_buffer": 24576},
         mode=DemodMode.FMS), "cpu"), "tail_sub == 0"),
-    ("sam loop", lambda: Receiver(ReceiverConfig(
-        **tp.KW, mode=DemodMode.SAM, enable_iq_balance="auto"), "cpu"),
-     "auto"),
-    ("sam non-128", lambda: rds.rds_process(
-        rds.RdsConfig.make(256_000.0, 4096, alg="scan"),
-        rds.rds_init(rds.RdsConfig.make(256_000.0, 4096, alg="scan"), 2,
-                     "cpu"),
-        torch.zeros(2, 4096, dtype=torch.complex64)), "complex")],
+    ("sam loop", lambda: _auto_receiver(DemodMode.SAM), None),
+    ("sam non-128", _complex_rds, None)],
     ids=["nfm pll--pll\\.pll_run", "pll pilot--'pll' pilot",
          "rds scan--scan", "agc scan--scan", "iq auto--auto",
          "sam scan--scan", "sam loop--loop", "sam non-128--128"])
 def test_per_sample_loops_refused_by_name(what, make, match):
+    if match is None:
+        make()
+        return
     with pytest.raises(ValueError, match=match):
         make()

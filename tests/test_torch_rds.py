@@ -6,6 +6,8 @@ On the CPU, with inputs made from numpy seeds:
     form) at C=8 over two streaming calls;
   * the premix decimation fir.fir_apply_real_signal_pair;
   * rds_process at C=8 on the same real composite over two streaming calls;
+  * rds_process with the premix=False inputs, composed and staged (C=3,
+    two streaming calls), with the "open" and the "scan" carrier;
   * the RDS Receiver at C=4 with 32768-frame blocks (the shortest block
     whose 19 kHz stream holds whole symbols), at the default and the hq
     geometry: a JAX dispatch of 3 blocks whose state is carried into the
@@ -182,22 +184,44 @@ def test_rds_process_matches_jax_streaming():
             close(a, b, 1e-4, i)
 
 
-# the scan carrier runs now: its case holds that the scan carrier's staged
-# input is still refused (the ids keep the cases' names)
+# the scan carrier and the premix=False inputs run now: both cases are held
+# to the JAX package, in the composed and the staged (composed=False) form
+# (the ids keep the cases' names)
 @pytest.mark.parametrize("change,what", [
     (dict(alg="scan", premix=False), "premix=False"),
     (dict(premix=False), "premix=False"),
 ], ids=["change0-scan", "change1-premix=False"])
 def test_unported_rds_options_named(change, what):
-    cfg = dataclasses.replace(trds.RdsConfig.make(RATE, 4096), **change)
-    with pytest.raises(ValueError, match=what):
-        trds.rds_init(cfg, 2, "cpu")
-    st = trds.rds_init(trds.RdsConfig.make(RATE, 4096), 2, "cpu")
-    with pytest.raises(ValueError, match=what):
-        trds.rds_process(cfg, st, torch.zeros(2, 4096))
+    """Both forms of the premix=False input, composed and staged
+    (composed=False): rds_init lays the history out as JAX does ([2C,
+    len(h) - 1] float32 composed, one [C, T-1] complex64 tail per halfband
+    stage staged); two streaming calls of 3 blocks match JAX's
+    rds_process."""
+    c, blk, k = 3, 4096, 3
+    for composed in (True, False):
+        kw = dict(change, composed=composed)
+        jcfg = dataclasses.replace(jrds.RdsConfig.make(RATE, blk), **kw)
+        tcfg = dataclasses.replace(trds.RdsConfig.make(RATE, blk), **kw)
+        sj, st = jrds.rds_init(jcfg, c), trds.rds_init(tcfg, c, "cpu")
+        jl, tl = jleaves(sj), convert.state_to_numpy(st)
+        assert [a.shape for a in jl] == [b.shape for b in tl]
+        assert [a.dtype for a in jl] == [b.dtype for b in tl]
+        for call in range(2):
+            x = real_composite(c, k * blk, call, call * k * blk / RATE)
+            sj, softj, timj = jrds.rds_process(jcfg, sj, jnp.asarray(x))
+            st, softt, timt = trds.rds_process(tcfg, st, torch.from_numpy(x))
+            scale = float(np.abs(np.asarray(softj)).max())
+            assert scale > 1e-3 and softt.shape == (c, 57)
+            close(softj, softt, 1e-3 * scale, what)
+            assert np.array_equal(np.asarray(timj), timt.numpy())
+            for i, (a, b) in enumerate(zip(jleaves(sj),
+                                           convert.state_to_numpy(st))):
+                close(a, b, 1e-4, (composed, i))
 
 
 def test_rds_refuses_a_complex_baseband():
+    """A complex baseband takes the composed input, whose [2C, ...]
+    history a premix state does not have (JAX fails there too)."""
     cfg = trds.RdsConfig.make(RATE, 4096)
     st = trds.rds_init(cfg, 2, "cpu")
     with pytest.raises(ValueError, match="complex"):

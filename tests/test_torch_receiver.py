@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_parity as tp
 from pebblesdr_tpu.chain.receiver import Receiver as JaxReceiver
 from pebblesdr_tpu.chain.receiver import ReceiverConfig as JaxConfig
 from pebblesdr_tpu.demod.modes import DemodMode as JaxMode
@@ -190,8 +191,9 @@ def test_folded_plane_rejected():
                      torch.zeros(N // 2, 4 * C))
 
 
-# SAM on 64-sample blocks and the scan RDS carrier run now: kw0 and kw3
-# hold what those receivers still refuse (the ids keep the cases' names)
+# SAM on 64-sample blocks, the scan RDS carrier and adaptive IQ balance run
+# now: kw0 (SAM at 2048 frames with "auto") is held to the JAX Receiver,
+# kw1-kw3 hold what is still refused (the ids keep the cases' names)
 @pytest.mark.parametrize("kw", [dict(mode=DemodMode.SAM,
                                      frames_per_buffer=2048,
                                      enable_iq_balance="auto"),
@@ -200,8 +202,28 @@ def test_folded_plane_rejected():
                                 dict(mode=DemodMode.FMS,
                                      sample_rate=1_536_000,
                                      frames_per_buffer=24576, rds=True,
-                                     rds_alg="scan")])
+                                     rds_alg="scan")],
+                         ids=["kw0", "kw1", "kw2", "kw3"])
 def test_unported_configs_rejected(kw):
+    if kw.get("enable_iq_balance") == "auto":
+        n = kw["frames_per_buffer"]
+        rx = Receiver(ReceiverConfig(**{**KW, **kw}), "cpu")
+        assert rx.staged and rx.blk == 64
+        t = np.arange(64 * n) / FS
+        sig = (0.25 * (1 + 0.8 * np.cos(2 * np.pi * 1000.0 * t))
+               * np.exp(2j * np.pi * 250_300.0 * t))
+
+        def plane(k, seed):
+            x = sig[seed * n:(seed + k) * n, None] * np.ones(C)
+            x = x + 1e-2 * np.random.default_rng(seed).standard_normal(
+                x.shape)
+            return np.concatenate([1.06 * x.real, x.imag + 0.08 * x.real],
+                                  axis=1).astype(np.float32)
+
+        tp.check_run(DemodMode.SAM, plane, ks=(3, 9),
+                     kw=dict(KW, frames_per_buffer=n),
+                     enable_iq_balance="auto")
+        return
     with pytest.raises(ValueError):
         Receiver(ReceiverConfig(**{**KW, **kw}), "cpu")
 

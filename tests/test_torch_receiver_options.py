@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_parity as tp
 from pebblesdr_tpu.chain.receiver import Receiver as JaxReceiver
 from pebblesdr_tpu.chain.receiver import ReceiverConfig as JaxConfig
 from pebblesdr_tpu.demod.modes import DemodMode as JaxMode
@@ -213,9 +214,15 @@ def test_folded_entry_plane():
 
 
 def test_adaptive_iq_balance_raises():
-    with pytest.raises(ValueError, match="auto.*adaptive"):
-        Receiver(ReceiverConfig(sample_rate=FS, frames_per_buffer=N,
-                                channels=C, enable_iq_balance="auto"), "cpu")
+    """enable_iq_balance="auto" no longer raises: the adaptive loop runs on
+    the staged front (K5 on a card, its plain version here) and matches
+    the JAX Receiver's per-block path (torch_parity.check_run's bounds)."""
+    rx = Receiver(ReceiverConfig(sample_rate=FS, frames_per_buffer=N,
+                                 channels=C, enable_iq_balance="auto"), "cpu")
+    assert rx.staged and rx.init_state().iqbal is not None
+    tp.check_run(DemodMode.AM, lambda k, s: tp.tone_plane(k, s, 300.0,
+                                                           am=True),
+                 enable_iq_balance="auto")
 
 
 def test_blanker_brings_audio_closer_to_clean():

@@ -187,21 +187,48 @@ def test_squelch_gates_stereo_audio():
     assert float(out["audio"].abs().max()) == 0.0
 
 
-# mono WFM, FMM, FMN and the scan RDS carrier run now: their cases hold
-# what those receivers still refuse (the ids keep the cases' names)
+# mono WFM, FMM, FMN, the scan RDS carrier and adaptive IQ balance run
+# now: change1 and change3 (mono with the scan carrier and "auto", on the
+# staged front) are held to the JAX Receiver (what None), the others hold
+# what those receivers still refuse, stereo on the staged front among them
+# (the ids keep the cases' names)
 @pytest.mark.parametrize("change,what", [
     (dict(rds=True, rds_alg="scan", frames_per_buffer=32768,
-          enable_iq_balance="auto"), "auto"),
+          enable_iq_balance="auto"), "FMS stereo on the staged front"),
     (dict(wfm_hq=True, stereo=False, rds=True, rds_alg="scan",
-          frames_per_buffer=32768, enable_iq_balance="auto"), "auto"),
+          frames_per_buffer=32768, enable_iq_balance="auto"), None),
     (dict(stereo=False, ctcss_tone=123.0), "requires mode=FMN"),
     (dict(mode=DemodMode.FMM, rds=True, rds_alg="scan",
-          frames_per_buffer=32768, enable_iq_balance="auto"), "auto"),
+          frames_per_buffer=32768, enable_iq_balance="auto"), None),
     (dict(mode=DemodMode.FMN, ctcss_tone=120.0), "not a CTCSS table tone"),
     (dict(sample_rate=1_536_000, frames_per_buffer=24576), "tail_sub == 0"),
 ], ids=["change0-scan", "change1-mono", "change2-mono", "change3-FMM",
         "change4-FMN", "change5-tail_sub == 0"])
 def test_unported_wfm_configs_named(change, what):
+    if what is None:
+        # the staged front's mono receiver against JAX's per-block path:
+        # one dispatch of 3 blocks (torch_parity.check_run's bounds), the
+        # RDS soft symbols 1e-3 of their scale and the timing equal
+        import torch_parity as tp
+        from test_torch_receiver_staged import imbalance
+        from test_torch_wfm_mono import fm_plane
+        change = dict(change)
+        mode = change.pop("mode", DemodMode.FMS)
+        n = change.pop("frames_per_buffer")
+        rx = Receiver(ReceiverConfig(**{**kw(2), **change, "mode": mode,
+                                        "frames_per_buffer": n}), "cpu")
+        assert rx.staged and not rx.wfm_cfg.stereo
+        res = tp.check_run(
+            mode, lambda k, s: imbalance(fm_plane(k, s, n=n, rds=True)),
+            ks=(3,), kw=dict(tp.KW, frames_per_buffer=n), **change)
+        jo, to, _, _ = res[3]
+        soft_j, soft_t = np.asarray(jo["rds_soft"]), to["rds_soft"].numpy()
+        scale = float(np.abs(soft_j).max())
+        assert scale > 1e-3
+        assert np.abs(soft_j - soft_t).max() < 1e-3 * scale
+        assert np.array_equal(np.asarray(jo["rds_timing"]),
+                              to["rds_timing"].numpy())
+        return
     with pytest.raises(ValueError, match=what):
         Receiver(ReceiverConfig(**{**kw(2), **change}), "cpu")
 

@@ -169,14 +169,17 @@ def test_receiver_carried_state(runs, run):
 
 
 def test_refusals_name_what_is_not_ported():
-    """SAM's scan, its loop and its short blocks, and FMN's "pll" run now
-    (tests/test_torch_sam_scan.py, tests/test_torch_nfm_pll.py): what is
-    still refused is an unknown carrier algorithm, smoother or sideband
-    split, the decimating complex FIR, and adaptive IQ balance."""
-    with pytest.raises(ValueError, match="auto"):
-        Receiver(ReceiverConfig(**{**tp.KW, "frames_per_buffer": 2048},
-                                mode=DemodMode.SAM,
-                                enable_iq_balance="auto"), "cpu")
+    """SAM's scan, its loop and its short blocks, FMN's "pll" and adaptive
+    IQ balance run now (tests/test_torch_sam_scan.py,
+    tests/test_torch_nfm_pll.py, tests/test_torch_receiver_staged.py; SAM
+    at 2048 frames with "auto" takes the staged front and is held to JAX
+    in tests/test_torch_receiver.py case kw0): what is still refused is an
+    unknown carrier algorithm, smoother or sideband split, and the
+    decimating complex FIR."""
+    rx = Receiver(ReceiverConfig(**{**tp.KW, "frames_per_buffer": 2048},
+                                 mode=DemodMode.SAM,
+                                 enable_iq_balance="auto"), "cpu")
+    assert rx.staged and rx.blk == 64
     with pytest.raises(ValueError, match="smoother"):
         sam.SAMConfig.make(RATE, smooth="chunked")
     with pytest.raises(ValueError, match="carrier algorithm"):

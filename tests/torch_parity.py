@@ -172,3 +172,27 @@ def tone_fit(x: np.ndarray, f: float, fs: float):
                   np.ones_like(t)], axis=1)
     coef, *_ = np.linalg.lstsq(m, x, rcond=None)
     return float(np.hypot(coef[0], coef[1])), x - m @ coef
+
+
+def check_run(mode: DemodMode, plane, ks=(3,), kw=None, **cfg) -> dict:
+    """run() and every bound of tests/test_chain_batched.py:58-69 on each
+    dispatch: audio 2e-4 (SAM 2e-3 of its scale; FMN's step() audio, the
+    front FIR's fill from a zero state, not compared), spectra and S-meter
+    0.1 dB, squelch equal, every state leaf 1e-4 (SAM's aim phase on the
+    circle).  Returns run()'s results."""
+    res = run(mode, plane, ks, kw=kw, jit=True, **cfg)
+    sam = mode == DemodMode.SAM
+    angles = ()
+    if sam:
+        trx = Receiver(ReceiverConfig(mode=mode, **(KW if kw is None else kw),
+                                      **cfg), "cpu")
+        angles = (leaf_index(trx.init_state(), "demod", "aim"),)
+    for key in ("step", *ks):
+        jo, to, js, ts = res[key]
+        if not (mode == DemodMode.FMN and key == "step"):
+            check_audio(jo, to, **(dict(tol=2e-3, rel=True) if sam else {}))
+        check_spectra(jo, to)
+        check_smeter_and_squelch(jo, to)
+        if js is not None:
+            check_state(js, ts, angles)
+    return res
