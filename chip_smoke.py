@@ -180,7 +180,24 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      128-channel filterbank, 16 kHz channel tails, spectra every
      dispatch), each timed alone, with launch counts, its peak memory and
      a profile; then the halfband cascade of am_iqauto_64ch
-     (decimator.apply), timed, and its share of device busy.
+     (decimator.apply), timed, and its share of device busy;
+ 35. the stereo tail without K2 on the card against the CPU (K2 never
+     launched; pilot locked and separation >= 30 dB on an L-only program
+     in each): FMS at 2.88 Msps (4 channels, a dispatch of 3 blocks of
+     32768 frames: audio_decim 5, tail_sub == 0, K1's base form), FMS on
+     the staged front (enable_iq_balance="auto", K5), and a module-level
+     WFMConfig(pilot_alg="pll") with the pilot notch (the bandpass biquad,
+     K3c once per call); then the timed cell wfm_2m88_64ch (FMS, 64
+     channels, 2.88 Msps, 32 blocks of 32768 frames, bench.py's wfm
+     program at 250 kHz made as one continuous dispatch) with its launch
+     counts, tone SNR, peak memory and profile;
+ 36. the port's command-line receiver (serve/cli.py) on the card, in
+     process, each run under torch.profiler: synthetic USB and an AM --wav
+     (the written WAV's tone SNR >= 40 dB), a 2.048 Msps FMS --wav with
+     --rds ("PEBBLES " decoded; wfm_tail_march in the trace), a 2.88 Msps
+     FMS --wav (no wfm_tail_march; separation from the WAV >= 30 dB) and
+     --stations through the bank (its staged front: no K1); front_fir in
+     the traces of the first four; each run's realtime factor printed.
 Each phase's seconds and the running total are printed after it.
 Each receiver phase sets every kernel's launch count to 0 just before it
 drives the receiver and reads the counts just after (front_means and
@@ -284,12 +301,13 @@ def rds_biphase(t: np.ndarray) -> np.ndarray:
 
 
 def wfm_plane(channels: int, n_rows: int, rng, noise: float = 0.0,
-              program: str = "mono", t0: float = 0.0):
+              program: str = "mono", t0: float = 0.0, fs: int = FS):
     """[n_rows, 2C] float32 packed plane: broadcast FM at 250 kHz on every
-    channel.  "mono": bench.py's wfm signal (1 kHz on L and R, pilot);
-    "left": the L-only 700 Hz program of bench.py's quality row; "rds":
-    1 kHz mono, pilot and the RDS PS groups on 57 kHz.  t0: start time."""
-    t = t0 + np.arange(n_rows) / FS
+    channel of an fs capture.  "mono": bench.py's wfm signal (1 kHz on L
+    and R, pilot); "left": the L-only 700 Hz program of bench.py's quality
+    row; "rds": 1 kHz mono, pilot and the RDS PS groups on 57 kHz.  t0:
+    start time."""
+    t = t0 + np.arange(n_rows) / fs
     th = 2 * np.pi * 19000.0 * t
     if program == "mono":
         comp = 0.45 * np.sin(2 * np.pi * 1000.0 * t) + 0.1 * np.sin(th)
@@ -299,7 +317,7 @@ def wfm_plane(channels: int, n_rows: int, rng, noise: float = 0.0,
     else:
         lt = np.sin(2 * np.pi * 700.0 * t)
         comp = 0.45 * lt + 0.1 * np.sin(th) + 0.45 * lt * np.sin(2 * th)
-    ph = 2 * np.pi * np.cumsum(75000.0 * comp) / FS
+    ph = 2 * np.pi * np.cumsum(75000.0 * comp) / fs
     iq = 0.5 * np.exp(1j * (2 * np.pi * 250_000.0 * t + ph))
     plane = np.concatenate([np.repeat(iq.real[:, None], channels, 1),
                             np.repeat(iq.imag[:, None], channels, 1)], axis=1)
@@ -486,7 +504,9 @@ def runs_loop(rx) -> bool:
 def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
                 entry: str | None = None, rx_opts: dict | None = None,
                 tag: str | None = None, frames: int | None = None,
-                warm: int = 1, imbalance: bool = False) -> int:
+                warm: int = 1, imbalance: bool = False, fs: int = FS,
+                blocks: tuple | None = None,
+                separation: bool = False) -> int:
     """Phases 3 (AM), 8 (FMS), 13 (AM with an entry option: "nb1_iq",
     "i16" or "folded"), 17 (FMS at the hq geometry), 18 (FMS with RDS), 26
     (the narrowband modes), 28 (FMN with CTCSS, mono WFM, the ANF and AGC
@@ -507,7 +527,11 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
     K5 once per dispatch with enable_iq_balance="auto"), on planes with
     the IQ imbalance of tests/test_chain.py:204-236 (imbalance=True); the
     entry "staged_nb1" adds the impulses and asserts the staged blanker's
-    threshold margin."""
+    threshold margin.  Phase 35 (the stereo tail without K2: K2 never
+    launched): fs the capture's rate, blocks the compared dispatches'
+    blocks, separation: the pilot locked on every block of the last
+    dispatch and the card's stereo separation of the L-only program there
+    (channel 0) >= SEPARATION_DB."""
     from pebblesdr_tpu_torch.ops import goertzel, scanops
     rx_opts = rx_opts or {}
     fm = mode.name in ("FMS", "FMM")
@@ -522,11 +546,12 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
         c, n = RDS_SLICE["channels"], RDS_SLICE["frames"]
         dispatches = (RDS_SLICE["blocks"],)
     n = frames or n
+    dispatches = blocks or dispatches
     if entry == "folded":
         c = 2
     opts = (dict(enable_noise_blanker=True, enable_iq_balance=True)
             if entry == "nb1_iq" else {})
-    cfg = receiver.ReceiverConfig(sample_rate=FS, frames_per_buffer=n,
+    cfg = receiver.ReceiverConfig(sample_rate=fs, frames_per_buffer=n,
                                   channels=c, mode=mode, agc_stride=16,
                                   **opts, **rx_opts)
     rx_cpu = receiver.Receiver(cfg, "cpu")
@@ -546,7 +571,7 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
 
     def plane(rows):
         if fm:
-            x = wfm_plane(c, rows, rng, 1e-2, t0=t0[0], program=(
+            x = wfm_plane(c, rows, rng, 1e-2, t0=t0[0], fs=fs, program=(
                 "rds" if use_rds else "left" if stereo else "mono"))
         elif mode.name == "FMN":
             x = nfm_plane(c, rows, rng, 1e-2, t0=t0[0],
@@ -554,7 +579,7 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
                                  CTCSS_NEIGHBOUR))
         else:
             x = am_plane(c, rows, rng, 1e-2)
-        t0[0] += rows / FS
+        t0[0] += rows / fs
         if imbalance:
             x = imbalanced(x)
         return impulsive(x, n) if entry in ("nb1_iq", "staged_nb1") else x
@@ -612,7 +637,8 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
                     scanops.auto_iq_balance.launches)
         k1_launches += launches[0]
         fused = 0 if rx_gpu.staged else 1
-        if launches != (fused, 1 if stereo else 0, fused, 1 if loop else 0,
+        k2 = int(rx_gpu.wfm_tail is not None)
+        if launches != (fused, k2, fused, 1 if loop else 0,
                         int(cfg.enable_iq_balance == "auto")):
             raise RuntimeError(f"{tag}: launches (K1, K2, front_means, "
                                f"pll_scan, iq_lms_scan) = {launches}")
@@ -658,6 +684,9 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
         if not (d_audio <= audio_tol and max(d_db.values()) <= 0.1
                 and all(same.values()) and d_state <= 1e-4):
             raise RuntimeError(f"{tag}: card disagrees with the CPU at K={k}")
+    if separation:
+        check_separation(out_g["audio"][:, 0], out_g["pilot_locked"][:, 0],
+                         cfg.audio_rate, tag)
     log(f"{tag.split()[0]} ok: card slice == CPU slice"
         + (f" ({entry})" if entry else ""))
     return k1_launches
@@ -711,7 +740,8 @@ def assert_margin(fl, nb, tag: str) -> None:
 def make_cell(torch, receiver, front, mode, name: str, channels: int,
               blocks: int, entry: str = "f32", opts: dict | None = None,
               tone: tuple | None = None, plane=None,
-              checks: dict | None = None, frames: int | None = None):
+              checks: dict | None = None, frames: int | None = None,
+              fs: int = FS):
     """One timed cell: a receiver on the card and its dispatch plane (one
     bench signal block repeated, as float32, int16 or folded by 4).  tone =
     (offset Hz, amplitude, audio Hz, audio amplitude): the block is that
@@ -721,12 +751,13 @@ def make_cell(torch, receiver, front, mode, name: str, channels: int,
     whose period is not a block).  checks: "snr_band" (lo, hi) Hz of the
     tone SNR's residual, "snr" False to print the SNR unchecked, "ctcss"
     True to require ctcss_open on every channel, "anf" True to require
-    the ANF's max |w| > 1e-3.  frames: the block length (default the
-    headline's)."""
+    the ANF's max |w| > 1e-3, "skip_blocks" the leading blocks of the last
+    dispatch left out of the tone SNR.  frames: the block length (default the
+    headline's); fs: the capture's rate."""
     n = frames or HEADLINE["frames"]
     opts = opts or {}
     wfm = mode.name == "FMS" and opts.get("stereo", True)   # stereo
-    cfg = receiver.ReceiverConfig(sample_rate=FS, frames_per_buffer=n,
+    cfg = receiver.ReceiverConfig(sample_rate=fs, frames_per_buffer=n,
                                   channels=channels, mode=mode,
                                   agc_stride=HEADLINE["agc_stride"], **opts)
     rx = receiver.Receiver(cfg, "cuda")
@@ -735,7 +766,8 @@ def make_cell(torch, receiver, front, mode, name: str, channels: int,
         iq = torch.from_numpy(plane(channels, blocks * n)).cuda()
     else:
         block = (tone_plane(channels, n, *tone[:2]) if tone else
-                 (wfm_plane if fm else am_plane)(channels, n, None))
+                 wfm_plane(channels, n, None, fs=fs) if fm else
+                 am_plane(channels, n, None))
         if entry == "i16":
             block = to_i16(block)
         if entry == "fold4":       # bench.py:130-146: G blocks side by side
@@ -748,7 +780,7 @@ def make_cell(torch, receiver, front, mode, name: str, channels: int,
             "params": rx.default_params(250_000.0), "iq": iq,
             "blocks": blocks, "channels": channels, "state": rx.init_state(),
             "out": None, "i": 0, "launches": [0, 0, 0, 0, 0, 0, 0],
-            "windows": [], "checks": checks or {}, "frames": n}
+            "windows": [], "checks": checks or {}, "frames": n, "fs": fs}
 
 
 def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
@@ -796,9 +828,9 @@ def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
         loop = runs_loop(cell["rx"])
         fused = 0 if cell["rx"].staged else n_dispatch
         auto = cell["cfg"].enable_iq_balance == "auto"
-        if launches != (fused, n_dispatch if wfm else 0, fused,
-                        scans * fused,
-                        n_dispatch if wfm and cell["cfg"].wfm_hq else 0,
+        k2 = n_dispatch if getattr(cell["rx"], "wfm_tail", None) else 0
+        if launches != (fused, k2, fused, scans * fused,
+                        k2 if cell["cfg"].wfm_hq else 0,
                         n_dispatch if loop else 0,
                         n_dispatch if auto else 0):
             raise RuntimeError(f"{tag} {cell['name']}: launches (K1, K2, "
@@ -808,7 +840,8 @@ def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
         windows = cell["windows"]
         best = min(windows)                               # ms per dispatch
         cell.update(block_ms=best / k, msps=c * n * k / (best / 1e3) / 1e6,
-                    realtime=n * k / (best / 1e3) / FS, peak_gib=peak)
+                    realtime=n * k / (best / 1e3) / cell.get("fs", FS),
+                    peak_gib=peak)
         log(f"{tag} {cell['name']} {c}ch x {n} x {k}: dispatch ms per "
             f"window " + " ".join(f"{w:.4f}" for w in windows)
             + f"; block {cell['block_ms']:.5f} ms, {cell['msps']:.1f} Msps "
@@ -823,8 +856,8 @@ def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
                                         if len(cells) > 1 else ""))
         out = cell["out"]
         audio = out["audio"]
-        # WFM: left and right, 64 kHz blocks of n/32 resampled to 48 kHz
-        shape = (k, c, 2, n * 3 // 128) if wfm else (k, c, cell["rx"].audio_blk)
+        # WFM: left and right
+        shape = ((k, c, 2) if wfm else (k, c)) + (cell["rx"].audio_blk,)
         if not bool(torch.isfinite(audio).all()):
             raise RuntimeError(f"{tag} {cell['name']}: audio is not finite")
         if tuple(audio.shape) != shape:
@@ -858,8 +891,17 @@ def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
                 raise RuntimeError(f"{tag} {cell['name']}: the ANF did not "
                                    f"adapt")
         tone = audio[:, 0, 0, :] if wfm else audio[:, 0, :]  # WFM: L channel
+        tone = tone[checks.get("skip_blocks", 0):]
         tone = tone.reshape(-1).double().cpu().numpy()
         f0, want = (cell["tone"][2:] if cell["tone"] else (1000.0, None))
+        wcfg = cell["rx"].wfm_cfg
+        if wcfg is not None:
+            # each block's audio spans blk // audio_decim tail samples of
+            # its blk (4095 of 4096 at 2.88 Msps: one composite sample
+            # dropped a block, as the JAX package's per-block path does):
+            # the tone plays that much faster
+            blk = cell["rx"].wfm_tail_blk
+            f0 *= blk / (wcfg.audio_decim * (blk // wcfg.audio_decim))
         band = checks.get("snr_band", (100.0, None))
         snr = tone_snr_db(tone, cell["cfg"].audio_rate, f0, band)
         amp = tone_amplitude(tone, cell["cfg"].audio_rate, f0)
@@ -2813,6 +2855,273 @@ def phase_staged_cells(torch, receiver, front, wfm_tail, decimator) -> dict:
     return done
 
 
+# ---- phases 35-36: the stereo tail without K2, the command-line receiver
+
+FS_288 = 2_880_000    # a common rtl-sdr rate: audio_decim 5, tail_sub == 0
+# the stereo slices held card vs CPU: (tag, phase_slice keywords); warm-up
+# blocks so the pilot has locked before the compared dispatches
+STEREO_SLICES = (
+    ("FMS 2.88 Msps", dict(fs=FS_288, frames=32768, blocks=(3,), warm=4)),
+    ("FMS staged auto", dict(rx_opts=dict(enable_iq_balance="auto"),
+                             imbalance=True, warm=16)),
+)
+PLL_PILOT = dict(rate=256_000.0, channels=4, n_block=4096, blocks=4,
+                 calls=3)
+STEREO_CELL = ("wfm_2m88_64ch", 64, 32)      # (name, channels, blocks)
+
+
+def check_separation(audio, locked, rate: float, tag: str) -> float:
+    """audio [K, 2, M] (L, R) of an L-only 700 Hz program, locked [K]: the
+    pilot locked on every block, and R's 700 Hz tone >= SEPARATION_DB below
+    L's over the whole span."""
+    aud = audio.permute(1, 0, 2).reshape(2, -1).double().cpu().numpy()
+    amp = [tone_amplitude(a, rate, 700.0) for a in aud]
+    sep = 20 * np.log10(amp[0] / max(amp[1], 1e-12))
+    ok = bool(locked.all())
+    log(f"{tag}: pilot locked on every block {ok}; stereo separation "
+        f"{sep:.2f} dB (>= {SEPARATION_DB}; L {amp[0]:.5f}, R {amp[1]:.3g})")
+    if not (ok and sep >= SEPARATION_DB):
+        raise RuntimeError(f"{tag}: pilot lock or stereo separation failed")
+    return sep
+
+
+def left_only_iq(c: int, n: int, rate: float, t0: float, rng) -> np.ndarray:
+    """[C, n] complex64: the L-only 700 Hz program (pilot, L-R on 38 kHz)
+    discriminated at rate, channel i at level 0.3 + 0.4 i / C and phase
+    pi/4 + i pi/2, complex noise at 1e-2."""
+    t = t0 + np.arange(n) / rate
+    lt = np.sin(2 * np.pi * 700.0 * t)
+    th = 2 * np.pi * 19000.0 * t
+    comp = 0.45 * lt / 2 + 0.1 * np.sin(th) + 0.45 * lt / 2 * np.sin(2 * th)
+    ph = 2 * np.pi * np.cumsum(75000.0 * comp) / rate
+    x = np.stack([(0.3 + 0.4 * i / c) * np.exp(1j * (ph + np.pi / 4
+                                                     + i * np.pi / 2))
+                  for i in range(c)])
+    x = x + 1e-2 * (rng.standard_normal(x.shape)
+                    + 1j * rng.standard_normal(x.shape))
+    return x.astype(np.complex64)
+
+
+def phase_pll_pilot(torch, convert, front, wfm_tail, wfm_mod, pll) -> dict:
+    """Phase 35, the "pll" pilot and its notch: demod/wfm.py wfm_demod on a
+    module-level WFMConfig(pilot_alg="pll", notch_needed=True) at 256 kHz,
+    on the card against the CPU over PLL_PILOT["calls"] streaming calls of
+    4 blocks of 4096 (the bandpass biquad, K3c pll_chunk_scan once per
+    call, the demux, the stacked low-pass, the notch, de-emphasis): audio
+    2e-4, lock equal, state 1e-4 (the loop phase on the circle; the
+    carried L-R samples within the stereo tail's 5e-4: the demux reads the
+    loop's absolute ramp), then lock and separation on the last call."""
+    r = PLL_PILOT
+    c, nb, k = r["channels"], r["n_block"], r["blocks"]
+    cfg = dataclasses.replace(
+        wfm_mod.WFMConfig.make(r["rate"], pilot_alg="pll"), notch_needed=True)
+    st_c = wfm_mod.wfm_init(cfg, c, "cpu")
+    st_g = wfm_mod.wfm_init(cfg, c, "cuda")
+    fields = [f.name for f in dataclasses.fields(st_c)]
+    lmr = sum(len(convert.leaves(getattr(st_c, nm)))
+              for nm in fields[:fields.index("lp_tail_lmr")])
+    rng = np.random.default_rng(35)
+    worst = {"audio": 0.0, "state": 0.0, "lmr": 0.0}
+    for call in range(r["calls"]):
+        x = torch.from_numpy(left_only_iq(c, k * nb, r["rate"],
+                                          call * k * nb / r["rate"], rng))
+        st_c, out_c = wfm_mod.wfm_demod(cfg, st_c, x, nb)
+        reset_launches(front, wfm_tail)
+        st_g, out_g = wfm_mod.wfm_demod(cfg, st_g, x.cuda(), nb)
+        torch.cuda.synchronize()
+        if pll.pll_chunk_scan.launches != 1:
+            raise RuntimeError(f"phase35 pll pilot: pll_chunk_scan launched "
+                               f"{pll.pll_chunk_scan.launches} times")
+        d_audio = max(float((out_g[key].cpu() - out_c[key]).abs().max())
+                      for key in ("left", "right"))
+        same = bool((out_g["pilot_locked"].cpu()
+                     == out_c["pilot_locked"]).all())
+        for i, (a, b) in enumerate(zip(convert.state_to_numpy(st_g),
+                                       convert.state_to_numpy(st_c))):
+            d = np.abs(a.astype(np.complex128) - b.astype(np.complex128))
+            d = np.minimum(d, np.abs(d - 2 * np.pi)).max(initial=0.0)
+            key = "lmr" if i == lmr else "state"
+            worst[key] = max(worst[key], float(d))
+        worst["audio"] = max(worst["audio"], d_audio)
+        log(f"phase35 pll pilot call {call}: audio {d_audio:.3g} (<= 2e-4), "
+            f"lock equal {same}, state {worst['state']:.3g} (<= 1e-4), L-R "
+            f"history {worst['lmr']:.3g} (<= 5e-4); pll_chunk_scan launches "
+            f"1")
+        if not (d_audio <= 2e-4 and same and worst["state"] <= 1e-4
+                and worst["lmr"] <= 5e-4):
+            raise RuntimeError("phase35 pll pilot: card disagrees with the "
+                               "CPU")
+    lr = torch.stack([out_g["left"][0], out_g["right"][0]])      # [2, M]
+    check_separation(lr[None], out_g["pilot_locked"][0], cfg.audio_rate,
+                     "phase35 pll pilot")
+    return worst
+
+
+def phase_stereo_tail(torch, receiver, convert, front, wfm_tail, wfm_mod,
+                      pll, DemodMode) -> dict:
+    """Phase 35: the stereo tail without K2.  The receivers on the card
+    against the CPU (STEREO_SLICES: FMS at 2.88 Msps, 4 channels, 32768
+    frames, K = 3, behind K1's base form; FMS on the staged front with
+    enable_iq_balance="auto"), K2 never launched, pilot locked and
+    separation >= 30 dB; the "pll" pilot with its notch at module level
+    (phase_pll_pilot); then the cell wfm_2m88_64ch (FMS, 64 channels, 2.88
+    Msps, 32 blocks of 32768 frames, bench.py's wfm program at 250 kHz
+    made as one continuous dispatch) timed alone, with its launch counts,
+    tone SNR (past the dispatch seam), peak memory and a dispatch
+    profile."""
+    for tag, kw in STEREO_SLICES:
+        phase_slice(torch, receiver, convert, front, wfm_tail, DemodMode.FMS,
+                    tag=f"phase35 {tag} slice", separation=True, **kw)
+    pll_err = phase_pll_pilot(torch, convert, front, wfm_tail, wfm_mod, pll)
+    name, c, k = STEREO_CELL
+    # bench.py's wfm program (1 kHz mono, the pilot, 250 kHz) made as one
+    # continuous dispatch: at 2.88 Msps a repeated 32768-frame block would
+    # jump the pilot's and the tone's phase at every block seam; the seam
+    # left at each dispatch's start is kept out of the tone SNR
+    cell = make_cell(torch, receiver, front, DemodMode.FMS, name, c, k,
+                     fs=FS_288, checks=dict(skip_blocks=4),
+                     plane=lambda ch, rows: wfm_plane(ch, rows, None,
+                                                      fs=FS_288))
+    rx = cell["rx"]
+    log(f"phase35 {name}: demod rate {rx.demod_rate}, tail block "
+        f"{rx.wfm_tail_blk}, audio_decim {rx.wfm_cfg.audio_decim}, tail_sub "
+        f"{rx.wfm_cfg.tail_sub}, {rx.audio_blk} audio samples per block")
+    if rx.wfm_tail is not None:
+        raise RuntimeError(f"phase35 {name}: expected the tail without K2")
+    time_cells(torch, front, wfm_tail, [cell], "phase35")
+    prof = dispatch_profile(torch, cell, "phase35")
+    done = {key: cell[key] for key in ("launches", "block_ms", "msps",
+                                       "realtime", "peak_gib", "snr_db")}
+    done.update(prof, pll=pll_err)
+    del cell
+    torch.cuda.empty_cache()
+    return done
+
+
+CLI_DIR = "build/chip_smoke_cli"
+
+
+def kernel_names(prof) -> set:
+    """The names of the CUDA kernels a torch.profiler run saw."""
+    from torch.autograd import DeviceType
+    return {ev.name for ev in prof.events()
+            if getattr(ev, "device_type", None) == DeviceType.CUDA}
+
+
+def phase_cli(torch, wav) -> dict:
+    """Phase 36: the port's command-line receiver (serve/cli.py main) on
+    the card, in this process, with --device cuda, each run under a
+    torch.profiler trace: (1) --synthetic tone USB, the written WAV's
+    1 kHz tone SNR >= 40 dB; (2) --wav of an AM recording written with the
+    port's io/wav.py, --blocks-per-dispatch 8, its tone SNR too; (3) --wav
+    of a 2.048 Msps FMS recording with the "PEBBLES " RDS groups, --rds:
+    the PS decoded, K2 (wfm_tail_march) in the trace; (4) --wav of a 2.88
+    Msps FMS recording of the L-only program (the stereo tail without K2:
+    no wfm_tail_march), separation >= 30 dB from the WAV; (5) --stations
+    through the dense bank (its tail runs the staged front, so no K1:
+    device kernels in the trace, the rows' SNR).  front_fir must be in the
+    traces of (1)-(4).  Each run's realtime factor is printed."""
+    import io
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from pebblesdr_tpu_torch.serve import cli
+    os.makedirs(CLI_DIR, exist_ok=True)
+    path = functools.partial(os.path.join, CLI_DIR)
+    n, kb = HEADLINE["frames"], 8
+
+    def seconds(blocks: int, fs: int = FS) -> str:     # int() of it: blocks
+        return str((blocks + 0.5) * n / fs)
+
+    t = np.arange(n * kb * 5) / FS
+    am = 0.5 * (1 + 0.8 * np.cos(2 * np.pi * 1000.0 * t)) / 2 * np.exp(
+        2j * np.pi * 250_000.0 * t)
+    wav.write_iq_wav(path("am.wav"), am.astype(np.complex64), FS,
+                     demod_mode="AM")
+    rds = wfm_plane(1, 5 * kb * n, None, program="rds")
+    wav.write_iq_wav(path("fm_rds.wav"), (rds[:, 0] + 1j * rds[:, 1])
+                     .astype(np.complex64), FS, demod_mode="FMS")
+    left = wfm_plane(1, 2 * kb * n, None, program="left", fs=FS_288)
+    wav.write_iq_wav(path("fm288.wav"), (left[:, 0] + 1j * left[:, 1])
+                     .astype(np.complex64), FS_288, demod_mode="FMS")
+    runs = (
+        ("usb", ["--synthetic", "tone", "--mode", "USB", "--tune", "400000",
+                 "--seconds", "0.3", "--audio-out", path("usb.wav")]),
+        ("am wav", ["--wav", path("am.wav"), "--mode", "AM", "--tune",
+                    "250000", "--seconds", seconds(5 * kb),
+                    "--blocks-per-dispatch", "8", "--audio-out",
+                    path("am_out.wav")]),
+        ("fms rds", ["--wav", path("fm_rds.wav"), "--mode", "FM-Stereo",
+                     "--tune", "250000", "--seconds", seconds(5 * kb),
+                     "--rds", "--audio-out", path("fms_out.wav")]),
+        ("fms 2.88 Msps", ["--wav", path("fm288.wav"), "--mode",
+                           "FM-Stereo", "--tune", "250000", "--seconds",
+                           seconds(2 * kb, FS_288), "--audio-out",
+                           path("fm288_out.wav")]),
+        ("stations", ["--synthetic", "am", "--tune", "250000", "--stations",
+                      "250000,-300000", "--seconds", "0.3", "--audio-out",
+                      path("st.wav")]),
+    )
+    done = {}
+    for name, argv in runs:
+        buf = io.StringIO()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+                contextlib.redirect_stdout(buf):
+            rc = cli.main(argv + ["--json", "--device", "cuda"])
+            torch.cuda.synchronize()
+        m = json.loads(buf.getvalue().strip().splitlines()[-1])
+        names = kernel_names(prof)
+        fir = any("front_fir" in nm for nm in names)
+        k2 = any("wfm_tail_march" in nm for nm in names)
+        log(f"phase36 cli {name}: rc {rc}, {m['blocks']} blocks, realtime "
+            f"factor {m['realtime_factor']}, step ms {m['step_ms']}; "
+            f"{len(names)} distinct CUDA kernels in the trace, front_fir "
+            f"{fir}, wfm_tail_march {k2}")
+        ok = rc == 0 and len(names) > 0
+        if name == "stations":
+            ok = ok and not fir and len(m["rows"]) == 2
+            log(f"phase36 cli stations rows: "
+                + "; ".join(f"{r['station']} channel {r['channel']} SNR "
+                            f"{r['snr_db']} dB" for r in m["rows"]))
+        else:
+            ok = ok and fir and k2 == (name == "fms rds")
+        if name in ("usb", "am wav"):
+            a = read_audio_wav(argv[argv.index("--audio-out") + 1])[:, 0]
+            # past the AGC's and the DC blockers' settling
+            snr = tone_snr_db(a[len(a) * 3 // 5:], m["audio_rate"])
+            log(f"phase36 cli {name}: written WAV's 1 kHz tone SNR {snr:.2f} "
+                f"dB (>= {TONE_SNR_DB})")
+            ok = ok and snr >= TONE_SNR_DB
+        if name == "fms rds":
+            log(f"phase36 cli fms rds: {m['rds']}")
+            ok = ok and m["rds"]["ps"] == "PEBBLES "
+        if name == "fms 2.88 Msps":
+            a = read_audio_wav(argv[argv.index("--audio-out") + 1])
+            half = a[a.shape[0] // 2:]
+            amp = [tone_amplitude(half[:, i], m["audio_rate"], 700.0)
+                   for i in range(2)]
+            sep = 20 * np.log10(amp[0] / max(amp[1], 1e-12))
+            log(f"phase36 cli fms 2.88 Msps: separation from the WAV "
+                f"{sep:.2f} dB (>= {SEPARATION_DB})")
+            ok = ok and sep >= SEPARATION_DB
+        if not ok:
+            raise RuntimeError(f"phase36 cli {name} failed")
+        done[name] = m["realtime_factor"]
+    return done
+
+
+def read_audio_wav(path: str) -> np.ndarray:
+    """An int16 audio WAV's samples scaled by 1/32767, [n, channels]."""
+    import struct
+    buf = open(path, "rb").read()
+    ch = struct.unpack_from("<H", buf, buf.index(b"fmt ") + 10)[0]
+    i = buf.index(b"data")
+    size = struct.unpack_from("<I", buf, i + 4)[0]
+    pcm = np.frombuffer(buf[i + 8:i + 8 + size], "<i2").astype(np.float64)
+    return pcm.reshape(-1, ch) / 32767.0
+
+
 def conv_ieee(torch) -> None:
     """Phase 0: fir_apply's conv1d with cuDNN's TF32 allowed is held to a
     float64 convolution within 1e-5 of scale (TF32's 10-bit mantissa would
@@ -2963,6 +3272,12 @@ def main() -> int:
     clock("phase 33")
     scells = phase_staged_cells(torch, receiver, front, wfm_tail, decimator)
     clock("phase 34")
+    phase_stereo_tail(torch, receiver, convert, front, wfm_tail, wfm_mod,
+                      pll, DemodMode)
+    clock("phase 35")
+    from pebblesdr_tpu_torch.io import wav
+    phase_cli(torch, wav)
+    clock("phase 36")
 
     c, n, k = HEADLINE["channels"], HEADLINE["frames"], HEADLINE["blocks"]
     t = n * k

@@ -32,6 +32,7 @@ from pebblesdr_tpu_torch.chain.receiver import (Receiver, ReceiverConfig,
                                                 _first_block)
 from pebblesdr_tpu_torch.demod.modes import DemodMode
 from pebblesdr_tpu_torch.ops import pfb
+from pebblesdr_tpu_torch.utils.precision import ieee_float32
 
 
 def pick_bank_size(sample_rate: float, lo: float = 16000.0,
@@ -137,10 +138,12 @@ class PfbBankReceiver:
             return torch.complex(iq[:, 0].float(), iq[:, 1].float())[None]
         return iq.reshape(1, -1).to(torch.complex64)
 
+    @ieee_float32()
     def step_many(self, state, iq: torch.Tensor, params=None,
                   spectra: bool = True):
-        """K concatenated blocks in one dispatch; params defaults to the
-        bank's residual tuning."""
+        """K concatenated blocks in one dispatch, its products in IEEE
+        float32 (utils/precision.py); params defaults to the bank's
+        residual tuning."""
         params = self.params if params is None else params
         pfb_state, rx_state = state
         x = self._to_complex(iq)

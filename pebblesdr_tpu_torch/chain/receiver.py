@@ -29,11 +29,18 @@ FMM and FMS with stereo=False mono) branches:
      multiple of 128 samples its per-sample loop; FMN's conj or derivative
      discriminator, demod/nfm.py; USB/CWU/DIGU I+Q, LSB/CWL/DIGL I-Q, DSB
      2I, demod/ssb.py; NONE the real part) -> resampler
-     WFM stereo: open pilot -> fused stereo tail (ops/wfm_tail.py) -> lock
-     gate -> L/R -> de-emphasis (demod/wfm.py) -> stereo resampler
+     WFM stereo behind the fused front where the block admits a tail
+     sub-block (tail_sub > 0): open pilot -> fused stereo tail
+     (ops/wfm_tail.py) -> lock gate -> L/R -> de-emphasis (demod/wfm.py
+     wfm_demod_tm) -> stereo resampler
+     WFM stereo otherwise (tail_sub == 0, e.g. 2.88 and 1.536 Msps, and on
+     the staged front), as the JAX package's XLA tail: discriminator ->
+     (hq: composite decimation by 2) -> open pilot -> demux -> stacked
+     low-pass -> lock gate -> L/R -> de-emphasis (demod/wfm.py wfm_demod)
+     -> stereo resampler
      WFM mono: pre-discriminator biquad -> discriminator -> (hq: composite
      decimation by 2) -> mono low-pass -> de-emphasis (demod/wfm.py) ->
-     resampler; with the RDS tap (either) also the RDS subchain
+     resampler; with the RDS tap (any) also the RDS subchain
      (demod/rds.py: the squaring loop, or the per-sample Costas loop of
      rds_alg="scan") -> soft symbols
   -> FMN's CTCSS tone squelch (ops/goertzel.py) on the resampled audio
@@ -53,10 +60,9 @@ the ANF update per block and per 16 samples (step_many's rds_per_call
 keeps the RDS timing at one update per call, as the JAX package's bank
 runs a trivial front).
 
-Not ported (the constructor raises ValueError naming it): the "pll" pilot
-and its notch, a stereo geometry without a fused-tail sub-block
-(tail_sub == 0), FMS stereo on the staged front (all three need the stereo
-tail without K2) and TestBench taps.
+Not ported (the constructor raises ValueError naming it): TestBench taps.
+Each entry point runs its products in IEEE float32 whatever the process
+has set, and restores the caller's settings (utils/precision.py).
 
 Entry planes are float32 or int16 (the ADC's native container, read as
 x * 2^-15), unfolded [K*N, 2C] or time-folded [K*N/G, 2GC] (the TPU feeders'
@@ -70,7 +76,8 @@ tail per stage, ``nb`` a NoiseBlankerChunkedState, ``iqbal`` the
 AutoIQBalanceState (w [C] complex64) with "auto";
 ``anf`` the complex64 ANFState with the ANF on; ``demod`` is AMState,
 SAMState, NFMState, or None for the stateless modes (SSB, CW, DIG, DSB,
-NONE); for WFM the demod state is WFMState (stereo: the fused-tail layout)
+NONE); for WFM the demod state is WFMState (stereo with tail_sub > 0: the
+fused-tail layout)
 and the FastFIR, ANF and AGC states ride along untouched, as in the JAX
 package; ``ctcss`` the CtcssState with a CTCSS tone.  The Receiver is built
 for one device and runs its whole graph there; on a CUDA device the front
@@ -97,6 +104,7 @@ from pebblesdr_tpu_torch.demod.modes import MODE_INFO, DemodMode, is_wfm
 from pebblesdr_tpu_torch.ops import (agc, decimator, fastfir, front, goertzel,
                                      iir, mixer, resampler, scanops,
                                      signalstrength, spectrum)
+from pebblesdr_tpu_torch.utils.precision import ieee_float32
 
 
 # the modes the port's Receiver runs: every mode of the table
@@ -235,17 +243,12 @@ class Receiver:
                 tail_rate, stereo=cfg.mode == DemodMode.FMS and cfg.stereo,
                 rds_tap=cfg.rds, audio_decim=max(1, tail_rate // 64000),
                 comp_decim=self.wfm_comp_decim)
+            # the fused tail (K2) behind the fused front where the block
+            # admits a sub-block; the stereo tail without K2 otherwise
             self.wfm_cfg = dataclasses.replace(
-                wcfg, tail_sub=wfm_mod.tail_kernel_sub(wcfg,
-                                                       self.wfm_tail_blk))
-            if self.staged and self.wfm_cfg.stereo:
-                raise ValueError(
-                    "FMS stereo on the staged front (enable_iq_balance="
-                    "'auto', enable_dc_removal=False or an empty decimation "
-                    "plan) needs the stereo tail without K2, which is not "
-                    "ported yet")
-            wfm_mod.check_ported(self.wfm_cfg)
-            if self.wfm_cfg.stereo:
+                wcfg, tail_sub=0 if self.staged else
+                wfm_mod.tail_kernel_sub(wcfg, self.wfm_tail_blk))
+            if self.wfm_cfg.tail_sub:
                 self.wfm_tail = wfm_mod.tail_plan(
                     self.wfm_cfg, self.wfm_tail_blk, self.device)
                 # stereo discriminates in the front end, at its rate (mono
@@ -428,6 +431,7 @@ class Receiver:
 
     # ------------------------------------------------------------------- step
 
+    @ieee_float32()
     def step(self, state: ReceiverState, params: RxParams, iq: torch.Tensor,
              spectra: bool = True):
         """One block: iq [N, 2C] float32 or int16 lane-packed plane, [2, N, C]
@@ -447,6 +451,7 @@ class Receiver:
         state, out = self.step_many(state, params, iq, spectra=spectra)
         return state, _first_block(out)
 
+    @ieee_float32()
     def step_many(self, state: ReceiverState, params: RxParams, iq,
                   spectra: bool = True, rds_per_call: bool = False):
         """K blocks in one dispatch: iq [K*N, 2C] float32 or int16
@@ -619,7 +624,7 @@ class Receiver:
         else:
             x_cat = torch.complex(y_pk[:, :c].T, y_pk[:, c:].T)  # [C, K*blk]
             xz = x_cat.reshape(c, k, self.blk)[:, :, self.blk - self.zoom_bins:]
-            demod = (functools.partial(self._demod_mono, x_cat=x_cat,
+            demod = (functools.partial(self._demod_cm, x_cat=x_cat,
                                        rds_per_block=False)
                      if self.wfm_cfg is not None else
                      functools.partial(self._demod_narrow, x_cat=x_cat))
@@ -666,7 +671,7 @@ class Receiver:
                                         params.tune_lo, n)
         decim, x = decimator.apply(self.plan, state.decim, x)   # [C, K*blk]
         xz = x.reshape(c, k, self.blk)[:, :, self.blk - self.zoom_bins:]
-        demod = (functools.partial(self._demod_mono, x_cat=x,
+        demod = (functools.partial(self._demod_cm, x_cat=x,
                                    rds_per_block=rds_per_block)
                  if self.wfm_cfg is not None else
                  functools.partial(self._demod_narrow, x_cat=x))
@@ -801,10 +806,11 @@ class Receiver:
         return (dict(fastfir=ff_state, anf=anf_state, agc=agc_state,
                      demod=demod_state, resamp=resamp_state), audio, {})
 
-    def _demod_mono(self, state: ReceiverState, params: RxParams, k: int,
-                    x_cat: torch.Tensor, rds_per_block: bool):
-        """WFM mono (demod/wfm.py wfm_demod) -> resampler on the front's
-        base-form output x_cat [C, K*blk], and the RDS subchain on the
+    def _demod_cm(self, state: ReceiverState, params: RxParams, k: int,
+                  x_cat: torch.Tensor, rds_per_block: bool):
+        """WFM on the channel-major demod-rate stream x_cat [C, K*blk]
+        (demod/wfm.py wfm_demod: mono, or stereo without K2) -> resampler
+        (stereo: L and R as 2C channels), and the RDS subchain on the
         tail-rate composite with the tap; FastFIR, ANF and AGC are skipped,
         as in the JAX package."""
         c = self.cfg.channels
@@ -815,11 +821,24 @@ class Receiver:
         if self.rds_cfg is not None:
             rds_state, extra["rds_soft"], extra["rds_timing"] = self._rds(
                 state.rds, wout["rds_baseband"], k, rds_per_block)
-        resamp_state, mono = resampler.apply_many(self.rs_plan, state.resamp,
-                                                  wout["left"])
-        audio = mono.reshape(c, k, mono.shape[-1] // k).transpose(0, 1)
+        if self.wfm_cfg.stereo:
+            resamp_state, audio = self._resample_lr(state, wout, k)
+        else:
+            resamp_state, mono = resampler.apply_many(
+                self.rs_plan, state.resamp, wout["left"])
+            audio = mono.reshape(c, k, mono.shape[-1] // k).transpose(0, 1)
         return (dict(demod=demod_state, resamp=resamp_state, rds=rds_state),
                 audio, extra)
+
+    def _resample_lr(self, state: ReceiverState, wout: dict, k: int):
+        """L and R through the resampler as 2C channels: (state', audio [K,
+        C, 2, audio_blk])."""
+        c = self.cfg.channels
+        resamp_state, lr = resampler.apply_many(
+            self.rs_plan, state.resamp,
+            torch.cat([wout["left"], wout["right"]]))
+        return (resamp_state,
+                lr.reshape(2, c, k, lr.shape[-1] // k).permute(2, 1, 0, 3))
 
     def _rds(self, rds_state, composite: torch.Tensor, k: int,
              per_block: bool):
@@ -855,10 +874,7 @@ class Receiver:
         if self.rds_cfg is not None:
             rds_state, extra["rds_soft"], extra["rds_timing"] = self._rds(
                 state.rds, wout["rds_baseband"], k, False)
-        resamp_state, lr = resampler.apply_many(
-            self.rs_plan, state.resamp,
-            torch.cat([wout["left"], wout["right"]]))
-        audio = lr.reshape(2, c, k, lr.shape[-1] // k).permute(2, 1, 0, 3)
+        resamp_state, audio = self._resample_lr(state, wout, k)
         return (dict(demod=demod_state, resamp=resamp_state, rds=rds_state),
                 audio, extra)
 

@@ -5,9 +5,10 @@ Port of pebblesdr_tpu/ops/fir.py.  The design functions are copied verbatim
 the JAX package's banded-matmul forms.  The halfband stage runs as
 fir_apply (a strided conv1d on the stacked [re; im] rows, the JAX
 package's _conv_real; ops/decimator.py), plain PyTorch.  cuDNN
-convolutions default to TF32, which the receive chain must not use:
-fir_apply turns it off for its own convolution and restores the caller's
-setting.
+convolutions default to TF32 and matmuls run at the process's precision,
+which the receive chain must not take: fir_apply and fir_apply_real_signal
+pin IEEE float32 for their own products and restore the caller's settings
+(utils/precision.py).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import scipy.signal
 import torch
 
 from pebblesdr_tpu_torch.core import windows as win
+from pebblesdr_tpu_torch.utils.precision import ieee_float32
 
 
 # ---------------------------------------------------------------- design (host)
@@ -213,23 +215,36 @@ def tm_fir_decimate(x_t: torch.Tensor, taps_np: np.ndarray,
             xx[xx.shape[0] - (t - 1):])
 
 
+@ieee_float32()
 def fir_apply_real_signal(x: torch.Tensor, tail: torch.Tensor,
-                          taps_np: np.ndarray, decim: int = 1):
+                          taps_np: np.ndarray, decim: int = 1,
+                          block: int = 0):
     """Streaming FIR on a real float32 signal x [C, N] with static taps.
 
     Short inputs: one matmul against the whole-block banded operator.  Long
     inputs (a multi-block dispatch): windows of `seg` samples plus the T-1
     sample history, one batched matmul against the per-segment operator;
     where no segment fits, each output's T input samples (a strided view)
-    against the reversed taps.  tail: [C, T-1] carried input history.
-    Returns (y [C, N//decim], tail')."""
+    against the reversed taps.  block > 0 with decim not dividing it: x is
+    N / block blocks, each decimated on its own grid from its first sample
+    (block // decim outputs each, as one call per block gives: the JAX
+    package's per-block path); one window of `block` samples per block.
+    tail: [C, T-1] carried input history.  Returns (y [C, M], tail'), M =
+    N // decim, or N / block * (block // decim) on per-block grids."""
     taps32 = np.ascontiguousarray(taps_np, np.float32)
     key = taps32.tobytes()
     t = len(taps32)
     c, n = x.shape
     xx = torch.cat([tail, x], dim=-1)
     seg = _banded_seg(n, t, decim)
-    if (n + t - 1) * (n // decim) <= _BANDED_MAX_ENTRIES:
+    if block and block % decim:
+        if n % block or block < t - 1:
+            raise ValueError(f"fir_apply_real_signal: {n} samples are not "
+                             f"whole blocks of {block} (>= T-1 = {t - 1})")
+        y = torch.matmul(_windows(xx, x, block, t, -1),
+                         _banded_dev(key, block, decim, x.device))
+        y = y.reshape(c, -1)
+    elif (n + t - 1) * (n // decim) <= _BANDED_MAX_ENTRIES:
         y = torch.matmul(xx, _banded_dev(key, n, decim, x.device))
     elif seg:
         y = torch.matmul(_windows(xx, x, seg, t, -1),
@@ -321,14 +336,9 @@ def fir_apply(x: torch.Tensor, taps, tail: torch.Tensor, decim: int = 1):
     t = h.shape[0]
     xx = torch.cat([tail, x], dim=-1)                          # [C, N+T-1]
     xr = torch.cat([xx.real, xx.imag], dim=0)
-    # cuDNN allows TF32 by default: off for this call, the caller's after
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    with ieee_float32():     # cuDNN allows TF32 by default
         yr = torch.nn.functional.conv1d(xr[:, None, :],
                                         h.flip(0)[None, None, :],
                                         stride=decim)[:, 0]
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
     tail = xx[:, xx.shape[-1] - (t - 1):] if t > 1 else xx[:, :0]
     return torch.complex(yr[:c], yr[c:]), tail

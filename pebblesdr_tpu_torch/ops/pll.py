@@ -22,9 +22,10 @@ bandpass); (2) the conj product of successive chunk phasors measures the
 frequency deviation, smoothed by an EWMA in closed form; (3) a cumsum
 integrates it into a phase; (4) the residual phasor, EWMA-smoothed, gives
 the remaining phase offset and the lock level.  The per-sample pilot phase
-is linear within each chunk: phase(fL + t) = p0[f] + wf[f] t.  Every matmul
-is IEEE float32 (the JAX package asks Precision.HIGHEST: bf16 EWMA matmuls
-bias the loops).  The squaring loop (CostasOpenConfig, costas_open_run) and
+is linear within each chunk: phase(fL + t) = p0[f] + wf[f] t
+(pilot_open_run builds it per sample for the stereo tail without K2).
+Every matmul is IEEE float32 (the JAX package asks Precision.HIGHEST: bf16
+EWMA matmuls bias the loops).  The squaring loop (CostasOpenConfig, costas_open_run) and
 SAM's two-stage aimed loop (pll_run_aimed, with the open stage-2 smoother
 or the chunked loop) are scan-free around their loops likewise.
 """
@@ -194,6 +195,18 @@ def _pilot_open_post(cfg, state, z, ell, n, alpha, rotf_c, rotf_s, ramp_d,
     p0 = state.base[:, None] + ramp_d[None, :] + psi + ang + (math.pi / 2.0)
     wf = wc + dw
     return new_state, (p0, wf, tin_d), level
+
+
+def pilot_open_run(cfg: PilotOpenConfig, state: PilotOpenState,
+                   raw: torch.Tensor, chunk: int | None = None):
+    """pilot_open_core with the per-sample phase built from the chunk
+    parameters: (state', phases [C, N], level [C, F])."""
+    c, n = raw.shape
+    new_state, (p0, wf, tin_d), level = pilot_open_core(cfg, state, raw,
+                                                        chunk)
+    phases = (p0[:, :, None] + wf[:, :, None] * tin_d[None, None, :]
+              ).reshape(c, n)
+    return new_state, phases, level
 
 
 # ------------------------------------------------------ the closed loop

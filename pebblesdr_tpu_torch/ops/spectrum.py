@@ -2,9 +2,10 @@
 
 The fftshifted DFT runs as real matmuls in the Karatsuba form (three
 products instead of four).  Every matmul here must run in IEEE float32: a
-reduced-precision product (TF32 on the card, one-pass bf16 on the TPU) lifts
-the S-meter noise floor by tens of dB, so callers keep
-``torch.backends.cuda.matmul.allow_tf32`` False.
+reduced-precision product (TF32 on the card, bf16 on the CPU under
+"medium", one-pass bf16 on the TPU) lifts the S-meter noise floor by tens
+of dB, so shifted_power pins IEEE float32 for its products whatever the
+process has set (utils/precision.py).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from pebblesdr_tpu_torch.core import db as dbu
 from pebblesdr_tpu_torch.core import windows as win
+from pebblesdr_tpu_torch.utils.precision import ieee_float32
 
 OVERLOAD_LEVEL = 1.0  # |sample| above full scale = ADC overload
 _DFT_MAX_MATMUL = 4096
@@ -44,6 +46,7 @@ def _dft_mats(n: int, device: torch.device):
     return fr_t, fi_t, fr_t + fi_t
 
 
+@ieee_float32()
 def shifted_power(xw: torch.Tensor) -> torch.Tensor:
     """|fftshift(fft(xw))|^2 for [..., N] complex64, via real matmuls."""
     n = xw.shape[-1]

@@ -1,0 +1,216 @@
+"""The port's command-line receiver (pebblesdr_tpu_torch/serve/cli.py, run
+with --device cpu) against the JAX package's (pebblesdr_tpu/serve/cli.py),
+in-process with the same arguments, at the sizes of tests/test_cli.py:
+synthetic USB, an AM --wav round trip, FM stereo with --wfm-hq, FM stereo
+at 2.88 Msps (the stereo tail without K2), the noise blanker and the
+dense bank (--stations).  The synthetic sources carry noise at -60 dB, so
+the S-meter reads a real noise floor rather than float rounding.
+
+The JAX CLI on the CPU runs its per-block path (staged front, one block
+per scan step); the port its batched graph behind the fused front, with
+the per-block decimation grid where the tail block is not a multiple of
+audio_decim (2.88 Msps).  Bounds: the audio WAVs sample by sample (int16 /
+32767) within 2e-4, FM stereo within the stereo tail's 5e-4 (tests/
+test_chain_pallas.py:190, the JAX suite's fused-vs-staged FMS bound); the
+JSON keys equal; blocks, input_samples, audio_rate and squelch_open equal;
+smeter_db and snr_db within 0.2 dB (the CLIs round them to 0.1 dB);
+audio_rms within 1e-3.  Every flag whose module is not ported exits with
+code 2 naming it.
+"""
+
+import json
+import struct
+
+import numpy as np
+import pytest
+
+from pebblesdr_tpu.serve import cli as jcli
+from pebblesdr_tpu_torch.io import wav
+from pebblesdr_tpu_torch.serve import cli
+
+TIMING = ("wall_s", "msps", "realtime_factor", "step_ms")
+
+
+def read_audio(path: str) -> np.ndarray:
+    """The int16 samples of an audio WAV scaled back by 1/32767, [n, ch]."""
+    buf = open(path, "rb").read()
+    ch = struct.unpack_from("<H", buf, buf.index(b"fmt ") + 10)[0]
+    i = buf.index(b"data")
+    n = struct.unpack_from("<I", buf, i + 4)[0]
+    pcm = np.frombuffer(buf[i + 8:i + 8 + n], "<i2").astype(np.float64)
+    return pcm.reshape(-1, ch) / 32767.0
+
+
+def fm_wav(path: str, fs: int, seconds: float) -> str:
+    """An FM stereo IQ recording at fs, the station at +250 kHz (L 1 kHz,
+    R 400 Hz, the 19 kHz pilot, 75 kHz deviation), noise at 1e-2."""
+    n = int(seconds * fs)
+    t = np.arange(n) / fs
+    lt, rt = np.sin(2 * np.pi * 1000.0 * t), np.sin(2 * np.pi * 400.0 * t)
+    th = 2 * np.pi * 19000.0 * t
+    comp = 0.45 * (lt + rt) / 2 + 0.1 * np.sin(th) \
+        + 0.45 * (lt - rt) / 2 * np.sin(2 * th)
+    ph = 2 * np.pi * np.cumsum(75000.0 * comp) / fs
+    rng = np.random.default_rng(7)
+    iq = 0.5 * np.exp(1j * (2 * np.pi * 250_000.0 * t + ph)) + 1e-2 * (
+        rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    wav.write_iq_wav(path, iq.astype(np.complex64), fs, demod_mode="FMS")
+    return path
+
+
+def am_wav(path: str) -> str:
+    """tests/test_cli.py's AM round trip: 1 kHz at 80 % on +250 kHz."""
+    fs = 2_048_000
+    t = np.arange(fs // 4) / fs
+    rng = np.random.default_rng(3)
+    iq = (0.5 * (1 + 0.8 * np.cos(2 * np.pi * 1000 * t))
+          * np.exp(2j * np.pi * 250_000 * t)
+          + 1e-3 * (rng.standard_normal(t.size)
+                    + 1j * rng.standard_normal(t.size)))
+    wav.write_iq_wav(path, iq.astype(np.complex64), fs, center_freq_hz=0.0,
+                     demod_mode="AM")
+    return path
+
+
+def run(main, argv, capsys) -> dict:
+    rc = main(argv)
+    assert rc in (0, None)
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def check_metrics(jm: dict, tm: dict) -> None:
+    assert set(jm) == set(tm)
+    for key in jm:
+        if key in TIMING:
+            continue
+        if key in ("smeter_db", "snr_db"):
+            assert abs(jm[key] - tm[key]) <= 0.2 + 1e-9, (key, jm[key],
+                                                          tm[key])
+        elif key == "audio_rms":
+            assert abs(jm[key] - tm[key]) < 1e-3, (jm[key], tm[key])
+        elif key != "rows":
+            assert jm[key] == tm[key], key
+
+
+CASES = {
+    "usb": (["--synthetic", "tone", "--mode", "USB", "--tune", "400000",
+             "--seconds", "0.3", "--noise-db", "-60"], 2e-4),
+    "am_wav": (["--wav", "{am}", "--mode", "AM", "--tune", "250000",
+                "--seconds", "0.2"], 2e-4),
+    "fms_hq": (["--wav", "{fm}", "--mode", "FM-Stereo", "--tune", "250000",
+                "--seconds", "0.15", "--wfm-hq"], 5e-4),
+    "fms_2m88": (["--wav", "{fm288}", "--sample-rate", "2880000", "--mode",
+                  "FM-Stereo", "--tune", "250000", "--seconds", "0.15"],
+                 5e-4),
+    "nb": (["--synthetic", "am", "--mode", "AM", "--tune", "250000",
+            "--seconds", "0.2", "--noise-blanker", "--noise-db", "-60"],
+           2e-4),
+}
+
+
+@pytest.fixture(scope="module")
+def recordings(tmp_path_factory):
+    d = tmp_path_factory.mktemp("iq")
+    return {"am": am_wav(str(d / "am.wav")),
+            "fm": fm_wav(str(d / "fm.wav"), 2_048_000, 0.15),
+            "fm288": fm_wav(str(d / "fm288.wav"), 2_880_000, 0.15)}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_cli_matches_jax(case, recordings, tmp_path, capsys):
+    argv, tol = CASES[case]
+    argv = [a.format(**recordings) for a in argv] + ["--json"]
+    jm = run(jcli.main, argv + ["--audio-out", str(tmp_path / "j.wav")],
+             capsys)
+    tm = run(cli.main, argv + ["--audio-out", str(tmp_path / "t.wav"),
+                               "--device", "cpu"], capsys)
+    check_metrics(jm, tm)
+    a, b = read_audio(str(tmp_path / "j.wav")), read_audio(str(tmp_path /
+                                                               "t.wav"))
+    assert a.shape == b.shape
+    assert a.shape[1] == (2 if case.startswith("fms") else 1)
+    assert np.abs(a - b).max() < tol, np.abs(a - b).max()
+    assert np.abs(b).max() > 0.05
+
+
+def test_cli_stations_match_jax(tmp_path, capsys):
+    argv = ["--synthetic", "am", "--tune", "250000", "--stations",
+            "250000,-300000", "--seconds", "0.2", "--noise-db", "-60",
+            "--json"]
+    jm = run(jcli.main, argv + ["--audio-out", str(tmp_path / "j.wav")],
+             capsys)
+    tm = run(cli.main, argv + ["--audio-out", str(tmp_path / "t.wav"),
+                               "--device", "cpu"], capsys)
+    check_metrics(jm, tm)
+    assert len(jm["rows"]) == len(tm["rows"]) == 2
+    for jr, tr in zip(jm["rows"], tm["rows"]):
+        check_metrics(jr, tr)
+    for i in range(2):
+        a = read_audio(str(tmp_path / f"j.st{i}.wav"))
+        b = read_audio(str(tmp_path / f"t.st{i}.wav"))
+        assert a.shape == b.shape and np.abs(a - b).max() < 2e-4
+
+
+def test_cli_gain_scales_the_audio(capsys):
+    """--gain sets the Receiver's audio gain (the JAX CLI hands it only to
+    its control surface and --assign)."""
+    argv = ["--synthetic", "tone", "--mode", "USB", "--tune", "400000",
+            "--seconds", "0.05", "--frames", "8192", "--device", "cpu",
+            "--json"]
+    one = run(cli.main, argv, capsys)
+    half = run(cli.main, argv + ["--gain", "0.5"], capsys)
+    assert half["audio_rms"] == pytest.approx(one["audio_rms"] / 2, abs=2e-4)
+
+
+def test_cli_records_iq(tmp_path, capsys):
+    """--iq-record writes the blocks read, with the tune and mode."""
+    rec = str(tmp_path / "rec.wav")
+    run(cli.main, ["--synthetic", "tone", "--mode", "USB", "--tune",
+                   "100000", "--seconds", "0.02", "--frames", "8192",
+                   "--device", "cpu", "--json", "--iq-record", rec], capsys)
+    iq, info = wav.read_iq_wav(rec)
+    assert iq.shape == (5 * 8192,)              # 0.02 s: 5 blocks
+    assert (info.center_freq_hz, info.demod_mode) == (100000.0, "USB")
+
+
+@pytest.mark.parametrize("extra,module", [
+    (["--decode", "cw"], "modem"),
+    (["--decode", "wwv"], "modem"),
+    (["--display", "waterfall"], "serve/display.py"),
+    (["--display-zoomed"], "serve/display.py"),
+    (["--keys", "help"], "serve/control.py"),
+    (["--presets", "db"], "serve/control.py"),
+    (["--bandscope"], "io/hpsdr.py"),
+    (["--checkpoint", "x.npz"], "utils/checkpoint.py"),
+    (["--checkpoint-every", "4"], "utils/recovery.py"),
+    (["--resume", "x.npz"], "utils/checkpoint.py"),
+    (["--assign", "AM@250000"], "parallel/expert.py"),
+    (["--source", "rtl_tcp"], "io/rtl_tcp.py"),
+    (["--source", "sdr_ip"], "io/sdr_ip.py"),
+    (["--source", "hpsdr"], "io/hpsdr.py"),
+    (["--source", "audio"], "io/audio_iq.py"),
+    (["--audio-out", "device:default"], "io/audio_out.py"),
+    (["--audio-out", "pipe:aplay"], "io/audio_out.py")])
+def test_deferred_flags_exit_2_naming_the_module(extra, module, capsys):
+    src = [] if extra[0] == "--source" else ["--synthetic", "tone"]
+    with pytest.raises(SystemExit) as exc:
+        cli.main(src + ["--seconds", "0.01"] + extra)
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert module in err and "not ported" in err
+
+
+def test_cuda_without_a_card_is_an_error(capsys, monkeypatch):
+    """No fallback: --device cuda (the default) with no CUDA device exits 2
+    and says so."""
+    monkeypatch.setattr(cli.torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["--synthetic", "tone", "--seconds", "0.01"])
+    assert exc.value.code == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_ctcss_requires_fmn():
+    with pytest.raises(ValueError):
+        cli.main(["--synthetic", "am", "--mode", "AM", "--tune", "250000",
+                  "--seconds", "0.1", "--ctcss", "123.0", "--device", "cpu"])

@@ -16,7 +16,9 @@ AGC) on the card against the CPU; K5 (iq_lms_scan, the adaptive IQ
 balance) against its plain version, and the receivers on the staged front
 ("auto" in AM, USB + NB1, SAM and FMM + RDS; enable_dc_removal=False) and
 the PfbBankReceiver (trivial, "auto" and oversample=2 fronts) on the card
-against the CPU.
+against the CPU; the AM Receiver under TF32 ("high") against IEEE; the
+stereo tail without K2 (2.88 Msps, the staged front, the "pll" pilot with
+its notch) on the card against the CPU; the CLI with --device cuda.
 
 They skip where CUDA is absent (the kernels have no CPU mode).  This file
 imports no jax, so it also runs on a machine that has only the port:
@@ -219,6 +221,56 @@ def test_convolutions_are_ieee_float32(cuda):
     finally:
         torch.backends.cudnn.allow_tf32 = prev
     assert np.abs(y.cpu().numpy() - want).max() < 1e-5 * np.abs(want).max()
+
+
+def test_receiver_under_tf32_matches_ieee(cuda):
+    """The AM Receiver (C = 4, K = 3, three dispatches) with the process at
+    "high" (cuBLAS TF32 allowed) and cuDNN TF32 on gives a run under
+    "highest" within the parity bounds (audio 2e-4, spectra and S-meter 0.1
+    dB, squelch equal), and hands both settings back."""
+    c, n, k = 4, 8192, 3
+    rx = Receiver(ReceiverConfig(sample_rate=FS, frames_per_buffer=n,
+                                 channels=c, agc_stride=16), cuda)
+    p = rx.default_params(250_000.0)
+    rng = np.random.default_rng(11)
+    t = np.arange(3 * k * n) / FS
+    sig = (0.25 * (1 + 0.8 * np.cos(2 * np.pi * 1000.0 * t))
+           * np.exp(2j * np.pi * 250_300.0 * t))
+    x = np.stack([sig * (0.5 + 0.2 * i) for i in range(c)], axis=1)
+    x = x + 1e-2 * (rng.standard_normal(x.shape)
+                    + 1j * rng.standard_normal(x.shape))
+    plane = torch.from_numpy(np.concatenate([x.real, x.imag], axis=1)
+                             .astype(np.float32)).to(cuda)
+
+    def run():
+        st, outs = rx.init_state(), []
+        for i in range(3):
+            st, out = rx.step_many(st, p, plane[i * k * n:(i + 1) * k * n])
+            outs.append(out)
+        return outs
+
+    ref = run()
+    prev_cudnn = torch.backends.cudnn.allow_tf32
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        assert torch.backends.cuda.matmul.allow_tf32
+        got = run()
+        assert torch.get_float32_matmul_precision() == "high"
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cudnn.allow_tf32 = prev_cudnn
+    for r, g in zip(ref, got):
+        assert float((r["audio"] - g["audio"]).abs().max()) < 2e-4
+        for key in ("spectrum", "zoomed"):
+            assert float((r[key] - g[key]).abs().max()) < 0.1, key
+        for key in r["smeter"]:
+            assert float((r["smeter"][key] - g["smeter"][key]).abs().max()) \
+                < 0.1, key
+        assert torch.equal(r["squelch_open"], g["squelch_open"])
+    assert float(ref[-1]["audio"].abs().max()) > 0.5
 
 
 def test_shared_memory_layouts_match_the_sources(cuda):
@@ -1842,3 +1894,107 @@ def test_pfb_bank_on_card_matches_cpu(cuda, kw):
             if a.size:
                 assert np.abs(a.astype(np.complex128)
                               - b.astype(np.complex128)).max() < 1e-4
+
+
+def _left_only_plane(c: int, rows: int, fs: float, t0: float, rng):
+    """[rows, 2C] FM stereo at 250 kHz of an fs capture: the L-only 700 Hz
+    program, the pilot, channel-dependent level, noise at 1e-2."""
+    t = t0 + np.arange(rows) / fs
+    lt = np.sin(2 * np.pi * 700.0 * t)
+    th = 2 * np.pi * 19000.0 * t
+    comp = 0.45 * lt / 2 + 0.1 * np.sin(th) + 0.45 * lt / 2 * np.sin(2 * th)
+    ph = 2 * np.pi * np.cumsum(75000.0 * comp) / fs
+    iq = 0.5 * np.exp(1j * (2 * np.pi * 250_000.0 * t + ph))
+    x = np.stack([iq * (0.3 + 0.4 * i / c) for i in range(c)], axis=1)
+    x = x + 1e-2 * (rng.standard_normal(x.shape)
+                    + 1j * rng.standard_normal(x.shape))
+    return np.concatenate([x.real, x.imag], axis=1).astype(np.float32)
+
+
+@pytest.mark.parametrize("fs,n,opts", [
+    (2_880_000, 8192, {}), (FS, 8192, dict(enable_iq_balance="auto"))],
+    ids=["2.88 Msps", "staged auto"])
+def test_stereo_tail_without_k2_on_card_matches_cpu(cuda, fs, n, opts):
+    """FMS where K2 cannot run (tail_sub == 0 at 2.88 Msps; the staged
+    front) on the card against the CPU, C = 4, after a CPU warm-up carried
+    to both, dispatches of 3 then 9 blocks: audio 2e-4, spectra and
+    S-meter 0.1 dB, squelch and pilot lock equal, state 1e-4; K2 never
+    launched."""
+    c = 4
+    cfg = ReceiverConfig(sample_rate=fs, frames_per_buffer=n, channels=c,
+                         agc_stride=16, mode=DemodMode.FMS, **opts)
+    cpu, gpu = Receiver(cfg, "cpu"), Receiver(cfg, cuda)
+    assert gpu.wfm_tail is None and gpu.wfm_cfg.stereo
+    pc, pg = cpu.default_params(250_000.0), gpu.default_params(250_000.0)
+    rng = np.random.default_rng(61)
+    t0 = 0.0
+    sc, _ = cpu.step_many(cpu.init_state(), pc, torch.from_numpy(
+        _left_only_plane(c, 4 * n, fs, t0, rng)))
+    t0 += 4 * n / fs
+    sg = convert.state_from_numpy(gpu, convert.state_to_numpy(sc))
+    for k in (3, 9):
+        x = torch.from_numpy(_left_only_plane(c, k * n, fs, t0, rng))
+        t0 += k * n / fs
+        sc, oc = cpu.step_many(sc, pc, x)
+        before = wfm_tail.wfm_tail.launches
+        sg, og = gpu.step_many(sg, pg, x.to(cuda))
+        assert wfm_tail.wfm_tail.launches == before
+        assert float((og["audio"].cpu() - oc["audio"]).abs().max()) < 2e-4
+        for key in ("spectrum", "zoomed"):
+            assert float((og[key].cpu() - oc[key]).abs().max()) < 0.1, key
+        assert float((og["smeter"]["snr_db"].cpu()
+                      - oc["smeter"]["snr_db"]).abs().max()) < 0.1
+        for key in ("squelch_open", "pilot_locked"):
+            assert torch.equal(og[key].cpu(), oc[key]), key
+        for a, b in zip(convert.state_to_numpy(sg), convert.state_to_numpy(sc)):
+            d = np.abs(a.astype(np.complex128) - b.astype(np.complex128))
+            assert d.max(initial=0.0) < 1e-4
+    assert bool(og["pilot_locked"].all())
+
+
+def test_pll_pilot_with_notch_on_card_matches_cpu(cuda):
+    """wfm_demod with WFMConfig(pilot_alg="pll") and the notch: the Q=500
+    bandpass, K3c (one launch per call), the demux, the stacked low-pass,
+    the notch, over two streaming calls of 4 blocks of 2048 at 256 kHz:
+    audio 2e-4, lock equal, the loop's state 1e-4 (its phase on the
+    circle)."""
+    import dataclasses
+    c, nb = 3, 2048
+    cfg = dataclasses.replace(wfm.WFMConfig.make(256_000.0, pilot_alg="pll"),
+                              notch_needed=True)
+    sc, sg = wfm.wfm_init(cfg, c, "cpu"), wfm.wfm_init(cfg, c, cuda)
+    rng = np.random.default_rng(62)
+    for call in range(2):
+        plane = _left_only_plane(c, 4 * nb, 256_000.0, call * 4 * nb / 256e3,
+                                 rng)
+        x = torch.complex(torch.from_numpy(plane[:, :c].T.copy()),
+                          torch.from_numpy(plane[:, c:].T.copy()))
+        sc, oc = wfm.wfm_demod(cfg, sc, x, nb)
+        before = pll.pll_chunk_scan.launches
+        sg, og = wfm.wfm_demod(cfg, sg, x.to(cuda), nb)
+        assert pll.pll_chunk_scan.launches == before + 1
+        for key in ("left", "right"):
+            assert float((og[key].cpu() - oc[key]).abs().max()) < 2e-4, key
+        assert torch.equal(og["pilot_locked"].cpu(), oc["pilot_locked"])
+        for name in ("phase", "fdev", "amp"):
+            d = (getattr(sg.pilot_pll, name).cpu()
+                 - getattr(sc.pilot_pll, name)).abs()
+            if name == "phase":
+                d = torch.minimum(d, (d - 2 * np.pi).abs())
+            assert float(d.max()) < 1e-4, name
+    assert bool(og["pilot_locked"].all())
+
+
+def test_cli_on_card_runs_its_kernels(cuda, tmp_path, capsys):
+    """The command-line receiver with --device cuda: K1 launches (front_fir
+    in its base form) on a synthetic USB run, the JSON as on the CPU."""
+    import json
+    from pebblesdr_tpu_torch.serve import cli
+    before = front.fused_front.launches
+    out = str(tmp_path / "a.wav")
+    assert cli.main(["--synthetic", "tone", "--mode", "USB", "--tune",
+                     "400000", "--seconds", "0.05", "--frames", "8192",
+                     "--json", "--audio-out", out]) == 0
+    m = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert front.fused_front.launches > before
+    assert m["blocks"] == 16 and m["squelch_open"]

@@ -6,10 +6,11 @@
   * the FMN Receiver through the harness of torch_parity.py (one step()
     warm-up, the state carried across, dispatches of K = 3 and 9 blocks of
     8192 frames): K1 in its base form at AM's plan (factor 32, 711 taps);
-  * what the port still does not run (the "pll" pilot and its notch, a
-    stereo geometry without a fused-tail sub-block) refused by name, and
-    what runs now (RDS premix=False, a complex RDS baseband, adaptive IQ
-    balance in AM and SAM) held to the JAX package.
+  * what once was refused by name and runs now held to the JAX package:
+    RDS premix=False, a complex RDS baseband, adaptive IQ balance in AM
+    and SAM, the "pll" pilot (at the hq composite too), the pilot notch on
+    the fused tail, and the stereo receiver at 1.536 Msps (tail_sub == 0;
+    test_torch_wfm_stereo_tail.py's helpers and bounds).
 
 Bounds: nfm_demod 1e-5 of the audio's scale, state 1e-5; the Receiver those
 of tests/test_torch_receiver.py:77-115.  The first block's audio is not
@@ -26,10 +27,11 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_wfm_stereo_tail as stail
 import torch_parity as tp
 from pebblesdr_tpu.demod import nfm as jnfm
 from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
-from pebblesdr_tpu_torch.demod import nfm, rds, wfm
+from pebblesdr_tpu_torch.demod import nfm, rds
 from pebblesdr_tpu_torch.demod.modes import DemodMode
 from pebblesdr_tpu_torch.utils import convert
 
@@ -175,23 +177,22 @@ def _complex_rds():
 
 
 # NFM "pll", the scan RDS carrier and AGC, SAM's scan, loop and non-128
-# forms, RDS premix=False and adaptive IQ balance run now: "rds scan",
-# "iq auto", "sam loop" and "sam non-128" are held to the JAX package
-# (match None), the others hold what is still refused (the ids keep the
-# cases' names)
+# forms, RDS premix=False, adaptive IQ balance and the stereo tail without
+# K2 run now: every case is held to the JAX package (match None; the ids
+# keep the cases' names): "nfm pll" the notch on the fused tail, "pll
+# pilot" and "agc scan" the "pll" pilot (at the hq composite: 512 kHz,
+# comp_decim 2), "sam scan" the 1.536 Msps stereo receiver (one dispatch
+# of one block; test_torch_receiver_wfm.py runs K = 3)
 @pytest.mark.parametrize("what,make,match", [
-    ("nfm pll", lambda: wfm.check_ported(dataclasses.replace(
-        wfm.WFMConfig.make(256_000.0), tail_sub=1024, notch_needed=True)),
-     "notch"),
-    ("pll pilot", lambda: wfm.check_ported(wfm.WFMConfig.make(
-        256_000.0, pilot_alg="pll")), "'pll' pilot"),
+    ("nfm pll", lambda: stail.tm_notch_parity(), None),
+    ("pll pilot", lambda: stail.wfm_demod_parity(256_000.0,
+                                                 pilot_alg="pll"), None),
     ("rds scan", lambda: _rds_parity("scan", dict(premix=False)), None),
-    ("agc scan", lambda: wfm.check_ported(wfm.WFMConfig.make(
-        512_000.0, pilot_alg="pll", comp_decim=2)), "'pll' pilot"),
+    ("agc scan", lambda: stail.wfm_demod_parity(
+        512_000.0, pilot_alg="pll", comp_decim=2, n_block=4096), None),
     ("iq auto", lambda: _auto_receiver(DemodMode.AM), None),
-    ("sam scan", lambda: Receiver(ReceiverConfig(
-        **{**tp.KW, "sample_rate": 1_536_000, "frames_per_buffer": 24576},
-        mode=DemodMode.FMS), "cpu"), "tail_sub == 0"),
+    ("sam scan", lambda: stail.receiver_parity(1_536_000, 24576, ks=(1,)),
+     None),
     ("sam loop", lambda: _auto_receiver(DemodMode.SAM), None),
     ("sam non-128", _complex_rds, None)],
     ids=["nfm pll--pll\\.pll_run", "pll pilot--'pll' pilot",

@@ -247,8 +247,10 @@ def test_port_imports_no_jax():
     balance on (WFM also at the hq geometry), of FMN with a CTCSS tone, of
     AM with the ANF and AGC "long", of the hq RDS receiver, of the scan RDS
     carrier and of SAM on 64-sample blocks, and a call of NFM "pll" and of
-    the scan AGC, runs without loading jax or any module of the JAX
-    package."""
+    the scan AGC, FMS at 2.88 Msps (the stereo tail without K2), the "pll"
+    pilot, and the command-line receiver (a CPU run and --help, in process
+    and as ``python -m``), runs without loading jax or any module of the
+    JAX package."""
     code = (
         "import importlib, pkgutil, sys, numpy as np, torch\n"
         "import pebblesdr_tpu_torch as pkg\n"
@@ -309,6 +311,29 @@ def test_port_imports_no_jax():
         "algorithm='scan')\n"
         "assert agc.agc_apply(a, agc.agc_init(a, 2, 'cpu'), z)[1].shape "
         "== (2, 256)\n"
+        "rx = Receiver(ReceiverConfig(sample_rate=2880000, "
+        "frames_per_buffer=8192, channels=2, mode=DemodMode.FMS), 'cpu')\n"
+        "st, out = rx.step(rx.init_state(), rx.default_params(250000.0), x)\n"
+        "assert out['audio'].shape == (2, 2, rx.audio_blk)\n"
+        "from pebblesdr_tpu_torch.demod import wfm\n"
+        "c = wfm.WFMConfig.make(256000.0, pilot_alg='pll')\n"
+        "assert wfm.wfm_demod(c, wfm.wfm_init(c, 2, 'cpu'), z.repeat(1, 8), "
+        "256)[1]['left'].shape == (2, 512)\n"
+        "import contextlib, io, json, runpy\n"
+        "from pebblesdr_tpu_torch.serve import cli\n"
+        "buf = io.StringIO()\n"
+        "with contextlib.redirect_stdout(buf):\n"
+        "    assert cli.main(['--synthetic', 'tone', '--mode', 'USB', "
+        "'--seconds', '0.01', '--frames', '8192', '--device', 'cpu', "
+        "'--json']) == 0\n"
+        "assert json.loads(buf.getvalue().splitlines()[-1])['blocks'] == 2\n"
+        "sys.argv = ['cli', '--help']\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    try:\n"
+        "        runpy.run_module('pebblesdr_tpu_torch.serve.cli', "
+        "run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, e.code\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'pebblesdr_tpu' or m.startswith('pebblesdr_tpu.')]\n"
         "assert not bad, bad\n"
@@ -318,3 +343,9 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+    # the command-line receiver's entry point, as a user starts it
+    proc = subprocess.run([sys.executable, "-m", "pebblesdr_tpu_torch.serve.cli",
+                           "--help"], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "--device" in proc.stdout and "not ported yet" in proc.stdout

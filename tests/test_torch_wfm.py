@@ -288,28 +288,41 @@ def test_wfm_tail_cpu_runs_plain_version_without_counting():
         wfm_tail.wfm_tail(plan, args[0][:1024], *args[1:], hist)
 
 
+# wfm_init builds every configuration now, and the notch runs on the fused
+# tail (what None); wfm_demod_tm, the fused tail's route, still refuses by
+# name what runs the stereo tail without K2, wfm_demod (the ids keep the
+# cases' names)
 @pytest.mark.parametrize("change,what", [
     (dict(rds_tap=True, stereo=False), "mono"),
     (dict(comp_decim=2, pilot_alg="pll"), "'pll' pilot"),
     (dict(stereo=False), "mono"),
     (dict(pilot_alg="pll"), "'pll' pilot"),
-    (dict(notch_needed=True), "notch"),
+    (dict(notch_needed=True), None),
     (dict(tail_sub=0), "tail_sub == 0"),
-])
+], ids=["change0-mono", "change1-'pll' pilot", "change2-mono",
+        "change3-'pll' pilot", "change4-notch", "change5-tail_sub == 0"])
 def test_unported_wfm_options_named(change, what):
-    """What the stereo chain does not run is refused by name, by wfm_init
-    and wfm_demod_tm; a mono config (ported: wfm_demod) only by the stereo
-    chain wfm_demod_tm."""
+    """wfm_demod_tm runs the fused tail (stereo, the open pilot, a tail
+    sub-block) with or without the notch, and refuses by name what runs
+    the stereo tail without K2 (wfm_demod); wfm_init builds each
+    configuration's state."""
     cfg = dataclasses.replace(twfm.WFMConfig.make(RATE), tail_sub=1024)
     bad = dataclasses.replace(cfg, **change)
-    if bad.stereo:
-        with pytest.raises(ValueError, match=what):
-            twfm.wfm_init(bad, 2, "cpu")
+    if bad.comp_decim > 1:              # the hq composite's taps
+        bad = dataclasses.replace(bad, comp_taps=twfm.WFMConfig.make(
+            RATE, comp_decim=2).comp_taps)
+    twfm.wfm_init(bad, 2, "cpu")
     plan = twfm.tail_plan(cfg, 1024, "cpu")
     st = twfm.wfm_init(cfg, 2, "cpu")
+    raw = torch.from_numpy(composite(1024, 2, 3))
+    last = torch.zeros(2, dtype=torch.complex64)
+    if what is None:
+        _, out = twfm.wfm_demod_tm(bad, plan, st, raw, last, 1024)
+        assert bool(torch.isfinite(out["left"]).all())
+        assert out["left"].shape == (2, 256)
+        return
     with pytest.raises(ValueError, match=what):
-        twfm.wfm_demod_tm(bad, plan, st, torch.zeros(1024, 2),
-                          torch.zeros(2, dtype=torch.complex64), 1024)
+        twfm.wfm_demod_tm(bad, plan, st, raw, last, 1024)
 
 
 def test_discriminator_plain_version():

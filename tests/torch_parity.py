@@ -2,7 +2,7 @@
 test_torch_sam.py, test_torch_narrow.py, test_torch_nfm.py,
 test_torch_ctcss.py, test_torch_agc_anf.py, test_torch_wfm_mono.py,
 test_torch_sam_scan.py, test_torch_rds_scan.py, test_torch_pll_scan.py,
-test_torch_nfm_pll.py): the
+test_torch_nfm_pll.py, test_torch_wfm_stereo_tail.py): the
 port's CPU Receiver against the JAX Receiver built with use_pallas=True (the
 fused front in interpret mode, batched step_many), as
 tests/test_chain_batched.py does.  One JAX step() warms the chain up
@@ -73,7 +73,7 @@ def circ(a, b) -> float:
 
 
 def run(mode: DemodMode, plane, ks=(3,), twins=None, kw=None,
-        jit: bool = False, **cfg):
+        jit: bool = False, jcfg=None, **cfg):
     """{"step": (jax out, port out, None, None), K: (jax out, port out,
     jax state leaves, port state leaves)} for the mode, plane(k, seed)
     giving each dispatch's input.  twins: {name: (mode, cfg)} of further
@@ -81,10 +81,12 @@ def run(mode: DemodMode, plane, ks=(3,), twins=None, kw=None,
     with stereo=False and FMM); each is fed the same inputs and states and
     its results are under res[name] in the same form.  kw replaces KW.
     jit: run JAX's _step_many_impl jitted (one compile per K, several
-    times faster on the CPU than its op-by-op dispatch)."""
+    times faster on the CPU than its op-by-op dispatch).  jcfg: options of
+    the JAX ReceiverConfig alone (batched_many=False: its per-block
+    path)."""
     kw = KW if kw is None else kw
     jrx = JaxReceiver(JaxConfig(mode=JaxMode[mode.name], use_pallas=True,
-                                **kw, **cfg))
+                                **kw, **cfg, **(jcfg or {})))
     ports = {None: (mode, cfg), **(twins or {})}
     trxs = {name: Receiver(ReceiverConfig(mode=m, **kw, **c), "cpu")
             for name, (m, c) in ports.items()}
@@ -174,13 +176,14 @@ def tone_fit(x: np.ndarray, f: float, fs: float):
     return float(np.hypot(coef[0], coef[1])), x - m @ coef
 
 
-def check_run(mode: DemodMode, plane, ks=(3,), kw=None, **cfg) -> dict:
+def check_run(mode: DemodMode, plane, ks=(3,), kw=None, jcfg=None,
+              **cfg) -> dict:
     """run() and every bound of tests/test_chain_batched.py:58-69 on each
     dispatch: audio 2e-4 (SAM 2e-3 of its scale; FMN's step() audio, the
     front FIR's fill from a zero state, not compared), spectra and S-meter
     0.1 dB, squelch equal, every state leaf 1e-4 (SAM's aim phase on the
-    circle).  Returns run()'s results."""
-    res = run(mode, plane, ks, kw=kw, jit=True, **cfg)
+    circle).  jcfg: run()'s.  Returns run()'s results."""
+    res = run(mode, plane, ks, kw=kw, jit=True, jcfg=jcfg, **cfg)
     sam = mode == DemodMode.SAM
     angles = ()
     if sam:
