@@ -197,7 +197,32 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      --rds ("PEBBLES " decoded; wfm_tail_march in the trace), a 2.88 Msps
      FMS --wav (no wfm_tail_march; separation from the WAV >= 30 dB) and
      --stations through the bank (its staged front: no K1); front_fir in
-     the traces of the first four; each run's realtime factor printed.
+     the traces of the first four; each run's realtime factor printed;
+ 37. K6 (csrc/recur.cu ook_scan, the OOK detector) at [64, 2048] frames in
+     each of the six threshold modes and K7 (sweep_scan, the test
+     generator's sweep) at 32768 samples in each mode with and without
+     pulses (100 -> 2000 Hz at 48 kHz, where a float64 recurrence wraps on
+     other samples) and at +-100 kHz / 512 kHz, each through its entry
+     point (one launch per call) and held to its plain version: K6's marks
+     equal and state within 1e-6 of scale on powers whose decision margins
+     are asserted, K7's samples within 1e-5 and wrap samples equal; timed,
+     per launch, with the chain probe's ns per step and each bound;
+ 38. the TestBench on the card (an AM Receiver with taps=True: the staged
+     front): a -40 dB tone read at -40 +- 1 dB on the raw_iq tap, -60 dB
+     noise, the four taps flowing; a pulsed sweep injected on the card and
+     the CPU (K7 once per block, taps and audio within 2e-4); K7 held and
+     timed at the arguments the TestBench gave it;
+ 39. the CLI's --decode on the card, each run under torch.profiler: cw on
+     the synthetic Morse source ("cq..."; ook_scan launched and in the
+     trace), dtmf on tests/test_cli.py's recording ("911"), wwv (its
+     decoded_time reported);
+ 40. the timed cell cw_taps_64ch (CWU, 64 channels, 32 blocks of 32768
+     frames, taps=True: 64 keyed CW signals 30 kHz apart, MorseModem on
+     every channel's post_bp tap every dispatch, 64 host decoders): 7
+     dispatches in a row decode "cq" on every channel, then windows timed
+     with the launch counts (K1 and K5 never, K6 once per dispatch), peak
+     memory and a profile of the dispatches' device part; K6 held and
+     timed at the inputs a dispatch gave it.
 Each phase's seconds and the running total are printed after it.
 Each receiver phase sets every kernel's launch count to 0 just before it
 drives the receiver and reads the counts just after (front_means and
@@ -327,7 +352,10 @@ def wfm_plane(channels: int, n_rows: int, rng, noise: float = 0.0,
 
 
 def reset_launches(front, wfm_tail) -> None:
-    from pebblesdr_tpu_torch.ops import agc, pll, scanops
+    from pebblesdr_tpu_torch.core import siggen
+    from pebblesdr_tpu_torch.ops import agc, goertzel, pll, scanops
+    goertzel.ook_detect.launches = 0
+    siggen.sweep.launches = 0
     front.fused_front.launches = 0
     front.fused_front.comp_launches = 0
     front.chunk_means.launches = 0
@@ -1568,13 +1596,15 @@ def phase_rds_decode(torch, receiver, DemodMode, rds_alg: str = "open",
     return res
 
 
-def dispatch_profile(torch, cell, tag: str, reps: int = 5) -> dict:
+def dispatch_profile(torch, cell, tag: str, reps: int = 5,
+                     dispatch=None) -> dict:
     """One cell's dispatches with spectra off (on where the cell computes
     them every dispatch): timed by CUDA events without the profiler, their
     host enqueue time (no sync inside), then under torch.profiler (CUDA
     activity) for the device busy time per dispatch (the union of its
     kernels' intervals).  Idle share = 1 - busy / event-timed ms; with the
-    kernels that take the most device time."""
+    kernels that take the most device time.  dispatch: a function running
+    one dispatch of the cell (default: its Receiver's step_many)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     st = [cell["state"]]
@@ -1583,6 +1613,8 @@ def dispatch_profile(torch, cell, tag: str, reps: int = 5) -> dict:
     def step():
         st[0], _ = cell["rx"].step_many(st[0], cell["params"], cell["iq"],
                                         spectra=spectra)
+
+    step = dispatch or step
 
     step()
     ms = time_cuda(torch, step, reps)
@@ -3122,6 +3154,494 @@ def read_audio_wav(path: str) -> np.ndarray:
     return pcm.reshape(-1, ch) / 32767.0
 
 
+# ---- phases 37-40: the decode path: K6, K7, the TestBench, --decode ----
+
+OOK_SHAPE = (64, 2048)   # phase 37: K6 against its plain version, each mode
+OOK_MARGIN = 1e-5        # least decision margin (ops/goertzel.py ook_margin)
+OOK_RTOL = 1e-6          # K6's state vs plain, of each leaf's scale (the
+#                          kernel repeats the plain version's float32
+#                          operations one by one: bit-equal where measured)
+SWEEP_N = 32768          # phase 37: K7's samples per call
+SWEEP_ATOL = 1e-5        # K7's samples vs plain
+# K7's checks, (start Hz, stop Hz, rate Hz/s, fs): the case whose wraps a
+# float64 recurrence puts on other samples (every mode, with and without
+# pulses), and a wideband one (repeat)
+SWEEP_CASES = {"100-2000 Hz at 48 kHz": (100.0, 2000.0, 1e5, 48_000.0),
+               "+-100 kHz at 512 kHz": (-100e3, 100e3, 1e7, 512_000.0)}
+PULSE = (300, 1000)      # on samples, period
+TB = dict(fs=512_000, frames=32768, steps=3)   # phase 38's TestBench
+TB_ATOL = 2e-4           # card vs CPU taps (the staged slices' audio bound)
+# phase 40's cell: 64 keyed CW signals 30 kHz apart (none at DC), each on
+# its own channel
+CW_CELL = dict(name="cw_taps_64ch", channels=64, blocks=32, dispatches=7,
+               text="cq cq de pebble", wpm=20.0, amp=0.01, noise=1e-3)
+
+
+def sweep_wraps(y: np.ndarray) -> np.ndarray:
+    """The samples where a sweep wraps to its start: the phase step between
+    neighbouring samples jumps by more than 1e-2 rad there (it moves by
+    < 3e-4 rad a sample otherwise); pairs with a sample off are left out."""
+    on = np.abs(y) > 0
+    dp = np.angle(y[1:] * np.conj(y[:-1]))
+    ok = on[1:] & on[:-1]
+    return np.nonzero((np.abs(np.diff(dp)) > 1e-2) & ok[1:] & ok[:-1])[0]
+
+
+def ook_powers(torch, c: int, f: int, rng):
+    """(main, low, high) [C, F] float32 bin powers on the card, whose
+    decisions sit far from every mode's threshold: marks and spaces in
+    runs cycling through 6, 10, 8, 12 and 7 frames (a 50 % duty, so the
+    average mode's mean stays near half the mark level), marks at 0.4 with
+    a +-10 % fade, spaces near 1e-3, the compare bins near 2e-3 with a
+    little of the keying on the low one (a deeper fade or a duty far from
+    half puts decisions within 1e-5 of their thresholds)."""
+    runs = (6, 10, 8, 12, 7)
+    key = np.zeros((c, f), bool)
+    for i in range(c):
+        t, j, on = 0, i, False
+        while t < f:
+            key[i, t:t + runs[j % 5]] = on
+            t, j, on = t + runs[j % 5], j + 1, not on
+    fade = 1 + 0.1 * np.sin(np.arange(f) / 40.0 + np.arange(c)[:, None])
+    pows = (np.where(key, 0.4 * fade, 1e-3 * (1 + 0.5 * rng.random((c, f)))),
+            0.03 * key + 2e-3 * (1 + 0.5 * rng.random((c, f))),
+            2e-3 * (1 + 0.5 * rng.random((c, f))))
+    return [torch.from_numpy(a.astype(np.float32)).cuda() for a in pows]
+
+
+def hold_ook(torch, goertzel, cfg, state, pows, tag: str) -> dict:
+    """K6 against ook_detect_plain on the same inputs, whose decision
+    margin is asserted first: one launch for the call, the marks equal,
+    the state within OOK_RTOL of each leaf's scale; the plain version once
+    (events), the kernel over 10 calls (events) and per launch
+    (torch.profiler)."""
+    from pebblesdr_tpu_torch.utils import convert
+    margin = goertzel.ook_margin(cfg, state, *pows)
+    if not margin >= OOK_MARGIN:
+        raise RuntimeError(f"{tag} ook_scan {cfg.mode}: a decision margin "
+                           f"{margin:.3g} below {OOK_MARGIN}")
+    before = goertzel.ook_detect.launches
+    st_k, m_k = goertzel.ook_detect(cfg, state, *pows)
+    torch.cuda.synchronize()
+    launches = goertzel.ook_detect.launches - before
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    st_p, m_p = goertzel.ook_detect_plain(cfg, state, *pows)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err, rel = 0.0, 0.0
+    for a, b in zip(convert.leaves(st_k), convert.leaves(st_p)):
+        if a.dtype == torch.float32 and b.numel():
+            d = float((a - b).abs().max())
+            err = max(err, d)
+            rel = max(rel, d / max(float(b.abs().max()), 1e-30))
+        elif not torch.equal(a, b):
+            raise RuntimeError(f"{tag} ook_scan {cfg.mode}: the decision or "
+                               f"a counter differs from the plain version")
+    mismatch = int((m_k != m_p).sum())
+    ms = time_cuda(torch, lambda: goertzel.ook_detect(cfg, state, *pows), 10)
+    lt = kernel_times(torch, lambda: goertzel.ook_detect(cfg, state, *pows))
+    shape = tuple(pows[0].shape)
+    log(f"{tag} ook_scan {cfg.mode} {shape}: {launches} launch, kernel "
+        f"{ms:.4f} ms per call (per launch {breakdown_text(lt)}) vs plain "
+        f"{plain_ms:.1f} ms; marks differing {mismatch} of {m_p.numel()}, "
+        f"{float(m_p.float().mean()):.3f} on; state max |kernel - plain| "
+        f"{err:.3g} ({rel:.3g} of scale, <= {OOK_RTOL}); margin "
+        f"{margin:.3g}")
+    if launches != 1 or mismatch or not rel <= OOK_RTOL:
+        raise RuntimeError(f"{tag} ook_scan {cfg.mode}: the kernel "
+                           f"disagrees with its plain version")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "shape": shape, "launch_ms": lt, "launches": launches}
+
+
+def hold_sweep(torch, siggen, args, kw, tag: str) -> dict:
+    """K7 against sweep_plain on the same arguments: one launch for the
+    call, the samples within SWEEP_ATOL, the wrap samples equal, the
+    state's frequency, direction and pulse count equal and its phase
+    within 1e-6; the plain version once (events), the kernel over 10
+    calls (events) and per launch (torch.profiler)."""
+    before = siggen.sweep.launches
+    st_k, y_k = siggen.sweep(*args, **kw)
+    torch.cuda.synchronize()
+    launches = siggen.sweep.launches - before
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    st_p, y_p = siggen.sweep_plain(*args, **kw)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    yk, yp = y_k.cpu().numpy(), y_p.cpu().numpy()
+    err = float(np.abs(yk - yp).max()) if yk.size else 0.0
+    wk, wp = sweep_wraps(yk), sweep_wraps(yp)
+    ph_err = abs(float(st_k.phase) - float(st_p.phase))
+    same = all(torch.equal(getattr(st_k, f), getattr(st_p, f))
+               for f in ("freq", "direction", "pulse_count"))
+    ms = time_cuda(torch, lambda: siggen.sweep(*args, **kw), 10)
+    lt = kernel_times(torch, lambda: siggen.sweep(*args, **kw))
+    log(f"{tag} sweep_scan n={len(yk)}: {launches} launch, kernel {ms:.4f} "
+        f"ms per call (per launch {breakdown_text(lt)}) vs plain "
+        f"{plain_ms:.1f} ms; max |kernel - plain| {err:.3g} (<= "
+        f"{SWEEP_ATOL}); wraps {len(wk)} at equal samples "
+        f"{np.array_equal(wk, wp)}; state phase {ph_err:.3g}, frequency, "
+        f"direction and pulse count equal {same}")
+    if (launches != 1 or not err <= SWEEP_ATOL or not np.array_equal(wk, wp)
+            or not ph_err <= 1e-6 or not same):
+        raise RuntimeError(f"{tag} sweep_scan: the kernel disagrees with its "
+                           f"plain version")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "n": len(yk), "launch_ms": lt, "launches": launches,
+            "wraps": len(wk)}
+
+
+def phase_decode_kernels(torch) -> dict:
+    """Phase 37: K6 (ook_scan) at OOK_SHAPE in each of the six threshold
+    modes and K7 (sweep_scan) at SWEEP_N samples in each mode with and
+    without pulses (the 100 -> 2000 Hz / 48 kHz case) and in "repeat" at
+    +-100 kHz / 512 kHz, each through its entry point and held to its plain
+    version on the same inputs (hold_ook, hold_sweep), with the chain
+    probe's ns per step and each bound."""
+    from pebblesdr_tpu_torch.core import siggen
+    from pebblesdr_tpu_torch.ops import goertzel, pll
+    from pebblesdr_tpu_torch.utils import roofline
+    steps_ns = {form: probe_ns(torch, pll, form) for form in pll.PROBE_FORMS
+                if form.startswith(("ook", "sweep"))}
+    log("phase37 chain probe (ns per step, one thread, registers only): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in steps_ns.items()))
+    rng = np.random.default_rng(37)
+    c, f = OOK_SHAPE
+    res = {"steps_ns": steps_ns, "ook": {}, "sweep": {}}
+    for mode in goertzel.THRESHOLD_MODES:
+        cfg = goertzel.OOKConfig.make(mode=mode, manual_threshold=0.1)
+        h = hold_ook(torch, goertzel, cfg, goertzel.ook_init(c, "cuda"),
+                     ook_powers(torch, c, f, rng), "phase37")
+        res["ook"][mode] = dict(h, **roofline.ook_scan_bound(
+            c, f, steps_ns[f"ook {mode}"]))
+    for case, (a, b, rate, fs) in SWEEP_CASES.items():
+        wide = case.startswith("+-")
+        for mode in ("repeat",) if wide else siggen.SWEEP_MODES:
+            for pulse in ((0, 0),) if wide else ((0, 0), PULSE):
+                tag = f"{case} {mode}{' pulsed' if pulse[1] else ''}"
+                h = hold_sweep(torch, siggen, (
+                    siggen.sweep_init(a, "cuda"), SWEEP_N, a, b, rate, fs,
+                    0.5, mode, *pulse), {}, f"phase37 {tag}:")
+                res["sweep"][tag] = dict(h, **roofline.sweep_scan_bound(
+                    SWEEP_N, steps_ns[f"sweep {mode}"]))
+    for kind in ("ook", "sweep"):
+        for key, r in res[kind].items():
+            log(f"phase37 {kind} {key}: bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}; serial floor {r['serial_ms']:.4f} ms) vs "
+                f"kernel {r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} of "
+                f"it)")
+    return res
+
+
+def phase_testbench(torch, receiver, front, wfm_tail, DemodMode,
+                    steps_ns: dict) -> dict:
+    """Phase 38: the TestBench on the card (chain/testbench.py, an AM
+    Receiver with taps=True: the staged front, TB's rate and block), as
+    tests/test_testbench.py: a -40 dB tone read at -40 +- 1 dB on the
+    raw_iq tap's spectrum, -60 dB noise at -60 +- 1 dB, the four taps
+    flowing (post_mixer's peak at DC); then a pulsed sweep injected on the
+    card and on the CPU with the same capture: K7 once per block on the
+    card (the counts set to 0 just before), every tap and the audio within
+    TB_ATOL of the CPU's; then K7 held to its plain version on the
+    arguments the TestBench gave it (captured) and timed: the kernels
+    line's entry."""
+    from pebblesdr_tpu_torch.chain.testbench import TestBench
+    from pebblesdr_tpu_torch.core import siggen
+    from pebblesdr_tpu_torch.utils import roofline
+    fs, n = TB["fs"], TB["frames"]
+
+    def bench(dev, inject):
+        cfg = receiver.ReceiverConfig(sample_rate=fs, frames_per_buffer=n,
+                                      mode=DemodMode.AM, taps=True,
+                                      agc_mode="off")
+        return TestBench(receiver.Receiver(cfg, dev), inject=inject)
+
+    def run(tb, steps, tune, x=None):
+        st, p = tb.rx.init_state(), tb.rx.default_params(tune)
+        for i in range(steps):
+            blk = (torch.zeros(1, n, dtype=torch.complex64) if x is None
+                   else x[i])
+            st, _ = tb.step(st, p, blk.to(tb.rx.device))
+        return tb
+
+    tb = run(bench("cuda", ("tone", {"freq_hz": 100_000.0, "db": -40.0})),
+             4, 100_000.0)
+    freqs, db = tb.tap_spectrum_db("raw_iq", fs)
+    peak = int(np.argmax(db))
+    log(f"phase38 TestBench -40 dB tone: raw_iq peak {db[peak]:.3f} dB at "
+        f"{freqs[peak]:.1f} Hz (-40 +- 1 dB at 100 kHz)")
+    ok = abs(db[peak] + 40.0) <= 1.0 and abs(freqs[peak] - 1e5) < fs / 4096
+    tb = run(bench("cuda", ("noise", {"db": -60.0})), 4, 0.0)
+    x = tb.tap("raw_iq")[0]
+    level = 10 * np.log10(np.mean(np.abs(x) ** 2))
+    log(f"phase38 TestBench -60 dB noise: raw_iq {level:.3f} dB (+- 1)")
+    ok = ok and abs(level + 60.0) <= 1.0
+    tb = run(bench("cuda", ("tone", {"freq_hz": 100_000.0, "db": -20.0})),
+             3, 100_000.0)
+    freqs, db = tb.tap_spectrum_db("post_mixer", tb.rx.demod_rate)
+    taps = sorted(tb.history)
+    log(f"phase38 TestBench taps {taps}; post_mixer peak at "
+        f"{freqs[np.argmax(db)]:.2f} Hz (DC within "
+        f"{tb.rx.demod_rate / 1024:.1f})")
+    ok = ok and set(taps) >= {"raw_iq", "post_mixer", "post_bp",
+                              "post_demod", "audio"} \
+        and abs(freqs[np.argmax(db)]) < tb.rx.demod_rate / 1024
+    if not ok:
+        raise RuntimeError("phase38: the TestBench checks failed on the card")
+    # a pulsed sweep, card against CPU on the same capture
+    inject = ("sweep", {"start_hz": 90e3, "stop_hz": 110e3,
+                        "rate_hz_per_sec": 4e6, "db": -20.0,
+                        "pulse_on_samples": 3000,
+                        "pulse_period_samples": 5000})
+    rng = np.random.default_rng(38)
+    x = [torch.from_numpy((1e-3 * (rng.standard_normal((1, n)) + 1j
+                                   * rng.standard_normal((1, n))))
+                          .astype(np.complex64)) for _ in range(TB["steps"])]
+    reset_launches(front, wfm_tail)
+    with captured(siggen, "sweep") as seen:
+        card = run(bench("cuda", inject), TB["steps"], 100_000.0, x)
+        torch.cuda.synchronize()
+    launches = siggen.sweep.launches
+    cpu = run(bench("cpu", inject), TB["steps"], 100_000.0, x)
+    err = {name: float(np.abs(card.tap(name) - cpu.tap(name)).max())
+           for name in cpu.history}
+    log(f"phase38 TestBench pulsed sweep, card vs CPU: sweep_scan launches "
+        f"{launches} for {TB['steps']} blocks; max |card - CPU| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in err.items())
+        + f" (<= {TB_ATOL})")
+    if launches != TB["steps"] or max(err.values()) > TB_ATOL:
+        raise RuntimeError("phase38: the card's TestBench disagrees with the "
+                           "CPU's, or K7 did not run once a block")
+    args, kw = seen[-1]
+    h = hold_sweep(torch, siggen, args, kw, "phase38 TestBench's")
+    return dict(h, launches=launches, **roofline.sweep_scan_bound(
+        h["n"], steps_ns[f"sweep {kw.get('mode', 'repeat')}"]))
+
+
+def dtmf_wav(path: str, wav) -> str:
+    """tests/test_cli.py:83-110's recording: the dial "911" (80 ms tones,
+    80 ms gaps) as FM at 3 kHz deviation on +30 kHz of a 256 kHz capture."""
+    from pebblesdr_tpu_torch.modem import dtmf
+    fs, seconds = 256_000, 2.2
+    dial = dtmf.encode_dtmf("911", 48000.0, tone_ms=80, gap_ms=80)
+    n = int(fs * seconds)
+    afull = np.zeros(int(seconds * 48000) + 1, np.float32)
+    afull[2000:2000 + len(dial)] = dial
+    a_dev = np.interp(np.arange(n) / fs, np.arange(len(afull)) / 48000.0,
+                      afull)
+    ph = 2 * np.pi * np.cumsum(3000.0 * a_dev) / fs
+    iq = 0.5 * np.exp(1j * (2 * np.pi * 30_000.0 * np.arange(n) / fs + ph))
+    wav.write_iq_wav(path, iq.astype(np.complex64), fs,
+                     center_freq_hz=30_000.0, demod_mode="FMN")
+    return path
+
+
+def phase_cli_decode(torch, front, wfm_tail, wav) -> dict:
+    """Phase 39: the CLI's --decode on the card, in process, each run under
+    torch.profiler with the counts set to 0 just before: --synthetic morse
+    --mode CWU --decode cw (the staged front's post_bp tap, MorseModem, K6:
+    the text starts "cq", ook_scan launched and its kernel, recur_kernel
+    over OokStep, in the trace), --decode dtmf on tests/test_cli.py's
+    recording ("911"), --decode wwv (0.2 s: no whole minute,
+    decoded_time reported as null)."""
+    import io
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from pebblesdr_tpu_torch.ops import goertzel
+    from pebblesdr_tpu_torch.serve import cli
+    os.makedirs(CLI_DIR, exist_ok=True)
+    dtmf = dtmf_wav(os.path.join(CLI_DIR, "dtmf.wav"), wav)
+    runs = (
+        ("cw", ["--synthetic", "morse", "--mode", "CWU", "--tune", "100000",
+                "--seconds", "3.2", "--decode", "cw"], "decoded_text"),
+        ("dtmf", ["--wav", dtmf, "--mode", "FMN", "--tune", "30000",
+                  "--sample-rate", "256000", "--frames", "32768",
+                  "--seconds", "1.5", "--decode", "dtmf"], "decoded_digits"),
+        ("wwv", ["--synthetic", "am", "--mode", "AM", "--tune", "250000",
+                 "--seconds", "0.2", "--decode", "wwv"], "decoded_time"),
+    )
+    done = {}
+    for name, argv, key in runs:
+        buf = io.StringIO()
+        reset_launches(front, wfm_tail)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+                contextlib.redirect_stdout(buf):
+            rc = cli.main(argv + ["--json", "--device", "cuda"])
+            torch.cuda.synchronize()
+        launches = goertzel.ook_detect.launches
+        m = json.loads(buf.getvalue().strip().splitlines()[-1])
+        names = kernel_names(prof)
+        k6 = any("OokStep" in nm for nm in names)
+        log(f"phase39 cli --decode {name}: rc {rc}, {m['blocks']} blocks, "
+            f"realtime factor {m['realtime_factor']}, {key} "
+            f"{m.get(key, 'missing')!r}; ook_scan launches {launches}, in "
+            f"the trace {k6}; {len(names)} distinct CUDA kernels")
+        ok = rc == 0 and key in m
+        if name == "cw":
+            ok = ok and m[key].lower().startswith("cq") and launches > 0 \
+                and k6
+        elif name == "dtmf":
+            ok = ok and m[key] == "911"
+        if not ok:
+            raise RuntimeError(f"phase39 cli --decode {name} failed")
+        done[name] = m["realtime_factor"]
+    return done
+
+
+def cw_planes(torch, freqs: np.ndarray, rows: int, dispatches: int):
+    """dispatches consecutive [rows, 2C] float32 planes on the card: the sum
+    of len(freqs) keyed CW signals (CW_CELL's text at its WPM and
+    amplitude, signal i at freqs[i] Hz and i ms late) plus complex noise,
+    the same capture on every channel's lanes."""
+    from pebblesdr_tpu_torch.io import sources
+    c = CW_CELL["channels"]
+    total = rows * dispatches
+    env = torch.from_numpy(sources.morse_envelope(
+        CW_CELL["text"], CW_CELL["wpm"], FS).astype(np.float32)).cuda()
+    t = torch.arange(total, dtype=torch.int64, device="cuda")
+    sig = torch.zeros(total, dtype=torch.complex64, device="cuda")
+    for i, f in enumerate(freqs):
+        lag = i * FS // 1000
+        keyed = torch.zeros(total, dtype=torch.float32, device="cuda")
+        span = min(total - lag, len(env))
+        keyed[lag:lag + span] = env[:span]
+        ang = (2 * np.pi / FS) * torch.remainder(int(f) * t, FS).double()
+        sig += (torch.polar(keyed.double() * CW_CELL["amp"], ang)
+                .to(torch.complex64))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(40)
+    sig += (CW_CELL["noise"] / np.sqrt(2.0)) * torch.complex(
+        torch.randn(total, generator=g, device="cuda"),
+        torch.randn(total, generator=g, device="cuda"))
+    planes = []
+    for d in range(dispatches):
+        part = sig[d * rows:(d + 1) * rows]
+        planes.append(torch.cat([part.real[:, None].expand(rows, c),
+                                 part.imag[:, None].expand(rows, c)],
+                                dim=1).contiguous())
+    return planes
+
+
+def phase_cw_cell(torch, receiver, front, wfm_tail, DemodMode,
+                  steps_ns: dict) -> dict:
+    """Phase 40: the timed cell cw_taps_64ch (a CW skimmer decoding a band
+    segment: CWU, 64 channels at 2.048 Msps, 32 blocks of 32768 frames,
+    taps=True: the staged front) on 64 keyed CW signals 30 kHz apart from
+    -952.5 kHz, each channel tuned 1 kHz below its own: every dispatch re-frames every
+    channel's post_bp tap to whole 480-sample frames at the 32 kHz demod
+    rate (~34 a dispatch), MorseModem (Goertzel, "peak": one K6 launch)
+    and 64 MorseDecoders on the host.  First CW_CELL dispatches in a row,
+    each channel's text starting "cq"; then WARMUP + WINDOWS x
+    WINDOW_DISPATCHES dispatches over the same planes in turn, windows
+    timed by events and by the host clock, with the launch counts (K1 and
+    K5 never, K6 once a dispatch) and the peak memory; a profile of the
+    dispatches' device part; then K6 held to its plain version on the
+    inputs a dispatch gave it (the kernels line's entry)."""
+    from pebblesdr_tpu_torch.modem import morse
+    from pebblesdr_tpu_torch.ops import goertzel, scanops
+    from pebblesdr_tpu_torch.utils import roofline
+    c, k, n = CW_CELL["channels"], CW_CELL["blocks"], HEADLINE["frames"]
+    cfg = receiver.ReceiverConfig(sample_rate=FS, frames_per_buffer=n,
+                                  channels=c, mode=DemodMode.CWU,
+                                  agc_stride=HEADLINE["agc_stride"],
+                                  taps=True)
+    rx = receiver.Receiver(cfg, "cuda")
+    # 30 kHz apart, none at 0 Hz (the front's DC blocker takes a carrier
+    # there)
+    freqs = -952_500 + 30_000 * np.arange(c)
+    params = rx.default_params((freqs - 1000.0).astype(np.float64))
+    planes = cw_planes(torch, freqs, k * n, CW_CELL["dispatches"])
+    modem = morse.MorseModem(rx.demod_rate,
+                             tone_hz=abs(rx.info.cw_offset) or 1000.0)
+    decoders = [morse.MorseDecoder(frame_rate=modem.frame_rate)
+                for _ in range(c)]
+    cell = {"name": CW_CELL["name"], "rx": rx, "params": params,
+            "state": rx.init_state(), "iq": planes[0], "i": 0,
+            "modem": modem.init_state(c, "cuda"),
+            "buf": torch.zeros(c, 0, dtype=torch.complex64, device="cuda")}
+
+    def device_dispatch():
+        """One dispatch on the card: the receiver, the tap re-framed, the
+        modem; returns the marks (on the card)."""
+        iq = planes[cell["i"] % len(planes)]
+        cell["i"] += 1
+        cell["state"], out = rx.step_many(cell["state"], params, iq,
+                                          spectra=False)
+        taps = out["taps"]["post_bp"]                       # [K, C, blk]
+        buf = torch.cat([cell["buf"],
+                         taps.transpose(0, 1).reshape(c, -1)], dim=-1)
+        use = buf.shape[-1] // modem.frame * modem.frame
+        cell["buf"] = buf[:, use:]
+        cell["modem"], marks = modem.detect(cell["modem"],
+                                            buf[:, :use].contiguous())
+        return marks
+
+    def dispatch():
+        marks = device_dispatch().cpu().numpy()
+        for dec, m in zip(decoders, marks):
+            dec.feed(m)
+        return marks.shape[1]
+
+    frames = [dispatch() for _ in range(CW_CELL["dispatches"])]
+    texts = [dec.text for dec in decoders]
+    good = sum(t.startswith("cq") for t in texts)
+    log(f"phase40 {cell['name']}: {CW_CELL['dispatches']} dispatches in a "
+        f"row ({frames} frames each), decoded on {good} of {c} channels "
+        f"(channel 0 {texts[0]!r}, channel {c - 1} {texts[-1]!r})")
+    if good != c:
+        raise RuntimeError(f"phase40 {cell['name']}: text starting 'cq' on "
+                           f"{good} of {c} channels")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(front, wfm_tail)
+    for _ in range(WARMUP):
+        dispatch()
+    windows, host = [], []
+    for _ in range(WINDOWS):
+        t0 = time.perf_counter()
+        windows.append(time_cuda(torch, dispatch, WINDOW_DISPATCHES))
+        host.append((time.perf_counter() - t0) * 1e3 / WINDOW_DISPATCHES)
+    torch.cuda.synchronize()
+    n_dispatch = WARMUP + WINDOWS * WINDOW_DISPATCHES
+    launches = (front.fused_front.launches, goertzel.ook_detect.launches,
+                scanops.auto_iq_balance.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    best = min(windows)
+    log(f"phase40 {cell['name']} {c}ch x {n} x {k}: dispatch ms per window "
+        + " ".join(f"{w:.4f}" for w in windows)
+        + f" (host clock {' '.join(f'{h:.4f}' for h in host)}); block "
+        f"{best / k:.5f} ms, {n * k / (best / 1e3) / FS:.1f}x realtime per "
+        f"channel (the receiver, the modem and {c} host decoders); K1 "
+        f"launches {launches[0]}, ook_scan launches {launches[1]}, "
+        f"iq_lms_scan launches {launches[2]} for {n_dispatch} dispatches; "
+        f"peak device memory {peak:.3f} GiB")
+    if launches != (0, n_dispatch, 0):
+        raise RuntimeError(f"phase40 {cell['name']}: launches (K1, K6, K5) "
+                           f"{launches} for {n_dispatch} dispatches")
+    prof = dispatch_profile(torch, cell, "phase40", dispatch=device_dispatch)
+    with captured(goertzel, "ook_detect") as seen:
+        device_dispatch()
+        torch.cuda.synchronize()
+    (cfg_k, state, *pows), _ = seen[0]
+    h = hold_ook(torch, goertzel, cfg_k, state, pows, f"phase40 "
+                 f"{cell['name']}'s")
+    planes.clear()
+    del cell
+    torch.cuda.empty_cache()
+    return {"launches": launches, "windows": windows, "host_ms": host,
+            "block_ms": best / k, "peak_gib": peak, "profile": prof,
+            "k6": dict(h, **roofline.ook_scan_bound(
+                *h["shape"], steps_ns[f"ook {cfg_k.mode}"]))}
+
+
 def conv_ieee(torch) -> None:
     """Phase 0: fir_apply's conv1d with cuDNN's TF32 allowed is held to a
     float64 convolution within 1e-5 of scale (TF32's 10-bit mantissa would
@@ -3159,8 +3679,9 @@ def main() -> int:
     from pebblesdr_tpu_torch.chain import receiver
     from pebblesdr_tpu_torch.demod import wfm as wfm_mod
     from pebblesdr_tpu_torch.kernels import build
-    from pebblesdr_tpu_torch.ops import (agc, decimator, front, kprobe,
-                                         pll, scanops, wfm_tail)
+    from pebblesdr_tpu_torch.core import siggen
+    from pebblesdr_tpu_torch.ops import (agc, decimator, front, goertzel,
+                                         kprobe, pll, scanops, wfm_tail)
     from pebblesdr_tpu_torch.tools import kbench2
     from pebblesdr_tpu_torch.utils import convert, roofline
     DemodMode = receiver.DemodMode
@@ -3278,6 +3799,16 @@ def main() -> int:
     from pebblesdr_tpu_torch.io import wav
     phase_cli(torch, wav)
     clock("phase 36")
+    dk = phase_decode_kernels(torch)
+    clock("phase 37")
+    k7 = phase_testbench(torch, receiver, front, wfm_tail, DemodMode,
+                         dk["steps_ns"])
+    clock("phase 38")
+    phase_cli_decode(torch, front, wfm_tail, wav)
+    clock("phase 39")
+    cw = phase_cw_cell(torch, receiver, front, wfm_tail, DemodMode,
+                       dk["steps_ns"])
+    clock("phase 40")
 
     c, n, k = HEADLINE["channels"], HEADLINE["frames"], HEADLINE["blocks"]
     t = n * k
@@ -3462,6 +3993,25 @@ def main() -> int:
          "source": scanops.SOURCE, "replaces": scanops.REPLACES,
          "launches": scells["am_iqauto_64ch"]["launches"][6],
          **{key: k5[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by")},
+         "library_ms": None},
+        # K6 and K7 (csrc/recur.cu; each replaces a lax.scan): K6's
+        # launches from the timed cw_taps_64ch run (phase 40), its times,
+        # state error and bound at the inputs a dispatch gave it; K7's
+        # launches from the TestBench's card run (phase 38), its times,
+        # error and bound at the arguments the TestBench gave it; no
+        # PyTorch call computes either recurrence: library_ms null
+        {"name": f"ook_scan (the OOK detector, peak: cw_taps_64ch, "
+                 f"{cw['k6']['shape']} frames)", "route": "cuda",
+         "source": goertzel.SOURCE, "replaces": goertzel.REPLACES,
+         "launches": cw["launches"][1],
+         **{key: cw["k6"][key] for key in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by")},
+         "library_ms": None},
+        {"name": f"sweep_scan (the TestBench's pulsed sweep, n={k7['n']})",
+         "route": "cuda", "source": siggen.SOURCE,
+         "replaces": siggen.REPLACES, "launches": k7["launches"],
+         **{key: k7[key] for key in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by")},
          "library_ms": None},
     ]}))

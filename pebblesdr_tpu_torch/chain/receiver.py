@@ -60,7 +60,13 @@ the ANF update per block and per 16 samples (step_many's rds_per_call
 keeps the RDS timing at one update per call, as the JAX package's bank
 runs a trivial front).
 
-Not ported (the constructor raises ValueError naming it): TestBench taps.
+TestBench's taps (taps=True, chain/testbench.py) take the staged front, as
+the JAX package's front_ok does, and return out["taps"] with the JAX keys:
+raw_iq (after DC removal, IQ balance and the blanker), post_mixer (after
+the decimation), post_bp (the FastFIR output, before the ANF) and
+post_demod (the demod's output before the resampler; WFM's left channel),
+and rds_baseband with the WFM RDS tap.  step_many gives each as [K, C, n],
+a view of the dispatch's [C, K*n] stream (no extra device pass).
 Each entry point runs its products in IEEE float32 whatever the process
 has set, and restores the caller's settings (utils/precision.py).
 
@@ -151,7 +157,7 @@ class ReceiverConfig:
     ctcss_tone: float | None = None       # FMN only: CTCSS tone squelch
     #                                       (a CTCSS table tone, Hz)
     taps: bool = False                    # TestBench's intermediate taps
-    #                                       (not ported: True raises)
+    #                                       (out["taps"]; the staged front)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,9 +198,6 @@ class Receiver:
     """Build once per configuration and device; ``step_many`` is the hot loop."""
 
     def __init__(self, cfg: ReceiverConfig, device: str | torch.device):
-        if cfg.taps:
-            raise ValueError("taps=True (TestBench's intermediate taps) is "
-                             "not ported yet")
         if cfg.enable_iq_balance not in (False, True, "auto"):
             raise ValueError(f"enable_iq_balance={cfg.enable_iq_balance!r}: "
                              f"False, True or 'auto'")
@@ -222,7 +225,7 @@ class Receiver:
         # the fused front (K1) where the JAX package's front_ok holds; the
         # staged front otherwise
         self.staged = not (cfg.enable_iq_balance != "auto"
-                           and cfg.enable_dc_removal
+                           and cfg.enable_dc_removal and not cfg.taps
                            and len(self.plan.stages) > 0)
         self._check_front()
         self.demod_rate = int(self.plan.rate_out)
@@ -469,8 +472,10 @@ class Receiver:
         'rds_soft' [K, C, n_sym] soft symbols and 'rds_timing' [K, C]
         int32 (the dispatch's symbol phase; with the staged front the
         symbol phase of each block, unless rds_per_call: the dispatch's, as
-        the JAX package's bank runs a trivial front).  The staged front also
-        takes a [C, K*N] complex64 stream."""
+        the JAX package's bank runs a trivial front); with taps=True
+        'taps', a dict of [K, C, n] views (raw_iq, post_mixer, post_bp,
+        post_demod, rds_baseband).  The staged front also takes a [C, K*N]
+        complex64 stream."""
         n = self.cfg.frames_per_buffer
         if self.staged:
             x_cn = self._complex_input(iq)
@@ -667,6 +672,7 @@ class Receiver:
             nb_state, x = scanops.noise_blanker_chunked(
                 state.nb, x, threshold=thr, blank_width=width, alpha=alpha,
                 chunk=NB_CHUNK, mode=nb_mode)
+        raw_iq = x
         mix_state, x = mixer.mix_blocks(state.mixer, x, params.tune_hi,
                                         params.tune_lo, n)
         decim, x = decimator.apply(self.plan, state.decim, x)   # [C, K*blk]
@@ -677,6 +683,9 @@ class Receiver:
                  functools.partial(self._demod_narrow, x_cat=x))
         tail_st, out = self._tail_many(state, params, k, raw, xz, spectra,
                                        demod)
+        if cfg.taps:
+            out["taps"] = {"raw_iq": _blocks(raw_iq, k),
+                           "post_mixer": _blocks(x, k), **out["taps"]}
         new_state = ReceiverState(mixer=mix_state, decim=decim, dc=dc,
                                   nb=nb_state, iqbal=iqbal, **tail_st)
         return new_state, out
@@ -776,6 +785,7 @@ class Receiver:
         mode = self.cfg.mode
         mask = torch.complex(params.bp_mask[0], params.bp_mask[1])
         ff_state, xt = fastfir.apply_many(state.fastfir, x_cat, mask, self.blk)
+        taps = {"post_bp": xt}
         anf_state = state.anf
         if self.cfg.enable_anf:
             # block LMS with one weight update per demod block: K steps
@@ -800,11 +810,13 @@ class Receiver:
             audio = ssb_mod.dsb_demod(xt)
         else:                                              # NONE
             audio = xt.real
+        taps["post_demod"] = audio
         resamp_state, audio = resampler.apply_many(self.rs_plan, state.resamp,
                                                    audio)
         audio = audio.reshape(c, k, audio.shape[-1] // k).transpose(0, 1)
         return (dict(fastfir=ff_state, anf=anf_state, agc=agc_state,
-                     demod=demod_state, resamp=resamp_state), audio, {})
+                     demod=demod_state, resamp=resamp_state), audio,
+                self._taps(taps, k))
 
     def _demod_cm(self, state: ReceiverState, params: RxParams, k: int,
                   x_cat: torch.Tensor, rds_per_block: bool):
@@ -816,7 +828,9 @@ class Receiver:
         c = self.cfg.channels
         demod_state, wout = wfm_mod.wfm_demod(self.wfm_cfg, state.demod,
                                               x_cat, n_block=self.blk)
-        extra = {"pilot_locked": wout["pilot_locked"].T}
+        extra = {"pilot_locked": wout["pilot_locked"].T,
+                 **self._taps({"post_demod": wout["left"],
+                               "rds_baseband": wout["rds_baseband"]}, k)}
         rds_state = state.rds
         if self.rds_cfg is not None:
             rds_state, extra["rds_soft"], extra["rds_timing"] = self._rds(
@@ -829,6 +843,14 @@ class Receiver:
             audio = mono.reshape(c, k, mono.shape[-1] // k).transpose(0, 1)
         return (dict(demod=demod_state, resamp=resamp_state, rds=rds_state),
                 audio, extra)
+
+    def _taps(self, taps: dict, k: int) -> dict:
+        """{"taps": each [C, K*n] stream as its [K, C, n] blocks} with
+        taps=True (None streams left out), else {}."""
+        if not self.cfg.taps:
+            return {}
+        return {"taps": {key: _blocks(v, k) for key, v in taps.items()
+                         if v is not None}}
 
     def _resample_lr(self, state: ReceiverState, wout: dict, k: int):
         """L and R through the resampler as 2C channels: (state', audio [K,
@@ -892,6 +914,11 @@ def _squelch_hysteresis(b: torch.Tensor, a: torch.Tensor,
                               dim=0).values
     opens = (last_b >= 0) & (last_b >= last_not_a)
     return opens | ((last_not_a < 0) & prev[None])
+
+
+def _blocks(x: torch.Tensor, k: int) -> torch.Tensor:
+    """A [C, K*n] stream as the [K, C, n] view of its K blocks."""
+    return x.reshape(x.shape[0], k, -1).transpose(0, 1)
 
 
 def _first_block(out: dict) -> dict:

@@ -1,21 +1,26 @@
 // Per-sample recurrences for Hopper (sm_90a): the second-order carrier loop
 // (K3 pll_scan, four phase detectors), the same loop at the chunk rate (K3c
 // pll_chunk_scan), the scan AGC's attack / decay / hang smoother (K4
-// agc_scan) and the adaptive IQ balance's LMS loop (K5 iq_lms_scan).
+// agc_scan), the adaptive IQ balance's LMS loop (K5 iq_lms_scan), the OOK
+// detector's envelopes, decision and debounce over Goertzel frames (K6
+// ook_scan) and the test generator's frequency sweep (K7 sweep_scan).
 //
 // Replaces no Pallas kernel: in the JAX package each is a jax.lax.scan,
 // pll.pll_run (pebblesdr_tpu/ops/pll.py:116), the loop of
 // pll.pll_run_blockwise (:182), the scan of agc.agc_apply
-// (pebblesdr_tpu/ops/agc.py:298) and scanops.auto_iq_balance
-// (pebblesdr_tpu/ops/scanops.py:164).  The plain PyTorch versions are
+// (pebblesdr_tpu/ops/agc.py:298), scanops.auto_iq_balance
+// (pebblesdr_tpu/ops/scanops.py:164), goertzel.ook_detect
+// (pebblesdr_tpu/ops/goertzel.py:375) and siggen.sweep
+// (pebblesdr_tpu/core/siggen.py:119).  The plain PyTorch versions are
 // pll_scan_plain and pll_chunk_scan_plain in ops/pll.py, agc_scan_plain in
-// ops/agc.py and iq_lms_scan_plain in ops/scanops.py: a Python loop over
-// time of the same arithmetic on [C] tensors.
+// ops/agc.py, iq_lms_scan_plain in ops/scanops.py, ook_detect_plain in
+// ops/goertzel.py and sweep_plain in core/siggen.py: a Python loop over
+// time of the same arithmetic on [C] (or 0-d) tensors.
 //
-// What bounds K3, K3c and K4: the latency of one step's dependent chain,
-// times the steps.  Each channel's state (three or four scalars) feeds the
-// next sample, so a channel is one thread that carries its state in
-// registers; the bytes (x read once, two float32 outputs written once)
+// What bounds K3, K3c, K4, K6 and K7: the latency of one step's dependent
+// chain, times the steps.  Each channel's state (three to six scalars)
+// feeds the next sample, so a channel is one thread that carries its state
+// in registers; the bytes (x read once, two float32 outputs written once)
 // would take ~4 us at 3.35 TB/s for [64, 32768], the chain ~0.1 us a step.
 // The design keeps memory off that chain:
 //   * a block serves kCb = 8 channels (64 channels: 8 blocks on 8 SMs);
@@ -35,6 +40,9 @@
 //     rounding.  The wrap mod(a + pi, 2 pi) - pi takes an exact fast path
 //     for a + pi in [0, 4 pi) (one subtraction, exact by Sterbenz) and
 //     fmodf otherwise.
+// K7 has one sequence and no input: one thread runs the chain into
+// shared-memory tiles and the block's other warps turn each finished tile
+// into samples (recur_sweep_kernel).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -74,10 +82,10 @@ __device__ __forceinline__ float clampf(float v, float lo, float hi) {
 
 // One channel's view of a launch: its input row, output rows and state.
 struct Io {
-  const void* x;        // [C, N] input (float2 or float rows)
+  const void* x;        // [C, N] input (float, float2 or float4 rows)
   float* out[2];        // [C, N] output rows
-  const void* st_in[3];
-  void* st_out[3];
+  const void* st_in[6];
+  void* st_out[6];
   int C, N;
 };
 
@@ -224,6 +232,129 @@ struct AgcStep {
   }
 };
 
+// K6: goertzel.ook_detect's step over one frame's powers (main, low, high;
+// the fourth lane pads the frame to 16 bytes).  The peak envelope moves
+// toward the power at aa (rising) or da, the floor at aa (falling) or fa =
+// 0.1 da (the noise mode holds it during mark), the mean at va; the mode's
+// threshold gives the raw decision, then the asymmetric debounce: attack
+// consecutive raw marks turn the state on, decay raw spaces turn it off.
+// The constants arrive as the JAX step rounds them (each Python-float
+// product folded in float64, then cast once); ratio is the mode's one
+// parameter.  Outputs the state after the frame (1 or 0).
+enum OokMode { kCompare = 0, kPeak = 1, kAverage = 2, kMinMax = 3,
+               kManual = 4, kNoise = 5 };
+
+template <int MODE>
+struct OokStep {
+  using In = float4;
+  static constexpr int kOut = 1;
+  float aa, da, fa, keep, va, ratio;
+  int attack_frames, decay_frames;
+  float peak, floor_, avg;
+  int st, att, dec;
+
+  __device__ void load(const Io& io, int c) {
+    peak = static_cast<const float*>(io.st_in[0])[c];
+    floor_ = static_cast<const float*>(io.st_in[1])[c];
+    avg = static_cast<const float*>(io.st_in[2])[c];
+    st = static_cast<const unsigned char*>(io.st_in[3])[c];
+    att = static_cast<const int*>(io.st_in[4])[c];
+    dec = static_cast<const int*>(io.st_in[5])[c];
+  }
+  __device__ void store(const Io& io, int c) const {
+    static_cast<float*>(io.st_out[0])[c] = peak;
+    static_cast<float*>(io.st_out[1])[c] = floor_;
+    static_cast<float*>(io.st_out[2])[c] = avg;
+    static_cast<unsigned char*>(io.st_out[3])[c] =
+        static_cast<unsigned char>(st);
+    static_cast<int*>(io.st_out[4])[c] = att;
+    static_cast<int*>(io.st_out[5])[c] = dec;
+  }
+  __device__ __forceinline__ void step(float4 p, float* o) {
+    const float pm = p.x;
+    const float peak2 =
+        __fadd_rn(peak, __fmul_rn(pm > peak ? aa : da, __fsub_rn(pm, peak)));
+    float floor2 = __fadd_rn(
+        floor_, __fmul_rn(pm < floor_ ? aa : fa, __fsub_rn(pm, floor_)));
+    if (MODE == kNoise && st) floor2 = floor_;
+    const float avg2 = __fadd_rn(__fmul_rn(keep, avg), __fmul_rn(va, pm));
+    bool raw;
+    if (MODE == kCompare) {
+      const float mean = __fmul_rn(__fadd_rn(p.y, p.z), 0.5f);
+      raw = pm > __fmul_rn(ratio, fmaxf(mean, 1e-18f));
+    } else if (MODE == kPeak) {
+      const float delta = __fsub_rn(peak2, floor2);
+      const float up = __fadd_rn(floor2, __fmul_rn(0.67f, delta));
+      const float down = __fadd_rn(floor2, __fmul_rn(0.33f, delta));
+      raw = pm >= up ? true : (pm <= down ? false : st != 0);
+    } else if (MODE == kAverage) {
+      raw = pm > __fmul_rn(ratio, avg2);
+    } else if (MODE == kMinMax) {
+      const bool valid = peak2 > __fmul_rn(ratio, fmaxf(floor2, 1e-18f));
+      raw = valid &&
+            pm > __fadd_rn(floor2, __fmul_rn(0.6f, __fsub_rn(peak2, floor2)));
+    } else if (MODE == kManual) {
+      raw = pm > ratio;
+    } else {  // noise
+      raw = pm > __fmul_rn(ratio, fmaxf(floor2, 1e-18f));
+    }
+    int att2 = (raw && !st) ? att + 1 : 0;
+    int dec2 = (!raw && st) ? dec + 1 : 0;
+    const bool on = att2 >= attack_frames, off = dec2 >= decay_frames;
+    st = on ? 1 : (off ? 0 : st);
+    att = on ? 0 : att2;
+    dec = off ? 0 : dec2;
+    o[0] = st ? 1.f : 0.f;
+    peak = peak2;
+    floor_ = floor2;
+    avg = avg2;
+  }
+};
+
+// K7: siggen.sweep's step.  The phase advances by f / fs as XLA compiles
+// the JAX step (the product with the float32 reciprocal fused with the add:
+// one rounding), modulo 1 as jnp.mod takes it (fmod, plus 1 where the
+// remainder is negative); the frequency steps by d df and wraps to start
+// past stop (mode 1), clips to [lo, hi] (mode 0) or turns at either edge
+// and clips to [start, stop] (mode 2); with period > 0 the sample is on
+// for the first pulse_on of each period (the counter's jnp.mod as a
+// compare, % only for a counter out of range: an integer % every step
+// doubled the pulsed kernel's time).  Outputs the sample's phase, or -1
+// where it is off: what the kernel stores, so the chain probe keeps the
+// phase's and the counter's chains.
+struct SweepStep {
+  using In = float;  // no input stream: the probe's filler
+  static constexpr int kOut = 1;
+  float inv_fs, df, start, stop, lo, hi;
+  int mode, pulse_on, period;
+  float ph, f, d;
+  int pc;
+
+  __device__ __forceinline__ void step(float, float* o) {
+    ph = fmodf(__fmaf_rn(f, inv_fs, ph), 1.f);
+    if (ph < 0.f) ph = __fadd_rn(ph, 1.f);
+    float f2 = __fadd_rn(f, __fmul_rn(d, df));
+    if (mode == 0) {
+      f2 = fminf(fmaxf(f2, lo), hi);
+    } else if (mode == 1) {
+      if (f2 > stop) f2 = start;
+    } else {
+      if (f2 > stop || f2 < start) d = -d;
+      f2 = fminf(fmaxf(f2, start), stop);
+    }
+    bool on = true;
+    if (period > 0) {
+      on = pc < pulse_on;
+      if (++pc >= period || pc < 0) {
+        pc %= period;
+        if (pc < 0) pc += period;
+      }
+    }
+    o[0] = on ? ph : -1.f;
+    f = f2;
+  }
+};
+
 __device__ __forceinline__ void cp_async(void* dst, const void* src,
                                          int bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -301,6 +432,78 @@ __global__ void __launch_bounds__(kThreads) recur_kernel(Io io, Step s) {
   }
   if (st >= 0 && tiles > 0) store_tile(tiles - 1);
   if (tid < cb) s.store(io, c0 + tid);
+}
+
+// K7's design: one sequence, no input.  Thread 0 runs the chain over
+// tiles of kSwTile samples into a shared buffer (the phase, or -1 where the
+// pulse is off); the other warps turn the tile before it into samples,
+// amp (cos 2 pi ph, sin 2 pi ph), and store them, double-buffered with one
+// barrier a tile.  The chain (~10 dependent operations a sample) bounds it;
+// the samples' sincosf and 8-byte stores are spread over 96 threads.
+constexpr int kSwTile = 1024;
+
+__global__ void __launch_bounds__(kThreads)
+    recur_sweep_kernel(SweepStep s, int n, float two_pi, float amp,
+                       const float* __restrict__ ph_in,
+                       const float* __restrict__ f_in,
+                       const float* __restrict__ d_in,
+                       const int* __restrict__ pc_in,
+                       float2* __restrict__ y, float* __restrict__ ph_out,
+                       float* __restrict__ f_out, float* __restrict__ d_out,
+                       int* __restrict__ pc_out) {
+  __shared__ float ph_s[2][kSwTile];
+  const int tiles = (n + kSwTile - 1) / kSwTile;
+  const int tid = threadIdx.x;
+  const int wk = tid - 32;           // writer index (warps 1-3)
+  if (tid == 0) {
+    s.ph = *ph_in;
+    s.f = *f_in;
+    s.d = *d_in;
+    s.pc = *pc_in;
+  }
+  for (int i = 0; i <= tiles; ++i) {
+    if (tid == 0 && i < tiles) {
+      const int len = min(kSwTile, n - i * kSwTile);
+      float* dst = ph_s[i & 1];
+#pragma unroll 4
+      for (int t = 0; t < len; ++t) s.step(0.f, &dst[t]);
+    } else if (wk >= 0 && i > 0) {
+      const int j = i - 1, t0 = j * kSwTile, len = min(kSwTile, n - t0);
+      const float* src = ph_s[j & 1];
+      for (int t = wk; t < len; t += kStagers) {
+        const float p = src[t];
+        float2 v = make_float2(0.f, 0.f);
+        if (p >= 0.f) {
+          float sn, cs;
+          sincosf(__fmul_rn(two_pi, p), &sn, &cs);
+          v = make_float2(__fmul_rn(cs, amp), __fmul_rn(sn, amp));
+        }
+        y[t0 + t] = v;
+      }
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    *ph_out = s.ph;
+    *f_out = s.f;
+    *d_out = s.d;
+    *pc_out = s.pc;
+  }
+}
+
+// K7's serial floor: recur_sweep_kernel's chain loop alone, one thread
+// storing each step's output into a shared ring as the kernel stores its
+// tile (no writers, no device stores; the ring is summed at the end so no
+// store is dead).  The generic probe_kernel's dependent sum of the outputs
+// compiles to a slower loop than the kernel's own.
+__global__ void __launch_bounds__(1)
+    probe_sweep_kernel(SweepStep s, int steps, float* out) {
+  __shared__ float ring[kSwTile];
+#pragma unroll 4
+  for (int t = 0; t < steps; ++t) s.step(0.f, &ring[t & (kSwTile - 1)]);
+  float acc = 0.f;
+  for (int t = 0; t < min(steps, kSwTile); ++t) acc = __fadd_rn(acc, ring[t]);
+  out[0] = acc;
 }
 
 // K5: the adaptive IQ balance (scanops.auto_iq_balance) per group of
@@ -528,6 +731,27 @@ int launch(const Io& io, const Step& s, int device, void* stream) {
   return cudaGetLastError();
 }
 
+// The chain probe of ook_scan in threshold mode `mode` (ratio 4; the
+// probe's input is one frame of powers held in registers).
+int probe_ook(int mode, int steps, float* out, int device, void* stream) {
+  switch (mode) {
+#define OOK_PROBE(M)                                                       \
+  case M:                                                                  \
+    return probe(OokStep<M>{0.4f, 0.02f, 0.002f, 0.99f, 0.01f, 4.f, 2, 2,  \
+                            1e-6f, 1e-6f, 1e-6f, 0, 0, 0},                 \
+                 steps, out, device, stream);
+    OOK_PROBE(kCompare)
+    OOK_PROBE(kPeak)
+    OOK_PROBE(kAverage)
+    OOK_PROBE(kMinMax)
+    OOK_PROBE(kManual)
+    OOK_PROBE(kNoise)
+#undef OOK_PROBE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -618,14 +842,71 @@ int recur_iq_lms_scan(int device, const void* x, int C, int N, float mu,
   return cudaGetLastError();
 }
 
+// K6: p [C, F] float4 frames (main, low, high, 0 bin powers), the state
+// peak / floor / avg [C] float32, st [C] uint8, att / dec [C] int32 ->
+// marks [C, F] float32 (1 or 0) and state'.  mode: 0 compare, 1 peak, 2
+// average, 3 min_max, 4 manual, 5 noise; ratio is the mode's parameter.
+int recur_ook_scan(int device, int mode, const void* p, int C, int F,
+                   float aa, float da, float fa, float keep, float va,
+                   float ratio, int attack_frames, int decay_frames,
+                   const float* peak, const float* floor_, const float* avg,
+                   const unsigned char* st, const int* att, const int* dec,
+                   float* marks, float* peak_out, float* floor_out,
+                   float* avg_out, unsigned char* st_out, int* att_out,
+                   int* dec_out, void* stream) {
+  Io io{p, {marks, nullptr}, {peak, floor_, avg, st, att, dec},
+        {peak_out, floor_out, avg_out, st_out, att_out, dec_out}, C, F};
+  switch (mode) {
+#define OOK_CASE(M)                                                        \
+  case M: {                                                                \
+    OokStep<M> s{aa, da, fa, keep, va, ratio, attack_frames, decay_frames, \
+                 0.f, 0.f, 0.f, 0, 0, 0};                                  \
+    return launch(io, s, device, stream);                                  \
+  }
+    OOK_CASE(kCompare)
+    OOK_CASE(kPeak)
+    OOK_CASE(kAverage)
+    OOK_CASE(kMinMax)
+    OOK_CASE(kManual)
+    OOK_CASE(kNoise)
+#undef OOK_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// K7: n samples of the sweep from the state ph / f / d (float32 scalars)
+// and pc (int32), all on the device -> y [n] complex64 (interleaved) and
+// state'.  mode: 0 single, 1 repeat, 2 repeat_reverse; period 0: no
+// pulses.  One block.
+int recur_sweep_scan(int device, int mode, int n, float inv_fs, float df,
+                     float start, float stop, float lo, float hi,
+                     float two_pi, float amp, int pulse_on, int period,
+                     const float* ph, const float* f, const float* d,
+                     const int* pc, void* y, float* ph_out, float* f_out,
+                     float* d_out, int* pc_out, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (n < 0 || mode < 0 || mode > 2 || period < 0)
+    return cudaErrorInvalidValue;
+  SweepStep s{inv_fs, df, start, stop, lo, hi, mode, pulse_on, period,
+              0.f, 0.f, 0.f, 0};
+  recur_sweep_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
+      s, n, two_pi, amp, ph, f, d, pc, static_cast<float2*>(y), ph_out,
+      f_out, d_out, pc_out);
+  return cudaGetLastError();
+}
+
 // Samples per K5 group and per tile (the wrapper and the tests read them).
 int recur_iq_group() { return kIqGroup; }
 int recur_iq_tile() { return kIqTile; }
 
 // The serial floor's probe (probe_kernel) of one form: 0-3 pll_scan with
 // detector 0-3, 4 pll_chunk_scan, 5 its pilot form, 6 agc_scan with the
-// hang, 7 without, 8 iq_lms_scan; out [1] float32.  Time it over many steps: the time per
-// step is the latency of the form's dependent chain.
+// hang, 7 without, 8 iq_lms_scan, 9-14 ook_scan in the threshold mode 0-5,
+// 15-17 sweep_scan in the mode 0-2 (no pulses: the floor of a pulsed call
+// too, which only adds the counter); out [1] float32.  Time it over many
+// steps: the time per step is the latency of the form's dependent chain.
 int recur_probe(int device, int form, int steps, float* out, void* stream) {
   const float a = 0.0139f, b = 9.6e-5f, lo = -0.098f, hi = 0.098f;
   switch (form) {
@@ -652,7 +933,20 @@ int recur_probe(int device, int form, int steps, float* out, void* stream) {
                    steps, out, device, stream);
     case 8:
       return probe(IqStep{0.0025f, 0.f, 0.f}, steps, out, device, stream);
+    case 15:
+    case 16:
+    case 17: {
+      cudaError_t err = cudaSetDevice(device);
+      if (err != cudaSuccess) return err;
+      probe_sweep_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
+          SweepStep{1.f / 48000.f, 2.0833333f, 100.f, 2000.f, 100.f, 2000.f,
+                    form - 15, 0, 0, 0.f, 100.f, 1.f, 0},
+          steps, out);
+      return cudaGetLastError();
+    }
     default:
+      if (form >= 9 && form <= 14) return probe_ook(form - 9, steps, out,
+                                                   device, stream);
       return cudaErrorInvalidValue;
   }
 }

@@ -348,10 +348,14 @@ def _lib():
     return lib
 
 
-# the forms of csrc/recur.cu's chain probe (recur_probe's form 0-8; "iq
-# lms" is K5's, ops/scanops.py auto_iq_balance)
-PROBE_FORMS = DETECTORS + ("chunk", "chunk pilot", "agc hang", "agc",
-                           "iq lms")
+# the forms of csrc/recur.cu's chain probe (recur_probe's form 0-17; "iq
+# lms" is K5's, ops/scanops.py auto_iq_balance; "ook <mode>" K6's in each
+# threshold mode, ops/goertzel.py ook_detect; "sweep <mode>" K7's without
+# pulses, core/siggen.py sweep)
+PROBE_FORMS = DETECTORS + (
+    "chunk", "chunk pilot", "agc hang", "agc", "iq lms",
+    "ook compare", "ook peak", "ook average", "ook min_max", "ook manual",
+    "ook noise", "sweep single", "sweep repeat", "sweep repeat_reverse")
 
 
 def chain_probe(form: str, steps: int, device) -> torch.Tensor:

@@ -18,7 +18,14 @@ Examples:
   python -m pebblesdr_tpu_torch.serve.cli --synthetic tone --mode USB \\
       --tune 400000 --seconds 0.3 --audio-out /tmp/a.wav --json --device cpu
 
-Flags whose modules are not ported yet (--decode, --display,
+--decode cw|rtty runs the modem (modem/morse.py, modem/rtty.py) on
+channel 0's post_bp tap (ReceiverConfig(taps=True): the staged front),
+re-framed to whole modem frames on the device; --decode wwv|dtmf on the
+demodulated audio of channel 0.  The decoded text, time or digits go
+under the JAX CLI's JSON keys (decoded_text, decoded_time,
+decoded_digits).
+
+Flags whose modules are not ported yet (--display,
 --display-zoomed, --keys, --presets, --bandscope, --checkpoint,
 --checkpoint-every, --resume, --assign, --source rtl_tcp|sdr_ip|hpsdr|audio,
 --audio-out device:...|pipe:...) exit with code 2 and name the module.
@@ -42,8 +49,6 @@ from pebblesdr_tpu_torch.utils.perform import Perform
 
 # what each deferred option waits for (the JAX package's modules)
 _DEFERRED = {
-    "decode": "pebblesdr_tpu/modem/ (and chain/testbench.py's taps for "
-              "cw/rtty)",
     "display": "pebblesdr_tpu/serve/display.py",
     "display_zoomed": "pebblesdr_tpu/serve/display.py",
     "keys": "pebblesdr_tpu/serve/control.py",
@@ -193,6 +198,89 @@ def _run_stations(args, source, device) -> int:
     return 0
 
 
+class _Decode:
+    """--decode: the modem and its host decoder.  cw / rtty read channel
+    0's post_bp tap of each dispatch ([K, C, n] views of the staged front's
+    stream), kept on the device and re-framed to whole modem frames (no
+    sample dropped); wwv / dtmf read channel 0's demodulated audio."""
+
+    def __init__(self, kind: str | None, rx: Receiver, channels: int,
+                 device: torch.device):
+        self.kind, self.modem, self.decoder = kind, None, None
+        if kind == "cw":
+            from pebblesdr_tpu_torch.modem.morse import (MorseDecoder,
+                                                         MorseModem)
+            self.modem = MorseModem(rx.demod_rate,
+                                    tone_hz=abs(rx.info.cw_offset) or 1000.0)
+            self.decoder = MorseDecoder(frame_rate=self.modem.frame_rate)
+            self.state = self.modem.init_state(channels, device)
+        elif kind == "rtty":
+            from pebblesdr_tpu_torch.modem.rtty import RttyDecoder, RttyModem
+            self.modem = RttyModem(rx.demod_rate)
+            self.decoder = RttyDecoder(
+                frames_per_bit=self.modem.frames_per_bit)
+        elif kind == "wwv":
+            from pebblesdr_tpu_torch.modem.wwv import WwvDecoder, WwvModem
+            self.modem = WwvModem(rx.cfg.audio_rate)
+            self.decoder = WwvDecoder()
+        elif kind == "dtmf":
+            from pebblesdr_tpu_torch.modem.dtmf import DtmfDecoder, DtmfModem
+            self.modem = DtmfModem(rx.cfg.audio_rate)
+            self.decoder = DtmfDecoder()
+        self.device = device
+        self.buf = (torch.zeros(channels, 0, dtype=torch.complex64,
+                                device=device) if kind in ("cw", "rtty")
+                    else np.zeros(0, np.float32))
+
+    def feed(self, out: dict, audio_np: np.ndarray, k_real: int) -> None:
+        if self.modem is None:
+            return
+        frame = self.modem.frame
+        if self.kind in ("cw", "rtty"):
+            taps_k = out["taps"]["post_bp"][:k_real]           # [K, C, n]
+            self.buf = torch.cat([self.buf, taps_k.transpose(0, 1).reshape(
+                taps_k.shape[1], -1)], dim=-1)
+            n_use = (self.buf.shape[-1] // frame) * frame
+            if not n_use:
+                return
+            chunk = self.buf[:, :n_use].contiguous()
+            self.buf = self.buf[:, n_use:]
+            if self.kind == "cw":
+                self.state, marks = self.modem.detect(self.state, chunk)
+            else:
+                marks = self.modem.detect(chunk)
+            text = self.decoder.feed(marks[0].cpu().numpy())
+            if text:
+                print(text, end="", flush=True)
+            return
+        # wwv / dtmf: the demodulated audio of channel 0, like a listener
+        # patched into the speaker feed
+        a_cat = np.concatenate([np.asarray(a[0], np.float32).reshape(-1)
+                                for a in audio_np], axis=-1)
+        self.buf = np.concatenate([self.buf, a_cat])
+        n_use = (len(self.buf) // frame) * frame
+        if n_use:
+            chunk, self.buf = self.buf[:n_use], self.buf[n_use:]
+            pw = self.modem.detect(torch.from_numpy(chunk[None])
+                                   .to(self.device))
+            self.decoder.feed(pw[0].cpu().numpy())
+
+    def metrics(self) -> dict:
+        if self.kind in ("cw", "rtty"):
+            print()  # newline after the streamed decode text
+            return {"decoded_text": self.decoder.text}
+        if self.kind == "wwv":
+            fr = self.decoder.frame
+            return {"decoded_time": None if fr is None else {
+                "hours": fr.hours, "minutes": fr.minutes,
+                "day_of_year": fr.day_of_year, "year": fr.year,
+                "dst1": fr.dst1, "dst2": fr.dst2, "leap": fr.leap,
+                "dut1": fr.dut1}}
+        if self.kind == "dtmf":
+            return {"decoded_digits": self.decoder.digits}
+        return {}
+
+
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description=__doc__,
@@ -277,7 +365,11 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--bandscope", action="store_true",
                    help="the HPSDR bandscope waterfall (not ported yet)")
     p.add_argument("--decode", choices=["cw", "rtty", "wwv", "dtmf"],
-                   default=None, help="digital modem decode (not ported yet)")
+                   default=None,
+                   help="run a digital modem on the channel and print text: "
+                        "cw/rtty demodulate the pre-detector channel taps; "
+                        "wwv (AM mode) decodes the NIST time code and dtmf "
+                        "(FMN mode) dial digits from the demodulated audio")
     p.add_argument("--rds", action="store_true",
                    help="decode RDS (FM-Stereo mode) and print PS/RadioText")
     p.add_argument("--checkpoint", default=None,
@@ -338,6 +430,7 @@ def main(argv=None):
     cfg = ReceiverConfig(sample_rate=fs, frames_per_buffer=args.frames,
                          channels=args.channels, mode=mode,
                          agc_mode=args.agc, rds=args.rds,
+                         taps=args.decode in ("cw", "rtty"),
                          enable_iq_balance=iqbal, wfm_hq=args.wfm_hq,
                          ctcss_tone=args.ctcss,
                          enable_noise_blanker=(
@@ -353,6 +446,7 @@ def main(argv=None):
 
         rds_block = rds_mod.RdsBlockDecoder()
         rds_groups = rds_mod.RdsGroupDecoder()
+    decode = _Decode(args.decode, rx, args.channels, device)
     tune = args.tune or source.info.center_freq_hz
     params = rx.default_params(tune)
     if args.bandpass:
@@ -410,6 +504,7 @@ def main(argv=None):
         audio_chunks.extend(audio_np)
         n_done += k_real
         last_out = (out, k_real)
+        decode.feed(out, audio_np, k_real)
         if rds_block is not None and "rds_soft" in out:
             for soft_k in out["rds_soft"][:k_real].cpu().numpy():
                 rds_block.feed_symbols(soft_k[0])
@@ -441,6 +536,7 @@ def main(argv=None):
         "audio_rms": round(float(np.sqrt(np.mean(audio[0] ** 2))), 4),
         "step_ms": perform.stats("step"),
     }
+    metrics.update(decode.metrics())
     if rds_groups is not None:
         metrics["rds"] = {
             "pi": f"0x{rds_groups.pi:04X}", "ps": rds_groups.ps_name,

@@ -16,7 +16,9 @@ front carries the JAX package's staged layout (``dc`` [C] complex64,
 NoiseBlankerChunkedState (mag_avg [C], spike_tail [C, 6]), ``iqbal.w`` [C]
 complex64), and RDS ``decim`` its premix=False forms; a PfbBankReceiver's
 state is the pair (filterbank carry [1, T M - hop] complex64, the tail
-Receiver's state), flattened in that order.  Nothing here
+Receiver's state), flattened in that order.  The OOK detector's state
+(ops/goertzel.py OOKState) and the generators' (core/siggen.py ToneState,
+SweepState) carry across the same way.  Nothing here
 imports jax: the caller flattens (``jax.tree_util.tree_leaves``) and passes
 numpy arrays.
 """
@@ -28,6 +30,9 @@ from typing import Any, Iterator
 
 import numpy as np
 import torch
+
+from pebblesdr_tpu_torch.core import siggen
+from pebblesdr_tpu_torch.ops import goertzel
 
 
 def leaves(tree: Any) -> list:
@@ -56,7 +61,7 @@ def _rebuild(template: Any, it: Iterator, device) -> Any:
     if tuple(arr.shape) != tuple(template.shape):
         raise ValueError(f"leaf has shape {arr.shape}, expected "
                          f"{tuple(template.shape)}")
-    return torch.as_tensor(np.ascontiguousarray(arr).copy(), device=device)
+    return torch.as_tensor(np.array(arr, copy=True, order="C"), device=device)
 
 
 def from_numpy(template: Any, arrays: list, device) -> Any:
@@ -78,6 +83,24 @@ def state_from_numpy(rx, arrays: list):
 def params_from_numpy(rx, arrays: list):
     """Port RxParams for Receiver `rx` from the JAX params' leaves."""
     return from_numpy(rx.default_params(), arrays, rx.device)
+
+
+def ook_state_from_numpy(arrays: list, device) -> goertzel.OOKState:
+    """An OOKState from the JAX OOKState's leaves (peak, floor, avg, state,
+    attack, decay; each [C])."""
+    return from_numpy(goertzel.ook_init(len(arrays[0]), device), arrays,
+                      device)
+
+
+def tone_state_from_numpy(arrays: list, device) -> siggen.ToneState:
+    """A ToneState from the JAX ToneState's leaf (phase)."""
+    return from_numpy(siggen.tone_init(device), arrays, device)
+
+
+def sweep_state_from_numpy(arrays: list, device) -> siggen.SweepState:
+    """A SweepState from the JAX SweepState's leaves (phase, freq,
+    direction, pulse_count)."""
+    return from_numpy(siggen.sweep_init(0.0, device), arrays, device)
 
 
 def state_to_numpy(state: Any) -> list[np.ndarray]:

@@ -4,8 +4,8 @@ it, from the bytes it must move and the operations it must do.
 One place for the rates and for the bounds of K1, its passes (front_means,
 which also bounds front_nb_means, front_dc_scan, front_fir, K1's carried
 history, front_disc, front_comp), K2 and the recurrences (pll_scan,
-pll_chunk_scan, agc_scan, iq_lms_scan), read by chip_smoke.py,
-ops/kprobe.py and the tools.
+pll_chunk_scan, agc_scan, iq_lms_scan, ook_scan, sweep_scan), read by
+chip_smoke.py, ops/kprobe.py and the tools.
 """
 
 from __future__ import annotations
@@ -178,5 +178,28 @@ def iq_lms_bound(c: int, n: int, step_ns: float, group: int = 64) -> dict:
     nbytes = 2 * c * n * 8 + 2 * c * 8
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_s = (n // group) * step_ns * 1e-6
+    return {"bytes": nbytes, "serial_ms": t_s, "bound_ms": max(t_b, t_s),
+            "bound_by": "bytes" if t_b >= t_s else "operations"}
+
+
+def ook_scan_bound(c: int, f: int, step_ns: float) -> dict:
+    """ook_scan's (K6) bound: the [c, f] frames of three powers read once
+    (as the kernel takes them, padded to 16 bytes), the marks [c, f]
+    written once, six 4-byte state words per channel read and written;
+    the serial floor f steps of the detector's chain (recur_bound's)."""
+    nbytes = c * f * (16 + 4) + 2 * 6 * 4 * c
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_s = f * step_ns * 1e-6
+    return {"bytes": nbytes, "serial_ms": t_s, "bound_ms": max(t_b, t_s),
+            "bound_by": "bytes" if t_b >= t_s else "operations"}
+
+
+def sweep_scan_bound(n: int, step_ns: float) -> dict:
+    """sweep_scan's (K7) bound: the samples [n] complex64 written once and
+    the four-word state read and written; the serial floor n steps of the
+    sweep's chain (one sequence: nothing runs beside it)."""
+    nbytes = 8 * n + 2 * 4 * 4
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_s = n * step_ns * 1e-6
     return {"bytes": nbytes, "serial_ms": t_s, "bound_ms": max(t_b, t_s),
             "bound_by": "bytes" if t_b >= t_s else "operations"}

@@ -14,7 +14,10 @@ audio_decim (2.88 Msps).  Bounds: the audio WAVs sample by sample (int16 /
 test_chain_pallas.py:190, the JAX suite's fused-vs-staged FMS bound); the
 JSON keys equal; blocks, input_samples, audio_rate and squelch_open equal;
 smeter_db and snr_db within 0.2 dB (the CLIs round them to 0.1 dB);
-audio_rms within 1e-3.  Every flag whose module is not ported exits with
+audio_rms within 1e-3.  --decode cw|rtty|wwv|dtmf (the modems, cw / rtty
+on the staged front's post_bp tap) against the JAX CLI with the same
+arguments: the decoded text, time or digits equal, and the cw, rtty and
+dtmf decodes right.  Every flag whose module is not ported exits with
 code 2 naming it.
 """
 
@@ -151,6 +154,81 @@ def test_cli_stations_match_jax(tmp_path, capsys):
         assert a.shape == b.shape and np.abs(a - b).max() < 2e-4
 
 
+def dtmf_wav(path: str) -> str:
+    """tests/test_cli.py:83-110's dial: "911" as dual tones of 80 ms with
+    80 ms gaps, FM at 3 kHz deviation on +30 kHz of a 256 kHz capture,
+    noise at 1e-3 (a noiseless S-meter SNR is rounding noise)."""
+    from pebblesdr_tpu_torch.modem import dtmf
+    fs, seconds = 256_000, 2.2
+    dial = dtmf.encode_dtmf("911", 48000.0, tone_ms=80, gap_ms=80)
+    n = int(fs * seconds)
+    afull = np.zeros(int(seconds * 48000) + 1, np.float32)
+    afull[2000:2000 + len(dial)] = dial
+    a_dev = np.interp(np.arange(n) / fs, np.arange(len(afull)) / 48000.0,
+                      afull)
+    ph = 2 * np.pi * np.cumsum(3000.0 * a_dev) / fs
+    rng = np.random.default_rng(13)
+    iq = 0.5 * np.exp(1j * (2 * np.pi * 30_000.0 * np.arange(n) / fs + ph)) \
+        + 1e-3 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    wav.write_iq_wav(path, iq.astype(np.complex64), fs,
+                     center_freq_hz=30_000.0, demod_mode="FMN")
+    return path
+
+
+def rtty_wav(path: str) -> str:
+    """"RYRY CQ" as 45.45 baud, 170 Hz shift FSK (mark 2125 Hz above the
+    carrier) on +30 kHz of a 256 kHz capture, noise at 1e-3."""
+    from pebblesdr_tpu_torch.modem import rtty
+    fs = 256_000
+    fsk = rtty.encode_rtty("RYRY CQ", fs, amplitude=0.3)
+    t = np.arange(len(fsk)) / fs
+    rng = np.random.default_rng(11)
+    iq = fsk * np.exp(2j * np.pi * 30_000.0 * t) + 1e-3 * (
+        rng.standard_normal(len(t)) + 1j * rng.standard_normal(len(t)))
+    wav.write_iq_wav(path, iq.astype(np.complex64), fs,
+                     center_freq_hz=30_000.0, demod_mode="USB")
+    return path
+
+
+DECODE_CASES = {
+    "cw": (["--synthetic", "morse", "--mode", "CWU", "--tune", "100000",
+            "--seconds", "3.2", "--noise-db", "-60"], "decoded_text", "cq"),
+    "rtty": (["--wav", "{rtty}", "--mode", "USB", "--tune", "30000",
+              "--sample-rate", "256000", "--seconds", "1.6"],
+             "decoded_text", "RYRY"),
+    "wwv": (["--synthetic", "am", "--mode", "AM", "--tune", "250000",
+             "--seconds", "0.2", "--noise-db", "-60"], "decoded_time", None),
+    "dtmf": (["--wav", "{dtmf}", "--mode", "FMN", "--tune", "30000",
+              "--sample-rate", "256000", "--frames", "32768", "--seconds",
+              "1.5"], "decoded_digits", "911"),
+}
+
+
+@pytest.fixture(scope="module")
+def decode_inputs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("decode")
+    return {"rtty": rtty_wav(str(d / "rtty.wav")),
+            "dtmf": dtmf_wav(str(d / "dtmf.wav"))}
+
+
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_cli_decode_matches_jax(case, decode_inputs, capsys):
+    """--decode on --device cpu against the JAX CLI: the JSON keys and the
+    decoded text, time or digits equal; cw decodes "cq...", rtty "RYRY",
+    dtmf "911", wwv (0.2 s, no whole minute) None."""
+    argv, key, want = DECODE_CASES[case]
+    argv = [a.format(**decode_inputs) for a in argv] + ["--decode", case,
+                                                        "--json"]
+    jm = run(jcli.main, argv, capsys)
+    tm = run(cli.main, argv + ["--device", "cpu"], capsys)
+    check_metrics(jm, tm)
+    assert key in tm and tm[key] == jm[key]
+    if want is None:
+        assert tm[key] is None
+    else:
+        assert tm[key].lower().startswith(want.lower()), tm[key]
+
+
 def test_cli_gain_scales_the_audio(capsys):
     """--gain sets the Receiver's audio gain (the JAX CLI hands it only to
     its control surface and --assign)."""
@@ -174,8 +252,6 @@ def test_cli_records_iq(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,module", [
-    (["--decode", "cw"], "modem"),
-    (["--decode", "wwv"], "modem"),
     (["--display", "waterfall"], "serve/display.py"),
     (["--display-zoomed"], "serve/display.py"),
     (["--keys", "help"], "serve/control.py"),

@@ -18,7 +18,11 @@ balance) against its plain version, and the receivers on the staged front
 the PfbBankReceiver (trivial, "auto" and oversample=2 fronts) on the card
 against the CPU; the AM Receiver under TF32 ("high") against IEEE; the
 stereo tail without K2 (2.88 Msps, the staged front, the "pll" pilot with
-its notch) on the card against the CPU; the CLI with --device cuda.
+its notch) on the card against the CPU; the CLI with --device cuda; K6
+(ook_scan, the OOK detector, six threshold modes) and K7 (sweep_scan, the
+test generator's sweep) against their plain versions, the Receiver's taps
+and the TestBench on the card against the CPU, and --decode cw on the
+card.
 
 They skip where CUDA is absent (the kernels have no CPU mode).  This file
 imports no jax, so it also runs on a machine that has only the port:
@@ -31,10 +35,11 @@ import pytest
 import torch
 
 from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
+from pebblesdr_tpu_torch.core import siggen
 from pebblesdr_tpu_torch.demod import nfm, rds, sam, wfm
 from pebblesdr_tpu_torch.demod.modes import DemodMode
-from pebblesdr_tpu_torch.ops import (agc, decimator, front, kprobe, pll,
-                                     scanops, wfm_tail)
+from pebblesdr_tpu_torch.ops import (agc, decimator, front, goertzel, kprobe,
+                                     pll, scanops, wfm_tail)
 from pebblesdr_tpu_torch.ops.mixer import split_freq
 from pebblesdr_tpu_torch.utils import convert
 
@@ -1998,3 +2003,178 @@ def test_cli_on_card_runs_its_kernels(cuda, tmp_path, capsys):
     m = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert front.fused_front.launches > before
     assert m["blocks"] == 16 and m["squelch_open"]
+
+
+def _ook_powers(c, f, rng, device):
+    """(main, low, high) [C, F] float32 bin powers whose decisions sit far
+    from every mode's threshold: marks and spaces in runs cycling through
+    6, 10, 8, 12 and 7 frames (a 50 % duty, so the average mode's mean
+    stays near half the mark level), marks at 0.4 with a +-10 % fade,
+    spaces near 1e-3, the compare bins near 2e-3 with a little of the
+    keying on the low one."""
+    runs = (6, 10, 8, 12, 7)
+    key = np.zeros((c, f), bool)
+    for i in range(c):
+        t, j, on = 0, i, False
+        while t < f:
+            key[i, t:t + runs[j % 5]] = on
+            t, j, on = t + runs[j % 5], j + 1, not on
+    fade = 1 + 0.1 * np.sin(np.arange(f) / 40.0 + np.arange(c)[:, None])
+    pows = (np.where(key, 0.4 * fade, 1e-3 * (1 + 0.5 * rng.random((c, f)))),
+            0.03 * key + 2e-3 * (1 + 0.5 * rng.random((c, f))),
+            2e-3 * (1 + 0.5 * rng.random((c, f))))
+    return [torch.from_numpy(a.astype(np.float32)).to(device) for a in pows]
+
+
+@pytest.mark.parametrize("c,f", [(64, 2048), (5, 300), (3, 0)])
+@pytest.mark.parametrize("mode", goertzel.THRESHOLD_MODES)
+def test_ook_scan_kernel_matches_plain(cuda, mode, c, f):
+    """K6: one launch per call; the marks equal and the state within 1e-6
+    of its scale (the kernel repeats the plain version's float32
+    operations one by one), on powers whose margins are asserted; a
+    partial block of channels and a partial tile (C=5), F=0."""
+    cfg = goertzel.OOKConfig.make(mode=mode, manual_threshold=0.1)
+    pows = _ook_powers(c, f, np.random.default_rng(f + c), cuda)
+    st = goertzel.ook_init(c, cuda)
+    if f:
+        assert goertzel.ook_margin(cfg, st, *pows) >= 1e-5
+    before = goertzel.ook_detect.launches
+    got_st, got = goertzel.ook_detect(cfg, st, *pows)
+    assert goertzel.ook_detect.launches == before + 1
+    ref_st, ref = goertzel.ook_detect_plain(cfg, st, *pows)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bool and torch.equal(got.cpu(), ref.cpu())
+    for a, b in zip(convert.leaves(got_st), convert.leaves(ref_st)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if a.dtype == torch.float32:
+            if b.numel():
+                scale = max(float(b.abs().max()), 1e-30)
+                assert float((a - b).abs().max()) <= 1e-6 * scale
+        else:
+            assert torch.equal(a.cpu(), b.cpu())
+
+
+SWEEP_CASES = {
+    "100k 512k": (-100e3, 100e3, 1e7, 512_000.0, 8192),
+    "2k 48k": (100.0, 2000.0, 1e5, 48_000.0, 32768),
+    "odd length": (-30e3, 70e3, 3.3e6, 2_048_000.0, 5000),
+}
+
+
+def _sweep_wraps(y: np.ndarray) -> np.ndarray:
+    on = np.abs(y) > 0
+    dp = np.angle(y[1:] * np.conj(y[:-1]))
+    ok = on[1:] & on[:-1]
+    return np.nonzero((np.abs(np.diff(dp)) > 1e-2) & ok[1:] & ok[:-1])[0]
+
+
+@pytest.mark.parametrize("pulsed", [False, True])
+@pytest.mark.parametrize("mode", siggen.SWEEP_MODES)
+@pytest.mark.parametrize("case", list(SWEEP_CASES))
+def test_sweep_scan_kernel_matches_plain(cuda, case, mode, pulsed):
+    """K7: one launch per call; the samples within 1e-5, the wrap samples
+    equal, the state's frequency, direction and pulse count equal and its
+    phase within 1e-6, over two streaming calls."""
+    a, b, rate, fs, n = SWEEP_CASES[case]
+    pulse = (300, 1000) if pulsed else (0, 0)
+    sg, sp = siggen.sweep_init(a, cuda), siggen.sweep_init(a, cuda)
+    for part in (n // 3, n - n // 3):
+        before = siggen.sweep.launches
+        sg, yg = siggen.sweep(sg, part, a, b, rate, fs, 0.5, mode, *pulse)
+        assert siggen.sweep.launches == before + 1
+        sp, yp = siggen.sweep_plain(sp, part, a, b, rate, fs, 0.5, mode,
+                                    *pulse)
+        torch.cuda.synchronize()
+        yg, yp = yg.cpu().numpy(), yp.cpu().numpy()
+        assert yg.shape == yp.shape == (part,)
+        assert np.abs(yg - yp).max() < 1e-5
+        assert np.array_equal(_sweep_wraps(yg), _sweep_wraps(yp))
+        assert abs(float(sg.phase) - float(sp.phase)) < 1e-6
+        for f in ("freq", "direction", "pulse_count"):
+            assert torch.equal(getattr(sg, f).cpu(), getattr(sp, f).cpu()), f
+
+
+def test_ook_and_sweep_refuse_what_they_do_not_take(cuda):
+    cfg = goertzel.OOKConfig.make()
+    st = goertzel.ook_init(4, cuda)
+    p = torch.zeros(4, 16, device=cuda)
+    with pytest.raises(ValueError):            # float64 powers
+        goertzel.ook_detect(cfg, st, p.double(), p, p)
+    with pytest.raises(ValueError):            # a state on the CPU
+        goertzel.ook_detect(cfg, goertzel.ook_init(4, "cpu"), p, p, p)
+    with pytest.raises(ValueError):            # a [C, 1] state
+        goertzel.ook_detect(cfg, goertzel.OOKState(*(
+            v[:, None] for v in convert.leaves(st))), p, p, p)
+    bad = siggen.SweepState(*(v[None] for v in convert.leaves(
+        siggen.sweep_init(0.0, cuda))))
+    with pytest.raises(ValueError):            # [1] state tensors
+        siggen.sweep(bad, 16, 0.0, 1.0, 1.0, 8.0)
+
+
+@pytest.mark.parametrize("mode,opts", [(DemodMode.CWU, {}),
+                                       (DemodMode.AM, {}),
+                                       (DemodMode.FMS, dict(rds=True))])
+def test_taps_on_card_match_cpu(cuda, mode, opts):
+    """taps=True on the card (the staged front) against the CPU: every tap
+    within 2e-4 and the audio within 2e-4, dispatches of 3 blocks."""
+    n = 32768 if opts.get("rds") else 8192
+    kw = dict(sample_rate=FS, frames_per_buffer=n, channels=4,
+              agc_stride=16, mode=mode, taps=True, **opts)
+    rc, rg = Receiver(ReceiverConfig(**kw), "cpu"), Receiver(
+        ReceiverConfig(**kw), cuda)
+    sc, sg = rc.init_state(), rg.init_state()
+    pc, pg = rc.default_params(250_000.0), rg.default_params(250_000.0)
+    rng = np.random.default_rng(5)
+    for _ in range(2):
+        x = (_stereo_plane(4, 3 * n, rng) if mode == DemodMode.FMS
+             else _am_plane(4, 3 * n, rng))
+        sc, oc = rc.step_many(sc, pc, x)
+        sg, og = rg.step_many(sg, pg, x.to(cuda))
+        assert set(og["taps"]) == set(oc["taps"])
+        for key, v in oc["taps"].items():
+            assert float((og["taps"][key].cpu() - v).abs().max()) < 2e-4, key
+        assert float((og["audio"].cpu() - oc["audio"]).abs().max()) < 2e-4
+
+
+def test_testbench_on_card_matches_cpu(cuda):
+    """The TestBench with a -40 dB tone and with a pulsed sweep (K7 once
+    per block) on the card against the CPU: the taps' histories within
+    2e-4; the tone read at -40 +- 1 dB on the card's raw_iq tap."""
+    from pebblesdr_tpu_torch.chain.testbench import TestBench
+    kw = dict(sample_rate=512_000, frames_per_buffer=8192, mode=DemodMode.AM,
+              taps=True, agc_mode="off")
+    for inject in (("tone", {"freq_hz": 100_000.0, "db": -40.0}),
+                   ("sweep", {"start_hz": 90e3, "stop_hz": 110e3,
+                              "rate_hz_per_sec": 4e6, "db": -20.0,
+                              "pulse_on_samples": 3000,
+                              "pulse_period_samples": 5000})):
+        benches = [TestBench(Receiver(ReceiverConfig(**kw), dev),
+                             inject=inject) for dev in ("cpu", cuda)]
+        for tb in benches:
+            st, p = tb.rx.init_state(), tb.rx.default_params(100_000.0)
+            before = siggen.sweep.launches
+            for _ in range(4):
+                st, _ = tb.step(st, p, torch.zeros(
+                    1, 8192, dtype=torch.complex64, device=tb.rx.device))
+            if tb.rx.device.type == "cuda" and inject[0] == "sweep":
+                assert siggen.sweep.launches == before + 4
+        for name in benches[0].history:
+            a, b = benches[0].tap(name), benches[1].tap(name)
+            assert np.abs(a - b).max() < 2e-4, name
+        if inject[0] == "tone":
+            freqs, db = benches[1].tap_spectrum_db("raw_iq", 512_000)
+            assert db[np.argmax(db)] == pytest.approx(-40.0, abs=1.0)
+
+
+def test_cli_decode_cw_on_card(cuda, capsys):
+    """--synthetic morse --decode cw with --device cuda: "cq..." decoded
+    through the staged front's taps and K6 (one launch per modem call)."""
+    import json
+    from pebblesdr_tpu_torch.serve import cli
+    before = goertzel.ook_detect.launches
+    assert cli.main(["--synthetic", "morse", "--mode", "CWU", "--tune",
+                     "100000", "--seconds", "3.2", "--decode", "cw",
+                     "--json"]) == 0
+    m = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert m["decoded_text"].lower().startswith("cq")
+    assert goertzel.ook_detect.launches > before

@@ -248,9 +248,10 @@ def test_port_imports_no_jax():
     AM with the ANF and AGC "long", of the hq RDS receiver, of the scan RDS
     carrier and of SAM on 64-sample blocks, and a call of NFM "pll" and of
     the scan AGC, FMS at 2.88 Msps (the stereo tail without K2), the "pll"
-    pilot, and the command-line receiver (a CPU run and --help, in process
-    and as ``python -m``), runs without loading jax or any module of the
-    JAX package."""
+    pilot, a TestBench step with a sweep injected (the taps), the Morse
+    modem's detector, and the command-line receiver (a CPU run, --decode
+    wwv and --help, in process and as ``python -m``), runs without loading
+    jax or any module of the JAX package."""
     code = (
         "import importlib, pkgutil, sys, numpy as np, torch\n"
         "import pebblesdr_tpu_torch as pkg\n"
@@ -319,6 +320,20 @@ def test_port_imports_no_jax():
         "c = wfm.WFMConfig.make(256000.0, pilot_alg='pll')\n"
         "assert wfm.wfm_demod(c, wfm.wfm_init(c, 2, 'cpu'), z.repeat(1, 8), "
         "256)[1]['left'].shape == (2, 512)\n"
+        "from pebblesdr_tpu_torch.chain.testbench import TestBench\n"
+        "rx = Receiver(ReceiverConfig(sample_rate=512000, "
+        "frames_per_buffer=8192, channels=1, mode=DemodMode.AM, taps=True), "
+        "'cpu')\n"
+        "tb = TestBench(rx, inject=('sweep', {'start_hz': -1e5, 'stop_hz': "
+        "1e5, 'rate_hz_per_sec': 1e7, 'db': -30.0}))\n"
+        "st, out = tb.step(rx.init_state(), rx.default_params(0.0), "
+        "torch.zeros(1, 8192, dtype=torch.complex64))\n"
+        "assert set(out['taps']) == {'raw_iq', 'post_mixer', 'post_bp', "
+        "'post_demod'}\n"
+        "from pebblesdr_tpu_torch.modem.morse import MorseModem\n"
+        "m = MorseModem(8000.0)\n"
+        "assert m.detect(m.init_state(2, 'cpu'), torch.ones(2, 4 * m.frame, "
+        "dtype=torch.complex64))[1].shape == (2, 4)\n"
         "import contextlib, io, json, runpy\n"
         "from pebblesdr_tpu_torch.serve import cli\n"
         "buf = io.StringIO()\n"
@@ -327,6 +342,13 @@ def test_port_imports_no_jax():
         "'--seconds', '0.01', '--frames', '8192', '--device', 'cpu', "
         "'--json']) == 0\n"
         "assert json.loads(buf.getvalue().splitlines()[-1])['blocks'] == 2\n"
+        "buf = io.StringIO()\n"
+        "with contextlib.redirect_stdout(buf):\n"
+        "    assert cli.main(['--synthetic', 'am', '--mode', 'AM', "
+        "'--seconds', '0.01', '--frames', '8192', '--device', 'cpu', "
+        "'--decode', 'wwv', '--json']) == 0\n"
+        "assert json.loads(buf.getvalue().splitlines()[-1])['decoded_time'] "
+        "is None\n"
         "sys.argv = ['cli', '--help']\n"
         "with contextlib.redirect_stdout(io.StringIO()):\n"
         "    try:\n"

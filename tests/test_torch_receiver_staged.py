@@ -197,12 +197,12 @@ def test_staged_fmm_rds(rds_run):
     tp.check_state(js, ts)
 
 
-# FMS stereo on the staged front runs now (the stereo tail without K2): its
-# case is held to the JAX package's per-block staged path (match None; the
-# ids keep the cases' names)
+# FMS stereo on the staged front and taps=True run now (the stereo tail
+# without K2; TestBench's taps): their cases are held to the JAX package's
+# per-block staged path (match None; the ids keep the cases' names)
 @pytest.mark.parametrize("kw,match", [
     (dict(mode=DemodMode.FMS, **AUTO), None),
-    (dict(mode=DemodMode.AM, taps=True), "taps=True"),
+    (dict(mode=DemodMode.AM, taps=True), None),
     (dict(mode=DemodMode.AM, frames_per_buffer=8192 + 32, **AUTO),
      "multiple"),
     (dict(mode=DemodMode.AM, frames_per_buffer=3840, **AUTO,
@@ -210,6 +210,17 @@ def test_staged_fmm_rds(rds_run):
     ids=["kw0-FMS stereo on the staged front", "kw1-taps=True",
          "kw2-multiple", "kw3-chunks"])
 def test_staged_refusals_named(kw, match):
+    if match is None and kw.get("taps"):
+        # the staged taps against JAX's, within this file's bounds
+        res = tp.check_run(DemodMode.AM, am_plane(tp.N), (3,), taps=True)
+        for key in ("step", 3):
+            jo, to = res[key][:2]
+            assert set(jo["taps"]) == set(to["taps"]) == {
+                "raw_iq", "post_mixer", "post_bp", "post_demod"}
+            for name, a in jo["taps"].items():
+                a, b = np.asarray(a), to["taps"][name].numpy()
+                assert a.shape == b.shape and np.abs(a - b).max() < 2e-4, name
+        return
     if match is None:
         import test_torch_wfm_stereo_tail as stail
         stail.test_receiver_fms_staged_matches_jax()
