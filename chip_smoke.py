@@ -222,7 +222,29 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      dispatches in a row decode "cq" on every channel, then windows timed
      with the launch counts (K1 and K5 never, K6 once per dispatch), peak
      memory and a profile of the dispatches' device part; K6 held and
-     timed at the inputs a dispatch gave it.
+     timed at the inputs a dispatch gave it;
+ 41. K8 (csrc/recur.cu anf_scan, the ANF's block LMS) through its entry
+     point scanops.anf on complex [64, N] (128 rows) at the staged front's
+     U = 16 ([64, 32768], 2048 updates, three calls carrying the state),
+     the batched graph's U = 1024 and U = 1 ([64, 2048]): one launch per
+     call, y and w' within 1e-5 of their scale of anf_plain, the history
+     equal; timed with its per-launch device time, the plain version, the
+     chain probe's ns per update and the bound;
+ 42. am_anf_long_64ch re-timed with K8 (U = 1024) and the new cell
+     am_iqauto_anf_64ch (am_iqauto_64ch with enable_anf=True: the staged
+     front, K5, K8 at U = 16), each alone, with launch counts, the ANF
+     adapted, the tone SNR printed and a profile (kernels per dispatch,
+     host enqueue, device busy); then am_iqauto_anf_64ch with anf_plain in
+     K8's place, one window;
+ 43. checkpoint/resume on the card: am_iqauto_anf_64ch's receiver saved
+     after dispatch 3 into a file (utils/checkpoint.py), restored into a
+     fresh Receiver: dispatches 4-6 and the final state equal to the
+     uninterrupted run's bit for bit;
+ 44. the port's soak (pebblesdr_tpu_torch/tools/soak.py): WFM stereo +
+     RDS, 64 channels, 32 blocks a dispatch, 60 s: no bad dispatch, RDS
+     synced, PS "PEBBLES ", its sustained Msps;
+ 45. the CLI on the card with --checkpoint and --checkpoint-every 4
+     ("health" in its JSON), then --resume from the file.
 Each phase's seconds and the running total are printed after it.
 Each receiver phase sets every kernel's launch count to 0 just before it
 drives the receiver and reads the counts just after (front_means and
@@ -310,21 +332,6 @@ def rel_err(got, ref) -> float:
     return float((got - ref).abs().max() / max(float(ref.abs().max()), 1e-30))
 
 
-def rds_biphase(t: np.ndarray) -> np.ndarray:
-    """The PS groups of "PEBBLES " (PI 0x54A8, group 0A) as differential
-    biphase symbols at 1187.5 baud, sampled at times t
-    (tests/test_chain_batched.py:299-345)."""
-    from pebblesdr_tpu_torch.demod import rds
-    bits = []
-    for _ in range(24):
-        for seg in range(4):
-            d = (ord("PEBBLES "[2 * seg]) << 8) | ord("PEBBLES "[2 * seg + 1])
-            bits += rds.encode_group(0x54A8, (5 << 5) | seg, 0xE0E0, d)
-    sym = np.cumsum(bits) % 2 * 2.0 - 1.0             # differential encoding
-    idx = np.minimum((t * rds.RDS_BAUD).astype(np.int64), len(sym) - 1)
-    return sym[idx] * np.where(t * rds.RDS_BAUD - idx < 0.5, 1.0, -1.0)
-
-
 def wfm_plane(channels: int, n_rows: int, rng, noise: float = 0.0,
               program: str = "mono", t0: float = 0.0, fs: int = FS):
     """[n_rows, 2C] float32 packed plane: broadcast FM at 250 kHz on every
@@ -332,13 +339,14 @@ def wfm_plane(channels: int, n_rows: int, rng, noise: float = 0.0,
     and R, pilot); "left": the L-only 700 Hz program of bench.py's quality
     row; "rds": 1 kHz mono, pilot and the RDS PS groups on 57 kHz.  t0:
     start time."""
+    from pebblesdr_tpu_torch.tools import soak
     t = t0 + np.arange(n_rows) / fs
     th = 2 * np.pi * 19000.0 * t
     if program == "mono":
         comp = 0.45 * np.sin(2 * np.pi * 1000.0 * t) + 0.1 * np.sin(th)
     elif program == "rds":
         comp = (0.3 * np.sin(2 * np.pi * 1000.0 * t) + 0.1 * np.sin(th)
-                + 0.06 * rds_biphase(t) * np.cos(3 * th))
+                + 0.06 * soak.rds_biphase(t) * np.cos(3 * th))
     else:
         lt = np.sin(2 * np.pi * 700.0 * t)
         comp = 0.45 * lt + 0.1 * np.sin(th) + 0.45 * lt * np.sin(2 * th)
@@ -366,6 +374,7 @@ def reset_launches(front, wfm_tail) -> None:
     pll.pll_chunk_scan.launches = 0
     agc.agc_scan.launches = 0
     scanops.auto_iq_balance.launches = 0
+    scanops.anf_scan.launches = 0
 
 
 def am_plane(channels: int, n_rows: int, rng, noise: float = 0.0):
@@ -662,14 +671,17 @@ def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
         from pebblesdr_tpu_torch.ops import pll
         launches = (front.fused_front.launches, wfm_tail.wfm_tail.launches,
                     front.chunk_means.launches, pll.pll_scan.launches,
-                    scanops.auto_iq_balance.launches)
+                    scanops.auto_iq_balance.launches,
+                    scanops.anf_scan.launches)
         k1_launches += launches[0]
         fused = 0 if rx_gpu.staged else 1
         k2 = int(rx_gpu.wfm_tail is not None)
         if launches != (fused, k2, fused, 1 if loop else 0,
-                        int(cfg.enable_iq_balance == "auto")):
+                        int(cfg.enable_iq_balance == "auto"),
+                        int(cfg.enable_anf)):
             raise RuntimeError(f"{tag}: launches (K1, K2, front_means, "
-                               f"pll_scan, iq_lms_scan) = {launches}")
+                               f"pll_scan, iq_lms_scan, anf_scan) = "
+                               f"{launches}")
         d_audio = float((out_g["audio"].cpu() - out_c["audio"]).abs().max())
         d_db = {key: float((out_g[key].cpu() - out_c[key]).abs().max())
                 for key in ("spectrum", "zoomed")}
@@ -807,7 +819,7 @@ def make_cell(torch, receiver, front, mode, name: str, channels: int,
     return {"name": name, "rx": rx, "cfg": cfg, "wfm": wfm, "tone": tone,
             "params": rx.default_params(250_000.0), "iq": iq,
             "blocks": blocks, "channels": channels, "state": rx.init_state(),
-            "out": None, "i": 0, "launches": [0, 0, 0, 0, 0, 0, 0],
+            "out": None, "i": 0, "launches": [0] * 8,
             "windows": [], "checks": checks or {}, "frames": n, "fs": fs}
 
 
@@ -837,6 +849,7 @@ def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
         cell["launches"][4] += front.fused_front.comp_launches
         cell["launches"][5] += pll.pll_scan.launches
         cell["launches"][6] += scanops.auto_iq_balance.launches
+        cell["launches"][7] += scanops.anf_scan.launches
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -860,11 +873,12 @@ def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
         if launches != (fused, k2, fused, scans * fused,
                         k2 if cell["cfg"].wfm_hq else 0,
                         n_dispatch if loop else 0,
-                        n_dispatch if auto else 0):
+                        n_dispatch if auto else 0,
+                        n_dispatch if cell["cfg"].enable_anf else 0):
             raise RuntimeError(f"{tag} {cell['name']}: launches (K1, K2, "
                                f"front_means, front_dc_scan, front_comp, "
-                               f"pll_scan, iq_lms_scan) {launches} for "
-                               f"{n_dispatch} dispatches")
+                               f"pll_scan, iq_lms_scan, anf_scan) "
+                               f"{launches} for {n_dispatch} dispatches")
         windows = cell["windows"]
         best = min(windows)                               # ms per dispatch
         cell.update(block_ms=best / k, msps=c * n * k / (best / 1e3) / 1e6,
@@ -878,7 +892,8 @@ def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
             f"K2 launches {launches[1]}, front_means launches {launches[2]}, "
             f"front_dc_scan launches {launches[3]}, front_comp launches "
             f"{launches[4]}, pll_scan launches {launches[5]}, iq_lms_scan "
-            f"launches {launches[6]} for {n_dispatch} dispatches "
+            f"launches {launches[6]}, anf_scan launches {launches[7]} for "
+            f"{n_dispatch} dispatches "
             f"({launches[0] / n_dispatch:g} K1 per dispatch); peak device "
             f"memory {peak:.3f} GiB" + (" (cells timed together)"
                                         if len(cells) > 1 else ""))
@@ -1148,8 +1163,12 @@ def phase_wfm_time(torch, front, wfm_tail, fw, tl) -> dict:
                    lambda: wfm_tail.wfm_tail_reference(tplan, *targs, hist))
     reps = 10
     k2_launch = kernel_times(torch, lambda: wfm_tail.wfm_tail(tplan, *targs,
-                                                              hist), reps)
-    if [n for _, n in k2_launch.values()] != [reps]:
+                                                              hist), reps,
+                           want=("wfm_tail_march",))
+    # one kernel, at most once a call (the profiler may lose a record,
+    # never add one)
+    if len(k2_launch) != 1 or not 0 < next(iter(k2_launch.values()))[1] \
+            <= reps:
         raise RuntimeError(f"phase11: K2 must be one CUDA launch per call, "
                            f"recorded {breakdown_text(k2_launch)} over "
                            f"{reps} calls")
@@ -1265,23 +1284,37 @@ def phase_cells(torch, receiver, front, wfm_tail, DemodMode) -> dict:
     return done
 
 
-def kernel_times(torch, fn, reps: int = 3) -> dict:
+def kernel_times(torch, fn, reps: int = 3, want: tuple = (),
+                 tries: int = 3) -> dict:
     """{kernel: (device ms per launch, launches recorded)} of each CUDA
-    kernel fn launches, over reps calls (torch.profiler, CUDA activity
-    only; a count below reps means records were lost)."""
+    kernel fn launches, over reps calls: the device records of a
+    torch.profiler trace (CUDA activity only), read from prof.events() as
+    dispatch_profile reads them.  key_averages() is not used: it gives no
+    device time to a record it marks asynchronous, and on the H100 it gave
+    none at all for some traces of a few launches.  A count below reps
+    means records were lost; while no kernel was recorded, or none whose
+    name starts with one of the names in want, the calls are traced
+    again, up to tries traces; the last trace's records are returned."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", 0) or 0
-        m = re.search(r"(front_\w+|wfm_tail_\w+|probe_\w+|recur_\w+)"
-                      r"(<[^>]*>)?", ev.key)
-        if us and m:
-            tot, n = rows.get(m.group(0), (0.0, 0))
-            rows[m.group(0)] = (tot + us / 1e3, n + ev.count)
+    for _ in range(tries):
+        rows = {}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for ev in prof.events():
+            if getattr(ev, "device_type", None) != DeviceType.CUDA:
+                continue
+            m = re.search(r"(front_\w+|wfm_tail_\w+|probe_\w+|recur_\w+)"
+                          r"(<[^>]*>)?", ev.name)
+            if m:
+                tot, n = rows.get(m.group(0), (0.0, 0))
+                rows[m.group(0)] = (tot + (ev.time_range.end
+                                           - ev.time_range.start) / 1e3,
+                                    n + 1)
+        if rows and all(any(k.startswith(w) for k in rows) for w in want):
+            break
     return {k: (tot / n, n) for k, (tot, n) in rows.items()}
 
 
@@ -1297,10 +1330,21 @@ def kernel_breakdown(torch, fn, reps: int = 3) -> str:
     return breakdown_text(kernel_times(torch, fn, reps))
 
 
+def launch_ms(times: dict, name: str) -> float:
+    """The device ms per launch of the kernel whose name starts with name in
+    kernel_times' result (kernel_times(..., want=(name,)) traces again
+    while it has none); a RuntimeError naming the kernel if no trace
+    recorded it."""
+    for k, (ms, _) in times.items():
+        if k.startswith(name):
+            return ms
+    raise RuntimeError(f"torch.profiler recorded no {name} launch in "
+                       f"any of its traces")
+
+
 def fir_launch_ms(times: dict) -> float:
     """front_fir's device ms per launch in kernel_times' result."""
-    return next(ms for k, (ms, _) in times.items()
-                if k.startswith("front_fir"))
+    return launch_ms(times, "front_fir")
 
 
 def check_options_form(torch, front, plan, args, kw, tag: str,
@@ -1380,7 +1424,7 @@ def phase_options_time(torch, front, fr) -> dict:
         b = roofline.k1_bound(plan, k * n, c, 2 if i16 else 4, n, 2048,
                               nb=nb, iq=nb)
         lt = kernel_times(torch, lambda: front.fused_front(plan, *args, **kw),
-                          reps=10)
+                          reps=10, want=("front_fir",))
         res[name] = {"ms": ms, "plain_ms": plain_ms, **check, **b,
                      "fir_ms": fir_launch_ms(lt)}
         log(f"phase15 K1 {form} at {name}: {ms:.4f} ms vs plain "
@@ -1514,7 +1558,8 @@ def phase_front_hq(torch, front, decimator, wfm_mod) -> dict:
                           y_tail_rows=zt, comp_taps=len(taps))
     reps = 10
     lt = kernel_times(torch, lambda: front.fused_front(plan, *args, **kw),
-                      reps=reps)
+                      reps=reps, want=("front_means", "front_dc_scan",
+                                       "front_fir", "front_comp"))
     log(f"phase16 K1e at wfm_hq_64ch: {ms:.4f} ms vs plain {plain_ms:.4f} ms "
         f"per dispatch (runs kernel {t['kernel']}, plain {t['plain']}); bound "
         f"{b['bound_ms']:.4f} ms ({b['bound_by']}); per launch (ms): "
@@ -1892,9 +1937,10 @@ def phase_probes(torch, front, kprobe, kbench2, receiver, DemodMode) -> dict:
             # may lose a record, never add one) and none missing
             planes = 2 if variant in kprobe.TWO_PLANE else 1
             reps = 5
-            kt_times = kernel_times(torch, fns[0], reps=reps)
             want = {"front_means": planes, "front_dc_scan": planes,
                     "probe_toeplitz": 1}
+            kt_times = kernel_times(torch, fns[0], reps=reps,
+                                    want=tuple(want))
             got = {kk: sum(n for name, (_, n) in kt_times.items()
                            if name.startswith(kk)) for kk in want}
             if any(not 0 < got[kk] <= want[kk] * reps for kk in want) or any(
@@ -2090,9 +2136,9 @@ def phase_dc_scan(torch, front) -> dict:
         fns = {"plain": lambda: front.dc_scan_reference(mu, dc, a),
                "kernel": lambda: front.dc_scan(mu, dc, a)}
         t, runs = time_turns(torch, fns)
-        lt = kernel_times(torch, fns["kernel"], reps=10)
-        ms = next(v for kk, (v, _) in lt.items()
-                  if kk.startswith("front_dc_scan"))
+        lt = kernel_times(torch, fns["kernel"], reps=10,
+                          want=("front_dc_scan",))
+        ms = launch_ms(lt, "front_dc_scan")
         b = roofline.scan_bound(mu.shape[0], 2 * c)
         log(f"phase24 front_dc_scan at {name}: {ms:.4f} ms per launch "
             f"({t['kernel']:.4f} ms per call with the copy of the means) vs "
@@ -2189,7 +2235,7 @@ def phase_front_narrow(torch, front, decimator) -> dict:
         ms, plain_ms, t = time_pair(
             torch, kernel,
             lambda: front.fused_front_reference(plan, *args, **tkw))
-        lt = kernel_times(torch, kernel, reps=10)
+        lt = kernel_times(torch, kernel, reps=10, want=("front_fir",))
         b = roofline.k1_bound(plan, k * n, c, 2 if i16 else 4, n, 2048,
                               nb=opts, iq=opts)
         log(f"phase25 K1 {form}: {ms:.4f} ms vs plain {plain_ms:.4f} ms per "
@@ -2284,7 +2330,7 @@ def check_base_form(torch, front, cell, tag: str) -> dict:
     ms, plain_ms, t = time_pair(
         torch, kernel, lambda: front.fused_front_reference(rx.front, *args,
                                                            **kw))
-    lt = kernel_times(torch, kernel, reps=10)
+    lt = kernel_times(torch, kernel, reps=10, want=("front_fir",))
     b = roofline.k1_bound(rx.front, x.shape[0], c, 4, n, 2048)
     log(f"{tag} {cell['name']} K1 base form: {ms:.4f} ms vs plain "
         f"{plain_ms:.4f} ms per dispatch (runs kernel {t['kernel']}, plain "
@@ -2399,13 +2445,12 @@ def hold_loop(torch, name: str, kernel, plain, args, angles, tag: str,
             "shape": shape, "launch_ms": lt}
 
 
-def probe_ns(torch, pll, form: str) -> float:
+def probe_ns(torch, pll, form: str, steps: int = PROBE_STEPS) -> float:
     """The serial floor's step latency of one form (ns): the register-only
-    chain probe over PROBE_STEPS steps, timed by events."""
+    chain probe over `steps` steps, timed by events."""
     pll.chain_probe(form, 256, "cuda")
-    ms = time_cuda(torch, lambda: pll.chain_probe(form, PROBE_STEPS, "cuda"),
-                   3)
-    return ms * 1e6 / PROBE_STEPS
+    ms = time_cuda(torch, lambda: pll.chain_probe(form, steps, "cuda"), 3)
+    return ms * 1e6 / steps
 
 
 def loop_bound(roofline, kind: str, shape, step_ns: float) -> dict:
@@ -2447,7 +2492,8 @@ def phase_loops(torch, front, wfm_tail) -> dict:
     from pebblesdr_tpu_torch.utils import roofline
     c, n, fs = HEADLINE["channels"], HEADLINE["frames"], LOOP_FS
     rng = np.random.default_rng(30)
-    steps_ns = {form: probe_ns(torch, pll, form) for form in pll.PROBE_FORMS}
+    steps_ns = {form: probe_ns(torch, pll, form) for form in pll.PROBE_FORMS
+                if not form.startswith("anf")}    # K8's: phase 41
     log("phase30 chain probe (ns per step, one thread, registers only): "
         + ", ".join(f"{k} {v:.1f}" for k, v in steps_ns.items()))
     res = {}
@@ -2632,6 +2678,8 @@ STAGED_SLICES = (("AM auto", "AM", dict(enable_iq_balance="auto"), None),
                                               enable_noise_blanker=True),
                   "staged_nb1"),
                  ("AM dc off", "AM", dict(enable_dc_removal=False), None),
+                 ("AM auto anf", "AM", dict(enable_iq_balance="auto",
+                                            enable_anf=True), None),
                  ("FMM auto rds", "FMM", dict(enable_iq_balance="auto",
                                               rds=True), None))
 BANK_SLICE = dict(fs=1_024_000, frames=16384, bank=16, dispatches=(3, 3))
@@ -2653,13 +2701,16 @@ class BankCell:
         return self.bank.step_many(state, iq, params, spectra)
 
 
-def make_iqauto_cell(torch, receiver, front):
+def make_iqauto_cell(torch, receiver, front, name: str = "am_iqauto_64ch",
+                     opts: dict | None = None, checks: dict | None = None):
     """am_iqauto_64ch: am_64ch's shape and signal (AM, 64 channels, 32
     blocks of 32768 frames, AGC stride 16) with enable_iq_balance="auto",
-    the plane through tests/test_chain.py:204-236's IQ imbalance."""
-    cell = make_cell(torch, receiver, front, receiver.DemodMode.AM,
-                     "am_iqauto_64ch", HEADLINE["channels"],
-                     HEADLINE["blocks"], opts=dict(enable_iq_balance="auto"))
+    the plane through tests/test_chain.py:204-236's IQ imbalance; opts:
+    more receiver options (another cell of this signal, `name`)."""
+    cell = make_cell(torch, receiver, front, receiver.DemodMode.AM, name,
+                     HEADLINE["channels"], HEADLINE["blocks"],
+                     opts=dict(enable_iq_balance="auto", **(opts or {})),
+                     checks=checks)
     c = HEADLINE["channels"]
     i = cell["iq"][:, :c].clone()
     cell["iq"][:, :c] = 1.06 * i
@@ -2691,7 +2742,7 @@ def make_bank_cell(torch, receiver=None, front=None):
             "params": bank.params,
             "iq": torch.from_numpy(block).cuda().repeat(k, 1).contiguous(),
             "blocks": k, "channels": len(tunes), "state": bank.init_state(),
-            "out": None, "i": 0, "launches": [0] * 7, "windows": [],
+            "out": None, "i": 0, "launches": [0] * 8, "windows": [],
             "checks": dict(snr=False), "frames": n, "spectra_every": 1}
 
 
@@ -3642,6 +3693,339 @@ def phase_cw_cell(torch, receiver, front, wfm_tail, DemodMode,
                 *h["shape"], steps_ns[f"ook {cfg_k.mode}"]))}
 
 
+# ---- phases 41-45: K8 (the ANF), checkpoint/resume, the soak, the CLI ----
+
+ANF_RTOL = 1e-5       # K8 vs anf_plain: y and w' within 1e-5 of their scale
+#                       (the same sums in another order, through the LMS
+#                       feedback: 2048 updates at the staged shape)
+# K8's shapes: (tag, channels (2C rows), samples per call, update_every,
+# calls carrying the state)
+ANF_SHAPES = (("staged", 64, 32768, 16, 3), ("batched", 64, 32768, 1024, 3),
+              ("sample", 64, 2048, 1, 2))
+SOAK = dict(seconds=60.0, channels=64, blocks=32)
+CKPT_DIR = "build/chip_smoke_ckpt"
+
+
+def make_iqauto_anf_cell(torch, receiver, front):
+    """am_iqauto_anf_64ch: am_iqauto_64ch with enable_anf=True (the staged
+    front, K5, then K8 at U = 16: shortwave AM through a mismatched I/Q
+    path with the adaptive noise filter); its tone SNR printed, the ANF's
+    adaptation held."""
+    return make_iqauto_cell(torch, receiver, front, "am_iqauto_anf_64ch",
+                            dict(enable_anf=True),
+                            dict(snr=False, anf=True))
+
+
+def make_anf_long_cell(torch, receiver, front):
+    """am_anf_long_64ch (phase 29's cell): AM with the ANF (K8 at U = the
+    demod block, 1024: one update per block) and AGC "long"."""
+    _, mode, opts, plane, checks = NEW_CELLS[2]
+    return make_cell(torch, receiver, front, receiver.DemodMode[mode],
+                     "am_anf_long_64ch", HEADLINE["channels"],
+                     HEADLINE["blocks"], opts=opts, plane=plane,
+                     checks=checks)
+
+
+# the ANF cells of this slice, by name (tools/cell_profile.py reads it)
+ANF_CELLS = {"am_anf_long_64ch": make_anf_long_cell,
+             "am_iqauto_anf_64ch": make_iqauto_anf_cell}
+
+
+def anf_signal(c: int, n: int, rng) -> np.ndarray:
+    """[c, n] complex64 at the demod rate (64 kHz): an 800 Hz tone (a phase
+    per channel), 2100 Hz on I, and noise at 0.1."""
+    t = np.arange(n) / 64_000.0 + rng.random()
+    x = (0.3 * np.exp(1j * (2 * np.pi * 800.0 * t
+                            + np.arange(c)[:, None]))
+         + 0.2 * np.cos(2 * np.pi * 2100.0 * t)
+         + 0.1 * (rng.standard_normal((c, n))
+                  + 1j * rng.standard_normal((c, n))))
+    return x.astype(np.complex64)
+
+
+def phase_anf(torch, front, wfm_tail) -> dict:
+    """Phase 41: K8 (csrc/recur.cu anf_scan) through its entry point
+    scanops.anf at the main path's shapes, complex [64, N] (128 rows):
+    the staged front's U = 16 over [64, 32768] (2048 updates a call), the
+    batched graph's U = 1024 (32 updates) and the sample-exact U = 1 over
+    [64, 2048]; each over several calls carrying the state, one launch
+    per call (the counts at 0 first), y and w' within ANF_RTOL of their
+    scale of anf_plain (on the stacked rows, from the same state); then
+    K8 alone (anf_scan on the rows) timed over 10 calls with its
+    per-launch device time, the plain version once, the chain probe's ns
+    per update ("anf <U>", the register-only chain of one update) and the
+    bound."""
+    from pebblesdr_tpu_torch.ops import pll, scanops
+    from pebblesdr_tpu_torch.utils import roofline
+    done = {}
+    for tag, c, n, u, calls in ANF_SHAPES:
+        rng = np.random.default_rng(41 + u)
+        xs = [torch.from_numpy(anf_signal(c, n, rng)).cuda()
+              for _ in range(calls)]
+        st = scanops.anf_init(c, "cuda", dtype=torch.complex64)
+        w_p = torch.zeros(2 * c, scanops.ANF_TAPS, device="cuda")
+        h_p = torch.zeros(2 * c, st.delay.shape[-1], device="cuda")
+        reset_launches(front, wfm_tail)
+        err_y = err_w = rel_y = rel_w = 0.0
+        plain_ms = 0.0
+        for x in xs:
+            w_in, h_in = w_p, h_p
+            st, y = scanops.anf(st, x, update_every=u)
+            rows = torch.cat([x.real, x.imag]).contiguous()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            y_p, w_p, h_p = scanops.anf_plain(rows, w_in, h_in,
+                                              update_every=u)
+            end.record()
+            end.synchronize()
+            plain_ms = start.elapsed_time(end)
+            yk = torch.cat([y.real, y.imag])
+            wk = torch.cat([st.weights.real, st.weights.imag])
+            err_y = max(err_y, float((yk - y_p).abs().max()))
+            err_w = max(err_w, float((wk - w_p).abs().max()))
+            rel_y = max(rel_y, err_y / float(y_p.abs().max()))
+            rel_w = max(rel_w, err_w / float(w_p.abs().max()))
+            hk = torch.cat([st.delay.real, st.delay.imag])
+            if not torch.equal(hk, h_p):
+                raise RuntimeError(f"phase41 {tag}: K8's history differs "
+                                   f"from the plain version's")
+        torch.cuda.synchronize()
+        launches = scanops.anf_scan.launches
+        if launches != calls:
+            raise RuntimeError(f"phase41 {tag}: {launches} K8 launches for "
+                               f"{calls} calls")
+        rows = torch.cat([xs[-1].real, xs[-1].imag]).contiguous()
+        h_p = h_p.contiguous()          # anf_plain's history is a view
+
+        def kernel():
+            return scanops.anf_scan(rows, w_p, h_p, update_every=u)
+
+        ms = time_cuda(torch, kernel, 10)
+        lt = kernel_times(torch, kernel, reps=3)
+        step_ns = probe_ns(torch, pll, f"anf {u}")
+        b = roofline.anf_scan_bound(2 * c, n, u, step_ns)
+        adapted = float(st.weights.abs().max())
+        log(f"phase41 anf_scan {tag} [{2 * c} rows, {n}] U={u} "
+            f"({n // u} updates): {launches} launches for {calls} calls; "
+            f"kernel {ms:.4f} ms per call (per launch {breakdown_text(lt)}) "
+            f"vs plain {plain_ms:.1f} ms; max |y - plain| {err_y:.3g} "
+            f"({rel_y:.3g} of scale), max |w' - plain| {err_w:.3g} "
+            f"({rel_w:.3g} of scale) (<= {ANF_RTOL}); max |w| {adapted:.4g};"
+            f" chain probe {step_ns:.1f} ns per update; bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}; bytes "
+            f"{b['bytes'] / 3.35e9:.4f} ms, operations "
+            f"{b['ops'] / 67e9:.4f} ms, serial floor {b['serial_ms']:.4f} "
+            f"ms): {b['bound_ms'] / ms:.1%} of it")
+        if not (rel_y <= ANF_RTOL and rel_w <= ANF_RTOL and adapted > 1e-3):
+            raise RuntimeError(f"phase41 {tag}: K8 disagrees with its plain "
+                               f"version")
+        done[tag] = {"ms": ms, "plain_ms": plain_ms,
+                     "max_abs_err": max(err_y, err_w), "rel_y": rel_y,
+                     "rel_w": rel_w, "shape": (2 * c, n), "u": u,
+                     "step_ns": step_ns, "launch_ms": lt,
+                     "launches": launches, **b}
+        del xs, rows
+    return done
+
+
+def phase_anf_cells(torch, receiver, front, wfm_tail) -> dict:
+    """Phase 42: am_anf_long_64ch re-timed with K8 (U = 1024, one launch
+    per dispatch) and the new cell am_iqauto_anf_64ch (the staged front,
+    K5, K8 at U = 16), each timed alone with its launch counts, the ANF
+    adapted, its tone SNR printed, peak memory and a profile of its
+    dispatches (kernels per dispatch, host enqueue, device busy); then
+    am_iqauto_anf_64ch's dispatch with anf_plain in K8's place, one window,
+    timed once: the loop this kernel replaces."""
+    from pebblesdr_tpu_torch.ops import scanops
+    done = {}
+    for make in ANF_CELLS.values():
+        cell = make(torch, receiver, front)
+        time_cells(torch, front, wfm_tail, [cell], "phase42")
+        prof = dispatch_profile(torch, cell, "phase42")
+        done[cell["name"]] = {key: cell[key] for key in (
+            "launches", "block_ms", "msps", "realtime", "peak_gib",
+            "snr_db", "windows")}
+        done[cell["name"]].update(prof)
+        if cell["name"] == "am_iqauto_anf_64ch":
+            kernel = scanops.anf_scan
+            scanops.anf_scan = scanops.anf_plain
+            try:
+                st = [cell["state"]]
+
+                def dispatch():
+                    st[0], _ = cell["rx"].step_many(st[0], cell["params"],
+                                                    cell["iq"],
+                                                    spectra=False)
+
+                ms = time_cuda(torch, dispatch, WINDOW_DISPATCHES)
+            finally:
+                scanops.anf_scan = kernel
+            done["plain_loop_ms"] = ms
+            log(f"phase42 am_iqauto_anf_64ch with anf_plain in K8's place "
+                f"(one window of {WINDOW_DISPATCHES} dispatches, spectra "
+                f"off): {ms:.4f} ms per dispatch, against "
+                f"{prof['ms']:.4f} ms with K8")
+        del cell
+        torch.cuda.empty_cache()
+    return done
+
+
+def outputs_equal(torch, a, b, prefix: str = "") -> list:
+    """The keys (dotted into dicts) where two outputs of step_many differ
+    in any bit."""
+    if isinstance(a, dict):
+        return [bad for key in a for bad in outputs_equal(
+            torch, a[key], b[key], f"{prefix}{key}.")]
+    return [] if bits_equal(torch, a, b) else [prefix.rstrip(".")]
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Two tensors equal bit for bit (NaNs too)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    return torch.equal(a.reshape(-1).contiguous().view(torch.uint8),
+                       b.reshape(-1).contiguous().view(torch.uint8))
+
+
+def phase_checkpoint(torch, receiver, front, wfm_tail) -> dict:
+    """Phase 43: checkpoint/resume on the card.  am_iqauto_anf_64ch's
+    receiver (the staged front, K5, K8) runs six dispatches from its
+    initial state; a second receiver runs three, saves its state with
+    utils/checkpoint.py into a file, and a fresh Receiver loads it and
+    runs dispatches 4-6 (K5 and K8 once each a dispatch): every output and
+    the final state equal to the uninterrupted run's bit for bit.  The
+    kernels on this path use no atomics; a difference names the outputs
+    and state leaves that differ and fails."""
+    import os
+
+    from pebblesdr_tpu_torch.ops import scanops
+    from pebblesdr_tpu_torch.utils import checkpoint
+    cell = make_iqauto_anf_cell(torch, receiver, front)
+    rx, params, iq = cell["rx"], cell["params"], cell["iq"]
+    st = rx.init_state()
+    ref = []
+    for d in range(6):
+        st, out = rx.step_many(st, params, iq)
+        if d >= 3:
+            ref.append(out)
+    ref_state = convert_leaves(st)
+    st = rx.init_state()
+    for _ in range(3):
+        st, _ = rx.step_many(st, params, iq)
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    path = os.path.join(CKPT_DIR, "am_iqauto_anf_64ch.npz")
+    checkpoint.save_state(path, st, extra={"dispatches": 3})
+    rx2 = receiver.Receiver(cell["cfg"], "cuda")
+    st2, extra = checkpoint.load_state(path, rx2.init_state())
+    reset_launches(front, wfm_tail)
+    bad = []
+    for d in range(3):
+        st2, out = rx2.step_many(st2, params, iq)
+        bad += [f"dispatch {4 + d} {key}"
+                for key in outputs_equal(torch, ref[d], out)]
+    torch.cuda.synchronize()
+    launches = (scanops.auto_iq_balance.launches, scanops.anf_scan.launches,
+                front.fused_front.launches)
+    leaves = convert_leaves(st2)
+    bad += [f"state leaf {i}" for i, (a, b) in enumerate(zip(ref_state,
+                                                            leaves))
+            if not bits_equal(torch, a, b)]
+    log(f"phase43 checkpoint of am_iqauto_anf_64ch after dispatch 3 "
+        f"({os.path.getsize(path) / 2 ** 20:.2f} MiB, {len(leaves)} leaves, "
+        f"extra {extra}), resumed in a fresh Receiver: launches (K5, K8, K1) "
+        f"{launches} for 3 dispatches; dispatches 4-6 and the final state "
+        f"bit-equal to the uninterrupted run: {not bad}"
+        + (f"; differ: {', '.join(bad[:12])}" if bad else ""))
+    if launches != (3, 3, 0) or bad:
+        raise RuntimeError("phase43: the resumed run is not the "
+                           "uninterrupted run's bit for bit")
+    del cell, ref, st, st2
+    torch.cuda.empty_cache()
+    return {"launches": launches, "leaves": len(leaves)}
+
+
+def convert_leaves(state) -> list:
+    from pebblesdr_tpu_torch.utils import convert
+    return [leaf.clone() for leaf in convert.leaves(state)]
+
+
+def phase_soak(torch, front, wfm_tail) -> dict:
+    """Phase 44: the port's soak (pebblesdr_tpu_torch/tools/soak.py) on the
+    card: WFM stereo + RDS, 64 channels, dispatches of 32 blocks, for
+    SOAK["seconds"] of wall clock, the state carried, the host RDS decode
+    running; K1 and K2 once per dispatch; it passes on no bad dispatch,
+    RDS synced and the PS "PEBBLES "."""
+    from pebblesdr_tpu_torch.tools import soak
+    reset_launches(front, wfm_tail)
+    res = soak.run(SOAK["seconds"], SOAK["channels"], SOAK["blocks"], False,
+                   "cuda")
+    torch.cuda.synchronize()
+    launches = (front.fused_front.launches, wfm_tail.wfm_tail.launches)
+    log(f"phase44 soak {json.dumps(res)}; launches (K1, K2) {launches} for "
+        f"{res['dispatches'] + 1} dispatches")
+    if not (res["bad_dispatches"] == 0 and res["rds_synced"]
+            and res["rds_ps"] == "PEBBLES "
+            and launches == (res["dispatches"] + 1,) * 2):
+        raise RuntimeError("phase44: the soak failed")
+    return res
+
+
+def phase_cli_checkpoint(torch) -> dict:
+    """Phase 45: the CLI on the card with --checkpoint and
+    --checkpoint-every 4 (a 2 s synthetic AM run: the supervisor's
+    snapshots every 4 blocks, "health" in the JSON), then a run that
+    resumes from the file with --resume; the saved state loads into the
+    configuration's Receiver."""
+    import io
+    import os
+
+    from pebblesdr_tpu_torch.serve import cli
+    from pebblesdr_tpu_torch.utils import checkpoint
+    os.makedirs(CLI_DIR, exist_ok=True)
+    ck = os.path.join(CLI_DIR, "state.npz")
+    argv = ["--synthetic", "am", "--mode", "AM", "--tune", "250000",
+            "--noise-db", "-60", "--json", "--device", "cuda"]
+    runs = {}
+    for name, extra in (("checkpoint", ["--seconds", "2.0", "--checkpoint",
+                                        ck, "--checkpoint-every", "4"]),
+                        ("resume", ["--seconds", "1.0", "--resume", ck])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv + extra)
+        m = json.loads(buf.getvalue().strip().splitlines()[-1])
+        runs[name] = m
+        h = m.get("health")
+        log(f"phase45 CLI {name}: rc {rc}, {m['blocks']} blocks, realtime "
+            f"factor {m['realtime_factor']}, snr {m['snr_db']} dB"
+            + (f", health {json.dumps({**h, 'events': len(h['events'])})} "
+               f"(events: {', '.join(sorted({e['kind'] for e in h['events']}))}"
+               f" at blocks {h['events'][0]['block']}.."
+               f"{h['events'][-1]['block']})" if h else ""))
+        if rc != 0:
+            raise RuntimeError(f"phase45 CLI {name}: exit {rc}")
+    health = runs["checkpoint"].get("health")
+    kinds = [e["kind"] for e in (health or {}).get("events", [])]
+    want = runs["checkpoint"]["blocks"] // 4
+    rx = receiver_for_cli(torch)
+    _, extra = checkpoint.load_state(ck, rx.init_state())
+    if not (health and health["blocks"] == runs["checkpoint"]["blocks"]
+            and kinds == ["checkpoint"] * want
+            and extra == {"blocks": runs["checkpoint"]["blocks"]}
+            and "health" not in runs["resume"]
+            and runs["resume"]["squelch_open"]):
+        raise RuntimeError("phase45: the CLI's checkpoint/resume failed")
+    return runs
+
+
+def receiver_for_cli(torch):
+    """The Receiver the CLI builds for phase 45's arguments."""
+    from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
+    from pebblesdr_tpu_torch.demod.modes import DemodMode
+    return Receiver(ReceiverConfig(sample_rate=FS, frames_per_buffer=32768,
+                                   mode=DemodMode.AM), "cuda")
+
+
 def conv_ieee(torch) -> None:
     """Phase 0: fir_apply's conv1d with cuDNN's TF32 allowed is held to a
     float64 convolution within 1e-5 of scale (TF32's 10-bit mantissa would
@@ -3809,6 +4193,16 @@ def main() -> int:
     cw = phase_cw_cell(torch, receiver, front, wfm_tail, DemodMode,
                        dk["steps_ns"])
     clock("phase 40")
+    k8 = phase_anf(torch, front, wfm_tail)
+    clock("phase 41")
+    acells = phase_anf_cells(torch, receiver, front, wfm_tail)
+    clock("phase 42")
+    phase_checkpoint(torch, receiver, front, wfm_tail)
+    clock("phase 43")
+    phase_soak(torch, front, wfm_tail)
+    clock("phase 44")
+    phase_cli_checkpoint(torch)
+    clock("phase 45")
 
     c, n, k = HEADLINE["channels"], HEADLINE["frames"], HEADLINE["blocks"]
     t = n * k
@@ -4014,6 +4408,20 @@ def main() -> int:
          **{key: k7[key] for key in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by")},
          "library_ms": None},
+    ] + [
+        # K8 (csrc/recur.cu; replaces anf's lax.scan): launches from the
+        # timed cell that runs each form (phase 42), times, error and
+        # bound at the cell's shape (phase 41); no PyTorch call computes
+        # the LMS recurrence: library_ms null
+        {"name": f"anf_scan (the ANF's block LMS, U = {k8[tag]['u']}: "
+                 f"{cell}, {k8[tag]['shape']})", "route": "cuda",
+         "source": scanops.SOURCE, "replaces": scanops.ANF_REPLACES,
+         "launches": acells[cell]["launches"][7],
+         **{key: k8[tag][key] for key in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by")},
+         "library_ms": None}
+        for tag, cell in (("staged", "am_iqauto_anf_64ch"),
+                          ("batched", "am_anf_long_64ch"))
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,19 +3,22 @@
 // pll_chunk_scan), the scan AGC's attack / decay / hang smoother (K4
 // agc_scan), the adaptive IQ balance's LMS loop (K5 iq_lms_scan), the OOK
 // detector's envelopes, decision and debounce over Goertzel frames (K6
-// ook_scan) and the test generator's frequency sweep (K7 sweep_scan).
+// ook_scan), the test generator's frequency sweep (K7 sweep_scan) and the
+// ANF's leaky block LMS (K8 anf_scan).
 //
 // Replaces no Pallas kernel: in the JAX package each is a jax.lax.scan,
 // pll.pll_run (pebblesdr_tpu/ops/pll.py:116), the loop of
 // pll.pll_run_blockwise (:182), the scan of agc.agc_apply
 // (pebblesdr_tpu/ops/agc.py:298), scanops.auto_iq_balance
 // (pebblesdr_tpu/ops/scanops.py:164), goertzel.ook_detect
-// (pebblesdr_tpu/ops/goertzel.py:375) and siggen.sweep
-// (pebblesdr_tpu/core/siggen.py:119).  The plain PyTorch versions are
-// pll_scan_plain and pll_chunk_scan_plain in ops/pll.py, agc_scan_plain in
-// ops/agc.py, iq_lms_scan_plain in ops/scanops.py, ook_detect_plain in
-// ops/goertzel.py and sweep_plain in core/siggen.py: a Python loop over
-// time of the same arithmetic on [C] (or 0-d) tensors.
+// (pebblesdr_tpu/ops/goertzel.py:375), siggen.sweep
+// (pebblesdr_tpu/core/siggen.py:119) and scanops.anf (scanops.py:257).
+// The plain PyTorch versions are pll_scan_plain and pll_chunk_scan_plain
+// in ops/pll.py, agc_scan_plain in ops/agc.py, iq_lms_scan_plain and
+// anf_plain in ops/scanops.py, ook_detect_plain in ops/goertzel.py and
+// sweep_plain in core/siggen.py: a Python loop over time of the same
+// arithmetic on [C] (or 0-d) tensors (anf_plain: over the updates, each a
+// few batched matmuls).
 //
 // What bounds K3, K3c, K4, K6 and K7: the latency of one step's dependent
 // chain, times the steps.  Each channel's state (three to six scalars)
@@ -683,6 +686,220 @@ __global__ void __launch_bounds__(kIqThreads)
   if (tid == 0) w_out[c] = make_float2(chain.wr, chain.wi);
 }
 
+// K8: the ANF's leaky block LMS (scanops.anf) on one real row.  full = [the
+// carried history (H = delay + taps - 1 samples), x]; for update i of U
+// samples, with the weights w held:
+//   pred[m] = sum_k full[iU + m + k] w[k]    (x delayed by delay..H)
+//   err[m]  = x[iU + m] - pred[m]            (the output is pred)
+//   w'      = leak w + alpha sum_m err[m] full[iU + m + k],  alpha = 2 rate/U.
+// The frames never depend on w and output m reads x only up to m - delay,
+// so the one serial state is the taps-long weight vector: updates run one
+// after another, the work inside an update does not.
+//
+// Design: one block of kAnfThreads per row (2C rows for C complex
+// channels).  The row streams through a shared ring of kAnfRing floats in
+// slabs of kAnfSlab samples by cp.async, issued as far ahead as the ring
+// allows (16-byte copies where N % 4 == 0, else 4-byte); the history sits
+// just below x in the ring, so every frame is a ring read.  An update runs
+// in pieces of at most kAnfPiece outputs (the U = 16 of the staged front
+// is one piece; U = 1024 of the batched graph one; larger U several, the
+// gradient summed across them), each in two phases with a barrier after
+// each:
+//   * predictions: G lanes per output (G = 32 ... 1 as U grows, so a small
+//     update still spreads over the block), each lane a stride-G share of
+//     the taps, summed by G-lane shuffles; the output goes to y, the error
+//     to shared memory;
+//   * gradient: thread k (< taps) of each of kAnfSlices slices sums err[m]
+//     frame[m][k] over its slice of the piece; after the barrier thread k
+//     adds the slices and, at the update's last piece, sets w'[k] (held in
+//     its register and in shared memory for the next predictions).
+// No atomics: every sum has a fixed order, so a launch repeats its bits.
+// What bounds it: at U = 16 the chain of 2048 updates per dispatch, each
+// ~14 dependent float32 operations (probe_anf_kernel); at large U the ~4
+// float32 operations per tap and sample; the bytes (x read, y written
+// once) are ~0.01 ms at [128, 32768].  This design adds three barriers of
+// four warps and the shuffles to every update, far above that chain.
+constexpr int kAnfThreads = 128;
+constexpr int kAnfMaxTaps = 64;
+constexpr int kAnfSlices = kAnfThreads / kAnfMaxTaps;   // 2
+constexpr int kAnfSlab = 1024;        // samples per staged slab
+constexpr int kAnfRing = 8192;        // ring floats (32 KB)
+constexpr int kAnfMask = kAnfRing - 1;
+constexpr int kAnfPiece = 2048;       // outputs per piece at most
+constexpr int kAnfMaxHist = 124;      // H, so that H rounded up to 4 <= 128
+static_assert(kAnfPiece + kAnfSlab + kAnfMaxHist <= kAnfRing,
+              "a piece's window and the slab after it must fit the ring");
+
+struct AnfShared {
+  float ring[kAnfRing];            // full[p] at ring[(p + o) & kAnfMask]
+  float err[kAnfPiece];            // the piece's errors
+  float w[kAnfMaxTaps];            // the weights the predictions read
+  float part[kAnfSlices][kAnfMaxTaps];   // the gradient slices' sums
+};
+
+// One piece of an update: outputs base .. base + len - 1 (x indices) with
+// the weights in sm.w; o = HP - H places full position p at ring p + o and
+// x index j at j + HP.  Thread k < taps keeps w[k] in wk and the update's
+// gradient so far in gacc; at the update's last piece (last) it sets w'.
+__device__ __forceinline__ void anf_piece(AnfShared& sm, float* y, int base,
+                                          int len, bool last, int taps,
+                                          int o, int hp, float alpha,
+                                          float leak, float& wk,
+                                          float& gacc) {
+  const int tid = threadIdx.x;
+  int g = 32;
+  while (g > 1 && g * len > kAnfThreads) g >>= 1;
+  const int per = kAnfThreads / g, sub = tid % g, slot = tid / g;
+  for (int m0 = 0; m0 < len; m0 += per) {
+    const int m = m0 + slot;
+    float acc = 0.f;
+    if (m < len) {
+      const int p = base + m + o;
+#pragma unroll 4
+      for (int k = sub; k < taps; k += g)
+        acc = fmaf(sm.ring[(p + k) & kAnfMask], sm.w[k], acc);
+    }
+    for (int d = g >> 1; d > 0; d >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, d);
+    if (m < len && sub == 0) {
+      sm.err[m] = sm.ring[(base + m + hp) & kAnfMask] - acc;
+      y[base + m] = acc;
+    }
+  }
+  __syncthreads();
+  const int k = tid % kAnfMaxTaps, q = tid / kAnfMaxTaps;
+  const int span = (len + kAnfSlices - 1) / kAnfSlices;
+  const int lo = q * span, hi = min(len, lo + span);
+  float gs = 0.f;
+  if (k < taps) {
+    const int p = base + k + o;
+#pragma unroll 4
+    for (int m = lo; m < hi; ++m)
+      gs = fmaf(sm.err[m], sm.ring[(p + m) & kAnfMask], gs);
+  }
+  sm.part[q][k] = gs;
+  __syncthreads();
+  if (tid < taps) {
+    float s = sm.part[0][tid];
+#pragma unroll
+    for (int j = 1; j < kAnfSlices; ++j) s += sm.part[j][tid];
+    gacc += s;
+    if (last) {
+      wk = fmaf(alpha, gacc, leak * wk);
+      sm.w[tid] = wk;
+      gacc = 0.f;
+    }
+  }
+  __syncthreads();
+}
+
+struct AnfArgs {
+  const float* x;       // [R, N]
+  const float* w;       // [R, taps]
+  const float* hist;    // [R, H]
+  float* y;             // [R, N]
+  float* w_out;         // [R, taps]
+  float* hist_out;      // [R, H]
+  int N, U, taps, H;
+  float alpha, leak;
+};
+
+__global__ void __launch_bounds__(kAnfThreads) recur_anf_kernel(AnfArgs a) {
+  __shared__ __align__(16) AnfShared sm;
+  const int r = blockIdx.x, tid = threadIdx.x;
+  const float* xr = a.x + static_cast<size_t>(r) * a.N;
+  float* yr = a.y + static_cast<size_t>(r) * a.N;
+  const int hp = (a.H + 3) & ~3, o = hp - a.H;
+  const bool vec = (a.N % 4 == 0) &&
+                   (reinterpret_cast<uintptr_t>(a.x) % 16 == 0);
+  for (int h = tid; h < a.H; h += kAnfThreads)
+    sm.ring[o + h] = a.hist[static_cast<size_t>(r) * a.H + h];
+  float wk = 0.f, gacc = 0.f;
+  if (tid < a.taps) {
+    wk = a.w[static_cast<size_t>(r) * a.taps + tid];
+    sm.w[tid] = wk;
+  }
+  const int slabs = (a.N + kAnfSlab - 1) / kAnfSlab;
+  int issued = 0, landed = 0;
+  const int updates = a.U > 0 ? a.N / a.U : 0;
+  for (int i = 0; i < updates; ++i) {
+    for (int m0 = 0; m0 < a.U; m0 += kAnfPiece) {
+      const int len = min(kAnfPiece, a.U - m0);
+      const int base = i * a.U + m0;
+      // issue every slab whose ring slots no longer hold a sample this
+      // piece or a later one reads (full positions >= base)
+      while (issued < slabs &&
+             (issued + 1) * kAnfSlab + a.H - base <= kAnfRing) {
+        const int j0 = issued * kAnfSlab, n = min(kAnfSlab, a.N - j0);
+        if (vec) {
+          for (int q = 4 * tid; q < n; q += 4 * kAnfThreads)
+            cp_async(&sm.ring[(hp + j0 + q) & kAnfMask], xr + j0 + q, 16);
+        } else {
+          for (int q = tid; q < n; q += kAnfThreads)
+            cp_async(&sm.ring[(hp + j0 + q) & kAnfMask], xr + j0 + q, 4);
+        }
+        asm volatile("cp.async.commit_group;\n" ::);
+        ++issued;
+      }
+      const int need = (base + len + kAnfSlab - 1) / kAnfSlab;
+      if (landed < need) {
+        // the slabs after `need` may stay in flight (at most two waited
+        // on: wait_group takes a constant)
+        const int pend = issued - need;
+        if (pend >= 2) {
+          asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+          landed = issued - 2;
+        } else if (pend == 1) {
+          asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+          landed = issued - 1;
+        } else {
+          asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+          landed = issued;
+        }
+        __syncthreads();
+      }
+      anf_piece(sm, yr, base, len, m0 + len == a.U, a.taps, o, hp, a.alpha,
+                a.leak, wk, gacc);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  if (tid < a.taps) a.w_out[static_cast<size_t>(r) * a.taps + tid] = wk;
+  // hist' = the last H samples of full = [hist, x]
+  for (int h = tid; h < a.H; h += kAnfThreads) {
+    const int p = a.N + h;
+    a.hist_out[static_cast<size_t>(r) * a.H + h] =
+        p < a.H ? a.hist[static_cast<size_t>(r) * a.H + p] : xr[p - a.H];
+  }
+}
+
+// K8's serial floor: one thread runs `steps` updates' dependent chain on
+// registers, with no barriers, no shuffles and no memory inside the loop.
+// Only the weights carry from one update to the next, so the chain of an
+// update is what no design can take off it: a tap's product w[k] f[k] and
+// the 6 levels of the 45-tap sum's tree (the prediction), the error, a
+// gradient term err f[k] and the Lg = ceil(log2 U) levels of the U-term
+// sum's tree, and the leaky FMA (leak w[k] is off the chain).  The other
+// taps and outputs are independent of this chain and are counted as
+// operations (utils/roofline.py anf_scan_bound), not here.  Each tree
+// level is one dependent add (with __fadd_rn, which the compiler neither
+// contracts nor reassociates); the constants keep w finite.
+template <int Lg>
+__global__ void __launch_bounds__(1) probe_anf_kernel(int steps,
+                                                      float* out) {
+  const float f = 0.37f, x = 0.5f, alpha = 2e-3f, leak = 1.f - 1e-5f;
+  float w = 0.f;
+  for (int t = 0; t < steps; ++t) {
+    float s = __fmul_rn(w, f);
+#pragma unroll
+    for (int l = 0; l < 6; ++l) s = __fadd_rn(s, 1e-3f * (l + 1));
+    float g = __fmul_rn(__fsub_rn(x, s), f);
+#pragma unroll
+    for (int l = 0; l < Lg; ++l) g = __fadd_rn(g, 1e-4f * (l + 1));
+    w = __fmaf_rn(alpha, g, __fmul_rn(leak, w));
+  }
+  out[0] = w;
+}
+
 // The serial floor's probe: one thread runs `steps` steps of a Step's
 // chain on inputs held in registers (x fixed for the loops, which then
 // lock, a square wave for the AGC), with no shared or device memory inside
@@ -897,6 +1114,29 @@ int recur_sweep_scan(int device, int mode, int n, float inv_fs, float df,
   return cudaGetLastError();
 }
 
+// K8: x [R, N] float32 rows, the weights w [R, taps] and the history hist
+// [R, H] (H = delay + taps - 1) -> y [R, N] (the predictions), w' and hist';
+// one weight update every U samples (N a multiple of U), alpha = 2 rate /
+// U, leak the weights' leak.  One block per row.  Returns the first CUDA
+// error.
+int recur_anf_scan(int device, const float* x, int R, int N, int U,
+                   int taps, int H, float alpha, float leak, const float* w,
+                   const float* hist, float* y, float* w_out,
+                   float* hist_out, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (R <= 0 || N < 0 || U <= 0 || N % U || taps <= 0 ||
+      taps > kAnfMaxTaps || H < taps - 1 || H > kAnfMaxHist)
+    return cudaErrorInvalidValue;
+  AnfArgs a{x, w, hist, y, w_out, hist_out, N, U, taps, H, alpha, leak};
+  recur_anf_kernel<<<R, kAnfThreads, 0, (cudaStream_t)stream>>>(a);
+  return cudaGetLastError();
+}
+
+// K8's limits (the wrapper reads them): taps and history length at most.
+int recur_anf_max_taps() { return kAnfMaxTaps; }
+int recur_anf_max_hist() { return kAnfMaxHist; }
+
 // Samples per K5 group and per tile (the wrapper and the tests read them).
 int recur_iq_group() { return kIqGroup; }
 int recur_iq_tile() { return kIqTile; }
@@ -905,7 +1145,9 @@ int recur_iq_tile() { return kIqTile; }
 // detector 0-3, 4 pll_chunk_scan, 5 its pilot form, 6 agc_scan with the
 // hang, 7 without, 8 iq_lms_scan, 9-14 ook_scan in the threshold mode 0-5,
 // 15-17 sweep_scan in the mode 0-2 (no pulses: the floor of a pulsed call
-// too, which only adds the counter); out [1] float32.  Time it over many
+// too, which only adds the counter), 18-20 anf_scan's update at U = 1, 16
+// and 1024 (probe_anf_kernel: the time per step is per update); out [1]
+// float32.  Time it over many
 // steps: the time per step is the latency of the form's dependent chain.
 int recur_probe(int device, int form, int steps, float* out, void* stream) {
   const float a = 0.0139f, b = 9.6e-5f, lo = -0.098f, hi = 0.098f;
@@ -942,6 +1184,19 @@ int recur_probe(int device, int form, int steps, float* out, void* stream) {
           SweepStep{1.f / 48000.f, 2.0833333f, 100.f, 2000.f, 100.f, 2000.f,
                     form - 15, 0, 0, 0.f, 100.f, 1.f, 0},
           steps, out);
+      return cudaGetLastError();
+    }
+    case 18:
+    case 19:
+    case 20: {
+      cudaError_t err = cudaSetDevice(device);
+      if (err != cudaSuccess) return err;
+      if (form == 18)           // U = 1: no gradient tree
+        probe_anf_kernel<0><<<1, 1, 0, (cudaStream_t)stream>>>(steps, out);
+      else if (form == 19)      // U = 16
+        probe_anf_kernel<4><<<1, 1, 0, (cudaStream_t)stream>>>(steps, out);
+      else                      // U = 1024
+        probe_anf_kernel<10><<<1, 1, 0, (cudaStream_t)stream>>>(steps, out);
       return cudaGetLastError();
     }
     default:

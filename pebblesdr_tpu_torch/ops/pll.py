@@ -348,14 +348,16 @@ def _lib():
     return lib
 
 
-# the forms of csrc/recur.cu's chain probe (recur_probe's form 0-17; "iq
+# the forms of csrc/recur.cu's chain probe (recur_probe's form 0-20; "iq
 # lms" is K5's, ops/scanops.py auto_iq_balance; "ook <mode>" K6's in each
 # threshold mode, ops/goertzel.py ook_detect; "sweep <mode>" K7's without
-# pulses, core/siggen.py sweep)
+# pulses, core/siggen.py sweep; "anf <U>" K8's update of U samples,
+# ops/scanops.py anf: its time per step is per update)
 PROBE_FORMS = DETECTORS + (
     "chunk", "chunk pilot", "agc hang", "agc", "iq lms",
     "ook compare", "ook peak", "ook average", "ook min_max", "ook manual",
-    "ook noise", "sweep single", "sweep repeat", "sweep repeat_reverse")
+    "ook noise", "sweep single", "sweep repeat", "sweep repeat_reverse",
+    "anf 1", "anf 16", "anf 1024")
 
 
 def chain_probe(form: str, steps: int, device) -> torch.Tensor:

@@ -27,10 +27,14 @@ NoiseFilter ANF (noisefilter.cpp:5-106, the dttsp LMS): a 45-tap filter
 predicts x from a copy delayed by 64 samples and outputs the prediction,
 the periodic (tonal) part.  Block LMS: the weights are frozen for each
 sub-block of `update_every` samples, the gradient is accumulated over it
-and applied once (leak 1 - 1e-5, rate 0.01).  The sub-blocks are a Python
-loop, each a few batched matmuls (the JAX package's lax.scan); the
-receiver updates once per demod block, so a K-block dispatch runs K steps.
-Complex input runs as two real ANFs stacked on the channel axis.
+and applied once (leak 1 - 1e-5, rate 0.01).  On a CUDA tensor the loop
+over the sub-blocks is one launch of the recurrence kernel K8 (csrc/
+recur.cu anf_scan); on a CPU tensor its plain version anf_plain (a Python
+loop of a few batched matmuls per sub-block, the JAX package's lax.scan).
+The batched receiver updates once per demod block (a K-block dispatch
+runs K steps), the staged front every 16 samples.  Complex input runs as
+two real ANFs stacked on the channel axis.  anf_scan.launches counts the
+kernel launches.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ IQ_MU = 0.0025         # iqbalance.cpp:76-87
 IQ_GROUP = 64          # samples per adaptive IQ update (K5's group)
 SOURCE = "pebblesdr_tpu_torch/csrc/recur.cu"
 REPLACES = "pebblesdr_tpu/ops/scanops.py:164"   # auto_iq_balance's lax.scan
+ANF_REPLACES = "pebblesdr_tpu/ops/scanops.py:257"   # anf's lax.scan
 
 
 # ------------------------------------------------------------- noise blanker
@@ -159,11 +164,18 @@ def iq_lms_scan_plain(x: torch.Tensor, w: torch.Tensor, mu: float = IQ_MU,
 
 @functools.cache
 def _lib():
-    """csrc/recur.cu, built at first use, with K5's C signature."""
+    """csrc/recur.cu, built at first use, with K5's and K8's C signatures
+    and K8's limits."""
     lib = build.load("recur")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.recur_iq_lms_scan.restype = i
     lib.recur_iq_lms_scan.argtypes = [i, p, i, i, f, p, p, p, p]
+    lib.recur_anf_scan.restype = i
+    lib.recur_anf_scan.argtypes = [i, p, i, i, i, i, i, f, f, p, p, p, p, p,
+                                   p]
+    for name in ("recur_anf_max_taps", "recur_anf_max_hist"):
+        getattr(lib, name).restype = i
+        getattr(lib, name).argtypes = []
     lib.recur_error_string.restype = ctypes.c_char_p
     lib.recur_error_string.argtypes = [i]
     return lib
@@ -232,11 +244,95 @@ def anf_init(channels: int, device, taps: int = ANF_TAPS,
                           device=device))
 
 
+def anf_plain(x: torch.Tensor, w: torch.Tensor, hist: torch.Tensor,
+              rate: float = ANF_RATE, leak: float = ANF_LEAK,
+              update_every: int = 16):
+    """Plain version of K8: the leaky block LMS over real rows x [R, N]
+    float32 (N a multiple of update_every) from the weights w [R, taps] and
+    the history hist [R, delay + taps - 1].  A Python loop over the
+    updates, each a few batched matmuls (the JAX package's lax.scan).
+    Returns (y [R, N] the predictions, w', hist')."""
+    n = x.shape[-1]
+    u = update_every
+    taps = w.shape[-1]
+    h = hist.shape[-1]                              # delay + taps - 1
+    full = torch.cat([hist, x], dim=-1)             # [R, H + N]
+    if not n:
+        return x.clone(), w, hist
+    # frames[:, m, k] = full[:, m + k]: the reference window of output m,
+    # x delayed by `delay`..`delay + taps - 1` samples (a view)
+    frames = full[:, :n + taps - 1].unfold(-1, taps, 1)       # [R, N, taps]
+    preds = []
+    for i in range(n // u):
+        # one copy of the block's frames serves both products (a batched
+        # matmul would copy the overlapping view for each)
+        fr = frames[:, i * u:(i + 1) * u].contiguous()        # [R, U, taps]
+        pred = torch.matmul(fr, w[:, :, None])[..., 0]        # [R, U]
+        err = x[:, i * u:(i + 1) * u] - pred
+        # w <- leak w + 2 rate grad, grad = err . frames / U
+        w = torch.add(leak * w, torch.matmul(err[:, None, :], fr)[:, 0],
+                      alpha=2.0 * rate / u)
+        preds.append(pred)
+    return torch.cat(preds, dim=-1), w, full[:, full.shape[-1] - h:]
+
+
+def anf_scan(x: torch.Tensor, w: torch.Tensor, hist: torch.Tensor,
+             rate: float = ANF_RATE, leak: float = ANF_LEAK,
+             update_every: int = 16):
+    """K8 (csrc/recur.cu anf_scan): anf_plain's recurrence on CUDA tensors,
+    one launch (one block per row).  x [R, N] float32, w [R, taps], hist
+    [R, H] float32, contiguous, on one CUDA device.  Returns (y, w',
+    hist')."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"anf_scan runs on cuda, not {dev}")
+    r, n = x.shape if x.dim() == 2 else (0, 0)
+    u = int(update_every)
+    if (x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous()
+            or u < 1 or n % u or x.numel() >= 2 ** 31):
+        raise ValueError(f"anf_scan: x must be a contiguous [R, N] float32 "
+                         f"tensor with N a multiple of update_every={u}, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    lib = _lib()
+    taps, h = w.shape[-1], hist.shape[-1]
+    for name, t, shape in (("w", w, (r, taps)), ("hist", hist, (r, h))):
+        if (t.device != dev or t.dtype != torch.float32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"anf_scan: {name} must be a contiguous "
+                             f"{list(shape)} float32 tensor on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device} "
+                             f"(contiguous: {t.is_contiguous()})")
+    if not (0 < taps <= lib.recur_anf_max_taps()
+            and taps - 1 <= h <= lib.recur_anf_max_hist()):
+        raise ValueError(f"anf_scan: {taps} taps and a {h}-sample history "
+                         f"exceed the kernel's {lib.recur_anf_max_taps()} "
+                         f"taps / {lib.recur_anf_max_hist()} samples")
+    y = torch.empty_like(x)
+    w2 = torch.empty_like(w)
+    hist2 = torch.empty_like(hist)
+    err = lib.recur_anf_scan(
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        x.data_ptr(), r, n, u, taps, h, 2.0 * rate / u, leak, w.data_ptr(),
+        hist.data_ptr(), y.data_ptr(), w2.data_ptr(), hist2.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"anf_scan kernel launch failed: CUDA error {err} "
+                           f"({lib.recur_error_string(err).decode()})")
+    anf_scan.launches += 1
+    return y, w2, hist2
+
+
+anf_scan.launches = 0   # CUDA kernel launches (the plain path never counts)
+
+
 def anf(state: ANFState, x: torch.Tensor, rate: float = ANF_RATE,
-        leak: float = ANF_LEAK, update_every: int = 16,
-        taps: int = ANF_TAPS, delay: int = ANF_DELAY):
+        leak: float = ANF_LEAK, update_every: int = 16):
     """x [C, N] float32 or complex64 (N a multiple of update_every) ->
-    (state', the prediction y [C, N] of x's periodic part)."""
+    (state', the prediction y [C, N] of x's periodic part).  The taps and
+    the delay are the state's (anf_init).  Complex x
+    runs as 2C real rows (re rows, then im rows) with real weights.  The
+    rows go through K8 (anf_scan, one launch) on a CUDA tensor and
+    anf_plain on a CPU tensor."""
     if x.is_complex():
         c = x.shape[0]
 
@@ -246,30 +342,11 @@ def anf(state: ANFState, x: torch.Tensor, rate: float = ANF_RATE,
 
         st, ys = anf(ANFState(weights=stack(state.weights),
                               delay=stack(state.delay)),
-                     torch.cat([x.real, x.imag]), rate, leak, update_every,
-                     taps, delay)
+                     torch.cat([x.real, x.imag]), rate, leak, update_every)
         return (ANFState(weights=torch.complex(st.weights[:c], st.weights[c:]),
                          delay=torch.complex(st.delay[:c], st.delay[c:])),
                 torch.complex(ys[:c], ys[c:]))
-
-    c, n = x.shape
-    u = update_every
-    h = state.delay.shape[-1]                       # delay + taps - 1
-    full = torch.cat([state.delay, x], dim=-1)      # [C, H + N]
-    # frames[:, m, k] = full[:, m + k]: the reference window of output m,
-    # x delayed by `delay`..`delay + taps - 1` samples (a view)
-    frames = full[:, :n + taps - 1].unfold(-1, taps, 1)       # [C, N, taps]
-    w = state.weights
-    preds = []
-    for i in range(n // u):
-        # one copy of the block's frames serves both products (a batched
-        # matmul would copy the overlapping view for each)
-        fr = frames[:, i * u:(i + 1) * u].contiguous()        # [C, U, taps]
-        pred = torch.matmul(fr, w[:, :, None])[..., 0]        # [C, U]
-        err = x[:, i * u:(i + 1) * u] - pred
-        # w <- leak w + 2 rate grad, grad = err . frames / U
-        w = torch.add(leak * w, torch.matmul(err[:, None, :], fr)[:, 0],
-                      alpha=2.0 * rate / u)
-        preds.append(pred)
-    return (ANFState(weights=w, delay=full[:, full.shape[-1] - h:]),
-            torch.cat(preds, dim=-1))
+    run = anf_plain if x.device.type == "cpu" else anf_scan
+    y, w, hist = run(x.contiguous(), state.weights.contiguous(),
+                     state.delay.contiguous(), rate, leak, update_every)
+    return ANFState(weights=w, delay=hist), y

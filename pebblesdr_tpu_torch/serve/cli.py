@@ -25,10 +25,17 @@ demodulated audio of channel 0.  The decoded text, time or digits go
 under the JAX CLI's JSON keys (decoded_text, decoded_time,
 decoded_digits).
 
-Flags whose modules are not ported yet (--display,
---display-zoomed, --keys, --presets, --bandscope, --checkpoint,
---checkpoint-every, --resume, --assign, --source rtl_tcp|sdr_ip|hpsdr|audio,
---audio-out device:...|pipe:...) exit with code 2 and name the module.
+--checkpoint PATH saves the receiver's state to PATH (utils/checkpoint.py,
+the JAX package's .npz format) at exit; with --checkpoint-every K the
+stream-recovery supervisor (utils/recovery.py) also snapshots it every K
+blocks and the JSON gains "health" (its report: blocks, drops, overruns,
+real-time factor and events); --resume PATH restores a saved state before
+the first block, so a stopped run continues bit for bit.
+
+Flags whose modules are not ported yet (--display, --display-zoomed,
+--keys, --presets, --bandscope, --assign, --source
+rtl_tcp|sdr_ip|hpsdr|audio, --audio-out device:...|pipe:...) exit with
+code 2 and name the module.
 """
 
 from __future__ import annotations
@@ -45,7 +52,9 @@ import torch
 from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
 from pebblesdr_tpu_torch.demod import modes as modes_mod
 from pebblesdr_tpu_torch.io import sources, wav
+from pebblesdr_tpu_torch.utils import checkpoint as ckpt
 from pebblesdr_tpu_torch.utils.perform import Perform
+from pebblesdr_tpu_torch.utils.recovery import StreamSupervisor
 
 # what each deferred option waits for (the JAX package's modules)
 _DEFERRED = {
@@ -54,9 +63,6 @@ _DEFERRED = {
     "keys": "pebblesdr_tpu/serve/control.py",
     "presets": "pebblesdr_tpu/serve/control.py",
     "bandscope": "pebblesdr_tpu/io/hpsdr.py and serve/display.py",
-    "checkpoint": "pebblesdr_tpu/utils/checkpoint.py",
-    "checkpoint_every": "pebblesdr_tpu/utils/recovery.py",
-    "resume": "pebblesdr_tpu/utils/checkpoint.py",
     "assign": "pebblesdr_tpu/parallel/expert.py",
 }
 _NET_SOURCES = {"rtl_tcp": "pebblesdr_tpu/io/rtl_tcp.py",
@@ -373,11 +379,13 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--rds", action="store_true",
                    help="decode RDS (FM-Stereo mode) and print PS/RadioText")
     p.add_argument("--checkpoint", default=None,
-                   help="save chain state at exit (not ported yet)")
+                   help="save chain state to this .npz at exit")
     p.add_argument("--checkpoint-every", type=int, default=0, metavar="K",
-                   help="snapshot every K blocks (not ported yet)")
+                   help="with --checkpoint: also snapshot every K blocks "
+                        "(the stream-recovery supervisor; a killed run "
+                        "resumes bit-exactly with --resume)")
     p.add_argument("--resume", default=None,
-                   help="restore chain state (not ported yet)")
+                   help="restore chain state from a .npz before starting")
     return p
 
 
@@ -439,6 +447,8 @@ def main(argv=None):
                              else bool(args.noise_blanker)))
     rx = Receiver(cfg, device)
     state = rx.init_state()
+    if args.resume:
+        state, _ = ckpt.load_state(args.resume, state)
 
     rds_block = rds_groups = None
     if args.rds:
@@ -467,6 +477,11 @@ def main(argv=None):
 
     n_blocks = max(1, int(args.seconds * fs / args.frames))
     kdisp = max(1, min(args.blocks_per_dispatch, n_blocks))
+    supervisor = None
+    if args.checkpoint and args.checkpoint_every:
+        supervisor = StreamSupervisor(rx, params,
+                                      checkpoint_path=args.checkpoint,
+                                      checkpoint_every=args.checkpoint_every)
     c = args.channels
     audio_chunks = []
     perform = Perform(device)
@@ -503,6 +518,9 @@ def main(argv=None):
                   file=sys.stderr, flush=True)
         audio_chunks.extend(audio_np)
         n_done += k_real
+        if supervisor is not None:
+            for _ in range(k_real):
+                supervisor.block_done(state)
         last_out = (out, k_real)
         decode.feed(out, audio_np, k_real)
         if rds_block is not None and "rds_soft" in out:
@@ -536,6 +554,8 @@ def main(argv=None):
         "audio_rms": round(float(np.sqrt(np.mean(audio[0] ** 2))), 4),
         "step_ms": perform.stats("step"),
     }
+    if supervisor is not None:
+        metrics["health"] = supervisor.report()
     metrics.update(decode.metrics())
     if rds_groups is not None:
         metrics["rds"] = {
@@ -550,6 +570,10 @@ def main(argv=None):
     else:
         for k, v in metrics.items():
             print(f"{k:>16}: {v}")
+    if args.checkpoint:
+        ckpt.save_state(args.checkpoint, state,
+                        extra={"blocks": len(audio_chunks)})
+        print(f"state checkpointed to {args.checkpoint}", file=sys.stderr)
 
     if args.audio_out:
         wav.write_audio_wav(args.audio_out, audio[0], cfg.audio_rate)

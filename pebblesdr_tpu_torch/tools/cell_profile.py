@@ -19,7 +19,9 @@ frames: 64-sample demod blocks), and the cells of the staged front and
 the dense bank: am_iqauto_64ch (am_64ch with enable_iq_balance="auto"
 on an IQ-imbalanced plane) and pfb_127st_bank128 (bench.py:228-290: 127
 AM stations through a 128-channel filterbank; a checkout whose
-chip_smoke.py has STAGED_CELLS).  Each is built and timed by
+chip_smoke.py has STAGED_CELLS), and the ANF's cells am_anf_long_64ch and
+am_iqauto_anf_64ch (am_iqauto_64ch with enable_anf=True; a checkout whose
+chip_smoke.py has ANF_CELLS).  Each is built and timed by
 ROOT's chip_smoke.py: time_cells (3 warm-up dispatches, then 3 windows of
 10 dispatches with spectra every 6th, pfb_127st_bank128 every one; launch
 counts, audio shape, squelch, pilot lock and tone SNR checked), then
@@ -82,8 +84,10 @@ def main(argv: list[str] | None = None) -> dict:
         cs.SPECTRA_EVERY = every
     res = {}
     for name in names:
-        if name in getattr(cs, "STAGED_CELLS", {}):
-            cell = cs.STAGED_CELLS[name](torch, receiver, front)
+        made = {**getattr(cs, "STAGED_CELLS", {}),
+                **getattr(cs, "ANF_CELLS", {})}
+        if name in made:
+            cell = made[name](torch, receiver, front)
         else:
             mode, c, k, entry, opts, *frames = CELLS[name]
             cell = cs.make_cell(torch, receiver, front,

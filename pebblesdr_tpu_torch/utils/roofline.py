@@ -4,8 +4,8 @@ it, from the bytes it must move and the operations it must do.
 One place for the rates and for the bounds of K1, its passes (front_means,
 which also bounds front_nb_means, front_dc_scan, front_fir, K1's carried
 history, front_disc, front_comp), K2 and the recurrences (pll_scan,
-pll_chunk_scan, agc_scan, iq_lms_scan, ook_scan, sweep_scan), read by
-chip_smoke.py, ops/kprobe.py and the tools.
+pll_chunk_scan, agc_scan, iq_lms_scan, ook_scan, sweep_scan, anf_scan),
+read by chip_smoke.py, ops/kprobe.py and the tools.
 """
 
 from __future__ import annotations
@@ -203,3 +203,23 @@ def sweep_scan_bound(n: int, step_ns: float) -> dict:
     t_s = n * step_ns * 1e-6
     return {"bytes": nbytes, "serial_ms": t_s, "bound_ms": max(t_b, t_s),
             "bound_by": "bytes" if t_b >= t_s else "operations"}
+
+
+def anf_scan_bound(rows: int, n: int, u: int, step_ns: float,
+                   taps: int = 45, hist: int = 108) -> dict:
+    """anf_scan's (K8) bound: x [rows, n] float32 read once, the
+    predictions y [rows, n] written once, the weights [rows, taps] and the
+    history [rows, hist] read and written, over the HBM rate; the
+    operations (2 taps per sample for the prediction, 1 for the error, 2
+    taps for the gradient, 3 taps per update for the leaky step) over the
+    float32 peak; and the serial floor: the n / u updates run one after
+    another, each at least the chain probe's time per update ("anf <u>").
+    bound_by "operations" names the larger of the last two."""
+    nbytes = 2 * rows * n * 4 + 2 * rows * (taps + hist) * 4
+    ops = rows * (n * (4 * taps + 1) + (n // u) * 3 * taps)
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = ops / F32_FLOPS * 1e3
+    t_s = (n // u) * step_ns * 1e-6
+    return {"bytes": nbytes, "ops": ops, "serial_ms": t_s,
+            "bound_ms": max(t_b, t_o, t_s),
+            "bound_by": "bytes" if t_b >= max(t_o, t_s) else "operations"}

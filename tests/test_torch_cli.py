@@ -17,8 +17,11 @@ smeter_db and snr_db within 0.2 dB (the CLIs round them to 0.1 dB);
 audio_rms within 1e-3.  --decode cw|rtty|wwv|dtmf (the modems, cw / rtty
 on the staged front's post_bp tap) against the JAX CLI with the same
 arguments: the decoded text, time or digits equal, and the cw, rtty and
-dtmf decodes right.  Every flag whose module is not ported exits with
-code 2 naming it.
+dtmf decodes right.  --checkpoint / --checkpoint-every / --resume: the
+round trip of tests/test_cli.py:24-40, the supervisor's snapshots and the
+"health" JSON against the JAX CLI's, and a resumed run's audio against
+the JAX CLI's resumed run (each from its own checkpoint) within 2e-4.
+Every flag whose module is not ported exits with code 2 naming it.
 """
 
 import json
@@ -257,9 +260,6 @@ def test_cli_records_iq(tmp_path, capsys):
     (["--keys", "help"], "serve/control.py"),
     (["--presets", "db"], "serve/control.py"),
     (["--bandscope"], "io/hpsdr.py"),
-    (["--checkpoint", "x.npz"], "utils/checkpoint.py"),
-    (["--checkpoint-every", "4"], "utils/recovery.py"),
-    (["--resume", "x.npz"], "utils/checkpoint.py"),
     (["--assign", "AM@250000"], "parallel/expert.py"),
     (["--source", "rtl_tcp"], "io/rtl_tcp.py"),
     (["--source", "sdr_ip"], "io/sdr_ip.py"),
@@ -274,6 +274,91 @@ def test_deferred_flags_exit_2_naming_the_module(extra, module, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert module in err and "not ported" in err
+
+
+def test_cli_wav_roundtrip_with_checkpoint(tmp_path, capsys):
+    """tests/test_cli.py:24-40 on the port: a run that saves its state at
+    exit, then a run that resumes from it; the file holds the receiver's
+    state (it loads into the configuration's init_state) and the blocks
+    run."""
+    from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
+    from pebblesdr_tpu_torch.demod.modes import DemodMode
+    from pebblesdr_tpu_torch.utils import checkpoint
+    fs = 2_048_000
+    t = np.arange(fs // 4) / fs
+    iq = (0.4 * (1 + 0.5 * np.cos(2 * np.pi * 1000 * t)) / 2
+          * np.exp(2j * np.pi * 300_000 * t)).astype(np.complex64)
+    p = str(tmp_path / "in.wav")
+    wav.write_iq_wav(p, iq, fs, center_freq_hz=300_000.0, demod_mode="AM")
+    ck = str(tmp_path / "state.npz")
+    first = run(cli.main, ["--wav", p, "--mode", "AM", "--seconds", "0.2",
+                           "--checkpoint", ck, "--json", "--device", "cpu"],
+                capsys)
+    rx = Receiver(ReceiverConfig(sample_rate=fs, frames_per_buffer=32768,
+                                 mode=DemodMode.AM), "cpu")
+    _, extra = checkpoint.load_state(ck, rx.init_state())
+    # 0.2 s is 12.5 blocks: two dispatches of 8
+    assert extra == {"blocks": first["blocks"]} and first["blocks"] == 16
+    second = run(cli.main, ["--wav", p, "--mode", "AM", "--seconds", "0.1",
+                            "--resume", ck, "--json", "--device", "cpu"],
+                 capsys)
+    assert second["blocks"] == 6 and "health" not in second
+
+
+def test_cli_checkpoint_every_matches_jax_health(recordings, tmp_path,
+                                                 capsys):
+    """--checkpoint-every 4: the supervisor's snapshots (a "checkpoint"
+    event every 4 blocks, at the path) and the JSON's "health" with the
+    JAX CLI's keys and values (the real-time factor is a timing); the file
+    at exit holds the last state with the blocks run."""
+    argv = ["--wav", recordings["am"], "--mode", "AM", "--tune", "250000",
+            "--seconds", "0.2", "--json", "--checkpoint-every", "4"]
+    jm = run(jcli.main, argv + ["--checkpoint", str(tmp_path / "j.npz")],
+             capsys)
+    tck = str(tmp_path / "t.npz")
+    tm = run(cli.main, argv + ["--checkpoint", tck, "--device", "cpu"],
+             capsys)
+    jh, th = jm.pop("health"), tm.pop("health")
+    check_metrics(jm, tm)
+    assert set(jh) == set(th)
+    for key in ("blocks", "dropped_blocks", "feeder_overruns"):
+        assert jh[key] == th[key], key
+    assert th["blocks"] == tm["blocks"] == 16       # two dispatches of 8
+    assert [(e["kind"], e["block"]) for e in jh["events"]] == [
+        (e["kind"], e["block"]) for e in th["events"]] == [
+        ("checkpoint", b) for b in (4, 8, 12, 16)]
+    assert all(e["path"] == tck for e in th["events"])
+    assert isinstance(th["healthy"], bool)
+    assert th["realtime_factor"] >= 0.0
+    with np.load(tck) as data:
+        meta = json.loads(bytes(data["__meta__"]).decode())
+    assert meta["extra"] == {"blocks": 16}
+
+
+def test_cli_resumed_run_matches_jax(recordings, tmp_path, capsys):
+    """Each CLI runs 0.2 s saving its state, then resumes from its own file
+    for 0.1 s more: the resumed runs' audio within the CLI bound (2e-4),
+    and the port's resumed audio is not a fresh start's."""
+    argv = ["--wav", recordings["am"], "--mode", "AM", "--tune", "250000",
+            "--json"]
+    audio = {}
+    for name, main, extra in (("j", jcli.main, []),
+                              ("t", cli.main, ["--device", "cpu"])):
+        ck = str(tmp_path / f"{name}.npz")
+        run(main, argv + ["--seconds", "0.2", "--checkpoint", ck] + extra,
+            capsys)
+        out = str(tmp_path / f"{name}.wav")
+        m = run(main, argv + ["--seconds", "0.1", "--resume", ck,
+                              "--audio-out", out] + extra, capsys)
+        assert m["blocks"] == 6
+        audio[name] = read_audio(out)
+    a, b = audio["j"], audio["t"]
+    assert a.shape == b.shape
+    assert np.abs(a - b).max() < 2e-4, np.abs(a - b).max()
+    fresh = str(tmp_path / "fresh.wav")
+    run(cli.main, argv + ["--seconds", "0.1", "--audio-out", fresh,
+                          "--device", "cpu"], capsys)
+    assert np.abs(read_audio(fresh) - b).max() > 1e-2
 
 
 def test_cuda_without_a_card_is_an_error(capsys, monkeypatch):

@@ -22,7 +22,9 @@ its notch) on the card against the CPU; the CLI with --device cuda; K6
 (ook_scan, the OOK detector, six threshold modes) and K7 (sweep_scan, the
 test generator's sweep) against their plain versions, the Receiver's taps
 and the TestBench on the card against the CPU, and --decode cw on the
-card.
+card; K8 (anf_scan, the ANF's block LMS) against its plain version at U =
+16, 1024, 1 and others, complex rows and its refusals, and the ANF on the
+staged front on the card against the CPU.
 
 They skip where CUDA is absent (the kernels have no CPU mode).  This file
 imports no jax, so it also runs on a machine that has only the port:
@@ -1775,6 +1777,84 @@ def test_iq_lms_kernel_refuses_what_it_does_not_take(cuda):
                                 x[:, :128].contiguous())
 
 
+def _anf_rows(r: int, n: int, rng, device) -> torch.Tensor:
+    """[r, n] float32 rows: two tones (800 and 2100 Hz at 64 kHz, a phase
+    per row) in noise at 0.3."""
+    t = np.arange(n) / 64_000.0 + rng.random()
+    x = (0.5 * np.cos(2 * np.pi * 800.0 * t)[None]
+         + 0.3 * np.cos(2 * np.pi * 2100.0 * t + np.arange(r)[:, None])
+         + 0.3 * rng.standard_normal((r, n)))
+    return torch.from_numpy(x.astype(np.float32)).to(device)
+
+
+# (rows, N, update_every): the staged front's [128, 32768] at U = 16, the
+# batched graph's U = 1024, the sample-exact U = 1, N not a multiple of 4
+# (4-byte staging), an update of two pieces, more rows than SMs, N = 0
+ANF_CASES = [(128, 32768, 16), (128, 32768, 1024), (6, 4096, 1),
+             (5, 2997, 3), (3, 6144, 3072), (140, 2048, 16), (2, 0, 16)]
+
+
+@pytest.mark.parametrize("r,n,u", ANF_CASES)
+def test_anf_scan_kernel_matches_plain(cuda, r, n, u):
+    """Three streaming calls, one K8 launch each: y and w' within 1e-5 of
+    their scale of the plain version (the same sums in another order),
+    hist' equal."""
+    rng = np.random.default_rng(r + n + u)
+    st = scanops.anf_init(r, cuda)
+    w_p, h_p = st.weights, st.delay
+    for _ in range(3):
+        x = _anf_rows(r, n, rng, cuda)
+        before = scanops.anf_scan.launches
+        st, y_k = scanops.anf(st, x, update_every=u)
+        assert scanops.anf_scan.launches == before + 1
+        y_p, w_p, h_p = scanops.anf_plain(x, w_p, h_p, update_every=u)
+        torch.cuda.synchronize()
+        assert y_k.shape == y_p.shape == x.shape
+        if n:
+            assert float((y_k - y_p).abs().max()) <= 1e-5 * float(
+                y_p.abs().max())
+        assert float((st.weights - w_p).abs().max()) <= 1e-5 * max(
+            float(w_p.abs().max()), 1e-3)
+        assert torch.equal(st.delay, h_p)
+    if n:
+        assert float(st.weights.abs().max()) > 1e-3     # it adapted
+
+
+def test_anf_complex_is_one_launch_on_stacked_rows(cuda):
+    """Complex x: one K8 launch on the 2C rows (re rows, then im rows),
+    the complex state split the same way."""
+    rng = np.random.default_rng(5)
+    c, n = 4, 4096
+    x = torch.complex(_anf_rows(c, n, rng, cuda), _anf_rows(c, n, rng, cuda))
+    st = scanops.anf_init(c, cuda, dtype=torch.complex64)
+    before = scanops.anf_scan.launches
+    st2, y = scanops.anf(st, x)
+    assert scanops.anf_scan.launches == before + 1
+    rows = torch.cat([x.real, x.imag]).contiguous()
+    z = torch.zeros(2 * c, 45, device=cuda)
+    y_r, w_r, h_r = scanops.anf_scan(rows, z, torch.zeros(2 * c, 108,
+                                                          device=cuda))
+    assert torch.equal(y, torch.complex(y_r[:c], y_r[c:]))
+    assert torch.equal(st2.weights, torch.complex(w_r[:c], w_r[c:]))
+    assert torch.equal(st2.delay, torch.complex(h_r[:c], h_r[c:]))
+
+
+def test_anf_scan_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros(2, 64, device=cuda)
+    st = scanops.anf_init(2, cuda)
+    with pytest.raises(ValueError):            # N not a multiple of U
+        scanops.anf_scan(x[:, :40].contiguous(), st.weights, st.delay)
+    with pytest.raises(ValueError):            # float64 rows
+        scanops.anf_scan(x.double(), st.weights, st.delay)
+    with pytest.raises(ValueError):            # the weights on the CPU
+        scanops.anf_scan(x, st.weights.cpu(), st.delay)
+    with pytest.raises(ValueError):            # more taps than the kernel's
+        scanops.anf_scan(x, torch.zeros(2, 65, device=cuda),
+                         torch.zeros(2, 108, device=cuda))
+    with pytest.raises(ValueError):            # a CPU tensor
+        scanops.anf_scan(x.cpu(), st.weights.cpu(), st.delay.cpu())
+
+
 # ---- the staged front and the dense filterbank bank
 
 def _imbalance(plane: torch.Tensor) -> torch.Tensor:
@@ -1792,6 +1872,8 @@ STAGED_RECEIVERS = {
                      (3, 9)),
     "am_dc_off": (DemodMode.AM, dict(enable_dc_removal=False), 8192, (3, 9)),
     "sam_auto": (DemodMode.SAM, dict(enable_iq_balance="auto"), 8192, (3,)),
+    "am_auto_anf": (DemodMode.AM, dict(enable_iq_balance="auto",
+                                       enable_anf=True), 8192, (3, 9)),
     "fmm_auto_rds": (DemodMode.FMM, dict(enable_iq_balance="auto", rds=True),
                      32768, (3,)),
 }

@@ -249,8 +249,10 @@ def test_port_imports_no_jax():
     carrier and of SAM on 64-sample blocks, and a call of NFM "pll" and of
     the scan AGC, FMS at 2.88 Msps (the stereo tail without K2), the "pll"
     pilot, a TestBench step with a sweep injected (the taps), the Morse
-    modem's detector, and the command-line receiver (a CPU run, --decode
-    wwv and --help, in process and as ``python -m``), runs without loading
+    modem's detector, the command-line receiver (a CPU run, --decode wwv,
+    --checkpoint with --checkpoint-every, --resume and --help, in process
+    and as ``python -m``), a checkpoint round trip, the stream supervisor
+    across a gap, the feeder and the soak's fixture, runs without loading
     jax or any module of the JAX package."""
     code = (
         "import importlib, pkgutil, sys, numpy as np, torch\n"
@@ -356,6 +358,34 @@ def test_port_imports_no_jax():
         "run_name='__main__')\n"
         "    except SystemExit as e:\n"
         "        assert e.code == 0, e.code\n"
+        "import os, tempfile\n"
+        "from pebblesdr_tpu_torch.utils import checkpoint, health, recovery\n"
+        "from pebblesdr_tpu_torch.io import feeder, sources\n"
+        "from pebblesdr_tpu_torch.tools import soak\n"
+        "rx = Receiver(ReceiverConfig(sample_rate=2048000, "
+        "frames_per_buffer=8192, channels=2, enable_anf=True), 'cpu')\n"
+        "ck = os.path.join(tempfile.mkdtemp(), 'ck.npz')\n"
+        "checkpoint.save_state(ck, rx.init_state(), extra={'blocks': 1})\n"
+        "st, extra = checkpoint.load_state(ck, rx.init_state())\n"
+        "assert extra == {'blocks': 1}\n"
+        "sup = recovery.StreamSupervisor(rx, rx.default_params(250000.0), "
+        "checkpoint_path=ck, checkpoint_every=1)\n"
+        "st = sup.observe(st, 0)\n"
+        "st = sup.observe(st, 3)\n"
+        "sup.block_done(st)\n"
+        "assert sup.report()['dropped_blocks'] == 2\n"
+        "f = feeder.Feeder(sources.SyntheticSource(48000), block=480, "
+        "channels=2).start()\n"
+        "assert f.next_block().shape == (480, 4)\n"
+        "f.stop()\n"
+        "assert soak.rds_biphase(np.arange(64) / soak.FS).shape == (64,)\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    assert cli.main(['--synthetic', 'tone', '--mode', 'USB', "
+        "'--seconds', '0.01', '--frames', '8192', '--device', 'cpu', "
+        "'--checkpoint', ck, '--checkpoint-every', '1', '--json']) == 0\n"
+        "    assert cli.main(['--synthetic', 'tone', '--mode', 'USB', "
+        "'--seconds', '0.01', '--frames', '8192', '--device', 'cpu', "
+        "'--resume', ck, '--json']) == 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'pebblesdr_tpu' or m.startswith('pebblesdr_tpu.')]\n"
         "assert not bad, bad\n"
