@@ -244,7 +244,38 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      RDS, 64 channels, 32 blocks a dispatch, 60 s: no bad dispatch, RDS
      synced, PS "PEBBLES ", its sustained Msps;
  45. the CLI on the card with --checkpoint and --checkpoint-every 4
-     ("health" in its JSON), then --resume from the file.
+     ("health" in its JSON), then --resume from the file;
+ 46. the host runtime built from pebblesdr_tpu_torch/csrc/ring.cpp (g++,
+     no -march=native) into build/kernels/, its path printed; a NativeRing
+     round trip with an overrun counted; the native decode_iq_planes and
+     deint_iq_planes_i16 bit-equal to numpy, and core.iqformat.decode_iq
+     on a CUDA tensor bit-equal to decode_iq_host, every format;
+ 47. rtl_tcp at full width: `python -m pebblesdr_tpu_torch.serve.server
+     --source file` (a subprocess pacing an AM recording in real time)
+     feeds the CLI in this process under torch.profiler (--source rtl_tcp,
+     64 channels, 32 blocks of 32768 frames, 4 dispatches, --audio-out
+     pipe:dd): front_fir in the trace, K1 once per dispatch (and once
+     for the CLI's warm-up dispatch before it opens a network source),
+     the piped PCM's tone SNR >= 40 dB, every dispatch after the first
+     doing its work in under its 512 ms of signal, the paced sink's
+     overruns 0; then an unpaced run (an in-process RtlTcpServer, 8
+     dispatches), every pass after the first, read included, under 512
+     ms, with its realtime factor and per-dispatch split (read and
+     decode, plane build, copy, step, the whole pass);
+ 48. FM stereo with --rds over rtl_tcp at full width: K1's WFM form and K2
+     launched once per dispatch (and the warm-up) and in the trace,
+     "PEBBLES " decoded;
+ 49. SDR-IP at full width through the native UDP pump, paced by the
+     server subprocess: datagrams received = sent, none dropped,
+     restarted or overrun, each pass's work under 512 ms, tone SNR >= 40
+     dB; HPSDR with --bandscope --display waterfall
+     (bandscope_frames > 0), a ghpsdr3 loopback round trip, and
+     AudioIqSource over a WavStream into the Receiver on the card (tone
+     SNR >= 40 dB);
+ 50. the control surface on the card through the CLI (64 channels,
+     --display spectrum, --keys): a retune moves the demodulated tone, 'p'
+     snaps to a carrier within one display bin, 'm' rebuilds the chain as
+     FM stereo on cuda (K2 in the trace), 'q' ends the run.
 Each phase's seconds and the running total are printed after it.
 Each receiver phase sets every kernel's launch count to 0 just before it
 drives the receiver and reads the counts just after (front_means and
@@ -4018,6 +4049,574 @@ def phase_cli_checkpoint(torch) -> dict:
     return runs
 
 
+# ---- phases 46-50: the live receiver shell ----
+
+LIVE_DIR = "build/chip_smoke_live"
+LIVE_K = HEADLINE["blocks"] * HEADLINE["frames"]   # rows of one dispatch
+LIVE_DISPATCH_MS = 1e3 * LIVE_K / FS               # 512 ms of signal
+LIVE_PACED_DISPATCHES = 4      # phase 47's paced run (>= 3, the first builds)
+LIVE_FREE_DISPATCHES = 8       # phase 47's unpaced run
+SDR_IP_DISPATCHES = 4          # phase 49's SDR-IP run, paced, full width
+HPSDR_RUN = dict(fs=192_000, channels=64, frames=8192, blocks=8,
+                 seconds=0.5)                             # phase 49
+
+
+def full_width_argv(dispatches: int) -> list:
+    """The CLI's headline geometry: 64 channels, dispatches of 32 blocks of
+    32768 frames, for exactly `dispatches` dispatches."""
+    n, k = HEADLINE["frames"], HEADLINE["blocks"]
+    return ["--channels", str(HEADLINE["channels"]), "--frames", str(n),
+            "--blocks-per-dispatch", str(k),
+            "--seconds", repr(dispatches * k * n / FS)]
+
+
+def live_recording(wav, path: str, seconds: float, program: str) -> str:
+    """An IQ WAV inside the u8 range (|x| <= 0.5): "am" the AM station at
+    250 kHz (1 kHz, m = 0.8; a whole number of periods, so a loop is
+    seamless), "rds" the FM stereo station with the PEBBLES RDS groups,
+    "two" the AM station at 250 kHz beside a stronger one at -300 kHz
+    (400 Hz), noise at -60 dB."""
+    n = int(seconds * FS)
+    if program == "rds":
+        plane = wfm_plane(1, n, None, program="rds")
+        iq = plane[:, 0] + 1j * plane[:, 1]
+    else:
+        t = np.arange(n) / FS
+        iq = 0.5 * (1 + 0.8 * np.cos(2 * np.pi * 1000.0 * t)) / 2 * np.exp(
+            2j * np.pi * 250_000.0 * t)
+        if program == "two":
+            iq = 0.5 * iq + 0.4 * (1 + 0.8 * np.cos(2 * np.pi * 400.0 * t)) \
+                / 2 * np.exp(-2j * np.pi * 300_000.0 * t)
+            rng = np.random.default_rng(5)
+            iq = iq + 1e-3 * (rng.standard_normal(n)
+                              + 1j * rng.standard_normal(n))
+    wav.write_iq_wav(path, iq.astype(np.complex64), FS, demod_mode="AM")
+    return path
+
+
+def run_cli(torch, cli, argv: list, profiled: bool = True):
+    """cli.main(argv + --json --device cuda) in this process (under
+    torch.profiler when profiled): (rc, its JSON, stdout lines, the CUDA
+    kernel names, the JSON's per-dispatch split)."""
+    import io
+
+    from torch.profiler import ProfilerActivity, profile
+    buf = io.StringIO()
+    ctx = (profile(activities=[ProfilerActivity.CUDA]) if profiled
+           else contextlib.nullcontext())
+    with ctx as prof, contextlib.redirect_stdout(buf):
+        rc = cli.main(argv + ["--json", "--device", "cuda"])
+        torch.cuda.synchronize()
+    lines = buf.getvalue().strip().splitlines()
+    names = kernel_names(prof) if profiled else set()
+    m = json.loads(lines[-1])
+    return rc, m, lines, names, m["split_ms"]
+
+
+def split_text(split: dict) -> str:
+    return ", ".join(f"{k} {v.get('avg')} ms (min {v.get('min')}, max "
+                     f"{v.get('max')}, n {v.get('n')})"
+                     for k, v in split.items())
+
+
+def launch_counts(front, wfm_tail) -> dict:
+    return {"fused_front": front.fused_front.launches,
+            "front_means": front.chunk_means.launches,
+            "front_dc_scan": front.dc_scan.launches,
+            "wfm_tail": wfm_tail.wfm_tail.launches}
+
+
+def phase_runtime(torch) -> dict:
+    """Phase 46: the port's host runtime, built on the card's host from
+    csrc/ring.cpp (g++, no -march=native) into build/kernels/: its path;
+    a NativeRing
+    round trip with an overrun counted; the native decode_iq_planes (u8,
+    i8, i16, u16, f32) and deint_iq_planes_i16 (i16, i8, u8) bit-equal to
+    numpy on 1M samples each; core.iqformat.decode_iq on a CUDA tensor
+    bit-equal to decode_iq_host for every format, with and without the
+    I/Q swap."""
+    from pebblesdr_tpu_torch import runtime
+    from pebblesdr_tpu_torch.core import iqformat
+    from pebblesdr_tpu_torch.kernels import build
+    t0 = time.perf_counter()
+    runtime.load()
+    log(f"phase46 runtime built and loaded from {runtime.library_path()} in "
+        f"{time.perf_counter() - t0:.1f} s (g++ {' '.join(build.CXX_FLAGS)})")
+    ring = runtime.NativeRing(2, 8)
+    ok = all(ring.write(bytes([i]) * 8, timeout_ms=10) for i in range(3))
+    got = [ring.read(timeout_ms=10) for _ in range(2)]
+    ok = ok and got == [b"\x01" * 8, b"\x02" * 8] and ring.overruns == 1 \
+        and ring.read(timeout_ms=10) is None
+    log(f"phase46 NativeRing: 3 writes into 2 buffers, {ring.overruns} "
+        f"overrun, reads {[g[:1] for g in got]}: {'ok' if ok else 'FAILED'}")
+    rng = np.random.default_rng(46)
+    n = 1 << 20
+    raws = {"u8": rng.integers(0, 256, 2 * n, dtype=np.uint8),
+            "i8": rng.integers(-128, 128, 2 * n, dtype=np.int8),
+            "u16": rng.integers(0, 65536, 2 * n, dtype=np.uint16),
+            "i16": rng.integers(-32768, 32768, 2 * n, dtype=np.int16),
+            "f32": rng.uniform(-1.5, 1.5, 2 * n).astype(np.float32),
+            "f64": rng.uniform(-1.5, 1.5, 2 * n)}
+    bad = []
+    for fmt, raw in raws.items():
+        for swap in (False, True):
+            ref = iqformat.decode_iq_host(raw.tobytes(), fmt, swap)
+            if fmt != "f64":
+                planes = runtime.decode_iq_planes(raw.tobytes(), fmt, swap)
+                if not (np.array_equal(planes[0], ref.real)
+                        and np.array_equal(planes[1], ref.imag)):
+                    bad.append(f"decode_iq_planes {fmt} swap={swap}")
+            if fmt in ("i16", "i8", "u8"):
+                x = raw.astype(np.int16)
+                x = x << 8 if fmt == "i8" else (x - 128) << 8 if fmt == "u8" \
+                    else x
+                want = np.stack([x[1::2], x[0::2]] if swap
+                                else [x[0::2], x[1::2]])
+                if not np.array_equal(runtime.deint_iq_planes_i16(
+                        raw.tobytes(), fmt, swap), want):
+                    bad.append(f"deint_iq_planes_i16 {fmt} swap={swap}")
+            dev = iqformat.decode_iq(torch.from_numpy(raw).cuda(), fmt, swap)
+            if not (dev.is_cuda and np.array_equal(dev.cpu().numpy(), ref)):
+                bad.append(f"decode_iq on cuda {fmt} swap={swap}")
+    log(f"phase46 native decode (5 formats), i16 deinterleave (3) and "
+        f"decode_iq on cuda (6 formats), each with and without the swap, "
+        f"on {n} samples: {len(bad)} mismatches {bad}")
+    if not ok or bad:
+        raise RuntimeError("phase46: the native runtime or the decode failed")
+    return {"library": str(runtime.library_path())}
+
+
+def start_server(path: str) -> tuple:
+    """`python -m pebblesdr_tpu_torch.serve.server --source file --path
+    path --port P` (it paces the file in real time), started as a user
+    starts it; returns (process, port) once it listens."""
+    import select
+    import socket
+    import os
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pebblesdr_tpu_torch.serve.server", "--source",
+         "file", "--path", path, "--host", "127.0.0.1", "--port", str(port)],
+        stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": os.getcwd()})
+    deadline = time.monotonic() + 120
+    line = ""
+    while time.monotonic() < deadline and proc.poll() is None:
+        if select.select([proc.stderr], [], [], 1.0)[0]:
+            line = proc.stderr.readline()
+            if "serving" in line:
+                return proc, port
+    proc.kill()
+    raise RuntimeError(f"the rtl_tcp server did not start: {line!r}")
+
+
+def stop_server(proc) -> None:
+    proc.terminate()
+    try:
+        proc.wait(timeout=10)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+def phase_rtl_tcp(torch, front, wfm_tail, wav) -> dict:
+    """Phase 47: rtl_tcp at full width.  The port's server (python -m
+    pebblesdr_tpu_torch.serve.server, a subprocess pacing an AM recording
+    in real time) feeds the port's CLI in this process under
+    torch.profiler: --source rtl_tcp, 64 channels, 32 blocks of 32768
+    frames per dispatch, 4 dispatches, AM at 250 kHz, --audio-out pipe:dd.
+    front_fir in the trace, K1 launched once per dispatch and once for the
+    CLI's warm-up dispatch (counts set to 0 just before the run, read
+    just after), the piped channel-0 PCM's 1 kHz
+    tone SNR >= 40 dB, every dispatch after the first doing its work (the
+    CLI's loop pass less its read, which waits for the server's clock) in
+    under its 512 ms of signal, the paced sink's overruns 0.  Then an
+    unpaced run (an in-process RtlTcpServer over FileSource(pace=False),
+    8 dispatches): every pass after the first, read included, under 512
+    ms; its realtime factor and the per-dispatch split (read: the socket
+    read and u8 decode; plane: the [K N, 2C] plane's build; copy: host to
+    device; step: copy, dispatch and the audio's fetch; dispatch: the
+    whole pass; work: the pass less its read)."""
+    import os
+
+    from pebblesdr_tpu_torch.io import rtl_tcp, sources
+    from pebblesdr_tpu_torch.serve import cli
+    os.makedirs(LIVE_DIR, exist_ok=True)
+    rec = live_recording(wav, os.path.join(LIVE_DIR, "am.wav"), 1.0, "am")
+    pcm = os.path.join(LIVE_DIR, "am_pcm.raw")
+    proc, port = start_server(rec)
+    try:
+        reset_launches(front, wfm_tail)
+        rc, m, _, names, split = run_cli(
+            torch, cli, ["--source", "rtl_tcp", "--port", str(port),
+                         "--mode", "AM", "--tune", "250000",
+                         "--audio-out", f"pipe:dd of={pcm} status=none"]
+            + full_width_argv(LIVE_PACED_DISPATCHES))
+        counts = launch_counts(front, wfm_tail)
+    finally:
+        stop_server(proc)
+    live = np.fromfile(pcm, "<f4")
+    live = live[live != 0.0]          # the paced sink's underrun silence
+    snr = tone_snr_db(live[-48_000:].astype(np.float64), 48_000.0)
+    fir = any("front_fir" in nm for nm in names)
+    sink = m.get("audio_sink", {})
+    log(f"phase47 rtl_tcp paced (AM, 64 ch, K 32, N 32768): rc {rc}, "
+        f"{m['blocks']} blocks, realtime factor {m['realtime_factor']}, "
+        f"work ms {split.get('work')} (each < {LIVE_DISPATCH_MS:.0f}); "
+        f"launches "
+        f"{counts}; front_fir in the trace {fir}; audio sink {sink}; piped "
+        f"PCM {len(live)} samples, 1 kHz tone SNR over its last second "
+        f"{snr:.2f} dB (>= {TONE_SNR_DB})")
+    log(f"phase47 paced split: {split_text(split)}")
+    # one K1 per dispatch, and one for the CLI's warm-up dispatch of zeros
+    # before it opens a network source
+    want = m["blocks"] // HEADLINE["blocks"] + 1
+    if not (rc == 0 and fir and m["blocks"] == LIVE_PACED_DISPATCHES
+            * HEADLINE["blocks"] and counts["fused_front"] == want
+            and counts["front_means"] == want
+            and counts["front_dc_scan"] == want
+            and split["work"]["max"] < LIVE_DISPATCH_MS
+            and sink.get("overruns") == 0 and snr >= TONE_SNR_DB):
+        raise RuntimeError("phase47: the paced rtl_tcp run failed")
+
+    server = rtl_tcp.RtlTcpServer(sources.FileSource(rec, pace=False),
+                                  port=0, block=16384)
+    server.start()
+    try:
+        reset_launches(front, wfm_tail)
+        rc, m, _, _, split = run_cli(
+            torch, cli, ["--source", "rtl_tcp", "--port", str(server.port),
+                         "--mode", "AM", "--tune", "250000", "--audio-out",
+                         os.path.join(LIVE_DIR, "am_free.wav")]
+            + full_width_argv(LIVE_FREE_DISPATCHES), profiled=False)
+        counts = launch_counts(front, wfm_tail)
+    finally:
+        server.stop()
+    a = read_audio_wav(os.path.join(LIVE_DIR, "am_free.wav"))[:, 0]
+    snr = tone_snr_db(a[len(a) // 2:], m["audio_rate"])
+    log(f"phase47 rtl_tcp unpaced: rc {rc}, {m['blocks']} blocks, realtime "
+        f"factor {m['realtime_factor']}, wall {m['wall_s']} s, Msps "
+        f"{m['msps']}, step ms {m['step_ms']}, dispatch ms "
+        f"{split.get('dispatch')} (each < {LIVE_DISPATCH_MS:.0f}); launches "
+        f"{counts}; tone SNR {snr:.2f} dB")
+    log(f"phase47 unpaced split: {split_text(split)}")
+    if not (rc == 0 and counts["fused_front"] == LIVE_FREE_DISPATCHES + 1
+            and split["dispatch"]["max"] < LIVE_DISPATCH_MS
+            and snr >= TONE_SNR_DB):
+        raise RuntimeError("phase47: the unpaced rtl_tcp run failed")
+    return {"realtime_factor": m["realtime_factor"], "split": split}
+
+
+def phase_rtl_tcp_fms(torch, front, wfm_tail, wav) -> dict:
+    """Phase 48: FM stereo with --rds over rtl_tcp at full width: an
+    in-process RtlTcpServer serves the PEBBLES recording (inside the u8
+    range) to the CLI (64 channels, 2 dispatches of 32 blocks of 32768
+    frames) under torch.profiler: K1's WFM form and K2 launched once per
+    dispatch and once for the warm-up, wfm_tail_march and front_disc in
+    the trace, the PS decoded
+    from the u8 wire as "PEBBLES "."""
+    import os
+
+    from pebblesdr_tpu_torch.io import rtl_tcp, sources
+    from pebblesdr_tpu_torch.serve import cli
+    os.makedirs(LIVE_DIR, exist_ok=True)
+    rec = live_recording(wav, os.path.join(LIVE_DIR, "fm_rds.wav"), 1.1,
+                         "rds")
+    server = rtl_tcp.RtlTcpServer(sources.FileSource(rec, pace=False),
+                                  port=0, block=16384)
+    server.start()
+    try:
+        reset_launches(front, wfm_tail)
+        rc, m, _, names, split = run_cli(
+            torch, cli, ["--source", "rtl_tcp", "--port", str(server.port),
+                         "--mode", "FM-Stereo", "--tune", "250000", "--rds"]
+            + full_width_argv(2))
+        counts = launch_counts(front, wfm_tail)
+    finally:
+        server.stop()
+    k2 = any("wfm_tail_march" in nm for nm in names)
+    disc = any("front_disc" in nm for nm in names)
+    log(f"phase48 rtl_tcp FMS + RDS (64 ch, K 32): rc {rc}, {m['blocks']} "
+        f"blocks, realtime factor {m['realtime_factor']}, step ms "
+        f"{m['step_ms']}; launches {counts}; wfm_tail_march {k2}, front_disc "
+        f"{disc} in the trace; RDS {m.get('rds')}")
+    if not (rc == 0 and k2 and disc and counts["wfm_tail"] == 3
+            and counts["fused_front"] == 3
+            and m.get("rds", {}).get("ps") == "PEBBLES "):
+        raise RuntimeError("phase48: FM stereo over rtl_tcp failed")
+    return {"realtime_factor": m["realtime_factor"]}
+
+
+class DspServer:
+    """A minimal ghpsdr3 dspserver on loopback: answers startaudiostream
+    with four frames of a-law audio (a 440 Hz tone at 0.5)."""
+
+    def __init__(self):
+        import socket
+        import threading
+        self.sock = socket.socket()
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.listen(1)
+        self.sock.settimeout(10.0)
+        self.port = self.sock.getsockname()[1]
+        self.commands = []
+        self.thread = threading.Thread(target=self.run, daemon=True)
+        self.thread.start()
+
+    def run(self):
+        import struct
+
+        from pebblesdr_tpu_torch.io import ghpsdr3
+        from pebblesdr_tpu_torch.ops.util_filters import alaw_compress
+        try:
+            conn, _ = self.sock.accept()
+        except OSError:
+            return
+        t = np.arange(2000) / ghpsdr3.AUDIO_RATE
+        payload = alaw_compress((0.5 * np.sin(2 * np.pi * 440 * t)).astype(
+            np.float32)).tobytes()
+        try:
+            while True:
+                cmd = conn.recv(64)
+                if not cmd:
+                    return
+                text = cmd.rstrip(b"\0").decode(errors="replace")
+                self.commands.append(text)
+                if text.startswith("startaudiostream"):
+                    hdr = bytearray(ghpsdr3.HEADER_LEN)
+                    hdr[0] = ghpsdr3.AUDIO_BUFFER
+                    hdr[1:3] = struct.pack(">H", len(payload))
+                    for _ in range(4):
+                        conn.sendall(bytes(hdr) + payload)
+        except OSError:
+            pass
+        finally:
+            conn.close()
+            self.sock.close()
+
+
+def phase_net_sources(torch, receiver, front, wfm_tail, wav) -> dict:
+    """Phase 49: SDR-IP, HPSDR, ghpsdr3 and the soundcard source.
+    SDR-IP: the port's SdrIpServer (in a subprocess, pacing the AM
+    recording in real time at 2.048 Msps: 8000 datagrams/s) feeds the CLI
+    at full width (64 channels, dispatches of 32 blocks of 32768 frames,
+    4 dispatches) through the native UDP pump, which must be the source's
+    data plane: the pump received as many datagrams as the server says it
+    sent, none dropped, restarted or overrun; every dispatch after the
+    first did its work (the pass less its read) in under 512 ms; K1 once
+    per dispatch and once for the warm-up; the tone SNR over the run's
+    second half >= 40 dB.  HPSDR: the port's
+    HpsdrServer (192 ksps, paced) feeds the CLI (64 channels, 8192
+    frames, K 8) with --bandscope --display waterfall: bandscope_frames >
+    0, the BS rows printed.  ghpsdr3: a loopback dspserver round trip (the
+    440 Hz tone through a-law within 5 %).  AudioIqSource over a WavStream
+    (an AM station in a 256 ksps stereo capture) feeds the port's Receiver
+    on the card: the 1 kHz tone SNR >= 40 dB."""
+    import os
+
+    from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
+    from pebblesdr_tpu_torch.demod.modes import DemodMode
+    from pebblesdr_tpu_torch.io import audio_iq, ghpsdr3, hpsdr, sources
+    from pebblesdr_tpu_torch.serve import cli
+    os.makedirs(LIVE_DIR, exist_ok=True)
+    rec = os.path.join(LIVE_DIR, "am.wav")
+    out = {}
+
+    # SDR-IP through the native pump, paced, at full width
+    code = ("import sys, time\n"
+            "from pebblesdr_tpu_torch.io import sdr_ip, sources\n"
+            "srv = sdr_ip.SdrIpServer(sources.FileSource(sys.argv[1], "
+            "pace=True), port=0)\n"
+            "srv.start()\n"
+            "print(srv.port, flush=True)\n"
+            "sys.stdin.read()\n"
+            "srv.stop()\n"
+            "print(srv.datagrams_sent, flush=True)\n")
+    proc = subprocess.Popen([sys.executable, "-c", code, rec],
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            text=True,
+                            env={**os.environ, "PYTHONPATH": os.getcwd()})
+    sent = None
+    try:
+        port = int(proc.stdout.readline())
+        reset_launches(front, wfm_tail)
+        rc, m, _, _, split = run_cli(
+            torch, cli, ["--source", "sdr_ip", "--port", str(port), "--mode",
+                         "AM", "--tune", "250000", "--audio-out",
+                         os.path.join(LIVE_DIR, "sdr_ip.wav")]
+            + full_width_argv(SDR_IP_DISPATCHES), profiled=False)
+        counts = launch_counts(front, wfm_tail)
+        proc.stdin.close()
+        sent = int(proc.stdout.readline())
+        proc.wait(timeout=10)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    counters = m.get("source_counters", {})
+    a = read_audio_wav(os.path.join(LIVE_DIR, "sdr_ip.wav"))[:, 0]
+    snr = tone_snr_db(a[len(a) // 2:], m["audio_rate"])
+    log(f"phase49 SDR-IP paced (AM, 64 ch, K 32, N 32768): rc {rc}, "
+        f"{m['blocks']} blocks, realtime factor {m['realtime_factor']}, "
+        f"server sent {sent} datagrams, native pump counters {counters}; "
+        f"work ms {split.get('work')} (each < {LIVE_DISPATCH_MS:.0f}); "
+        f"launches {counts}; tone SNR over the second half {snr:.2f} dB "
+        f"(>= {TONE_SNR_DB})")
+    log(f"phase49 SDR-IP split: {split_text(split)}")
+    if not (rc == 0 and "resyncs" in counters and "overruns" in counters
+            and counters["datagrams"] == sent
+            and counters["dropped_datagrams"] == 0
+            and counters["resyncs"] == 0 and counters["overruns"] == 0
+            and m["blocks"] == SDR_IP_DISPATCHES * HEADLINE["blocks"]
+            and counts["fused_front"] == SDR_IP_DISPATCHES + 1
+            and split["work"]["max"] < LIVE_DISPATCH_MS
+            and snr >= TONE_SNR_DB):
+        raise RuntimeError("phase49: SDR-IP through the native pump failed")
+    out["sdr_ip"] = {"sent": sent, "counters": counters, "snr_db": snr,
+                     "split": split}
+
+    # HPSDR with the bandscope waterfall
+    h = HPSDR_RUN
+    src = sources.SyntheticSource(h["fs"], tones=((20_000.0, 0.25),
+                                                  (21_000.0, 0.1),
+                                                  (19_000.0, 0.1)),
+                                  noise_db=-60.0)
+    server = hpsdr.HpsdrServer(src)
+    server.start()
+    try:
+        rc, m, lines, names, _ = run_cli(
+            torch, cli, ["--source", "hpsdr", "--port", str(server.port),
+                         "--sample-rate", str(h["fs"]), "--mode", "AM",
+                         "--tune", "20000", "--channels", str(h["channels"]),
+                         "--frames", str(h["frames"]),
+                         "--blocks-per-dispatch", str(h["blocks"]),
+                         "--seconds", str(h["seconds"]), "--bandscope",
+                         "--display", "waterfall"])
+    finally:
+        server.stop()
+    bs_rows = sum(ln.startswith("BS ") for ln in lines)
+    log(f"phase49 HPSDR (192 ksps, 64 ch, N 8192, K 8): rc {rc}, "
+        f"{m['blocks']} blocks, realtime factor {m['realtime_factor']}, "
+        f"snr {m['snr_db']} dB, bandscope_frames {m.get('bandscope_frames')}"
+        f", {bs_rows} BS rows printed, front_fir in the trace "
+        f"{any('front_fir' in nm for nm in names)}")
+    if not (rc == 0 and m.get("bandscope_frames", 0) > 0
+            and bs_rows == m["bandscope_frames"]):
+        raise RuntimeError("phase49: HPSDR with the bandscope failed")
+    out["hpsdr"] = {"bandscope_frames": m["bandscope_frames"]}
+
+    # ghpsdr3 round trip
+    dsp = DspServer()
+    client = ghpsdr3.Ghpsdr3Client("127.0.0.1", dsp.port)
+    client.set_frequency(7_100_000)
+    client.start_audio()
+    audio = client.read_audio(4000)
+    client.close()
+    amp = tone_amplitude(audio.astype(np.float64), ghpsdr3.AUDIO_RATE, 440.0)
+    log(f"phase49 ghpsdr3 loopback: {len(audio)} samples, 440 Hz amplitude "
+        f"{amp:.4f} (0.5 within 5 %), commands {dsp.commands}")
+    if not (abs(amp - 0.5) <= 0.025
+            and "setfrequency 7100000" in dsp.commands):
+        raise RuntimeError("phase49: the ghpsdr3 round trip failed")
+
+    # the soundcard IQ source into the Receiver on the card
+    fs, n, c = 256_000, 16384, 4
+    t = np.arange(fs) / fs
+    iq = 0.5 * (1 + 0.8 * np.cos(2 * np.pi * 1000.0 * t)) / 2 * np.exp(
+        2j * np.pi * 40_000.0 * t)
+    frames = np.stack([iq.real, iq.imag], axis=1).astype(np.float32)
+    src = audio_iq.AudioIqSource(
+        sample_rate=fs, stream_factory=lambda: audio_iq.WavStream(frames))
+    rx = Receiver(ReceiverConfig(sample_rate=fs, frames_per_buffer=n,
+                                 channels=c, mode=DemodMode.AM,
+                                 agc_mode="off"), "cuda")
+    state, params = rx.init_state(), rx.default_params(40_000.0)
+    reset_launches(front, wfm_tail)
+    outs = []
+    for blk in src.blocks(n, max_blocks=24):
+        plane = np.concatenate([np.repeat(blk.real[:, None], c, 1),
+                                np.repeat(blk.imag[:, None], c, 1)], axis=1)
+        state, o = rx.step(state, params, torch.from_numpy(plane).cuda())
+        outs.append(o["audio"][0].cpu().numpy())
+    k1 = front.fused_front.launches
+    a = np.concatenate(outs)
+    snr = tone_snr_db(a[len(a) // 2:].astype(np.float64), rx.cfg.audio_rate)
+    log(f"phase49 AudioIqSource (WavStream, 256 ksps AM) into the Receiver on "
+        f"the card (4 ch, 24 blocks of 16384): K1 launches {k1}, tone SNR "
+        f"{snr:.2f} dB (>= {TONE_SNR_DB})")
+    if not (k1 == 24 and snr >= TONE_SNR_DB):
+        raise RuntimeError("phase49: the soundcard source on the card failed")
+    out["audio_iq_snr_db"] = snr
+    return out
+
+
+def phase_control(torch, front, wfm_tail, wav) -> dict:
+    """Phase 50: the control surface on the card, through the CLI at 64
+    channels with --display spectrum and --keys (one key per dispatch of
+    32 blocks of 32768 frames).  (1) USB on a tone at tune + 1 kHz, keys
+    "x", Left: the retune moves the demodulated tone from 1 kHz (dispatch
+    1) to 2 kHz (dispatch 2).  (2) FM-Mono on a recording of an AM station
+    at 250 kHz and a stronger one at -300 kHz, keys "x", "p", "m", "x",
+    "q": 'p' snaps to the -300 kHz carrier within one bin of the 2048-bin
+    display spectrum, 'm' rebuilds the chain in the next mode, FM stereo,
+    on cuda (K1's WFM form and K2 launched once per dispatch after it,
+    wfm_tail_march and front_disc in the trace), 'q' ends the run after 4
+    dispatches; control_events printed."""
+    import os
+
+    from pebblesdr_tpu_torch.serve import cli
+    os.makedirs(LIVE_DIR, exist_ok=True)
+    n, k = HEADLINE["frames"], HEADLINE["blocks"]
+    path = os.path.join(LIVE_DIR, "usb_keys.wav")
+    reset_launches(front, wfm_tail)
+    rc, m, lines, _, _ = run_cli(
+        torch, cli, ["--synthetic", "tone", "--mode", "USB", "--tune",
+                     "400000", "--noise-db", "-60", "--display", "spectrum",
+                     "--keys", "x\x1b[D", "--audio-out", path]
+        + full_width_argv(2), profiled=False)
+    a = read_audio_wav(path)[:, 0]
+    half = len(a) // 2
+    seg = half // 2
+    amps = {(d, f): tone_amplitude(a[d * half + seg:(d + 1) * half],
+                                   m["audio_rate"], f)
+            for d in (0, 1) for f in (1000.0, 2000.0)}
+    log(f"phase50 keys USB retune: rc {rc}, events {m['control_events']}, "
+        f"tune {m['tune_hz']}; tone amplitude dispatch 1: 1 kHz "
+        f"{amps[0, 1000.0]:.4f}, 2 kHz {amps[0, 2000.0]:.4f}; dispatch 2: "
+        f"1 kHz {amps[1, 1000.0]:.4f}, 2 kHz {amps[1, 2000.0]:.4f}; "
+        f"{len(lines)} display lines; K1 launches "
+        f"{front.fused_front.launches}")
+    if not (rc == 0 and m["tune_hz"] == 399_000.0
+            and amps[0, 1000.0] > 10 * amps[0, 2000.0]
+            and amps[1, 2000.0] > 10 * amps[1, 1000.0]):
+        raise RuntimeError("phase50: the retune did not move the tone")
+
+    rec = live_recording(wav, os.path.join(LIVE_DIR, "two.wav"), 1.0, "two")
+    reset_launches(front, wfm_tail)
+    rc, m, lines, names, _ = run_cli(
+        torch, cli, ["--wav", rec, "--mode", "FM-Mono", "--tune", "250000",
+                     "--display", "spectrum", "--keys", "xpmxq"]
+        + full_width_argv(6))
+    counts = launch_counts(front, wfm_tail)
+    k2 = any("wfm_tail_march" in nm for nm in names)
+    disc = any("front_disc" in nm for nm in names)
+    bin_hz = FS / 2048
+    log(f"phase50 keys FMM -> p -> m: rc {rc}, control_events "
+        f"{m['control_events']}, tune {m['tune_hz']} Hz (the carrier at "
+        f"-300000, one bin {bin_hz:.0f} Hz), final mode {m['final_mode']}, "
+        f"{m['blocks']} blocks; launches {counts}; wfm_tail_march {k2}, "
+        f"front_disc {disc} in the trace")
+    if not (rc == 0 and abs(m["tune_hz"] + 300_000.0) <= bin_hz
+            and m["final_mode"] == "FM-Stereo" and k2 and disc
+            and counts["wfm_tail"] == 2 and counts["fused_front"] == 4
+            and m["control_events"][1:] == ["MODE FM-Stereo", "QUIT"]
+            and m["blocks"] == 4 * k):
+        raise RuntimeError("phase50: the control surface on the card failed")
+    return {"events": m["control_events"]}
+
+
 def receiver_for_cli(torch):
     """The Receiver the CLI builds for phase 45's arguments."""
     from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
@@ -4203,6 +4802,16 @@ def main() -> int:
     clock("phase 44")
     phase_cli_checkpoint(torch)
     clock("phase 45")
+    phase_runtime(torch)
+    clock("phase 46")
+    phase_rtl_tcp(torch, front, wfm_tail, wav)
+    clock("phase 47")
+    phase_rtl_tcp_fms(torch, front, wfm_tail, wav)
+    clock("phase 48")
+    phase_net_sources(torch, receiver, front, wfm_tail, wav)
+    clock("phase 49")
+    phase_control(torch, front, wfm_tail, wav)
+    clock("phase 50")
 
     c, n, k = HEADLINE["channels"], HEADLINE["frames"], HEADLINE["blocks"]
     t = n * k

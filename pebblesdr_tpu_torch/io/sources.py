@@ -7,7 +7,8 @@ FileSource (IQ WAV playback, looping, optional real-time pacing),
 SyntheticSource (tones plus calibrated noise), morse_envelope and
 MorseGenSource (up to five Morse generators with optional QSB fades, and
 the named scenarios of MORSE_SCENARIOS).  The network and soundcard
-sources of the JAX package's io/ are not ported yet.
+sources are io/rtl_tcp.py, io/sdr_ip.py, io/hpsdr.py and io/audio_iq.py;
+io/registry.py creates any of them by name.
 """
 
 from __future__ import annotations

@@ -1,4 +1,6 @@
-"""Windowed power spectrum by DFT matmul (port of pebblesdr_tpu/ops/spectrum.py).
+"""Windowed power spectrum by DFT matmul (port of pebblesdr_tpu/ops/spectrum.py):
+dB spectra (power_spectrum, averaged_spectrum), the FFT-to-pixel
+reduction (map_to_screen) and the host-side Waterfall buffer.
 
 The fftshifted DFT runs as real matmuls in the Karatsuba form (three
 products instead of four).  Every matmul here must run in IEEE float32: a
@@ -86,3 +88,50 @@ def averaged_spectrum(state: SpectrumState, x: torch.Tensor, window: torch.Tenso
     power = shifted_power(xw) * (norm * norm)
     avg = smoothing * state.avg_power + (1.0 - smoothing) * power
     return SpectrumState(avg_power=avg), dbu.power_to_db(avg) + db_offset, overload
+
+
+def power_spectrum(x: torch.Tensor, window: torch.Tensor, coherent_gain: float,
+                   db_offset: float = 0.0):
+    """x: [C, N] complex64 -> (spectrum_db [C, N] fftshifted, overload [C]
+    bool), on x's device.  0 dB == a full-scale coherent tone (the window's
+    coherent gain normalized out, fft.cpp:351-360)."""
+    n = x.shape[-1]
+    overload = torch.amax(torch.abs(x.real), dim=-1) > OVERLOAD_LEVEL
+    xw = x * window[None, :]
+    norm = 1.0 / (n * coherent_gain)
+    power = shifted_power(xw) * (norm * norm)
+    return dbu.power_to_db(power) + db_offset, overload
+
+
+def map_to_screen(spectrum_db: torch.Tensor, n_pixels: int) -> torch.Tensor:
+    """Max-bin FFT->pixel reduction (mapFFTToScreen capability,
+    signalspectrum.cpp:137-168) on the rows' device.  Requires bins %
+    n_pixels == 0; max preserves narrow signals."""
+    c, bins = spectrum_db.shape
+    assert bins % n_pixels == 0, "bins must divide evenly into pixels"
+    return torch.amax(spectrum_db.reshape(c, n_pixels, bins // n_pixels),
+                      dim=-1)
+
+
+class Waterfall:
+    """Host-side rolling waterfall buffer (SpectrumWidget waterfall-mode data
+    product, spectrumwidget.h:18-90): push per-block dB rows (numpy or a
+    tensor on any device: the row is reduced to pixels there and only the
+    pixels are fetched), read a [rows, pixels] image array (newest last)."""
+
+    def __init__(self, n_pixels: int, depth: int = 256):
+        self.n_pixels = n_pixels
+        self.depth = depth
+        self._buf = np.full((depth, n_pixels), -160.0, np.float32)
+
+    def push(self, spectrum_db) -> None:
+        rows = torch.as_tensor(spectrum_db)
+        if rows.ndim == 1:
+            rows = rows[None]
+        row = map_to_screen(rows, self.n_pixels)[0].cpu().numpy()
+        self._buf = np.roll(self._buf, -1, axis=0)
+        self._buf[-1] = row
+
+    @property
+    def image(self) -> np.ndarray:
+        return self._buf

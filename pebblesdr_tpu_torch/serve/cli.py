@@ -1,6 +1,7 @@
-"""Command-line receiver of the PyTorch port: file/synthetic IQ in ->
-demodulated audio WAV out, on the card (``--device cuda``, the default) or
-the CPU (``--device cpu``).
+"""Command-line receiver of the PyTorch port: file, synthetic, network or
+soundcard IQ in -> demodulated audio out (a WAV, a live soundcard or a
+pipe), on the card (``--device cuda``, the default) or the CPU (``--device
+cpu``).
 
 Port of pebblesdr_tpu/serve/cli.py (make_source, _run_stations and main):
 select a source, configure the chain, run it K blocks per dispatch through
@@ -17,6 +18,12 @@ Examples:
       --tune 250000 --seconds 5 --audio-out audio.wav
   python -m pebblesdr_tpu_torch.serve.cli --synthetic tone --mode USB \\
       --tune 400000 --seconds 0.3 --audio-out /tmp/a.wav --json --device cpu
+  # live: serve a recording (or a radio) over rtl_tcp, receive it here
+  python -m pebblesdr_tpu_torch.serve.server --source file \\
+      --path capture.wav --port 1234 &
+  python -m pebblesdr_tpu_torch.serve.cli --source rtl_tcp --port 1234 \\
+      --mode AM --tune 250000 --seconds 10 --display waterfall \\
+      --audio-out pipe
 
 --decode cw|rtty runs the modem (modem/morse.py, modem/rtty.py) on
 channel 0's post_bp tap (ReceiverConfig(taps=True): the staged front),
@@ -32,10 +39,33 @@ blocks and the JSON gains "health" (its report: blocks, drops, overruns,
 real-time factor and events); --resume PATH restores a saved state before
 the first block, so a stopped run continues bit for bit.
 
-Flags whose modules are not ported yet (--display, --display-zoomed,
---keys, --presets, --bandscope, --assign, --source
-rtl_tcp|sdr_ip|hpsdr|audio, --audio-out device:...|pipe:...) exit with
-code 2 and name the module.
+--source rtl_tcp|sdr_ip|hpsdr|audio (with --host/--port, or --center for
+the soundcard) goes through io/registry.py.  A network source is opened
+only once the chain is built and warmed by one dispatch of zeros (on the
+card the first dispatch loads kernels and plans; a stream would queue
+behind it and then flood the paced sink), the SDR-IP and HPSDR start
+command goes just before the first read, and the source's counters
+(datagrams, drops, restarts; the native pump's overruns) go under
+"source_counters"; --audio-out device[:name] | pipe[:command] streams
+channel 0 through the paced sink (io/audio_out.py PacedOutput,
+its latency bound two dispatches of audio; its underruns and overruns go
+under "audio_sink");
+--display waterfall|spectrum draws the terminal display (serve/display.py)
+from one spectrum row per dispatch, sliced on the device and fetched;
+--bandscope draws the HPSDR's wideband EP4 stream as a second waterfall;
+--keys TOKENS (or the live keyboard with --display on a terminal) drives
+serve/control.py: params-only retunes, and a mode or AGC change rebuilds
+the Receiver on the same device.  "split_ms" holds the per-dispatch
+split (min / max / avg over the dispatches after the first): read (the
+source's read and decode), plane (the [K*N, 2C] plane's build in a host
+buffer kept across dispatches, pinned for a CUDA device), copy (host to
+device), step (the copy, the dispatch and the audio's fetch), dispatch
+(the whole loop pass: keys, read, plane, step, sinks, display, decoders)
+and work (the pass less its read: what must stay under K*N/fs of signal
+when the source paces the run).
+
+--assign waits for parallel/expert.py, which is not ported yet: it exits
+with code 2 and names the module.
 """
 
 from __future__ import annotations
@@ -58,30 +88,29 @@ from pebblesdr_tpu_torch.utils.recovery import StreamSupervisor
 
 # what each deferred option waits for (the JAX package's modules)
 _DEFERRED = {
-    "display": "pebblesdr_tpu/serve/display.py",
-    "display_zoomed": "pebblesdr_tpu/serve/display.py",
-    "keys": "pebblesdr_tpu/serve/control.py",
-    "presets": "pebblesdr_tpu/serve/control.py",
-    "bandscope": "pebblesdr_tpu/io/hpsdr.py and serve/display.py",
     "assign": "pebblesdr_tpu/parallel/expert.py",
 }
-_NET_SOURCES = {"rtl_tcp": "pebblesdr_tpu/io/rtl_tcp.py",
-                "sdr_ip": "pebblesdr_tpu/io/sdr_ip.py",
-                "hpsdr": "pebblesdr_tpu/io/hpsdr.py",
-                "audio": "pebblesdr_tpu/io/audio_iq.py"}
-
+# the sources that stream from a network radio
+_NETWORK = ("rtl_tcp", "sdr_ip", "hpsdr")
 
 def make_source(args) -> sources.Source:
     if args.source:
-        name = args.source.lower()
-        if name == "file":
-            return sources.FileSource(args.wav or args.path, pace=args.pace)
-        if name == "synthetic":
-            return sources.SyntheticSource(args.sample_rate)
-        if name == "morsegen":
-            return sources.MorseGenSource(args.sample_rate)
-        raise ValueError(f"unknown source {args.source!r}; available: file, "
-                         f"morsegen, synthetic")
+        from pebblesdr_tpu_torch.io import registry
+
+        kwargs = {}
+        if args.source == "file":
+            kwargs = {"path": args.wav or args.path, "pace": args.pace}
+        elif args.source in _NETWORK:
+            kwargs = {"host": args.host, "port": args.port,
+                      "sample_rate": args.sample_rate}
+        elif args.source in ("synthetic", "morsegen"):
+            kwargs = {"sample_rate": args.sample_rate}
+        elif args.source == "audio":
+            # soundcard audio-IQ front end (FunCube/SoftRock class)
+            kwargs = {"sample_rate": args.sample_rate}
+            if args.center:
+                kwargs["center_freq_hz"] = args.center
+        return registry.create(args.source, **kwargs)
     if args.wav:
         return sources.FileSource(args.wav, loop=True, pace=args.pace)
     fs = args.sample_rate
@@ -100,6 +129,50 @@ def make_source(args) -> sources.Source:
                              0.5),),
             noise_db=args.noise_db)
     raise SystemExit(f"unknown synthetic source {kind!r}")
+
+
+def _start_stream(args, source) -> None:
+    """Send a network radio its start command (the JAX CLI never sends it,
+    so its --source sdr_ip|hpsdr reads time out): called once the chain is
+    built, so no datagram waits in the socket through the build."""
+    if args.source == "hpsdr":
+        source.start(bandscope=args.bandscope)
+    elif args.source == "sdr_ip":
+        source.start()
+
+
+class _Plane:
+    """The [K*N, 2C] float32 entry plane of a dispatch (channel c's I in
+    column c, its Q in column C + c), built on the host in one buffer kept
+    across dispatches: pinned for a CUDA device (no page faults on the 512
+    MiB of a full-width plane, a DMA copy), and copied to a new device
+    tensor each dispatch."""
+
+    def __init__(self, rows: int, channels: int, device: torch.device):
+        self.host = torch.empty((rows, 2, channels), dtype=torch.float32,
+                                pin_memory=device.type == "cuda")
+        self.device = device
+
+    def fill(self, cat: np.ndarray) -> None:
+        iq = torch.from_numpy(
+            np.ascontiguousarray(cat, np.complex64).view(np.float32)
+            .reshape(-1, 2))
+        self.host.copy_(iq[:, :, None].expand(self.host.shape))
+
+    def to_device(self) -> torch.Tensor:
+        return self.host.reshape(len(self.host), -1).to(self.device,
+                                                        copy=True)
+
+
+def _warm(rx: Receiver, plane: _Plane) -> None:
+    """One dispatch of zeros through a throwaway state: on the card the
+    first dispatch loads the kernels and sets up their plans, which a live
+    stream would otherwise queue behind (and then flood the paced sink
+    with a burst of late audio)."""
+    plane.host.zero_()
+    _, out = rx.step_many(rx.init_state(), rx.default_params(0.0),
+                          plane.to_device())
+    out["audio"].cpu()
 
 
 def _read_dispatch(source, frames: int, kdisp: int):
@@ -154,6 +227,7 @@ def _run_stations(args, source, device) -> int:
     perform = Perform(device)
     last = None
     n_done = 0
+    _start_stream(args, source)
     t_start = time.perf_counter()
     while n_done < n_blocks:
         k_real, cat = _read_dispatch(source, args.frames, kdisp)
@@ -198,6 +272,7 @@ def _run_stations(args, source, device) -> int:
         "realtime_factor": round(len(audio) * args.frames / fs / wall, 2),
         "rows": rows,
         "step_ms": perform.stats("step"),
+        "split_ms": perform.report(),
     }
     print(json.dumps(metrics) if args.json else
           "\n".join(f"{k:>16}: {v}" for k, v in metrics.items()))
@@ -295,10 +370,13 @@ def _parser() -> argparse.ArgumentParser:
     src.add_argument("--wav", help="IQ wav file input")
     src.add_argument("--synthetic", choices=["am", "tone", "morse"],
                      help="synthetic test source")
-    src.add_argument("--source", help="source by name (file/synthetic/"
-                     "morsegen; the network and soundcard sources are not "
-                     "ported yet)")
+    src.add_argument("--source", help="registered source by name "
+                     "(file/synthetic/morsegen/rtl_tcp/sdr_ip/hpsdr/audio)")
     p.add_argument("--path", help="wav path for --source file")
+    p.add_argument("--host", default="127.0.0.1",
+                   help="rtl_tcp / SDR-IP / HPSDR host")
+    p.add_argument("--port", type=int, default=1234,
+                   help="rtl_tcp / SDR-IP / HPSDR port")
     p.add_argument("--device", default="cuda",
                    help="torch device the chain runs on: 'cuda' (the "
                         "default; an error without a CUDA device), "
@@ -308,8 +386,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--assign", default=None,
                    help="mixed-mode channels 'MODE@HZ,...' (not ported yet)")
     p.add_argument("--presets", default=None,
-                   help="preset stations for the n/N live keys (not ported "
-                        "yet)")
+                   help="preset stations for the n/N live keys: a CSV path "
+                        "(name,freq_hz,mode) or 'db' for the shipped "
+                        "station database")
     p.add_argument("--stations", default=None,
                    help="dense-bank monitoring (PFB): comma list of Hz "
                         "offsets, or 'db' for every station-DB entry in the "
@@ -320,7 +399,8 @@ def _parser() -> argparse.ArgumentParser:
                    help="2 = 2x oversampled bank: edge stations keep their "
                         "sidebands (critical banks alias them)")
     p.add_argument("--center", type=float, default=0.0,
-                   help="capture center frequency Hz (for --stations db)")
+                   help="capture center frequency Hz (for --stations db and "
+                        "the soundcard source)")
     p.add_argument("--mode", default="AM",
                    help="demod mode (AM/SAM/FMN/FM-Mono/FM-Stereo/LSB/USB/"
                         "CWL/CWU/...); FM-Stereo runs the ~256 kHz composite "
@@ -353,8 +433,10 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--blocks-per-dispatch", type=int, default=8,
                    help="blocks batched into one step_many dispatch")
     p.add_argument("--audio-out", default=None,
-                   help="demod audio to this .wav path (the live 'device' "
-                        "and 'pipe' sinks are not ported yet)")
+                   help="demod audio sink: a .wav path, 'device[:name]' for "
+                        "the PortAudio soundcard (live, paced, with underrun "
+                        "counters), or 'pipe[:command]' to stream float32 "
+                        "PCM into a player")
     p.add_argument("--iq-record", default=None,
                    help="record the input IQ to wav")
     p.add_argument("--pace", action="store_true", help="real-time pacing")
@@ -362,14 +444,18 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--json", action="store_true",
                    help="print metrics as JSON")
     p.add_argument("--display", choices=["waterfall", "spectrum"],
-                   default=None, help="live terminal display (not ported "
-                                      "yet)")
+                   default=None, help="live terminal spectrum display")
     p.add_argument("--keys", default=None, metavar="TOKENS",
-                   help="scripted control keys (not ported yet)")
+                   help="scripted control keys, one per dispatch (arrows "
+                        "spelled as ESC sequences; 'help' prints the key "
+                        "map).  With --display on a terminal the live "
+                        "keyboard drives the same control surface")
     p.add_argument("--display-zoomed", action="store_true",
-                   help="display the demod-rate spectrum (not ported yet)")
+                   help="display the demod-rate spectrum instead of the "
+                        "device-rate one")
     p.add_argument("--bandscope", action="store_true",
-                   help="the HPSDR bandscope waterfall (not ported yet)")
+                   help="draw the device's wideband bandscope stream as a "
+                        "second waterfall (HPSDR EP4)")
     p.add_argument("--decode", choices=["cw", "rtty", "wwv", "dtmf"],
                    default=None,
                    help="run a digital modem on the channel and print text: "
@@ -396,14 +482,6 @@ def _refuse_deferred(p: argparse.ArgumentParser, args) -> None:
         if getattr(args, opt):
             p.error(f"--{opt.replace('_', '-')} needs {module}, which is not "
                     f"ported to pebblesdr_tpu_torch yet")
-    if args.source and args.source.lower() in _NET_SOURCES:
-        p.error(f"--source {args.source} needs "
-                f"{_NET_SOURCES[args.source.lower()]}, which is not ported "
-                f"to pebblesdr_tpu_torch yet")
-    if args.audio_out and args.audio_out.startswith(("device", "pipe")):
-        p.error(f"--audio-out {args.audio_out} (a live sink) needs "
-                f"pebblesdr_tpu/io/audio_out.py, which is not ported to "
-                f"pebblesdr_tpu_torch yet")
 
 
 def _device(p: argparse.ArgumentParser, name: str) -> torch.device:
@@ -420,17 +498,100 @@ def _device(p: argparse.ArgumentParser, name: str) -> torch.device:
     return dev
 
 
+def _controls(args, rx, params, tune, source):
+    """The control surface and its key source (--keys, or the live keyboard
+    when --display runs on a terminal), or (None, None)."""
+    if args.keys is None and not (args.display and sys.stdin.isatty()):
+        return None, None
+    from pebblesdr_tpu_torch.serve.control import (ControlSurface,
+                                                   ScriptedKeys, TtyKeys)
+
+    iq_static = None
+    if args.iq_balance and args.iq_balance.lower() != "auto":
+        iq_static = tuple(float(v) for v in args.iq_balance.split(","))
+    bp_static = None
+    if args.bandpass:
+        bp_static = tuple(float(v) for v in args.bandpass.split(","))
+    preset_list = None
+    if args.presets:
+        from pebblesdr_tpu_torch.utils import settings as settings_mod
+
+        preset_list = (settings_mod.load_stations()
+                       if args.presets.strip().lower() == "db"
+                       else settings_mod.load_presets_csv(args.presets))
+    controls = ControlSurface(rx, params, tune, squelch_db=args.squelch,
+                              gain=args.gain, source=source,
+                              center_hz=source.info.center_freq_hz,
+                              iq_static=iq_static, bandpass=bp_static,
+                              presets=preset_list)
+    if args.display_zoomed:
+        controls.display = "zoom"
+    keys = (ScriptedKeys(args.keys) if args.keys is not None
+            else TtyKeys().__enter__())
+    return controls, keys
+
+
+def _live_audio(args, dispatch_s: float):
+    """The paced live sink for --audio-out device[:name] | pipe[:command]
+    (not started yet), or None.  A dispatch hands the sink dispatch_s of
+    audio at once, so the sink's latency bound holds two dispatches (a
+    bound under one dispatch drops audio on every dispatch)."""
+    if not (args.audio_out and args.audio_out.startswith(("device", "pipe"))):
+        return None
+    from pebblesdr_tpu_torch.io import audio_out as ao
+
+    kind, _, rest = args.audio_out.partition(":")
+    kw = {}
+    if kind == "device" and rest and rest != "default":
+        kw["device"] = rest
+    if kind == "pipe" and rest:
+        kw["command"] = rest.split()
+    sink = ao.factory(kind, paced=True, **kw)
+    sink.max_latency_s = max(sink.max_latency_s, 2.0 * dispatch_s)
+    return sink
+
+
+def _show(args, display, controls, out, k_real, rx, fs, tune) -> None:
+    """One display frame per dispatch: channel 0's rows of the last block,
+    sliced on the device and fetched ('z' cycles wide / zoom / split)."""
+    dmode = controls.display if controls is not None else (
+        "zoom" if args.display_zoomed else "wide")
+    panes = {"wide": [("spectrum", fs)],
+             "zoom": [("zoomed", rx.demod_rate)],
+             "split": [("spectrum", fs), ("zoomed", rx.demod_rate)]}[dmode]
+    sm = {k: float(v[k_real - 1, 0]) for k, v in out["smeter"].items()}
+    for key, span in panes:
+        if key in out:
+            row = out[key][k_real - 1, 0].cpu().numpy()
+            pre = "Z " if (dmode == "split" and key == "zoomed") else ""
+            print(pre + display.frame(row, sm, center_hz=tune, span_hz=span),
+                  flush=True)
+
+
 def main(argv=None):
     p = _parser()
     args = p.parse_args(argv)
+    if args.keys == "help":
+        # print the key map (the control module docstring's table) and exit
+        # before any chain build: the letters of "help" are not live keys
+        import pebblesdr_tpu_torch.serve.control as control_mod
+
+        doc = control_mod.__doc__ or ""
+        start = doc.find("Key map")
+        print(doc[start:] if start >= 0 else doc, file=sys.stderr)
+        return 0
     _refuse_deferred(p, args)
     device = _device(p, args.device)
 
-    source = make_source(args)
+    # a network radio streams from its connection (rtl_tcp) or its start
+    # command on: it is opened once the chain is built and warm
+    live = args.source in _NETWORK and not args.stations
+    source = None if live else make_source(args)
     if args.stations:
         return _run_stations(args, source, device)
-    fs = source.info.sample_rate
-    mode = modes_mod.from_string(args.mode or source.info.demod_mode or "AM")
+    fs = args.sample_rate if live else source.info.sample_rate
+    mode = modes_mod.from_string(
+        args.mode or (None if live else source.info.demod_mode) or "AM")
 
     iqbal = False
     if args.iq_balance:
@@ -449,7 +610,36 @@ def main(argv=None):
     state = rx.init_state()
     if args.resume:
         state, _ = ckpt.load_state(args.resume, state)
+    n_blocks = max(1, int(args.seconds * fs / args.frames))
+    kdisp = max(1, min(args.blocks_per_dispatch, n_blocks))
+    plane = _Plane(kdisp * args.frames, args.channels, device)
+    if live:
+        _warm(rx, plane)
+        source = make_source(args)
+        if source.info.sample_rate != fs:
+            print(f"--source {args.source}: the radio runs at "
+                  f"{source.info.sample_rate} sps, not --sample-rate {fs}",
+                  file=sys.stderr)
+            return 1
 
+    display = None
+    if args.display:
+        from pebblesdr_tpu_torch.serve.display import TerminalDisplay
+
+        display = TerminalDisplay(mode=args.display,
+                                  color=sys.stdout.isatty())
+    bs_display = None
+    bs_frames = 0
+    if args.bandscope:
+        if not hasattr(source, "read_bandscope"):
+            print("--bandscope: source has no bandscope stream (HPSDR EP4 "
+                  "only); ignoring", file=sys.stderr)
+        else:
+            from pebblesdr_tpu_torch.io.hpsdr import bandscope_spectrum
+            from pebblesdr_tpu_torch.serve.display import TerminalDisplay
+
+            bs_display = TerminalDisplay(mode="waterfall",
+                                         color=sys.stdout.isatty())
     rds_block = rds_groups = None
     if args.rds:
         from pebblesdr_tpu_torch.demod import rds as rds_mod
@@ -474,26 +664,58 @@ def main(argv=None):
         g, ph = (float(v) for v in args.iq_balance.split(","))
         params = dataclasses.replace(params, iq_gain=scalar(g),
                                      iq_phase=scalar(ph))
+    # interactive runtime control (receiverwidget.h:28-140 capability)
+    controls, key_source = _controls(args, rx, params, tune, source)
 
-    n_blocks = max(1, int(args.seconds * fs / args.frames))
-    kdisp = max(1, min(args.blocks_per_dispatch, n_blocks))
     supervisor = None
     if args.checkpoint and args.checkpoint_every:
         supervisor = StreamSupervisor(rx, params,
                                       checkpoint_path=args.checkpoint,
                                       checkpoint_every=args.checkpoint_every)
-    c = args.channels
+    # live audio sink, wrapped in the paced consumer so latency, underruns
+    # and overruns are accounted
+    live_audio = _live_audio(args, kdisp * args.frames / fs)
+    live_channels = 2 if mode == modes_mod.DemodMode.FMS else 1
+    if live_audio is not None:
+        live_audio.start(cfg.audio_rate, channels=live_channels)
     audio_chunks = []
     perform = Perform(device)
     rec = [] if args.iq_record else None
     n_done = 0
     last_out = None
 
+    _start_stream(args, source)
     t_start = time.perf_counter()
     while n_done < n_blocks:
+        t_pass = time.perf_counter()
+        if controls is not None:
+            # params-only events keep the same Receiver; a mode or AGC
+            # event rebuilds it (on the same device) and restarts its state
+            for key in key_source.poll():
+                ev = controls.handle(key)
+                if ev:
+                    print(f"* {ev}", file=sys.stderr, flush=True)
+            if controls.take_reset():
+                rx = controls.rx
+                mode = rx.cfg.mode
+                state = rx.init_state()
+                audio_chunks = []  # new chain geometry: new audio segment
+                if live_audio is not None:
+                    # the live sink's frame layout is fixed at open time:
+                    # an FMS <-> mono switch reopens it at the new count
+                    want = 2 if mode == modes_mod.DemodMode.FMS else 1
+                    if want != live_channels:
+                        live_audio.stop()
+                        live_audio.start(cfg.audio_rate, channels=want)
+                        live_channels = want
+            params = controls.params
+            tune = controls.tune
+            if controls.quit:
+                break
         # K blocks as ONE [K*N, 2C] plane through step_many; a short
         # trailing batch is zero-padded and trimmed after
-        k_real, cat = _read_dispatch(source, args.frames, kdisp)
+        with perform.measure("read"):
+            k_real, cat = _read_dispatch(source, args.frames, kdisp)
         if cat is None:
             break
         if rec is not None:
@@ -503,25 +725,40 @@ def main(argv=None):
                   "card compiles its kernels with nvcc) ...",
                   file=sys.stderr, flush=True)
             t_build0 = time.perf_counter()
-        plane = np.concatenate(
-            [np.broadcast_to(cat.real.astype(np.float32)[:, None],
-                             (len(cat), c)),
-             np.broadcast_to(cat.imag.astype(np.float32)[:, None],
-                             (len(cat), c))], axis=1)
+        with perform.measure("plane"):
+            plane.fill(cat)
         with perform.measure("step"):
-            state, out = rx.step_many(state, params,
-                                      torch.from_numpy(plane).to(device))
+            with perform.measure("copy"):
+                x = plane.to_device()
+            state, out = rx.step_many(state, params, x)
             # fetch inside the timed region
             audio_np = out["audio"][:k_real].cpu().numpy()  # [K, C, (2,) M]
         if n_done == 0:
             print(f"chain ready in {time.perf_counter() - t_build0:.1f}s",
                   file=sys.stderr, flush=True)
         audio_chunks.extend(audio_np)
+        if live_audio is not None:
+            for a_blk in audio_np:      # [C, M] or [C, 2, M]: channel 0
+                live_audio.send(a_blk[0])
         n_done += k_real
         if supervisor is not None:
             for _ in range(k_real):
                 supervisor.block_done(state)
         last_out = (out, k_real)
+        if controls is not None and "spectrum" in out:
+            # the latest wide spectrum feeds the 'p' peak-snap key: one row
+            # sliced on the device and fetched
+            controls.note_spectrum(out["spectrum"][k_real - 1, 0].cpu()
+                                   .numpy())
+        if display is not None:
+            _show(args, display, controls, out, k_real, rx, fs, tune)
+        if bs_display is not None:
+            # the raw EP4 samples become one windowed dB row per update
+            bs = source.read_bandscope()
+            if len(bs) >= 2048:
+                bs_frames += 1
+                print("BS " + bs_display.frame(bandscope_spectrum(
+                    bs, bins=2048)), flush=True)
         decode.feed(out, audio_np, k_real)
         if rds_block is not None and "rds_soft" in out:
             for soft_k in out["rds_soft"][:k_real].cpu().numpy():
@@ -529,9 +766,17 @@ def main(argv=None):
             for grp in rds_block.groups:
                 rds_groups.decode(grp)
             rds_block.groups.clear()
+        t_pass = time.perf_counter() - t_pass
+        perform.samples["dispatch"].append(t_pass)
+        perform.samples["work"].append(t_pass - perform.samples["read"][-1])
         if k_real < kdisp:
             break
     wall = time.perf_counter() - t_start
+    if key_source is not None and hasattr(key_source, "__exit__"):
+        key_source.__exit__(None, None, None)
+    if hasattr(source, "close"):
+        source.close()      # a network source's socket, a soundcard stream
+    source_counters = getattr(source, "counters", None)
 
     if last_out is None:
         print("no IQ blocks read from the source", file=sys.stderr)
@@ -553,9 +798,27 @@ def main(argv=None):
         "squelch_open": bool(out["squelch_open"][k_real - 1, 0]),
         "audio_rms": round(float(np.sqrt(np.mean(audio[0] ** 2))), 4),
         "step_ms": perform.stats("step"),
+        "split_ms": perform.report(),
     }
+    if source_counters is not None:
+        metrics["source_counters"] = dict(source_counters)
+    if controls is not None:
+        metrics["control_events"] = controls.events
+        metrics["tune_hz"] = controls.tune
+        metrics["final_mode"] = rx.cfg.mode.value
+    if live_audio is not None:
+        live_audio.stop()
+        inner = getattr(live_audio, "inner", live_audio)
+        metrics["audio_sink"] = {
+            "kind": args.audio_out,
+            "underruns": (getattr(live_audio, "underruns", 0)
+                          + getattr(inner, "underruns", 0)),
+            "overruns": getattr(live_audio, "overruns", 0),
+        }
     if supervisor is not None:
         metrics["health"] = supervisor.report()
+    if bs_display is not None:
+        metrics["bandscope_frames"] = bs_frames
     metrics.update(decode.metrics())
     if rds_groups is not None:
         metrics["rds"] = {
@@ -575,7 +838,7 @@ def main(argv=None):
                         extra={"blocks": len(audio_chunks)})
         print(f"state checkpointed to {args.checkpoint}", file=sys.stderr)
 
-    if args.audio_out:
+    if args.audio_out and live_audio is None:
         wav.write_audio_wav(args.audio_out, audio[0], cfg.audio_rate)
         print(f"audio written to {args.audio_out}", file=sys.stderr)
     if rec:

@@ -3,10 +3,11 @@ presets and the station database.
 
 A copy of pebblesdr_tpu/utils/settings.py (no JAX in it; the port imports
 none of the JAX package): Settings, Preset, the presets CSV reader and
-writer, the EiBi import, stations_near, and load_stations, which reads the
+writer, the EiBi import, stations_near, load_stations, which reads the
 port's own copy of the shipped station list (pebblesdr_tpu_torch/data/
 stations.csv) plus the user DB ($PEBBLESDR_STATIONS or
-~/.pebblesdr_tpu/stations.csv) where present, as the JAX package does.
+~/.pebblesdr_tpu/stations.csv) where present, as the JAX package does, and
+load_memory (data/memory.csv; data/bands.csv ships beside it).
 """
 
 from __future__ import annotations
@@ -102,8 +103,9 @@ def save_presets_csv(path: str, presets: list[Preset]) -> None:
 
 
 def data_path(name: str) -> str:
-    """Path of a data fixture shipped with the port (stations.csv, the
-    reference's presets data, presets.h:43-133)."""
+    """Path of a data fixture shipped with the port (bands.csv /
+    stations.csv / memory.csv, the reference's presets data files,
+    presets.h:43-133)."""
     return os.path.join(os.path.dirname(os.path.dirname(__file__)),
                         "data", name)
 
@@ -162,3 +164,7 @@ def stations_near(presets: list[Preset], center_hz: float, span_hz: float
     lo, hi = center_hz - span_hz / 2.0, center_hz + span_hz / 2.0
     return sorted((p for p in presets if lo <= p.freq_hz <= hi),
                   key=lambda p: p.freq_hz)
+
+
+def load_memory() -> list[Preset]:
+    return load_presets_csv(data_path("memory.csv"))

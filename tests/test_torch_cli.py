@@ -12,7 +12,9 @@ the per-block decimation grid where the tail block is not a multiple of
 audio_decim (2.88 Msps).  Bounds: the audio WAVs sample by sample (int16 /
 32767) within 2e-4, FM stereo within the stereo tail's 5e-4 (tests/
 test_chain_pallas.py:190, the JAX suite's fused-vs-staged FMS bound); the
-JSON keys equal; blocks, input_samples, audio_rate and squelch_open equal;
+JSON keys equal (the port's "split_ms" and a network source's
+"source_counters" aside); blocks, input_samples, audio_rate and
+squelch_open equal;
 smeter_db and snr_db within 0.2 dB (the CLIs round them to 0.1 dB);
 audio_rms within 1e-3.  --decode cw|rtty|wwv|dtmf (the modems, cw / rtty
 on the staged front's post_bp tap) against the JAX CLI with the same
@@ -21,7 +23,15 @@ dtmf decodes right.  --checkpoint / --checkpoint-every / --resume: the
 round trip of tests/test_cli.py:24-40, the supervisor's snapshots and the
 "health" JSON against the JAX CLI's, and a resumed run's audio against
 the JAX CLI's resumed run (each from its own checkpoint) within 2e-4.
-Every flag whose module is not ported exits with code 2 naming it.
+The live shell: --source rtl_tcp (each CLI reading its own package's
+server, which serves the same recording) and --source hpsdr --bandscope
+--display waterfall against the JAX CLI (audio within 2e-4, the JSON keys
+equal, bandscope_frames equal; the JAX CLI never sends the HPSDR start
+command, so its registry's hpsdr factory is wrapped to send it, while the
+port's CLI sends it itself); --keys with --display spectrum against the
+JAX CLI (control_events and tune_hz equal); --source sdr_ip on the port's
+native pump; --audio-out pipe:dd carrying the 1 kHz tone.  --assign, whose
+module is not ported, exits with code 2 naming it.
 """
 
 import json
@@ -34,7 +44,10 @@ from pebblesdr_tpu.serve import cli as jcli
 from pebblesdr_tpu_torch.io import wav
 from pebblesdr_tpu_torch.serve import cli
 
-TIMING = ("wall_s", "msps", "realtime_factor", "step_ms")
+TIMING = ("wall_s", "msps", "realtime_factor", "step_ms", "split_ms")
+# the port's JSON keys beyond the JAX CLI's: the per-dispatch split, and a
+# network source's counters
+PORT_KEYS = {"split_ms", "source_counters"}
 
 
 def read_audio(path: str) -> np.ndarray:
@@ -85,7 +98,8 @@ def run(main, argv, capsys) -> dict:
 
 
 def check_metrics(jm: dict, tm: dict) -> None:
-    assert set(jm) == set(tm)
+    assert set(jm) == set(tm) - PORT_KEYS
+    assert ("split_ms" in tm) == ("step_ms" in jm)  # a run's, not a row's
     for key in jm:
         if key in TIMING:
             continue
@@ -255,22 +269,10 @@ def test_cli_records_iq(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,module", [
-    (["--display", "waterfall"], "serve/display.py"),
-    (["--display-zoomed"], "serve/display.py"),
-    (["--keys", "help"], "serve/control.py"),
-    (["--presets", "db"], "serve/control.py"),
-    (["--bandscope"], "io/hpsdr.py"),
-    (["--assign", "AM@250000"], "parallel/expert.py"),
-    (["--source", "rtl_tcp"], "io/rtl_tcp.py"),
-    (["--source", "sdr_ip"], "io/sdr_ip.py"),
-    (["--source", "hpsdr"], "io/hpsdr.py"),
-    (["--source", "audio"], "io/audio_iq.py"),
-    (["--audio-out", "device:default"], "io/audio_out.py"),
-    (["--audio-out", "pipe:aplay"], "io/audio_out.py")])
+    (["--assign", "AM@250000"], "parallel/expert.py")])
 def test_deferred_flags_exit_2_naming_the_module(extra, module, capsys):
-    src = [] if extra[0] == "--source" else ["--synthetic", "tone"]
     with pytest.raises(SystemExit) as exc:
-        cli.main(src + ["--seconds", "0.01"] + extra)
+        cli.main(["--synthetic", "tone", "--seconds", "0.01"] + extra)
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert module in err and "not ported" in err
@@ -375,3 +377,159 @@ def test_ctcss_requires_fmn():
     with pytest.raises(ValueError):
         cli.main(["--synthetic", "am", "--mode", "AM", "--tune", "250000",
                   "--seconds", "0.1", "--ctcss", "123.0", "--device", "cpu"])
+
+
+# ---- the live shell --------------------------------------------------------
+
+@pytest.fixture
+def served_am(recordings):
+    """The AM recording served over rtl_tcp by each package's server
+    (unpaced: TCP carries every sample)."""
+    from pebblesdr_tpu.io import rtl_tcp as jrtl
+    from pebblesdr_tpu.io import sources as jsources
+    from pebblesdr_tpu_torch.io import rtl_tcp, sources
+    servers = {
+        "jax": jrtl.RtlTcpServer(jsources.FileSource(recordings["am"]),
+                                 port=0, block=16384),
+        "port": rtl_tcp.RtlTcpServer(sources.FileSource(recordings["am"]),
+                                     port=0, block=16384)}
+    for srv in servers.values():
+        srv.start()
+    yield {k: srv.port for k, srv in servers.items()}
+    for srv in servers.values():
+        srv.stop()
+
+
+def test_cli_rtl_tcp_matches_jax(served_am, tmp_path, capsys):
+    argv = ["--source", "rtl_tcp", "--mode", "AM", "--tune", "250000",
+            "--seconds", "0.2", "--json"]
+    jm = run(jcli.main, argv + ["--port", str(served_am["jax"]),
+                                "--audio-out", str(tmp_path / "j.wav")],
+             capsys)
+    tm = run(cli.main, argv + ["--port", str(served_am["port"]),
+                               "--audio-out", str(tmp_path / "t.wav"),
+                               "--device", "cpu"], capsys)
+    check_metrics(jm, tm)
+    a, b = read_audio(str(tmp_path / "j.wav")), read_audio(str(tmp_path /
+                                                               "t.wav"))
+    assert a.shape == b.shape and np.abs(a - b).max() < 2e-4
+    assert np.abs(b).max() > 0.05
+
+
+def started_hpsdr(factory):
+    """The JAX registry's hpsdr factory, plus the start command (IQ and
+    the bandscope) that the JAX CLI never sends."""
+    def make(**kw):
+        src = factory(**kw)
+        src.start(bandscope=True)
+        return src
+    return make
+
+
+def test_cli_hpsdr_bandscope_matches_jax(tmp_path, capsys, monkeypatch):
+    from pebblesdr_tpu.io import hpsdr as jhpsdr
+    from pebblesdr_tpu.io import registry as jregistry
+    from pebblesdr_tpu.io import sources as jsources
+    from pebblesdr_tpu_torch.io import hpsdr, sources
+    fs = 192_000
+
+    def tones(mod):
+        return mod.SyntheticSource(fs, tones=((20_000.0, 0.25),
+                                              (21_000.0, 0.1),
+                                              (19_000.0, 0.1)),
+                                   noise_db=-60.0)
+
+    monkeypatch.setitem(jregistry._REGISTRY, "hpsdr",
+                        started_hpsdr(jregistry._REGISTRY["hpsdr"]))
+    argv = ["--source", "hpsdr", "--sample-rate", str(fs), "--mode", "AM",
+            "--tune", "20000", "--seconds", "0.2", "--frames", "8192",
+            "--blocks-per-dispatch", "2", "--bandscope", "--display",
+            "waterfall", "--json"]
+    runs = {}
+    for name, main, srv, extra in (
+            ("jax", jcli.main, jhpsdr.HpsdrServer(tones(jsources)), []),
+            ("port", cli.main, hpsdr.HpsdrServer(tones(sources)),
+             ["--device", "cpu"])):
+        srv.start()
+        try:
+            rc = main(argv + ["--port", str(srv.port), "--audio-out",
+                              str(tmp_path / f"{name}.wav")] + extra)
+            out = capsys.readouterr().out.strip().splitlines()
+        finally:
+            srv.stop()
+        assert rc in (0, None)
+        runs[name] = (json.loads(out[-1]), out)
+    (jm, jout), (tm, tout) = runs["jax"], runs["port"]
+    check_metrics(jm, tm)
+    assert tm["bandscope_frames"] == jm["bandscope_frames"] == 2
+    assert sum(ln.startswith("BS ") for ln in tout) == 2
+    a, b = read_audio(str(tmp_path / "jax.wav")), read_audio(
+        str(tmp_path / "port.wav"))
+    assert a.shape == b.shape and np.abs(a - b).max() < 2e-4
+
+
+def test_cli_sdr_ip_on_the_native_pump(tmp_path, capsys):
+    """The port's CLI starts the SDR-IP stream itself and reads it through
+    the native UDP pump (0.1 s at 256 ksps: inside the pump's ring)."""
+    from pebblesdr_tpu_torch import runtime
+    from pebblesdr_tpu_torch.io import sdr_ip, sources
+    fs = 256_000
+    srv = sdr_ip.SdrIpServer(sources.SyntheticSource(
+        fs, tones=((40_000.0, 0.25), (41_000.0, 0.1), (39_000.0, 0.1)),
+        noise_db=-60.0))
+    srv.start()
+    try:
+        m = run(cli.main, ["--source", "sdr_ip", "--port", str(srv.port),
+                           "--sample-rate", str(fs), "--mode", "AM",
+                           "--tune", "40000", "--seconds", "0.1",
+                           "--frames", "8192", "--json", "--device", "cpu",
+                           "--audio-out", str(tmp_path / "a.wav")], capsys)
+    finally:
+        srv.stop()
+    assert runtime.available() and m["blocks"] == 3
+    c = m["source_counters"]
+    assert set(c) == {"datagrams", "dropped_datagrams", "overruns", "bytes",
+                      "resyncs"} and c["datagrams"] >= 3 * 8192 // 256
+    assert any(item == sdr_ip.ITEM_RECEIVER_STATE and params[1] ==
+               sdr_ip.STATE_RUN for item, params in srv.commands)
+    a = read_audio(str(tmp_path / "a.wav"))[:, 0]
+    spec = np.abs(np.fft.rfft(a[len(a) // 3:]))
+    f = np.fft.rfftfreq(len(a) - len(a) // 3, 1 / m["audio_rate"])
+    assert abs(f[np.argmax(spec[1:]) + 1] - 1000.0) < 60.0
+
+
+def test_cli_keys_with_the_spectrum_display_match_jax(capsys):
+    argv = ["--synthetic", "am", "--mode", "AM", "--tune", "250000",
+            "--seconds", "0.2", "--frames", "8192",
+            "--blocks-per-dispatch", "1", "--noise-db", "-60", "--json",
+            "--display", "spectrum", "--keys",
+            "\x1b[C\x1b[A\x1b[D[s gzpm"]
+    jm = run(jcli.main, argv, capsys)
+    tm = run(cli.main, argv + ["--device", "cpu"], capsys)
+    check_metrics(jm, tm)
+    assert tm["control_events"] == jm["control_events"]
+    assert tm["tune_hz"] == jm["tune_hz"]
+    assert tm["final_mode"] == jm["final_mode"] == "SAM"
+    assert any(e.startswith("SNAP") for e in tm["control_events"])
+
+
+def test_cli_pipe_sink_carries_the_tone(tmp_path, capsys):
+    sink = tmp_path / "pcm.raw"
+    m = run(cli.main, ["--synthetic", "am", "--mode", "AM", "--tune",
+                       "250000", "--seconds", "0.4", "--frames", "8192",
+                       "--noise-db", "-60", "--json", "--device", "cpu",
+                       "--audio-out", f"pipe:dd of={sink} status=none"],
+            capsys)
+    assert m["audio_sink"] == {"kind": f"pipe:dd of={sink} status=none",
+                               "underruns": m["audio_sink"]["underruns"],
+                               "overruns": 0}
+    pcm = np.frombuffer(sink.read_bytes(), "<f4")
+    live = pcm[np.abs(pcm) > 0][4800:]     # past the start-up transient
+    assert len(live) > 9600
+    spec = np.abs(np.fft.rfft(live * np.hanning(len(live))))
+    f = np.fft.rfftfreq(len(live), 1 / 48000.0)
+    peak = np.argmax(spec[5:]) + 5
+    assert abs(f[peak] - 1000.0) < 20.0
+    tone = spec[peak - 3:peak + 4] ** 2
+    assert 10 * np.log10(tone.sum() / (np.sum(spec[5:] ** 2)
+                                       - tone.sum())) > 30.0

@@ -252,8 +252,12 @@ def test_port_imports_no_jax():
     modem's detector, the command-line receiver (a CPU run, --decode wwv,
     --checkpoint with --checkpoint-every, --resume and --help, in process
     and as ``python -m``), a checkpoint round trip, the stream supervisor
-    across a gap, the feeder and the soak's fixture, runs without loading
-    jax or any module of the JAX package."""
+    across a gap, the feeder and the soak's fixture, and the live shell
+    (the runtime's ring, iqformat, util_filters, the registry, an rtl_tcp
+    server and the CLI reading it with --display and --keys, the control
+    surface, the terminal display, the SDR-IP, HPSDR, ghpsdr3, audio sink
+    and soundcard modules, and ``python -m pebblesdr_tpu_torch.serve.server
+    --help``) runs without loading jax or any module of the JAX package."""
     code = (
         "import importlib, pkgutil, sys, numpy as np, torch\n"
         "import pebblesdr_tpu_torch as pkg\n"
@@ -386,6 +390,41 @@ def test_port_imports_no_jax():
         "    assert cli.main(['--synthetic', 'tone', '--mode', 'USB', "
         "'--seconds', '0.01', '--frames', '8192', '--device', 'cpu', "
         "'--resume', ck, '--json']) == 0\n"
+        "from pebblesdr_tpu_torch import runtime\n"
+        "from pebblesdr_tpu_torch.core import iqformat\n"
+        "from pebblesdr_tpu_torch.ops import spectrum, util_filters\n"
+        "from pebblesdr_tpu_torch.io import (audio_iq, audio_out, ghpsdr3, "
+        "hpsdr, registry, rtl_tcp, sdr_ip)\n"
+        "from pebblesdr_tpu_torch.serve import control, display, server\n"
+        "ring = runtime.NativeRing(2, 4)\n"
+        "assert ring.write(b'abcd', timeout_ms=10) and ring.read(timeout_ms=10) "
+        "== b'abcd'\n"
+        "assert iqformat.decode_iq(torch.zeros(4, dtype=torch.int16), 'i16')"
+        ".shape == (2,)\n"
+        "assert util_filters.moving_avg(torch.ones(1, 32), 4)[0].shape == "
+        "(1, 32)\n"
+        "assert spectrum.map_to_screen(torch.zeros(1, 64), 8).shape == (1, 8)\n"
+        "srv = rtl_tcp.RtlTcpServer(registry.create('synthetic', "
+        "sample_rate=2048000, tones=((250000.0, 0.5),)), port=0, block=8192)\n"
+        "srv.start()\n"
+        "buf = io.StringIO()\n"
+        "with contextlib.redirect_stdout(buf):\n"
+        "    assert cli.main(['--source', 'rtl_tcp', '--port', str(srv.port), "
+        "'--mode', 'AM', '--tune', '250000', '--seconds', '0.01', '--frames', "
+        "'8192', '--device', 'cpu', '--display', 'waterfall', '--keys', 'm', "
+        "'--json']) == 0\n"
+        "srv.stop()\n"
+        "assert json.loads(buf.getvalue().splitlines()[-1])['final_mode'] == "
+        "'SAM'\n"
+        "rx = Receiver(ReceiverConfig(sample_rate=512000, "
+        "frames_per_buffer=8192), 'cpu')\n"
+        "cs = control.ControlSurface(rx, rx.default_params(0.0), 0.0)\n"
+        "assert cs.handle('a').startswith('AGC') and cs.take_reset()\n"
+        "assert display.TerminalDisplay(color=False).frame(np.zeros(2048))\n"
+        "assert audio_out.factory('null', paced=True) and audio_iq.WavStream("
+        "np.zeros((4, 2)))\n"
+        "assert sdr_ip.pack_frequency(1e6) and hpsdr.freq_command(1e6) and "
+        "ghpsdr3.AUDIO_RATE\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'pebblesdr_tpu' or m.startswith('pebblesdr_tpu.')]\n"
         "assert not bad, bad\n"
@@ -401,3 +440,10 @@ def test_port_imports_no_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "--device" in proc.stdout and "not ported yet" in proc.stdout
+    # the rtl_tcp server's entry point
+    proc = subprocess.run([sys.executable, "-m",
+                           "pebblesdr_tpu_torch.serve.server", "--help"],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "--source" in proc.stdout and "rtl_tcp" in proc.stdout

@@ -305,9 +305,25 @@ def test_checkpoint_resume_bitexact():
 
 # ---- tests/test_modem2.py TestFeeder and TestHealth
 
+class FiveBlocks:
+    """The first five blocks of a source, then the end of the stream."""
+
+    def __init__(self, source):
+        self.source, self.left = source, 5
+
+    def read_block(self, n: int):
+        if self.left == 0:
+            return None
+        self.left -= 1
+        return self.source.read_block(n)
+
+
 def test_feeder_overlapped_reads():
     """The feeder's [N, 2C] lane-packed float32 blocks, equal to the JAX
-    package's feeder's from its own synthetic source."""
+    package's feeder's from its own synthetic source.  The queue holds the
+    whole five-block stream and its end, so no scheduling of the consumer
+    can make the producer drop a block (the drop-oldest path is the next
+    test's)."""
     from pebblesdr_tpu.io.feeder import Feeder as JaxFeeder
     from pebblesdr_tpu.io.sources import SyntheticSource as JaxSource
 
@@ -315,14 +331,12 @@ def test_feeder_overlapped_reads():
     for name, feeder_cls, src in (
             ("port", Feeder, SyntheticSource(48_000, tones=((1000.0, 0.5),))),
             ("jax", JaxFeeder, JaxSource(48_000, tones=((1000.0, 0.5),)))):
-        f = feeder_cls(src, block=4800, channels=2, depth=3).start()
-        blocks = []
-        for i, blk in enumerate(f):
-            blocks.append(blk)
-            if i >= 4:
-                break
+        f = feeder_cls(FiveBlocks(src), block=4800, channels=2,
+                       depth=6).start()
+        blocks = list(f)
         f.stop()
         assert not f._thread.is_alive()
+        assert f.overruns == 0 and len(blocks) == 5
         got[name] = blocks
     assert got["port"][0].shape == (4800, 4)
     assert got["port"][0].dtype == np.float32
