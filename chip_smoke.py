@@ -222,14 +222,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      dispatches in a row decode "cq" on every channel, then windows timed
      with the launch counts (K1 and K5 never, K6 once per dispatch), peak
      memory and a profile of the dispatches' device part; K6 held and
-     timed at the inputs a dispatch gave it;
+     timed at the inputs a dispatch gave it, its device ms per launch
+     read from the OokStep kernel's records;
  41. K8 (csrc/recur.cu anf_scan, the ANF's block LMS) through its entry
      point scanops.anf on complex [64, N] (128 rows) at the staged front's
      U = 16 ([64, 32768], 2048 updates, three calls carrying the state),
-     the batched graph's U = 1024 and U = 1 ([64, 2048]): one launch per
-     call, y and w' within 1e-5 of their scale of anf_plain, the history
-     equal; timed with its per-launch device time, the plain version, the
-     chain probe's ns per update and the bound;
+     the batched graph's U = 1024 and U = 1 ([64, 2048]), the form that
+     ran logged (the chain form at U = 16 and 1, the wide form at 1024):
+     one launch per call, y and w' within 1e-5 of their scale of
+     anf_plain, the history equal; timed with its per-launch device time,
+     the plain version, the chain probe's ns per update and the bound;
  42. am_anf_long_64ch re-timed with K8 (U = 1024) and the new cell
      am_iqauto_anf_64ch (am_iqauto_64ch with enable_anf=True: the staged
      front, K5, K8 at U = 16), each alone, with launch counts, the ANF
@@ -3296,7 +3298,9 @@ def hold_ook(torch, goertzel, cfg, state, pows, tag: str) -> dict:
     margin is asserted first: one launch for the call, the marks equal,
     the state within OOK_RTOL of each leaf's scale; the plain version once
     (events), the kernel over 10 calls (events) and per launch
-    (torch.profiler)."""
+    (torch.profiler over 10 calls, traced again while no recurrence
+    launch was recorded: the OokStep kernel's ms in "launch", None if no
+    trace recorded it)."""
     from pebblesdr_tpu_torch.utils import convert
     margin = goertzel.ook_margin(cfg, state, *pows)
     if not margin >= OOK_MARGIN:
@@ -3324,19 +3328,24 @@ def hold_ook(torch, goertzel, cfg, state, pows, tag: str) -> dict:
                                f"a counter differs from the plain version")
     mismatch = int((m_k != m_p).sum())
     ms = time_cuda(torch, lambda: goertzel.ook_detect(cfg, state, *pows), 10)
-    lt = kernel_times(torch, lambda: goertzel.ook_detect(cfg, state, *pows))
+    lt = kernel_times(torch, lambda: goertzel.ook_detect(cfg, state, *pows),
+                      reps=10, want=("recur_kernel",))
+    k6 = [ms for name, (ms, _) in lt.items() if "OokStep" in name]
+    launch = k6[0] if k6 else None      # None: no trace recorded it
     shape = tuple(pows[0].shape)
     log(f"{tag} ook_scan {cfg.mode} {shape}: {launches} launch, kernel "
         f"{ms:.4f} ms per call (per launch {breakdown_text(lt)}) vs plain "
         f"{plain_ms:.1f} ms; marks differing {mismatch} of {m_p.numel()}, "
         f"{float(m_p.float().mean()):.3f} on; state max |kernel - plain| "
         f"{err:.3g} ({rel:.3g} of scale, <= {OOK_RTOL}); margin "
-        f"{margin:.3g}")
+        f"{margin:.3g}; K6 per launch "
+        f"{'not recorded' if launch is None else f'{launch:.4f} ms'}")
     if launches != 1 or mismatch or not rel <= OOK_RTOL:
         raise RuntimeError(f"{tag} ook_scan {cfg.mode}: the kernel "
                            f"disagrees with its plain version")
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-            "shape": shape, "launch_ms": lt, "launches": launches}
+            "shape": shape, "launch_ms": lt, "launch": launch,
+            "launches": launches}
 
 
 def hold_sweep(torch, siggen, args, kw, tag: str) -> dict:
@@ -3779,7 +3788,8 @@ def phase_anf(torch, front, wfm_tail) -> dict:
     scanops.anf at the main path's shapes, complex [64, N] (128 rows):
     the staged front's U = 16 over [64, 32768] (2048 updates a call), the
     batched graph's U = 1024 (32 updates) and the sample-exact U = 1 over
-    [64, 2048]; each over several calls carrying the state, one launch
+    [64, 2048], the form that ran (chain at U = 16 and 1, wide at 1024)
+    logged; each over several calls carrying the state, one launch
     per call (the counts at 0 first), y and w' within ANF_RTOL of their
     scale of anf_plain (on the stacked rows, from the same state); then
     K8 alone (anf_scan on the rows) timed over 10 calls with its
@@ -3837,8 +3847,11 @@ def phase_anf(torch, front, wfm_tail) -> dict:
         step_ns = probe_ns(torch, pll, f"anf {u}")
         b = roofline.anf_scan_bound(2 * c, n, u, step_ns)
         adapted = float(st.weights.abs().max())
+        form = scanops.anf_form(u)
         log(f"phase41 anf_scan {tag} [{2 * c} rows, {n}] U={u} "
-            f"({n // u} updates): {launches} launches for {calls} calls; "
+            f"({n // u} updates), the {form} form "
+            f"({scanops.anf_threads(form, u)} threads a row): {launches} "
+            f"launches for {calls} calls; "
             f"kernel {ms:.4f} ms per call (per launch {breakdown_text(lt)}) "
             f"vs plain {plain_ms:.1f} ms; max |y - plain| {err_y:.3g} "
             f"({rel_y:.3g} of scale), max |w' - plain| {err_w:.3g} "
@@ -3854,6 +3867,7 @@ def phase_anf(torch, front, wfm_tail) -> dict:
         done[tag] = {"ms": ms, "plain_ms": plain_ms,
                      "max_abs_err": max(err_y, err_w), "rel_y": rel_y,
                      "rel_w": rel_w, "shape": (2 * c, n), "u": u,
+                     "form": form,
                      "step_ns": step_ns, "launch_ms": lt,
                      "launches": launches, **b}
         del xs, rows
@@ -5022,8 +5036,9 @@ def main() -> int:
         # timed cell that runs each form (phase 42), times, error and
         # bound at the cell's shape (phase 41); no PyTorch call computes
         # the LMS recurrence: library_ms null
-        {"name": f"anf_scan (the ANF's block LMS, U = {k8[tag]['u']}: "
-                 f"{cell}, {k8[tag]['shape']})", "route": "cuda",
+        {"name": f"anf_scan (the ANF's block LMS, {k8[tag]['form']} form, "
+                 f"U = {k8[tag]['u']}: {cell}, {k8[tag]['shape']})",
+         "route": "cuda",
          "source": scanops.SOURCE, "replaces": scanops.ANF_REPLACES,
          "launches": acells[cell]["launches"][7],
          **{key: k8[tag][key] for key in ("max_abs_err", "ms", "plain_ms",

@@ -51,6 +51,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bulk_ring.cuh"
+
 namespace {
 
 constexpr int kCb = 8;            // channels per block, one thread each
@@ -696,102 +698,88 @@ __global__ void __launch_bounds__(kIqThreads)
 // so the one serial state is the taps-long weight vector: updates run one
 // after another, the work inside an update does not.
 //
-// Design: one block of kAnfThreads per row (2C rows for C complex
-// channels).  The row streams through a shared ring of kAnfRing floats in
-// slabs of kAnfSlab samples by cp.async, issued as far ahead as the ring
-// allows (16-byte copies where N % 4 == 0, else 4-byte); the history sits
-// just below x in the ring, so every frame is a ring read.  An update runs
-// in pieces of at most kAnfPiece outputs (the U = 16 of the staged front
-// is one piece; U = 1024 of the batched graph one; larger U several, the
-// gradient summed across them), each in two phases with a barrier after
-// each:
-//   * predictions: G lanes per output (G = 32 ... 1 as U grows, so a small
-//     update still spreads over the block), each lane a stride-G share of
-//     the taps, summed by G-lane shuffles; the output goes to y, the error
-//     to shared memory;
-//   * gradient: thread k (< taps) of each of kAnfSlices slices sums err[m]
-//     frame[m][k] over its slice of the piece; after the barrier thread k
-//     adds the slices and, at the update's last piece, sets w'[k] (held in
-//     its register and in shared memory for the next predictions).
-// No atomics: every sum has a fixed order, so a launch repeats its bits.
-// What bounds it: at U = 16 the chain of 2048 updates per dispatch, each
-// ~14 dependent float32 operations (probe_anf_kernel); at large U the ~4
-// float32 operations per tap and sample; the bytes (x read, y written
-// once) are ~0.01 ms at [128, 32768].  This design adds three barriers of
-// four warps and the shuffles to every update, far above that chain.
-constexpr int kAnfThreads = 128;
+// What bounds it (utils/roofline.py anf_scan_bound): the bytes (x read, y
+// written once) take ~0.01 ms at [128, 32768]; at small U the chain of N/U
+// updates, each at least probe_anf_kernel's dependent chain (a product,
+// the 45-tap sum's 6 levels, the error, the U-term sum's log2 U levels,
+// the leaky FMA); at large U the ~4 float32 operations per tap and sample
+// over the whole card.  Two forms of one kernel family, picked from U by
+// the launcher (anf_form: the chain form up to kAnfChainMaxU, where it
+// beats the wide form: at U = 32 by 1.9x on the H100):
+//   * the chain form (recur_anf_chain<P, kReuse>, P = U rounded up to a
+//     power of two): one warp runs a row's chain with no block barrier on
+//     it.  What bounds it is that warp: its dependent shuffles and the
+//     issue of its shared-memory loads and shuffles (about four cycles
+//     each), not the card.  Lane L holds w[L] and w[L + 32] in registers
+//     for the whole launch and its P outputs in a slot order of its own
+//     (slot j: output j ^ mine, mine = the output the lane ends with), so
+//     that the butterfly needs no select: per update it forms its two
+//     taps' products for all P slots; recursive halving over lane bits 4,
+//     3, ... (P/2 + P/4 + ... + 1 exchanges, each slot below the half
+//     plus the partner's slot above it) and xor levels over the lower
+//     bits (5 levels in all, 8 + 4 + 2 + 1 + 1 exchanges at U = 16) leave
+//     output mine's sum in the lane; each slot's error comes by one xor
+//     shuffle, and each lane sums err frame for its two taps in min(4, P)
+//     split accumulators over the slots, then takes w = fmaf(alpha, g,
+//     leak w) in its register.  The next update's frames are loaded from
+//     the ring into registers between the butterfly and the gradient, by
+//     lane offsets held in registers over a warp-uniform base (one load
+//     instruction each); at U = 16 a frame at tap L + 32 is the frame at
+//     tap L two updates on (2U = 32), so only those are loaded (kReuse,
+//     four register arrays in turn).  The lanes' constants are pinned in
+//     registers (anf_pin).  A copy warp keeps the row's slabs landing in
+//     the ring ahead of the chain (a 1D bulk copy per slab and a full
+//     mbarrier per slot, bulk_ring.cuh, where N % 4 == 0 and x is 16-byte
+//     aligned; else 4-byte cp.async and an arrival); the chain releases a
+//     slot through its empty mbarrier once no later frame reads it.  One
+//     row per block of two warps: the 128 rows of 64 complex channels take
+//     128 SMs, one chain each.
+//   * the wide form (recur_anf_wide, every U above kAnfChainMaxU): the
+//     whole block (U rounded up to a warp, 64 to kAnfWideMax threads)
+//     works on one update of one row, in pieces of blockDim outputs.  What
+//     bounds it is shared-memory traffic, so each frame load serves two
+//     products: a thread predicts two neighbouring outputs (8-byte frame
+//     loads, four split accumulators over the taps each); the gradient is
+//     per warp (lane L: taps 2L and 2L + 1 over the warp's 32 outputs,
+//     four split accumulators that run on across the pieces), then across
+//     warps through shared memory (thread k: four accumulators over the
+//     warps).  No dependent chain is longer than 12 terms (8 a piece in
+//     the gradient).  Every thread stages the row into the ring by
+//     cp.async as far ahead as the ring allows; three barriers a piece and
+//     one an update.
+// Both keep one ring layout: x[j] at ring[(j + kAnfSlab) & kAnfMask], so
+// slab s fills slot s + 1 and the history sits at the top of slot 0; a
+// slab into slot 0 also fills the pad after the ring with its first
+// kAnfPad samples, so a frame window is read unmasked from its start.
+// No atomics: every sum has a fixed order, so a launch repeats its bits;
+// ops/scanops.py anf_emulate takes the same order in torch, and equals the
+// kernel bit for bit on the card (tests/test_torch_gpu.py).
 constexpr int kAnfMaxTaps = 64;
-constexpr int kAnfSlices = kAnfThreads / kAnfMaxTaps;   // 2
-constexpr int kAnfSlab = 1024;        // samples per staged slab
-constexpr int kAnfRing = 8192;        // ring floats (32 KB)
+constexpr int kAnfSlab = 1024;        // samples per staged slab (a slot)
+constexpr int kAnfSlots = 8;
+constexpr int kAnfRing = kAnfSlab * kAnfSlots;   // ring floats (32 KB)
 constexpr int kAnfMask = kAnfRing - 1;
-constexpr int kAnfPiece = 2048;       // outputs per piece at most
-constexpr int kAnfMaxHist = 124;      // H, so that H rounded up to 4 <= 128
-static_assert(kAnfPiece + kAnfSlab + kAnfMaxHist <= kAnfRing,
+// floats past the ring that repeat the start of slot 0, so that no frame
+// window wraps: a window starts at a masked index and reads on unmasked
+constexpr int kAnfPad = 128;
+constexpr int kAnfMaxHist = 124;      // H at most
+constexpr int kAnfChainMaxU = 32;     // the chain form's U at most
+constexpr int kAnfChainThreads = 64;  // the chain warp and the copy warp
+constexpr int kAnfWideMax = 1024;     // the wide form's threads at most
+constexpr int kAnfWideMin = 64;
+// the chain form's window: two updates and the history behind them, clear
+// of the slot being refilled; the wide form's: a piece, its history and
+// the slab being issued
+static_assert(2 * kAnfChainMaxU + kAnfMaxHist <= (kAnfSlots - 1) * kAnfSlab,
+              "the chain's window must leave a slot free");
+static_assert(kAnfWideMax + kAnfSlab + kAnfMaxHist <= kAnfRing,
               "a piece's window and the slab after it must fit the ring");
-
-struct AnfShared {
-  float ring[kAnfRing];            // full[p] at ring[(p + o) & kAnfMask]
-  float err[kAnfPiece];            // the piece's errors
-  float w[kAnfMaxTaps];            // the weights the predictions read
-  float part[kAnfSlices][kAnfMaxTaps];   // the gradient slices' sums
-};
-
-// One piece of an update: outputs base .. base + len - 1 (x indices) with
-// the weights in sm.w; o = HP - H places full position p at ring p + o and
-// x index j at j + HP.  Thread k < taps keeps w[k] in wk and the update's
-// gradient so far in gacc; at the update's last piece (last) it sets w'.
-__device__ __forceinline__ void anf_piece(AnfShared& sm, float* y, int base,
-                                          int len, bool last, int taps,
-                                          int o, int hp, float alpha,
-                                          float leak, float& wk,
-                                          float& gacc) {
-  const int tid = threadIdx.x;
-  int g = 32;
-  while (g > 1 && g * len > kAnfThreads) g >>= 1;
-  const int per = kAnfThreads / g, sub = tid % g, slot = tid / g;
-  for (int m0 = 0; m0 < len; m0 += per) {
-    const int m = m0 + slot;
-    float acc = 0.f;
-    if (m < len) {
-      const int p = base + m + o;
-#pragma unroll 4
-      for (int k = sub; k < taps; k += g)
-        acc = fmaf(sm.ring[(p + k) & kAnfMask], sm.w[k], acc);
-    }
-    for (int d = g >> 1; d > 0; d >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, d);
-    if (m < len && sub == 0) {
-      sm.err[m] = sm.ring[(base + m + hp) & kAnfMask] - acc;
-      y[base + m] = acc;
-    }
-  }
-  __syncthreads();
-  const int k = tid % kAnfMaxTaps, q = tid / kAnfMaxTaps;
-  const int span = (len + kAnfSlices - 1) / kAnfSlices;
-  const int lo = q * span, hi = min(len, lo + span);
-  float gs = 0.f;
-  if (k < taps) {
-    const int p = base + k + o;
-#pragma unroll 4
-    for (int m = lo; m < hi; ++m)
-      gs = fmaf(sm.err[m], sm.ring[(p + m) & kAnfMask], gs);
-  }
-  sm.part[q][k] = gs;
-  __syncthreads();
-  if (tid < taps) {
-    float s = sm.part[0][tid];
-#pragma unroll
-    for (int j = 1; j < kAnfSlices; ++j) s += sm.part[j][tid];
-    gacc += s;
-    if (last) {
-      wk = fmaf(alpha, gacc, leak * wk);
-      sm.w[tid] = wk;
-      gacc = 0.f;
-    }
-  }
-  __syncthreads();
-}
+static_assert(kAnfMaxHist <= kAnfSlab, "the history must fit slot 0");
+// the chain form's window (2 x 32 taps' frames of 32 outputs), the wide
+// form's prediction pair (taps + 2) and gradient lanes (62 + 34)
+static_assert(2 * 32 <= kAnfPad && kAnfMaxTaps + 2 <= kAnfPad &&
+                  62 + 34 <= kAnfPad,
+              "a frame window must fit the pad");
 
 struct AnfArgs {
   const float* x;       // [R, N]
@@ -804,39 +792,471 @@ struct AnfArgs {
   float alpha, leak;
 };
 
-__global__ void __launch_bounds__(kAnfThreads) recur_anf_kernel(AnfArgs a) {
-  __shared__ __align__(16) AnfShared sm;
-  const int r = blockIdx.x, tid = threadIdx.x;
+// hist' = the last H samples of full = [hist, x], by `threads` threads
+// from `t`.
+__device__ __forceinline__ void anf_hist_out(const AnfArgs& a, int r, int t,
+                                             int threads) {
+  const float* xr = a.x + static_cast<size_t>(r) * a.N;
+  for (int h = t; h < a.H; h += threads) {
+    const int p = a.N + h;
+    a.hist_out[static_cast<size_t>(r) * a.H + h] =
+        p < a.H ? a.hist[static_cast<size_t>(r) * a.H + p] : xr[p - a.H];
+  }
+}
+
+template <int P>
+struct AnfLg {
+  static constexpr int value = P <= 1 ? 0 : 1 + AnfLg<P / 2>::value;
+};
+
+struct AnfChainShared {
+  float ring[kAnfRing + kAnfPad];  // x[j] at ring[(j + kAnfSlab) & mask]
+  uint64_t full[kAnfSlots];        // item q (slab q - 1) landed in slot q % 8
+  uint64_t empty[kAnfSlots];       // item q released by the chain
+  int pin[32][kAnfChainMaxU + 5];  // the chain lanes' constants (anf_pin)
+  float pinf[2];
+};
+
+// The chain warp's per-lane constants, read back from shared memory through
+// a volatile pointer: a value the compiler cannot reload stays in its
+// register for the launch (without this it reloads the kernel's parameters
+// and the thread index inside every update, on the chain).  What the whole
+// warp shares (U, H, the cursor) stays in uniform registers.
+template <int P>
+struct AnfLane {
+  int lane, mine;           // mine: the output whose sum the lane ends with
+  int o[P];                 // bytes to slot j's frame: 4 (lane + (j ^ mine))
+  float alpha, leak;
+  bool mine_ok, ha, hb;     // mine < U; the filter has tap lane / lane + 32
+};
+
+template <int P>
+__device__ __forceinline__ AnfLane<P> anf_pin(AnfChainShared& sm,
+                                              const AnfArgs& a, int lane) {
+  constexpr int kLg = AnfLg<P>::value;
+  int* pin = sm.pin[lane];
+  // anf_halve's levels give lane bit 4 the output's top bit, and so on
+  const int mine = lane >> (5 - kLg);
+  pin[0] = lane;
+  pin[1] = mine;
+  pin[2] = mine < a.U;
+  pin[3] = lane < a.taps;
+  pin[4] = lane + 32 < a.taps;
+  for (int j = 0; j < P; ++j) pin[5 + j] = 4 * (lane + (j ^ mine));
+  if (lane == 0) {
+    sm.pinf[0] = a.alpha;
+    sm.pinf[1] = a.leak;
+  }
+  __syncwarp();
+  const volatile int* v = pin;
+  const volatile float* vf = sm.pinf;
+  AnfLane<P> c;
+  c.lane = v[0];
+  c.mine = v[1];
+  c.mine_ok = v[2];
+  c.ha = v[3];
+  c.hb = v[4];
+#pragma unroll
+  for (int j = 0; j < P; ++j) c.o[j] = v[5 + j];
+  c.alpha = vf[0];
+  c.leak = vf[1];
+  return c;
+}
+
+// One array of an update's frames in the lane's slot order: slot j holds
+// output j ^ mine (so that the butterfly needs no select) at tap lane
+// (f = the update's first frame in the ring) or lane + 32 (f + 32); read
+// whether or not the filter has the tap or U the output (the ring is
+// zeroed first, so every value is finite; an absent tap's weight stays 0
+// and an output past U gets no error).  The window starts at a masked
+// index and the pad takes the rest.
+template <int P>
+__device__ __forceinline__ void anf_chain_load(const float* f,
+                                               const AnfLane<P>& c,
+                                               float (&fr)[P]) {
+  const char* b = reinterpret_cast<const char*>(f);
+#pragma unroll
+  for (int j = 0; j < P; ++j)
+    fr[j] = *reinterpret_cast<const float*>(b + c.o[j]);
+}
+
+// The butterfly's recursive halving from level Lev on (lane bit 16 >>
+// Lev), on the slot order: the lane keeps slots below the half, adds the
+// partner's (lane ^ d) upper half to them (the same outputs), and goes on
+// with the lower half.  Template recursion, so every index is a constant.
+template <int P, int Lev>
+__device__ __forceinline__ void anf_halve(float (&v)[P]) {
+  constexpr int kHalf = P >> (Lev + 1), d = 16 >> Lev;
+  if constexpr (kHalf >= 1) {
+#pragma unroll
+    for (int j = 0; j < kHalf; ++j)
+      v[j] += __shfl_xor_sync(0xffffffffu, v[j + kHalf], d);
+    anf_halve<P, Lev + 1>(v);
+  }
+}
+
+// The first half of an update of the chain form (lane's taps lane and
+// lane + 32): the products and the butterfly; the lane's output's sum.
+template <int P>
+__device__ __forceinline__ float anf_chain_sum(const float (&fa)[P],
+                                               const float (&fb)[P], float w0,
+                                               float w1) {
+  constexpr int kGroup = 32 / P;              // lanes that end with one sum
+  float v[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) v[j] = fmaf(fb[j], w1, fa[j] * w0);
+  anf_halve<P, 0>(v);
+  float s = v[0];
+#pragma unroll
+  for (int d = kGroup >> 1; d > 0; d >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, d);
+  return s;
+}
+
+// The second half: the error, y (yl: this lane's output of the update),
+// the broadcast, the gradient and the leaky step.
+template <int P>
+__device__ __forceinline__ void anf_chain_learn(
+    const float (&fa)[P], const float (&fb)[P], float xv, float s, float& w0,
+    float& w1, const AnfLane<P>& c, float* yl) {
+  constexpr int kGroup = 32 / P;
+  constexpr int kAcc = P < 4 ? P : 4;         // the gradient's accumulators
+  // an output past U adds nothing to the gradient
+  const float e = c.mine_ok ? xv - s : 0.f;
+  if (c.mine_ok && (c.lane & (kGroup - 1)) == 0) *yl = s;
+  float ga[kAcc], gb[kAcc];
+#pragma unroll
+  for (int j = 0; j < kAcc; ++j) ga[j] = gb[j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    // slot j's output j ^ mine: its error is in lanes (j ^ mine) * kGroup
+    // + anything below kGroup, so lane ^ (j kGroup) holds it
+    const float em = j ? __shfl_xor_sync(0xffffffffu, e, j * kGroup) : e;
+    ga[j % kAcc] = fmaf(em, fa[j], ga[j % kAcc]);
+    gb[j % kAcc] = fmaf(em, fb[j], gb[j % kAcc]);
+  }
+  float g0 = ga[0], g1 = gb[0];
+  if (kAcc == 2) {
+    g0 += ga[1 % kAcc];
+    g1 += gb[1 % kAcc];
+  } else if (kAcc == 4) {
+    g0 = (ga[0] + ga[1 % kAcc]) + (ga[2 % kAcc] + ga[3 % kAcc]);
+    g1 = (gb[0] + gb[1 % kAcc]) + (gb[2 % kAcc] + gb[3 % kAcc]);
+  }
+  // a tap the filter lacks keeps its zero weight
+  w0 = c.ha ? fmaf(c.alpha, g0, c.leak * w0) : 0.f;
+  w1 = c.hb ? fmaf(c.alpha, g1, c.leak * w1) : 0.f;
+}
+
+// The chain warp's position in the row: update i's first x index (base),
+// the x index below which the ring holds every sample (avail; items below
+// `landed` have landed: item q is slab q - 1, item 0 the history, and lands
+// in slot q % kAnfSlots in that slot's (q / kAnfSlots)-th phase), and the
+// next item to release (freed) with its end (free_at).
+struct AnfCursor {
+  int base, landed, avail, freed, free_at;
+};
+
+// Until x[hi] has landed.
+__device__ __forceinline__ void anf_chain_wait(AnfChainShared& sm,
+                                               AnfCursor& k, int hi) {
+  while (k.avail <= hi) {
+    bulk::mbar_wait(&sm.full[k.landed % kAnfSlots],
+                    static_cast<uint32_t>(k.landed / kAnfSlots) & 1u);
+    ++k.landed;
+    k.avail += kAnfSlab;
+  }
+}
+
+// Update k.base of the chain warp from (fa, fb, xv), the next update's
+// frames loaded between its two halves (where the warp waits on the
+// butterfly's shuffles, not before the products): into (na, nb) and nx,
+// or (kFbOnly: U = P = 16, the next update's fa is the fb of the update
+// before this one, already in registers) into nb and nx; then the items
+// that no later frame reads (x below the next update's base - H) go back
+// to the copy warp.
+template <int P, bool kFbOnly>
+__device__ __forceinline__ void anf_chain_step(
+    AnfChainShared& sm, const AnfArgs& a, const AnfLane<P>& c, AnfCursor& k, float*& yl, const float (&fa)[P], const float (&fb)[P],
+    float xv, float (&na)[P], float (&nb)[P], float& nx, float& w0,
+    float& w1) {
+  const int next = k.base + a.U;
+  // past the last update the loads read finite ring values nobody uses
+  if (next < a.N) anf_chain_wait(sm, k, next + a.U - 1);
+  const float s = anf_chain_sum<P>(fa, fb, w0, w1);
+  asm volatile("" ::: "memory");
+  const float* f = sm.ring + ((next + kAnfSlab - a.H) & kAnfMask);
+  if (!kFbOnly) anf_chain_load<P>(f, c, na);
+  anf_chain_load<P>(f + 32, c, nb);
+  nx = sm.ring[((next + kAnfSlab) & kAnfMask) + c.mine];
+  anf_chain_learn<P>(fa, fb, xv, s, w0, w1, c, yl);
+  yl += a.U;
+  k.base = next;
+  if (k.free_at <= next - a.H) {
+    __syncwarp();
+    do {
+      if (c.lane == 0)
+        bulk::mbar_arrive_expect_tx(&sm.empty[k.freed % kAnfSlots], 0);
+      ++k.freed;
+      k.free_at += kAnfSlab;
+    } while (k.free_at <= next - a.H);
+  }
+}
+
+template <int P, bool kReuse>
+__global__ void __launch_bounds__(kAnfChainThreads)
+    recur_anf_chain(AnfArgs a) {
+  __shared__ __align__(128) AnfChainShared sm;
+  const int r = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+  const float* xr = a.x + static_cast<size_t>(r) * a.N;
+  for (int q = tid; q < (kAnfRing + kAnfPad) / 4; q += kAnfChainThreads)
+    reinterpret_cast<float4*>(sm.ring)[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  for (int h = tid; h < a.H; h += kAnfChainThreads)
+    sm.ring[kAnfSlab - a.H + h] = a.hist[static_cast<size_t>(r) * a.H + h];
+  if (tid == 0) {
+    for (int s = 0; s < kAnfSlots; ++s) {
+      bulk::mbar_init(&sm.full[s], 1);
+      bulk::mbar_init(&sm.empty[s], 1);
+    }
+    bulk::fence_mbar_init();
+  }
+  __syncthreads();
+  const int slabs = (a.N + kAnfSlab - 1) / kAnfSlab;
+  if (tid >= 32) {
+    // the copy warp: slab s is item q = s + 1, into slot q % kAnfSlots once
+    // the chain has released the slot's item q - kAnfSlots
+    const bool vec = (a.N % 4 == 0) &&
+                     (reinterpret_cast<uintptr_t>(a.x) % bulk::kBulkAlign == 0);
+    for (int s = 0; s < slabs; ++s) {
+      const int q = s + 1, slot = q % kAnfSlots;
+      // the chain is slots behind: poll its release slowly, so that the
+      // copy warp's barrier probes leave the shared-memory pipe to the
+      // chain's loads and shuffles
+      if (q >= kAnfSlots)
+        while (!bulk::mbar_try_wait(
+            &sm.empty[slot], static_cast<uint32_t>(q / kAnfSlots - 1) & 1u))
+          __nanosleep(1024);
+      const int j0 = s * kAnfSlab, n = min(kAnfSlab, a.N - j0);
+      const int pad = slot == 0 ? min(n, kAnfPad) : 0;
+      float* dst = sm.ring + slot * kAnfSlab;
+      if (vec) {
+        if (lane == 0) {
+          bulk::mbar_arrive_expect_tx(&sm.full[slot], (n + pad) * 4);
+          bulk::load(dst, xr + j0, n * 4, &sm.full[slot]);
+          if (pad)
+            bulk::load(sm.ring + kAnfRing, xr + j0, pad * 4, &sm.full[slot]);
+        }
+      } else {
+        for (int j = lane; j < n; j += 32) cp_async(dst + j, xr + j0 + j, 4);
+        for (int j = lane; j < pad; j += 32)
+          cp_async(sm.ring + kAnfRing + j, xr + j0 + j, 4);
+        asm volatile("cp.async.commit_group;\n" ::);
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+        __syncwarp();
+        if (lane == 0) bulk::mbar_arrive_expect_tx(&sm.full[slot], 0);
+      }
+    }
+    return;
+  }
+  // the chain warp; item 0 (the history, written above) completes slot 0's
+  // first phase
+  if (lane == 0) bulk::mbar_arrive_expect_tx(&sm.full[0], 0);
+  const AnfLane<P> c = anf_pin<P>(sm, a, lane);
+  const float* wr = a.w + static_cast<size_t>(r) * a.taps;
+  float w0 = c.ha ? wr[lane] : 0.f, w1 = c.hb ? wr[lane + 32] : 0.f;
+  float* yl = a.y + static_cast<size_t>(r) * a.N + c.mine;
+  const int updates = a.N / a.U;
+  AnfCursor k{0, 1, 0, 0, 0};
+  float F[4][P], X[4];
+  if (updates > 0) {
+    anf_chain_wait(sm, k, a.U - 1);
+    const float* f = sm.ring + ((kAnfSlab - a.H) & kAnfMask);
+    X[0] = sm.ring[kAnfSlab + c.mine];
+    if (kReuse) {
+      // update i: fa = F[(i + 2) % 4] (the fb of update i - 2: 2U = 32),
+      // fb = F[i % 4]; update 0's fa in F[2], update 1's in F[3]
+      anf_chain_load<P>(f, c, F[2]);
+      anf_chain_load<P>(f + 32, c, F[0]);
+      if (updates > 1) {
+        anf_chain_wait(sm, k, 2 * a.U - 1);
+        anf_chain_load<P>(f + a.U, c, F[3]);
+      }
+    } else {
+      anf_chain_load<P>(f, c, F[0]);
+      anf_chain_load<P>(f + 32, c, F[1]);
+    }
+  }
+  if (kReuse) {
+    for (int i = 0; i < updates; i += 4) {
+      anf_chain_step<P, true>(sm, a, c, k, yl, F[2], F[0], X[0],
+                              F[3], F[1], X[1], w0, w1);
+      if (i + 1 >= updates) break;
+      anf_chain_step<P, true>(sm, a, c, k, yl, F[3], F[1], X[1],
+                              F[0], F[2], X[2], w0, w1);
+      if (i + 2 >= updates) break;
+      anf_chain_step<P, true>(sm, a, c, k, yl, F[0], F[2], X[2],
+                              F[1], F[3], X[3], w0, w1);
+      if (i + 3 >= updates) break;
+      anf_chain_step<P, true>(sm, a, c, k, yl, F[1], F[3], X[3],
+                              F[2], F[0], X[0], w0, w1);
+    }
+  } else {
+    for (int i = 0; i < updates; i += 2) {
+      anf_chain_step<P, false>(sm, a, c, k, yl, F[0], F[1], X[0],
+                               F[2], F[3], X[1], w0, w1);
+      if (i + 1 >= updates) break;
+      anf_chain_step<P, false>(sm, a, c, k, yl, F[2], F[3], X[1],
+                               F[0], F[1], X[0], w0, w1);
+    }
+  }
+  float* wo = a.w_out + static_cast<size_t>(r) * a.taps;
+  if (c.ha) wo[lane] = w0;
+  if (c.hb) wo[lane + 32] = w1;
+  anf_hist_out(a, r, lane, 32);
+}
+
+struct AnfWideShared {
+  float ring[kAnfRing + kAnfPad];        // x[j] at ring[(j + kAnfSlab) & mask]
+  float err[kAnfWideMax];                // the piece's errors
+  float w[kAnfMaxTaps];                  // the weights the predictions read
+  float part[kAnfWideMax / 32][kAnfMaxTaps];   // the warps' gradients
+};
+
+// Two neighbours ring[off + idx], ring[off + idx + 1]: one 8-byte load
+// where off + idx is even (kPair), else two.
+template <bool kPair>
+__device__ __forceinline__ float2 anf_pair(const float* ring, int off,
+                                           int idx) {
+  if (kPair) return *reinterpret_cast<const float2*>(ring + off + idx);
+  return make_float2(ring[off + idx], ring[off + idx + 1]);
+}
+
+// The wide form's predictions of two neighbouring outputs from the frame of
+// the first at off (the second's is one sample on): per output four
+// accumulators over k mod 4, then (a0 + a1) + (a2 + a3).  kPair: off
+// even.
+template <bool kPair>
+__device__ __forceinline__ void anf_wide_pred(const float* ring, int off,
+                                              const float* w, int taps,
+                                              float& p0, float& p1) {
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+  float b0 = 0.f, b1 = 0.f, b2 = 0.f, b3 = 0.f;
+  float2 f0 = anf_pair<kPair>(ring, off, 0), f1;
+  int k = 0;
+  for (; k + 4 <= taps; k += 4) {
+    const float4 wv = *reinterpret_cast<const float4*>(w + k);
+    f1 = anf_pair<kPair>(ring, off, k + 2);
+    const float2 f2 = anf_pair<kPair>(ring, off, k + 4);
+    a0 = fmaf(f0.x, wv.x, a0);
+    b0 = fmaf(f0.y, wv.x, b0);
+    a1 = fmaf(f0.y, wv.y, a1);
+    b1 = fmaf(f1.x, wv.y, b1);
+    a2 = fmaf(f1.x, wv.z, a2);
+    b2 = fmaf(f1.y, wv.z, b2);
+    a3 = fmaf(f1.y, wv.w, a3);
+    b3 = fmaf(f2.x, wv.w, b3);
+    f0 = f2;
+  }
+  if (k < taps) {
+    a0 = fmaf(f0.x, w[k], a0);
+    b0 = fmaf(f0.y, w[k], b0);
+  }
+  if (k + 1 < taps) {
+    f1 = anf_pair<kPair>(ring, off, k + 2);
+    a1 = fmaf(f0.y, w[k + 1], a1);
+    b1 = fmaf(f1.x, w[k + 1], b1);
+  }
+  if (k + 2 < taps) {
+    a2 = fmaf(f1.x, w[k + 2], a2);
+    b2 = fmaf(f1.y, w[k + 2], b2);
+  }
+  p0 = (a0 + a1) + (a2 + a3);
+  p1 = (b0 + b1) + (b2 + b3);
+}
+
+// The wide form's gradient terms of one warp's cnt outputs (errors e, the
+// lane's frame at off = the outputs' first frame + 2 lane): taps 2 lane
+// into g0 and 2 lane + 1 into g1, output m into accumulator m mod 4.
+// kFull: a whole warp of 32 outputs and off even: 8-byte frame loads and
+// 16-byte error loads.
+template <bool kFull>
+__device__ __forceinline__ void anf_wide_grad(const float* ring, int off,
+                                              const float* e, int cnt,
+                                              float (&g0)[4],
+                                              float (&g1)[4]) {
+  if (kFull) {
+    float2 fa = anf_pair<true>(ring, off, 0);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const float4 ev = reinterpret_cast<const float4*>(e)[q];
+      const float2 fb = anf_pair<true>(ring, off, 4 * q + 2);
+      const float2 fc = anf_pair<true>(ring, off, 4 * q + 4);
+      g0[0] = fmaf(ev.x, fa.x, g0[0]);
+      g1[0] = fmaf(ev.x, fa.y, g1[0]);
+      g0[1] = fmaf(ev.y, fa.y, g0[1]);
+      g1[1] = fmaf(ev.y, fb.x, g1[1]);
+      g0[2] = fmaf(ev.z, fb.x, g0[2]);
+      g1[2] = fmaf(ev.z, fb.y, g1[2]);
+      g0[3] = fmaf(ev.w, fb.y, g0[3]);
+      g1[3] = fmaf(ev.w, fc.x, g1[3]);
+      fa = fc;
+    }
+    return;
+  }
+  for (int m = 0; m < cnt; m += 4) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (m + j < cnt) {
+        const float ej = e[m + j];
+        g0[j] = fmaf(ej, ring[off + m + j], g0[j]);
+        g1[j] = fmaf(ej, ring[off + m + j + 1], g1[j]);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kAnfWideMax) recur_anf_wide(AnfArgs a) {
+  __shared__ __align__(128) AnfWideShared sm;
+  const int r = blockIdx.x, tid = threadIdx.x, T = blockDim.x;
+  const int lane = tid & 31, wi = tid >> 5, warps = T >> 5;
   const float* xr = a.x + static_cast<size_t>(r) * a.N;
   float* yr = a.y + static_cast<size_t>(r) * a.N;
-  const int hp = (a.H + 3) & ~3, o = hp - a.H;
+  const int H = a.H, taps = a.taps, U = a.U;
   const bool vec = (a.N % 4 == 0) &&
                    (reinterpret_cast<uintptr_t>(a.x) % 16 == 0);
-  for (int h = tid; h < a.H; h += kAnfThreads)
-    sm.ring[o + h] = a.hist[static_cast<size_t>(r) * a.H + h];
-  float wk = 0.f, gacc = 0.f;
-  if (tid < a.taps) {
-    wk = a.w[static_cast<size_t>(r) * a.taps + tid];
+  for (int h = tid; h < H; h += T)
+    sm.ring[kAnfSlab - H + h] = a.hist[static_cast<size_t>(r) * H + h];
+  float wk = 0.f;
+  if (tid < kAnfMaxTaps) {
+    wk = tid < taps ? a.w[static_cast<size_t>(r) * taps + tid] : 0.f;
     sm.w[tid] = wk;
   }
+  float ga[4] = {0.f, 0.f, 0.f, 0.f}, gb[4] = {0.f, 0.f, 0.f, 0.f};
   const int slabs = (a.N + kAnfSlab - 1) / kAnfSlab;
+  const int updates = a.N / U;
   int issued = 0, landed = 0;
-  const int updates = a.U > 0 ? a.N / a.U : 0;
+  __syncthreads();
   for (int i = 0; i < updates; ++i) {
-    for (int m0 = 0; m0 < a.U; m0 += kAnfPiece) {
-      const int len = min(kAnfPiece, a.U - m0);
-      const int base = i * a.U + m0;
-      // issue every slab whose ring slots no longer hold a sample this
-      // piece or a later one reads (full positions >= base)
+    for (int m0 = 0; m0 < U; m0 += T) {
+      const int len = min(T, U - m0), base = i * U + m0;
+      const bool last = m0 + len == U;
+      // issue every slab whose slot holds no sample this piece or a later
+      // one reads (x indices >= base - H): slab s replaces slab s - 8
       while (issued < slabs &&
-             (issued + 1) * kAnfSlab + a.H - base <= kAnfRing) {
+             (issued + 1 - kAnfSlots) * kAnfSlab <= base - H) {
         const int j0 = issued * kAnfSlab, n = min(kAnfSlab, a.N - j0);
+        float* dst = sm.ring + ((j0 + kAnfSlab) & kAnfMask);
+        const int pad = dst == sm.ring ? min(n, kAnfPad) : 0;
         if (vec) {
-          for (int q = 4 * tid; q < n; q += 4 * kAnfThreads)
-            cp_async(&sm.ring[(hp + j0 + q) & kAnfMask], xr + j0 + q, 16);
+          for (int q = 4 * tid; q < n; q += 4 * T)
+            cp_async(dst + q, xr + j0 + q, 16);
+          for (int q = 4 * tid; q < pad; q += 4 * T)
+            cp_async(sm.ring + kAnfRing + q, xr + j0 + q, 16);
         } else {
-          for (int q = tid; q < n; q += kAnfThreads)
-            cp_async(&sm.ring[(hp + j0 + q) & kAnfMask], xr + j0 + q, 4);
+          for (int q = tid; q < n; q += T) cp_async(dst + q, xr + j0 + q, 4);
+          for (int q = tid; q < pad; q += T)
+            cp_async(sm.ring + kAnfRing + q, xr + j0 + q, 4);
         }
         asm volatile("cp.async.commit_group;\n" ::);
         ++issued;
@@ -858,18 +1278,74 @@ __global__ void __launch_bounds__(kAnfThreads) recur_anf_kernel(AnfArgs a) {
         }
         __syncthreads();
       }
-      anf_piece(sm, yr, base, len, m0 + len == a.U, a.taps, o, hp, a.alpha,
-                a.leak, wk, gacc);
+      // predictions: outputs base + 2 tid and the next, four accumulators
+      // over k mod 4 each
+      const bool even = ((base - H) & 1) == 0;
+      if (2 * tid < len) {
+        const int lo = (base + 2 * tid + kAnfSlab - H) & kAnfMask;
+        float p0, p1;
+        if (even)
+          anf_wide_pred<true>(sm.ring, lo, sm.w, taps, p0, p1);
+        else
+          anf_wide_pred<false>(sm.ring, lo, sm.w, taps, p0, p1);
+        const int xj = base + 2 * tid + kAnfSlab;
+        sm.err[2 * tid] = sm.ring[xj & kAnfMask] - p0;
+        yr[base + 2 * tid] = p0;
+        if (2 * tid + 1 < len) {
+          sm.err[2 * tid + 1] = sm.ring[(xj + 1) & kAnfMask] - p1;
+          yr[base + 2 * tid + 1] = p1;
+        }
+      }
+      __syncthreads();
+      // the warp's gradient over its 32 outputs of the piece: lane L, taps
+      // 2L and 2L + 1, accumulator (output mod 4), running on across pieces
+      const int mw = wi * 32, cnt = min(32, len - mw);
+      if (cnt > 0) {
+        const int lo = (base + mw + 2 * lane + kAnfSlab - H) & kAnfMask;
+        if (cnt == 32 && even)
+          anf_wide_grad<true>(sm.ring, lo, sm.err + mw, cnt, ga, gb);
+        else
+          anf_wide_grad<false>(sm.ring, lo, sm.err + mw, cnt, ga, gb);
+      }
+      if (last) {
+        sm.part[wi][2 * lane] = (ga[0] + ga[1]) + (ga[2] + ga[3]);
+        sm.part[wi][2 * lane + 1] = (gb[0] + gb[1]) + (gb[2] + gb[3]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ga[j] = gb[j] = 0.f;
+      }
+      __syncthreads();
+      if (last) {
+        // across warps: thread k < taps, four accumulators over the warps
+        if (tid < taps) {
+          float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+          for (int j = 0; j < warps; j += 4) {
+            s0 += sm.part[j][tid];
+            if (j + 1 < warps) s1 += sm.part[j + 1][tid];
+            if (j + 2 < warps) s2 += sm.part[j + 2][tid];
+            if (j + 3 < warps) s3 += sm.part[j + 3][tid];
+          }
+          const float g = (s0 + s1) + (s2 + s3);
+          wk = fmaf(a.alpha, g, a.leak * wk);
+          sm.w[tid] = wk;
+        }
+        __syncthreads();
+      }
     }
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
-  if (tid < a.taps) a.w_out[static_cast<size_t>(r) * a.taps + tid] = wk;
-  // hist' = the last H samples of full = [hist, x]
-  for (int h = tid; h < a.H; h += kAnfThreads) {
-    const int p = a.N + h;
-    a.hist_out[static_cast<size_t>(r) * a.H + h] =
-        p < a.H ? a.hist[static_cast<size_t>(r) * a.H + p] : xr[p - a.H];
-  }
+  if (tid < taps) a.w_out[static_cast<size_t>(r) * taps + tid] = wk;
+  anf_hist_out(a, r, tid, T);
+}
+
+// K8's form for U (1 the chain form, 2 the wide form) and its threads per
+// block.
+inline int anf_form(int U) {
+  return U <= kAnfChainMaxU ? 1 : 2;
+}
+inline int anf_threads(int form, int U) {
+  if (form == 1) return kAnfChainThreads;
+  const int t = (U + 31) / 32 * 32;
+  return t < kAnfWideMin ? kAnfWideMin : t > kAnfWideMax ? kAnfWideMax : t;
 }
 
 // K8's serial floor: one thread runs `steps` updates' dependent chain on
@@ -1117,25 +1593,51 @@ int recur_sweep_scan(int device, int mode, int n, float inv_fs, float df,
 // K8: x [R, N] float32 rows, the weights w [R, taps] and the history hist
 // [R, H] (H = delay + taps - 1) -> y [R, N] (the predictions), w' and hist';
 // one weight update every U samples (N a multiple of U), alpha = 2 rate /
-// U, leak the weights' leak.  One block per row.  Returns the first CUDA
-// error.
+// U, leak the weights' leak.  form: 0 the launcher's pick for U
+// (recur_anf_form), 1 the chain form (U <= 32), 2 the wide form.  One
+// block per row.  Returns the first CUDA error.
+int recur_anf_scan_form(int device, int form, const float* x, int R, int N,
+                        int U, int taps, int H, float alpha, float leak,
+                        const float* w, const float* hist, float* y,
+                        float* w_out, float* hist_out, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (R <= 0 || N < 0 || U <= 0 || N % U || taps <= 0 ||
+      taps > kAnfMaxTaps || H < taps - 1 || H > kAnfMaxHist || form < 0 ||
+      form > 2 || (form == 1 && U > kAnfChainMaxU))
+    return cudaErrorInvalidValue;
+  if (form == 0) form = anf_form(U);
+  AnfArgs a{x, w, hist, y, w_out, hist_out, N, U, taps, H, alpha, leak};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (form == 2) {
+    recur_anf_wide<<<R, anf_threads(2, U), 0, s>>>(a);
+    return cudaGetLastError();
+  }
+  const int b = kAnfChainThreads;
+  if (U == 1) recur_anf_chain<1, false><<<R, b, 0, s>>>(a);
+  else if (U <= 2) recur_anf_chain<2, false><<<R, b, 0, s>>>(a);
+  else if (U <= 4) recur_anf_chain<4, false><<<R, b, 0, s>>>(a);
+  else if (U <= 8) recur_anf_chain<8, false><<<R, b, 0, s>>>(a);
+  else if (U < 16) recur_anf_chain<16, false><<<R, b, 0, s>>>(a);
+  else if (U == 16) recur_anf_chain<16, true><<<R, b, 0, s>>>(a);
+  else recur_anf_chain<32, false><<<R, b, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
 int recur_anf_scan(int device, const float* x, int R, int N, int U,
                    int taps, int H, float alpha, float leak, const float* w,
                    const float* hist, float* y, float* w_out,
                    float* hist_out, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (R <= 0 || N < 0 || U <= 0 || N % U || taps <= 0 ||
-      taps > kAnfMaxTaps || H < taps - 1 || H > kAnfMaxHist)
-    return cudaErrorInvalidValue;
-  AnfArgs a{x, w, hist, y, w_out, hist_out, N, U, taps, H, alpha, leak};
-  recur_anf_kernel<<<R, kAnfThreads, 0, (cudaStream_t)stream>>>(a);
-  return cudaGetLastError();
+  return recur_anf_scan_form(device, 0, x, R, N, U, taps, H, alpha, leak, w,
+                             hist, y, w_out, hist_out, stream);
 }
 
-// K8's limits (the wrapper reads them): taps and history length at most.
+// K8's limits (the wrapper reads them): taps and history length at most;
+// the form the launcher picks for U and a form's threads per block.
 int recur_anf_max_taps() { return kAnfMaxTaps; }
 int recur_anf_max_hist() { return kAnfMaxHist; }
+int recur_anf_form(int U) { return anf_form(U); }
+int recur_anf_threads(int form, int U) { return anf_threads(form, U); }
 
 // Samples per K5 group and per tile (the wrapper and the tests read them).
 int recur_iq_group() { return kIqGroup; }

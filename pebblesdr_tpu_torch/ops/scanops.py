@@ -52,6 +52,12 @@ ANF_TAPS = 45          # noisefilter.cpp:5-16
 ANF_DELAY = 64
 ANF_RATE = 0.01
 ANF_LEAK = 1.0 - 1e-5
+# K8's two forms (csrc/recur.cu, kAnfChainMaxU and kAnfWideMin / Max): the
+# chain form (one warp per row) up to this U, the wide form (a block of U
+# rounded up to a warp, within these threads, per row) above it
+ANF_FORMS = ("chain", "wide")          # recur.cu's form 1 and 2
+ANF_CHAIN_MAX_U = 32
+ANF_WIDE_THREADS = (64, 1024)
 IQ_MU = 0.0025         # iqbalance.cpp:76-87
 IQ_GROUP = 64          # samples per adaptive IQ update (K5's group)
 SOURCE = "pebblesdr_tpu_torch/csrc/recur.cu"
@@ -170,12 +176,16 @@ def _lib():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.recur_iq_lms_scan.restype = i
     lib.recur_iq_lms_scan.argtypes = [i, p, i, i, f, p, p, p, p]
-    lib.recur_anf_scan.restype = i
-    lib.recur_anf_scan.argtypes = [i, p, i, i, i, i, i, f, f, p, p, p, p, p,
-                                   p]
+    lib.recur_anf_scan_form.restype = i
+    lib.recur_anf_scan_form.argtypes = [i, i, p, i, i, i, i, i, f, f, p, p,
+                                        p, p, p, p]
     for name in ("recur_anf_max_taps", "recur_anf_max_hist"):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = []
+    lib.recur_anf_form.restype = i
+    lib.recur_anf_form.argtypes = [i]
+    lib.recur_anf_threads.restype = i
+    lib.recur_anf_threads.argtypes = [i, i]
     lib.recur_error_string.restype = ctypes.c_char_p
     lib.recur_error_string.argtypes = [i]
     return lib
@@ -276,13 +286,131 @@ def anf_plain(x: torch.Tensor, w: torch.Tensor, hist: torch.Tensor,
     return torch.cat(preds, dim=-1), w, full[:, full.shape[-1] - h:]
 
 
+def anf_form(update_every: int) -> str:
+    """The form of K8 that runs at this U: "chain" or "wide"."""
+    return ANF_FORMS[update_every > ANF_CHAIN_MAX_U]
+
+
+def anf_threads(form: str, update_every: int) -> int:
+    """K8's threads per block (one block per row): the chain form's chain
+    warp and copy warp, the wide form's U rounded up to a warp."""
+    if form == "chain":
+        return 64
+    lo, hi = ANF_WIDE_THREADS
+    return min(max(-(-update_every // 32) * 32, lo), hi)
+
+
+def _fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """fmaf in float32: the product and the sum in float64, rounded to
+    float32 once (a float64 rounding of the sum can move a float32 tie, so
+    the last bit may differ from a fused multiply-add)."""
+    b = b.double() if isinstance(b, torch.Tensor) else b
+    return (a.double() * b + c.double()).float()
+
+
+def anf_emulate(x: torch.Tensor, w: torch.Tensor, hist: torch.Tensor,
+                rate: float = ANF_RATE, leak: float = ANF_LEAK,
+                update_every: int = 16, form: str | None = None):
+    """K8's arithmetic on float32 tensors in the kernel's order of
+    summation, for the tests (nothing on the main path calls it): x [R, N],
+    w [R, taps], hist [R, H] as for anf_plain, form "chain" or "wide"
+    (default: anf_form).  The chain form: lane L's product for output m,
+    fmaf(f[m][L + 32], w[L + 32], f[m][L] w[L]), summed over the lanes by
+    the butterfly's tree (lanes paired by bit 4, then 3, ..., 0); the
+    gradient of taps L and L + 32 over the lane's slots j = 0 .. P - 1
+    (slot j holds output j ^ mine, mine = L >> (5 - log2 P), P = U rounded
+    up to a power of two) in min(4, P) accumulators over j mod 4, then
+    (g0 + g1) + (g2 + g3).  The wide form: per piece of T = anf_threads
+    outputs, the prediction in four accumulators over k mod 4; the gradient
+    per warp of 32 outputs in four accumulators over m mod 4 that run on
+    across the pieces, then over the warps in four accumulators over the
+    warp index mod 4.  Both: w' = fmaf(alpha, g, leak w).  Returns (y, w',
+    hist')."""
+    u = int(update_every)
+    form = form or anf_form(u)
+    r, n = x.shape
+    dev = x.device
+    taps, h = w.shape[-1], hist.shape[-1]
+    full = torch.cat([hist, x], dim=-1)
+    if not n:
+        return x.clone(), w, hist
+    alpha = float(torch.tensor(2.0 * rate / u, dtype=torch.float32))
+    leak32 = torch.tensor(leak, dtype=torch.float32, device=dev)
+    frames = full[:, :n + taps - 1].unfold(-1, taps, 1)       # [R, N, taps]
+    y = torch.empty_like(x)
+    w = w.clone()
+    if form == "chain":
+        p = 1 << (u - 1).bit_length()
+        acc = min(4, p)
+        w64 = torch.zeros(r, 64, device=dev)
+        w64[:, :taps] = w
+        # tap k's lane k % 32 takes output slot[j, k] in its slot j
+        mine = (torch.arange(64, device=dev) % 32) >> (6 - p.bit_length())
+        slot = torch.arange(p, device=dev)[:, None] ^ mine[None]
+        for i in range(n // u):
+            fr = torch.zeros(r, p, 64, device=dev)
+            fr[:, :u, :taps] = frames[:, i * u:(i + 1) * u]
+            s = _fma(fr[..., 32:], w64[:, None, 32:],
+                     fr[..., :32] * w64[:, None, :32])         # [R, P, 32]
+            while s.shape[-1] > 1:
+                half = s.shape[-1] // 2
+                s = s[..., :half] + s[..., half:]
+            pred = s[..., 0]
+            err = torch.zeros(r, p, device=dev)
+            err[:, :u] = x[:, i * u:(i + 1) * u] - pred[:, :u]
+            y[:, i * u:(i + 1) * u] = pred[:, :u]
+            e_s = err[:, slot]                                 # [R, P, 64]
+            f_s = fr.gather(1, slot.expand(r, p, 64))
+            g = torch.zeros(r, acc, 64, device=dev)
+            for j0 in range(0, p, acc):
+                g = _fma(e_s[:, j0:j0 + acc], f_s[:, j0:j0 + acc], g)
+            gs = g[:, 0]
+            if acc == 2:
+                gs = g[:, 0] + g[:, 1]
+            elif acc == 4:
+                gs = (g[:, 0] + g[:, 1]) + (g[:, 2] + g[:, 3])
+            w64 = _fma(gs, alpha, leak32 * w64)
+        w = w64[:, :taps].clone()
+    else:
+        t = anf_threads("wide", u)
+        warps = t // 32
+        for i in range(n // u):
+            g = torch.zeros(r, warps, 4, 64, device=dev)
+            for m0 in range(0, u, t):
+                ln, base = min(t, u - m0), i * u + m0
+                fr = frames[:, base:base + ln]                 # [R, ln, taps]
+                a = torch.zeros(r, ln, 4, device=dev)
+                for k0 in range(0, taps, 4):
+                    kk = min(4, taps - k0)
+                    a[..., :kk] = _fma(fr[..., k0:k0 + kk],
+                                       w[:, None, k0:k0 + kk], a[..., :kk])
+                pred = (a[..., 0] + a[..., 1]) + (a[..., 2] + a[..., 3])
+                y[:, base:base + ln] = pred
+                err = torch.zeros(r, t, device=dev)
+                err[:, :ln] = x[:, base:base + ln] - pred
+                frp = torch.zeros(r, t, 64, device=dev)
+                frp[:, :ln, :taps] = fr
+                e4 = err.view(r, warps, 8, 4)
+                f4 = frp.view(r, warps, 8, 4, 64)
+                for j in range(8):
+                    g = _fma(e4[:, :, j, :, None], f4[:, :, j], g)
+            part = (g[:, :, 0] + g[:, :, 1]) + (g[:, :, 2] + g[:, :, 3])
+            s = torch.zeros(r, 4, 64, device=dev)
+            for j in range(warps):
+                s[:, j % 4] = s[:, j % 4] + part[:, j]
+            gs = (s[:, 0] + s[:, 1]) + (s[:, 2] + s[:, 3])
+            w = _fma(gs[:, :taps], alpha, leak32 * w)
+    return y, w, full[:, full.shape[-1] - h:]
+
+
 def anf_scan(x: torch.Tensor, w: torch.Tensor, hist: torch.Tensor,
              rate: float = ANF_RATE, leak: float = ANF_LEAK,
-             update_every: int = 16):
+             update_every: int = 16, form: str | None = None):
     """K8 (csrc/recur.cu anf_scan): anf_plain's recurrence on CUDA tensors,
-    one launch (one block per row).  x [R, N] float32, w [R, taps], hist
-    [R, H] float32, contiguous, on one CUDA device.  Returns (y, w',
-    hist')."""
+    one launch (one block per row) of the form anf_form picks for U (form
+    "chain" or "wide" forces one; the chain form takes U <= 32).  x [R, N]
+    float32, w [R, taps], hist [R, H] float32, contiguous, on one CUDA
+    device.  Returns (y, w', hist')."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"anf_scan runs on cuda, not {dev}")
@@ -307,11 +435,17 @@ def anf_scan(x: torch.Tensor, w: torch.Tensor, hist: torch.Tensor,
         raise ValueError(f"anf_scan: {taps} taps and a {h}-sample history "
                          f"exceed the kernel's {lib.recur_anf_max_taps()} "
                          f"taps / {lib.recur_anf_max_hist()} samples")
+    if form not in (None, *ANF_FORMS) or (form == "chain"
+                                          and u > ANF_CHAIN_MAX_U):
+        raise ValueError(f"anf_scan: form {form!r} does not take "
+                         f"update_every={u} (the chain form takes U <= "
+                         f"{ANF_CHAIN_MAX_U})")
     y = torch.empty_like(x)
     w2 = torch.empty_like(w)
     hist2 = torch.empty_like(hist)
-    err = lib.recur_anf_scan(
+    err = lib.recur_anf_scan_form(
         dev.index if dev.index is not None else torch.cuda.current_device(),
+        ANF_FORMS.index(form) + 1 if form else 0,
         x.data_ptr(), r, n, u, taps, h, 2.0 * rate / u, leak, w.data_ptr(),
         hist.data_ptr(), y.data_ptr(), w2.data_ptr(), hist2.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)

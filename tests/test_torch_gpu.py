@@ -23,8 +23,9 @@ its notch) on the card against the CPU; the CLI with --device cuda; K6
 test generator's sweep) against their plain versions, the Receiver's taps
 and the TestBench on the card against the CPU, and --decode cw on the
 card; K8 (anf_scan, the ANF's block LMS) against its plain version at U =
-16, 1024, 1 and others, complex rows and its refusals, and the ANF on the
-staged front on the card against the CPU.
+16, 1024, 1 and others, each of its two forms forced, its bits repeated,
+complex rows and its refusals, and the ANF on the staged front on the card
+against the CPU.
 
 They skip where CUDA is absent (the kernels have no CPU mode).  This file
 imports no jax, so it also runs on a machine that has only the port:
@@ -1789,9 +1790,13 @@ def _anf_rows(r: int, n: int, rng, device) -> torch.Tensor:
 
 # (rows, N, update_every): the staged front's [128, 32768] at U = 16, the
 # batched graph's U = 1024, the sample-exact U = 1, N not a multiple of 4
-# (4-byte staging), an update of two pieces, more rows than SMs, N = 0
+# (4-byte staging), an update of three pieces, more rows than SMs, N = 0;
+# the crossover's boundary (U = 32 the chain form's last, U = 33 the wide
+# form's first) and an update of two pieces (the wide form's 1024 outputs
+# a piece)
 ANF_CASES = [(128, 32768, 16), (128, 32768, 1024), (6, 4096, 1),
-             (5, 2997, 3), (3, 6144, 3072), (140, 2048, 16), (2, 0, 16)]
+             (5, 2997, 3), (3, 6144, 3072), (140, 2048, 16), (2, 0, 16),
+             (4, 4096, 32), (4, 4224, 33), (4, 8192, 2048)]
 
 
 @pytest.mark.parametrize("r,n,u", ANF_CASES)
@@ -1818,6 +1823,82 @@ def test_anf_scan_kernel_matches_plain(cuda, r, n, u):
         assert torch.equal(st.delay, h_p)
     if n:
         assert float(st.weights.abs().max()) > 1e-3     # it adapted
+
+
+@pytest.mark.parametrize("form,r,n,u", [
+    ("chain", 4, 4096, 32), ("wide", 4, 4096, 32), ("wide", 4, 4096, 16),
+    ("wide", 4, 2048, 1), ("chain", 5, 2997, 3), ("wide", 5, 2997, 3),
+    ("chain", 130, 8192, 16)])
+def test_anf_scan_each_form_matches_plain(cuda, form, r, n, u):
+    """Each form forced where the launcher would pick the other (or at the
+    boundary): two calls, one launch each, y and w' within 1e-5 of their
+    scale of the plain version, hist' equal."""
+    rng = np.random.default_rng(r + n + u + len(form))
+    st = scanops.anf_init(r, cuda)
+    w_k = w_p = st.weights
+    h_k = h_p = st.delay
+    for _ in range(2):
+        x = _anf_rows(r, n, rng, cuda)
+        before = scanops.anf_scan.launches
+        y_k, w_k, h_k = scanops.anf_scan(x, w_k, h_k, update_every=u,
+                                         form=form)
+        assert scanops.anf_scan.launches == before + 1
+        y_p, w_p, h_p = scanops.anf_plain(x, w_p, h_p.contiguous(),
+                                          update_every=u)
+        torch.cuda.synchronize()
+        assert float((y_k - y_p).abs().max()) <= 1e-5 * float(
+            y_p.abs().max())
+        assert float((w_k - w_p).abs().max()) <= 1e-5 * max(
+            float(w_p.abs().max()), 1e-3)
+        assert torch.equal(h_k, h_p)
+    assert float(w_k.abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("form,r,n,u", [
+    ("chain", 8, 4096, 16), ("chain", 6, 2048, 1), ("chain", 5, 2997, 3),
+    ("chain", 4, 4096, 32), ("wide", 4, 8192, 1024), ("wide", 4, 4224, 33),
+    ("wide", 3, 6144, 3072)])
+def test_anf_scan_sums_in_emulates_order(cuda, form, r, n, u):
+    """Each form against anf_emulate (its order of summation in torch,
+    each fused multiply-add as a float64 product-sum rounded once) on the
+    same card: y, w' and hist' equal bit for bit on these inputs, so the
+    CPU check of the order (tests/test_torch_anf_order.py) covers the
+    kernel."""
+    rng = np.random.default_rng(7 * r + n + u)
+    st = scanops.anf_init(r, cuda)
+    x = _anf_rows(r, n, rng, cuda)
+    _, w, h = scanops.anf_plain(_anf_rows(r, n, rng, cuda), st.weights,
+                                st.delay, update_every=u)   # adapted
+    h = h.contiguous()
+    got = scanops.anf_scan(x, w, h, update_every=u, form=form)
+    want = scanops.anf_emulate(x, w, h, update_every=u, form=form)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_anf_scan_repeats_its_bits(cuda):
+    """No atomics: two launches on the same inputs give the same bits, in
+    each form."""
+    rng = np.random.default_rng(9)
+    x = _anf_rows(8, 8192, rng, cuda)
+    st = scanops.anf_init(8, cuda)
+    for u in (16, 1024):
+        a = scanops.anf_scan(x, st.weights, st.delay, update_every=u)
+        b = scanops.anf_scan(x, st.weights, st.delay, update_every=u)
+        assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+def test_anf_forms_are_the_launchers(cuda):
+    """The form and threads per block that scanops reports are the ones
+    csrc/recur.cu's launcher takes."""
+    lib = scanops._lib()
+    for u in (1, 3, 16, 32, 33, 64, 100, 1024, 3072):
+        form = scanops.anf_form(u)
+        assert lib.recur_anf_form(u) == scanops.ANF_FORMS.index(form) + 1
+        for f in scanops.ANF_FORMS:
+            assert lib.recur_anf_threads(scanops.ANF_FORMS.index(f) + 1,
+                                         u) == scanops.anf_threads(f, u)
 
 
 def test_anf_complex_is_one_launch_on_stacked_rows(cuda):
@@ -1853,6 +1934,11 @@ def test_anf_scan_refuses_what_it_does_not_take(cuda):
                          torch.zeros(2, 108, device=cuda))
     with pytest.raises(ValueError):            # a CPU tensor
         scanops.anf_scan(x.cpu(), st.weights.cpu(), st.delay.cpu())
+    with pytest.raises(ValueError):            # the chain form above U = 32
+        scanops.anf_scan(x, st.weights, st.delay, update_every=64,
+                         form="chain")
+    with pytest.raises(ValueError):            # no such form
+        scanops.anf_scan(x, st.weights, st.delay, form="tree")
 
 
 # ---- the staged front and the dense filterbank bank
