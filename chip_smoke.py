@@ -268,16 +268,39 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      launched once per dispatch (and the warm-up) and in the trace,
      "PEBBLES " decoded;
  49. SDR-IP at full width through the native UDP pump, paced by the
-     server subprocess: datagrams received = sent, none dropped,
-     restarted or overrun, each pass's work under 512 ms, tone SNR >= 40
-     dB; HPSDR with --bandscope --display waterfall
+     server subprocess: datagrams received (+ counted gaps) = sent, none
+     dropped, restarted or overrun (blocks that find no ring slot at the
+     stop counted in the pump's 'discarded', logged), each pass's work
+     under 512 ms, tone SNR >= 40 dB; HPSDR with --bandscope --display waterfall
      (bandscope_frames > 0), a ghpsdr3 loopback round trip, and
      AudioIqSource over a WavStream into the Receiver on the card (tone
      SNR >= 40 dB);
  50. the control surface on the card through the CLI (64 channels,
      --display spectrum, --keys): a retune moves the demodulated tone, 'p'
      snaps to a carrier within one display bin, 'm' rebuilds the chain as
-     FM stereo on cuda (K2 in the trace), 'q' ends the run.
+     FM stereo on cuda (K2 in the trace), 'q' ends the run;
+ 51. the mode experts (parallel/expert.py) at full width: one 2.048 Msps
+     capture of 64 stations 30 kHz apart (32 AM, 16 USB, 16 FMN), N 32768,
+     K 32, through ModeExpertChannelizer.step_many: each expert within
+     1e-5 of its mode's single-mode Receiver on the same rows, the AM and
+     USB tones >= 40 dB, K1 launched experts x dispatches, event windows,
+     the dispatches' profile and the kernels by name; K1 at the AM
+     expert's shape against its plain version, both timed;
+ 52. the CLI's --assign on the card (AM, USB, FMN, AM experts on one AM
+     station): the per-channel WAVs' tone SNR >= 40 dB, K1 once per expert
+     per dispatch;
+ 53. the sharded receiver: a world of 4 ranks (this script with
+     --shard-rank, channel 2 x time 2) on the one card over gloo, the
+     payloads hopping through the host (counted); am_64ch's geometry with
+     the fused front: K1 per time shard (each rank's wrapper counters),
+     its dc seeded and its history received, one call held to its plain
+     version; the audio within 2e-3 of the unsharded step_many on the
+     card; host hops and bytes per block beside halo_accounting; then a
+     one-rank NCCL world on the same step; K1 at a shard's shape timed;
+ 54. in the same world: pfb_shard (2 x 2), dist_fft (1 x 4) and the
+     4-stage pipeline, each against its unsharded counterpart on the card.
+     Four ranks on one card measure correctness and host hops, not
+     scaling.
 Each phase's seconds and the running total are printed after it.
 Each receiver phase sets every kernel's launch count to 0 just before it
 drives the receiver and reads the counts just after (front_means and
@@ -4479,7 +4502,12 @@ def phase_net_sources(torch, receiver, front, wfm_tail, wav) -> dict:
         f"launches {counts}; tone SNR over the second half {snr:.2f} dB "
         f"(>= {TONE_SNR_DB})")
     log(f"phase49 SDR-IP split: {split_text(split)}")
+    # received + counted = sent: the datagrams the pump took plus the
+    # sequence gaps it counted; blocks that found no ring slot at the stop
+    # are counted in 'discarded' (logged above), never dropped silently
     if not (rc == 0 and "resyncs" in counters and "overruns" in counters
+            and "discarded" in counters
+            and counters["datagrams"] + counters["dropped_datagrams"] == sent
             and counters["datagrams"] == sent
             and counters["dropped_datagrams"] == 0
             and counters["resyncs"] == 0 and counters["overruns"] == 0
@@ -4629,6 +4657,529 @@ def phase_control(torch, front, wfm_tail, wav) -> dict:
             and m["blocks"] == 4 * k):
         raise RuntimeError("phase50: the control surface on the card failed")
     return {"events": m["control_events"]}
+
+
+# ---- phases 51-54: parallel/ (mode experts, --assign, the sharded receiver)
+
+PAR_DIR = "build/chip_smoke_parallel"
+EXPERT_TUNES = -945_000.0 + 30_000.0 * np.arange(64)   # 64 stations 30 kHz apart
+EXPERT_MODES = tuple("AM" if i % 4 < 2 else "USB" if i % 4 == 2 else "FMN"
+                     for i in range(64))              # 32 AM, 16 USB, 16 FMN
+EXPERT_ATOL = 1e-5       # each expert vs its mode's single-mode Receiver
+SHARD = dict(channel=2, time=2, dispatches=3)
+SHARD_ATOL = 2e-3        # sharded vs unsharded audio (tests/test_parallel.py)
+SHARD_TUNES = 250_000.0 + 40.0 * np.arange(64)
+BANK_SHARD = dict(fs=1_024_000, frames=16384, m=32, blocks=3, stations=8)
+FFT_SHARD = (256, 1024)  # N1 x N2 of phase 54's sharded FFT
+PIPE_SHARD = dict(fs=512_000, n=8192, c=2, blocks=5)
+
+
+def expert_capture(torch, rows: int):
+    """[rows, 2] float32: one 2.048 Msps capture, made on the card in
+    float64, of 64 stations at EXPERT_TUNES: AM (1 kHz, m = 0.8), USB (a
+    1 kHz tone above its carrier frequency) and NFM (1 kHz at 3 kHz
+    deviation), 0.01 each, by EXPERT_MODES."""
+    t = torch.arange(rows, dtype=torch.float64, device="cuda") / FS
+    tone = 2 * np.pi * 1000.0 * t
+    z = torch.zeros(rows, dtype=torch.complex128, device="cuda")
+    for f, mode in zip(EXPERT_TUNES, EXPERT_MODES):
+        if mode == "AM":
+            z += 0.01 * (1 + 0.8 * torch.cos(tone)) * torch.exp(
+                2j * np.pi * f * t)
+        elif mode == "USB":
+            z += 0.01 * torch.exp(2j * np.pi * (f + 1000.0) * t)
+        else:
+            z += 0.01 * torch.exp(1j * (2 * np.pi * f * t
+                                        + 3.0 * torch.sin(tone)))
+    return torch.stack([z.real, z.imag], dim=1).float().contiguous()
+
+
+def shared_lanes(torch, iq, c: int):
+    """A shared [rows, 2] capture as a [rows, 2c] plane (an expert's
+    gather)."""
+    idx = torch.tensor([0] * c + [1] * c, device=iq.device)
+    return iq.index_select(1, idx)
+
+
+def phase_experts(torch, receiver, front, wfm_tail, DemodMode) -> dict:
+    """Phase 51: the mode experts at full width: one 2.048 Msps capture,
+    64 channels (32 AM, 16 USB, 16 FMN, 30 kHz apart), N 32768, K 32,
+    through ModeExpertChannelizer.step_many on the card.  Warm-up then
+    WINDOWS event windows of WINDOW_DISPATCHES dispatches, K1 counted by
+    fused_front.launches (experts x dispatches); the warm-up's three
+    dispatches held, expert by expert, to its mode's single-mode Receiver
+    on the same rows within 1e-5; the tone SNR of every AM and USB
+    channel's last dispatch >= 40 dB; the dispatches' profile (enqueue,
+    busy, kernels by name); then K1 at the AM expert's [K*N, 64] against
+    its plain version, both timed."""
+    from pebblesdr_tpu_torch.parallel import expert
+    n, k = HEADLINE["frames"], HEADLINE["blocks"]
+    assign = [expert.ChannelAssignment(DemodMode[m], f)
+              for m, f in zip(EXPERT_MODES, EXPERT_TUNES)]
+    ch = expert.ModeExpertChannelizer(FS, n, assign, device="cuda",
+                                      agc_stride=HEADLINE["agc_stride"])
+    iq = expert_capture(torch, k * n)
+    # each mode's single-mode Receiver over the same rows, first
+    refs = []
+    for g in ch.groups:
+        c = len(g.channel_ids)
+        rx = receiver.Receiver(receiver.ReceiverConfig(
+            sample_rate=FS, frames_per_buffer=n, channels=c, mode=g.mode,
+            agc_stride=HEADLINE["agc_stride"]), "cuda")
+        p, s = rx.default_params(g.tunes), rx.init_state()
+        for _ in range(WARMUP):
+            s, o = rx.step_many(s, p, shared_lanes(torch, iq, c))
+        refs.append(o["audio"])
+    st = [ch.init_states()]
+    outs = [None]
+
+    def dispatch():
+        st[0], outs[0] = ch.step_many(st[0], iq)
+
+    reset_launches(front, wfm_tail)
+    for _ in range(WARMUP):
+        dispatch()
+    torch.cuda.synchronize()
+    errs = {g.mode.value: float((ref - out["audio"]).abs().max())
+            for g, ref, out in zip(ch.groups, refs, outs[0])}
+    windows = []
+    for _ in range(WINDOWS):
+        windows.append(time_cuda(torch, dispatch, WINDOW_DISPATCHES))
+    torch.cuda.synchronize()
+    n_dispatch = WARMUP + WINDOWS * WINDOW_DISPATCHES
+    launches = front.fused_front.launches
+    audio = ch.audio_by_channel(outs[0], many=True)
+    rate = ch.receivers[0][0].cfg.audio_rate
+    snrs = {i: tone_snr_db(audio[i][len(audio[i]) // 2:], rate)
+            for i, m in enumerate(EXPERT_MODES) if m != "FMN"}
+    finite = all(bool(torch.isfinite(o["audio"]).all()) for o in outs[0])
+    best = min(windows)
+    log(f"phase51 mode experts (64 ch: 32 AM, 16 USB, 16 FMN) x {n} x {k}: "
+        f"dispatch ms per window " + " ".join(f"{w:.4f}" for w in windows)
+        + f"; {64 * n * k / (best / 1e3) / 1e6:.1f} Msps, "
+        f"{n * k / (best / 1e3) / FS:.1f}x realtime per channel; K1 "
+        f"launches {launches} for {n_dispatch} dispatches of "
+        f"{ch.n_experts} experts; audio vs the single-mode Receivers "
+        + ", ".join(f"{m} {v:.3g}" for m, v in errs.items())
+        + f" (<= {EXPERT_ATOL}); tone SNR AM min "
+        f"{min(v for i, v in snrs.items() if EXPERT_MODES[i] == 'AM'):.2f}"
+        f" dB, USB min "
+        f"{min(v for i, v in snrs.items() if EXPERT_MODES[i] == 'USB'):.2f}"
+        f" dB (>= {TONE_SNR_DB})")
+    prof = dispatch_profile(torch, {"name": "experts_64ch", "state": None},
+                            "phase51", dispatch=dispatch)
+    times = kernel_times(torch, dispatch, want=("front_fir",))
+    log(f"phase51 experts' kernels per launch: {breakdown_text(times)}")
+    if not (launches == ch.n_experts * n_dispatch and finite
+            and max(errs.values()) <= EXPERT_ATOL
+            and min(snrs.values()) >= TONE_SNR_DB):
+        raise RuntimeError("phase51: the mode experts on the card failed")
+    # K1 at the AM expert's shape, against its plain version, both timed
+    rx_am = ch.receivers[0][0]
+    c = rx_am.cfg.channels
+    plan = rx_am.front
+    x = shared_lanes(torch, iq, c).contiguous()
+    p = ch.params[0][0]
+    z = dict(dtype=torch.float32, device="cuda")
+    args = (x, torch.zeros(1, 2 * c, **z) + 0.01, torch.zeros(c, **z),
+            p.tune_hi, p.tune_lo, torch.randn(plan.d_rows, 2 * c, **z) * 0.01)
+    got = front.fused_front(plan, *args, n_block=n)
+    ref = front.fused_front_reference(plan, *args, n_block=n)
+    err = max(rel_err(a, b) for a, b in zip(got[:4], ref[:4]))
+    ms, plain_ms, _ = time_pair(
+        torch, lambda: front.fused_front(plan, *args, n_block=n),
+        lambda: front.fused_front_reference(plan, *args, n_block=n))
+    k1_launch = kernel_times(torch, lambda: front.fused_front(
+        plan, *args, n_block=n), want=("front_fir",))
+    per_launch = sum(v[0] for v in k1_launch.values())
+    log(f"phase51 K1 at the AM expert's [{k * n}, {2 * c}]: {ms:.4f} ms "
+        f"(plain {plain_ms:.4f}), per launch {per_launch:.4f} ms "
+        f"({breakdown_text(k1_launch)}), relative error {err:.3g} "
+        f"(<= {FRONT_RTOL})")
+    if not err <= FRONT_RTOL:
+        raise RuntimeError("phase51: K1 at the AM expert's shape disagrees")
+    return {"launches": launches, "max_abs_err": float(
+        (got[0] - ref[0]).abs().max()), "ms": ms, "plain_ms": plain_ms,
+        "per_launch_ms": per_launch, "shape": (k * n, 2 * c), "plan": plan,
+        "errs": errs, "windows": windows, "profile": prof}
+
+
+def phase_assign_cli(torch, front, wfm_tail) -> dict:
+    """Phase 52: the CLI's --assign on the card (--device cuda --json):
+    AM, USB, FMN and AM experts on the synthetic AM station at 250 kHz
+    (noise at -60 dB), 3 dispatches of 32 blocks of 32768 frames; the
+    channels' modes in order, K1 once per expert per dispatch, the
+    per-channel WAVs written and the tone SNR of their last dispatch >= 40
+    dB (AM and USB: the AM DC blocker and AGC settle over the first)."""
+    import os
+
+    from pebblesdr_tpu_torch.serve import cli
+    os.makedirs(PAR_DIR, exist_ok=True)
+    n, k = HEADLINE["frames"], HEADLINE["blocks"]
+    path = os.path.join(PAR_DIR, "assign.wav")
+    reset_launches(front, wfm_tail)
+    rc, m, _, names, split = run_cli(
+        torch, cli, ["--synthetic", "am", "--tune", "250000", "--noise-db",
+                     "-60", "--assign", "AM@250000,USB@250000,FMN@250000,"
+                     "AM@250000", "--frames", str(n), "--blocks-per-dispatch",
+                     str(k), "--seconds", repr(3 * k * n / FS),
+                     "--audio-out", path])
+    counts = launch_counts(front, wfm_tail)
+    snrs = {}
+    for c in m["channels"]:
+        a = read_audio_wav(os.path.join(PAR_DIR, f"assign.ch{c['channel']}"
+                                                 f".wav"))[:, 0]
+        snrs[c["channel"]] = tone_snr_db(a[2 * len(a) // 3:], 48000.0)
+    log(f"phase52 --assign on the card: rc {rc}, {m['blocks']} blocks, "
+        f"realtime factor {m['realtime_factor']}, channels "
+        + ", ".join(f"{c['channel']} {c['mode']} S-meter SNR {c['snr_db']} "
+                    f"dB, rms {c['audio_rms']}, WAV tone SNR "
+                    f"{snrs[c['channel']]:.2f} dB" for c in m["channels"])
+        + f"; launches {counts}; front_fir in the trace "
+        f"{any('front_fir' in nm for nm in names)}; step ms {m['step_ms']}")
+    if not (rc == 0 and [c["mode"] for c in m["channels"]]
+            == ["AM", "USB", "FMN", "AM"] and m["blocks"] == 3 * k
+            and counts["fused_front"] == 3 * 3
+            and all(snrs[i] >= TONE_SNR_DB for i in (0, 1, 3))):
+        raise RuntimeError("phase52: --assign on the card failed")
+    return {"snrs": snrs, "realtime": m["realtime_factor"]}
+
+
+def shard_plane(torch):
+    """[K*N, 128] float32: am_64ch's dispatch plane on the card (the AM
+    carrier at 250 kHz on every channel, one block repeated K times)."""
+    n, k = HEADLINE["frames"], HEADLINE["blocks"]
+    block = torch.from_numpy(am_plane(HEADLINE["channels"], n, None))
+    return block.cuda().repeat(k, 1).contiguous()
+
+
+def shard_receiver(torch, receiver, DemodMode):
+    return receiver.Receiver(receiver.ReceiverConfig(
+        sample_rate=FS, frames_per_buffer=HEADLINE["frames"],
+        channels=HEADLINE["channels"], mode=DemodMode.AM,
+        agc_stride=HEADLINE["agc_stride"]), "cuda")
+
+
+def bank_shard_setup(torch, DemodMode, device):
+    """The sharded bank's PfbBankReceiver and capture (phase 54)."""
+    from pebblesdr_tpu_torch.chain.pfb_bank import PfbBankReceiver
+    from pebblesdr_tpu_torch.ops import pfb
+    b = BANK_SHARD
+    plan = pfb.plan(b["fs"], b["m"])
+    tunes = pfb.channel_freqs(plan)[1:4 * b["stations"]:4] + 300.0
+    bank = PfbBankReceiver(b["fs"], b["frames"], tunes, mode=DemodMode.AM,
+                           n_bank=b["m"], agc_mode="off", device=device)
+    rng = np.random.default_rng(3)
+    n = b["blocks"] * b["frames"]
+    t = np.arange(n) / b["fs"]
+    x = sum(0.05 * (1 + 0.5 * np.cos(2 * np.pi * 700.0 * t))
+            * np.exp(2j * np.pi * f * t) for f in tunes)
+    x = x + 0.01 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    return bank, x.astype(np.complex64)
+
+
+def shard_worker(argv: list) -> int:
+    """One rank of phase 53-54's world: `python chip_smoke.py --shard-rank
+    RANK WORLD PORT OUTDIR`.  Joins the world on the card (the backend from
+    the layout: gloo, the ranks sharing one card), runs the sharded AM
+    receiver at am_64ch's geometry on a (2, 2) mesh (K1 per time shard,
+    counted; one K1 call's inputs held to its plain version), then
+    pfb_shard on (2, 2), dist_fft on (1, 4) and the 4-stage pipeline, and
+    writes its results to OUTDIR/RANK.npz."""
+    import os
+
+    import torch
+
+    from pebblesdr_tpu_torch.chain import receiver
+    from pebblesdr_tpu_torch.ops import front, wfm_tail
+    from pebblesdr_tpu_torch.parallel import channelizer, comm, dist_fft
+    from pebblesdr_tpu_torch.parallel import mesh as mesh_mod
+    from pebblesdr_tpu_torch.parallel import pipeline, scaling
+    from pebblesdr_tpu_torch.parallel.pfb_shard import build_sharded_bank_step
+    DemodMode = receiver.DemodMode
+    rank, world, port, outdir = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    out = {"backend": comm.init_world(world, rank, "cuda",
+                                      f"tcp://127.0.0.1:{port}")}
+    m = mesh_mod.make_mesh(SHARD["channel"], SHARD["time"], "cuda")
+    out["host_hops_mode"] = m.host_hops
+    rx = shard_receiver(torch, receiver, DemodMode)
+    step = channelizer.build_sharded_step(rx, m)
+    out["fused"] = step.fused
+    params = rx.default_params(SHARD_TUNES)
+    x = mesh_mod.local_plane(shard_plane(torch), m)
+    st = step.init_state()
+    st, _ = step.step_many(st, params, x)             # warm
+    st = step.init_state()
+    torch.cuda.synchronize()
+    reset_launches(front, wfm_tail)
+    comm.reset_counters()
+    audio = []
+    with captured(front, "fused_front") as calls:
+        for _ in range(SHARD["dispatches"]):
+            st, o = step.step_many(st, params, x)
+            audio.append(o["audio"])
+        torch.cuda.synchronize()
+    out["launches"] = [front.fused_front.launches, front.chunk_means.launches,
+                       front.dc_scan.launches]
+    c = comm.counters
+    out["hops"] = [c["hops"], c["hop_bytes"]]
+    out["collectives"] = json.dumps({"calls": c["calls"],
+                                     "bytes": c["bytes"]})
+    out["audio"] = torch.cat(audio).cpu().numpy()
+    out["c0"] = step.c0
+    out["coord"] = [m.index("channel"), m.index("time")]
+    # K1 on the inputs the step gave it: the seeded dc and received tail
+    args, kw = calls[-1]
+    got = front.fused_front(*args, **kw)
+    ref = front.fused_front_reference(*args, **kw)
+    torch.cuda.synchronize()
+    out["k1_err"] = max(rel_err(a, b) for a, b in zip(got[:4], ref[:4]))
+    out["k1_abs"] = float((got[0] - ref[0]).abs().max())
+    plan = rx.front
+    # fused_front(plan, x, dc, phase0, f_hi, f_lo, tail, ...)
+    out["seed"] = float(args[2].abs().max())                 # dc seed
+    out["tail_rows"] = float(args[6][plan.d_rows - step.d:].abs().max())
+    out["ms"] = time_cuda(torch, lambda: step.step_many(st, params, x), 3)
+    # the sharded bank on (2, 2)
+    bank, cap = bank_shard_setup(torch, DemodMode, m.device)
+    bstep = build_sharded_bank_step(bank, m)
+    bst = bstep.init_state()
+    b = BANK_SHARD
+    t0, t1 = mesh_mod.time_range(m, b["frames"])
+    baud = []
+    for i in range(b["blocks"]):
+        blk = torch.from_numpy(cap[i * b["frames"]:(i + 1) * b["frames"]]
+                               [t0:t1].copy()).cuda()
+        bst, o = bstep(bst, None, blk)
+        baud.append(o["audio"][0])
+    out["bank_audio"] = torch.cat(baud, -1).cpu().numpy()
+    out["bank_s0"] = bstep.s0
+    # the sharded FFT on (1, 4)
+    fm = mesh_mod.make_mesh(1, 4, "cuda")
+    n1, n2 = FFT_SHARD
+    xf = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (n1, n2, 2)).astype(np.float32)).cuda()
+    out["fft"] = dist_fft.fft_sharded(torch.view_as_complex(xf), fm
+                                      ).cpu().numpy()
+    # the 4-stage pipeline
+    prx = receiver.Receiver(receiver.ReceiverConfig(
+        sample_rate=PIPE_SHARD["fs"], frames_per_buffer=PIPE_SHARD["n"],
+        channels=PIPE_SHARD["c"], mode=DemodMode.AM, taps=True), "cuda")
+    pp = prx.default_params(100_000.0)
+    stages, init = pipeline.am_chain_stages(prx, pp)
+    pipe = pipeline.RingPipeline(stages, pipeline.stage_mesh(4, "cuda"))
+    xs = torch.from_numpy(pipe_planes()).cuda()
+    _, ys = pipe.run(init, xs)
+    pst, ref = prx.init_state(), []
+    cc = PIPE_SHARD["c"]
+    for xb in xs:
+        pst, o = prx.step(pst, pp, torch.complex(xb[:cc], xb[cc:]),
+                          spectra=False)
+        ref.append(o["audio"])
+    out["pipe_err"] = float((ys - torch.stack(ref)).abs().max())
+    out["halo"] = json.dumps(scaling.halo_accounting(rx, rx.cfg.channels))
+    np.savez(os.path.join(outdir, f"{rank}.npz"), **{
+        key: np.asarray(v) for key, v in out.items()})
+    comm.destroy_world()
+    return 0
+
+
+def pipe_planes() -> np.ndarray:
+    """[T, 2C, N] float32 packed AM planes (tests/test_pipeline.py:30-43)."""
+    c, n, fs, t_blocks = (PIPE_SHARD[key] for key in ("c", "n", "fs",
+                                                      "blocks"))
+    rng = np.random.default_rng(3)
+    t = np.arange(t_blocks * n) / fs
+    env = (1 + 0.5 * np.cos(2 * np.pi * 800.0 * t)) / 2
+    iq = (env * np.exp(2j * np.pi * 100_000.0 * t)
+          + 0.01 * (rng.normal(size=t_blocks * n)
+                    + 1j * rng.normal(size=t_blocks * n))).astype(
+        np.complex64)
+    return np.stack([np.concatenate([np.broadcast_to(b.real, (c, n)),
+                                     np.broadcast_to(b.imag, (c, n))], 0)
+                     for b in iq.reshape(t_blocks, n)]).astype(np.float32)
+
+
+def phase_sharded(torch, receiver, front, wfm_tail, DemodMode) -> dict:
+    """Phases 53-54: the sharded receiver on the card.  A world of 4 ranks
+    (subprocesses of this script, channel 2 x time 2) on the one H100:
+    gloo, each payload hopping through the host (comm.py counts the hops
+    and bytes); the AM receiver at am_64ch's geometry with the fused front,
+    K1 per time shard (counted by each rank's wrapper counters: one per
+    dispatch), its dc seeded from the closed form and its history from the
+    left neighbour, one call held to its plain version on those inputs;
+    the ranks' audio joined over channels within 2e-3 of the unsharded
+    Receiver.step_many on the card, computed here meanwhile; the host hops
+    and bytes per block beside scaling.halo_accounting.  Then, in the same
+    world, pfb_shard (2e-4 of scale of the unsharded bank), dist_fft
+    (2e-5 of scale of torch.fft) and the 4-stage pipeline (1e-5 of the
+    staged Receiver).  Then a one-rank NCCL world in this process on the
+    same step (2e-3).  Four ranks on one card measure correctness and host
+    hops, not scaling."""
+    import os
+    import socket
+
+    from pebblesdr_tpu_torch.parallel import channelizer, comm
+    from pebblesdr_tpu_torch.parallel import mesh as mesh_mod
+    world = SHARD["channel"] * SHARD["time"]
+    outdir = os.path.join(PAR_DIR, "ranks")
+    os.makedirs(outdir, exist_ok=True)
+    for f in os.listdir(outdir):
+        os.remove(os.path.join(outdir, f))
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    procs = [subprocess.Popen([sys.executable, __file__, "--shard-rank",
+                               str(r), str(world), port, outdir],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    logs = []
+    try:
+        # the unsharded references on the card, meanwhile
+        rx = shard_receiver(torch, receiver, DemodMode)
+        params = rx.default_params(SHARD_TUNES)
+        plane = shard_plane(torch)
+        st, ref = rx.init_state(), []
+        for _ in range(SHARD["dispatches"]):
+            st, o = rx.step_many(st, params, plane)
+            ref.append(o["audio"])
+        ref = torch.cat(ref).cpu().numpy()
+        bank, cap = bank_shard_setup(torch, DemodMode, "cuda")
+        bst, bref = bank.init_state(), []
+        fr = BANK_SHARD["frames"]
+        for i in range(BANK_SHARD["blocks"]):
+            bst, o = bank.step(bst, torch.from_numpy(
+                cap[i * fr:(i + 1) * fr]).cuda())
+            bref.append(o["audio"])
+        bref = torch.cat(bref, -1).cpu().numpy()
+        n1, n2 = FFT_SHARD
+        xf = np.random.default_rng(5).standard_normal((n1, n2, 2)).astype(
+            np.float32)
+        fref = torch.fft.fft(torch.view_as_complex(torch.from_numpy(xf)
+                                                   .cuda()).reshape(-1))
+        fref = fref.cpu().numpy()
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            log(text[-4000:])
+            raise RuntimeError(f"phase53: rank {r} failed")
+    res = []
+    for r in range(world):
+        with np.load(os.path.join(outdir, f"{r}.npz")) as z:
+            res.append({key: z[key] for key in z.files})
+    rows = {}
+    for r in res:
+        rows.setdefault(int(r["c0"]), r["audio"])
+    got = np.concatenate([rows[c] for c in sorted(rows)], axis=1)
+    err = float(np.abs(got - ref).max())
+    halo = json.loads(str(res[0]["halo"]))
+    k = HEADLINE["blocks"]
+    per_block = [int(r["hops"][1]) / (SHARD["dispatches"] * k) for r in res]
+    log(f"phase53 world: {world} ranks, backend {res[0]['backend']}, host "
+        f"hops {bool(res[0]['host_hops_mode'])}; each rank's K1 launches "
+        f"(fused_front, front_means, front_dc_scan) "
+        + "; ".join(f"rank {i} {list(r['launches'])}"
+                    for i, r in enumerate(res))
+        + f" for {SHARD['dispatches']} dispatches")
+    log(f"phase53 K1 per time shard vs its plain version on the inputs the "
+        f"step gave it (dc seed max {[float(r['seed']) for r in res]}, "
+        f"received history rows max {[float(r['tail_rows']) for r in res]}):"
+        f" relative errors {[float(r['k1_err']) for r in res]} (<= "
+        f"{FRONT_RTOL})")
+    log(f"phase53 sharded (2 x 2, fused) vs unsharded step_many on the card:"
+        f" max |audio| difference {err:.3g} (<= {SHARD_ATOL}) over "
+        f"{SHARD['dispatches']} dispatches of {k} blocks x "
+        f"{HEADLINE['channels']} ch; ms per dispatch per rank (4 ranks on "
+        f"one card: not a scaling figure) {[float(r['ms']) for r in res]}")
+    log(f"phase53 host hops per rank {[int(r['hops'][0]) for r in res]}, "
+        f"bytes per block {per_block} (collectives "
+        f"{str(res[0]['collectives'])}); halo_accounting {halo}")
+    bank_rows = {int(r["bank_s0"]): r["bank_audio"] for r in res}
+    bgot = np.concatenate([bank_rows[s] for s in sorted(bank_rows)], axis=0)
+    bank_err = float(np.abs(bgot - bref).max() / max(np.abs(bref).max(),
+                                                     1e-9))
+    fgot = np.concatenate([r["fft"] for r in res], axis=0).reshape(-1)
+    fft_err = float(np.abs(fgot - fref).max() / np.abs(fref).max())
+    pipe_err = max(float(r["pipe_err"]) for r in res)
+    log(f"phase54 pfb_shard (2 x 2, {BANK_SHARD['stations']} stations, M "
+        f"{BANK_SHARD['m']}) vs the unsharded bank: {bank_err:.3g} of scale "
+        f"(<= 2e-4); dist_fft ({FFT_SHARD[0]} x {FFT_SHARD[1]} over 4 ranks) "
+        f"vs torch.fft: {fft_err:.3g} of scale (<= 2e-5); the 4-stage "
+        f"pipeline vs the staged Receiver: {pipe_err:.3g} (<= 1e-5)")
+    ok = (all(str(r["backend"]) == "gloo" and bool(r["host_hops_mode"])
+              and bool(r["fused"])
+              and list(r["launches"][:1]) == [SHARD["dispatches"]]
+              and float(r["k1_err"]) <= FRONT_RTOL and int(r["hops"][0]) > 0
+              for r in res)
+          and all(float(r["tail_rows"]) > 0 for r in res
+                  if int(r["coord"][1]) > 0)
+          and err <= SHARD_ATOL and bank_err <= 2e-4 and fft_err <= 2e-5
+          and pipe_err <= 1e-5)
+    if not ok:
+        raise RuntimeError("phase53-54: the sharded world on the card failed")
+    # a one-rank NCCL world, in this process, on the same step
+    be = comm.init_world(1, 0, "cuda")
+    try:
+        m = mesh_mod.make_mesh(1, 1, "cuda")
+        step = channelizer.build_sharded_step(rx, m)
+        st, one = step.init_state(), []
+        reset_launches(front, wfm_tail)
+        for _ in range(SHARD["dispatches"]):
+            st, o = step.step_many(st, params, plane)
+            one.append(o["audio"])
+        torch.cuda.synchronize()
+        k1 = front.fused_front.launches
+        err1 = float(np.abs(torch.cat(one).cpu().numpy() - ref).max())
+    finally:
+        comm.destroy_world()
+    log(f"phase53 one-rank world: backend {be}, K1 launches {k1}, audio vs "
+        f"unsharded {err1:.3g} (<= {SHARD_ATOL})")
+    if not (be == "nccl" and k1 == SHARD["dispatches"]
+            and err1 <= SHARD_ATOL):
+        raise RuntimeError("phase53: the one-rank NCCL world failed")
+    launches = sum(int(r["launches"][0]) for r in res)
+    return {"launches": launches, "err": err,
+            "max_abs_err": max(float(r["k1_abs"]) for r in res),
+            "hops": [int(r["hops"][0]) for r in res],
+            "bytes_per_block": per_block,
+            **phase_shard_k1_time(torch, front, rx)}
+
+
+def phase_shard_k1_time(torch, front, rx) -> dict:
+    """K1 at a time shard's shape ([K*N/2, 64]: 2 time x 2 channel shards
+    of am_64ch), with a seeded dc and a received history, against its plain
+    version, both timed (this process alone on the card)."""
+    n, k = HEADLINE["frames"], HEADLINE["blocks"]
+    c = HEADLINE["channels"] // SHARD["channel"]
+    rows = k * n // SHARD["time"]
+    plan = rx.front
+    z = dict(dtype=torch.float32, device="cuda")
+    x = torch.from_numpy(am_plane(c, n, None)).cuda().repeat(
+        k // SHARD["time"], 1).contiguous()
+    p = rx.default_params(SHARD_TUNES)
+    args = (x, torch.zeros(1, 2 * c, **z) + 0.02,
+            torch.rand(c, **z), p.tune_hi[:c].contiguous(),
+            p.tune_lo[:c].contiguous(),
+            torch.randn(plan.d_rows, 2 * c, **z) * 0.05)
+    ms, plain_ms, _ = time_pair(
+        torch, lambda: front.fused_front(plan, *args, n_block=rows),
+        lambda: front.fused_front_reference(plan, *args, n_block=rows))
+    times = kernel_times(torch, lambda: front.fused_front(
+        plan, *args, n_block=rows), want=("front_fir",))
+    per_launch = sum(v[0] for v in times.values())
+    log(f"phase53 K1 at a time shard's [{rows}, {2 * c}]: {ms:.4f} ms "
+        f"(plain {plain_ms:.4f}), per launch {per_launch:.4f} ms "
+        f"({breakdown_text(times)})")
+    return {"ms": ms, "plain_ms": plain_ms, "per_launch_ms": per_launch,
+            "shape": (rows, 2 * c), "plan": plan}
 
 
 def receiver_for_cli(torch):
@@ -4826,6 +5377,12 @@ def main() -> int:
     clock("phase 49")
     phase_control(torch, front, wfm_tail, wav)
     clock("phase 50")
+    ex = phase_experts(torch, receiver, front, wfm_tail, DemodMode)
+    clock("phase 51")
+    phase_assign_cli(torch, front, wfm_tail)
+    clock("phase 52")
+    sh = phase_sharded(torch, receiver, front, wfm_tail, DemodMode)
+    clock("phases 53-54")
 
     c, n, k = HEADLINE["channels"], HEADLINE["frames"], HEADLINE["blocks"]
     t = n * k
@@ -5046,6 +5603,24 @@ def main() -> int:
          "library_ms": None}
         for tag, cell in (("staged", "am_iqauto_anf_64ch"),
                           ("batched", "am_anf_long_64ch"))
+    ] + [
+        # K1's callers in parallel/ (phases 51, 53): the mode experts
+        # (launches: every expert's over the timed run; times and error at
+        # the AM expert's [K*N, 64]) and the time shards of the 4-rank
+        # sharded step (launches: every rank's; the error on the inputs
+        # the step gave K1, its dc seeded and its history received; times
+        # at a shard's [K*N/2, 64], this process alone on the card)
+        {"name": f"fused_front ({what}, timed at {r['shape']})",
+         "route": "cuda", "source": front.SOURCE,
+         "replaces": front.REPLACES, "launches": r["launches"],
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "plain_ms": r["plain_ms"],
+         **roofline.k1_bound(r["plan"], r["shape"][0], r["shape"][1] // 2,
+                             4, r["shape"][0] if what.startswith("per time")
+                             else n, 0), "library_ms": None}
+        for what, r in (("mode experts: AM 32 ch, USB 16 ch, FMN 16 ch", ex),
+                        ("per time shard of the 4-rank sharded step, dc "
+                         "seeded and history received", sh))
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5054,4 +5629,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--shard-rank"]:
+        sys.exit(shard_worker(sys.argv[2:]))
     sys.exit(main())

@@ -234,7 +234,9 @@ void encode_pcm16(const float* const* chans, size_t n_chan, size_t n,
 // (a gap under 1024 -> dropped-datagram count + zero fill; 1024 or more is
 // taken as the radio's restart and counted in resyncs), decodes the
 // interleaved wire format into deinterleaved float32 re/im planes, and
-// commits whole blocks into a Ring with drop-oldest overrun semantics.  On
+// commits whole blocks into a Ring with drop-oldest overrun semantics (a
+// block that finds no slot — the pump stopped while the ring was full — is
+// counted in discarded, never dropped silently).  On
 // destroy it first drains what the socket already holds, so the counters
 // cover every datagram sent before the radio was stopped.  This is the native data
 // plane for Msps-rate network sources (SDR-IP pushes ~8 k datagrams/s at
@@ -269,6 +271,10 @@ struct UdpPump {
     std::atomic<uint64_t> datagrams{0};
     std::atomic<uint64_t> dropped{0};
     std::atomic<uint64_t> resyncs{0};  // gaps of 1024+: taken as restarts
+    std::atomic<uint64_t> discarded{0};  // whole blocks no slot took: the
+                                         // pump stopped while the ring was
+                                         // full, or drop-oldest found the
+                                         // oldest slot held by the reader
     std::atomic<uint64_t> bytes{0};
     // partial-block assembly (pump thread only)
     std::vector<float> re, im;
@@ -315,6 +321,8 @@ void pump_flush_blocks(UdpPump* p) {
             std::memcpy(out + p->block_samples, p->im.data(),
                         p->block_samples * sizeof(float));
             ring_commit_write(p->ring);
+        } else {
+            p->discarded.fetch_add(1, std::memory_order_relaxed);
         }
         size_t rest = p->have - p->block_samples;
         std::memmove(p->re.data(), p->re.data() + p->block_samples,
@@ -437,7 +445,8 @@ int udp_pump_read(UdpPump* p, float* out, int timeout_ms) {
 
 void udp_pump_counters(UdpPump* p, uint64_t* datagrams, uint64_t* dropped,
                        uint64_t* overruns, uint64_t* bytes,
-                       uint64_t* resyncs) {
+                       uint64_t* resyncs, uint64_t* discarded) {
+    if (discarded) *discarded = p->discarded.load();
     if (datagrams) *datagrams = p->datagrams.load();
     if (dropped) *dropped = p->dropped.load();
     if (resyncs) *resyncs = p->resyncs.load();

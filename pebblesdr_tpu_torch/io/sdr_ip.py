@@ -444,7 +444,8 @@ class SdrIpSource(Source):
     def counters(self) -> dict:
         """Datagrams received, dropped (sequence gaps under 1024, zero
         filled) and restarts (gaps of 1024 or more); with the native pump
-        also its ring's overruns and bytes."""
+        also its ring's overruns, bytes and discarded blocks (no ring slot
+        when the pump stopped)."""
         if self._pump is not None:
             return self._pump.counters
         return {"datagrams": self.datagrams,

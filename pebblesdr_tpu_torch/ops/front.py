@@ -804,11 +804,13 @@ def fused_front_reference(plan: FrontPlan, x: torch.Tensor, dc: torch.Tensor,
 
 
 def mix_reference(z: torch.Tensor, phase0: torch.Tensor, f_hi: torch.Tensor,
-                  f_lo: torch.Tensor) -> torch.Tensor:
+                  f_lo: torch.Tensor, first: int = 0) -> torch.Tensor:
     """The NCO mix of a packed plane z [T, 2C]: u = z exp(-j 2 pi phi(t)),
-    the phasor as coarse (per 128 rows) x fine (row within them)."""
+    the phasor as coarse (per 128 rows) x fine (row within them); with
+    first, z is rows first .. first+T-1 of a plane whose row 0 has
+    phase0."""
     c = z.shape[1] // 2
-    cos_a, sin_a = oscillator(phase0, f_hi, f_lo, z.shape[0])  # [T, C] each
+    cos_a, sin_a = oscillator(phase0, f_hi, f_lo, z.shape[0], first)
     zr, zi = z[:, :c], z[:, c:]
     return torch.cat([zr * cos_a + zi * sin_a, zi * cos_a - zr * sin_a],
                      dim=1)
@@ -856,10 +858,20 @@ def phase_tables(phase0: torch.Tensor, f_hi: torch.Tensor,
 
 
 def oscillator(phase0: torch.Tensor, f_hi: torch.Tensor, f_lo: torch.Tensor,
-               t: int):
+               t: int, first: int = 0):
     """(cos, sin) of 2 pi phi(t) for rows 0..t-1, [t, C] each, as the
-    product of the coarse and fine phasors."""
-    coarse, fine = phase_tables(phase0, f_hi, f_lo, t)
+    product of the coarse and fine phasors; with first, rows first ..
+    first+t-1 of a plane whose row 0 has phase0, each with the phasors the
+    whole plane's decomposition gives it (a shard's trailing rows, mixed
+    as K1 mixes them)."""
+    coarse, fine = phase_tables(phase0, f_hi, f_lo, first + t)
+    if first:
+        rows = torch.arange(first, first + t, device=phase0.device)
+        cc = coarse[rows // SUB_BLOCK, rows % SUB_BLOCK // _Q]      # [t, C]
+        ff = fine[rows % _Q]
+        cr, ci = torch.cos(TWO_PI * cc), torch.sin(TWO_PI * cc)
+        fr, fi = torch.cos(TWO_PI * ff), torch.sin(TWO_PI * ff)
+        return cr * fr - ci * fi, cr * fi + ci * fr
     cr = torch.cos(TWO_PI * coarse)[:, :, None, :]
     ci = torch.sin(TWO_PI * coarse)[:, :, None, :]
     fr, fi = torch.cos(TWO_PI * fine), torch.sin(TWO_PI * fine)

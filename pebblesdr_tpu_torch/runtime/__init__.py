@@ -59,7 +59,7 @@ def load():
     lib.udp_pump_read.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                   ctypes.c_int]
     lib.udp_pump_counters.argtypes = [ctypes.c_void_p] + \
-        [ctypes.POINTER(ctypes.c_uint64)] * 5
+        [ctypes.POINTER(ctypes.c_uint64)] * 6
     lib.udp_pump_stop.argtypes = [ctypes.c_void_p]
     lib.udp_pump_destroy.argtypes = [ctypes.c_void_p]
     _lib, _path = lib, _build.host_library_path("ring")
@@ -211,7 +211,9 @@ class NativeUdpPump:
     counted in counters['resyncs']), wire-format decode to deinterleaved
     float32 planes, whole blocks committed into a native ring with
     drop-oldest overrun semantics.  close() drains what the socket already
-    holds first, so the counters cover every datagram sent before it.
+    holds first, so the counters cover every datagram sent before it; a
+    block that finds no ring slot then (the ring full with no consumer) is
+    counted in counters['discarded'].
 
     The native data plane for Msps network sources (SDR-IP at 2 Msps is
     ~8 k datagrams/s: a per-datagram Python loop steals time the chain
@@ -253,15 +255,16 @@ class NativeUdpPump:
 
     @property
     def counters(self) -> dict:
-        """datagrams, dropped_datagrams, overruns, bytes and resyncs (still
-        readable after close())."""
+        """datagrams, dropped_datagrams, overruns, bytes, resyncs and
+        discarded (whole blocks no ring slot took: the pump stopped while
+        the ring was full), still readable after close()."""
         if self._pump is None:
             return dict(self._final)
-        vals = [ctypes.c_uint64() for _ in range(5)]
+        vals = [ctypes.c_uint64() for _ in range(6)]
         self._lib.udp_pump_counters(self._pump, *[ctypes.byref(v) for v in vals])
         return {"datagrams": vals[0].value, "dropped_datagrams": vals[1].value,
                 "overruns": vals[2].value, "bytes": vals[3].value,
-                "resyncs": vals[4].value}
+                "resyncs": vals[4].value, "discarded": vals[5].value}
 
     def close(self) -> None:
         if getattr(self, "_pump", None):

@@ -64,8 +64,13 @@ device), step (the copy, the dispatch and the audio's fetch), dispatch
 and work (the pass less its read: what must stay under K*N/fs of signal
 when the source paces the run).
 
---assign waits for parallel/expert.py, which is not ported yet: it exits
-with code 2 and names the module.
+--assign 'MODE@HZ,...' runs mixed-mode monitoring (parallel/expert.py):
+one capture, each channel routed to its mode's expert Receiver on the same
+device, K blocks per dispatch of one shared [K*N, 2] capture plane (the
+experts gather their channels' lanes on the device); --squelch, --gain,
+--bandpass and --agc go to every expert; per-channel WAVs
+<stem>.ch<i>.<ext>, and the JAX CLI's JSON keys (channels: channel, mode,
+tune_hz, snr_db, audio_rms).
 """
 
 from __future__ import annotations
@@ -86,10 +91,6 @@ from pebblesdr_tpu_torch.utils import checkpoint as ckpt
 from pebblesdr_tpu_torch.utils.perform import Perform
 from pebblesdr_tpu_torch.utils.recovery import StreamSupervisor
 
-# what each deferred option waits for (the JAX package's modules)
-_DEFERRED = {
-    "assign": "pebblesdr_tpu/parallel/expert.py",
-}
 # the sources that stream from a network radio
 _NETWORK = ("rtl_tcp", "sdr_ip", "hpsdr")
 
@@ -175,12 +176,13 @@ def _warm(rx: Receiver, plane: _Plane) -> None:
     out["audio"].cpu()
 
 
-def _read_dispatch(source, frames: int, kdisp: int):
-    """Up to kdisp blocks of the source, zero-padded to kdisp (the same
-    dispatch shape; the padded blocks are trimmed after): (blocks read,
-    [kdisp * frames] complex64), or (0, None) at the end of the stream."""
+def _read_dispatch(source, frames: int, kdisp: int, limit: int | None = None):
+    """Up to kdisp blocks of the source (at most limit), zero-padded to
+    kdisp (the same dispatch shape; the padded blocks are trimmed after):
+    (blocks read, [kdisp * frames] complex64), or (0, None) at the end of
+    the stream."""
     blks = []
-    for _ in range(kdisp):
+    for _ in range(kdisp if limit is None else min(kdisp, limit)):
         blk = source.read_block(frames)
         if blk is None:
             break
@@ -271,6 +273,101 @@ def _run_stations(args, source, device) -> int:
         "msps": round(len(audio) * args.frames * len(tunes) / wall / 1e6, 2),
         "realtime_factor": round(len(audio) * args.frames / fs / wall, 2),
         "rows": rows,
+        "step_ms": perform.stats("step"),
+        "split_ms": perform.report(),
+    }
+    print(json.dumps(metrics) if args.json else
+          "\n".join(f"{k:>16}: {v}" for k, v in metrics.items()))
+    return 0
+
+
+def _run_assign(args, source, device) -> int:
+    """Mixed-mode monitoring: one capture -> channels routed to per-mode
+    expert chains (parallel/expert.py).  --assign 'AM@250000,FMN@-50000'
+    demodulates an AM station at +250 kHz and an NFM station at -50 kHz at
+    once.  Each dispatch ships one shared [K*N, 2] capture plane."""
+    from pebblesdr_tpu_torch.parallel import expert
+
+    fs = source.info.sample_rate
+    assignments = []
+    for spec in args.assign.split(","):
+        mode_s, _, hz_s = spec.partition("@")
+        assignments.append(expert.ChannelAssignment(
+            modes_mod.from_string(mode_s.strip().upper()),
+            float(hz_s or 0.0)))
+    ch = expert.ModeExpertChannelizer(fs, args.frames, assignments,
+                                      device=device, agc_mode=args.agc)
+
+    def scalar(v):
+        return torch.tensor(v, dtype=torch.float32, device=device)
+
+    def configure(rx, p):
+        # --bandpass overrides each expert's mode-preset cuts; --squelch
+        # and --gain apply to every expert (as in the single-mode path)
+        if args.bandpass:
+            lo, hi = (float(v) for v in args.bandpass.split(","))
+            p = rx.set_bandpass(p, lo, hi)
+        if args.squelch is not None:
+            p = dataclasses.replace(p, squelch_db=scalar(args.squelch))
+        if args.gain != 1.0:
+            p = dataclasses.replace(p, gain=scalar(args.gain))
+        return p
+
+    for e in range(ch.n_experts):
+        ch.set_params(e, configure)
+    states = ch.init_states()
+    n_blocks = max(1, int(args.seconds * fs / args.frames))
+    kdisp = max(1, min(args.blocks_per_dispatch, n_blocks))
+    plane = _Plane(kdisp * args.frames, 1, device)
+    audio = {i: [] for i in range(len(assignments))}
+    perform = Perform(device)
+    last = None
+    n_done = 0
+    _start_stream(args, source)
+    t_start = time.perf_counter()
+    while n_done < n_blocks:
+        k_real, cat = _read_dispatch(source, args.frames, kdisp,
+                                     n_blocks - n_done)
+        if cat is None:
+            break
+        plane.fill(cat)
+        with perform.measure("step"):
+            states, outs = ch.step_many(states, plane.to_device())
+            by_ch = ch.audio_by_channel(outs, many=True, blocks=k_real)
+        for i, a in by_ch.items():
+            audio[i].append(a)
+        n_done += k_real
+        last = (outs, k_real)
+        if cat is None or n_done >= n_blocks:
+            break
+    wall = time.perf_counter() - t_start
+    if last is None:
+        print("no IQ blocks read from the source", file=sys.stderr)
+        return 1
+    outs, k_real = last
+    chans = []
+    for e, g in enumerate(ch.groups):
+        sm = outs[e]["smeter"]["snr_db"][k_real - 1].cpu().numpy()
+        rate = ch.receivers[e][0].cfg.audio_rate
+        for slot, cid in enumerate(g.channel_ids):
+            a = np.concatenate(audio[cid], axis=-1)
+            chans.append({
+                "channel": cid, "mode": g.mode.value,
+                "tune_hz": float(g.tunes[slot]),
+                "snr_db": round(float(sm[slot]), 1),
+                "audio_rms": round(float(np.sqrt(np.mean(a ** 2))), 4),
+            })
+            if args.audio_out:
+                stem, dot, ext = args.audio_out.rpartition(".")
+                path = f"{stem or ext}.ch{cid}.{ext if stem else 'wav'}"
+                wav.write_audio_wav(path, a, rate)
+    metrics = {
+        "blocks": n_done,
+        "wall_s": round(wall, 3),
+        "msps": round(n_done * args.frames * len(assignments) / wall / 1e6,
+                      2),
+        "realtime_factor": round(n_done * args.frames / fs / wall, 2),
+        "channels": sorted(chans, key=lambda c: c["channel"]),
         "step_ms": perform.stats("step"),
         "split_ms": perform.report(),
     }
@@ -384,7 +481,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--sample-rate", type=int, default=2_048_000,
                    help="sample rate for synthetic sources")
     p.add_argument("--assign", default=None,
-                   help="mixed-mode channels 'MODE@HZ,...' (not ported yet)")
+                   help="mixed-mode channels 'MODE@HZ,...': each routed "
+                        "to its mode's expert chain")
     p.add_argument("--presets", default=None,
                    help="preset stations for the n/N live keys: a CSV path "
                         "(name,freq_hz,mode) or 'db' for the shipped "
@@ -473,15 +571,6 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", default=None,
                    help="restore chain state from a .npz before starting")
     return p
-
-
-def _refuse_deferred(p: argparse.ArgumentParser, args) -> None:
-    """Exit 2 (argparse's usage error) naming the module a deferred option
-    waits for."""
-    for opt, module in _DEFERRED.items():
-        if getattr(args, opt):
-            p.error(f"--{opt.replace('_', '-')} needs {module}, which is not "
-                    f"ported to pebblesdr_tpu_torch yet")
 
 
 def _device(p: argparse.ArgumentParser, name: str) -> torch.device:
@@ -580,15 +669,16 @@ def main(argv=None):
         start = doc.find("Key map")
         print(doc[start:] if start >= 0 else doc, file=sys.stderr)
         return 0
-    _refuse_deferred(p, args)
     device = _device(p, args.device)
 
     # a network radio streams from its connection (rtl_tcp) or its start
     # command on: it is opened once the chain is built and warm
-    live = args.source in _NETWORK and not args.stations
+    live = args.source in _NETWORK and not (args.stations or args.assign)
     source = None if live else make_source(args)
     if args.stations:
         return _run_stations(args, source, device)
+    if args.assign:
+        return _run_assign(args, source, device)
     fs = args.sample_rate if live else source.info.sample_rate
     mode = modes_mod.from_string(
         args.mode or (None if live else source.info.demod_mode) or "AM")

@@ -30,8 +30,11 @@ equal, bandscope_frames equal; the JAX CLI never sends the HPSDR start
 command, so its registry's hpsdr factory is wrapped to send it, while the
 port's CLI sends it itself); --keys with --display spectrum against the
 JAX CLI (control_events and tune_hz equal); --source sdr_ip on the port's
-native pump; --audio-out pipe:dd carrying the 1 kHz tone.  --assign, whose
-module is not ported, exits with code 2 naming it.
+native pump; --audio-out pipe:dd carrying the 1 kHz tone.  --assign
+(mixed-mode channels through parallel/expert.py) against the JAX CLI at
+tests/test_cli_assign.py's arguments, and with --squelch, --gain and
+--bandpass: the channels' modes, tunes, SNRs and audio_rms, and each
+channel's WAV within 2e-4.
 """
 
 import json
@@ -268,14 +271,45 @@ def test_cli_records_iq(tmp_path, capsys):
     assert (info.center_freq_hz, info.demod_mode) == (100000.0, "USB")
 
 
-@pytest.mark.parametrize("extra,module", [
-    (["--assign", "AM@250000"], "parallel/expert.py")])
-def test_deferred_flags_exit_2_naming_the_module(extra, module, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["--synthetic", "tone", "--seconds", "0.01"] + extra)
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert module in err and "not ported" in err
+ASSIGN = ["--synthetic", "am", "--sample-rate", "512000", "--tune", "100000",
+          "--frames", "8192", "--assign", "AM@100000,USB@100000",
+          "--seconds", "0.4", "--noise-db", "-60", "--json"]
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--squelch", "10"],
+    ["--squelch", "10", "--gain", "0.5", "--bandpass=-4000,4000"]],
+    ids=["assign", "assign_squelch", "assign_squelch_gain_bandpass"])
+def test_assign_matches_jax_cli(extra, tmp_path, capsys):
+    """tests/test_cli_assign.py's run (AM and USB experts on one AM
+    station); with --squelch 10 the USB channel (-5.6 dB) closes; with
+    --bandpass -4000,4000 it opens again (both channels near 67 dB) and
+    --gain 0.5 halves the AM audio: the port's JSON and per-channel WAVs
+    against the JAX CLI's for the same arguments."""
+    jm = run(jcli.main, ASSIGN + extra + ["--audio-out",
+                                          str(tmp_path / "j.wav")], capsys)
+    tm = run(cli.main, ASSIGN + extra + ["--audio-out", str(tmp_path / "t.wav"),
+                                         "--device", "cpu"], capsys)
+    assert set(jm) == set(tm) - PORT_KEYS
+    assert jm["blocks"] == tm["blocks"] >= 20
+    assert [c["mode"] for c in tm["channels"]] == ["AM", "USB"]
+    for jc, tc in zip(jm["channels"], tm["channels"]):
+        assert (jc["channel"], jc["mode"], jc["tune_hz"]) == (
+            tc["channel"], tc["mode"], tc["tune_hz"])
+        assert abs(jc["snr_db"] - tc["snr_db"]) <= 0.2 + 1e-9
+        assert abs(jc["audio_rms"] - tc["audio_rms"]) < 1e-3
+    am, usb = tm["channels"]
+    assert am["snr_db"] > 10 and am["audio_rms"] > 0.01
+    if len(extra) == 2:                         # --squelch alone
+        assert usb["snr_db"] < 10 and usb["audio_rms"] == 0.0
+    elif extra:                                 # the wide bandpass, gain
+        assert usb["snr_db"] > 10 and usb["audio_rms"] > 0.01
+        assert am["audio_rms"] == pytest.approx(0.2716 / 2, abs=2e-3)
+    for ch in (0, 1):
+        a = read_audio(str(tmp_path / f"t.ch{ch}.wav"))
+        b = read_audio(str(tmp_path / f"j.ch{ch}.wav"))
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, atol=2e-4)
 
 
 def test_cli_wav_roundtrip_with_checkpoint(tmp_path, capsys):
@@ -489,7 +523,8 @@ def test_cli_sdr_ip_on_the_native_pump(tmp_path, capsys):
     assert runtime.available() and m["blocks"] == 3
     c = m["source_counters"]
     assert set(c) == {"datagrams", "dropped_datagrams", "overruns", "bytes",
-                      "resyncs"} and c["datagrams"] >= 3 * 8192 // 256
+                      "resyncs", "discarded"} \
+        and c["datagrams"] >= 3 * 8192 // 256
     assert any(item == sdr_ip.ITEM_RECEIVER_STATE and params[1] ==
                sdr_ip.STATE_RUN for item, params in srv.commands)
     a = read_audio(str(tmp_path / "a.wav"))[:, 0]

@@ -59,6 +59,26 @@ def cuda():
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def _cuda_names(fn, calls: int, done, tries: int = 3) -> list[str]:
+    """The names of the CUDA kernels torch.profiler records over `calls`
+    calls of fn.  The profiler can lose a record (never add one), so the
+    calls are traced again, up to `tries` traces, while done(names) is
+    False (chip_smoke.py kernel_times does the same); the last trace's
+    names are returned for the caller's assertions."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [ev.name for ev in prof.events()
+                 if ev.device_type == DeviceType.CUDA]
+        if done(names):
+            break
+    return names
+
+
 def rel_err(ref: torch.Tensor, got: torch.Tensor) -> float:
     ref, got = ref.double().cpu(), got.double().cpu()
     return float((got - ref).abs().max() / max(float(ref.abs().max()), 1e-30))
@@ -606,9 +626,8 @@ def test_wfm_tail_refuses_an_unaligned_composite(cuda):
 
 def test_wfm_tail_is_one_cuda_launch_per_call(cuda):
     """The profiler records one CUDA kernel per wfm_tail call, the march
-    (hist' is written by the same launch)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    (hist' is written by the same launch), and the wrapper counts one
+    launch per call."""
     plan = wfm_tail.TailPlan.make(_tail_taps(235), 4, 256, 2048, cuda)
     c, n = 64, 16384
     args = (torch.randn(n, c, device=cuda),
@@ -617,13 +636,17 @@ def test_wfm_tail_is_one_cuda_launch_per_call(cuda):
             torch.zeros(plan.d_rows, 2 * c, device=cuda))
     wfm_tail.wfm_tail(plan, *args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            wfm_tail.wfm_tail(plan, *args)
-        torch.cuda.synchronize()
-    names = [ev.name for ev in prof.events()
-             if "wfm_tail" in ev.name and ev.device_type == DeviceType.CUDA]
+    before = wfm_tail.wfm_tail.launches
+
+    def tail_names(names):
+        return [nm for nm in names if "wfm_tail" in nm]
+
+    names = tail_names(_cuda_names(lambda: wfm_tail.wfm_tail(plan, *args), 3,
+                                   lambda nms: len(tail_names(nms)) == 3))
     assert len(names) == 3 and all("wfm_tail_march" in nm for nm in names)
+    # the wrapper counted one launch per call of every trace
+    assert (wfm_tail.wfm_tail.launches - before) % 3 == 0
+    assert wfm_tail.wfm_tail.launches > before
 
 
 def _stereo_plane(c, rows, rng):
@@ -865,8 +888,6 @@ def test_front_comp_kernel_matches_plain(cuda, c, k):
     from zero (an FM plane alone leaves dc' near 0, where the relative error
     is cancellation).  front_comp is the only pass over y: the profiler
     records no front_disc, and 4 CUDA launches per call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     n, zt = 8192, 2048
     gain = 512_000 / (2 * np.pi * 75_000)
     plan = _plan(cuda, 400_000)
@@ -904,13 +925,15 @@ def test_front_comp_kernel_matches_plain(cuda, c, k):
         st_k = (got[1], got[3], got[2], got[6], got[7])
         st_r = (ref[1], ref[3], ref[2], ref[6], ref[7])
     calls = 3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            front.fused_front(plan, x, st_k[0], st_k[1], hi, lo, st_k[2],
-                              disc_last=st_k[3], comp_hist=st_k[4], **kw)
-        torch.cuda.synchronize()
-    names = [ev.name for ev in prof.events()
-             if ev.device_type == DeviceType.CUDA and "front_" in ev.name]
+
+    def front_names(names):
+        return [nm for nm in names if "front_" in nm]
+
+    names = front_names(_cuda_names(
+        lambda: front.fused_front(plan, x, st_k[0], st_k[1], hi, lo, st_k[2],
+                                  disc_last=st_k[3], comp_hist=st_k[4],
+                                  **kw), calls,
+        lambda nms: len(set(front_names(nms))) == 4))
     # four kernels (front_fir writes the carried history), each at most
     # once a call (the profiler may lose a record, never add one)
     assert len(set(names)) == 4 and any("front_comp" in nm for nm in names)
@@ -964,28 +987,33 @@ def test_k1_cuda_launches_per_form(cuda, form):
     """The profiler records 3 / 5 / 4 / 4 CUDA kernels per K1 call (base,
     NB1, WFM, hq), each kernel as often as its form launches it, and no
     front_tail: front_fir's march writes tail' and nb_tail'."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     plan, args, kw = _k1_form_args(cuda, form, 16, 2,
                                    np.random.default_rng(41))
     front.fused_front(plan, *args, **kw)
     torch.cuda.synchronize()
     calls = 5
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            front.fused_front(plan, *args, **kw)
-        torch.cuda.synchronize()
-    got = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA and "front_" in ev.name:
-            key = next(k for k in ("front_means", "front_nb_means",
-                                   "front_dc_scan", "front_fir",
-                                   "front_tail", "front_disc", "front_comp")
-                       if k in ev.name)
-            got[key] = got.get(key, 0) + 1
+    want = K1_FORM_KERNELS[form]
+
+    def counted(names):
+        got = {}
+        for nm in names:
+            if "front_" in nm:
+                key = next(k for k in ("front_means", "front_nb_means",
+                                       "front_dc_scan", "front_fir",
+                                       "front_tail", "front_disc",
+                                       "front_comp") if k in nm)
+                got[key] = got.get(key, 0) + 1
+        return got
+
+    before = front.fused_front.launches
+    got = counted(_cuda_names(lambda: front.fused_front(plan, *args, **kw),
+                              calls, lambda nms: set(counted(nms))
+                              == set(want)))
+    # the wrapper counted one K1 launch per call of every trace
+    assert (front.fused_front.launches - before) % calls == 0
+    assert front.fused_front.launches > before
     # each kernel of the form and no other, each at most as often as the
     # form launches it (the profiler may lose a record, never add one)
-    want = K1_FORM_KERNELS[form]
     assert set(got) == set(want)
     assert all(0 < got[k] <= want[k] * calls for k in want)
     assert sum(want.values()) == {"base": 3, "nb": 5, "wfm": 4, "hq": 4}[form]
@@ -1308,8 +1336,6 @@ def test_probe_is_one_toeplitz_launch_per_call(cuda, variant, kt):
     probe_toeplitz recorded (the profiler may lose a record, never add
     one: a small kernel's records were once all lost); tail' within RTOL
     of the plain version's."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     c, t = 16, 4 * 8192
     plan = _plan(cuda)
     rng = np.random.default_rng(32)
@@ -1321,16 +1347,13 @@ def test_probe_is_one_toeplitz_launch_per_call(cuda, variant, kt):
     torch.cuda.synchronize()
     assert rel_err(ref[2], got[2]) < RTOL
     calls = 5
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            kprobe.probe_front(variant, plan, x, dc, ph, hi, lo, tail, 2048,
-                               kt)
-        torch.cuda.synchronize()
     planes = 2 if variant in kprobe.TWO_PLANE else 1
     want = {"front_means": planes, "front_dc_scan": planes,
             "probe_toeplitz": 1}
-    names = [ev.name for ev in prof.events()
-             if ev.device_type == DeviceType.CUDA]
+    names = _cuda_names(
+        lambda: kprobe.probe_front(variant, plan, x, dc, ph, hi, lo, tail,
+                                   2048, kt), calls,
+        lambda nms: all(any(k in nm for nm in nms) for k in want))
     assert not any("probe_tail" in nm for nm in names)
     for k, v in want.items():
         assert sum(k in nm for nm in names) <= v * calls, k
@@ -2346,3 +2369,80 @@ def test_cli_decode_cw_on_card(cuda, capsys):
     m = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert m["decoded_text"].lower().startswith("cq")
     assert goertzel.ook_detect.launches > before
+
+
+def _two_station_capture(n, fs=512_000):
+    """tests/test_expert.py:18-28: AM at +100 kHz, NFM at -50 kHz."""
+    rng = np.random.default_rng(7)
+    t = np.arange(n) / fs
+    am = (1 + 0.6 * np.cos(2 * np.pi * 1000.0 * t)) / 2 * np.exp(
+        2j * np.pi * 100_000.0 * t)
+    ph = 2 * np.pi * np.cumsum(3000.0 * np.sin(2 * np.pi * 700.0 * t)) / fs
+    fm = 0.5 * np.exp(1j * (2 * np.pi * -50_000.0 * t + ph))
+    x = am + fm + 0.001 * (rng.normal(size=n) + 1j * rng.normal(size=n))
+    return np.stack([x.real, x.imag], axis=1).astype(np.float32)
+
+
+def test_mode_experts_on_card(cuda):
+    """The mode experts (parallel/expert.py) on the card: K = 3 blocks of
+    one shared [K*N, 2] capture through step_many, two dispatches, each
+    expert within 1e-5 of its mode's single-mode Receiver on the card, K1
+    launched once per expert per dispatch (the wrapper's counter)."""
+    from pebblesdr_tpu_torch.parallel import expert
+    n = 8192
+    assign = [expert.ChannelAssignment(DemodMode.AM, 100_000.0),
+              expert.ChannelAssignment(DemodMode.FMN, -50_000.0),
+              expert.ChannelAssignment(DemodMode.AM, 101_000.0)]
+    ch = expert.ModeExpertChannelizer(512_000, n, assign, device=cuda)
+    iq = torch.from_numpy(_two_station_capture(3 * n)).to(cuda)
+    before = front.fused_front.launches
+    states = ch.init_states()
+    for _ in range(2):
+        states, outs = ch.step_many(states, iq)
+    torch.cuda.synchronize()
+    assert front.fused_front.launches - before == 2 * ch.n_experts
+    for e, g in enumerate(ch.groups):
+        c = len(g.channel_ids)
+        rx = Receiver(ReceiverConfig(sample_rate=512_000,
+                                     frames_per_buffer=n, channels=c,
+                                     mode=g.mode), cuda)
+        p, st = rx.default_params(g.tunes), rx.init_state()
+        x = iq[:, [0] * c + [1] * c]
+        for _ in range(2):
+            st, o = rx.step_many(st, p, x)
+        assert float((o["audio"] - outs[e]["audio"]).abs().max()) <= 1e-5
+
+
+def test_sharded_step_one_rank_nccl_on_card(cuda):
+    """A one-rank world on the card: the backend NCCL (every rank has a
+    card), the fused front (K1, counted once per dispatch) on the (1, 1)
+    mesh, audio within 2e-3 of the unsharded step_many
+    (tests/test_parallel.py's bound)."""
+    from pebblesdr_tpu_torch.parallel import channelizer, comm
+    from pebblesdr_tpu_torch.parallel import mesh as mesh_mod
+    if comm.is_initialized():
+        pytest.skip("a world is up in this process")
+    n, k, c = 8192, 4, 4
+    rx = Receiver(ReceiverConfig(sample_rate=FS, frames_per_buffer=n,
+                                 channels=c), cuda)
+    params = rx.default_params(250_000.0 + 100.0 * np.arange(c))
+    x = _am_plane(c, k * n, np.random.default_rng(3)).to(cuda)
+    st, ref = rx.init_state(), []
+    for _ in range(2):
+        st, o = rx.step_many(st, params, x)
+        ref.append(o["audio"])
+    assert comm.init_world(1, 0, "cuda") == "nccl"
+    try:
+        m = mesh_mod.make_mesh(1, 1, "cuda")
+        step = channelizer.build_sharded_step(rx, m)
+        assert step.fused and m.backend == "nccl" and not m.host_hops
+        before = front.fused_front.launches
+        sst, got = step.init_state(), []
+        for _ in range(2):
+            sst, o = step.step_many(sst, params, x)
+            got.append(o["audio"])
+        torch.cuda.synchronize()
+        assert front.fused_front.launches - before == 2
+    finally:
+        comm.destroy_world()
+    assert float((torch.cat(got) - torch.cat(ref)).abs().max()) <= 2e-3

@@ -257,7 +257,10 @@ def test_port_imports_no_jax():
     server and the CLI reading it with --display and --keys, the control
     surface, the terminal display, the SDR-IP, HPSDR, ghpsdr3, audio sink
     and soundcard modules, and ``python -m pebblesdr_tpu_torch.serve.server
-    --help``) runs without loading jax or any module of the JAX package."""
+    --help``), and parallel/ (a one-rank CPU world: the sharded step's
+    step_many and JAX-contract call, the mode experts' step_many, and the
+    CLI's --assign) runs without loading jax or any module of the JAX
+    package."""
     code = (
         "import importlib, pkgutil, sys, numpy as np, torch\n"
         "import pebblesdr_tpu_torch as pkg\n"
@@ -425,6 +428,30 @@ def test_port_imports_no_jax():
         "np.zeros((4, 2)))\n"
         "assert sdr_ip.pack_frequency(1e6) and hpsdr.freq_command(1e6) and "
         "ghpsdr3.AUDIO_RATE\n"
+        "from pebblesdr_tpu_torch.parallel import (channelizer, comm, "
+        "expert, mesh as pmesh)\n"
+        "rx = Receiver(ReceiverConfig(sample_rate=512000, "
+        "frames_per_buffer=8192, channels=2, agc_mode='off'), 'cpu')\n"
+        "m = pmesh.make_mesh(1, 1, 'cpu')\n"
+        "step = channelizer.build_sharded_step(rx, m, fused=True)\n"
+        "p = rx.default_params(100000.0)\n"
+        "st, out = step.step_many(step.init_state(), p, x)\n"
+        "assert out['audio'].shape == (1, 2, rx.audio_blk)\n"
+        "st, a = step(st, p, torch.zeros(2, 8192, dtype=torch.complex64))\n"
+        "assert a.shape == (2, rx.audio_blk)\n"
+        "comm.destroy_world()\n"
+        "ch = expert.ModeExpertChannelizer(512000, 8192, ["
+        "expert.ChannelAssignment(DemodMode.AM, 1e5), "
+        "expert.ChannelAssignment(DemodMode.USB, 1e5)], device='cpu')\n"
+        "_, outs = ch.step_many(ch.init_states(), torch.zeros(16384, 2))\n"
+        "assert [tuple(o['audio'].shape[:2]) for o in outs] == [(2, 1)] * 2\n"
+        "buf = io.StringIO()\n"
+        "with contextlib.redirect_stdout(buf):\n"
+        "    assert cli.main(['--synthetic', 'am', '--seconds', '0.01', "
+        "'--frames', '8192', '--assign', 'AM@100000,USB@100000', "
+        "'--device', 'cpu', '--json']) == 0\n"
+        "assert len(json.loads(buf.getvalue().splitlines()[-1])['channels']) "
+        "== 2\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'pebblesdr_tpu' or m.startswith('pebblesdr_tpu.')]\n"
         "assert not bad, bad\n"
@@ -439,7 +466,7 @@ def test_port_imports_no_jax():
                            "--help"], cwd=REPO, env=env, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert "--device" in proc.stdout and "not ported yet" in proc.stdout
+    assert "--device" in proc.stdout and "--assign" in proc.stdout
     # the rtl_tcp server's entry point
     proc = subprocess.run([sys.executable, "-m",
                            "pebblesdr_tpu_torch.serve.server", "--help"],

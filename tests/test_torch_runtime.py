@@ -295,6 +295,28 @@ class TestNativeUdpPump:
         assert (c["datagrams"], c["dropped_datagrams"], c["resyncs"]) \
             == (40, 0, 0)
 
+    def test_stop_on_a_full_ring_counts_the_discarded_blocks(self):
+        """No consumer: the ring's 4 slots fill, the pump waits for a free
+        one (backpressure), and close() stops it there.  The block it held
+        and the blocks of the datagrams drained after the stop find no
+        slot: each is counted in 'discarded', so blocks in the ring +
+        discarded = blocks sent."""
+        pump = runtime.NativeUdpPump(port=0, header_bytes=4,
+                                     seq_le16_offset=2, fmt="i16",
+                                     block_samples=256, ring_buffers=4)
+        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        payload = np.zeros(512, "<i2").tobytes()    # one block a datagram
+        for seq in range(10):
+            s.sendto(bytes([0x04, 0x84]) + struct.pack("<H", seq) + payload,
+                     ("127.0.0.1", pump.port))
+        s.close()
+        time.sleep(0.3)          # the pump fills the ring and waits
+        pump.close()
+        c = pump.counters
+        assert (c["datagrams"], c["dropped_datagrams"], c["overruns"]) \
+            == (10, 0, 0)
+        assert c["discarded"] == 10 - 4
+
     def test_throughput_headroom(self):
         """The pump drains loopback datagrams far faster than SDR-IP's
         2 Msps (~8 k datagrams/s): 2000 sent as fast as the loopback
