@@ -148,7 +148,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      composite's [64, 131072], held and timed on its first 8192 steps; the
      loop locked), pll_chunk_scan (SAM smooth "loop", [64, 4096] chunk
      phasors, the tone SNR held) and agc_scan ([64, 2048] at stride 16,
-     "long" and "med");
+     "long" and "med": per launch and per call, one launch and one kernel
+     in a call's trace, its bound from the chain probe fed from memory,
+     printed beside the register-only probe's);
  31. the receivers that run the per-sample loop on the card against the
      CPU (4 channels: FMS with the scan RDS carrier, a dispatch of 3
      32768-frame blocks; SAM on 64-sample blocks, 2048 frames, dispatches
@@ -206,7 +208,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      point (one launch per call) and held to its plain version: K6's marks
      equal and state within 1e-6 of scale on powers whose decision margins
      are asserted, K7's samples within 1e-5 and wrap samples equal; timed,
-     per launch, with the chain probe's ns per step and each bound;
+     per launch and per call, with the chain probe's ns per step and each
+     bound (K6's from the probe fed from memory, beside the register-only
+     probe's); one kernel in a K6 call's trace;
  38. the TestBench on the card (an AM Receiver with taps=True: the staged
      front): a -40 dB tone read at -40 +- 1 dB on the raw_iq tap, -60 dB
      noise, the four taps flowing; a pulsed sweep injected on the card and
@@ -222,8 +226,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      dispatches in a row decode "cq" on every channel, then windows timed
      with the launch counts (K1 and K5 never, K6 once per dispatch), peak
      memory and a profile of the dispatches' device part; K6 held and
-     timed at the inputs a dispatch gave it, its device ms per launch
-     read from the OokStep kernel's records;
+     timed at the inputs a dispatch gave it (goertzel_power's [C, F, 3]
+     columns, read where they lie), its device ms per launch read from
+     the OokStep kernel's records, one kernel in a call's trace, and its
+     per-call ms printed beside the dispatch's ms and host enqueue;
  41. K8 (csrc/recur.cu anf_scan, the ANF's block LMS) through its entry
      point scanops.anf on complex [64, N] (128 rows) at the staged front's
      U = 16 ([64, 32768], 2048 updates, three calls carrying the state),
@@ -2501,12 +2507,53 @@ def hold_loop(torch, name: str, kernel, plain, args, angles, tag: str,
             "shape": shape, "launch_ms": lt}
 
 
-def probe_ns(torch, pll, form: str, steps: int = PROBE_STEPS) -> float:
-    """The serial floor's step latency of one form (ns): the register-only
-    chain probe over `steps` steps, timed by events."""
-    pll.chain_probe(form, 256, "cuda")
-    ms = time_cuda(torch, lambda: pll.chain_probe(form, steps, "cuda"), 3)
+def probe_ns(torch, pll, form: str, steps: int = PROBE_STEPS,
+             fed: bool = False) -> float:
+    """The serial floor's step latency of one form (ns): the chain probe
+    over `steps` steps, timed by events; register-only, or with fed=True
+    (pll.FED_FORMS: the register-only probe of K4 and K6 may fold steps on
+    its constant inputs) one lane of the K4 / K6 kernel's own chain loop,
+    its constants pinned and its inputs read from a small pattern in
+    shared memory."""
+    pll.chain_probe(form, 256, "cuda", fed=fed)
+    ms = time_cuda(torch, lambda: pll.chain_probe(form, steps, "cuda",
+                                                  fed=fed), 3)
     return ms * 1e6 / steps
+
+
+def call_kernels(torch, fn, calls: int = 10, tries: int = 5) -> list:
+    """The names of the CUDA device records (kernels, copies and fills) of
+    `calls` calls of fn under torch.profiler, traced again while none was
+    recorded: the profiler drops records (after the earlier phases'
+    profiles it kept 1 of 10, and none in three traces of one call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    names = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [ev.name for ev in prof.events()
+                 if getattr(ev, "device_type", None) == DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
+def one_kernel(torch, fn, step: str, tag: str, calls: int = 10) -> str:
+    """Asserts that a call of fn puts one device record in a trace: every
+    record of `calls` calls is the short-chain kernel of `step` (AgcStep /
+    OokStep), at most `calls` of them (the profiler drops records, never
+    adds them); returns its name."""
+    names = call_kernels(torch, fn, calls)
+    if (not names or len(names) > calls
+            or any(step not in nm or "recur_short_kernel" not in nm
+                   for nm in names)):
+        raise RuntimeError(f"{tag}: a trace of {calls} calls holds "
+                           f"{sorted(set(names))} x {len(names)}, not one "
+                           f"{step} kernel a call")
+    return re.sub(r"\(anonymous namespace\)::|^void ", "", names[0])
 
 
 def loop_bound(roofline, kind: str, shape, step_ns: float) -> dict:
@@ -2552,6 +2599,11 @@ def phase_loops(torch, front, wfm_tail) -> dict:
                 if not form.startswith("anf")}    # K8's: phase 41
     log("phase30 chain probe (ns per step, one thread, registers only): "
         + ", ".join(f"{k} {v:.1f}" for k, v in steps_ns.items()))
+    fed_ns = {form: probe_ns(torch, pll, form, fed=True)
+              for form in ("agc hang", "agc")}
+    log("phase30 chain probe fed from memory (ns per step; K4's bound): "
+        + ", ".join(f"{k} {v:.2f} (registers {steps_ns[k]:.2f})"
+                    for k, v in fed_ns.items()))
     res = {}
 
     def drive(tag, kind, fn, module, name, det=None):
@@ -2653,14 +2705,25 @@ def phase_loops(torch, front, wfm_tail) -> dict:
             acfg, agc.agc_init(acfg, c, "cuda"), xa), agc, "agc_scan")
         h = hold_loop(torch, f"agc_scan ({mode})", agc.agc_scan,
                       agc.agc_scan_plain, args, (), "phase30")
-        res[f"agc {mode}"] = dict(h, launches=1, **loop_bound(
-            roofline, "agc_scan", h["shape"],
-            steps_ns["agc hang" if mode == "long" else "agc"]))
+        form = "agc hang" if mode == "long" else "agc"
+        b = loop_bound(roofline, "agc_scan", h["shape"], fed_ns[form])
+        lt = kernel_times(torch, lambda: agc.agc_scan(*args), reps=10,
+                          want=("recur_short",))
+        launch = launch_ms(lt, "recur_short")
+        name = one_kernel(torch, lambda: agc.agc_scan(*args), "AgcStep",
+                          f"phase30 agc_scan ({mode})")
+        log(f"phase30 agc_scan ({mode}) {h['shape']}: per launch "
+            f"{launch:.4f} ms, per call {h['ms']:.4f} ms; 1 launch and one "
+            f"kernel in a call's trace ({name}); {b['bound_ms'] / launch:.1%}"
+            f" of the {b['bound_ms']:.4f} ms bound per launch (fed probe "
+            f"{fed_ns[form]:.2f} ns a step; registers {steps_ns[form]:.2f})")
+        res[f"agc {mode}"] = dict(h, launches=1, launch=launch, **b)
     for key, r in res.items():
         log(f"phase30 {key}: bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
             f"serial floor {r['serial_ms']:.4f} ms) vs kernel "
             f"{r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} of it)")
     res["steps_ns"] = steps_ns
+    res["fed_ns"] = fed_ns
     return res
 
 
@@ -3295,13 +3358,15 @@ def sweep_wraps(y: np.ndarray) -> np.ndarray:
 
 
 def ook_powers(torch, c: int, f: int, rng):
-    """(main, low, high) [C, F] float32 bin powers on the card, whose
-    decisions sit far from every mode's threshold: marks and spaces in
-    runs cycling through 6, 10, 8, 12 and 7 frames (a 50 % duty, so the
-    average mode's mean stays near half the mark level), marks at 0.4 with
-    a +-10 % fade, spaces near 1e-3, the compare bins near 2e-3 with a
-    little of the keying on the low one (a deeper fade or a duty far from
-    half puts decisions within 1e-5 of their thresholds)."""
+    """(main, low, high) [C, F] float32 bin powers on the card, the three
+    columns of one [C, F, 3] tensor (the layout goertzel_power writes and
+    K6 reads in place), whose decisions sit far from every mode's
+    threshold: marks and spaces in runs cycling through 6, 10, 8, 12 and
+    7 frames (a 50 % duty, so the average mode's mean stays near half the
+    mark level), marks at 0.4 with a +-10 % fade, spaces near 1e-3, the
+    compare bins near 2e-3 with a little of the keying on the low one (a
+    deeper fade or a duty far from half puts decisions within 1e-5 of
+    their thresholds)."""
     runs = (6, 10, 8, 12, 7)
     key = np.zeros((c, f), bool)
     for i in range(c):
@@ -3313,7 +3378,8 @@ def ook_powers(torch, c: int, f: int, rng):
     pows = (np.where(key, 0.4 * fade, 1e-3 * (1 + 0.5 * rng.random((c, f)))),
             0.03 * key + 2e-3 * (1 + 0.5 * rng.random((c, f))),
             2e-3 * (1 + 0.5 * rng.random((c, f))))
-    return [torch.from_numpy(a.astype(np.float32)).cuda() for a in pows]
+    p3 = torch.from_numpy(np.stack(pows, -1).astype(np.float32)).cuda()
+    return [p3[:, :, 0], p3[:, :, 1], p3[:, :, 2]]
 
 
 def hold_ook(torch, goertzel, cfg, state, pows, tag: str) -> dict:
@@ -3352,9 +3418,11 @@ def hold_ook(torch, goertzel, cfg, state, pows, tag: str) -> dict:
     mismatch = int((m_k != m_p).sum())
     ms = time_cuda(torch, lambda: goertzel.ook_detect(cfg, state, *pows), 10)
     lt = kernel_times(torch, lambda: goertzel.ook_detect(cfg, state, *pows),
-                      reps=10, want=("recur_kernel",))
+                      reps=10, want=("recur_short",))
     k6 = [ms for name, (ms, _) in lt.items() if "OokStep" in name]
     launch = k6[0] if k6 else None      # None: no trace recorded it
+    one_kernel(torch, lambda: goertzel.ook_detect(cfg, state, *pows),
+               "OokStep", f"{tag} ook_scan {cfg.mode}")
     shape = tuple(pows[0].shape)
     log(f"{tag} ook_scan {cfg.mode} {shape}: {launches} launch, kernel "
         f"{ms:.4f} ms per call (per launch {breakdown_text(lt)}) vs plain "
@@ -3362,7 +3430,8 @@ def hold_ook(torch, goertzel, cfg, state, pows, tag: str) -> dict:
         f"{float(m_p.float().mean()):.3f} on; state max |kernel - plain| "
         f"{err:.3g} ({rel:.3g} of scale, <= {OOK_RTOL}); margin "
         f"{margin:.3g}; K6 per launch "
-        f"{'not recorded' if launch is None else f'{launch:.4f} ms'}")
+        f"{'not recorded' if launch is None else f'{launch:.4f} ms'}; one "
+        f"kernel in a call's trace")
     if launches != 1 or mismatch or not rel <= OOK_RTOL:
         raise RuntimeError(f"{tag} ook_scan {cfg.mode}: the kernel "
                            f"disagrees with its plain version")
@@ -3421,19 +3490,34 @@ def phase_decode_kernels(torch) -> dict:
     from pebblesdr_tpu_torch.core import siggen
     from pebblesdr_tpu_torch.ops import goertzel, pll
     from pebblesdr_tpu_torch.utils import roofline
-    steps_ns = {form: probe_ns(torch, pll, form) for form in pll.PROBE_FORMS
-                if form.startswith(("ook", "sweep"))}
+    reg_ns = {form: probe_ns(torch, pll, form) for form in pll.PROBE_FORMS
+              if form.startswith(("ook", "sweep"))}
     log("phase37 chain probe (ns per step, one thread, registers only): "
-        + ", ".join(f"{k} {v:.1f}" for k, v in steps_ns.items()))
+        + ", ".join(f"{k} {v:.1f}" for k, v in reg_ns.items()))
+    fed_ns = {form: probe_ns(torch, pll, form, fed=True)
+              for form in pll.FED_FORMS if form.startswith("ook")}
+    log("phase37 chain probe fed from memory (ns per step; K6's bound): "
+        + ", ".join(f"{k} {v:.2f} (registers {reg_ns[k]:.2f})"
+                    for k, v in fed_ns.items()))
+    # the bound's step: K6's fed probe, K7's register-only one
+    steps_ns = {**reg_ns, **fed_ns}
     rng = np.random.default_rng(37)
     c, f = OOK_SHAPE
-    res = {"steps_ns": steps_ns, "ook": {}, "sweep": {}}
+    res = {"steps_ns": steps_ns, "register_ns": reg_ns, "ook": {},
+           "sweep": {}}
     for mode in goertzel.THRESHOLD_MODES:
         cfg = goertzel.OOKConfig.make(mode=mode, manual_threshold=0.1)
         h = hold_ook(torch, goertzel, cfg, goertzel.ook_init(c, "cuda"),
                      ook_powers(torch, c, f, rng), "phase37")
-        res["ook"][mode] = dict(h, **roofline.ook_scan_bound(
-            c, f, steps_ns[f"ook {mode}"]))
+        b = roofline.ook_scan_bound(c, f, steps_ns[f"ook {mode}"],
+                                    compare=mode == "compare")
+        res["ook"][mode] = dict(h, **b)
+        if h["launch"] is not None:
+            log(f"phase37 ook_scan {mode} {h['shape']}: per launch "
+                f"{h['launch']:.4f} ms, per call {h['ms']:.4f} ms; "
+                f"{b['bound_ms'] / h['launch']:.1%} of the "
+                f"{b['bound_ms']:.4f} ms bound per launch (fed probe "
+                f"{fed_ns[f'ook {mode}']:.2f} ns a step)")
     for case, (a, b, rate, fs) in SWEEP_CASES.items():
         wide = case.startswith("+-")
         for mode in ("repeat",) if wide else siggen.SWEEP_MODES:
@@ -3747,13 +3831,19 @@ def phase_cw_cell(torch, receiver, front, wfm_tail, DemodMode,
     (cfg_k, state, *pows), _ = seen[0]
     h = hold_ook(torch, goertzel, cfg_k, state, pows, f"phase40 "
                  f"{cell['name']}'s")
+    k6b = roofline.ook_scan_bound(*h["shape"], steps_ns[f"ook {cfg_k.mode}"],
+                                  compare=cfg_k.mode == "compare")
+    log(f"phase40 {cell['name']}: K6 {h['ms']:.4f} ms per call, "
+        f"{'not recorded' if h['launch'] is None else f'{h['launch']:.4f}'}"
+        f" per launch (bound {k6b['bound_ms']:.5f} ms, {k6b['bound_by']}), "
+        f"beside the dispatch's {prof['ms']:.4f} ms by events (best window "
+        f"{best:.4f}) and {prof['host_ms']:.4f} ms of host enqueue")
     planes.clear()
     del cell
     torch.cuda.empty_cache()
     return {"launches": launches, "windows": windows, "host_ms": host,
             "block_ms": best / k, "peak_gib": peak, "profile": prof,
-            "k6": dict(h, **roofline.ook_scan_bound(
-                *h["shape"], steps_ns[f"ook {cfg_k.mode}"]))}
+            "k6": dict(h, **k6b)}
 
 
 # ---- phases 41-45: K8 (the ANF), checkpoint/resume, the soak, the CLI ----

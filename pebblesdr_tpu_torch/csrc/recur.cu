@@ -25,7 +25,7 @@
 // feeds the next sample, so a channel is one thread that carries its state
 // in registers; the bytes (x read once, two float32 outputs written once)
 // would take ~4 us at 3.35 TB/s for [64, 32768], the chain ~0.1 us a step.
-// The design keeps memory off that chain:
+// K3 and K3c's design (recur_kernel) keeps memory off that chain:
 //   * a block serves kCb = 8 channels (64 channels: 8 blocks on 8 SMs);
 //     warp 0's first 8 lanes run the recurrences, warps 1-3 stage data;
 //   * the [C, N] rows are channel-major, so one thread walking its own row
@@ -43,6 +43,8 @@
 //     rounding.  The wrap mod(a + pi, 2 pi) - pi takes an exact fast path
 //     for a + pi in [0, 4 pi) (one subtraction, exact by Sterbenz) and
 //     fmodf otherwise.
+// K4 and K6, whose steps are shorter, run on a design of their own, the
+// short-chain kernel (recur_short_kernel, below).
 // K7 has one sequence and no input: one thread runs the chain into
 // shared-memory tiles and the block's other warps turn each finished tile
 // into samples (recur_sweep_kernel).
@@ -237,8 +239,8 @@ struct AgcStep {
   }
 };
 
-// K6: goertzel.ook_detect's step over one frame's powers (main, low, high;
-// the fourth lane pads the frame to 16 bytes).  The peak envelope moves
+// K6: goertzel.ook_detect's step over one frame's powers (main, low, high
+// in the first three lanes; the fourth is unused).  The peak envelope moves
 // toward the power at aa (rising) or da, the floor at aa (falling) or fa =
 // 0.1 da (the noise mode holds it during mark), the mean at va; the mode's
 // threshold gives the raw decision, then the asymmetric debounce: attack
@@ -437,6 +439,424 @@ __global__ void __launch_bounds__(kThreads) recur_kernel(Io io, Step s) {
   }
   if (st >= 0 && tiles > 0) store_tile(tiles - 1);
   if (tid < cb) s.store(io, c0 + tid);
+}
+
+// K4's and K6's design: the short-chain kernel (recur_short_kernel).  Their
+// steps are short chains of compares, selects and single float32
+// operations (~12-38 ns a step on the H100, ops/pll.py chain_probe fed from
+// memory), so a step's chain, not the bytes, bounds them; the parent design
+// (recur_kernel) lost 26-59 % of a launch to the chain lane's own
+// shared-memory load and store each step (tools/recur_cells.py --sweep).
+// Everything but the chain stays off it here:
+//   * one block = kShLanes = 16 channels: a chain warp (lane r carries
+//     channel c0 + r, its state in registers from before its first wait to
+//     its last step) and a copy warp; 64 channels take 4 SMs, 256 take 16;
+//   * the copy warp brings each segment of kShL frames (the whole row where
+//     it is at most kShL frames long: the "pass" form, one load round trip
+//     while the chain lanes load their state; else the "ring" form, rows
+//     streamed through kShStages stages) into shared memory: lane r copies
+//     row r's segment by one cp.async.bulk of the
+//     16-byte lines the segment covers wholly, the <= 3 floats before and
+//     after them element by element (bulk_ring.cuh; the row lands at its
+//     slot's start plus its float offset in its 16-byte line), then lane 0
+//     completes the stage's full mbarrier (two arrivals: one with the
+//     stage's bytes before the copies, one after the element copies).  It
+//     refills a stage once the chain warp has handed it back (its done
+//     mbarrier, polled with a back-off so that its probes leave the
+//     shared-memory pipe to the chain's loads);
+//   * the chain lanes wait only on their stage's full barrier; no block
+//     barrier inside the time loop.  Frames are read into registers one
+//     group of kShU steps ahead of the chain, and each step's output goes
+//     to the stage's output rows in shared memory (a store a group from
+//     32 lanes to 32 rows of device memory held the chain up by 30-50 %:
+//     the sweep's no_out variant of that design);
+//   * in the ring form the copy warp writes a stage's outputs out once the
+//     chain warp hands the stage back (a bulk store per row where the
+//     row's segment is 16-byte sized and aligned); in the pass form the
+//     chain warp writes the block's whole output region itself (its rows
+//     are contiguous in both memories: the output rows' pitch is the row)
+//     by coalesced 16-byte stores, with no hand-off at the end;
+//   * the step (AgcStep, OokStep) is the plain version's float32 arithmetic
+//     op for op, as in recur_kernel: K4 and K6 equal their plain versions
+//     bit for bit.
+// The input is one stream: row c's frame t at in + c cs + t fs (floats), a
+// frame being fs floats (K4's envelope and a K6 plane: 1; the three columns
+// of one [C, F, 3] tensor, the layout goertzel_power writes: 3).  K6 reads
+// its powers where they lie: the main power is a frame's first float, and
+// in compare mode low and high are its second and third ("the trio"; a
+// plane has no compare bins: zero powers there).
+// channels per block: the chain warp's lanes (the others leave), the rows
+// of a stage (the sweep: 8 or 16 a block ran K4 and K6 up to 20 % faster
+// than 32 in one warp, or than 32 in two or four warps of a block)
+constexpr int kShLanes = 16;
+constexpr int kShThreads = 64;    // the chain warp, then the copy warp
+constexpr unsigned kShMask = 0xffffffffu >> (32 - kShLanes);   // chain lanes
+constexpr int kShU = 4;           // steps per register group
+constexpr int kShL = 128;         // frames per stage in the ring form
+constexpr int kShStages = 3;      // stages in the ring form
+constexpr int kShSmemMax = 227 * 1024;   // a block's shared memory at most
+constexpr int kShPinBytes = 32;   // the pinned constants (sh_pin), first
+
+// The launch's plan (short_plan): form 1 pass, 2 ring; L frames a stage;
+// the dynamic shared memory holds the pinned constants, the stages' full
+// and done mbarriers, the input stages (kShLanes rows of pitch floats
+// each) and the output stages;
+// pitch: floats per staged row (= 4 mod 32: the rows start in banks as
+// far apart as 16-byte rows allow; room for the row's float offset in its
+// 16-byte line and a register group read past the segment); out_pitch:
+// bytes per output row in a stage (the pass form: the row itself, so the
+// block's rows are contiguous; the ring form: 16-byte multiples, never a
+// multiple of 128, so that the rows do not all start in one bank).
+struct ShPlan {
+  int form, L, stages, pitch, out_pitch, smem;
+};
+
+__host__ __device__ inline int sh_round(int v, int m) {
+  return (v + m - 1) / m * m;
+}
+
+// The plan for N frames of fs floats and esz-byte outputs (the Python
+// mirror: ops/short_chain.py short_plan).
+inline ShPlan short_plan(int N, int fs, int esz) {
+  ShPlan p{};
+  p.form = N <= kShL ? 1 : 2;
+  p.L = p.form == 1 ? N : kShL;
+  p.stages = N <= 0 ? 0 : (p.form == 1 ? 1 : kShStages);
+  p.pitch = sh_round((p.L + 2 * kShU) * fs, 32) + 4;
+  if (p.form == 1) {
+    p.out_pitch = p.L * esz;
+  } else {
+    p.out_pitch = sh_round(p.L * esz, 16);
+    if (p.out_pitch % 128 == 0) p.out_pitch += 16;
+  }
+  // at most 86 KB (K6 in compare mode on the trio)
+  p.smem = kShPinBytes + sh_round(2 * p.stages * 8, 16) +
+           p.stages * kShLanes * (p.pitch * 4 + p.out_pitch);
+  return p;
+}
+
+// The float offset of p in its 16-byte line.
+__device__ __forceinline__ int sh_lead(const float* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// The bytes of floats [src, src + n) that sh_copy moves by a bulk copy.
+__device__ __forceinline__ uint32_t sh_bulk_bytes(const float* src, int n) {
+  const int h = sh_lead(src);
+  const int head = h ? min(4 - h, n) : 0;
+  return static_cast<uint32_t>((n - head) & ~3) * 4u;
+}
+
+// Floats [src, src + n) to slot + sh_lead(src) (slot 16-byte aligned): the
+// whole 16-byte lines by one bulk copy completing on bar, the floats before
+// and after them element by element.
+__device__ __forceinline__ void sh_copy(float* slot, const float* src, int n,
+                                        uint64_t* bar) {
+  const int h = sh_lead(src);
+  const int head = h ? min(4 - h, n) : 0;
+  const int body = (n - head) & ~3;
+  float* dst = slot + h;
+  if (body) bulk::load(dst + head, src + head, body * 4u, bar);
+  for (int j = 0; j < head; ++j) dst[j] = src[j];
+  for (int j = head + body; j < n; ++j) dst[j] = src[j];
+}
+
+// A register group's frames: main, and in compare mode low and high.
+struct ShFrames {
+  float m[kShU], l[kShU], h[kShU];
+};
+
+// Frames t .. t + kShU - 1 of the lane's staged row x, one 4-byte shared
+// load a power (16-byte loads, where the rows allowed them, made the chain
+// slower in every mode: tools/recur_cells.py --sweep).  TRIO: main, low
+// and high as a frame's three floats; else the main power alone, a
+// frame's first float (low and high zero).
+template <bool TRIO>
+__device__ __forceinline__ void sh_fetch(ShFrames& v, const float* x, int fs,
+                                         int t) {
+#pragma unroll
+  for (int j = 0; j < kShU; ++j) {
+    if (TRIO) {
+      const float* f = x + (t + j) * 3;
+      v.m[j] = f[0];
+      v.l[j] = f[1];
+      v.h[j] = f[2];
+    } else {
+      v.m[j] = x[(t + j) * fs];
+      v.l[j] = v.h[j] = 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ void sh_in(float& x, const ShFrames& v, int j) {
+  x = v.m[j];
+}
+__device__ __forceinline__ void sh_in(float4& x, const ShFrames& v, int j) {
+  x = make_float4(v.m[j], v.l[j], v.h[j], 0.f);
+}
+
+// A step's output: K4's level (the step's o[0]); K6's mark, the decision
+// after the step (the step's o[0] holds it as 1.f or 0.f: read as a float
+// it took a select, a compare and a select a step on the integer pipe,
+// which sets K6's rate in its short-chained modes).
+template <bool HANG>
+__device__ __forceinline__ float sh_out(const AgcStep<HANG>&,
+                                        const float* o) {
+  return o[0];
+}
+template <int MODE>
+__device__ __forceinline__ uint32_t sh_out(const OokStep<MODE>& s,
+                                           const float*) {
+  return static_cast<uint32_t>(s.st);
+}
+
+// A step's output to its place in a stage's output row: a float level
+// (K4) or a mark's byte (K6), one shared store each (a group's outputs in
+// one 16- or 4-byte store ran no faster: the sweep).
+__device__ __forceinline__ void sh_put(float* o, float v) { *o = v; }
+__device__ __forceinline__ void sh_put(unsigned char* o, uint32_t v) {
+  *o = static_cast<unsigned char>(v);
+}
+
+// The step's constants into registers for the launch: thread 0 writes them
+// to shared memory (the first kShPinWords words of the block's dynamic
+// shared memory) before the block's barrier, and every chain lane reads
+// them back through a volatile pointer,
+// so that the compiler cannot load them again from the parameter bank
+// inside the loop (it did, once a register group, on the chain:
+// tools/recur_cells.py --sass; an empty asm statement did not stop it,
+// ptxas saw through it).
+constexpr int kShPinWords = 8;
+static_assert(kShPinWords * 4 <= kShPinBytes, "the pinned words' area");
+
+template <bool HANG>
+__device__ __forceinline__ void sh_pin_write(const AgcStep<HANG>& s,
+                                             uint32_t* w) {
+  w[0] = __float_as_uint(s.rise);
+  w[1] = __float_as_uint(s.fall);
+  w[2] = __float_as_uint(s.drise);
+  w[3] = __float_as_uint(s.dfall);
+  w[4] = static_cast<uint32_t>(s.hang_samples);
+}
+template <bool HANG>
+__device__ __forceinline__ void sh_pin_read(AgcStep<HANG>& s,
+                                            const volatile uint32_t* v) {
+  s.rise = __uint_as_float(v[0]);
+  s.fall = __uint_as_float(v[1]);
+  s.drise = __uint_as_float(v[2]);
+  s.dfall = __uint_as_float(v[3]);
+  s.hang_samples = static_cast<int>(v[4]);
+}
+template <int MODE>
+__device__ __forceinline__ void sh_pin_write(const OokStep<MODE>& s,
+                                             uint32_t* w) {
+  w[0] = __float_as_uint(s.aa);
+  w[1] = __float_as_uint(s.da);
+  w[2] = __float_as_uint(s.fa);
+  w[3] = __float_as_uint(s.keep);
+  w[4] = __float_as_uint(s.va);
+  w[5] = __float_as_uint(s.ratio);
+  w[6] = static_cast<uint32_t>(s.attack_frames);
+  w[7] = static_cast<uint32_t>(s.decay_frames);
+}
+template <int MODE>
+__device__ __forceinline__ void sh_pin_read(OokStep<MODE>& s,
+                                            const volatile uint32_t* v) {
+  s.aa = __uint_as_float(v[0]);
+  s.da = __uint_as_float(v[1]);
+  s.fa = __uint_as_float(v[2]);
+  s.keep = __uint_as_float(v[3]);
+  s.va = __uint_as_float(v[4]);
+  s.ratio = __uint_as_float(v[5]);
+  s.attack_frames = static_cast<int>(v[6]);
+  s.decay_frames = static_cast<int>(v[7]);
+}
+
+// The pass form's outputs: a chain warp's rows, contiguous in both
+// memories (the output rows' pitch is the row), from the output stage os
+// to device memory by the warp's n lanes: 16-byte stores where the region
+// is 16-byte sized and aligned, else bytes.
+__device__ __forceinline__ void sh_region_out(unsigned char* dst,
+                                              const unsigned char* os,
+                                              uint32_t bytes, int lane,
+                                              int n) {
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0 && (bytes & 15) == 0) {
+    for (uint32_t j = lane; j < bytes / 16; j += n)
+      reinterpret_cast<uint4*>(dst)[j] = reinterpret_cast<const uint4*>(os)[j];
+  } else {
+    for (uint32_t j = lane; j < bytes; j += n) dst[j] = os[j];
+  }
+}
+
+struct ShArgs {
+  const float* in;     // row c's frame t at in + c cs + t fs (floats)
+  long long cs;
+  int fs;
+  ShPlan plan;
+  void* out;           // [C, N] levels (float) or marks (uint8)
+  int C, N;
+};
+
+// One block: channels c0 = blockIdx.x kShLanes ..., all N frames.  Io
+// carries the state pointers (Step::load / store).  One block per SM at
+// least (a launch takes 4 to 16 SMs): without that bound ptxas kept K4's
+// loop in 40 registers and issued the next group's loads at its end, on
+// the chain (tools/recur_cells.py --sweep, variant no_min_blocks).
+template <class Step, class Out, bool TRIO>
+__global__ void __launch_bounds__(kShThreads, 1)
+    recur_short_kernel(ShArgs a, Io io, Step s) {
+  extern __shared__ __align__(128) unsigned char sh_smem[];
+  const ShPlan& p = a.plan;
+  const int S = p.stages, L = p.L, N = a.N, fs = a.fs;
+  const int stage_floats = kShLanes * p.pitch;
+  uint32_t* pin_w = reinterpret_cast<uint32_t*>(sh_smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sh_smem + kShPinBytes);
+  uint64_t* done = full + S;
+  float* in_s = reinterpret_cast<float*>(sh_smem + kShPinBytes +
+                                         sh_round(2 * S * 8, 16));
+  unsigned char* out_s =
+      reinterpret_cast<unsigned char*>(in_s + S * stage_floats);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int c0 = blockIdx.x * kShLanes;
+  const int cb = min(kShLanes, a.C - c0);
+  const int segs = L > 0 ? (N + L - 1) / L : 0;
+  // a lane's row (the chain warp's lanes below kShLanes, the copy warp's
+  // too); a chain lane's state loads in flight across the block's barrier
+  const bool chain = tid < 32;
+  const int c = c0 + lane;
+  const bool mine = lane < cb;
+  const float* row = a.in + c * a.cs;   // read by the lanes of mine only
+  if (chain && mine) s.load(io, c);
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) {
+      bulk::mbar_init(&full[i], 2);
+      bulk::mbar_init(&done[i], 1);
+    }
+    bulk::fence_mbar_init();
+    sh_pin_write(s, pin_w);
+  }
+  __syncthreads();
+
+  if (!chain) {
+    // the copy warp: lane r copies row r in and out
+    auto fill = [&](int i) {
+      const int slot = i % S, t0 = i * L, n = min(L, N - t0);
+      const float* src = row + static_cast<long long>(t0) * fs;
+      uint32_t tx = mine ? sh_bulk_bytes(src, n * fs) : 0u;
+      tx = __reduce_add_sync(0xffffffffu, tx);
+      if (lane == 0) bulk::mbar_arrive_expect_tx(&full[slot], tx);
+      __syncwarp();
+      if (mine)
+        sh_copy(in_s + slot * stage_floats + lane * p.pitch, src, n * fs,
+                &full[slot]);
+      __syncwarp();
+      if (lane == 0) bulk::mbar_arrive_expect_tx(&full[slot], 0);
+    };
+    // the ring form's outputs: a bulk store per row where its segment is
+    // 16-byte sized and aligned, else element by element
+    auto drain = [&](int i) {
+      const int slot = i % S, t0 = i * L, n = min(L, N - t0);
+      const unsigned char* os =
+          out_s + static_cast<size_t>(slot) * kShLanes * p.out_pitch;
+      if (mine) {
+        Out* dst = static_cast<Out*>(a.out) + static_cast<size_t>(c) * N + t0;
+        const Out* src = reinterpret_cast<const Out*>(os + lane * p.out_pitch);
+        const uint32_t bytes = n * sizeof(Out);
+        if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0 && (bytes & 15) == 0)
+          bulk::store(dst, src, bytes);
+        else
+          for (int j = 0; j < n; ++j) dst[j] = src[j];
+      }
+      bulk::store_commit();
+      bulk::store_wait_read<0>();
+      __syncwarp();
+    };
+    for (int i = 0; i < min(S, segs); ++i) fill(i);
+    // the pass form's one segment is written out by the chain warp
+    for (int i = 0; i < (p.form == 1 ? 0 : segs); ++i) {
+      // segment i handed its stage back
+      while (!bulk::mbar_try_wait(&done[i % S],
+                                  static_cast<uint32_t>(i / S) & 1u))
+        __nanosleep(256);
+      drain(i);
+      if (i + S < segs) fill(i + S);
+    }
+    return;
+  }
+
+  // the chain warp: lanes below kShLanes carry a row each, the others
+  // leave; the constants pinned in registers
+  if (lane >= kShLanes) return;
+  sh_pin_read(s, pin_w);
+  const float* base = in_s + lane * p.pitch + (mine ? sh_lead(row) : 0);
+  typename Step::In x;
+  float o2[2];
+  for (int i = 0; i < segs; ++i) {
+    const int slot = i % S, t0 = i * L, n = min(L, N - t0);
+    bulk::mbar_wait(&full[slot], static_cast<uint32_t>(i / S) & 1u);
+    const float* xs = base + slot * stage_floats;
+    Out* orow_i = reinterpret_cast<Out*>(
+        out_s + (static_cast<size_t>(slot) * kShLanes + lane) * p.out_pitch);
+    ShFrames cur, nxt;
+    sh_fetch<TRIO>(cur, xs, fs, 0);
+    int t = 0;
+    for (; t + kShU <= n; t += kShU) {
+      sh_fetch<TRIO>(nxt, xs, fs, t + kShU);
+#pragma unroll
+      for (int j = 0; j < kShU; ++j) {
+        sh_in(x, cur, j);
+        s.step(x, o2);
+        sh_put(orow_i + t + j, sh_out(s, o2));
+      }
+      cur = nxt;
+    }
+    // the segment's last < kShU frames (the row's last segment only)
+    for (; t < n; ++t) {
+      ShFrames one;
+      sh_fetch<TRIO>(one, xs, fs, t);
+      sh_in(x, one, 0);
+      s.step(x, o2);
+      sh_put(orow_i + t, sh_out(s, o2));
+    }
+    if (p.form == 1) {
+      // the pass form: the block's rows straight out, no hand-off
+      __syncwarp(kShMask);
+      sh_region_out(reinterpret_cast<unsigned char*>(
+                        static_cast<Out*>(a.out) + static_cast<size_t>(c0) * N),
+                    out_s, cb * N * sizeof(Out), lane, kShLanes);
+      break;
+    }
+    bulk::fence_async_smem();
+    __syncwarp(kShMask);
+    if (lane == 0) bulk::mbar_arrive_expect_tx(&done[slot], 0);
+  }
+  if (mine) s.store(io, c);
+}
+
+template <class Step, class Out, bool TRIO>
+int short_launch(ShArgs& a, const Io& io, const Step& s, int device,
+                 void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (a.C <= 0 || a.N < 0) return cudaErrorInvalidValue;
+  auto kernel = recur_short_kernel<Step, Out, TRIO>;
+  if (a.plan.smem > 48 * 1024) {
+    // once per device: the most any plan of this kernel asks for
+    static unsigned set = 0;
+    if (device >= 32 || !(set >> device & 1u)) {
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kShSmemMax);
+      if (err != cudaSuccess) {
+        cudaGetLastError();     // no error left for the next launch's check
+        return err;
+      }
+      if (device < 32) set |= 1u << device;
+    }
+  }
+  const int grid = (a.C + kShLanes - 1) / kShLanes;
+  kernel<<<grid, kShThreads, a.plan.smem, (cudaStream_t)stream>>>(a, io, s);
+  return cudaGetLastError();
 }
 
 // K7's design: one sequence, no input.  Thread 0 runs the chain over
@@ -1406,6 +1826,67 @@ __global__ void __launch_bounds__(1) probe_kernel(Step s, int steps,
   out[0] = acc;
 }
 
+// The serial floor's probe fed from memory, of K4 and K6: one lane of
+// recur_short_kernel's chain loop as it runs there (the step's constants
+// pinned, sh_pin; frames read from shared memory a register group ahead,
+// sh_fetch; each step's output to shared memory, sh_put) over a small
+// input pattern staged once into shared memory (data: n frames of fs
+// floats, n a power of two and a multiple of kShU: a pattern of marks and
+// spaces, or of rising and falling envelopes), so that the compiler folds
+// no step of the chain on constant inputs and the step's chain is the
+// kernel's own.  The warp stages the pattern; lane 0 then runs `steps`
+// steps (a multiple of kShU) and writes a sum of the outputs at the end
+// (so the compiler keeps every step).
+template <class Step, class Out, bool TRIO>
+__global__ void __launch_bounds__(32)
+    probe_fed_kernel(Step s, const float* __restrict__ data, int n, int fs,
+                     int steps, float* out) {
+  extern __shared__ __align__(16) unsigned char pr_smem[];
+  uint32_t* pin = reinterpret_cast<uint32_t*>(pr_smem);
+  float* x = reinterpret_cast<float*>(pr_smem + kShPinBytes);
+  Out* o = reinterpret_cast<Out*>(x + n * fs);
+  for (int i = threadIdx.x; i < n * fs; i += 32) x[i] = data[i];
+  for (int i = threadIdx.x; i < n; i += 32) o[i] = 0;
+  if (threadIdx.x == 0) sh_pin_write(s, pin);
+  __syncwarp();
+  if (threadIdx.x) return;
+  sh_pin_read(s, pin);
+  const int mask = n - 1;
+  typename Step::In xin;
+  float o2[2];
+  ShFrames cur, nxt;
+  sh_fetch<TRIO>(cur, x, fs, 0);
+  for (int t = 0; t < steps; t += kShU) {
+    const int b = t & mask;
+    sh_fetch<TRIO>(nxt, x, fs, (b + kShU) & mask);
+#pragma unroll
+    for (int j = 0; j < kShU; ++j) {
+      sh_in(xin, cur, j);
+      s.step(xin, o2);
+      sh_put(o + b + j, sh_out(s, o2));
+    }
+    cur = nxt;
+  }
+  float acc = 0.f;
+  for (int i = 0; i < n; ++i) acc = __fadd_rn(acc, static_cast<float>(o[i]));
+  out[0] = acc;
+}
+
+template <class Step, class Out, bool TRIO>
+int probe_fed(const Step& s, const void* data, int n, int fs, int steps,
+              float* out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const size_t smem = kShPinBytes + static_cast<size_t>(n) * fs * 4 +
+                      static_cast<size_t>(n) * sizeof(Out);
+  if (n < kShU || (n & (n - 1)) || steps < 0 || steps % kShU ||
+      smem > 48 * 1024)
+    return cudaErrorInvalidValue;
+  probe_fed_kernel<Step, Out, TRIO><<<1, 32, smem, (cudaStream_t)stream>>>(
+      s, static_cast<const float*>(data), n, fs, steps, out);
+  return cudaGetLastError();
+}
+
 template <class Step>
 int probe(const Step& s, int steps, float* out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -1445,6 +1926,14 @@ int probe_ook(int mode, int steps, float* out, int device, void* stream) {
   }
 }
 
+// K6's constants as the wrapper caches them per configuration (ops/
+// goertzel.py: the JAX step's roundings of the envelope and mean
+// coefficients, the mode's ratio, the debounce lengths).
+struct OokConsts {
+  float aa, da, fa, keep, va, ratio;
+  int attack_frames, decay_frames;
+};
+
 }  // namespace
 
 extern "C" {
@@ -1453,8 +1942,8 @@ const char* recur_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Channels per block and threads per block of every launch (the wrappers
-// report them; the grid is ceil(C / channels)).
+// Channels per block and threads per block of K3's and K3c's launches
+// (recur_kernel; the grid is ceil(C / channels)).
 int recur_channels_per_block() { return kCb; }
 int recur_threads_per_block() { return kThreads; }
 
@@ -1499,9 +1988,9 @@ int recur_pll_chunk_scan(int device, int pilot, const void* z, int C, int F,
   return launch(io, s, device, stream);
 }
 
-// K4: env [C, M] float32, state att / dec [C] float32 and hang [C] int32 ->
-// levels [C, M] and state'; hang != 0 runs the hang timer (hold while
-// hang' <= hang_samples).
+// K4: env [C, M] float32 (contiguous), state att / dec [C] float32 and
+// hang [C] int32 -> levels [C, M] and state'; hang != 0 runs the hang
+// timer (hold while hang' <= hang_samples).  The short-chain kernel.
 int recur_agc_scan(int device, int hang, const float* env, int C, int M,
                    float rise, float fall, float drise, float dfall,
                    int hang_samples, const float* att, const float* dec,
@@ -1509,12 +1998,22 @@ int recur_agc_scan(int device, int hang, const float* env, int C, int M,
                    float* dec_out, int* hang_out, void* stream) {
   Io io{env, {levels, nullptr}, {att, dec, hang_in},
         {att_out, dec_out, hang_out}, C, M};
+  ShArgs a{};
+  a.in = env;
+  a.cs = M;
+  a.fs = 1;
+  a.plan = short_plan(M, 1, 4);
+  a.out = levels;
+  a.C = C;
+  a.N = M;
   if (hang) {
     AgcStep<true> s{rise, fall, drise, dfall, hang_samples, 0.f, 0.f, 0};
-    return launch(io, s, device, stream);
+    return short_launch<AgcStep<true>, float, false>(a, io, s, device,
+                                                     stream);
   }
   AgcStep<false> s{rise, fall, drise, dfall, hang_samples, 0.f, 0.f, 0};
-  return launch(io, s, device, stream);
+  return short_launch<AgcStep<false>, float, false>(a, io, s, device,
+                                                    stream);
 }
 
 // K5: x [C, N] complex64 (N a multiple of 64, 16-byte aligned), the weight
@@ -1535,37 +2034,77 @@ int recur_iq_lms_scan(int device, const void* x, int C, int N, float mu,
   return cudaGetLastError();
 }
 
-// K6: p [C, F] float4 frames (main, low, high, 0 bin powers), the state
-// peak / floor / avg [C] float32, st [C] uint8, att / dec [C] int32 ->
-// marks [C, F] float32 (1 or 0) and state'.  mode: 0 compare, 1 peak, 2
-// average, 3 min_max, 4 manual, 5 noise; ratio is the mode's parameter.
-int recur_ook_scan(int device, int mode, const void* p, int C, int F,
-                   float aa, float da, float fa, float keep, float va,
-                   float ratio, int attack_frames, int decay_frames,
+// K6: the powers [C, F] float32, the main power of row c's frame t at
+// p[c cs + t fs] (floats); bins != 0: the compare bins' low and high powers
+// are that frame's next two floats (fs 3: the three columns of one
+// [C, F, 3] tensor, as goertzel_power writes them), read in compare mode
+// only; bins 0: zero powers there.  The state peak / floor / avg [C]
+// float32, st [C] uint8, att / dec [C] int32 -> marks [C, F] (uint8 0 / 1)
+// and state' in one block of six [C] rows of 4-byte words (peak, floor,
+// avg as float32, attack, decay as int32, then the decisions as C bytes
+// at the start of the sixth).  mode: 0 compare, 1 peak, 2 average, 3
+// min_max, 4 manual, 5 noise; k: the step's constants (OokConsts).
+// Returns the first CUDA error.
+int recur_ook_scan(int device, int mode, const void* k, int C, int F,
+                   const float* p, long long cs, int fs, int bins,
                    const float* peak, const float* floor_, const float* avg,
                    const unsigned char* st, const int* att, const int* dec,
-                   float* marks, float* peak_out, float* floor_out,
-                   float* avg_out, unsigned char* st_out, int* att_out,
-                   int* dec_out, void* stream) {
-  Io io{p, {marks, nullptr}, {peak, floor_, avg, st, att, dec},
-        {peak_out, floor_out, avg_out, st_out, att_out, dec_out}, C, F};
+                   unsigned char* marks, void* state_out, void* stream) {
+  if (!k || mode < 0 || mode > kNoise || fs < 1 || (bins && fs != 3))
+    return cudaErrorInvalidValue;
+  const OokConsts& q = *static_cast<const OokConsts*>(k);
+  int* w = static_cast<int*>(state_out);
+  Io io{p, {nullptr, nullptr}, {peak, floor_, avg, st, att, dec},
+        {w, w + C, w + 2 * C, w + 5 * C, w + 3 * C, w + 4 * C}, C, F};
+  ShArgs a{};
+  a.in = p;
+  a.cs = cs;
+  a.fs = fs;
+  a.out = marks;
+  a.C = C;
+  a.N = F;
+  a.plan = short_plan(F, fs, 1);
   switch (mode) {
+#define OOK_STEP(M)                                                        \
+  OokStep<M>{q.aa, q.da, q.fa, q.keep, q.va, q.ratio, q.attack_frames,     \
+             q.decay_frames, 0.f, 0.f, 0.f, 0, 0, 0}
+    case kCompare: {
+      auto s = OOK_STEP(kCompare);
+      using T = OokStep<kCompare>;
+      if (bins)
+        return short_launch<T, unsigned char, true>(a, io, s, device, stream);
+      return short_launch<T, unsigned char, false>(a, io, s, device, stream);
+    }
 #define OOK_CASE(M)                                                        \
   case M: {                                                                \
-    OokStep<M> s{aa, da, fa, keep, va, ratio, attack_frames, decay_frames, \
-                 0.f, 0.f, 0.f, 0, 0, 0};                                  \
-    return launch(io, s, device, stream);                                  \
+    auto s = OOK_STEP(M);                                                  \
+    return short_launch<OokStep<M>, unsigned char, false>(a, io, s,        \
+                                                          device, stream); \
   }
-    OOK_CASE(kCompare)
     OOK_CASE(kPeak)
     OOK_CASE(kAverage)
     OOK_CASE(kMinMax)
     OOK_CASE(kManual)
     OOK_CASE(kNoise)
 #undef OOK_CASE
+#undef OOK_STEP
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// K4's and K6's launch plan (short_plan) for n frames of fs floats and
+// esz-byte outputs (K4: 4, K6: 1), into out[8]: form (1 pass, 2 ring),
+// frames per stage, stages, the staged row's pitch (floats), the output
+// row's pitch (bytes), the shared-memory bytes, channels per block and
+// threads per block.
+int recur_short_plan(int n, int fs, int esz, int* out) {
+  if (fs < 1 || n < 0 || (esz != 1 && esz != 4)) return cudaErrorInvalidValue;
+  const ShPlan p = short_plan(n, fs, esz);
+  const int v[8] = {p.form,      p.L,    p.stages, p.pitch,
+                    p.out_pitch, p.smem, kShLanes, kShThreads};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
 }
 
 // K7: n samples of the sweep from the state ph / f / d (float32 scalars)
@@ -1704,6 +2243,43 @@ int recur_probe(int device, int form, int steps, float* out, void* stream) {
     default:
       if (form >= 9 && form <= 14) return probe_ook(form - 9, steps, out,
                                                    device, stream);
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The chain probe fed from memory (probe_fed_kernel: recur_short_kernel's
+// chain loop) of the forms whose register-only probe may fold steps on its
+// constant inputs: 6 and 7 (agc_scan with and without the hang: data n
+// float32 log envelopes) and 9-14 (ook_scan in the threshold mode 0-5:
+// data n [main, low, high] frames, read as K6 reads goertzel_power's
+// trio), with recur_probe's constants; n a power of two (4 to 2048
+// frames), steps a multiple of 4.  Time it over many steps, as
+// recur_probe.
+int recur_probe_fed(int device, int form, int steps, const void* data, int n,
+                    float* out, void* stream) {
+  switch (form) {
+    case 6:
+      return probe_fed<AgcStep<true>, float, false>(
+          AgcStep<true>{0.03f, 0.012f, 0.002f, 0.04f, 100, -8.f, -8.f, 0},
+          data, n, 1, steps, out, device, stream);
+    case 7:
+      return probe_fed<AgcStep<false>, float, false>(
+          AgcStep<false>{0.03f, 0.012f, 0.002f, 0.002f, 0, -8.f, -8.f, 0},
+          data, n, 1, steps, out, device, stream);
+#define OOK_FED(M)                                                         \
+  case 9 + M:                                                              \
+    return probe_fed<OokStep<M>, unsigned char, M == kCompare>(            \
+        OokStep<M>{0.4f, 0.02f, 0.002f, 0.99f, 0.01f, 4.f, 2, 2, 1e-6f,    \
+                   1e-6f, 1e-6f, 0, 0, 0},                                 \
+        data, n, 3, steps, out, device, stream);
+    OOK_FED(kCompare)
+    OOK_FED(kPeak)
+    OOK_FED(kAverage)
+    OOK_FED(kMinMax)
+    OOK_FED(kManual)
+    OOK_FED(kNoise)
+#undef OOK_FED
+    default:
       return cudaErrorInvalidValue;
   }
 }

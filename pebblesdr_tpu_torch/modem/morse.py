@@ -99,8 +99,8 @@ class MorseModem:
             torch.cat([y.real, y.imag]), tail, self.mf_taps,
             decim=self.frame)
         p = out[:c] ** 2 + out[c:] ** 2                       # [C, F]
-        z = torch.zeros_like(p)
-        ook2, marks = goertzel.ook_detect(self.ook_cfg, ook, p, z, z)
+        # no compare bins: they read as zero powers
+        ook2, marks = goertzel.ook_detect(self.ook_cfg, ook, p)
         return (ook2, phase1, tail2), marks
 
 

@@ -15,9 +15,10 @@ algorithm="scan": the CuteSDR attack / decay / hang recurrence itself, one
 step per sample of the windowed peak (every stride-th with stride > 1,
 its levels resized back linearly as jax.image.resize does, within each
 call), the parallel form's parity reference.  The recurrence runs on a
-CUDA tensor as one launch of a kernel (csrc/recur.cu agc_scan, one thread
-per channel; agc_scan.launches counts them) and on a CPU tensor as its
-plain version agc_scan_plain.
+CUDA tensor as one launch of a kernel (csrc/recur.cu agc_scan, the
+short-chain kernel: a lane a channel, the envelope staged by a copy warp;
+agc_scan.launches counts them) and on a CPU tensor as its plain version
+agc_scan_plain.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from pebblesdr_tpu_torch.kernels import build
+from pebblesdr_tpu_torch.ops import short_chain
 from pebblesdr_tpu_torch.ops.iir import first_order_apply
 
 # agc.h constants
@@ -291,46 +293,63 @@ def _lib():
     return lib
 
 
+@functools.cache
+def _agc_fn():
+    """The bound C entry (recur_agc_scan)."""
+    return _lib().recur_agc_scan
+
+
 def agc_scan(env: torch.Tensor, att: torch.Tensor, dec: torch.Tensor,
              hang: torch.Tensor, rise: float, fall: float, drise: float,
              dfall: float, hang_samples: int, use_hang: bool):
-    """The scan AGC's smoother: the CUDA kernel (csrc/recur.cu agc_scan, one
-    launch) for CUDA tensors, agc_scan_plain for CPU tensors.  Same
+    """The scan AGC's smoother: the CUDA kernel (csrc/recur.cu agc_scan, the
+    short-chain kernel, one launch; the levels and the state' in one
+    allocation) for CUDA tensors, agc_scan_plain for CPU tensors.  Same
     arguments and results as agc_scan_plain."""
     if env.device.type == "cpu":
         return agc_scan_plain(env, att, dec, hang, rise, fall, drise, dfall,
                               hang_samples, use_hang)
     if env.device.type != "cuda":
         raise ValueError(f"agc_scan runs on cuda or cpu, not {env.device}")
-    dev = env.device
+    return agc_launch(_agc_fn(), env, att, dec, hang, rise, fall, drise,
+                      dfall, hang_samples, use_hang)
+
+
+def agc_launch(fn, env: torch.Tensor, att: torch.Tensor, dec: torch.Tensor,
+               hang: torch.Tensor, rise: float, fall: float, drise: float,
+               dfall: float, hang_samples: int, use_hang: bool):
+    """agc_scan's CUDA path through the C entry fn (a build of
+    recur_agc_scan): the checks, one allocation for the levels and the
+    state', one launch."""
     if (env.dim() != 2 or env.dtype != torch.float32
             or not env.is_contiguous() or env.numel() >= 2 ** 31):
         raise ValueError(f"agc_scan: env must be a contiguous [C, M] float32 "
                          f"tensor, got {env.dtype} {tuple(env.shape)}")
     c, m = env.shape
+    idx = env.get_device()
     for v, dtype in ((att, torch.float32), (dec, torch.float32),
                      (hang, torch.int32)):
-        if (v.device != dev or v.dtype != dtype or tuple(v.shape) != (c,)
+        if (v.dtype != dtype or v.shape != (c,) or v.get_device() != idx
                 or not v.is_contiguous()):
             raise ValueError(f"agc_scan: state must be contiguous [C] "
-                             f"tensors on {dev} (att, dec float32, hang "
-                             f"int32), got {v.dtype} {tuple(v.shape)} on "
-                             f"{v.device}")
-    levels = torch.empty(c, m, dtype=torch.float32, device=dev)
-    att2, dec2 = torch.empty_like(att), torch.empty_like(dec)
-    hang2 = torch.empty_like(hang)
-    lib = _lib()
-    err = lib.recur_agc_scan(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        int(bool(use_hang)), env.data_ptr(), c, m, rise, fall, drise, dfall,
-        int(hang_samples), att.data_ptr(), dec.data_ptr(), hang.data_ptr(),
-        levels.data_ptr(), att2.data_ptr(), dec2.data_ptr(), hang2.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+                             f"tensors on {env.device} (att, dec float32, "
+                             f"hang int32), got {v.dtype} {tuple(v.shape)} "
+                             f"on {v.device}")
+    # levels [C, M], then att', dec' and hang' [C] (float32, float32, int32)
+    out = torch.empty(c * m + 3 * c, dtype=torch.float32, device=env.device)
+    base, o = out.data_ptr(), 4 * c * m
+    err = fn(
+        idx, int(bool(use_hang)), env.data_ptr(), c, m, rise, fall, drise,
+        dfall, int(hang_samples), att.data_ptr(), dec.data_ptr(),
+        hang.data_ptr(), base, base + o, base + o + 4 * c, base + o + 8 * c,
+        short_chain.raw_stream(idx))
     if err:
         raise RuntimeError(f"agc_scan kernel launch failed: CUDA error {err} "
-                           f"({lib.recur_error_string(err).decode()})")
+                           f"({_lib().recur_error_string(err).decode()})")
     agc_scan.launches += 1
-    return att2, dec2, hang2, levels
+    levels, st = out.split([c * m, 3 * c])
+    att2, dec2, hang2 = st.view(3, c).unbind(0)
+    return att2, dec2, hang2.view(torch.int32), levels.view(c, m)
 
 
 agc_scan.launches = 0   # CUDA kernel launches (the plain path never counts)

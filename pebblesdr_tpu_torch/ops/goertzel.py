@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from pebblesdr_tpu_torch.kernels import build
-from pebblesdr_tpu_torch.ops import iir
+from pebblesdr_tpu_torch.ops import iir, short_chain
 from pebblesdr_tpu_torch.utils.precision import ieee_float32
 
 SOURCE = "pebblesdr_tpu_torch/csrc/recur.cu"
@@ -339,10 +339,12 @@ def _raw_decision(cfg: OOKConfig, k: dict, pm, pl, ph, peak, floor, avg,
 
 
 def ook_detect_plain(cfg: OOKConfig, state: OOKState, power_main,
-                     power_low, power_high):
+                     power_low=None, power_high=None):
     """Plain version of ook_detect: one step per frame over [C, F] powers,
     in float32 on [C] tensors.  Same arguments and results."""
     dev = power_main.device
+    if power_low is None or power_high is None:
+        power_low = power_high = torch.zeros_like(power_main)
     k = {key: torch.tensor(v, dtype=torch.float32, device=dev)
          for key, v in cfg.consts().items()}
     peak, floor, avg = state.peak, state.floor, state.avg
@@ -435,27 +437,59 @@ def ook_margin(cfg: OOKConfig, state: OOKState, power_main, power_low,
     return worst
 
 
+class _OokConsts(ctypes.Structure):
+    """recur.cu's OokConsts: the step's constants, as the kernel reads
+    them."""
+    _fields_ = [(name, ctypes.c_float) for name in ("aa", "da", "fa", "keep",
+                                                     "va", "ratio")] + [
+        ("attack_frames", ctypes.c_int), ("decay_frames", ctypes.c_int)]
+
+
+@functools.lru_cache(maxsize=64)
+def ook_consts(cfg: OOKConfig) -> tuple:
+    """The kernel's view of a configuration, built once per (frozen,
+    hashable) config: (the mode's index, the OokConsts structure holding
+    cfg.consts() and the debounce lengths, its address)."""
+    k = cfg.consts()
+    st = _OokConsts(*(float(k[name]) for name in ("aa", "da", "fa", "keep",
+                                                   "va", "ratio")),
+                    int(cfg.attack_frames), int(cfg.decay_frames))
+    return THRESHOLD_MODES.index(cfg.mode), st, ctypes.addressof(st)
+
+
 @functools.cache
 def _lib():
     """csrc/recur.cu, built at first use, with ook_scan's C signature."""
     lib = build.load("recur")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.recur_ook_scan.restype = i
-    # the state in (6), the marks, the state out (6), the stream
-    lib.recur_ook_scan.argtypes = ([i, i, p, i, i] + [f] * 6 + [i, i]
-                                   + [p] * 14)
+    # the powers (pointer, channel and frame strides, bins), the state in
+    # (6), the marks, the state' block, the stream
+    lib.recur_ook_scan.argtypes = ([i, i, p, i, i, p, q, i, i] + [p] * 6
+                                   + [p, p, p])
     lib.recur_error_string.restype = ctypes.c_char_p
     lib.recur_error_string.argtypes = [i]
     return lib
 
 
+@functools.cache
+def _ook_fn():
+    """The bound C entry (recur_ook_scan)."""
+    return _lib().recur_ook_scan
+
+
+_STATE_DTYPES = (torch.float32,) * 3 + (torch.bool, torch.int32, torch.int32)
+
+
 def ook_detect(cfg: OOKConfig, state: OOKState, power_main: torch.Tensor,
-               power_low: torch.Tensor, power_high: torch.Tensor):
+               power_low: torch.Tensor | None = None,
+               power_high: torch.Tensor | None = None):
     """OOK decision per frame (GoertzelOOK::processResult,
     goertzel.cpp:676-820) with the configured threshold mode and the
     asymmetric attack/decay debounce.  power_*: [C, F] main and low/high
-    compare-bin powers.  The CUDA kernel (csrc/recur.cu ook_scan, one
-    launch: the three powers go in as [C, F, 4] float4 frames) for CUDA
+    compare-bin powers (low and high read in compare mode only; None: zero
+    powers).  The CUDA kernel (csrc/recur.cu ook_scan, one launch, the
+    powers read where they lie: ops/short_chain.py ook_input) for CUDA
     tensors, ook_detect_plain for CPU tensors.  Returns (state', marks
     [C, F] bool)."""
     dev = power_main.device
@@ -464,45 +498,56 @@ def ook_detect(cfg: OOKConfig, state: OOKState, power_main: torch.Tensor,
                                 power_high)
     if dev.type != "cuda":
         raise ValueError(f"ook_detect runs on cuda or cpu, not {dev}")
-    pows = (power_main, power_low, power_high)
-    c, f = power_main.shape
-    for v in pows:
-        if (v.device != dev or v.dtype != torch.float32
-                or tuple(v.shape) != (c, f)):
+    return ook_launch(_ook_fn(), cfg, state, power_main, power_low,
+                      power_high)
+
+
+def ook_launch(fn, cfg: OOKConfig, state: OOKState, pm: torch.Tensor,
+               pl: torch.Tensor | None, ph: torch.Tensor | None):
+    """ook_detect's CUDA path through the C entry fn (a build of
+    recur_ook_scan): the checks, the marks and one allocation for the
+    state', one launch."""
+    shape = pm.shape
+    idx = pm.get_device()
+    for v in (pm, pl, ph):
+        if v is not None and (v.dtype is not torch.float32 or v.shape != shape
+                              or v.get_device() != idx or v.dim() != 2):
             raise ValueError(f"ook_detect: powers must be [C, F] float32 on "
-                             f"{dev}, got {v.dtype} {tuple(v.shape)} on "
-                             f"{v.device}")
+                             f"{pm.device}, got {v.dtype} {tuple(v.shape)} "
+                             f"on {v.device}")
+    c, f = shape
+    rows = (c,)
     leaves = (state.peak, state.floor, state.avg, state.state, state.attack,
               state.decay)
-    for v, dtype in zip(leaves, (torch.float32,) * 3
-                        + (torch.bool, torch.int32, torch.int32)):
-        if (v.device != dev or v.dtype != dtype or tuple(v.shape) != (c,)
+    for v, dtype in zip(leaves, _STATE_DTYPES):
+        if (v.dtype is not dtype or v.shape != rows or v.get_device() != idx
                 or not v.is_contiguous()):
             raise ValueError(f"ook_detect: the state must be contiguous [C] "
-                             f"tensors on {dev}, got {v.dtype} "
+                             f"tensors on {pm.device}, got {v.dtype} "
                              f"{tuple(v.shape)} on {v.device}")
     if 4 * c * f >= 2 ** 31:
         raise ValueError(f"ook_detect: [{c}, {f}] is too large for one "
                          f"launch")
-    frames = torch.stack(pows + (torch.zeros_like(power_main),), dim=-1)
-    marks = torch.empty(c, f, dtype=torch.float32, device=dev)
-    outs = [torch.empty_like(v) for v in leaves]
-    k = cfg.consts()
-    lib = _lib()
-    err = lib.recur_ook_scan(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        THRESHOLD_MODES.index(cfg.mode), frames.data_ptr(), c, f,
-        *(float(k[key]) for key in ("aa", "da", "fa", "keep", "va",
-                                     "ratio")),
-        int(cfg.attack_frames), int(cfg.decay_frames),
-        *(v.data_ptr() for v in leaves), marks.data_ptr(),
-        *(v.data_ptr() for v in outs),
-        torch.cuda.current_stream(dev).cuda_stream)
+    mode, _, consts = ook_consts(cfg)
+    p, cs, fs, bins = short_chain.ook_input(pm, pl, ph, mode == 0)
+    marks = torch.empty(c, f, dtype=torch.bool, device=pm.device)
+    # state': six [C] rows of 4-byte words (peak, floor, avg; attack,
+    # decay; the decisions' bytes at the start of the sixth)
+    words = torch.empty(6, c, dtype=torch.float32, device=pm.device)
+    err = fn(idx, mode, consts, c, f, p.data_ptr(), cs, fs, bins,
+             leaves[0].data_ptr(), leaves[1].data_ptr(),
+             leaves[2].data_ptr(), leaves[3].data_ptr(), leaves[4].data_ptr(),
+             leaves[5].data_ptr(), marks.data_ptr(), words.data_ptr(),
+             short_chain.raw_stream(idx))
     if err:
         raise RuntimeError(f"ook_detect kernel launch failed: CUDA error "
-                           f"{err} ({lib.recur_error_string(err).decode()})")
+                           f"{err} ({_lib().recur_error_string(err).decode()})")
     ook_detect.launches += 1
-    return OOKState(*outs), marks != 0
+    peak, floor, avg, att, dec, st = words.unbind(0)
+    return (OOKState(peak=peak, floor=floor, avg=avg,
+                     state=st.view(torch.bool)[:c],
+                     attack=att.view(torch.int32),
+                     decay=dec.view(torch.int32)), marks)
 
 
 ook_detect.launches = 0   # CUDA kernel launches (the plain path never counts)

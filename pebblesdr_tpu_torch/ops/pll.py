@@ -343,6 +343,8 @@ def _lib():
                                          p, p, p, p, p, p]
     lib.recur_probe.restype = i
     lib.recur_probe.argtypes = [i, i, i, p, p]
+    lib.recur_probe_fed.restype = i
+    lib.recur_probe_fed.argtypes = [i, i, i, p, i, p, p]
     lib.recur_error_string.restype = ctypes.c_char_p
     lib.recur_error_string.argtypes = [i]
     return lib
@@ -360,20 +362,78 @@ PROBE_FORMS = DETECTORS + (
     "anf 1", "anf 16", "anf 1024")
 
 
-def chain_probe(form: str, steps: int, device) -> torch.Tensor:
+# the forms whose chain probe is also fed from memory (recur_probe_fed):
+# the register-only probe of these may fold steps on its constant inputs
+FED_FORMS = ("agc hang", "agc", "ook compare", "ook peak", "ook average",
+             "ook min_max", "ook manual", "ook noise")
+
+
+def probe_pattern(form: str) -> np.ndarray:
+    """The fed probe's input pattern of one form (numpy float32, seeded):
+    for the AGC, 512 log10 envelope samples of a keyed carrier (on runs of
+    128 and 64 at ~-0.3, off runs of 256 and 64 at ~-2: the decay average
+    rises, holds, then falls past the probe's 100-sample hang); for the OOK
+    detector, 256 [main, low, high] frames (the layout goertzel_power
+    writes and the kernel reads in place) keyed in runs cycling
+    through 6, 10, 8, 12 and 7 frames (marks at 0.4 with a +-10 % fade,
+    spaces near 1e-3, the compare bins near 2e-3 with a little of the
+    keying on the low one), as chip_smoke.ook_powers makes them."""
+    if form not in FED_FORMS:
+        raise ValueError(f"no fed probe for {form!r}")
+    rng = np.random.default_rng(FED_FORMS.index(form))
+    if form.startswith("agc"):
+        on = np.concatenate([np.ones(128), np.zeros(256), np.ones(64),
+                             np.zeros(64)]).astype(bool)
+        env = np.where(on, -0.3, -2.0) + 0.02 * rng.standard_normal(512)
+        return env.astype(np.float32)
+    n, runs = 256, (6, 10, 8, 12, 7)
+    key = np.zeros(n, bool)
+    t, j, mark = 0, 0, False
+    while t < n:
+        key[t:t + runs[j % 5]] = mark
+        t, j, mark = t + runs[j % 5], j + 1, not mark
+    fade = 1 + 0.1 * np.sin(np.arange(n) / 40.0)
+    frames = np.stack([np.where(key, 0.4 * fade,
+                                1e-3 * (1 + 0.5 * rng.random(n))),
+                       0.03 * key + 2e-3 * (1 + 0.5 * rng.random(n)),
+                       2e-3 * (1 + 0.5 * rng.random(n))], 1)
+    return frames.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _pattern_dev(form: str, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(probe_pattern(form)).to(device)
+
+
+def chain_probe(form: str, steps: int, device, fed: bool = False
+                ) -> torch.Tensor:
     """Launch the serial floor's probe of one recurrence form on a CUDA
     device: one thread runs `steps` steps of the form's dependent chain on
-    inputs held in registers (no memory inside the loop).  Timed over many
-    steps, its time per step is the latency of one step's chain, the
-    recurrence kernels' serial floor (utils/roofline.py).  Returns its
-    [1] float32 output (a sum of the outputs, which keeps every step)."""
+    inputs held in registers (no memory inside the loop); or, with fed=True
+    (FED_FORMS only: recur_probe_fed, steps rounded up to a multiple of 4),
+    one lane of the K4 / K6 kernel's own chain loop, its constants pinned,
+    its inputs read from a small pattern (probe_pattern) staged in shared
+    memory a register group ahead and its outputs stored there, as the
+    kernel does.  Timed over many steps, its time per step is the latency
+    of one step's chain, the recurrence kernels' serial floor
+    (utils/roofline.py).  Returns its [1] float32 output (a sum of the
+    outputs, which keeps every step)."""
     dev = torch.device(device)
     out = torch.empty(1, dtype=torch.float32, device=dev)
     lib = _lib()
-    err = lib.recur_probe(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        PROBE_FORMS.index(form), int(steps), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if fed:
+        if form not in FED_FORMS:
+            raise ValueError(f"no fed probe for {form!r}")
+        data = _pattern_dev(form, torch.device("cuda", index))
+        err = lib.recur_probe_fed(index, PROBE_FORMS.index(form),
+                                  -(-int(steps) // 4) * 4, data.data_ptr(),
+                                  data.shape[0], out.data_ptr(), stream)
+    else:
+        err = lib.recur_probe(index, PROBE_FORMS.index(form), int(steps),
+                              out.data_ptr(), stream)
     if err:
         raise RuntimeError(f"chain probe launch failed: CUDA error {err} "
                            f"({lib.recur_error_string(err).decode()})")

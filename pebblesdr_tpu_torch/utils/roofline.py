@@ -182,12 +182,16 @@ def iq_lms_bound(c: int, n: int, step_ns: float, group: int = 64) -> dict:
             "bound_by": "bytes" if t_b >= t_s else "operations"}
 
 
-def ook_scan_bound(c: int, f: int, step_ns: float) -> dict:
-    """ook_scan's (K6) bound: the [c, f] frames of three powers read once
-    (as the kernel takes them, padded to 16 bytes), the marks [c, f]
-    written once, six 4-byte state words per channel read and written;
-    the serial floor f steps of the detector's chain (recur_bound's)."""
-    nbytes = c * f * (16 + 4) + 2 * 6 * 4 * c
+def ook_scan_bound(c: int, f: int, step_ns: float,
+                   compare: bool = False) -> dict:
+    """ook_scan's (K6) bound: the frame powers the mode reads, once (the
+    main power, 4 bytes a frame; in compare mode the low and high ones
+    too, 12), the marks [c, f] written once as bool (1 byte), the state
+    (five 4-byte words and the 1-byte decision per channel) read and
+    written; the serial floor f steps of the detector's chain
+    (recur_bound's; step_ns from the chain probe fed from memory, which
+    folds no step on constant inputs)."""
+    nbytes = c * f * ((12 if compare else 4) + 1) + 2 * (5 * 4 + 1) * c
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_s = f * step_ns * 1e-6
     return {"bytes": nbytes, "serial_ms": t_s, "bound_ms": max(t_b, t_s),

@@ -20,7 +20,11 @@ against the CPU; the AM Receiver under TF32 ("high") against IEEE; the
 stereo tail without K2 (2.88 Msps, the staged front, the "pll" pilot with
 its notch) on the card against the CPU; the CLI with --device cuda; K6
 (ook_scan, the OOK detector, six threshold modes) and K7 (sweep_scan, the
-test generator's sweep) against their plain versions, the Receiver's taps
+test generator's sweep) against their plain versions, K4 and K6 on the
+short-chain kernel at C = 1, 7, 64, 256 and F = 1, 34, 2048 (one launch
+and one kernel a call; ops/short_chain.py's plan equal to the C one; K6's
+powers as [C, F, 3] columns, planes or without compare bins), the fed
+chain probes, the Receiver's taps
 and the TestBench on the card against the CPU, and --decode cw on the
 card; K8 (anf_scan, the ANF's block LMS) against its plain version at U =
 16, 1024, 1 and others, each of its two forms forced, its bits repeated,
@@ -2300,6 +2304,162 @@ def test_ook_and_sweep_refuse_what_they_do_not_take(cuda):
         siggen.sweep_init(0.0, cuda))))
     with pytest.raises(ValueError):            # [1] state tensors
         siggen.sweep(bad, 16, 0.0, 1.0, 1.0, 8.0)
+
+
+# ---- K4 and K6 on the short-chain kernel (csrc/recur.cu) ----------------
+
+def test_short_plan_matches_the_source(cuda):
+    """ops/short_chain.py's mirror of the C short_plan (the form, the
+    stage, the pitches, the shared memory)."""
+    import ctypes
+    from pebblesdr_tpu_torch.ops import short_chain
+    lib = pll._lib()
+    lib.recur_short_plan.restype = ctypes.c_int
+    lib.recur_short_plan.argtypes = [ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_void_p]
+    for n in (0, 1, 34, 128, 129, 2048, 32768):
+        # K4's envelope plane; K6's plane, 3-float frames or a column of
+        # 2-float frames
+        for fs, esz in ((1, 4), (1, 1), (3, 1), (2, 1)):
+            out = (ctypes.c_int * 8)()
+            assert lib.recur_short_plan(n, fs, esz, out) == 0
+            assert list(out) == short_chain.short_plan(
+                n, fs, esz).as_ints(), (n, fs, esz)
+
+
+def _device_records(fn, calls=10):
+    """The device records of `calls` calls of fn under torch.profiler
+    (traced again while none was recorded: the profiler drops records)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [ev.name for ev in prof.events()
+                 if getattr(ev, "device_type", None) == DeviceType.CUDA]
+        if names:
+            return names
+    return []
+
+
+SHORT_KINDS = ["agc long", "agc med", "ook peak frames", "ook compare frames",
+               "ook compare planes", "ook compare none"]
+
+
+@pytest.mark.parametrize("kind", SHORT_KINDS)
+@pytest.mark.parametrize("f", [1, 34, 2048])
+@pytest.mark.parametrize("c", [1, 7, 64, 256])
+def test_short_chain_geometry(cuda, c, f, kind):
+    """K4 and K6 on the short-chain kernel at C = 1, 7, 64, 256 (1 to 16
+    blocks of 16 lanes) and F = 1, 34 (the pass form) and 2048 (the ring):
+    one launch per call, the outputs equal to the plain version's (K6's
+    state within 1e-6 of scale where the decision margins are asserted),
+    K6's powers as goertzel_power's [C, F, 3] columns, as planes (packed
+    into the columns' layout in compare mode), or without compare bins;
+    two calls streaming the state."""
+    _short_chain_case(cuda, c, f, kind)
+
+
+@pytest.mark.parametrize("kind", SHORT_KINDS + ["ook peak planes"])
+@pytest.mark.parametrize("f", [129, 131, 1001, 2051])
+@pytest.mark.parametrize("c", [7, 64])
+def test_short_chain_partial_segments(cuda, c, f, kind):
+    """The ring form's paths that whole 128-frame segments of 16-byte rows
+    do not reach: a partial last segment (F = 129, 131, 1001, 2051), its
+    last < 4 frames stepped one by one, rows whose segments are not 16-byte
+    sized or aligned (copied in and K6's byte marks written out element by
+    element where F % 16 != 0; K4's rows where F % 4 != 0), K6 on 3-float
+    frames, on a plane and without compare bins; as test_short_chain_
+    geometry, against the plain version."""
+    _short_chain_case(cuda, c, f, kind)
+
+
+def _short_chain_case(cuda, c, f, kind):
+    if kind.startswith("agc"):
+        mode = kind.split()[1]
+        rng = np.random.default_rng(c + f)
+        key = np.where(((f - 1 - np.arange(f)) // 300) % 2, 1.0, 0.01)
+        env = torch.from_numpy(np.log10(np.abs(
+            0.5 * key + 1e-3 * rng.standard_normal((c, f))) + 1e-8)
+            .astype(np.float32)).to(cuda)
+        k = agc.scan_coefs(agc.AGCConfig.make(64000.0, mode, stride=16,
+                                              algorithm="scan"))
+        st = (torch.full((c,), -0.5, device=cuda),
+              torch.full((c,), -0.5, device=cuda),
+              torch.zeros(c, dtype=torch.int32, device=cuda))
+        args = (k["rise"], k["fall"], k["drise"], k["dfall"],
+                k["hang_samples"], k["hang"])
+        for _ in range(2):
+            before = agc.agc_scan.launches
+            got = agc.agc_scan(env, *st, *args)
+            assert agc.agc_scan.launches == before + 1
+            ref = agc.agc_scan_plain(env, *st, *args)
+            torch.cuda.synchronize()
+            for a, b in zip(got, ref):
+                assert a.dtype == b.dtype and a.shape == b.shape
+                assert torch.equal(a.cpu(), b.cpu())
+            st = got[:3]
+        return
+    _, mode, layout = kind.split()
+    cfg = goertzel.OOKConfig.make(mode=mode)
+    pows = _ook_powers(c, f, np.random.default_rng(7 * c + f), cuda)
+    if layout == "frames":
+        p3 = torch.stack(pows, -1)
+        pows = [p3[:, :, 0], p3[:, :, 1], p3[:, :, 2]]
+    elif layout == "none":
+        pows = [pows[0], None, None]
+    st = goertzel.ook_init(c, cuda)
+    for _ in range(2):
+        before = goertzel.ook_detect.launches
+        got_st, got = goertzel.ook_detect(cfg, st, *pows)
+        assert goertzel.ook_detect.launches == before + 1
+        ref_st, ref = goertzel.ook_detect_plain(cfg, st, *pows)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bool and torch.equal(got.cpu(), ref.cpu())
+        for a, b in zip(convert.leaves(got_st), convert.leaves(ref_st)):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            if a.dtype == torch.float32:
+                scale = max(float(b.abs().max()), 1e-30)
+                assert float((a - b).abs().max()) <= 1e-6 * scale
+            else:
+                assert torch.equal(a.cpu(), b.cpu())
+        st = got_st
+
+
+@pytest.mark.parametrize("kind", ["agc", "ook"])
+def test_short_chain_call_is_one_kernel(cuda, kind):
+    """An agc_scan / ook_detect call puts one device record in a trace:
+    the short-chain kernel (no stack, copy or compare kernels around it);
+    ten calls' records, at most ten (the profiler may drop some)."""
+    c, f = 64, 34
+    if kind == "agc":
+        env = torch.full((c, f), -1.0, device=cuda)
+        st = (torch.zeros(c, device=cuda), torch.zeros(c, device=cuda),
+              torch.zeros(c, dtype=torch.int32, device=cuda))
+        fn = (lambda: agc.agc_scan(env, *st, 0.1, 0.1, 0.01, 0.01, 10,
+                                   True))
+        step = "AgcStep"
+    else:
+        p3 = torch.stack(_ook_powers(c, f, np.random.default_rng(1), cuda),
+                         -1)
+        st = goertzel.ook_init(c, cuda)
+        cfg = goertzel.OOKConfig.make(mode="peak")
+        fn = (lambda: goertzel.ook_detect(cfg, st, p3[:, :, 0], p3[:, :, 1],
+                                          p3[:, :, 2]))
+        step = "OokStep"
+    fn()
+    names = _device_records(fn)
+    assert 1 <= len(names) <= 10, names
+    assert all(step in nm and "recur_short_kernel" in nm for nm in names)
+
+
+@pytest.mark.parametrize("form", pll.FED_FORMS)
+def test_fed_chain_probe_runs_every_form(cuda, form):
+    out = pll.chain_probe(form, 4096, cuda, fed=True)
+    torch.cuda.synchronize()
+    assert out.shape == (1,) and bool(torch.isfinite(out).all())
 
 
 @pytest.mark.parametrize("mode,opts", [(DemodMode.CWU, {}),
