@@ -306,7 +306,26 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
  54. in the same world: pfb_shard (2 x 2), dist_fft (1 x 4) and the
      4-stage pipeline, each against its unsharded counterpart on the card.
      Four ranks on one card measure correctness and host hops, not
-     scaling.
+     scaling;
+ 55. the main path against the independent float64 golden at full width
+     (pebblesdr_tpu_torch/tools/parity_harness.py, the port of
+     tools/parity_harness.py): for AM, USB, LSB, FMN, SAM, FMM and FMS one
+     2.048 Msps capture of two dispatches holding tests/test_parity.py's
+     signal at four carriers within +-750 kHz, 64 channels tuned channel c
+     to carrier c % 4, run through Receiver.step_many (K = 32, N = 32768)
+     and Receiver.step; every channel of both paths at or above its mode's
+     threshold (AM, USB, LSB, FMN 60 dB, SAM 55, FMS 70 on the left
+     channel with the golden's own separation > 30 dB, FMM the JAX chain's
+     least SNR less 3 dB) against its carrier's golden, no channel reading
+     another carrier (tone phasors), K1 launched per dispatch and per
+     step, K2 likewise for FMS; min, median and max SNR per mode and path,
+     the goldens' host seconds; then `python -m
+     pebblesdr_tpu_torch.tools.parity_harness` on its fixture at 64
+     channels, K = 32, batched, which must exit 0;
+ 56. the port's examples 01-05 (pebblesdr_tpu_torch/examples/) on the
+     card, each outcome checked: the written audio and the S-meter, the
+     channels on a station, pilot lock and the PS name "TPU FM  ", the
+     bank's stations, the DTMF digits "2468" and the CTCSS open.
 Each phase's seconds and the running total are printed after it.
 Each receiver phase sets every kernel's launch count to 0 just before it
 drives the receiver and reads the counts just after (front_means and
@@ -5272,6 +5291,156 @@ def phase_shard_k1_time(torch, front, rx) -> dict:
             "shape": (rows, 2 * c), "plan": plan}
 
 
+PARITY = dict(channels=64, frames=32768, blocks=32, dispatches=2)
+PARITY_CARRIERS = (-750_000.0, -250_000.0, 250_000.0, 750_000.0)
+PARITY_MARGIN = 16384    # the goldens see half a block past the chain, as
+#                          tests/test_parity.py's 1 s signal is 62.5 blocks:
+#                          the analytic pilot's and resample_poly's edge
+#                          lies past the chain's audio
+PARITY_SPREAD = 1e-2     # chain / golden tone phasors, channel vs channel 0
+PARITY_DIR = "build/chip_smoke_parity"
+EXAMPLES_DIR = "build/chip_smoke_examples"
+
+
+def phase_parity(torch, front, wfm_tail) -> dict:
+    """Phase 55: the main path against the independent float64 golden at
+    full width.  For each mode with a golden, one 2.048 Msps capture of two
+    dispatches (and half a block for the goldens) holding
+    tests/test_parity.py's signal at four carriers (tools/parity_harness.py
+    parity_capture: carrier i's tones start at carrier_phase(i)), its 64
+    channels tuned channel c to carrier c % 4, run on the card through
+    Receiver.step_many (K = 32, the main path) and Receiver.step per block
+    (tools/parity_harness.py run_chain, AGC off); every channel of both
+    paths held to its carrier's golden with snr_db at the mode's threshold
+    (parity_harness.MIN_SNR_DB) and its tone phasor to channel 0's (no
+    channel reads another carrier); FM stereo's golden must demux
+    (> 30 dB).  K1 launched once per dispatch and once per step, K2 as
+    often for FMS and never otherwise, FMM on K1's F = 8 plan.  Then the
+    harness's own command line on its fixture at full width, which must
+    exit 0."""
+    import os
+    from pebblesdr_tpu_torch.demod.modes import DemodMode
+    from pebblesdr_tpu_torch.tools import parity_harness as ph
+    c, n, k, d = (PARITY[key] for key in ("channels", "frames", "blocks",
+                                          "dispatches"))
+    rows = n * k * d
+    carrier_of = np.arange(c) % len(PARITY_CARRIERS)
+    tunes = np.asarray(PARITY_CARRIERS)[carrier_of]
+    t_phase = time.perf_counter()
+    golden_s = 0.0
+    res = {}
+    for mode in ph.GOLDEN_MODES:
+        iq = ph.parity_capture(mode, FS, rows + PARITY_MARGIN,
+                               PARITY_CARRIERS)
+        refs = None
+        for path, batched, want_k1 in (("step_many", True, d),
+                                       ("step", False, d * k)):
+            reset_launches(front, wfm_tail)
+            t0 = time.perf_counter()
+            got, rx = ph.run_chain(iq, FS, mode, tunes, n, "cuda", blocks=k,
+                                   batched=batched)
+            chain_s = time.perf_counter() - t0
+            k1 = front.fused_front.launches
+            k2 = wfm_tail.wfm_tail.launches
+            if refs is None:
+                t0 = time.perf_counter()
+                x_dc = ph.dc_removed64(iq)
+                refs = [ph.golden(iq, FS, f, rx, x_dc=x_dc)
+                        for f in PARITY_CARRIERS]
+                golden_s += time.perf_counter() - t0
+                if mode == DemodMode.FMS:
+                    seps = [ph.separation_db(r[0], r[1], rx.cfg.audio_rate,
+                                             ph.probe_tone(mode))
+                            for r in refs]
+                    log(f"phase55 FMS golden separation "
+                        f"{', '.join(f'{v:.1f}' for v in seps)} dB (> "
+                        f"{ph.GOLDEN_SEPARATION_DB})")
+                    if min(seps) <= ph.GOLDEN_SEPARATION_DB:
+                        raise RuntimeError("the FM stereo golden does not "
+                                           "demux")
+            snrs, spread = ph.hold_channels(got, refs, carrier_of, rx)
+            floor = ph.MIN_SNR_DB[mode]
+            want_k2 = want_k1 if mode == DemodMode.FMS else 0
+            res[(mode.name, path)] = dict(
+                min=float(snrs.min()), median=float(np.median(snrs)),
+                max=float(snrs.max()), spread=spread, k1=k1, k2=k2,
+                seconds=chain_s)
+            log(f"phase55 {mode.name} {path}: SNR vs golden min "
+                f"{snrs.min():.2f} median {np.median(snrs):.2f} max "
+                f"{snrs.max():.2f} dB over {c} channels (>= {floor:.1f}), "
+                f"phasor spread {spread:.2e}, K1 {k1} (want {want_k1}) K2 "
+                f"{k2} (want {want_k2}), plan F = {rx.plan.factor}, "
+                f"{got.shape[-1]} samples, {chain_s:.1f} s")
+            if snrs.min() < floor:
+                raise RuntimeError(f"{mode.name} {path}: channels "
+                                   f"{np.flatnonzero(snrs < floor).tolist()} "
+                                   f"below {floor} dB of the golden")
+            if spread >= PARITY_SPREAD:
+                raise RuntimeError(f"{mode.name} {path}: a channel reads "
+                                   f"another carrier (spread {spread:.3g})")
+            if (k1, k2) != (want_k1, want_k2):
+                raise RuntimeError(f"{mode.name} {path}: K1 {k1} K2 {k2} "
+                                   f"launches, want {want_k1} {want_k2}")
+            if mode == DemodMode.FMM and rx.plan.factor != 8:
+                raise RuntimeError(f"FMM plan factor {rx.plan.factor}")
+    log(f"phase55 goldens took {golden_s:.1f} s on the host")
+    os.makedirs(PARITY_DIR, exist_ok=True)
+    fix = f"{PARITY_DIR}/fixture.wav"
+    mod = [sys.executable, "-m", "pebblesdr_tpu_torch.tools.parity_harness"]
+    subprocess.run(mod + ["--make-fixture", fix], check=True,
+                   capture_output=True, text=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(mod + [fix, "--device", "cuda", "--channels",
+                                 str(c), "--blocks", str(k), "--batched"],
+                          capture_output=True, text=True, timeout=300)
+    log(f"phase55 harness command line: rc {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        f"{' | '.join(proc.stdout.strip().splitlines())}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"parity harness rc {proc.returncode}: "
+                           f"{proc.stderr[-2000:]}")
+    log(f"phase55 took {time.perf_counter() - t_phase:.1f} s (goldens "
+        f"{golden_s:.1f} s)")
+    return dict(paths=res, golden_s=golden_s)
+
+
+def phase_examples(torch) -> dict:
+    """Phase 56: the port's examples 01-05 (pebblesdr_tpu_torch/examples/)
+    on the card at the JAX examples' sizes, each outcome checked by the
+    example's check(): the written audio and the S-meter (01), the channels
+    on a station (02), pilot lock, separation and the PS name (03), the
+    bank's stations (04), the DTMF digits "2468" and the CTCSS open
+    (05)."""
+    import importlib
+    import io
+    briefs = {
+        "ex01_file_playback": lambda r: dict(
+            samples=r["samples"], signal_db=round(r["signal_db"][-1], 2),
+            snr_db=round(r["snr_db"][-1], 2)),
+        "ex02_channelizer": lambda r: dict(hot=r["hot"]),
+        "ex03_wfm_rds": lambda r: {key: r[key] for key in (
+            "pilot_locked", "separation_db", "ps", "block_errors")},
+        "ex04_station_bank": lambda r: dict(
+            stations=len(r["stations"]), snr_db=round(r["snr_db"][0], 2),
+            rms=round(r["rms"][0], 4)),
+        "ex05_interactive_and_decoders": lambda r: {key: r[key] for key in (
+            "digits", "ctcss_first_open", "events")}}
+    res = {}
+    for name, argv in (("ex01_file_playback", ["--out", EXAMPLES_DIR]),
+                       ("ex02_channelizer", []), ("ex03_wfm_rds", []),
+                       ("ex04_station_bank", []),
+                       ("ex05_interactive_and_decoders", [])):
+        mod = importlib.import_module(f"pebblesdr_tpu_torch.examples.{name}")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = mod.main(["--device", "cuda"] + argv)
+        mod.check(out)
+        brief = briefs[name](out)
+        log(f"phase56 {name}: {brief} ({time.perf_counter() - t0:.1f} s)")
+        res[name] = brief
+    return res
+
+
 def receiver_for_cli(torch):
     """The Receiver the CLI builds for phase 45's arguments."""
     from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
@@ -5473,6 +5642,10 @@ def main() -> int:
     clock("phase 52")
     sh = phase_sharded(torch, receiver, front, wfm_tail, DemodMode)
     clock("phases 53-54")
+    phase_parity(torch, front, wfm_tail)
+    clock("phase 55")
+    phase_examples(torch)
+    clock("phase 56")
 
     c, n, k = HEADLINE["channels"], HEADLINE["frames"], HEADLINE["blocks"]
     t = n * k

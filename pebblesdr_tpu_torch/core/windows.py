@@ -51,3 +51,7 @@ def coherent_gain(w: np.ndarray) -> float:
     """Mean of window — scales a coherent tone; used to normalize dB spectra."""
     return float(np.mean(w))
 
+
+def enbw(w: np.ndarray) -> float:
+    """Equivalent noise bandwidth in bins: N*sum(w^2)/sum(w)^2."""
+    return float(len(w) * np.sum(w**2) / np.sum(w) ** 2)

@@ -43,6 +43,7 @@ ATTACK_FALL_TIMECONST = 0.005
 DECAY_RISEFALL_RATIO = 0.3
 RELEASE_TIMECONST = 0.05
 AGC_OUTSCALE = 0.7
+MAX_AMPLITUDE = 1.0
 MIN_CONSTANT = 1e-8  # log floor ~ -160 dB
 ALGORITHMS = ("parallel", "scan")
 SOURCE = "pebblesdr_tpu_torch/csrc/recur.cu"

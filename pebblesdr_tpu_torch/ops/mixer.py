@@ -81,6 +81,17 @@ def mix(state: MixerState, x: torch.Tensor, f_hi, f_lo):
     return MixerState(phase=advance_phase(state.phase, n, f_hi, f_lo)), y
 
 
+def mix_simple(state: MixerState, x: torch.Tensor, freq_hz, sample_rate):
+    """mix with the frequency split on the device from a float32 Hz value
+    (a scalar or [C]): lower phase precision than split_freq, fine for
+    tests and slow retuning."""
+    f = torch.as_tensor(freq_hz, dtype=torch.float32,
+                        device=state.phase.device) / sample_rate
+    f = torch.remainder(f, 1.0)
+    hi = torch.round(f * _SPLIT) / _SPLIT
+    return mix(state, x, hi, f - hi)
+
+
 def mix_blocks(state: MixerState, x: torch.Tensor, f_hi, f_lo,
                n_block: int):
     """x [C, K*n_block] complex64 mixed as K calls of mix on its n_block-

@@ -26,6 +26,8 @@ class ResamplePlan:
     n_out: int
     taps: int
     dense: np.ndarray       # [K + N_in, M] banded operator
+    gather_idx: np.ndarray  # [M, K] int32 indices into the tail-extended input
+    coefs: np.ndarray       # [M, K] float32 (dense's band, row by row)
 
 
 def output_block(in_rate: int, out_rate: int, n_in: int) -> int:
@@ -65,7 +67,8 @@ def plan(in_rate: int, out_rate: int, n_in: int, taps: int = 32) -> ResamplePlan
     dense = np.zeros((n_in + k, m_out), np.float32)
     for mm in range(m_out):
         dense[gather[mm], mm] = kern[mm]
-    return ResamplePlan(float(in_rate), float(out_rate), n_in, m_out, k, dense)
+    return ResamplePlan(float(in_rate), float(out_rate), n_in, m_out, k, dense,
+                        gather.astype(np.int32), kern.astype(np.float32))
 
 
 def state_init(p: ResamplePlan, channels: int, device,
@@ -89,6 +92,16 @@ def apply(p: ResamplePlan, state: torch.Tensor, x: torch.Tensor):
     """x: [C, N_in] (real or complex) -> (state', y [C, N_out])."""
     xx = torch.cat([state, x], dim=-1)
     y = _matmul(xx, _dense_dev(p, x.device))
+    return xx[:, xx.shape[-1] - p.taps:], y.to(x.dtype)
+
+
+def apply_gather(p: ResamplePlan, state: torch.Tensor, x: torch.Tensor):
+    """The gather + multiply-accumulate form of apply (kept for parity
+    testing).  x: [C, N_in] -> (state', y [C, N_out])."""
+    xx = torch.cat([state, x], dim=-1)
+    idx = torch.from_numpy(p.gather_idx.astype(np.int64)).to(x.device)
+    coefs = torch.from_numpy(p.coefs).to(x.device)
+    y = torch.sum(xx[:, idx] * coefs[None], dim=-1)          # [C, M]
     return xx[:, xx.shape[-1] - p.taps:], y.to(x.dtype)
 
 

@@ -1,6 +1,17 @@
 """The stateful per-sample stages of the front and the demod tail: the
-chunked noise blanker, the IQ balance (static and adaptive) and the
-adaptive noise filter (ANF).  Port of pebblesdr_tpu/ops/scanops.py.
+EWMA, the noise blanker (per sample and chunked), the IQ balance (static
+and adaptive) and the adaptive noise filter (ANF).  Port of
+pebblesdr_tpu/ops/scanops.py.
+
+EWMA (ewma): y[n] = (1 - alpha) y[n-1] + alpha x[n], the first-order
+recurrence of ops/iir.py first_order_apply (closed form or chunked: a
+linear recurrence, no per-sample loop).
+
+NoiseBlanker NB1 / NB2 per sample (noise_blanker): the EWMA of |x|, a
+spike where |x| > threshold * avg, the spike flags dilated to blank_width
+samples centred on each spike by a max-pool (the JAX package's
+reduce_window with "SAME" padding); NB1 zeroes the window, NB2 scales it to
+the running average.  No state crosses a call but the average.
 
 NoiseBlanker NB1 / NB2 (noise_blanker_chunked, the staged front's blanker):
 the twin of the fused front's in-kernel blanker, with no scan.  The
@@ -45,6 +56,8 @@ import functools
 
 import torch
 
+import torch.nn.functional as F
+
 from pebblesdr_tpu_torch.kernels import build
 from pebblesdr_tpu_torch.ops import iir
 
@@ -65,7 +78,47 @@ REPLACES = "pebblesdr_tpu/ops/scanops.py:164"   # auto_iq_balance's lax.scan
 ANF_REPLACES = "pebblesdr_tpu/ops/scanops.py:257"   # anf's lax.scan
 
 
+# ------------------------------------------------------------- EWMA
+
+def ewma(carry: torch.Tensor, x: torch.Tensor, alpha: float):
+    """y[n] = (1 - alpha) y[n-1] + alpha x[n] over the last axis of x [C, N]
+    from carry [C].  Returns (y_last [C], y [C, N])."""
+    return iir.first_order_apply(carry, x, 1.0 - alpha, alpha)
+
+
 # ------------------------------------------------------------- noise blanker
+
+@dataclasses.dataclass(frozen=True)
+class NoiseBlankerState:
+    mag_avg: torch.Tensor  # [C] running EWMA of |x|
+
+
+def noise_blanker_init(channels: int, device) -> NoiseBlankerState:
+    return NoiseBlankerState(mag_avg=torch.zeros(channels, dtype=torch.float32,
+                                                 device=device))
+
+
+def noise_blanker(state: NoiseBlankerState, x: torch.Tensor,
+                  threshold: float = 3.3, blank_width: int = 7,
+                  alpha: float = 0.001, mode: str = "blank"):
+    """NB1 ("blank": zero a window around spikes) / NB2 ("average":
+    substitute the running average level) on x [C, N] complex64.  Returns
+    (state', y)."""
+    mag = x.abs()
+    avg_last, avg = ewma(state.mag_avg, mag, alpha)
+    spike = (mag > threshold * torch.clamp(avg, min=1e-9)).to(torch.float32)
+    # centred dilation to blank_width samples ("SAME": the odd sample of an
+    # even width pads after)
+    lo = (blank_width - 1) // 2
+    widened = F.max_pool1d(F.pad(spike[:, None], (lo, blank_width - 1 - lo)),
+                           blank_width, stride=1)[:, 0] > 0.0
+    if mode == "blank":
+        y = torch.where(widened, torch.zeros_like(x), x)
+    else:                            # NB2: substitute the running average
+        sub = (avg / torch.clamp(mag, min=1e-12)) * x
+        y = torch.where(widened, sub.to(x.dtype), x)
+    return NoiseBlankerState(mag_avg=avg_last), y.to(torch.complex64)
+
 
 @dataclasses.dataclass(frozen=True)
 class NoiseBlankerChunkedState:

@@ -2,7 +2,9 @@
 
 Port of pebblesdr_tpu/ops/signalstrength.py (fdEstimate capability,
 signalstrength.cpp:289-378) on the linear power spectrum of the demod-rate
-block.  The masks are host-designed runtime inputs.
+block: by masks (fd_estimate_masked, the Receiver's; the masks are
+host-designed runtime inputs) or by a bin range (fd_estimate); and the
+time-domain estimate td_estimate.
 """
 
 from __future__ import annotations
@@ -51,4 +53,39 @@ def fd_estimate_masked(power_lin: torch.Tensor, band_mask: torch.Tensor,
         "peak_db": dbu.power_to_db(sig_peak),
         "noise_db": dbu.power_to_db(noise),
         "snr_db": dbu.power_to_db(sig_avg) - dbu.power_to_db(noise),
+    }
+
+
+def fd_estimate(power_lin: torch.Tensor, start: int, stop: int):
+    """power_lin [C, bins] linear fftshifted power spectrum -> dict(signal_db,
+    peak_db, noise_db, snr_db), each [C].  Noise is measured in two side
+    windows of the band's width directly below and above it (clipped to the
+    spectrum's edges), like fdEstimate."""
+    n_bins = power_lin.shape[-1]
+    width = stop - start
+    band = power_lin[:, start:stop]
+    sig_avg = torch.mean(band, dim=-1)
+    sig_peak = torch.amax(band, dim=-1)
+    lo_s = max(0, start - width)
+    lo_e = max(lo_s + 1, start)
+    hi_s = min(n_bins - 1, stop)
+    hi_e = min(n_bins, stop + width)
+    noise = (torch.sum(power_lin[:, lo_s:lo_e], dim=-1)
+             + torch.sum(power_lin[:, hi_s:hi_e], dim=-1)) / (
+        (lo_e - lo_s) + (hi_e - hi_s))
+    return {
+        "signal_db": dbu.power_to_db(sig_avg),
+        "peak_db": dbu.power_to_db(sig_peak),
+        "noise_db": dbu.power_to_db(noise),
+        "snr_db": dbu.power_to_db(sig_avg) - dbu.power_to_db(noise),
+    }
+
+
+def td_estimate(x: torch.Tensor):
+    """Time-domain RMS / peak estimate [C] in dB (signalstrength.cpp:
+    195-285) of x [C, N]."""
+    p = x.abs() ** 2
+    return {
+        "rms_db": dbu.power_to_db(torch.mean(p, dim=-1)),
+        "peak_db": dbu.power_to_db(torch.amax(p, dim=-1)),
     }

@@ -22,6 +22,8 @@ from pebblesdr_tpu_torch.core import db as dbu
 from pebblesdr_tpu_torch.core import windows as win
 from pebblesdr_tpu_torch.utils.precision import ieee_float32
 
+MIN_BINS = 2048   # fft.h:21
+MAX_BINS = 65535  # fft.h:22
 OVERLOAD_LEVEL = 1.0  # |sample| above full scale = ADC overload
 _DFT_MAX_MATMUL = 4096
 

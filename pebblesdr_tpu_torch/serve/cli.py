@@ -573,7 +573,9 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
-def _device(p: argparse.ArgumentParser, name: str) -> torch.device:
+def resolve_device(p: argparse.ArgumentParser, name: str) -> torch.device:
+    """--device NAME as a torch.device; without a CUDA device a CUDA name
+    is a usage error (exit 2), never a fall back to the CPU."""
     dev = torch.device(name)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -669,7 +671,7 @@ def main(argv=None):
         start = doc.find("Key map")
         print(doc[start:] if start >= 0 else doc, file=sys.stderr)
         return 0
-    device = _device(p, args.device)
+    device = resolve_device(p, args.device)
 
     # a network radio streams from its connection (rtl_tcp) or its start
     # command on: it is opened once the chain is built and warm

@@ -65,6 +65,14 @@ def test_windows_identical(kind, periodic):
     assert jwin.coherent_gain(a) == twin.coherent_gain(b)
 
 
+@pytest.mark.parametrize("kind", list(jwin.WindowType), ids=lambda k: k.value)
+@pytest.mark.parametrize("n", [64, 2048])
+def test_enbw_identical(kind, n):
+    w = jwin.window(kind, n)
+    assert jwin.enbw(w) == twin.enbw(twin.window(twin.WindowType(kind.value),
+                                                 n))
+
+
 @pytest.mark.parametrize("ntaps,wpass", jdec.HALFBAND_SPECS[1:])
 def test_halfband_taps_identical(ntaps, wpass):
     assert np.array_equal(jfir.design_halfband(ntaps, wpass),

@@ -259,8 +259,8 @@ def test_port_imports_no_jax():
     and soundcard modules, and ``python -m pebblesdr_tpu_torch.serve.server
     --help``), and parallel/ (a one-rank CPU world: the sharded step's
     step_many and JAX-contract call, the mode experts' step_many, and the
-    CLI's --assign) runs without loading jax or any module of the JAX
-    package."""
+    CLI's --assign), the parity harness (a chain run and a golden) and an
+    example runs without loading jax or any module of the JAX package."""
     code = (
         "import importlib, pkgutil, sys, numpy as np, torch\n"
         "import pebblesdr_tpu_torch as pkg\n"
@@ -452,6 +452,19 @@ def test_port_imports_no_jax():
         "'--device', 'cpu', '--json']) == 0\n"
         "assert len(json.loads(buf.getvalue().splitlines()[-1])['channels']) "
         "== 2\n"
+        "from pebblesdr_tpu_torch.tools import parity_harness as ph\n"
+        "from pebblesdr_tpu_torch.examples import ex02_channelizer\n"
+        "iq = ph.parity_capture(DemodMode.USB, 512000, 16384, [1e5])\n"
+        "got, rx = ph.run_chain(iq, 512000, DemodMode.USB, [1e5], 8192, "
+        "'cpu', blocks=2, batched=True)\n"
+        "assert got.shape == (1, 2 * rx.audio_blk)\n"
+        "assert len(ph.golden(iq, 512000, 1e5, rx)) == 2 * rx.audio_blk\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    ex02_channelizer.check(ex02_channelizer.main(['--device', "
+        "'cpu']))\n"
+        "for name in ('ex01_file_playback', 'ex03_wfm_rds', "
+        "'ex04_station_bank', 'ex05_interactive_and_decoders'):\n"
+        "    assert 'pebblesdr_tpu_torch.examples.' + name in sys.modules\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'pebblesdr_tpu' or m.startswith('pebblesdr_tpu.')]\n"
         "assert not bad, bad\n"
