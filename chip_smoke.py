@@ -325,7 +325,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
  56. the port's examples 01-05 (pebblesdr_tpu_torch/examples/) on the
      card, each outcome checked: the written audio and the S-meter, the
      channels on a station, pilot lock and the PS name "TPU FM  ", the
-     bank's stations, the DTMF digits "2468" and the CTCSS open.
+     bank's stations, the DTMF digits "2468" and the CTCSS open;
+ 57. the JAX suite's impairment and robustness bounds at full width
+     (pebblesdr_tpu_torch/tools/quality.py, the port of bench.py
+     bench_quality; tests/test_impairments.py, tests/test_robustness.py):
+     64 channels at 2.048 Msps, N = 32768, K = 32, each channel its own
+     columns, every channel checked: stereo clean (>= 30 dB) and through a
+     15 us / -10 dB two-ray channel (> 15 dB, L tone > 0.5), hq (>= 40 dB),
+     the RDS BLER curve at 12-20 dB (zero and "PEBBLES " on every 20 dB
+     channel, the pooled curve weakly non-increasing), AM beside a -20 dB
+     neighbour and a -50 dB CW spur (< 1 dB loss over the JAX test's 12
+     blocks; 16 and 32 printed), three FM stations in one
+     capture (own tone > 0.25, ten times any other), 128 AM blocks (finite,
+     phase in [0, 1), level steady to 1 %), the display offset (+10.0 +-
+     0.1 dB, SNR +- 0.2) and the AGC hang (< 3 dB on 64 rows, K4's
+     launches counted); channels of each capture held to the CPU port
+     with the slice bounds; then the card's quality row at 64 channels
+     (the tool's Receiver captures, the AGC hangs above).
 Each phase's seconds and the running total are printed after it.
 Each receiver phase sets every kernel's launch count to 0 just before it
 drives the receiver and reads the counts just after (front_means and
@@ -5441,6 +5457,378 @@ def phase_examples(torch) -> dict:
     return res
 
 
+QUALITY = dict(channels=64, frames=32768, blocks=32)   # am_64ch's geometry
+QUALITY_RDS_SNRS = (12.0, 14.0, 16.0, 17.0, 20.0)      # channel c: c % 5
+QUALITY_RDS_DISPATCHES = 2     # 64 blocks (bench_quality decodes 40)
+MULTIPATH_SEPARATION_DB = 15.0  # tests/test_impairments.py:83
+MULTIPATH_TONE = 0.5            # tests/test_impairments.py:84
+AM_IMPAIR_DB = 1.0              # tests/test_impairments.py:103, :111
+AM_WINDOWS = (12, 16, 32)       # blocks of the AM capture measured: the JAX
+#                                 test's KB (its bound holds there),
+#                                 bench_quality's, the whole dispatch
+STATIONS = (-700_000.0, 0.0, 700_000.0)   # tests/test_robustness.py:21-22
+STATION_TONES = (800.0, 1500.0, 2500.0)
+LONG_RUN = dict(f0=123_456.0, step=7_919.0, dispatches=4)
+AGC_HANG_DB = 3.0               # tests/test_ops_scans.py:200
+
+
+def quality_capture(torch, front, wfm_tail, tag: str, planes, tunes,
+                    cpu_chans, spectra: bool = False, **cfg) -> dict:
+    """One capture of phase 57: a 64-channel Receiver on the card through
+    step_many (tools/quality.py run_chain; every launch count set to 0 just
+    before, K1 read after: once a dispatch, K2 likewise for FM stereo) and
+    the same Receiver configuration on the CPU over the columns of
+    cpu_chans, held to the card's channels there dispatch by dispatch with
+    the slice bounds (audio 2e-4, spectra and S-meter SNR 0.1 dB, RDS soft
+    symbols 1e-3 of their scale, pilot lock and symbol timing equal).
+    planes: the dispatches' [K*N, 2C] float32 planes (an iterable).
+    Returns the card's outputs on the host (one dict a dispatch), its
+    final state and Receiver, and the CPU's outputs and final state."""
+    from pebblesdr_tpu_torch.demod.modes import DemodMode
+    from pebblesdr_tpu_torch.tools import quality as q
+    c = QUALITY["channels"]
+    tunes = np.asarray(tunes, np.float64)
+    sel = list(cpu_chans)
+    cols = sel + [c + i for i in sel]
+    planes = list(planes)
+    kw = dict(spectra=spectra, n=QUALITY["frames"], fs=FS, **cfg)
+    reset_launches(front, wfm_tail)
+    t0 = time.perf_counter()
+    rx, st, outs = q.run_chain("cuda", planes, tunes, True, **kw)
+    outs = [q.tree_map(lambda v: v.cpu(), o) for o in outs]
+    card_s = time.perf_counter() - t0
+    k1, k2 = front.fused_front.launches, wfm_tail.wfm_tail.launches
+    _, stc, outs_c = q.run_chain(
+        "cpu", (np.ascontiguousarray(x[:, cols]) for x in planes),
+        tunes[sel], True, **kw)
+    worst = {}
+    for out, oc in zip(outs, outs_c):
+        diffs = {"audio": float((out["audio"][:, sel] - oc["audio"])
+                                .abs().max())}
+        if spectra:
+            diffs["spectrum"] = float((out["spectrum"][:, sel]
+                                       - oc["spectrum"]).abs().max())
+            diffs["snr"] = float((out["smeter"]["snr_db"][:, sel]
+                                  - oc["smeter"]["snr_db"]).abs().max())
+        if "rds_soft" in oc:
+            scale = float(oc["rds_soft"].abs().max())
+            diffs["rds_soft"] = float((out["rds_soft"][:, sel]
+                                       - oc["rds_soft"]).abs().max()) / scale
+        for key in ("pilot_locked", "rds_timing"):
+            if key in oc and not bool((out[key][:, sel] == oc[key]).all()):
+                raise RuntimeError(f"phase57 {tag}: {key} on the card "
+                                   f"differs from the CPU's")
+        for key, v in diffs.items():
+            worst[key] = max(worst.get(key, 0.0), v)
+    k = len(outs)
+    want_k2 = k if cfg["mode"] == DemodMode.FMS else 0
+    bounds = {"audio": 2e-4, "spectrum": 0.1, "snr": 0.1,
+              "rds_soft": SOFT_RTOL}
+    log(f"phase57 {tag}: card vs CPU on channels {sel}: "
+        + ", ".join(f"{key} {v:.3g} (<= {bounds[key]})"
+                    for key, v in worst.items())
+        + f"; K1 {k1} K2 {k2} (want {k} {want_k2}), card {card_s:.2f} s")
+    if any(v > bounds[key] for key, v in worst.items()):
+        raise RuntimeError(f"phase57 {tag}: the card disagrees with the CPU")
+    if (k1, k2) != (k, want_k2):
+        raise RuntimeError(f"phase57 {tag}: K1 {k1} K2 {k2} launches, want "
+                           f"{k} {want_k2}")
+    return dict(outs=outs, state=st, rx=rx, outs_c=outs_c, state_c=stc)
+
+
+def side_by_side(tag: str, card, cpu, sel, fmt: str = ".2f") -> None:
+    """Logs card[ch] beside cpu[i] for the i-th channel ch of sel."""
+    log(f"phase57 {tag} card / CPU: " + ", ".join(
+        f"ch{ch} {card[ch]:{fmt}} / {cpu[i]:{fmt}}" for i, ch in
+        enumerate(sel)))
+
+
+def phase_quality(torch, front, wfm_tail) -> dict:
+    """Phase 57: the port against the JAX suite's impairment and robustness
+    bounds at full width (pebblesdr_tpu_torch/tools/quality.py, the port of
+    bench.py bench_quality, and the fixtures of tests/test_impairments.py
+    and tests/test_robustness.py).  Every capture at 2.048 Msps, N = 32768,
+    64 channels, each channel on its own columns, through Receiver.step_many
+    at K = 32 (quality_capture: launches counted, channels held to the CPU
+    port), every channel checked: the L-only stereo program (even channels
+    clean, >= 30 dB; odd through the 15 us / -10 dB two-ray channel, > 15
+    dB and the L tone > 0.5), the same program at the hq geometry (>= 40
+    dB), the RDS curve (channel c at QUALITY_RDS_SNRS[c % 5], noise from
+    default_rng(11 + c); two dispatches; BLER 0 and "PEBBLES " on every
+    20 dB channel, the pooled BLER weakly non-increasing over 12 -> 16 ->
+    20 dB), AM with a -20 dB neighbour and a -50 dB CW spur (c % 3: clean,
+    neighbour, spur; over the JAX test's 12 blocks, each impaired channel's
+    SNR within 1 dB of the clean channels'; also printed over 16 and 32
+    blocks, where the clean SNR leaves the DC blocker's transient and the
+    spur costs more, in both packages), three FM stations in one capture
+    on every column (channel c tuned to station c % 3: own tone > 0.25,
+    ten times any other), 128
+    AM blocks with channel c at 123 456 + 7 919 c Hz (finite audio on
+    every block, mixer phase in [0, 1), the RMS over the last half steady
+    to 1 %), the display offset (0 and 10 dB with spectra and a 1e-2
+    noise floor: every peak +10.0 +- 0.1 dB, the S-meter SNR equal +- 0.2)
+    and the AGC hang (64 rows of bench_quality's dropout, row c's noise
+    from default_rng(5 + c): parallel vs scan < 3 dB on every row, K4's
+    launches counted, row 0 held to the CPU).  Then the card's quality
+    row (the tool's Receiver captures at 64 channels, with the AGC hangs
+    above) and the seconds of each capture."""
+    from pebblesdr_tpu_torch.demod.modes import DemodMode
+    from pebblesdr_tpu_torch.ops import agc
+    from pebblesdr_tpu_torch.tools import quality as q
+    c, n, k = (QUALITY[key] for key in ("channels", "frames", "blocks"))
+    rows = n * k
+    res, secs = {}, {}
+    t_phase = time.perf_counter()
+
+    def timed(name, t0):
+        secs[name] = time.perf_counter() - t0
+
+    # stereo: even channels clean, odd through the two-ray channel
+    t0 = time.perf_counter()
+    prog = q.stereo_program(rows)
+    clean = prog.astype(np.complex64)
+    echoed = q.two_ray(prog).astype(np.complex64)
+    plane = q.build_plane(lambda ch: echoed if ch % 2 else clean, range(c),
+                          rows)
+    r = quality_capture(torch, front, wfm_tail, "stereo", [plane],
+                        [q.STEREO_HZ] * c, [0, 1], mode=DemodMode.FMS,
+                        agc_mode="off")
+    rate = r["rx"].cfg.audio_rate
+    aud, aud_c = q.audio_of(r["outs"]), q.audio_of(r["outs_c"])
+    seps = np.array([q.separation_db(a, rate) for a in aud])
+    tone_l = np.array([q.tone_amp(a[0, a.shape[-1] // 2:], 700.0, rate)
+                       for a in aud])
+    side_by_side("stereo separation dB (ch0 clean, ch1 two-ray)", seps,
+                 [q.separation_db(a, rate) for a in aud_c], [0, 1])
+    even, odd = seps[0::2], seps[1::2]
+    log(f"phase57 stereo: clean separation min {even.min():.2f} max "
+        f"{even.max():.2f} dB (>= {SEPARATION_DB}); two-ray min "
+        f"{odd.min():.2f} max {odd.max():.2f} dB (> "
+        f"{MULTIPATH_SEPARATION_DB}), L tone min {tone_l[1::2].min():.4f} "
+        f"(> {MULTIPATH_TONE})")
+    if not (even.min() >= SEPARATION_DB and odd.min() > MULTIPATH_SEPARATION_DB
+            and tone_l[1::2].min() > MULTIPATH_TONE):
+        raise RuntimeError("phase57 stereo: a channel misses its bound")
+    res["stereo"] = dict(clean=float(even.min()), two_ray=float(odd.min()))
+    timed("stereo", t0)
+
+    # the same program at the hq geometry, every channel clean
+    t0 = time.perf_counter()
+    plane = q.build_plane(lambda _: clean, range(c), rows)
+    r = quality_capture(torch, front, wfm_tail, "stereo hq", [plane],
+                        [q.STEREO_HZ] * c, [0], mode=DemodMode.FMS,
+                        agc_mode="off", wfm_hq=True)
+    rate = r["rx"].cfg.audio_rate
+    seps = np.array([q.separation_db(a, rate) for a in q.audio_of(r["outs"])])
+    side_by_side("hq separation dB", seps,
+                 [q.separation_db(q.audio_of(r["outs_c"])[0], rate)], [0])
+    log(f"phase57 stereo hq: separation min {seps.min():.2f} max "
+        f"{seps.max():.2f} dB (>= {HQ_SEPARATION_DB})")
+    if not seps.min() >= HQ_SEPARATION_DB:
+        raise RuntimeError("phase57 stereo hq: a channel below its bound")
+    res["stereo_hq"] = float(seps.min())
+    timed("stereo hq", t0)
+
+    # the RDS curve: channel c at QUALITY_RDS_SNRS[c % 5]
+    t0 = time.perf_counter()
+    d = QUALITY_RDS_DISPATCHES
+    carrier = q.rds_carrier(rows * d)
+    snr_of = [QUALITY_RDS_SNRS[ch % len(QUALITY_RDS_SNRS)] for ch in range(c)]
+    plane = q.build_plane(
+        lambda ch: q.rds_noisy(carrier, snr_of[ch], q.RDS_SEED + ch),
+        range(c), rows * d)
+    top = snr_of.index(max(QUALITY_RDS_SNRS))
+    r = quality_capture(torch, front, wfm_tail, "RDS",
+                        [plane[i * rows:(i + 1) * rows] for i in range(d)],
+                        [q.RDS_TUNE_HZ] * c, [top], mode=DemodMode.FMS,
+                        rds=True)
+    del plane
+    decs = q.rds_decode(r["outs"], c)
+    (dec_c, grp_c), = q.rds_decode(r["outs_c"], 1)
+    log(f"phase57 RDS ch{top} ({snr_of[top]:g} dB) block errors / ok card / "
+        f"CPU: {decs[top][0].block_errors}/{decs[top][0].blocks_ok} / "
+        f"{dec_c.block_errors}/{dec_c.blocks_ok}")
+    pooled = {}
+    for snr in QUALITY_RDS_SNRS:
+        chans = [ch for ch in range(c) if snr_of[ch] == snr]
+        errs = sum(decs[ch][0].block_errors for ch in chans)
+        tot = sum(decs[ch][0].block_errors + decs[ch][0].blocks_ok
+                  for ch in chans)
+        pooled[snr] = errs / max(1, tot)
+    clean_ch = [ch for ch in range(c) if snr_of[ch] == max(QUALITY_RDS_SNRS)]
+    bad = [ch for ch in clean_ch if decs[ch][0].block_errors
+           or decs[ch][1].ps_name != q.PS]
+    log(f"phase57 RDS: pooled BLER " + ", ".join(
+        f"{snr:g} dB {v:.4f}" for snr, v in pooled.items())
+        + f"; {len(clean_ch)} channels at {max(QUALITY_RDS_SNRS):g} dB, "
+        f"failing (errors or PS): {bad}; CPU ch{top} PS {grp_c.ps_name!r}")
+    if bad or not pooled[12.0] >= pooled[16.0] >= pooled[20.0]:
+        raise RuntimeError("phase57 RDS: the BLER curve misses its bounds")
+    res["rds"] = pooled
+    timed("RDS", t0)
+
+    # AM: clean, with the neighbour, with the CW spur (channel c: c % 3)
+    t0 = time.perf_counter()
+    base = q.am_station(rows)
+    sigs = [base.astype(np.complex64),
+            (base + q.am_neighbour(rows)).astype(np.complex64),
+            (base + q.cw_spur(rows)).astype(np.complex64)]
+    plane = q.build_plane(lambda ch: sigs[ch % 3], range(c), rows)
+    r = quality_capture(torch, front, wfm_tail, "AM interference", [plane],
+                        [q.AM_HZ] * c, [0, 1, 2], mode=DemodMode.AM,
+                        agc_mode="off")
+    rate, blk = r["rx"].cfg.audio_rate, r["rx"].audio_blk
+    aud, aud_c = q.audio_of(r["outs"]), q.audio_of(r["outs_c"])
+    losses = {}
+    for kb in AM_WINDOWS:
+        snrs = np.array([q.am_audio_snr(a[:kb * blk], rate) for a in aud])
+        side_by_side(f"AM SNR dB over the first {kb} blocks (clean, "
+                     f"neighbour, spur)", snrs,
+                     [q.am_audio_snr(a[:kb * blk], rate) for a in aud_c],
+                     [0, 1, 2])
+        ref = snrs[0::3].max()
+        losses[kb] = {name: float(ref - snrs[i::3].min())
+                      for i, name in ((1, "neighbour"), (2, "spur"))}
+        log(f"phase57 AM over the first {kb} blocks: clean SNR "
+            f"{snrs[0::3].min():.2f}-{ref:.2f} dB; loss with the neighbour "
+            f"{losses[kb]['neighbour']:.3f}, with the spur "
+            f"{losses[kb]['spur']:.3f} dB"
+            + (f" (< {AM_IMPAIR_DB})" if kb == AM_WINDOWS[0] else ""))
+    if max(losses[AM_WINDOWS[0]].values()) >= AM_IMPAIR_DB:
+        raise RuntimeError("phase57 AM: an impairment costs 1 dB or more")
+    res["am"] = losses
+    timed("AM interference", t0)
+
+    # three stations in one capture, channel c tuned to station c % 3
+    t0 = time.perf_counter()
+    cap = q.three_stations(rows, STATIONS, STATION_TONES)
+    plane = q.build_plane(lambda _: cap, range(c), rows)
+    tunes = [STATIONS[ch % 3] for ch in range(c)]
+    r = quality_capture(torch, front, wfm_tail, "three stations", [plane],
+                        tunes, [0, 1, 2], mode=DemodMode.FMS)
+    rate = r["rx"].cfg.audio_rate
+    skip = 8 * r["rx"].audio_blk         # tests/test_robustness.py:43
+
+    def own_other(a, ch):
+        tone = STATION_TONES[ch % 3]
+        own = q.station_amp(a[0, skip:], tone, rate)
+        other = max(q.station_amp(a[0, skip:], f, rate)
+                    for f in STATION_TONES if f != tone)
+        return own, own / max(other, 1e-9)
+
+    got = np.array([own_other(a, ch)
+                    for ch, a in enumerate(q.audio_of(r["outs"]))])
+    worst = (float(got[:, 0].min()), float(got[:, 1].min()))
+    side_by_side("three stations own tone", got[:, 0],
+                 [own_other(a, ch)[0]
+                  for ch, a in enumerate(q.audio_of(r["outs_c"]))],
+                 [0, 1, 2], fmt=".4f")
+    log(f"phase57 three stations: least own tone {worst[0]:.4f} (> 0.25), "
+        f"least own / other {worst[1]:.1f} (> 10)")
+    if not (worst[0] > 0.25 and worst[1] > 10):
+        raise RuntimeError("phase57 three stations: a channel lost its "
+                           "station or hears another")
+    res["three_stations"] = dict(own=worst[0], ratio=worst[1])
+    timed("three stations", t0)
+
+    # the long run: channel c's station at f0 + step * c, 128 blocks
+    t0 = time.perf_counter()
+    freqs = LONG_RUN["f0"] + LONG_RUN["step"] * np.arange(c)
+
+    def long_planes():
+        for i in range(LONG_RUN["dispatches"]):
+            t = (i * rows + np.arange(rows)) / FS
+            yield q.build_plane(lambda ch: q.am_long(t, freqs[ch]), range(c),
+                                rows)
+
+    r = quality_capture(torch, front, wfm_tail, "long run", long_planes(),
+                        freqs, [0], mode=DemodMode.AM, agc_mode="off")
+    audio = torch.cat([o["audio"] for o in r["outs"]])       # [B, C, M]
+    finite = torch.isfinite(audio).flatten(1).all(dim=1)
+    rms = audio.double().pow(2).mean(dim=-1).sqrt().numpy()  # [B, C]
+    tail = rms[rms.shape[0] // 2:]
+    steady = tail.std(axis=0) / tail.mean(axis=0)
+    ph = r["state"].mixer.phase.cpu().double().numpy()
+    d_ph = abs(ph[0] - float(r["state_c"].mixer.phase[0]))
+    d_ph = min(d_ph, 1.0 - d_ph)
+    log(f"phase57 long run: {int(finite.sum())} of {finite.numel()} blocks "
+        f"finite on every channel; mixer phase in [{ph.min():.6f}, "
+        f"{ph.max():.6f}], ch0 card vs CPU {d_ph:.2e} cycles (<= 1e-4); "
+        f"RMS over the last {tail.shape[0]} blocks steady to "
+        f"{steady.max():.2e} at worst (< 0.01)")
+    if not (bool(finite.all()) and ph.min() >= 0.0 and ph.max() < 1.0
+            and steady.max() < 0.01 and d_ph <= 1e-4):
+        raise RuntimeError("phase57 long run: drift, NaN or an unbounded "
+                           "phase")
+    res["long_run"] = float(steady.max())
+    timed("long run", t0)
+
+    # the display offset: spectra at 0 and 10 dB, the S-meter unmoved
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    tone = (0.5 * np.exp(2j * np.pi * 100_000.0 * np.arange(rows) / FS)
+            + 1e-2 * (rng.standard_normal(rows)
+                      + 1j * rng.standard_normal(rows))).astype(np.complex64)
+    plane = q.build_plane(lambda _: tone, range(c), rows)
+    offs = {}
+    for off in (0.0, 10.0):
+        r = quality_capture(torch, front, wfm_tail, f"db_offset {off:g}",
+                            [plane], [100_000.0] * c, [0], spectra=True,
+                            mode=DemodMode.AM, db_offset=off)
+        o = r["outs"][0]
+        offs[off] = (o["spectrum"].amax(dim=-1).double(),
+                     o["smeter"]["snr_db"].double())
+    d_peak = (offs[10.0][0] - offs[0.0][0] - 10.0).abs().max().item()
+    d_snr = (offs[10.0][1] - offs[0.0][1]).abs().max().item()
+    log(f"phase57 db_offset: every block and channel's spectrum peak moved "
+        f"10 dB within {d_peak:.2e} (<= 0.1), S-meter SNR within "
+        f"{d_snr:.2e} dB (<= 0.2); SNR {offs[0.0][1].min().item():.2f}-"
+        f"{offs[0.0][1].max().item():.2f} dB")
+    if not (d_peak <= 0.1 and d_snr <= 0.2):
+        raise RuntimeError("phase57 db_offset: the offset moved the wrong "
+                           "thing")
+    res["db_offset"] = dict(peak=d_peak, snr=d_snr)
+    timed("db_offset", t0)
+
+    # the AGC hang: 64 rows, the scan AGC's smoother on K4
+    t0 = time.perf_counter()
+    reset_launches(front, wfm_tail)
+    ys = q.agc_pair("cuda", range(c))
+    k4 = agc.agc_scan.launches
+    hangs = q.agc_hangs(ys)
+    ys_c = q.agc_pair("cpu", [0])
+    d_agc = max(float(np.abs(ys[a][0] - ys_c[a][0]).max()
+                      / np.abs(ys_c[a][0]).max()) for a in ys)
+    want_k4 = ys["scan"].shape[-1] // q.AGC_BLOCK
+    side_by_side("AGC hang dB", hangs, q.agc_hangs(ys_c), [0], fmt=".4f")
+    log(f"phase57 AGC hang over {c} rows: max {hangs.max():.4f} dB (< "
+        f"{AGC_HANG_DB}); row 0 card vs CPU {d_agc:.3g} of scale (<= "
+        f"{LOOP_ATOL}); K4 agc_scan launches {k4} (want {want_k4})")
+    if not (hangs.max() < AGC_HANG_DB and d_agc <= LOOP_ATOL
+            and k4 == want_k4):
+        raise RuntimeError("phase57 AGC: hang, card vs CPU or K4 launches")
+    res["agc"] = dict(hang=float(hangs.max()), k4_launches=k4)
+    timed("AGC hang", t0)
+
+    # the card's quality row at 64 channels: the tool's Receiver captures,
+    # the AGC hangs above
+    t0 = time.perf_counter()
+    reset_launches(front, wfm_tail)
+    row = q.row_of(dict(q.receiver_metrics("cuda", range(c)),
+                        agc_hang_par_vs_scan_db=hangs))
+    res["row_launches"] = dict(k1=front.fused_front.launches,
+                               k2=wfm_tail.wfm_tail.launches)
+    log(f"phase57 quality row (tools/quality.py, {c} channels, K = "
+        f"{q.K}): {json.dumps(row)}; launches {res['row_launches']}")
+    res["row"] = row
+    timed("quality row", t0)
+    log("phase57 seconds: " + ", ".join(f"{name} {v:.1f}"
+                                        for name, v in secs.items())
+        + f"; the phase {time.perf_counter() - t_phase:.1f} s")
+    res["seconds"] = secs
+    return res
+
+
 def receiver_for_cli(torch):
     """The Receiver the CLI builds for phase 45's arguments."""
     from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
@@ -5646,6 +6034,8 @@ def main() -> int:
     clock("phase 55")
     phase_examples(torch)
     clock("phase 56")
+    phase_quality(torch, front, wfm_tail)
+    clock("phase 57")
 
     c, n, k = HEADLINE["channels"], HEADLINE["frames"], HEADLINE["blocks"]
     t = n * k

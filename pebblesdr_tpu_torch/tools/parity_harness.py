@@ -33,11 +33,11 @@ import numpy as np
 import scipy.signal
 import torch
 
-from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
 from pebblesdr_tpu_torch.demod.modes import DemodMode, from_string
 from pebblesdr_tpu_torch.io import wav
 from pebblesdr_tpu_torch.ops import decimator as decim_mod
 from pebblesdr_tpu_torch.ops import fir as fir_mod
+from pebblesdr_tpu_torch.tools import quality
 
 DC_ALPHA = 0.9999
 # the modes with a golden
@@ -435,34 +435,24 @@ def make_fixture(path: str, mode: DemodMode = DemodMode.AM,
 def run_chain(iq: np.ndarray, fs: int, mode: DemodMode, tunes, frames: int,
               device, blocks: int = 1, batched: bool = False):
     """The port's Receiver (AGC off) on one capture shared by every channel,
-    channel c tuned to tunes[c]: block by block through Receiver.step, or
-    with batched K = blocks blocks a dispatch through Receiver.step_many.
-    The capture's whole dispatches run (whole blocks with step).  Returns
-    (audio on the host, float64 [C, M], [C, 2, M] for FM stereo: left,
-    right; the Receiver)."""
+    channel c tuned to tunes[c], through tools/quality.py's run_chain:
+    block by block through Receiver.step, or with batched K = blocks
+    blocks a dispatch through Receiver.step_many.  The capture's whole
+    dispatches run (whole blocks with step).  Returns (audio on the host,
+    float64 [C, M], [C, 2, M] for FM stereo: left, right; the Receiver)."""
     tunes = np.atleast_1d(np.asarray(tunes, np.float64))
     c = len(tunes)
-    rx = Receiver(ReceiverConfig(sample_rate=fs, frames_per_buffer=frames,
-                                 channels=c, mode=mode, agc_mode="off"),
-                  device)
-    state = rx.init_state()
-    params = rx.default_params(tunes)
     rows = frames * (blocks if batched else 1)
-    ri = np.stack([iq.real, iq.imag], axis=1).astype(np.float32)
-    outs = []
-    for i in range(len(iq) // rows):
-        # the [rows, 2C] lane-packed plane: C copies of I, then of Q
-        plane = torch.from_numpy(ri[i * rows:(i + 1) * rows]).to(
-            rx.device).repeat_interleave(c, dim=1)
-        if batched:
-            state, out = rx.step_many(state, params, plane, spectra=False)
-            a = out["audio"]                       # [K, C, (2,) M]
-            outs.append(a.movedim(0, -2).reshape(*a.shape[1:-1], -1))
-        else:
-            state, out = rx.step(state, params, plane, spectra=False)
-            outs.append(out["audio"])              # [C, (2,) M]
-    audio = torch.cat(outs, dim=-1)
-    return audio.cpu().numpy().astype(np.float64), rx
+    ri = torch.from_numpy(np.stack([iq.real, iq.imag], axis=1)
+                          .astype(np.float32))
+    # the [rows, 2C] lane-packed planes, built on the device: C copies of
+    # I, then of Q
+    planes = (ri[i * rows:(i + 1) * rows].to(device)
+              .repeat_interleave(c, dim=1) for i in range(len(iq) // rows))
+    rx, _, outs = quality.run_chain(device, planes, tunes, batched,
+                                    n=frames, fs=fs, mode=mode,
+                                    agc_mode="off")
+    return quality.audio_of(outs), rx
 
 
 # ------------------------------------------------------------------ main

@@ -259,8 +259,10 @@ def test_port_imports_no_jax():
     and soundcard modules, and ``python -m pebblesdr_tpu_torch.serve.server
     --help``), and parallel/ (a one-rank CPU world: the sharded step's
     step_many and JAX-contract call, the mode experts' step_many, and the
-    CLI's --assign), the parity harness (a chain run and a golden) and an
-    example runs without loading jax or any module of the JAX package."""
+    CLI's --assign), the parity harness (a chain run and a golden), an
+    example and the quality row (tools/quality.py quality_row on the CPU: 2
+    channels, 2-block captures) runs without loading jax or any module of
+    the JAX package."""
     code = (
         "import importlib, pkgutil, sys, numpy as np, torch\n"
         "import pebblesdr_tpu_torch as pkg\n"
@@ -465,6 +467,10 @@ def test_port_imports_no_jax():
         "for name in ('ex01_file_playback', 'ex03_wfm_rds', "
         "'ex04_station_bank', 'ex05_interactive_and_decoders'):\n"
         "    assert 'pebblesdr_tpu_torch.examples.' + name in sys.modules\n"
+        "from pebblesdr_tpu_torch.tools import quality\n"
+        "row = quality.quality_row('cpu', channels=2, blocks=2)\n"
+        "assert list(row)[:len(quality.ROW_KEYS)] == list(quality.ROW_KEYS)\n"
+        "assert 'stereo_sep_db_range' in row\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'pebblesdr_tpu' or m.startswith('pebblesdr_tpu.')]\n"
         "assert not bad, bad\n"
