@@ -140,17 +140,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      plan (factor 8, 283 taps) against its plain version, both timed;
  30. the recurrence kernels of csrc/recur.cu at the module shapes, each
      driven once through its entry point (launches counted), then held to
-     its plain version on the inputs that call gave it (max |kernel -
-     plain| <= 1e-5, phases on the circle) and timed against it, with its
-     per-launch device time and its bound (the bytes, or the serial floor
-     from the register-only chain probe): pll_scan atan2 (NFM "pll",
-     [64, 32768] at 64 ksps, the tone SNR held), cross and pilot (the
-     composite's [64, 131072], held and timed on its first 8192 steps; the
-     loop locked), pll_chunk_scan (SAM smooth "loop", [64, 4096] chunk
-     phasors, the tone SNR held) and agc_scan ([64, 2048] at stride 16,
+     its plain version on the inputs that call gave it (K3 and K3c bit for
+     bit, K4 within 1e-5) and timed against it, with its per-launch device
+     time and its bound (the bytes, or the serial floor from the chain
+     probe fed from memory, printed beside the register-only probe's):
+     pll_scan atan2 (NFM "pll", [64, 32768] at 64 ksps, the tone SNR
+     held), cross and pilot (the composite's [64, 131072], held and timed
+     on its first 8192 steps; the loop locked), pll_chunk_scan (SAM smooth
+     "loop", [64, 4096] chunk phasors, the tone SNR held; and its pilot
+     form on the same phasors) and agc_scan ([64, 2048] at stride 16,
      "long" and "med": per launch and per call, one launch and one kernel
-     in a call's trace, its bound from the chain probe fed from memory,
-     printed beside the register-only probe's);
+     in a call's trace);
  31. the receivers that run the per-sample loop on the card against the
      CPU (4 channels: FMS with the scan RDS carrier, a dispatch of 3
      32768-frame blocks; SAM on 64-sample blocks, 2048 frames, dispatches
@@ -158,8 +158,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      scan carrier; the timed cells wfm_rds_scan_64ch (wfm_rds_64ch with
      rds_alg="scan") and sam_short_64ch (SAM, 64 channels, 128 blocks of
      2048 frames), windows interleaved, with their launch counts, tone
-     SNR and dispatch profiles; then pll_scan at each cell's own inputs
-     held to its plain version and timed;
+     SNR and dispatch profiles (device busy a dispatch); then pll_scan at
+     each cell's own inputs held to its plain version bit for bit and
+     timed, per launch beside its bound;
  32. K5 (csrc/recur.cu iq_lms_scan, the adaptive IQ balance's LMS loop)
      through its entry point scanops.auto_iq_balance at am_iqauto_64ch's
      stream ([64, 1048576] complex64: the AM plane with the IQ imbalance
@@ -2469,12 +2470,17 @@ LOOP_ATOL = 1e-5      # recurrence kernel vs plain: phases (rad, on the
 #                       circle), freqs (rad/sample) and AGC levels (log10):
 #                       the kernel repeats the plain version's float32
 #                       operations one by one (no FMA contraction, the same
-#                       sincosf / atan2f / hypotf), bit-equal where measured
+#                       sincosf / atan2f / hypotf); K3 and K3c are held bit
+#                       for bit (hold_loop exact=True)
 LOOP_PREFIX = 8192    # steps of the composite-rate forms held to (and timed
 #                       against) the plain version: its Python loop costs
 #                       ~0.3 ms a step on the card
 LOOP_FS = 64_000.0    # the narrowband demod rate (AM's plan at 2.048 Msps)
 PROBE_STEPS = 32768   # steps of the chain probe (serial floor)
+# the forms whose fed probe phase 30 times: K3's detectors, K3c's two forms
+# (their chain alone) and K4's two (its loop in one lane)
+LOOP_FED = ("atan2", "cross", "costas", "pilot", "chunk", "chunk pilot",
+            "agc hang", "agc")
 # phase 31's cells: (name, mode, options, frames, blocks)
 LOOP_CELLS = (("wfm_rds_scan_64ch", "FMS", dict(rds=True, rds_alg="scan"),
                32768, 32),
@@ -2500,13 +2506,14 @@ def captured(module, name: str):
 
 
 def hold_loop(torch, name: str, kernel, plain, args, angles, tag: str,
-              steps: int | None = None) -> dict:
+              steps: int | None = None, exact: bool = False) -> dict:
     """A recurrence kernel against its plain version on the same inputs
     (args; with steps, the first `steps` columns of args[0] only): the
     plain version once, timed by events (a Python loop of ~20 launches a
     step), the kernel timed over 10 calls, its per-launch device time
     (torch.profiler), and every output compared (the indices in `angles`
-    on the circle).  Raises past LOOP_ATOL."""
+    on the circle).  Raises past LOOP_ATOL, or with exact=True unless
+    every output and state leaf equals the plain version's bit for bit."""
     if steps is not None:
         args = (args[0][:, :steps].contiguous(),) + tuple(args[1:])
     out_k = kernel(*args)
@@ -2522,7 +2529,9 @@ def hold_loop(torch, name: str, kernel, plain, args, angles, tag: str,
     # one launch per call, so ms is its launch's time; the profiler's
     # per-launch record where it keeps one (after the earlier phases'
     # profiles of whole dispatches it may record none)
-    lt = kernel_times(torch, lambda: kernel(*args), reps=3)
+    lt = kernel_times(torch, lambda: kernel(*args), reps=3, want=("recur_",))
+    launch = next((v[0] for k, v in lt.items() if k.startswith("recur_")),
+                  float("nan"))
     err = 0.0
     for i, (a, b) in enumerate(zip(out_k, out_p)):
         if not a.numel():
@@ -2532,24 +2541,29 @@ def hold_loop(torch, name: str, kernel, plain, args, angles, tag: str,
             d = torch.angle(torch.exp(1j * d))
         err = max(err, float(d.abs().max()))
     shape = tuple(args[0].shape)
+    equal = all(a.shape == b.shape and torch.equal(a, b)
+                for a, b in zip(out_k, out_p))
     log(f"{tag} {name} {shape}: kernel {ms:.4f} ms per call (per launch "
         f"{breakdown_text(lt)}) vs plain {plain_ms:.1f} ms; max |kernel - "
-        f"plain| {err:.3g} (<= {LOOP_ATOL})")
-    if not err <= LOOP_ATOL:
+        f"plain| {err:.3g} (<= {LOOP_ATOL}); "
+        + ("bit for bit" if equal else "not bit for bit")
+        + (" (required)" if exact else ""))
+    if not err <= LOOP_ATOL or (exact and not equal):
         raise RuntimeError(f"{tag} {name}: the kernel disagrees with its "
-                           f"plain version ({err:.3g})")
+                           f"plain version ({err:.3g}, bit-equal {equal})")
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-            "shape": shape, "launch_ms": lt}
+            "shape": shape, "launch_ms": lt, "launch": launch,
+            "bit_equal": equal}
 
 
 def probe_ns(torch, pll, form: str, steps: int = PROBE_STEPS,
              fed: bool = False) -> float:
     """The serial floor's step latency of one form (ns): the chain probe
     over `steps` steps, timed by events; register-only, or with fed=True
-    (pll.FED_FORMS: the register-only probe of K4 and K6 may fold steps on
-    its constant inputs) one lane of the K4 / K6 kernel's own chain loop,
-    its constants pinned and its inputs read from a small pattern in
-    shared memory."""
+    (pll.FED_FORMS: the register-only probe may fold steps on its constant
+    inputs) one lane of the K4 / K6 kernel's own chain loop, or the K3 /
+    K3c loop kernel's chain alone, its constants pinned and its inputs
+    read from a small pattern in shared memory."""
     pll.chain_probe(form, 256, "cuda", fed=fed)
     ms = time_cuda(torch, lambda: pll.chain_probe(form, steps, "cuda",
                                                   fed=fed), 3)
@@ -2619,12 +2633,16 @@ def phase_loops(torch, front, wfm_tail) -> dict:
         ([64, 32768] at 64 ksps in 1024-sample blocks: [64, 4096] chunk
         phasors; an AM carrier 230 Hz off, noise at 1e-4 since nothing
         band-limits it here), held whole, the audio's tone SNR >=
-        TONE_SNR_DB;
+        TONE_SNR_DB; and its pilot form (the WFM "pll" pilot's flag) on
+        the same phasors;
       * agc_scan: the scan AGC at am_64ch's demod stream ([64, 32768],
         stride 16: 2048 steps) in the modes "long" (the hang) and "med",
         held whole;
-    and each form's serial floor (the chain probe).  Returns the kernel
-    entries of the JSON line keyed by form."""
+    and each form's serial floor: the chain probe on registers and fed
+    from memory (the bound: K3's and K3c's chain alone, K4's loop in one
+    lane).  K3 and K3c are held bit for bit, K4 within LOOP_ATOL (its
+    levels and state equal where measured).  Returns the kernel entries of
+    the JSON line keyed by form."""
     from pebblesdr_tpu_torch.demod import nfm, sam
     from pebblesdr_tpu_torch.ops import agc, pll
     from pebblesdr_tpu_torch.utils import roofline
@@ -2635,10 +2653,11 @@ def phase_loops(torch, front, wfm_tail) -> dict:
     log("phase30 chain probe (ns per step, one thread, registers only): "
         + ", ".join(f"{k} {v:.1f}" for k, v in steps_ns.items()))
     fed_ns = {form: probe_ns(torch, pll, form, fed=True)
-              for form in ("agc hang", "agc")}
-    log("phase30 chain probe fed from memory (ns per step; K4's bound): "
-        + ", ".join(f"{k} {v:.2f} (registers {steps_ns[k]:.2f})"
-                    for k, v in fed_ns.items()))
+              for form in LOOP_FED}
+    log("phase30 chain probe fed from memory (ns per step; the bound of K3, "
+        "K3c and K4): " + ", ".join(f"{k} {v:.2f} (registers "
+                                    f"{steps_ns[k]:.2f})"
+                                    for k, v in fed_ns.items()))
     res = {}
 
     def drive(tag, kind, fn, module, name, det=None):
@@ -2673,9 +2692,9 @@ def phase_loops(torch, front, wfm_tail) -> dict:
     if not snr >= TONE_SNR_DB:
         raise RuntimeError("phase30: NFM 'pll' tone SNR below its bound")
     h = hold_loop(torch, "pll_scan atan2 (NFM pll)", pll.pll_scan,
-                  pll.pll_scan_plain, args, (0, 3), "phase30")
+                  pll.pll_scan_plain, args, (0, 3), "phase30", exact=True)
     res["atan2 nfm"] = dict(h, launches=1, **loop_bound(
-        roofline, "pll_scan", h["shape"], steps_ns["atan2"]))
+        roofline, "pll_scan", h["shape"], fed_ns["atan2"]))
 
     # cross and pilot at the composite shape
     rate, nc = 256_000.0, n * HEADLINE["blocks"] // 8
@@ -2702,10 +2721,10 @@ def phase_loops(torch, front, wfm_tail) -> dict:
             raise RuntimeError(f"phase30: the {det} loop did not lock")
         h = hold_loop(torch, f"pll_scan {det}", pll.pll_scan,
                       pll.pll_scan_plain, args, (0, 3), "phase30",
-                      steps=LOOP_PREFIX)
+                      steps=LOOP_PREFIX, exact=True)
         res[det] = dict(h, launches=1, full_ms=full_ms, full_shape=(c, nc),
                         **loop_bound(roofline, "pll_scan", h["shape"],
-                                     steps_ns[det]))
+                                     fed_ns[det]))
 
     # SAM smooth "loop": pll_chunk_scan
     env = 1 + 0.5 * np.cos(2 * np.pi * 1000.0 * t)
@@ -2724,9 +2743,18 @@ def phase_loops(torch, front, wfm_tail) -> dict:
     if not snr >= TONE_SNR_DB:
         raise RuntimeError("phase30: SAM loop tone SNR below its bound")
     h = hold_loop(torch, "pll_chunk_scan (SAM loop)", pll.pll_chunk_scan,
-                  pll.pll_chunk_scan_plain, args, (0, 3), "phase30")
+                  pll.pll_chunk_scan_plain, args, (0, 3), "phase30",
+                  exact=True)
     res["chunk"] = dict(h, launches=1, **loop_bound(
-        roofline, "pll_chunk_scan", h["shape"], steps_ns["chunk"]))
+        roofline, "pll_chunk_scan", h["shape"], fed_ns["chunk"]))
+    # its pilot form on the same phasors (timed and held; the WFM "pll"
+    # pilot drives it through its entry point in phase 35)
+    args = args[:4] + (True,) + args[5:]
+    h = hold_loop(torch, "pll_chunk_scan pilot", pll.pll_chunk_scan,
+                  pll.pll_chunk_scan_plain, args, (0, 3), "phase30",
+                  exact=True)
+    res["chunk pilot"] = dict(h, **loop_bound(
+        roofline, "pll_chunk_scan", h["shape"], fed_ns["chunk pilot"]))
 
     # the scan AGC at am_64ch's demod stream
     xa = torch.from_numpy((0.5 * np.where((t % 0.3) < 0.15, 1.0, 0.02)
@@ -2754,16 +2782,18 @@ def phase_loops(torch, front, wfm_tail) -> dict:
             f"{fed_ns[form]:.2f} ns a step; registers {steps_ns[form]:.2f})")
         res[f"agc {mode}"] = dict(h, launches=1, launch=launch, **b)
     for key, r in res.items():
+        per = r.get("launch", r["ms"])
         log(f"phase30 {key}: bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
-            f"serial floor {r['serial_ms']:.4f} ms) vs kernel "
-            f"{r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} of it)")
+            f"serial floor {r['serial_ms']:.4f} ms) vs kernel {r['ms']:.4f} "
+            f"ms a call, {per:.4f} a launch ({r['bound_ms'] / per:.1%} of "
+            f"the bound per launch)")
     res["steps_ns"] = steps_ns
     res["fed_ns"] = fed_ns
     return res
 
 
 def phase_loop_cells(torch, receiver, convert, front, wfm_tail,
-                     DemodMode, steps_ns: dict) -> dict:
+                     DemodMode, fed_ns: dict) -> dict:
     """Phase 31: the receivers that run the per-sample loop.  First the
     card against the CPU (C=4): FMS with the scan RDS carrier (32768-frame
     blocks, a dispatch of 3) and SAM on 64-sample blocks (2048 frames,
@@ -2776,7 +2806,8 @@ def phase_loop_cells(torch, receiver, convert, front, wfm_tail,
     pll_scan atan2 over 8192 steps per dispatch), windows interleaved, each
     with its launch counts, tone SNR and a profile of its dispatches; then
     pll_scan at each cell's own inputs (captured from a dispatch) held to
-    its plain version and timed."""
+    its plain version bit for bit and timed, its bound from the chain-only
+    probe fed from memory (fed_ns, phase 30)."""
     from pebblesdr_tpu_torch.ops import pll
     from pebblesdr_tpu_torch.utils import roofline
     phase_slice(torch, receiver, convert, front, wfm_tail, DemodMode.FMS,
@@ -2801,18 +2832,22 @@ def phase_loop_cells(torch, receiver, convert, front, wfm_tail,
         torch.cuda.synchronize()
         h = hold_loop(torch, f"pll_scan {det} ({cell['name']})",
                       pll.pll_scan, pll.pll_scan_plain, seen[0][0], (0, 3),
-                      "phase31")
+                      "phase31", exact=True)
         done[cell["name"]] = {key: cell[key] for key in (
             "launches", "block_ms", "msps", "realtime", "peak_gib",
             "snr_db")}
         done[cell["name"]].update(prof)
         done[cell["name"]]["k3"] = dict(h, **loop_bound(
-            roofline, "pll_scan", h["shape"], steps_ns[det]))
+            roofline, "pll_scan", h["shape"], fed_ns[det]))
         n_dispatch = WARMUP + WINDOWS * WINDOW_DISPATCHES
+        k3 = done[cell["name"]]["k3"]
         log(f"phase31 {cell['name']}: pll_scan {det} launches "
             f"{cell['launches'][5]} ({cell['launches'][5] / n_dispatch:g} "
-            f"per dispatch); {h['ms']:.4f} ms of the dispatch's "
-            f"{cell['block_ms'] * cell['blocks']:.4f} ms")
+            f"per dispatch); {h['ms']:.4f} ms a call, {h['launch']:.4f} a "
+            f"launch ({k3['bound_ms'] / h['launch']:.1%} of its "
+            f"{k3['bound_ms']:.4f} ms bound) of the dispatch's "
+            f"{cell['block_ms'] * cell['blocks']:.4f} ms, device busy "
+            f"{prof['busy_ms']:.4f} ms a dispatch")
     del cells
     torch.cuda.empty_cache()
     return done
@@ -5976,7 +6011,7 @@ def main() -> int:
     loops = phase_loops(torch, front, wfm_tail)
     clock("phase 30")
     lcells = phase_loop_cells(torch, receiver, convert, front, wfm_tail,
-                              DemodMode, loops["steps_ns"])
+                              DemodMode, loops["fed_ns"])
     clock("phase 31")
     k5 = phase_iq_lms(torch, front, wfm_tail)
     clock("phase 32")
@@ -6174,8 +6209,9 @@ def main() -> int:
         # one call of the entry point, times at its shape (cross and pilot
         # on the first LOOP_PREFIX steps of the composite).  The bound is
         # the larger of the bytes over 3.35 TB/s and the serial floor
-        # (steps x the chain probe's step latency); no PyTorch call
-        # computes a recurrence: library_ms null
+        # (steps x the step latency of the chain probe fed from memory:
+        # K3's and K3c's chain alone, K4's loop in one lane); no PyTorch
+        # call computes a recurrence: library_ms null
         {"name": name, "route": "cuda", "source": pll.SOURCE,
          "replaces": replaces, "launches": launches,
          **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms",

@@ -24,27 +24,17 @@
 // chain, times the steps.  Each channel's state (three to six scalars)
 // feeds the next sample, so a channel is one thread that carries its state
 // in registers; the bytes (x read once, two float32 outputs written once)
-// would take ~4 us at 3.35 TB/s for [64, 32768], the chain ~0.1 us a step.
-// K3 and K3c's design (recur_kernel) keeps memory off that chain:
-//   * a block serves kCb = 8 channels (64 channels: 8 blocks on 8 SMs);
-//     warp 0's first 8 lanes run the recurrences, warps 1-3 stage data;
-//   * the [C, N] rows are channel-major, so one thread walking its own row
-//     would read 8 rows N apart per warp step: instead the stagers copy
-//     tiles of [8 channels x kTile samples] into shared memory with
-//     cp.async (whole rows of kTile samples, coalesced), double-buffered,
-//     while the 8 lanes run the previous tile from shared memory (rows
-//     padded by 16 bytes, so the 8 lanes' reads fall in distinct banks);
-//   * outputs go to a shared tile of the same shape, and the stagers write
-//     the previous tile's rows to device memory while the next runs;
-//   * the arithmetic is the JAX step's in IEEE float32: products and sums
-//     with round-to-nearest intrinsics (no FMA contraction, so each value
-//     is the plain version's op by op), sincosf / atan2f / hypotf / fmodf
-//     (no fast-math intrinsics): the phase integrates every step's
-//     rounding.  The wrap mod(a + pi, 2 pi) - pi takes an exact fast path
-//     for a + pi in [0, 4 pi) (one subtraction, exact by Sterbenz) and
-//     fmodf otherwise.
-// K4 and K6, whose steps are shorter, run on a design of their own, the
-// short-chain kernel (recur_short_kernel, below).
+// would take ~0.01 ms at 3.35 TB/s for [64, 32768], the chain ~0.1-0.3 us
+// a step.  The arithmetic is the JAX step's in IEEE float32: products and
+// sums with round-to-nearest intrinsics (no FMA contraction, so each value
+// is the plain version's op by op), sincosf / atan2f / hypotf / fmodf (no
+// fast-math intrinsics): the phase integrates every step's rounding.  The
+// wrap mod(a + pi, 2 pi) - pi takes an exact fast path for a + pi in
+// [0, 4 pi) (one subtraction, exact by Sterbenz) and fmodf otherwise.
+// K3 and K3c run on the loop kernel (recur_loop_kernel), K4 and K6, whose
+// steps are shorter, on the short-chain kernel (recur_short_kernel): a
+// chain warp whose lanes carry a channel each and a copy warp that feeds
+// them through mbarrier stages, both below.
 // K7 has one sequence and no input: one thread runs the chain into
 // shared-memory tiles and the block's other warps turn each finished tile
 // into samples (recur_sweep_kernel).
@@ -57,11 +47,8 @@
 
 namespace {
 
-constexpr int kCb = 8;            // channels per block, one thread each
-constexpr int kThreads = 128;     // warp 0: the recurrences; 1-3: staging
+constexpr int kThreads = 128;     // K7: the chain thread's warp, 3 writers
 constexpr int kStagers = kThreads - 32;
-constexpr int kTile = 128;        // samples per staged tile
-constexpr int kPad = 16;          // bytes of padding per staged row
 
 constexpr float kPi = 3.14159265358979f;       // float32(pi)
 constexpr float kTwoPi = 6.28318530717959f;    // float32(2 pi)
@@ -99,11 +86,17 @@ struct Io {
 // K3: the loop of pll.pll_run.  Per sample: amp' = amp + 1e-3 (|x| - amp);
 // the detector's error; fdev' = clip(fdev + beta err); phase' =
 // wrap(phase + (wc + fdev') + alpha err).  Outputs the phase used on the
-// sample and fdev' + wc.
+// sample and fdev' + wc.  The step is split where the loop state enters:
+// amp_next and denom read no phase or fdev (the amp EWMA, and the costas
+// and pilot detectors' denominators from amp'), so the loop kernel's copy
+// warp computes them, and its chain lane runs chain alone, which carries
+// phase and fdev.
 template <int DET>
 struct PllStep {
   using In = float2;
   static constexpr int kOut = 2;
+  // whether chain reads denom's q (costas, pilot)
+  static constexpr bool kDenom = DET == kCostas || DET == kPilot;
   float alpha, beta, wc, dev_lo, dev_hi;
   float phase, fdev, amp;
 
@@ -117,14 +110,22 @@ struct PllStep {
     static_cast<float*>(io.st_out[1])[c] = fdev;
     static_cast<float*>(io.st_out[2])[c] = amp;
   }
-  __device__ __forceinline__ void step(float2 x, float* o) {
-    const float amp2 = __fadd_rn(
-        amp, __fmul_rn(1e-3f, __fsub_rn(hypotf(x.x, x.y), amp)));
+  static __device__ __forceinline__ float amp_next(float a, float2 x) {
+    return __fadd_rn(a, __fmul_rn(1e-3f, __fsub_rn(hypotf(x.x, x.y), a)));
+  }
+  // costas: max(amp'^2, 1e-12); pilot: max((pi/4) amp', 1e-6)
+  static __device__ __forceinline__ float denom(float amp2) {
+    if (DET == kCostas) return fmaxf(__fmul_rn(amp2, amp2), 1e-12f);
+    if (DET == kPilot) return fmaxf(__fmul_rn(kQuarterPi, amp2), 1e-6f);
+    return 0.f;
+  }
+  // the state-dependent part: the detector on x and q = denom(amp'), the
+  // clip, the add and the wrap
+  __device__ __forceinline__ void chain(float2 x, float q, float* o) {
     float err;
     if (DET == kPilot) {
       // x ~= A sin(phase): Re(x) cos(phase) / max((pi/4) amp', 1e-6)
-      const float a_half = fmaxf(__fmul_rn(kQuarterPi, amp2), 1e-6f);
-      err = __fdiv_rn(__fmul_rn(x.x, cosf(phase)), a_half);
+      err = __fdiv_rn(__fmul_rn(x.x, cosf(phase)), q);
     } else {
       // z = x e^{-j phase}
       float s, c;
@@ -134,8 +135,7 @@ struct PllStep {
       if (DET == kAtan2) {
         err = atan2f(zi, zr);
       } else if (DET == kCostas) {
-        err = __fdiv_rn(__fmul_rn(zr, zi),
-                        fmaxf(__fmul_rn(amp2, amp2), 1e-12f));
+        err = __fdiv_rn(__fmul_rn(zr, zi), q);
       } else {  // cross: Im(z) sign(Re(z)), sign(0) = 0
         const float sg = zr > 0.f ? 1.f : (zr < 0.f ? -1.f : 0.f);
         err = __fmul_rn(zi, sg);
@@ -148,6 +148,10 @@ struct PllStep {
     phase = wrap_pi(__fadd_rn(__fadd_rn(phase, __fadd_rn(wc, fdev2)),
                               __fmul_rn(alpha, err)));
     fdev = fdev2;
+  }
+  __device__ __forceinline__ void step(float2 x, float* o) {
+    const float amp2 = amp_next(amp, x);
+    chain(x, denom(amp2), o);
     amp = amp2;
   }
 };
@@ -155,12 +159,14 @@ struct PllStep {
 // K3c: the loop of pll.pll_run_blockwise over chunk phasors z.  amp' = amp
 // + 0.05 (|z| - amp); zz = z e^{-j phase} (times j for the pilot); err =
 // atan2(zz); fdev' = clip(fdev + beta err); phase' = wrap(phase + fdev' +
-// alpha err).  Outputs the phase at the chunk and fdev'.
+// alpha err).  Outputs the phase at the chunk and fdev'.  Split as
+// PllStep (no detector reads amp').
+template <bool PILOT>
 struct ChunkStep {
   using In = float2;
   static constexpr int kOut = 2;
+  static constexpr bool kDenom = false;
   float alpha, beta, dev_lo, dev_hi;
-  int pilot;
   float phase, fdev, amp;
 
   __device__ void load(const Io& io, int c) {
@@ -173,14 +179,16 @@ struct ChunkStep {
     static_cast<float*>(io.st_out[1])[c] = fdev;
     static_cast<float*>(io.st_out[2])[c] = amp;
   }
-  __device__ __forceinline__ void step(float2 z, float* o) {
-    const float amp2 = __fadd_rn(
-        amp, __fmul_rn(0.05f, __fsub_rn(hypotf(z.x, z.y), amp)));
+  static __device__ __forceinline__ float amp_next(float a, float2 z) {
+    return __fadd_rn(a, __fmul_rn(0.05f, __fsub_rn(hypotf(z.x, z.y), a)));
+  }
+  static __device__ __forceinline__ float denom(float) { return 0.f; }
+  __device__ __forceinline__ void chain(float2 z, float, float* o) {
     float s, c;
     sincosf(phase, &s, &c);
     float zr = __fadd_rn(__fmul_rn(z.x, c), __fmul_rn(z.y, s));
     float zi = __fsub_rn(__fmul_rn(z.y, c), __fmul_rn(z.x, s));
-    if (pilot) {          // zz * 1j = (-Im, Re)
+    if (PILOT) {          // zz * 1j = (-Im, Re)
       const float t = zr;
       zr = -zi;
       zi = t;
@@ -192,6 +200,10 @@ struct ChunkStep {
     o[1] = fdev2;
     phase = wrap_pi(__fadd_rn(__fadd_rn(phase, fdev2), __fmul_rn(alpha, err)));
     fdev = fdev2;
+  }
+  __device__ __forceinline__ void step(float2 z, float* o) {
+    const float amp2 = amp_next(amp, z);
+    chain(z, 0.f, o);
     amp = amp2;
   }
 };
@@ -376,77 +388,13 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src,
                  "l"(src));
 }
 
-__device__ __forceinline__ void cp_async_commit_wait() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// One block: kCb channels from blockIdx.x * kCb, all N samples.
-template <class Step>
-__global__ void __launch_bounds__(kThreads) recur_kernel(Io io, Step s) {
-  using In = typename Step::In;
-  constexpr int kInPitch = kTile + kPad / static_cast<int>(sizeof(In));
-  constexpr int kOutPitch = kTile + kPad / 4;
-  __shared__ __align__(16) In in_s[2][kCb][kInPitch];
-  __shared__ __align__(16) float out_s[2][Step::kOut][kCb][kOutPitch];
-
-  const int c0 = blockIdx.x * kCb;
-  const int cb = min(kCb, io.C - c0);
-  const int N = io.N;
-  const int tiles = (N + kTile - 1) / kTile;
-  const int tid = threadIdx.x;
-  const int st = tid - 32;      // stager index (warps 1-3)
-  const In* x = static_cast<const In*>(io.x);
-
-  auto load_tile = [&](int i) {
-    const int t0 = i * kTile, len = min(kTile, N - t0);
-    for (int c = 0; c < cb; ++c) {
-      const In* src = x + static_cast<size_t>(c0 + c) * N + t0;
-      for (int t = st; t < len; t += kStagers)
-        cp_async(&in_s[i & 1][c][t], src + t, sizeof(In));
-    }
-    cp_async_commit_wait();
-  };
-  auto store_tile = [&](int i) {
-    const int t0 = i * kTile, len = min(kTile, N - t0);
-    for (int k = 0; k < Step::kOut; ++k)
-      for (int c = 0; c < cb; ++c) {
-        float* dst = io.out[k] + static_cast<size_t>(c0 + c) * N + t0;
-        for (int t = st; t < len; t += kStagers)
-          dst[t] = out_s[i & 1][k][c][t];
-      }
-  };
-
-  if (tid < cb) s.load(io, c0 + tid);
-  if (st >= 0 && tiles > 0) load_tile(0);
-  __syncthreads();
-  for (int i = 0; i < tiles; ++i) {
-    if (st >= 0) {
-      if (i + 1 < tiles) load_tile(i + 1);
-      if (i > 0) store_tile(i - 1);
-    } else if (tid < cb) {
-      const int len = min(kTile, N - i * kTile);
-      const In* src = in_s[i & 1][tid];
-      float o[2];
-#pragma unroll 4
-      for (int t = 0; t < len; ++t) {
-        s.step(src[t], o);
-        out_s[i & 1][0][tid][t] = o[0];
-        if (Step::kOut > 1) out_s[i & 1][Step::kOut - 1][tid][t] = o[1];
-      }
-    }
-    __syncthreads();
-  }
-  if (st >= 0 && tiles > 0) store_tile(tiles - 1);
-  if (tid < cb) s.store(io, c0 + tid);
-}
-
 // K4's and K6's design: the short-chain kernel (recur_short_kernel).  Their
 // steps are short chains of compares, selects and single float32
 // operations (~12-38 ns a step on the H100, ops/pll.py chain_probe fed from
-// memory), so a step's chain, not the bytes, bounds them; the parent design
-// (recur_kernel) lost 26-59 % of a launch to the chain lane's own
-// shared-memory load and store each step (tools/recur_cells.py --sweep).
+// memory), so a step's chain, not the bytes, bounds them; their first
+// design (a tiled kernel: chain lanes beside staging warps, a block barrier
+// a tile) lost 26-59 % of a launch to the chain lane's own shared-memory
+// load and store each step (tools/recur_cells.py --sweep).
 // Everything but the chain stays off it here:
 //   * one block = kShLanes = 16 channels: a chain warp (lane r carries
 //     channel c0 + r, its state in registers from before its first wait to
@@ -477,8 +425,7 @@ __global__ void __launch_bounds__(kThreads) recur_kernel(Io io, Step s) {
 //     are contiguous in both memories: the output rows' pitch is the row)
 //     by coalesced 16-byte stores, with no hand-off at the end;
 //   * the step (AgcStep, OokStep) is the plain version's float32 arithmetic
-//     op for op, as in recur_kernel: K4 and K6 equal their plain versions
-//     bit for bit.
+//     op for op: K4 and K6 equal their plain versions bit for bit.
 // The input is one stream: row c's frame t at in + c cs + t fs (floats), a
 // frame being fs floats (K4's envelope and a K6 plane: 1; the three columns
 // of one [C, F, 3] tensor, the layout goertzel_power writes: 3).  K6 reads
@@ -674,13 +621,14 @@ __device__ __forceinline__ void sh_pin_read(OokStep<MODE>& s,
 
 // The pass form's outputs: a chain warp's rows, contiguous in both
 // memories (the output rows' pitch is the row), from the output stage os
-// to device memory by the warp's n lanes: 16-byte stores where the region
-// is 16-byte sized and aligned, else bytes.
+// to device memory by the warp's n lanes: 16-byte stores where both ends
+// of the region are 16-byte aligned and it is 16-byte sized, else bytes.
 __device__ __forceinline__ void sh_region_out(unsigned char* dst,
                                               const unsigned char* os,
                                               uint32_t bytes, int lane,
                                               int n) {
-  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0 && (bytes & 15) == 0) {
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0 &&
+      (reinterpret_cast<uintptr_t>(os) & 15) == 0 && (bytes & 15) == 0) {
     for (uint32_t j = lane; j < bytes / 16; j += n)
       reinterpret_cast<uint4*>(dst)[j] = reinterpret_cast<const uint4*>(os)[j];
   } else {
@@ -856,6 +804,407 @@ int short_launch(ShArgs& a, const Io& io, const Step& s, int device,
   }
   const int grid = (a.C + kShLanes - 1) / kShLanes;
   kernel<<<grid, kShThreads, a.plan.smem, (cudaStream_t)stream>>>(a, io, s);
+  return cudaGetLastError();
+}
+
+// K3's and K3c's design: the loop kernel (recur_loop_kernel).  What bounds
+// them is the latency of one step's chain: sincosf, the derotation, the
+// detector (atan2f, or a division), the clip, the add and the wrap, each
+// waiting on the phase or fdev the step before left (~100-200 ns a step on
+// the H100; utils/roofline.py pll_scan_bound, the chain-only probe fed from
+// memory).  Their first design (the tiled kernel: 8 chain lanes of one
+// warp beside three staging warps, a block barrier every 128 samples) ran
+// each form ~60-100 ns a step above that probe, and so did this kernel
+// while its chain lane also computed |x| by hypotf, the amp EWMA and the
+// denominators, in line or a register group ahead (the sweep's "inline";
+// tools/recur_cells.py --sweep): that work, off the phase chain but on the
+// chain lane, serialized with it.  Here the chain lane carries only the
+// state-dependent chain:
+//   * one block = kPlWarps chain warps of kPlLanes chains (lane r of warp w
+//     carries channel c0 + w kPlLanes + r, its phase and fdev in registers
+//     from before the first wait to the last step; built: one chain, thread
+//     0) and a copy warp; the step's constants pinned in registers
+//     (sh_pin);
+//   * the copy warp brings each segment of kPlL complex frames of the
+//     block's rows into a stage (the whole row where it is at most kPlL
+//     frames: the "pass" form; else the "ring" form, kPlStages stages):
+//     per row one cp.async.bulk of the 16-byte lines the segment covers
+//     wholly, the <= 1 frame before and after element by element (sh_copy,
+//     as the short-chain kernel), on the stage's full mbarrier;
+//   * then, its lane l on rows l, l + 32, ..., it runs what reads no loop
+//     state over the landed stage (Step::amp_next: |x| and the amp EWMA,
+//     whose state it carries and writes out; Step::denom: the costas and
+//     pilot denominators, into the stage's q rows) and completes the
+//     stage's ready mbarrier, which the chain lanes wait on; it refills a
+//     stage once every chain warp has handed it back (its done mbarrier);
+//     no block barrier inside the time loop (kPlPrep; false: the chain
+//     lane runs the whole step, the sweep's "inline");
+//   * frames (and q) are read into registers one group of kPlU steps
+//     ahead; the two float outputs go to the stage's output rows in shared
+//     memory (phases, freqs; offs, fdevs for K3c); in the ring form the
+//     copy warp writes a stage's rows out (a bulk store per row where its
+//     segment is 16-byte sized and aligned), in the pass form each chain
+//     warp writes its rows' region itself;
+//   * the step keeps its IEEE float32 arithmetic op for op: K3 and K3c
+//     equal pll_scan_plain and pll_chunk_scan_plain bit for bit.
+// The layout (chains a warp, chain warps a block) is the sweep's pick
+// (tools/recur_cells.py --sweep, on the H100): one chain a block (64
+// channels on 64 SMs), 1-6 % a step faster than 16 chains in one warp,
+// whose lanes the math library's branches made reconverge every step.
+constexpr int kPlLanes = 1;       // chains a chain warp
+constexpr int kPlWarps = 1;       // chain warps a block
+constexpr int kPlRows = kPlLanes * kPlWarps;       // channels a block
+constexpr int kPlThreads = 32 * (kPlWarps + 1);   // the chain warps, a copy warp
+constexpr unsigned kPlMask = 0xffffffffu >> (32 - kPlLanes);
+constexpr int kPlU = 4;           // steps per register group
+constexpr int kPlL = 128;         // frames per stage in the ring form
+constexpr int kPlStages = 3;      // stages in the ring form
+constexpr bool kPlPrep = true;    // the stateless terms on the copy warp
+
+// The launch's plan (loop_plan): form 1 pass, 2 ring; L frames a stage;
+// pitch: floats per staged row (= 4 mod 32; room for the row's float offset
+// in its 16-byte line and a register group read past the segment);
+// qpitch: floats per q row (= 1 mod 32: the rows start in distinct banks;
+// room for a register group read past the segment); out_pitch: bytes per
+// output row in a stage (the pass form: the row itself, so that a warp's
+// rows are contiguous as in device memory; the ring form: 16-byte
+// multiples, never a multiple of 128); smem: the pinned constants, the
+// full, ready and done mbarriers, the input stages (kPlRows rows of pitch
+// floats), the q stages (kPlRows rows of qpitch floats, to a 16-byte
+// line) and the output stages (two outputs of kPlRows rows each).
+struct PlPlan {
+  int form, L, stages, pitch, qpitch, out_pitch, smem;
+};
+
+inline PlPlan loop_plan(int N) {
+  PlPlan p{};
+  p.form = N <= kPlL ? 1 : 2;
+  p.L = p.form == 1 ? N : kPlL;
+  p.stages = N <= 0 ? 0 : (p.form == 1 ? 1 : kPlStages);
+  p.pitch = sh_round((p.L + 2 * kPlU) * 2, 32) + 4;
+  p.qpitch = sh_round(p.L + kPlU, 32) + 1;
+  if (p.form == 1) {
+    p.out_pitch = p.L * 4;
+  } else {
+    p.out_pitch = sh_round(p.L * 4, 16);
+    if (p.out_pitch % 128 == 0) p.out_pitch += 16;
+  }
+  p.smem = kShPinBytes + sh_round(3 * p.stages * 8, 16) +
+           p.stages * kPlRows * (p.pitch * 4 + 2 * p.out_pitch) +
+           sh_round(p.stages * kPlRows * p.qpitch * 4, 16);
+  return p;
+}
+
+static_assert(kPlLanes >= 1 && kPlLanes <= 32 && kPlWarps >= 1,
+              "a chain warp's lanes");
+
+template <int DET>
+__device__ __forceinline__ void sh_pin_write(const PllStep<DET>& s,
+                                             uint32_t* w) {
+  w[0] = __float_as_uint(s.alpha);
+  w[1] = __float_as_uint(s.beta);
+  w[2] = __float_as_uint(s.wc);
+  w[3] = __float_as_uint(s.dev_lo);
+  w[4] = __float_as_uint(s.dev_hi);
+}
+template <int DET>
+__device__ __forceinline__ void sh_pin_read(PllStep<DET>& s,
+                                            const volatile uint32_t* v) {
+  s.alpha = __uint_as_float(v[0]);
+  s.beta = __uint_as_float(v[1]);
+  s.wc = __uint_as_float(v[2]);
+  s.dev_lo = __uint_as_float(v[3]);
+  s.dev_hi = __uint_as_float(v[4]);
+}
+template <bool PILOT>
+__device__ __forceinline__ void sh_pin_write(const ChunkStep<PILOT>& s,
+                                             uint32_t* w) {
+  w[0] = __float_as_uint(s.alpha);
+  w[1] = __float_as_uint(s.beta);
+  w[2] = __float_as_uint(s.dev_lo);
+  w[3] = __float_as_uint(s.dev_hi);
+}
+template <bool PILOT>
+__device__ __forceinline__ void sh_pin_read(ChunkStep<PILOT>& s,
+                                            const volatile uint32_t* v) {
+  s.alpha = __uint_as_float(v[0]);
+  s.beta = __uint_as_float(v[1]);
+  s.dev_lo = __uint_as_float(v[2]);
+  s.dev_hi = __uint_as_float(v[3]);
+}
+
+// A register group: kPlU frames and their denominators q.
+struct PlFrames {
+  float2 x[kPlU];
+  float q[kPlU];
+};
+
+struct PlArgs {
+  const float2* x;     // [C, N] complex64 rows
+  float* out0;         // [C, N] phases (K3c: offs)
+  float* out1;         // [C, N] freqs (K3c: fdevs)
+  PlPlan plan;
+  int C, N;
+};
+
+// One block: channels c0 = blockIdx.x kPlRows ..., all N frames.  Io
+// carries the state pointers.  One block per SM at least, as the
+// short-chain kernel (ptxas otherwise keeps the loop in fewer registers
+// and issues the next group's loads at its end).
+template <class Step>
+__global__ void __launch_bounds__(kPlThreads, 1)
+    recur_loop_kernel(PlArgs a, Io io, Step s) {
+  extern __shared__ __align__(128) unsigned char pl_smem[];
+  const PlPlan& p = a.plan;
+  const int S = p.stages, L = p.L, N = a.N;
+  const int stage_floats = kPlRows * p.pitch;
+  const int stage_q = kPlRows * p.qpitch;
+  const size_t stage_out = static_cast<size_t>(2) * kPlRows * p.out_pitch;
+  uint32_t* pin_w = reinterpret_cast<uint32_t*>(pl_smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(pl_smem + kShPinBytes);
+  uint64_t* ready = full + S;
+  uint64_t* done = ready + S;
+  float* in_s = reinterpret_cast<float*>(pl_smem + kShPinBytes +
+                                         sh_round(3 * S * 8, 16));
+  float* q_s = in_s + S * stage_floats;
+  // the output stages start on a 16-byte line (bulk stores read them)
+  unsigned char* out_s = reinterpret_cast<unsigned char*>(in_s) +
+                         S * stage_floats * 4 + sh_round(S * stage_q * 4, 16);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c0 = blockIdx.x * kPlRows;
+  const int cb = min(kPlRows, a.C - c0);
+  const int segs = L > 0 ? (N + L - 1) / L : 0;
+  const bool chain = warp < kPlWarps;
+  // a chain lane's row in the block; its state loads in flight across the
+  // block's barrier
+  const int r = warp * kPlLanes + lane;
+  const bool mine = chain && lane < kPlLanes && r < cb;
+  auto row = [&](int rr) {
+    return reinterpret_cast<const float*>(a.x + static_cast<size_t>(c0 + rr) *
+                                                    N);
+  };
+  if (mine) s.load(io, c0 + r);
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) {
+      bulk::mbar_init(&full[i], 2);
+      bulk::mbar_init(&ready[i], 1);
+      bulk::mbar_init(&done[i], kPlWarps);
+    }
+    bulk::fence_mbar_init();
+    sh_pin_write(s, pin_w);
+  }
+  __syncthreads();
+
+  if (!chain) {
+    // the copy warp: lane l copies rows l, l + 32, ... in and out, and
+    // carries their amp
+    constexpr int kMine = (kPlRows + 31) / 32;
+    float amp[kMine];
+#pragma unroll
+    for (int k = 0; k < kMine; ++k) {
+      const int rr = lane + 32 * k;
+      amp[k] = kPlPrep && rr < cb
+                   ? static_cast<const float*>(io.st_in[2])[c0 + rr]
+                   : 0.f;
+    }
+    auto fill = [&](int i) {
+      const int slot = i % S, t0 = i * L, n = min(L, N - t0);
+      uint32_t tx = 0;
+      for (int rr = lane; rr < cb; rr += 32)
+        tx += sh_bulk_bytes(row(rr) + 2 * t0, 2 * n);
+      tx = __reduce_add_sync(0xffffffffu, tx);
+      if (lane == 0) bulk::mbar_arrive_expect_tx(&full[slot], tx);
+      __syncwarp();
+      for (int rr = lane; rr < cb; rr += 32)
+        sh_copy(in_s + slot * stage_floats + rr * p.pitch, row(rr) + 2 * t0,
+                2 * n, &full[slot]);
+      __syncwarp();
+      if (lane == 0) bulk::mbar_arrive_expect_tx(&full[slot], 0);
+    };
+    // what reads no loop state, over a landed stage: the amp EWMA of each
+    // row and its denominators q; then the stage is ready for the chain
+    auto prep = [&](int i) {
+      const int slot = i % S, n = min(L, N - i * L);
+      bulk::mbar_wait(&full[slot], static_cast<uint32_t>(i / S) & 1u);
+#pragma unroll
+      for (int k = 0; k < kMine; ++k) {
+        const int rr = lane + 32 * k;
+        if (rr < cb) {
+          const float2* xs = reinterpret_cast<const float2*>(
+              in_s + slot * stage_floats + rr * p.pitch + sh_lead(row(rr)));
+          float* q = q_s + slot * stage_q + rr * p.qpitch;
+          float am = amp[k];
+#pragma unroll 4
+          for (int t = 0; t < n; ++t) {
+            am = Step::amp_next(am, xs[t]);
+            if (Step::kDenom) q[t] = Step::denom(am);
+          }
+          amp[k] = am;
+        }
+      }
+      __syncwarp();
+      if (lane == 0) bulk::mbar_arrive_expect_tx(&ready[slot], 0);
+    };
+    // the ring form's outputs: a bulk store per row where its segment is
+    // 16-byte sized and aligned, else element by element
+    auto drain = [&](int i) {
+      const int slot = i % S, t0 = i * L, n = min(L, N - t0);
+      const unsigned char* os = out_s + slot * stage_out;
+      const uint32_t bytes = n * 4u;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        float* out = k ? a.out1 : a.out0;
+        for (int rr = lane; rr < cb; rr += 32) {
+          float* dst = out + static_cast<size_t>(c0 + rr) * N + t0;
+          const float* src = reinterpret_cast<const float*>(
+              os + static_cast<size_t>(k * kPlRows + rr) * p.out_pitch);
+          if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0 &&
+              (bytes & 15) == 0)
+            bulk::store(dst, src, bytes);
+          else
+            for (int j = 0; j < n; ++j) dst[j] = src[j];
+        }
+      }
+      bulk::store_commit();
+      bulk::store_wait_read<0>();
+      __syncwarp();
+    };
+    for (int i = 0; i < min(S, segs); ++i) fill(i);
+    if (kPlPrep)
+      for (int i = 0; i < min(S, segs); ++i) prep(i);
+    // the pass form's one segment is written out by the chain warps
+    for (int i = 0; i < (p.form == 1 ? 0 : segs); ++i) {
+      while (!bulk::mbar_try_wait(&done[i % S],
+                                  static_cast<uint32_t>(i / S) & 1u))
+        __nanosleep(256);
+      drain(i);
+      if (i + S < segs) {
+        fill(i + S);
+        if (kPlPrep) prep(i + S);
+      }
+    }
+    if (kPlPrep) {
+#pragma unroll
+      for (int k = 0; k < kMine; ++k) {
+        const int rr = lane + 32 * k;
+        if (rr < cb) static_cast<float*>(io.st_out[2])[c0 + rr] = amp[k];
+      }
+    }
+    return;
+  }
+
+  // one chain a block: thread 0 alone
+  if (kPlRows == 1 ? tid != 0 : lane >= kPlLanes) return;
+  sh_pin_read(s, pin_w);
+  // a lane past the block's channels runs row 0's frames from a zero state
+  // (finite values: no stray slow path of the math library in the warp)
+  if (!mine) {
+    s.phase = 0.f;
+    s.fdev = 0.f;
+    s.amp = 1.f;
+  }
+  const int rr = mine ? r : 0;
+  const float2* base = reinterpret_cast<const float2*>(
+      in_s + rr * p.pitch + sh_lead(row(rr)));
+  float o[2];
+  for (int i = 0; i < segs; ++i) {
+    const int slot = i % S, t0 = i * L, n = min(L, N - t0);
+    bulk::mbar_wait(kPlPrep ? &ready[slot] : &full[slot],
+                    static_cast<uint32_t>(i / S) & 1u);
+    const float2* xs = base + slot * (stage_floats / 2);
+    const float* qs = q_s + slot * stage_q + rr * p.qpitch;
+    float* o0 = reinterpret_cast<float*>(
+        out_s + slot * stage_out + static_cast<size_t>(r) * p.out_pitch);
+    float* o1 = reinterpret_cast<float*>(
+        out_s + slot * stage_out +
+        static_cast<size_t>(kPlRows + r) * p.out_pitch);
+    PlFrames cur, nxt;
+#pragma unroll
+    for (int j = 0; j < kPlU; ++j) {
+      cur.x[j] = xs[j];
+      cur.q[j] = kPlPrep && Step::kDenom ? qs[j] : 0.f;
+    }
+    int t = 0;
+    for (; t + kPlU <= n; t += kPlU) {
+#pragma unroll
+      for (int j = 0; j < kPlU; ++j) {
+        nxt.x[j] = xs[t + kPlU + j];
+        nxt.q[j] = kPlPrep && Step::kDenom ? qs[t + kPlU + j] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kPlU; ++j) {
+        if (kPlPrep)
+          s.chain(cur.x[j], cur.q[j], o);
+        else
+          s.step(cur.x[j], o);
+        o0[t + j] = o[0];
+        o1[t + j] = o[1];
+      }
+      cur = nxt;
+    }
+    // the segment's last < kPlU frames (the row's last segment only)
+    for (; t < n; ++t) {
+      if (kPlPrep)
+        s.chain(xs[t], Step::kDenom ? qs[t] : 0.f, o);
+      else
+        s.step(xs[t], o);
+      o0[t] = o[0];
+      o1[t] = o[1];
+    }
+    if (p.form == 1) {
+      // the pass form: each chain warp writes its rows straight out, no
+      // hand-off
+      const int r0 = warp * kPlLanes, nr = min(kPlLanes, cb - r0);
+      if (kPlLanes > 1) __syncwarp(kPlMask);
+      if (nr > 0) {
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+          sh_region_out(
+              reinterpret_cast<unsigned char*>((k ? a.out1 : a.out0) +
+                                               static_cast<size_t>(c0 + r0) *
+                                                   N),
+              out_s + static_cast<size_t>(k * kPlRows + r0) * p.out_pitch,
+              nr * N * 4u, lane, kPlLanes);
+      }
+      break;
+    }
+    bulk::fence_async_smem();
+    if (kPlLanes > 1) __syncwarp(kPlMask);    // one chain a warp: no need
+    if (lane == 0) bulk::mbar_arrive_expect_tx(&done[slot], 0);
+  }
+  if (mine) {
+    // with kPlPrep the copy warp writes amp'
+    static_cast<float*>(io.st_out[0])[c0 + r] = s.phase;
+    static_cast<float*>(io.st_out[1])[c0 + r] = s.fdev;
+    if (!kPlPrep) static_cast<float*>(io.st_out[2])[c0 + r] = s.amp;
+  }
+}
+
+template <class Step>
+int loop_launch(const float2* x, float* out0, float* out1, int C, int N,
+                const Io& io, const Step& s, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (C <= 0 || N < 0) return cudaErrorInvalidValue;
+  PlArgs a{x, out0, out1, loop_plan(N), C, N};
+  if (a.plan.smem > kShSmemMax) return cudaErrorInvalidValue;
+  auto kernel = recur_loop_kernel<Step>;
+  if (a.plan.smem > 48 * 1024) {
+    // once per device: the most any plan of this kernel asks for
+    static unsigned set = 0;
+    if (device >= 32 || !(set >> device & 1u)) {
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kShSmemMax);
+      if (err != cudaSuccess) {
+        cudaGetLastError();     // no error left for the next launch's check
+        return err;
+      }
+      if (device < 32) set |= 1u << device;
+    }
+  }
+  const int grid = (C + kPlRows - 1) / kPlRows;
+  kernel<<<grid, kPlThreads, a.plan.smem, (cudaStream_t)stream>>>(a, io, s);
   return cudaGetLastError();
 }
 
@@ -1872,6 +2221,76 @@ __global__ void __launch_bounds__(32)
   out[0] = acc;
 }
 
+// The chain-only probe of K3 and K3c, fed from memory: one lane runs the
+// state-dependent part of the loop kernel's step (Step::chain: sincosf and
+// the derotation, or cosf and one product for the pilot; the detector, the
+// clip, the add and the wrap), its constants pinned (sh_pin), over a small
+// pattern staged once in shared memory (data: n frames of [re, im, amp',
+// q], n a power of two and a multiple of kPlU: ops/pll.py probe_pattern)
+// with what reads no loop state precomputed there (amp' and the costas /
+// pilot denominator q); frames read a register group ahead, each step's two
+// outputs stored to shared memory as the kernel stores them.  The
+// arithmetic is the kernel's chain op for op on inputs the compiler cannot
+// fold, so no bit-equal design runs a step faster: its time over `steps`
+// is K3's and K3c's serial floor (utils/roofline.py pll_scan_bound).  Lane
+// 0 writes a sum of the outputs at the end (so every step stays).
+template <class Step>
+__global__ void __launch_bounds__(32)
+    probe_loop_fed_kernel(Step s, const float4* __restrict__ data, int n,
+                          int steps, float* out) {
+  extern __shared__ __align__(16) unsigned char pl_pr_smem[];
+  uint32_t* pin = reinterpret_cast<uint32_t*>(pl_pr_smem);
+  float4* f = reinterpret_cast<float4*>(pl_pr_smem + kShPinBytes);
+  float* o = reinterpret_cast<float*>(f + n);
+  for (int i = threadIdx.x; i < n; i += 32) f[i] = data[i];
+  for (int i = threadIdx.x; i < 2 * n; i += 32) o[i] = 0.f;
+  if (threadIdx.x == 0) sh_pin_write(s, pin);
+  __syncwarp();
+  if (threadIdx.x) return;
+  sh_pin_read(s, pin);
+  const int mask = n - 1;
+  float o2[2];
+  PlFrames cur, nxt;
+  auto fetch = [&](PlFrames& v, int t) {
+#pragma unroll
+    for (int j = 0; j < kPlU; ++j) {
+      const float4 w = f[t + j];
+      v.x[j] = make_float2(w.x, w.y);
+      v.q[j] = w.w;
+    }
+  };
+  fetch(cur, 0);
+  for (int t = 0; t < steps; t += kPlU) {
+    const int b = t & mask;
+    fetch(nxt, (b + kPlU) & mask);
+#pragma unroll
+    for (int j = 0; j < kPlU; ++j) {
+      s.chain(cur.x[j], cur.q[j], o2);
+      o[b + j] = o2[0];
+      o[n + b + j] = o2[1];
+    }
+    cur = nxt;
+  }
+  float acc = 0.f;
+  for (int i = 0; i < 2 * n; ++i) acc = __fadd_rn(acc, o[i]);
+  out[0] = acc;
+}
+
+template <class Step>
+int probe_loop_fed(const Step& s, const void* data, int n, int steps,
+                   float* out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const size_t smem = kShPinBytes + static_cast<size_t>(n) * 16 +
+                      static_cast<size_t>(n) * 8;
+  if (n < kPlU || (n & (n - 1)) || steps < 0 || steps % kPlU ||
+      smem > 48 * 1024)
+    return cudaErrorInvalidValue;
+  probe_loop_fed_kernel<Step><<<1, 32, smem, (cudaStream_t)stream>>>(
+      s, static_cast<const float4*>(data), n, steps, out);
+  return cudaGetLastError();
+}
+
 template <class Step, class Out, bool TRIO>
 int probe_fed(const Step& s, const void* data, int n, int fs, int steps,
               float* out, int device, void* stream) {
@@ -1892,16 +2311,6 @@ int probe(const Step& s, int steps, float* out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   probe_kernel<Step><<<1, 1, 0, (cudaStream_t)stream>>>(s, steps, out);
-  return cudaGetLastError();
-}
-
-template <class Step>
-int launch(const Io& io, const Step& s, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (io.C <= 0 || io.N < 0) return cudaErrorInvalidValue;
-  const int grid = (io.C + kCb - 1) / kCb;
-  recur_kernel<Step><<<grid, kThreads, 0, (cudaStream_t)stream>>>(io, s);
   return cudaGetLastError();
 }
 
@@ -1942,14 +2351,9 @@ const char* recur_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Channels per block and threads per block of K3's and K3c's launches
-// (recur_kernel; the grid is ceil(C / channels)).
-int recur_channels_per_block() { return kCb; }
-int recur_threads_per_block() { return kThreads; }
-
 // K3: x [C, N] complex64 (re, im interleaved), state phase / fdev / amp
 // [C] -> phases, freqs [C, N] and state'.  det: 0 atan2, 1 cross, 2 costas,
-// 3 pilot.  Returns the first CUDA error.
+// 3 pilot.  The loop kernel.  Returns the first CUDA error.
 int recur_pll_scan(int device, int det, const void* x, int C, int N,
                    float alpha, float beta, float wc, float dev_lo,
                    float dev_hi, const float* phase, const float* fdev,
@@ -1958,11 +2362,12 @@ int recur_pll_scan(int device, int det, const void* x, int C, int N,
                    void* stream) {
   Io io{x, {phases, freqs}, {phase, fdev, amp},
         {phase_out, fdev_out, amp_out}, C, N};
+  const float2* xf = static_cast<const float2*>(x);
   switch (det) {
 #define PLL_CASE(D)                                                      \
   case D: {                                                              \
     PllStep<D> s{alpha, beta, wc, dev_lo, dev_hi, 0.f, 0.f, 0.f};        \
-    return launch(io, s, device, stream);                                \
+    return loop_launch(xf, phases, freqs, C, N, io, s, device, stream);  \
   }
     PLL_CASE(kAtan2)
     PLL_CASE(kCross)
@@ -1975,7 +2380,8 @@ int recur_pll_scan(int device, int det, const void* x, int C, int N,
 }
 
 // K3c: z [C, F] complex64 chunk phasors, state [C] -> offs, fdevs [C, F]
-// and state'; pilot != 0 rotates each derotated phasor by j.
+// and state'; pilot != 0 rotates each derotated phasor by j.  The loop
+// kernel.
 int recur_pll_chunk_scan(int device, int pilot, const void* z, int C, int F,
                          float alpha, float beta, float dev_lo, float dev_hi,
                          const float* phase, const float* fdev,
@@ -1984,8 +2390,28 @@ int recur_pll_chunk_scan(int device, int pilot, const void* z, int C, int F,
                          void* stream) {
   Io io{z, {offs, fdevs}, {phase, fdev, amp}, {phase_out, fdev_out, amp_out},
         C, F};
-  ChunkStep s{alpha, beta, dev_lo, dev_hi, pilot, 0.f, 0.f, 0.f};
-  return launch(io, s, device, stream);
+  const float2* zf = static_cast<const float2*>(z);
+  if (pilot) {
+    ChunkStep<true> s{alpha, beta, dev_lo, dev_hi, 0.f, 0.f, 0.f};
+    return loop_launch(zf, offs, fdevs, C, F, io, s, device, stream);
+  }
+  ChunkStep<false> s{alpha, beta, dev_lo, dev_hi, 0.f, 0.f, 0.f};
+  return loop_launch(zf, offs, fdevs, C, F, io, s, device, stream);
+}
+
+// K3's and K3c's launch plan (loop_plan) for n frames, into out[10]: form
+// (1 pass, 2 ring), frames per stage, stages, the staged row's pitch
+// (floats), the q row's pitch (floats), the output row's pitch (bytes),
+// the shared-memory bytes, chains a warp, chain warps a block and threads
+// per block.
+int recur_loop_plan(int n, int* out) {
+  if (n < 0) return cudaErrorInvalidValue;
+  const PlPlan p = loop_plan(n);
+  const int v[10] = {p.form,   p.L,         p.stages, p.pitch,
+                     p.qpitch, p.out_pitch, p.smem,   kPlLanes,
+                     kPlWarps, kPlThreads};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
+  return 0;
 }
 
 // K4: env [C, M] float32 (contiguous), state att / dec [C] float32 and
@@ -2202,9 +2628,10 @@ int recur_probe(int device, int form, int steps, float* out, void* stream) {
     case 3: return probe(PllStep<kPilot>{a, b, 0.03f, lo, hi, 0.f, 0.f, 1.f},
                          steps, out, device, stream);
     case 4:
+      return probe(ChunkStep<false>{0.1f, 0.01f, -0.5f, 0.5f, 0.f, 0.f, 1.f},
+                   steps, out, device, stream);
     case 5:
-      return probe(ChunkStep{0.1f, 0.01f, -0.5f, 0.5f, form == 5, 0.f, 0.f,
-                             1.f},
+      return probe(ChunkStep<true>{0.1f, 0.01f, -0.5f, 0.5f, 0.f, 0.f, 1.f},
                    steps, out, device, stream);
     case 6:
       return probe(AgcStep<true>{0.03f, 0.012f, 0.002f, 0.04f, 100, -8.f,
@@ -2247,17 +2674,37 @@ int recur_probe(int device, int form, int steps, float* out, void* stream) {
   }
 }
 
-// The chain probe fed from memory (probe_fed_kernel: recur_short_kernel's
-// chain loop) of the forms whose register-only probe may fold steps on its
-// constant inputs: 6 and 7 (agc_scan with and without the hang: data n
-// float32 log envelopes) and 9-14 (ook_scan in the threshold mode 0-5:
-// data n [main, low, high] frames, read as K6 reads goertzel_power's
-// trio), with recur_probe's constants; n a power of two (4 to 2048
-// frames), steps a multiple of 4.  Time it over many steps, as
-// recur_probe.
+// The chain probe fed from memory of the forms whose register-only probe
+// may fold steps on its constant inputs: 0-3 (pll_scan with detector 0-3)
+// and 4-5 (pll_chunk_scan, its pilot form): probe_loop_fed_kernel, the loop
+// kernel's chain alone, data n [re, im, amp', q] frames; 6 and 7 (agc_scan
+// with and without the hang: data n float32 log envelopes) and 9-14
+// (ook_scan in the threshold mode 0-5: data n [main, low, high] frames, read
+// as K6 reads goertzel_power's trio): probe_fed_kernel,
+// recur_short_kernel's chain loop; with recur_probe's constants; n a power
+// of two (4 to 2048 frames; 1024 for 0-5), steps a multiple of 4.  Time it
+// over many steps, as recur_probe.
 int recur_probe_fed(int device, int form, int steps, const void* data, int n,
                     float* out, void* stream) {
+  const float a = 0.0139f, b = 9.6e-5f, lo = -0.098f, hi = 0.098f;
   switch (form) {
+#define PLL_FED(D)                                                         \
+  case D:                                                                  \
+    return probe_loop_fed(PllStep<D>{a, b, 0.03f, lo, hi, 0.f, 0.f, 1.f},  \
+                          data, n, steps, out, device, stream);
+    PLL_FED(kAtan2)
+    PLL_FED(kCross)
+    PLL_FED(kCostas)
+    PLL_FED(kPilot)
+#undef PLL_FED
+    case 4:
+      return probe_loop_fed(
+          ChunkStep<false>{0.1f, 0.01f, -0.5f, 0.5f, 0.f, 0.f, 1.f}, data, n,
+          steps, out, device, stream);
+    case 5:
+      return probe_loop_fed(
+          ChunkStep<true>{0.1f, 0.01f, -0.5f, 0.5f, 0.f, 0.f, 1.f}, data, n,
+          steps, out, device, stream);
     case 6:
       return probe_fed<AgcStep<true>, float, false>(
           AgcStep<true>{0.03f, 0.012f, 0.002f, 0.04f, 100, -8.f, -8.f, 0},

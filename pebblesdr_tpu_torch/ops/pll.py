@@ -9,8 +9,9 @@ Costas carrier, SAM's "scan" and short blocks, NFM "pll") and
 pll_run_blockwise (the loop at the chunk rate over coherent chunk phasors:
 SAM's smooth="loop", the second stage of pll_run_aimed).  Each loop carries
 three floats per channel from sample to sample, so on a CUDA tensor it runs
-as one launch of a recurrence kernel (csrc/recur.cu: pll_scan, one thread
-per channel, four phase detectors; pll_chunk_scan at the chunk rate), and
+as one launch of a recurrence kernel (csrc/recur.cu's loop kernel, one
+chain thread per channel: pll_scan, four phase detectors; pll_chunk_scan at
+the chunk rate; its plan is ops/short_chain.py loop_plan), and
 on a CPU tensor as its plain version (pll_scan_plain, pll_chunk_scan_plain:
 a Python loop over time of the same float32 arithmetic on [C] tensors).
 pll_scan.launches / pll_chunk_scan.launches count the kernel launches
@@ -41,7 +42,7 @@ import numpy as np
 import torch
 
 from pebblesdr_tpu_torch.kernels import build
-from pebblesdr_tpu_torch.ops import iir
+from pebblesdr_tpu_torch.ops import iir, short_chain
 
 TWO_PI = 2.0 * math.pi
 DETECTORS = ("atan2", "cross", "costas", "pilot")   # recur.cu's det 0-3
@@ -345,6 +346,8 @@ def _lib():
     lib.recur_probe.argtypes = [i, i, i, p, p]
     lib.recur_probe_fed.restype = i
     lib.recur_probe_fed.argtypes = [i, i, i, p, i, p, p]
+    lib.recur_loop_plan.restype = i
+    lib.recur_loop_plan.argtypes = [i, p]
     lib.recur_error_string.restype = ctypes.c_char_p
     lib.recur_error_string.argtypes = [i]
     return lib
@@ -364,8 +367,65 @@ PROBE_FORMS = DETECTORS + (
 
 # the forms whose chain probe is also fed from memory (recur_probe_fed):
 # the register-only probe of these may fold steps on its constant inputs
+# (K3's and K3c's fixed input folds |x| out of its loop).  K4's and K6's
+# probe is one lane of the short-chain kernel's loop; K3's and K3c's runs
+# the loop kernel's chain alone (Step::chain), with what reads no loop
+# state precomputed in the pattern: their serial floor.
 FED_FORMS = ("agc hang", "agc", "ook compare", "ook peak", "ook average",
-             "ook min_max", "ook manual", "ook noise")
+             "ook min_max", "ook manual", "ook noise") + DETECTORS + (
+                 "chunk", "chunk pilot")
+# the probes' constants, as csrc/recur.cu recur_probe and recur_probe_fed
+# pass them: the loops' (alpha, beta, wc, dev_lo, dev_hi), K3c's wc 0
+PROBE_LOOP = {"pll": (0.0139, 9.6e-5, 0.03, -0.098, 0.098),
+              "chunk": (0.1, 0.01, 0.0, -0.5, 0.5)}
+LOOP_PATTERN = 1024      # frames of the K3 / K3c probes' patterns
+
+
+def _loop_pattern(form: str, rng) -> np.ndarray:
+    """The K3 / K3c fed probe's frames [n, 4] float32: re, im, amp' (the
+    amp EWMA after the frame, run over the pattern until it settles) and
+    q (costas max(amp'^2, 1e-12), pilot max((pi/4) amp', 1e-6), else 0),
+    in float32 as the kernel computes them.  Every tone completes whole
+    cycles over the pattern, so the loop runs on across its wrap."""
+    n = LOOP_PATTERN
+    k = np.arange(n)
+    if form in ("chunk", "chunk pilot"):
+        # a drifting tone: 16 cycles plus a swing of +-0.12 rad a chunk
+        x = 0.5 * np.exp(1j * (2 * np.pi * 16 * k / n
+                               + 20.0 * np.sin(2 * np.pi * k / n)))
+    elif form == "pilot":
+        # a real tone 5 cycles over the pattern: 0.0307 rad a sample
+        x = 0.1 * np.sin(2 * np.pi * 5 * k / n + 0.4) + 0j
+    else:
+        # a complex tone 7 cycles (costas: 6, BPSK-keyed in 16-frame
+        # symbols) over the pattern: 0.0430 (0.0368) rad a sample against
+        # the probe's wc of 0.03
+        cyc = 6 if form == "costas" else 7
+        x = 0.5 * np.exp(1j * (2 * np.pi * cyc * k / n + 0.4))
+        if form == "costas":
+            x = x * np.repeat(np.where(rng.random(n // 16) < 0.5, -1, 1), 16)
+    # noise 20 dB below the signal's power
+    power = float(np.mean(np.abs(x) ** 2))
+    if form == "pilot":
+        x = x + np.sqrt(power / 100.0) * rng.standard_normal(n)
+    else:
+        sd = np.sqrt(power / 200.0)
+        x = x + sd * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    x = x.astype(np.complex64)
+    mag = np.hypot(x.real, x.imag).astype(np.float32)
+    rate = np.float32(0.05 if form.startswith("chunk") else 1e-3)
+    amp, amps = np.float32(1.0), np.empty(n, np.float32)
+    for _ in range(8):
+        for t in range(n):
+            amp = np.float32(amp + rate * np.float32(mag[t] - amp))
+            amps[t] = amp
+    if form == "costas":
+        q = np.maximum(amps * amps, np.float32(1e-12))
+    elif form == "pilot":
+        q = np.maximum(np.float32(math.pi / 4) * amps, np.float32(1e-6))
+    else:
+        q = np.zeros(n, np.float32)
+    return np.stack([x.real, x.imag, amps, q], 1).astype(np.float32)
 
 
 def probe_pattern(form: str) -> np.ndarray:
@@ -377,10 +437,17 @@ def probe_pattern(form: str) -> np.ndarray:
     writes and the kernel reads in place) keyed in runs cycling
     through 6, 10, 8, 12 and 7 frames (marks at 0.4 with a +-10 % fade,
     spaces near 1e-3, the compare bins near 2e-3 with a little of the
-    keying on the low one), as chip_smoke.ook_powers makes them."""
+    keying on the low one), as chip_smoke.ook_powers makes them; for K3
+    and K3c, 1024 [re, im, amp', q] frames (_loop_pattern) with noise 20
+    dB down: atan2 and cross a complex tone 0.013 rad a sample off the
+    probe's wc, costas a BPSK-keyed carrier, pilot a real tone near wc,
+    the chunk forms the phasors of a drifting tone, so that the loop
+    tracks and never sits at a fixed point."""
     if form not in FED_FORMS:
         raise ValueError(f"no fed probe for {form!r}")
     rng = np.random.default_rng(FED_FORMS.index(form))
+    if form in DETECTORS or form.startswith("chunk"):
+        return _loop_pattern(form, rng)
     if form.startswith("agc"):
         on = np.concatenate([np.ones(128), np.zeros(256), np.ones(64),
                              np.zeros(64)]).astype(bool)
@@ -411,13 +478,14 @@ def chain_probe(form: str, steps: int, device, fed: bool = False
     device: one thread runs `steps` steps of the form's dependent chain on
     inputs held in registers (no memory inside the loop); or, with fed=True
     (FED_FORMS only: recur_probe_fed, steps rounded up to a multiple of 4),
-    one lane of the K4 / K6 kernel's own chain loop, its constants pinned,
-    its inputs read from a small pattern (probe_pattern) staged in shared
-    memory a register group ahead and its outputs stored there, as the
-    kernel does.  Timed over many steps, its time per step is the latency
-    of one step's chain, the recurrence kernels' serial floor
-    (utils/roofline.py).  Returns its [1] float32 output (a sum of the
-    outputs, which keeps every step)."""
+    one lane of the K4 / K6 kernel's own chain loop, or of the K3 / K3c
+    loop kernel's chain alone (what reads no loop state precomputed in the
+    pattern), its constants pinned, its inputs read from a small pattern
+    (probe_pattern) staged in shared memory a register group ahead and its
+    outputs stored there, as the kernel does.  Timed over many steps, its
+    time per step is the latency of one step's chain, the recurrence
+    kernels' serial floor (utils/roofline.py).  Returns its [1] float32
+    output (a sum of the outputs, which keeps every step)."""
     dev = torch.device(device)
     out = torch.empty(1, dtype=torch.float32, device=dev)
     lib = _lib()
@@ -460,26 +528,26 @@ def _check_loop(name: str, x: torch.Tensor, state) -> torch.device:
     return dev
 
 
-def _run_loop(fn, name: str, x: torch.Tensor, state, flag: int,
-              consts: tuple):
-    """Launch a recurrence of csrc/recur.cu on x's device and stream:
-    returns (phase', fdev', amp', out0 [C, N], out1 [C, N])."""
+def loop_launch(entry, name: str, x: torch.Tensor, state, flag: int,
+                consts: tuple):
+    """The CUDA path of pll_scan and pll_chunk_scan through a C entry of
+    csrc/recur.cu (this build's recur_pll_scan / recur_pll_chunk_scan, or
+    another build's of the same signature): the checks, the outputs'
+    allocation and one launch on x's device and stream.  Returns (phase',
+    fdev', amp', out0 [C, N], out1 [C, N]); counts nothing."""
     dev = _check_loop(name, x, state)
     c, n = x.shape
     outs = [torch.empty(c, n, dtype=torch.float32, device=dev)
             for _ in range(2)]
     st_out = [torch.empty(c, dtype=torch.float32, device=dev)
               for _ in range(3)]
-    lib = _lib()
-    err = getattr(lib, fn)(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        flag, x.data_ptr(), c, n, *consts,
-        *(v.data_ptr() for v in state), *(v.data_ptr() for v in outs),
-        *(v.data_ptr() for v in st_out),
-        torch.cuda.current_stream(dev).cuda_stream)
+    idx = x.get_device()
+    err = entry(idx, flag, x.data_ptr(), c, n, *consts,
+                *(v.data_ptr() for v in state), *(v.data_ptr() for v in outs),
+                *(v.data_ptr() for v in st_out), short_chain.raw_stream(idx))
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
-                           f"({lib.recur_error_string(err).decode()})")
+                           f"({_lib().recur_error_string(err).decode()})")
     return (*st_out, *outs)
 
 
@@ -497,9 +565,9 @@ def pll_scan(x: torch.Tensor, phase: torch.Tensor, fdev: torch.Tensor,
                               dev_lo, dev_hi)
     if x.device.type != "cuda":
         raise ValueError(f"pll_scan runs on cuda or cpu, not {x.device}")
-    ret = _run_loop("recur_pll_scan", "pll_scan", x, (phase, fdev, amp),
-                    DETECTORS.index(detector),
-                    (alpha, beta, wc, dev_lo, dev_hi))
+    ret = loop_launch(_lib().recur_pll_scan, "pll_scan", x,
+                      (phase, fdev, amp), DETECTORS.index(detector),
+                      (alpha, beta, wc, dev_lo, dev_hi))
     pll_scan.launches += 1
     pll_scan.detector_launches[detector] += 1
     return ret
@@ -517,9 +585,9 @@ def pll_chunk_scan(z: torch.Tensor, phase: torch.Tensor, fdev: torch.Tensor,
     if z.device.type != "cuda":
         raise ValueError(f"pll_chunk_scan runs on cuda or cpu, not "
                          f"{z.device}")
-    ret = _run_loop("recur_pll_chunk_scan", "pll_chunk_scan", z,
-                    (phase, fdev, amp), int(bool(pilot)),
-                    (alpha, beta, dev_lo, dev_hi))
+    ret = loop_launch(_lib().recur_pll_chunk_scan, "pll_chunk_scan", z,
+                      (phase, fdev, amp), int(bool(pilot)),
+                      (alpha, beta, dev_lo, dev_hi))
     pll_chunk_scan.launches += 1
     return ret
 

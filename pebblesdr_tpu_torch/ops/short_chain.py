@@ -1,5 +1,6 @@
 """The host side of csrc/recur.cu's short-chain kernel (K4 agc_scan, K6
-ook_scan): its launch plan and K6's input streams and output block.
+ook_scan): its launch plan and K6's input streams and output block; and
+the launch plan of its loop kernel (K3 pll_scan, K3c pll_chunk_scan).
 
 The kernel gives each block 16 channels (a chain warp, a lane a channel,
 and a copy warp; 64 channels take 4 SMs, 256 take 16).  A launch of N frames
@@ -18,6 +19,16 @@ compare mode are packed into a trio first (the kernel reads the bins from
 the trio only; no caller on the main path passes them so).  Its state'
 comes back in one allocation of six [C] rows of 4-byte words (peak, floor,
 avg; attack, decay; the decisions' bytes at the start of the sixth).
+
+The loop kernel gives each block LOOP_WARPS chain warps of LOOP_LANES
+chains (one chain a block: 64 channels on 64 SMs) and a copy warp, and
+streams each [C, N] complex64 row through stages of LOOP_STAGE_FRAMES
+float2 frames as the short-chain kernel streams its frames ("pass" where
+N <= LOOP_STAGE_FRAMES, "ring" above); the copy warp writes each landed
+row's denominators q (costas, pilot) beside it, and the chain lanes two
+float output rows a stage.
+loop_plan mirrors the C loop_plan (the card test holds it to
+recur_loop_plan).
 """
 
 from __future__ import annotations
@@ -83,6 +94,75 @@ def short_plan(n: int, fs: int, esz: int) -> ShortPlan:
     smem = (PIN_BYTES + _round(2 * stages * 8, 16)
             + stages * LANES * (pitch * 4 + out_pitch))
     return ShortPlan(form, frames, stages, pitch, out_pitch, smem)
+
+
+LOOP_LANES = 1           # chains a chain warp (kPlLanes)
+LOOP_WARPS = 1           # chain warps a block (kPlWarps)
+LOOP_GROUP = 4           # steps per register group (kPlU)
+LOOP_STAGE_FRAMES = 128  # frames per stage in the ring form (kPlL)
+LOOP_STAGES = 3          # stages in the ring form (kPlStages)
+
+
+@dataclasses.dataclass(frozen=True)
+class LoopPlan:
+    form: str             # "pass" or "ring"
+    frames: int           # frames per stage (L)
+    stages: int
+    pitch: int            # floats per staged row (two a frame)
+    qpitch: int           # floats per row of denominators q
+    out_pitch: int        # bytes per output row in a stage
+    smem: int             # dynamic shared-memory bytes
+    lanes: int = LOOP_LANES
+    warps: int = LOOP_WARPS
+
+    @property
+    def rows(self) -> int:
+        """Channels a block."""
+        return self.lanes * self.warps
+
+    @property
+    def threads(self) -> int:
+        """The chain warps and the copy warp."""
+        return 32 * (self.warps + 1)
+
+    def as_ints(self) -> list[int]:
+        """The 10 values recur_loop_plan writes, in its order."""
+        return [FORMS.index(self.form) + 1, self.frames, self.stages,
+                self.pitch, self.qpitch, self.out_pitch, self.smem,
+                self.lanes, self.warps, self.threads]
+
+
+def loop_plan(n: int) -> LoopPlan:
+    """The loop kernel's plan for n complex frames (csrc/recur.cu
+    loop_plan): the form, the stage's frames, the staged row's pitch (=
+    4 mod 32 floats, room for the row's float offset in its 16-byte line
+    and a register group read past the segment), the q rows' pitch (= 1
+    mod 32 floats: the copy warp's denominators for the chain lanes), the
+    output rows' pitch (as short_plan's, for 4-byte outputs) and the
+    shared memory (the pinned constants, the full, ready and done
+    mbarriers, the input, q and the two outputs' stages)."""
+    if n < 0:
+        raise ValueError(f"loop_plan: {n} frames")
+    form = "pass" if n <= LOOP_STAGE_FRAMES else "ring"
+    frames = n if form == "pass" else LOOP_STAGE_FRAMES
+    stages = 0 if n <= 0 else (1 if form == "pass" else LOOP_STAGES)
+    pitch = _round((frames + 2 * LOOP_GROUP) * 2, 32) + 4
+    qpitch = _round(frames + LOOP_GROUP, 32) + 1
+    if form == "pass":
+        out_pitch = frames * 4
+    else:
+        out_pitch = _round(frames * 4, 16)
+        out_pitch += 16 if out_pitch % 128 == 0 else 0
+    rows = LOOP_LANES * LOOP_WARPS
+    smem = (PIN_BYTES + _round(3 * stages * 8, 16)
+            + stages * rows * (pitch * 4 + 2 * out_pitch)
+            + _round(stages * rows * qpitch * 4, 16))
+    return LoopPlan(form, frames, stages, pitch, qpitch, out_pitch, smem)
+
+
+def loop_blocks(c: int) -> int:
+    """Blocks of a loop-kernel launch over c channels."""
+    return -(-c // (LOOP_LANES * LOOP_WARPS))
 
 
 def raw_stream(idx: int) -> int:

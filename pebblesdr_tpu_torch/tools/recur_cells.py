@@ -1,56 +1,77 @@
-"""K4 (csrc/recur.cu agc_scan, the scan AGC's smoother) and K6 (ook_scan, the
-OOK detector) at the main path's shapes on the card, beside another build
-of recur.cu (a parent commit's, say) timed in turns in the same process.
+"""K3 and K3c (csrc/recur.cu pll_scan, pll_chunk_scan: the carrier loops on
+the loop kernel), K4 (agc_scan, the scan AGC's smoother) and K6 (ook_scan,
+the OOK detector) at the main path's shapes on the card, beside another
+build of recur.cu (a parent commit's, say) timed in turns in the same
+process.
 
-    python -m pebblesdr_tpu_torch.tools.recur_cells [--ptxas]
+    python -m pebblesdr_tpu_torch.tools.recur_cells [--ptxas] [--k3]
         [--against RECUR_CU [TAG]]
 
-Shapes (tag, rows, steps): K4 "long" (the hang) and "med" at [64, 2048]
+Shapes (tag, rows, steps): K3 atan2 at NFM "pll"'s [64, 32768] and
+sam_short_64ch's [64, 8192], costas at wfm_rds_scan_64ch's [64, 9728],
+cross and pilot at the WFM composite's first 8192 steps [64, 8192] (19 kHz
+at 256 ksps), K3c at the SAM loop's [64, 4096] chunk phasors with the pilot
+flag off and on (seeded synthetic signals at each caller's constants; --k3:
+these rows only); K4 "long" (the hang) and "med" at [64, 2048]
 (a dispatch's envelope at am_64ch, stride 16: chip_smoke.py phase 30's
 input); K6 in each of its six threshold modes at [64, 2048] and K6 "peak"
 at cw_taps_64ch's [64, 34] frames (chip_smoke.ook_powers, phase 37's),
 the three powers as the three columns of one [C, F, 3] tensor, the layout
 goertzel_power hands MorseModem.  At
-every shape each library is first held to its plain version (K4's levels
-and state equal; K6's marks equal and its state within 1e-6 of each
+every shape each library is first held to its plain version (K3's and
+K3c's outputs and state equal bit for bit; K4's levels and state equal;
+K6's marks equal and its state within 1e-6 of each
 leaf's scale, on powers whose decision margin is asserted; one that
 disagrees raises), then the libraries are timed in turns, this one, the
-other, the other, this one: the device ms per launch of the K4 / K6
-kernel (torch.profiler over 10 calls, chip_smoke.kernel_times) and CUDA
+other, the other, this one: the device ms per launch of the kernel
+(torch.profiler over 10 calls, chip_smoke.kernel_times) and CUDA
 events per call over 10 calls after 3 warm-ups.  A call is the wrapper's
 whole host path: for this checkout the wrappers themselves
-(ops/agc.py agc_scan, ops/goertzel.py ook_detect), for another library the
-host path its own C signature asks for (a K6 entry without
+(ops/pll.py pll_scan, pll_chunk_scan, ops/agc.py agc_scan, ops/goertzel.py
+ook_detect), for another library the
+host path its own C signature asks for (K3's and K3c's through
+pll.loop_launch; a K6 entry without
 recur_short_plan takes the three powers stacked into [C, F, 4] float4
 frames and float32 marks, as its wrapper did).  Each time is printed with
-its share of the bound (utils/roofline.py agc_scan_bound, ook_scan_bound)
+its share of the bound (utils/roofline.py pll_scan_bound,
+pll_chunk_bound, agc_scan_bound, ook_scan_bound)
 at the chain probe fed from memory (ops/pll.py chain_probe(fed=True));
 the register-only probe's reading is printed beside it, and so is the
 launch floor (the register-only probe over no step, per launch: the fed
 probe stages its pattern first).
 
-    python -m pebblesdr_tpu_torch.tools.recur_cells --sweep
+    python -m pebblesdr_tpu_torch.tools.recur_cells --sweep [--short]
         [--source RECUR_CU] [variant ...]
 
 builds timing-only variants of a recur.cu (this checkout's, or RECUR_CU
 with its directory's headers) side by side into build/recur_sweep/
-(text replaced, each text found once: SWEEP_TILED for a source whose K4
-and K6 run on recur_kernel, SWEEP_SHORT for one with recur_short_kernel)
-and times each at [64, 2048] (K4 long and med, K6 in each mode) and at
-cw_taps_64ch's [64, 34] (K6 peak) in turns,
-forwards then backwards (torch.profiler per launch).  "built" is first
-held to the plain version; the others drop a part of the kernel's work
-(their outputs wrong by design) to attribute the time per step.
+(text replaced, each text found once) and times each in turns, forwards
+then backwards (torch.profiler per launch).  By default the loop kernel's
+variants (SWEEP_LOOP: the layout, 1 to 16 chains a warp and 1 to 4 chain
+warps a block, and the stateless input work in the chain lane's step
+instead of on the copy warp, each held to the plain version bit for bit;
+and timing-only probes, probe_*) at the K3 / K3c shapes (with --sass
+DIR the variants' SASS and chain-loop summaries instead, sass_* variants
+compile-only); with --short
+the K4 / K6 kernel's
+(SWEEP_TILED for a source whose K4 and K6 run on a tiled kernel,
+SWEEP_SHORT for one with recur_short_kernel) at [64, 2048] (K4 long and
+med, K6 in each mode) and at cw_taps_64ch's [64, 34] (K6 peak), where
+"built" is held to the plain version and the others drop a part of the
+kernel's work (their outputs wrong by design) to attribute the time per
+step.
 
 --against builds RECUR_CU (its directory's headers on the include path)
 into build/recur_cells/ with this checkout's nvcc flags.  --sass DIR
-writes the SASS of K4 without the hang and K6 in compare, peak and
-average mode (this build's, and RECUR_CU's) to DIR/recur_sass_<tag>.txt
-and stops.  --ptxas builds
+writes the SASS of K3 in each detector, K3c in both forms, K4 without the
+hang and K6 in compare, peak and average mode
+(this build's, and RECUR_CU's) to DIR/recur_sass_<tag>.txt, prints each
+K3 / K3c kernel's and fed probe's chain loop (its instructions and
+convergence barriers, loop_summary) and stops.  --ptxas builds
 this checkout's recur.cu (and RECUR_CU, where one is given) once more with
 -Xptxas -v and prints the registers, stack frame, spills and shared memory
-of every K4 / K6 kernel instantiation and probe.  The last line is one JSON object of the
-results.  Raises without a CUDA device.
+of every K3 / K3c / K4 / K6 kernel instantiation and probe.  The last
+line is one JSON object of the results.  Raises without a CUDA device.
 """
 
 from __future__ import annotations
@@ -64,12 +85,22 @@ import sys
 
 import numpy as np
 
+# K3 / K3c: (tag, probe form, rows, steps)
+LOOP_SHAPES = (("atan2 nfm", "atan2", 64, 32768),
+               ("atan2 sam_short", "atan2", 64, 8192),
+               ("costas", "costas", 64, 9728),
+               ("cross", "cross", 64, 8192),
+               ("pilot", "pilot", 64, 8192),
+               ("chunk", "chunk", 64, 4096),
+               ("chunk pilot", "chunk pilot", 64, 4096))
 K4_SHAPES = (("agc long", 64, 2048), ("agc med", 64, 2048))
 OOK_LONG = (64, 2048)
 OOK_CW = (64, 34)          # cw_taps_64ch: 16 ms blocks, 480-sample frames
 CALL_REPS, WARM = 10, 3
-# --sass: K4 without the hang, K6 in compare, peak and average mode
-SASS_PATTERN = r"AgcStepILb0|OokStepILi[012]E"
+# --sass: K3 in each detector, K3c in both forms, K4 without the hang, K6
+# in compare, peak and average mode
+SASS_PATTERN = (r"PllStepILi[0-3]E|ChunkStepILb[01]E|AgcStepILb0|"
+                r"OokStepILi[012]E")
 
 _LOOP = ("      float o[2];\n#pragma unroll 4\n      for (int t = 0; t < len;"
          " ++t) {\n        s.step(src[t], o);")
@@ -119,6 +150,98 @@ SWEEP_SHORT = {
 SWEEP_SHORT["chain_only"] = SWEEP_SHORT["in_regs"] + SWEEP_SHORT["no_out"]
 
 
+def _loop_layout(lanes: int, warps: int) -> list:
+    """The loop kernel at lanes chains a warp and warps chain warps a block
+    (built: 1 x 1; 32 rows a block stage 64 frames, 64 rows 64 frames in
+    two stages: the shared memory)."""
+    subs = []
+    if lanes != 1:
+        subs.append(("constexpr int kPlLanes = 1;",
+                     f"constexpr int kPlLanes = {lanes};"))
+    if warps != 1:
+        subs.append(("constexpr int kPlWarps = 1;",
+                     f"constexpr int kPlWarps = {warps};"))
+    if lanes * warps >= 32:
+        subs.append(("constexpr int kPlL = 128;", "constexpr int kPlL = 64;"))
+    if lanes * warps >= 64:
+        subs.append(("constexpr int kPlStages = 3;",
+                     "constexpr int kPlStages = 2;"))
+    return subs
+
+
+# recur_loop_kernel's variants (K3, K3c): whole designs, held to the plain
+# version bit for bit: the layout, lanes x warps (built: 1 x 1), and the
+# input work that reads no loop state in the chain lane's step ("inline")
+# instead of on the copy warp; and timing-only probes (probe_*, not held):
+# no output stored in a full group
+SWEEP_LOOP = {"built": [],
+              "inline": [("constexpr bool kPlPrep = true;",
+                          "constexpr bool kPlPrep = false;")],
+              # compile-only (--sass; never timed): the chain loop without
+              # its stage wait, its hand-back, or its pass-form write-out,
+              # to see which puts BSSY / BSYNC pairs in the chain loop
+              "sass_no_wait": [("    bulk::mbar_wait(kPlPrep ? &ready[slot] "
+                                ": &full[slot],\n                    "
+                                "static_cast<uint32_t>(i / S) & 1u);\n", "")],
+              "sass_no_handback": [
+                  ("    bulk::fence_async_smem();\n    // a warp-synchronous",
+                   "    // a warp-synchronous"),
+                  ("    if (lane == 0) bulk::mbar_arrive_expect_tx(&done[slot], "
+                   "0);\n  }\n  if (mine) {",
+                   "  }\n  if (mine) {")],
+              "sass_no_pass": [("    if (p.form == 1) {\n      // the pass form: "
+                                "each chain warp", "    if (false) {\n      // "
+                                "the pass form: each chain warp")],
+              # the chain thread's warp-mates leave at the top (no block
+              # barrier after; compile-only), no copy-warp code, no block
+              # barrier
+              "sass_exit_early": [
+                  ("  const int tid = threadIdx.x, lane = tid & 31, warp = tid "
+                   ">> 5;\n",
+                   "  const int tid = threadIdx.x, lane = tid & 31, warp = tid "
+                   ">> 5;\n  if (kPlRows == 1 && tid != 0 && tid < 32) "
+                   "return;\n")],
+              # neither (the chain loop with no mbarrier operation)
+              "sass_no_mbarrier": None,
+              # the chain's exit on the lane index as the hardware gives it
+              # (%laneid), and a launch bound of one warp (no launch)
+              "sass_laneid": [("  if (kPlRows == 1 ? tid != 0 : lane >= kPlLanes) "
+                               "return;",
+                               "  unsigned lid;\n  asm(\"mov.u32 %0, %%laneid;"
+                               "\" : \"=r\"(lid));\n  if (kPlRows == 1 ? "
+                               "(tid != 0 || lid != 0) : lane >= kPlLanes) "
+                               "return;")],
+              "sass_lb32": [("__launch_bounds__(kPlThreads, 1)",
+                             "__launch_bounds__(32, 1)")],
+              "sass_no_copy": [("  if (!chain) {\n    // the copy warp: lane l",
+                                "  if (!chain) return;\n  if (false) {\n    "
+                                "// the copy warp: lane l")],
+              "sass_no_barrier": [("&done[i], kPlWarps);\n    }\n    bulk::"
+                                   "fence_mbar_init();\n    sh_pin_write(s, "
+                                   "pin_w);\n  }\n  __syncthreads();",
+                                   "&done[i], kPlWarps);\n    }\n    bulk::"
+                                   "fence_mbar_init();\n    sh_pin_write(s, "
+                                   "pin_w);\n  }")],
+              # the chain warp's __syncwarp at a stage's end even with one
+              # lane (ptxas then keeps BSSY / BSYNC pairs in the chain)
+              "warpsync": [("    if (kPlLanes > 1) __syncwarp(kPlMask);\n"
+                            "    if (lane == 0) bulk::mbar_arrive_expect_tx("
+                            "&done[slot], 0);",
+                            "    __syncwarp(kPlMask);\n"
+                            "    if (lane == 0) bulk::mbar_arrive_expect_tx("
+                            "&done[slot], 0);")],
+              "probe_no_out": [("        o0[t + j] = o[0];\n"
+                                "        o1[t + j] = o[1];\n      }\n"
+                                "      cur = nxt;",
+                                "      }\n      cur = nxt;")]}
+SWEEP_LOOP["sass_no_mbarrier"] = (SWEEP_LOOP["sass_no_wait"]
+                                  + SWEEP_LOOP["sass_no_handback"])
+for _lanes in (1, 4, 8, 16):
+    for _warps in (1, 2, 4):
+        if (_lanes, _warps) != (1, 1):
+            SWEEP_LOOP[f"l{_lanes}w{_warps}"] = _loop_layout(_lanes, _warps)
+
+
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """K4's and K6's C signatures (K6's by its generation: a library with
     recur_short_plan takes the powers where they lie), and the probes'."""
@@ -134,6 +257,10 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     else:
         lib.recur_ook_scan.argtypes = ([i, i, p, i, i] + [f] * 6 + [i, i]
                                        + [p] * 14)
+    lib.recur_pll_scan.restype = i
+    lib.recur_pll_scan.argtypes = [i, i, p, i, i, f, f, f, f, f] + [p] * 9
+    lib.recur_pll_chunk_scan.restype = i
+    lib.recur_pll_chunk_scan.argtypes = [i, i, p, i, i, f, f, f, f] + [p] * 9
     lib.recur_probe.restype = i
     lib.recur_probe.argtypes = [i, i, i, p, p]
     if hasattr(lib, "recur_probe_fed"):
@@ -196,10 +323,67 @@ def agc_call(torch, lib, env, att, dec, hang, k):
     return att2, dec2, hang2, levels
 
 
+def loop_input(torch, pll, tag: str, c: int, n: int, rng):
+    """One K3 / K3c shape's call at its caller's constants: (the wrapper,
+    the plain version, their arguments, the C entry's name, flag and
+    constants for pll.loop_launch).  Seeded synthetic signals: NFM voice
+    at 3 kHz deviation (64 ksps), an AM carrier 230 Hz off (SAM, 64 ksps;
+    K3c: its chunk phasors, 8 samples a chunk), BPSK at 1187.5 baud 3 Hz
+    off (RDS at 19 ksps), the 19 kHz pilot 5 Hz off at 256 ksps (cross:
+    the complex carrier at unit amplitude; pilot: the real composite)."""
+    t = np.arange(n, dtype=np.float64)
+    ch = np.arange(c)[:, None]
+    noise = rng.standard_normal((c, n)) + 1j * rng.standard_normal((c, n))
+    det = tag.split()[0]
+    if tag == "atan2 nfm":
+        fs = 64000.0
+        cfg = pll.make_pll_config(fs, 5000.0, range_hz=10000.0)
+        x = 0.5 * np.exp(1j * (2 * np.pi * 150.0 * t / fs + 3.0 * np.sin(
+            2 * np.pi * 1000.0 * t / fs) + ch)) + 1e-3 * noise
+    elif tag == "atan2 sam_short" or det == "chunk":
+        fs = 64000.0
+        cfg = pll.make_pll_config(fs, 100.0, range_hz=1000.0)
+        if det == "chunk":       # phasors of 8-sample chunks
+            t = 8.0 * t
+        x = (0.3 * np.exp(1j * (2 * np.pi * 230.0 * t / fs + 0.7 * ch))
+             + 1e-4 * noise)
+    elif det == "costas":
+        fs = 19000.0
+        cfg = pll.make_pll_config(fs, 30.0, range_hz=100.0,
+                                  detector="costas")
+        data = np.repeat(np.where(rng.random((c, n // 16 + 1)) < 0.5, -1.0,
+                                  1.0), 16, axis=1)[:, :n]
+        x = (0.5 * data * np.exp(1j * (2 * np.pi * 3.0 * t / fs + ch))
+             + 0.02 * noise)
+    else:                         # cross, pilot
+        fs = 256000.0
+        cfg = pll.make_pll_config(fs, 10.0, center_hz=19000.0,
+                                  range_hz=100.0, detector=det)
+        ph = 2 * np.pi * 19005.0 * t / fs + 0.3 * ch
+        if det == "pilot":
+            x = (0.1 * np.sin(ph) + 0.3 * np.sin(2 * np.pi * 1000.0 * t / fs)
+                 + 0.01 * noise.real)
+        else:
+            x = np.exp(1j * ph) + 0.01 * noise
+    x = torch.from_numpy(x.astype(np.complex64)).cuda()
+    st = (torch.zeros(c, device="cuda"), torch.zeros(c, device="cuda"),
+          torch.ones(c, device="cuda"))
+    wc, lo, hi = cfg.freq_center, cfg.freq_lo, cfg.freq_hi
+    if det == "chunk":
+        pilot = tag == "chunk pilot"
+        consts = (cfg.alpha * 8, cfg.beta * 64, (lo - wc) * 8, (hi - wc) * 8)
+        return (pll.pll_chunk_scan, pll.pll_chunk_scan_plain,
+                (x, *st, pilot, *consts), "recur_pll_chunk_scan",
+                int(pilot), consts)
+    consts = (cfg.alpha, cfg.beta, wc, lo - wc, hi - wc)
+    return (pll.pll_scan, pll.pll_scan_plain, (x, *st, det, *consts),
+            "recur_pll_scan", pll.DETECTORS.index(det), consts)
+
+
 def ptxas_report(build, source) -> list[str]:
-    """-Xptxas -v's lines for a recur.cu's K4 / K6 kernels and their
-    probes: the entry, its properties' heading, its stack / spills and its
-    registers / shared memory."""
+    """-Xptxas -v's lines for a recur.cu's K3 / K3c / K4 / K6 kernels and
+    their probes: the entry, its properties' heading, its stack / spills
+    and its registers / shared memory."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run(
         [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
@@ -210,8 +394,9 @@ def ptxas_report(build, source) -> list[str]:
     lines, keep = [], 0
     for line in proc.stderr.splitlines():
         if "Compiling entry function" in line:
-            # mangled names: AgcStep / OokStep appear in the template args
-            keep = 4 if re.search(r"AgcStep|OokStep", line) else 0
+            # mangled names: the steps appear in the template args
+            keep = 4 if re.search(r"PllStep|ChunkStep|AgcStep|OokStep",
+                                  line) else 0
         if keep:
             lines.append(line.strip())
             keep -= 1
@@ -233,6 +418,43 @@ def sass_report(build, lib_path, pattern: str) -> str:
         if keep:
             out.append(line)
     return "\n".join(out)
+
+
+def loop_summary(sass: str) -> list[str]:
+    """Per function of a SASS listing whose name holds recur_loop_kernel or
+    probe_loop_fed_kernel: its chain loop (the backward branch of at most
+    1600 instructions whose body holds the most FADD: the unrolled group of
+    steps) with its instructions, convergence barriers (BSSY, BSYNC) and
+    shared loads and stores."""
+    out = []
+    for part in sass.split("Function :")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        kind = re.search(r"recur_loop_kernel|probe_loop_fed_kernel", name)
+        step = re.search(r"(PllStepILi\d|ChunkStepILb\d)", name)
+        if not kind or not step:
+            continue
+        ins = [(int(m.group(1), 16), m.group(2).strip()) for m in
+               re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
+        best = None
+        for addr, text in ins:
+            m = re.search(r"BRA (?:!?U?P\w+, )?0x([0-9a-f]+)", text)
+            if not m or int(m.group(1), 16) >= addr:
+                continue
+            body = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
+            if len(body) > 1600:
+                continue
+            key = sum("FADD" in t for t in body)
+            if best is None or key > best[0]:
+                best = (key, body)
+        if best:
+            body = best[1]
+            out.append(f"{kind.group(0)} {step.group(1)}: chain loop of "
+                       f"{len(body)} instructions, "
+                       f"{sum('BSSY' in t for t in body)} BSSY, "
+                       f"{sum('BSYNC' in t for t in body)} BSYNC, "
+                       f"{sum('LDS' in t for t in body)} LDS, "
+                       f"{sum('STS' in t for t in body)} STS")
+    return out
 
 
 def variant_source(src: str, subs: list) -> str:
@@ -296,9 +518,9 @@ def main(argv: list[str] | None = None) -> dict:
                           text=True).stdout.strip()
     print(card, flush=True)
     out = {"device": card}
-    ptxas = "--ptxas" in argv
-    if ptxas:
-        argv.remove("--ptxas")
+    flags = {f: f in argv for f in ("--ptxas", "--k3", "--short")}
+    argv = [a for a in argv if a not in flags]
+    ptxas = flags["--ptxas"]
     sass = None
     if "--sass" in argv:
         i = argv.index("--sass")
@@ -315,10 +537,20 @@ def main(argv: list[str] | None = None) -> dict:
             source, rest = Path(os.path.abspath(rest[1])), rest[2:]
             sources["source"] = source
         text = source.read_text()
-        table = SWEEP_SHORT if "recur_short_kernel" in text else SWEEP_TILED
-        names = rest or list(table)
+        if flags["--short"]:
+            table = (SWEEP_SHORT if "recur_short_kernel" in text
+                     else SWEEP_TILED)
+        elif "recur_loop_kernel" in text:
+            table = SWEEP_LOOP
+        else:
+            raise ValueError(f"{source} has no loop kernel to sweep "
+                             f"(--short: the K4 / K6 variants)")
+        names = rest or [n for n in table if not n.startswith("sass_")]
+        if sass is None and any(n.startswith("sass_") for n in names):
+            raise ValueError("sass_* variants are compile-only: --sass DIR")
+        variant_paths = compile_variants(build, source, table, names)
         libs = {name: declare(ctypes.CDLL(str(so))) for name, so in
-                compile_variants(build, source, table, names).items()}
+                variant_paths.items()}
     if argv[:1] == ["--against"]:
         tag = argv[2] if len(argv) > 2 else "other"
         libs[tag] = build_other(build, os.path.abspath(argv[1]), tag)
@@ -331,11 +563,14 @@ def main(argv: list[str] | None = None) -> dict:
         dest.mkdir(parents=True, exist_ok=True)
         for tag, path in [("this", build.library_path("recur"))] + [
                 (t, build.BUILD_DIR.parent / "recur_cells" / f"librecur_{t}.so")
-                for t in libs if t != "this" and not sweep]:
+                for t in libs if t != "this" and not sweep] + (
+                    list(variant_paths.items()) if sweep else []):
             text = sass_report(build, path, SASS_PATTERN)
             (dest / f"recur_sass_{tag}.txt").write_text(text)
             print(f"sass ({tag}): {len(text.splitlines())} lines to "
                   f"{dest / f'recur_sass_{tag}.txt'}", flush=True)
+            out[f"loops_{tag}"] = loop_summary(text)
+            print("\n".join(out[f"loops_{tag}"]), flush=True)
         return out
     if ptxas:
         out["ptxas"] = {}
@@ -344,9 +579,16 @@ def main(argv: list[str] | None = None) -> dict:
             print(f"ptxas ({tag}: {src}):\n" + "\n".join(out["ptxas"][tag]),
                   flush=True)
 
+    # K3 / K3c rows unless a K4 / K6 sweep; K4 / K6 rows unless --k3 or a
+    # loop sweep
+    do_loop = not (sweep and flags["--short"])
+    do_short = not flags["--k3"] and not (sweep and not flags["--short"])
+    loop_forms = pll.DETECTORS + ("chunk", "chunk pilot")
     # the chain probes: register-only and fed from memory
     probes = {}
     for form in pll.FED_FORMS:
+        if not (do_loop if form in loop_forms else do_short):
+            continue
         row = {}
         for fed in (False, True):
             pll.chain_probe(form, 256, "cuda", fed=fed)
@@ -367,7 +609,7 @@ def main(argv: list[str] | None = None) -> dict:
           f"per launch", flush=True)
     rows = []
 
-    def measure(tag, shape, cands, kernel_key, bound):
+    def measure(tag, shape, cands, kernel_key, bound, form=None):
         """cands: {name: call}; each held (hold), then timed in turns."""
         order = list(cands) + list(cands)[::-1]
         launch = {name: [] for name in cands}
@@ -390,18 +632,59 @@ def main(argv: list[str] | None = None) -> dict:
                    "launch_ms": launch[name], "call_ms": call[name],
                    "bound_ms": bound["bound_ms"],
                    "bound_by": bound["bound_by"],
-                   "serial_ms": bound["serial_ms"]}
+                   "serial_ms": bound["serial_ms"],
+                   "bytes_ms": bound["bytes"] / roofline.HBM_BYTES_PER_S
+                   * 1e3}
+            if form is not None:
+                row["step_ns"] = ms * 1e6 / shape[1]
+                row["register_bound_ms"] = (shape[1] * probes[form][
+                    "registers"] * 1e-6)
             rows.append(row)
             print(f"{tag} {list(shape)} {name}: per launch "
                   f"{', '.join(f'{t:.4f}' for t in launch[name])} ms, per "
                   f"call {', '.join(f'{t:.4f}' for t in call[name])} ms; "
                   f"{bound['bound_ms'] / ms:.1%} of the "
                   f"{bound['bound_ms']:.5f} ms bound per launch "
-                  f"({bound['bound_by']})", flush=True)
+                  f"({bound['bound_by']})"
+                  + (f"; {row['step_ns']:.1f} ns a step against "
+                     f"{probes[form]['fed']:.1f} fed, "
+                     f"{probes[form]['registers']:.1f} on registers; the "
+                     f"register probe's bound {row['register_bound_ms']:.4f}"
+                     f" ms, the bytes' {row['bytes_ms']:.5f} ms"
+                     if form is not None else ""), flush=True)
+
+    # K3 and K3c: every library held to the plain version bit for bit
+    rng = np.random.default_rng(3)
+    for tag, form, c, n in LOOP_SHAPES if do_loop else ():
+        wrapper, plain, args, entry, flag, consts = loop_input(
+            torch, pll, tag, c, n, rng)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        cands = {}
+        for name, lib in libs.items():
+            if name == "this" and not sweep:
+                fn = (lambda: wrapper(*args))
+            else:
+                fn = (lambda lib=lib: pll.loop_launch(
+                    getattr(lib, entry), tag, args[0], args[1:4], flag,
+                    consts))
+            got = fn()
+            torch.cuda.synchronize()
+            if not name.startswith("probe_") and not all(
+                    a.shape == b.shape and torch.equal(a, b)
+                    for a, b in zip(got, ref)):
+                raise RuntimeError(f"{tag} {name}: K3 differs from its plain "
+                                   f"version")
+            cands[name] = fn
+        chunk = form.startswith("chunk")
+        bound = (roofline.pll_chunk_bound if chunk else
+                 roofline.pll_scan_bound)(c, n, probes[form]["fed"])
+        measure(tag, (c, n), cands, "ChunkStep" if chunk else "PllStep",
+                bound, form=form)
 
     # K4
     rng = np.random.default_rng(4)
-    for tag, c, m in K4_SHAPES:
+    for tag, c, m in K4_SHAPES if do_short else ():
         mode = tag.split()[1]
         key = np.where(((m - 1 - np.arange(m)) // 300) % 2, 1.0, 0.01)
         env = torch.from_numpy(np.log10(np.abs(
@@ -469,7 +752,7 @@ def main(argv: list[str] | None = None) -> dict:
 
     rng = np.random.default_rng(37)
     c, f = OOK_LONG
-    for mode in goertzel.THRESHOLD_MODES:
+    for mode in goertzel.THRESHOLD_MODES if do_short else ():
         cfg = goertzel.OOKConfig.make(mode=mode, manual_threshold=0.1)
         pows = cs.ook_powers(torch, c, f, rng)
         cands = ook_cands(cfg, goertzel.ook_init(c, "cuda"), pows)
@@ -477,11 +760,12 @@ def main(argv: list[str] | None = None) -> dict:
                 roofline.ook_scan_bound(c, f, probes[f"ook {mode}"]["fed"],
                                         compare=mode == "compare"))
     c, f = OOK_CW
-    cfg = goertzel.OOKConfig.make(mode="peak")
-    pows = cs.ook_powers(torch, c, f, np.random.default_rng(40))
-    cands = ook_cands(cfg, goertzel.ook_init(c, "cuda"), pows)
-    measure("ook peak cw", (c, f), cands, "OokStep",
-            roofline.ook_scan_bound(c, f, probes["ook peak"]["fed"]))
+    if do_short:
+        cfg = goertzel.OOKConfig.make(mode="peak")
+        pows = cs.ook_powers(torch, c, f, np.random.default_rng(40))
+        cands = ook_cands(cfg, goertzel.ook_init(c, "cuda"), pows)
+        measure("ook peak cw", (c, f), cands, "OokStep",
+                roofline.ook_scan_bound(c, f, probes["ook peak"]["fed"]))
     out["rows"] = rows
     print(json.dumps(out), flush=True)
     return out

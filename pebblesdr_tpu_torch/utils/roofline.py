@@ -137,10 +137,9 @@ def recur_bound(steps: int, c: int, in_bytes: int, outs: int,
     channel's next step needs its previous state, so the steps run one
     after another whatever the channel count (c <= 32 x 132 x 64 threads
     is far from filling the card) and the work takes at least steps x the
-    latency of one step's dependent chain.  step_ns is that latency as the
-    register-only probe measures it (ops/pll.py chain_probe: one thread
-    runs the form's step on inputs held in registers, with no memory in
-    the loop, timed over many steps on the card); it is the latency of this
+    latency of one step's dependent chain.  step_ns is that latency as a
+    chain probe measures it (ops/pll.py chain_probe, timed over many steps
+    on the card; the callers say which probe): it is the latency of this
     implementation's chain (IEEE sincosf, atan2f, hypotf, divisions), not a
     property of the card alone.  bound_by "operations" names the serial
     floor."""
@@ -152,14 +151,24 @@ def recur_bound(steps: int, c: int, in_bytes: int, outs: int,
 
 
 def pll_scan_bound(c: int, n: int, step_ns: float) -> dict:
-    """pll_scan's bound: x [c, n] complex64 in, phases and freqs [c, n]
-    float32 out, n steps of the loop (recur_bound)."""
+    """pll_scan's (K3) bound: x [c, n] complex64 in, phases and freqs [c, n]
+    float32 out, n steps of the loop (recur_bound).  step_ns is the
+    chain-only probe's step fed from memory (chain_probe(detector,
+    fed=True)): one lane runs the state-dependent part of the loop kernel's
+    step (sincosf and the derotation, or the pilot's cosf and product; the
+    detector, the clip, the add and the wrap) op for op on a pattern that
+    the compiler cannot fold, |x|, amp' and the denominators precomputed;
+    no bit-equal design runs a step below it.  The register-only probe,
+    its constant input folding |x| out of the loop, is no floor (K3c's
+    kernels read 101-122 % of it on the H100)."""
     return recur_bound(n, c, 8, 2, step_ns)
 
 
 def pll_chunk_bound(c: int, f: int, step_ns: float) -> dict:
-    """pll_chunk_scan's bound: the chunk phasors [c, f] complex64 in, offs
-    and fdevs [c, f] float32 out, f steps of the loop (recur_bound)."""
+    """pll_chunk_scan's (K3c) bound: the chunk phasors [c, f] complex64
+    in, offs and fdevs [c, f] float32 out, f steps of the loop
+    (recur_bound); step_ns from the chain-only probe fed from memory
+    (chain_probe("chunk" or "chunk pilot", fed=True)), as pll_scan_bound."""
     return recur_bound(f, c, 8, 2, step_ns)
 
 

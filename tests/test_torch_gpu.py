@@ -9,7 +9,10 @@ and the AM, WFM, WFM hq and WFM+RDS receivers on the card against the CPU
 the narrowband receivers (SSB, CW, DIG, DSB, NONE, SAM), and FMN with
 CTCSS, mono WFM, the ANF and AGC "long" on the card against the CPU; the
 recurrence kernels of csrc/recur.cu (pll_scan in each detector,
-pll_chunk_scan, agc_scan, the chain probe) against their plain versions,
+pll_chunk_scan, agc_scan, the chain probe) against their plain versions
+(K3 and K3c on the loop kernel bit for bit at C = 1 to 200 and N = 0 to
+4099, one kernel a call, its plan equal to ops/short_chain.py loop_plan,
+the fed chain-only probe no slower than the kernel),
 and the receivers that run them (the scan RDS carrier, SAM on 64-sample
 blocks) and the module options (SAM scan and loop, NFM "pll", the scan
 AGC) on the card against the CPU; K5 (iq_lms_scan, the adaptive IQ
@@ -1637,6 +1640,114 @@ def test_chain_probe_runs_every_form(cuda, form):
     out = pll.chain_probe(form, 4096, cuda)
     torch.cuda.synchronize()
     assert out.shape == (1,) and bool(torch.isfinite(out).all())
+
+
+# ---- K3 and K3c on the loop kernel (csrc/recur.cu recur_loop_kernel) ----
+
+LOOP_FORMS = list(pll.DETECTORS) + ["chunk", "chunk pilot"]
+
+
+def _loop_case(form, c, n, device):
+    """A K3 / K3c call at [c, n]: (wrapper, plain, args), the inputs seeded
+    from (c, n): a carrier for each detector (_carrier), drifting chunk
+    phasors for K3c; the state off zero (random phases, a small fdev)."""
+    rng = np.random.default_rng(100 * c + n)
+    st = (torch.from_numpy(rng.uniform(-3, 3, c).astype(np.float32)).to(
+        device), torch.full((c,), 1e-4, device=device),
+        torch.ones(c, device=device))
+    if form.startswith("chunk"):
+        k = np.arange(n)
+        z = (0.5 * np.exp(1j * (0.01 * k + 2e-6 * k ** 2
+                                + np.arange(c)[:, None]))
+             + 0.01 * (rng.standard_normal((c, n))
+                       + 1j * rng.standard_normal((c, n))))
+        z = torch.from_numpy(z.astype(np.complex64)).to(device)
+        return (pll.pll_chunk_scan, pll.pll_chunk_scan_plain,
+                (z, *st, form == "chunk pilot", 0.11, 0.0077, -0.25, 0.25))
+    fs = 64000.0
+    x = _carrier(form, c, n, fs, 340.0, rng, device)
+    return (pll.pll_scan, pll.pll_scan_plain,
+            (x, *st, form, 0.0139, 9.6e-5, 2 * np.pi * 300.0 / fs, -0.098,
+             0.098))
+
+
+@pytest.mark.parametrize("n", [0, 1, 5, 127, 128, 129, 4099])
+@pytest.mark.parametrize("c", [1, 7, 17, 64, 200])
+@pytest.mark.parametrize("form", LOOP_FORMS)
+def test_loop_kernel_equals_plain_bit_for_bit(cuda, form, c, n):
+    """K3 in each detector and K3c in both forms on the loop kernel: every
+    output and state leaf equal to the plain version's bit for bit (the
+    step's float32 arithmetic op for op), at C = 1 to 200 (partial blocks
+    of 16 channels, 13 blocks) and N across the pass form (<= 128 frames)
+    and the ring (a partial last segment and group, odd N: rows not
+    16-byte aligned); one launch per call, counted per detector."""
+    fn, plain, args = _loop_case(form, c, n, cuda)
+    chunk = form.startswith("chunk")
+    before = (pll.pll_chunk_scan.launches if chunk
+              else (pll.pll_scan.launches,
+                    pll.pll_scan.detector_launches[form]))
+    got = fn(*args)
+    after = (pll.pll_chunk_scan.launches if chunk
+             else (pll.pll_scan.launches,
+                   pll.pll_scan.detector_launches[form]))
+    assert after == (before + 1 if chunk else (before[0] + 1,
+                                              before[1] + 1))
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    assert len(got) == len(ref) == 5
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("form", LOOP_FORMS)
+def test_loop_call_is_one_kernel(cuda, form):
+    """A pll_scan / pll_chunk_scan call puts one device record in a trace:
+    the loop kernel of its step; ten calls' records, at most ten (the
+    profiler may drop some)."""
+    fn, _, args = _loop_case(form, 64, 1000, cuda)
+    fn(*args)
+    names = _device_records(lambda: fn(*args))
+    step = "ChunkStep" if form.startswith("chunk") else "PllStep"
+    assert 1 <= len(names) <= 10, names
+    assert all(step in nm and "recur_loop_kernel" in nm for nm in names)
+
+
+def test_loop_plan_matches_the_source(cuda):
+    """ops/short_chain.py's mirror of the C loop_plan."""
+    import ctypes
+    from pebblesdr_tpu_torch.ops import short_chain
+    lib = pll._lib()
+    for n in (0, 1, 3, 127, 128, 129, 4096, 4099, 32768):
+        out = (ctypes.c_int * 10)()
+        assert lib.recur_loop_plan(n, out) == 0
+        assert list(out) == short_chain.loop_plan(n).as_ints(), n
+    assert lib.recur_loop_plan(-1, (ctypes.c_int * 10)()) != 0
+
+
+@pytest.mark.parametrize("form", LOOP_FORMS)
+def test_fed_probe_is_no_slower_than_the_kernel(cuda, form):
+    """The chain-only probe fed from memory is a floor: its step (over
+    32768 steps) is no slower than the kernel's step at [64, 32768] (a
+    launch's time by events, over its steps)."""
+    fn, _, args = _loop_case(form, 64, 32768, cuda)
+    steps = 32768
+
+    def per_call(f, reps=3):
+        f()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            f()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    probe = per_call(lambda: pll.chain_probe(form, steps, cuda, fed=True))
+    kernel = per_call(lambda: fn(*args))
+    assert probe * 1e6 / steps <= kernel * 1e6 / steps, (probe, kernel)
 
 
 # the receivers and module options that run the recurrences: (mode,

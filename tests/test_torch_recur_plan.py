@@ -19,7 +19,13 @@ ook_scan) on the CPU, where the kernel cannot run:
     allocation, the consts cache (equal to cfg.consts() in every mode) and
     the arguments; the ValueErrors they raise, reached without a card;
   * utils/roofline.py ook_scan_bound's bytes (4 a frame, 12 in compare
-    mode, 1 a mark) and the fed chain probes' input patterns.
+    mode, 1 a mark) and the fed chain probes' input patterns;
+  * the loop kernel's side (K3 pll_scan, K3c pll_chunk_scan): its plan
+    mirror short_chain.loop_plan (the form, the stages, shared memory
+    within 227 KB) and blocks for C = 1 to 256; the CUDA path
+    pll.loop_launch through a stand-in C entry; the chain-only fed probes'
+    patterns run through pll_scan_plain / pll_chunk_scan_plain, where the
+    loop tracks each; pll_scan_bound's bytes and serial floor.
 """
 
 import ctypes
@@ -358,7 +364,9 @@ def test_ook_scan_bound_counts_the_bytes_the_mode_reads(compare):
 def test_fed_probe_patterns(form):
     """The fed probes' inputs: a power-of-two length, float32, both states
     of the keying (the AGC's envelope rises and falls past the probe's
-    100-sample hang; the OOK powers mark and space)."""
+    100-sample hang; the OOK powers mark and space); K3's and K3c's
+    [re, im, amp', q] frames with q the detector's denominator of amp',
+    on which the loop tracks (_loop_tracks)."""
     a = pll.probe_pattern(form)
     assert a.dtype == np.float32 and form in pll.PROBE_FORMS
     n = a.shape[0]
@@ -368,9 +376,179 @@ def test_fed_probe_patterns(form):
         assert a.ndim == 1 and on.any() and (~on).any()
         runs = np.diff(np.flatnonzero(np.diff(on.astype(int))))
         assert runs.max() > 100
-    else:
+    elif form.startswith("ook"):
         assert a.shape == (n, 3) and (a[:, 1:] > 0).all()
         assert (a[:, 0] > 0.3).any() and (a[:, 0] < 0.01).any()
+    else:
+        assert a.shape == (n, 4) and n % short_chain.LOOP_GROUP == 0
+        amp = a[:, 2]
+        assert (amp > 0).all()
+        if form == "costas":
+            assert np.array_equal(a[:, 3], np.maximum(amp * amp,
+                                                      np.float32(1e-12)))
+        elif form == "pilot":
+            assert np.array_equal(a[:, 3], np.maximum(
+                np.float32(np.pi / 4) * amp, np.float32(1e-6)))
+            assert (a[:, 1] == 0).all()          # a real pilot
+        else:
+            assert (a[:, 3] == 0).all()
+        _loop_tracks(form, a)
     assert np.array_equal(pll.probe_pattern(form), a)
     with pytest.raises(ValueError):
-        pll.probe_pattern("atan2")
+        pll.probe_pattern("sweep single")
+
+
+def _loop_tracks(form, a):
+    """The pattern, four times over, through the plain loop at the probe's
+    constants: the loop follows the tone (K3: its frequency over the last
+    pass within 2e-4 rad a sample of the tone's, wandering with the noise;
+    K3c: fdev follows the drifting tone's frequency, correlation > 0.99)
+    and its phase keeps turning over the whole circle: no fixed point."""
+    n = a.shape[0]
+    x = torch.from_numpy(np.tile(a[:, 0] + 1j * a[:, 1], 4)
+                         .astype(np.complex64))[None]
+    st = (torch.zeros(1), torch.zeros(1), torch.ones(1))
+    if form.startswith("chunk"):
+        alpha, beta, _, lo, hi = pll.PROBE_LOOP["chunk"]
+        *_, phases, f = pll.pll_chunk_scan_plain(x, *st, form == "chunk pilot",
+                                                 alpha, beta, lo, hi)
+        k = np.arange(n)
+        true = 2 * np.pi * (16 + 20 * np.cos(2 * np.pi * k / n)) / n
+        assert np.corrcoef(f[0, -n:].numpy(), true)[0, 1] > 0.99
+    else:
+        *_, phases, f = pll.pll_scan_plain(x, *st, form,
+                                           *pll.PROBE_LOOP["pll"])
+        cycles = {"atan2": 7, "cross": 7, "costas": 6, "pilot": 5}[form]
+        f = f[0, -n:].numpy()
+        assert abs(f.mean() - 2 * np.pi * cycles / n) < 2e-4
+        assert f.std() > 0
+    ph = phases[0, -n:].numpy()
+    assert ph.max() - ph.min() > 6.0 and np.unique(ph).size > n // 2
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 128, 4096, 32768])
+@pytest.mark.parametrize("c", [1, 7, 16, 64, 256])
+def test_loop_plan_form_and_layout(c, n):
+    """The loop kernel's plan (csrc/recur.cu loop_plan's mirror; the card
+    test holds them equal): the pass form where the row fits one stage,
+    the ring above it; room in a staged row for its frames (two floats
+    each), its float offset in a 16-byte line and a register group read
+    past the segment; rows 4 mod 32 floats apart; a row of denominators
+    (1 mod 32 floats apart) and two output rows a stage;
+    the shared memory within the H100's 227 KB; one channel a block (a
+    chain thread and the copy warp)."""
+    p = short_chain.loop_plan(n)
+    assert p.form == ("pass" if n <= short_chain.LOOP_STAGE_FRAMES
+                      else "ring")
+    assert p.frames == (n if p.form == "pass"
+                        else short_chain.LOOP_STAGE_FRAMES)
+    assert p.stages == (0 if n == 0 else 1 if p.form == "pass"
+                        else short_chain.LOOP_STAGES)
+    assert p.pitch % 32 == 4
+    assert p.pitch >= 2 * (p.frames + short_chain.LOOP_GROUP) + 2
+    # q rows in distinct banks, a register group read past the segment
+    assert p.qpitch % 32 == 1 and p.qpitch >= p.frames + short_chain.LOOP_GROUP
+    if p.form == "pass":
+        assert p.out_pitch == 4 * p.frames
+    else:
+        assert p.out_pitch % 16 == 0 and p.out_pitch % 128
+        assert p.out_pitch >= 4 * p.frames
+    assert p.smem <= H100_SMEM
+    assert p.smem == (32 + -(-3 * p.stages * 8 // 16) * 16 + p.stages
+                      * p.rows * (4 * p.pitch + 2 * p.out_pitch)
+                      + -(-4 * p.stages * p.rows * p.qpitch // 16) * 16)
+    assert (p.rows, p.threads) == (1, 64)
+    ints = p.as_ints()
+    assert len(ints) == 10 and ints[0] == short_chain.FORMS.index(p.form) + 1
+    assert ints[-3:] == [1, 1, 64]
+    assert short_chain.loop_blocks(c) == c
+    # every channel in one block of the grid, 64 channels on 64 SMs
+    assert short_chain.loop_blocks(c) * p.rows >= c > (
+        short_chain.loop_blocks(c) - 1) * p.rows
+
+
+def test_loop_plan_refuses():
+    with pytest.raises(ValueError):
+        short_chain.loop_plan(-1)
+
+
+@pytest.mark.parametrize("form", ["atan2", "costas", "chunk", "chunk pilot"])
+def test_loop_launch_host_path(no_stream, form):
+    """pll.loop_launch (pll_scan's and pll_chunk_scan's CUDA path) through
+    a stand-in C entry that writes the plain version's results where the
+    kernel writes them: the flag, the constants, the pointers in the
+    entry's order, and the five results (state', then the two outputs)."""
+    c, n = 3, 40
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy((rng.standard_normal((c, n)) + 1j
+                          * rng.standard_normal((c, n))).astype(np.complex64))
+    st = (torch.tensor([0.1, -2.0, 3.0]), torch.tensor([0.0, 1e-3, -1e-3]),
+          torch.ones(c))
+    chunk = form.startswith("chunk")
+    if chunk:
+        flag, consts = int(form == "chunk pilot"), (0.1, 0.01, -0.5, 0.5)
+        ref = pll.pll_chunk_scan_plain(x, *st, bool(flag), *consts)
+    else:
+        flag, consts = pll.DETECTORS.index(form), (0.0139, 9.6e-5, 0.03,
+                                                   -0.098, 0.098)
+        ref = pll.pll_scan_plain(x, *st, form, *consts)
+    seen = []
+
+    def entry(idx, fl, xp, cc, nn, *rest):
+        k = len(consts)
+        seen.append((fl, xp, cc, nn, rest[:k], rest[k:k + 3]))
+        outs, st_out = rest[k + 3:k + 5], rest[k + 5:k + 8]
+        for ptr, t in zip(st_out + outs, ref):
+            t = t.contiguous()
+            ctypes.memmove(ptr, t.data_ptr(), t.numel() * 4)
+        return 0
+
+    before = (pll.pll_scan.launches, pll.pll_chunk_scan.launches)
+    got = pll.loop_launch(entry, form, x, st, flag, consts)
+    # the wrappers count; loop_launch alone does not
+    assert (pll.pll_scan.launches, pll.pll_chunk_scan.launches) == before
+    fl, xp, cc, nn, k, ins = seen[0]
+    assert (fl, xp, cc, nn) == (flag, x.data_ptr(), c, n)
+    assert k == consts and ins == tuple(v.data_ptr() for v in st)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.is_contiguous() and torch.equal(a, b)
+
+
+def test_loop_launch_refusals(no_stream):
+    def entry(*args):
+        raise AssertionError("launched")
+
+    x = torch.zeros(4, 64, dtype=torch.complex64)
+    st = (torch.zeros(4),) * 3
+    with pytest.raises(ValueError):             # a strided input
+        pll.loop_launch(entry, "t", x.t().contiguous().t(), st, 0,
+                        (0.1,) * 5)
+    with pytest.raises(ValueError):             # complex128
+        pll.loop_launch(entry, "t", x.to(torch.complex128), st, 0,
+                        (0.1,) * 5)
+    with pytest.raises(ValueError):             # a [C + 1] state leaf
+        pll.loop_launch(entry, "t", x, (torch.zeros(5),) + st[1:], 0,
+                        (0.1,) * 5)
+    with pytest.raises(ValueError):             # a float64 state leaf
+        pll.loop_launch(entry, "t", x, st[:2] + (torch.zeros(4).double(),),
+                        0, (0.1,) * 5)
+    with pytest.raises(ValueError):             # an unknown detector
+        pll.pll_scan(x, *st, "pll", 0.1, 0.01, 0.0, -1.0, 1.0)
+    with pytest.raises(ValueError):             # neither CUDA nor the CPU
+        pll.pll_scan(x.to("meta"), *(v.to("meta") for v in st), "atan2",
+                     0.1, 0.01, 0.0, -1.0, 1.0)
+
+
+def test_pll_scan_bound_is_bytes_or_the_serial_floor():
+    """K3 moves 8 bytes in and 8 out a step and channel (x complex64,
+    phases and freqs float32) and 24 bytes of state a channel; its serial
+    floor is the steps times the fed probe's step."""
+    c, n = 64, 32768
+    b = roofline.pll_scan_bound(c, n, 0.0)
+    assert b["bytes"] == c * n * 16 + 24 * c and b["bound_by"] == "bytes"
+    s = roofline.pll_scan_bound(c, n, 200.0)
+    assert s["serial_ms"] == pytest.approx(n * 200e-6)
+    assert s["bound_ms"] == s["serial_ms"] and s["bound_by"] == "operations"
+    assert roofline.pll_chunk_bound(c, 4096, 200.0) == \
+        roofline.pll_scan_bound(c, 4096, 200.0)
