@@ -9,7 +9,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   0. torch / CUDA versions and the card's name and power limit (nvidia-smi);
      matmuls in IEEE float32, and fir_apply's conv1d too with cuDNN's TF32
      allowed (within 1e-5 of a float64 convolution, the setting restored);
-  1. build the CUDA kernels from pebblesdr_tpu_torch/csrc with nvcc;
+  1. build the CUDA kernels from pebblesdr_tpu_torch/csrc with nvcc (one
+     nvcc per source, all started before phase 0, which runs meanwhile),
+     and meanwhile make on the host the noisy full-width planes of phases
+     2, 6, 12, 16 and 25 (NoisyPlanes: each phase's own seeded draws, on
+     two threads, all made before phase 2);
   2. the fused front-end kernel (K1) against its plain PyTorch version at the
      headline shape (64 channels, 32768-frame blocks, 32 blocks), over two
      streaming calls;
@@ -250,7 +254,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      fresh Receiver: dispatches 4-6 and the final state equal to the
      uninterrupted run's bit for bit;
  44. the port's soak (pebblesdr_tpu_torch/tools/soak.py): WFM stereo +
-     RDS, 64 channels, 32 blocks a dispatch, 60 s: no bad dispatch, RDS
+     RDS, 64 channels, 32 blocks a dispatch, 20 s: no bad dispatch, RDS
      synced, PS "PEBBLES ", its sustained Msps;
  45. the CLI on the card with --checkpoint and --checkpoint-every 4
      ("health" in its JSON), then --resume from the file;
@@ -321,8 +325,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      another carrier (tone phasors), K1 launched per dispatch and per
      step, K2 likewise for FMS; min, median and max SNR per mode and path,
      the goldens' host seconds; then `python -m
-     pebblesdr_tpu_torch.tools.parity_harness` on its fixture at 64
-     channels, K = 32, batched, which must exit 0;
+     pebblesdr_tpu_torch.tools.parity_harness` on its fixture (written in
+     this process by the tool's make_fixture, as --make-fixture writes
+     it) at 64 channels, K = 32, batched, which must exit 0;
  56. the port's examples 01-05 (pebblesdr_tpu_torch/examples/) on the
      card, each outcome checked: the written audio and the S-meter, the
      channels on a station, pilot lock and the PS name "TPU FM  ", the
@@ -342,7 +347,21 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      0.1 dB, SNR +- 0.2) and the AGC hang (< 3 dB on 64 rows, K4's
      launches counted); channels of each capture held to the CPU port
      with the slice bounds; then the card's quality row at 64 channels
-     (the tool's Receiver captures, the AGC hangs above).
+     (the tool's Receiver captures, the AGC hangs above);
+ 58. the port's bench (pebblesdr_tpu_torch/tools/bench.py, the port of
+     bench.py's timing matrix) on the card in a subprocess at bench.py's
+     default shapes and steps: its 12 rows in bench.py's order (each in
+     its own subprocess), every timing row with msps_per_chip and no
+     error (the bench holds each to time_cells' checks), K1 once a
+     dispatch (none on the bank's staged front) and K2 once a WFM
+     dispatch, the quality row within phase 57's bounds (stereo >= 30
+     dB, hq >= 40, RDS BLER 0 at 20 dB, "PEBBLES "), every row and the
+     line naming the card; the am_64ch row's block ms beside phase 4's,
+     then the row profiled (BENCH_PROFILE: events ms, host enqueue,
+     device busy, idle share, kernels in the trace) in this process;
+     then one BENCH_MODE=ab row (am vs am_i16 at 64 channels); the
+     bench's JSON line logged; the host's load and this process's live
+     children before the matrix, and its peak host memory at the end.
 Each phase's seconds and the running total are printed after it.
 Each receiver phase sets every kernel's launch count to 0 just before it
 drives the receiver and reads the counts just after (front_means and
@@ -360,23 +379,27 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import functools
+import glob
 import json
+import os
 import re
+import resource
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 
-FS = 2_048_000
-HEADLINE = dict(channels=64, frames=32768, blocks=32, agc_stride=16)
-SPECTRA_EVERY = 6
-WARMUP = 3
-WINDOWS = 3
-WINDOW_DISPATCHES = 10
-FRONT_RTOL = 3e-5        # K1 vs plain: relative max error (TPU kernel's bound)
+from pebblesdr_tpu_torch.tools.cells import (
+    ANF_RTOL, CELLS, FRONT_RTOL, FS, HEADLINE, IQ, NB1, OOK_MARGIN, OOK_RTOL,
+    TONE_SNR_DB, WARMUP, WINDOW_DISPATCHES, WINDOWS, am_plane, anf_signal,
+    assert_margin, check_options_form, dispatch_profile, kernel_times,
+    launch_ms, log, make_cell, named_cell, ook_powers, probe_ns, rel_err,
+    reset_launches, runs_loop, tail_inputs, time_cells, time_cuda, to_i16,
+    tone_amplitude, tone_snr_db, wfm_plane)
+
 SLICE = dict(channels=4, frames=8192, dispatches=(3, 9))
-TONE_SNR_DB = 40.0       # 1 kHz tone (AM m = 0.8; WFM L), band above 100 Hz
 DISC_ATOL = 1e-4         # K1's discriminator vs plain (tests/test_pallas.py:286)
 SEPARATION_DB = 30.0     # WFM stereo separation (the JAX package: 34.6 dB)
 HQ_SEPARATION_DB = 40.0  # at the hq geometry (tests/test_chain.py:415; JAX
@@ -388,9 +411,8 @@ CTCSS_WARM = (33,) * 5   # CPU warm-up dispatches before a CTCSS slice
 #                          (~0.66 s at 8192 frames: the 0.25 s EWMA settles)
 KERNELS = ("front", "wfm_tail", "recur")
 MEANS_ATOL = 1e-6        # front_means' float32 means vs plain, of max |x|
-NB1 = (3.3, 7, 0.001, "blank")     # the Receiver's NB1 (threshold, width,
-NB2 = (3.3, 7, 0.001, "average")   # alpha, mode) and NB2
-IQ = (1.05, 0.02)                  # static IQ balance (gain, phase)
+NB2 = (3.3, 7, 0.001, "average")   # the Receiver's NB2 (NB1's options,
+#                                    blanking by the average)
 SPIKES = (100, 511, 2046, 2049, 16385, 32765)   # impulse rows in each block
 # the option cells: (name, channels, blocks, entry, receiver options)
 OPTION_CELLS = {
@@ -407,10 +429,6 @@ WFM_CELLS = {
 }
 
 
-def log(msg: str) -> None:
-    print(msg, flush=True)
-
-
 class Clock:
     """Logs the seconds each phase took and the run's total so far."""
 
@@ -424,70 +442,6 @@ class Clock:
         self.t = now
 
 
-def rel_err(got, ref) -> float:
-    got = got.detach().double().cpu()
-    ref = ref.detach().double().cpu()
-    return float((got - ref).abs().max() / max(float(ref.abs().max()), 1e-30))
-
-
-def wfm_plane(channels: int, n_rows: int, rng, noise: float = 0.0,
-              program: str = "mono", t0: float = 0.0, fs: int = FS):
-    """[n_rows, 2C] float32 packed plane: broadcast FM at 250 kHz on every
-    channel of an fs capture.  "mono": bench.py's wfm signal (1 kHz on L
-    and R, pilot); "left": the L-only 700 Hz program of bench.py's quality
-    row; "rds": 1 kHz mono, pilot and the RDS PS groups on 57 kHz.  t0:
-    start time."""
-    from pebblesdr_tpu_torch.tools import soak
-    t = t0 + np.arange(n_rows) / fs
-    th = 2 * np.pi * 19000.0 * t
-    if program == "mono":
-        comp = 0.45 * np.sin(2 * np.pi * 1000.0 * t) + 0.1 * np.sin(th)
-    elif program == "rds":
-        comp = (0.3 * np.sin(2 * np.pi * 1000.0 * t) + 0.1 * np.sin(th)
-                + 0.06 * soak.rds_biphase(t) * np.cos(3 * th))
-    else:
-        lt = np.sin(2 * np.pi * 700.0 * t)
-        comp = 0.45 * lt + 0.1 * np.sin(th) + 0.45 * lt * np.sin(2 * th)
-    ph = 2 * np.pi * np.cumsum(75000.0 * comp) / fs
-    iq = 0.5 * np.exp(1j * (2 * np.pi * 250_000.0 * t + ph))
-    plane = np.concatenate([np.repeat(iq.real[:, None], channels, 1),
-                            np.repeat(iq.imag[:, None], channels, 1)], axis=1)
-    if noise:
-        plane = plane + noise * rng.standard_normal(plane.shape)
-    return plane.astype(np.float32)
-
-
-def reset_launches(front, wfm_tail) -> None:
-    from pebblesdr_tpu_torch.core import siggen
-    from pebblesdr_tpu_torch.ops import agc, goertzel, pll, scanops
-    goertzel.ook_detect.launches = 0
-    siggen.sweep.launches = 0
-    front.fused_front.launches = 0
-    front.fused_front.comp_launches = 0
-    front.chunk_means.launches = 0
-    front.dc_scan.launches = 0
-    wfm_tail.wfm_tail.launches = 0
-    pll.pll_scan.launches = 0
-    pll.pll_scan.detector_launches.update(dict.fromkeys(pll.DETECTORS, 0))
-    pll.pll_chunk_scan.launches = 0
-    agc.agc_scan.launches = 0
-    scanops.auto_iq_balance.launches = 0
-    scanops.anf_scan.launches = 0
-
-
-def am_plane(channels: int, n_rows: int, rng, noise: float = 0.0):
-    """[n_rows, 2C] float32 packed plane: an AM carrier at 250 kHz (1 kHz
-    tone, m = 0.8) on every channel, with optional complex white noise."""
-    t = np.arange(n_rows) / FS
-    env = (1 + 0.8 * np.cos(2 * np.pi * 1000.0 * t)) / 2
-    iq = 0.5 * env * np.exp(2j * np.pi * 250_000.0 * t)
-    plane = np.concatenate([np.repeat(iq.real[:, None], channels, 1),
-                            np.repeat(iq.imag[:, None], channels, 1)], axis=1)
-    if noise:
-        plane = plane + noise * rng.standard_normal(plane.shape)
-    return plane.astype(np.float32)
-
-
 def impulsive(plane: np.ndarray, n: int) -> np.ndarray:
     """Add 8+8j impulses (20x and more above the floor) at chunk, sub-block
     and block seams of every n-row block of a packed plane, in place."""
@@ -497,68 +451,12 @@ def impulsive(plane: np.ndarray, n: int) -> np.ndarray:
     return plane
 
 
-def to_i16(plane: np.ndarray, scale: float = 32768.0) -> np.ndarray:
-    return np.clip(np.round(plane * scale), -32768, 32767).astype(np.int16)
-
-
-def tone_snr_db(audio: np.ndarray, rate: float, f0: float = 1000.0,
-                band: tuple = (100.0, None)) -> float:
-    """Least-squares fit of a tone (cos, sin) at f0; SNR of the fit against
-    the residual in band (lo, hi) Hz (default: above 100 Hz)."""
-    t = np.arange(len(audio)) / rate
-    basis = np.stack([np.cos(2 * np.pi * f0 * t), np.sin(2 * np.pi * f0 * t),
-                      np.ones_like(t)], axis=1)
-    coef, *_ = np.linalg.lstsq(basis, audio, rcond=None)
-    fit = basis[:, :2] @ coef[:2]
-    res = audio - basis @ coef
-    spec = np.fft.rfft(res)
-    freqs = np.fft.rfftfreq(len(res), 1 / rate)
-    spec[freqs <= band[0]] = 0.0
-    if band[1] is not None:
-        spec[freqs > band[1]] = 0.0
-    res_hp = np.fft.irfft(spec, n=len(res))
-    return float(10 * np.log10(np.mean(fit ** 2) / max(np.mean(res_hp ** 2),
-                                                        1e-30)))
-
-
-def tone_amplitude(audio: np.ndarray, rate: float, f0: float) -> float:
-    """The amplitude of a least-squares fit of a tone at f0."""
-    t = np.arange(len(audio)) / rate
-    basis = np.stack([np.cos(2 * np.pi * f0 * t), np.sin(2 * np.pi * f0 * t),
-                      np.ones_like(t)], axis=1)
-    coef, *_ = np.linalg.lstsq(basis, audio, rcond=None)
-    return float(np.hypot(coef[0], coef[1]))
-
-
-def tone_plane(channels: int, n_rows: int, offset_hz: float, amp: float):
-    """[n_rows, 2C] float32 packed plane: a tone of amplitude amp at 250 kHz
-    + offset_hz on every channel (tests/test_chain.py:118's USB tone)."""
-    t = np.arange(n_rows) / FS
-    iq = amp * np.exp(2j * np.pi * (250_000.0 + offset_hz) * t)
-    return np.concatenate([np.repeat(iq.real[:, None], channels, 1),
-                           np.repeat(iq.imag[:, None], channels, 1)],
-                          axis=1).astype(np.float32)
-
-
-def time_cuda(torch, fn, reps: int) -> float:
-    """Mean milliseconds per call of fn over reps calls, by CUDA events."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def phase_front(torch, front, decimator) -> dict:
+def phase_front(torch, front, decimator, planes: list) -> dict:
     """Phase 2: K1 vs fused_front_reference on the card, headline shape."""
     c, n, k = HEADLINE["channels"], HEADLINE["frames"], HEADLINE["blocks"]
     plan_d = decimator.build_plan(FS, 30_000.0)
     plan = front.FrontPlan.make(decimator.compose_response(plan_d),
                                 plan_d.factor, "cuda")
-    rng = np.random.default_rng(1)
     tunes = 250_000.0 + 1500.0 * np.arange(c)
     from pebblesdr_tpu_torch.ops.mixer import split_freq
     splits = [split_freq(f, FS) for f in tunes]
@@ -571,8 +469,7 @@ def phase_front(torch, front, decimator) -> dict:
     max_abs = 0.0
     worst = 0.0
     for call in range(2):
-        x = torch.from_numpy(
-            am_plane(c, k * n, rng, noise=0.1) + 0.05 * (call + 1)).cuda()
+        x = torch.from_numpy(planes.pop(0)).cuda()
         out_k = front.fused_front(plan, x, st_k[0], st_k[1], f_hi, f_lo,
                                   st_k[2], n_block=n, raw_rows=2048)
         out_r = front.fused_front_reference(plan, x, st_r[0], st_r[1], f_hi,
@@ -626,14 +523,6 @@ def ctcss_ratios(torch, goertzel, cfg, state, audio) -> np.ndarray:
         p = (state.iq.double() ** 2).sum(-1)
         ratios.append((p[:, 0] / torch.maximum(p[:, 1], p[:, 2])).numpy())
     return np.stack(ratios)
-
-
-def runs_loop(rx) -> bool:
-    """Whether a receiver runs the per-sample carrier loop (pll_scan, once
-    per dispatch): the scan RDS carrier, or SAM's per-sample form."""
-    return ((rx.rds_cfg is not None and rx.rds_cfg.alg == "scan")
-            or (rx.sam_cfg is not None
-                and (rx.blk % 128 != 0 or rx.sam_cfg.algorithm == "scan")))
 
 
 def phase_slice(torch, receiver, convert, front, wfm_tail, mode,
@@ -865,203 +754,6 @@ def staged_nb_levels(torch, rx, st, x):
         mag2=mag2, avg=torch.repeat_interleave(avg_in, chunk, dim=1))
 
 
-def assert_margin(fl, nb, tag: str) -> None:
-    """The blanker's spike test is a comparison: fail unless no sample's
-    ratio mag2 / (thr^2 max(avg, 1e-18)) lies in [0.999, 1.001]."""
-    ratio = fl.mag2 / (float(np.float32(nb[0] ** 2)) * fl.avg.clamp(min=1e-18))
-    near = int(((ratio >= 0.999) & (ratio <= 1.001)).sum())
-    if near:
-        raise RuntimeError(f"{tag}: {near} samples within 0.1 % of the "
-                           f"blanker's threshold")
-
-
-def make_cell(torch, receiver, front, mode, name: str, channels: int,
-              blocks: int, entry: str = "f32", opts: dict | None = None,
-              tone: tuple | None = None, plane=None,
-              checks: dict | None = None, frames: int | None = None,
-              fs: int = FS):
-    """One timed cell: a receiver on the card and its dispatch plane (one
-    bench signal block repeated, as float32, int16 or folded by 4).  tone =
-    (offset Hz, amplitude, audio Hz, audio amplitude): the block is that
-    tone above the 250 kHz carrier instead, and the cell's audio is held to
-    that frequency and amplitude (within 10 %).  plane: a function
-    (channels, rows) giving the whole dispatch's plane instead (a signal
-    whose period is not a block).  checks: "snr_band" (lo, hi) Hz of the
-    tone SNR's residual, "snr" False to print the SNR unchecked, "ctcss"
-    True to require ctcss_open on every channel, "anf" True to require
-    the ANF's max |w| > 1e-3, "skip_blocks" the leading blocks of the last
-    dispatch left out of the tone SNR.  frames: the block length (default the
-    headline's); fs: the capture's rate."""
-    n = frames or HEADLINE["frames"]
-    opts = opts or {}
-    wfm = mode.name == "FMS" and opts.get("stereo", True)   # stereo
-    cfg = receiver.ReceiverConfig(sample_rate=fs, frames_per_buffer=n,
-                                  channels=channels, mode=mode,
-                                  agc_stride=HEADLINE["agc_stride"], **opts)
-    rx = receiver.Receiver(cfg, "cuda")
-    fm = mode.name in ("FMS", "FMM")
-    if plane is not None:
-        iq = torch.from_numpy(plane(channels, blocks * n)).cuda()
-    else:
-        block = (tone_plane(channels, n, *tone[:2]) if tone else
-                 wfm_plane(channels, n, None, fs=fs) if fm else
-                 am_plane(channels, n, None))
-        if entry == "i16":
-            block = to_i16(block)
-        if entry == "fold4":       # bench.py:130-146: G blocks side by side
-            iq = torch.from_numpy(front.fold_plane_np(np.tile(block, (4, 1)),
-                                                      4))
-            iq = iq.cuda().repeat(blocks // 4, 1).contiguous()
-        else:
-            iq = torch.from_numpy(block).cuda().repeat(blocks, 1).contiguous()
-    return {"name": name, "rx": rx, "cfg": cfg, "wfm": wfm, "tone": tone,
-            "params": rx.default_params(250_000.0), "iq": iq,
-            "blocks": blocks, "channels": channels, "state": rx.init_state(),
-            "out": None, "i": 0, "launches": [0] * 8,
-            "windows": [], "checks": checks or {}, "frames": n, "fs": fs}
-
-
-def time_cells(torch, front, wfm_tail, cells: list, tag: str) -> None:
-    """Warm each cell up, then time WINDOWS windows of each, interleaved
-    (cell A, cell B, cell A, ...), counting each cell's kernel launches and
-    checking its last dispatch's audio.  Spectra every cell["spectra_every"]-
-    th dispatch (SPECTRA_EVERY unless the cell says)."""
-    def dispatch(cell):
-        i = cell["i"]
-        every = cell.get("spectra_every", SPECTRA_EVERY)
-        cell["state"], cell["out"] = cell["rx"].step_many(
-            cell["state"], cell["params"], cell["iq"],
-            spectra=(i % every == 0))
-        cell["i"] = i + 1
-
-    from pebblesdr_tpu_torch.ops import pll, scanops
-
-    def counted(cell, fn):
-        reset_launches(front, wfm_tail)
-        fn()
-        torch.cuda.synchronize()
-        cell["launches"][0] += front.fused_front.launches
-        cell["launches"][1] += wfm_tail.wfm_tail.launches
-        cell["launches"][2] += front.chunk_means.launches
-        cell["launches"][3] += front.dc_scan.launches
-        cell["launches"][4] += front.fused_front.comp_launches
-        cell["launches"][5] += pll.pll_scan.launches
-        cell["launches"][6] += scanops.auto_iq_balance.launches
-        cell["launches"][7] += scanops.anf_scan.launches
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for cell in cells:
-        counted(cell, lambda: [dispatch(cell) for _ in range(WARMUP)])
-    for _ in range(WINDOWS):
-        for cell in cells:
-            counted(cell, lambda: cell["windows"].append(
-                time_cuda(torch, lambda: dispatch(cell), WINDOW_DISPATCHES)))
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    for cell in cells:
-        c, k, wfm = cell["channels"], cell["blocks"], cell["wfm"]
-        n = cell["frames"]
-        n_dispatch = WARMUP + WINDOWS * WINDOW_DISPATCHES
-        launches = tuple(cell["launches"])
-        scans = 2 if cell["cfg"].enable_noise_blanker else 1
-        loop = runs_loop(cell["rx"])
-        fused = 0 if cell["rx"].staged else n_dispatch
-        auto = cell["cfg"].enable_iq_balance == "auto"
-        k2 = n_dispatch if getattr(cell["rx"], "wfm_tail", None) else 0
-        if launches != (fused, k2, fused, scans * fused,
-                        k2 if cell["cfg"].wfm_hq else 0,
-                        n_dispatch if loop else 0,
-                        n_dispatch if auto else 0,
-                        n_dispatch if cell["cfg"].enable_anf else 0):
-            raise RuntimeError(f"{tag} {cell['name']}: launches (K1, K2, "
-                               f"front_means, front_dc_scan, front_comp, "
-                               f"pll_scan, iq_lms_scan, anf_scan) "
-                               f"{launches} for {n_dispatch} dispatches")
-        windows = cell["windows"]
-        best = min(windows)                               # ms per dispatch
-        cell.update(block_ms=best / k, msps=c * n * k / (best / 1e3) / 1e6,
-                    realtime=n * k / (best / 1e3) / cell.get("fs", FS),
-                    peak_gib=peak)
-        log(f"{tag} {cell['name']} {c}ch x {n} x {k}: dispatch ms per "
-            f"window " + " ".join(f"{w:.4f}" for w in windows)
-            + f"; block {cell['block_ms']:.5f} ms, {cell['msps']:.1f} Msps "
-            f"per GPU, {cell['realtime']:.1f}x realtime per channel, window "
-            f"spread {max(windows) / best:.3f}; K1 launches {launches[0]}, "
-            f"K2 launches {launches[1]}, front_means launches {launches[2]}, "
-            f"front_dc_scan launches {launches[3]}, front_comp launches "
-            f"{launches[4]}, pll_scan launches {launches[5]}, iq_lms_scan "
-            f"launches {launches[6]}, anf_scan launches {launches[7]} for "
-            f"{n_dispatch} dispatches "
-            f"({launches[0] / n_dispatch:g} K1 per dispatch); peak device "
-            f"memory {peak:.3f} GiB" + (" (cells timed together)"
-                                        if len(cells) > 1 else ""))
-        out = cell["out"]
-        audio = out["audio"]
-        # WFM: left and right
-        shape = ((k, c, 2) if wfm else (k, c)) + (cell["rx"].audio_blk,)
-        if not bool(torch.isfinite(audio).all()):
-            raise RuntimeError(f"{tag} {cell['name']}: audio is not finite")
-        if tuple(audio.shape) != shape:
-            raise RuntimeError(f"{tag} {cell['name']}: audio shape "
-                               f"{tuple(audio.shape)}")
-        if not bool(out["squelch_open"].all()):
-            raise RuntimeError(f"{tag} {cell['name']}: squelch closed")
-        if wfm and not bool(out["pilot_locked"].all()):
-            raise RuntimeError(f"{tag} {cell['name']}: pilot not locked")
-        if "rds_soft" in out:
-            soft, n_sym = out["rds_soft"], cell["rx"].rds_cfg.n_sym
-            if (tuple(soft.shape) != (k, c, n_sym)
-                    or not bool(torch.isfinite(soft).all())
-                    or tuple(out["rds_timing"].shape) != (k, c)):
-                raise RuntimeError(f"{tag} {cell['name']}: RDS outputs "
-                                   f"{tuple(soft.shape)}")
-            log(f"{tag} {cell['name']} rds_soft {tuple(soft.shape)} finite, "
-                f"{n_sym} symbols per block per channel")
-        checks = cell["checks"]
-        if checks.get("ctcss"):
-            opened = out["ctcss_open"]
-            log(f"{tag} {cell['name']} ctcss_open on {int(opened.sum())} of "
-                f"{opened.numel()} blocks x channels of the last dispatch")
-            if not bool(opened.all()):
-                raise RuntimeError(f"{tag} {cell['name']}: the CTCSS "
-                                   f"squelch is closed")
-        if checks.get("anf"):
-            w = float(cell["state"].anf.weights.abs().max())
-            log(f"{tag} {cell['name']} ANF max |w| {w:.4g} (> 1e-3)")
-            if not w > 1e-3:
-                raise RuntimeError(f"{tag} {cell['name']}: the ANF did not "
-                                   f"adapt")
-        tone = audio[:, 0, 0, :] if wfm else audio[:, 0, :]  # WFM: L channel
-        tone = tone[checks.get("skip_blocks", 0):]
-        tone = tone.reshape(-1).double().cpu().numpy()
-        f0, want = (cell["tone"][2:] if cell["tone"] else (1000.0, None))
-        wcfg = cell["rx"].wfm_cfg
-        if wcfg is not None:
-            # each block's audio spans blk // audio_decim tail samples of
-            # its blk (4095 of 4096 at 2.88 Msps: one composite sample
-            # dropped a block, as the JAX package's per-block path does):
-            # the tone plays that much faster
-            blk = cell["rx"].wfm_tail_blk
-            f0 *= blk / (wcfg.audio_decim * (blk // wcfg.audio_decim))
-        band = checks.get("snr_band", (100.0, None))
-        snr = tone_snr_db(tone, cell["cfg"].audio_rate, f0, band)
-        amp = tone_amplitude(tone, cell["cfg"].audio_rate, f0)
-        check_snr = checks.get("snr", True)
-        log(f"{tag} {cell['name']} {f0:g} Hz tone SNR {snr:.2f} dB "
-            + (f"(>= {TONE_SNR_DB}) " if check_snr else "(not checked) ")
-            + f"over {band[0]:g}-{band[1] or cell['cfg'].audio_rate / 2:g} "
-            f"Hz, amplitude {amp:.5f}"
-            + (f" (want {want:.5f} within 10 %)" if want else "")
-            + f", S-meter SNR {float(out['smeter']['snr_db'][-1, 0]):.2f} dB")
-        cell["snr_db"] = snr
-        if check_snr and not snr >= TONE_SNR_DB:
-            raise RuntimeError(f"{tag} {cell['name']}: tone SNR below its "
-                               f"bound")
-        if want and not abs(amp - want) <= 0.1 * want:
-            raise RuntimeError(f"{tag} {cell['name']}: tone amplitude "
-                               f"{amp:.5f}, want {want:.5f}")
-
-
 def phase_headline(torch, receiver, front, wfm_tail, mode) -> dict:
     """Phases 4 (AM) and 9 (FMS): the headline run, timed, with its launch
     counts and a check of the audio."""
@@ -1110,7 +802,7 @@ def phase_front_time(torch, front, fr) -> dict:
     return {"ms": ms, "plain_ms": plain_ms}
 
 
-def phase_front_wfm(torch, front, decimator) -> dict:
+def phase_front_wfm(torch, front, decimator, planes: list) -> dict:
     """Phase 6: K1 in its WFM form vs plain, WFM headline shape."""
     from pebblesdr_tpu_torch.ops.mixer import split_freq
     c, n, k = HEADLINE["channels"], HEADLINE["frames"], HEADLINE["blocks"]
@@ -1121,7 +813,6 @@ def phase_front_wfm(torch, front, decimator) -> dict:
                   for v in split_freq(250_000.0, FS))
     gain = float(plan_d.rate_out) / (2 * np.pi * 75_000.0)
     zt = min(n // plan.factor, 2048)             # the receiver's zoom_bins
-    rng = np.random.default_rng(3)
     zeros = dict(dtype=torch.float32, device="cuda")
     st_k = st_r = (torch.zeros(1, 2 * c, **zeros), torch.zeros(c, **zeros),
                    torch.zeros(plan.d_rows, 2 * c, **zeros),
@@ -1129,8 +820,7 @@ def phase_front_wfm(torch, front, decimator) -> dict:
     kw = dict(n_block=n, raw_rows=2048, disc_gain=gain, y_tail_rows=zt)
     worst, disc_err, max_abs = 0.0, 0.0, 0.0
     for call in range(2):
-        x = torch.from_numpy(wfm_plane(c, k * n, rng, noise=0.02)
-                             + 0.05 * (call + 1)).cuda()
+        x = torch.from_numpy(planes.pop(0)).cuda()
         out_k = front.fused_front(plan, x, st_k[0], st_k[1], f_hi, f_lo,
                                   st_k[2], disc_last=st_k[3], **kw)
         out_r = front.fused_front_reference(plan, x, st_r[0], st_r[1], f_hi,
@@ -1167,15 +857,6 @@ def phase_front_wfm(torch, front, decimator) -> dict:
         f"{worst:.3g}), disc within {DISC_ATOL} (worst {disc_err:.3g})")
     return {"plan": plan, "f_hi": f_hi, "f_lo": f_lo, "gain": gain, "zt": zt,
             "max_abs_err": max_abs}
-
-
-def tail_inputs(torch, c: int, n: int, ell: int, rng):
-    """A composite-like raw plane and pilot parameters on the card."""
-    raw = rng.standard_normal((n, c)).astype(np.float32) * 0.5
-    p0 = rng.uniform(0.0, 10.0, (n // ell, c)).astype(np.float32)
-    wf = (2 * np.pi * 19000.0 / 256000.0
-          + 1e-4 * rng.standard_normal((n // ell, c))).astype(np.float32)
-    return [torch.from_numpy(v).cuda() for v in (raw, p0, wf)]
 
 
 def phase_tail(torch, wfm_mod, wfm_tail) -> dict:
@@ -1277,12 +958,11 @@ def phase_wfm_time(torch, front, wfm_tail, fw, tl) -> dict:
     return {"k1": k1[:2], "k2": k2[:2]}
 
 
-def phase_front_options(torch, front, fr, fw) -> dict:
+def phase_front_options(torch, front, fr, fw, planes: list) -> dict:
     """Phase 12: K1 with its front options vs plain at the am_nb_64ch shape,
     then NB1 in the WFM form; impulsive inputs, margin asserted first."""
     c, n, k = HEADLINE["channels"], HEADLINE["frames"], HEADLINE["blocks"]
     iq = tuple(torch.tensor(v, device="cuda") for v in IQ)
-    rng = np.random.default_rng(12)
     zeros = dict(dtype=torch.float32, device="cuda")
     res = {"mismatches": 0, "worst": 0.0}
     forms = (("f32+IQ+NB1", NB1, False, False), ("f32+IQ+NB2", NB2, False, False),
@@ -1301,9 +981,7 @@ def phase_front_options(torch, front, fr, fw) -> dict:
                        torch.zeros(16, 2 * c, **zeros),
                        torch.zeros(1, 2 * c, **zeros))
         for call in range(2):
-            x = (wfm_plane(c, k * n, rng, noise=0.02) if wfm
-                 else am_plane(c, k * n, rng, noise=0.01) + 0.05 * (call + 1))
-            x = impulsive(x, n)
+            x = impulsive(planes.pop(0), n)
             x = torch.from_numpy(to_i16(x, 2048.0) if i16 else x).cuda()
             _, z = front.dc_iq_reference(plan, front.dequantize(x), st_r[0],
                                          kw.get("iq_gain"), kw.get("iq_phase"))
@@ -1382,40 +1060,6 @@ def phase_cells(torch, receiver, front, wfm_tail, DemodMode) -> dict:
     return done
 
 
-def kernel_times(torch, fn, reps: int = 3, want: tuple = (),
-                 tries: int = 3) -> dict:
-    """{kernel: (device ms per launch, launches recorded)} of each CUDA
-    kernel fn launches, over reps calls: the device records of a
-    torch.profiler trace (CUDA activity only), read from prof.events() as
-    dispatch_profile reads them.  key_averages() is not used: it gives no
-    device time to a record it marks asynchronous, and on the H100 it gave
-    none at all for some traces of a few launches.  A count below reps
-    means records were lost; while no kernel was recorded, or none whose
-    name starts with one of the names in want, the calls are traced
-    again, up to tries traces; the last trace's records are returned."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(tries):
-        rows = {}
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        for ev in prof.events():
-            if getattr(ev, "device_type", None) != DeviceType.CUDA:
-                continue
-            m = re.search(r"(front_\w+|wfm_tail_\w+|probe_\w+|recur_\w+)"
-                          r"(<[^>]*>)?", ev.name)
-            if m:
-                tot, n = rows.get(m.group(0), (0.0, 0))
-                rows[m.group(0)] = (tot + (ev.time_range.end
-                                           - ev.time_range.start) / 1e3,
-                                    n + 1)
-        if rows and all(any(k.startswith(w) for k in rows) for w in want):
-            break
-    return {k: (tot / n, n) for k, (tot, n) in rows.items()}
-
-
 def breakdown_text(times: dict) -> str:
     return ", ".join(f"{k} {ms:.4f} (x{n})" for k, (ms, n) in
                      sorted(times.items(), key=lambda kv: -kv[1][0] * kv[1][1])
@@ -1428,60 +1072,9 @@ def kernel_breakdown(torch, fn, reps: int = 3) -> str:
     return breakdown_text(kernel_times(torch, fn, reps))
 
 
-def launch_ms(times: dict, name: str) -> float:
-    """The device ms per launch of the kernel whose name starts with name in
-    kernel_times' result (kernel_times(..., want=(name,)) traces again
-    while it has none); a RuntimeError naming the kernel if no trace
-    recorded it."""
-    for k, (ms, _) in times.items():
-        if k.startswith(name):
-            return ms
-    raise RuntimeError(f"torch.profiler recorded no {name} launch in "
-                       f"any of its traces")
-
-
 def fir_launch_ms(times: dict) -> float:
     """front_fir's device ms per launch in kernel_times' result."""
     return launch_ms(times, "front_fir")
-
-
-def check_options_form(torch, front, plan, args, kw, tag: str,
-                       keep: bool = False) -> dict:
-    """One K1 call and one plain call on the same inputs: every output
-    within FRONT_RTOL relative (the phase in absolute), and with the
-    blanker on, its margin asserted first and no blanked position or
-    nb_tail' flag that differs.  keep: also return K1's outputs ("out")."""
-    masks = [{}, {}]
-    if kw.get("nb"):
-        x, dc = args[0], args[1]
-        _, z = front.dc_iq_reference(plan, front.dequantize(x), dc,
-                                     kw["iq_gain"], kw["iq_phase"])
-        assert_margin(front.nb_flags(z, kw["nb"], kw["nb_avg"], kw["nb_tail"]),
-                      kw["nb"], tag)
-        del z
-        masks = [{"nb_mask": torch.zeros(x.shape, dtype=torch.uint8,
-                                         device=x.device)} for _ in range(2)]
-    out_k = front.fused_front(plan, *args, **kw, **masks[0])
-    out_r = front.fused_front_reference(plan, *args, **kw, **masks[1])
-    torch.cuda.synchronize()
-    names = ("y", "dc", "tail", "phase", "raw", "nb_avg", "nb_tail")
-    errs = {nm: rel_err(a, b) for nm, a, b in zip(names, out_k, out_r)
-            if nm != "phase"}
-    errs["phase"] = float((out_k[3] - out_r[3]).abs().max())
-    mism = 0
-    if kw.get("nb"):
-        mism = (int((masks[0]["nb_mask"] != masks[1]["nb_mask"]).sum())
-                + int((out_k[6] != out_r[6]).sum()))
-    worst = max(errs.values())
-    max_abs = float((out_k[0] - out_r[0]).abs().max())
-    log(f"{tag}: relative max errors "
-        + " ".join(f"{kk}={v:.3g}" for kk, v in errs.items())
-        + f" (worst {worst:.3g}); max abs y error {max_abs:.3g}"
-        + (f"; flag mismatches {mism}" if kw.get("nb") else ""))
-    if not (worst <= FRONT_RTOL and mism == 0):
-        raise RuntimeError(f"{tag}: K1 disagrees with its plain version")
-    return {"worst": worst, "max_abs_err": max_abs,
-            **({"out": out_k} if keep else {})}
 
 
 def phase_options_time(torch, front, fr) -> dict:
@@ -1573,7 +1166,7 @@ def phase_fir_plain(torch, front, plan, args, n: int, kw: dict | None = None,
     return {"fir_plain_ms": t["plain"], "fir_bound": b}
 
 
-def phase_front_hq(torch, front, decimator, wfm_mod) -> dict:
+def phase_front_hq(torch, front, decimator, wfm_mod, planes: list) -> dict:
     """Phase 16: K1 in its hq form (factor-4 plan, discriminator, y-tails,
     composite decimation by 2) vs plain at the wfm_hq_64ch shape, two
     streaming calls from a random comp_hist; then both timed, with the
@@ -1596,7 +1189,6 @@ def phase_front_hq(torch, front, decimator, wfm_mod) -> dict:
                   for v in split_freq(250_000.0, FS))
     gain = float(plan_d.rate_out) / (2 * np.pi * 75_000.0)
     zt = min(n // plan.factor, 2048)
-    rng = np.random.default_rng(16)
     zeros = dict(dtype=torch.float32, device="cuda")
     st_k = st_r = (torch.zeros(1, 2 * c, **zeros), torch.zeros(c, **zeros),
                    torch.zeros(plan.d_rows, 2 * c, **zeros),
@@ -1606,8 +1198,7 @@ def phase_front_hq(torch, front, decimator, wfm_mod) -> dict:
               comp_taps=taps)
     worst, disc_err, hist_err, max_abs = 0.0, 0.0, 0.0, 0.0
     for call in range(2):
-        x = torch.from_numpy(wfm_plane(c, k * n, rng, noise=0.02)
-                             + 0.05 * (call + 1)).cuda()
+        x = torch.from_numpy(planes.pop(0)).cuda()
         out_k = front.fused_front(plan, x, st_k[0], st_k[1], f_hi, f_lo,
                                   st_k[2], disc_last=st_k[3],
                                   comp_hist=st_k[4], **kw)
@@ -1737,64 +1328,6 @@ def phase_rds_decode(torch, receiver, DemodMode, rds_alg: str = "open",
         res[name] = {"groups": len(dec.groups),
                      "block_errors": dec.block_errors}
     return res
-
-
-def dispatch_profile(torch, cell, tag: str, reps: int = 5,
-                     dispatch=None) -> dict:
-    """One cell's dispatches with spectra off (on where the cell computes
-    them every dispatch): timed by CUDA events without the profiler, their
-    host enqueue time (no sync inside), then under torch.profiler (CUDA
-    activity) for the device busy time per dispatch (the union of its
-    kernels' intervals).  Idle share = 1 - busy / event-timed ms; with the
-    kernels that take the most device time.  dispatch: a function running
-    one dispatch of the cell (default: its Receiver's step_many)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    st = [cell["state"]]
-    spectra = cell.get("spectra_every", SPECTRA_EVERY) == 1
-
-    def step():
-        st[0], _ = cell["rx"].step_many(st[0], cell["params"], cell["iq"],
-                                        spectra=spectra)
-
-    step = dispatch or step
-
-    step()
-    ms = time_cuda(torch, step, reps)
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        step()
-    host = (time.perf_counter() - t0) * 1e3 / reps    # enqueue, no sync
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            step()
-        torch.cuda.synchronize()
-    spans, by_name = [], {}
-    for ev in prof.events():
-        if getattr(ev, "device_type", None) != DeviceType.CUDA:
-            continue
-        a, b = ev.time_range.start, ev.time_range.end
-        spans.append((a, b))
-        key = re.sub(r"^void\s+|\(anonymous namespace\)::|at::native::", "",
-                     ev.name)
-        key = re.sub(r"\(.*", "", key)[:48]
-        by_name[key] = by_name.get(key, 0.0) + (b - a) / 1e3 / reps
-    busy, end = 0.0, -np.inf
-    for a, b in sorted(spans):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    busy = busy / 1e3 / reps
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    idle = max(0.0, 1.0 - busy / ms)
-    log(f"{tag} {cell['name']} profile (spectra {'on' if spectra else 'off'}"
-        f"): {ms:.4f} ms per dispatch by "
-        f"events, host enqueue {host:.4f} ms, device busy {busy:.4f} ms "
-        f"(idle share {idle:.3f}; "
-        f"{len(spans) // reps} kernels per dispatch); top (ms): "
-        + ", ".join(f"{nm} {t:.4f}" for nm, t in top))
-    return {"ms": ms, "host_ms": host, "busy_ms": busy, "idle": idle}
 
 
 def check_cell_kernels(torch, front, wfm_tail, cell, tag: str) -> None:
@@ -2273,7 +1806,7 @@ NARROW_CELLS = (("sam_64ch", "SAM", {}, None),
                  (1500.0, 0.4, 1500.0, 0.4 * np.sqrt(2.0))))
 
 
-def phase_front_narrow(torch, front, decimator) -> dict:
+def phase_front_narrow(torch, front, decimator, planes: list) -> dict:
     """Phase 25: K1 at front_fir's 4-channel geometry (the factor-64 /
     2007-tap and factor-32 / 1159-tap responses) against its plain version
     at the headline width (64 channels, 32 blocks of 32768 rows), two
@@ -2289,7 +1822,6 @@ def phase_front_narrow(torch, front, decimator) -> dict:
     splits = [split_freq(250_000.0 + 1500.0 * i, FS) for i in range(c)]
     f_hi, f_lo = (torch.tensor(np.array([s[j] for s in splits]),
                                device="cuda") for j in (0, 1))
-    rng = np.random.default_rng(25)
     res = {}
     for form, protect, i16, opts in NARROW_FORMS:
         p = decimator.build_plan(FS, protect)
@@ -2311,7 +1843,7 @@ def phase_front_narrow(torch, front, decimator) -> dict:
               torch.zeros(1, 2 * c, **zeros), torch.zeros(16, 2 * c, **zeros))
         worst = max_abs = 0.0
         for call in range(2):
-            x = am_plane(c, k * n, rng, noise=0.01) + 0.05 * (call + 1)
+            x = planes.pop(0)
             if opts:
                 x = impulsive(x, n)
             x = torch.from_numpy(to_i16(x, 16384.0) if i16 else x).cuda()
@@ -2379,7 +1911,6 @@ def phase_narrow_cells(torch, receiver, front, wfm_tail, DemodMode) -> dict:
     return done
 
 
-
 # phase 28's receivers: (tag, mode name, receiver options, entry)
 NEW_SLICES = (("FMN ctcss", "FMN", dict(ctcss_tone=CTCSS_TONE), None),
               ("FMN ctcss i16", "FMN", dict(ctcss_tone=CTCSS_TONE), "i16"),
@@ -2402,8 +1933,8 @@ NEW_CELLS = (
      lambda c, rows: nfm_plane(c, rows, np.random.default_rng(29), 0.01),
      dict(snr_band=(300.0, 3000.0), ctcss=True)),
     ("fmm_64ch", "FMM", {}, None, {}),
-    ("am_anf_long_64ch", "AM", dict(enable_anf=True, agc_mode="long"), None,
-     dict(snr=False, anf=True)))
+    ("am_anf_long_64ch", "AM", CELLS["am_anf_long_64ch"].opts, None,
+     CELLS["am_anf_long_64ch"].checks))
 
 
 def check_base_form(torch, front, cell, tag: str) -> dict:
@@ -2476,7 +2007,6 @@ LOOP_PREFIX = 8192    # steps of the composite-rate forms held to (and timed
 #                       against) the plain version: its Python loop costs
 #                       ~0.3 ms a step on the card
 LOOP_FS = 64_000.0    # the narrowband demod rate (AM's plan at 2.048 Msps)
-PROBE_STEPS = 32768   # steps of the chain probe (serial floor)
 # the forms whose fed probe phase 30 times: K3's detectors, K3c's two forms
 # (their chain alone) and K4's two (its loop in one lane)
 LOOP_FED = ("atan2", "cross", "costas", "pilot", "chunk", "chunk pilot",
@@ -2554,20 +2084,6 @@ def hold_loop(torch, name: str, kernel, plain, args, angles, tag: str,
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
             "shape": shape, "launch_ms": lt, "launch": launch,
             "bit_equal": equal}
-
-
-def probe_ns(torch, pll, form: str, steps: int = PROBE_STEPS,
-             fed: bool = False) -> float:
-    """The serial floor's step latency of one form (ns): the chain probe
-    over `steps` steps, timed by events; register-only, or with fed=True
-    (pll.FED_FORMS: the register-only probe may fold steps on its constant
-    inputs) one lane of the K4 / K6 kernel's own chain loop, or the K3 /
-    K3c loop kernel's chain alone, its constants pinned and its inputs
-    read from a small pattern in shared memory."""
-    pll.chain_probe(form, 256, "cuda", fed=fed)
-    ms = time_cuda(torch, lambda: pll.chain_probe(form, steps, "cuda",
-                                                  fed=fed), 3)
-    return ms * 1e6 / steps
 
 
 def call_kernels(torch, fn, calls: int = 10, tries: int = 5) -> list:
@@ -2872,72 +2388,6 @@ STAGED_SLICES = (("AM auto", "AM", dict(enable_iq_balance="auto"), None),
                  ("FMM auto rds", "FMM", dict(enable_iq_balance="auto",
                                               rds=True), None))
 BANK_SLICE = dict(fs=1_024_000, frames=16384, bank=16, dispatches=(3, 3))
-PFB_CELL = dict(bank=128, stations=127)   # bench.py:228-290
-
-
-class BankCell:
-    """A PfbBankReceiver behind the Receiver's step_many(state, params, iq,
-    spectra) signature (time_cells, dispatch_profile); every other
-    attribute is its tail Receiver's."""
-
-    def __init__(self, bank):
-        self.bank = bank
-
-    def __getattr__(self, name):
-        return getattr(self.bank.rx, name)
-
-    def step_many(self, state, params, iq, spectra=True):
-        return self.bank.step_many(state, iq, params, spectra)
-
-
-def make_iqauto_cell(torch, receiver, front, name: str = "am_iqauto_64ch",
-                     opts: dict | None = None, checks: dict | None = None):
-    """am_iqauto_64ch: am_64ch's shape and signal (AM, 64 channels, 32
-    blocks of 32768 frames, AGC stride 16) with enable_iq_balance="auto",
-    the plane through tests/test_chain.py:204-236's IQ imbalance; opts:
-    more receiver options (another cell of this signal, `name`)."""
-    cell = make_cell(torch, receiver, front, receiver.DemodMode.AM, name,
-                     HEADLINE["channels"], HEADLINE["blocks"],
-                     opts=dict(enable_iq_balance="auto", **(opts or {})),
-                     checks=checks)
-    c = HEADLINE["channels"]
-    i = cell["iq"][:, :c].clone()
-    cell["iq"][:, :c] = 1.06 * i
-    cell["iq"][:, c:] += 0.08 * i
-    return cell
-
-
-def make_bank_cell(torch, receiver=None, front=None):
-    """pfb_127st_bank128 (bench.py:228-290): one 2.048 Msps capture (the
-    bench's AM block, an [N, 2] plane repeated over 32 blocks of 32768)
-    through a 128-channel filterbank, 127 AM stations on bank channels
-    1-127 (16 kHz channels, 256-sample channel blocks), AGC stride 16,
-    spectra every dispatch, as the bench computes them.  The bench's
-    carrier sits between two channel centres, so the tone SNR is printed,
-    not held."""
-    from pebblesdr_tpu_torch.chain.pfb_bank import PfbBankReceiver
-    from pebblesdr_tpu_torch.ops import pfb
-    m, n, k = PFB_CELL["bank"], HEADLINE["frames"], HEADLINE["blocks"]
-    centers = pfb.channel_freqs(pfb.plan(FS, m))
-    tunes = centers[(1 + np.arange(PFB_CELL["stations"])) % m]
-    bank = PfbBankReceiver(FS, n, tunes, n_bank=m,
-                           agc_stride=HEADLINE["agc_stride"], device="cuda")
-    t = np.arange(n) / FS
-    iq = 0.5 * (1 + 0.8 * np.cos(2 * np.pi * 1000.0 * t)) / 2 * np.exp(
-        2j * np.pi * 250_000.0 * t)
-    block = np.stack([iq.real, iq.imag], axis=1).astype(np.float32)
-    return {"name": "pfb_127st_bank128", "rx": BankCell(bank),
-            "cfg": bank.rx.cfg, "wfm": False, "tone": None,
-            "params": bank.params,
-            "iq": torch.from_numpy(block).cuda().repeat(k, 1).contiguous(),
-            "blocks": k, "channels": len(tunes), "state": bank.init_state(),
-            "out": None, "i": 0, "launches": [0] * 8, "windows": [],
-            "checks": dict(snr=False), "frames": n, "spectra_every": 1}
-
-
-# the two cells of this slice, by name (tools/cell_profile.py reads it)
-STAGED_CELLS = {"am_iqauto_64ch": make_iqauto_cell,
-                "pfb_127st_bank128": make_bank_cell}
 
 
 def image_rejection_db(y: np.ndarray, f0: float) -> float:
@@ -3100,8 +2550,8 @@ def phase_staged_cells(torch, receiver, front, wfm_tail, decimator) -> dict:
     am_iqauto_64ch the halfband cascade on its [64, 1048576] stream,
     timed, and its share of the cell's device busy."""
     done = {}
-    for make in STAGED_CELLS.values():
-        cell = make(torch, receiver, front)
+    for name in ("am_iqauto_64ch", "pfb_127st_bank128"):
+        cell = named_cell(torch, receiver, front, name)
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated() / 2 ** 30
         log(f"phase34 {cell['name']}: {held:.3f} GiB allocated before its "
@@ -3397,10 +2847,6 @@ def read_audio_wav(path: str) -> np.ndarray:
 # ---- phases 37-40: the decode path: K6, K7, the TestBench, --decode ----
 
 OOK_SHAPE = (64, 2048)   # phase 37: K6 against its plain version, each mode
-OOK_MARGIN = 1e-5        # least decision margin (ops/goertzel.py ook_margin)
-OOK_RTOL = 1e-6          # K6's state vs plain, of each leaf's scale (the
-#                          kernel repeats the plain version's float32
-#                          operations one by one: bit-equal where measured)
 SWEEP_N = 32768          # phase 37: K7's samples per call
 SWEEP_ATOL = 1e-5        # K7's samples vs plain
 # K7's checks, (start Hz, stop Hz, rate Hz/s, fs): the case whose wraps a
@@ -3425,31 +2871,6 @@ def sweep_wraps(y: np.ndarray) -> np.ndarray:
     dp = np.angle(y[1:] * np.conj(y[:-1]))
     ok = on[1:] & on[:-1]
     return np.nonzero((np.abs(np.diff(dp)) > 1e-2) & ok[1:] & ok[:-1])[0]
-
-
-def ook_powers(torch, c: int, f: int, rng):
-    """(main, low, high) [C, F] float32 bin powers on the card, the three
-    columns of one [C, F, 3] tensor (the layout goertzel_power writes and
-    K6 reads in place), whose decisions sit far from every mode's
-    threshold: marks and spaces in runs cycling through 6, 10, 8, 12 and
-    7 frames (a 50 % duty, so the average mode's mean stays near half the
-    mark level), marks at 0.4 with a +-10 % fade, spaces near 1e-3, the
-    compare bins near 2e-3 with a little of the keying on the low one (a
-    deeper fade or a duty far from half puts decisions within 1e-5 of
-    their thresholds)."""
-    runs = (6, 10, 8, 12, 7)
-    key = np.zeros((c, f), bool)
-    for i in range(c):
-        t, j, on = 0, i, False
-        while t < f:
-            key[i, t:t + runs[j % 5]] = on
-            t, j, on = t + runs[j % 5], j + 1, not on
-    fade = 1 + 0.1 * np.sin(np.arange(f) / 40.0 + np.arange(c)[:, None])
-    pows = (np.where(key, 0.4 * fade, 1e-3 * (1 + 0.5 * rng.random((c, f)))),
-            0.03 * key + 2e-3 * (1 + 0.5 * rng.random((c, f))),
-            2e-3 * (1 + 0.5 * rng.random((c, f))))
-    p3 = torch.from_numpy(np.stack(pows, -1).astype(np.float32)).cuda()
-    return [p3[:, :, 0], p3[:, :, 1], p3[:, :, 2]]
 
 
 def hold_ook(torch, goertzel, cfg, state, pows, tag: str) -> dict:
@@ -3918,52 +3339,12 @@ def phase_cw_cell(torch, receiver, front, wfm_tail, DemodMode,
 
 # ---- phases 41-45: K8 (the ANF), checkpoint/resume, the soak, the CLI ----
 
-ANF_RTOL = 1e-5       # K8 vs anf_plain: y and w' within 1e-5 of their scale
-#                       (the same sums in another order, through the LMS
-#                       feedback: 2048 updates at the staged shape)
 # K8's shapes: (tag, channels (2C rows), samples per call, update_every,
 # calls carrying the state)
 ANF_SHAPES = (("staged", 64, 32768, 16, 3), ("batched", 64, 32768, 1024, 3),
               ("sample", 64, 2048, 1, 2))
-SOAK = dict(seconds=60.0, channels=64, blocks=32)
+SOAK = dict(seconds=20.0, channels=64, blocks=32)
 CKPT_DIR = "build/chip_smoke_ckpt"
-
-
-def make_iqauto_anf_cell(torch, receiver, front):
-    """am_iqauto_anf_64ch: am_iqauto_64ch with enable_anf=True (the staged
-    front, K5, then K8 at U = 16: shortwave AM through a mismatched I/Q
-    path with the adaptive noise filter); its tone SNR printed, the ANF's
-    adaptation held."""
-    return make_iqauto_cell(torch, receiver, front, "am_iqauto_anf_64ch",
-                            dict(enable_anf=True),
-                            dict(snr=False, anf=True))
-
-
-def make_anf_long_cell(torch, receiver, front):
-    """am_anf_long_64ch (phase 29's cell): AM with the ANF (K8 at U = the
-    demod block, 1024: one update per block) and AGC "long"."""
-    _, mode, opts, plane, checks = NEW_CELLS[2]
-    return make_cell(torch, receiver, front, receiver.DemodMode[mode],
-                     "am_anf_long_64ch", HEADLINE["channels"],
-                     HEADLINE["blocks"], opts=opts, plane=plane,
-                     checks=checks)
-
-
-# the ANF cells of this slice, by name (tools/cell_profile.py reads it)
-ANF_CELLS = {"am_anf_long_64ch": make_anf_long_cell,
-             "am_iqauto_anf_64ch": make_iqauto_anf_cell}
-
-
-def anf_signal(c: int, n: int, rng) -> np.ndarray:
-    """[c, n] complex64 at the demod rate (64 kHz): an 800 Hz tone (a phase
-    per channel), 2100 Hz on I, and noise at 0.1."""
-    t = np.arange(n) / 64_000.0 + rng.random()
-    x = (0.3 * np.exp(1j * (2 * np.pi * 800.0 * t
-                            + np.arange(c)[:, None]))
-         + 0.2 * np.cos(2 * np.pi * 2100.0 * t)
-         + 0.1 * (rng.standard_normal((c, n))
-                  + 1j * rng.standard_normal((c, n))))
-    return x.astype(np.complex64)
 
 
 def phase_anf(torch, front, wfm_tail) -> dict:
@@ -4067,8 +3448,8 @@ def phase_anf_cells(torch, receiver, front, wfm_tail) -> dict:
     timed once: the loop this kernel replaces."""
     from pebblesdr_tpu_torch.ops import scanops
     done = {}
-    for make in ANF_CELLS.values():
-        cell = make(torch, receiver, front)
+    for name in ("am_anf_long_64ch", "am_iqauto_anf_64ch"):
+        cell = named_cell(torch, receiver, front, name)
         time_cells(torch, front, wfm_tail, [cell], "phase42")
         prof = dispatch_profile(torch, cell, "phase42")
         done[cell["name"]] = {key: cell[key] for key in (
@@ -4129,7 +3510,7 @@ def phase_checkpoint(torch, receiver, front, wfm_tail) -> dict:
 
     from pebblesdr_tpu_torch.ops import scanops
     from pebblesdr_tpu_torch.utils import checkpoint
-    cell = make_iqauto_anf_cell(torch, receiver, front)
+    cell = named_cell(torch, receiver, front, "am_iqauto_anf_64ch")
     rx, params, iq = cell["rx"], cell["params"], cell["iq"]
     st = rx.init_state()
     ref = []
@@ -5438,8 +4819,7 @@ def phase_parity(torch, front, wfm_tail) -> dict:
     os.makedirs(PARITY_DIR, exist_ok=True)
     fix = f"{PARITY_DIR}/fixture.wav"
     mod = [sys.executable, "-m", "pebblesdr_tpu_torch.tools.parity_harness"]
-    subprocess.run(mod + ["--make-fixture", fix], check=True,
-                   capture_output=True, text=True)
+    ph.make_fixture(fix)       # what `--make-fixture` writes, in this process
     t0 = time.perf_counter()
     proc = subprocess.run(mod + [fix, "--device", "cuda", "--channels",
                                  str(c), "--blocks", str(k), "--batched"],
@@ -5864,6 +5244,116 @@ def phase_quality(torch, front, wfm_tail) -> dict:
     return res
 
 
+# ---- phase 58: the port's bench ----------------------------------------
+
+BENCH_ROWS = ("am_64ch", "wfm_64ch", "wfm_rds_64ch", "wfm_hq_64ch",
+              "sam_64ch", "am_256ch", "am_i16_256ch", "am_16ch", "wfm_16ch",
+              "am_nb_64ch", "pfb_127st_bank128", "quality")   # bench.py:566
+BENCH_ROW_TIMEOUT = 180   # s a row may take (BENCH_ROW_TIMEOUT; bench.py:
+#                           900): ~5-20 s each here, the subprocess included
+
+
+def run_bench(mode: str, **knobs) -> dict:
+    """`python -m pebblesdr_tpu_torch.tools.bench` on the card with
+    BENCH_MODE=mode, the knobs given and every other one at bench.py's
+    default: its JSON line, its "#" lines logged."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_MODE=mode, BENCH_DEVICE="cuda",
+               BENCH_ROW_TIMEOUT=str(BENCH_ROW_TIMEOUT), **knobs)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "pebblesdr_tpu_torch.tools.bench"], env=env,
+                          capture_output=True, text=True,
+                          timeout=900)
+    for line in proc.stderr.splitlines():
+        if line.startswith("#"):
+            log(f"phase58 {line}")
+    if proc.returncode:
+        raise RuntimeError(f"phase58: the bench ({mode}) exited "
+                           f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    log(f"phase58 bench {mode} in {time.perf_counter() - t0:.1f} s: {line}")
+    return json.loads(line)
+
+
+def host_load(tag: str) -> None:
+    """Log the host's load average, this process's threads and its child
+    processes still alive (read from /proc)."""
+    kids = []
+    for stat in glob.glob("/proc/[0-9]*/stat"):
+        try:
+            with open(stat) as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == os.getpid():
+            kids.append(stat.split("/")[2])
+    log(f"{tag}: load average {os.getloadavg()}, "
+        f"{threading.active_count()} threads, children alive {kids}")
+
+
+def phase_bench(torch, head: dict) -> dict:
+    """Phase 58: the port's bench, the matrix and one A/B row (module
+    docstring)."""
+    card = torch.cuda.get_device_name(0)
+    host_load("phase58 before the matrix")
+    res = run_bench("matrix")
+    rows = res["matrix"]
+    if tuple(r["config"] for r in rows) != BENCH_ROWS:
+        raise RuntimeError(f"phase58: matrix rows {[r['config'] for r in rows]}")
+    for r in rows[:-1]:
+        k2 = 1 if r["config"].startswith("wfm") else 0
+        k1 = 0 if r["config"].startswith("pfb") else 1
+        log(f"phase58 {r['config']}: block {r.get('block_ms', 0.0):.5f} ms, "
+            f"{r.get('msps_per_chip', 0.0):.1f} Msps, window spread "
+            f"{r.get('window_spread', 0.0):.3f} over "
+            f"{len(r.get('windows_s', []))} windows, K1 / K2 per dispatch "
+            f"{r.get('k1_per_dispatch')} / {r.get('k2_per_dispatch')} "
+            f"(want {k1} / {k2}), build and warm-up "
+            f"{r.get('compile_warmup_s', 0.0):.1f} s, peak "
+            f"{r.get('peak_gib', 0.0):.3f} GiB")
+        if ("error" in r or "msps_per_chip" not in r
+                or (r["k1_per_dispatch"], r["k2_per_dispatch"]) != (k1, k2)):
+            raise RuntimeError(f"phase58: the {r['config']} row failed: {r}")
+    q = rows[-1]
+    if not ("error" not in q and q["stereo_sep_db"] >= SEPARATION_DB
+            and q["stereo_sep_hq_db"] >= HQ_SEPARATION_DB
+            and q["rds_bler_20db"] == 0 and q["rds_ps_decoded"] is True):
+        raise RuntimeError(f"phase58: the quality row {q}")
+    dev = res["device"]
+    if not (dev["platform"] == "gpu" and dev["name"] == card
+            and dev["count"] >= 1 and all(r["device"] == card for r in rows)):
+        raise RuntimeError(f"phase58: the bench names {dev}, its rows "
+                           f"{[r['device'] for r in rows]}, not {card!r}")
+    am = rows[0]
+    log(f"phase58 am_64ch block {am['block_ms']:.5f} ms by the bench (host "
+        f"clock, best of {len(am['windows_s'])} windows of 80 dispatches) "
+        f"beside {head['block_ms']:.5f} ms in phase 4 (CUDA events, best of "
+        f"{WINDOWS} windows of {WINDOW_DISPATCHES})")
+    # the row again, profiled, in this process, which has run phases 0-57
+    from pebblesdr_tpu_torch.tools import bench
+    with contextlib.redirect_stdout(sys.stderr):
+        own = bench.bench_receiver("am", HEADLINE["channels"],
+                                   HEADLINE["blocks"], 80, profiled=True)
+    if "error" in own:
+        raise RuntimeError(f"phase58: the am row in this process: {own}")
+    log(f"phase58 am_64ch profiled in this process: block "
+        f"{own['block_ms']:.5f} ms (windows "
+        + " ".join(f"{w:.4f}" for w in own["windows_s"]) + f" s); "
+        f"{own['events_ms']:.4f} ms a dispatch by events, host enqueue "
+        f"{own['host_enqueue_ms']:.4f} ms, device busy "
+        f"{own['device_busy_ms']:.4f} ms, idle share {own['idle_share']:.3f},"
+        f" {own['kernels_per_dispatch']:g} kernels in the trace a dispatch "
+        "(spectra off)")
+    ab = run_bench("ab")["matrix"][0]
+    if "error" in ab or ab["device"] != card:
+        raise RuntimeError(f"phase58: the ab row failed: {ab}")
+    log(f"phase58 {ab['config']}: b/a {ab['b_over_a_ratio']:.4f} (spread "
+        f"{ab['ratio_spread']:.3f}), a {ab['a_msps']:.1f} Msps, b "
+        f"{ab['b_msps']:.1f} Msps")
+    return {"matrix": res, "ab": ab}
+
+
 def receiver_for_cli(torch):
     """The Receiver the CLI builds for phase 45's arguments."""
     from pebblesdr_tpu_torch.chain.receiver import Receiver, ReceiverConfig
@@ -5900,15 +5390,79 @@ def conv_ieee(torch) -> None:
         raise RuntimeError("convolutions must run in IEEE float32 (no TF32)")
 
 
+class NoisyPlanes:
+    """The full-width noisy planes that phases 2, 6, 12, 16 and 25 feed K1
+    ([K*N, 2C] float32 at the headline shape), one future a phase on two
+    host threads started with the kernels' build (phase 1).  wait() holds
+    phase 2 until all are made: generation that ran beside the traced
+    phases once cost torch.profiler every front_dc_scan record of phase
+    24's three traces.  take(phase) hands a phase its planes and drops
+    them here; the phase drops each once it has used it.  Each phase's
+    come from its own default_rng(seed) in the order the phase takes
+    them, so they are the planes it would make itself; the two calls of a
+    streaming pair add a DC offset of 0.05 and 0.1 (phase 12's WFM pair
+    none)."""
+
+    def __init__(self):
+        c, k, n = HEADLINE["channels"], HEADLINE["blocks"], HEADLINE["frames"]
+        c_hq, k_hq = WFM_CELLS["wfm_hq_64ch"][:2]
+
+        def pairs(make, noise, n_pairs=1, offset=True):
+            return [(make, noise, call if offset else None)
+                    for _ in range(n_pairs) for call in range(2)]
+
+        # phase: (seed, channels, rows, draws (plane, noise, call or None))
+        self.draws = {
+            2: (1, c, k * n, pairs(am_plane, 0.1)),
+            6: (3, c, k * n, pairs(wfm_plane, 0.02)),
+            12: (12, c, k * n, pairs(am_plane, 0.01, 3)  # NB1, NB2, int16
+                 + pairs(wfm_plane, 0.02, offset=False)),    # WFM + NB1
+            16: (16, c_hq, k_hq * n, pairs(wfm_plane, 0.02)),
+            25: (25, c, k * n, pairs(am_plane, 0.01, len(NARROW_FORMS)))}
+        pool = concurrent.futures.ThreadPoolExecutor(2)
+        self.made = {p: pool.submit(self.make, p) for p in self.draws}
+        pool.shutdown(wait=False)
+
+    def make(self, phase: int) -> list:
+        seed, chans, rows, kinds = self.draws[phase]
+        rng = np.random.default_rng(seed)
+        planes = []
+        for make, noise, call in kinds:
+            x = make(chans, rows, rng, noise=noise)
+            planes.append(x if call is None else x + 0.05 * (call + 1))
+        return planes
+
+    def wait(self) -> None:
+        concurrent.futures.wait(self.made.values())
+
+    def take(self, phase: int) -> list:
+        return self.made.pop(phase).result()
+
+
+def peak_rss_gib() -> float:
+    """This process's peak resident host memory (GiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    from pebblesdr_tpu_torch.kernels import build
+
+    # phase 1 starts first: one nvcc per source, all started together, and
+    # the noisy planes on the host (NoisyPlanes); phase 0 runs meanwhile
+    t0 = time.perf_counter()
+    clock = Clock(t0)
+    pool = concurrent.futures.ThreadPoolExecutor(len(KERNELS))
+    builds = [pool.submit(build.build, name) for name in KERNELS]
+    pool.shutdown(wait=False)
+    planes = NoisyPlanes()
+
     from pebblesdr_tpu_torch.chain import receiver
     from pebblesdr_tpu_torch.demod import wfm as wfm_mod
-    from pebblesdr_tpu_torch.kernels import build
     from pebblesdr_tpu_torch.core import siggen
     from pebblesdr_tpu_torch.ops import (agc, decimator, front, goertzel,
                                          kprobe, pll, scanops, wfm_tail)
@@ -5928,17 +5482,19 @@ def main() -> int:
         raise RuntimeError("float32 matmuls must run in IEEE float32 (no TF32)")
     conv_ieee(torch)
 
-    # phase 1: one nvcc per source, all started together
-    t0 = time.perf_counter()
-    clock = Clock(t0)
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-        list(pool.map(build.build, KERNELS))
+    # phase 1
+    for done in builds:
+        done.result()
     log(f"phase1 built {', '.join(KERNELS)} in {time.perf_counter() - t0:.1f} "
         f"s (" + ", ".join(f"{nm} {build.build_seconds.get(nm, 0.0):.1f} s"
                            for nm in KERNELS) + ")")
+    planes.wait()
+    log(f"phase1 noisy planes of phases {sorted(planes.made)} ready "
+        f"{time.perf_counter() - t0:.1f} s after the build started; host "
+        f"peak {peak_rss_gib():.2f} GiB")
 
     clock("phases 0-1")
-    fr = phase_front(torch, front, decimator)
+    fr = phase_front(torch, front, decimator, planes.take(2))
     clock("phase 2")
     phase_slice(torch, receiver, convert, front, wfm_tail, DemodMode.AM)
     clock("phase 3")
@@ -5946,7 +5502,7 @@ def main() -> int:
     clock("phase 4")
     times = phase_front_time(torch, front, fr)
     clock("phase 5")
-    fw = phase_front_wfm(torch, front, decimator)
+    fw = phase_front_wfm(torch, front, decimator, planes.take(6))
     clock("phase 6")
     tl = phase_tail(torch, wfm_mod, wfm_tail)
     clock("phase 7")
@@ -5958,7 +5514,7 @@ def main() -> int:
     clock("phase 10")
     wtimes = phase_wfm_time(torch, front, wfm_tail, fw, tl)
     clock("phase 11")
-    phase_front_options(torch, front, fr, fw)
+    phase_front_options(torch, front, fr, fw, planes.take(12))
     clock("phase 12")
     for entry in ("nb1_iq", "i16", "folded"):
         phase_slice(torch, receiver, convert, front, wfm_tail, DemodMode.AM,
@@ -5968,7 +5524,7 @@ def main() -> int:
     clock("phase 14")
     otimes = phase_options_time(torch, front, fr)
     clock("phase 15")
-    hq_fr = phase_front_hq(torch, front, decimator, wfm_mod)
+    hq_fr = phase_front_hq(torch, front, decimator, wfm_mod, planes.take(16))
     clock("phase 16")
     phase_slice(torch, receiver, convert, front, wfm_tail, DemodMode.FMS,
                 rx_opts=dict(wfm_hq=True), tag="phase17 hq slice")
@@ -5990,7 +5546,7 @@ def main() -> int:
     clock("phase 23")
     scans = phase_dc_scan(torch, front)
     clock("phase 24")
-    narrow = phase_front_narrow(torch, front, decimator)
+    narrow = phase_front_narrow(torch, front, decimator, planes.take(25))
     clock("phase 25")
     slices = {}
     for name, opts, entry in NARROW_SLICES:
@@ -6071,6 +5627,10 @@ def main() -> int:
     clock("phase 56")
     phase_quality(torch, front, wfm_tail)
     clock("phase 57")
+    phase_bench(torch, head)
+    clock("phase 58")
+    log(f"host peak memory {peak_rss_gib():.2f} GiB in this process "
+        f"(ru_maxrss)")
 
     c, n, k = HEADLINE["channels"], HEADLINE["frames"], HEADLINE["blocks"]
     t = n * k

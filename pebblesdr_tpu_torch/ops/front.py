@@ -881,6 +881,17 @@ def oscillator(phase0: torch.Tensor, f_hi: torch.Tensor, f_lo: torch.Tensor,
     return cos_a, sin_a
 
 
+def pick_fold(channels: int, k_blocks: int) -> int:
+    """The time-fold factor G the JAX package's feeders and bench ship a
+    dispatch in (pallas_kernels.pick_fold): the largest power of two with
+    2*C*G <= 128 that divides the dispatch's block count.  The JAX Receiver
+    takes G = 1 with the blanker on and at the hq geometry."""
+    fold = 1
+    while 2 * channels * (fold * 2) <= 128 and k_blocks % (fold * 2) == 0:
+        fold *= 2
+    return fold
+
+
 def fold_plane_np(plane: np.ndarray, fold: int) -> np.ndarray:
     """[N, 2C] plane -> [N/fold, 2*fold*C] time-folded plane (numpy, the
     layout TPU feeders ship): lanes [re(g0) .. re(gG-1) | im(g0) ..

@@ -437,7 +437,7 @@ def probe_pattern(form: str) -> np.ndarray:
     writes and the kernel reads in place) keyed in runs cycling
     through 6, 10, 8, 12 and 7 frames (marks at 0.4 with a +-10 % fade,
     spaces near 1e-3, the compare bins near 2e-3 with a little of the
-    keying on the low one), as chip_smoke.ook_powers makes them; for K3
+    keying on the low one), as tools/cells.py ook_powers makes them; for K3
     and K3c, 1024 [re, im, amp', q] frames (_loop_pattern) with noise 20
     dB down: atan2 and cross a complex tone 0.013 rad a sample off the
     probe's wc, costas a BPSK-keyed carrier, pilot a real tone near wc,

@@ -15,7 +15,7 @@ anf_plain from the same adapted state (y and w' within 1e-5 of their
 scale, hist' equal; one that disagrees raises), then the libraries are
 timed in turns, this one, the other, the other, this one: the device ms
 per launch of the recur_anf* kernels (torch.profiler over 10 launches,
-chip_smoke.kernel_times) and CUDA events per call over 10 calls after 3
+cells.kernel_times) and CUDA events per call over 10 calls after 3
 warm-ups.  Each time is printed with its share of the bound
 (utils/roofline.py anf_scan_bound, with the chain probe's ns per update
 at U = 1, 16, 1024).
@@ -160,8 +160,8 @@ def main(argv: list[str] | None = None) -> dict:
     sys.path.insert(0, os.getcwd())
     import torch
 
-    import chip_smoke as cs
     from pebblesdr_tpu_torch.kernels import build
+    from pebblesdr_tpu_torch.tools import cells as cs
     from pebblesdr_tpu_torch.ops import pll, scanops
     from pebblesdr_tpu_torch.utils import roofline
 

@@ -1,6 +1,8 @@
 """K1 and its FIR pass front_fir at the shape and form of each front cell,
 on the card, for the checkout at ROOT (default: this one; any checkout of
-the port with a chip_smoke.py, e.g. a parent commit unpacked under build/).
+the port with a chip_smoke.py, e.g. a parent commit unpacked under build/),
+by ROOT's cell machinery: its package's tools/cells.py, or in a checkout
+from before that module its chip_smoke.py.
 
     python pebblesdr_tpu_torch/tools/fir_cells.py [ROOT [TAG]]
 
@@ -11,9 +13,9 @@ am_256ch, am_i16_256ch (int16), am_16ch, wfm_64ch (the F = 8 plan),
 wfm_hq_64ch (the F = 4 plan), and on front_fir's 4-channel items
 usb_64ch (the F = 64 / 2007-tap plan of SSB, CW and DIG) and none_64ch (the
 F = 32 / 1159-tap plan of NONE), each on its cell's plane from
-chip_smoke.py with a small carried tail (a checkout whose front_fir has no
+tools/cells.py with a small carried tail (a checkout whose front_fir has no
 geometry for a cell's plan skips it).  K1 is first checked against its plain version
-on the same inputs (chip_smoke.check_options_form: 3e-5 relative, blanker
+on the same inputs (cells.check_options_form: 3e-5 relative, blanker
 flags equal); then timed: CUDA events around 10 calls after 3 warm-ups,
 the host's enqueue ms per call over 20 calls, and the device time per
 launch of each kernel over 10 calls (torch.profiler); and the sha256 of
@@ -35,6 +37,7 @@ import hashlib
 import json
 import os
 import re
+import runpy
 import subprocess
 import sys
 import time
@@ -138,13 +141,14 @@ def main(argv: list[str] | None = None) -> dict:
     os.chdir(root)
     import torch
 
-    import chip_smoke as cs
     from pebblesdr_tpu_torch.demod import wfm
     from pebblesdr_tpu_torch.ops import decimator, front
     from pebblesdr_tpu_torch.ops.mixer import split_freq
 
     if not torch.cuda.is_available():
         raise RuntimeError("fir_cells needs a CUDA device")
+    cs = runpy.run_path(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "cell_profile.py"))["machinery"](root)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()

@@ -15,7 +15,7 @@ flag off and on (seeded synthetic signals at each caller's constants; --k3:
 these rows only); K4 "long" (the hang) and "med" at [64, 2048]
 (a dispatch's envelope at am_64ch, stride 16: chip_smoke.py phase 30's
 input); K6 in each of its six threshold modes at [64, 2048] and K6 "peak"
-at cw_taps_64ch's [64, 34] frames (chip_smoke.ook_powers, phase 37's),
+at cw_taps_64ch's [64, 34] frames (cells.ook_powers, phase 37's),
 the three powers as the three columns of one [C, F, 3] tensor, the layout
 goertzel_power hands MorseModem.  At
 every shape each library is first held to its plain version (K3's and
@@ -24,7 +24,7 @@ K6's marks equal and its state within 1e-6 of each
 leaf's scale, on powers whose decision margin is asserted; one that
 disagrees raises), then the libraries are timed in turns, this one, the
 other, the other, this one: the device ms per launch of the kernel
-(torch.profiler over 10 calls, chip_smoke.kernel_times) and CUDA
+(torch.profiler over 10 calls, cells.kernel_times) and CUDA
 events per call over 10 calls after 3 warm-ups.  A call is the wrapper's
 whole host path: for this checkout the wrappers themselves
 (ops/pll.py pll_scan, pll_chunk_scan, ops/agc.py agc_scan, ops/goertzel.py
@@ -506,8 +506,8 @@ def main(argv: list[str] | None = None) -> dict:
 
     import torch
 
-    import chip_smoke as cs
     from pebblesdr_tpu_torch.kernels import build
+    from pebblesdr_tpu_torch.tools import cells as cs
     from pebblesdr_tpu_torch.ops import agc, goertzel, pll
     from pebblesdr_tpu_torch.utils import convert, roofline
 

@@ -1,6 +1,8 @@
 """K2, the stereo tail (ops/wfm_tail.py), at the shapes of its cells on the
 card, for the checkout at ROOT (default: this one; any checkout of the
-port with a chip_smoke.py, e.g. a parent commit unpacked under build/).
+port with a chip_smoke.py, e.g. a parent commit unpacked under build/),
+by ROOT's cell machinery: its package's tools/cells.py, or in a checkout
+from before that module its chip_smoke.py.
 
     python pebblesdr_tpu_torch/tools/tail_cells.py [ROOT [TAG]]
 
@@ -10,7 +12,7 @@ Shapes (PERF.md section 4): wfm_64ch (composite [131072, 64]; also
 wfm_rds_64ch's, and wfm_hq_64ch's after K1e) and wfm_16ch ([262144, 16]),
 the receiver's plan (235 taps, F = 4, ell 256, sub 2048).  At each, K2 is
 first checked against wfm_tail_reference over two streaming calls from a
-random history (3e-5 relative, chip_smoke.FRONT_RTOL); then timed: the
+random history (3e-5 relative, cells.FRONT_RTOL); then timed: the
 device time of each CUDA kernel it launches, per launch and per call,
 over 10 calls (torch.profiler), CUDA events around 10 calls after 3
 warm-ups, and the host's enqueue ms per call over 20 calls (no sync).
@@ -36,6 +38,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import runpy
 import subprocess
 import sys
 import time
@@ -109,9 +112,9 @@ def sweep(names: list[str]) -> list[dict]:
     if not torch.cuda.is_available():
         raise RuntimeError("tail_cells needs a CUDA device")
 
-    import chip_smoke as cs
     from pebblesdr_tpu_torch.demod import wfm
     from pebblesdr_tpu_torch.kernels import build
+    from pebblesdr_tpu_torch.tools import cells as cs
     from pebblesdr_tpu_torch.ops import wfm_tail
     from pebblesdr_tpu_torch.utils import roofline
 
@@ -195,12 +198,13 @@ def main(argv: list[str] | None = None) -> dict:
     os.chdir(root)
     import torch
 
-    import chip_smoke as cs
     from pebblesdr_tpu_torch.demod import wfm
     from pebblesdr_tpu_torch.ops import wfm_tail
 
     if not torch.cuda.is_available():
         raise RuntimeError("tail_cells needs a CUDA device")
+    cs = runpy.run_path(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "cell_profile.py"))["machinery"](root)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()

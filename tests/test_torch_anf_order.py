@@ -31,7 +31,7 @@ RTOL = 1e-5          # y and w' of their scale, as K8 against anf_plain
 
 def rows(r: int, n: int, seed: int) -> np.ndarray:
     """[r, n] float32 at 64 kHz: an 800 Hz tone (a phase per row), 2100 Hz
-    and noise at 0.1, as chip_smoke.anf_signal's rows."""
+    and noise at 0.1, as tools/cells.py anf_signal's rows."""
     rng = np.random.default_rng(seed)
     t = np.arange(n) / 64_000.0 + rng.random()
     x = (0.3 * np.cos(2 * np.pi * 800.0 * t + np.arange(r)[:, None])

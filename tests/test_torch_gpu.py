@@ -51,6 +51,7 @@ from pebblesdr_tpu_torch.demod.modes import DemodMode
 from pebblesdr_tpu_torch.ops import (agc, decimator, front, goertzel, kprobe,
                                      pll, scanops, wfm_tail)
 from pebblesdr_tpu_torch.ops.mixer import split_freq
+from pebblesdr_tpu_torch.tools import bench
 from pebblesdr_tpu_torch.utils import convert
 
 pytestmark = pytest.mark.gpu
@@ -70,7 +71,7 @@ def _cuda_names(fn, calls: int, done, tries: int = 3) -> list[str]:
     """The names of the CUDA kernels torch.profiler records over `calls`
     calls of fn.  The profiler can lose a record (never add one), so the
     calls are traced again, up to `tries` traces, while done(names) is
-    False (chip_smoke.py kernel_times does the same); the last trace's
+    False (tools/cells.py kernel_times does the same); the last trace's
     names are returned for the caller's assertions."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2717,3 +2718,25 @@ def test_sharded_step_one_rank_nccl_on_card(cuda):
     finally:
         comm.destroy_world()
     assert float((torch.cat(got) - torch.cat(ref)).abs().max()) <= 2e-3
+
+
+def test_bench_row_on_card(cuda, monkeypatch):
+    """tools/bench.py's am row at 8 channels, K = 4 (the plane time-folded
+    by pick_fold's G = 4), 2 dispatches a window, profiled, through
+    run_one on the card after whatever this file ran before it: every key
+    of bench.py's row and the port's, no error, K1 once a dispatch, the
+    card named."""
+    for name, v in (("CHANNELS", 8), ("BLOCKS", 4), ("STEPS", 2),
+                    ("DEVICE", "cuda"), ("PROFILE", True)):
+        monkeypatch.setattr(bench, name, v)
+    row = bench.run_one("am")
+    assert "error" not in row, row
+    assert {"config", "msps_per_chip", "realtime_per_channel", "block_ms",
+            "compile_warmup_s", "windows_s", "window_spread", "vs_baseline",
+            "k1_per_dispatch", "k2_per_dispatch", "peak_gib", "events_ms",
+            "host_enqueue_ms", "device_busy_ms", "idle_share",
+            "kernels_per_dispatch", "device"} <= set(row)
+    assert 0 < row["device_busy_ms"] and 0 <= row["idle_share"] < 1
+    assert row["config"] == "am_8ch" and row["msps_per_chip"] > 0
+    assert row["k1_per_dispatch"] == 1 and row["k2_per_dispatch"] == 0
+    assert row["device"] == torch.cuda.get_device_name(cuda)
